@@ -1,0 +1,37 @@
+"""Decode-time latent maths of the port against the JAX package: the
+seed-fixed cluster means and the AG prior mean."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vae_captioning_tpu.ops import distributions as jdist
+from vae_captioning_torch.ops import distributions as tdist
+
+
+@pytest.mark.parametrize("shape_seed", [(90, 150, 42), (90, 16, 0), (7, 3, 5)])
+def test_cluster_means_are_the_same_draw(shape_seed):
+    K, L, seed = shape_seed
+    got = tdist.init_cluster_means(K, L, seed)
+    np.testing.assert_array_equal(got, jdist.init_cluster_means(K, L, seed))
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(np.linalg.norm(got, axis=1), 1.0, rtol=1e-6)
+
+
+def test_ag_prior_mean_matches_jax():
+    """Active clusters average their means; an image with no detection
+    takes the mean over the used classes (the blacklist shifted into the
+    90-dim c_v space)."""
+    rng = np.random.default_rng(0)
+    means = tdist.init_cluster_means(90, 16, 3)
+    c_v = (rng.random((6, 90)) * (rng.random((6, 90)) < 0.1)).astype(np.float32)
+    c_v[0] = 0.0
+    c_v[1] = 0.0
+    c_v[1, 11] = 0.7                # class id 12: blacklisted, but active
+    got = tdist.ag_prior_mean(torch.from_numpy(c_v), torch.from_numpy(means))
+    want = jdist.ag_prior_mean(jnp.asarray(c_v), jnp.asarray(means))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-7)
+    np.testing.assert_allclose(got[1].numpy(), means[11], rtol=1e-6)
+    assert tdist.AG_UNUSED_CLASSES == jdist.AG_UNUSED_CLASSES

@@ -1,0 +1,22 @@
+"""vae_captioning_torch — the PyTorch / CUDA port of vae_captioning_tpu.
+
+The decode path of the AG-CVAE on precomputed VGG16 fc2 features, run on
+an NVIDIA H100 through two hand-written CUDA kernels
+(``csrc/fused_lstm_step.cu``, ``csrc/fused_logits_topk.cu``).  Module
+names mirror ``vae_captioning_tpu`` so each counterpart is easy to find;
+the JAX package stays the reference the port is tested against.
+
+The package imports ``torch`` and never ``jax``.  It reuses the
+reference's numpy-only modules (``vae_captioning_tpu.config`` and the
+``data`` loaders) instead of copying them.
+"""
+
+__version__ = "0.1.0"
+
+import torch as _torch
+
+# The reference computes its f32 products (the image, cluster-vector and z
+# embeddings) in full f32 (Precision.HIGHEST); TF32 would keep about three
+# decimal digits.  Stated here, for every entry point of the port.
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False

@@ -1,0 +1,277 @@
+"""Batch caption generation + COCO-eval JSON export (counterpart of
+``vae_captioning_tpu/inference.py``).
+
+Sweeps the val split with beam search (or greedy) and the test split
+with greedy decoding, and writes ``val_<gen_name>.json`` /
+``test_<gen_name>.json`` as ``[{"image_id": int, "caption": str}]``.
+
+Every decode step runs the two CUDA kernels through their wrappers: the
+fused LSTM step, then the fused logits + top-k (k = beam, or 1 for
+greedy).  Their weights are cast to bf16 once, when ``make_decode_fns``
+builds its closures.  The TPU switches ``Config.fused_decode``,
+``fused_lstm_step`` and ``fused_force`` are not read: this path has no
+unfused variant.  Configurations the decode slice does not cover raise
+``NotImplementedError`` naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import functools
+import json
+import os
+from typing import Callable, Dict, List, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from vae_captioning_tpu.config import Config
+from vae_captioning_tpu.data.vocabulary import Vocabulary
+from vae_captioning_torch.models.cvae import (CVAEModel, decoder_step_params,
+                                              logits_head_params)
+from vae_captioning_torch.ops.decoding import (beam_search, sample_decode,
+                                               tokens_to_text)
+from vae_captioning_torch.ops.fused_logits_topk import (
+    fused_logits_top_k, fused_logits_top_k_plain)
+from vae_captioning_torch.ops.fused_lstm_step import (fused_lstm_step,
+                                                      fused_lstm_step_plain)
+
+
+def check_supported(cfg: Config) -> None:
+    """Raise NotImplementedError for what the decode slice does not
+    cover, naming the ROADMAP item that will."""
+    gates = [
+        (cfg.decode_int8, "decode_int8 (int8 logits kernel): ROADMAP B.8"),
+        (cfg.sample_gen == "sample",
+         "sample_gen='sample' (fused Gumbel-max sampling): ROADMAP B.6"),
+        (cfg.fine_tune, "fine_tune (VGG16 in the model): ROADMAP A.8"),
+        (cfg.decoder_rnn_layers != 1,
+         f"decoder_rnn_layers={cfg.decoder_rnn_layers}: the decode slice "
+         "runs one LSTM layer (ROADMAP D.1)"),
+        (str(cfg.compute_dtype) != "bfloat16",
+         f"compute_dtype={cfg.compute_dtype!r}: the decode slice runs "
+         "bfloat16 (ROADMAP D.2)"),
+    ]
+    for failed, what in gates:
+        if failed:
+            raise NotImplementedError(f"not ported yet: {what}")
+
+
+class DecodeOps(NamedTuple):
+    """The two per-step operations.  The decode path uses the kernel
+    wrappers; comparisons on the card swap in the plain versions."""
+
+    lstm_step: Callable = fused_lstm_step
+    logits_top_k: Callable = fused_logits_top_k
+
+
+KERNEL_OPS = DecodeOps()
+PLAIN_OPS = DecodeOps(fused_lstm_step_plain, fused_logits_top_k_plain)
+# The plain versions with every dot product summed in reverse order: how
+# far f32 sum order alone moves a bf16 decode, the yardstick for the
+# kernels' own sum order.
+REORDERED_OPS = DecodeOps(
+    functools.partial(fused_lstm_step_plain, reverse_sum=True),
+    functools.partial(fused_logits_top_k_plain, reverse_sum=True))
+
+
+class DecodeWeights(NamedTuple):
+    """Decode-step weights, cast once: bf16 matrices, f32 biases."""
+
+    embed: torch.Tensor     # [V, E] bf16
+    lstm_w: torch.Tensor    # [E+H, 4H] bf16
+    lstm_b: torch.Tensor    # [4H] f32
+    head_w: torch.Tensor    # [H, V] bf16
+    head_b: torch.Tensor    # [V] f32
+
+    @classmethod
+    def of(cls, model: CVAEModel) -> "DecodeWeights":
+        with torch.no_grad():
+            emb, kern, kbias = decoder_step_params(model)
+            w, b = logits_head_params(model)
+            bf16 = torch.bfloat16
+            return cls(emb.to(bf16).contiguous(), kern.to(bf16).contiguous(),
+                       kbias.float().contiguous(), w.to(bf16).contiguous(),
+                       b.float().contiguous())
+
+
+def make_lstm_fn(weights: DecodeWeights,
+                 ops: DecodeOps = KERNEL_OPS) -> Callable:
+    """(carry, x [N, E]) → (carry, h' [N, H]): one step of the cell on
+    the weights cast once.  Every LSTM step of a decode goes through it:
+    the three conditioning steps of ``decode_init`` and each token step."""
+
+    def fn(carry, x):
+        ((c, h),) = carry
+        c, h = ops.lstm_step(x.to(torch.bfloat16), c, h, weights.lstm_w,
+                             weights.lstm_b)
+        return ((c, h),), h
+
+    return fn
+
+
+def make_step_topk_fn(weights: DecodeWeights, k: int,
+                      ops: DecodeOps = KERNEL_OPS) -> Callable:
+    """(carry, tokens [N]) → (carry, top-k values, indices, logsumexp):
+    one LSTM step, then the logits head folded into top-k, the [N, V]
+    logits never stored."""
+    lstm = make_lstm_fn(weights, ops)
+
+    def fn(carry, tokens):
+        carry, h = lstm(carry, weights.embed[tokens])
+        vals, idx, lse = ops.logits_top_k(h.to(torch.bfloat16),
+                                          weights.head_w, weights.head_b, k)
+        return carry, vals, idx, lse
+
+    return fn
+
+
+def make_step_argmax_fn(weights: DecodeWeights,
+                        ops: DecodeOps = KERNEL_OPS) -> Callable:
+    """Greedy step: the argmax is the fused top-1."""
+    topk = make_step_topk_fn(weights, 1, ops)
+
+    def fn(carry, tokens):
+        carry, _, idx, _ = topk(carry, tokens)
+        return carry, idx[:, 0]
+
+    return fn
+
+
+class Decoded(NamedTuple):
+    tokens: torch.Tensor             # [B, T] (beam_search_all: [B, beam, T])
+    scores: Optional[torch.Tensor]   # [B] / [B, beam]; None for greedy
+    steps: int                       # decode steps run
+
+
+def make_decode_fns(model: CVAEModel, cfg: Config, vocab: Vocabulary,
+                    ops: DecodeOps = KERNEL_OPS) -> Dict[str, Callable]:
+    """Whole-batch decoders ``fn(features [B, F], c_v [B, 90],
+    generator=None, eps=None) -> Decoded``, for "beam_search" (best
+    beam), "beam_search_all" (all beams, best-first) and "greedy".
+    Tensors lie on the model's device; the z noise comes from ``eps``
+    [B, E] or is drawn from ``generator``."""
+    check_supported(cfg)
+    weights = DecodeWeights.of(model)
+    bos, eos = vocab.bos_id, vocab.eos_id
+    needs_cv = cfg.needs_cluster_vectors
+    lstm = make_lstm_fn(weights, ops)
+    beam_step = make_step_topk_fn(weights, cfg.beam_size, ops)
+    greedy_step = make_step_argmax_fn(weights, ops)
+
+    def init(features, c_v, generator, eps):
+        return model.decode_init(features, c_v if needs_cv else None,
+                                 eps=eps, generator=generator, lstm_step=lstm)
+
+    @torch.inference_mode()
+    def beam_all_fn(features, c_v, generator=None, eps=None) -> Decoded:
+        res = beam_search(
+            beam_step, init(features, c_v, generator, eps),
+            features.shape[0], beam_size=cfg.beam_size, bos_id=bos,
+            eos_id=eos, max_len=cfg.gen_max_len, len_norm_f=cfg.len_norm_f)
+        return Decoded(res.tokens, res.scores, res.steps)
+
+    def beam_fn(features, c_v, generator=None, eps=None) -> Decoded:
+        res = beam_all_fn(features, c_v, generator, eps)
+        return Decoded(res.tokens[:, 0], res.scores[:, 0], res.steps)
+
+    @torch.inference_mode()
+    def greedy_fn(features, c_v, generator=None, eps=None) -> Decoded:
+        res = sample_decode(
+            greedy_step, init(features, c_v, generator, eps),
+            features.shape[0], bos_id=bos, eos_id=eos,
+            max_len=cfg.gen_max_len)
+        return Decoded(res.tokens, None, res.steps)
+
+    return {"beam_search": beam_fn, "beam_search_all": beam_all_fn,
+            "greedy": greedy_fn}
+
+
+def generate_captions(
+    batcher,
+    decode_fn: Callable,
+    vocab: Vocabulary,
+    generator: torch.Generator,
+    device: torch.device,
+    image_batches: bool = False,
+    stats: Optional[Dict[str, int]] = None,
+) -> List[Dict]:
+    """Sweep a batcher, decode every image, return coco-eval dicts.
+
+    Batch t+1 is decoded before batch t's tokens are copied to the host
+    and detokenized.  ``stats``, when given, receives the images served
+    the zero cluster vector (``cv_fallbacks``), the batches and the
+    decode steps run."""
+    out: List[Dict] = []
+    counts = {"cv_fallbacks": 0, "batches": 0, "decode_steps": 0}
+    idx2word, eos, bos = vocab.idx2word, vocab.eos_id, vocab.bos_id
+    iterator = (batcher.image_batches() if image_batches
+                else batcher.eval_batches(with_ids=True))
+
+    def drain(res: Decoded, batch) -> None:
+        tokens = res.tokens.cpu().numpy()
+        for row in range(batch.valid):
+            out.append({
+                "image_id": int(batch.image_ids[row]),
+                "caption": tokens_to_text(tokens[row], idx2word, eos, bos),
+            })
+
+    pending = None
+    for batch in iterator:
+        counts["cv_fallbacks"] += getattr(batch, "cv_fallbacks", 0)
+        features = torch.from_numpy(np.asarray(batch.features, np.float32))
+        c_v = torch.from_numpy(np.asarray(batch.cluster_vectors, np.float32))
+        res = decode_fn(features.to(device), c_v.to(device),
+                        generator=generator)
+        counts["batches"] += 1
+        counts["decode_steps"] += res.steps
+        if pending is not None:
+            drain(*pending)
+        pending = (res, batch)
+    if pending is not None:
+        drain(*pending)
+    if stats is not None:
+        stats.update(counts)
+    return out
+
+
+def run_inference(
+    cfg: Config,
+    model: CVAEModel,
+    vocab: Vocabulary,
+    val_batcher,
+    test_batcher=None,
+    output_dir: str = ".",
+    stats: Optional[Dict[str, Dict[str, int]]] = None,
+) -> Dict[str, str]:
+    """Full inference pass: val split with ``cfg.sample_gen``, test split
+    greedy.  Returns the written paths; ``stats``, when given, receives
+    per-split counts (see ``generate_captions``)."""
+    fns = make_decode_fns(model, cfg, vocab)
+    device = next(model.parameters()).device
+    written: Dict[str, str] = {}
+    splits = [("val", val_batcher, fns[cfg.sample_gen], False, cfg.seed)]
+    if test_batcher is not None:
+        splits.append(("test", test_batcher, fns["greedy"], True,
+                       cfg.seed + 999))
+    for split, batcher, fn, images_only, seed in splits:
+        print(f"Generating captions for {split} file")
+        generator = torch.Generator(device=device).manual_seed(seed)
+        split_stats: Dict[str, int] = {}
+        caps = generate_captions(batcher, fn, vocab, generator, device,
+                                 image_batches=images_only, stats=split_stats)
+        path = os.path.join(output_dir, f"{split}_{cfg.gen_name}.json")
+        with open(path, "w") as f:
+            json.dump(caps, f)
+        print(f"Generated {len(caps)} captions → {path}")
+        if cfg.needs_cluster_vectors and split_stats["cv_fallbacks"]:
+            # a zero cluster vector silently degrades c_v-conditioned
+            # quality: surface the count per split
+            print(f"WARNING: {split_stats['cv_fallbacks']}/{len(caps)} "
+                  f"{split} images had no cluster vector (served the zero "
+                  "fallback); c_v-conditioned caption quality degrades "
+                  "for these. See vae_captioning_tpu/data/cluster_vectors.py "
+                  "--help to build vectors from detector output.")
+        written[split] = path
+        if stats is not None:
+            stats[split] = split_stats
+    return written

@@ -1,0 +1,104 @@
+"""Caption decoder p(x | z, f(I)), decode half (counterpart of
+``vae_captioning_tpu/models/decoder.py``).
+
+The init-state protocol is kept: step the LSTM on the embedded image
+feature, optionally on the embedded cluster vector, then on the
+z-projection; the resulting carry seeds incremental decoding.  Teacher
+forcing waits for the train-step slice.
+
+Submodule names follow the Flax tree (``dec_embeddings``, ``lstm``,
+``z_rnn``, ``rnn_logits``) so the bridge maps them one to one.  The
+Dense layers are ``nn.Linear``s, whose weight is the Flax kernel
+transposed.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Tuple
+
+import torch
+from torch import nn
+
+from vae_captioning_torch.ops.lstm import Carry, LSTMStack
+
+# one LSTM step of the whole stack: (carry, x [B, E]) → (carry, h [B, H])
+LSTMStep = Callable[[Carry, torch.Tensor], Tuple[Carry, torch.Tensor]]
+
+
+class Decoder(nn.Module):
+    def __init__(self, vocab_size: int, embed_size: int, hidden_size: int,
+                 num_layers: int = 1, use_c_v: bool = False,
+                 z_input_size: Optional[int] = None):
+        super().__init__()
+        self.use_c_v = use_c_v
+        self.dec_embeddings = nn.Embedding(vocab_size, embed_size)
+        self.lstm = LSTMStack(embed_size, hidden_size, num_layers)
+        # z_rnn exists only for the CVAE variants (K_z·L → E); the
+        # no-encoder baseline never projects a z
+        self.z_rnn = (nn.Linear(z_input_size, embed_size)
+                      if z_input_size else None)
+        self.rnn_logits = nn.Linear(hidden_size, vocab_size)
+
+    # ------------------------------------------------------------------
+    def init_state(self, images_fv: torch.Tensor,
+                   c_emb: Optional[torch.Tensor] = None,
+                   z_dec: Optional[torch.Tensor] = None,
+                   step: Optional[LSTMStep] = None) -> Carry:
+        """images_fv, c_emb, z_dec: [B, E] → carry after the conditioning
+        steps.  ``step`` (carry, x) → (carry, h) runs each of them; by
+        default ``self.lstm.step``."""
+        step = step or self.lstm.step
+        carry = self.lstm.zero_carry(images_fv.shape[0], images_fv.device)
+        carry, _ = step(carry, images_fv)
+        if c_emb is not None and self.use_c_v:
+            carry, _ = step(carry, c_emb)
+        if z_dec is not None:
+            carry, _ = step(carry, z_dec)
+        return carry
+
+    # ------------------------------------------------------------------
+    def gen_z_embedding(self, z_mean: torch.Tensor, std: float,
+                        n_samples: int,
+                        eps: Optional[torch.Tensor] = None,
+                        generator: Optional[torch.Generator] = None
+                        ) -> torch.Tensor:
+        """Generation-time z step input [B, E], drawn in the PROJECTED
+        space: the projection of K_z iid draws of N(z_mean, std²I) is
+        Gaussian with mean ``z_mean @ Σ_s W_s + b`` and covariance
+        ``std²·WᵀW`` (W = the z_rnn kernel, [K_z·L, E]), so an E-dim draw
+        shaped by a Cholesky factor of WᵀW (plus a 1e-6·max(diag)
+        jitter) has the same law.  All in f32.  ``eps`` [B, E] ~ N(0, I)
+        is drawn from ``generator`` unless given."""
+        kernel = self.z_rnn.weight.t().float()              # [K_z·L, E]
+        L = z_mean.shape[-1]
+        E = kernel.shape[-1]
+        w_sum = kernel.reshape(n_samples, L, E).sum(dim=0)  # [L, E]
+        mean_part = z_mean.float() @ w_sum + self.z_rnn.bias.float()
+        cov = kernel.t() @ kernel                           # [E, E]
+        jitter = 1e-6 * torch.diagonal(cov).max()
+        chol = torch.linalg.cholesky(
+            cov + jitter * torch.eye(E, device=cov.device, dtype=cov.dtype))
+        if eps is None:
+            eps = torch.randn((z_mean.shape[0], E), generator=generator,
+                              device=z_mean.device, dtype=torch.float32)
+        noise = eps.float() @ chol.t()
+        return mean_part + float(std) * noise
+
+    # ------------------------------------------------------------------
+    def step_hidden(self, carry: Carry, tokens: torch.Tensor
+                    ) -> Tuple[Carry, torch.Tensor]:
+        """One decode step stopping at the hidden state [B, H], the input
+        of the fused logits + top-k kernel."""
+        x = self.dec_embeddings(tokens)
+        return self.lstm.step(carry, x)
+
+    def step(self, carry: Carry, tokens: torch.Tensor
+             ) -> Tuple[Carry, torch.Tensor]:
+        """One decode step: tokens [B] → (carry, logits [B, V] f32).  The
+        head computes in bf16, so the logits are rounded to it, as the Flax
+        Dense with ``dtype=compute_dtype`` rounds them."""
+        carry, h = self.step_hidden(carry, tokens)
+        bf16 = torch.bfloat16
+        w = self.rnn_logits.weight.t().to(bf16).float()
+        logits = (h.to(bf16).float() @ w).to(bf16) + self.rnn_logits.bias.to(bf16)
+        return carry, logits.float()
