@@ -3,18 +3,36 @@
 Phases, in order; any failure raises and the script exits nonzero:
 
 1. device: require CUDA, print the card's name and power limit;
-2. build: compile the CUDA kernels from ``vae_captioning_torch/csrc``;
+2. build: compile the CUDA kernels from ``vae_captioning_torch/csrc``
+   (one nvcc per source, all started together);
 3. kernels: each kernel against its plain PyTorch version on the card,
-   at the main path's shapes and ragged ones, plus a deliberate tie;
-4. main path: the full-width AG-CVAE (random weights from a seed, in the
-   Flax layout, through the bridge) decodes synthetic features through
-   ``run_inference`` at beam 3, beam 10 and greedy, writing the val/test
-   JSON files; the kernels' launch counts must match the steps taken;
-   then batches are decoded at beam 3, beam 10 and greedy through the
-   kernels, the plain versions and the plain versions summed in reverse
-   order, and compared step by step and caption by caption (see
+   at the main paths' shapes and ragged ones: the decode kernels (plus a
+   deliberate tie), the train path's ``fused_lstm_seq`` and ``fused_z``
+   forward and backward, and the fused z generator's bits, normals and
+   moments against the plain generator;
+4. decode path: the full-width AG-CVAE (random weights from a seed, in
+   the Flax layout, through the bridge) decodes synthetic features
+   through ``run_inference`` at beam 3, beam 10 and greedy, writing the
+   val/test JSON files; the kernels' launch counts must match the steps
+   taken; then batches are decoded at beam 3, beam 10 and greedy through
+   the kernels, the plain versions and the plain versions summed in
+   reverse order, and compared step by step and caption by caption (see
    phase_decode_compare);
-5. times: decode batches and each kernel against its plain version.
+5. train path: the full-width Normal-prior CVAE (``config.py``
+   defaults, random weights from a seed through the bridge) takes 20
+   ``Trainer`` steps on one synthetic batch of 256 images x 5 captions x
+   24 tokens; the loss must be finite and fall and the train kernels'
+   launch counts must match the steps; then 5 steps through the kernels
+   and 5 through the plain versions from the same weights and seeds are
+   compared (phase_train_compare); the trained weights go through
+   ``export_flax_params`` / ``save_params`` / ``load_model`` and decode a
+   greedy batch of 512 images through the decode kernels;
+6. times: each kernel against its plain version, decode batches and
+   train steps, kernel path against plain path, in turns.
+
+``python3 chip_smoke.py --profile`` instead builds the kernels and
+profiles the full-width train step (phase_train_profile): device time by
+kernel, and the device's idle share.
 
 Before its last lines it checks that no JAX module was loaded.  The line
 before the last is the kernels' JSON record; the last line is
@@ -25,6 +43,8 @@ from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -40,16 +60,26 @@ from vae_captioning_tpu.data.batcher import CaptionBatcher  # noqa: E402
 from vae_captioning_tpu.data.features import FeatureStore  # noqa: E402
 from vae_captioning_tpu.data.vocabulary import Vocabulary  # noqa: E402
 from vae_captioning_torch import _ext  # noqa: E402
-from vae_captioning_torch.bridge import (flax_shapes,  # noqa: E402
-                                         load_flax_params)
+from vae_captioning_torch.bridge import (export_flax_params,  # noqa: E402
+                                         flax_shapes, load_flax_params)
+from vae_captioning_torch.checkpoint import (load_model,  # noqa: E402
+                                             save_params, save_sidecars)
 from vae_captioning_torch.inference import (PLAIN_OPS,  # noqa: E402
                                             REORDERED_OPS, DecodeOps,
                                             make_decode_fns, run_inference)
-from vae_captioning_torch.models.cvae import CVAEModel  # noqa: E402
+from vae_captioning_torch.models.cvae import (  # noqa: E402
+    PLAIN_TRAIN_OPS, CVAEModel)
 from vae_captioning_torch.ops.fused_logits_topk import (  # noqa: E402
     fused_logits_top_k, fused_logits_top_k_plain)
+from vae_captioning_torch.ops.fused_lstm_seq import (  # noqa: E402
+    lstm_seq_bwd_kernel, lstm_seq_bwd_plain, lstm_seq_fwd_kernel,
+    lstm_seq_fwd_plain)
 from vae_captioning_torch.ops.fused_lstm_step import (  # noqa: E402
     fused_lstm_step, fused_lstm_step_plain)
+from vae_captioning_torch.ops.fused_z import (  # noqa: E402
+    fused_z_eps, philox_bits, philox_normals, z_bwd_kernel, z_bwd_plain,
+    z_fwd_kernel, z_fwd_plain)
+from vae_captioning_torch.train import Trainer  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 # tolerances of the kernel-vs-plain comparisons (f32 sums in another order)
@@ -65,7 +95,27 @@ KERNELS = {
     "fused_logits_top_k": {
         "route": "cuda", "source": "vae_captioning_torch/csrc/fused_logits_topk.cu",
         "replaces": "vae_captioning_tpu/ops/fused_logits_topk.py:194"},
+    "fused_lstm_seq_fwd": {
+        "route": "cuda", "source": "vae_captioning_torch/csrc/fused_lstm_seq.cu",
+        "replaces": "vae_captioning_tpu/ops/fused_lstm_seq.py:86"},
+    "fused_lstm_seq_bwd": {
+        "route": "cuda", "source": "vae_captioning_torch/csrc/fused_lstm_seq.cu",
+        "replaces": "vae_captioning_tpu/ops/fused_lstm_seq.py:195"},
+    "fused_z_fwd": {
+        "route": "cuda", "source": "vae_captioning_torch/csrc/fused_z.cu",
+        "replaces": "vae_captioning_tpu/ops/fused_z.py:71"},
+    "fused_z_bwd": {
+        "route": "cuda", "source": "vae_captioning_torch/csrc/fused_z.cu",
+        "replaces": "vae_captioning_tpu/ops/fused_z.py:91"},
+    # check only: the eps stream materialised, on no main path (its
+    # launches stay 0), held bit for bit against the plain generator
+    "fused_z_eps": {
+        "route": "cuda", "source": "vae_captioning_torch/csrc/fused_z.cu",
+        "replaces": "vae_captioning_tpu/ops/fused_z.py:234"},
 }
+DECODE_KERNELS = ("fused_lstm_step", "fused_logits_top_k")
+TRAIN_KERNELS = ("fused_lstm_seq_fwd", "fused_lstm_seq_bwd", "fused_z_fwd",
+                 "fused_z_bwd")
 
 
 def card() -> str:
@@ -262,9 +312,15 @@ def full_width_model():
     vocab = Vocabulary(["<BOS>", "<EOS>", "<UNK>"] + words)
     cfg.vocab_size = vocab.vocab_size
     model = CVAEModel.from_config(cfg)
+    # the encoder (unused in decoding) draws from a stream of its own, so
+    # every decode weight is the same draw whatever the encoder holds
     rng = np.random.default_rng(cfg.seed)
+    enc_rng = np.random.default_rng(cfg.seed + 1)
     params = {}
     for key, shape in flax_shapes(model).items():
+        if key.startswith("encoder/"):
+            params[key] = 0.01 * enc_rng.standard_normal(shape, dtype=np.float32)
+            continue
         if key.endswith("/embedding"):
             params[key] = rng.standard_normal(shape, dtype=np.float32)
         elif key.endswith("/bias"):
@@ -272,9 +328,7 @@ def full_width_model():
         else:  # Flax kernels: xavier-uniform bound over [in, out]
             lim = np.float32((6.0 / (shape[0] + shape[1])) ** 0.5)
             params[key] = (2 * rng.random(shape, dtype=np.float32) - 1) * lim
-    report = load_flax_params(model, params)
-    if report.pending:
-        raise AssertionError(f"unexpected pending parameters {report.pending}")
+    load_flax_params(model, params)   # raises on a key left over or missing
     return cfg, vocab, model.to(DEV).eval()
 
 
@@ -322,7 +376,7 @@ def phase_main_path(out_dir: str):
                             stats10)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = dict(_ext.LAUNCHES)   # read right after the main path
+    launches = {k: _ext.LAUNCHES[k] for k in DECODE_KERNELS}  # right after
     runs = [stats3["val"], stats3["test"], stats10["val"]]
     steps = sum(r["decode_steps"] for r in runs)
     batches = sum(r["batches"] for r in runs)
@@ -486,7 +540,476 @@ def phase_decode_times(cfg, vocab, model, label: str) -> None:
               f"{tp:.2f} ms/batch ({BATCH / tp * 1e3:.0f} captions/s) [{label}]")
 
 
+# ----------------------------------------------------------------------
+# phase 3, train path: fused_lstm_seq and fused_z against their plain
+# versions
+# ----------------------------------------------------------------------
+
+# fused_lstm_seq: f32 sums in another order can flip an element of
+# bf16(h), which moves the later steps by ~1e-3, and the flips compound
+# over T; so c_T, h_T and hs to SEQ_RTOL of their largest element and
+# SEQ_SHARE of their elements to SEQ_ATOL; every gradient (and the
+# activated gates, bf16) to SEQ_RTOL of its largest element.
+SEQ_RTOL = 1e-2
+SEQ_ATOL = 1e-4
+SEQ_SHARE = 0.99
+# fused_z: the bf16 output to one bf16 step (Z_OUT_RTOL of its largest
+# element); the f32 gradients to Z_GRAD_RTOL of theirs; the normals to
+# EPS_ATOL (the bits must be equal); the moments over one step's draws.
+Z_OUT_RTOL = 1e-2
+Z_GRAD_RTOL = 1e-3
+EPS_ATOL = 1e-6
+MEAN_TOL = 1e-3
+VAR_TOL = 2e-3
+# the train path's shapes: B = 256 images x K = 5 captions, T = 24
+TRAIN_IMAGES, TRAIN_CAPTIONS, TRAIN_T = 256, 5, 24
+TRAIN_ROWS = TRAIN_IMAGES * TRAIN_CAPTIONS
+RAGGED_ROWS = 1000
+LATENT, KZ, EMBED, HIDDEN, VOCAB = 150, 100, 256, 512, 11500
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """(max |a - b|, that over max |b|), in f32."""
+    a, b = a.detach().float(), b.detach().float()
+    err = float((a - b).abs().max())
+    return err, err / max(float(b.abs().max()), 1e-30)
+
+
+def seq_inputs(T: int, N: int, seed: int, E: int = EMBED, H: int = HIDDEN):
+    """x, wx, wh (bf16), b, c0, h0 and lengths in 1..T with one row of
+    length 1 and one of length T."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    lim = (6.0 / (E + H + 4 * H)) ** 0.5      # the Flax xavier_uniform bound
+    w = ((torch.rand((E + H, 4 * H), generator=g, device=DEV) * 2 - 1) * lim
+         ).to(torch.bfloat16)
+    lengths = torch.randint(1, T + 1, (N,), generator=g, device=DEV,
+                            dtype=torch.int32)
+    lengths[0], lengths[-1] = 1, T
+    return (torch.randn((T, N, E), generator=g, device=DEV).to(torch.bfloat16),
+            w[:E].contiguous(), w[E:].contiguous(),
+            0.1 * torch.randn((4 * H,), generator=g, device=DEV),
+            torch.randn((N, H), generator=g, device=DEV),
+            torch.tanh(torch.randn((N, H), generator=g, device=DEV)), lengths)
+
+
+def check_lstm_seq(T: int, N: int) -> tuple:
+    """Returns (forward, backward) max |kernel - plain|."""
+    args = seq_inputs(T, N, seed=T + N)
+    tag = f"fused_lstm_seq T={T} N={N} E={EMBED} H={HIDDEN}"
+    got = lstm_seq_fwd_kernel(*args)
+    want = lstm_seq_fwd_plain(*args)
+    lengths = args[6]
+    if not bool((got[0][:, lengths == 1][1:].float() == 0).all()):
+        raise AssertionError(f"{tag}: a masked step emitted a nonzero h")
+    fwd = 0.0
+    for name, a, b in zip(("hs", "cs", "gates", "h_T"), got, want):
+        err, rel = rel_err(a, b)
+        share = float(((a.float() - b.float()).abs() <= SEQ_ATOL).float().mean())
+        if rel > SEQ_RTOL or (name != "gates" and share < SEQ_SHARE):
+            raise AssertionError(f"{tag} forward: {name} differs, max |diff| "
+                                 f"{err:.3e} ({rel:.2e} of max), {share:.4f} of "
+                                 f"elements within {SEQ_ATOL}")
+        fwd = max(fwd, err)
+        print(f"{tag} forward {name}: max |kernel - plain| {err:.3e} "
+              f"({rel:.2e} of max, tolerance {SEQ_RTOL}); {share:.5f} of "
+              f"elements within {SEQ_ATOL} (tolerance {SEQ_SHARE})")
+    g = torch.Generator(device=DEV).manual_seed(1)
+    dhs = torch.randn((T, N, HIDDEN), generator=g, device=DEV).to(torch.bfloat16)
+    dct = torch.randn((N, HIDDEN), generator=g, device=DEV)
+    dht = torch.randn((N, HIDDEN), generator=g, device=DEV)
+    saved = (*args, *want[:3])          # both backwards from one forward
+    got = lstm_seq_bwd_kernel(saved, dhs, dct, dht)
+    want = lstm_seq_bwd_plain(saved, dhs, dct, dht)
+    bwd = 0.0
+    for name, a, b in zip(("dx", "dWx", "dWh", "db", "dc0", "dh0"), got, want):
+        err, rel = rel_err(a, b)
+        if rel > SEQ_RTOL or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{tag} backward: {name} differs, max |diff| "
+                                 f"{err:.3e} ({rel:.2e} of max)")
+        bwd = max(bwd, err)
+        print(f"{tag} backward {name}: max |kernel - plain| {err:.3e} "
+              f"({rel:.2e} of max, tolerance {SEQ_RTOL})")
+    return fwd, bwd
+
+
+def z_inputs(N: int, seed: int):
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    mean = torch.randn((N, LATENT), generator=g, device=DEV)
+    std = torch.exp(0.3 * torch.randn((N, LATENT), generator=g, device=DEV))
+    lim = (6.0 / (KZ * LATENT + EMBED)) ** 0.5
+    w = ((torch.rand((EMBED, KZ * LATENT), generator=g, device=DEV) * 2 - 1)
+         * lim).to(torch.bfloat16)
+    b = 0.1 * torch.randn((EMBED,), generator=g, device=DEV)
+    dz = torch.randn((N, EMBED), generator=g, device=DEV).to(torch.bfloat16)
+    return mean, std, w, b, dz
+
+
+def check_fused_z(N: int, seed: int = 5, step: int = 17) -> tuple:
+    """Returns (forward, backward) max |kernel - plain|; the plain
+    versions draw eps from the plain generator on the same key."""
+    mean, std, w, b, dz = z_inputs(N, seed=N)
+    tag = f"fused_z N={N} K_z={KZ} L={LATENT} E={EMBED}"
+    eps = philox_normals(seed, step, N, KZ, LATENT, device=DEV)
+    err, rel = rel_err(z_fwd_kernel(mean, std, w, b, KZ, seed, step),
+                       z_fwd_plain(mean, std, w, b, KZ, eps))
+    if rel > Z_OUT_RTOL:
+        raise AssertionError(f"{tag} forward differs: {err:.3e} ({rel:.2e})")
+    print(f"{tag} forward: max |kernel - plain| {err:.3e} ({rel:.2e} of max, "
+          f"tolerance {Z_OUT_RTOL})")
+    fwd, bwd = err, 0.0
+    got = z_bwd_kernel(mean, std, w, KZ, seed, step, dz)
+    want = z_bwd_plain(mean, std, w, KZ, eps, dz)
+    for name, a, c in zip(("dmean", "dstd", "dW"), got, want):
+        err, rel = rel_err(a, c)
+        if rel > Z_GRAD_RTOL:
+            raise AssertionError(f"{tag} backward: {name} differs, {err:.3e} "
+                                 f"({rel:.2e} of max)")
+        bwd = max(bwd, err)
+        print(f"{tag} backward {name}: max |kernel - plain| {err:.3e} "
+              f"({rel:.2e} of max, tolerance {Z_GRAD_RTOL})")
+    return fwd, bwd
+
+
+def check_eps() -> float:
+    """The eps kernel's bits against the plain generator's (on the card
+    and on the CPU), its normals against the plain normals, its moments
+    over one train step's 19.2 M draws, and distinct streams."""
+    seed, step = 1234, 7
+    shape = (TRAIN_ROWS, KZ, LATENT)
+    bits = fused_z_eps(seed, step, *shape, device=DEV, bits=True)
+    if not torch.equal(bits, philox_bits(seed, step, *shape, device=DEV)):
+        raise AssertionError("fused_z_eps: bits differ from the plain generator")
+    if not torch.equal(bits[:64].cpu(), philox_bits(seed, step, 64, KZ, LATENT)):
+        raise AssertionError("fused_z_eps: bits differ from the CPU generator")
+    eps = fused_z_eps(seed, step, *shape, device=DEV)
+    err = float((eps - philox_normals(seed, step, *shape, device=DEV)).abs().max())
+    if err > EPS_ATOL:
+        raise AssertionError(f"fused_z_eps: normals differ by {err:.3e}")
+    e64 = eps.double()
+    mean, var = float(e64.mean()), float(e64.var())
+    if abs(mean) >= MEAN_TOL or abs(var - 1.0) >= VAR_TOL:
+        raise AssertionError(f"fused_z_eps moments: mean {mean:.3e}, var {var:.6f}")
+    other = fused_z_eps(seed + 1, step, 64, KZ, LATENT, device=DEV)
+    later = fused_z_eps(seed, step + 1, 64, KZ, LATENT, device=DEV)
+    if (torch.equal(other, eps[:64]) or torch.equal(later, eps[:64])
+            or torch.equal(eps[:, 0], eps[:, 1])):
+        raise AssertionError("fused_z_eps: two streams are equal")
+    print(f"fused_z_eps {TRAIN_ROWS}x{KZ}x{LATENT} = {eps.numel()} draws: bits "
+          f"equal to the plain generator's (card and CPU); max |normal - plain| "
+          f"{err:.3e} (tolerance {EPS_ATOL}); mean {mean:.3e} (|.| < {MEAN_TOL}), "
+          f"var {var:.6f} (|var - 1| < {VAR_TOL}); other seeds, steps and "
+          "samples give other streams")
+    return err
+
+
+def phase_train_kernels() -> dict:
+    errors = {k: 0.0 for k in TRAIN_KERNELS}
+    for T, N in ((TRAIN_T, TRAIN_ROWS), (7, RAGGED_ROWS)):
+        fwd, bwd = check_lstm_seq(T, N)
+        errors["fused_lstm_seq_fwd"] = max(errors["fused_lstm_seq_fwd"], fwd)
+        errors["fused_lstm_seq_bwd"] = max(errors["fused_lstm_seq_bwd"], bwd)
+    for N in (TRAIN_ROWS, RAGGED_ROWS):
+        fwd, bwd = check_fused_z(N)
+        errors["fused_z_fwd"] = max(errors["fused_z_fwd"], fwd)
+        errors["fused_z_bwd"] = max(errors["fused_z_bwd"], bwd)
+    errors["fused_z_eps"] = check_eps()
+    return errors
+
+
+def phase_train_kernel_times(label: str) -> dict:
+    """Each train kernel against its plain version at the train path's
+    shapes (T = 24, N = 1280; N = 1280, K_z = 100, L = 150)."""
+    args = seq_inputs(TRAIN_T, TRAIN_ROWS, seed=3)
+    saved = (*args, *lstm_seq_fwd_plain(*args)[:3])
+    g = torch.Generator(device=DEV).manual_seed(2)
+    dhs = torch.randn((TRAIN_T, TRAIN_ROWS, HIDDEN), generator=g,
+                      device=DEV).to(torch.bfloat16)
+    dc = torch.randn((TRAIN_ROWS, HIDDEN), generator=g, device=DEV)
+    mean, std, w, b, dz = z_inputs(TRAIN_ROWS, seed=4)
+    pairs = {
+        "fused_lstm_seq_fwd": (lambda: lstm_seq_fwd_kernel(*args),
+                               lambda: lstm_seq_fwd_plain(*args)),
+        "fused_lstm_seq_bwd": (lambda: lstm_seq_bwd_kernel(saved, dhs, dc, dc),
+                               lambda: lstm_seq_bwd_plain(saved, dhs, dc, dc)),
+        "fused_z_fwd": (lambda: z_fwd_kernel(mean, std, w, b, KZ, 5, 6),
+                        lambda: z_fwd_plain(
+                            mean, std, w, b, KZ,
+                            philox_normals(5, 6, TRAIN_ROWS, KZ, LATENT, device=DEV))),
+        "fused_z_bwd": (lambda: z_bwd_kernel(mean, std, w, KZ, 5, 6, dz),
+                        lambda: z_bwd_plain(
+                            mean, std, w, KZ,
+                            philox_normals(5, 6, TRAIN_ROWS, KZ, LATENT, device=DEV),
+                            dz)),
+        "fused_z_eps": (lambda: fused_z_eps(5, 6, TRAIN_ROWS, KZ, LATENT, device=DEV),
+                        lambda: philox_normals(5, 6, TRAIN_ROWS, KZ, LATENT,
+                                               device=DEV)),
+    }
+    times = {}
+    for name, (fk, fp) in pairs.items():
+        times[name] = turns(fk, fp, lambda fn: cuda_ms(fn, iters=5, warmup=1))
+        print(f"time {name} (train shapes): kernel {times[name][0]:.4f} ms, "
+              f"plain {times[name][1]:.4f} ms [{label}]")
+    return times
+
+
+# ----------------------------------------------------------------------
+# phase 5: the train path at full width
+# ----------------------------------------------------------------------
+
+TRAIN_STEPS = 20
+COMPARE_STEPS = 5
+# kernel path against plain path, same weights and seeds: the metrics of
+# step 1 to METRIC_RTOL_1 and of steps 2-5 to METRIC_RTOL (f32 sums in
+# another order, bf16 roundings that differ now and then, compounded by
+# Adam); step 1's gradients leaf by leaf to GRAD_SHARE of each leaf's
+# largest element
+METRIC_RTOL_1 = 1e-3
+METRIC_RTOL = 1e-2
+GRAD_SHARE = 2e-2
+
+
+def train_config() -> Config:
+    """The Normal-prior CVAE with the config.py defaults (embed 256,
+    hidden 512, latent 150, K_z 100, 4096-d features, bf16, Adam 5e-4,
+    clip 5.0) and vocab 11,500."""
+    cfg = Config(prior="Normal", batch_size=TRAIN_IMAGES,
+                 num_captions=TRAIN_CAPTIONS)
+    cfg.vocab_size = VOCAB
+    return cfg
+
+
+def train_arrays(seed: int = 9) -> tuple:
+    """One synthetic batch on the card: features, labels (the encoder's
+    input), decoder inputs, lengths in 6..24 (one row of 24), c_v."""
+    rng = np.random.default_rng(seed)
+    B, K, T, R = TRAIN_IMAGES, TRAIN_CAPTIONS, TRAIN_T, TRAIN_ROWS
+    lengths = rng.integers(min(6, T), T + 1, size=R).astype(np.int32)
+    lengths[0] = T
+    labels = rng.integers(3, VOCAB, size=(R, T))
+    dec = np.roll(labels, 1, axis=1)
+    dec[:, 0] = 1
+    pad = np.arange(T)[None, :] >= lengths[:, None]
+    labels[pad] = 0
+    dec[pad] = 0
+    feats = np.maximum(rng.standard_normal((B, 4096), dtype=np.float32), 0)
+    return (torch.from_numpy(feats).to(DEV), torch.from_numpy(labels).to(DEV),
+            torch.from_numpy(dec).to(DEV), torch.from_numpy(lengths).to(DEV),
+            torch.zeros((B, 90), device=DEV))
+
+
+def phase_train_path():
+    """20 Trainer steps at full width on one repeated batch."""
+    cfg = train_config()
+    trainer = Trainer(cfg, device=DEV)
+    arrays = train_arrays()
+    torch.cuda.synchronize()
+    _ext.reset_launches()   # the train path's run starts here
+    t0 = time.perf_counter()
+    metrics = [trainer.run_step_arrays(arrays) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: _ext.LAUNCHES[k]                              # right after
+                for k in (*TRAIN_KERNELS, "fused_z_eps")}
+    want = {"fused_lstm_seq_fwd": 2 * TRAIN_STEPS,   # encoder + decoder
+            "fused_lstm_seq_bwd": 2 * TRAIN_STEPS,
+            "fused_z_fwd": TRAIN_STEPS, "fused_z_bwd": TRAIN_STEPS,
+            "fused_z_eps": 0}   # check only: the train step never materialises eps
+    losses = [float(m["loss"]) for m in metrics]
+    print(f"train path: {TRAIN_STEPS} steps of {TRAIN_IMAGES} images x "
+          f"{TRAIN_CAPTIONS} captions x {TRAIN_T} tokens in {seconds:.2f} s; "
+          f"launches {launches}, expected {want}")
+    print("train path loss by step: " + ", ".join(f"{x:.4f}" for x in losses))
+    print(f"train path step 1 / step {TRAIN_STEPS}: " + "; ".join(
+        f"{k} {float(metrics[0][k]):.5f} / {float(metrics[-1][k]):.5f}"
+        for k in ("rec_loss", "kld", "grad_norm")))
+    if launches != want:
+        raise AssertionError(f"train launch counts {launches} != expected {want}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"the train loss did not fall: {losses}")
+    return cfg, trainer, launches
+
+
+def phase_train_compare(cfg) -> dict:
+    """COMPARE_STEPS steps through the kernels and through the plain
+    versions, from the same weights and z seeds."""
+    arrays = train_arrays(seed=10)
+    runs, grads = [], []
+    for ops in (None, PLAIN_TRAIN_OPS):
+        trainer = Trainer(cfg.replace(), device=DEV,
+                          **({} if ops is None else {"ops": ops}))
+        steps = []
+        for i in range(COMPARE_STEPS):
+            steps.append({k: float(v) for k, v in
+                          trainer.run_step_arrays(arrays).items()})
+            if i == 0:
+                grads.append({n: p.grad.detach().clone() for n, p in
+                              trainer.model.named_parameters()})
+        runs.append(steps)
+        del trainer
+    worst = {}
+    for i, (k, p) in enumerate(zip(*runs)):
+        tol = METRIC_RTOL_1 if i == 0 else METRIC_RTOL
+        for key in ("loss", "rec_loss", "kld", "grad_norm"):
+            rel = abs(k[key] - p[key]) / abs(p[key])
+            worst[key] = max(worst.get(key, 0.0), rel)
+            if rel > tol:
+                raise AssertionError(f"train compare step {i + 1}: {key} kernel "
+                                     f"{k[key]:.6f} plain {p[key]:.6f} ({rel:.2e})")
+        print(f"train compare step {i + 1}: " + "; ".join(
+            f"{key} {k[key]:.6f} / {p[key]:.6f}" for key in
+            ("loss", "rec_loss", "kld", "grad_norm")) + " (kernels / plain)")
+    shares = {}
+    for name in grads[0]:
+        _, rel = rel_err(grads[0][name], grads[1][name])
+        shares[name] = rel
+        if rel > GRAD_SHARE:
+            raise AssertionError(f"train compare: step-1 gradient of {name} "
+                                 f"differs by {rel:.2e} of its max")
+    print(f"train compare: metrics max rel diff {worst} (tolerance "
+          f"{METRIC_RTOL_1} at step 1, {METRIC_RTOL} after); step-1 gradients, "
+          f"max |kernel - plain| over max |plain| per leaf: " + ", ".join(
+              f"{n} {r:.2e}" for n, r in sorted(shares.items()))
+          + f" (tolerance {GRAD_SHARE})")
+    return worst
+
+
+def phase_round_trip(cfg, trainer, out_dir: str) -> None:
+    """The trained weights through export_flax_params / save_params /
+    load_model, then one greedy batch of 512 images through the decode
+    kernels."""
+    vocab = Vocabulary(["<BOS>", "<EOS>", "<UNK>"]
+                       + [f"w{i}" for i in range(VOCAB - 4)])
+    # the checkpoint (120 MB at full width) is removed after the reload
+    ckpt_dir = os.path.join(out_dir, "checkpoints")
+    try:
+        save_sidecars(cfg, vocab, ckpt_dir, "train_round_trip")
+        save_params(export_flax_params(trainer.model), ckpt_dir,
+                    "train_round_trip")
+        model, _, report = load_model(ckpt_dir, "train_round_trip", device=DEV)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    for (name, a), (_, b) in zip(trainer.model.named_parameters(),
+                                 model.named_parameters()):
+        if not torch.equal(a.detach(), b.detach()):
+            raise AssertionError(f"round trip changed {name}")
+    dcfg = cfg.replace(mode="inference", gen_max_len=30)
+    fn = make_decode_fns(model, dcfg, vocab)["greedy"]
+    rng = np.random.default_rng(11)
+    feats = torch.from_numpy(np.maximum(
+        rng.standard_normal((BATCH, 4096), dtype=np.float32), 0)).to(DEV)
+    _ext.reset_launches()
+    res = fn(feats, torch.zeros((BATCH, 90), device=DEV),
+             generator=torch.Generator(device=DEV).manual_seed(3))
+    torch.cuda.synchronize()
+    tokens = res.tokens
+    if tokens.shape[0] != BATCH or not bool(((tokens >= 0)
+                                             & (tokens < VOCAB)).all()):
+        raise AssertionError("round trip: decoded tokens out of range")
+    if _ext.LAUNCHES["fused_logits_top_k"] != res.steps:
+        raise AssertionError("round trip: the decode did not run the kernels")
+    print(f"round trip: {len(report.loaded)} Flax leaves exported, saved, "
+          f"reloaded bit for bit; greedy decode of {BATCH} images, "
+          f"{res.steps} steps through the decode kernels")
+
+
+def phase_train_times(cfg, label: str) -> None:
+    """ms per full-width train step, kernel path against plain path, in
+    turns, by CUDA events over 5 steps after 1 warm-up step."""
+    arrays = train_arrays(seed=12)
+    kern = Trainer(cfg.replace(), device=DEV)
+    plain = Trainer(cfg.replace(), device=DEV, ops=PLAIN_TRAIN_OPS)
+    tk, tp = turns(lambda: kern.run_step_arrays(arrays),
+                   lambda: plain.run_step_arrays(arrays),
+                   lambda fn: cuda_ms(fn, iters=5, warmup=1))
+    print(f"time train step, {TRAIN_IMAGES} images x {TRAIN_CAPTIONS} "
+          f"captions x {TRAIN_T} tokens: kernel {tk:.2f} ms "
+          f"({TRAIN_IMAGES / tk * 1e3:.0f} images/s), plain {tp:.2f} ms "
+          f"({TRAIN_IMAGES / tp * 1e3:.0f} images/s) [{label}]")
+
+
+PROFILE_STEPS = 5
+
+
+def port_kernel_names() -> dict:
+    """{kernel function name: source file} over the sources in csrc/."""
+    names = {}
+    for src in _ext._sources():
+        for name in re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
+                               r"(\w+)", src.read_text()):
+            names[name] = src.name
+    return names
+
+
+def phase_train_profile(out_dir: str, label: str) -> None:
+    """The kernel path's full-width train step under torch.profiler:
+    PROFILE_STEPS steps after 3 warm-up steps.  The trace's kernel,
+    memcpy and memset events are summed per step by name and grouped (the
+    port's kernels one by one, cuBLAS GEMMs, copies, other PyTorch
+    kernels); the device's busy time is the union of their intervals, and
+    the idle share is 1 - busy / the step's host-clock time under the
+    profiler.  Writes the trace and a summary to ``out_dir``."""
+    from torch.profiler import ProfilerActivity, profile
+    trainer = Trainer(train_config(), device=DEV)
+    arrays = train_arrays()
+    for _ in range(3):
+        trainer.run_step_arrays(arrays)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_STEPS):
+            trainer.run_step_arrays(arrays)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / PROFILE_STEPS * 1e3
+    trace = os.path.join(out_dir, "train_step_trace.json")
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not events:
+        raise AssertionError("profile: the trace holds no device events")
+    ours = port_kernel_names()
+    groups, by_name = {}, {}
+    for e in events:
+        # "void (anonymous namespace)::name<...>(args)" -> "name"
+        short = (e["name"].replace("(anonymous namespace)::", "").split("(")[0]
+                 .split("<")[0].split("::")[-1].split() or [""])[-1]
+        if e["cat"] != "kernel":
+            group = "memcpy / memset"
+        elif short in ours:
+            group = f"port: {short} ({ours[short]})"
+        elif any(w in e["name"].lower() for w in ("gemm", "xmma", "cutlass")):
+            group = "cuBLAS GEMM"
+        else:
+            group = "other PyTorch kernels"
+        for table, key in ((groups, group), (by_name, e["name"][:120])):
+            ms, n = table.get(key, (0.0, 0))
+            table[key] = (ms + e["dur"] / 1e3 / PROFILE_STEPS, n + 1)
+    busy, end = 0.0, float("-inf")
+    for e in sorted(events, key=lambda e: e["ts"]):   # union of intervals, us
+        start, stop = e["ts"], e["ts"] + e["dur"]
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    busy_ms = busy / 1e3 / PROFILE_STEPS
+    print(f"profile: train step {TRAIN_IMAGES} images x {TRAIN_CAPTIONS} "
+          f"captions x {TRAIN_T} tokens, {PROFILE_STEPS} steps after 3 warm-up "
+          f"[{label}]: {step_ms:.3f} ms/step under the profiler, device busy "
+          f"{busy_ms:.3f} ms, idle share {1 - busy_ms / step_ms:.4f}")
+    for key, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        print(f"profile group {ms:9.4f} ms/step {n / PROFILE_STEPS:6.1f} "
+              f"launches/step  {key}")
+    for key, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]:
+        print(f"profile kernel {ms:9.4f} ms/step {n / PROFILE_STEPS:6.1f} "
+              f"launches/step  {key}")
+    with open(os.path.join(out_dir, "train_profile.json"), "w") as f:
+        json.dump({"card": label, "steps": PROFILE_STEPS, "step_ms": step_ms,
+                   "busy_ms": busy_ms, "groups": groups, "by_name": by_name}, f,
+                  indent=1)
+
+
 def main() -> None:
+    if sys.argv[1:] not in ([], ["--profile"]):
+        sys.exit(f"chip_smoke: unknown arguments {sys.argv[1:]}; the only "
+                 "option is --profile")
     label = card()
     print(f"card: {label}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -498,21 +1021,35 @@ def main() -> None:
     _ext.library()
     with open(os.path.join(out_dir, "build.log"), "w") as f:
         f.write(_ext.build_log)
-    print(f"build: {_ext.build_seconds:.1f} s -> {_ext.library_path().name} "
-          f"(nvcc output in {out_dir}/build.log)")
+    print(f"build: {_ext.build_seconds:.1f} s -> " + ", ".join(
+        _ext.library_path(src).name for src in _ext._sources())
+        + f" (nvcc output in {out_dir}/build.log)")
+    if sys.argv[1:] == ["--profile"]:
+        phase_train_profile(out_dir, label)
+        return
 
-    errors = phase_kernels()
+    t0 = time.perf_counter()
+    errors = {**phase_kernels(), **phase_train_kernels()}
     cfg, vocab, model, launches = phase_main_path(out_dir)
     phase_decode_compare(cfg, vocab, model)
-    times = phase_kernel_times(label)
+    tcfg, trainer, train_launches = phase_train_path()
+    launches.update(train_launches)
+    phase_train_compare(tcfg)
+    phase_round_trip(tcfg, trainer, out_dir)
+    del trainer
+    times = {**phase_kernel_times(label), **phase_train_kernel_times(label)}
     phase_decode_times(cfg, vocab, model, label)
+    phase_train_times(tcfg, label)
+    print(f"phases: {time.perf_counter() - t0:.1f} s")
     jax_modules = sorted(m for m in sys.modules if m.split(".")[0]
                          in ("jax", "jaxlib", "flax", "optax", "orbax"))
     if jax_modules:
         raise AssertionError(f"the port loaded JAX modules: {jax_modules[:5]}")
 
+    paths = {**{k: "decode" for k in DECODE_KERNELS},
+             **{k: "train" for k in TRAIN_KERNELS}, "fused_z_eps": "check"}
     record = {"kernels": [
-        {"name": name, **meta, "launches": launches[name],
+        {"name": name, **meta, "path": paths[name], "launches": launches[name],
          "max_abs_err": errors[name], "ms": times[name][0],
          "plain_ms": times[name][1]}
         for name, meta in KERNELS.items()]}

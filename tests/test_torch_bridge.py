@@ -11,7 +11,8 @@ from vae_captioning_tpu.config import Config
 from vae_captioning_tpu.data.vocabulary import Vocabulary
 from vae_captioning_tpu.train import init_model
 from vae_captioning_torch import checkpoint as ckpt
-from vae_captioning_torch.bridge import flax_shapes, load_flax_params
+from vae_captioning_torch.bridge import (export_flax_params, flax_shapes,
+                                         load_flax_params)
 from vae_captioning_torch.models.cvae import CVAEModel
 
 
@@ -41,8 +42,7 @@ def test_every_decode_leaf_is_consumed_with_its_layout(ag_params):
     cfg, flat = ag_params
     model = CVAEModel.from_config(cfg)
     report = load_flax_params(model, flat)
-    decode_keys = {k for k in flat if not k.startswith("encoder/")}
-    assert set(report.loaded) == decode_keys
+    assert set(report.loaded) == set(flat)
     p = dict(model.named_parameters())
     dense = {"imf_emb": "imf_emb", "cv_emb": "cv_emb",
              "decoder/z_rnn": "decoder.z_rnn",
@@ -63,16 +63,26 @@ def test_every_decode_leaf_is_consumed_with_its_layout(ag_params):
     np.testing.assert_array_equal(
         p["decoder.dec_embeddings.weight"].detach().numpy(),
         flat["decoder/dec_embeddings/embedding"])
-    assert {k: v.shape for k, v in flat.items() if k in decode_keys} == \
+    assert {k: v.shape for k, v in flat.items()} == \
         flax_shapes(model)
 
 
 def test_encoder_leaves_are_listed_as_pending(ag_params):
+    """Nothing is left pending any more: every encoder leaf, the AG
+    q_heads [H, 2·90·L] included, loads into the port's encoder."""
     cfg, flat = ag_params
-    report = load_flax_params(CVAEModel.from_config(cfg), flat)
-    assert report.pending and all(k.startswith("encoder/")
-                                  for k in report.pending)
-    assert set(report.pending) == {k for k in flat if k.startswith("encoder/")}
+    model = CVAEModel.from_config(cfg)
+    report = load_flax_params(model, flat)
+    assert not hasattr(report, "pending")
+    enc_keys = {k for k in flat if k.startswith("encoder/")}
+    assert enc_keys and enc_keys <= set(report.loaded)
+    assert flat["encoder/q_heads/kernel"].shape == (32, 2 * 90 * 16)
+    np.testing.assert_array_equal(
+        model.encoder.q_heads.weight.detach().numpy(),
+        flat["encoder/q_heads/kernel"].T)
+    np.testing.assert_array_equal(
+        model.encoder.lstm.cells[0].kernel.detach().numpy(),
+        flat["encoder/lstm/cell_0/kernel"])
 
 
 def test_nested_tree_loads_like_the_flat_one(ag_params):
@@ -132,7 +142,7 @@ def test_checkpoint_round_trip(ag_params, tmp_path):
     ckpt.save_params(flat, str(tmp_path), "run")
     model, vocab2, report = ckpt.load_model(str(tmp_path), "run")
     assert vocab2.idx2word == vocab.idx2word
-    assert report.pending
+    assert set(report.loaded) == set(flat)
     np.testing.assert_array_equal(
         model.decoder.rnn_logits.weight.detach().numpy(),
         flat["decoder/rnn_logits/kernel"].T)
@@ -145,3 +155,31 @@ def test_checkpoint_vocab_mismatch_raises(ag_params, tmp_path):
     ckpt.save_params(flat, str(tmp_path), "run")
     with pytest.raises(ValueError, match="vocab"):
         ckpt.load_model(str(tmp_path), "run")
+
+
+@pytest.mark.parametrize("variant", [
+    dict(prior="Normal", use_c_v=False),
+    dict(prior="Normal", use_c_v=True),
+    dict(prior="GMM", use_c_v=True),
+    dict(prior="AG", use_c_v=True),
+    dict(no_encoder=True, prior="Normal"),
+])
+def test_every_prior_loads_fully_and_exports_back(variant):
+    """A full Flax tree of each prior loads with every key consumed, and
+    export_flax_params gives the same tree back, key for key and bit for
+    bit."""
+    cfg = _cfg(**variant)
+    flat = _flax_params(cfg, seed=2)
+    model = CVAEModel.from_config(cfg)
+    report = load_flax_params(model, flat)
+    assert sorted(report.loaded) == sorted(flat)
+    back = export_flax_params(model)
+    assert set(back) == set(flat)
+    for key, value in flat.items():
+        assert back[key].dtype == np.float32
+        np.testing.assert_array_equal(back[key], value, err_msg=key)
+    again = CVAEModel.from_config(cfg)
+    load_flax_params(again, back)
+    for (name, a), (_, b) in zip(model.named_parameters(),
+                                 again.named_parameters()):
+        assert torch.equal(a, b), name

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: each against its plain version,
-the lowest-index tie rule, the wrappers' checks and launch counts, and a
-small decode through the kernels against the same decode through the
-plain versions.
+the lowest-index tie rule, the wrappers' checks and launch counts, a
+small decode and a few train steps through the kernels against the same
+through the plain versions, and the fused z generator's bits against
+the plain generator's.
 
 Every test needs an NVIDIA GPU with nvcc and skips without one.  This
 file imports no JAX, so it also runs on a machine without it:
@@ -21,8 +22,13 @@ from vae_captioning_torch.inference import PLAIN_OPS, make_decode_fns
 from vae_captioning_torch.models.cvae import CVAEModel
 from vae_captioning_torch.ops.fused_logits_topk import (
     fused_logits_top_k, fused_logits_top_k_plain)
+from vae_captioning_torch.ops.fused_lstm_seq import (fused_lstm_seq,
+                                                     fused_lstm_seq_plain)
 from vae_captioning_torch.ops.fused_lstm_step import (fused_lstm_step,
                                                       fused_lstm_step_plain)
+from vae_captioning_torch.ops.fused_z import (fused_z, fused_z_eps,
+                                              fused_z_plain, philox_bits,
+                                              philox_normals)
 
 pytestmark = pytest.mark.cuda
 
@@ -117,3 +123,134 @@ def test_decode_through_kernels_matches_plain_decode(dev):
         if got.scores is not None:
             torch.testing.assert_close(got.scores, want.scores, rtol=1e-4,
                                        atol=0)
+
+
+# ----------------------------------------------------------------------
+# train-path kernels
+# ----------------------------------------------------------------------
+
+def _seq_args(dev, T, N, E, H, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lim = (6.0 / (E + H + 4 * H)) ** 0.5
+    w = (torch.rand((E + H, 4 * H), generator=g, device=dev) * 2 - 1) * lim
+    lengths = torch.randint(1, T + 1, (N,), generator=g, device=dev,
+                            dtype=torch.int32)
+    lengths[0], lengths[-1] = 1, T
+    return [torch.randn((T, N, E), generator=g, device=dev),
+            w[:E].clone(), w[E:].clone(),
+            0.1 * torch.randn((4 * H,), generator=g, device=dev),
+            torch.randn((N, H), generator=g, device=dev),
+            torch.tanh(torch.randn((N, H), generator=g, device=dev)), lengths]
+
+
+def _rel(a, b):
+    a, b = a.detach().float(), b.detach().float()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-12))
+
+
+@pytest.mark.parametrize("T,N,E,H", [(3, 70, 64, 64), (7, 1000, 256, 512),
+                                     (24, 1280, 256, 512)])
+def test_lstm_seq_kernels_match_plain(dev, T, N, E, H):
+    """Forward and backward.  f32 sums in another order can flip an
+    element of bf16(h), which moves later steps by ~1e-3, and the flips
+    compound over T (at T = 24, 0.993 of the elements of c_T agreed to
+    1e-4 on an H100); so c_T, h_T and hs to 1e-2 of their max and 99% of
+    elements to 1e-4, gradients to 1e-2 of each one's max."""
+    args = _seq_args(dev, T, N, E, H, seed=T + N)
+    leaves = [[a.clone().requires_grad_() for a in args[:6]] for _ in range(2)]
+    g = torch.Generator(device=dev).manual_seed(1)
+    w_hs = torch.randn((T, N, H), generator=g, device=dev)
+    w_c = torch.randn((N, H), generator=g, device=dev)
+    before = dict(_ext.LAUNCHES)
+    outs = []
+    for fn, lv in zip((fused_lstm_seq, fused_lstm_seq_plain), leaves):
+        (ct, ht), hs = fn(*lv, args[6])
+        ((hs.float() * w_hs).sum() + (ct * w_c).sum() + ht.sum()).backward()
+        outs.append((ct, ht, hs))
+    torch.cuda.synchronize()
+    assert _ext.LAUNCHES["fused_lstm_seq_fwd"] == before["fused_lstm_seq_fwd"] + 1
+    assert _ext.LAUNCHES["fused_lstm_seq_bwd"] == before["fused_lstm_seq_bwd"] + 1
+    for a, b in zip(outs[0], outs[1]):
+        assert _rel(a, b) < 1e-2
+        close = (a.detach().float() - b.detach().float()).abs() <= 1e-4
+        assert float(close.float().mean()) > 0.99
+    assert not outs[0][2][:, 0][1:].float().abs().any()     # length-1 row
+    for k, (a, b) in enumerate(zip(leaves[0], leaves[1])):
+        assert _rel(a.grad, b.grad) < 1e-2, k
+
+
+@pytest.mark.parametrize("N,K,L,E", [(70, 3, 150, 64), (1000, 100, 150, 256)])
+def test_fused_z_kernels_match_plain(dev, N, K, L, E):
+    g = torch.Generator(device=dev).manual_seed(N)
+    mean = torch.randn((N, L), generator=g, device=dev)
+    std = torch.rand((N, L), generator=g, device=dev) + 0.3
+    w = 0.05 * torch.randn((E, K * L), generator=g, device=dev)
+    b = torch.randn((E,), generator=g, device=dev)
+    cot = torch.randn((N, E), generator=g, device=dev)
+    leaves = [[t.clone().requires_grad_() for t in (mean, std, w, b)]
+              for _ in range(2)]
+    outs = []
+    for fn, lv in zip((fused_z, fused_z_plain), leaves):
+        out = fn(*lv, K, 77, 5)
+        (out.float() * cot).sum().backward()
+        outs.append(out)
+    torch.cuda.synchronize()
+    assert outs[0].dtype == torch.bfloat16
+    # bf16 outputs: within one bf16 step of the f32 sum's rounding
+    assert _rel(outs[0], outs[1]) < 1e-2
+    for k, (a, c) in enumerate(zip(leaves[0], leaves[1])):
+        assert _rel(a.grad, c.grad) < 1e-3, k
+
+
+def test_fused_z_eps_bits_equal_the_plain_generator(dev):
+    bits = fused_z_eps(123, 9, 300, 7, 150, device=dev, bits=True)
+    assert torch.equal(bits, philox_bits(123, 9, 300, 7, 150, device=dev))
+    eps = fused_z_eps(123, 9, 300, 7, 150, device=dev)
+    assert float((eps - philox_normals(123, 9, 300, 7, 150, device=dev)
+                  ).abs().max()) <= 1e-6
+    # the plain generator's integer ops give the same bits on the CPU
+    assert torch.equal(bits.cpu(), philox_bits(123, 9, 300, 7, 150))
+
+
+def test_train_wrappers_check_their_inputs(dev):
+    args = _seq_args(dev, 3, 8, 32, 64)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        fused_lstm_seq(*args)
+    x, c, h, w, b = _lstm_args(dev, 8, 32, 32)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_lstm_step(x, c, h, w.float().requires_grad_(), b)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        fused_z(torch.zeros(4, 10, device=dev), torch.ones(4, 10, device=dev),
+                torch.zeros(32, 20, device=dev), torch.zeros(32, device=dev),
+                2, 0, 0)
+
+
+def test_train_steps_through_kernels_match_plain(dev):
+    from vae_captioning_torch.models.cvae import PLAIN_TRAIN_OPS
+    from vae_captioning_torch.train import Trainer
+    cfg = Config(embed_size=64, latent_size=16, encoder_hidden=64,
+                 decoder_hidden=128, gen_z_samples=4, prior="Normal")
+    cfg.vocab_size = 300
+    rng = np.random.default_rng(0)
+    B, K, T = 8, 5, 12
+    lengths = rng.integers(2, T + 1, size=B * K).astype(np.int32)
+    labels = rng.integers(3, 300, size=(B * K, T))
+    labels[np.arange(T)[None, :] >= lengths[:, None]] = 0
+    arrays = (torch.randn((B, 4096), device=dev),
+              torch.from_numpy(labels).to(dev),
+              torch.from_numpy(np.roll(labels, 1, axis=1)).to(dev),
+              torch.from_numpy(lengths).to(dev), torch.zeros((B, 90), device=dev))
+    runs, evals = [], []
+    for ops in (None, PLAIN_TRAIN_OPS):
+        tr = Trainer(cfg.replace(), device=dev, **({} if ops is None else {"ops": ops}))
+        runs.append([{k: float(v) for k, v in tr.run_step_arrays(arrays).items()}
+                     for _ in range(3)])
+        # the eval step runs without gradients, so its three conditioning
+        # steps (encoder: image; decoder: image, z) take the decode kernel
+        before = _ext.LAUNCHES["fused_lstm_step"]
+        evals.append(float(tr.eval_step(*arrays, z_seed=3)))
+        assert _ext.LAUNCHES["fused_lstm_step"] - before == 3
+    for got, want in zip(*runs):
+        for key in ("loss", "rec_loss", "kld", "grad_norm"):
+            assert abs(got[key] - want[key]) <= 2e-3 * abs(want[key]), key
+    assert abs(evals[0] - evals[1]) <= 2e-3 * abs(evals[1])

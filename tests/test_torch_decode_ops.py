@@ -14,8 +14,10 @@ from vae_captioning_tpu.data.vocabulary import Vocabulary
 from vae_captioning_torch import inference as tinf
 from vae_captioning_torch.bridge import flax_shapes, load_flax_params
 from vae_captioning_torch.models.cvae import CVAEModel
-from vae_captioning_torch.ops.fused_logits_topk import fused_logits_top_k_plain
-from vae_captioning_torch.ops.fused_lstm_step import fused_lstm_step_plain
+from vae_captioning_torch.ops.fused_logits_topk import (
+    fused_logits_top_k, fused_logits_top_k_plain)
+from vae_captioning_torch.ops.fused_lstm_step import (fused_lstm_step,
+                                                      fused_lstm_step_plain)
 
 B = 16
 
@@ -97,3 +99,51 @@ def test_reordered_decode_matches_plain_decode(model_cfg, name):
     assert torch.equal(got.tokens, want.tokens)
     if want.scores is not None:
         torch.testing.assert_close(got.scores, want.scores, rtol=1e-5, atol=0)
+
+
+def test_inference_kernel_wrappers_refuse_gradients():
+    """The decode kernels have no backward and write their outputs
+    through data_ptr(), so a gradient through them would be silently
+    lost on the card: the wrappers raise under grad mode on every
+    device, and run under no_grad."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(4, 32, generator=g).to(torch.bfloat16)
+    c, h = torch.randn(4, 32, generator=g), torch.randn(4, 32, generator=g)
+    w = torch.randn(64, 128, generator=g).requires_grad_()
+    b = torch.zeros(128)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_lstm_step(x, c, h, w, b)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_logits_top_k(h.to(torch.bfloat16), w[:32].detach().requires_grad_(),
+                           torch.zeros(128), 3)
+    with torch.no_grad():
+        fused_lstm_step(x, c, h, w, b)
+        fused_logits_top_k(h.to(torch.bfloat16), w[:32], torch.zeros(128), 3)
+    # inputs that need no gradient pass under grad mode too
+    fused_lstm_step(x, c, h, w.detach(), b)
+
+
+@pytest.mark.parametrize("weights_need_grad", [True, False])
+def test_lstm_cell_takes_the_kernel_unless_a_gradient_is_wanted(
+        monkeypatch, weights_need_grad):
+    """Under grad mode the cell runs the differentiable plain step only
+    when an input or weight requires grad; otherwise it goes through the
+    decode kernel's wrapper, as under no_grad."""
+    from vae_captioning_torch.ops import lstm as tlstm
+    calls = []
+
+    def spy(*args):
+        calls.append(args[0].shape[0])
+        return fused_lstm_step(*args)
+
+    monkeypatch.setattr(tlstm, "fused_lstm_step", spy)
+    torch.manual_seed(0)
+    cell = tlstm.LSTMCell(32, 32).requires_grad_(weights_need_grad)
+    x, c, h = torch.randn(4, 32), torch.zeros(4, 32), torch.zeros(4, 32)
+    (new_c, new_h), _ = cell((c, h), x)
+    assert calls == ([] if weights_need_grad else [4])
+    assert new_h.requires_grad == weights_need_grad
+    with torch.no_grad():
+        (c2, h2), _ = cell((c, h), x)
+    assert calls[-1] == 4
+    torch.testing.assert_close(h2, new_h.detach(), rtol=0, atol=0)

@@ -1,6 +1,7 @@
-"""The PyTorch port imports and runs without jax, flax, optax, orbax, cv2
-or h5py.  The test process itself has jax loaded (tests/conftest.py), so
-the check runs in a fresh interpreter where those imports are blocked."""
+"""The PyTorch port imports, decodes and trains without jax, flax, optax,
+orbax, cv2 or h5py.  The test process itself has jax loaded
+(tests/conftest.py), so the check runs in a fresh interpreter where
+those imports are blocked."""
 
 import os
 import subprocess
@@ -54,6 +55,17 @@ SCRIPT = textwrap.dedent("""
     with tempfile.TemporaryDirectory() as out:
         written = run_inference(cfg, model, vocab, batcher, batcher, out)
     assert set(written) == {"val", "test"}, written
+
+    from vae_captioning_torch.train import Trainer
+    tcfg = Config(embed_size=32, latent_size=8, encoder_hidden=32,
+                  decoder_hidden=32, gen_z_samples=2, prior="Normal",
+                  num_captions=1, num_epochs=1, num_ex_per_epoch=2,
+                  batch_size=2, prefetch_batches=1)
+    trainer = Trainer(tcfg, vocab_size=vocab.vocab_size, device="cpu")
+    with tempfile.TemporaryDirectory() as out:
+        metrics = trainer.fit(batcher, batcher, checkpoint_dir=out,
+                              log_every=1)
+    assert trainer.host_step >= 1 and metrics["loss"] == metrics["loss"]
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
     print("PORT_MODULES", len(modules))
@@ -67,4 +79,4 @@ def test_port_imports_and_decodes_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split("PORT_MODULES")[1].split()[0])
-    assert n_modules >= 13
+    assert n_modules >= 17

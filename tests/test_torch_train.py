@@ -1,0 +1,365 @@
+"""The train slice of the port (vae_captioning_torch/train.py and the
+training forward of models/cvae.py) against the JAX package: the forward
+and the loss, a 3-step ``make_train_step`` trajectory, the optimizer
+against optax, KL annealing, ``Trainer.fit`` and ``cli --mode training``
+on the synthetic mini-COCO, and the configurations that raise.
+
+The JAX side runs its kernel path (``cfg.fused_force``) with the Pallas
+kernels in interpret mode and ``fused_z._normal_tile`` patched to a
+deterministic function, as ``tests/test_fused_z.py`` does; the port is
+handed the same numbers as the fused z's explicit eps.  E and H are 128,
+the lane width the JAX kernels need."""
+
+import json
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+from flax.traverse_util import flatten_dict
+from jax.experimental import pallas as pl
+
+from vae_captioning_tpu import train as jtrain
+from vae_captioning_tpu.config import Config
+from vae_captioning_tpu.data.features import FeatureStore
+from vae_captioning_tpu.models.cvae import compute_loss as j_compute_loss
+from vae_captioning_tpu.ops import distributions as jdist
+from vae_captioning_tpu.ops import fused_z as jfz
+from vae_captioning_torch import checkpoint as ckpt
+from vae_captioning_torch import cli as tcli
+from vae_captioning_torch import train as ttrain
+from vae_captioning_torch.bridge import export_flax_params, load_flax_params
+from vae_captioning_torch.inference import run_inference
+from vae_captioning_torch.models.cvae import (CVAEModel, TrainOps,
+                                              compute_loss)
+from vae_captioning_torch.ops import distributions as tdist
+from vae_captioning_torch.ops.fused_lstm_seq import fused_lstm_seq_plain
+from vae_captioning_torch.ops.fused_z import fused_z_plain
+
+B, K, T, V = 2, 3, 6, 50
+# loss, rec_loss, kld and grad_norm: f32 sums in another order and the
+# odd bf16 value rounded the other way (measured: 5e-4 at most over 3 steps)
+METRIC_RTOL = 3e-3
+
+
+def _fake_normal(seed0, seed1, s, tag, shape):
+    r = (jax.lax.broadcasted_iota(jnp.int32, shape, 0) * 37
+         + jax.lax.broadcasted_iota(jnp.int32, shape, 1) * 11 + s * 101)
+    return ((r % 97).astype(jnp.float32) / 48.5) - 1.0
+
+
+@pytest.fixture()
+def interpreted(monkeypatch):
+    orig = pl.pallas_call
+
+    def patched(*args, **kwargs):
+        kwargs["interpret"] = True
+        return orig(*args, **kwargs)
+
+    monkeypatch.setattr(pl, "pallas_call", patched)
+    monkeypatch.setattr(jfz, "_normal_tile", _fake_normal)
+
+
+def _cfg(**kw):
+    base = dict(embed_size=128, encoder_hidden=128, decoder_hidden=128,
+                latent_size=16, gen_z_samples=4, prior="Normal",
+                compute_dtype="bfloat16")
+    base.update(kw)
+    cfg = Config(**base)
+    cfg.vocab_size = V
+    cfg.fused_force = True          # JAX: the kernel path on the CPU
+    return cfg
+
+
+def _batch(seed=0):
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(2, T + 1, size=B * K).astype(np.int32)
+    lens[0] = T
+    enc = rng.integers(3, V, size=(B * K, T)).astype(np.int32)
+    dec = np.roll(enc, 1, axis=1)
+    dec[:, 0] = 1
+    for i in range(B * K):
+        enc[i, lens[i]:] = 0
+        dec[i, lens[i]:] = 0
+    return rng.normal(size=(B, 4096)).astype(np.float32), enc, dec, lens
+
+
+def _ops(eps):
+    """The plain versions, with the fused z fed the JAX kernels' eps."""
+    eps_t = torch.from_numpy(eps)
+    return TrainOps(fused_lstm_seq_plain,
+                    lambda mean, std, w, b, n, seed, step: fused_z_plain(
+                        mean, std, w, b, n, eps=eps_t))
+
+
+@pytest.fixture(scope="module")
+def jax_model():
+    cfg = _cfg()
+    # initialised off the kernel path (the same tree; a module fixture
+    # runs before the interpret-mode patch), applied on it
+    _, params = jtrain.init_model(cfg.replace(fused_force=False),
+                                  jax.random.PRNGKey(0))
+    model = jtrain.build_model(cfg)
+    flat = {"/".join(k): np.asarray(v)
+            for k, v in flatten_dict(jax.device_get(params)).items()}
+    return cfg, model, params, flat
+
+
+def _eps(cfg):
+    return np.array(jfz.sample_project_debug_eps(
+        jnp.asarray([0, 0], jnp.int32), B * K, cfg.latent_size,
+        cfg.gen_z_samples))
+
+
+def test_forward_and_loss_match_jax(interpreted, jax_model):
+    cfg, model, params, flat = jax_model
+    feats, enc, dec, lens = _batch()
+    out = model.apply({"params": params}, jnp.asarray(feats), jnp.asarray(enc),
+                      jnp.asarray(dec), jnp.asarray(lens), None,
+                      rngs={"z": jax.random.PRNGKey(3)}, time_major=True)
+    j_loss = j_compute_loss(out, jnp.asarray(enc).T, prior="Normal",
+                            no_encoder=False, annealing=0.5, time_major=True)
+    t_model = CVAEModel.from_config(cfg)
+    load_flax_params(t_model, flat)
+    t_out = t_model(torch.from_numpy(feats), torch.from_numpy(enc).long(),
+                    torch.from_numpy(dec).long(), torch.from_numpy(lens),
+                    ops=_ops(_eps(cfg)), time_major=True)
+    t_loss = compute_loss(t_out, torch.from_numpy(enc).long().t(),
+                          no_encoder=False, annealing=0.5)
+    # f32 heads over the same LSTM state: 1e-4; bf16 logits: one bf16 step
+    for key in ("q_mean", "q_std"):
+        np.testing.assert_allclose(t_out[key].detach().numpy(),
+                                   np.asarray(out[key]), rtol=1e-4, atol=1e-4)
+    assert t_out["logits"].dtype == torch.bfloat16
+    assert t_out["logits"].shape == (T, B * K, V)
+    np.testing.assert_allclose(t_out["logits"].float().detach().numpy(),
+                               np.asarray(out["logits"], np.float32),
+                               rtol=2e-2, atol=2e-2)
+    for key in ("loss", "rec_loss", "kld", "annealing"):
+        np.testing.assert_allclose(float(t_loss[key]), float(j_loss[key]),
+                                   rtol=1e-4, err_msg=key)
+
+
+def test_three_train_steps_match_jax(interpreted, jax_model):
+    cfg, model, params, flat = jax_model
+    feats, enc, dec, lens = _batch(seed=1)
+    tx = jtrain.make_optimizer(cfg)
+    state = jtrain.TrainState.create(params, tx)
+    step = jtrain.make_train_step(model, tx, cfg, donate=False)
+    args = [jnp.asarray(a) for a in (feats, enc, dec, lens)]
+    want = []
+    for _ in range(3):
+        state, m = step(state, *args, None, jax.random.PRNGKey(1))
+        want.append({k: float(v) for k, v in m.items()})
+    trainer = ttrain.Trainer(cfg.replace(), device="cpu", params=flat,
+                             ops=_ops(_eps(cfg)))
+    arrays = (torch.from_numpy(feats), torch.from_numpy(enc).long(),
+              torch.from_numpy(dec).long(), torch.from_numpy(lens),
+              torch.zeros(B, 90))
+    got = [{k: float(v) for k, v in trainer.run_step_arrays(arrays).items()}
+           for _ in range(3)]
+    assert trainer.host_step == 3
+    for i, (g, w) in enumerate(zip(got, want)):
+        for key in ("loss", "rec_loss", "kld", "grad_norm"):
+            assert abs(g[key] - w[key]) <= METRIC_RTOL * abs(w[key]), (i, key, g, w)
+    # the trained weights moved alike: Adam moves an element whose
+    # gradient is at noise level by up to lr either way, so the moves are
+    # compared on average
+    moved = export_flax_params(trainer.model)
+    jp = {"/".join(k): np.asarray(v)
+          for k, v in flatten_dict(jax.device_get(state.params)).items()}
+    for key in ("decoder/rnn_logits/kernel", "encoder/q_heads/kernel",
+                "decoder/lstm/cell_0/kernel"):
+        delta_t, delta_j = moved[key] - flat[key], jp[key] - flat[key]
+        assert (np.abs(delta_t - delta_j).mean()
+                <= 0.02 * np.abs(delta_j).mean()), key
+
+
+@pytest.mark.parametrize("kind", ["Adam", "SGD", "Momentum"])
+def test_optimizer_matches_optax(kind):
+    """Four updates on random gradients, the third one above the clip
+    norm; the SGD and Momentum lr halves after every two updates."""
+    cfg = Config(optimizer=kind, learning_rate=0.01, lstm_clip_by_norm=5.0,
+                 num_ex_per_epoch=64, batch_size=32, num_epochs_per_decay=1)
+    rng = np.random.default_rng(0)
+    shapes = {"a": (7, 3), "b": (5,), "c": (2, 2, 2)}
+    params = {k: rng.normal(size=s).astype(np.float32) for k, s in shapes.items()}
+    tx = jtrain.make_optimizer(cfg)
+    j_params = {k: jnp.asarray(v) for k, v in params.items()}
+    j_state = tx.init(j_params)
+    t_params = [torch.nn.Parameter(torch.from_numpy(params[k].copy()))
+                for k in shapes]
+    opt = ttrain.make_optimizer(cfg, t_params)
+    for i in range(4):
+        scale = 10.0 if i == 2 else 0.3
+        grads = {k: (scale * rng.normal(size=s)).astype(np.float32)
+                 for k, s in shapes.items()}
+        upd, j_state = tx.update({k: jnp.asarray(v) for k, v in grads.items()},
+                                 j_state, j_params)
+        j_params = optax.apply_updates(j_params, upd)
+        norm = opt.step([torch.from_numpy(grads[k]) for k in shapes])
+        np.testing.assert_allclose(float(norm), float(optax.global_norm(
+            {k: jnp.asarray(v) for k, v in grads.items()})), rtol=1e-6)
+        if i == 2:
+            assert float(norm) > cfg.lstm_clip_by_norm
+        for k, p in zip(shapes, t_params):
+            np.testing.assert_allclose(p.detach().numpy(), np.asarray(j_params[k]),
+                                       rtol=1e-5, atol=1e-6, err_msg=f"{kind} {k} {i}")
+
+
+@pytest.mark.parametrize("step,ann,force", [(0, 0.0, False), (0, 5.0, False),
+                                            (4321, 5.0, False), (12000, 3.5, False),
+                                            (10, 5.0, True)])
+def test_kl_annealing_matches_jax(step, ann, force):
+    want = jdist.kl_annealing(jnp.asarray(step, jnp.int32), ann, force)
+    got = tdist.kl_annealing(step, ann, force)
+    assert got.dtype == torch.float32
+    # (tanh + 1) / 2 near tanh = -1 keeps one f32 ulp of tanh: atol 1e-7
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-6, atol=1e-7)
+
+
+def test_kl_standard_normal_matches_jax():
+    rng = np.random.default_rng(2)
+    mean = rng.normal(size=(6, 16)).astype(np.float32)
+    std = rng.uniform(0.2, 2.0, size=(6, 16)).astype(np.float32)
+    mask = np.array([1, 1, 0, 1, 0, 1], bool)
+    for m in (None, mask):
+        want = jdist.kl_standard_normal(jnp.asarray(mean), jnp.asarray(std),
+                                        None if m is None else jnp.asarray(m))
+        got = tdist.kl_standard_normal(torch.from_numpy(mean),
+                                       torch.from_numpy(std),
+                                       None if m is None else torch.from_numpy(m))
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+
+
+def _mini_cfg(mini_coco, tmp_path, **kw):
+    base = dict(coco_dir=mini_coco, cache_dir=str(tmp_path / "cache"),
+                obj_vectors_dir=str(tmp_path / "obj"),
+                checkpoint_dir=str(tmp_path / "ckpt"), checkpoint="run",
+                embed_size=32, encoder_hidden=32, decoder_hidden=32,
+                latent_size=8, gen_z_samples=2, batch_size=4, num_epochs=1,
+                num_ex_per_epoch=8, gen_val_captions=2, gen_max_len=5,
+                beam_size=2, prefetch_batches=1, hdf5_file="",
+                raw_images_file="")
+    base.update(kw)
+    return Config(**base)
+
+
+def _feature_caches(mini_coco, cache_dir, splits=("train2014", "val2014",
+                                                  "test2014")):
+    rng = np.random.default_rng(0)
+    os.makedirs(cache_dir, exist_ok=True)
+    for split in splits:
+        files = sorted(os.listdir(os.path.join(mini_coco, "images", split)))
+        FeatureStore(files, rng.normal(size=(len(files), 4096))).save(
+            os.path.join(cache_dir, f"{split}.features.npz"))
+
+
+def test_fit_one_epoch_then_decode_the_checkpoint(mini_coco, tmp_path, capsys):
+    from vae_captioning_tpu.data.dataset import Data
+    cfg = _mini_cfg(mini_coco, tmp_path)
+    _feature_caches(mini_coco, cfg.cache_dir)
+    data = Data(cfg, extract_features=True)
+    trainer = ttrain.Trainer(cfg, vocab_size=data.vocab.vocab_size, device="cpu")
+    ckpt.save_sidecars(cfg, data.vocab, cfg.checkpoint_dir, "run")
+    before = export_flax_params(trainer.model)
+    metrics = trainer.fit(data.train_batcher(), data.val_batcher(),
+                          checkpoint_dir=cfg.checkpoint_dir,
+                          checkpoint_name="run", log_every=1)
+    out = capsys.readouterr().out
+    assert "Iteration: 1 VLB" in out and "Validation reconstruction loss" in out
+    assert trainer.host_step >= 3 and np.isfinite(metrics["loss"])
+    assert np.isfinite(metrics["val_rec_loss"])
+    model, vocab, report = ckpt.load_model(cfg.checkpoint_dir, "run")
+    saved = ckpt.load_params(cfg.checkpoint_dir, "run")
+    assert set(report.loaded) == set(saved) == set(before)
+    assert any(np.abs(saved[k] - before[k]).max() > 0 for k in before)
+    np.testing.assert_array_equal(
+        model.encoder.q_heads.weight.detach().numpy(),
+        saved["encoder/q_heads/kernel"].T)
+    written = run_inference(cfg.replace(mode="inference"), model, vocab,
+                            data.val_batcher(4), data.test_batcher(4),
+                            output_dir=str(tmp_path))
+    with open(written["val"]) as f:
+        assert len(json.load(f)) == 2          # gen_val_captions holdout
+    with open(written["test"]) as f:
+        assert len(json.load(f)) == 4
+
+
+def test_cli_training_end_to_end(mini_coco, tmp_path, monkeypatch):
+    cfg = _mini_cfg(mini_coco, tmp_path)
+    monkeypatch.chdir(tmp_path)
+    argv = ["--mode", "training", "--coco_dir", mini_coco, "--device", "cpu",
+            "--epochs", "1", "--bs", "4", "--checkpoint", "run",
+            "--set", f"cache_dir={cfg.cache_dir}",
+            "--set", f"checkpoint_dir={cfg.checkpoint_dir}",
+            "--set", f"obj_vectors_dir={cfg.obj_vectors_dir}",
+            "--set", "embed_size=32", "--set", "encoder_hidden=32",
+            "--set", "decoder_hidden=32", "--set", "latent_size=8",
+            "--set", "gen_z_samples=2", "--set", "num_ex_per_epoch=8",
+            "--set", "gen_val_captions=2"]
+    with pytest.raises(FileNotFoundError, match="feature cache"):
+        tcli.main(argv)
+    _feature_caches(mini_coco, cfg.cache_dir, ("train2014", "val2014"))
+    tcli.main(argv)
+    base = os.path.join(cfg.checkpoint_dir, "run")
+    assert sorted(os.listdir(base)) == ["config.json", "params.npz",
+                                        "vocab.json"]
+    model, vocab, _ = ckpt.load_model(cfg.checkpoint_dir, "run")
+    assert model.encoder is not None and vocab.vocab_size > 3
+
+
+@pytest.mark.parametrize("override,item", [
+    (dict(prior="AG"), "B.5"),
+    (dict(prior="GMM"), "A.6.2"),
+    (dict(restore=True), "A.6.3"),
+    (dict(dec_lstm_drop=0.5), "D.6"),
+    (dict(encoder_rnn_layers=2), "D.1"),
+    (dict(decoder_rnn_layers=2), "D.1"),
+    (dict(compute_dtype="float32"), "D.2"),
+    (dict(fine_tune=True), "A.8"),
+    (dict(ce_hybrid=True), "B.9"),
+    (dict(eval_metrics=True), "A.6.4"),
+])
+def test_uncovered_training_configurations_raise(override, item):
+    cfg = _cfg(**override)
+    with pytest.raises(NotImplementedError, match=item.replace(".", r"\.")):
+        ttrain.check_supported_training(cfg)
+    with pytest.raises(NotImplementedError, match=item.replace(".", r"\.")):
+        ttrain.Trainer(cfg, device="cpu")
+
+
+def test_baseline_without_encoder_trains():
+    cfg = _cfg(no_encoder=True, embed_size=32, decoder_hidden=32)
+    trainer = ttrain.Trainer(cfg, device="cpu")
+    feats, enc, dec, lens = _batch(seed=4)
+    arrays = (torch.from_numpy(feats), torch.from_numpy(enc).long(),
+              torch.from_numpy(dec).long(), torch.from_numpy(lens),
+              torch.zeros(B, 90))
+    m = [trainer.run_step_arrays(arrays) for _ in range(3)]
+    assert float(m[0]["kld"]) == 0.0
+    assert float(m[2]["loss"]) < float(m[0]["loss"])
+
+
+def test_caption_input_dropout():
+    cfg = _cfg(dec_keep_rate=0.5, embed_size=32, encoder_hidden=32,
+               decoder_hidden=32)
+    trainer = ttrain.Trainer(cfg, device="cpu")
+    assert trainer.dropout is not None
+    feats, enc, dec, lens = _batch(seed=5)
+    arrays = (torch.from_numpy(feats), torch.from_numpy(enc).long(),
+              torch.from_numpy(dec).long(), torch.from_numpy(lens),
+              torch.zeros(B, 90))
+    assert np.isfinite(float(trainer.run_step_arrays(arrays)["loss"]))
+    model = trainer.model
+    carry = model.decoder.lstm.zero_carry(B * K)
+    args = (carry, torch.from_numpy(dec).long(), torch.from_numpy(lens))
+    with torch.no_grad():
+        a = model.decoder.teacher_forcing(*args)
+        b = model.decoder.teacher_forcing(
+            *args, dropout=torch.Generator().manual_seed(0))
+        assert not torch.equal(a, b)
+        assert torch.equal(a, model.decoder.teacher_forcing(*args))

@@ -1,10 +1,12 @@
 """vae_captioning_torch — the PyTorch / CUDA port of vae_captioning_tpu.
 
-The decode path of the AG-CVAE on precomputed VGG16 fc2 features, run on
-an NVIDIA H100 through two hand-written CUDA kernels
-(``csrc/fused_lstm_step.cu``, ``csrc/fused_logits_topk.cu``).  Module
-names mirror ``vae_captioning_tpu`` so each counterpart is easy to find;
-the JAX package stays the reference the port is tested against.
+On precomputed VGG16 fc2 features, run on an NVIDIA H100 through
+hand-written CUDA kernels: the decode path of the CVAEs
+(``csrc/fused_lstm_step.cu``, ``csrc/fused_logits_topk.cu``) and the
+train step of the Normal-prior CVAE (``csrc/fused_lstm_seq.cu``,
+``csrc/fused_z.cu``, forward and backward).  Module names mirror
+``vae_captioning_tpu`` so each counterpart is easy to find; the JAX
+package stays the reference the port is tested against.
 
 The package imports ``torch`` and never ``jax``.  It reuses the
 reference's numpy-only modules (``vae_captioning_tpu.config`` and the

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-The sources in ``csrc/`` are compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, at first use, into ``_build/``
-beside this file.  The library's name carries a hash of the sources and
-flags, so an edited kernel is rebuilt and a built one is reused.  It is
-loaded with ctypes; every C entry point returns a ``cudaError_t`` that
-:func:`check_launch` turns into an exception.
+Each source in ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
+shared library of its own with a plain C interface, at first use, into
+``_build/`` beside this file: one ``nvcc -shared`` per source, all
+started together.  A library's name carries a hash of its source and
+the flags, so an edited kernel is rebuilt and a built one is reused.
+The libraries are loaded with ctypes; every C entry point returns a
+``cudaError_t`` that :func:`check_launch` turns into an exception.
 
 Nothing here runs when the package is imported: the CPU tests import
 every module on a machine without ``nvcc``.
@@ -20,6 +21,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from types import SimpleNamespace
 from typing import Dict, Optional
 
 import torch
@@ -28,27 +30,36 @@ PACKAGE_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 # Launches per kernel wrapper: each wrapper adds one where it launches its
 # kernel, so a run can show that its main path went through the kernels.
-LAUNCHES: Dict[str, int] = {"fused_lstm_step": 0, "fused_logits_top_k": 0}
+LAUNCHES: Dict[str, int] = {
+    "fused_lstm_step": 0, "fused_logits_top_k": 0,
+    "fused_lstm_seq_fwd": 0, "fused_lstm_seq_bwd": 0,
+    "fused_z_fwd": 0, "fused_z_bwd": 0, "fused_z_eps": 0}
 
-_lib: Optional[ctypes.CDLL] = None
-# Seconds the first library() call spent compiling (0.0 when the library
-# for these sources was already built), and nvcc's output (register and
-# shared-memory use per kernel, from -Xptxas=-v).
+_lib: Optional[SimpleNamespace] = None
+# Seconds the first library() call spent compiling (0.0 when every
+# library for these sources was already built), and nvcc's output
+# (register and shared-memory use per kernel, from -Xptxas=-v).
 build_seconds: Optional[float] = None
 build_log: str = ""
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
 _SIGNATURES = {
     "vct_fused_lstm_step": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                             ctypes.c_float, _P],
     "vct_fused_logits_top_k": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _P],
     "vct_logits_top_k_lanes": [],
+    "vct_fused_lstm_seq_fwd": [_P] * 11 + [_I] * 4 + [_P],
+    "vct_fused_lstm_seq_bwd": [_P] * 23 + [_I] * 6 + [_P],
+    "vct_fused_z_fwd": [_P] * 6 + [_I] * 5 + [_U, _U, _P],
+    "vct_fused_z_bwd": [_P] * 7 + [_I] * 4 + [_U, _U, _P],
+    "vct_fused_z_eps": [_P] + [_I] * 3 + [_U, _U, _I, _P],
 }
 
 
@@ -69,47 +80,56 @@ def _nvcc() -> str:
 
 
 def _sources():
-    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+    return sorted(CSRC_DIR.glob("*.cu"))
 
 
-def library_path() -> Path:
+def library_path(src: Path) -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
-        digest.update(src.name.encode())
-        digest.update(src.read_bytes())
-    return BUILD_DIR / f"libvct_kernels_{digest.hexdigest()[:16]}.so"
+    digest.update(src.read_bytes())
+    return BUILD_DIR / f"lib{src.stem}_{digest.hexdigest()[:16]}.so"
 
 
-def _build() -> Path:
+def _build() -> list:
+    """Compile every source whose library is missing, one nvcc each, all
+    started together; returns every source's library path."""
     global build_seconds, build_log
-    out = library_path()
-    if out.exists():
-        build_seconds = 0.0
-        return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{build_log}")
-    os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
-    return out
+    jobs = []
+    for src in _sources():
+        out = library_path(src)
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), str(src)]
+        jobs.append((cmd, tmp, out, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for cmd, tmp, out, proc in jobs:
+        logs.append(f"$ {' '.join(cmd)}\n{proc.communicate()[0]}")
+        if proc.returncode != 0:
+            failed.append(cmd[-1])
+        else:
+            os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    build_seconds = time.perf_counter() - t0 if jobs else 0.0
+    build_log = "\n".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n{build_log}")
+    return [library_path(src) for src in _sources()]
 
 
-def library() -> ctypes.CDLL:
-    """The kernels' shared library, built on the first call."""
+def library() -> SimpleNamespace:
+    """The kernels' C entry points, by name; built on the first call."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(_build()))
+        libs = [ctypes.CDLL(str(path)) for path in _build()]
+        fns = {}
         for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
+            fn = next(getattr(lib, name) for lib in libs if hasattr(lib, name))
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        _lib = lib
+            fns[name] = fn
+        _lib = SimpleNamespace(**fns)
     return _lib
 
 
@@ -129,6 +149,19 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
         return False
     raise ValueError("tensors must all lie on the CPU or all on one CUDA "
                      f"device, got {sorted(str(d) for d in devices)}")
+
+
+def forbid_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Inference kernels have no backward, and their outputs, written
+    through ``data_ptr()``, would be cut off from autograd.  Their
+    wrappers call this on every device, the CPU included, so the CPU
+    tests see what the card would do: RuntimeError when grad mode is on
+    and an input requires grad."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} is an inference kernel with no backward: call it "
+            "under torch.no_grad() / torch.inference_mode(), or use its "
+            "plain version for a differentiable step")
 
 
 def require(cond: bool, msg: str) -> None:

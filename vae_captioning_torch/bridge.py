@@ -1,4 +1,4 @@
-"""Flax parameters → the port's modules.
+"""Flax parameters ↔ the port's modules.
 
 The reference keeps its parameters as a Flax tree: nested dicts keyed by
 module name (``models/cvae.py``: ``imf_emb``, ``cv_emb``, ``encoder``,
@@ -12,8 +12,10 @@ flattened to ``"a/b/c"`` keys, of numpy arrays into a port model:
   the CUDA kernel reads.
 
 Every parameter the port has must be present with its shape; a key the
-port does not know, or a wrong shape, raises ``ValueError``.  Subtrees
-of parts not ported yet (the encoder) are listed as pending instead.
+port does not know, or a wrong shape, raises ``ValueError``.  The port
+has a counterpart for every parameter of every prior's tree, the
+encoder's included.  :func:`export_flax_params` is the inverse: a
+trained port model back to flat Flax keys.
 """
 
 from __future__ import annotations
@@ -25,15 +27,9 @@ import numpy as np
 import torch
 from torch import nn
 
-# top-level Flax subtrees the port does not consume yet: the encoder
-# comes with the train-step slice (ROADMAP A.3)
-PENDING = ("encoder",)
-
-
 @dataclass
 class BridgeReport:
     loaded: List[str] = field(default_factory=list)    # Flax keys copied
-    pending: List[str] = field(default_factory=list)   # Flax keys left
 
 
 def flatten(params: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -85,9 +81,6 @@ def load_flax_params(model: nn.Module, params: Mapping[str, Any]
     staged: Dict[str, torch.Tensor] = {}
     for key in sorted(flat):
         if key not in layout:
-            if key.split("/")[0] in PENDING:
-                report.pending.append(key)
-                continue
             raise ValueError(f"unknown Flax parameter {key!r}: the port "
                              "has no counterpart for it")
         name, transpose = layout[key]
@@ -109,3 +102,14 @@ def load_flax_params(model: nn.Module, params: Mapping[str, Any]
         for name, value in staged.items():
             targets[name].copy_(value)
     return report
+
+
+def export_flax_params(model: nn.Module) -> Dict[str, np.ndarray]:
+    """``{flax key: f32 array in the Flax layout}`` for every parameter of
+    ``model``: the inverse of :func:`load_flax_params`."""
+    params = dict(model.named_parameters())
+    out: Dict[str, np.ndarray] = {}
+    for key, (name, transpose) in flax_layout(model).items():
+        value = params[name].detach().float().cpu()
+        out[key] = (value.t() if transpose else value).contiguous().numpy()
+    return out

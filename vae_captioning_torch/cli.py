@@ -1,15 +1,21 @@
 """Command line of the port (``python -m vae_captioning_torch.cli``),
 counterpart of ``vae_captioning_tpu/cli.py``.
 
-Inference only: restore a checkpoint (``checkpoint.py``), decode the val
-split with ``--sample_gen`` and the test split greedily, and write
-``val_<gen_name>.json`` / ``test_<gen_name>.json`` into the working
-directory.  The flags are the reference's (``vae_captioning_tpu.config``)
-plus ``--device`` (default ``cuda``).  Training is not ported yet.
+* ``--mode training``: build the data, train with ``Trainer.fit``
+  (``train.py``) and write ``config.json`` / ``vocab.json`` and, after
+  every epoch, ``params.npz`` into ``<checkpoint_dir>/<checkpoint>/``.
+  Configurations the train slice does not cover raise
+  NotImplementedError (``train.check_supported_training``).
+* ``--mode inference``: restore a checkpoint (``checkpoint.py``), decode
+  the val split with ``--sample_gen`` and the test split greedily, and
+  write ``val_<gen_name>.json`` / ``test_<gen_name>.json`` into the
+  working directory.
 
-Features come from the caches ``<cache_dir>/<split>.features.npz``
-only: extracting them needs the VGG16 model, which is not ported yet, so
-a missing cache raises instead of reaching the JAX extractor.
+The flags are the reference's (``vae_captioning_tpu.config``) plus
+``--device`` (default ``cuda``).  Features come from the caches
+``<cache_dir>/<split>.features.npz`` only: extracting them needs the
+VGG16 model, which is not ported yet, so a missing cache raises instead
+of reaching the JAX extractor.
 """
 
 from __future__ import annotations
@@ -23,17 +29,22 @@ import torch
 from vae_captioning_tpu.config import Config, parse_args
 from vae_captioning_tpu.data.coco import coco_paths
 from vae_captioning_tpu.data.dataset import Data
-from vae_captioning_torch.checkpoint import load_model, load_sidecars
+from vae_captioning_torch.checkpoint import (load_model, load_sidecars,
+                                             save_sidecars)
 from vae_captioning_torch.inference import check_supported, run_inference
+from vae_captioning_torch.train import Trainer, check_supported_training
 
 
-def check_feature_caches(cfg: Config) -> None:
-    """Every split the inference pass reads needs its feature cache."""
+def check_feature_caches(cfg: Config, training: bool = False) -> None:
+    """Every split the run reads needs its feature cache: train and val
+    for training, val and (when it has images) test for inference."""
     paths = coco_paths(cfg.coco_dir)
     split_dirs = [paths["valid_dir"]]
     test_dir = paths["test_dir"]
-    if os.path.isdir(test_dir) and any(f.endswith(".jpg")
-                                       for f in os.listdir(test_dir)):
+    if training:
+        split_dirs.append(paths["train_dir"])
+    elif os.path.isdir(test_dir) and any(f.endswith(".jpg")
+                                         for f in os.listdir(test_dir)):
         split_dirs.append(test_dir)
     for split_dir in split_dirs:
         split = os.path.basename(os.path.normpath(split_dir))
@@ -43,6 +54,20 @@ def check_feature_caches(cfg: Config) -> None:
                 f"no feature cache {cache}: feature extraction (VGG16) is "
                 "not ported yet (ROADMAP A.8); extract the features with "
                 "python -m vae_captioning_tpu.data.features first")
+
+
+def run_training(cfg: Config, device: torch.device,
+                 data: Optional[Data] = None) -> Trainer:
+    check_supported_training(cfg)
+    if data is None:
+        check_feature_caches(cfg, training=True)
+        data = Data(cfg, extract_features=True)
+    trainer = Trainer(cfg, vocab_size=data.vocab.vocab_size, device=device)
+    save_sidecars(cfg, data.vocab, cfg.checkpoint_dir, cfg.checkpoint)
+    trainer.fit(data.train_batcher(), data.val_batcher(),
+                checkpoint_dir=cfg.checkpoint_dir,
+                checkpoint_name=cfg.checkpoint)
+    return trainer
 
 
 def run_inference_mode(cfg: Config, device: torch.device,
@@ -74,14 +99,14 @@ def run_inference_mode(cfg: Config, device: torch.device,
 def main(argv=None) -> None:
     pre = argparse.ArgumentParser(add_help=False)
     pre.add_argument("--device", default="cuda",
-                     help="torch device to decode on (default: cuda)")
+                     help="torch device to train or decode on (default: cuda)")
     known, rest = pre.parse_known_args(argv)
     cfg = parse_args(rest)
+    device = torch.device(known.device)
     if cfg.mode == "training":
-        raise NotImplementedError(
-            "training is not ported yet (ROADMAP A.6); use "
-            "python -m vae_captioning_tpu.cli for training")
-    run_inference_mode(cfg, torch.device(known.device))
+        run_training(cfg, device)
+    else:
+        run_inference_mode(cfg, device)
 
 
 if __name__ == "__main__":

@@ -1,25 +1,43 @@
-"""The captioning model, decode half (counterpart of
+"""The captioning model and its loss (counterpart of
 ``vae_captioning_tpu/models/cvae.py``).
 
-One module covers the reference's variants at decode time: the
-no-encoder baseline (no z), and the Normal, GMM and AG-prior CVAEs, which
-draw z from the prior.  The AG prior centres z on the mean of the
-image's active cluster means.  The encoder, the training forward and the
-loss wait for the train-step slice; their Flax parameters are reported
-by the bridge as not yet consumed.
+One module covers the reference's variants: the no-encoder baseline (no
+z), and the Normal, GMM and AG-prior CVAEs.  At decode time z is drawn
+from the prior; the AG prior centres it on the mean of the image's
+active cluster means.  The training forward runs the encoder, the fused
+z sampling + projection and teacher forcing; it is ported for the
+Normal prior and the baseline (the GMM and AG heads raise, ROADMAP A.6
+and B.5).  Every Flax parameter of every prior has its counterpart here.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 
 from vae_captioning_tpu.config import Config
 from vae_captioning_torch.models.decoder import Decoder, LSTMStep
+from vae_captioning_torch.models.encoder import Encoder
 from vae_captioning_torch.ops import distributions as dist
+from vae_captioning_torch.ops.fused_lstm_seq import (fused_lstm_seq,
+                                                     fused_lstm_seq_plain)
+from vae_captioning_torch.ops.fused_z import fused_z, fused_z_plain
 from vae_captioning_torch.ops.lstm import Carry
+
+
+class TrainOps(NamedTuple):
+    """The train path's two kernel operations.  The train step uses the
+    kernel wrappers; comparisons on the card and the tests swap in the
+    plain versions (or a ``sample_project`` with explicit eps)."""
+
+    lstm_seq: Callable = fused_lstm_seq
+    sample_project: Callable = fused_z
+
+
+KERNEL_TRAIN_OPS = TrainOps()
+PLAIN_TRAIN_OPS = TrainOps(fused_lstm_seq_plain, fused_z_plain)
 
 
 class CVAEModel(nn.Module):
@@ -33,7 +51,8 @@ class CVAEModel(nn.Module):
                  gen_z_samples: int = 100, prior: str = "Normal",
                  no_encoder: bool = False, use_c_v: bool = False,
                  decode_std: float = 0.1, cluster_seed: int = 0,
-                 cnn_feature_size: int = 4096):
+                 cnn_feature_size: int = 4096, encoder_hidden: int = 512,
+                 encoder_layers: int = 1, dec_keep_rate: float = 1.0):
         super().__init__()
         self.latent_size = latent_size
         self.gen_z_samples = gen_z_samples
@@ -44,10 +63,14 @@ class CVAEModel(nn.Module):
         self.imf_emb = nn.Linear(cnn_feature_size, embed_size)
         self.cv_emb = (nn.Linear(num_clusters, embed_size)
                        if self.needs_c_v else None)
+        self.encoder = None if no_encoder else Encoder(
+            vocab_size, embed_size, encoder_hidden, latent_size,
+            encoder_layers, prior, num_clusters, use_c_v)
         self.decoder = Decoder(
             vocab_size, embed_size, decoder_hidden, decoder_layers,
             use_c_v=use_c_v,
-            z_input_size=None if no_encoder else gen_z_samples * latent_size)
+            z_input_size=None if no_encoder else gen_z_samples * latent_size,
+            dec_keep_rate=dec_keep_rate)
         # fixed (non-trainable) cluster means, deterministic in the seed
         self.register_buffer("cluster_means", torch.from_numpy(
             dist.init_cluster_means(num_clusters, latent_size, cluster_seed)))
@@ -63,11 +86,53 @@ class CVAEModel(nn.Module):
             num_clusters=cfg.num_clusters, gen_z_samples=cfg.gen_z_samples,
             prior=cfg.prior, no_encoder=cfg.no_encoder, use_c_v=cfg.use_c_v,
             decode_std=cfg.std, cluster_seed=cfg.seed,
-            cnn_feature_size=cfg.cnn_feature_size)
+            cnn_feature_size=cfg.cnn_feature_size,
+            encoder_hidden=cfg.encoder_hidden,
+            encoder_layers=cfg.encoder_rnn_layers,
+            dec_keep_rate=cfg.dec_keep_rate)
 
     @property
     def needs_c_v(self) -> bool:
         return self.use_c_v or self.prior in ("GMM", "AG")
+
+    # ------------------------------------------------------------------
+    def forward(self, features: torch.Tensor, enc_captions: torch.Tensor,
+                dec_captions: torch.Tensor, lengths: torch.Tensor,
+                c_v: Optional[torch.Tensor] = None, z_seed: int = 0,
+                z_step: int = 0, ops: TrainOps = KERNEL_TRAIN_OPS,
+                time_major: bool = True,
+                dropout: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+        """Training and eval forward.  features [B, 4096], enc_captions
+        [B·K, T] (w1..wN <EOS>), dec_captions [B·K, T] (<BOS> w1..wN),
+        lengths [B·K], c_v [B, 90] → {"logits": [T, B·K, V] bf16 (or [B·K,
+        T, V] without ``time_major``), "q_mean", "q_std": [B·K, L] f32}.
+        K is read from the shapes and the image rows are repeated K times
+        after the embedding.  (z_seed, z_step) key the fused z noise;
+        ``dropout`` (a generator) turns on the caption-input dropout."""
+        B = features.shape[0]
+        K = enc_captions.shape[0] // B
+        images_fv = self.imf_emb(features.float())
+        c_emb = None
+        if self.needs_c_v and c_v is not None:
+            c_emb = self.cv_emb(c_v.float())
+        if K > 1:
+            images_fv = images_fv.repeat_interleave(K, dim=0)
+            c_emb = None if c_emb is None else c_emb.repeat_interleave(K, dim=0)
+        out: Dict[str, torch.Tensor] = {}
+        z_dec = None
+        if not self.no_encoder:
+            q_mean, q_std = self.encoder(images_fv, enc_captions, lengths,
+                                         c_emb, seq_fn=ops.lstm_seq)
+            z_dec = self.decoder.sample_z_embedding_fused(
+                q_mean, q_std, self.gen_z_samples, z_seed, z_step,
+                ops.sample_project)
+            out["q_mean"], out["q_std"] = q_mean, q_std
+        carry = self.decoder.init_state(images_fv, c_emb, z_dec)
+        out["logits"] = self.decoder.teacher_forcing(
+            carry, dec_captions, lengths, seq_fn=ops.lstm_seq,
+            time_major=time_major, dropout=dropout)
+        return out
 
     # ------------------------------------------------------------------
     def decode_init(self, features: torch.Tensor,
@@ -123,3 +188,39 @@ def decoder_step_params(model: CVAEModel
     dec = model.decoder
     cell = dec.lstm.cells[0]
     return dec.dec_embeddings.weight, cell.kernel, cell.bias
+
+
+# ----------------------------------------------------------------------
+# loss
+# ----------------------------------------------------------------------
+
+def compute_loss(outputs: Dict[str, torch.Tensor], labels: torch.Tensor,
+                 *, no_encoder: bool, annealing=1.0,
+                 time_major: bool = True) -> Dict[str, torch.Tensor]:
+    """Masked CE + standard-normal KL + annealing → the lower bound.
+
+    rec: softmax CE at every position over the bf16 logits with f32
+    sums, PAD (label 0) masked, the mean taken over real tokens.  total
+    = rec + annealing·kld/10.  ``labels`` is [T, B·K] when the forward
+    ran ``time_major`` (as the train step runs it), else [B·K, T].  The
+    CE is plain PyTorch, as the JAX package's default train step takes
+    its plain CE branch."""
+    logits = outputs["logits"]
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    sumexp = torch.exp((logits - m).float()).sum(dim=-1)
+    lse = torch.log(sumexp) + m[..., 0].float()
+    label_logit = torch.gather(logits, -1, labels.long().unsqueeze(-1))
+    ce = lse - label_logit[..., 0].float()
+    mask = (labels != 0).float()
+    rec_loss = (ce * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    # rows that are all padding do not count in the KL mean either
+    row_mask = (labels != 0).any(dim=0 if time_major else -1)
+    if no_encoder:
+        kld = torch.zeros((), dtype=torch.float32, device=logits.device)
+    else:
+        kld = dist.kl_standard_normal(outputs["q_mean"], outputs["q_std"],
+                                      row_mask=row_mask)
+    annealing = torch.as_tensor(annealing, dtype=torch.float32,
+                                device=logits.device)
+    return {"loss": rec_loss + annealing * kld / 10.0, "rec_loss": rec_loss,
+            "kld": kld, "annealing": annealing}

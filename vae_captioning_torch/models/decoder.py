@@ -1,10 +1,13 @@
-"""Caption decoder p(x | z, f(I)), decode half (counterpart of
+"""Caption decoder p(x | z, f(I)) (counterpart of
 ``vae_captioning_tpu/models/decoder.py``).
 
 The init-state protocol is kept: step the LSTM on the embedded image
 feature, optionally on the embedded cluster vector, then on the
-z-projection; the resulting carry seeds incremental decoding.  Teacher
-forcing waits for the train-step slice.
+z-projection; the resulting carry seeds teacher-forced training and
+incremental decoding alike.  At train time the z step input comes from
+the fused z sampling + projection (``ops/fused_z.py``), the caption runs
+through the masked sequence layer and the ``rnn_logits`` head computes
+in bf16.
 
 Submodule names follow the Flax tree (``dec_embeddings``, ``lstm``,
 ``z_rnn``, ``rnn_logits``) so the bridge maps them one to one.  The
@@ -19,7 +22,9 @@ from typing import Callable, Optional, Tuple
 import torch
 from torch import nn
 
-from vae_captioning_torch.ops.lstm import Carry, LSTMStack
+from vae_captioning_torch.ops.fused_lstm_seq import fused_lstm_seq
+from vae_captioning_torch.ops.fused_z import fused_z
+from vae_captioning_torch.ops.lstm import Carry, LSTMStack, SeqFn
 
 # one LSTM step of the whole stack: (carry, x [B, E]) → (carry, h [B, H])
 LSTMStep = Callable[[Carry, torch.Tensor], Tuple[Carry, torch.Tensor]]
@@ -28,9 +33,11 @@ LSTMStep = Callable[[Carry, torch.Tensor], Tuple[Carry, torch.Tensor]]
 class Decoder(nn.Module):
     def __init__(self, vocab_size: int, embed_size: int, hidden_size: int,
                  num_layers: int = 1, use_c_v: bool = False,
-                 z_input_size: Optional[int] = None):
+                 z_input_size: Optional[int] = None,
+                 dec_keep_rate: float = 1.0):
         super().__init__()
         self.use_c_v = use_c_v
+        self.dec_keep_rate = dec_keep_rate   # caption-input dropout
         self.dec_embeddings = nn.Embedding(vocab_size, embed_size)
         self.lstm = LSTMStack(embed_size, hidden_size, num_layers)
         # z_rnn exists only for the CVAE variants (K_z·L → E); the
@@ -83,6 +90,41 @@ class Decoder(nn.Module):
                               device=z_mean.device, dtype=torch.float32)
         noise = eps.float() @ chol.t()
         return mean_part + float(std) * noise
+
+    # ------------------------------------------------------------------
+    def sample_z_embedding_fused(self, q_mean: torch.Tensor,
+                                 q_std: torch.Tensor, n_samples: int,
+                                 seed: int, step: int,
+                                 sample_project: Callable = fused_z
+                                 ) -> torch.Tensor:
+        """Train-time z step input [B, E] bf16: ``z_rnn`` of the K_z
+        reparameterised draws of N(q_mean, q_std²), sampled and projected
+        in one fused pass keyed on (seed, step) (``ops/fused_z.py``)."""
+        return sample_project(q_mean, q_std, self.z_rnn.weight,
+                              self.z_rnn.bias, n_samples, seed, step)
+
+    def teacher_forcing(self, carry: Carry, dec_inputs: torch.Tensor,
+                        lengths: torch.Tensor, seq_fn: SeqFn = fused_lstm_seq,
+                        time_major: bool = False,
+                        dropout: Optional[torch.Generator] = None
+                        ) -> torch.Tensor:
+        """Full-sequence logits in bf16: dec_inputs [B, T] (<BOS> w1 ...),
+        lengths [B] → [B, T, V], or [T, B, V] with ``time_major`` (the
+        train step's layout).  The head rounds as the Flax Dense with
+        ``dtype=bfloat16`` does: bf16(h16 @ W16) + bf16(b).  With
+        ``dropout`` (a generator) and ``dec_keep_rate`` < 1 the inputs
+        are dropped out first."""
+        x = self.dec_embeddings(dec_inputs)
+        if self.dec_keep_rate < 1.0 and dropout is not None:
+            keep = self.dec_keep_rate
+            mask = torch.rand(x.shape, generator=dropout,
+                              device=dropout.device) < keep
+            x = torch.where(mask.to(x.device), x / keep, 0.0)
+        _, hs = self.lstm(carry, x, lengths, time_major_out=time_major,
+                          seq_fn=seq_fn)
+        bf16 = torch.bfloat16
+        w16 = self.rnn_logits.weight.to(bf16).t()
+        return torch.matmul(hs.to(bf16), w16) + self.rnn_logits.bias.to(bf16)
 
     # ------------------------------------------------------------------
     def step_hidden(self, carry: Carry, tokens: torch.Tensor

@@ -1,14 +1,72 @@
-"""Decode-time latent-space maths (counterpart of the decode half of
-``vae_captioning_tpu/ops/distributions.py``).
+"""Latent-space maths (counterpart of
+``vae_captioning_tpu/ops/distributions.py``): reparameterised sampling,
+the standard-normal KL, KL annealing, the cluster means and the AG
+decode-time prior mean.
 
-The KL terms and ``sample_gaussian`` belong to training and wait for
-the train-step slice.
+The AG and GMM KL terms (``kl_ag``, ``kl_gmm``) come with the AG and GMM
+training slices (ROADMAP B.5, A.6).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
+
+# epsilon inside the log, as in the reference
+_EPS_LOG = 1e-5
+
+
+def sample_gaussian(mean: torch.Tensor, std, num_samples: int,
+                    eps: Optional[torch.Tensor] = None,
+                    generator: Optional[torch.Generator] = None,
+                    dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``num_samples`` reparameterised draws: mean [B, L], std [B, L] or
+    a scalar → z [B, K, L] (each image's K samples contiguous, as the JAX
+    package keeps them), cast to ``dtype`` when given.  The noise is
+    ``eps`` [B, K, L] or is drawn from ``generator``."""
+    B, L = mean.shape[0], mean.shape[-1]
+    if eps is None:
+        eps = torch.randn((B, num_samples, L), generator=generator,
+                          device=mean.device, dtype=mean.dtype)
+    std = torch.as_tensor(std, dtype=mean.dtype, device=mean.device)
+    if std.dim() == 2:
+        std = std[:, None, :]
+    z = mean[:, None, :] + std * eps
+    return z if dtype is None else z.to(dtype)
+
+
+def _masked_mean(per_example: torch.Tensor,
+                 row_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    if row_mask is None:
+        return per_example.mean()
+    row_mask = row_mask.to(per_example.dtype)
+    return ((per_example * row_mask).sum()
+            / torch.clamp(row_mask.sum(), min=1.0))
+
+
+def kl_standard_normal(mean: torch.Tensor, std: torch.Tensor,
+                       row_mask: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """KL(q(z) || N(0, I)), batch-mean scalar:
+    −0.5 · mean_B Σ_L (1 + log(σ² + 1e-5) − μ² − σ²).  ``row_mask``
+    excludes padding rows from the mean."""
+    inner = (1.0 + torch.log(std.square() + _EPS_LOG)
+             - mean.square() - std.square())
+    return _masked_mean(-0.5 * inner.sum(dim=-1), row_mask)
+
+
+def kl_annealing(step: int, ann_param: float,
+                 force_one: bool = False) -> torch.Tensor:
+    """The tanh annealing ramp (tanh((step − 1000·ann_param)/1000) + 1)/2
+    when ann_param > 1, else 1; ``force_one`` (fine-tune, restore) gives
+    1.  Computed in f32, as the JAX package computes it."""
+    if force_one or ann_param <= 1.0:
+        return torch.tensor(1.0, dtype=torch.float32)
+    x = (torch.tensor(float(step), dtype=torch.float32)
+         - torch.tensor(1000.0 * ann_param, dtype=torch.float32)) / 1000.0
+    return (torch.tanh(x) + 1.0) / 2.0
 
 # unused COCO category ids within 0..90, in the *91-dim* id space
 # (ref vae_model/decoder.py:56 — blacklist for the AG decode-time prior)

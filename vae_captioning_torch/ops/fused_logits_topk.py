@@ -74,7 +74,9 @@ def fused_logits_top_k(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                        k: int) -> Result:
     """h [M,H] bf16, w [H,V] bf16, b [V] f32 → (values [M,k] f32, indices
     [M,k] int32, logsumexp [M] f32), 1 <= k <= 16.  CPU tensors take the
-    plain version; CUDA tensors launch the kernel or raise."""
+    plain version; CUDA tensors launch the kernel or raise.  No backward:
+    raises RuntimeError when grad mode is on and an input requires grad."""
+    _ext.forbid_grad(NAME, h, w, b)
     if _ext.on_cpu(h, w, b):
         return fused_logits_top_k_plain(h, w, b, k)
     M, H = h.shape

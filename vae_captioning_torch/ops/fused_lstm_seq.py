@@ -1,0 +1,281 @@
+"""Fused teacher-forcing LSTM layer, forward and backward: CUDA kernel
+wrappers, their plain versions and the autograd Function around them.
+
+Counterpart of ``vae_captioning_tpu/ops/fused_lstm_seq.py``.  One call
+runs a masked LSTM layer over a whole sequence with ``dynamic_rnn``
+semantics: row n steps while t < lengths[n], after which its carry is
+copied through and its output is zero.
+
+    gates = x_t @ Wx + bf16(h) @ Wh + b     bf16 operands, f32 accumulation
+    c' = sigmoid(f + 1)·c + sigmoid(i)·tanh(g),  h' = sigmoid(o)·tanh(c')
+
+The forward keeps for the backward what the TPU kernel keeps: the h
+stack (bf16, zeros at masked steps), the c stack (f32) and the activated
+gates (bf16).  The backward rounds where the TPU kernel rounds: dhs in
+bf16, the dgates in bf16 for the three products, db from the f32
+dgates, and ``h_prev = h0`` at t = 0.  It relies on masks being monotone
+per row, which is why it takes lengths and not a mask: a mask built as
+t < lengths[n] is monotone for any integer lengths.
+
+On CUDA tensors the wrappers launch ``csrc/fused_lstm_seq.cu``; on CPU
+tensors they take :func:`lstm_seq_fwd_plain` / :func:`lstm_seq_bwd_plain`.
+:func:`fused_lstm_seq_plain` runs the plain versions on any device.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from vae_captioning_torch import _ext
+
+FWD = "fused_lstm_seq_fwd"
+BWD = "fused_lstm_seq_bwd"
+_ROWS_PER_CHUNK = 64     # rows per db partial of the gate-derivative kernel
+_DW_SPLITS = 4           # row splits of the dWx / dWh reduction
+
+Saved = Tuple[torch.Tensor, ...]
+
+
+def _step_mask(lengths: torch.Tensor, t: int) -> torch.Tensor:
+    return (t < lengths).unsqueeze(-1)
+
+
+# ----------------------------------------------------------------------
+# plain versions
+# ----------------------------------------------------------------------
+
+def lstm_seq_fwd_plain(x16, wx16, wh16, b, c0, h0, lengths
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                  torch.Tensor]:
+    """The forward kernel's maths in plain PyTorch: x16 [T,N,E], wx16
+    [E,4H], wh16 [H,4H] bf16, b [4H], c0/h0 [N,H] f32, lengths [N] int32
+    → (hs [T,N,H] bf16, cs [T,N,H] f32, ga [T,N,4H] bf16, h_T [N,H])."""
+    T = x16.shape[0]
+    H = c0.shape[1]
+    wxf, whf = wx16.float(), wh16.float()
+    bf = b.float()
+    c, h = c0.float(), h0.float()
+    hs, cs, ga = [], [], []
+    for t in range(T):
+        gates = (x16[t].float() @ wxf
+                 + h.to(torch.bfloat16).float() @ whf + bf)
+        si = torch.sigmoid(gates[:, :H])
+        sf = torch.sigmoid(gates[:, H:2 * H] + 1.0)
+        tg = torch.tanh(gates[:, 2 * H:3 * H])
+        so = torch.sigmoid(gates[:, 3 * H:])
+        nc = sf * c + si * tg
+        nh = so * torch.tanh(nc)
+        m = _step_mask(lengths, t)
+        c = torch.where(m, nc, c)
+        h = torch.where(m, nh, h)
+        hs.append(torch.where(m, nh, 0.0).to(torch.bfloat16))
+        cs.append(c)
+        ga.append(torch.cat([si, sf, tg, so], dim=-1).to(torch.bfloat16))
+    return torch.stack(hs), torch.stack(cs), torch.stack(ga), h
+
+
+def lstm_seq_bwd_plain(saved: Saved, dhs, dct, dht
+                       ) -> Tuple[torch.Tensor, ...]:
+    """The backward kernel's maths in plain PyTorch (the TPU
+    ``_bwd_kernel``): → (dx [T,N,E], dWx, dWh, db, dc0, dh0), all f32."""
+    x16, wx16, wh16, b, c0, h0, lengths, hs, cs, ga = saved
+    T = x16.shape[0]
+    H = c0.shape[1]
+    wxf, whf = wx16.float(), wh16.float()
+    dh = dht.float()
+    dc = dct.float()
+    dhs16 = dhs.to(torch.bfloat16).float()
+    dx = torch.empty(x16.shape, dtype=torch.float32, device=x16.device)
+    dwx = torch.zeros_like(wxf)
+    dwh = torch.zeros_like(whf)
+    db = torch.zeros(4 * H, dtype=torch.float32, device=x16.device)
+    for t in range(T - 1, -1, -1):
+        m = _step_mask(lengths, t)
+        g = ga[t].float()
+        si, sf, tg, so = g[:, :H], g[:, H:2 * H], g[:, 2 * H:3 * H], g[:, 3 * H:]
+        c_prev = c0.float() if t == 0 else cs[t - 1]
+        h_prev16 = h0.to(torch.bfloat16) if t == 0 else hs[t - 1]
+        dnh = torch.where(m, dh + dhs16[t], 0.0)
+        tanh_c = torch.tanh(cs[t])
+        dnc = dnh * so * (1.0 - tanh_c * tanh_c) + torch.where(m, dc, 0.0)
+        dgates = torch.cat([dnc * tg * si * (1.0 - si),
+                            dnc * c_prev * sf * (1.0 - sf),
+                            dnc * si * (1.0 - tg * tg),
+                            dnh * tanh_c * so * (1.0 - so)], dim=-1)
+        dg16 = dgates.to(torch.bfloat16).float()
+        dh = dg16 @ whf.t() + torch.where(m, 0.0, dh)
+        dc = dnc * sf + torch.where(m, 0.0, dc)
+        dx[t] = dg16 @ wxf.t()
+        dwh += h_prev16.float().t() @ dg16
+        dwx += x16[t].float().t() @ dg16
+        db += dgates.sum(dim=0)
+    return dx, dwx, dwh, db, dc, dh
+
+
+# ----------------------------------------------------------------------
+# kernel launches
+# ----------------------------------------------------------------------
+
+def _check_shapes(x16, wx16, wh16, b, c0, h0, lengths) -> None:
+    req = _ext.require
+    T, N, E = x16.shape
+    H = c0.shape[1]
+    req(x16.dtype == wx16.dtype == wh16.dtype == torch.bfloat16,
+        "fused_lstm_seq: x, wx and wh must be bfloat16")
+    req(b.dtype == c0.dtype == h0.dtype == torch.float32,
+        "fused_lstm_seq: b, c0 and h0 must be float32")
+    req(lengths.dtype == torch.int32 and lengths.shape == (N,),
+        f"fused_lstm_seq: lengths must be int32 [{N}]")
+    req(wx16.shape == (E, 4 * H) and wh16.shape == (H, 4 * H)
+        and b.shape == (4 * H,) and c0.shape == h0.shape == (N, H),
+        f"fused_lstm_seq: shapes x{tuple(x16.shape)} wx{tuple(wx16.shape)} "
+        f"wh{tuple(wh16.shape)} b{tuple(b.shape)} c0{tuple(c0.shape)} "
+        f"h0{tuple(h0.shape)} disagree")
+    req(E % 64 == 0 and H % 64 == 0,
+        f"fused_lstm_seq: E={E} and H={H} must be multiples of 64")
+    req(T >= 1, "fused_lstm_seq: T must be at least 1")
+    req(all(t.is_contiguous() and t.data_ptr() % 16 == 0
+            for t in (x16, wx16, wh16, b, c0, h0, lengths)),
+        "fused_lstm_seq: inputs must be contiguous and 16-byte aligned")
+
+
+def lstm_seq_fwd_kernel(x16, wx16, wh16, b, c0, h0, lengths):
+    """The forward kernel; same contract as :func:`lstm_seq_fwd_plain`."""
+    _check_shapes(x16, wx16, wh16, b, c0, h0, lengths)
+    T, N, E = x16.shape
+    H = c0.shape[1]
+    dev = x16.device
+    hs = torch.empty((T, N, H), dtype=torch.bfloat16, device=dev)
+    cs = torch.empty((T, N, H), dtype=torch.float32, device=dev)
+    ga = torch.empty((T, N, 4 * H), dtype=torch.bfloat16, device=dev)
+    hbuf = torch.empty((2, N, H), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _ext.library().vct_fused_lstm_seq_fwd(
+            x16.data_ptr(), wx16.data_ptr(), wh16.data_ptr(), b.data_ptr(),
+            lengths.data_ptr(), c0.data_ptr(), h0.data_ptr(), hs.data_ptr(),
+            cs.data_ptr(), ga.data_ptr(), hbuf.data_ptr(), T, N, E, H,
+            _ext.stream_ptr(dev))
+    _ext.check_launch(err, FWD)
+    _ext.LAUNCHES[FWD] += 1
+    return hs, cs, ga, hbuf[(T - 1) % 2]
+
+
+def _dw_splits(M: int) -> int:
+    """Partials the dW reduction writes for M rows (as the kernel
+    computes them: row splits rounded up to whole 32-row stages)."""
+    per = -(-M // _DW_SPLITS)
+    per = -(-per // 32) * 32
+    return -(-M // per)
+
+
+def lstm_seq_bwd_kernel(saved: Saved, dhs, dct, dht):
+    """The backward kernel; same contract as :func:`lstm_seq_bwd_plain`."""
+    x16, wx16, wh16, b, c0, h0, lengths, hs, cs, ga = saved
+    T, N, E = x16.shape
+    H = c0.shape[1]
+    dev = x16.device
+    dhs16 = dhs.to(torch.bfloat16).contiguous()
+    dct = dct.float().contiguous()
+    dht = dht.float().contiguous()
+    _ext.require(dhs16.shape == (T, N, H) and dct.shape == dht.shape == (N, H)
+                 and dhs16.device == dct.device == dht.device == dev,
+                 "fused_lstm_seq: gradient shapes or devices disagree")
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty((T, N, E), **f32)
+    dc0 = torch.empty((N, H), **f32)
+    dh0 = torch.empty((N, H), **f32)
+    dwx = torch.empty((E, 4 * H), **f32)
+    dwh = torch.empty((H, 4 * H), **f32)
+    db = torch.empty((4 * H,), **f32)
+    dg = torch.empty((T, N, 4 * H), dtype=torch.bfloat16, device=dev)
+    dhbuf = torch.empty((2, N, H), **f32)
+    dcbuf = torch.empty((2, N, H), **f32)
+    chunks = -(-N // _ROWS_PER_CHUNK)
+    db_part = torch.empty((T, chunks, 4 * H), **f32)
+    w_part = torch.empty((_dw_splits(T * N), max(E, H), 4 * H), **f32)
+    h0_16 = h0.to(torch.bfloat16).contiguous()
+    with torch.cuda.device(dev):
+        err = _ext.library().vct_fused_lstm_seq_bwd(
+            x16.data_ptr(), wx16.data_ptr(), wh16.data_ptr(),
+            lengths.data_ptr(), c0.data_ptr(), h0_16.data_ptr(),
+            cs.data_ptr(), hs.data_ptr(), ga.data_ptr(), dhs16.data_ptr(),
+            dct.data_ptr(), dht.data_ptr(), dx.data_ptr(), dc0.data_ptr(),
+            dh0.data_ptr(), dwx.data_ptr(), dwh.data_ptr(), db.data_ptr(),
+            dg.data_ptr(), dhbuf.data_ptr(), dcbuf.data_ptr(),
+            db_part.data_ptr(), w_part.data_ptr(), T, N, E, H,
+            _ROWS_PER_CHUNK, _DW_SPLITS, _ext.stream_ptr(dev))
+    _ext.check_launch(err, BWD)
+    _ext.LAUNCHES[BWD] += 1
+    return dx, dwx, dwh, db, dc0, dh0
+
+
+# ----------------------------------------------------------------------
+# autograd
+# ----------------------------------------------------------------------
+
+class _FusedLSTMSeq(torch.autograd.Function):
+    """Inputs x [T,N,E], wx, wh, b, c0, h0 (any float type; cast here)
+    and lengths; outputs (c_T, h_T, hs).  ``plain`` selects the plain
+    versions on every device; otherwise CPU tensors take them and CUDA
+    tensors the kernels."""
+
+    @staticmethod
+    def forward(ctx, x, wx, wh, b, c0, h0, lengths, plain: bool):
+        bf16 = torch.bfloat16
+        x16 = x.to(bf16).contiguous()
+        wx16 = wx.to(bf16).contiguous()
+        wh16 = wh.to(bf16).contiguous()
+        bf = b.float().contiguous()
+        c0f = c0.float().contiguous()
+        h0f = h0.float().contiguous()
+        args = (x16, wx16, wh16, bf, c0f, h0f, lengths)
+        use_plain = plain or _ext.on_cpu(x16, wx16, wh16, bf, c0f, h0f,
+                                         lengths)
+        fwd = lstm_seq_fwd_plain if use_plain else lstm_seq_fwd_kernel
+        hs, cs, ga, h_t = fwd(*args)
+        ctx.use_plain = use_plain
+        ctx.dtypes = (x.dtype, wx.dtype, wh.dtype, b.dtype, c0.dtype, h0.dtype)
+        ctx.save_for_backward(*args, hs, cs, ga)
+        return cs[-1].clone(), h_t.clone(), hs
+
+    @staticmethod
+    def backward(ctx, dct, dht, dhs):
+        saved = ctx.saved_tensors
+        bwd = lstm_seq_bwd_plain if ctx.use_plain else lstm_seq_bwd_kernel
+        grads = bwd(saved, dhs, dct, dht)
+        dx, dwx, dwh, db, dc0, dh0 = (g.to(dt) for g, dt in zip(grads,
+                                                                ctx.dtypes))
+        return dx, dwx, dwh, db, dc0, dh0, None, None
+
+
+def _run(x, wx, wh, b, c0, h0, lengths, plain: bool):
+    _ext.require(lengths.dtype == torch.int32 and lengths.dim() == 1
+                 and lengths.shape[0] == x.shape[1],
+                 f"fused_lstm_seq: lengths must be int32 [{x.shape[1]}], got "
+                 f"{lengths.dtype} {tuple(lengths.shape)}")
+    ct, ht, hs = _FusedLSTMSeq.apply(x, wx, wh, b, c0, h0,
+                                     lengths.contiguous(), plain)
+    return (ct, ht), hs
+
+
+def fused_lstm_seq(x: torch.Tensor, wx: torch.Tensor, wh: torch.Tensor,
+                   b: torch.Tensor, c0: torch.Tensor, h0: torch.Tensor,
+                   lengths: torch.Tensor
+                   ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], torch.Tensor]:
+    """Masked teacher-forcing LSTM layer, differentiable.
+
+    x [T,N,E] time-major, wx [E,4H], wh [H,4H], b [4H], c0/h0 [N,H],
+    lengths [N] int32 (row n steps while t < lengths[n]) →
+    ((c_T, h_T) f32, hs [T,N,H] bf16 with zeros at masked steps).  The
+    gradients of x, wx, wh, b, c0 and h0 come back in their own types.
+    CPU tensors take the plain versions; CUDA tensors launch the
+    kernels or raise (E and H must be multiples of 64)."""
+    return _run(x, wx, wh, b, c0, h0, lengths, plain=False)
+
+
+def fused_lstm_seq_plain(x, wx, wh, b, c0, h0, lengths):
+    """:func:`fused_lstm_seq` through the plain versions on any device:
+    the CPU path, the test oracle and the card's comparison."""
+    return _run(x, wx, wh, b, c0, h0, lengths, plain=True)

@@ -54,7 +54,9 @@ def fused_lstm_step(x: torch.Tensor, c: torch.Tensor, h: torch.Tensor,
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [N,E] bf16, c/h [N,H] f32, w [E+H,4H] bf16, b [4H] f32 →
     (c', h') [N,H] f32.  CPU tensors take the plain version; CUDA tensors
-    launch the kernel or raise."""
+    launch the kernel or raise.  No backward: raises RuntimeError when
+    grad mode is on and an input requires grad."""
+    _ext.forbid_grad(NAME, x, c, h, w, b)
     if _ext.on_cpu(x, c, h, w, b):
         return fused_lstm_step_plain(x, c, h, w, b, forget_bias)
     N, E = x.shape

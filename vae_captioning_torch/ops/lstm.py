@@ -1,32 +1,44 @@
-"""LSTM cell and stack, single-step form (counterpart of
-``vae_captioning_tpu/ops/lstm.py``).
+"""LSTM cell and stack, single-step and masked-sequence forms
+(counterpart of ``vae_captioning_tpu/ops/lstm.py``).
 
 One fused cell: ``gates = [x, h] @ W + b`` with W [E+H, 4H], the x rows
 first, gate order (i, f, g, o) and the TF-LSTMCell ``forget_bias = 1.0``.
-W keeps the Flax layout, which is what the CUDA kernel reads.  Decoding
-only needs the single step; the masked teacher-forcing sequence form
-waits for the train-step slice.
+W keeps the Flax layout, which is what the CUDA kernels read.
 
-The step goes through the ``fused_lstm_step`` wrapper: the kernel on
-CUDA, the plain version on the CPU.  Both compute in bf16 with f32
-accumulation, the reference's default; other compute types are not
-ported yet (ROADMAP D.2).  The cell casts its kernel on every call; the
-decode fns of ``inference.py`` cast it once and step through
+* The single step goes through the ``fused_lstm_step`` wrapper (the
+  decode kernel on CUDA, the plain version on the CPU) when no gradient
+  is wanted.  When one is (grad mode on and an input or weight requires
+  grad) it runs :func:`fused_lstm_step_plain`, which autograd
+  differentiates: the train path's conditioning steps (image, cluster
+  vector, z), as the JAX package computes them with XLA and not with a
+  kernel.  The decode kernel has no backward.
+* The masked sequence (``dynamic_rnn`` semantics: steps at t ≥ length
+  copy the carry through and emit zeros) goes through ``fused_lstm_seq``
+  (forward and backward kernels on CUDA, plain versions on the CPU).
+
+Everything computes in bf16 with f32 accumulation, the reference's
+default; other compute types are not ported yet (ROADMAP D.2).  The
+decode fns of ``inference.py`` cast the kernel once and step through
 ``make_lstm_fn`` instead, init steps included.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch import nn
 
-from vae_captioning_torch.ops.fused_lstm_step import fused_lstm_step
+from vae_captioning_torch.ops.fused_lstm_seq import fused_lstm_seq
+from vae_captioning_torch.ops.fused_lstm_step import (fused_lstm_step,
+                                                      fused_lstm_step_plain)
 
 # carry for one layer: (c, h), each [B, H] f32; a stack carries a tuple
 LayerCarry = Tuple[torch.Tensor, torch.Tensor]
 Carry = Tuple[LayerCarry, ...]
+# the masked sequence layer: (x [T,N,E], wx, wh, b, c0, h0, lengths) →
+# ((c_T, h_T), hs [T,N,H]); fused_lstm_seq or fused_lstm_seq_plain
+SeqFn = Callable[..., Tuple[LayerCarry, torch.Tensor]]
 
 
 class LSTMCell(nn.Module):
@@ -42,12 +54,29 @@ class LSTMCell(nn.Module):
 
     def forward(self, carry: LayerCarry, x: torch.Tensor
                 ) -> Tuple[LayerCarry, torch.Tensor]:
-        """One step: x [B, E] → ((c', h'), h')."""
+        """One step: x [B, E] → ((c', h'), h').  The plain step when a
+        gradient is wanted (autograd differentiates it), the decode kernel
+        otherwise."""
         c, h = carry
-        new_c, new_h = fused_lstm_step(
-            x.to(torch.bfloat16), c, h, self.kernel.to(torch.bfloat16),
-            self.bias, self.forget_bias)
+        args = (x.to(torch.bfloat16), c, h, self.kernel.to(torch.bfloat16),
+                self.bias)
+        wants_grad = torch.is_grad_enabled() and any(t.requires_grad for t in args)
+        step = fused_lstm_step_plain if wants_grad else fused_lstm_step
+        new_c, new_h = step(*args, self.forget_bias)
         return (new_c, new_h), new_h
+
+    def sequence(self, carry: LayerCarry, x: torch.Tensor,
+                 lengths: torch.Tensor, seq_fn: SeqFn = fused_lstm_seq
+                 ) -> Tuple[LayerCarry, torch.Tensor]:
+        """Masked sequence: x [T, B, E] time-major, lengths [B] int32 →
+        ((c_T, h_T), hs [T, B, H] bf16, zeros at masked steps)."""
+        if self.forget_bias != 1.0:
+            raise NotImplementedError("the sequence kernels fix forget_bias "
+                                      "at 1.0, the reference's value")
+        E = x.shape[-1]
+        c, h = carry
+        return seq_fn(x, self.kernel[:E], self.kernel[E:], self.bias, c, h,
+                      lengths)
 
 
 class LSTMStack(nn.Module):
@@ -76,3 +105,22 @@ class LSTMStack(nn.Module):
             layer_carry, inp = cell(layer_carry, inp)
             new_carry.append(layer_carry)
         return tuple(new_carry), inp
+
+    def forward(self, carry: Carry, xs: torch.Tensor, lengths: torch.Tensor,
+                time_major_out: bool = False, collect_outputs: bool = True,
+                seq_fn: SeqFn = fused_lstm_seq
+                ) -> Tuple[Carry, Optional[torch.Tensor]]:
+        """Masked sequence run (``dynamic_rnn`` semantics): xs [B, T, E],
+        lengths [B] → (carry at each row's length, outputs [B, T, H] bf16
+        with zeros at t ≥ length).  ``time_major_out`` returns [T, B, H];
+        ``collect_outputs=False`` returns None (the encoder reads only
+        the carry).  Both apply to the last layer."""
+        inp = xs.transpose(0, 1)            # time-major for the kernels
+        lengths = lengths.to(torch.int32)
+        new_carry = []
+        for cell, layer_carry in zip(self.cells, carry):
+            layer_carry, inp = cell.sequence(layer_carry, inp, lengths, seq_fn)
+            new_carry.append(layer_carry)
+        if not collect_outputs:
+            return tuple(new_carry), None
+        return tuple(new_carry), inp if time_major_out else inp.transpose(0, 1)
