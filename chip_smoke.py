@@ -8,8 +8,9 @@ Phases, in order; any failure raises and the script exits nonzero:
 3. kernels: each kernel against its plain PyTorch version on the card,
    at the main paths' shapes and ragged ones: the decode kernels (plus a
    deliberate tie), the train path's ``fused_lstm_seq`` and ``fused_z``
-   forward and backward, and the fused z generator's bits, normals and
-   moments against the plain generator;
+   forward and backward, the fused z generator's bits, normals and
+   moments against the plain generator, and the AG train path's
+   ``fused_ag_heads`` forward and backward with COCO-like cluster vectors;
 4. decode path: the full-width AG-CVAE (random weights from a seed, in
    the Flax layout, through the bridge) decodes synthetic features
    through ``run_inference`` at beam 3, beam 10 and greedy, writing the
@@ -27,15 +28,23 @@ Phases, in order; any failure raises and the script exits nonzero:
    compared (phase_train_compare); the trained weights go through
    ``export_flax_params`` / ``save_params`` / ``load_model`` and decode a
    greedy batch of 512 images through the decode kernels;
-6. times: each kernel against its plain version, decode batches and
-   train steps, kernel path against plain path, in turns.
+6. AG train path: the same for the full-width AG-CVAE with cluster
+   vectors (``Config(prior="AG", use_c_v=True)``, COCO-like c_v), whose
+   encoder runs ``fused_ag_heads``; its checkpoint decodes a beam-3 batch
+   of 512 images with their cluster vectors: the served model, trained by
+   the port;
+7. times: each kernel against its plain version and, where one PyTorch
+   call computes the same function, that call; decode batches and train
+   steps (Normal and AG), kernel path against plain path, in turns.
 
 ``python3 chip_smoke.py --profile`` instead builds the kernels and
-profiles the full-width train step (phase_train_profile): device time by
-kernel, and the device's idle share.
+profiles the full-width train step, Normal then AG (phase_train_profile):
+device time by kernel, and the device's idle share.
 
-Before its last lines it checks that no JAX module was loaded.  The line
-before the last is the kernels' JSON record; the last line is
+Before its last lines it checks that no JAX module, and no module of the
+JAX package, was loaded.  The line before the last is the kernels' JSON
+record (each with its launches on its path, its time, its plain
+version's, its bound and the library call's); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -55,10 +64,10 @@ import torch
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: CUDA is not available; this script needs one GPU")
 
-from vae_captioning_tpu.config import Config  # noqa: E402
-from vae_captioning_tpu.data.batcher import CaptionBatcher  # noqa: E402
-from vae_captioning_tpu.data.features import FeatureStore  # noqa: E402
-from vae_captioning_tpu.data.vocabulary import Vocabulary  # noqa: E402
+from vae_captioning_torch.config import Config  # noqa: E402
+from vae_captioning_torch.data.batcher import CaptionBatcher  # noqa: E402
+from vae_captioning_torch.data.features import FeatureStore  # noqa: E402
+from vae_captioning_torch.data.vocabulary import Vocabulary  # noqa: E402
 from vae_captioning_torch import _ext  # noqa: E402
 from vae_captioning_torch.bridge import (export_flax_params,  # noqa: E402
                                          flax_shapes, load_flax_params)
@@ -69,6 +78,11 @@ from vae_captioning_torch.inference import (PLAIN_OPS,  # noqa: E402
                                             make_decode_fns, run_inference)
 from vae_captioning_torch.models.cvae import (  # noqa: E402
     PLAIN_TRAIN_OPS, CVAEModel)
+from vae_captioning_torch.ops.distributions import (  # noqa: E402
+    AG_UNUSED_CLASSES)
+from vae_captioning_torch.ops.fused_ag_heads import (  # noqa: E402
+    ag_heads_bwd_kernel, ag_heads_bwd_plain, ag_heads_fwd_kernel,
+    ag_heads_plain, prepare)
 from vae_captioning_torch.ops.fused_logits_topk import (  # noqa: E402
     fused_logits_top_k, fused_logits_top_k_plain)
 from vae_captioning_torch.ops.fused_lstm_seq import (  # noqa: E402
@@ -112,10 +126,21 @@ KERNELS = {
     "fused_z_eps": {
         "route": "cuda", "source": "vae_captioning_torch/csrc/fused_z.cu",
         "replaces": "vae_captioning_tpu/ops/fused_z.py:234"},
+    "fused_ag_heads_fwd": {
+        "route": "cuda", "source": "vae_captioning_torch/csrc/fused_ag_heads.cu",
+        "replaces": "vae_captioning_tpu/ops/fused_ag_heads.py:80"},
+    "fused_ag_heads_bwd": {
+        "route": "cuda", "source": "vae_captioning_torch/csrc/fused_ag_heads.cu",
+        "replaces": "vae_captioning_tpu/ops/fused_ag_heads.py:116"},
 }
 DECODE_KERNELS = ("fused_lstm_step", "fused_logits_top_k")
 TRAIN_KERNELS = ("fused_lstm_seq_fwd", "fused_lstm_seq_bwd", "fused_z_fwd",
                  "fused_z_bwd")
+AG_KERNELS = ("fused_ag_heads_fwd", "fused_ag_heads_bwd")
+# the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): dense
+# bf16 tensor-core operations and HBM3 bytes per second
+PEAK_BF16 = 989e12
+PEAK_BYTES = 3.35e12
 
 
 def card() -> str:
@@ -139,6 +164,18 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(flops: float, moved: int) -> tuple:
+    """(the least ms the card could take, what binds it): the larger of
+    the tensor-core operations over the bf16 peak and the bytes (each
+    input read once, each output written once) over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_BF16 * 1e3, moved / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 # ----------------------------------------------------------------------
@@ -271,25 +308,57 @@ def turns(fn_kernel, fn_plain, timer) -> tuple:
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def timing(t: tuple, b: tuple, library_ms=None) -> dict:
+    """A kernel's record: (kernel, plain) ms, (bound ms, what binds it)
+    and the library call's ms (None where no one PyTorch call computes
+    the same function)."""
+    return {"ms": t[0], "plain_ms": t[1], "bound_ms": b[0], "bound_by": b[1],
+            "library_ms": library_ms}
+
+
+def lstm_cell_call(x, c, h, w, b):
+    """torch.lstm_cell on the same inputs in bf16 (gate order i, f, g, o
+    as the kernel's), the forget bias of 1 folded into its input bias."""
+    E, H = x.shape[1], c.shape[1]
+    bias = b.clone()
+    bias[H:2 * H] += 1.0
+    bias = bias.to(torch.bfloat16)
+    args = (x, (h.to(torch.bfloat16), c.to(torch.bfloat16)),
+            w[:E].t().contiguous(), w[E:].t().contiguous(), bias,
+            torch.zeros_like(bias))
+    return lambda: torch.lstm_cell(*args)
+
+
 def phase_kernel_times(label: str) -> dict:
     """Each kernel against its plain version at the main path's shapes:
     beam 3 (N = M = 1536, k = 3), beam 10 (5120, k = 10) and greedy (512,
-    k = 1).  The record keeps the beam-3 shapes."""
+    k = 1).  The record keeps the beam-3 shapes, with the bound and, for
+    the LSTM step, ``torch.lstm_cell`` (in bf16) on the same inputs.  No
+    one PyTorch call computes the fused logits + top-k (``torch.topk``
+    needs the logits written first)."""
     times = {}
     for N in (1536, 5120, 512):
         args = lstm_inputs(N)
         t = turns(lambda: fused_lstm_step(*args),
                   lambda: fused_lstm_step_plain(*args), cuda_ms)
-        times.setdefault("fused_lstm_step", t)
+        lib = cuda_ms(lstm_cell_call(*args))
+        x, c, h, w, b = args
+        E, H = x.shape[1], c.shape[1]
+        bnd = bound(2.0 * N * (E + H) * 4 * H, nbytes(*args, c, h))
+        times.setdefault("fused_lstm_step", timing(t, bnd, lib))
         print(f"time fused_lstm_step N={N} E=256 H=512: kernel {t[0]:.4f} "
-              f"ms, plain {t[1]:.4f} ms [{label}]")
+              f"ms, plain {t[1]:.4f} ms, torch.lstm_cell (bf16) {lib:.4f} ms, "
+              f"bound {bnd[0]:.4f} ms ({bnd[1]}) [{label}]")
     for M, k in ((1536, 3), (5120, 10), (512, 1)):
         h, w, b = logits_inputs(M, 11500)
         t = turns(lambda: fused_logits_top_k(h, w, b, k),
                   lambda: fused_logits_top_k_plain(h, w, b, k), cuda_ms)
-        times.setdefault("fused_logits_top_k", t)
+        outs = fused_logits_top_k(h, w, b, k)
+        bnd = bound(2.0 * M * h.shape[1] * w.shape[1], nbytes(h, w, b, *outs))
+        times.setdefault("fused_logits_top_k", timing(t, bnd))
         print(f"time fused_logits_top_k M={M} H=512 V=11500 k={k}: kernel "
-              f"{t[0]:.4f} ms, plain {t[1]:.4f} ms [{label}]")
+              f"{t[0]:.4f} ms, plain {t[1]:.4f} ms, bound {bnd[0]:.4f} ms "
+              f"({bnd[1]}) [{label}]")
     return times
 
 
@@ -716,39 +785,209 @@ def phase_train_kernels() -> dict:
     return errors
 
 
+def cudnn_lstm_calls(args):
+    """cuDNN's LSTM through ``torch.nn.LSTM`` in bf16 on the same inputs
+    as a packed sequence (rows stop at their lengths, where the kernel
+    masks them: the same h_T and outputs, zeros past the length), the
+    forget bias of 1 folded into its input bias: (forward, backward), the
+    backward one ``torch.autograd.grad`` over a retained graph."""
+    from torch.nn.utils.rnn import PackedSequence, pack_padded_sequence
+    x, wx, wh, b, c0, h0, lengths = args
+    E, H = wx.shape[0], wh.shape[0]
+    lstm = torch.nn.LSTM(E, H).to(DEV, torch.bfloat16)
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(wx.t())
+        lstm.weight_hh_l0.copy_(wh.t())
+        bias = b.clone()
+        bias[H:2 * H] += 1.0
+        lstm.bias_ih_l0.copy_(bias)
+        lstm.bias_hh_l0.zero_()
+    packed = pack_padded_sequence(x, lengths.cpu().long(), enforce_sorted=False)
+    data = packed.data.detach().requires_grad_()
+    packed = PackedSequence(data, packed.batch_sizes, packed.sorted_indices,
+                            packed.unsorted_indices)
+    state = tuple(s.to(torch.bfloat16)[None].requires_grad_() for s in (h0, c0))
+    y, (hn, cn) = lstm(packed, state)
+    outs = [y.data, hn, cn]
+    cots = [torch.randn_like(t) for t in outs]
+    leaves = [data, *state, *lstm.parameters()]
+    return (lambda: lstm(packed, state),
+            lambda: torch.autograd.grad(outs, leaves, cots, retain_graph=True))
+
+
 def phase_train_kernel_times(label: str) -> dict:
     """Each train kernel against its plain version at the train path's
-    shapes (T = 24, N = 1280; N = 1280, K_z = 100, L = 150)."""
+    shapes (T = 24, N = 1280; N = 1280, K_z = 100, L = 150), with its
+    bound and, for the LSTM sequence, cuDNN's LSTM on the same inputs.
+    No one PyTorch call computes the fused z sampling + projection or
+    its backward, or the kernels' Philox stream (``torch.randn`` draws
+    another)."""
     args = seq_inputs(TRAIN_T, TRAIN_ROWS, seed=3)
-    saved = (*args, *lstm_seq_fwd_plain(*args)[:3])
+    fwd_out = lstm_seq_fwd_plain(*args)
+    saved = (*args, *fwd_out[:3])
     g = torch.Generator(device=DEV).manual_seed(2)
     dhs = torch.randn((TRAIN_T, TRAIN_ROWS, HIDDEN), generator=g,
                       device=DEV).to(torch.bfloat16)
     dc = torch.randn((TRAIN_ROWS, HIDDEN), generator=g, device=DEV)
     mean, std, w, b, dz = z_inputs(TRAIN_ROWS, seed=4)
+    eps = lambda: philox_normals(5, 6, TRAIN_ROWS, KZ, LATENT, device=DEV)  # noqa: E731
     pairs = {
         "fused_lstm_seq_fwd": (lambda: lstm_seq_fwd_kernel(*args),
                                lambda: lstm_seq_fwd_plain(*args)),
         "fused_lstm_seq_bwd": (lambda: lstm_seq_bwd_kernel(saved, dhs, dc, dc),
                                lambda: lstm_seq_bwd_plain(saved, dhs, dc, dc)),
         "fused_z_fwd": (lambda: z_fwd_kernel(mean, std, w, b, KZ, 5, 6),
-                        lambda: z_fwd_plain(
-                            mean, std, w, b, KZ,
-                            philox_normals(5, 6, TRAIN_ROWS, KZ, LATENT, device=DEV))),
+                        lambda: z_fwd_plain(mean, std, w, b, KZ, eps())),
         "fused_z_bwd": (lambda: z_bwd_kernel(mean, std, w, KZ, 5, 6, dz),
-                        lambda: z_bwd_plain(
-                            mean, std, w, KZ,
-                            philox_normals(5, 6, TRAIN_ROWS, KZ, LATENT, device=DEV),
-                            dz)),
+                        lambda: z_bwd_plain(mean, std, w, KZ, eps(), dz)),
         "fused_z_eps": (lambda: fused_z_eps(5, 6, TRAIN_ROWS, KZ, LATENT, device=DEV),
-                        lambda: philox_normals(5, 6, TRAIN_ROWS, KZ, LATENT,
-                                               device=DEV)),
+                        eps),
     }
+    seq_flops = 2.0 * TRAIN_T * TRAIN_ROWS * (EMBED + HIDDEN) * 4 * HIDDEN
+    z_flops = 2.0 * TRAIN_ROWS * KZ * LATENT * EMBED
+    bounds = {
+        "fused_lstm_seq_fwd": bound(seq_flops, nbytes(*args, *fwd_out)),
+        "fused_lstm_seq_bwd": bound(2 * seq_flops, nbytes(
+            *saved, dhs, dc, dc, *lstm_seq_bwd_plain(saved, dhs, dc, dc))),
+        "fused_z_fwd": bound(z_flops, nbytes(
+            mean, std, w, b, z_fwd_kernel(mean, std, w, b, KZ, 5, 6))),
+        "fused_z_bwd": bound(2 * z_flops, nbytes(
+            mean, std, w, dz, *z_bwd_kernel(mean, std, w, KZ, 5, 6, dz))),
+        # Philox and erfinv run outside the tensor cores: bytes only
+        "fused_z_eps": bound(0.0, TRAIN_ROWS * KZ * LATENT * 4),
+    }
+    library = dict(zip(("fused_lstm_seq_fwd", "fused_lstm_seq_bwd"),
+                       (cuda_ms(fn, iters=5, warmup=1)
+                        for fn in cudnn_lstm_calls(args))))
     times = {}
     for name, (fk, fp) in pairs.items():
-        times[name] = turns(fk, fp, lambda fn: cuda_ms(fn, iters=5, warmup=1))
-        print(f"time {name} (train shapes): kernel {times[name][0]:.4f} ms, "
-              f"plain {times[name][1]:.4f} ms [{label}]")
+        t = turns(fk, fp, lambda fn: cuda_ms(fn, iters=5, warmup=1))
+        times[name] = timing(t, bounds[name], library.get(name))
+        lib = library.get(name)
+        print(f"time {name} (train shapes): kernel {t[0]:.4f} ms, plain "
+              f"{t[1]:.4f} ms, bound {bounds[name][0]:.4f} ms "
+              f"({bounds[name][1]})"
+              + (f", cuDNN LSTM (bf16, packed) {lib:.4f} ms" if lib else "")
+              + f" [{label}]")
+    return times
+
+
+# ----------------------------------------------------------------------
+# phase 3, AG train path: fused_ag_heads against its plain version
+# ----------------------------------------------------------------------
+
+# the forward and db to AG_FWD_RTOL of their largest element (f32 sums in
+# another order); dh, dW and dc_v to AG_GRAD_RTOL, two bf16 steps (2 x
+# 2^-8): the kernels round dq to bf16 for the tensor cores, the plain
+# version rounds the gradients themselves to bf16, as the reference's
+# casts do
+AG_FWD_RTOL = 1e-4
+AG_GRAD_RTOL = 8e-3
+CLUSTERS = 90
+# the 80 COCO category ids in use (ids 1..90 less the unused ones)
+USED_IDS = [i for i in range(1, CLUSTERS + 1) if i not in AG_UNUSED_CLASSES]
+
+
+def coco_cv(rows: int, K: int = CLUSTERS, seed: int = 0,
+            zero_every: int = 10) -> torch.Tensor:
+    """[rows, K] cluster vectors as the COCO instances give them: 1-6 of
+    the used category ids per image, normalised to sum to 1, index 0
+    dropped (column j is id j + 1); every ``zero_every``-th image has no
+    detection and an all-zero vector."""
+    rng = np.random.default_rng(seed)
+    ids = [i for i in USED_IDS if i <= K]
+    cv = np.zeros((rows, K + 1), np.float32)
+    for r in range(rows):
+        if r % zero_every:
+            pick = rng.choice(ids, size=rng.integers(1, min(6, len(ids)) + 1),
+                              replace=False)
+            cv[r, pick] = 1.0 / len(pick)
+    return torch.from_numpy(cv[:, 1:]).to(DEV)
+
+
+def ag_inputs(N: int, K: int, L: int, seed: int, H: int = HIDDEN):
+    """h (an LSTM state), the q_heads weight [2KL, H] (lecun-normal, as
+    initialised), bias, COCO-like c_v and the output cotangents."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    h = torch.tanh(torch.randn((N, H), generator=g, device=DEV))
+    w = torch.randn((2 * K * L, H), generator=g, device=DEV) / H ** 0.5
+    b = 0.1 * torch.randn((2 * K * L,), generator=g, device=DEV)
+    gm = torch.randn((N, L), generator=g, device=DEV)
+    gs = torch.randn((N, L), generator=g, device=DEV)
+    return h, w, b, coco_cv(N, K, seed), gm, gs
+
+
+def check_ag_heads(N: int, K: int, L: int) -> tuple:
+    """Returns (forward, backward) max |kernel - plain|."""
+    h, w, b, cv, gm, gs = ag_inputs(N, K, L, seed=N + K + L)
+    ops = prepare(h, w, b, cv)
+    tag = f"fused_ag_heads N={N} H={HIDDEN} K={K} L={L}"
+    fwd = bwd = 0.0
+    got = ag_heads_fwd_kernel(*ops)
+    want = ag_heads_plain(h, w, b, cv)
+    empty = cv.sum(dim=1) == 0
+    for name, a, r in zip(("q_mean", "q_std"), got, want):
+        err, rel = rel_err(a, r)
+        if (rel > AG_FWD_RTOL or not bool(torch.isfinite(a).all())
+                or bool(a[empty].any())):
+            raise AssertionError(f"{tag} forward: {name} differs, max |diff| "
+                                 f"{err:.3e} ({rel:.2e} of max)")
+        fwd = max(fwd, err)
+        print(f"{tag} forward {name}: max |kernel - plain| {err:.3e} ({rel:.2e} "
+              f"of max, tolerance {AG_FWD_RTOL}); rows without a detection 0")
+    got = ag_heads_bwd_kernel(*ops, gm, gs)
+    want = ag_heads_bwd_plain(h, w, b, cv, gm, gs)
+    for name, a, r, tol in zip(("dh", "dW", "db", "dc_v"), got, want,
+                               (AG_GRAD_RTOL, AG_GRAD_RTOL, AG_FWD_RTOL,
+                                AG_GRAD_RTOL)):
+        err, rel = rel_err(a, r)
+        if rel > tol or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{tag} backward: {name} differs, max |diff| "
+                                 f"{err:.3e} ({rel:.2e} of max)")
+        bwd = max(bwd, err)
+        print(f"{tag} backward {name}: max |kernel - plain| {err:.3e} "
+              f"({rel:.2e} of max, tolerance {tol})")
+    return fwd, bwd
+
+
+def phase_ag_kernels() -> dict:
+    """The train shapes (N = 1280, K = 90, L = 150) and ragged ones: N =
+    1000 with K = 12 (two cluster groups, the last one padded) and with
+    K = 7, L = 37."""
+    errors = {k: 0.0 for k in AG_KERNELS}
+    for N, K, L in ((TRAIN_ROWS, CLUSTERS, LATENT), (RAGGED_ROWS, 12, LATENT),
+                    (RAGGED_ROWS, 7, 37)):
+        fwd, bwd = check_ag_heads(N, K, L)
+        errors["fused_ag_heads_fwd"] = max(errors["fused_ag_heads_fwd"], fwd)
+        errors["fused_ag_heads_bwd"] = max(errors["fused_ag_heads_bwd"], bwd)
+    return errors
+
+
+def phase_ag_kernel_times(label: str) -> dict:
+    """fused_ag_heads forward and backward against their plain versions
+    at the train shapes (the plain backward recomputes the forward, as the
+    kernels recompute q).  No one PyTorch call computes the heads, exp
+    and c_v fold."""
+    h, w, b, cv, gm, gs = ag_inputs(TRAIN_ROWS, CLUSTERS, LATENT, seed=8)
+    ops = prepare(h, w, b, cv)
+    flops = 2.0 * TRAIN_ROWS * HIDDEN * 2 * CLUSTERS * LATENT
+    outs = ag_heads_fwd_kernel(*ops)
+    grads = ag_heads_bwd_kernel(*ops, gm, gs)
+    pairs = {
+        "fused_ag_heads_fwd": (lambda: ag_heads_fwd_kernel(*ops),
+                               lambda: ag_heads_plain(h, w, b, cv),
+                               bound(flops, nbytes(*ops, *outs))),
+        "fused_ag_heads_bwd": (lambda: ag_heads_bwd_kernel(*ops, gm, gs),
+                               lambda: ag_heads_bwd_plain(h, w, b, cv, gm, gs),
+                               bound(3 * flops, nbytes(*ops, gm, gs, *grads))),
+    }
+    times = {}
+    for name, (fk, fp, bnd) in pairs.items():
+        t = turns(fk, fp, lambda fn: cuda_ms(fn, iters=10, warmup=2))
+        times[name] = timing(t, bnd)
+        print(f"time {name} (N={TRAIN_ROWS} H={HIDDEN} K={CLUSTERS} "
+              f"L={LATENT}): kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, bound "
+              f"{bnd[0]:.4f} ms ({bnd[1]}) [{label}]")
     return times
 
 
@@ -768,11 +1007,12 @@ METRIC_RTOL = 1e-2
 GRAD_SHARE = 2e-2
 
 
-def train_config() -> Config:
-    """The Normal-prior CVAE with the config.py defaults (embed 256,
-    hidden 512, latent 150, K_z 100, 4096-d features, bf16, Adam 5e-4,
-    clip 5.0) and vocab 11,500."""
-    cfg = Config(prior="Normal", batch_size=TRAIN_IMAGES,
+def train_config(prior: str = "Normal") -> Config:
+    """The Normal-prior CVAE, or the AG-CVAE with cluster vectors, with
+    the config.py defaults (embed 256, hidden 512, latent 150, K_z 100,
+    90 clusters, 4096-d features, bf16, Adam 5e-4, clip 5.0) and vocab
+    11,500."""
+    cfg = Config(prior=prior, use_c_v=prior == "AG", batch_size=TRAIN_IMAGES,
                  num_captions=TRAIN_CAPTIONS)
     cfg.vocab_size = VOCAB
     return cfg
@@ -780,7 +1020,8 @@ def train_config() -> Config:
 
 def train_arrays(seed: int = 9) -> tuple:
     """One synthetic batch on the card: features, labels (the encoder's
-    input), decoder inputs, lengths in 6..24 (one row of 24), c_v."""
+    input), decoder inputs, lengths in 6..24 (one row of 24) and COCO-like
+    cluster vectors."""
     rng = np.random.default_rng(seed)
     B, K, T, R = TRAIN_IMAGES, TRAIN_CAPTIONS, TRAIN_T, TRAIN_ROWS
     lengths = rng.integers(min(6, T), T + 1, size=R).astype(np.int32)
@@ -794,45 +1035,49 @@ def train_arrays(seed: int = 9) -> tuple:
     feats = np.maximum(rng.standard_normal((B, 4096), dtype=np.float32), 0)
     return (torch.from_numpy(feats).to(DEV), torch.from_numpy(labels).to(DEV),
             torch.from_numpy(dec).to(DEV), torch.from_numpy(lengths).to(DEV),
-            torch.zeros((B, 90), device=DEV))
+            coco_cv(B, seed=seed))
 
 
-def phase_train_path():
-    """20 Trainer steps at full width on one repeated batch."""
-    cfg = train_config()
+def train_launches(steps: int, ag: bool) -> dict:
+    """The kernels a run of ``steps`` train steps must launch: the LSTM
+    sequence for the encoder and the decoder, the fused z, the AG heads
+    under the AG prior, and never the eps kernel (check only: the train
+    step never materialises eps)."""
+    return {"fused_lstm_seq_fwd": 2 * steps, "fused_lstm_seq_bwd": 2 * steps,
+            "fused_z_fwd": steps, "fused_z_bwd": steps, "fused_z_eps": 0,
+            "fused_ag_heads_fwd": steps if ag else 0,
+            "fused_ag_heads_bwd": steps if ag else 0}
+
+
+def phase_train_path(cfg, arrays, tag: str):
+    """TRAIN_STEPS Trainer steps at full width on one repeated batch."""
     trainer = Trainer(cfg, device=DEV)
-    arrays = train_arrays()
     torch.cuda.synchronize()
-    _ext.reset_launches()   # the train path's run starts here
+    _ext.reset_launches()   # this path's run starts here
     t0 = time.perf_counter()
     metrics = [trainer.run_step_arrays(arrays) for _ in range(TRAIN_STEPS)]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {k: _ext.LAUNCHES[k]                              # right after
-                for k in (*TRAIN_KERNELS, "fused_z_eps")}
-    want = {"fused_lstm_seq_fwd": 2 * TRAIN_STEPS,   # encoder + decoder
-            "fused_lstm_seq_bwd": 2 * TRAIN_STEPS,
-            "fused_z_fwd": TRAIN_STEPS, "fused_z_bwd": TRAIN_STEPS,
-            "fused_z_eps": 0}   # check only: the train step never materialises eps
+    want = train_launches(TRAIN_STEPS, cfg.prior == "AG")
+    launches = {k: _ext.LAUNCHES[k] for k in want}               # right after
     losses = [float(m["loss"]) for m in metrics]
-    print(f"train path: {TRAIN_STEPS} steps of {TRAIN_IMAGES} images x "
+    print(f"{tag} path: {TRAIN_STEPS} steps of {TRAIN_IMAGES} images x "
           f"{TRAIN_CAPTIONS} captions x {TRAIN_T} tokens in {seconds:.2f} s; "
           f"launches {launches}, expected {want}")
-    print("train path loss by step: " + ", ".join(f"{x:.4f}" for x in losses))
-    print(f"train path step 1 / step {TRAIN_STEPS}: " + "; ".join(
+    print(f"{tag} path loss by step: " + ", ".join(f"{x:.4f}" for x in losses))
+    print(f"{tag} path step 1 / step {TRAIN_STEPS}: " + "; ".join(
         f"{k} {float(metrics[0][k]):.5f} / {float(metrics[-1][k]):.5f}"
         for k in ("rec_loss", "kld", "grad_norm")))
     if launches != want:
-        raise AssertionError(f"train launch counts {launches} != expected {want}")
+        raise AssertionError(f"{tag} launch counts {launches} != expected {want}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"the train loss did not fall: {losses}")
-    return cfg, trainer, launches
+        raise AssertionError(f"the {tag} loss did not fall: {losses}")
+    return trainer, launches
 
 
-def phase_train_compare(cfg) -> dict:
+def phase_train_compare(cfg, arrays, tag: str) -> dict:
     """COMPARE_STEPS steps through the kernels and through the plain
     versions, from the same weights and z seeds."""
-    arrays = train_arrays(seed=10)
     runs, grads = [], []
     for ops in (None, PLAIN_TRAIN_OPS):
         trainer = Trainer(cfg.replace(), device=DEV,
@@ -853,9 +1098,9 @@ def phase_train_compare(cfg) -> dict:
             rel = abs(k[key] - p[key]) / abs(p[key])
             worst[key] = max(worst.get(key, 0.0), rel)
             if rel > tol:
-                raise AssertionError(f"train compare step {i + 1}: {key} kernel "
+                raise AssertionError(f"{tag} compare step {i + 1}: {key} kernel "
                                      f"{k[key]:.6f} plain {p[key]:.6f} ({rel:.2e})")
-        print(f"train compare step {i + 1}: " + "; ".join(
+        print(f"{tag} compare step {i + 1}: " + "; ".join(
             f"{key} {k[key]:.6f} / {p[key]:.6f}" for key in
             ("loss", "rec_loss", "kld", "grad_norm")) + " (kernels / plain)")
     shares = {}
@@ -863,9 +1108,9 @@ def phase_train_compare(cfg) -> dict:
         _, rel = rel_err(grads[0][name], grads[1][name])
         shares[name] = rel
         if rel > GRAD_SHARE:
-            raise AssertionError(f"train compare: step-1 gradient of {name} "
+            raise AssertionError(f"{tag} compare: step-1 gradient of {name} "
                                  f"differs by {rel:.2e} of its max")
-    print(f"train compare: metrics max rel diff {worst} (tolerance "
+    print(f"{tag} compare: metrics max rel diff {worst} (tolerance "
           f"{METRIC_RTOL_1} at step 1, {METRIC_RTOL} after); step-1 gradients, "
           f"max |kernel - plain| over max |plain| per leaf: " + ", ".join(
               f"{n} {r:.2e}" for n, r in sorted(shares.items()))
@@ -873,55 +1118,60 @@ def phase_train_compare(cfg) -> dict:
     return worst
 
 
-def phase_round_trip(cfg, trainer, out_dir: str) -> None:
+def phase_round_trip(cfg, trainer, out_dir: str, tag: str) -> None:
     """The trained weights through export_flax_params / save_params /
-    load_model, then one greedy batch of 512 images through the decode
-    kernels."""
+    load_model, then one batch of 512 images through the decode kernels:
+    greedy for the Normal model, beam 3 with the images' cluster vectors
+    for the AG-CVAE."""
     vocab = Vocabulary(["<BOS>", "<EOS>", "<UNK>"]
                        + [f"w{i}" for i in range(VOCAB - 4)])
-    # the checkpoint (120 MB at full width) is removed after the reload
+    # the checkpoint (120 MB at full width, 175 MB for the AG-CVAE) is
+    # removed after the reload
     ckpt_dir = os.path.join(out_dir, "checkpoints")
+    name = f"{tag}_round_trip"
     try:
-        save_sidecars(cfg, vocab, ckpt_dir, "train_round_trip")
-        save_params(export_flax_params(trainer.model), ckpt_dir,
-                    "train_round_trip")
-        model, _, report = load_model(ckpt_dir, "train_round_trip", device=DEV)
+        save_sidecars(cfg, vocab, ckpt_dir, name)
+        save_params(export_flax_params(trainer.model), ckpt_dir, name)
+        model, _, report = load_model(ckpt_dir, name, device=DEV)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
-    for (name, a), (_, b) in zip(trainer.model.named_parameters(),
-                                 model.named_parameters()):
+    for (pname, a), (_, b) in zip(trainer.model.named_parameters(),
+                                  model.named_parameters()):
         if not torch.equal(a.detach(), b.detach()):
-            raise AssertionError(f"round trip changed {name}")
-    dcfg = cfg.replace(mode="inference", gen_max_len=30)
-    fn = make_decode_fns(model, dcfg, vocab)["greedy"]
+            raise AssertionError(f"{tag} round trip changed {pname}")
+    ag = cfg.prior == "AG"
+    dcfg = cfg.replace(mode="inference", gen_max_len=30, beam_size=3)
+    fn = make_decode_fns(model, dcfg, vocab)["beam_search" if ag else "greedy"]
     rng = np.random.default_rng(11)
     feats = torch.from_numpy(np.maximum(
         rng.standard_normal((BATCH, 4096), dtype=np.float32), 0)).to(DEV)
+    c_v = coco_cv(BATCH, seed=11)
     _ext.reset_launches()
-    res = fn(feats, torch.zeros((BATCH, 90), device=DEV),
-             generator=torch.Generator(device=DEV).manual_seed(3))
+    res = fn(feats, c_v, generator=torch.Generator(device=DEV).manual_seed(3))
     torch.cuda.synchronize()
     tokens = res.tokens
     if tokens.shape[0] != BATCH or not bool(((tokens >= 0)
                                              & (tokens < VOCAB)).all()):
-        raise AssertionError("round trip: decoded tokens out of range")
+        raise AssertionError(f"{tag} round trip: decoded tokens out of range")
+    if ag and not bool(torch.isfinite(res.scores).all()):
+        raise AssertionError(f"{tag} round trip: non-finite beam scores")
     if _ext.LAUNCHES["fused_logits_top_k"] != res.steps:
-        raise AssertionError("round trip: the decode did not run the kernels")
-    print(f"round trip: {len(report.loaded)} Flax leaves exported, saved, "
-          f"reloaded bit for bit; greedy decode of {BATCH} images, "
+        raise AssertionError(f"{tag} round trip: the decode did not run the kernels")
+    print(f"{tag} round trip: {len(report.loaded)} Flax leaves exported, saved, "
+          f"reloaded bit for bit; {'beam-3' if ag else 'greedy'} decode of "
+          f"{BATCH} images{' with their cluster vectors' if ag else ''}, "
           f"{res.steps} steps through the decode kernels")
 
 
-def phase_train_times(cfg, label: str) -> None:
+def phase_train_times(cfg, arrays, label: str, tag: str) -> None:
     """ms per full-width train step, kernel path against plain path, in
     turns, by CUDA events over 5 steps after 1 warm-up step."""
-    arrays = train_arrays(seed=12)
     kern = Trainer(cfg.replace(), device=DEV)
     plain = Trainer(cfg.replace(), device=DEV, ops=PLAIN_TRAIN_OPS)
     tk, tp = turns(lambda: kern.run_step_arrays(arrays),
                    lambda: plain.run_step_arrays(arrays),
                    lambda fn: cuda_ms(fn, iters=5, warmup=1))
-    print(f"time train step, {TRAIN_IMAGES} images x {TRAIN_CAPTIONS} "
+    print(f"time {tag} step, {TRAIN_IMAGES} images x {TRAIN_CAPTIONS} "
           f"captions x {TRAIN_T} tokens: kernel {tk:.2f} ms "
           f"({TRAIN_IMAGES / tk * 1e3:.0f} images/s), plain {tp:.2f} ms "
           f"({TRAIN_IMAGES / tp * 1e3:.0f} images/s) [{label}]")
@@ -940,17 +1190,20 @@ def port_kernel_names() -> dict:
     return names
 
 
-def phase_train_profile(out_dir: str, label: str) -> None:
-    """The kernel path's full-width train step under torch.profiler:
-    PROFILE_STEPS steps after 3 warm-up steps.  The trace's kernel,
-    memcpy and memset events are summed per step by name and grouped (the
-    port's kernels one by one, cuBLAS GEMMs, copies, other PyTorch
-    kernels); the device's busy time is the union of their intervals, and
-    the idle share is 1 - busy / the step's host-clock time under the
-    profiler.  Writes the trace and a summary to ``out_dir``."""
+def phase_train_profile(out_dir: str, label: str, prior: str) -> None:
+    """The kernel path's full-width train step of the ``prior`` model
+    under torch.profiler: PROFILE_STEPS steps after 3 warm-up steps.  The
+    trace's kernel, memcpy and memset events are summed per step by name
+    and grouped (the port's kernels one by one, cuBLAS GEMMs, copies,
+    other PyTorch kernels); the device's busy time is the union of their
+    intervals, and the idle share is 1 - busy / the step's host-clock
+    time under the profiler.  Writes the trace and a summary to
+    ``out_dir`` (``train_*`` for the Normal prior, ``ag_train_*`` for
+    AG)."""
     from torch.profiler import ProfilerActivity, profile
-    trainer = Trainer(train_config(), device=DEV)
+    trainer = Trainer(train_config(prior), device=DEV)
     arrays = train_arrays()
+    prefix = "ag_train" if prior == "AG" else "train"
     for _ in range(3):
         trainer.run_step_arrays(arrays)
     torch.cuda.synchronize()
@@ -960,7 +1213,7 @@ def phase_train_profile(out_dir: str, label: str) -> None:
             trainer.run_step_arrays(arrays)
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) / PROFILE_STEPS * 1e3
-    trace = os.path.join(out_dir, "train_step_trace.json")
+    trace = os.path.join(out_dir, f"{prefix}_step_trace.json")
     prof.export_chrome_trace(trace)
     with open(trace) as f:
         events = [e for e in json.load(f)["traceEvents"]
@@ -990,7 +1243,7 @@ def phase_train_profile(out_dir: str, label: str) -> None:
         busy += max(0.0, stop - max(start, end))
         end = max(end, stop)
     busy_ms = busy / 1e3 / PROFILE_STEPS
-    print(f"profile: train step {TRAIN_IMAGES} images x {TRAIN_CAPTIONS} "
+    print(f"profile: {prior} train step {TRAIN_IMAGES} images x {TRAIN_CAPTIONS} "
           f"captions x {TRAIN_T} tokens, {PROFILE_STEPS} steps after 3 warm-up "
           f"[{label}]: {step_ms:.3f} ms/step under the profiler, device busy "
           f"{busy_ms:.3f} ms, idle share {1 - busy_ms / step_ms:.4f}")
@@ -1000,8 +1253,9 @@ def phase_train_profile(out_dir: str, label: str) -> None:
     for key, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]:
         print(f"profile kernel {ms:9.4f} ms/step {n / PROFILE_STEPS:6.1f} "
               f"launches/step  {key}")
-    with open(os.path.join(out_dir, "train_profile.json"), "w") as f:
-        json.dump({"card": label, "steps": PROFILE_STEPS, "step_ms": step_ms,
+    with open(os.path.join(out_dir, f"{prefix}_profile.json"), "w") as f:
+        json.dump({"card": label, "prior": prior, "steps": PROFILE_STEPS,
+                   "step_ms": step_ms,
                    "busy_ms": busy_ms, "groups": groups, "by_name": by_name}, f,
                   indent=1)
 
@@ -1025,33 +1279,39 @@ def main() -> None:
         _ext.library_path(src).name for src in _ext._sources())
         + f" (nvcc output in {out_dir}/build.log)")
     if sys.argv[1:] == ["--profile"]:
-        phase_train_profile(out_dir, label)
+        phase_train_profile(out_dir, label, "Normal")
+        phase_train_profile(out_dir, label, "AG")
         return
 
     t0 = time.perf_counter()
-    errors = {**phase_kernels(), **phase_train_kernels()}
+    errors = {**phase_kernels(), **phase_train_kernels(), **phase_ag_kernels()}
     cfg, vocab, model, launches = phase_main_path(out_dir)
     phase_decode_compare(cfg, vocab, model)
-    tcfg, trainer, train_launches = phase_train_path()
-    launches.update(train_launches)
-    phase_train_compare(tcfg)
-    phase_round_trip(tcfg, trainer, out_dir)
-    del trainer
-    times = {**phase_kernel_times(label), **phase_train_kernel_times(label)}
+    for prior, tag, kernels in (("Normal", "train", TRAIN_KERNELS + ("fused_z_eps",)),
+                                ("AG", "train-ag", AG_KERNELS)):
+        tcfg, arrays = train_config(prior), train_arrays()
+        trainer, path_launches = phase_train_path(tcfg, arrays, tag)
+        launches.update({k: path_launches[k] for k in kernels})
+        phase_train_compare(tcfg, train_arrays(seed=10), tag)
+        phase_round_trip(tcfg, trainer, out_dir, tag)
+        del trainer
+    times = {**phase_kernel_times(label), **phase_train_kernel_times(label),
+             **phase_ag_kernel_times(label)}
     phase_decode_times(cfg, vocab, model, label)
-    phase_train_times(tcfg, label)
+    for prior, tag in (("Normal", "train"), ("AG", "train-ag")):
+        phase_train_times(train_config(prior), train_arrays(seed=12), label, tag)
     print(f"phases: {time.perf_counter() - t0:.1f} s")
-    jax_modules = sorted(m for m in sys.modules if m.split(".")[0]
-                         in ("jax", "jaxlib", "flax", "optax", "orbax"))
-    if jax_modules:
-        raise AssertionError(f"the port loaded JAX modules: {jax_modules[:5]}")
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
+        "jax", "jaxlib", "flax", "optax", "orbax", "vae_captioning_tpu"))
+    if loaded:
+        raise AssertionError(f"the port loaded JAX modules: {loaded[:5]}")
 
     paths = {**{k: "decode" for k in DECODE_KERNELS},
-             **{k: "train" for k in TRAIN_KERNELS}, "fused_z_eps": "check"}
+             **{k: "train" for k in TRAIN_KERNELS}, "fused_z_eps": "check",
+             **{k: "train-ag" for k in AG_KERNELS}}
     record = {"kernels": [
         {"name": name, **meta, "path": paths[name], "launches": launches[name],
-         "max_abs_err": errors[name], "ms": times[name][0],
-         "plain_ms": times[name][1]}
+         "max_abs_err": errors[name], **times[name]}
         for name, meta in KERNELS.items()]}
     print(label)
     print(json.dumps(record))

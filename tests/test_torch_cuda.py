@@ -1,8 +1,8 @@
 """The port's CUDA kernels on the card: each against its plain version,
 the lowest-index tie rule, the wrappers' checks and launch counts, a
-small decode and a few train steps through the kernels against the same
-through the plain versions, and the fused z generator's bits against
-the plain generator's.
+small decode and a few train steps (Normal and AG prior) through the
+kernels against the same through the plain versions, and the fused z
+generator's bits against the plain generator's.
 
 Every test needs an NVIDIA GPU with nvcc and skips without one.  This
 file imports no JAX, so it also runs on a machine without it:
@@ -14,12 +14,14 @@ import numpy as np
 import pytest
 import torch
 
-from vae_captioning_tpu.config import Config
-from vae_captioning_tpu.data.vocabulary import Vocabulary
 from vae_captioning_torch import _ext
 from vae_captioning_torch.bridge import flax_shapes, load_flax_params
+from vae_captioning_torch.config import Config
+from vae_captioning_torch.data.vocabulary import Vocabulary
 from vae_captioning_torch.inference import PLAIN_OPS, make_decode_fns
 from vae_captioning_torch.models.cvae import CVAEModel
+from vae_captioning_torch.ops.fused_ag_heads import (ag_heads_plain,
+                                                     fused_ag_heads)
 from vae_captioning_torch.ops.fused_logits_topk import (
     fused_logits_top_k, fused_logits_top_k_plain)
 from vae_captioning_torch.ops.fused_lstm_seq import (fused_lstm_seq,
@@ -225,11 +227,59 @@ def test_train_wrappers_check_their_inputs(dev):
                 2, 0, 0)
 
 
-def test_train_steps_through_kernels_match_plain(dev):
+@pytest.mark.parametrize("N,H,K,L", [(70, 64, 7, 37), (1000, 512, 12, 150),
+                                     (1280, 512, 90, 150)])
+def test_ag_heads_kernels_match_plain(dev, N, H, K, L):
+    """Forward to 1e-4 of the largest element (f32 sums in another order);
+    db to 1e-4 (both from f32 dq); dh, dW and dc_v to 8e-3, two bf16 steps
+    (the kernels round dq to bf16 for the tensor cores, the plain version
+    rounds the gradients themselves to bf16, as the reference's casts do;
+    3e-3 to 4.7e-3 measured on an H100)."""
+    g = torch.Generator(device=dev).manual_seed(N + K)
+    h = torch.randn((N, H), generator=g, device=dev)
+    w = 0.05 * torch.randn((2 * K * L, H), generator=g, device=dev)
+    b = 0.1 * torch.randn((2 * K * L,), generator=g, device=dev)
+    c_v = torch.rand((N, K), generator=g, device=dev)
+    c_v[::7] = 0.0                               # images with no detection
+    c_v = c_v / c_v.sum(dim=1, keepdim=True).clamp_min(1e-9)
+    cots = [torch.randn((N, L), generator=g, device=dev) for _ in range(2)]
+    leaves = [[t.clone().requires_grad_() for t in (h, w, b, c_v)]
+              for _ in range(2)]
+    before = dict(_ext.LAUNCHES)
+    outs = []
+    for fn, lv in zip((fused_ag_heads, ag_heads_plain), leaves):
+        m, s = fn(*lv)
+        ((m * cots[0]).sum() + (s * cots[1]).sum()).backward()
+        outs.append((m, s))
+    torch.cuda.synchronize()
+    assert _ext.LAUNCHES["fused_ag_heads_fwd"] == before["fused_ag_heads_fwd"] + 1
+    assert _ext.LAUNCHES["fused_ag_heads_bwd"] == before["fused_ag_heads_bwd"] + 1
+    for a, r in zip(*outs):
+        assert a.dtype == torch.float32 and a.shape == (N, L)
+        assert _rel(a, r) < 1e-4
+    assert not outs[0][0][::7].any() and not outs[0][1][::7].any()
+    for name, a, r, tol in zip(("dh", "dw", "db", "dcv"), leaves[0],
+                               leaves[1], (8e-3, 8e-3, 1e-4, 8e-3)):
+        assert _rel(a.grad, r.grad) < tol, name
+
+
+def test_ag_heads_wrapper_checks_its_inputs(dev):
+    h = torch.zeros((4, 96), device=dev)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        fused_ag_heads(h, torch.zeros((2 * 3 * 5, 96), device=dev),
+                       torch.zeros(30, device=dev), torch.zeros((4, 3), device=dev))
+    with pytest.raises(ValueError, match="CPU or all on one CUDA"):
+        fused_ag_heads(h[:, :64].cpu(), torch.zeros((30, 64), device=dev),
+                       torch.zeros(30, device=dev), torch.zeros((4, 3), device=dev))
+
+
+@pytest.mark.parametrize("prior", ["Normal", "AG"])
+def test_train_steps_through_kernels_match_plain(dev, prior):
     from vae_captioning_torch.models.cvae import PLAIN_TRAIN_OPS
     from vae_captioning_torch.train import Trainer
     cfg = Config(embed_size=64, latent_size=16, encoder_hidden=64,
-                 decoder_hidden=128, gen_z_samples=4, prior="Normal")
+                 decoder_hidden=128, gen_z_samples=4, prior=prior,
+                 use_c_v=prior == "AG")
     cfg.vocab_size = 300
     rng = np.random.default_rng(0)
     B, K, T = 8, 5, 12
@@ -239,17 +289,21 @@ def test_train_steps_through_kernels_match_plain(dev):
     arrays = (torch.randn((B, 4096), device=dev),
               torch.from_numpy(labels).to(dev),
               torch.from_numpy(np.roll(labels, 1, axis=1)).to(dev),
-              torch.from_numpy(lengths).to(dev), torch.zeros((B, 90), device=dev))
+              torch.from_numpy(lengths).to(dev),
+              torch.from_numpy(rng.dirichlet(np.ones(90), size=B)
+                               .astype(np.float32)).to(dev))
     runs, evals = [], []
     for ops in (None, PLAIN_TRAIN_OPS):
         tr = Trainer(cfg.replace(), device=dev, **({} if ops is None else {"ops": ops}))
         runs.append([{k: float(v) for k, v in tr.run_step_arrays(arrays).items()}
                      for _ in range(3)])
-        # the eval step runs without gradients, so its three conditioning
-        # steps (encoder: image; decoder: image, z) take the decode kernel
+        # the eval step runs without gradients, so its conditioning steps
+        # (encoder: image and, with c_v, the cluster vector; decoder:
+        # image, c_v, z) take the decode kernel
         before = _ext.LAUNCHES["fused_lstm_step"]
         evals.append(float(tr.eval_step(*arrays, z_seed=3)))
-        assert _ext.LAUNCHES["fused_lstm_step"] - before == 3
+        assert (_ext.LAUNCHES["fused_lstm_step"] - before
+                == (5 if cfg.use_c_v else 3))
     for got, want in zip(*runs):
         for key in ("loss", "rec_loss", "kld", "grad_norm"):
             assert abs(got[key] - want[key]) <= 2e-3 * abs(want[key]), key

@@ -1,5 +1,5 @@
-"""Decode-time latent maths of the port against the JAX package: the
-seed-fixed cluster means and the AG prior mean."""
+"""Latent maths of the port against the JAX package: the seed-fixed
+cluster means, the AG prior mean and the AG KL."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -35,3 +35,31 @@ def test_ag_prior_mean_matches_jax():
                                atol=1e-7)
     np.testing.assert_allclose(got[1].numpy(), means[11], rtol=1e-6)
     assert tdist.AG_UNUSED_CLASSES == jdist.AG_UNUSED_CLASSES
+
+
+@pytest.mark.parametrize("reduce", ["mean", "sum"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_kl_ag_matches_jax(reduce, masked):
+    """With and without a row mask, meaned and summed over rows; one row
+    has an all-zero cluster vector.  f32 sums in another order: 1e-6."""
+    rng = np.random.default_rng(4)
+    mean = rng.normal(size=(6, 16)).astype(np.float32)
+    std = rng.uniform(0.05, 2.0, size=(6, 16)).astype(np.float32)
+    c_v = (rng.random((6, 90)) * (rng.random((6, 90)) < 0.1)).astype(np.float32)
+    c_v[2] = 0.0
+    means = tdist.init_cluster_means(90, 16, 3)
+    mask = np.array([1, 0, 1, 1, 0, 1], bool) if masked else None
+    got = tdist.kl_ag(*(torch.from_numpy(a) for a in (mean, std, c_v, means)),
+                      0.1, None if mask is None else torch.from_numpy(mask),
+                      reduce=reduce)
+    want = jdist.kl_ag(*(jnp.asarray(a) for a in (mean, std, c_v, means)),
+                       0.1, None if mask is None else jnp.asarray(mask),
+                       reduce=reduce)
+    assert got.dtype == torch.float32 and got.dim() == 0
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+
+
+def test_kl_ag_rejects_an_unknown_reduction():
+    x = torch.ones(2, 3)
+    with pytest.raises(ValueError, match="reduce"):
+        tdist.kl_ag(x, x, torch.ones(2, 4), torch.ones(4, 3), reduce="max")

@@ -1,0 +1,153 @@
+"""The AG heads of the port (ops/fused_ag_heads.py) against the JAX
+package's: ``ag_heads_plain`` and the wrapper's CPU branch against
+``ag_heads_xla`` (forward and the four gradients), and against the Pallas
+``fused_ag_heads`` in interpret mode, at the four geometries of
+tests/test_fused_ag_heads.py: one group, two groups with the last one
+padded (K = 12), row tiling with a ragged last tile, and L = 37.  The
+port's W is the ``nn.Linear`` weight, the Flax kernel transposed."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+import vae_captioning_tpu.ops.fused_ag_heads as jfah
+from vae_captioning_torch.ops import fused_ag_heads as tfah
+
+GEOMETRIES = [
+    dict(B=48, H=64, K=7, L=150),    # one group, one row tile
+    dict(B=48, H=64, K=12, L=150),   # two groups, the last one padded
+    dict(B=520, H=64, K=7, L=150),   # row tiles with B % 256 != 0
+    dict(B=32, H=64, K=5, L=37),     # odd latent width
+]
+# the JAX kernel rounds each c_v-weighted product to bf16 before its
+# cluster fold and rounds dq to bf16 (tests/test_fused_ag_heads.py)
+KERNEL_REL = 6e-3
+# the same maths and rounding points as ag_heads_xla, f32 sums in another
+# order: forward and db to FWD_REL of the largest element; dh, dW and dc_v
+# come back rounded to bf16 on both sides, so an element whose f32 sums
+# straddle a bf16 rounding boundary is one bf16 step apart, plus the f32
+# sum-order error (FWD_REL of the largest element) where terms cancel
+FWD_REL = 1e-5
+
+
+def _bf16_step(x):
+    """The spacing of bf16 values at |x| (7 explicit mantissa bits)."""
+    with np.errstate(divide="ignore"):
+        return np.exp2(np.floor(np.log2(np.abs(x))) - 7)
+
+
+@pytest.fixture()
+def interpreted(monkeypatch):
+    orig = pl.pallas_call
+
+    def patched(*args, **kwargs):
+        kwargs["interpret"] = True
+        return orig(*args, **kwargs)
+
+    monkeypatch.setattr(jfah.pl, "pallas_call", patched)
+
+
+def _problem(B, H, K, L, seed=0, zero_row=True):
+    rng = np.random.default_rng(seed)
+    h = rng.normal(size=(B, H)).astype(np.float32)
+    w = rng.normal(0, 0.05, size=(H, 2 * K * L)).astype(np.float32)
+    b = rng.normal(0, 0.1, size=(2 * K * L,)).astype(np.float32)
+    cv = rng.random((B, K)).astype(np.float32)
+    if zero_row:
+        cv[1] = 0.0                               # an image with no detection
+    cv = cv / np.maximum(cv.sum(-1, keepdims=True), 1e-9)
+    return h, w, b, cv
+
+
+def _loss_jax(fn, h, w, b, cv):
+    m, s = fn(h, w, b, cv)
+    return jnp.sum(m ** 2) + jnp.sum(jnp.log(s + 1e-6) ** 2)
+
+
+def _jax_side(fn, h, w, b, cv):
+    args = [jnp.asarray(a) for a in (h, w, b, cv)]
+    m, s = fn(*args)
+    grads = jax.grad(lambda *a: _loss_jax(fn, *a), argnums=(0, 1, 2, 3))(*args)
+    dh, dw, db, dcv = (np.asarray(g) for g in grads)
+    return np.asarray(m), np.asarray(s), (dh, dw.T, db, dcv)
+
+
+def _torch_side(fn, h, w, b, cv):
+    leaves = [torch.from_numpy(a.copy()).requires_grad_()
+              for a in (h, np.ascontiguousarray(w.T), b, cv)]
+    m, s = fn(*leaves)
+    (m.square().sum() + torch.log(s + 1e-6).square().sum()).backward()
+    return (m.detach().numpy(), s.detach().numpy(),
+            tuple(t.grad.numpy() for t in leaves))
+
+
+def _rel(a, e):
+    return float(np.abs(a - e).max() / (np.abs(e).max() + 1e-30))
+
+
+@pytest.mark.parametrize("fn", [tfah.ag_heads_plain, tfah.fused_ag_heads],
+                         ids=["plain", "wrapper"])
+@pytest.mark.parametrize("dims", GEOMETRIES, ids=lambda d: "-".join(
+    f"{k}{v}" for k, v in d.items()))
+def test_plain_matches_ag_heads_xla(fn, dims):
+    args = _problem(**dims)
+    jm, js, jg = _jax_side(jfah.ag_heads_xla, *args)
+    tm, ts, tg = _torch_side(fn, *args)
+    assert tm.shape == ts.shape == (dims["B"], dims["L"])
+    assert tm.dtype == ts.dtype == np.float32
+    assert _rel(tm, jm) <= FWD_REL and _rel(ts, js) <= FWD_REL
+    for name, a, e in zip(["dh", "dw", "db", "dcv"], tg, jg):
+        assert a.shape == e.shape, name
+        if name == "db":
+            assert _rel(a, e) <= FWD_REL, name
+        else:
+            step = _bf16_step(np.maximum(np.abs(a), np.abs(e)))
+            assert np.all(np.abs(a - e) <= step + FWD_REL * np.abs(e).max()), name
+    assert np.all(tm[1] == 0.0) and np.all(ts[1] == 0.0)    # c_v row of zeros
+
+
+@pytest.mark.parametrize("dims", GEOMETRIES, ids=lambda d: "-".join(
+    f"{k}{v}" for k, v in d.items()))
+def test_wrapper_matches_the_pallas_kernel(interpreted, dims):
+    args = _problem(**dims, seed=0, zero_row=False)   # the JAX test's inputs
+    jm, js, jg = _jax_side(jfah.fused_ag_heads, *args)
+    tm, ts, tg = _torch_side(tfah.fused_ag_heads, *args)
+    assert _rel(tm, jm) <= KERNEL_REL and _rel(ts, js) <= KERNEL_REL
+    for name, a, e in zip(["dh", "dw", "db", "dcv"], tg, jg):
+        assert _rel(a, e) <= KERNEL_REL, name
+
+
+@pytest.mark.parametrize("K,L", [(90, 150), (12, 150), (7, 150), (5, 37),
+                                 (200, 3)])
+def test_group_geometry_matches_the_tpu_kernel(K, L):
+    kb, G, _ = jfah._group_geometry(K, L)
+    assert tfah.group_geometry(K, L) == (kb, G)
+
+
+def test_backward_plain_matches_autograd():
+    """ag_heads_bwd_plain, the yardstick of the backward kernel, is the
+    gradient of ag_heads_plain for given output cotangents."""
+    h, w, b, cv = (torch.from_numpy(a) for a in _problem(B=20, H=64, K=5, L=37))
+    w = w.t().contiguous()
+    g = torch.Generator().manual_seed(0)
+    gm, gs = torch.randn((20, 37), generator=g), torch.randn((20, 37), generator=g)
+    leaves = [t.clone().requires_grad_() for t in (h, w, b, cv)]
+    m, s = tfah.ag_heads_plain(*leaves)
+    ((m * gm).sum() + (s * gs).sum()).backward()
+    for got, leaf in zip(tfah.ag_heads_bwd_plain(h, w, b, cv, gm, gs), leaves):
+        torch.testing.assert_close(got, leaf.grad, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("shapes,match", [
+    (((8, 96), (2 * 5 * 37, 96), (2 * 5 * 37,), (8, 5)), "multiple of 64"),
+    (((8, 64), (2 * 5 * 37, 64), (2 * 5 * 37,), (7, 5)), "disagree"),
+    (((8, 64), (2 * 5 * 37 + 1, 64), (2 * 5 * 37 + 1,), (8, 5)), "disagree"),
+    (((0, 64), (2 * 5 * 37, 64), (2 * 5 * 37,), (0, 5)), "no rows"),
+])
+def test_kernel_shape_rules(shapes, match):
+    """The checks a CUDA tensor meets before the kernels launch."""
+    with pytest.raises(ValueError, match=match):
+        tfah._check(*(torch.zeros(s) for s in shapes))

@@ -255,6 +255,6 @@ def test_cli_inference_on_mini_coco(models, mini_coco, tmp_path, monkeypatch):
         test = json.load(f)
     assert len(val) == 6 and len(test) == 4
     assert all(isinstance(c["caption"], str) for c in val + test)
-    # training is ported for the Normal prior; the AG prior's raises
-    with pytest.raises(NotImplementedError, match="B.5"):
-        tcli.main(["--mode", "training", "--prior", "AG", "--device", "cpu"])
+    # training is ported for the Normal and AG priors; the GMM prior's raises
+    with pytest.raises(NotImplementedError, match=r"A\.6\.2"):
+        tcli.main(["--mode", "training", "--prior", "GMM", "--device", "cpu"])

@@ -1,14 +1,17 @@
 """The train slice of the port (vae_captioning_torch/train.py and the
 training forward of models/cvae.py) against the JAX package: the forward
-and the loss, a 3-step ``make_train_step`` trajectory, the optimizer
-against optax, KL annealing, ``Trainer.fit`` and ``cli --mode training``
-on the synthetic mini-COCO, and the configurations that raise.
+and the loss, a 3-step ``make_train_step`` trajectory (Normal prior, and
+AG prior with both ``ag_kl_sum`` settings), the optimizer against optax,
+KL annealing, ``Trainer.fit`` and ``cli --mode training`` on the
+synthetic mini-COCO, and the configurations that raise.
 
 The JAX side runs its kernel path (``cfg.fused_force``) with the Pallas
 kernels in interpret mode and ``fused_z._normal_tile`` patched to a
 deterministic function, as ``tests/test_fused_z.py`` does; the port is
 handed the same numbers as the fused z's explicit eps.  E and H are 128,
-the lane width the JAX kernels need."""
+the lane width the JAX kernels need.  The AG cases use L = 150 and 12
+clusters, so the JAX heads kernel runs two groups of 8 clusters, the last
+one padded."""
 
 import json
 import os
@@ -24,7 +27,6 @@ from jax.experimental import pallas as pl
 
 from vae_captioning_tpu import train as jtrain
 from vae_captioning_tpu.config import Config
-from vae_captioning_tpu.data.features import FeatureStore
 from vae_captioning_tpu.models.cvae import compute_loss as j_compute_loss
 from vae_captioning_tpu.ops import distributions as jdist
 from vae_captioning_tpu.ops import fused_z as jfz
@@ -32,6 +34,8 @@ from vae_captioning_torch import checkpoint as ckpt
 from vae_captioning_torch import cli as tcli
 from vae_captioning_torch import train as ttrain
 from vae_captioning_torch.bridge import export_flax_params, load_flax_params
+from vae_captioning_torch.data.dataset import Data
+from vae_captioning_torch.data.features import FeatureStore
 from vae_captioning_torch.inference import run_inference
 from vae_captioning_torch.models.cvae import (CVAEModel, TrainOps,
                                               compute_loss)
@@ -43,6 +47,11 @@ B, K, T, V = 2, 3, 6, 50
 # loss, rec_loss, kld and grad_norm: f32 sums in another order and the
 # odd bf16 value rounded the other way (measured: 5e-4 at most over 3 steps)
 METRIC_RTOL = 3e-3
+# the AG posterior: the JAX kernel rounds each c_v-weighted product to
+# bf16 before it folds the clusters, the port keeps them in f32; so q_mean
+# and q_std to its test's 6e-3 of their largest element
+AG_REL = 6e-3
+AG_K, AG_L = 12, 150
 
 
 def _fake_normal(seed0, seed1, s, tag, shape):
@@ -114,6 +123,37 @@ def _eps(cfg):
         cfg.gen_z_samples))
 
 
+def _ag_cfg(**kw):
+    return _cfg(prior="AG", use_c_v=True, latent_size=AG_L,
+                num_clusters=AG_K, **kw)
+
+
+def _cv(seed):
+    """[B, AG_K] cluster vectors as COCO gives them: 1-3 active clusters
+    per image, normalised to sum to 1."""
+    rng = np.random.default_rng(seed)
+    cv = np.zeros((B, AG_K), np.float32)
+    for row in cv:
+        row[rng.choice(AG_K, size=rng.integers(1, 4), replace=False)] = 1.0
+    return cv / cv.sum(axis=1, keepdims=True)
+
+
+@pytest.fixture(scope="module")
+def ag_jax_model():
+    cfg = _ag_cfg()
+    _, params = jtrain.init_model(cfg.replace(fused_force=False),
+                                  jax.random.PRNGKey(0))
+    model = jtrain.build_model(cfg)
+    flat = {"/".join(k): np.asarray(v)
+            for k, v in flatten_dict(jax.device_get(params)).items()}
+    return cfg, model, params, flat
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.abs(a - b).max() / np.abs(b).max()
+
+
 def test_forward_and_loss_match_jax(interpreted, jax_model):
     cfg, model, params, flat = jax_model
     feats, enc, dec, lens = _batch()
@@ -173,6 +213,80 @@ def test_three_train_steps_match_jax(interpreted, jax_model):
           for k, v in flatten_dict(jax.device_get(state.params)).items()}
     for key in ("decoder/rnn_logits/kernel", "encoder/q_heads/kernel",
                 "decoder/lstm/cell_0/kernel"):
+        delta_t, delta_j = moved[key] - flat[key], jp[key] - flat[key]
+        assert (np.abs(delta_t - delta_j).mean()
+                <= 0.02 * np.abs(delta_j).mean()), key
+
+
+def test_ag_forward_and_loss_match_jax(interpreted, ag_jax_model):
+    cfg, model, params, flat = ag_jax_model
+    feats, enc, dec, lens = _batch(seed=6)
+    cv = _cv(6)
+    out = model.apply({"params": params}, jnp.asarray(feats), jnp.asarray(enc),
+                      jnp.asarray(dec), jnp.asarray(lens), jnp.asarray(cv),
+                      rngs={"z": jax.random.PRNGKey(3)}, time_major=True)
+    means = jnp.asarray(jdist.init_cluster_means(AG_K, AG_L, cfg.seed))
+    t_model = CVAEModel.from_config(cfg)
+    load_flax_params(t_model, flat)
+    t_out = t_model(torch.from_numpy(feats), torch.from_numpy(enc).long(),
+                    torch.from_numpy(dec).long(), torch.from_numpy(lens),
+                    c_v=torch.from_numpy(cv), ops=_ops(_eps(cfg)),
+                    time_major=True)
+    np.testing.assert_array_equal(t_model.cluster_means.numpy(), means)
+    np.testing.assert_array_equal(t_out["c_v"].numpy(), np.asarray(out["c_v"]))
+    for key in ("q_mean", "q_std"):
+        assert _rel(t_out[key].detach(), out[key]) <= AG_REL, key
+    np.testing.assert_allclose(t_out["logits"].float().detach().numpy(),
+                               np.asarray(out["logits"], np.float32),
+                               rtol=2e-2, atol=2e-2)
+    for kl_sum in (False, True):
+        j_loss = j_compute_loss(out, jnp.asarray(enc).T, prior="AG",
+                                no_encoder=False, cluster_means=means,
+                                annealing=0.5, ag_kl_sum=kl_sum,
+                                time_major=True)
+        t_loss = compute_loss(t_out, torch.from_numpy(enc).long().t(),
+                              no_encoder=False, prior="AG",
+                              cluster_means=t_model.cluster_means,
+                              annealing=0.5, ag_kl_sum=kl_sum)
+        # rec_loss as the Normal case; the KL moves with q_mean and q_std
+        np.testing.assert_allclose(float(t_loss["rec_loss"]),
+                                   float(j_loss["rec_loss"]), rtol=1e-4)
+        for key in ("loss", "kld"):
+            np.testing.assert_allclose(float(t_loss[key].detach()),
+                                       float(j_loss[key]), rtol=METRIC_RTOL,
+                                       err_msg=f"{key} ag_kl_sum={kl_sum}")
+
+
+@pytest.mark.parametrize("kl_sum", [False, True])
+def test_ag_three_train_steps_match_jax(interpreted, ag_jax_model, kl_sum):
+    cfg, model, params, flat = ag_jax_model
+    cfg = cfg.replace(ag_kl_sum=kl_sum)
+    feats, enc, dec, lens = _batch(seed=7)
+    cv = _cv(7)
+    tx = jtrain.make_optimizer(cfg)
+    state = jtrain.TrainState.create(params, tx)
+    step = jtrain.make_train_step(model, tx, cfg, donate=False)
+    args = [jnp.asarray(a) for a in (feats, enc, dec, lens, cv)]
+    want = []
+    for _ in range(3):
+        state, m = step(state, *args, jax.random.PRNGKey(1))
+        want.append({k: float(v) for k, v in m.items()})
+    trainer = ttrain.Trainer(cfg.replace(), device="cpu", params=flat,
+                             ops=_ops(_eps(cfg)))
+    arrays = (torch.from_numpy(feats), torch.from_numpy(enc).long(),
+              torch.from_numpy(dec).long(), torch.from_numpy(lens),
+              torch.from_numpy(cv))
+    got = [{k: float(v) for k, v in trainer.run_step_arrays(arrays).items()}
+           for _ in range(3)]
+    for i, (g, w) in enumerate(zip(got, want)):
+        for key in ("loss", "rec_loss", "kld", "grad_norm"):
+            assert abs(g[key] - w[key]) <= METRIC_RTOL * abs(w[key]), (i, key, g, w)
+    # the heads moved alike (compared on average, as in the Normal case)
+    moved = export_flax_params(trainer.model)
+    jp = {"/".join(k): np.asarray(v)
+          for k, v in flatten_dict(jax.device_get(state.params)).items()}
+    for key in ("encoder/q_heads/kernel", "encoder/q_heads/bias",
+                "cv_emb/kernel"):
         delta_t, delta_j = moved[key] - flat[key], jp[key] - flat[key]
         assert (np.abs(delta_t - delta_j).mean()
                 <= 0.02 * np.abs(delta_j).mean()), key
@@ -258,9 +372,8 @@ def _feature_caches(mini_coco, cache_dir, splits=("train2014", "val2014",
             os.path.join(cache_dir, f"{split}.features.npz"))
 
 
-def test_fit_one_epoch_then_decode_the_checkpoint(mini_coco, tmp_path, capsys):
-    from vae_captioning_tpu.data.dataset import Data
-    cfg = _mini_cfg(mini_coco, tmp_path)
+def _fit_then_decode(mini_coco, tmp_path, capsys, **overrides):
+    cfg = _mini_cfg(mini_coco, tmp_path, **overrides)
     _feature_caches(mini_coco, cfg.cache_dir)
     data = Data(cfg, extract_features=True)
     trainer = ttrain.Trainer(cfg, vocab_size=data.vocab.vocab_size, device="cpu")
@@ -287,9 +400,28 @@ def test_fit_one_epoch_then_decode_the_checkpoint(mini_coco, tmp_path, capsys):
         assert len(json.load(f)) == 2          # gen_val_captions holdout
     with open(written["test"]) as f:
         assert len(json.load(f)) == 4
+    return cfg, data, before, saved
 
 
-def test_cli_training_end_to_end(mini_coco, tmp_path, monkeypatch):
+def test_fit_one_epoch_then_decode_the_checkpoint(mini_coco, tmp_path, capsys):
+    _fit_then_decode(mini_coco, tmp_path, capsys)
+
+
+def test_ag_fit_one_epoch_then_decode_the_checkpoint(mini_coco, tmp_path,
+                                                     capsys):
+    """The AG-CVAE with cluster vectors: the mini-COCO's instances files
+    give every train and val image its cluster vector."""
+    cfg, data, before, saved = _fit_then_decode(
+        mini_coco, tmp_path, capsys, prior="AG", use_c_v=True)
+    batch = next(data.train_batcher().train_batches(cfg.num_captions))
+    assert batch.cluster_vectors.shape == (4, 90)
+    assert np.allclose(batch.cluster_vectors.sum(axis=1), 1.0)
+    assert saved["encoder/q_heads/kernel"].shape == (32, 2 * 90 * 8)
+    for key in ("encoder/q_heads/kernel", "cv_emb/kernel"):
+        assert np.abs(saved[key] - before[key]).max() > 0, key
+
+
+def _cli_train(mini_coco, tmp_path, monkeypatch, *extra):
     cfg = _mini_cfg(mini_coco, tmp_path)
     monkeypatch.chdir(tmp_path)
     argv = ["--mode", "training", "--coco_dir", mini_coco, "--device", "cpu",
@@ -300,7 +432,7 @@ def test_cli_training_end_to_end(mini_coco, tmp_path, monkeypatch):
             "--set", "embed_size=32", "--set", "encoder_hidden=32",
             "--set", "decoder_hidden=32", "--set", "latent_size=8",
             "--set", "gen_z_samples=2", "--set", "num_ex_per_epoch=8",
-            "--set", "gen_val_captions=2"]
+            "--set", "gen_val_captions=2", *extra]
     with pytest.raises(FileNotFoundError, match="feature cache"):
         tcli.main(argv)
     _feature_caches(mini_coco, cfg.cache_dir, ("train2014", "val2014"))
@@ -310,10 +442,33 @@ def test_cli_training_end_to_end(mini_coco, tmp_path, monkeypatch):
                                         "vocab.json"]
     model, vocab, _ = ckpt.load_model(cfg.checkpoint_dir, "run")
     assert model.encoder is not None and vocab.vocab_size > 3
+    return cfg, model, vocab
+
+
+def test_cli_training_end_to_end(mini_coco, tmp_path, monkeypatch):
+    _cli_train(mini_coco, tmp_path, monkeypatch)
+
+
+def test_ag_cli_training_end_to_end(mini_coco, tmp_path, monkeypatch):
+    """``--set prior=AG --set use_c_v=True`` trains the AG-CVAE; its
+    checkpoint then decodes through ``--mode inference``."""
+    cfg, model, _ = _cli_train(mini_coco, tmp_path, monkeypatch,
+                               "--set", "prior=AG", "--set", "use_c_v=True")
+    assert model.prior == "AG" and model.use_c_v
+    _feature_caches(mini_coco, cfg.cache_dir, ("val2014", "test2014"))
+    tcli.main(["--mode", "inference", "--coco_dir", mini_coco,
+               "--checkpoint", "run", "--device", "cpu",
+               "--set", f"checkpoint_dir={cfg.checkpoint_dir}",
+               "--set", f"cache_dir={cfg.cache_dir}",
+               "--set", f"obj_vectors_dir={cfg.obj_vectors_dir}",
+               "--set", "gen_batch_size=4"])
+    with open(tmp_path / "val_00.json") as f:
+        assert len(json.load(f)) == 2          # the training run's holdout
+    with open(tmp_path / "test_00.json") as f:
+        assert len(json.load(f)) == 4
 
 
 @pytest.mark.parametrize("override,item", [
-    (dict(prior="AG"), "B.5"),
     (dict(prior="GMM"), "A.6.2"),
     (dict(restore=True), "A.6.3"),
     (dict(dec_lstm_drop=0.5), "D.6"),
@@ -330,6 +485,28 @@ def test_uncovered_training_configurations_raise(override, item):
         ttrain.check_supported_training(cfg)
     with pytest.raises(NotImplementedError, match=item.replace(".", r"\.")):
         ttrain.Trainer(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("use_c_v", [False, True])
+def test_ag_prior_trains_with_and_without_c_v_steps(use_c_v):
+    """prior='AG' is accepted with or without use_c_v: the cluster
+    vectors always weight the heads, and feed the LSTMs' conditioning
+    steps only with use_c_v."""
+    cfg = _cfg(prior="AG", use_c_v=use_c_v, embed_size=32, encoder_hidden=32,
+               decoder_hidden=32, latent_size=8, num_clusters=6)
+    ttrain.check_supported_training(cfg)
+    trainer = ttrain.Trainer(cfg, device="cpu")
+    feats, enc, dec, lens = _batch(seed=8)
+    cv = np.random.default_rng(8).dirichlet(np.ones(6), size=B)
+    arrays = (torch.from_numpy(feats), torch.from_numpy(enc).long(),
+              torch.from_numpy(dec).long(), torch.from_numpy(lens),
+              torch.from_numpy(cv.astype(np.float32)))
+    m = [trainer.run_step_arrays(arrays) for _ in range(3)]
+    assert float(m[2]["loss"]) < float(m[0]["loss"])
+    assert float(m[0]["kld"]) > 0 and np.isfinite(float(
+        trainer.eval_step(*arrays, z_seed=1)))
+    grad = trainer.model.cv_emb.weight.grad      # of the last step
+    assert (grad is not None and bool(grad.abs().sum() > 0)) == use_c_v
 
 
 def test_baseline_without_encoder_trains():

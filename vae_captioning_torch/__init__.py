@@ -3,14 +3,16 @@
 On precomputed VGG16 fc2 features, run on an NVIDIA H100 through
 hand-written CUDA kernels: the decode path of the CVAEs
 (``csrc/fused_lstm_step.cu``, ``csrc/fused_logits_topk.cu``) and the
-train step of the Normal-prior CVAE (``csrc/fused_lstm_seq.cu``,
-``csrc/fused_z.cu``, forward and backward).  Module names mirror
+train step of the AG-CVAE, the Normal-prior CVAE and the baseline
+(``csrc/fused_lstm_seq.cu``, ``csrc/fused_z.cu``,
+``csrc/fused_ag_heads.cu``, forward and backward).  Module names mirror
 ``vae_captioning_tpu`` so each counterpart is easy to find; the JAX
 package stays the reference the port is tested against.
 
-The package imports ``torch`` and never ``jax``.  It reuses the
-reference's numpy-only modules (``vae_captioning_tpu.config`` and the
-``data`` loaders) instead of copying them.
+The package imports ``torch`` and never ``jax``, and nothing of
+``vae_captioning_tpu``: ``config``, ``data`` and ``utils`` are its own
+copies of the JAX package's numpy modules, so ``config.json`` and
+``vocab.json`` move between the two.
 """
 
 __version__ = "0.1.0"

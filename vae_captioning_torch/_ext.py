@@ -37,7 +37,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES: Dict[str, int] = {
     "fused_lstm_step": 0, "fused_logits_top_k": 0,
     "fused_lstm_seq_fwd": 0, "fused_lstm_seq_bwd": 0,
-    "fused_z_fwd": 0, "fused_z_bwd": 0, "fused_z_eps": 0}
+    "fused_z_fwd": 0, "fused_z_bwd": 0, "fused_z_eps": 0,
+    "fused_ag_heads_fwd": 0, "fused_ag_heads_bwd": 0}
 
 _lib: Optional[SimpleNamespace] = None
 # Seconds the first library() call spent compiling (0.0 when every
@@ -60,6 +61,8 @@ _SIGNATURES = {
     "vct_fused_z_fwd": [_P] * 6 + [_I] * 5 + [_U, _U, _P],
     "vct_fused_z_bwd": [_P] * 7 + [_I] * 4 + [_U, _U, _P],
     "vct_fused_z_eps": [_P] + [_I] * 3 + [_U, _U, _I, _P],
+    "vct_fused_ag_heads_fwd": [_P] * 6 + [_I] * 5 + [_P],
+    "vct_fused_ag_heads_bwd": [_P] * 7 + [_I] + [_P] * 7 + [_I] * 6 + [_P],
 }
 
 

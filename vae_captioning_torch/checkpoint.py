@@ -24,9 +24,9 @@ from typing import Any, Dict, Mapping, Tuple
 import numpy as np
 import torch
 
-from vae_captioning_tpu.config import Config
-from vae_captioning_tpu.data.vocabulary import Vocabulary
 from vae_captioning_torch.bridge import BridgeReport, flatten, load_flax_params
+from vae_captioning_torch.config import Config
+from vae_captioning_torch.data.vocabulary import Vocabulary
 from vae_captioning_torch.models.cvae import CVAEModel
 
 PARAMS_FILE = "params.npz"

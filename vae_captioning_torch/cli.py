@@ -11,11 +11,11 @@ counterpart of ``vae_captioning_tpu/cli.py``.
   write ``val_<gen_name>.json`` / ``test_<gen_name>.json`` into the
   working directory.
 
-The flags are the reference's (``vae_captioning_tpu.config``) plus
-``--device`` (default ``cuda``).  Features come from the caches
-``<cache_dir>/<split>.features.npz`` only: extracting them needs the
-VGG16 model, which is not ported yet, so a missing cache raises instead
-of reaching the JAX extractor.
+The flags are the reference's (``config.py``, the port's copy of the
+JAX package's) plus ``--device`` (default ``cuda``).  Features come from
+the caches ``<cache_dir>/<split>.features.npz`` only: extracting them
+needs the VGG16 model, which is not ported yet (ROADMAP A.8), so a
+missing cache raises.
 """
 
 from __future__ import annotations
@@ -26,11 +26,11 @@ from typing import Dict, Optional
 
 import torch
 
-from vae_captioning_tpu.config import Config, parse_args
-from vae_captioning_tpu.data.coco import coco_paths
-from vae_captioning_tpu.data.dataset import Data
 from vae_captioning_torch.checkpoint import (load_model, load_sidecars,
                                              save_sidecars)
+from vae_captioning_torch.config import Config, parse_args
+from vae_captioning_torch.data.coco import coco_paths
+from vae_captioning_torch.data.dataset import Data
 from vae_captioning_torch.inference import check_supported, run_inference
 from vae_captioning_torch.train import Trainer, check_supported_training
 
@@ -52,8 +52,9 @@ def check_feature_caches(cfg: Config, training: bool = False) -> None:
         if not os.path.exists(cache):
             raise FileNotFoundError(
                 f"no feature cache {cache}: feature extraction (VGG16) is "
-                "not ported yet (ROADMAP A.8); extract the features with "
-                "python -m vae_captioning_tpu.data.features first")
+                "not ported yet (ROADMAP A.8); make the caches with the JAX "
+                "package's extractor on a machine that has JAX and copy "
+                "them here")
 
 
 def run_training(cfg: Config, device: torch.device,

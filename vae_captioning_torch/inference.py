@@ -24,8 +24,8 @@ from typing import Callable, Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from vae_captioning_tpu.config import Config
-from vae_captioning_tpu.data.vocabulary import Vocabulary
+from vae_captioning_torch.config import Config
+from vae_captioning_torch.data.vocabulary import Vocabulary
 from vae_captioning_torch.models.cvae import (CVAEModel, decoder_step_params,
                                               logits_head_params)
 from vae_captioning_torch.ops.decoding import (beam_search, sample_decode,
@@ -269,8 +269,9 @@ def run_inference(
             print(f"WARNING: {split_stats['cv_fallbacks']}/{len(caps)} "
                   f"{split} images had no cluster vector (served the zero "
                   "fallback); c_v-conditioned caption quality degrades "
-                  "for these. See vae_captioning_tpu/data/cluster_vectors.py "
-                  "--help to build vectors from detector output.")
+                  "for these. See python -m "
+                  "vae_captioning_torch.data.cluster_vectors --help to build "
+                  "vectors from detector output.")
         written[split] = path
         if stats is not None:
             stats[split] = split_stats

@@ -17,10 +17,12 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
-from vae_captioning_tpu.config import Config
+from vae_captioning_torch.config import Config
 from vae_captioning_torch.models.decoder import Decoder, LSTMStep
 from vae_captioning_torch.models.encoder import Encoder
 from vae_captioning_torch.ops import distributions as dist
+from vae_captioning_torch.ops.fused_ag_heads import (ag_heads_plain,
+                                                     fused_ag_heads)
 from vae_captioning_torch.ops.fused_lstm_seq import (fused_lstm_seq,
                                                      fused_lstm_seq_plain)
 from vae_captioning_torch.ops.fused_z import fused_z, fused_z_plain
@@ -28,16 +30,18 @@ from vae_captioning_torch.ops.lstm import Carry
 
 
 class TrainOps(NamedTuple):
-    """The train path's two kernel operations.  The train step uses the
+    """The train path's kernel operations.  The train step uses the
     kernel wrappers; comparisons on the card and the tests swap in the
     plain versions (or a ``sample_project`` with explicit eps)."""
 
     lstm_seq: Callable = fused_lstm_seq
     sample_project: Callable = fused_z
+    ag_heads: Callable = fused_ag_heads
 
 
 KERNEL_TRAIN_OPS = TrainOps()
-PLAIN_TRAIN_OPS = TrainOps(fused_lstm_seq_plain, fused_z_plain)
+PLAIN_TRAIN_OPS = TrainOps(fused_lstm_seq_plain, fused_z_plain,
+                           ag_heads_plain)
 
 
 class CVAEModel(nn.Module):
@@ -106,24 +110,29 @@ class CVAEModel(nn.Module):
         """Training and eval forward.  features [B, 4096], enc_captions
         [B·K, T] (w1..wN <EOS>), dec_captions [B·K, T] (<BOS> w1..wN),
         lengths [B·K], c_v [B, 90] → {"logits": [T, B·K, V] bf16 (or [B·K,
-        T, V] without ``time_major``), "q_mean", "q_std": [B·K, L] f32}.
-        K is read from the shapes and the image rows are repeated K times
-        after the embedding.  (z_seed, z_step) key the fused z noise;
+        T, V] without ``time_major``), "q_mean", "q_std": [B·K, L] f32,
+        "c_v": [B·K, 90] when c_v is given}.  K is read from the shapes
+        and the image rows and cluster vectors are repeated K times after
+        the embedding.  (z_seed, z_step) key the fused z noise;
         ``dropout`` (a generator) turns on the caption-input dropout."""
         B = features.shape[0]
         K = enc_captions.shape[0] // B
         images_fv = self.imf_emb(features.float())
         c_emb = None
-        if self.needs_c_v and c_v is not None:
-            c_emb = self.cv_emb(c_v.float())
+        if c_v is not None:
+            c_v = c_v.float()
+            if self.needs_c_v:
+                c_emb = self.cv_emb(c_v)
         if K > 1:
             images_fv = images_fv.repeat_interleave(K, dim=0)
             c_emb = None if c_emb is None else c_emb.repeat_interleave(K, dim=0)
+            c_v = None if c_v is None else c_v.repeat_interleave(K, dim=0)
         out: Dict[str, torch.Tensor] = {}
         z_dec = None
         if not self.no_encoder:
             q_mean, q_std = self.encoder(images_fv, enc_captions, lengths,
-                                         c_emb, seq_fn=ops.lstm_seq)
+                                         c_emb, c_v, seq_fn=ops.lstm_seq,
+                                         heads_fn=ops.ag_heads)
             z_dec = self.decoder.sample_z_embedding_fused(
                 q_mean, q_std, self.gen_z_samples, z_seed, z_step,
                 ops.sample_project)
@@ -132,6 +141,8 @@ class CVAEModel(nn.Module):
         out["logits"] = self.decoder.teacher_forcing(
             carry, dec_captions, lengths, seq_fn=ops.lstm_seq,
             time_major=time_major, dropout=dropout)
+        if c_v is not None:
+            out["c_v"] = c_v
         return out
 
     # ------------------------------------------------------------------
@@ -195,16 +206,23 @@ def decoder_step_params(model: CVAEModel
 # ----------------------------------------------------------------------
 
 def compute_loss(outputs: Dict[str, torch.Tensor], labels: torch.Tensor,
-                 *, no_encoder: bool, annealing=1.0,
-                 time_major: bool = True) -> Dict[str, torch.Tensor]:
-    """Masked CE + standard-normal KL + annealing → the lower bound.
+                 *, no_encoder: bool, prior: str = "Normal",
+                 cluster_means: Optional[torch.Tensor] = None,
+                 cluster_sigma: float = 0.1, annealing=1.0,
+                 ag_kl_sum: bool = False, time_major: bool = True
+                 ) -> Dict[str, torch.Tensor]:
+    """Masked CE + the prior's KL + annealing → the lower bound.
 
     rec: softmax CE at every position over the bf16 logits with f32
     sums, PAD (label 0) masked, the mean taken over real tokens.  total
-    = rec + annealing·kld/10.  ``labels`` is [T, B·K] when the forward
-    ran ``time_major`` (as the train step runs it), else [B·K, T].  The
-    CE is plain PyTorch, as the JAX package's default train step takes
-    its plain CE branch."""
+    = rec + annealing·kld/10.  kld: the AG KL against the c_v-weighted
+    cluster means (``outputs["c_v"]``, ``cluster_means`` [90, L]; summed
+    over rows with ``ag_kl_sum``, else meaned) under the AG prior, the
+    standard-normal KL under the Normal prior and, as the reference's
+    placeholder, under the GMM prior.  ``labels`` is [T, B·K] when the
+    forward ran ``time_major`` (as the train step runs it), else [B·K,
+    T].  The CE is plain PyTorch, as the JAX package's default train
+    step takes its plain CE branch."""
     logits = outputs["logits"]
     m = logits.detach().amax(dim=-1, keepdim=True)
     sumexp = torch.exp((logits - m).float()).sum(dim=-1)
@@ -213,10 +231,14 @@ def compute_loss(outputs: Dict[str, torch.Tensor], labels: torch.Tensor,
     ce = lse - label_logit[..., 0].float()
     mask = (labels != 0).float()
     rec_loss = (ce * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    # rows that are all padding do not count in the KL mean either
+    # rows that are all padding do not count in the KL either
     row_mask = (labels != 0).any(dim=0 if time_major else -1)
     if no_encoder:
         kld = torch.zeros((), dtype=torch.float32, device=logits.device)
+    elif prior == "AG":
+        kld = dist.kl_ag(outputs["q_mean"], outputs["q_std"], outputs["c_v"],
+                         cluster_means, cluster_sigma, row_mask=row_mask,
+                         reduce="sum" if ag_kl_sum else "mean")
     else:
         kld = dist.kl_standard_normal(outputs["q_mean"], outputs["q_std"],
                                       row_mask=row_mask)

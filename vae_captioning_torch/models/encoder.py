@@ -10,19 +10,26 @@ hidden state of the first layer.  One dense head ``q_heads`` gives
 Submodule names follow the Flax tree (``enc_embeddings``, ``lstm``,
 ``q_heads``), and ``q_heads`` has its per-prior shape (2·L for Normal,
 2·90·L for GMM and AG), so the bridge maps every prior's tree one to
-one.  Only the Normal head runs: the GMM and AG heads come with their
-training slices (ROADMAP A.6 and B.5) and raise NotImplementedError.
+one.  The Normal head returns (μ, exp(log σ)); the AG head returns the
+c_v-weighted combination of the 90 per-cluster posteriors through
+``heads_fn`` (``ops/fused_ag_heads.py``).  The GMM head (a categorical
+cluster draw) comes with its training slice and raises
+NotImplementedError (ROADMAP A.6.2).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch import nn
 
+from vae_captioning_torch.ops.fused_ag_heads import fused_ag_heads
 from vae_captioning_torch.ops.fused_lstm_seq import fused_lstm_seq
 from vae_captioning_torch.ops.lstm import LSTMStack, SeqFn
+
+# (h [B, H], w [2·K·L, H], b [2·K·L], c_v [B, K]) → (q_mean, q_std)
+HeadsFn = Callable[..., Tuple[torch.Tensor, torch.Tensor]]
 
 
 class Encoder(nn.Module):
@@ -41,14 +48,17 @@ class Encoder(nn.Module):
 
     def forward(self, images_fv: torch.Tensor, captions: torch.Tensor,
                 lengths: torch.Tensor, c_emb: Optional[torch.Tensor] = None,
-                seq_fn: SeqFn = fused_lstm_seq
+                c_v: Optional[torch.Tensor] = None,
+                seq_fn: SeqFn = fused_lstm_seq,
+                heads_fn: HeadsFn = fused_ag_heads
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """images_fv [B, E], captions [B, T] (w1..wN <EOS>), lengths [B],
-        c_emb [B, E] → the posterior (mean, std), each [B, L] f32."""
-        if self.prior != "Normal":
+        c_emb [B, E], c_v [B, 90] (the AG head's cluster weights) → the
+        posterior (mean, std), each [B, L] f32."""
+        if self.prior == "GMM":
             raise NotImplementedError(
-                f"not ported yet: the {self.prior} posterior heads "
-                "(ROADMAP B.5 for AG, A.6 for GMM)")
+                "not ported yet: the GMM posterior heads (categorical "
+                "cluster draw): ROADMAP A.6.2")
         carry = self.lstm.zero_carry(images_fv.shape[0], images_fv.device)
         carry, _ = self.lstm.step(carry, images_fv)
         if c_emb is not None and self.use_c_v:
@@ -56,6 +66,11 @@ class Encoder(nn.Module):
         carry, _ = self.lstm(carry, self.enc_embeddings(captions), lengths,
                              collect_outputs=False, seq_fn=seq_fn)
         # the reference reads the first layer's hidden state
-        q = self.q_heads(carry[0][1])
+        h = carry[0][1]
+        if self.prior == "AG":
+            if c_v is None:
+                raise ValueError("the AG prior needs cluster vectors c_v")
+            return heads_fn(h, self.q_heads.weight, self.q_heads.bias, c_v)
+        q = self.q_heads(h)
         L = self.latent_size
         return q[:, :L], torch.exp(q[:, L:])

@@ -1,10 +1,11 @@
 """Latent-space maths (counterpart of
 ``vae_captioning_tpu/ops/distributions.py``): reparameterised sampling,
-the standard-normal KL, KL annealing, the cluster means and the AG
-decode-time prior mean.
+the standard-normal and additive-Gaussian KLs, KL annealing, the cluster
+means and the AG decode-time prior mean.  The epsilons (1e-5 inside the
+logs, 1e-7 in the AG divisor) are the reference's.
 
-The AG and GMM KL terms (``kl_ag``, ``kl_gmm``) come with the AG and GMM
-training slices (ROADMAP B.5, A.6).
+The GMM KL (``kl_gmm``) comes with the GMM training slice (ROADMAP
+A.6.2).
 """
 
 from __future__ import annotations
@@ -14,8 +15,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-# epsilon inside the log, as in the reference
+# epsilons as in the reference
 _EPS_LOG = 1e-5
+_EPS_DIV = 1e-7
 
 
 def sample_gaussian(mean: torch.Tensor, std, num_samples: int,
@@ -57,6 +59,31 @@ def kl_standard_normal(mean: torch.Tensor, std: torch.Tensor,
     return _masked_mean(-0.5 * inner.sum(dim=-1), row_mask)
 
 
+def kl_ag(mean: torch.Tensor, std: torch.Tensor, c_v: torch.Tensor,
+          cluster_means: torch.Tensor, cluster_sigma: float = 0.1,
+          row_mask: Optional[torch.Tensor] = None,
+          reduce: str = "mean") -> torch.Tensor:
+    """Additive-Gaussian KL: per dimension 0.5 + log(σ_q + 1e-5) −
+    log(σ_c + 1e-5) − ((μ_q − c_v·μ_k)² + σ_q²) / (2σ_c² + 1e-7), then
+    −0.5 · Σ_dims per example.  ``reduce="mean"`` (the JAX package's
+    default) takes the masked mean over rows; ``"sum"`` the masked sum,
+    the reference's effective weighting (``Config.ag_kl_sum``).  c_v
+    [B, 90], cluster_means [90, L]."""
+    if reduce not in ("mean", "sum"):
+        raise ValueError(f"reduce must be 'mean' or 'sum', got {reduce!r}")
+    prior_mean = c_v @ cluster_means
+    sig_c = torch.tensor(cluster_sigma, dtype=mean.dtype, device=mean.device)
+    inner = (0.5 + torch.log(std + _EPS_LOG) - torch.log(sig_c + _EPS_LOG)
+             - ((mean - prior_mean).square() + std.square())
+             / (2.0 * sig_c.square() + _EPS_DIV))
+    per_example = -0.5 * inner.sum(dim=-1)
+    if reduce == "mean":
+        return _masked_mean(per_example, row_mask)
+    if row_mask is None:
+        return per_example.sum()
+    return (per_example * row_mask.to(per_example.dtype)).sum()
+
+
 def kl_annealing(step: int, ann_param: float,
                  force_one: bool = False) -> torch.Tensor:
     """The tanh annealing ramp (tanh((step − 1000·ann_param)/1000) + 1)/2
@@ -67,6 +94,7 @@ def kl_annealing(step: int, ann_param: float,
     x = (torch.tensor(float(step), dtype=torch.float32)
          - torch.tensor(1000.0 * ann_param, dtype=torch.float32)) / 1000.0
     return (torch.tanh(x) + 1.0) / 2.0
+
 
 # unused COCO category ids within 0..90, in the *91-dim* id space
 # (ref vae_model/decoder.py:56 — blacklist for the AG decode-time prior)

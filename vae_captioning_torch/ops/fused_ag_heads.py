@@ -1,0 +1,192 @@
+"""AG-prior recognition heads + cluster-vector combine: CUDA kernel
+wrappers, their plain version and the autograd Function around them.
+
+Counterpart of ``vae_captioning_tpu/ops/fused_ag_heads.py``.  The AG
+encoder head computes per-cluster posteriors and their convex
+combination by the image's cluster vector:
+
+    q      = h @ W^T + b                 [N, 2·K·L]  (μ ‖ log σ)
+    μ_k    = q[:, :K·L] as [N, K, L],    σ_k = exp(q[:, K·L:]) as [N, K, L]
+    q_mean = Σ_k c_v[:, k] · μ_k,        q_std = Σ_k c_v[:, k] · σ_k
+
+W is the ``q_heads`` ``nn.Linear`` weight [2·K·L, H] (the Flax kernel
+transposed), read in that layout.  Rounding as ``ag_heads_xla``: h and W
+in bf16 with f32 accumulation, f32 bias, exp in f32, c_v rounded through
+bf16, the combine in f32.
+
+On CUDA tensors :func:`fused_ag_heads` launches ``csrc/fused_ag_heads.cu``
+(forward and backward); the [N, 2·K·L] q never reaches memory in the
+forward, and the backward writes dq once in bf16.  On CPU tensors it
+takes :func:`ag_heads_plain`.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from vae_captioning_torch import _ext
+
+FWD = "fused_ag_heads_fwd"
+BWD = "fused_ag_heads_bwd"
+K_STEP = 64              # H must be a multiple of the kernels' H stage
+_TARGET_LANES = 1280     # a group of clusters spans about this many q columns
+_DH_SPLITS = 8           # column splits of the dh product
+_ROWS, _LATENT = 64, 32  # the forward's block tile (rows x latent columns)
+
+Pair = Tuple[torch.Tensor, torch.Tensor]
+
+
+def group_geometry(K: int, L: int) -> Tuple[int, int]:
+    """(clusters per group, groups): groups of about ``_TARGET_LANES``
+    q columns, as the TPU kernel's ``_group_geometry`` picks them."""
+    kb = max(1, min(K, _TARGET_LANES // L))
+    return kb, -(-K // kb)
+
+
+# ----------------------------------------------------------------------
+# plain version
+# ----------------------------------------------------------------------
+
+def ag_heads_plain(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                   c_v: torch.Tensor) -> Pair:
+    """The maths of ``ag_heads_xla``, differentiable by autograd: h [N, H],
+    w [2·K·L, H], b [2·K·L], c_v [N, K] → (q_mean, q_std), each [N, L]
+    f32.  It materialises q [N, 2·K·L] in f32 (138 MB at the train
+    shapes) and its two [N, K, L] views; the gradients of h, w and c_v
+    come back rounded to bf16, as the reference's casts round them."""
+    N, K = c_v.shape
+    KL = w.shape[0] // 2
+    L = KL // K
+    q = (h.to(torch.bfloat16).float() @ w.to(torch.bfloat16).float().t()
+         + b.float())
+    means = q[:, :KL].reshape(N, K, L)
+    stds = torch.exp(q[:, KL:]).reshape(N, K, L)
+    cv16 = c_v.to(torch.bfloat16).float()
+    return (torch.einsum("nk,nkl->nl", cv16, means),
+            torch.einsum("nk,nkl->nl", cv16, stds))
+
+
+def ag_heads_bwd_plain(h, w, b, c_v, g_mean, g_std):
+    """(dh, dW, db, dc_v) of :func:`ag_heads_plain` for the output
+    cotangents (g_mean, g_std), by autograd (it recomputes the forward)."""
+    leaves = [t.detach().requires_grad_() for t in (h, w, b, c_v)]
+    with torch.enable_grad():
+        outs = ag_heads_plain(*leaves)
+        return torch.autograd.grad(outs, leaves, (g_mean, g_std))
+
+
+# ----------------------------------------------------------------------
+# kernel launches
+# ----------------------------------------------------------------------
+
+def _check(h, w, b, c_v) -> Tuple[int, int, int, int]:
+    """Raise on what the kernels do not take; returns (N, H, K, L)."""
+    req = _ext.require
+    req(h.dim() == 2 and w.dim() == 2 and b.dim() == 1 and c_v.dim() == 2,
+        "fused_ag_heads: h [N, H], w [2·K·L, H], b [2·K·L], c_v [N, K]")
+    N, H = h.shape
+    K = c_v.shape[1]
+    req(c_v.shape[0] == N and w.shape[1] == H and w.shape[0] % (2 * K) == 0
+        and b.shape == (w.shape[0],),
+        f"fused_ag_heads: shapes h{tuple(h.shape)} w{tuple(w.shape)} "
+        f"b{tuple(b.shape)} c_v{tuple(c_v.shape)} disagree")
+    req(H % K_STEP == 0, f"fused_ag_heads: H={H} must be a multiple of "
+        f"{K_STEP} (the kernels' H stage)")
+    req(N > 0, "fused_ag_heads: no rows")
+    return N, H, K, w.shape[0] // (2 * K)
+
+
+def prepare(h, w, b, c_v):
+    """The kernels' operands: h, w in bf16 (cast once per call), b and
+    c_v in f32, all contiguous."""
+    return (h.to(torch.bfloat16).contiguous(), w.to(torch.bfloat16).contiguous(),
+            b.float().contiguous(), c_v.float().contiguous())
+
+
+def ag_heads_fwd_kernel(h16, w16, b, cv) -> Pair:
+    """The forward kernel on prepared operands → (q_mean, q_std) f32."""
+    N, H, K, L = _check(h16, w16, b, cv)
+    kb, G = group_geometry(K, L)
+    dev = h16.device
+    part = torch.empty((G, 2, N, L), dtype=torch.float32, device=dev)
+    out = torch.empty((2, N, L), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _ext.library().vct_fused_ag_heads_fwd(
+            h16.data_ptr(), w16.data_ptr(), b.data_ptr(), cv.data_ptr(),
+            part.data_ptr(), out.data_ptr(), N, H, K, L, kb,
+            _ext.stream_ptr(dev))
+    _ext.check_launch(err, FWD)
+    _ext.LAUNCHES[FWD] += 1
+    return out[0], out[1]
+
+
+def ag_heads_bwd_kernel(h16, w16, b, cv, g_mean, g_std):
+    """The backward kernels on prepared operands → (dh, dW, db, dc_v)
+    f32.  dq is a bf16 workspace [N, 2·K·L] (69 MB at the train shapes)."""
+    N, H, K, L = _check(h16, w16, b, cv)
+    kb, _ = group_geometry(K, L)
+    gm = g_mean.float().contiguous()
+    gs = g_std.float().contiguous()
+    _ext.require(gm.shape == gs.shape == (N, L) and gm.device == h16.device,
+                 f"fused_ag_heads: gradient shapes {tuple(gm.shape)}, "
+                 f"{tuple(gs.shape)} != {(N, L)}")
+    dev = h16.device
+    C2 = 2 * K * L
+    ldq = -(-C2 // 8) * 8
+    f32 = dict(dtype=torch.float32, device=dev)
+    dq = torch.empty((N, ldq), dtype=torch.bfloat16, device=dev)
+    db_part = torch.empty((-(-N // _ROWS), C2), **f32)
+    dcv_part = torch.empty((-(-L // _LATENT), N, K), **f32)
+    dh_part = torch.empty((_DH_SPLITS, N, H), **f32)
+    dw = torch.empty((C2, H), **f32)
+    db = torch.empty((C2,), **f32)
+    dcv = torch.empty((N, K), **f32)
+    dh = torch.empty((N, H), **f32)
+    with torch.cuda.device(dev):
+        err = _ext.library().vct_fused_ag_heads_bwd(
+            h16.data_ptr(), w16.data_ptr(), b.data_ptr(), cv.data_ptr(),
+            gm.data_ptr(), gs.data_ptr(), dq.data_ptr(), ldq,
+            db_part.data_ptr(), dcv_part.data_ptr(), dh_part.data_ptr(),
+            dw.data_ptr(), db.data_ptr(), dcv.data_ptr(), dh.data_ptr(),
+            N, H, K, L, kb, _DH_SPLITS, _ext.stream_ptr(dev))
+    _ext.check_launch(err, BWD)
+    _ext.LAUNCHES[BWD] += 1
+    return dh, dw, db, dcv
+
+
+# ----------------------------------------------------------------------
+# autograd
+# ----------------------------------------------------------------------
+
+class _FusedAGHeads(torch.autograd.Function):
+    """Inputs h [N, H], w [2·K·L, H], b [2·K·L], c_v [N, K] on one CUDA
+    device; outputs (q_mean, q_std) f32.  The backward returns dh, dW, db
+    and, when c_v requires grad, dc_v, as the TPU kernel emits all four."""
+
+    @staticmethod
+    def forward(ctx, h, w, b, c_v):
+        ops = prepare(h, w, b, c_v)
+        mean, std = ag_heads_fwd_kernel(*ops)
+        ctx.save_for_backward(*ops)
+        ctx.dtypes = (h.dtype, w.dtype, b.dtype, c_v.dtype)
+        return mean, std
+
+    @staticmethod
+    def backward(ctx, g_mean, g_std):
+        grads = ag_heads_bwd_kernel(*ctx.saved_tensors, g_mean, g_std)
+        return tuple(g.to(dt) if need else None for g, dt, need in
+                     zip(grads, ctx.dtypes, ctx.needs_input_grad))
+
+
+def fused_ag_heads(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                   c_v: torch.Tensor) -> Pair:
+    """The AG heads and combine, differentiable: h [N, H], w [2·K·L, H]
+    (the ``q_heads`` weight), b [2·K·L], c_v [N, K] → (q_mean, q_std),
+    each [N, L] f32.  CPU tensors take :func:`ag_heads_plain`; CUDA
+    tensors launch the kernels or raise (H must be a multiple of 64)."""
+    if _ext.on_cpu(h, w, b, c_v):
+        return ag_heads_plain(h, w, b, c_v)
+    _check(h, w, b, c_v)
+    return _FusedAGHeads.apply(h, w, b, c_v)

@@ -14,9 +14,10 @@ Semantics kept from the reference:
   checkpoint (``params.npz``, through the bridge) after each epoch.
 
 The step runs the kernels of the train path (``fused_lstm_seq`` for the
-encoder and decoder LSTMs, ``fused_z`` for the z sampling + projection)
-on one card; the CE, the logits head and the optimizer are plain
-PyTorch, as the JAX package leaves them to XLA.  Each step's z noise is
+encoder and decoder LSTMs, ``fused_z`` for the z sampling + projection,
+``fused_ag_heads`` for the AG posterior heads) on one card; the CE, the
+logits head and the optimizer are plain PyTorch, as the JAX package
+leaves them to XLA.  Each step's z noise is
 keyed on a seed drawn from a host ``torch.Generator`` that the Trainer
 owns (seeded from ``cfg.seed``) and on the step number: no global RNG
 state is read.  The step counter lives on the host and metrics stay on
@@ -34,14 +35,16 @@ from typing import Callable, Dict, Iterable, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from vae_captioning_tpu.config import Config
-from vae_captioning_tpu.data.batcher import Batch
 from vae_captioning_torch.bridge import (export_flax_params, flax_shapes,
                                          load_flax_params)
 from vae_captioning_torch.checkpoint import save_params
+from vae_captioning_torch.config import Config
+from vae_captioning_torch.data.batcher import Batch
 from vae_captioning_torch.models.cvae import (KERNEL_TRAIN_OPS, CVAEModel,
                                               TrainOps, compute_loss)
 from vae_captioning_torch.ops import distributions as dist
+from vae_captioning_torch.utils.logging import MetricLogger
+from vae_captioning_torch.utils.prefetch import Prefetcher
 
 Arrays = Tuple[torch.Tensor, ...]   # features, enc, dec, lengths, c_v
 
@@ -52,8 +55,6 @@ def check_supported_training(cfg: Config) -> None:
     ROADMAP item that will."""
     with_encoder = not cfg.no_encoder
     gates = [
-        (with_encoder and cfg.prior == "AG",
-         "prior='AG' training (fused_ag_heads + kl_ag): ROADMAP A.6.1 / B.5"),
         (with_encoder and cfg.prior == "GMM",
          "prior='GMM' training (GMM heads + kl_gmm): ROADMAP A.6.2"),
         (cfg.restore, "restore (resume a run from a checkpoint): ROADMAP A.6.3"),
@@ -208,7 +209,10 @@ def make_train_step(model: CVAEModel, optimizer: Optimizer, cfg: Config,
                     z_seed=z_seed, z_step=step, ops=ops, time_major=True,
                     dropout=dropout)
         losses = compute_loss(out, enc.t(), no_encoder=cfg.no_encoder,
-                              annealing=annealing, time_major=True)
+                              prior=cfg.prior,
+                              cluster_means=model.cluster_means,
+                              annealing=annealing, ag_kl_sum=cfg.ag_kl_sum,
+                              time_major=True)
         losses["loss"].backward()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in params]
@@ -230,6 +234,9 @@ def make_eval_step(model: CVAEModel, cfg: Config,
         out = model(features, enc, dec, lengths, c_v if needs_cv else None,
                     z_seed=z_seed, z_step=0, ops=ops, time_major=True)
         return compute_loss(out, enc.t(), no_encoder=cfg.no_encoder,
+                            prior=cfg.prior,
+                            cluster_means=model.cluster_means,
+                            ag_kl_sum=cfg.ag_kl_sum,
                             time_major=True)["rec_loss"]
 
     return eval_fn
@@ -316,7 +323,6 @@ class Trainer:
         m: Dict[str, torch.Tensor] = {}
         logger = None
         if cfg.logging:
-            from vae_captioning_tpu.utils.logging import MetricLogger
             logger = MetricLogger(cfg.log_dir, echo=False,
                                   run_name=cfg.checkpoint)
         for epoch in range(cfg.num_epochs):
@@ -326,7 +332,6 @@ class Trainer:
                 epoch_batches = 0
                 stream = train_batcher.train_batches(cfg.num_captions)
                 if cfg.prefetch_batches > 0:
-                    from vae_captioning_tpu.utils.prefetch import Prefetcher
                     stream = Prefetcher(stream, cfg.prefetch_batches)
                 try:
                     for batch in stream:
