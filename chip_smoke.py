@@ -10,7 +10,10 @@ Phases, in order; any failure raises and the script exits nonzero:
    deliberate tie), the train path's ``fused_lstm_seq`` and ``fused_z``
    forward and backward, the fused z generator's bits, normals and
    moments against the plain generator, and the AG train path's
-   ``fused_ag_heads`` forward and backward with COCO-like cluster vectors;
+   ``fused_ag_heads`` forward and backward with COCO-like cluster vectors,
+   and the flash CE's three kernels (``fused_linear_ce``: forward, dh,
+   dW/db) at the train shapes, with the train batch's PAD rows, and two
+   ragged ones;
 4. decode path: the full-width AG-CVAE (random weights from a seed, in
    the Flax layout, through the bridge) decodes synthetic features
    through ``run_inference`` at beam 3, beam 10 and greedy, writing the
@@ -33,13 +36,23 @@ Phases, in order; any failure raises and the script exits nonzero:
    encoder runs ``fused_ag_heads``; its checkpoint decodes a beam-3 batch
    of 512 images with their cluster vectors: the served model, trained by
    the port;
-7. times: each kernel against its plain version and, where one PyTorch
+7. GMM train path: the same for the full-width GMM-CVAE with cluster
+   vectors and the flash CE (``Config(prior="GMM", use_c_v=True,
+   fused_ce=True)``): the encoder draws one cluster per row from a
+   generator the Trainer owns, and the logits head and CE run through the
+   three CE kernels, so the [M, V] logits never reach memory; the
+   comparison with the plain versions draws the same clusters; the
+   checkpoint decodes a beam-3 batch with z centred at 0;
+8. times: each kernel against its plain version and, where one PyTorch
    call computes the same function, that call; decode batches and train
-   steps (Normal and AG), kernel path against plain path, in turns.
+   steps (Normal, AG and GMM), kernel path against plain path, in turns;
+   the GMM step with the flash CE against the same step with the plain
+   CE, in turns, and the peak device memory of one step of each.
 
 ``python3 chip_smoke.py --profile`` instead builds the kernels and
-profiles the full-width train step, Normal then AG (phase_train_profile):
-device time by kernel, and the device's idle share.
+profiles the full-width train step, Normal, AG, then GMM with the flash
+CE (phase_train_profile): device time by kernel, and the device's idle
+share.
 
 Before its last lines it checks that no JAX module, and no module of the
 JAX package, was loaded.  The line before the last is the kernels' JSON
@@ -80,6 +93,7 @@ from vae_captioning_torch.models.cvae import (  # noqa: E402
     PLAIN_TRAIN_OPS, CVAEModel)
 from vae_captioning_torch.ops.distributions import (  # noqa: E402
     AG_UNUSED_CLASSES)
+from vae_captioning_torch.ops import fused_ce  # noqa: E402
 from vae_captioning_torch.ops.fused_ag_heads import (  # noqa: E402
     ag_heads_bwd_kernel, ag_heads_bwd_plain, ag_heads_fwd_kernel,
     ag_heads_plain, prepare)
@@ -132,11 +146,21 @@ KERNELS = {
     "fused_ag_heads_bwd": {
         "route": "cuda", "source": "vae_captioning_torch/csrc/fused_ag_heads.cu",
         "replaces": "vae_captioning_tpu/ops/fused_ag_heads.py:116"},
+    "fused_linear_ce_fwd": {
+        "route": "cuda", "source": "vae_captioning_torch/csrc/fused_ce.cu",
+        "replaces": "vae_captioning_tpu/ops/fused_ce.py:59"},
+    "fused_linear_ce_dh": {
+        "route": "cuda", "source": "vae_captioning_torch/csrc/fused_ce.cu",
+        "replaces": "vae_captioning_tpu/ops/fused_ce.py:134"},
+    "fused_linear_ce_dwdb": {
+        "route": "cuda", "source": "vae_captioning_torch/csrc/fused_ce.cu",
+        "replaces": "vae_captioning_tpu/ops/fused_ce.py:159"},
 }
 DECODE_KERNELS = ("fused_lstm_step", "fused_logits_top_k")
 TRAIN_KERNELS = ("fused_lstm_seq_fwd", "fused_lstm_seq_bwd", "fused_z_fwd",
                  "fused_z_bwd")
 AG_KERNELS = ("fused_ag_heads_fwd", "fused_ag_heads_bwd")
+CE_KERNELS = ("fused_linear_ce_fwd", "fused_linear_ce_dh", "fused_linear_ce_dwdb")
 # the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): dense
 # bf16 tensor-core operations and HBM3 bytes per second
 PEAK_BF16 = 989e12
@@ -992,6 +1016,155 @@ def phase_ag_kernel_times(label: str) -> dict:
 
 
 # ----------------------------------------------------------------------
+# phase 3, GMM train path: the flash CE kernels against their plain version
+# ----------------------------------------------------------------------
+
+# lse and ll to CE_FWD_RTOL of their largest element (f32 sums in another
+# order); db likewise to CE_DB_RTOL (from the f32 dl on both sides); dh and
+# dW to CE_GRAD_RTOL of theirs: both round dl to bf16 before the products,
+# and an element whose two f32 values straddle a bf16 rounding boundary
+# moves its product by one bf16 step of dl
+CE_FWD_RTOL = 1e-5
+CE_DB_RTOL = 1e-4
+CE_GRAD_RTOL = 1e-3
+
+
+def ce_inputs(M: int, V: int, seed: int, labels=None, H: int = HIDDEN):
+    """h (LSTM outputs, bf16), the rnn_logits weight [V, H] and bias, and
+    labels with PAD rows (weight 0, label 0): the train batch's time-major
+    labels when given, else about 40% PAD rows; and the row weights mask /
+    Σ mask, which are also the backward kernels' gw for a cotangent of 1."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    h = torch.tanh(torch.randn((M, H), generator=g, device=DEV)).to(torch.bfloat16)
+    w = torch.randn((V, H), generator=g, device=DEV) / H ** 0.5
+    b = 0.1 * torch.randn((V,), generator=g, device=DEV)
+    if labels is None:
+        labels = torch.randint(1, V, (M,), generator=g, device=DEV)
+        labels[torch.rand((M,), generator=g, device=DEV) < 0.4] = 0
+    mask = (labels != 0).float()
+    weights = mask / mask.sum()
+    return h, w, b, labels, weights
+
+
+def check_fused_ce(M: int, V: int, labels=None) -> dict:
+    """The three kernels against the plain version on the same inputs (the
+    backward ones from the plain lse, so both see the same operands);
+    returns each kernel's max |kernel - plain|."""
+    h, w, b, labels, weights = ce_inputs(M, V, seed=M + V, labels=labels)
+    ops = fused_ce.prepare(h, w, b, labels)
+    tag = f"fused_linear_ce M={M} H={HIDDEN} V={V}"
+    pad = float((weights == 0).float().mean())
+    got = fused_ce.fused_ce_fwd_kernel(*ops)
+    lse, ll = fused_ce.ce_fwd_plain(h, w, b, labels)
+    errs = {}
+    for name, a, r in zip(("lse", "ll"), got, (lse, ll)):
+        err, rel = rel_err(a, r)
+        if rel > CE_FWD_RTOL or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{tag} forward: {name} differs, {err:.3e} "
+                                 f"({rel:.2e} of max)")
+        errs["fused_linear_ce_fwd"] = max(errs.get("fused_linear_ce_fwd", 0.0), err)
+        print(f"{tag} forward {name}: max |kernel - plain| {err:.3e} ({rel:.2e} "
+              f"of max, tolerance {CE_FWD_RTOL})")
+    gw = weights
+    dh = fused_ce.fused_ce_dh_kernel(*ops, lse, gw)
+    dw, db = fused_ce.fused_ce_dwdb_kernel(*ops, lse, gw)
+    want = (fused_ce.ce_dh_plain(h, w, b, labels, lse, gw),
+            *fused_ce.ce_dwdb_plain(h, w, b, labels, lse, gw))
+    if bool(dh[weights == 0].any()):
+        raise AssertionError(f"{tag}: a row of weight 0 got a nonzero dh")
+    for name, a, r, tol, kern in zip(
+            ("dh", "dW", "db"), (dh, dw, db), want,
+            (CE_GRAD_RTOL, CE_GRAD_RTOL, CE_DB_RTOL),
+            ("fused_linear_ce_dh", "fused_linear_ce_dwdb", "fused_linear_ce_dwdb")):
+        err, rel = rel_err(a, r)
+        if rel > tol or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{tag} backward: {name} differs, {err:.3e} "
+                                 f"({rel:.2e} of max)")
+        errs[kern] = max(errs.get(kern, 0.0), err)
+        print(f"{tag} backward {name}: max |kernel - plain| {err:.3e} ({rel:.2e} "
+              f"of max, tolerance {tol})")
+    print(f"{tag}: {pad:.3f} of the rows PAD (weight 0), their dh exactly 0")
+    return errs
+
+
+def train_ce_labels() -> torch.Tensor:
+    """The train batch's labels, time-major and flattened: the rows the
+    GMM path gives the CE kernels (M = 24 x 1280)."""
+    return train_arrays()[1].t().reshape(-1)
+
+
+def phase_ce_kernels() -> dict:
+    """The train shapes (M = 30720 with the train batch's PAD rows, V =
+    11500) and ragged ones: M = 1000 with V = 11519, M = 300 with V =
+    2000."""
+    errors = {k: 0.0 for k in CE_KERNELS}
+    for M, V, labels in ((TRAIN_T * TRAIN_ROWS, VOCAB, train_ce_labels()),
+                         (RAGGED_ROWS, 11519, None), (300, 2000, None)):
+        for k, err in check_fused_ce(M, V, labels).items():
+            errors[k] = max(errors[k], err)
+    return errors
+
+
+def ce_library_calls(h, w, b, labels, weights):
+    """The library path on the same inputs: ``F.linear`` in bf16, then
+    ``F.cross_entropy(reduction="none")``, weighted and summed: (forward,
+    backward), the backward one ``torch.autograd.grad`` for h, W and b
+    over a retained graph."""
+    import torch.nn.functional as F
+    leaves = [t.to(torch.bfloat16).detach().requires_grad_() for t in (h, w, b)]
+    lab = labels.long()
+
+    def forward():
+        ce = F.cross_entropy(F.linear(*leaves), lab, reduction="none")
+        return (ce.float() * weights).sum()
+
+    loss = forward()
+    return forward, lambda: torch.autograd.grad(loss, leaves, retain_graph=True)
+
+
+def phase_ce_kernel_times(label: str) -> dict:
+    """The three CE kernels against their plain versions at the train
+    shapes (M = 30720 with the batch's PAD rows, H = 512, V = 11500).
+    Bound: operations, 2·M·H·V for the forward and 4·M·H·V for dh and for
+    dW/db, which recompute the logits.  Library: the forward's time, and
+    for dh and dW/db the time of its one backward, which gives all three
+    gradients."""
+    M = TRAIN_T * TRAIN_ROWS
+    h, w, b, labels, weights = ce_inputs(M, VOCAB, seed=13, labels=train_ce_labels())
+    ops = fused_ce.prepare(h, w, b, labels)
+    lse, ll = fused_ce.fused_ce_fwd_kernel(*ops)
+    dh = fused_ce.fused_ce_dh_kernel(*ops, lse, weights)
+    dw, db = fused_ce.fused_ce_dwdb_kernel(*ops, lse, weights)
+    flops = 2.0 * M * HIDDEN * VOCAB
+    timer = lambda fn: cuda_ms(fn, iters=5, warmup=1)  # noqa: E731
+    lib_fwd, lib_bwd = (timer(fn) for fn in ce_library_calls(h, w, b, labels, weights))
+    pairs = {
+        "fused_linear_ce_fwd": (
+            lambda: fused_ce.fused_ce_fwd_kernel(*ops),
+            lambda: fused_ce.ce_fwd_plain(h, w, b, labels),
+            bound(flops, nbytes(*ops, lse, ll)), lib_fwd),
+        "fused_linear_ce_dh": (
+            lambda: fused_ce.fused_ce_dh_kernel(*ops, lse, weights),
+            lambda: fused_ce.ce_dh_plain(h, w, b, labels, lse, weights),
+            bound(2 * flops, nbytes(*ops, lse, weights, dh)), lib_bwd),
+        "fused_linear_ce_dwdb": (
+            lambda: fused_ce.fused_ce_dwdb_kernel(*ops, lse, weights),
+            lambda: fused_ce.ce_dwdb_plain(h, w, b, labels, lse, weights),
+            bound(2 * flops, nbytes(*ops, lse, weights, dw, db)), lib_bwd),
+    }
+    times = {}
+    for name, (fk, fp, bnd, lib) in pairs.items():
+        t = turns(fk, fp, timer)
+        times[name] = timing(t, bnd, lib)
+        print(f"time {name} (M={M} H={HIDDEN} V={VOCAB}): kernel {t[0]:.4f} ms, "
+              f"plain {t[1]:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), library "
+              f"(F.linear bf16 + F.cross_entropy, "
+              f"{'forward' if name.endswith('fwd') else 'backward: dh, dW, db'}) "
+              f"{lib:.4f} ms [{label}]")
+    return times
+
+
+# ----------------------------------------------------------------------
 # phase 5: the train path at full width
 # ----------------------------------------------------------------------
 
@@ -1008,12 +1181,12 @@ GRAD_SHARE = 2e-2
 
 
 def train_config(prior: str = "Normal") -> Config:
-    """The Normal-prior CVAE, or the AG-CVAE with cluster vectors, with
-    the config.py defaults (embed 256, hidden 512, latent 150, K_z 100,
-    90 clusters, 4096-d features, bf16, Adam 5e-4, clip 5.0) and vocab
-    11,500."""
-    cfg = Config(prior=prior, use_c_v=prior == "AG", batch_size=TRAIN_IMAGES,
-                 num_captions=TRAIN_CAPTIONS)
+    """The Normal-prior CVAE, the AG-CVAE with cluster vectors, or the
+    GMM-CVAE with cluster vectors and the flash CE, with the config.py
+    defaults (embed 256, hidden 512, latent 150, K_z 100, 90 clusters,
+    4096-d features, bf16, Adam 5e-4, clip 5.0) and vocab 11,500."""
+    cfg = Config(prior=prior, use_c_v=prior != "Normal", fused_ce=prior == "GMM",
+                 batch_size=TRAIN_IMAGES, num_captions=TRAIN_CAPTIONS)
     cfg.vocab_size = VOCAB
     return cfg
 
@@ -1038,15 +1211,16 @@ def train_arrays(seed: int = 9) -> tuple:
             coco_cv(B, seed=seed))
 
 
-def train_launches(steps: int, ag: bool) -> dict:
+def train_launches(steps: int, ag: bool, ce: bool) -> dict:
     """The kernels a run of ``steps`` train steps must launch: the LSTM
     sequence for the encoder and the decoder, the fused z, the AG heads
-    under the AG prior, and never the eps kernel (check only: the train
-    step never materialises eps)."""
+    under the AG prior, the three CE kernels with ``fused_ce``, and never
+    the eps kernel (check only: the train step never materialises eps)."""
     return {"fused_lstm_seq_fwd": 2 * steps, "fused_lstm_seq_bwd": 2 * steps,
             "fused_z_fwd": steps, "fused_z_bwd": steps, "fused_z_eps": 0,
             "fused_ag_heads_fwd": steps if ag else 0,
-            "fused_ag_heads_bwd": steps if ag else 0}
+            "fused_ag_heads_bwd": steps if ag else 0,
+            **{k: steps if ce else 0 for k in CE_KERNELS}}
 
 
 def phase_train_path(cfg, arrays, tag: str):
@@ -1058,7 +1232,7 @@ def phase_train_path(cfg, arrays, tag: str):
     metrics = [trainer.run_step_arrays(arrays) for _ in range(TRAIN_STEPS)]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    want = train_launches(TRAIN_STEPS, cfg.prior == "AG")
+    want = train_launches(TRAIN_STEPS, cfg.prior == "AG", cfg.fused_ce)
     launches = {k: _ext.LAUNCHES[k] for k in want}               # right after
     losses = [float(m["loss"]) for m in metrics]
     print(f"{tag} path: {TRAIN_STEPS} steps of {TRAIN_IMAGES} images x "
@@ -1077,7 +1251,8 @@ def phase_train_path(cfg, arrays, tag: str):
 
 def phase_train_compare(cfg, arrays, tag: str) -> dict:
     """COMPARE_STEPS steps through the kernels and through the plain
-    versions, from the same weights and z seeds."""
+    versions, from the same weights, z seeds and (GMM) cluster draws:
+    both Trainers seed their generators from the same ``cfg.seed``."""
     runs, grads = [], []
     for ops in (None, PLAIN_TRAIN_OPS):
         trainer = Trainer(cfg.replace(), device=DEV,
@@ -1122,11 +1297,12 @@ def phase_round_trip(cfg, trainer, out_dir: str, tag: str) -> None:
     """The trained weights through export_flax_params / save_params /
     load_model, then one batch of 512 images through the decode kernels:
     greedy for the Normal model, beam 3 with the images' cluster vectors
-    for the AG-CVAE."""
+    for the AG- and GMM-CVAEs (z centred on the active cluster means
+    under AG, at 0 under GMM)."""
     vocab = Vocabulary(["<BOS>", "<EOS>", "<UNK>"]
                        + [f"w{i}" for i in range(VOCAB - 4)])
-    # the checkpoint (120 MB at full width, 175 MB for the AG-CVAE) is
-    # removed after the reload
+    # the checkpoint (120 MB at full width, 175 MB for the AG- and
+    # GMM-CVAEs) is removed after the reload
     ckpt_dir = os.path.join(out_dir, "checkpoints")
     name = f"{tag}_round_trip"
     try:
@@ -1139,9 +1315,9 @@ def phase_round_trip(cfg, trainer, out_dir: str, tag: str) -> None:
                                   model.named_parameters()):
         if not torch.equal(a.detach(), b.detach()):
             raise AssertionError(f"{tag} round trip changed {pname}")
-    ag = cfg.prior == "AG"
+    with_cv = cfg.needs_cluster_vectors      # AG or GMM: beam 3 with c_v
     dcfg = cfg.replace(mode="inference", gen_max_len=30, beam_size=3)
-    fn = make_decode_fns(model, dcfg, vocab)["beam_search" if ag else "greedy"]
+    fn = make_decode_fns(model, dcfg, vocab)["beam_search" if with_cv else "greedy"]
     rng = np.random.default_rng(11)
     feats = torch.from_numpy(np.maximum(
         rng.standard_normal((BATCH, 4096), dtype=np.float32), 0)).to(DEV)
@@ -1153,13 +1329,13 @@ def phase_round_trip(cfg, trainer, out_dir: str, tag: str) -> None:
     if tokens.shape[0] != BATCH or not bool(((tokens >= 0)
                                              & (tokens < VOCAB)).all()):
         raise AssertionError(f"{tag} round trip: decoded tokens out of range")
-    if ag and not bool(torch.isfinite(res.scores).all()):
+    if with_cv and not bool(torch.isfinite(res.scores).all()):
         raise AssertionError(f"{tag} round trip: non-finite beam scores")
     if _ext.LAUNCHES["fused_logits_top_k"] != res.steps:
         raise AssertionError(f"{tag} round trip: the decode did not run the kernels")
     print(f"{tag} round trip: {len(report.loaded)} Flax leaves exported, saved, "
-          f"reloaded bit for bit; {'beam-3' if ag else 'greedy'} decode of "
-          f"{BATCH} images{' with their cluster vectors' if ag else ''}, "
+          f"reloaded bit for bit; {'beam-3' if with_cv else 'greedy'} decode of "
+          f"{BATCH} images{' with their cluster vectors' if with_cv else ''}, "
           f"{res.steps} steps through the decode kernels")
 
 
@@ -1175,6 +1351,40 @@ def phase_train_times(cfg, arrays, label: str, tag: str) -> None:
           f"captions x {TRAIN_T} tokens: kernel {tk:.2f} ms "
           f"({TRAIN_IMAGES / tk * 1e3:.0f} images/s), plain {tp:.2f} ms "
           f"({TRAIN_IMAGES / tp * 1e3:.0f} images/s) [{label}]")
+
+
+def phase_ce_step_times(cfg, arrays, label: str) -> None:
+    """The GMM step with the flash CE against the same step with the plain
+    CE over bf16 logits (``fused_ce=False``), both through the kernels
+    otherwise, in turns by CUDA events over 5 steps after 1 warm-up; then
+    the peak device memory of one step of each, alone on the card (the
+    other Trainer freed): max_memory_allocated after
+    reset_peak_memory_stats, and its rise over what was allocated before
+    the step."""
+    flash = Trainer(cfg.replace(), device=DEV)
+    plain_ce = Trainer(cfg.replace(fused_ce=False), device=DEV)
+    tf, tp = turns(lambda: flash.run_step_arrays(arrays),
+                   lambda: plain_ce.run_step_arrays(arrays),
+                   lambda fn: cuda_ms(fn, iters=5, warmup=1))
+    print(f"time train-gmm step, {TRAIN_IMAGES} images x {TRAIN_CAPTIONS} "
+          f"captions x {TRAIN_T} tokens: flash CE {tf:.2f} ms "
+          f"({TRAIN_IMAGES / tf * 1e3:.0f} images/s), plain CE {tp:.2f} ms "
+          f"({TRAIN_IMAGES / tp * 1e3:.0f} images/s) [{label}]")
+    del flash, plain_ce
+    for name, c in (("flash CE", cfg.replace()), ("plain CE", cfg.replace(fused_ce=False))):
+        trainer = Trainer(c, device=DEV)
+        trainer.run_step_arrays(arrays)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(DEV)
+        torch.cuda.reset_peak_memory_stats(DEV)
+        trainer.run_step_arrays(arrays)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(DEV)
+        print(f"memory train-gmm step, {name}: peak {peak / 2**20:.1f} MiB "
+              f"allocated, {(peak - base) / 2**20:.1f} MiB above the "
+              f"{base / 2**20:.1f} MiB held before the step [{label}]")
+        del trainer
+        torch.cuda.empty_cache()
 
 
 PROFILE_STEPS = 5
@@ -1199,11 +1409,11 @@ def phase_train_profile(out_dir: str, label: str, prior: str) -> None:
     intervals, and the idle share is 1 - busy / the step's host-clock
     time under the profiler.  Writes the trace and a summary to
     ``out_dir`` (``train_*`` for the Normal prior, ``ag_train_*`` for
-    AG)."""
+    AG, ``gmm_train_*`` for GMM with the flash CE)."""
     from torch.profiler import ProfilerActivity, profile
     trainer = Trainer(train_config(prior), device=DEV)
     arrays = train_arrays()
-    prefix = "ag_train" if prior == "AG" else "train"
+    prefix = {"Normal": "train", "AG": "ag_train", "GMM": "gmm_train"}[prior]
     for _ in range(3):
         trainer.run_step_arrays(arrays)
     torch.cuda.synchronize()
@@ -1279,16 +1489,18 @@ def main() -> None:
         _ext.library_path(src).name for src in _ext._sources())
         + f" (nvcc output in {out_dir}/build.log)")
     if sys.argv[1:] == ["--profile"]:
-        phase_train_profile(out_dir, label, "Normal")
-        phase_train_profile(out_dir, label, "AG")
+        for prior in ("Normal", "AG", "GMM"):
+            phase_train_profile(out_dir, label, prior)
         return
 
     t0 = time.perf_counter()
-    errors = {**phase_kernels(), **phase_train_kernels(), **phase_ag_kernels()}
+    errors = {**phase_kernels(), **phase_train_kernels(), **phase_ag_kernels(),
+              **phase_ce_kernels()}
     cfg, vocab, model, launches = phase_main_path(out_dir)
     phase_decode_compare(cfg, vocab, model)
     for prior, tag, kernels in (("Normal", "train", TRAIN_KERNELS + ("fused_z_eps",)),
-                                ("AG", "train-ag", AG_KERNELS)):
+                                ("AG", "train-ag", AG_KERNELS),
+                                ("GMM", "train-gmm", CE_KERNELS)):
         tcfg, arrays = train_config(prior), train_arrays()
         trainer, path_launches = phase_train_path(tcfg, arrays, tag)
         launches.update({k: path_launches[k] for k in kernels})
@@ -1296,10 +1508,11 @@ def main() -> None:
         phase_round_trip(tcfg, trainer, out_dir, tag)
         del trainer
     times = {**phase_kernel_times(label), **phase_train_kernel_times(label),
-             **phase_ag_kernel_times(label)}
+             **phase_ag_kernel_times(label), **phase_ce_kernel_times(label)}
     phase_decode_times(cfg, vocab, model, label)
-    for prior, tag in (("Normal", "train"), ("AG", "train-ag")):
+    for prior, tag in (("Normal", "train"), ("AG", "train-ag"), ("GMM", "train-gmm")):
         phase_train_times(train_config(prior), train_arrays(seed=12), label, tag)
+    phase_ce_step_times(train_config("GMM"), train_arrays(seed=12), label)
     print(f"phases: {time.perf_counter() - t0:.1f} s")
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "optax", "orbax", "vae_captioning_tpu"))
@@ -1308,7 +1521,8 @@ def main() -> None:
 
     paths = {**{k: "decode" for k in DECODE_KERNELS},
              **{k: "train" for k in TRAIN_KERNELS}, "fused_z_eps": "check",
-             **{k: "train-ag" for k in AG_KERNELS}}
+             **{k: "train-ag" for k in AG_KERNELS},
+             **{k: "train-gmm" for k in CE_KERNELS}}
     record = {"kernels": [
         {"name": name, **meta, "path": paths[name], "launches": launches[name],
          "max_abs_err": errors[name], **times[name]}

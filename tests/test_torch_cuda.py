@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card: each against its plain version,
 the lowest-index tie rule, the wrappers' checks and launch counts, a
-small decode and a few train steps (Normal and AG prior) through the
-kernels against the same through the plain versions, and the fused z
-generator's bits against the plain generator's.
+small decode and a few train steps (Normal prior, AG prior, GMM prior
+with the flash CE) through the kernels against the same through the
+plain versions, and the fused z generator's bits against the plain
+generator's.
 
 Every test needs an NVIDIA GPU with nvcc and skips without one.  This
 file imports no JAX, so it also runs on a machine without it:
@@ -22,6 +23,10 @@ from vae_captioning_torch.inference import PLAIN_OPS, make_decode_fns
 from vae_captioning_torch.models.cvae import CVAEModel
 from vae_captioning_torch.ops.fused_ag_heads import (ag_heads_plain,
                                                      fused_ag_heads)
+from vae_captioning_torch.ops.fused_ce import (ce_fwd_plain,
+                                               fused_ce_fwd_kernel,
+                                               fused_linear_ce,
+                                               fused_linear_ce_plain, prepare)
 from vae_captioning_torch.ops.fused_logits_topk import (
     fused_logits_top_k, fused_logits_top_k_plain)
 from vae_captioning_torch.ops.fused_lstm_seq import (fused_lstm_seq,
@@ -273,13 +278,66 @@ def test_ag_heads_wrapper_checks_its_inputs(dev):
                        torch.zeros(30, device=dev), torch.zeros((4, 3), device=dev))
 
 
-@pytest.mark.parametrize("prior", ["Normal", "AG"])
+@pytest.mark.parametrize("M,H,V", [(300, 64, 2000), (1000, 512, 11519),
+                                   (77, 128, 301)])
+def test_linear_ce_kernels_match_plain(dev, M, H, V):
+    """The three flash CE kernels against the plain version's VJP, about
+    40% of the rows PAD (weight 0, label 0): the loss, lse and ll to 1e-5
+    (f32 sums in another order); db to 1e-4 of its largest element (from
+    the f32 dl on both sides); dh and dW to 1e-3 (an element of dl whose
+    two f32 values straddle a bf16 rounding boundary moves its product by
+    one bf16 step); rows of weight 0 get dh = 0 exactly."""
+    g = torch.Generator(device=dev).manual_seed(M + V)
+    h = torch.tanh(torch.randn((M, H), generator=g, device=dev))
+    w = 0.05 * torch.randn((V, H), generator=g, device=dev)
+    b = 0.1 * torch.randn((V,), generator=g, device=dev)
+    labels = torch.randint(1, V, (M,), generator=g, device=dev)
+    mask = (torch.rand((M,), generator=g, device=dev) > 0.4).float()
+    labels[mask == 0] = 0
+    weights = mask / mask.sum()
+    leaves = [[t.clone().requires_grad_() for t in (h, w, b)] for _ in range(2)]
+    before = dict(_ext.LAUNCHES)
+    losses = []
+    for fn, lv in zip((fused_linear_ce, fused_linear_ce_plain), leaves):
+        loss = fn(*lv, labels, weights)
+        loss.backward()
+        losses.append(float(loss.detach()))
+    lse, ll = fused_ce_fwd_kernel(*prepare(h, w, b, labels))
+    p_lse, p_ll = ce_fwd_plain(h, w, b, labels)
+    torch.cuda.synchronize()
+    for name in ("fwd", "dh", "dwdb"):
+        key = f"fused_linear_ce_{name}"
+        assert _ext.LAUNCHES[key] == before[key] + (2 if name == "fwd" else 1)
+    assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[1])
+    torch.testing.assert_close(lse, p_lse, rtol=1e-5, atol=0)
+    assert _rel(ll, p_ll) < 1e-5
+    for name, a, r, tol in zip(("dh", "dw", "db"), leaves[0], leaves[1],
+                               (1e-3, 1e-3, 1e-4)):
+        assert a.grad.dtype == torch.float32 and bool(torch.isfinite(a.grad).all())
+        assert _rel(a.grad, r.grad) < tol, name
+    assert not leaves[0][0].grad[mask == 0].any()
+
+
+def test_linear_ce_wrapper_checks_its_inputs(dev):
+    h = torch.zeros((4, 96), device=dev)
+    lab = torch.zeros(4, dtype=torch.long, device=dev)
+    with pytest.raises(ValueError, match="one of"):
+        fused_linear_ce(h, torch.zeros((30, 96), device=dev),
+                        torch.zeros(30, device=dev), lab, torch.ones(4, device=dev))
+    with pytest.raises(ValueError, match="weights"):
+        fused_linear_ce(h[:, :64], torch.zeros((30, 64), device=dev),
+                        torch.zeros(30, device=dev), lab, torch.ones(5, device=dev))
+
+
+@pytest.mark.parametrize("prior", ["Normal", "AG", "GMM"])
 def test_train_steps_through_kernels_match_plain(dev, prior):
+    """The GMM case trains with the flash CE (``fused_ce``); its two
+    Trainers draw the same clusters from generators of the same seed."""
     from vae_captioning_torch.models.cvae import PLAIN_TRAIN_OPS
     from vae_captioning_torch.train import Trainer
     cfg = Config(embed_size=64, latent_size=16, encoder_hidden=64,
                  decoder_hidden=128, gen_z_samples=4, prior=prior,
-                 use_c_v=prior == "AG")
+                 use_c_v=prior == "AG", fused_ce=prior == "GMM")
     cfg.vocab_size = 300
     rng = np.random.default_rng(0)
     B, K, T = 8, 5, 12
@@ -301,7 +359,8 @@ def test_train_steps_through_kernels_match_plain(dev, prior):
         # (encoder: image and, with c_v, the cluster vector; decoder:
         # image, c_v, z) take the decode kernel
         before = _ext.LAUNCHES["fused_lstm_step"]
-        evals.append(float(tr.eval_step(*arrays, z_seed=3)))
+        clusters = torch.Generator(device=dev).manual_seed(5)
+        evals.append(float(tr.eval_step(*arrays, z_seed=3, clusters=clusters)))
         assert (_ext.LAUNCHES["fused_lstm_step"] - before
                 == (5 if cfg.use_c_v else 3))
     for got, want in zip(*runs):

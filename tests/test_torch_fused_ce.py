@@ -1,0 +1,184 @@
+"""The flash linear CE of the port (ops/fused_ce.py) against the JAX
+package's: ``fused_linear_ce_plain`` and the wrapper's CPU branch against
+the Pallas ``fused_linear_ce`` in interpret mode (forward, and the
+gradients of h, w, b and the row weights through its custom VJP) and the
+forward against ``fused_linear_ce_xla``; ``linear_ce`` against
+``kernel_shard.linear_ce`` on one device over time-major hidden rows;
+zero-weight rows; the plain yardsticks of the three kernels; and the
+checks a CUDA tensor meets before the kernels launch.  The port's W is
+the ``nn.Linear`` weight [V, H], the Flax kernel transposed."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from vae_captioning_tpu.ops import fused_ce as jfc
+from vae_captioning_tpu.parallel import kernel_shard as jks
+from vae_captioning_torch.ops import fused_ce as tfc
+
+FNS = [tfc.fused_linear_ce_plain, tfc.fused_linear_ce]
+IDS = ["plain", "wrapper"]
+# the forward: the same f32 logits from bf16 operands, summed in another
+# order, so the loss and d weights (= lse - ll) to FWD_REL
+FWD_REL = 1e-5
+# dh and dW: both sides round dl to bf16 before the products; an element
+# of dl whose f32 value the two sum orders put on either side of a bf16
+# rounding boundary moves its product by one bf16 step of dl times W,
+# below GRAD_REL of the largest element (9e-6 measured).  db is summed
+# from the f32 dl on both sides: FWD_REL
+GRAD_REL = 1e-4
+
+
+@pytest.fixture()
+def interpreted(monkeypatch):
+    orig = pl.pallas_call
+
+    def patched(*args, **kwargs):
+        kwargs["interpret"] = True
+        return orig(*args, **kwargs)
+
+    monkeypatch.setattr(jfc.pl, "pallas_call", patched)
+
+
+def _problem(M=300, H=64, V=2000, seed=0):
+    """tests/test_fused_ce.py's problem with a ragged mask: about a fifth
+    of the rows weigh 0, and the first five are among them."""
+    rng = np.random.default_rng(seed)
+    h = rng.normal(size=(M, H)).astype(np.float32)
+    w = rng.normal(0, 0.1, size=(H, V)).astype(np.float32)
+    b = rng.normal(size=(V,)).astype(np.float32)
+    labels = rng.integers(0, V, M).astype(np.int32)
+    mask = (rng.random(M) > 0.2).astype(np.float32)
+    mask[:5] = 0.0
+    return h, w, b, labels, (mask / mask.sum()).astype(np.float32)
+
+
+def _rel(a, e):
+    a, e = np.asarray(a, np.float64), np.asarray(e, np.float64)
+    return float(np.abs(a - e).max() / (np.abs(e).max() + 1e-30))
+
+
+def _jax_side(fn, h, w, b, labels, weights):
+    args = [jnp.asarray(a) for a in (h, w, b, labels, weights)]
+    loss, grads = jax.value_and_grad(fn, argnums=(0, 1, 2, 4))(*args)
+    dh, dw, db, dwt = (np.asarray(g) for g in grads)
+    return float(loss), (dh, dw.T, db, dwt)
+
+
+def _torch_side(fn, h, w, b, labels, weights):
+    leaves = [torch.from_numpy(np.ascontiguousarray(a)).requires_grad_()
+              for a in (h, w.T, b)]
+    wt = torch.from_numpy(weights).requires_grad_()
+    loss = fn(*leaves, torch.from_numpy(labels), wt)
+    loss.backward()
+    return float(loss.detach()), tuple(t.grad.numpy() for t in (*leaves, wt))
+
+
+@pytest.mark.parametrize("fn", FNS, ids=IDS)
+@pytest.mark.parametrize("seed", [0, 1])
+def test_matches_the_pallas_kernel(interpreted, fn, seed):
+    args = _problem(seed=seed)
+    j_loss, jg = _jax_side(jfc.fused_linear_ce, *args)
+    t_loss, tg = _torch_side(fn, *args)
+    assert t_loss == pytest.approx(j_loss, rel=FWD_REL)
+    assert t_loss == pytest.approx(
+        float(jfc.fused_linear_ce_xla(*(jnp.asarray(a) for a in args))),
+        rel=FWD_REL)
+    for name, a, e, tol in zip(("dh", "dw", "db", "dweights"), tg, jg,
+                               (GRAD_REL, GRAD_REL, FWD_REL, FWD_REL)):
+        assert a.shape == e.shape and a.dtype == np.float32, name
+        assert _rel(a, e) <= tol, (name, _rel(a, e))
+    # rows of weight 0 get no gradient, exactly, on both sides
+    zero = args[4] == 0
+    assert np.all(tg[0][zero] == 0.0) and np.all(jg[0][zero] == 0.0)
+    assert np.abs(tg[0][~zero]).max() > 0
+
+
+@pytest.mark.parametrize("fn", FNS, ids=IDS)
+def test_linear_ce_matches_kernel_shard(interpreted, fn):
+    """Time-major hidden rows [T, N, H] and labels [T, N] with PAD (0)
+    rows, flattened and weighted as the JAX package's single-device
+    ``linear_ce`` does."""
+    rng = np.random.default_rng(5)
+    T, N, H, V = 6, 9, 64, 300
+    hidden = rng.normal(size=(T, N, H)).astype(np.float32)
+    w = rng.normal(0, 0.1, size=(H, V)).astype(np.float32)
+    b = rng.normal(0, 0.1, size=(V,)).astype(np.float32)
+    lengths = rng.integers(1, T + 1, size=N)
+    labels = rng.integers(1, V, size=(T, N)).astype(np.int32)
+    labels[np.arange(T)[:, None] >= lengths[None, :]] = 0
+    j_args = [jnp.asarray(a) for a in (hidden, w, b)]
+    j_loss, (j_dh, j_dw) = jax.value_and_grad(
+        lambda hd, ww, bb: jks.linear_ce(jfc.fused_linear_ce, hd, ww, bb,
+                                         jnp.asarray(labels), batch_axis=1),
+        argnums=(0, 1))(*j_args)
+    t_hidden = torch.from_numpy(hidden).requires_grad_()
+    t_w = torch.from_numpy(np.ascontiguousarray(w.T)).requires_grad_()
+    t_loss = tfc.linear_ce(t_hidden, t_w, torch.from_numpy(b),
+                           torch.from_numpy(labels), ce_fn=fn)
+    t_loss.backward()
+    assert float(t_loss.detach()) == pytest.approx(float(j_loss), rel=FWD_REL)
+    assert _rel(t_hidden.grad.numpy(), j_dh) <= GRAD_REL
+    assert _rel(t_w.grad.numpy(), np.asarray(j_dw).T) <= GRAD_REL
+    assert np.all(t_hidden.grad.numpy()[labels == 0] == 0.0)
+
+
+def test_rows_of_weight_zero_may_carry_any_label():
+    """Labels past the vocabulary on rows of weight 0 pick nothing and
+    add nothing: the loss and every gradient equal those of label 0."""
+    h, w, b, labels, weights = _problem(M=40, V=100, seed=3)
+    outs = []
+    for bad in (0, -1, 100, 12345):
+        lab = labels.copy()
+        lab[weights == 0] = bad
+        outs.append(_torch_side(tfc.fused_linear_ce_plain, h, w, b, lab, weights))
+    for loss, grads in outs[1:]:
+        assert loss == outs[0][0]
+        for a, e in zip(grads[:3], outs[0][1][:3]):
+            np.testing.assert_array_equal(a, e)
+
+
+def test_plain_backward_is_the_kernels_function():
+    """``ce_dh_plain`` and ``ce_dwdb_plain``, the yardsticks of the dh and
+    dW/db kernels, give the plain VJP's gradients exactly;
+    ``ce_fwd_plain`` gives its lse and label logit."""
+    h, w, b, labels, weights = (torch.from_numpy(np.ascontiguousarray(a))
+                                for a in _problem(M=50, V=300, seed=4))
+    w = w.t().contiguous()
+    leaves = [t.clone().requires_grad_() for t in (h, w, b)]
+    tfc.fused_linear_ce_plain(*leaves, labels, weights).backward()
+    lse, ll = tfc.ce_fwd_plain(h, w, b, labels)
+    S = h.to(torch.bfloat16).float() @ w.to(torch.bfloat16).float().t() + b
+    torch.testing.assert_close(lse, torch.logsumexp(S, 1), rtol=0, atol=0)
+    torch.testing.assert_close(ll, S[torch.arange(50), labels.long()],
+                               rtol=0, atol=0)
+    dh = tfc.ce_dh_plain(h, w, b, labels, lse, weights)
+    dw, db = tfc.ce_dwdb_plain(h, w, b, labels, lse, weights)
+    for got, leaf in zip((dh, dw, db), leaves):
+        torch.testing.assert_close(got, leaf.grad, rtol=0, atol=0)
+
+
+def test_weights_need_no_gradient():
+    h, w, b, labels, weights = _problem(M=20, V=50, seed=6)
+    t_h = torch.from_numpy(h).requires_grad_()
+    loss = tfc.fused_linear_ce(t_h, torch.from_numpy(np.ascontiguousarray(w.T)),
+                               torch.from_numpy(b), torch.from_numpy(labels),
+                               torch.from_numpy(weights))
+    loss.backward()
+    assert t_h.grad.shape == (20, 64) and bool(torch.isfinite(t_h.grad).all())
+
+
+@pytest.mark.parametrize("shapes,match", [
+    (((8, 96), (50, 96), (50,), (8,)), "one of"),
+    (((8, 64), (50, 64), (49,), (8,)), "disagree"),
+    (((8, 64), (50, 32), (50,), (8,)), "disagree"),
+    (((8, 64), (50, 64), (50,), (7,)), "disagree"),
+    (((0, 64), (50, 64), (50,), (0,)), "no rows"),
+])
+def test_kernel_shape_rules(shapes, match):
+    """The checks a CUDA tensor meets before the kernels launch."""
+    with pytest.raises(ValueError, match=match):
+        tfc._check(*(torch.zeros(s) for s in shapes))

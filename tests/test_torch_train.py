@@ -1,17 +1,20 @@
 """The train slice of the port (vae_captioning_torch/train.py and the
 training forward of models/cvae.py) against the JAX package: the forward
-and the loss, a 3-step ``make_train_step`` trajectory (Normal prior, and
-AG prior with both ``ag_kl_sum`` settings), the optimizer against optax,
-KL annealing, ``Trainer.fit`` and ``cli --mode training`` on the
-synthetic mini-COCO, and the configurations that raise.
+and the loss, a 3-step ``make_train_step`` trajectory (Normal prior; AG
+prior with both ``ag_kl_sum`` settings; GMM prior with the flash CE and
+both ``gmm_true_kl`` settings), the optimizer against optax, KL
+annealing, ``Trainer.fit`` and ``cli --mode training`` on the synthetic
+mini-COCO, and the configurations that raise.
 
 The JAX side runs its kernel path (``cfg.fused_force``) with the Pallas
 kernels in interpret mode and ``fused_z._normal_tile`` patched to a
 deterministic function, as ``tests/test_fused_z.py`` does; the port is
-handed the same numbers as the fused z's explicit eps.  E and H are 128,
-the lane width the JAX kernels need.  The AG cases use L = 150 and 12
-clusters, so the JAX heads kernel runs two groups of 8 clusters, the last
-one padded."""
+handed the same numbers as the fused z's explicit eps.  The GMM cases
+patch ``jax.random.categorical`` to return fixed cluster indices and hand
+the port the same indices.  E and H are 128, the lane width the JAX
+kernels need.  The AG cases use L = 150 and 12 clusters, so the JAX heads
+kernel runs two groups of 8 clusters, the last one padded; the GMM cases
+12 clusters of L = 16."""
 
 import json
 import os
@@ -28,6 +31,7 @@ from jax.experimental import pallas as pl
 from vae_captioning_tpu import train as jtrain
 from vae_captioning_tpu.config import Config
 from vae_captioning_tpu.models.cvae import compute_loss as j_compute_loss
+from vae_captioning_tpu.models.cvae import logits_head_params
 from vae_captioning_tpu.ops import distributions as jdist
 from vae_captioning_tpu.ops import fused_z as jfz
 from vae_captioning_torch import checkpoint as ckpt
@@ -292,6 +296,156 @@ def test_ag_three_train_steps_match_jax(interpreted, ag_jax_model, kl_sum):
                 <= 0.02 * np.abs(delta_j).mean()), key
 
 
+@pytest.fixture(scope="module")
+def gmm_jax_model():
+    cfg = _cfg(prior="GMM", num_clusters=AG_K, fused_ce=True)
+    _, params = jtrain.init_model(cfg.replace(fused_force=False),
+                                  jax.random.PRNGKey(0))
+    model = jtrain.build_model(cfg)
+    flat = {"/".join(k): np.asarray(v)
+            for k, v in flatten_dict(jax.device_get(params)).items()}
+    return cfg, model, params, flat
+
+
+@pytest.fixture()
+def fixed_clusters(monkeypatch):
+    """The JAX GMM head's categorical draw replaced by fixed indices
+    [B·K], which the port is handed too."""
+    idx = np.random.default_rng(11).integers(0, AG_K, size=B * K)
+
+    def categorical(key, logits, axis=-1, **kw):
+        return jnp.asarray(idx[:logits.shape[0]], jnp.int32)
+
+    monkeypatch.setattr(jax.random, "categorical", categorical)
+    return torch.from_numpy(idx)
+
+
+def _gmm_cv(seed):
+    """The AG cases' cluster vectors with an all-zero row, whose mixture
+    weights in ``kl_gmm`` fall back to uniform."""
+    cv = _cv(seed)
+    cv[1] = 0.0
+    return cv
+
+
+@pytest.mark.parametrize("fused_ce", [False, True])
+def test_gmm_forward_and_loss_match_jax(interpreted, fixed_clusters,
+                                        gmm_jax_model, fused_ce):
+    """The GMM posterior (one cluster per row, picked by index in the
+    port, by a one-hot contraction in the JAX package) and the loss with
+    both KLs, over the bf16 logits or, with ``fused_ce``, through the
+    flash CE over the decoder's hidden rows."""
+    cfg, model, params, flat = gmm_jax_model
+    feats, enc, dec, lens = _batch(seed=8)
+    cv = _gmm_cv(8)
+    out = model.apply({"params": params}, jnp.asarray(feats), jnp.asarray(enc),
+                      jnp.asarray(dec), jnp.asarray(lens), jnp.asarray(cv),
+                      rngs={"z": jax.random.PRNGKey(3),
+                            "sample": jax.random.PRNGKey(4)},
+                      time_major=True, return_hidden=fused_ce)
+    means = jnp.asarray(jdist.init_cluster_means(AG_K, cfg.latent_size,
+                                                 cfg.seed))
+    t_model = CVAEModel.from_config(cfg)
+    load_flax_params(t_model, flat)
+    t_out = t_model(torch.from_numpy(feats), torch.from_numpy(enc).long(),
+                    torch.from_numpy(dec).long(), torch.from_numpy(lens),
+                    c_v=torch.from_numpy(cv), ops=_ops(_eps(cfg)),
+                    time_major=True, return_hidden=fused_ce,
+                    clusters=fixed_clusters)
+    for key in ("q_mean", "q_std"):     # f32 heads over the same LSTM state
+        np.testing.assert_allclose(t_out[key].detach().numpy(),
+                                   np.asarray(out[key]), rtol=1e-4, atol=1e-4)
+    key = "hidden" if fused_ce else "logits"
+    assert key in t_out and t_out[key].dtype == torch.bfloat16
+    np.testing.assert_allclose(t_out[key].float().detach().numpy(),
+                               np.asarray(out[key], np.float32),
+                               rtol=2e-2, atol=2e-2)
+    head = t_model.decoder.rnn_logits
+    for true_kl in (False, True):
+        j_loss = j_compute_loss(
+            out, jnp.asarray(enc).T, prior="GMM", no_encoder=False,
+            cluster_means=means, annealing=0.5, gmm_true_kl=true_kl,
+            logits_params=logits_head_params(params) if fused_ce else None,
+            time_major=True, ce_kernel="flash")
+        t_loss = compute_loss(
+            t_out, torch.from_numpy(enc).long().t(), no_encoder=False,
+            prior="GMM", cluster_means=t_model.cluster_means, annealing=0.5,
+            gmm_true_kl=true_kl,
+            logits_params=(head.weight, head.bias) if fused_ce else None)
+        np.testing.assert_allclose(float(t_loss["rec_loss"].detach()),
+                                   float(j_loss["rec_loss"]), rtol=1e-4)
+        for k in ("loss", "kld"):
+            np.testing.assert_allclose(float(t_loss[k].detach()),
+                                       float(j_loss[k]), rtol=METRIC_RTOL,
+                                       err_msg=f"{k} gmm_true_kl={true_kl}")
+
+
+@pytest.mark.parametrize("true_kl", [False, True])
+def test_gmm_fused_ce_three_train_steps_match_jax(interpreted, fixed_clusters,
+                                                  gmm_jax_model, true_kl):
+    """``Config(prior="GMM", fused_ce=True)``: the JAX step runs its flash
+    CE kernels (interpret mode), the port its plain flash CE, over the
+    same cluster draws."""
+    cfg, model, params, flat = gmm_jax_model
+    cfg = cfg.replace(gmm_true_kl=true_kl)
+    feats, enc, dec, lens = _batch(seed=9)
+    cv = _gmm_cv(9)
+    tx = jtrain.make_optimizer(cfg)
+    state = jtrain.TrainState.create(params, tx)
+    step = jtrain.make_train_step(model, tx, cfg, donate=False)
+    args = [jnp.asarray(a) for a in (feats, enc, dec, lens, cv)]
+    want = []
+    for _ in range(3):
+        state, m = step(state, *args, jax.random.PRNGKey(1))
+        want.append({k: float(v) for k, v in m.items()})
+    trainer = ttrain.Trainer(cfg.replace(), device="cpu", params=flat,
+                             ops=_ops(_eps(cfg)))
+    assert isinstance(trainer.clusters, torch.Generator)
+    trainer.clusters = fixed_clusters
+    arrays = (torch.from_numpy(feats), torch.from_numpy(enc).long(),
+              torch.from_numpy(dec).long(), torch.from_numpy(lens),
+              torch.from_numpy(cv))
+    got = [{k: float(v) for k, v in trainer.run_step_arrays(arrays).items()}
+           for _ in range(3)]
+    for i, (g, w) in enumerate(zip(got, want)):
+        for key in ("loss", "rec_loss", "kld", "grad_norm"):
+            assert abs(g[key] - w[key]) <= METRIC_RTOL * abs(w[key]), (i, key, g, w)
+    # the heads and the logits head moved alike (compared on average, as
+    # in the Normal case)
+    moved = export_flax_params(trainer.model)
+    jp = {"/".join(k): np.asarray(v)
+          for k, v in flatten_dict(jax.device_get(state.params)).items()}
+    for key in ("encoder/q_heads/kernel", "decoder/rnn_logits/kernel",
+                "decoder/rnn_logits/bias"):
+        delta_t, delta_j = moved[key] - flat[key], jp[key] - flat[key]
+        assert (np.abs(delta_t - delta_j).mean()
+                <= 0.02 * np.abs(delta_j).mean()), key
+
+
+@pytest.mark.parametrize("fused_ce", [False, True])
+def test_gmm_trainer_draws_from_its_own_generator(fused_ce):
+    """Two Trainers from one seed draw the same clusters and take the same
+    steps; the eval step draws from a generator of its own."""
+    cfg = _cfg(prior="GMM", num_clusters=6, fused_ce=fused_ce, embed_size=32,
+               encoder_hidden=32, decoder_hidden=32, latent_size=8)
+    feats, enc, dec, lens = _batch(seed=10)
+    cv = np.random.default_rng(10).dirichlet(np.ones(6), size=B)
+    arrays = (torch.from_numpy(feats), torch.from_numpy(enc).long(),
+              torch.from_numpy(dec).long(), torch.from_numpy(lens),
+              torch.from_numpy(cv.astype(np.float32)))
+    runs = []
+    for _ in range(2):
+        trainer = ttrain.Trainer(cfg.replace(), device="cpu")
+        runs.append([{k: float(v) for k, v in trainer.run_step_arrays(arrays).items()}
+                     for _ in range(3)])
+    assert runs[0] == runs[1]
+    assert runs[0][2]["loss"] < runs[0][0]["loss"]
+    with pytest.raises(ValueError, match="draws a cluster per row"):
+        trainer.eval_step(*arrays, z_seed=1)
+    assert np.isfinite(float(trainer.eval_step(
+        *arrays, z_seed=1, clusters=torch.Generator().manual_seed(0))))
+
+
 @pytest.mark.parametrize("kind", ["Adam", "SGD", "Momentum"])
 def test_optimizer_matches_optax(kind):
     """Four updates on random gradients, the third one above the clip
@@ -445,6 +599,17 @@ def _cli_train(mini_coco, tmp_path, monkeypatch, *extra):
     return cfg, model, vocab
 
 
+def test_gmm_fit_one_epoch_then_decode_the_checkpoint(mini_coco, tmp_path,
+                                                      capsys):
+    """The GMM-CVAE with the flash CE; its checkpoint decodes with z
+    centred at 0, as every prior but AG."""
+    cfg, data, before, saved = _fit_then_decode(
+        mini_coco, tmp_path, capsys, prior="GMM", fused_ce=True)
+    assert saved["encoder/q_heads/kernel"].shape == (32, 2 * 90 * 8)
+    for key in ("encoder/q_heads/kernel", "decoder/rnn_logits/kernel"):
+        assert np.abs(saved[key] - before[key]).max() > 0, key
+
+
 def test_cli_training_end_to_end(mini_coco, tmp_path, monkeypatch):
     _cli_train(mini_coco, tmp_path, monkeypatch)
 
@@ -468,15 +633,34 @@ def test_ag_cli_training_end_to_end(mini_coco, tmp_path, monkeypatch):
         assert len(json.load(f)) == 4
 
 
+def test_gmm_fused_ce_cli_training_end_to_end(mini_coco, tmp_path,
+                                             monkeypatch):
+    """``--set prior=GMM --set fused_ce=True`` trains the GMM-CVAE through
+    the flash CE; its checkpoint then decodes through ``--mode
+    inference``."""
+    cfg, model, _ = _cli_train(mini_coco, tmp_path, monkeypatch,
+                               "--set", "prior=GMM", "--set", "fused_ce=True")
+    assert model.prior == "GMM"
+    _feature_caches(mini_coco, cfg.cache_dir, ("val2014", "test2014"))
+    tcli.main(["--mode", "inference", "--coco_dir", mini_coco,
+               "--checkpoint", "run", "--device", "cpu",
+               "--set", f"checkpoint_dir={cfg.checkpoint_dir}",
+               "--set", f"cache_dir={cfg.cache_dir}",
+               "--set", f"obj_vectors_dir={cfg.obj_vectors_dir}",
+               "--set", "gen_batch_size=4"])
+    with open(tmp_path / "test_00.json") as f:
+        assert len(json.load(f)) == 4
+
+
 @pytest.mark.parametrize("override,item", [
-    (dict(prior="GMM"), "A.6.2"),
+    (dict(ce_xla_bwd=True), "B.10"),
     (dict(restore=True), "A.6.3"),
     (dict(dec_lstm_drop=0.5), "D.6"),
     (dict(encoder_rnn_layers=2), "D.1"),
     (dict(decoder_rnn_layers=2), "D.1"),
     (dict(compute_dtype="float32"), "D.2"),
     (dict(fine_tune=True), "A.8"),
-    (dict(ce_hybrid=True), "B.9"),
+    (dict(ce_hybrid=True), "B.10"),
     (dict(eval_metrics=True), "A.6.4"),
 ])
 def test_uncovered_training_configurations_raise(override, item):
@@ -485,6 +669,16 @@ def test_uncovered_training_configurations_raise(override, item):
         ttrain.check_supported_training(cfg)
     with pytest.raises(NotImplementedError, match=item.replace(".", r"\.")):
         ttrain.Trainer(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("flags", [dict(fused_ce=True, ce_hybrid=True),
+                                   dict(fused_ce=True, ce_xla_bwd=True),
+                                   dict(ce_hybrid=True, ce_xla_bwd=True)])
+def test_more_than_one_ce_schedule_raises(flags):
+    """The JAX package takes one of them by silent precedence; the port
+    rejects the configuration."""
+    with pytest.raises(ValueError, match="at most one CE schedule"):
+        ttrain.check_supported_training(_cfg(**flags))
 
 
 @pytest.mark.parametrize("use_c_v", [False, True])

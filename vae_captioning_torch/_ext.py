@@ -38,7 +38,9 @@ LAUNCHES: Dict[str, int] = {
     "fused_lstm_step": 0, "fused_logits_top_k": 0,
     "fused_lstm_seq_fwd": 0, "fused_lstm_seq_bwd": 0,
     "fused_z_fwd": 0, "fused_z_bwd": 0, "fused_z_eps": 0,
-    "fused_ag_heads_fwd": 0, "fused_ag_heads_bwd": 0}
+    "fused_ag_heads_fwd": 0, "fused_ag_heads_bwd": 0,
+    "fused_linear_ce_fwd": 0, "fused_linear_ce_dh": 0,
+    "fused_linear_ce_dwdb": 0}
 
 _lib: Optional[SimpleNamespace] = None
 # Seconds the first library() call spent compiling (0.0 when every
@@ -63,6 +65,9 @@ _SIGNATURES = {
     "vct_fused_z_eps": [_P] + [_I] * 3 + [_U, _U, _I, _P],
     "vct_fused_ag_heads_fwd": [_P] * 6 + [_I] * 5 + [_P],
     "vct_fused_ag_heads_bwd": [_P] * 7 + [_I] + [_P] * 7 + [_I] * 6 + [_P],
+    "vct_fused_ce_fwd": [_P] * 7 + [_I] * 4 + [_P],
+    "vct_fused_ce_dh": [_P] * 7 + [_I] * 3 + [_P],
+    "vct_fused_ce_dwdb": [_P] * 10 + [_I] * 4 + [_P],
 }
 
 

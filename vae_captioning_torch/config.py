@@ -117,7 +117,10 @@ class Config:
     mesh_axis: str = "dp"       # JAX: data-parallel mesh axis name
     profile: bool = False       # JAX: profiler traces (port: ROADMAP A.10)
     debug_nans: bool = False
-    # JAX: the fused CE schedules (port: ROADMAP B.9 / B.10; they raise)
+    # the fused CE schedules, at most one set: fused_ce is the flash CE
+    # (ops/fused_ce.py; the [M, V] logits never reach memory); ce_hybrid
+    # and ce_xla_bwd raise (port: ROADMAP B.10); ce_bias_fold is a JAX
+    # schedule of the plain logits head, which the port does not read
     fused_ce: bool = False
     ce_hybrid: bool = False
     ce_xla_bwd: bool = False
@@ -140,7 +143,7 @@ class Config:
                                 # effective weighting (masked row sum)
     gmm_true_kl: bool = False   # GMM prior only: the true mixture KL in
                                 # place of the reference's placeholder
-                                # standard-normal KL (port: ROADMAP A.6.2)
+                                # standard-normal KL
     multihost: bool = False     # JAX: multi-host training (port: A.9)
     image_size: int = 224       # fine-tune input resolution
     ckpt_every_steps: int = 0   # >0: a checkpoint every N steps as well

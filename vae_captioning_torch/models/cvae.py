@@ -4,10 +4,12 @@
 One module covers the reference's variants: the no-encoder baseline (no
 z), and the Normal, GMM and AG-prior CVAEs.  At decode time z is drawn
 from the prior; the AG prior centres it on the mean of the image's
-active cluster means.  The training forward runs the encoder, the fused
-z sampling + projection and teacher forcing; it is ported for the
-Normal prior and the baseline (the GMM and AG heads raise, ROADMAP A.6
-and B.5).  Every Flax parameter of every prior has its counterpart here.
+active cluster means, every other prior at 0.  The training forward runs
+the encoder (with the AG heads kernel, or the GMM head's cluster draw),
+the fused z sampling + projection and teacher forcing; the loss takes
+the CE over bf16 logits, or the flash CE over the decoder's hidden rows
+(``Config.fused_ce``).  Every Flax parameter of every prior has its
+counterpart here.
 """
 
 from __future__ import annotations
@@ -19,10 +21,13 @@ from torch import nn
 
 from vae_captioning_torch.config import Config
 from vae_captioning_torch.models.decoder import Decoder, LSTMStep
-from vae_captioning_torch.models.encoder import Encoder
+from vae_captioning_torch.models.encoder import Clusters, Encoder
 from vae_captioning_torch.ops import distributions as dist
 from vae_captioning_torch.ops.fused_ag_heads import (ag_heads_plain,
                                                      fused_ag_heads)
+from vae_captioning_torch.ops.fused_ce import (fused_linear_ce,
+                                               fused_linear_ce_plain,
+                                               linear_ce)
 from vae_captioning_torch.ops.fused_lstm_seq import (fused_lstm_seq,
                                                      fused_lstm_seq_plain)
 from vae_captioning_torch.ops.fused_z import fused_z, fused_z_plain
@@ -37,11 +42,12 @@ class TrainOps(NamedTuple):
     lstm_seq: Callable = fused_lstm_seq
     sample_project: Callable = fused_z
     ag_heads: Callable = fused_ag_heads
+    linear_ce: Callable = fused_linear_ce
 
 
 KERNEL_TRAIN_OPS = TrainOps()
 PLAIN_TRAIN_OPS = TrainOps(fused_lstm_seq_plain, fused_z_plain,
-                           ag_heads_plain)
+                           ag_heads_plain, fused_linear_ce_plain)
 
 
 class CVAEModel(nn.Module):
@@ -105,16 +111,20 @@ class CVAEModel(nn.Module):
                 c_v: Optional[torch.Tensor] = None, z_seed: int = 0,
                 z_step: int = 0, ops: TrainOps = KERNEL_TRAIN_OPS,
                 time_major: bool = True,
-                dropout: Optional[torch.Generator] = None
+                dropout: Optional[torch.Generator] = None,
+                return_hidden: bool = False, clusters: Clusters = None
                 ) -> Dict[str, torch.Tensor]:
         """Training and eval forward.  features [B, 4096], enc_captions
         [B·K, T] (w1..wN <EOS>), dec_captions [B·K, T] (<BOS> w1..wN),
         lengths [B·K], c_v [B, 90] → {"logits": [T, B·K, V] bf16 (or [B·K,
         T, V] without ``time_major``), "q_mean", "q_std": [B·K, L] f32,
-        "c_v": [B·K, 90] when c_v is given}.  K is read from the shapes
-        and the image rows and cluster vectors are repeated K times after
-        the embedding.  (z_seed, z_step) key the fused z noise;
-        ``dropout`` (a generator) turns on the caption-input dropout."""
+        "c_v": [B·K, 90] when c_v is given}; with ``return_hidden``,
+        "hidden" [T, B·K, H] (the decoder's LSTM outputs, bf16) in place
+        of "logits".  K is read from the shapes and the image rows and
+        cluster vectors are repeated K times after the embedding.
+        (z_seed, z_step) key the fused z noise; ``dropout`` (a generator)
+        turns on the caption-input dropout; ``clusters`` is the GMM head's
+        draw over the B·K rows (indices or a generator)."""
         B = features.shape[0]
         K = enc_captions.shape[0] // B
         images_fv = self.imf_emb(features.float())
@@ -132,15 +142,18 @@ class CVAEModel(nn.Module):
         if not self.no_encoder:
             q_mean, q_std = self.encoder(images_fv, enc_captions, lengths,
                                          c_emb, c_v, seq_fn=ops.lstm_seq,
-                                         heads_fn=ops.ag_heads)
+                                         heads_fn=ops.ag_heads,
+                                         clusters=clusters)
             z_dec = self.decoder.sample_z_embedding_fused(
                 q_mean, q_std, self.gen_z_samples, z_seed, z_step,
                 ops.sample_project)
             out["q_mean"], out["q_std"] = q_mean, q_std
         carry = self.decoder.init_state(images_fv, c_emb, z_dec)
-        out["logits"] = self.decoder.teacher_forcing(
-            carry, dec_captions, lengths, seq_fn=ops.lstm_seq,
-            time_major=time_major, dropout=dropout)
+        out["hidden" if return_hidden else "logits"] = (
+            self.decoder.teacher_forcing(
+                carry, dec_captions, lengths, seq_fn=ops.lstm_seq,
+                time_major=time_major, dropout=dropout,
+                return_hidden=return_hidden))
         if c_v is not None:
             out["c_v"] = c_v
         return out
@@ -209,40 +222,53 @@ def compute_loss(outputs: Dict[str, torch.Tensor], labels: torch.Tensor,
                  *, no_encoder: bool, prior: str = "Normal",
                  cluster_means: Optional[torch.Tensor] = None,
                  cluster_sigma: float = 0.1, annealing=1.0,
-                 ag_kl_sum: bool = False, time_major: bool = True
+                 logits_params: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                 gmm_true_kl: bool = False, ag_kl_sum: bool = False,
+                 time_major: bool = True, ce_fn: Optional[Callable] = None
                  ) -> Dict[str, torch.Tensor]:
     """Masked CE + the prior's KL + annealing → the lower bound.
 
-    rec: softmax CE at every position over the bf16 logits with f32
-    sums, PAD (label 0) masked, the mean taken over real tokens.  total
-    = rec + annealing·kld/10.  kld: the AG KL against the c_v-weighted
-    cluster means (``outputs["c_v"]``, ``cluster_means`` [90, L]; summed
-    over rows with ``ag_kl_sum``, else meaned) under the AG prior, the
-    standard-normal KL under the Normal prior and, as the reference's
-    placeholder, under the GMM prior.  ``labels`` is [T, B·K] when the
-    forward ran ``time_major`` (as the train step runs it), else [B·K,
-    T].  The CE is plain PyTorch, as the JAX package's default train
-    step takes its plain CE branch."""
-    logits = outputs["logits"]
-    m = logits.detach().amax(dim=-1, keepdim=True)
-    sumexp = torch.exp((logits - m).float()).sum(dim=-1)
-    lse = torch.log(sumexp) + m[..., 0].float()
-    label_logit = torch.gather(logits, -1, labels.long().unsqueeze(-1))
-    ce = lse - label_logit[..., 0].float()
-    mask = (labels != 0).float()
-    rec_loss = (ce * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    rec: softmax CE at every position, PAD (label 0) masked, the mean
+    taken over real tokens.  Over ``outputs["logits"]`` (bf16) it is plain
+    PyTorch with f32 sums, as the JAX package's plain CE branch; over
+    ``outputs["hidden"]`` it is the flash CE (``ops/fused_ce.py``,
+    through ``ce_fn``, by default the kernel wrapper) with the
+    ``rnn_logits`` (weight [V, H], bias [V]) given as ``logits_params``.
+    total = rec + annealing·kld/10.  kld: the AG KL against the
+    c_v-weighted cluster means (``outputs["c_v"]``, ``cluster_means``
+    [90, L]; summed over rows with ``ag_kl_sum``, else meaned) under the
+    AG prior; under the GMM prior the Hershey-Olsen mixture bound with
+    ``gmm_true_kl``, else, as the reference's placeholder, the
+    standard-normal KL, which the Normal prior takes.  ``labels`` is [T,
+    B·K] when the forward ran ``time_major`` (as the train step runs
+    it), else [B·K, T]."""
+    if "hidden" in outputs:
+        w, b = logits_params
+        rec_loss = linear_ce(outputs["hidden"], w, b, labels, ce_fn)
+    else:
+        logits = outputs["logits"]
+        m = logits.detach().amax(dim=-1, keepdim=True)
+        sumexp = torch.exp((logits - m).float()).sum(dim=-1)
+        lse = torch.log(sumexp) + m[..., 0].float()
+        label_logit = torch.gather(logits, -1, labels.long().unsqueeze(-1))
+        ce = lse - label_logit[..., 0].float()
+        mask = (labels != 0).float()
+        rec_loss = (ce * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     # rows that are all padding do not count in the KL either
     row_mask = (labels != 0).any(dim=0 if time_major else -1)
     if no_encoder:
-        kld = torch.zeros((), dtype=torch.float32, device=logits.device)
+        kld = torch.zeros((), dtype=torch.float32, device=labels.device)
     elif prior == "AG":
         kld = dist.kl_ag(outputs["q_mean"], outputs["q_std"], outputs["c_v"],
                          cluster_means, cluster_sigma, row_mask=row_mask,
                          reduce="sum" if ag_kl_sum else "mean")
+    elif prior == "GMM" and gmm_true_kl:
+        kld = dist.kl_gmm(outputs["q_mean"], outputs["q_std"], outputs["c_v"],
+                          cluster_means, cluster_sigma, row_mask=row_mask)
     else:
         kld = dist.kl_standard_normal(outputs["q_mean"], outputs["q_std"],
                                       row_mask=row_mask)
     annealing = torch.as_tensor(annealing, dtype=torch.float32,
-                                device=logits.device)
+                                device=labels.device)
     return {"loss": rec_loss + annealing * kld / 10.0, "rec_loss": rec_loss,
             "kld": kld, "annealing": annealing}

@@ -106,14 +106,16 @@ class Decoder(nn.Module):
     def teacher_forcing(self, carry: Carry, dec_inputs: torch.Tensor,
                         lengths: torch.Tensor, seq_fn: SeqFn = fused_lstm_seq,
                         time_major: bool = False,
-                        dropout: Optional[torch.Generator] = None
-                        ) -> torch.Tensor:
+                        dropout: Optional[torch.Generator] = None,
+                        return_hidden: bool = False) -> torch.Tensor:
         """Full-sequence logits in bf16: dec_inputs [B, T] (<BOS> w1 ...),
         lengths [B] → [B, T, V], or [T, B, V] with ``time_major`` (the
         train step's layout).  The head rounds as the Flax Dense with
         ``dtype=bfloat16`` does: bf16(h16 @ W16) + bf16(b).  With
         ``dropout`` (a generator) and ``dec_keep_rate`` < 1 the inputs
-        are dropped out first."""
+        are dropped out first.  ``return_hidden`` returns the LSTM
+        outputs [B, T, H] / [T, B, H] (bf16) instead, the input of the
+        flash CE (``ops/fused_ce.py``)."""
         x = self.dec_embeddings(dec_inputs)
         if self.dec_keep_rate < 1.0 and dropout is not None:
             keep = self.dec_keep_rate
@@ -122,6 +124,8 @@ class Decoder(nn.Module):
             x = torch.where(mask.to(x.device), x / keep, 0.0)
         _, hs = self.lstm(carry, x, lengths, time_major_out=time_major,
                           seq_fn=seq_fn)
+        if return_hidden:
+            return hs
         bf16 = torch.bfloat16
         w16 = self.rnn_logits.weight.to(bf16).t()
         return torch.matmul(hs.to(bf16), w16) + self.rnn_logits.bias.to(bf16)

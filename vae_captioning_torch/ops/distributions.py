@@ -1,11 +1,9 @@
 """Latent-space maths (counterpart of
 ``vae_captioning_tpu/ops/distributions.py``): reparameterised sampling,
-the standard-normal and additive-Gaussian KLs, KL annealing, the cluster
-means and the AG decode-time prior mean.  The epsilons (1e-5 inside the
-logs, 1e-7 in the AG divisor) are the reference's.
-
-The GMM KL (``kl_gmm``) comes with the GMM training slice (ROADMAP
-A.6.2).
+the standard-normal, additive-Gaussian and GMM KLs, the GMM head's
+cluster draw, KL annealing, the cluster means and the AG decode-time
+prior mean.  The epsilons (1e-5 inside the logs, 1e-7 in the divisors)
+are the reference's.
 """
 
 from __future__ import annotations
@@ -82,6 +80,51 @@ def kl_ag(mean: torch.Tensor, std: torch.Tensor, c_v: torch.Tensor,
     if row_mask is None:
         return per_example.sum()
     return (per_example * row_mask.to(per_example.dtype)).sum()
+
+
+def gmm_cluster_probs(c_v: torch.Tensor) -> torch.Tensor:
+    """The GMM head's cluster law [B, K]: each row of c_v normalised,
+    uniform for a row that sums to 0."""
+    K = c_v.shape[-1]
+    total = c_v.sum(dim=-1, keepdim=True)
+    return torch.where(total > 0, c_v / torch.clamp(total, min=1e-9),
+                       torch.full_like(c_v, 1.0 / K))
+
+
+def sample_clusters(c_v: torch.Tensor,
+                    generator: Optional[torch.Generator] = None
+                    ) -> torch.Tensor:
+    """One cluster per row [B] (int64) drawn from ``generator``, by the
+    JAX package's law ``categorical(log(probs + 1e-9))``: probs + 1e-9,
+    renormalised."""
+    probs = gmm_cluster_probs(c_v.float()) + 1e-9
+    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+def kl_gmm(mean: torch.Tensor, std: torch.Tensor, c_v: torch.Tensor,
+           cluster_means: torch.Tensor, cluster_sigma: float = 0.1,
+           row_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The GMM-prior KL bound of Hershey & Olsen (``Config.gmm_true_kl``):
+    per row −log Σ_k w_k exp(−KL(q ‖ N(μ_k, σ_c² I))), the mixture weights
+    w the row's c_v normalised (uniform for an all-zero row), then the
+    masked mean over rows.  c_v [B, 90] nonnegative, cluster_means [90, L].
+    The component KLs are written as the JAX package writes them: a
+    component-independent part plus ‖μ_q − μ_k‖² by the expansion."""
+    Kc = cluster_means.shape[0]
+    has_any = c_v.sum(dim=-1, keepdim=True) > 0
+    w = torch.where(has_any, c_v, torch.full_like(c_v, 1.0 / Kc))
+    w = w / w.sum(dim=-1, keepdim=True)
+    sig_c = torch.tensor(cluster_sigma, dtype=mean.dtype, device=mean.device)
+    var_c = sig_c.square() + _EPS_DIV
+    base = (torch.log(sig_c + _EPS_LOG) - torch.log(std + _EPS_LOG)
+            + std.square() / (2.0 * var_c) - 0.5).sum(dim=-1)
+    d2 = (mean.square().sum(dim=-1, keepdim=True)
+          - 2.0 * mean @ cluster_means.t()
+          + cluster_means.square().sum(dim=-1)[None, :])
+    kl_k = base[:, None] + torch.clamp(d2, min=0.0) / (2.0 * var_c)
+    per_example = -torch.logsumexp(torch.log(torch.clamp(w, min=1e-30)) - kl_k,
+                                   dim=-1)
+    return _masked_mean(per_example, row_mask)
 
 
 def kl_annealing(step: int, ann_param: float,

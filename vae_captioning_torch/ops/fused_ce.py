@@ -1,0 +1,296 @@
+"""Flash linear cross-entropy: CUDA kernel wrappers, their plain version
+and the autograd Functions around them.
+
+Counterpart of ``vae_captioning_tpu/ops/fused_ce.py`` (``fused_linear_ce``
+and its custom VJP; the hybrid and XLA-forward schedules are ROADMAP
+B.10).  For hidden rows h [M, H], the ``rnn_logits`` weight W [V, H]
+(the Flax kernel transposed, read in that layout), bias b [V], labels [M]
+and row weights [M]:
+
+    S    = h16 @ W16^T + b             f32 accumulation, f32 bias
+    loss = Σ_i weights_i · (logsumexp(S_i) − S_i[labels_i])
+
+and its gradients by the TPU kernels' VJP: with gw = g·weights and
+dl = (softmax(S) − onehot(labels))·gw in f32, dl is rounded to bf16
+before both products, dh = dl16 @ W16 and dW = dl16^T @ h16 (f32
+accumulation), db = Σ_rows dl from the f32 dl, and d weights = g·(lse −
+S[label]).  Rows of weight 0 may carry any label and get dh = 0 exactly.
+
+On CUDA tensors :func:`fused_linear_ce` launches ``csrc/fused_ce.cu``:
+the forward kernel and, in the backward, the dh and dW/db kernels, which
+recompute the logits tiles, so the [M, V] logits never reach memory (707
+MB in bf16 at the train shapes).  On CPU tensors it takes
+:func:`fused_linear_ce_plain`, which materialises them in f32.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from vae_captioning_torch import _ext
+
+FWD = "fused_linear_ce_fwd"
+DH = "fused_linear_ce_dh"
+DWDB = "fused_linear_ce_dwdb"
+KERNEL_H = (64, 128, 256, 512)  # the widths the kernels are built for
+_ROWS = 32          # rows of a forward / dh block
+_TILE_V = 64        # vocab columns of a forward / dh logits tile
+_CHUNK_TILES = 16   # vocab tiles per forward block
+_DW_ROWS = 32       # vocab rows of dW per dW/db block
+_DW_TILE_M = 64     # rows of a dW/db logits tile
+_DW_SPLITS = 4      # row ranges of dW/db, summed in order
+
+Pair = Tuple[torch.Tensor, torch.Tensor]
+CEFn = Callable[..., torch.Tensor]   # (h, w, b, labels, weights) → loss
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+# ----------------------------------------------------------------------
+# plain version
+# ----------------------------------------------------------------------
+
+def _logits(h, w, b) -> torch.Tensor:
+    """S [M, V] f32 from bf16 operands with f32 accumulation, f32 bias."""
+    return (h.to(torch.bfloat16).float() @ w.to(torch.bfloat16).float().t()
+            + b.float())
+
+
+def _label_cols(labels: torch.Tensor, V: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(labels clamped into [0, V), 1.0 where the label is a column else
+    0.0): a row whose label is no column picks nothing, as in the kernels."""
+    valid = (labels >= 0) & (labels < V)
+    return torch.where(valid, labels, 0).long(), valid.float()
+
+
+def ce_fwd_plain(h, w, b, labels) -> Pair:
+    """The forward kernel's function: (lse, ll) [M] f32, ll = S[label]
+    (0 for a label that is no column)."""
+    S = _logits(h, w, b)
+    cols, valid = _label_cols(labels, S.shape[1])
+    ll = S.gather(1, cols[:, None])[:, 0] * valid
+    return torch.logsumexp(S, dim=1), ll
+
+
+def _dl_plain(h, w, b, labels, lse, gw) -> torch.Tensor:
+    """dl = (exp(S − lse) − onehot(labels))·gw [M, V] f32, formed as the
+    kernels form it."""
+    p = torch.exp(_logits(h, w, b) - lse[:, None])
+    cols, valid = _label_cols(labels, p.shape[1])
+    p[torch.arange(p.shape[0], device=p.device), cols] -= valid
+    return p * gw[:, None]
+
+
+def ce_dh_plain(h, w, b, labels, lse, gw) -> torch.Tensor:
+    """The dh kernel's function: bf16(dl) @ W16 [M, H] f32."""
+    dl16 = _dl_plain(h, w, b, labels, lse, gw).to(torch.bfloat16).float()
+    return dl16 @ w.to(torch.bfloat16).float()
+
+
+def ce_dwdb_plain(h, w, b, labels, lse, gw) -> Pair:
+    """The dW/db kernel's function: (bf16(dl)^T @ h16 [V, H], Σ_rows dl
+    [V]), f32."""
+    dl = _dl_plain(h, w, b, labels, lse, gw)
+    dl16 = dl.to(torch.bfloat16).float()
+    return dl16.t() @ h.to(torch.bfloat16).float(), dl.sum(dim=0)
+
+
+def _grads(ctx, g, lse, ll, grads):
+    """The backward's outputs: (dh, dW, db) cast to their inputs' types,
+    no label gradient, and d weights = g·(lse − ll)."""
+    out = [t.to(dt) if need else None for t, dt, need in
+           zip(grads, ctx.dtypes, ctx.needs_input_grad)]
+    dweights = (g * (lse - ll)).to(ctx.dtypes[3]) if ctx.needs_input_grad[4] else None
+    return (*out, None, dweights)
+
+
+class _PlainLinearCE(torch.autograd.Function):
+    """The plain version with the TPU kernels' VJP (dl rounded to bf16
+    before both products), not autograd of the f32-logits formula, whose
+    dh would skip that rounding.  The backward recomputes the logits for
+    dh and again for dW/db, as the two kernels do."""
+
+    @staticmethod
+    def forward(ctx, h, w, b, labels, weights):
+        lse, ll = ce_fwd_plain(h, w, b, labels)
+        ctx.save_for_backward(h, w, b, labels, weights, lse, ll)
+        ctx.dtypes = (h.dtype, w.dtype, b.dtype, weights.dtype)
+        return (weights.float() * (lse - ll)).sum()
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w, b, labels, weights, lse, ll = ctx.saved_tensors
+        gw = g * weights.float()
+        grads = (ce_dh_plain(h, w, b, labels, lse, gw),
+                 *ce_dwdb_plain(h, w, b, labels, lse, gw))
+        return _grads(ctx, g, lse, ll, grads)
+
+
+def fused_linear_ce_plain(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                          labels: torch.Tensor, weights: torch.Tensor
+                          ) -> torch.Tensor:
+    """The flash CE's function in plain PyTorch, on any device: h [M, H],
+    w [V, H], b [V], labels [M] int, weights [M] → the scalar loss f32.
+    It writes the [M, V] logits in f32 (1.4 GB at the train shapes)."""
+    return _PlainLinearCE.apply(h, w, b, labels, weights)
+
+
+# ----------------------------------------------------------------------
+# kernel launches
+# ----------------------------------------------------------------------
+
+def _check(h, w, b, labels) -> Tuple[int, int, int]:
+    """Raise on what the kernels do not take; returns (M, H, V)."""
+    req = _ext.require
+    req(h.dim() == 2 and w.dim() == 2 and b.dim() == 1 and labels.dim() == 1,
+        "fused_linear_ce: h [M, H], w [V, H], b [V], labels [M]")
+    M, H = h.shape
+    V = w.shape[0]
+    req(w.shape[1] == H and b.shape == (V,) and labels.shape == (M,),
+        f"fused_linear_ce: shapes h{tuple(h.shape)} w{tuple(w.shape)} "
+        f"b{tuple(b.shape)} labels{tuple(labels.shape)} disagree")
+    req(H in KERNEL_H, f"fused_linear_ce: H={H} must be one of {KERNEL_H} "
+        "(the widths the kernels are built for)")
+    req(M > 0 and V > 0, "fused_linear_ce: no rows or no vocabulary")
+    return M, H, V
+
+
+def prepare(h, w, b, labels):
+    """The kernels' operands: h, w in bf16 (cast once per call), b f32,
+    labels int32, all contiguous."""
+    return (h.to(torch.bfloat16).contiguous(), w.to(torch.bfloat16).contiguous(),
+            b.float().contiguous(), labels.to(torch.int32).contiguous())
+
+
+def fused_ce_fwd_kernel(h16, w16, b, lab) -> Pair:
+    """The forward kernel on prepared operands → (lse, ll) [M] f32."""
+    M, H, V = _check(h16, w16, b, lab)
+    dev = h16.device
+    chunks = _cdiv(_cdiv(V, _TILE_V), _CHUNK_TILES)
+    part = torch.empty((chunks, M, 3), dtype=torch.float32, device=dev)
+    out = torch.empty((2, M), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _ext.library().vct_fused_ce_fwd(
+            h16.data_ptr(), w16.data_ptr(), b.data_ptr(), lab.data_ptr(),
+            part.data_ptr(), out[0].data_ptr(), out[1].data_ptr(), M, H, V,
+            _CHUNK_TILES, _ext.stream_ptr(dev))
+    _ext.check_launch(err, FWD)
+    _ext.LAUNCHES[FWD] += 1
+    return out[0], out[1]
+
+
+def _row_args(lse, gw, M, dev):
+    lse = lse.float().contiguous()
+    gw = gw.float().contiguous()
+    _ext.require(lse.shape == gw.shape == (M,) and lse.device == gw.device == dev,
+                 f"fused_linear_ce: lse {tuple(lse.shape)}, gw {tuple(gw.shape)} "
+                 f"!= ({M},)")
+    return lse, gw
+
+
+def fused_ce_dh_kernel(h16, w16, b, lab, lse, gw) -> torch.Tensor:
+    """The dh kernel on prepared operands → dh [M, H] f32."""
+    M, H, V = _check(h16, w16, b, lab)
+    dev = h16.device
+    lse, gw = _row_args(lse, gw, M, dev)
+    dh = torch.empty((_cdiv(M, _ROWS) * _ROWS, H), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _ext.library().vct_fused_ce_dh(
+            h16.data_ptr(), w16.data_ptr(), b.data_ptr(), lab.data_ptr(),
+            lse.data_ptr(), gw.data_ptr(), dh.data_ptr(), M, H, V,
+            _ext.stream_ptr(dev))
+    _ext.check_launch(err, DH)
+    _ext.LAUNCHES[DH] += 1
+    return dh[:M]
+
+
+def fused_ce_dwdb_kernel(h16, w16, b, lab, lse, gw) -> Pair:
+    """The dW/db kernels on prepared operands → (dW [V, H], db [V]) f32.
+    The row ranges' partials are workspaces of [splits, V, H] f32 (94 MB
+    at the train shapes)."""
+    M, H, V = _check(h16, w16, b, lab)
+    dev = h16.device
+    lse, gw = _row_args(lse, gw, M, dev)
+    splits = min(_DW_SPLITS, _cdiv(M, _DW_TILE_M))
+    Vp = _cdiv(V, _DW_ROWS) * _DW_ROWS
+    f32 = dict(dtype=torch.float32, device=dev)
+    dw_part = torch.empty((splits, Vp, H), **f32)
+    db_part = torch.empty((splits, Vp), **f32)
+    dw = torch.empty((V, H), **f32)
+    db = torch.empty((V,), **f32)
+    with torch.cuda.device(dev):
+        err = _ext.library().vct_fused_ce_dwdb(
+            h16.data_ptr(), w16.data_ptr(), b.data_ptr(), lab.data_ptr(),
+            lse.data_ptr(), gw.data_ptr(), dw_part.data_ptr(),
+            db_part.data_ptr(), dw.data_ptr(), db.data_ptr(), M, H, V, splits,
+            _ext.stream_ptr(dev))
+    _ext.check_launch(err, DWDB)
+    _ext.LAUNCHES[DWDB] += 1
+    return dw, db
+
+
+# ----------------------------------------------------------------------
+# autograd
+# ----------------------------------------------------------------------
+
+class _FusedLinearCE(torch.autograd.Function):
+    """Inputs h [M, H], w [V, H], b [V], labels [M], weights [M] on one
+    CUDA device; output the scalar loss.  The forward launches the forward
+    kernel only (the eval step runs it under no_grad); the backward the dh
+    and dW/db kernels, each only where its gradient is needed."""
+
+    @staticmethod
+    def forward(ctx, h, w, b, labels, weights):
+        ops = prepare(h, w, b, labels)
+        lse, ll = fused_ce_fwd_kernel(*ops)
+        wt = weights.float()
+        ctx.save_for_backward(*ops, wt, lse, ll)
+        ctx.dtypes = (h.dtype, w.dtype, b.dtype, weights.dtype)
+        return (wt * (lse - ll)).sum()
+
+    @staticmethod
+    def backward(ctx, g):
+        *ops, wt, lse, ll = ctx.saved_tensors
+        gw = g * wt
+        need_h, need_w, need_b = ctx.needs_input_grad[:3]
+        dh = fused_ce_dh_kernel(*ops, lse, gw) if need_h else None
+        dw, db = (fused_ce_dwdb_kernel(*ops, lse, gw) if need_w or need_b
+                  else (None, None))
+        return _grads(ctx, g, lse, ll, (dh, dw, db))
+
+
+def fused_linear_ce(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                    labels: torch.Tensor, weights: torch.Tensor
+                    ) -> torch.Tensor:
+    """Σ_i weights_i · CE(softmax(h_i W^T + b), labels_i), differentiable
+    in h, w, b and weights: h [M, H], w [V, H] (the ``rnn_logits``
+    weight), b [V], labels [M] int, weights [M] → a scalar f32.  CPU
+    tensors take :func:`fused_linear_ce_plain`; CUDA tensors launch the
+    kernels or raise (H must be 64, 128, 256 or 512)."""
+    if _ext.on_cpu(h, w, b, labels, weights):
+        return fused_linear_ce_plain(h, w, b, labels, weights)
+    _check(h, w, b, labels)
+    _ext.require(weights.shape == labels.shape,
+                 f"fused_linear_ce: weights {tuple(weights.shape)} != labels "
+                 f"{tuple(labels.shape)}")
+    return _FusedLinearCE.apply(h, w, b, labels, weights)
+
+
+def linear_ce(hidden: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              labels: torch.Tensor, ce_fn: Optional[CEFn] = None
+              ) -> torch.Tensor:
+    """The PAD-masked mean CE through ``ce_fn`` (by default
+    :func:`fused_linear_ce`): hidden [..., H] and labels [...] in the
+    same layout (time-major [T, B·K] in the train step) are flattened to
+    rows, and each row weighs mask / max(Σ mask, 1), mask = labels != 0.
+    This is the JAX package's ``kernel_shard.linear_ce`` on one device,
+    where the row order does not depend on the batch axis."""
+    ce_fn = fused_linear_ce if ce_fn is None else ce_fn
+    lab = labels.reshape(-1)
+    mask = (lab != 0).float()
+    weights = mask / torch.clamp(mask.sum(), min=1.0)
+    return ce_fn(hidden.reshape(-1, hidden.shape[-1]), w, b, lab, weights)

@@ -15,16 +15,22 @@ Semantics kept from the reference:
 
 The step runs the kernels of the train path (``fused_lstm_seq`` for the
 encoder and decoder LSTMs, ``fused_z`` for the z sampling + projection,
-``fused_ag_heads`` for the AG posterior heads) on one card; the CE, the
-logits head and the optimizer are plain PyTorch, as the JAX package
-leaves them to XLA.  Each step's z noise is
-keyed on a seed drawn from a host ``torch.Generator`` that the Trainer
-owns (seeded from ``cfg.seed``) and on the step number: no global RNG
-state is read.  The step counter lives on the host and metrics stay on
-the device until a log step reads them.
+``fused_ag_heads`` for the AG posterior heads and, with
+``Config.fused_ce``, ``fused_linear_ce`` for the logits head and CE) on
+one card.  Without ``fused_ce`` the logits head and CE are plain
+PyTorch, as the JAX package's default step leaves them to XLA; the
+optimizer always is.  ``fused_ce`` always means the flash CE's function
+here, its plain version on the CPU (the JAX package ignores the flag off
+its kernel path).  Each step's z noise is keyed on a seed drawn from a
+host ``torch.Generator`` that the Trainer owns (seeded from
+``cfg.seed``) and on the step number; the GMM head's cluster draws come
+from a device generator it owns too: no global RNG state is read.  The
+step counter lives on the host and metrics stay on the device until a
+log step reads them.
 
-Configurations this slice does not train raise NotImplementedError in
-:func:`check_supported_training`, naming their ROADMAP item.
+Configurations this port does not train raise NotImplementedError in
+:func:`check_supported_training`, naming their ROADMAP item; more than
+one CE schedule flag raises ValueError.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from vae_captioning_torch.config import Config
 from vae_captioning_torch.data.batcher import Batch
 from vae_captioning_torch.models.cvae import (KERNEL_TRAIN_OPS, CVAEModel,
                                               TrainOps, compute_loss)
+from vae_captioning_torch.models.encoder import Clusters
 from vae_captioning_torch.ops import distributions as dist
 from vae_captioning_torch.utils.logging import MetricLogger
 from vae_captioning_torch.utils.prefetch import Prefetcher
@@ -49,14 +56,19 @@ from vae_captioning_torch.utils.prefetch import Prefetcher
 Arrays = Tuple[torch.Tensor, ...]   # features, enc, dec, lengths, c_v
 
 
+CE_FLAGS = ("fused_ce", "ce_hybrid", "ce_xla_bwd")
+
+
 def check_supported_training(cfg: Config) -> None:
-    """Raise NotImplementedError for what the train slice does not cover
-    (each would need a kernel or a path not ported yet), naming the
-    ROADMAP item that will."""
-    with_encoder = not cfg.no_encoder
+    """Raise ValueError when more than one CE schedule flag is set (the
+    JAX package picks one of them silently), and NotImplementedError for
+    what the port does not train yet (each would need a kernel or a path
+    not ported yet), naming the ROADMAP item that will."""
+    ce_flags = [name for name in CE_FLAGS if getattr(cfg, name)]
+    if len(ce_flags) > 1:
+        raise ValueError(f"set at most one CE schedule of {CE_FLAGS}, got "
+                         f"{ce_flags}")
     gates = [
-        (with_encoder and cfg.prior == "GMM",
-         "prior='GMM' training (GMM heads + kl_gmm): ROADMAP A.6.2"),
         (cfg.restore, "restore (resume a run from a checkpoint): ROADMAP A.6.3"),
         (cfg.dec_lstm_drop < 1.0,
          f"dec_lstm_drop={cfg.dec_lstm_drop} (LSTM output dropout, the JAX "
@@ -69,9 +81,9 @@ def check_supported_training(cfg: Config) -> None:
          f"compute_dtype={cfg.compute_dtype!r}: the train slice runs "
          "bfloat16 (ROADMAP D.2)"),
         (cfg.fine_tune, "fine_tune (VGG16 in the model): ROADMAP A.8"),
-        (cfg.fused_ce or cfg.ce_hybrid or cfg.ce_xla_bwd,
-         "the fused CE schedules (fused_ce, ce_hybrid, ce_xla_bwd): ROADMAP "
-         "B.9 / B.10"),
+        (cfg.ce_hybrid or cfg.ce_xla_bwd,
+         "the hybrid and XLA-forward CE schedules (ce_hybrid, ce_xla_bwd): "
+         "ROADMAP B.10"),
         (cfg.eval_metrics,
          "eval_metrics (the per-epoch BLEU/CIDEr hook): ROADMAP A.6.4"),
         (cfg.profile, "profile (a profiler trace of steps 10-20): ROADMAP A.10"),
@@ -191,28 +203,27 @@ def make_optimizer(cfg: Config, params: Iterable[torch.nn.Parameter]
 def make_train_step(model: CVAEModel, optimizer: Optimizer, cfg: Config,
                     ops: TrainOps = KERNEL_TRAIN_OPS) -> Callable:
     """``step_fn(step, features, enc, dec, lengths, c_v, z_seed,
-    dropout=None) -> metrics``: forward, loss, backward and one optimizer
-    update in place.  ``enc`` [B·K, T] holds the labels (the encoder's
-    input), ``dec`` the decoder inputs.  The metrics (loss, rec_loss,
-    kld, annealing, grad_norm before clipping) stay on the device."""
+    dropout=None, clusters=None) -> metrics``: forward, loss, backward
+    and one optimizer update in place.  ``enc`` [B·K, T] holds the labels
+    (the encoder's input), ``dec`` the decoder inputs, ``clusters`` the
+    GMM head's draw.  The metrics (loss, rec_loss, kld, annealing,
+    grad_norm before clipping) stay on the device."""
     force_one = cfg.fine_tune or cfg.restore
-    needs_cv = cfg.needs_cluster_vectors
     params = optimizer.params
+    loss_args = _loss_args(model, cfg, ops)
 
     def step_fn(step: int, features, enc, dec, lengths, c_v, z_seed: int,
-                dropout: Optional[torch.Generator] = None
-                ) -> Dict[str, torch.Tensor]:
+                dropout: Optional[torch.Generator] = None,
+                clusters: Clusters = None) -> Dict[str, torch.Tensor]:
         annealing = dist.kl_annealing(step, cfg.ann_param, force_one)
         for p in params:
             p.grad = None
-        out = model(features, enc, dec, lengths, c_v if needs_cv else None,
+        out = model(features, enc, dec, lengths,
+                    c_v if cfg.needs_cluster_vectors else None,
                     z_seed=z_seed, z_step=step, ops=ops, time_major=True,
-                    dropout=dropout)
-        losses = compute_loss(out, enc.t(), no_encoder=cfg.no_encoder,
-                              prior=cfg.prior,
-                              cluster_means=model.cluster_means,
-                              annealing=annealing, ag_kl_sum=cfg.ag_kl_sum,
-                              time_major=True)
+                    dropout=dropout, return_hidden=cfg.fused_ce,
+                    clusters=clusters)
+        losses = compute_loss(out, enc.t(), annealing=annealing, **loss_args)
         losses["loss"].backward()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in params]
@@ -225,21 +236,33 @@ def make_train_step(model: CVAEModel, optimizer: Optimizer, cfg: Config,
 
 def make_eval_step(model: CVAEModel, cfg: Config,
                    ops: TrainOps = KERNEL_TRAIN_OPS) -> Callable:
-    """``eval_fn(features, enc, dec, lengths, c_v, z_seed) -> rec_loss``
-    (the reference validates the rec-loss only), without gradients."""
-    needs_cv = cfg.needs_cluster_vectors
+    """``eval_fn(features, enc, dec, lengths, c_v, z_seed, clusters=None)
+    -> rec_loss`` (the reference validates the rec-loss only), without
+    gradients: with ``fused_ce`` it launches the CE's forward kernel
+    only."""
+    loss_args = _loss_args(model, cfg, ops)
 
     @torch.no_grad()
-    def eval_fn(features, enc, dec, lengths, c_v, z_seed: int) -> torch.Tensor:
-        out = model(features, enc, dec, lengths, c_v if needs_cv else None,
-                    z_seed=z_seed, z_step=0, ops=ops, time_major=True)
-        return compute_loss(out, enc.t(), no_encoder=cfg.no_encoder,
-                            prior=cfg.prior,
-                            cluster_means=model.cluster_means,
-                            ag_kl_sum=cfg.ag_kl_sum,
-                            time_major=True)["rec_loss"]
+    def eval_fn(features, enc, dec, lengths, c_v, z_seed: int,
+                clusters: Clusters = None) -> torch.Tensor:
+        out = model(features, enc, dec, lengths,
+                    c_v if cfg.needs_cluster_vectors else None,
+                    z_seed=z_seed, z_step=0, ops=ops, time_major=True,
+                    return_hidden=cfg.fused_ce, clusters=clusters)
+        return compute_loss(out, enc.t(), **loss_args)["rec_loss"]
 
     return eval_fn
+
+
+def _loss_args(model: CVAEModel, cfg: Config, ops: TrainOps) -> dict:
+    """The train and eval steps' arguments of ``compute_loss``; with
+    ``fused_ce`` the ``rnn_logits`` weight [V, H] and bias, read in place."""
+    head = model.decoder.rnn_logits
+    return dict(no_encoder=cfg.no_encoder, prior=cfg.prior,
+                cluster_means=model.cluster_means, ag_kl_sum=cfg.ag_kl_sum,
+                gmm_true_kl=cfg.gmm_true_kl, time_major=True,
+                logits_params=(head.weight, head.bias) if cfg.fused_ce else None,
+                ce_fn=ops.linear_ce)
 
 
 # ----------------------------------------------------------------------
@@ -274,6 +297,12 @@ class Trainer:
         if cfg.dec_keep_rate < 1.0:
             self.dropout = torch.Generator(device=self.device).manual_seed(
                 cfg.seed + 2)
+        # the GMM head's cluster draws: a device generator (tests may set
+        # fixed indices [B·K] instead)
+        self.clusters: Clusters = None
+        if cfg.prior == "GMM" and not cfg.no_encoder:
+            self.clusters = torch.Generator(device=self.device).manual_seed(
+                cfg.seed + 3)
         self.host_step = 0
 
     def next_seed(self) -> int:
@@ -298,12 +327,19 @@ class Trainer:
 
     def run_step_arrays(self, arrays: Arrays) -> Dict[str, torch.Tensor]:
         metrics = self.train_step(self.host_step, *arrays,
-                                  z_seed=self.next_seed(), dropout=self.dropout)
+                                  z_seed=self.next_seed(), dropout=self.dropout,
+                                  clusters=self.clusters)
         self.host_step += 1
         return metrics
 
     def validate(self, batcher) -> float:
-        vals = [self.eval_step(*self.device_batch(b), z_seed=self.eval_seed)
+        # every validation draws the same clusters, as it uses one z seed
+        clusters = self.clusters
+        if isinstance(clusters, torch.Generator):
+            clusters = torch.Generator(device=self.device).manual_seed(
+                self.eval_seed)
+        vals = [self.eval_step(*self.device_batch(b), z_seed=self.eval_seed,
+                               clusters=clusters)
                 for b in batcher.eval_batches(num_captions=self.cfg.num_captions,
                                               with_ids=False)]
         return float(torch.stack(vals).mean()) if vals else float("nan")
