@@ -7,7 +7,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    (one nvcc per source, all started together);
 3. kernels: each kernel against its plain PyTorch version on the card,
    at the main paths' shapes and ragged ones: the decode kernels (plus a
-   deliberate tie), the train path's ``fused_lstm_seq`` and ``fused_z``
+   deliberate tie), the int8 top-k and the top-k + lse over written
+   logits (values and indices bit for bit), the sampler (token for token
+   outside near-ties, and its law over 200,000 draws), the train path's ``fused_lstm_seq`` and ``fused_z``
    forward and backward, the fused z generator's bits, normals and
    moments against the plain generator, and the AG train path's
    ``fused_ag_heads`` forward and backward with COCO-like cluster vectors,
@@ -21,7 +23,13 @@ Phases, in order; any failure raises and the script exits nonzero:
    taken; then batches are decoded at beam 3, beam 10 and greedy through
    the kernels, the plain versions and the plain versions summed in
    reverse order, and compared step by step and caption by caption (see
-   phase_decode_compare);
+   phase_decode_compare); then the other decode modes, each its own path
+   through ``run_inference`` with exact launch counts
+   (phase_mode_paths): ``decode-sample`` (temperature sampling through
+   ``fused_logits_sample``), ``decode-int8`` (beam 3 and greedy through
+   ``fused_logits_top_k_int8``) and ``decode-unfused`` (the logits
+   written, beam 3 through ``top_k_logsumexp``), and each compared step
+   by step with its plain versions (phase_mode_compare);
 5. train path: the full-width Normal-prior CVAE (``config.py``
    defaults, random weights from a seed through the bridge) takes 20
    ``Trainer`` steps on one synthetic batch of 256 images x 5 captions x
@@ -44,8 +52,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    comparison with the plain versions draws the same clusters; the
    checkpoint decodes a beam-3 batch with z centred at 0;
 8. times: each kernel against its plain version and, where one PyTorch
-   call computes the same function, that call; decode batches and train
-   steps (Normal, AG and GMM), kernel path against plain path, in turns;
+   call computes the same function, that call; decode batches (every
+   mode) and train steps (Normal, AG and GMM), kernel path against plain
+   path, in turns;
    the GMM step with the flash CE against the same step with the plain
    CE, in turns, and the peak device memory of one step of each.
 
@@ -98,7 +107,10 @@ from vae_captioning_torch.ops.fused_ag_heads import (  # noqa: E402
     ag_heads_bwd_kernel, ag_heads_bwd_plain, ag_heads_fwd_kernel,
     ag_heads_plain, prepare)
 from vae_captioning_torch.ops.fused_logits_topk import (  # noqa: E402
-    fused_logits_top_k, fused_logits_top_k_plain)
+    fused_logits_sample, fused_logits_sample_plain, fused_logits_top_k,
+    fused_logits_top_k_int8, fused_logits_top_k_int8_plain,
+    fused_logits_top_k_plain, int8_top_k_kernel, int8_top_k_plain,
+    quantize_logits_weights, quantize_rows, sample_scores)
 from vae_captioning_torch.ops.fused_lstm_seq import (  # noqa: E402
     lstm_seq_bwd_kernel, lstm_seq_bwd_plain, lstm_seq_fwd_kernel,
     lstm_seq_fwd_plain)
@@ -107,6 +119,8 @@ from vae_captioning_torch.ops.fused_lstm_step import (  # noqa: E402
 from vae_captioning_torch.ops.fused_z import (  # noqa: E402
     fused_z_eps, philox_bits, philox_normals, z_bwd_kernel, z_bwd_plain,
     z_fwd_kernel, z_fwd_plain)
+from vae_captioning_torch.ops.topk_lse import (  # noqa: E402
+    top_k_logsumexp, top_k_logsumexp_plain)
 from vae_captioning_torch.train import Trainer  # noqa: E402
 
 DEV = torch.device("cuda", 0)
@@ -155,15 +169,31 @@ KERNELS = {
     "fused_linear_ce_dwdb": {
         "route": "cuda", "source": "vae_captioning_torch/csrc/fused_ce.cu",
         "replaces": "vae_captioning_tpu/ops/fused_ce.py:159"},
+    "fused_logits_top_k_int8": {
+        "route": "cuda", "source": "vae_captioning_torch/csrc/fused_logits_topk.cu",
+        "replaces": "vae_captioning_tpu/ops/fused_logits_topk.py:211"},
+    "fused_logits_sample": {
+        "route": "cuda", "source": "vae_captioning_torch/csrc/fused_logits_topk.cu",
+        "replaces": "vae_captioning_tpu/ops/fused_logits_topk.py:398"},
+    "top_k_logsumexp": {
+        "route": "cuda", "source": "vae_captioning_torch/csrc/topk_lse.cu",
+        "replaces": "vae_captioning_tpu/ops/topk_pallas.py:36"},
 }
 DECODE_KERNELS = ("fused_lstm_step", "fused_logits_top_k")
+# the decode modes' paths: each runs the LSTM step and one logits kernel
+# (the sample path's greedy test split runs the bf16 top-k)
+MODE_PATHS = {"decode-sample": "fused_logits_sample",
+              "decode-int8": "fused_logits_top_k_int8",
+              "decode-unfused": "top_k_logsumexp"}
+MODE_KERNELS = tuple(MODE_PATHS.values())
 TRAIN_KERNELS = ("fused_lstm_seq_fwd", "fused_lstm_seq_bwd", "fused_z_fwd",
                  "fused_z_bwd")
 AG_KERNELS = ("fused_ag_heads_fwd", "fused_ag_heads_bwd")
 CE_KERNELS = ("fused_linear_ce_fwd", "fused_linear_ce_dh", "fused_linear_ce_dwdb")
 # the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): dense
-# bf16 tensor-core operations and HBM3 bytes per second
+# bf16 and int8 tensor-core operations and HBM3 bytes per second
 PEAK_BF16 = 989e12
+PEAK_INT8 = 1979e12
 PEAK_BYTES = 3.35e12
 
 
@@ -194,11 +224,12 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(flops: float, moved: int) -> tuple:
+def bound(flops: float, moved: int, peak: float = PEAK_BF16) -> tuple:
     """(the least ms the card could take, what binds it): the larger of
-    the tensor-core operations over the bf16 peak and the bytes (each
-    input read once, each output written once) over the memory rate."""
-    t_ops, t_bytes = flops / PEAK_BF16 * 1e3, moved / PEAK_BYTES * 1e3
+    the tensor-core operations over their type's peak (bf16 unless
+    ``peak`` says otherwise) and the bytes (each input read once, each
+    output written once) over the memory rate."""
+    t_ops, t_bytes = flops / peak * 1e3, moved / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -325,6 +356,134 @@ def phase_kernels() -> dict:
     return {"fused_lstm_step": lstm, "fused_logits_top_k": topk}
 
 
+# ----------------------------------------------------------------------
+# phase 3, the other decode modes: int8 logits, top-k + lse over written
+# logits, Gumbel-max sampling
+# ----------------------------------------------------------------------
+
+SAMPLE_TV = 0.02        # the sampler's law: total variation to softmax(x / T)
+LAW_V, LAW_DRAWS = 100, 200_000
+
+
+def int8_inputs(M: int, V: int, seed: int):
+    """h as the LSTM step returns it (f32), the head quantised per column
+    from f32 weights, the bias."""
+    h, w, b = logits_inputs(M, V, seed=seed)
+    g = torch.Generator(device=DEV).manual_seed(seed + 1)
+    wf = w.float() + 0.001 * torch.randn(w.shape, generator=g, device=DEV)
+    return (h.float(), *quantize_logits_weights(wf), b)
+
+
+def check_int8(M: int, V: int, k: int) -> float:
+    """The int32 product is exact and each dequantisation step rounds on
+    its own on both sides: values and indices bit for bit, lse to its
+    rtol."""
+    args = int8_inputs(M, V, seed=M + V + k)
+    vals, idx, lse = fused_logits_top_k_int8(*args, k)
+    p_vals, p_idx, p_lse = fused_logits_top_k_int8_plain(*args, k)
+    torch.cuda.synchronize()
+    tag = f"fused_logits_top_k_int8 M={M} V={V} k={k}"
+    err = compare_topk(tag, (vals, idx, lse), (p_vals, p_idx, p_lse))
+    if not (torch.equal(vals, p_vals) and torch.equal(idx, p_idx)):
+        raise AssertionError(f"{tag}: values or indices not bit-identical "
+                             "to the plain version")
+    print(f"{tag}: values and indices bit-identical to the plain version; "
+          f"max |kernel - plain| {err:.3e} (lse)")
+    return err
+
+
+def unfused_logits(M: int, V: int, seed: int) -> torch.Tensor:
+    """[M, V] f32 logits as the unfused decode step writes them: a bf16
+    product plus the bf16 bias, rounded to bf16 (so exact ties abound)."""
+    h, w, b = logits_inputs(M, V, seed=seed)
+    return ((h.float() @ w.float()).to(torch.bfloat16)
+            + b.to(torch.bfloat16)).float()
+
+
+def check_topk_lse(N: int, V: int, k: int) -> float:
+    """Values are copied: values and indices bit for bit, lse to its rtol."""
+    x = unfused_logits(N, V, seed=N + V + k)
+    vals, idx, lse = top_k_logsumexp(x, k)
+    p_vals, p_idx, p_lse = top_k_logsumexp_plain(x, k)
+    torch.cuda.synchronize()
+    tag = f"top_k_logsumexp N={N} V={V} k={k}"
+    err = compare_topk(tag, (vals, idx, lse), (p_vals, p_idx, p_lse))
+    if not (torch.equal(vals, p_vals) and torch.equal(idx, p_idx)):
+        raise AssertionError(f"{tag}: values or indices not bit-identical "
+                             "to the plain version")
+    ties = int((p_vals[:, :-1] == p_vals[:, 1:]).any(dim=1).sum()) if k > 1 else 0
+    print(f"{tag}: values and indices bit-identical to the plain version "
+          f"({ties} rows hold an exact tie in their top {k}); max |kernel - "
+          f"plain| {err:.3e} (lse)")
+    return err
+
+
+def sample_compare(tag: str, tokens, scores) -> tuple:
+    """(rows, near-tie rows, rows that differ) of a draw against the plain
+    scored values; a row may differ only where its top two scored values
+    lie within TIE_GAP (logf on the card and torch.log may differ by an
+    ulp, the logits by sum order)."""
+    top2 = scores.topk(2, dim=1).values
+    near = (top2[:, 0] - top2[:, 1]) <= TIE_GAP
+    differ = tokens.long() != scores.argmax(dim=1)
+    bad = differ & ~near
+    if bool(bad.any()):
+        raise AssertionError(f"{tag}: tokens differ from the plain sampler in "
+                             f"{int(bad.sum())} rows without a near-tie")
+    return int(tokens.numel()), int(near.sum()), int(differ.sum())
+
+
+def check_sample(M: int, V: int, temperature: float = 0.8) -> float:
+    h, w, b = logits_inputs(M, V, seed=M + V)
+    tokens = fused_logits_sample(h, w, b, 4321, 6, temperature)
+    scores = sample_scores(h, w, b, 4321, 6, temperature)
+    torch.cuda.synchronize()
+    tag = f"fused_logits_sample M={M} V={V} T={temperature}"
+    rows, near, differ = sample_compare(tag, tokens, scores)
+    picked = scores.gather(1, tokens.long()[:, None])[:, 0]
+    err = float((picked - scores.max(dim=1).values).abs().max())
+    print(f"{tag}: tokens equal to the plain sampler's in {rows - differ} of "
+          f"{rows} rows, near-tie rows {near}; max |scored value of the "
+          f"kernel's token - plain max| {err:.3e}")
+    return err
+
+
+def check_sample_law() -> None:
+    """LAW_DRAWS draws of one row at V = LAW_V: total variation to
+    softmax(logits / T) below SAMPLE_TV at three temperatures."""
+    h, w, b = logits_inputs(1, LAW_V, seed=77)
+    w = (w.float() * 8).to(torch.bfloat16)      # a law with some spread
+    vals, idx, _ = fused_logits_top_k_plain(h, w, b, LAW_V)
+    logits = torch.empty(LAW_V, device=DEV).scatter_(0, idx[0].long(), vals[0])
+    hs = h.expand(LAW_DRAWS, h.shape[1]).contiguous()
+    for step, t in enumerate((0.7, 1.0, 1.5)):
+        tokens = fused_logits_sample(hs, w, b, 2024, step, t)
+        freq = torch.bincount(tokens.long(), minlength=LAW_V).double() / LAW_DRAWS
+        p = torch.softmax(logits.double() / t, dim=0)
+        tv = float(0.5 * (freq - p).abs().sum())
+        print(f"fused_logits_sample law V={LAW_V} T={t}: {LAW_DRAWS} draws, TV "
+              f"to softmax(logits / T) {tv:.5f} (tolerance {SAMPLE_TV}); "
+              f"largest p {float(p.max()):.4f}")
+        if tv >= SAMPLE_TV:
+            raise AssertionError(f"fused_logits_sample law T={t}: TV {tv:.4f}")
+
+
+def phase_mode_kernels() -> dict:
+    """The int8 kernel at every (rows, vocab, k) the main paths give the
+    top-k kernel, the top-k + lse kernel at beam 3 and beam 10 (N = 1536,
+    5120) and the ragged N = 1000, V = 11519, the sampler at M = 512 and
+    the ragged shape, and the sampler's law."""
+    int8 = max(check_int8(M, V, k) for M in ROWS for V in (11500, 11519)
+               for k in (1, 3, 10))
+    lse = max(check_topk_lse(N, V, k) for N, V in ((1536, 11500), (5120, 11500),
+                                                   (1000, 11519))
+              for k in (3, 10))
+    sample = max(check_sample(M, V) for M, V in ((512, 11500), (1000, 11519)))
+    check_sample_law()
+    return {"fused_logits_top_k_int8": int8, "top_k_logsumexp": lse,
+            "fused_logits_sample": sample}
+
+
 def turns(fn_kernel, fn_plain, timer) -> tuple:
     """(kernel, plain) times, measured in turns kernel, plain, plain,
     kernel and averaged, so drift in clocks hits both alike."""
@@ -382,6 +541,78 @@ def phase_kernel_times(label: str) -> dict:
         times.setdefault("fused_logits_top_k", timing(t, bnd))
         print(f"time fused_logits_top_k M={M} H=512 V=11500 k={k}: kernel "
               f"{t[0]:.4f} ms, plain {t[1]:.4f} ms, bound {bnd[0]:.4f} ms "
+              f"({bnd[1]}) [{label}]")
+    return times
+
+
+def int8_library_call(hq, hs, wq, ws, b, k):
+    """The int8 yardstick on the same quantised rows: ``torch._int_mm``
+    (cuBLAS int8; its output width padded to a multiple of 8, as it
+    requires), the same dequantisation, ``torch.topk`` and
+    ``torch.logsumexp``."""
+    V = wq.shape[1]
+    wq_pad = torch.nn.functional.pad(wq, (0, (-V) % 8)).contiguous()
+
+    def call():
+        logits = torch._int_mm(hq, wq_pad)[:, :V].float() * hs * ws + b
+        return torch.topk(logits, k, dim=1), torch.logsumexp(logits, dim=1)
+
+    return call
+
+
+def phase_mode_kernel_times(label: str) -> dict:
+    """The three mode kernels against their plain versions and a library
+    yardstick, at the main paths' shapes; the record keeps the first
+    shape of each.  int8 at beam 3 (M = 1536, k = 3), beam 10 and greedy,
+    all three on the same quantised rows (the wrapper's per-row
+    quantisation of h, plain PyTorch ops, is timed beside them); the
+    sampler at the greedy
+    batch (M = 512); top-k + lse at beam 3 and beam 10 (N = 1536, 5120).
+    Bounds: int8 operations over the int8 peak, bf16 ones over the bf16
+    peak, the logits' bytes over the memory rate."""
+    times = {}
+    H = 512
+    for M, k in ((1536, 3), (5120, 10), (512, 1)):
+        h, wq, ws, b = int8_inputs(M, 11500, seed=M)
+        hq, hs = quantize_rows(h)
+        t = turns(lambda: int8_top_k_kernel(hq, hs, wq, ws, b, k),
+                  lambda: int8_top_k_plain(hq, hs, wq, ws, b, k), cuda_ms)
+        lib = cuda_ms(int8_library_call(hq, hs, wq, ws, b, k))
+        quant = cuda_ms(lambda: quantize_rows(h))
+        outs = int8_top_k_kernel(hq, hs, wq, ws, b, k)
+        bnd = bound(2.0 * M * H * wq.shape[1], nbytes(hq, hs, wq, ws, b, *outs),
+                    PEAK_INT8)
+        times.setdefault("fused_logits_top_k_int8", timing(t, bnd, lib))
+        print(f"time fused_logits_top_k_int8 M={M} H={H} V=11500 k={k}: kernel "
+              f"{t[0]:.4f} ms, plain {t[1]:.4f} ms, library (torch._int_mm + "
+              f"dequantise + torch.topk + torch.logsumexp) {lib:.4f} ms, bound "
+              f"{bnd[0]:.4f} ms ({bnd[1]}); the wrapper's quantisation of h "
+              f"{quant:.4f} ms [{label}]")
+    M, T = 512, 0.8
+    h, w, b = logits_inputs(M, 11500)
+    w_lin = w.t().contiguous()                  # nn.Linear's [V, H]
+    t = turns(lambda: fused_logits_sample(h, w, b, 5, 1, T),
+              lambda: fused_logits_sample_plain(h, w, b, 5, 1, T), cuda_ms)
+    lib = cuda_ms(lambda: torch.multinomial(torch.softmax(
+        (torch.nn.functional.linear(h, w_lin).float() + b) / T, dim=1), 1))
+    bnd = bound(2.0 * M * H * w.shape[1],
+                nbytes(h, w, b, fused_logits_sample(h, w, b, 5, 1, T)))
+    times["fused_logits_sample"] = timing(t, bnd, lib)
+    print(f"time fused_logits_sample M={M} H={H} V=11500 T={T}: kernel "
+          f"{t[0]:.4f} ms, plain {t[1]:.4f} ms, library (F.linear bf16 + "
+          f"torch.multinomial(softmax(logits / T))) {lib:.4f} ms, bound "
+          f"{bnd[0]:.4f} ms ({bnd[1]}) [{label}]")
+    for N, k in ((1536, 3), (5120, 10)):
+        x = unfused_logits(N, 11500, seed=N)
+        t = turns(lambda: top_k_logsumexp(x, k),
+                  lambda: top_k_logsumexp_plain(x, k), cuda_ms)
+        lib = cuda_ms(lambda: (torch.topk(x, k, dim=1),
+                               torch.logsumexp(x, dim=1)))
+        bnd = bound(0.0, nbytes(x, *top_k_logsumexp(x, k)))
+        times.setdefault("top_k_logsumexp", timing(t, bnd, lib))
+        print(f"time top_k_logsumexp N={N} V=11500 k={k}: kernel {t[0]:.4f} "
+              f"ms, plain {t[1]:.4f} ms, library (torch.topk + "
+              f"torch.logsumexp) {lib:.4f} ms, bound {bnd[0]:.4f} ms "
               f"({bnd[1]}) [{label}]")
     return times
 
@@ -493,8 +724,10 @@ DECODE_SEEDS = (4, 8, 12)
 class CheckedOps:
     """The kernels, each checked against its plain version on the same
     inputs at every call: c', h' to LSTM_ATOL; top-k values and lse to
-    their rtol; indices equal in every row whose plain top-(k+1) values
-    hold no near-tie (TIE_GAP)."""
+    their rtol (bf16, int8 and over written logits); indices equal in
+    every row whose plain top-(k+1) values hold no near-tie (TIE_GAP);
+    sampled tokens equal in every row whose top two scored values hold no
+    near-tie."""
 
     def __init__(self):
         self.rows = self.same = self.near = self.bad = 0
@@ -509,10 +742,10 @@ class CheckedOps:
         self.state_err = max(self.state_err, err)
         return got
 
-    def logits_top_k(self, h, w, b, k):
-        got = fused_logits_top_k(h, w, b, k)
-        p_vals, p_idx, p_lse = fused_logits_top_k_plain(h, w, b, k + 1)
-        compare_topk(f"decode top-{k}", got, (p_vals[:, :k], p_idx[:, :k], p_lse))
+    def _tally(self, tag: str, got, plain, k: int):
+        """``plain``: the plain version's top-(k+1) and lse."""
+        p_vals, p_idx, p_lse = plain
+        compare_topk(tag, got, (p_vals[:, :k], p_idx[:, :k], p_lse))
         same = (got[1] == p_idx[:, :k]).all(dim=1)
         near = ((p_vals[:, :k] - p_vals[:, 1:]) <= TIE_GAP).any(dim=1)
         self.rows += int(same.numel())
@@ -521,8 +754,33 @@ class CheckedOps:
         self.bad += int((~same & ~near).sum())
         return got
 
+    def logits_top_k(self, h, w, b, k):
+        return self._tally(f"decode top-{k}", fused_logits_top_k(h, w, b, k),
+                           fused_logits_top_k_plain(h, w, b, k + 1), k)
+
+    def logits_top_k_int8(self, h, wq, ws, b, k):
+        return self._tally(f"decode int8 top-{k}",
+                           fused_logits_top_k_int8(h, wq, ws, b, k),
+                           fused_logits_top_k_int8_plain(h, wq, ws, b, k + 1), k)
+
+    def top_k_lse(self, x, k):
+        return self._tally(f"decode top-{k} over logits", top_k_logsumexp(x, k),
+                           top_k_logsumexp_plain(x, k + 1), k)
+
+    def logits_sample(self, h, w, b, seed, step, temperature):
+        got = fused_logits_sample(h, w, b, seed, step, temperature)
+        rows, near, differ = sample_compare(
+            f"decode sample step {step}", got,
+            sample_scores(h, w, b, seed, step, temperature))
+        self.rows += rows
+        self.same += rows - differ
+        self.near += near
+        return got
+
     def ops(self) -> DecodeOps:
-        return DecodeOps(self.lstm_step, self.logits_top_k)
+        return DecodeOps(self.lstm_step, self.logits_top_k,
+                         self.logits_top_k_int8, self.logits_sample,
+                         self.top_k_lse)
 
 
 def phase_decode_compare(cfg, vocab, model) -> dict:
@@ -603,10 +861,121 @@ def phase_decode_compare(cfg, vocab, model) -> dict:
     return shares
 
 
+# the decode modes beside the bf16 fused decode, each a Config override
+MODES = {
+    "decode-sample": dict(sample_gen="sample", gen_name="sample"),
+    "decode-int8": dict(decode_int8=True, gen_name="beam3_int8"),
+    "decode-unfused": dict(fused_decode=False, gen_name="beam3_unfused"),
+}
+
+
+def phase_mode_paths(cfg, vocab, model, out_dir: str) -> dict:
+    """Each decode mode's path on the full-width AG-CVAE through
+    ``run_inference``: val split of 512 images (sampled at T =
+    cfg.temperature, or beam 3), test split of 512 images greedy.  The
+    launch counts are set to 0 just before each path and read just after:
+    its logits kernel once per step (the sample path's greedy test split
+    takes the bf16 top-k), the LSTM step 3 times per batch plus once per
+    step, every other decode kernel 0.  Returns each mode kernel's
+    launches on its path."""
+    launches = {}
+    for path, kernel in MODE_PATHS.items():
+        c = cfg.replace(**MODES[path])
+        stats = {}
+        torch.cuda.synchronize()
+        _ext.reset_launches()   # this path's run starts here
+        t0 = time.perf_counter()
+        written = run_inference(c, model, vocab, batchers(BATCH, "val", vocab, 21),
+                                batchers(BATCH, "test", vocab, 22), out_dir, stats)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {k: _ext.LAUNCHES[k] for k in DECODE_KERNELS + MODE_KERNELS}
+        val, test = stats["val"]["decode_steps"], stats["test"]["decode_steps"]
+        batches = stats["val"]["batches"] + stats["test"]["batches"]
+        want = {k: 0 for k in counts}
+        want["fused_lstm_step"] = 3 * batches + val + test
+        if path == "decode-sample":
+            want.update(fused_logits_sample=val, fused_logits_top_k=test)
+        elif path == "decode-int8":
+            want["fused_logits_top_k_int8"] = val + test
+        else:                           # greedy takes torch.argmax
+            want["top_k_logsumexp"] = val
+        print(f"{path} path: {batches} batches ({val} val steps, {test} test "
+              f"steps) in {seconds:.2f} s; launches {counts}, expected {want}")
+        if counts != want:
+            raise AssertionError(f"{path} launch counts {counts} != {want}")
+        read_captions(written["val"], BATCH)
+        read_captions(written["test"], BATCH)
+        launches[kernel] = counts[kernel]
+    return launches
+
+
+def phase_mode_compare(cfg, vocab, model) -> None:
+    """Batches of 512 images, with the same z noise (and, sampling, the
+    same generator seed), through the kernels, each call checked against
+    its plain version (CheckedOps), and through the plain versions: beam 3
+    and greedy with int8 logits and unfused, and sampling.  Per step the
+    kernels must agree as CheckedOps says, in at least STEP_SHARE of rows.
+    Printed, not held: the share of whole captions identical to the plain
+    decode's, and for int8 the share of best-beam captions identical to
+    the bf16 fused decode's (the quality gate waits for a trained
+    checkpoint)."""
+    cases = (("int8 beam 3", "decode-int8", "beam_search"),
+             ("int8 greedy", "decode-int8", "greedy"),
+             ("unfused beam 3", "decode-unfused", "beam_search"),
+             ("unfused greedy", "decode-unfused", "greedy"),
+             ("sample", "decode-sample", "sample"))
+    for mode, path, fn_name in cases:
+        c = cfg.replace(**MODES[path])
+        checked = CheckedOps()
+        fns = {name: make_decode_fns(model, cc, vocab, ops=ops)[fn_name]
+               for name, cc, ops in (("kernel", c, checked.ops()),
+                                     ("plain", c, PLAIN_OPS),
+                                     ("bf16", cfg, DecodeOps()))
+               if name != "bf16" or path == "decode-int8"}
+        same = {"plain": [], "bf16": []}
+        for seed in DECODE_SEEDS:
+            batch = next(batchers(BATCH, "val", vocab, seed).eval_batches())
+            feats = torch.from_numpy(batch.features).to(DEV)
+            c_v = torch.from_numpy(batch.cluster_vectors).to(DEV)
+            g = torch.Generator(device=DEV).manual_seed(seed + 1)
+            eps = torch.randn((BATCH, cfg.embed_size), generator=g, device=DEV)
+            res = {name: fn(feats, c_v, eps=eps,
+                            generator=torch.Generator(device=DEV).manual_seed(seed))
+                   for name, fn in fns.items()}
+            got = res["kernel"]
+            if not bool(((got.tokens >= 0) & (got.tokens < vocab.vocab_size)).all()):
+                raise AssertionError(f"{mode}: a token out of range")
+            if got.scores is not None and not bool(torch.isfinite(got.scores).all()):
+                raise AssertionError(f"{mode}: non-finite beam scores")
+            for name in same:
+                if name in res:
+                    rows = (got.tokens == res[name].tokens).all(dim=1)
+                    same[name].append(float(rows.float().mean()))
+        # unfused greedy takes torch.argmax: only its LSTM steps are checked
+        step_share = checked.same / checked.rows if checked.rows else 1.0
+        per = lambda xs: ", ".join(f"{x:.4f}" for x in xs)  # noqa: E731
+        logits = (f"logits-kernel choices identical to the plain version's in "
+                  f"{step_share:.5f} of {checked.rows} rows, near-tie rows "
+                  f"{checked.near}" if checked.rows else "no logits kernel")
+        print(f"decode compare {mode} ({len(DECODE_SEEDS)} batches of {BATCH} "
+              f"images): per step, max |c', h' kernel - plain| "
+              f"{checked.state_err:.3e}, {logits}; whole captions identical to the plain "
+              f"decode's {sum(same['plain']) / len(DECODE_SEEDS):.4f} "
+              f"({per(same['plain'])})"
+              + (f"; best-beam captions identical to the bf16 fused decode's "
+                 f"{sum(same['bf16']) / len(DECODE_SEEDS):.4f} ({per(same['bf16'])})"
+                 if same["bf16"] else ""))
+        if checked.bad or step_share < STEP_SHARE:
+            raise AssertionError(f"{mode}: decode steps disagree in "
+                                 f"{checked.bad} rows without a near-tie")
+
+
 def phase_decode_times(cfg, vocab, model, label: str) -> None:
     """ms per decode batch of 512 images and captions/s, kernel path vs
     plain path, by the host clock around work that ends in a copy of the
-    tokens to the host."""
+    tokens to the host: the bf16 fused decode at beam 3, beam 10 and
+    greedy, and the sample, int8 and unfused modes."""
     batch = next(batchers(BATCH, "val", vocab, 6).eval_batches())
     feats = torch.from_numpy(batch.features).to(DEV)
     c_v = torch.from_numpy(batch.cluster_vectors).to(DEV)
@@ -619,9 +988,15 @@ def phase_decode_times(cfg, vocab, model, label: str) -> None:
             fn().tokens.cpu()
         return (time.perf_counter() - t0) / 3 * 1e3
 
-    for name, c in (("beam 3", cfg), ("beam 10", cfg.replace(beam_size=10)),
-                    ("greedy", cfg)):
-        fn_name = "greedy" if name == "greedy" else "beam_search"
+    for name, c, fn_name in (
+            ("beam 3", cfg, "beam_search"),
+            ("beam 10", cfg.replace(beam_size=10), "beam_search"),
+            ("greedy", cfg, "greedy"),
+            ("sample", cfg.replace(**MODES["decode-sample"]), "sample"),
+            ("beam 3 int8", cfg.replace(**MODES["decode-int8"]), "beam_search"),
+            ("greedy int8", cfg.replace(**MODES["decode-int8"]), "greedy"),
+            ("beam 3 unfused", cfg.replace(**MODES["decode-unfused"]), "beam_search"),
+            ("greedy unfused", cfg.replace(**MODES["decode-unfused"]), "greedy")):
         kern = make_decode_fns(model, c, vocab)[fn_name]
         plain = make_decode_fns(model, c, vocab, ops=PLAIN_OPS)[fn_name]
         g = torch.Generator(device=DEV).manual_seed(7)
@@ -1494,10 +1869,12 @@ def main() -> None:
         return
 
     t0 = time.perf_counter()
-    errors = {**phase_kernels(), **phase_train_kernels(), **phase_ag_kernels(),
-              **phase_ce_kernels()}
+    errors = {**phase_kernels(), **phase_mode_kernels(), **phase_train_kernels(),
+              **phase_ag_kernels(), **phase_ce_kernels()}
     cfg, vocab, model, launches = phase_main_path(out_dir)
     phase_decode_compare(cfg, vocab, model)
+    launches.update(phase_mode_paths(cfg, vocab, model, out_dir))
+    phase_mode_compare(cfg, vocab, model)
     for prior, tag, kernels in (("Normal", "train", TRAIN_KERNELS + ("fused_z_eps",)),
                                 ("AG", "train-ag", AG_KERNELS),
                                 ("GMM", "train-gmm", CE_KERNELS)):
@@ -1507,8 +1884,9 @@ def main() -> None:
         phase_train_compare(tcfg, train_arrays(seed=10), tag)
         phase_round_trip(tcfg, trainer, out_dir, tag)
         del trainer
-    times = {**phase_kernel_times(label), **phase_train_kernel_times(label),
-             **phase_ag_kernel_times(label), **phase_ce_kernel_times(label)}
+    times = {**phase_kernel_times(label), **phase_mode_kernel_times(label),
+             **phase_train_kernel_times(label), **phase_ag_kernel_times(label),
+             **phase_ce_kernel_times(label)}
     phase_decode_times(cfg, vocab, model, label)
     for prior, tag in (("Normal", "train"), ("AG", "train-ag"), ("GMM", "train-gmm")):
         phase_train_times(train_config(prior), train_arrays(seed=12), label, tag)
@@ -1520,6 +1898,7 @@ def main() -> None:
         raise AssertionError(f"the port loaded JAX modules: {loaded[:5]}")
 
     paths = {**{k: "decode" for k in DECODE_KERNELS},
+             **{k: path for path, k in MODE_PATHS.items()},
              **{k: "train" for k in TRAIN_KERNELS}, "fused_z_eps": "check",
              **{k: "train-ag" for k in AG_KERNELS},
              **{k: "train-gmm" for k in CE_KERNELS}}

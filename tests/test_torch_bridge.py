@@ -140,7 +140,8 @@ def test_checkpoint_round_trip(ag_params, tmp_path):
     vocab = Vocabulary(["<BOS>", "<EOS>", "<UNK>"] + [f"w{i}" for i in range(60)])
     ckpt.save_sidecars(cfg, vocab, str(tmp_path), "run")
     ckpt.save_params(flat, str(tmp_path), "run")
-    model, vocab2, report = ckpt.load_model(str(tmp_path), "run")
+    model, vocab2, report = ckpt.load_model(str(tmp_path), "run",
+                                            device="cpu")
     assert vocab2.idx2word == vocab.idx2word
     assert set(report.loaded) == set(flat)
     np.testing.assert_array_equal(
@@ -154,7 +155,7 @@ def test_checkpoint_vocab_mismatch_raises(ag_params, tmp_path):
     ckpt.save_sidecars(cfg, vocab, str(tmp_path), "run")
     ckpt.save_params(flat, str(tmp_path), "run")
     with pytest.raises(ValueError, match="vocab"):
-        ckpt.load_model(str(tmp_path), "run")
+        ckpt.load_model(str(tmp_path), "run", device="cpu")
 
 
 @pytest.mark.parametrize("variant", [

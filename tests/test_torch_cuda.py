@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: each against its plain version,
-the lowest-index tie rule, the wrappers' checks and launch counts, a
-small decode and a few train steps (Normal prior, AG prior, GMM prior
+the lowest-index tie rule, the wrappers' checks and launch counts, the
+sampler's bits and law, a small decode in every mode (bf16, int8,
+unfused, sampled) and a few train steps (Normal prior, AG prior, GMM prior
 with the flash CE) through the kernels against the same through the
 plain versions, and the fused z generator's bits against the plain
 generator's.
@@ -28,7 +29,9 @@ from vae_captioning_torch.ops.fused_ce import (ce_fwd_plain,
                                                fused_linear_ce,
                                                fused_linear_ce_plain, prepare)
 from vae_captioning_torch.ops.fused_logits_topk import (
-    fused_logits_top_k, fused_logits_top_k_plain)
+    fused_logits_sample, fused_logits_top_k, fused_logits_top_k_int8,
+    fused_logits_top_k_int8_plain, fused_logits_top_k_plain,
+    quantize_logits_weights, sample_scores)
 from vae_captioning_torch.ops.fused_lstm_seq import (fused_lstm_seq,
                                                      fused_lstm_seq_plain)
 from vae_captioning_torch.ops.fused_lstm_step import (fused_lstm_step,
@@ -36,6 +39,8 @@ from vae_captioning_torch.ops.fused_lstm_step import (fused_lstm_step,
 from vae_captioning_torch.ops.fused_z import (fused_z, fused_z_eps,
                                               fused_z_plain, philox_bits,
                                               philox_normals)
+from vae_captioning_torch.ops.topk_lse import (top_k_logsumexp,
+                                               top_k_logsumexp_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -130,6 +135,156 @@ def test_decode_through_kernels_matches_plain_decode(dev):
         if got.scores is not None:
             torch.testing.assert_close(got.scores, want.scores, rtol=1e-4,
                                        atol=0)
+
+
+# ----------------------------------------------------------------------
+# the other decode modes' kernels: top-k + lse over logits, int8, sampling
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("N,V", [(1536, 11500), (13, 1000), (300, 11519)])
+@pytest.mark.parametrize("k", [1, 3, 10, 16])
+def test_top_k_logsumexp_kernel_matches_plain(dev, N, V, k):
+    """Values are copied: values and indices bit for bit; lse to 1e-5."""
+    g = torch.Generator(device=dev).manual_seed(N + k)
+    x = torch.randn((N, V), generator=g, device=dev)
+    x[::3, 7] = x[::3, 900] = x[::3].amax(dim=1) + 1.0     # planted ties
+    before = _ext.LAUNCHES["top_k_logsumexp"]
+    vals, idx, lse = top_k_logsumexp(x, k)
+    p_vals, p_idx, p_lse = top_k_logsumexp_plain(x, k)
+    torch.cuda.synchronize()
+    assert _ext.LAUNCHES["top_k_logsumexp"] == before + 1
+    assert torch.equal(idx, p_idx) and torch.equal(vals, p_vals)
+    torch.testing.assert_close(lse, p_lse, rtol=1e-5, atol=0)
+    assert int(idx[0, 0]) == 7
+
+
+@pytest.mark.parametrize("M,H,V", [(1536, 512, 11500), (1000, 512, 11519),
+                                   (70, 64, 4001)])
+@pytest.mark.parametrize("k", [1, 3, 10])
+def test_int8_kernel_matches_plain(dev, M, H, V, k):
+    """The int32 product is exact and the dequantisation rounds each step
+    on its own on both sides: values and indices bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(M + V + k)
+    h = torch.tanh(torch.randn((M, H), generator=g, device=dev))
+    wq, ws = quantize_logits_weights(
+        0.05 * torch.randn((H, V), generator=g, device=dev))
+    b = 0.1 * torch.randn((V,), generator=g, device=dev)
+    before = _ext.LAUNCHES["fused_logits_top_k_int8"]
+    vals, idx, lse = fused_logits_top_k_int8(h, wq, ws, b, k)
+    p_vals, p_idx, p_lse = fused_logits_top_k_int8_plain(h, wq, ws, b, k)
+    torch.cuda.synchronize()
+    assert _ext.LAUNCHES["fused_logits_top_k_int8"] == before + 1
+    assert torch.equal(idx, p_idx) and torch.equal(vals, p_vals)
+    torch.testing.assert_close(lse, p_lse, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("M,H,V", [(512, 512, 11500), (1000, 512, 11519),
+                                   (33, 64, 130)])
+def test_sample_kernel_matches_plain(dev, M, H, V):
+    """Same Philox bits on both sides; logf on the card and torch.log may
+    differ by an ulp and the logits by sum order, so rows whose top two
+    scored values lie within 1e-4 may differ; every other row agrees."""
+    g = torch.Generator(device=dev).manual_seed(M)
+    h = torch.tanh(torch.randn((M, H), generator=g, device=dev)).to(torch.bfloat16)
+    w = (0.05 * torch.randn((H, V), generator=g, device=dev)).to(torch.bfloat16)
+    b = 0.1 * torch.randn((V,), generator=g, device=dev)
+    before = _ext.LAUNCHES["fused_logits_sample"]
+    got = fused_logits_sample(h, w, b, 1234, 5, 0.8)
+    scores = sample_scores(h, w, b, 1234, 5, 0.8)
+    torch.cuda.synchronize()
+    assert _ext.LAUNCHES["fused_logits_sample"] == before + 1
+    top2 = scores.topk(2, dim=1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-4
+    assert got.dtype == torch.int32
+    assert torch.equal(got[clear], scores.argmax(dim=1).int()[clear])
+    assert float(clear.float().mean()) > 0.95
+
+
+def test_sample_kernel_law(dev):
+    """200,000 draws from one row at V = 100: TV below 0.02 of
+    softmax(logits / T) at three temperatures."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    H, V, draws = 64, 100, 200_000
+    h = torch.randn((1, H), generator=g, device=dev).to(torch.bfloat16)
+    w = (0.3 * torch.randn((H, V), generator=g, device=dev)).to(torch.bfloat16)
+    b = 0.5 * torch.randn((V,), generator=g, device=dev)
+    logits = fused_logits_top_k_plain(h, w, b, V)
+    full = torch.empty(V, device=dev).scatter_(0, logits[1][0].long(),
+                                               logits[0][0])
+    for t in (0.7, 1.0, 1.5):
+        tokens = fused_logits_sample(h.expand(draws, H).contiguous(), w, b,
+                                     99, 3, t)
+        freq = torch.bincount(tokens.long(), minlength=V).double() / draws
+        p = torch.softmax(full.double() / t, dim=0)
+        assert float(0.5 * (freq - p).abs().sum()) < 0.02, t
+
+
+def _small_model(dev):
+    cfg = Config(embed_size=64, latent_size=16, decoder_hidden=64,
+                 gen_z_samples=4, prior="AG", use_c_v=True, gen_max_len=8,
+                 beam_size=3, std=0.0)
+    vocab = Vocabulary(["<BOS>", "<EOS>", "<UNK>"] + [f"w{i}" for i in range(500)])
+    cfg.vocab_size = vocab.vocab_size
+    model = CVAEModel.from_config(cfg)
+    rng = np.random.default_rng(0)
+    load_flax_params(model, {k: rng.normal(0, 0.3, size=s).astype(np.float32)
+                             for k, s in flax_shapes(model).items()})
+    return cfg, vocab, model.to(dev)
+
+
+@pytest.mark.parametrize("mode", ["int8", "unfused", "sample"])
+def test_decode_modes_through_kernels_match_plain(dev, mode):
+    """The int8 and unfused decodes token for token; the sampled decode
+    launches the sampler once per step and agrees with the plain sampler
+    in most captions (near-ties may go either way)."""
+    cfg, vocab, model = _small_model(dev)
+    cfg = cfg.replace(**{"int8": dict(decode_int8=True),
+                         "unfused": dict(fused_decode=False),
+                         "sample": dict(sample_gen="sample")}[mode])
+    feats = torch.randn((16, 4096), device=dev)
+    c_v = (torch.rand((16, 90), device=dev) < 0.05).float()
+    kernel = make_decode_fns(model, cfg, vocab)
+    plain = make_decode_fns(model, cfg, vocab, ops=PLAIN_OPS)
+    names = ("sample",) if mode == "sample" else ("beam_search", "greedy")
+    for name in names:
+        _ext.reset_launches()
+        gen = lambda: torch.Generator(device=dev).manual_seed(4)  # noqa: E731
+        got = kernel[name](feats, c_v, generator=gen())
+        want = plain[name](feats, c_v, generator=gen())
+        counts = dict(_ext.LAUNCHES)
+        if mode == "sample":
+            assert counts["fused_logits_sample"] == got.steps
+            same = (got.tokens == want.tokens).all(dim=1).float().mean()
+            assert float(same) >= 0.75
+            continue
+        assert torch.equal(got.tokens, want.tokens), name
+        if got.scores is not None:
+            # the LSTM kernel's sum order can move an element of h across
+            # a rounding boundary of its int8 quantisation, or of the bf16
+            # logits the unfused step writes, which moves a logit by one
+            # step of that rounding (2e-4 and 5e-4 of a score seen)
+            torch.testing.assert_close(got.scores, want.scores, rtol=2e-3,
+                                       atol=0)
+        assert counts["fused_logits_top_k"] == 0
+        if mode == "int8":
+            assert counts["fused_logits_top_k_int8"] == got.steps
+        elif name == "beam_search":
+            assert counts["top_k_logsumexp"] == got.steps
+
+
+def test_new_wrappers_check_their_inputs(dev):
+    h = torch.zeros((4, 96), device=dev)
+    wq = torch.zeros((96, 64), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        fused_logits_top_k_int8(h, wq, torch.ones(64, device=dev),
+                                torch.zeros(64, device=dev), 3)
+    with pytest.raises(ValueError, match="float32"):
+        top_k_logsumexp(torch.zeros((4, 64), device=dev, dtype=torch.bfloat16), 3)
+    with pytest.raises(ValueError, match="temperature"):
+        fused_logits_sample(h[:, :64].to(torch.bfloat16).contiguous(),
+                            torch.zeros((64, 64), device=dev,
+                                        dtype=torch.bfloat16),
+                            torch.zeros(64, device=dev), 0, 0, 0.0)
 
 
 # ----------------------------------------------------------------------

@@ -69,8 +69,8 @@ def _beams(table, init, K, max_len, early_exit):
     kw = dict(beam_size=K, bos_id=BOS, eos_id=EOS, max_len=max_len,
               len_norm_f=0.7, early_exit=early_exit)
     j = jdec.beam_search(_jax_step(table), jnp.asarray(init), len(init), **kw)
-    t = tdec.beam_search(_torch_topk_step(table, K),
-                         torch.from_numpy(init).long(), len(init), **kw)
+    t = tdec.beam_search(None, torch.from_numpy(init).long(), len(init),
+                         step_topk_fn=_torch_topk_step(table, K), **kw)
     return j, t
 
 
@@ -128,7 +128,8 @@ def test_greedy_matches_jax(eos_shift, early_exit):
         carry, _, idx, _ = topk(carry, tokens)
         return carry, idx[:, 0]
 
-    got = tdec.sample_decode(argmax_fn, torch.from_numpy(init).long(), 9, **kw)
+    got = tdec.sample_decode(None, torch.from_numpy(init).long(), 9,
+                             step_argmax_fn=argmax_fn, **kw)
     np.testing.assert_array_equal(got.tokens.numpy(), want)
     if early_exit and eos_shift > 0:
         assert got.steps < 10

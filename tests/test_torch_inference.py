@@ -1,6 +1,7 @@
 """The decode slice of the port against the JAX package, end to end:
 ``decode_init``, beam search at beam 3 (best and all beams), greedy
-decoding, ``run_inference``'s JSON files and the port's CLI.
+decoding, the int8 logits, the unfused step (``fused_decode=False``),
+temperature sampling, ``run_inference``'s JSON files and the port's CLI.
 
 The JAX side runs its fused decode path (``cfg.fused_force``) with the
 Pallas kernels in interpret mode, so both sides compute f32 logits from
@@ -204,8 +205,6 @@ def test_run_inference_json_matches_jax(models, interpreted, tmp_path):
 
 
 @pytest.mark.parametrize("override,item", [
-    (dict(decode_int8=True), "B.8"),
-    (dict(sample_gen="sample"), "B.6"),
     (dict(fine_tune=True), "A.8"),
     (dict(decoder_rnn_layers=2), "D.1"),
     (dict(compute_dtype="float32"), "D.2"),
@@ -214,6 +213,124 @@ def test_uncovered_configurations_raise(models, override, item):
     cfg, _, _, model = models
     with pytest.raises(NotImplementedError, match=item):
         tinf.make_decode_fns(model, cfg.replace(**override), VOCAB)
+
+
+@pytest.mark.parametrize("name", ["beam_search", "beam_search_all", "greedy"])
+def test_int8_decode_matches_jax(models, interpreted, monkeypatch, name):
+    """``decode_int8``: both sides quantise the f32 head once and the f32
+    h of each step per row; the JAX side runs its int8 Pallas kernel in
+    interpret mode.  Tokens equal, scores to rtol 1e-5."""
+    cfg, params, _, model = models
+    cfg = cfg.replace(decode_int8=True)
+    feats, c_v, eps = _inputs(seed=5)
+    _patch_eps(monkeypatch, eps)
+    jfn = jinf.make_decode_fns(JaxCVAE.from_config(cfg), cfg, VOCAB)[name]
+    want = jfn(params, jnp.asarray(feats), jnp.asarray(c_v),
+               jax.random.PRNGKey(2))
+    got = tinf.make_decode_fns(model, cfg, VOCAB)[name](
+        torch.from_numpy(feats), torch.from_numpy(c_v),
+        eps=torch.from_numpy(eps))
+    want_tokens = want[0] if isinstance(want, tuple) else want
+    np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(want_tokens))
+    if name != "greedy":
+        np.testing.assert_allclose(got.scores.numpy(), np.asarray(want[1]),
+                                   rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["beam_search", "beam_search_all", "greedy"])
+def test_unfused_decode_matches_jax(models, monkeypatch, name):
+    """``fused_decode=False``: the JAX side's step writes bf16 logits
+    through its Flax Dense and takes XLA's top-k; the port's writes the
+    same rounding and takes ``top_k_logsumexp``.  Tokens equal; scores to
+    rtol 1e-5 (the logsumexp is an f32 sum in another order)."""
+    cfg, params, _, model = models
+    cfg = cfg.replace(fused_decode=False)
+    feats, c_v, eps = _inputs(seed=6)
+    _patch_eps(monkeypatch, eps)
+    jfn = jinf.make_decode_fns(JaxCVAE.from_config(cfg), cfg, VOCAB)[name]
+    want = jfn(params, jnp.asarray(feats), jnp.asarray(c_v),
+               jax.random.PRNGKey(2))
+    got = tinf.make_decode_fns(model, cfg, VOCAB)[name](
+        torch.from_numpy(feats), torch.from_numpy(c_v),
+        eps=torch.from_numpy(eps))
+    want_tokens = want[0] if isinstance(want, tuple) else want
+    np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(want_tokens))
+    if name != "greedy":
+        np.testing.assert_allclose(got.scores.numpy(), np.asarray(want[1]),
+                                   rtol=1e-5)
+
+
+@pytest.mark.parametrize("override", [
+    dict(decode_int8=True), dict(sample_gen="sample"),
+    dict(sample_gen="sample", fused_decode=False),
+    dict(decode_int8=True, fused_decode=False)],
+    ids=["int8", "sample", "sample-unfused", "int8-unfused"])
+def test_decode_modes_build_and_run(models, override):
+    """The configurations ROADMAP B.6 and B.8 used to gate build and
+    decode: tokens in range, PAD after EOS, the same tokens from the same
+    generator seed."""
+    cfg, _, _, model = models
+    cfg = cfg.replace(**override)
+    tinf.check_supported(cfg)
+    fn = tinf.make_decode_fns(model, cfg, VOCAB)[cfg.sample_gen]
+    feats, c_v, _ = _inputs(seed=7)
+    runs = [fn(torch.from_numpy(feats), torch.from_numpy(c_v),
+               generator=torch.Generator().manual_seed(3)) for _ in range(2)]
+    tokens = runs[0].tokens.numpy()
+    assert tokens.shape[0] == B and tokens.shape[-1] == cfg.gen_max_len
+    assert ((tokens >= 0) & (tokens < cfg.vocab_size)).all()
+    np.testing.assert_array_equal(tokens, runs[1].tokens.numpy())
+    for row in tokens.reshape(-1, cfg.gen_max_len):
+        ends = np.flatnonzero(row == VOCAB.eos_id)
+        if ends.size:
+            assert not row[ends[0] + 1:].any()
+
+
+def test_sample_decode_depends_on_the_generator(models):
+    cfg, _, _, model = models
+    fn = tinf.make_decode_fns(model, cfg.replace(sample_gen="sample",
+                                                 temperature=1.5), VOCAB)["sample"]
+    feats, c_v, eps = _inputs(seed=8)
+    args = (torch.from_numpy(np.repeat(feats, 8, 0)),
+            torch.from_numpy(np.repeat(c_v, 8, 0)))
+    eps = torch.from_numpy(np.repeat(eps, 8, 0))
+    a, b = (fn(*args, eps=eps, generator=torch.Generator().manual_seed(s))
+            for s in (1, 2))
+    assert not torch.equal(a.tokens, b.tokens)
+
+
+def test_run_inference_sample_writes_both_files(models, interpreted, tmp_path):
+    """``sample_gen="sample"``: the val split is sampled through the
+    sampler (plain version on the CPU), the test split is greedy and
+    equals the JAX package's (std = 0 takes the noise out of z)."""
+    cfg, params, _, model = models
+    cfg = cfg.replace(std=0.0, sample_gen="sample", gen_name="sampled")
+    make = _batchers(seed=9)
+    (tmp_path / "jax").mkdir()
+    (tmp_path / "torch").mkdir()
+    # the JAX sampler's TPU PRNG has no CPU lowering: its greedy test
+    # split alone is the reference
+    j_paths = jinf.run_inference(cfg.replace(sample_gen="greedy"), params,
+                                 VOCAB, *make(),
+                                 output_dir=str(tmp_path / "jax"))
+    stats = {}
+    t_model = CVAEModel.from_config(cfg)        # decode_std = cfg.std
+    t_model.load_state_dict(model.state_dict())
+    t_paths = tinf.run_inference(cfg, t_model, VOCAB, *make(),
+                                 output_dir=str(tmp_path / "torch"),
+                                 stats=stats)
+    assert sorted(os.listdir(tmp_path / "torch")) == [
+        "test_sampled.json", "val_sampled.json"]
+    with open(t_paths["val"]) as f:
+        val = json.load(f)
+    assert sorted(c["image_id"] for c in val) == list(range(100, 107))
+    assert all(isinstance(c["caption"], str) for c in val)
+    with open(j_paths["test"]) as f:
+        want = json.load(f)
+    with open(t_paths["test"]) as f:
+        assert json.load(f) == want
+    assert stats["val"]["batches"] == 2
+    assert 2 <= stats["val"]["decode_steps"] <= 2 * cfg.gen_max_len
 
 
 def test_cli_inference_on_mini_coco(models, mini_coco, tmp_path, monkeypatch):

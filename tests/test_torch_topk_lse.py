@@ -1,0 +1,121 @@
+"""Port of the exact top-k + logsumexp over materialised logits: its plain
+version (what the wrapper runs on CPU tensors) against the JAX Pallas
+kernel ``top_k_logsumexp_pallas`` in interpret mode, and the step_fn form
+of the port's beam search against the JAX ``beam_search(step_fn,
+use_pallas=False)``.
+
+Values are copied on both sides, so indices and values must be equal;
+the logsumexp is an f32 sum in another order (rtol 1e-6).  Beam search:
+tokens equal, scores within rtol 1e-5."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from vae_captioning_tpu.ops import decoding as jdec
+from vae_captioning_tpu.ops import topk_pallas as jtp
+from vae_captioning_torch import _ext
+from vae_captioning_torch.ops import decoding as tdec
+from vae_captioning_torch.ops.topk_lse import (top_k_logsumexp,
+                                               top_k_logsumexp_plain)
+
+from test_torch_decoding import (BOS, EOS, _init, _jax_step, _table,
+                                 _torch_step)
+
+
+@pytest.fixture()
+def interpreted(monkeypatch):
+    orig = pl.pallas_call
+
+    def patched(*args, **kwargs):
+        kwargs["interpret"] = True
+        return orig(*args, **kwargs)
+
+    monkeypatch.setattr(jtp.pl, "pallas_call", patched)
+    # a fresh jit of the un-jitted function, traced under the patch
+    yield jax.jit(jtp.top_k_logsumexp_pallas.__wrapped__, static_argnums=1)
+
+
+def _logits(N, V, seed):
+    """Unit normals with planted ties: each row's maximum at three random
+    columns (and, in even rows, at columns 127 and 129 as well), and a
+    second value at two more."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(N, V)).astype(np.float32)
+    top = x.max(axis=1) + 1.0
+    for r in range(N):
+        cols = rng.choice(V, size=5, replace=False)
+        x[r, cols[:3]] = top[r]
+        x[r, cols[3:]] = top[r] - 0.5
+    if V > 130:   # even rows: the maximum also at 127 and 129
+        x[::2, 127] = x[::2, 129] = top[::2]
+    return x
+
+
+@pytest.mark.parametrize("k", [1, 3, 10])
+@pytest.mark.parametrize("V", [128, 1000, 4000])
+@pytest.mark.parametrize("N", [8, 13, 300])
+def test_plain_matches_jax_kernel(interpreted, N, V, k):
+    x = _logits(N, V, seed=N * V + k)
+    vals, idx, lse = top_k_logsumexp_plain(torch.from_numpy(x), k)
+    assert vals.dtype == torch.float32 and idx.dtype == torch.int32
+    jv, ji, jl = interpreted(jnp.asarray(x), k)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(jv))
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jl), rtol=1e-6)
+    # the planted ties: the lowest of the three tied columns comes first
+    first = np.flatnonzero(x[0] == x[0].max())[0]
+    assert int(idx[0, 0]) == first
+
+
+def test_wrapper_takes_plain_version_on_cpu():
+    x = torch.from_numpy(_logits(6, 300, seed=1))
+    before = _ext.LAUNCHES["top_k_logsumexp"]
+    got = top_k_logsumexp(x, 4)
+    assert _ext.LAUNCHES["top_k_logsumexp"] == before
+    for a, r in zip(got, top_k_logsumexp_plain(x, 4)):
+        torch.testing.assert_close(a, r, rtol=0, atol=0)
+    with pytest.raises(RuntimeError, match="no backward"):
+        top_k_logsumexp(x.clone().requires_grad_(), 2)
+
+
+@pytest.mark.parametrize("K", [1, 3, 5, 10])
+@pytest.mark.parametrize("early_exit", [True, False])
+def test_beam_search_step_fn_form_matches_jax(K, early_exit):
+    """The lookup-table model of tests/test_torch_decoding.py through the
+    step_fn forms of both beam searches: the port's takes
+    ``top_k_logsumexp`` over the logits, the JAX one XLA's top-k."""
+    table = _table(seed=20 + K, eos_shift=1.0)
+    init = _init(5, seed=K)
+    kw = dict(beam_size=K, bos_id=BOS, eos_id=EOS, max_len=9, len_norm_f=0.7,
+              early_exit=early_exit)
+    want = jdec.beam_search(_jax_step(table), jnp.asarray(init), len(init),
+                            use_pallas=False, **kw)
+    got = tdec.beam_search(_torch_step(table), torch.from_numpy(init).long(),
+                           len(init), **kw)
+    np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(want.tokens))
+    np.testing.assert_allclose(got.scores.numpy(), np.asarray(want.scores),
+                               rtol=1e-5)
+    assert 1 <= got.steps <= 9
+
+
+def test_beam_search_top_k_fn_is_the_one_called():
+    """``top_k_fn`` replaces the wrapper (the JAX ``use_pallas`` choice)."""
+    calls = []
+
+    def counting(x, k):
+        calls.append(tuple(x.shape))
+        return top_k_logsumexp_plain(x, k)
+
+    table = _table(seed=3)
+    init = torch.from_numpy(_init(2)).long()
+    tdec.beam_search(_torch_step(table), init, 2, beam_size=3, bos_id=BOS,
+                     eos_id=EOS, max_len=4, top_k_fn=counting)
+    assert calls and all(shape[0] == 6 for shape in calls)
+    with pytest.raises(ValueError, match="step_fn or step_topk_fn"):
+        tdec.beam_search(None, init, 2, beam_size=3, bos_id=BOS, eos_id=EOS,
+                         max_len=4)
+

@@ -540,7 +540,8 @@ def _fit_then_decode(mini_coco, tmp_path, capsys, **overrides):
     assert "Iteration: 1 VLB" in out and "Validation reconstruction loss" in out
     assert trainer.host_step >= 3 and np.isfinite(metrics["loss"])
     assert np.isfinite(metrics["val_rec_loss"])
-    model, vocab, report = ckpt.load_model(cfg.checkpoint_dir, "run")
+    model, vocab, report = ckpt.load_model(cfg.checkpoint_dir, "run",
+                                           device="cpu")
     saved = ckpt.load_params(cfg.checkpoint_dir, "run")
     assert set(report.loaded) == set(saved) == set(before)
     assert any(np.abs(saved[k] - before[k]).max() > 0 for k in before)
@@ -594,7 +595,8 @@ def _cli_train(mini_coco, tmp_path, monkeypatch, *extra):
     base = os.path.join(cfg.checkpoint_dir, "run")
     assert sorted(os.listdir(base)) == ["config.json", "params.npz",
                                         "vocab.json"]
-    model, vocab, _ = ckpt.load_model(cfg.checkpoint_dir, "run")
+    model, vocab, _ = ckpt.load_model(cfg.checkpoint_dir, "run",
+                                      device="cpu")
     assert model.encoder is not None and vocab.vocab_size > 3
     return cfg, model, vocab
 

@@ -1,11 +1,13 @@
 """vae_captioning_torch — the PyTorch / CUDA port of vae_captioning_tpu.
 
 On precomputed VGG16 fc2 features, run on an NVIDIA H100 through
-hand-written CUDA kernels: the decode path of the CVAEs
-(``csrc/fused_lstm_step.cu``, ``csrc/fused_logits_topk.cu``) and the
-train step of the AG-CVAE, the Normal-prior CVAE and the baseline
-(``csrc/fused_lstm_seq.cu``, ``csrc/fused_z.cu``,
-``csrc/fused_ag_heads.cu``, forward and backward).  Module names mirror
+hand-written CUDA kernels: the decode path of the CVAEs in every mode
+(``csrc/fused_lstm_step.cu``; ``csrc/fused_logits_topk.cu``: bf16 and
+int8 top-k, Gumbel-max sampling; ``csrc/topk_lse.cu``: top-k over
+written logits) and the train step of the AG-, GMM- and Normal-prior
+CVAEs and the baseline (``csrc/fused_lstm_seq.cu``, ``csrc/fused_z.cu``,
+``csrc/fused_ag_heads.cu``, ``csrc/fused_ce.cu``, forward and
+backward).  Module names mirror
 ``vae_captioning_tpu`` so each counterpart is easy to find; the JAX
 package stays the reference the port is tested against.
 

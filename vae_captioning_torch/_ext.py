@@ -3,8 +3,9 @@
 Each source in ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library of its own with a plain C interface, at first use, into
 ``_build/`` beside this file: one ``nvcc -shared`` per source, all
-started together.  A library's name carries a hash of its source and
-the flags, so an edited kernel is rebuilt and a built one is reused.
+started together.  A library's name carries a hash of its source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited kernel or
+header is rebuilt and a built one is reused.
 The libraries are loaded with ctypes; every C entry point returns a
 ``cudaError_t`` that :func:`check_launch` turns into an exception.
 
@@ -40,7 +41,8 @@ LAUNCHES: Dict[str, int] = {
     "fused_z_fwd": 0, "fused_z_bwd": 0, "fused_z_eps": 0,
     "fused_ag_heads_fwd": 0, "fused_ag_heads_bwd": 0,
     "fused_linear_ce_fwd": 0, "fused_linear_ce_dh": 0,
-    "fused_linear_ce_dwdb": 0}
+    "fused_linear_ce_dwdb": 0, "fused_logits_top_k_int8": 0,
+    "fused_logits_sample": 0, "top_k_logsumexp": 0}
 
 _lib: Optional[SimpleNamespace] = None
 # Seconds the first library() call spent compiling (0.0 when every
@@ -57,7 +59,11 @@ _SIGNATURES = {
                             ctypes.c_float, _P],
     "vct_fused_logits_top_k": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _P],
+    "vct_fused_logits_top_k_int8": [_P] * 12 + [_I] * 6 + [_P],
+    "vct_fused_logits_sample": [_P] * 7 + [_I] * 3 + [_U, _U, ctypes.c_float]
+                               + [_I] * 3 + [_P],
     "vct_logits_top_k_lanes": [],
+    "vct_top_k_logsumexp": [_P] * 4 + [_I] * 3 + [_P],
     "vct_fused_lstm_seq_fwd": [_P] * 11 + [_I] * 4 + [_P],
     "vct_fused_lstm_seq_bwd": [_P] * 23 + [_I] * 6 + [_P],
     "vct_fused_z_fwd": [_P] * 6 + [_I] * 5 + [_U, _U, _P],
@@ -92,8 +98,13 @@ def _sources():
 
 
 def library_path(src: Path) -> Path:
+    """The library built from ``src``; its name hashes the flags, the
+    source and every shared header in ``csrc/``, so an edited header
+    rebuilds the libraries that may include it."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     digest.update(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
     return BUILD_DIR / f"lib{src.stem}_{digest.hexdigest()[:16]}.so"
 
 

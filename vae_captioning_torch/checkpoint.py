@@ -71,11 +71,12 @@ def load_params(directory: str, name: str = "last_run") -> Dict[str, np.ndarray]
 
 
 def load_model(directory: str, name: str = "last_run",
-               device: torch.device | str = "cpu",
+               device: torch.device | str = "cuda",
                cfg: Config | None = None
                ) -> Tuple[CVAEModel, Vocabulary, BridgeReport]:
     """Build the model of ``cfg`` (default: the checkpoint's own
-    config.json) and load the checkpoint's parameters into it."""
+    config.json) and load the checkpoint's parameters into it, on
+    ``device``: the card unless the caller asks for the CPU."""
     saved_cfg, vocab = load_sidecars(directory, name)
     cfg = saved_cfg if cfg is None else cfg
     if cfg.vocab_size not in (None, vocab.vocab_size):

@@ -83,6 +83,7 @@ def run_inference_mode(cfg: Config, device: torch.device,
         coco_dir=cfg.coco_dir, hdf5_file=cfg.hdf5_file,
         raw_images_file=cfg.raw_images_file,
         checkpoint=cfg.checkpoint, checkpoint_dir=cfg.checkpoint_dir,
+        fused_decode=cfg.fused_decode, decode_int8=cfg.decode_int8,
         std=cfg.std)
     check_supported(model_cfg)
     if data is None:

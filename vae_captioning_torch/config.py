@@ -125,15 +125,17 @@ class Config:
     ce_hybrid: bool = False
     ce_xla_bwd: bool = False
     ce_bias_fold: bool = False
+    # the decode's kill switch: False writes the logits and takes the
+    # exact top-k + logsumexp kernel over them (JAX: XLA's top-k)
+    fused_decode: bool = True
     # JAX: switches of its TPU kernels; the port always runs its kernels
     # on the card and its plain versions on the CPU, and reads none
-    fused_decode: bool = True
     fused_lstm_step: bool = True
     fused_heads: bool = True
     fused_z: bool = True
     fused_lstm_seq: bool = True
     fused_force: bool = False
-    decode_int8: bool = False   # APPROXIMATE int8 logits (port: ROADMAP B.8)
+    decode_int8: bool = False   # APPROXIMATE int8 logits (inference.py)
     ag_kl_sum: bool = False     # AG prior only: the reference leaves its
                                 # AG KL per-example and tf.gradients
                                 # implicitly SUMS it into the loss

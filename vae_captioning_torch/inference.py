@@ -5,12 +5,26 @@ Sweeps the val split with beam search (or greedy) and the test split
 with greedy decoding, and writes ``val_<gen_name>.json`` /
 ``test_<gen_name>.json`` as ``[{"image_id": int, "caption": str}]``.
 
-Every decode step runs the two CUDA kernels through their wrappers: the
-fused LSTM step, then the fused logits + top-k (k = beam, or 1 for
-greedy).  Their weights are cast to bf16 once, when ``make_decode_fns``
-builds its closures.  The TPU switches ``Config.fused_decode``,
-``fused_lstm_step`` and ``fused_force`` are not read: this path has no
-unfused variant.  Configurations the decode slice does not cover raise
+Every decode step runs the fused LSTM step kernel, then one of:
+
+* the fused logits + top-k (k = beam, or 1 for greedy), the default;
+* its int8 variant under ``Config.decode_int8`` (approximate: h and the
+  logits head quantised to int8, the head once per build);
+* the fused Gumbel-max sampler for ``sample_gen="sample"``
+  (``Config.temperature``), keyed on one 32-bit seed per decode call,
+  drawn from the decode's generator, and the step index;
+* under ``Config.fused_decode = False``, the JAX package's kill switch,
+  the logits head as a plain bf16 product written to memory (the Flax
+  Dense's rounding: bf16 logits, bf16 bias), then the beam's exact top-k
+  + logsumexp kernel over those logits, ``torch.argmax`` for greedy, or
+  ``torch.multinomial`` with the decode's generator for sampling.  On the
+  TPU that switch reaches XLA's top-k; here the step_fn form's top-k is
+  the ``top_k_logsumexp`` kernel, as the JAX ``top_k_logsumexp`` dispatch
+  takes its Pallas kernel on its accelerator.
+
+The weights are cast once, when ``make_decode_fns`` builds its closures.
+The TPU switches ``fused_lstm_step`` and ``fused_force`` are not read.
+Configurations the decode slice does not cover raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 
@@ -31,18 +45,19 @@ from vae_captioning_torch.models.cvae import (CVAEModel, decoder_step_params,
 from vae_captioning_torch.ops.decoding import (beam_search, sample_decode,
                                                tokens_to_text)
 from vae_captioning_torch.ops.fused_logits_topk import (
-    fused_logits_top_k, fused_logits_top_k_plain)
+    fused_logits_sample, fused_logits_sample_plain, fused_logits_top_k,
+    fused_logits_top_k_int8, fused_logits_top_k_int8_plain,
+    fused_logits_top_k_plain, quantize_logits_weights)
 from vae_captioning_torch.ops.fused_lstm_step import (fused_lstm_step,
                                                       fused_lstm_step_plain)
+from vae_captioning_torch.ops.topk_lse import (top_k_logsumexp,
+                                               top_k_logsumexp_plain)
 
 
 def check_supported(cfg: Config) -> None:
     """Raise NotImplementedError for what the decode slice does not
     cover, naming the ROADMAP item that will."""
     gates = [
-        (cfg.decode_int8, "decode_int8 (int8 logits kernel): ROADMAP B.8"),
-        (cfg.sample_gen == "sample",
-         "sample_gen='sample' (fused Gumbel-max sampling): ROADMAP B.6"),
         (cfg.fine_tune, "fine_tune (VGG16 in the model): ROADMAP A.8"),
         (cfg.decoder_rnn_layers != 1,
          f"decoder_rnn_layers={cfg.decoder_rnn_layers}: the decode slice "
@@ -57,21 +72,26 @@ def check_supported(cfg: Config) -> None:
 
 
 class DecodeOps(NamedTuple):
-    """The two per-step operations.  The decode path uses the kernel
+    """The per-step operations.  The decode path uses the kernel
     wrappers; comparisons on the card swap in the plain versions."""
 
     lstm_step: Callable = fused_lstm_step
     logits_top_k: Callable = fused_logits_top_k
+    logits_top_k_int8: Callable = fused_logits_top_k_int8
+    logits_sample: Callable = fused_logits_sample
+    top_k_lse: Callable = top_k_logsumexp
 
 
 KERNEL_OPS = DecodeOps()
-PLAIN_OPS = DecodeOps(fused_lstm_step_plain, fused_logits_top_k_plain)
-# The plain versions with every dot product summed in reverse order: how
-# far f32 sum order alone moves a bf16 decode, the yardstick for the
-# kernels' own sum order.
-REORDERED_OPS = DecodeOps(
-    functools.partial(fused_lstm_step_plain, reverse_sum=True),
-    functools.partial(fused_logits_top_k_plain, reverse_sum=True))
+PLAIN_OPS = DecodeOps(fused_lstm_step_plain, fused_logits_top_k_plain,
+                      fused_logits_top_k_int8_plain, fused_logits_sample_plain,
+                      top_k_logsumexp_plain)
+# The plain versions with every dot product of the bf16 decode summed in
+# reverse order: how far f32 sum order alone moves a bf16 decode, the
+# yardstick for the kernels' own sum order.
+REORDERED_OPS = PLAIN_OPS._replace(
+    lstm_step=functools.partial(fused_lstm_step_plain, reverse_sum=True),
+    logits_top_k=functools.partial(fused_logits_top_k_plain, reverse_sum=True))
 
 
 class DecodeWeights(NamedTuple):
@@ -82,16 +102,20 @@ class DecodeWeights(NamedTuple):
     lstm_b: torch.Tensor    # [4H] f32
     head_w: torch.Tensor    # [H, V] bf16
     head_b: torch.Tensor    # [V] f32
+    # decode_int8 only: the f32 head quantised per column
+    head_wq: Optional[torch.Tensor] = None   # [H, V] int8
+    head_ws: Optional[torch.Tensor] = None   # [V] f32
 
     @classmethod
-    def of(cls, model: CVAEModel) -> "DecodeWeights":
+    def of(cls, model: CVAEModel, int8: bool = False) -> "DecodeWeights":
         with torch.no_grad():
             emb, kern, kbias = decoder_step_params(model)
             w, b = logits_head_params(model)
             bf16 = torch.bfloat16
+            wq, ws = quantize_logits_weights(w) if int8 else (None, None)
             return cls(emb.to(bf16).contiguous(), kern.to(bf16).contiguous(),
                        kbias.float().contiguous(), w.to(bf16).contiguous(),
-                       b.float().contiguous())
+                       b.float().contiguous(), wq, ws)
 
 
 def make_lstm_fn(weights: DecodeWeights,
@@ -113,16 +137,64 @@ def make_step_topk_fn(weights: DecodeWeights, k: int,
                       ops: DecodeOps = KERNEL_OPS) -> Callable:
     """(carry, tokens [N]) → (carry, top-k values, indices, logsumexp):
     one LSTM step, then the logits head folded into top-k, the [N, V]
-    logits never stored."""
+    logits never stored.  With the quantised head in ``weights``, the
+    int8 variant, on the f32 h the LSTM step returns."""
     lstm = make_lstm_fn(weights, ops)
 
     def fn(carry, tokens):
         carry, h = lstm(carry, weights.embed[tokens])
-        vals, idx, lse = ops.logits_top_k(h.to(torch.bfloat16),
-                                          weights.head_w, weights.head_b, k)
+        if weights.head_wq is not None:
+            vals, idx, lse = ops.logits_top_k_int8(
+                h, weights.head_wq, weights.head_ws, weights.head_b, k)
+        else:
+            vals, idx, lse = ops.logits_top_k(
+                h.to(torch.bfloat16), weights.head_w, weights.head_b, k)
         return carry, vals, idx, lse
 
     return fn
+
+
+def make_step_sample_fn(weights: DecodeWeights, seed: int, temperature: float,
+                        ops: DecodeOps = KERNEL_OPS) -> Callable:
+    """(carry, tokens [N], step) → (carry, next [N]): one LSTM step, then
+    one Gumbel-max draw per lane from softmax(logits / temperature),
+    keyed on (seed, step), the logits never stored."""
+    lstm = make_lstm_fn(weights, ops)
+
+    def fn(carry, tokens, step):
+        carry, h = lstm(carry, weights.embed[tokens])
+        return carry, ops.logits_sample(h.to(torch.bfloat16), weights.head_w,
+                                        weights.head_b, seed, step,
+                                        temperature)
+
+    return fn
+
+
+def make_step_logits_fn(weights: DecodeWeights,
+                        ops: DecodeOps = KERNEL_OPS) -> Callable:
+    """(carry, tokens [N]) → (carry, logits [N, V] f32): one LSTM step,
+    then the logits head as a plain product written to memory, rounded
+    as the Flax Dense with ``dtype=bfloat16`` rounds it (bf16 logits
+    from an f32 sum, plus the bias in bf16): the decode step of the JAX
+    package's ``fused_decode=False`` path."""
+    lstm = make_lstm_fn(weights, ops)
+    w = weights.head_w.float()
+    b16 = weights.head_b.to(torch.bfloat16)
+
+    def fn(carry, tokens):
+        carry, h = lstm(carry, weights.embed[tokens])
+        logits = (h.to(torch.bfloat16).float() @ w).to(torch.bfloat16) + b16
+        return carry, logits.float()
+
+    return fn
+
+
+def draw_seed(generator: Optional[torch.Generator],
+              device: torch.device) -> int:
+    """One 32-bit seed for a sampled decode, from ``generator`` (or the
+    device's default generator): the only host sync the sampler adds."""
+    return int(torch.randint(0, 2 ** 32, (1,), generator=generator,
+                             device=device, dtype=torch.int64))
 
 
 def make_step_argmax_fn(weights: DecodeWeights,
@@ -147,16 +219,21 @@ def make_decode_fns(model: CVAEModel, cfg: Config, vocab: Vocabulary,
                     ops: DecodeOps = KERNEL_OPS) -> Dict[str, Callable]:
     """Whole-batch decoders ``fn(features [B, F], c_v [B, 90],
     generator=None, eps=None) -> Decoded``, for "beam_search" (best
-    beam), "beam_search_all" (all beams, best-first) and "greedy".
-    Tensors lie on the model's device; the z noise comes from ``eps``
-    [B, E] or is drawn from ``generator``."""
+    beam), "beam_search_all" (all beams, best-first), "greedy" and
+    "sample" (temperature sampling).  Tensors lie on the model's device;
+    the z noise comes from ``eps`` [B, E] or is drawn from ``generator``,
+    which also keys the sampler."""
     check_supported(cfg)
-    weights = DecodeWeights.of(model)
+    weights = DecodeWeights.of(model, int8=cfg.decode_int8)
     bos, eos = vocab.bos_id, vocab.eos_id
     needs_cv = cfg.needs_cluster_vectors
     lstm = make_lstm_fn(weights, ops)
-    beam_step = make_step_topk_fn(weights, cfg.beam_size, ops)
-    greedy_step = make_step_argmax_fn(weights, ops)
+    fused = cfg.fused_decode
+    step_logits = None if fused else make_step_logits_fn(weights, ops)
+    beam_step = (make_step_topk_fn(weights, cfg.beam_size, ops) if fused
+                 else None)
+    greedy_step = make_step_argmax_fn(weights, ops) if fused else None
+    dec = dict(bos_id=bos, eos_id=eos, max_len=cfg.gen_max_len)
 
     def init(features, c_v, generator, eps):
         return model.decode_init(features, c_v if needs_cv else None,
@@ -165,9 +242,10 @@ def make_decode_fns(model: CVAEModel, cfg: Config, vocab: Vocabulary,
     @torch.inference_mode()
     def beam_all_fn(features, c_v, generator=None, eps=None) -> Decoded:
         res = beam_search(
-            beam_step, init(features, c_v, generator, eps),
-            features.shape[0], beam_size=cfg.beam_size, bos_id=bos,
-            eos_id=eos, max_len=cfg.gen_max_len, len_norm_f=cfg.len_norm_f)
+            step_logits, init(features, c_v, generator, eps),
+            features.shape[0], beam_size=cfg.beam_size,
+            len_norm_f=cfg.len_norm_f, step_topk_fn=beam_step,
+            top_k_fn=ops.top_k_lse, **dec)
         return Decoded(res.tokens, res.scores, res.steps)
 
     def beam_fn(features, c_v, generator=None, eps=None) -> Decoded:
@@ -177,13 +255,24 @@ def make_decode_fns(model: CVAEModel, cfg: Config, vocab: Vocabulary,
     @torch.inference_mode()
     def greedy_fn(features, c_v, generator=None, eps=None) -> Decoded:
         res = sample_decode(
-            greedy_step, init(features, c_v, generator, eps),
-            features.shape[0], bos_id=bos, eos_id=eos,
-            max_len=cfg.gen_max_len)
+            step_logits, init(features, c_v, generator, eps),
+            features.shape[0], step_argmax_fn=greedy_step, **dec)
+        return Decoded(res.tokens, None, res.steps)
+
+    @torch.inference_mode()
+    def sample_fn(features, c_v, generator=None, eps=None) -> Decoded:
+        carry = init(features, c_v, generator, eps)
+        step_sample = (make_step_sample_fn(
+            weights, draw_seed(generator, features.device), cfg.temperature,
+            ops) if fused else None)
+        res = sample_decode(
+            step_logits, carry, features.shape[0], mode="sample",
+            temperature=cfg.temperature, generator=generator,
+            step_sample_fn=step_sample, **dec)
         return Decoded(res.tokens, None, res.steps)
 
     return {"beam_search": beam_fn, "beam_search_all": beam_all_fn,
-            "greedy": greedy_fn}
+            "greedy": greedy_fn, "sample": sample_fn}
 
 
 def generate_captions(

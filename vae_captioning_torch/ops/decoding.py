@@ -1,12 +1,14 @@
-"""Batched decoding: greedy and beam search (counterpart of
-``vae_captioning_tpu/ops/decoding.py``).
+"""Batched decoding: greedy, temperature sampling and beam search
+(counterpart of ``vae_captioning_tpu/ops/decoding.py``).
 
 The algorithms are the reference's: greedy is argmax until every lane
-has emitted EOS; beam search expands each beam by its own top-K tokens,
-floors log-probs of p < 1e-12, scores completions with
-``len(sentence)**len_norm_f`` normalisation, falls back to partial
-captions when nothing completed, and carries backpointers instead of
-sequences, rebuilding the sequences once at the end.
+has emitted EOS; sampling draws from ``softmax(logits / temperature)``
+with the same stopping rule (EOS stops a lane, PAD follows, BOS may be
+drawn mid-caption and is dropped from the text); beam search expands each
+beam by its own top-K tokens, floors log-probs of p < 1e-12, scores
+completions with ``len(sentence)**len_norm_f`` normalisation, falls back
+to partial captions when nothing completed, and carries backpointers
+instead of sequences, rebuilding the sequences once at the end.
 
 Ties go to the lowest index everywhere, as ``jax.lax.top_k`` and the
 stable ``jnp.argsort`` give them: an empty finished slot against a
@@ -15,14 +17,19 @@ decides whether a row of ``beam_search_all`` comes out all-PAD.
 
 The early exit is a host check per step (one device sync), where the
 reference runs a ``while_loop`` on the device; the output is the same as
-running all ``max_len`` steps.  Temperature sampling is not ported yet
-(ROADMAP B.6).
+running all ``max_len`` steps.
 
-The model enters through its fused step forms, as on the reference's
-fused path: ``step_topk_fn(carry, tokens[N]) -> (carry, vals[N, k],
-idx[N, k], lse[N])`` (top-k raw logits with their logsumexp) and
-``step_argmax_fn(carry, tokens[N]) -> (carry, next[N])``; carry is a
-nested tuple of tensors with leading dim N.
+The model enters as in the reference, through ``step_fn(carry,
+tokens[N]) -> (carry, logits[N, V])`` or through the fused step forms
+that never write the logits: ``step_topk_fn(carry, tokens[N]) -> (carry,
+vals[N, k], idx[N, k], lse[N])`` (top-k raw logits with their
+logsumexp), ``step_argmax_fn(carry, tokens[N]) -> (carry, next[N])`` and
+``step_sample_fn(carry, tokens[N], step) -> (carry, next[N])``.  A fused
+form, where given, takes precedence.  The step_fn form's beam search
+takes :func:`~vae_captioning_torch.ops.topk_lse.top_k_logsumexp` (the
+kernel on CUDA tensors), its sampling ``torch.multinomial`` with the
+caller's generator.  carry is a nested tuple of tensors with leading dim
+N.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from vae_captioning_torch.ops.fused_logits_topk import stable_top_k
+from vae_captioning_torch.ops.topk_lse import top_k_logsumexp
 
 NEG_INF = -1.0e9
 # ln(1e-12), the reference's zero-probability skip threshold
@@ -51,7 +59,7 @@ def _first_leaf(tree: Any) -> torch.Tensor:
 
 
 # ----------------------------------------------------------------------
-# greedy
+# greedy / temperature sampling
 # ----------------------------------------------------------------------
 
 class GreedyResult(NamedTuple):
@@ -60,17 +68,30 @@ class GreedyResult(NamedTuple):
 
 
 def sample_decode(
-    step_argmax_fn: Callable,
+    step_fn: Optional[Callable],
     init_carry: Any,
     batch_size: int,
     *,
     bos_id: int,
     eos_id: int,
     max_len: int,
+    mode: str = "greedy",
+    temperature: float = 1.0,
+    generator: Optional[torch.Generator] = None,
+    step_argmax_fn: Optional[Callable] = None,
+    step_sample_fn: Optional[Callable] = None,
     early_exit: bool = True,
 ) -> GreedyResult:
-    """Batched greedy decode → token ids [B, max_len] (EOS included;
-    positions after EOS are PAD = 0)."""
+    """Batched greedy (``mode="greedy"``) or sampled (``mode="sample"``)
+    decode → token ids [B, max_len] (EOS included; positions after EOS
+    are PAD = 0).  Without a fused form, ``step_fn``'s logits go through
+    ``torch.argmax`` or are sampled from ``softmax(logits / temperature)``
+    with ``generator``."""
+    if mode not in ("greedy", "sample"):
+        raise ValueError(f"mode must be 'greedy' or 'sample', got {mode!r}")
+    fused = step_argmax_fn if mode == "greedy" else step_sample_fn
+    if fused is None and step_fn is None:
+        raise ValueError(f"mode={mode!r} needs step_fn or its fused form")
     dev = _first_leaf(init_carry).device
     carry = init_carry
     tokens = torch.full((batch_size,), bos_id, dtype=torch.long, device=dev)
@@ -78,7 +99,17 @@ def sample_decode(
     out = torch.zeros((batch_size, max_len), dtype=torch.long, device=dev)
     t = 0
     while t < max_len and (not early_exit or bool(alive.any())):
-        carry, nxt = step_argmax_fn(carry, tokens)
+        if mode == "greedy" and step_argmax_fn is not None:
+            carry, nxt = step_argmax_fn(carry, tokens)
+        elif mode == "sample" and step_sample_fn is not None:
+            carry, nxt = step_sample_fn(carry, tokens, t)
+        else:
+            carry, logits = step_fn(carry, tokens)
+            if mode == "sample":
+                probs = torch.softmax(logits.float() / temperature, dim=-1)
+                nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
+            else:
+                nxt = torch.argmax(logits, dim=-1)
         nxt = nxt.long()
         out[:, t] = torch.where(alive, nxt, 0)
         alive = alive & (nxt != eos_id)
@@ -107,7 +138,7 @@ def _gather_beams(tree: Any, beam_idx: torch.Tensor, B: int, beam: int) -> Any:
 
 
 def beam_search(
-    step_topk_fn: Callable,
+    step_fn: Optional[Callable],
     init_carry: Any,
     batch_size: int,
     *,
@@ -117,9 +148,22 @@ def beam_search(
     max_len: int,
     len_norm_f: float = 0.7,
     early_exit: bool = True,
+    step_topk_fn: Optional[Callable] = None,
+    top_k_fn: Callable = top_k_logsumexp,
 ) -> BeamResult:
     """Batched beam search.  ``init_carry`` has leading dim B and is
-    broadcast to B*beam lanes; at most ``max_len`` expansion steps."""
+    broadcast to B*beam lanes; at most ``max_len`` expansion steps.  Each
+    step runs ``step_topk_fn`` where given, else ``step_fn`` and
+    ``top_k_fn(logits in f32, beam_size)`` over its logits (the
+    ``top_k_logsumexp`` wrapper; the JAX function's ``use_pallas``
+    choice)."""
+    if step_topk_fn is None:
+        if step_fn is None:
+            raise ValueError("beam_search needs step_fn or step_topk_fn")
+
+        def step_topk_fn(carry, tokens):
+            carry, logits = step_fn(carry, tokens)
+            return (carry, *top_k_fn(logits.float().contiguous(), beam_size))
     B, K = batch_size, beam_size
     dev = _first_leaf(init_carry).device
     carry = _map(lambda leaf: leaf.repeat_interleave(K, dim=0), init_carry)

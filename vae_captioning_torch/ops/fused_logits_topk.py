@@ -1,17 +1,24 @@
-"""Fused logits product + exact top-k + logsumexp: CUDA kernel wrapper
-and its plain version.
+"""Fused logits product + exact top-k + logsumexp, its int8 variant and
+fused Gumbel-max sampling: CUDA kernel wrappers and their plain versions.
 
-Counterpart of ``fused_logits_top_k`` in
-``vae_captioning_tpu/ops/fused_logits_topk.py``.  For decode hidden
-states h it returns the k largest raw logits of ``h @ W + b`` (bias
-included), their vocab indices with ties going to the lowest index, and
-the logsumexp over the whole vocab.  Beam search normalises only the k
-winners; greedy decoding takes k = 1.
+Counterparts of ``fused_logits_top_k``, ``fused_logits_top_k_int8`` (with
+``quantize_logits_weights`` and ``_quantize_rows``) and
+``fused_logits_sample`` in ``vae_captioning_tpu/ops/fused_logits_topk.py``.
+For decode hidden states h the top-k functions return the k largest raw
+logits of ``h @ W + b`` (bias included), their vocab indices with ties
+going to the lowest index, and the logsumexp over the whole vocab.  Beam
+search normalises only the k winners; greedy decoding takes k = 1.  The
+int8 variant quantises h per row and W per column (symmetric, round half
+to even) and dequantises the int32 product as ``acc·hs·ws + b``; it is
+approximate by design.  The sampler draws one token per row from
+``softmax(logits / T)`` as ``argmax(logits·(1/T) + G)`` with Gumbel noise
+G from a Philox stream keyed on (seed, step) that counts on the element's
+(row, vocab column); :func:`fused_logits_sample_plain` gives the same
+bits in integer ops.
 
-On CUDA tensors the wrapper launches ``csrc/fused_logits_topk.cu``
-(partial kernel over vocab chunks, then a merge launch), which never
-stores the [M, V] logits; on CPU tensors it takes
-:func:`fused_logits_top_k_plain`.
+On CUDA tensors the wrappers launch ``csrc/fused_logits_topk.cu`` (a
+partial kernel over vocab chunks, then a merge launch), which never
+stores the [M, V] logits; on CPU tensors they take the plain versions.
 """
 
 from __future__ import annotations
@@ -22,8 +29,13 @@ from typing import Tuple
 import torch
 
 from vae_captioning_torch import _ext
+from vae_captioning_torch.ops.fused_z import philox4x32
 
 NAME = "fused_logits_top_k"
+INT8 = "fused_logits_top_k_int8"
+SAMPLE = "fused_logits_sample"
+SAMPLE_TAG = 0x53414D50  # last counter word of the sampler's stream
+_MASK32 = 0xFFFFFFFF
 K_MAX = 16
 _ROWS_PER_BLOCK = 64     # BM of the CUDA kernel
 _TILE = 128              # BN: vocab chunks are whole tiles
@@ -111,3 +123,217 @@ def fused_logits_top_k(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     _ext.check_launch(err, NAME)
     _ext.LAUNCHES[NAME] += 1
     return vals, idx, lse
+
+
+# ----------------------------------------------------------------------
+# int8 logits
+# ----------------------------------------------------------------------
+
+def quantize_logits_weights(w: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-output-column symmetric int8 quantisation of the logits head
+    [H, V]: wq = round(w / ws) in [-127, 127], ws = max_i |w[i]| / 127
+    (at least 1e-12).  Once per decode-fn build (``Config.decode_int8``).
+    wq [H, V] is stored column-major (``wq.t()`` is contiguous), the
+    layout the kernel reads."""
+    w = w.float()
+    ws = torch.clamp_min(w.abs().amax(dim=0) / 127.0, 1e-12)
+    wq = torch.clamp(torch.round(w / ws[None, :]), -127, 127)
+    return wq.to(torch.int8).t().contiguous().t(), ws.contiguous()
+
+
+def quantize_rows(h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dynamic per-row symmetric int8 quantisation of the activations
+    [M, H]: (hq [M, H] int8, hs [M, 1] f32)."""
+    h = h.float()
+    hs = torch.clamp_min(h.abs().amax(dim=1, keepdim=True) / 127.0, 1e-12)
+    hq = torch.clamp(torch.round(h / hs), -127, 127)
+    return hq.to(torch.int8).contiguous(), hs
+
+
+def int8_top_k_plain(hq: torch.Tensor, hs: torch.Tensor, wq: torch.Tensor,
+                     ws: torch.Tensor, b: torch.Tensor, k: int) -> Result:
+    """The int8 kernel's maths on quantised rows in plain PyTorch:
+    f32(hq @ wq) · hs · ws + b, each product rounded on its own (the
+    integer product is exact in float64: |acc| <= 127² · H), a stable
+    sort."""
+    acc = (hq.double() @ wq.double()).float()
+    logits = acc * hs * ws[None, :] + b.float()[None, :]
+    vals, idx = stable_top_k(logits, k)
+    return vals, idx.to(torch.int32), torch.logsumexp(logits, dim=-1)
+
+
+def fused_logits_top_k_int8_plain(h: torch.Tensor, wq: torch.Tensor,
+                                  ws: torch.Tensor, b: torch.Tensor,
+                                  k: int) -> Result:
+    """:func:`fused_logits_top_k_int8` in plain PyTorch (the JAX
+    package's ``fused_logits_top_k_int8_xla``): h quantised per row, then
+    :func:`int8_top_k_plain`."""
+    return int8_top_k_plain(*quantize_rows(h), wq, ws, b, k)
+
+
+def fused_logits_top_k_int8(h: torch.Tensor, wq: torch.Tensor,
+                            ws: torch.Tensor, b: torch.Tensor,
+                            k: int) -> Result:
+    """h [M,H] float (quantised here, per row, by plain PyTorch ops, as
+    the JAX package quantises outside its kernel), wq [H,V] int8 and ws
+    [V] f32 from :func:`quantize_logits_weights`, b [V] f32 → (values
+    [M,k] f32, indices [M,k] int32, logsumexp [M] f32), 1 <= k <= 16.
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    or raise (H must be a multiple of 64)."""
+    _ext.forbid_grad(INT8, h, wq, ws, b)
+    if _ext.on_cpu(h, wq, ws, b):
+        return fused_logits_top_k_int8_plain(h, wq, ws, b, k)
+    return int8_top_k_kernel(*quantize_rows(h), wq, ws, b, k)
+
+
+def int8_top_k_kernel(hq: torch.Tensor, hs: torch.Tensor, wq: torch.Tensor,
+                      ws: torch.Tensor, b: torch.Tensor, k: int) -> Result:
+    """The int8 kernel on quantised rows: hq [M,H] int8, hs [M,1] f32
+    (from :func:`quantize_rows`), wq [H,V] int8, ws and b [V] f32, all on
+    one CUDA device.  The kernel reads wq column-major, as
+    :func:`quantize_logits_weights` stores it; a row-major wq is
+    transposed on each call."""
+    M, H = hq.shape
+    V = wq.shape[1]
+    req = _ext.require
+    req(hq.dtype == wq.dtype == torch.int8
+        and hs.dtype == ws.dtype == b.dtype == torch.float32,
+        f"{INT8}: hq and wq must be int8, hs, ws and b float32, got "
+        f"{hq.dtype}, {wq.dtype}, {hs.dtype}, {ws.dtype}, {b.dtype}")
+    req(wq.shape[0] == H and hs.numel() == M and ws.shape == b.shape == (V,),
+        f"{INT8}: shapes hq{tuple(hq.shape)} hs{tuple(hs.shape)} "
+        f"wq{tuple(wq.shape)} ws{tuple(ws.shape)} b{tuple(b.shape)} disagree")
+    req(1 <= k <= min(K_MAX, V), f"{INT8}: k={k} outside [1, {K_MAX}]")
+    req(H % 64 == 0, f"{INT8}: H={H} must be a multiple of 64")
+    wq_t = wq.t().contiguous()          # a no-op for the stored layout
+    req(all(t.is_contiguous() and t.data_ptr() % 16 == 0
+            for t in (hq, hs, wq_t, ws, b)),
+        f"{INT8}: inputs must be contiguous and 16-byte aligned")
+    dev = hq.device
+    vals = torch.empty((M, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((M, k), dtype=torch.int32, device=dev)
+    lse = torch.empty((M,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        lib = _ext.library()
+        chunk_w, n_chunks = plan_chunks(M, V, _sm_count(dev.index or 0))
+        P = n_chunks * lib.vct_logits_top_k_lanes()
+        part_vals = torch.empty((P, M, k), dtype=torch.float32, device=dev)
+        part_idx = torch.empty((P, M, k), dtype=torch.int32, device=dev)
+        part_ms = torch.empty((2, P, M), dtype=torch.float32, device=dev)
+        err = lib.vct_fused_logits_top_k_int8(
+            hq.data_ptr(), hs.data_ptr(), wq_t.data_ptr(), ws.data_ptr(),
+            b.data_ptr(), part_vals.data_ptr(), part_idx.data_ptr(),
+            part_ms[0].data_ptr(), part_ms[1].data_ptr(), vals.data_ptr(),
+            idx.data_ptr(), lse.data_ptr(), M, H, V, k, chunk_w, n_chunks,
+            _ext.stream_ptr(dev))
+    _ext.check_launch(err, INT8)
+    _ext.LAUNCHES[INT8] += 1
+    return vals, idx, lse
+
+
+# ----------------------------------------------------------------------
+# Gumbel-max sampling
+# ----------------------------------------------------------------------
+
+def _check_key(seed: int, step: int) -> None:
+    _ext.require(0 <= seed <= _MASK32 and 0 <= step <= _MASK32,
+                 f"{SAMPLE}: seed {seed} and step {step} must be 32-bit "
+                 "unsigned integers")
+
+
+def sample_bits(seed: int, step: int, n_rows: int, V: int, row0: int = 0,
+                device: torch.device | str = "cpu") -> torch.Tensor:
+    """The sampler's 32-bit words (int64) for rows [row0, row0 + n_rows):
+    [n_rows, V].  Element (m, v) is word v % 4 of the Philox block with
+    counter (v // 4, m, 0, SAMPLE_TAG) under the key (seed, step)."""
+    groups = -(-V // 4)
+    i64 = dict(dtype=torch.int64, device=device)
+    q = torch.arange(groups, **i64).view(1, groups)
+    m = torch.arange(row0, row0 + n_rows, **i64).view(n_rows, 1)
+    shape = (n_rows, groups)
+    words = philox4x32((q.expand(shape), m.expand(shape),
+                        torch.zeros(shape, **i64),
+                        torch.full(shape, SAMPLE_TAG, **i64)), seed, step)
+    return torch.stack(words, dim=-1).reshape(n_rows, 4 * groups)[:, :V]
+
+
+def gumbel_noise(seed: int, step: int, n_rows: int, V: int, row0: int = 0,
+                 device: torch.device | str = "cpu") -> torch.Tensor:
+    """G = -log(-log(u)) [n_rows, V] f32 of :func:`sample_bits`, u the
+    23-bit uniform clipped to [1e-7, 1 - 1e-7], as the TPU kernel makes it."""
+    bits = sample_bits(seed, step, n_rows, V, row0, device)
+    u = (bits >> 9).to(torch.float32) / 8388608.0
+    lo = torch.tensor(1e-7, dtype=torch.float32, device=u.device)
+    hi = torch.tensor(1.0 - 1e-7, dtype=torch.float32, device=u.device)
+    u = torch.minimum(torch.maximum(u, lo), hi)
+    return -torch.log(-torch.log(u))
+
+
+def sample_scores(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                  seed: int, step: int, temperature: float = 1.0,
+                  row0: int = 0) -> torch.Tensor:
+    """The sampler's scored values [M, V] f32: logits · f32(1/T) + G, the
+    logits as :func:`fused_logits_top_k_plain` computes them."""
+    hf = h.to(torch.bfloat16).float()
+    logits = hf @ w.to(torch.bfloat16).float() + b.float()
+    inv_temp = torch.tensor(1.0 / temperature, dtype=torch.float32,
+                            device=logits.device)
+    return logits * inv_temp + gumbel_noise(seed, step, h.shape[0],
+                                            w.shape[1], row0, logits.device)
+
+
+def fused_logits_sample_plain(h: torch.Tensor, w: torch.Tensor,
+                              b: torch.Tensor, seed: int, step: int,
+                              temperature: float = 1.0,
+                              row0: int = 0) -> torch.Tensor:
+    """The sampler's maths in plain PyTorch: tokens [M] int32, the first
+    argmax of :func:`sample_scores`."""
+    _check_key(seed, step)
+    return torch.argmax(sample_scores(h, w, b, seed, step, temperature, row0),
+                        dim=-1).to(torch.int32)
+
+
+def fused_logits_sample(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                        seed: int, step: int, temperature: float = 1.0,
+                        row0: int = 0) -> torch.Tensor:
+    """One categorical draw per row from softmax((h @ w + b) / T): h
+    [M,H] bf16, w [H,V] bf16, b [V] f32, seed and step 32-bit unsigned
+    keys of the noise, row0 the first row's index in the stream → tokens
+    [M] int32.  CPU tensors take the plain version; CUDA tensors launch
+    the kernel or raise."""
+    _ext.forbid_grad(SAMPLE, h, w, b)
+    _check_key(seed, step)
+    if _ext.on_cpu(h, w, b):
+        return fused_logits_sample_plain(h, w, b, seed, step, temperature,
+                                         row0)
+    M, H = h.shape
+    V = w.shape[1]
+    req = _ext.require
+    req(h.dtype == w.dtype == torch.bfloat16 and b.dtype == torch.float32,
+        f"{SAMPLE}: h and w must be bfloat16 and b float32, got "
+        f"{h.dtype}, {w.dtype}, {b.dtype}")
+    req(w.shape[0] == H and b.shape == (V,),
+        f"{SAMPLE}: shapes h{tuple(h.shape)} w{tuple(w.shape)} "
+        f"b{tuple(b.shape)} disagree")
+    req(H % 32 == 0, f"{SAMPLE}: H={H} must be a multiple of 32")
+    req(temperature > 0, f"{SAMPLE}: temperature {temperature} must be > 0")
+    req(all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (h, w, b)),
+        f"{SAMPLE}: inputs must be contiguous and 16-byte aligned")
+    dev = h.device
+    vals = torch.empty((M,), dtype=torch.float32, device=dev)
+    tokens = torch.empty((M,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        lib = _ext.library()
+        chunk_w, n_chunks = plan_chunks(M, V, _sm_count(dev.index or 0))
+        P = n_chunks * lib.vct_logits_top_k_lanes()
+        part_vals = torch.empty((P, M), dtype=torch.float32, device=dev)
+        part_idx = torch.empty((P, M), dtype=torch.int32, device=dev)
+        err = lib.vct_fused_logits_sample(
+            h.data_ptr(), w.data_ptr(), b.data_ptr(), part_vals.data_ptr(),
+            part_idx.data_ptr(), vals.data_ptr(), tokens.data_ptr(), M, H, V,
+            seed, step, 1.0 / temperature, row0, chunk_w, n_chunks,
+            _ext.stream_ptr(dev))
+    _ext.check_launch(err, SAMPLE)
+    _ext.LAUNCHES[SAMPLE] += 1
+    return tokens
