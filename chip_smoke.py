@@ -13,9 +13,10 @@ Phases, in order; any failure raises and the script exits nonzero:
    forward and backward, the fused z generator's bits, normals and
    moments against the plain generator, and the AG train path's
    ``fused_ag_heads`` forward and backward with COCO-like cluster vectors,
-   and the flash CE's three kernels (``fused_linear_ce``: forward, dh,
-   dW/db) at the train shapes, with the train batch's PAD rows, and two
-   ragged ones;
+   the flash CE's three kernels (``fused_linear_ce``: forward, dh,
+   dW/db) and the written-logits CE's three (``fused_linear_ce_hybrid``:
+   the forward that writes the bf16 logits, dh and dW/db over them) at
+   the train shapes, with the train batch's PAD rows, and two ragged ones;
 4. decode path: the full-width AG-CVAE (random weights from a seed, in
    the Flax layout, through the bridge) decodes synthetic features
    through ``run_inference`` at beam 3, beam 10 and greedy, writing the
@@ -51,17 +52,24 @@ Phases, in order; any failure raises and the script exits nonzero:
    three CE kernels, so the [M, V] logits never reach memory; the
    comparison with the plain versions draws the same clusters; the
    checkpoint decodes a beam-3 batch with z centred at 0;
-8. times: each kernel against its plain version and, where one PyTorch
-   call computes the same function, that call; decode batches (every
-   mode) and train steps (Normal, AG and GMM), kernel path against plain
-   path, in turns;
-   the GMM step with the flash CE against the same step with the plain
-   CE, in turns, and the peak device memory of one step of each.
+8. GMM train paths under the other CE schedules: ``train-gmm-hybrid``
+   (``ce_hybrid=True``: the three written-logits kernels) and
+   ``train-gmm-xla-bwd`` (``ce_xla_bwd=True``: a plain forward writes the
+   logits, the hybrid's dh and dW/db kernels read them), each with its
+   exact launch counts (no flash CE kernel) and compared with the plain
+   versions as in 5;
+9. times: each kernel against its plain version and, where one PyTorch
+   call or a short chain of them computes the same function, that call;
+   decode batches (every mode) and train steps (Normal, AG and GMM),
+   kernel path against plain path, in turns; the GMM step and the Normal
+   step under the four CE schedules (plain CE over bf16 logits, flash,
+   hybrid, XLA forward), in turns, and the peak device memory of one step
+   of each.
 
 ``python3 chip_smoke.py --profile`` instead builds the kernels and
 profiles the full-width train step, Normal, AG, then GMM with the flash
-CE (phase_train_profile): device time by kernel, and the device's idle
-share.
+CE and with the hybrid CE (phase_train_profile): device time by kernel,
+and the device's idle share.
 
 Before its last lines it checks that no JAX module, and no module of the
 JAX package, was loaded.  The line before the last is the kernels' JSON
@@ -82,6 +90,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: CUDA is not available; this script needs one GPU")
@@ -178,6 +187,15 @@ KERNELS = {
     "top_k_logsumexp": {
         "route": "cuda", "source": "vae_captioning_torch/csrc/topk_lse.cu",
         "replaces": "vae_captioning_tpu/ops/topk_pallas.py:36"},
+    "fused_linear_ce_mat_fwd": {
+        "route": "cuda", "source": "vae_captioning_torch/csrc/fused_ce_mat.cu",
+        "replaces": "vae_captioning_tpu/ops/fused_ce.py:304"},
+    "fused_linear_ce_mat_dh": {
+        "route": "cuda", "source": "vae_captioning_torch/csrc/fused_ce_mat.cu",
+        "replaces": "vae_captioning_tpu/ops/fused_ce.py:377"},
+    "fused_linear_ce_mat_dwdb": {
+        "route": "cuda", "source": "vae_captioning_torch/csrc/fused_ce_mat.cu",
+        "replaces": "vae_captioning_tpu/ops/fused_ce.py:346"},
 }
 DECODE_KERNELS = ("fused_lstm_step", "fused_logits_top_k")
 # the decode modes' paths: each runs the LSTM step and one logits kernel
@@ -190,6 +208,15 @@ TRAIN_KERNELS = ("fused_lstm_seq_fwd", "fused_lstm_seq_bwd", "fused_z_fwd",
                  "fused_z_bwd")
 AG_KERNELS = ("fused_ag_heads_fwd", "fused_ag_heads_bwd")
 CE_KERNELS = ("fused_linear_ce_fwd", "fused_linear_ce_dh", "fused_linear_ce_dwdb")
+MAT_KERNELS = ("fused_linear_ce_mat_fwd", "fused_linear_ce_mat_dh",
+               "fused_linear_ce_mat_dwdb")
+# the CE kernels a train step launches under each CE schedule flag
+CE_STEP_LAUNCHES = {
+    "fused_ce": dict.fromkeys(CE_KERNELS, 1),
+    "ce_hybrid": dict.fromkeys(MAT_KERNELS, 1),
+    "ce_xla_bwd": dict.fromkeys(MAT_KERNELS[1:], 1),
+}
+CE_SCHEDULES = ("", "fused_ce", "ce_hybrid", "ce_xla_bwd")   # "": the plain CE
 # the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): dense
 # bf16 and int8 tensor-core operations and HBM3 bytes per second
 PEAK_BF16 = 989e12
@@ -512,13 +539,26 @@ def lstm_cell_call(x, c, h, w, b):
     return lambda: torch.lstm_cell(*args)
 
 
+def topk_library_call(h, w, b, k):
+    """The library chain of the fused logits + top-k on the same inputs:
+    ``F.linear`` in bf16 (the logits written), then ``torch.topk`` and
+    ``torch.logsumexp``."""
+    wt, b16 = w.t().contiguous(), b.to(torch.bfloat16)
+
+    def call():
+        logits = F.linear(h, wt, b16)
+        return torch.topk(logits, k, dim=-1), torch.logsumexp(logits, dim=-1)
+
+    return call
+
+
 def phase_kernel_times(label: str) -> dict:
     """Each kernel against its plain version at the main path's shapes:
     beam 3 (N = M = 1536, k = 3), beam 10 (5120, k = 10) and greedy (512,
-    k = 1).  The record keeps the beam-3 shapes, with the bound and, for
-    the LSTM step, ``torch.lstm_cell`` (in bf16) on the same inputs.  No
-    one PyTorch call computes the fused logits + top-k (``torch.topk``
-    needs the logits written first)."""
+    k = 1).  The record keeps the beam-3 shapes, with the bound and the
+    library: for the LSTM step ``torch.lstm_cell`` (in bf16) on the same
+    inputs, for the fused logits + top-k the chain ``F.linear`` bf16 +
+    ``torch.topk`` + ``torch.logsumexp``."""
     times = {}
     for N in (1536, 5120, 512):
         args = lstm_inputs(N)
@@ -536,11 +576,13 @@ def phase_kernel_times(label: str) -> dict:
         h, w, b = logits_inputs(M, 11500)
         t = turns(lambda: fused_logits_top_k(h, w, b, k),
                   lambda: fused_logits_top_k_plain(h, w, b, k), cuda_ms)
+        lib = cuda_ms(topk_library_call(h, w, b, k))
         outs = fused_logits_top_k(h, w, b, k)
         bnd = bound(2.0 * M * h.shape[1] * w.shape[1], nbytes(h, w, b, *outs))
-        times.setdefault("fused_logits_top_k", timing(t, bnd))
+        times.setdefault("fused_logits_top_k", timing(t, bnd, lib))
         print(f"time fused_logits_top_k M={M} H=512 V=11500 k={k}: kernel "
-              f"{t[0]:.4f} ms, plain {t[1]:.4f} ms, bound {bnd[0]:.4f} ms "
+              f"{t[0]:.4f} ms, plain {t[1]:.4f} ms, F.linear bf16 + torch.topk "
+              f"+ torch.logsumexp {lib:.4f} ms, bound {bnd[0]:.4f} ms "
               f"({bnd[1]}) [{label}]")
     return times
 
@@ -1362,13 +1404,37 @@ def phase_ag_kernels() -> dict:
     return errors
 
 
+def ag_library_calls(h, w, b, cv, gm, gs):
+    """The library chain of the AG heads on the same inputs, in bf16:
+    ``F.linear``, a reshape to [N, K, L], ``exp`` of the std half and two
+    ``einsum`` folds with c_v: (forward, backward), the backward one
+    ``torch.autograd.grad`` for h, W, b and c_v over a retained graph."""
+    N, K = cv.shape
+    KL = w.shape[0] // 2
+    leaves = [t.to(torch.bfloat16).detach().requires_grad_() for t in (h, w, b, cv)]
+
+    def forward():
+        h16, w16, b16, cv16 = leaves
+        q = F.linear(h16, w16, b16)
+        means = q[:, :KL].reshape(N, K, KL // K)
+        stds = torch.exp(q[:, KL:]).reshape(N, K, KL // K)
+        return (torch.einsum("nk,nkl->nl", cv16, means),
+                torch.einsum("nk,nkl->nl", cv16, stds))
+
+    outs = forward()
+    cots = (gm.to(torch.bfloat16), gs.to(torch.bfloat16))
+    return forward, lambda: torch.autograd.grad(outs, leaves, cots, retain_graph=True)
+
+
 def phase_ag_kernel_times(label: str) -> dict:
     """fused_ag_heads forward and backward against their plain versions
     at the train shapes (the plain backward recomputes the forward, as the
-    kernels recompute q).  No one PyTorch call computes the heads, exp
-    and c_v fold."""
+    kernels recompute q), and against the library chain of
+    :func:`ag_library_calls`."""
     h, w, b, cv, gm, gs = ag_inputs(TRAIN_ROWS, CLUSTERS, LATENT, seed=8)
     ops = prepare(h, w, b, cv)
+    library = dict(zip(AG_KERNELS, (cuda_ms(fn, iters=10, warmup=2) for fn in
+                                    ag_library_calls(h, w, b, cv, gm, gs))))
     flops = 2.0 * TRAIN_ROWS * HIDDEN * 2 * CLUSTERS * LATENT
     outs = ag_heads_fwd_kernel(*ops)
     grads = ag_heads_bwd_kernel(*ops, gm, gs)
@@ -1383,10 +1449,12 @@ def phase_ag_kernel_times(label: str) -> dict:
     times = {}
     for name, (fk, fp, bnd) in pairs.items():
         t = turns(fk, fp, lambda fn: cuda_ms(fn, iters=10, warmup=2))
-        times[name] = timing(t, bnd)
+        times[name] = timing(t, bnd, library[name])
         print(f"time {name} (N={TRAIN_ROWS} H={HIDDEN} K={CLUSTERS} "
-              f"L={LATENT}): kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, bound "
-              f"{bnd[0]:.4f} ms ({bnd[1]}) [{label}]")
+              f"L={LATENT}): kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, library "
+              f"(F.linear bf16 + exp + einsum with c_v"
+              f"{'' if name.endswith('fwd') else ', one autograd.grad'}) "
+              f"{library[name]:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}) [{label}]")
     return times
 
 
@@ -1485,7 +1553,6 @@ def ce_library_calls(h, w, b, labels, weights):
     ``F.cross_entropy(reduction="none")``, weighted and summed: (forward,
     backward), the backward one ``torch.autograd.grad`` for h, W and b
     over a retained graph."""
-    import torch.nn.functional as F
     leaves = [t.to(torch.bfloat16).detach().requires_grad_() for t in (h, w, b)]
     lab = labels.long()
 
@@ -1540,6 +1607,158 @@ def phase_ce_kernel_times(label: str) -> dict:
 
 
 # ----------------------------------------------------------------------
+# phase 3, the written-logits CE kernels (ce_hybrid, ce_xla_bwd)
+# ----------------------------------------------------------------------
+
+# the written logits: the kernel's bf16 value is the rounding of an f32
+# value within LG_ATOL of the plain f32 S (f32 sums of H = 512 products in
+# another order), so it equals bf16(S) except where S lies that close to a
+# bf16 rounding boundary; those elements are counted.  db: both sides sum
+# the same f32 dl, in another order, to CE_MAT_DB_RTOL of its largest
+# element; lse, ll, dh and dW as the flash kernels'
+LG_ATOL = 1e-5
+CE_MAT_DB_RTOL = 1e-5
+
+
+def check_written_logits(tag: str, lg, p_lg, S) -> int:
+    """lg (kernel) against p_lg = bf16(S) (plain): pad columns equal, and
+    every element that differs is the rounding of a value within LG_ATOL
+    of S.  Returns how many elements differ."""
+    V = S.shape[1]
+    if lg.shape != p_lg.shape or lg.dtype != torch.bfloat16:
+        raise AssertionError(f"{tag}: lg {tuple(lg.shape)} {lg.dtype} against "
+                             f"{tuple(p_lg.shape)}")
+    if not torch.equal(lg[:, V:], p_lg[:, V:]):
+        raise AssertionError(f"{tag}: the pad columns of lg are not -1e30")
+    diff = lg[:, :V] != p_lg[:, :V]
+    got, s = lg[:, :V].float()[diff], S[diff]
+    # half a bf16 step of got: 2^(e - 9) for |got| in [2^(e-1), 2^e)
+    half_step = torch.ldexp(torch.ones_like(got), torch.frexp(got).exponent - 9)
+    if bool(((got - s).abs() > half_step + LG_ATOL).any()):
+        raise AssertionError(f"{tag}: lg is no rounding of the f32 logits")
+    return int(diff.sum())
+
+
+def check_ce_mat(M: int, V: int, labels=None) -> dict:
+    """The three written-logits kernels against their plain versions on
+    the same inputs (the backward ones from the kernel's lg and the plain
+    lse, so both see the same operands); returns each kernel's max |kernel
+    - plain| (lg: the largest |f32(lg) - bf16(S)|)."""
+    h, w, b, labels, weights = ce_inputs(M, V, seed=M + V + 1, labels=labels)
+    ops = fused_ce.prepare(h, w, b, labels)
+    tag = f"fused_linear_ce_hybrid M={M} H={HIDDEN} V={V}"
+    lg, *got = fused_ce.ce_mat_fwd_kernel(*ops)
+    p_lg, lse, ll = fused_ce.ce_mat_fwd_plain(h, w, b, labels)
+    S = fused_ce._logits(h, w, b)
+    flips = check_written_logits(tag, lg, p_lg, S)
+    lg_err = float((lg.float() - p_lg.float()).abs().max())
+    del S, p_lg
+    errs = {"fused_linear_ce_mat_fwd": lg_err}
+    for name, a, r in zip(("lse", "ll"), got, (lse, ll)):
+        err, rel = rel_err(a, r)
+        if rel > CE_FWD_RTOL or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{tag} forward: {name} differs, {err:.3e} "
+                                 f"({rel:.2e} of max)")
+        errs["fused_linear_ce_mat_fwd"] = max(errs["fused_linear_ce_mat_fwd"], err)
+        print(f"{tag} forward {name}: max |kernel - plain| {err:.3e} ({rel:.2e} "
+              f"of max, tolerance {CE_FWD_RTOL})")
+    print(f"{tag} forward lg [{M}, {lg.shape[1]}] bf16: bit-identical to "
+          f"bf16(f32 S) but {flips} of {M * V} elements ({flips / (M * V):.2e}) "
+          f"whose f32 S lies within {LG_ATOL} of a rounding boundary; pad "
+          f"columns -1e30; max |kernel - plain| {lg_err:.3e}")
+    gw = weights
+    dh = fused_ce.ce_mat_dh_kernel(lg, ops[1], ops[3], lse, gw)
+    dw, db = fused_ce.ce_mat_dwdb_kernel(ops[0], lg, ops[3], lse, gw, V)
+    want = (fused_ce.ce_mat_dh_plain(lg, w, labels, lse, gw),
+            *fused_ce.ce_mat_dwdb_plain(h, lg, labels, lse, gw, V))
+    if bool(dh[weights == 0].any()):
+        raise AssertionError(f"{tag}: a row of weight 0 got a nonzero dh")
+    for name, a, r, tol, kern in zip(
+            ("dh", "dW", "db"), (dh, dw, db), want,
+            (CE_GRAD_RTOL, CE_GRAD_RTOL, CE_MAT_DB_RTOL),
+            ("fused_linear_ce_mat_dh", "fused_linear_ce_mat_dwdb",
+             "fused_linear_ce_mat_dwdb")):
+        err, rel = rel_err(a, r)
+        if rel > tol or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{tag} backward: {name} differs, {err:.3e} "
+                                 f"({rel:.2e} of max)")
+        errs[kern] = max(errs.get(kern, 0.0), err)
+        print(f"{tag} backward {name}: max |kernel - plain| {err:.3e} ({rel:.2e} "
+              f"of max, tolerance {tol})")
+    return errs
+
+
+def phase_ce_mat_kernels() -> dict:
+    """The train shapes (M = 30720 with the train batch's PAD rows, V =
+    11500, lg [30720, 11520]) and ragged ones: M = 1000 with V = 11519, M
+    = 300 with V = 2000 (not a multiple of 64)."""
+    errors = dict.fromkeys(MAT_KERNELS, 0.0)
+    for M, V, labels in ((TRAIN_T * TRAIN_ROWS, VOCAB, train_ce_labels()),
+                         (RAGGED_ROWS, 11519, None), (300, 2000, None)):
+        for k, err in check_ce_mat(M, V, labels).items():
+            errors[k] = max(errors[k], err)
+    return errors
+
+
+def mat_fwd_library_call(h, w, b, labels):
+    """The library chain of the written-logits forward on the same inputs:
+    ``F.linear`` in bf16 (the logits written), then ``torch.logsumexp``
+    and a gather of the label logits."""
+    h16, w16, b16 = (t.to(torch.bfloat16) for t in (h, w, b))
+    lab = labels.long()[:, None]
+
+    def call():
+        lg = F.linear(h16, w16, b16)
+        return lg, torch.logsumexp(lg, dim=1), lg.gather(1, lab)
+
+    return call
+
+
+def phase_ce_mat_kernel_times(label: str) -> dict:
+    """The three written-logits kernels against their plain versions at the
+    train shapes (M = 30720 with the batch's PAD rows, H = 512, V =
+    11500).  Bound: operations, 2·M·H·V each (nothing recomputes the
+    product).  Library: for the forward the chain ``F.linear`` bf16 +
+    ``torch.logsumexp`` + gather, for dh and dW/db the flash rows' library
+    backward (one ``autograd.grad`` for h, W and b)."""
+    M = TRAIN_T * TRAIN_ROWS
+    h, w, b, labels, weights = ce_inputs(M, VOCAB, seed=13, labels=train_ce_labels())
+    h16, w16, bf, lab = fused_ce.prepare(h, w, b, labels)
+    lg, lse, ll = fused_ce.ce_mat_fwd_kernel(h16, w16, bf, lab)
+    dh = fused_ce.ce_mat_dh_kernel(lg, w16, lab, lse, weights)
+    dw, db = fused_ce.ce_mat_dwdb_kernel(h16, lg, lab, lse, weights, VOCAB)
+    flops = 2.0 * M * HIDDEN * VOCAB
+    timer = lambda fn: cuda_ms(fn, iters=5, warmup=1)  # noqa: E731
+    lib_fwd = timer(mat_fwd_library_call(h, w, b, labels))
+    lib_bwd = timer(ce_library_calls(h, w, b, labels, weights)[1])
+    pairs = {
+        "fused_linear_ce_mat_fwd": (
+            lambda: fused_ce.ce_mat_fwd_kernel(h16, w16, bf, lab),
+            lambda: fused_ce.ce_mat_fwd_plain(h, w, b, labels),
+            bound(flops, nbytes(h16, w16, bf, lab, lg, lse, ll)), lib_fwd,
+            "F.linear bf16 + torch.logsumexp + gather"),
+        "fused_linear_ce_mat_dh": (
+            lambda: fused_ce.ce_mat_dh_kernel(lg, w16, lab, lse, weights),
+            lambda: fused_ce.ce_mat_dh_plain(lg, w, labels, lse, weights),
+            bound(flops, nbytes(lg, w16, lab, lse, weights, dh)), lib_bwd,
+            "F.linear bf16 + F.cross_entropy, backward: dh, dW, db"),
+        "fused_linear_ce_mat_dwdb": (
+            lambda: fused_ce.ce_mat_dwdb_kernel(h16, lg, lab, lse, weights, VOCAB),
+            lambda: fused_ce.ce_mat_dwdb_plain(h, lg, labels, lse, weights, VOCAB),
+            bound(flops, nbytes(h16, lg, lab, lse, weights, dw, db)), lib_bwd,
+            "F.linear bf16 + F.cross_entropy, backward: dh, dW, db"),
+    }
+    times = {}
+    for name, (fk, fp, bnd, lib, what) in pairs.items():
+        t = turns(fk, fp, timer)
+        times[name] = timing(t, bnd, lib)
+        print(f"time {name} (M={M} H={HIDDEN} V={VOCAB}): kernel {t[0]:.4f} ms, "
+              f"plain {t[1]:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), library "
+              f"({what}) {lib:.4f} ms [{label}]")
+    return times
+
+
+# ----------------------------------------------------------------------
 # phase 5: the train path at full width
 # ----------------------------------------------------------------------
 
@@ -1555,15 +1774,25 @@ METRIC_RTOL = 1e-2
 GRAD_SHARE = 2e-2
 
 
-def train_config(prior: str = "Normal") -> Config:
+def train_config(prior: str = "Normal", ce=None) -> Config:
     """The Normal-prior CVAE, the AG-CVAE with cluster vectors, or the
-    GMM-CVAE with cluster vectors and the flash CE, with the config.py
-    defaults (embed 256, hidden 512, latent 150, K_z 100, 90 clusters,
-    4096-d features, bf16, Adam 5e-4, clip 5.0) and vocab 11,500."""
-    cfg = Config(prior=prior, use_c_v=prior != "Normal", fused_ce=prior == "GMM",
-                 batch_size=TRAIN_IMAGES, num_captions=TRAIN_CAPTIONS)
+    GMM-CVAE with cluster vectors, with the config.py defaults (embed 256,
+    hidden 512, latent 150, K_z 100, 90 clusters, 4096-d features, bf16,
+    Adam 5e-4, clip 5.0) and vocab 11,500.  ``ce`` names the CE schedule
+    flag to set, one of CE_SCHEDULES ("" for the plain CE); by default the
+    GMM path takes the flash CE and the others the plain CE."""
+    if ce is None:
+        ce = "fused_ce" if prior == "GMM" else ""
+    cfg = Config(prior=prior, use_c_v=prior != "Normal",
+                 batch_size=TRAIN_IMAGES, num_captions=TRAIN_CAPTIONS,
+                 **({ce: True} if ce else {}))
     cfg.vocab_size = VOCAB
     return cfg
+
+
+def ce_flag(cfg: Config) -> str:
+    """The CE schedule flag ``cfg`` sets, or "" (the plain CE)."""
+    return next((f for f in CE_STEP_LAUNCHES if getattr(cfg, f)), "")
 
 
 def train_arrays(seed: int = 9) -> tuple:
@@ -1586,16 +1815,18 @@ def train_arrays(seed: int = 9) -> tuple:
             coco_cv(B, seed=seed))
 
 
-def train_launches(steps: int, ag: bool, ce: bool) -> dict:
+def train_launches(steps: int, ag: bool, ce: str) -> dict:
     """The kernels a run of ``steps`` train steps must launch: the LSTM
     sequence for the encoder and the decoder, the fused z, the AG heads
-    under the AG prior, the three CE kernels with ``fused_ce``, and never
-    the eps kernel (check only: the train step never materialises eps)."""
+    under the AG prior, the CE kernels of the CE schedule flag ``ce`` (none
+    of the six for the plain CE), and never the eps kernel (check only:
+    the train step never materialises eps)."""
+    per_step = CE_STEP_LAUNCHES.get(ce, {})
     return {"fused_lstm_seq_fwd": 2 * steps, "fused_lstm_seq_bwd": 2 * steps,
             "fused_z_fwd": steps, "fused_z_bwd": steps, "fused_z_eps": 0,
             "fused_ag_heads_fwd": steps if ag else 0,
             "fused_ag_heads_bwd": steps if ag else 0,
-            **{k: steps if ce else 0 for k in CE_KERNELS}}
+            **{k: steps * per_step.get(k, 0) for k in CE_KERNELS + MAT_KERNELS}}
 
 
 def phase_train_path(cfg, arrays, tag: str):
@@ -1607,7 +1838,7 @@ def phase_train_path(cfg, arrays, tag: str):
     metrics = [trainer.run_step_arrays(arrays) for _ in range(TRAIN_STEPS)]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    want = train_launches(TRAIN_STEPS, cfg.prior == "AG", cfg.fused_ce)
+    want = train_launches(TRAIN_STEPS, cfg.prior == "AG", ce_flag(cfg))
     launches = {k: _ext.LAUNCHES[k] for k in want}               # right after
     losses = [float(m["loss"]) for m in metrics]
     print(f"{tag} path: {TRAIN_STEPS} steps of {TRAIN_IMAGES} images x "
@@ -1728,26 +1959,35 @@ def phase_train_times(cfg, arrays, label: str, tag: str) -> None:
           f"({TRAIN_IMAGES / tp * 1e3:.0f} images/s) [{label}]")
 
 
-def phase_ce_step_times(cfg, arrays, label: str) -> None:
-    """The GMM step with the flash CE against the same step with the plain
-    CE over bf16 logits (``fused_ce=False``), both through the kernels
-    otherwise, in turns by CUDA events over 5 steps after 1 warm-up; then
-    the peak device memory of one step of each, alone on the card (the
-    other Trainer freed): max_memory_allocated after
-    reset_peak_memory_stats, and its rise over what was allocated before
-    the step."""
-    flash = Trainer(cfg.replace(), device=DEV)
-    plain_ce = Trainer(cfg.replace(fused_ce=False), device=DEV)
-    tf, tp = turns(lambda: flash.run_step_arrays(arrays),
-                   lambda: plain_ce.run_step_arrays(arrays),
-                   lambda fn: cuda_ms(fn, iters=5, warmup=1))
-    print(f"time train-gmm step, {TRAIN_IMAGES} images x {TRAIN_CAPTIONS} "
-          f"captions x {TRAIN_T} tokens: flash CE {tf:.2f} ms "
-          f"({TRAIN_IMAGES / tf * 1e3:.0f} images/s), plain CE {tp:.2f} ms "
-          f"({TRAIN_IMAGES / tp * 1e3:.0f} images/s) [{label}]")
-    del flash, plain_ce
-    for name, c in (("flash CE", cfg.replace()), ("plain CE", cfg.replace(fused_ce=False))):
-        trainer = Trainer(c, device=DEV)
+CE_NAMES = {"": "plain CE", "fused_ce": "flash CE", "ce_hybrid": "hybrid CE",
+            "ce_xla_bwd": "XLA-forward CE"}
+
+
+def phase_ce_step_times(prior: str, arrays, label: str) -> None:
+    """The ``prior`` model's full-width step under the four CE schedules
+    (plain CE over bf16 logits, flash, hybrid, XLA forward), all through
+    the kernels otherwise, in turns by CUDA events over 5 steps after 1
+    warm-up (the schedules in order, then in reverse, averaged); then the
+    peak device memory of one step of each, alone on the card (the other
+    Trainers freed): max_memory_allocated after reset_peak_memory_stats,
+    and its rise over what was allocated before the step."""
+    tag = {"GMM": "train-gmm", "Normal": "train"}[prior]
+    trainers = [Trainer(train_config(prior, ce), device=DEV)
+                for ce in CE_SCHEDULES]
+    timer = lambda fn: cuda_ms(fn, iters=5, warmup=1)  # noqa: E731
+    fns = [lambda tr=tr: tr.run_step_arrays(arrays) for tr in trainers]
+    first = [timer(fn) for fn in fns]
+    second = [timer(fn) for fn in reversed(fns)][::-1]
+    for ce, t1, t2 in zip(CE_SCHEDULES, first, second):
+        ms = (t1 + t2) / 2
+        print(f"time {tag} step, {CE_NAMES[ce]}, {TRAIN_IMAGES} images x "
+              f"{TRAIN_CAPTIONS} captions x {TRAIN_T} tokens: {ms:.2f} ms "
+              f"({TRAIN_IMAGES / ms * 1e3:.0f} images/s; turns {t1:.2f}, "
+              f"{t2:.2f}) [{label}]")
+    del trainers, fns
+    torch.cuda.empty_cache()
+    for ce in CE_SCHEDULES:
+        trainer = Trainer(train_config(prior, ce), device=DEV)
         trainer.run_step_arrays(arrays)
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated(DEV)
@@ -1755,7 +1995,7 @@ def phase_ce_step_times(cfg, arrays, label: str) -> None:
         trainer.run_step_arrays(arrays)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated(DEV)
-        print(f"memory train-gmm step, {name}: peak {peak / 2**20:.1f} MiB "
+        print(f"memory {tag} step, {CE_NAMES[ce]}: peak {peak / 2**20:.1f} MiB "
               f"allocated, {(peak - base) / 2**20:.1f} MiB above the "
               f"{base / 2**20:.1f} MiB held before the step [{label}]")
         del trainer
@@ -1768,14 +2008,14 @@ PROFILE_STEPS = 5
 def port_kernel_names() -> dict:
     """{kernel function name: source file} over the sources in csrc/."""
     names = {}
-    for src in _ext._sources():
+    for src in sorted(_ext.CSRC_DIR.glob("*.cu*")):
         for name in re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
                                r"(\w+)", src.read_text()):
             names[name] = src.name
     return names
 
 
-def phase_train_profile(out_dir: str, label: str, prior: str) -> None:
+def phase_train_profile(out_dir: str, label: str, prior: str, ce=None) -> None:
     """The kernel path's full-width train step of the ``prior`` model
     under torch.profiler: PROFILE_STEPS steps after 3 warm-up steps.  The
     trace's kernel, memcpy and memset events are summed per step by name
@@ -1784,11 +2024,14 @@ def phase_train_profile(out_dir: str, label: str, prior: str) -> None:
     intervals, and the idle share is 1 - busy / the step's host-clock
     time under the profiler.  Writes the trace and a summary to
     ``out_dir`` (``train_*`` for the Normal prior, ``ag_train_*`` for
-    AG, ``gmm_train_*`` for GMM with the flash CE)."""
+    AG, ``gmm_train_*`` for GMM with the flash CE, ``gmm_hybrid_train_*``
+    with the hybrid CE, ``ce="ce_hybrid"``)."""
     from torch.profiler import ProfilerActivity, profile
-    trainer = Trainer(train_config(prior), device=DEV)
+    trainer = Trainer(train_config(prior, ce), device=DEV)
     arrays = train_arrays()
     prefix = {"Normal": "train", "AG": "ag_train", "GMM": "gmm_train"}[prior]
+    if ce == "ce_hybrid":
+        prefix = "gmm_hybrid_train"
     for _ in range(3):
         trainer.run_step_arrays(arrays)
     torch.cuda.synchronize()
@@ -1828,7 +2071,8 @@ def phase_train_profile(out_dir: str, label: str, prior: str) -> None:
         busy += max(0.0, stop - max(start, end))
         end = max(end, stop)
     busy_ms = busy / 1e3 / PROFILE_STEPS
-    print(f"profile: {prior} train step {TRAIN_IMAGES} images x {TRAIN_CAPTIONS} "
+    print(f"profile: {prior} ({CE_NAMES[ce_flag(trainer.cfg)]}) train step "
+          f"{TRAIN_IMAGES} images x {TRAIN_CAPTIONS} "
           f"captions x {TRAIN_T} tokens, {PROFILE_STEPS} steps after 3 warm-up "
           f"[{label}]: {step_ms:.3f} ms/step under the profiler, device busy "
           f"{busy_ms:.3f} ms, idle share {1 - busy_ms / step_ms:.4f}")
@@ -1839,7 +2083,8 @@ def phase_train_profile(out_dir: str, label: str, prior: str) -> None:
         print(f"profile kernel {ms:9.4f} ms/step {n / PROFILE_STEPS:6.1f} "
               f"launches/step  {key}")
     with open(os.path.join(out_dir, f"{prefix}_profile.json"), "w") as f:
-        json.dump({"card": label, "prior": prior, "steps": PROFILE_STEPS,
+        json.dump({"card": label, "prior": prior,
+                   "ce": CE_NAMES[ce_flag(trainer.cfg)], "steps": PROFILE_STEPS,
                    "step_ms": step_ms,
                    "busy_ms": busy_ms, "groups": groups, "by_name": by_name}, f,
                   indent=1)
@@ -1864,33 +2109,42 @@ def main() -> None:
         _ext.library_path(src).name for src in _ext._sources())
         + f" (nvcc output in {out_dir}/build.log)")
     if sys.argv[1:] == ["--profile"]:
-        for prior in ("Normal", "AG", "GMM"):
-            phase_train_profile(out_dir, label, prior)
+        for prior, ce in (("Normal", ""), ("AG", ""), ("GMM", "fused_ce"),
+                          ("GMM", "ce_hybrid")):
+            phase_train_profile(out_dir, label, prior, ce)
         return
 
     t0 = time.perf_counter()
     errors = {**phase_kernels(), **phase_mode_kernels(), **phase_train_kernels(),
-              **phase_ag_kernels(), **phase_ce_kernels()}
+              **phase_ag_kernels(), **phase_ce_kernels(), **phase_ce_mat_kernels()}
     cfg, vocab, model, launches = phase_main_path(out_dir)
     phase_decode_compare(cfg, vocab, model)
     launches.update(phase_mode_paths(cfg, vocab, model, out_dir))
     phase_mode_compare(cfg, vocab, model)
-    for prior, tag, kernels in (("Normal", "train", TRAIN_KERNELS + ("fused_z_eps",)),
-                                ("AG", "train-ag", AG_KERNELS),
-                                ("GMM", "train-gmm", CE_KERNELS)):
-        tcfg, arrays = train_config(prior), train_arrays()
+    # (prior, CE flag, tag, the kernels whose launches the record reads from
+    # this path, whether the checkpoint round trip runs); the xla-bwd path
+    # runs the hybrid's backward kernels, whose launches it checks itself
+    for prior, ce, tag, kernels, round_trip in (
+            ("Normal", "", "train", TRAIN_KERNELS + ("fused_z_eps",), True),
+            ("AG", "", "train-ag", AG_KERNELS, True),
+            ("GMM", "fused_ce", "train-gmm", CE_KERNELS, True),
+            ("GMM", "ce_hybrid", "train-gmm-hybrid", MAT_KERNELS, False),
+            ("GMM", "ce_xla_bwd", "train-gmm-xla-bwd", (), False)):
+        tcfg, arrays = train_config(prior, ce), train_arrays()
         trainer, path_launches = phase_train_path(tcfg, arrays, tag)
         launches.update({k: path_launches[k] for k in kernels})
         phase_train_compare(tcfg, train_arrays(seed=10), tag)
-        phase_round_trip(tcfg, trainer, out_dir, tag)
+        if round_trip:
+            phase_round_trip(tcfg, trainer, out_dir, tag)
         del trainer
     times = {**phase_kernel_times(label), **phase_mode_kernel_times(label),
              **phase_train_kernel_times(label), **phase_ag_kernel_times(label),
-             **phase_ce_kernel_times(label)}
+             **phase_ce_kernel_times(label), **phase_ce_mat_kernel_times(label)}
     phase_decode_times(cfg, vocab, model, label)
     for prior, tag in (("Normal", "train"), ("AG", "train-ag"), ("GMM", "train-gmm")):
         phase_train_times(train_config(prior), train_arrays(seed=12), label, tag)
-    phase_ce_step_times(train_config("GMM"), train_arrays(seed=12), label)
+    for prior in ("GMM", "Normal"):
+        phase_ce_step_times(prior, train_arrays(seed=12), label)
     print(f"phases: {time.perf_counter() - t0:.1f} s")
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "optax", "orbax", "vae_captioning_tpu"))
@@ -1901,7 +2155,8 @@ def main() -> None:
              **{k: path for path, k in MODE_PATHS.items()},
              **{k: "train" for k in TRAIN_KERNELS}, "fused_z_eps": "check",
              **{k: "train-ag" for k in AG_KERNELS},
-             **{k: "train-gmm" for k in CE_KERNELS}}
+             **{k: "train-gmm" for k in CE_KERNELS},
+             **{k: "train-gmm-hybrid" for k in MAT_KERNELS}}
     record = {"kernels": [
         {"name": name, **meta, "path": paths[name], "launches": launches[name],
          "max_abs_err": errors[name], **times[name]}

@@ -2,10 +2,15 @@
 ``Config`` fields and defaults, ``parse_args`` on the same argv, the
 ``config.json`` and ``vocab.json`` sidecars in both directions, and the
 ``Data`` facade's vocabulary and batches on the synthetic mini-COCO for
-the same seed.  What needs VGG16 or raw images raises, naming A.8."""
+the same seed.  What needs VGG16 or raw images raises, naming A.8.  The
+feature and cluster-vector loaders raise ValueError on names that
+disagree with their arrays, under ``python -O`` too, and close their npz
+files."""
 
 import dataclasses
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -16,6 +21,7 @@ from vae_captioning_tpu.data import features as jfeatures
 from vae_captioning_tpu.data import vocabulary as jvocab
 from vae_captioning_torch import config as tconfig
 from vae_captioning_torch.data import batcher as tbatcher
+from vae_captioning_torch.data import cluster_vectors as tcluster_vectors
 from vae_captioning_torch.data import dataset as tdataset
 from vae_captioning_torch.data import features as tfeatures
 from vae_captioning_torch.data import vocabulary as tvocab
@@ -175,3 +181,67 @@ def test_metric_logger_and_prefetcher(tmp_path):
     assert next(stream) == 1
     with pytest.raises(KeyError, match="boom"):
         next(stream)
+
+
+# ----------------------------------------------------------------------
+# the loaders check their arrays and close their npz files
+# ----------------------------------------------------------------------
+
+def test_feature_store_rejects_names_that_disagree_with_rows():
+    with pytest.raises(ValueError, match="3 names for 2 feature rows"):
+        tfeatures.FeatureStore(["a.jpg", "b.jpg", "c.jpg"], np.ones((2, 8)))
+
+
+def test_feature_store_check_holds_under_python_O(tmp_path):
+    """The check is no assert: ``python -O`` keeps it."""
+    script = ("import numpy as np\n"
+              "from vae_captioning_torch.data.features import FeatureStore\n"
+              "try:\n"
+              "    FeatureStore(['a.jpg', 'b.jpg'], np.ones((3, 4)))\n"
+              "except ValueError as e:\n"
+              "    print('raised', e)\n")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-O", "-c", script], cwd=tmp_path,
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "raised FeatureStore: 2 names for 3 feature rows" in proc.stdout
+
+
+def test_cluster_vectors_reject_names_that_disagree_with_vectors(tmp_path):
+    path = str(tmp_path / "c_v.npz")
+    np.savez(path, names=np.array(["a.jpg", "b.jpg"]),
+             vectors=np.ones((3, 90), np.float32))
+    with pytest.raises(ValueError, match="2 names for 3 cluster vectors"):
+        tcluster_vectors.load(path)
+
+
+@pytest.fixture()
+def npz_opened(monkeypatch):
+    """np.load wrapped: every NpzFile it returns is kept."""
+    opened, orig = [], np.load
+
+    def load(*args, **kwargs):
+        out = orig(*args, **kwargs)
+        opened.append(out)
+        return out
+
+    monkeypatch.setattr(np, "load", load)
+    return opened
+
+
+def test_feature_store_load_closes_its_npz(tmp_path, npz_opened):
+    path = str(tmp_path / "f.features.npz")
+    tfeatures.FeatureStore(["a.jpg", "b.jpg"], np.arange(8.0).reshape(2, 4)).save(path)
+    store = tfeatures.FeatureStore.load(path)
+    np.testing.assert_array_equal(store.get_batch(["b.jpg"]), [[4, 5, 6, 7]])
+    assert len(npz_opened) == 1 and npz_opened[0].zip is None
+
+
+def test_cluster_vectors_load_closes_its_npz(tmp_path, npz_opened):
+    path = str(tmp_path / "c_v.npz")
+    tcluster_vectors.save({"a.jpg": np.ones(90), "b.jpg": np.zeros(90)}, path)
+    vectors = tcluster_vectors.load(path)
+    assert sorted(vectors) == ["a.jpg", "b.jpg"] and vectors["a.jpg"].sum() == 90
+    assert len(npz_opened) == 1 and npz_opened[0].zip is None

@@ -2,9 +2,9 @@
 the lowest-index tie rule, the wrappers' checks and launch counts, the
 sampler's bits and law, a small decode in every mode (bf16, int8,
 unfused, sampled) and a few train steps (Normal prior, AG prior, GMM prior
-with the flash CE) through the kernels against the same through the
-plain versions, and the fused z generator's bits against the plain
-generator's.
+with the flash, hybrid and XLA-forward CE) through the kernels against
+the same through the plain versions, and the fused z generator's bits
+against the plain generator's.
 
 Every test needs an NVIDIA GPU with nvcc and skips without one.  This
 file imports no JAX, so it also runs on a machine without it:
@@ -24,10 +24,11 @@ from vae_captioning_torch.inference import PLAIN_OPS, make_decode_fns
 from vae_captioning_torch.models.cvae import CVAEModel
 from vae_captioning_torch.ops.fused_ag_heads import (ag_heads_plain,
                                                      fused_ag_heads)
-from vae_captioning_torch.ops.fused_ce import (ce_fwd_plain,
-                                               fused_ce_fwd_kernel,
-                                               fused_linear_ce,
-                                               fused_linear_ce_plain, prepare)
+from vae_captioning_torch.ops.fused_ce import (
+    ce_fwd_plain, ce_mat_fwd_kernel, ce_mat_fwd_plain, fused_ce_fwd_kernel,
+    fused_linear_ce, fused_linear_ce_hybrid, fused_linear_ce_hybrid_plain,
+    fused_linear_ce_plain, fused_linear_ce_xla_bwd,
+    fused_linear_ce_xla_bwd_plain, prepare)
 from vae_captioning_torch.ops.fused_logits_topk import (
     fused_logits_sample, fused_logits_top_k, fused_logits_top_k_int8,
     fused_logits_top_k_int8_plain, fused_logits_top_k_plain,
@@ -484,15 +485,75 @@ def test_linear_ce_wrapper_checks_its_inputs(dev):
                         torch.zeros(30, device=dev), lab, torch.ones(5, device=dev))
 
 
-@pytest.mark.parametrize("prior", ["Normal", "AG", "GMM"])
+@pytest.mark.parametrize("schedule", ["hybrid", "xla_bwd"])
+@pytest.mark.parametrize("M,H,V", [(300, 64, 2000), (1000, 512, 11519),
+                                   (77, 128, 301)])
+def test_written_logits_ce_kernels_match_plain(dev, schedule, M, H, V):
+    """The hybrid schedule's three kernels (the XLA forward's two backward
+    ones) against the plain twin's VJP, about 40% of the rows PAD: the
+    loss to 1e-5, db to 1e-4 of its largest element, dh and dW to 1e-3 (as
+    the flash kernels'); rows of weight 0 get dh = 0 exactly; the written
+    logits bit for bit but where another f32 sum order crosses a bf16
+    rounding boundary: each element that differs is the rounding of a
+    value within 1e-5 of the plain f32 logit (2.5e-4 of the elements at H
+    = 512)."""
+    fn, plain = {"hybrid": (fused_linear_ce_hybrid, fused_linear_ce_hybrid_plain),
+                 "xla_bwd": (fused_linear_ce_xla_bwd,
+                             fused_linear_ce_xla_bwd_plain)}[schedule]
+    g = torch.Generator(device=dev).manual_seed(M + V)
+    h = torch.tanh(torch.randn((M, H), generator=g, device=dev))
+    w = 0.05 * torch.randn((V, H), generator=g, device=dev)
+    b = 0.1 * torch.randn((V,), generator=g, device=dev)
+    labels = torch.randint(1, V, (M,), generator=g, device=dev)
+    mask = (torch.rand((M,), generator=g, device=dev) > 0.4).float()
+    labels[mask == 0] = 0
+    weights = mask / mask.sum()
+    leaves = [[t.clone().requires_grad_() for t in (h, w, b)] for _ in range(2)]
+    before = dict(_ext.LAUNCHES)
+    losses = []
+    for f, lv in zip((fn, plain), leaves):
+        loss = f(*lv, labels, weights)
+        loss.backward()
+        losses.append(float(loss.detach()))
+    torch.cuda.synchronize()
+    want = {"mat_fwd": 1 if schedule == "hybrid" else 0, "mat_dh": 1,
+            "mat_dwdb": 1, "fwd": 0, "dh": 0, "dwdb": 0}
+    for name, n in want.items():
+        key = f"fused_linear_ce_{name}"
+        assert _ext.LAUNCHES[key] == before[key] + n, key
+    assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[1])
+    for name, a, r, tol in zip(("dh", "dw", "db"), leaves[0], leaves[1],
+                               (1e-3, 1e-3, 1e-4)):
+        assert a.grad.dtype == torch.float32 and bool(torch.isfinite(a.grad).all())
+        assert _rel(a.grad, r.grad) < tol, name
+    assert not leaves[0][0].grad[mask == 0].any()
+    if schedule == "hybrid":
+        lg, lse, ll = ce_mat_fwd_kernel(*prepare(h, w, b, labels))
+        p_lg, p_lse, p_ll = ce_mat_fwd_plain(h, w, b, labels)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(lse, p_lse, rtol=1e-5, atol=0)
+        assert _rel(ll, p_ll) < 1e-5
+        assert torch.equal(lg[:, V:], p_lg[:, V:])
+        diff = lg[:, :V] != p_lg[:, :V]
+        got = lg[:, :V].float()[diff]
+        S = (h.to(torch.bfloat16).float() @ w.to(torch.bfloat16).float().t() + b)[diff]
+        half_step = torch.ldexp(torch.ones_like(got), torch.frexp(got).exponent - 9)
+        assert bool(((got - S).abs() <= half_step + 1e-5).all())
+        assert int(diff.sum()) <= 1e-3 * diff.numel()
+
+
+@pytest.mark.parametrize("prior", ["Normal", "AG", "GMM", "GMM-ce_hybrid",
+                                   "GMM-ce_xla_bwd"])
 def test_train_steps_through_kernels_match_plain(dev, prior):
-    """The GMM case trains with the flash CE (``fused_ce``); its two
-    Trainers draw the same clusters from generators of the same seed."""
+    """The GMM cases train with the flash CE (``fused_ce``), the hybrid
+    and the XLA-forward CE; each case's two Trainers draw the same
+    clusters from generators of the same seed."""
     from vae_captioning_torch.models.cvae import PLAIN_TRAIN_OPS
     from vae_captioning_torch.train import Trainer
+    prior, _, flag = prior.partition("-")
     cfg = Config(embed_size=64, latent_size=16, encoder_hidden=64,
                  decoder_hidden=128, gen_z_samples=4, prior=prior,
-                 use_c_v=prior == "AG", fused_ce=prior == "GMM")
+                 use_c_v=prior == "AG", **{flag or "fused_ce": prior == "GMM"})
     cfg.vocab_size = 300
     rng = np.random.default_rng(0)
     B, K, T = 8, 5, 12

@@ -372,8 +372,8 @@ def test_cli_inference_on_mini_coco(models, mini_coco, tmp_path, monkeypatch):
         test = json.load(f)
     assert len(val) == 6 and len(test) == 4
     assert all(isinstance(c["caption"], str) for c in val + test)
-    # training is ported for every prior; the hybrid CE schedule raises
-    # before any data is read
-    with pytest.raises(NotImplementedError, match=r"B\.10"):
-        tcli.main(["--mode", "training", "--set", "ce_hybrid=True",
+    # training is ported for every prior and CE schedule; resuming a run
+    # raises before any data is read
+    with pytest.raises(NotImplementedError, match=r"A\.6\.3"):
+        tcli.main(["--mode", "training", "--set", "restore=True",
                    "--device", "cpu"])

@@ -2,7 +2,8 @@
 training forward of models/cvae.py) against the JAX package: the forward
 and the loss, a 3-step ``make_train_step`` trajectory (Normal prior; AG
 prior with both ``ag_kl_sum`` settings; GMM prior with the flash CE and
-both ``gmm_true_kl`` settings), the optimizer against optax, KL
+both ``gmm_true_kl`` settings, and under the hybrid and XLA-forward CE
+schedules), the optimizer against optax, KL
 annealing, ``Trainer.fit`` and ``cli --mode training`` on the synthetic
 mini-COCO, and the configurations that raise.
 
@@ -422,6 +423,77 @@ def test_gmm_fused_ce_three_train_steps_match_jax(interpreted, fixed_clusters,
                 <= 0.02 * np.abs(delta_j).mean()), key
 
 
+@pytest.mark.parametrize("schedule", ["ce_hybrid", "ce_xla_bwd"])
+def test_gmm_written_logits_three_train_steps_match_jax(
+        interpreted, fixed_clusters, gmm_jax_model, schedule):
+    """``Config(prior="GMM", ce_hybrid=True)`` and ``(..., ce_xla_bwd=True)``:
+    the JAX step runs the schedule's Pallas kernels (interpret mode), the
+    port the plain twin that its flag means on the CPU, over the same
+    cluster draws; the metrics to METRIC_RTOL, and the heads and the
+    logits head moved alike."""
+    cfg, model, params, flat = gmm_jax_model
+    cfg = cfg.replace(fused_ce=False, **{schedule: True})
+    feats, enc, dec, lens = _batch(seed=12)
+    cv = _gmm_cv(12)
+    tx = jtrain.make_optimizer(cfg)
+    state = jtrain.TrainState.create(params, tx)
+    step = jtrain.make_train_step(model, tx, cfg, donate=False)
+    args = [jnp.asarray(a) for a in (feats, enc, dec, lens, cv)]
+    want = []
+    for _ in range(3):
+        state, m = step(state, *args, jax.random.PRNGKey(1))
+        want.append({k: float(v) for k, v in m.items()})
+    trainer = ttrain.Trainer(cfg.replace(), device="cpu", params=flat,
+                             ops=_ops(_eps(cfg)))
+    trainer.clusters = fixed_clusters
+    arrays = (torch.from_numpy(feats), torch.from_numpy(enc).long(),
+              torch.from_numpy(dec).long(), torch.from_numpy(lens),
+              torch.from_numpy(cv))
+    got = [{k: float(v) for k, v in trainer.run_step_arrays(arrays).items()}
+           for _ in range(3)]
+    for i, (g, w) in enumerate(zip(got, want)):
+        for key in ("loss", "rec_loss", "kld", "grad_norm"):
+            assert abs(g[key] - w[key]) <= METRIC_RTOL * abs(w[key]), (i, key, g, w)
+    assert got[2]["loss"] < got[0]["loss"]
+    moved = export_flax_params(trainer.model)
+    jp = {"/".join(k): np.asarray(v)
+          for k, v in flatten_dict(jax.device_get(state.params)).items()}
+    for key in ("encoder/q_heads/kernel", "decoder/rnn_logits/kernel",
+                "decoder/rnn_logits/bias"):
+        delta_t, delta_j = moved[key] - flat[key], jp[key] - flat[key]
+        assert (np.abs(delta_t - delta_j).mean()
+                <= 0.02 * np.abs(delta_j).mean()), key
+
+
+@pytest.mark.parametrize("schedule", ["fused_ce", "ce_hybrid", "ce_xla_bwd"])
+def test_each_ce_flag_picks_its_ce_function(schedule):
+    """The train and eval steps hand ``compute_loss`` the flag's CE
+    function of their TrainOps (here a recorder) and the decoder's hidden
+    rows; without a flag, the logits."""
+    seen = []
+
+    def recorder(name):
+        def ce(h, w, b, labels, weights):
+            seen.append((name, tuple(h.shape)))
+            return (h.float().sum() * 0 + weights.sum()).reshape(())
+        return ce
+
+    cfg = _cfg(prior="GMM", num_clusters=6, embed_size=32, encoder_hidden=32,
+               decoder_hidden=32, latent_size=8, **{schedule: True})
+    ops = TrainOps(linear_ce=recorder("fused_ce"),
+                   linear_ce_hybrid=recorder("ce_hybrid"),
+                   linear_ce_xla_bwd=recorder("ce_xla_bwd"))
+    trainer = ttrain.Trainer(cfg, device="cpu", ops=ops)
+    feats, enc, dec, lens = _batch(seed=13)
+    cv = np.random.default_rng(13).dirichlet(np.ones(6), size=B)
+    arrays = (torch.from_numpy(feats), torch.from_numpy(enc).long(),
+              torch.from_numpy(dec).long(), torch.from_numpy(lens),
+              torch.from_numpy(cv.astype(np.float32)))
+    trainer.run_step_arrays(arrays)
+    trainer.eval_step(*arrays, z_seed=1, clusters=torch.Generator().manual_seed(0))
+    assert seen == [(schedule, (T * B * K, 32))] * 2
+
+
 @pytest.mark.parametrize("fused_ce", [False, True])
 def test_gmm_trainer_draws_from_its_own_generator(fused_ce):
     """Two Trainers from one seed draw the same clusters and take the same
@@ -654,15 +726,22 @@ def test_gmm_fused_ce_cli_training_end_to_end(mini_coco, tmp_path,
         assert len(json.load(f)) == 4
 
 
+def test_gmm_hybrid_ce_cli_training_end_to_end(mini_coco, tmp_path,
+                                              monkeypatch):
+    """``--set prior=GMM --set ce_hybrid=True`` trains the GMM-CVAE through
+    the hybrid CE (its plain twin on the CPU)."""
+    _, model, _ = _cli_train(mini_coco, tmp_path, monkeypatch,
+                             "--set", "prior=GMM", "--set", "ce_hybrid=True")
+    assert model.prior == "GMM"
+
+
 @pytest.mark.parametrize("override,item", [
-    (dict(ce_xla_bwd=True), "B.10"),
     (dict(restore=True), "A.6.3"),
     (dict(dec_lstm_drop=0.5), "D.6"),
     (dict(encoder_rnn_layers=2), "D.1"),
     (dict(decoder_rnn_layers=2), "D.1"),
     (dict(compute_dtype="float32"), "D.2"),
     (dict(fine_tune=True), "A.8"),
-    (dict(ce_hybrid=True), "B.10"),
     (dict(eval_metrics=True), "A.6.4"),
 ])
 def test_uncovered_training_configurations_raise(override, item):

@@ -6,7 +6,8 @@ hand-written CUDA kernels: the decode path of the CVAEs in every mode
 int8 top-k, Gumbel-max sampling; ``csrc/topk_lse.cu``: top-k over
 written logits) and the train step of the AG-, GMM- and Normal-prior
 CVAEs and the baseline (``csrc/fused_lstm_seq.cu``, ``csrc/fused_z.cu``,
-``csrc/fused_ag_heads.cu``, ``csrc/fused_ce.cu``, forward and
+``csrc/fused_ag_heads.cu``, and the linear CE under its three schedules,
+``csrc/fused_ce.cu`` and ``csrc/fused_ce_mat.cu``, forward and
 backward).  Module names mirror
 ``vae_captioning_tpu`` so each counterpart is easy to find; the JAX
 package stays the reference the port is tested against.

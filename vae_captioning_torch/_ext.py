@@ -42,7 +42,9 @@ LAUNCHES: Dict[str, int] = {
     "fused_ag_heads_fwd": 0, "fused_ag_heads_bwd": 0,
     "fused_linear_ce_fwd": 0, "fused_linear_ce_dh": 0,
     "fused_linear_ce_dwdb": 0, "fused_logits_top_k_int8": 0,
-    "fused_logits_sample": 0, "top_k_logsumexp": 0}
+    "fused_logits_sample": 0, "top_k_logsumexp": 0,
+    "fused_linear_ce_mat_fwd": 0, "fused_linear_ce_mat_dh": 0,
+    "fused_linear_ce_mat_dwdb": 0}
 
 _lib: Optional[SimpleNamespace] = None
 # Seconds the first library() call spent compiling (0.0 when every
@@ -74,6 +76,9 @@ _SIGNATURES = {
     "vct_fused_ce_fwd": [_P] * 7 + [_I] * 4 + [_P],
     "vct_fused_ce_dh": [_P] * 7 + [_I] * 3 + [_P],
     "vct_fused_ce_dwdb": [_P] * 10 + [_I] * 4 + [_P],
+    "vct_fused_ce_mat_fwd": [_P] * 8 + [_I] * 4 + [_P],
+    "vct_fused_ce_mat_dh": [_P] * 6 + [_I] * 3 + [_P],
+    "vct_fused_ce_mat_dwdb": [_P] * 9 + [_I] * 4 + [_P],
 }
 
 

@@ -117,10 +117,12 @@ class Config:
     mesh_axis: str = "dp"       # JAX: data-parallel mesh axis name
     profile: bool = False       # JAX: profiler traces (port: ROADMAP A.10)
     debug_nans: bool = False
-    # the fused CE schedules, at most one set: fused_ce is the flash CE
-    # (ops/fused_ce.py; the [M, V] logits never reach memory); ce_hybrid
-    # and ce_xla_bwd raise (port: ROADMAP B.10); ce_bias_fold is a JAX
-    # schedule of the plain logits head, which the port does not read
+    # the fused CE schedules, at most one set (ops/fused_ce.py): fused_ce
+    # is the flash CE (the [M, V] logits never reach memory); ce_hybrid
+    # writes the bf16 logits once and folds the reductions into the
+    # passes over them; ce_xla_bwd is a plain forward with the hybrid's
+    # backward kernels; ce_bias_fold is a JAX schedule of the plain
+    # logits head, which the port does not read
     fused_ce: bool = False
     ce_hybrid: bool = False
     ce_xla_bwd: bool = False

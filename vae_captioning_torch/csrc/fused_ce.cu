@@ -4,7 +4,9 @@
 //
 // Replaces the TPU kernels of vae_captioning_tpu/ops/fused_ce.py:
 // _fwd_kernel (:59), _dh_kernel (:134) and _dwdb_kernel (:159), called
-// through fused_linear_ce.
+// through fused_linear_ce.  The forward kernel, its merge launch and the
+// tile helpers live in fused_ce.cuh, which the written-logits schedule
+// (fused_ce_mat.cu) shares.
 //
 //   S   = h @ W^T + b                      [M, V]  (never written)
 //   lse = logsumexp_v S,    ll = S[label]
@@ -13,7 +15,7 @@
 //
 // h [M, H] and W [V, H] (the rnn_logits nn.Linear weight, read in that
 // layout) in bf16, the products accumulated in f32 by WMMA; b f32.  Padded
-// vocab columns count as -inf in the forward and give dl = 0; rows past M
+// vocab columns count as -1e30 in the forward and give dl = 0; rows past M
 // read zeros and carry gw = 0, so they add nothing.
 //
 // What bounds it on this card: tensor-core operations.  At the train shapes
@@ -44,102 +46,15 @@
 // * No cp.async, TMA or wgmma yet: tiles are loaded with 16-byte loads, and
 //   two blocks per SM overlap one block's loads with the other's products.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <mma.h>
-#include <stdint.h>
+#include "fused_ce.cuh"
 
 namespace {
-
-using namespace nvcuda;
-using bf16 = __nv_bfloat16;
-using AccFrag = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int PAD = 8;            // bf16 padding of a shared row of H
-
-// forward and dh: 32 rows x 64 vocab columns per logits tile
-constexpr int RM = 32;
-constexpr int RV = 64;
-constexpr int R_S_LD = RV + 4;
-constexpr int R_DL_LD = RV + PAD;
-// dW/db: 64 rows x 32 vocab columns per logits tile
-constexpr int WM = 64;
-constexpr int WV = 32;
-constexpr int W_S_LD = WV + 4;
-constexpr int W_DL_LD = WV + PAD;
-
-// rows [r0, r0 + R) of a [rows, H] bf16 matrix into shared [R][H + PAD];
-// rows at and past r_end read zeros
-template <int H, int R>
-__device__ __forceinline__ void load_rows(const bf16* __restrict__ g, int r0,
-                                          int r_end, bf16* __restrict__ s) {
-  constexpr int PER_ROW = H / 8;
-  for (int i = threadIdx.x; i < R * PER_ROW; i += THREADS) {
-    const int r = i / PER_ROW;
-    const int c = (i % PER_ROW) * 8;
-    uint4 x = make_uint4(0, 0, 0, 0);
-    if (r0 + r < r_end)
-      x = *reinterpret_cast<const uint4*>(&g[static_cast<size_t>(r0 + r) * H + c]);
-    *reinterpret_cast<uint4*>(&s[r * (H + PAD) + c]) = x;
-  }
-}
-
-// S[MR][NC + 4] (f32, shared) <- hs[MR rows] @ ws[NC rows]^T, contracting H;
-// one 16 x 16 fragment per warp
-template <int H, int MR, int NC>
-__device__ __forceinline__ void logits_tile(const bf16* __restrict__ hs,
-                                            const bf16* __restrict__ ws,
-                                            float* __restrict__ S) {
-  static_assert((MR / 16) * (NC / 16) == WARPS, "one fragment per warp");
-  constexpr int LD = H + PAD;
-  const int warp = threadIdx.x / 32;
-  const int rf = warp / (NC / 16);
-  const int cf = warp % (NC / 16);
-  AccFrag acc;
-  wmma::fill_fragment(acc, 0.0f);
-#pragma unroll 8
-  for (int k = 0; k < H; k += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-    wmma::load_matrix_sync(a, &hs[rf * 16 * LD + k], LD);
-    wmma::load_matrix_sync(b, &ws[cf * 16 * LD + k], LD);
-    wmma::mma_sync(acc, a, b, acc);
-  }
-  wmma::store_matrix_sync(&S[rf * 16 * (NC + 4) + cf * 16], acc, NC + 4,
-                          wmma::mem_row_major);
-}
 
 // the logit's gradient, as the TPU kernels form it: (p - onehot) * gw
 __device__ __forceinline__ float dlogit(float s, float bias, float lse, int col,
                                         int label, float gw) {
   const float p = expf(s + bias - lse);
   return (p - (col == label ? 1.0f : 0.0f)) * gw;
-}
-
-// the per-row operands of the backward tiles: lse, gw and labels of rows
-// [m0, m0 + R) in shared memory; rows past M get gw = 0
-template <int R>
-__device__ __forceinline__ void load_row_args(const float* __restrict__ lse,
-                                              const float* __restrict__ gw,
-                                              const int* __restrict__ labels,
-                                              int m0, int M, float* row_lse,
-                                              float* row_gw, int* row_lab) {
-  if (threadIdx.x < R) {
-    const int n = m0 + threadIdx.x;
-    const bool in = n < M;
-    row_lse[threadIdx.x] = in ? lse[n] : 0.0f;
-    row_gw[threadIdx.x] = in ? gw[n] : 0.0f;
-    row_lab[threadIdx.x] = in ? labels[n] : -1;
-  }
-}
-
-template <int H>
-constexpr size_t fwd_smem() {
-  return static_cast<size_t>(RM + RV) * (H + PAD) * sizeof(bf16) +
-         static_cast<size_t>(RM) * R_S_LD * sizeof(float);
 }
 
 template <int H>
@@ -154,88 +69,6 @@ constexpr size_t dwdb_smem() {
          static_cast<size_t>(WM) * W_S_LD * sizeof(float) +
          static_cast<size_t>(WM) * W_DL_LD * sizeof(bf16) +
          static_cast<size_t>(WM) * 3 * sizeof(float);
-}
-
-// ---------------------------------------------------------------------
-// forward: grid (row tiles, vocab chunks); part [chunks, M, 3] = (m, s, ll)
-// ---------------------------------------------------------------------
-template <int H>
-__global__ void __launch_bounds__(THREADS, 2)
-ce_fwd_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
-              const float* __restrict__ b, const int* __restrict__ labels,
-              float* __restrict__ part, int M, int V, int chunk_tiles) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int LD = H + PAD;
-  bf16* hs = reinterpret_cast<bf16*>(smem);
-  bf16* ws = hs + RM * LD;
-  float* S = reinterpret_cast<float*>(ws + RV * LD);
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.x * RM;
-  const int tiles = (V + RV - 1) / RV;
-  const int t0 = blockIdx.y * chunk_tiles;
-  const int t1 = min(tiles, t0 + chunk_tiles);
-  const int r = tid / 8;          // this thread's row of the tile
-  const int q = (tid % 8) * 8;    // and its 8 columns
-  const int n = m0 + r;
-  const int label = n < M ? labels[n] : -1;
-  load_rows<H, RM>(h, m0, M, hs);
-  float m_run = -INFINITY, s_run = 0.0f, ll = 0.0f;
-  for (int t = t0; t < t1; ++t) {
-    const int v0 = t * RV;
-    load_rows<H, RV>(w, v0, V, ws);
-    __syncthreads();
-    logits_tile<H, RM, RV>(hs, ws, S);
-    __syncthreads();
-    float x[8];
-    float tmax = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = v0 + q + j;
-      x[j] = col < V ? S[r * R_S_LD + q + j] + b[col] : -INFINITY;
-      tmax = fmaxf(tmax, x[j]);
-      if (col == label) ll += x[j];
-    }
-    // the 8 threads of a row are neighbouring lanes of one warp
-#pragma unroll
-    for (int o = 1; o < 8; o <<= 1)
-      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, o));
-    const float m_new = fmaxf(m_run, tmax);   // finite: each tile has a column < V
-    float se = 0.0f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) se += expf(x[j] - m_new);
-#pragma unroll
-    for (int o = 1; o < 8; o <<= 1) se += __shfl_xor_sync(0xffffffffu, se, o);
-    s_run = s_run * expf(m_run - m_new) + se;
-    m_run = m_new;
-    __syncthreads();              // the next tile rewrites ws and S
-  }
-#pragma unroll
-  for (int o = 1; o < 8; o <<= 1) ll += __shfl_xor_sync(0xffffffffu, ll, o);
-  if (tid % 8 == 0 && n < M) {
-    float* p = part + (static_cast<size_t>(blockIdx.y) * M + n) * 3;
-    p[0] = m_run;
-    p[1] = s_run;
-    p[2] = ll;
-  }
-}
-
-// lse[n] = m + log(sum_c s_c exp(m_c - m)), ll[n] = sum_c ll_c, c in order
-__global__ void ce_merge_kernel(const float* __restrict__ part, int chunks,
-                                int M, float* __restrict__ lse,
-                                float* __restrict__ ll) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= M) return;
-  float m = -INFINITY;
-  for (int c = 0; c < chunks; ++c)
-    m = fmaxf(m, part[(static_cast<size_t>(c) * M + n) * 3]);
-  float s = 0.0f, l = 0.0f;
-  for (int c = 0; c < chunks; ++c) {
-    const float* p = part + (static_cast<size_t>(c) * M + n) * 3;
-    s += p[1] * expf(p[0] - m);
-    l += p[2];
-  }
-  lse[n] = m + logf(s);
-  ll[n] = l;
 }
 
 // ---------------------------------------------------------------------
@@ -395,55 +228,6 @@ ce_dwdb_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
   if (tid < WV) db_part[static_cast<size_t>(blockIdx.y) * Vp + v0 + tid] = db_run;
 }
 
-// out[i] = sum over s of part[s * stride + i], s in order, i < len
-__global__ void sum_splits_kernel(const float* __restrict__ part, int splits,
-                                  size_t stride, size_t len,
-                                  float* __restrict__ out) {
-  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= len) return;
-  float acc = 0.0f;
-  for (int s = 0; s < splits; ++s) acc += part[static_cast<size_t>(s) * stride + i];
-  out[i] = acc;
-}
-
-int sum_splits(const float* part, int splits, size_t stride, size_t len,
-               float* out, cudaStream_t st) {
-  sum_splits_kernel<<<static_cast<unsigned>((len + THREADS - 1) / THREADS),
-                      THREADS, 0, st>>>(part, splits, stride, len, out);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// dynamic shared memory above 48 KB, and the whole carve-out for it, so
-// that two blocks fit on an SM
-template <typename Kernel>
-int allow_smem(Kernel kernel, size_t bytes) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-  return static_cast<int>(err);
-}
-
-template <int H>
-int launch_fwd(const bf16* h, const bf16* w, const float* b, const int* labels,
-               float* part, float* lse, float* ll, int M, int V,
-               int chunk_tiles, cudaStream_t st) {
-  constexpr size_t smem = fwd_smem<H>();
-  int err = allow_smem(ce_fwd_kernel<H>, smem);
-  if (err) return err;
-  const int tiles = (V + RV - 1) / RV;
-  const int chunks = (tiles + chunk_tiles - 1) / chunk_tiles;
-  const dim3 grid((M + RM - 1) / RM, chunks);
-  ce_fwd_kernel<H><<<grid, THREADS, smem, st>>>(h, w, b, labels, part, M, V,
-                                                 chunk_tiles);
-  err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  ce_merge_kernel<<<(M + THREADS - 1) / THREADS, THREADS, 0, st>>>(part, chunks,
-                                                                  M, lse, ll);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <int H>
 int launch_dh(const bf16* h, const bf16* w, const float* b, const int* labels,
               const float* lse, const float* gw, float* dh, int M, int V,
@@ -478,10 +262,6 @@ int launch_dwdb(const bf16* h, const bf16* w, const float* b, const int* labels,
   return sum_splits(db_part, splits, Vp, V, db, st);
 }
 
-bool bad_shape(int M, int H, int V) {
-  return M <= 0 || V <= 0 || (H != 64 && H != 128 && H != 256 && H != 512);
-}
-
 }  // namespace
 
 // Shape rule: H is 64, 128, 256 or 512; M and V anything positive.  Each
@@ -501,15 +281,10 @@ extern "C" int vct_fused_ce_fwd(const void* h, const void* w, const void* b,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define CALL(HH)                                                              \
-  launch_fwd<HH>(VCT_CE_ARGS, static_cast<float*>(part),                      \
-                 static_cast<float*>(lse), static_cast<float*>(ll), M, V,     \
-                 chunk_tiles, st)
-  switch (H) {
-    case 64: return CALL(64);
-    case 128: return CALL(128);
-    case 256: return CALL(256);
-    default: return CALL(512);
-  }
+  launch_fwd<HH, false>(VCT_CE_ARGS, static_cast<float*>(part), nullptr,       \
+                        static_cast<float*>(lse), static_cast<float*>(ll), M, \
+                        V, chunk_tiles, st)
+  VCT_CE_SWITCH_H(CALL)
 #undef CALL
 }
 
@@ -525,12 +300,7 @@ extern "C" int vct_fused_ce_dh(const void* h, const void* w, const void* b,
   launch_dh<HH>(VCT_CE_ARGS, static_cast<const float*>(lse),                  \
                 static_cast<const float*>(gw), static_cast<float*>(dh), M, V, \
                 st)
-  switch (H) {
-    case 64: return CALL(64);
-    case 128: return CALL(128);
-    case 256: return CALL(256);
-    default: return CALL(512);
-  }
+  VCT_CE_SWITCH_H(CALL)
 #undef CALL
 }
 
@@ -549,11 +319,6 @@ extern "C" int vct_fused_ce_dwdb(const void* h, const void* w, const void* b,
                   static_cast<const float*>(gw), static_cast<float*>(dw_part),\
                   static_cast<float*>(db_part), static_cast<float*>(dw),      \
                   static_cast<float*>(db), M, V, splits, st)
-  switch (H) {
-    case 64: return CALL(64);
-    case 128: return CALL(128);
-    case 256: return CALL(256);
-    default: return CALL(512);
-  }
+  VCT_CE_SWITCH_H(CALL)
 #undef CALL
 }

@@ -93,9 +93,13 @@ def load(path: str) -> Dict[str, np.ndarray]:
             raise ValueError("cluster vector pickle must contain a dict")
         return {k: np.asarray(v, dtype=np.float32).reshape(-1)
                 for k, v in payload.items()}
-    data = np.load(path if path.endswith(".npz") else path + ".npz",
-                   allow_pickle=False)
-    return {str(n): v for n, v in zip(data["names"], data["vectors"])}
+    with np.load(path if path.endswith(".npz") else path + ".npz",
+                 allow_pickle=False) as data:
+        names, vectors = data["names"], data["vectors"]
+    if len(names) != len(vectors):
+        raise ValueError(f"{path}: {len(names)} names for {len(vectors)} "
+                         "cluster vectors")
+    return {str(n): v for n, v in zip(names, vectors)}
 
 
 def lookup_batch(vectors: Optional[Dict[str, np.ndarray]],

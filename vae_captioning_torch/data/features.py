@@ -21,7 +21,9 @@ class FeatureStore:
     """Contiguous feature matrix with name-keyed row lookup."""
 
     def __init__(self, names: Sequence[str], features: np.ndarray):
-        assert len(names) == features.shape[0]
+        if len(names) != features.shape[0]:
+            raise ValueError(f"FeatureStore: {len(names)} names for "
+                             f"{features.shape[0]} feature rows")
         self.names = [os.path.basename(n) for n in names]
         self.features = np.asarray(features, dtype=np.float32)
         self._row = {n: i for i, n in enumerate(self.names)}
@@ -47,8 +49,8 @@ class FeatureStore:
 
     @classmethod
     def load(cls, path: str) -> "FeatureStore":
-        data = np.load(path if path.endswith(".npz") else path + ".npz")
-        return cls([str(n) for n in data["names"]], data["features"])
+        with np.load(path if path.endswith(".npz") else path + ".npz") as data:
+            return cls([str(n) for n in data["names"]], data["features"])
 
     @classmethod
     def from_reference_pickle(cls, path: str) -> "FeatureStore":

@@ -7,8 +7,8 @@ from the prior; the AG prior centres it on the mean of the image's
 active cluster means, every other prior at 0.  The training forward runs
 the encoder (with the AG heads kernel, or the GMM head's cluster draw),
 the fused z sampling + projection and teacher forcing; the loss takes
-the CE over bf16 logits, or the flash CE over the decoder's hidden rows
-(``Config.fused_ce``).  Every Flax parameter of every prior has its
+the CE over bf16 logits, or a fused CE over the decoder's hidden rows
+(``Config.fused_ce``, ``ce_hybrid`` or ``ce_xla_bwd``).  Every Flax parameter of every prior has its
 counterpart here.
 """
 
@@ -25,9 +25,10 @@ from vae_captioning_torch.models.encoder import Clusters, Encoder
 from vae_captioning_torch.ops import distributions as dist
 from vae_captioning_torch.ops.fused_ag_heads import (ag_heads_plain,
                                                      fused_ag_heads)
-from vae_captioning_torch.ops.fused_ce import (fused_linear_ce,
-                                               fused_linear_ce_plain,
-                                               linear_ce)
+from vae_captioning_torch.ops.fused_ce import (
+    fused_linear_ce, fused_linear_ce_hybrid, fused_linear_ce_hybrid_plain,
+    fused_linear_ce_plain, fused_linear_ce_xla_bwd,
+    fused_linear_ce_xla_bwd_plain, linear_ce)
 from vae_captioning_torch.ops.fused_lstm_seq import (fused_lstm_seq,
                                                      fused_lstm_seq_plain)
 from vae_captioning_torch.ops.fused_z import fused_z, fused_z_plain
@@ -37,17 +38,23 @@ from vae_captioning_torch.ops.lstm import Carry
 class TrainOps(NamedTuple):
     """The train path's kernel operations.  The train step uses the
     kernel wrappers; comparisons on the card and the tests swap in the
-    plain versions (or a ``sample_project`` with explicit eps)."""
+    plain versions (or a ``sample_project`` with explicit eps).  The
+    three CE functions are the schedules of ``Config.fused_ce``,
+    ``ce_hybrid`` and ``ce_xla_bwd``."""
 
     lstm_seq: Callable = fused_lstm_seq
     sample_project: Callable = fused_z
     ag_heads: Callable = fused_ag_heads
     linear_ce: Callable = fused_linear_ce
+    linear_ce_hybrid: Callable = fused_linear_ce_hybrid
+    linear_ce_xla_bwd: Callable = fused_linear_ce_xla_bwd
 
 
 KERNEL_TRAIN_OPS = TrainOps()
 PLAIN_TRAIN_OPS = TrainOps(fused_lstm_seq_plain, fused_z_plain,
-                           ag_heads_plain, fused_linear_ce_plain)
+                           ag_heads_plain, fused_linear_ce_plain,
+                           fused_linear_ce_hybrid_plain,
+                           fused_linear_ce_xla_bwd_plain)
 
 
 class CVAEModel(nn.Module):
@@ -231,8 +238,8 @@ def compute_loss(outputs: Dict[str, torch.Tensor], labels: torch.Tensor,
     rec: softmax CE at every position, PAD (label 0) masked, the mean
     taken over real tokens.  Over ``outputs["logits"]`` (bf16) it is plain
     PyTorch with f32 sums, as the JAX package's plain CE branch; over
-    ``outputs["hidden"]`` it is the flash CE (``ops/fused_ce.py``,
-    through ``ce_fn``, by default the kernel wrapper) with the
+    ``outputs["hidden"]`` it is a fused CE (``ops/fused_ce.py``, through
+    ``ce_fn``, by default the flash CE's kernel wrapper) with the
     ``rnn_logits`` (weight [V, H], bias [V]) given as ``logits_params``.
     total = rec + annealing·kld/10.  kld: the AG KL against the
     c_v-weighted cluster means (``outputs["c_v"]``, ``cluster_means``

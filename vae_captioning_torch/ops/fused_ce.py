@@ -1,11 +1,8 @@
-"""Flash linear cross-entropy: CUDA kernel wrappers, their plain version
-and the autograd Functions around them.
-
-Counterpart of ``vae_captioning_tpu/ops/fused_ce.py`` (``fused_linear_ce``
-and its custom VJP; the hybrid and XLA-forward schedules are ROADMAP
-B.10).  For hidden rows h [M, H], the ``rnn_logits`` weight W [V, H]
-(the Flax kernel transposed, read in that layout), bias b [V], labels [M]
-and row weights [M]:
+"""Linear cross-entropy: CUDA kernel wrappers, their plain versions and
+the autograd Functions around them, under the three schedules of the JAX
+package's ``vae_captioning_tpu/ops/fused_ce.py``.  For hidden rows h [M,
+H], the ``rnn_logits`` weight W [V, H] (the Flax kernel transposed, read
+in that layout), bias b [V], labels [M] and row weights [M]:
 
     S    = h16 @ W16^T + b             f32 accumulation, f32 bias
     loss = Σ_i weights_i · (logsumexp(S_i) − S_i[labels_i])
@@ -16,24 +13,40 @@ before both products, dh = dl16 @ W16 and dW = dl16^T @ h16 (f32
 accumulation), db = Σ_rows dl from the f32 dl, and d weights = g·(lse −
 S[label]).  Rows of weight 0 may carry any label and get dh = 0 exactly.
 
-On CUDA tensors :func:`fused_linear_ce` launches ``csrc/fused_ce.cu``:
-the forward kernel and, in the backward, the dh and dW/db kernels, which
-recompute the logits tiles, so the [M, V] logits never reach memory (707
-MB in bf16 at the train shapes).  On CPU tensors it takes
-:func:`fused_linear_ce_plain`, which materialises them in f32.
+* The flash CE (``Config.fused_ce``, :func:`fused_linear_ce`):
+  ``csrc/fused_ce.cu``'s forward kernel and, in the backward, the dh and
+  dW/db kernels, which recompute the logits tiles, so the [M, V] logits
+  never reach memory (707 MB in bf16 at the train shapes).
+* The hybrid (``Config.ce_hybrid``, :func:`fused_linear_ce_hybrid`):
+  ``csrc/fused_ce_mat.cu``'s forward writes the bf16 logits lg [M, Vp]
+  (Vp = V rounded up to 64 columns, pad columns −1e30) beside lse and the
+  label logit, both taken from the f32 S; its dh and dW/db kernels form dl
+  from lg (p = exp(f32(lg) − lse)) instead of recomputing the product.
+* The XLA forward (``Config.ce_xla_bwd``, :func:`fused_linear_ce_xla_bwd`):
+  a plain forward that rounds as the logits head does, lg = bf16(bf16(h16
+  @ W16^T) + bf16(b)), lse and the label logit from lg, then the hybrid's
+  two backward kernels over that lg.
+
+On CPU tensors each wrapper takes its plain twin (``*_plain``), which
+carries the same VJP; on CUDA tensors it launches its kernels or raises.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from vae_captioning_torch import _ext
 
 FWD = "fused_linear_ce_fwd"
 DH = "fused_linear_ce_dh"
 DWDB = "fused_linear_ce_dwdb"
+FWD_MAT = "fused_linear_ce_mat_fwd"
+DH_MAT = "fused_linear_ce_mat_dh"
+DWDB_MAT = "fused_linear_ce_mat_dwdb"
+NEG = -1e30         # the written logit of a vocab column past V
 KERNEL_H = (64, 128, 256, 512)  # the widths the kernels are built for
 _ROWS = 32          # rows of a forward / dh block
 _TILE_V = 64        # vocab columns of a forward / dh logits tile
@@ -67,13 +80,17 @@ def _label_cols(labels: torch.Tensor, V: int) -> Tuple[torch.Tensor, torch.Tenso
     return torch.where(valid, labels, 0).long(), valid.float()
 
 
+def _lse_ll(S: torch.Tensor, labels: torch.Tensor) -> Pair:
+    """(logsumexp(S), S[label]) per row of the f32 S; ll = 0 for a label
+    that is no column."""
+    cols, valid = _label_cols(labels, S.shape[1])
+    return torch.logsumexp(S, dim=1), S.gather(1, cols[:, None])[:, 0] * valid
+
+
 def ce_fwd_plain(h, w, b, labels) -> Pair:
     """The forward kernel's function: (lse, ll) [M] f32, ll = S[label]
     (0 for a label that is no column)."""
-    S = _logits(h, w, b)
-    cols, valid = _label_cols(labels, S.shape[1])
-    ll = S.gather(1, cols[:, None])[:, 0] * valid
-    return torch.logsumexp(S, dim=1), ll
+    return _lse_ll(_logits(h, w, b), labels)
 
 
 def _dl_plain(h, w, b, labels, lse, gw) -> torch.Tensor:
@@ -271,13 +288,260 @@ def fused_linear_ce(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     weight), b [V], labels [M] int, weights [M] → a scalar f32.  CPU
     tensors take :func:`fused_linear_ce_plain`; CUDA tensors launch the
     kernels or raise (H must be 64, 128, 256 or 512)."""
-    if _ext.on_cpu(h, w, b, labels, weights):
+    if _runs_plain(h, w, b, labels, weights):
         return fused_linear_ce_plain(h, w, b, labels, weights)
+    return _FusedLinearCE.apply(h, w, b, labels, weights)
+
+
+def _runs_plain(h, w, b, labels, weights) -> bool:
+    """True for CPU tensors (the plain twin runs); for CUDA tensors, raise
+    on what the kernels do not take and return False."""
+    if _ext.on_cpu(h, w, b, labels, weights):
+        return True
     _check(h, w, b, labels)
     _ext.require(weights.shape == labels.shape,
                  f"fused_linear_ce: weights {tuple(weights.shape)} != labels "
                  f"{tuple(labels.shape)}")
-    return _FusedLinearCE.apply(h, w, b, labels, weights)
+    return False
+
+
+# ----------------------------------------------------------------------
+# written logits: the hybrid and XLA-forward schedules
+# ----------------------------------------------------------------------
+
+def logits_pitch(V: int) -> int:
+    """Vp, the written logits' columns: V rounded up to whole 64-column
+    tiles (11,520 for V = 11,500, the JAX package's own pad), so each
+    8-column run of a bf16 row starts on a 16-byte boundary."""
+    return _cdiv(V, _TILE_V) * _TILE_V
+
+
+def ce_mat_fwd_plain(h, w, b, labels) -> Tuple[torch.Tensor, ...]:
+    """The hybrid forward kernel's function: (lg [M, Vp] bf16, lse, ll [M]
+    f32).  lg is S rounded to nearest even, its pad columns −1e30; lse and
+    ll come from the f32 S, as in the TPU kernel."""
+    S = _logits(h, w, b)
+    lse, ll = _lse_ll(S, labels)
+    V = S.shape[1]
+    lg = F.pad(S, (0, logits_pitch(V) - V), value=NEG).to(torch.bfloat16)
+    return lg, lse, ll
+
+
+def ce_xla_fwd_plain(h, w, b, labels) -> Tuple[torch.Tensor, ...]:
+    """The XLA-forward schedule's forward (JAX ``_fwd_xla``), plain on
+    every device: (lg [M, Vp] bf16, lse, ll [M] f32).  The bf16 product is
+    rounded to bf16, then the bf16 bias is added and rounded again (a
+    separate add: a fused bias epilogue would round once); pad columns get
+    W rows of 0 and bias −1e30.  lse = log Σ exp(f32(lg − max)) + max, the
+    difference taken in bf16; ll = f32(lg[label])."""
+    bf16 = torch.bfloat16
+    V = w.shape[0]
+    pad = logits_pitch(V) - V
+    w16 = F.pad(w.to(bf16), (0, 0, 0, pad))
+    b16 = F.pad(b.float(), (0, pad), value=NEG).to(bf16)
+    lg = torch.matmul(h.to(bf16), w16.t()) + b16
+    m = lg.amax(dim=1, keepdim=True)
+    lse = torch.log(torch.exp((lg - m).float()).sum(dim=1)) + m[:, 0].float()
+    cols, valid = _label_cols(labels, V)
+    ll = lg.gather(1, cols[:, None])[:, 0].float() * valid
+    return lg, lse, ll
+
+
+def _dl_mat_plain(lg16, labels, lse, gw, V: int) -> torch.Tensor:
+    """dl [M, V] f32 from the written logits, as the kernels form it: p =
+    exp(f32(lg) − lse), the label's column less 1, times gw.  The pad
+    columns (p = 0, no label) give 0 and are left out."""
+    p = torch.exp(lg16[:, :V].float() - lse[:, None])
+    cols, valid = _label_cols(labels, V)
+    p[torch.arange(p.shape[0], device=p.device), cols] -= valid
+    return p * gw[:, None]
+
+
+def ce_mat_dh_plain(lg16, w, labels, lse, gw) -> torch.Tensor:
+    """The written-logits dh kernel's function: bf16(dl) @ W16 [M, H]
+    f32."""
+    dl16 = _dl_mat_plain(lg16, labels, lse, gw, w.shape[0]).to(torch.bfloat16)
+    return dl16.float() @ w.to(torch.bfloat16).float()
+
+
+def ce_mat_dwdb_plain(h, lg16, labels, lse, gw, V: int) -> Pair:
+    """The written-logits dW/db kernel's function: (bf16(dl)^T @ h16 [V,
+    H], Σ_rows dl [V]), f32."""
+    dl = _dl_mat_plain(lg16, labels, lse, gw, V)
+    dl16 = dl.to(torch.bfloat16).float()
+    return dl16.t() @ h.to(torch.bfloat16).float(), dl.sum(dim=0)
+
+
+def _check_mat(lg, labels, op, V: int) -> int:
+    """Raise on operands the backward kernels do not take: lg, labels and
+    ``op``, the bf16 [V, H] weight (dh) or [M, H] rows (dW/db); returns
+    M."""
+    req = _ext.require
+    req(lg.dim() == 2 and labels.dim() == 1,
+        "fused_linear_ce: written logits lg [M, Vp], labels [M]")
+    M = labels.shape[0]
+    req(M > 0 and V > 0, "fused_linear_ce: no rows or no vocabulary")
+    req(op.dim() == 2 and op.shape[1] in KERNEL_H,
+        f"fused_linear_ce: {tuple(op.shape)}: H must be one of {KERNEL_H} "
+        "(the widths the kernels are built for)")
+    Vp = logits_pitch(V)
+    req(lg.dtype == torch.bfloat16 and tuple(lg.shape) == (M, Vp),
+        f"fused_linear_ce: written logits {tuple(lg.shape)} {lg.dtype} are "
+        f"not bf16 ({M}, {Vp}) for V={V}")
+    req(labels.dtype == torch.int32 and labels.is_contiguous()
+        and op.dtype == torch.bfloat16 and op.is_contiguous(),
+        "fused_linear_ce: labels int32 and the bf16 operand contiguous "
+        "(as prepare gives them)")
+    return M
+
+
+def ce_mat_fwd_kernel(h16, w16, b, lab) -> Tuple[torch.Tensor, ...]:
+    """The written-logits forward kernel on prepared operands → (lg [M,
+    Vp] bf16, lse, ll [M] f32)."""
+    M, H, V = _check(h16, w16, b, lab)
+    dev = h16.device
+    chunks = _cdiv(_cdiv(V, _TILE_V), _CHUNK_TILES)
+    part = torch.empty((chunks, M, 3), dtype=torch.float32, device=dev)
+    lg = torch.empty((M, logits_pitch(V)), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((2, M), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _ext.library().vct_fused_ce_mat_fwd(
+            h16.data_ptr(), w16.data_ptr(), b.data_ptr(), lab.data_ptr(),
+            part.data_ptr(), lg.data_ptr(), out[0].data_ptr(),
+            out[1].data_ptr(), M, H, V, _CHUNK_TILES, _ext.stream_ptr(dev))
+    _ext.check_launch(err, FWD_MAT)
+    _ext.LAUNCHES[FWD_MAT] += 1
+    return lg, out[0], out[1]
+
+
+def ce_mat_dh_kernel(lg16, w16, lab, lse, gw) -> torch.Tensor:
+    """The written-logits dh kernel: lg [M, Vp] bf16, w16 [V, H] bf16,
+    labels int32, lse and gw [M] → dh [M, H] f32."""
+    V = w16.shape[0]
+    M = _check_mat(lg16, lab, w16, V)
+    H = w16.shape[1]
+    dev = lg16.device
+    lg16 = lg16.contiguous()
+    lse, gw = _row_args(lse, gw, M, dev)
+    dh = torch.empty((_cdiv(M, _ROWS) * _ROWS, H), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _ext.library().vct_fused_ce_mat_dh(
+            lg16.data_ptr(), w16.data_ptr(), lab.data_ptr(), lse.data_ptr(),
+            gw.data_ptr(), dh.data_ptr(), M, H, V, _ext.stream_ptr(dev))
+    _ext.check_launch(err, DH_MAT)
+    _ext.LAUNCHES[DH_MAT] += 1
+    return dh[:M]
+
+
+def ce_mat_dwdb_kernel(h16, lg16, lab, lse, gw, V: int) -> Pair:
+    """The written-logits dW/db kernel: h16 [M, H] bf16, lg [M, Vp] bf16,
+    labels int32, lse and gw [M] → (dW [V, H], db [V]) f32, through row
+    ranges' partials summed in order, as the flash dW/db."""
+    M = _check_mat(lg16, lab, h16, V)
+    H = h16.shape[1]
+    _ext.require(h16.shape[0] == M, f"fused_linear_ce: h {tuple(h16.shape)} "
+                 f"and labels ({M},) disagree")
+    dev = h16.device
+    lg16 = lg16.contiguous()
+    lse, gw = _row_args(lse, gw, M, dev)
+    splits = min(_DW_SPLITS, _cdiv(M, _DW_TILE_M))
+    Vw = _cdiv(V, _DW_ROWS) * _DW_ROWS
+    f32 = dict(dtype=torch.float32, device=dev)
+    dw_part = torch.empty((splits, Vw, H), **f32)
+    db_part = torch.empty((splits, Vw), **f32)
+    dw = torch.empty((V, H), **f32)
+    db = torch.empty((V,), **f32)
+    with torch.cuda.device(dev):
+        err = _ext.library().vct_fused_ce_mat_dwdb(
+            h16.data_ptr(), lg16.data_ptr(), lab.data_ptr(), lse.data_ptr(),
+            gw.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(),
+            dw.data_ptr(), db.data_ptr(), M, H, V, splits,
+            _ext.stream_ptr(dev))
+    _ext.check_launch(err, DWDB_MAT)
+    _ext.LAUNCHES[DWDB_MAT] += 1
+    return dw, db
+
+
+class MatFns(NamedTuple):
+    """A written-logits schedule: its forward (h16, w16, b, labels) → (lg,
+    lse, ll) and its backward functions, dh (lg, w16, labels, lse, gw) and
+    dW/db (h16, lg, labels, lse, gw, V)."""
+
+    fwd: Callable
+    dh: Callable
+    dwdb: Callable
+
+
+HYBRID_PLAIN = MatFns(ce_mat_fwd_plain, ce_mat_dh_plain, ce_mat_dwdb_plain)
+HYBRID_KERNELS = MatFns(ce_mat_fwd_kernel, ce_mat_dh_kernel, ce_mat_dwdb_kernel)
+XLA_BWD_PLAIN = MatFns(ce_xla_fwd_plain, ce_mat_dh_plain, ce_mat_dwdb_plain)
+XLA_BWD_KERNELS = MatFns(ce_xla_fwd_plain, ce_mat_dh_kernel, ce_mat_dwdb_kernel)
+
+
+class _WrittenLogitsCE(torch.autograd.Function):
+    """The JAX custom VJPs ``_fwd_mat`` / ``_fwd_xla`` with ``_bwd_mat``:
+    the forward writes lg and keeps it (708 MB at the train shapes) with
+    h16 and W16 as the residual; the backward forms dl from lg, never
+    recomputing h·W.  Under no_grad (the eval step) lg is freed on
+    return.  ``fns`` picks the kernels or the plain versions."""
+
+    @staticmethod
+    def forward(ctx, h, w, b, labels, weights, fns: MatFns):
+        h16, w16, bf, lab = prepare(h, w, b, labels)
+        lg, lse, ll = fns.fwd(h16, w16, bf, lab)
+        wt = weights.float()
+        ctx.save_for_backward(h16, w16, lab, wt, lg, lse, ll)
+        ctx.fns = fns
+        ctx.dtypes = (h.dtype, w.dtype, b.dtype, weights.dtype)
+        return (wt * (lse - ll)).sum()
+
+    @staticmethod
+    def backward(ctx, g):
+        h16, w16, lab, wt, lg, lse, ll = ctx.saved_tensors
+        gw = g * wt
+        need_h, need_w, need_b = ctx.needs_input_grad[:3]
+        dh = ctx.fns.dh(lg, w16, lab, lse, gw) if need_h else None
+        dw, db = (ctx.fns.dwdb(h16, lg, lab, lse, gw, w16.shape[0])
+                  if need_w or need_b else (None, None))
+        return (*_grads(ctx, g, lse, ll, (dh, dw, db)), None)
+
+
+def _written_logits_ce(kernels: MatFns, plain: MatFns, h, w, b, labels,
+                       weights) -> torch.Tensor:
+    fns = plain if _runs_plain(h, w, b, labels, weights) else kernels
+    return _WrittenLogitsCE.apply(h, w, b, labels, weights, fns)
+
+
+def fused_linear_ce_hybrid(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                           labels: torch.Tensor, weights: torch.Tensor
+                           ) -> torch.Tensor:
+    """:func:`fused_linear_ce`'s function and arguments under the hybrid
+    schedule: CUDA tensors launch ``csrc/fused_ce_mat.cu``'s forward (lg
+    written), dh and dW/db kernels, or raise; CPU tensors take
+    :func:`fused_linear_ce_hybrid_plain`."""
+    return _written_logits_ce(HYBRID_KERNELS, HYBRID_PLAIN, h, w, b, labels,
+                              weights)
+
+
+def fused_linear_ce_hybrid_plain(h, w, b, labels, weights) -> torch.Tensor:
+    """The hybrid schedule in plain PyTorch, on any device."""
+    return _WrittenLogitsCE.apply(h, w, b, labels, weights, HYBRID_PLAIN)
+
+
+def fused_linear_ce_xla_bwd(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                            labels: torch.Tensor, weights: torch.Tensor
+                            ) -> torch.Tensor:
+    """:func:`fused_linear_ce`'s function and arguments under the XLA-
+    forward schedule: the plain forward :func:`ce_xla_fwd_plain`, then, on
+    CUDA tensors, the hybrid's dh and dW/db kernels over its lg (or a
+    raise); CPU tensors take :func:`fused_linear_ce_xla_bwd_plain`."""
+    return _written_logits_ce(XLA_BWD_KERNELS, XLA_BWD_PLAIN, h, w, b, labels,
+                              weights)
+
+
+def fused_linear_ce_xla_bwd_plain(h, w, b, labels, weights) -> torch.Tensor:
+    """The XLA-forward schedule in plain PyTorch, on any device."""
+    return _WrittenLogitsCE.apply(h, w, b, labels, weights, XLA_BWD_PLAIN)
 
 
 def linear_ce(hidden: torch.Tensor, w: torch.Tensor, b: torch.Tensor,

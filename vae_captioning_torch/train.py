@@ -15,18 +15,19 @@ Semantics kept from the reference:
 
 The step runs the kernels of the train path (``fused_lstm_seq`` for the
 encoder and decoder LSTMs, ``fused_z`` for the z sampling + projection,
-``fused_ag_heads`` for the AG posterior heads and, with
-``Config.fused_ce``, ``fused_linear_ce`` for the logits head and CE) on
-one card.  Without ``fused_ce`` the logits head and CE are plain
-PyTorch, as the JAX package's default step leaves them to XLA; the
-optimizer always is.  ``fused_ce`` always means the flash CE's function
-here, its plain version on the CPU (the JAX package ignores the flag off
-its kernel path).  Each step's z noise is keyed on a seed drawn from a
-host ``torch.Generator`` that the Trainer owns (seeded from
-``cfg.seed``) and on the step number; the GMM head's cluster draws come
-from a device generator it owns too: no global RNG state is read.  The
-step counter lives on the host and metrics stay on the device until a
-log step reads them.
+``fused_ag_heads`` for the AG posterior heads and, with a CE schedule
+flag, the fused logits head and CE: ``fused_linear_ce`` under
+``Config.fused_ce``, ``fused_linear_ce_hybrid`` under ``ce_hybrid``,
+``fused_linear_ce_xla_bwd`` under ``ce_xla_bwd``) on one card.  Without
+a flag the logits head and CE are plain PyTorch, as the JAX package's
+default step leaves them to XLA; the optimizer always is.  A flag always
+means its CE function here, its plain twin on the CPU (the JAX package
+ignores the flags off its kernel path).  Each step's z noise is keyed on
+a seed drawn from a host ``torch.Generator`` that the Trainer owns
+(seeded from ``cfg.seed``) and on the step number; the GMM head's
+cluster draws come from a device generator it owns too: no global RNG
+state is read.  The step counter lives on the host and metrics stay on
+the device until a log step reads them.
 
 Configurations this port does not train raise NotImplementedError in
 :func:`check_supported_training`, naming their ROADMAP item; more than
@@ -81,9 +82,6 @@ def check_supported_training(cfg: Config) -> None:
          f"compute_dtype={cfg.compute_dtype!r}: the train slice runs "
          "bfloat16 (ROADMAP D.2)"),
         (cfg.fine_tune, "fine_tune (VGG16 in the model): ROADMAP A.8"),
-        (cfg.ce_hybrid or cfg.ce_xla_bwd,
-         "the hybrid and XLA-forward CE schedules (ce_hybrid, ce_xla_bwd): "
-         "ROADMAP B.10"),
         (cfg.eval_metrics,
          "eval_metrics (the per-epoch BLEU/CIDEr hook): ROADMAP A.6.4"),
         (cfg.profile, "profile (a profiler trace of steps 10-20): ROADMAP A.10"),
@@ -211,6 +209,7 @@ def make_train_step(model: CVAEModel, optimizer: Optimizer, cfg: Config,
     force_one = cfg.fine_tune or cfg.restore
     params = optimizer.params
     loss_args = _loss_args(model, cfg, ops)
+    hidden = loss_args["logits_params"] is not None
 
     def step_fn(step: int, features, enc, dec, lengths, c_v, z_seed: int,
                 dropout: Optional[torch.Generator] = None,
@@ -221,7 +220,7 @@ def make_train_step(model: CVAEModel, optimizer: Optimizer, cfg: Config,
         out = model(features, enc, dec, lengths,
                     c_v if cfg.needs_cluster_vectors else None,
                     z_seed=z_seed, z_step=step, ops=ops, time_major=True,
-                    dropout=dropout, return_hidden=cfg.fused_ce,
+                    dropout=dropout, return_hidden=hidden,
                     clusters=clusters)
         losses = compute_loss(out, enc.t(), annealing=annealing, **loss_args)
         losses["loss"].backward()
@@ -238,9 +237,10 @@ def make_eval_step(model: CVAEModel, cfg: Config,
                    ops: TrainOps = KERNEL_TRAIN_OPS) -> Callable:
     """``eval_fn(features, enc, dec, lengths, c_v, z_seed, clusters=None)
     -> rec_loss`` (the reference validates the rec-loss only), without
-    gradients: with ``fused_ce`` it launches the CE's forward kernel
-    only."""
+    gradients: under a CE schedule flag it runs that CE's forward only
+    (the hybrid's written logits are freed on return)."""
     loss_args = _loss_args(model, cfg, ops)
+    hidden = loss_args["logits_params"] is not None
 
     @torch.no_grad()
     def eval_fn(features, enc, dec, lengths, c_v, z_seed: int,
@@ -248,21 +248,26 @@ def make_eval_step(model: CVAEModel, cfg: Config,
         out = model(features, enc, dec, lengths,
                     c_v if cfg.needs_cluster_vectors else None,
                     z_seed=z_seed, z_step=0, ops=ops, time_major=True,
-                    return_hidden=cfg.fused_ce, clusters=clusters)
+                    return_hidden=hidden, clusters=clusters)
         return compute_loss(out, enc.t(), **loss_args)["rec_loss"]
 
     return eval_fn
 
 
 def _loss_args(model: CVAEModel, cfg: Config, ops: TrainOps) -> dict:
-    """The train and eval steps' arguments of ``compute_loss``; with
-    ``fused_ce`` the ``rnn_logits`` weight [V, H] and bias, read in place."""
+    """The train and eval steps' arguments of ``compute_loss``.  Under a
+    CE schedule flag: its CE function of ``ops``, and the ``rnn_logits``
+    weight [V, H] and bias, read in place (the forward then returns the
+    decoder's hidden rows in place of the logits)."""
     head = model.decoder.rnn_logits
+    ce_fn = {"fused_ce": ops.linear_ce, "ce_hybrid": ops.linear_ce_hybrid,
+             "ce_xla_bwd": ops.linear_ce_xla_bwd}
+    flags = [name for name in CE_FLAGS if getattr(cfg, name)]
     return dict(no_encoder=cfg.no_encoder, prior=cfg.prior,
                 cluster_means=model.cluster_means, ag_kl_sum=cfg.ag_kl_sum,
                 gmm_true_kl=cfg.gmm_true_kl, time_major=True,
-                logits_params=(head.weight, head.bias) if cfg.fused_ce else None,
-                ce_fn=ops.linear_ce)
+                logits_params=(head.weight, head.bias) if flags else None,
+                ce_fn=ce_fn[flags[0]] if flags else None)
 
 
 # ----------------------------------------------------------------------
