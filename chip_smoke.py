@@ -4,7 +4,9 @@ Phases, in order; any failure raises and the script exits nonzero:
 
 1. device: require CUDA, print the card's name and power limit;
 2. build: compile the CUDA kernels from ``vae_captioning_torch/csrc``
-   (one nvcc per source, all started together);
+   (one nvcc per source, all started together) and print the flash CE
+   backward template's registers, spills and shared memory per width,
+   and any ptxas warning that it serialises the template's wgmmas;
 3. kernels: each kernel against its plain PyTorch version on the card,
    at the main paths' shapes and ragged ones: the decode kernels (plus a
    deliberate tie), the int8 top-k and the top-k + lse over written
@@ -2051,13 +2053,15 @@ def phase_train_profile(out_dir: str, label: str, prior: str, ce=None) -> None:
     ours = port_kernel_names()
     groups, by_name = {}, {}
     for e in events:
-        # "void (anonymous namespace)::name<...>(args)" -> "name"
-        short = (e["name"].replace("(anonymous namespace)::", "").split("(")[0]
-                 .split("<")[0].split("::")[-1].split() or [""])[-1]
+        # "void (anonymous namespace)::name<512, false>(args)" -> "name" and
+        # its template arguments "<512, false>"
+        head = e["name"].replace("(anonymous namespace)::", "").split("(")[0]
+        short = (head.split("<")[0].split("::")[-1].split() or [""])[-1]
+        targs = head[head.index("<"):] if "<" in head else ""
         if e["cat"] != "kernel":
             group = "memcpy / memset"
         elif short in ours:
-            group = f"port: {short} ({ours[short]})"
+            group = f"port: {short}{targs} ({ours[short]})"
         elif any(w in e["name"].lower() for w in ("gemm", "xmma", "cutlass")):
             group = "cuBLAS GEMM"
         else:
@@ -2090,6 +2094,38 @@ def phase_train_profile(out_dir: str, label: str, prior: str, ce=None) -> None:
                   indent=1)
 
 
+def print_bwd_resources() -> None:
+    """Registers, spills and shared memory of the flash CE backward's
+    kernel template (``ce_bwd_kernel<H, DW>`` in csrc/fused_ce.cu) at
+    every width, from nvcc's -Xptxas=-v output in build.log, and any
+    ptxas warning that it serialises the template's wgmmas; the dynamic
+    shared memory from the library."""
+    lines = _ext.build_log.splitlines()
+    found = 0
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '\w*ce_bwd_kernelILi(\d+)ELb([01])E", line)
+        if not m:
+            continue
+        H, dw = int(m.group(1)), m.group(2) == "1"
+        info = " ".join(lines[i + 1:i + 4])
+        regs = re.search(r"Used (\d+) registers", info)
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", info)
+        print(f"build: ce_bwd_kernel<{H}, {'dW/db' if dw else 'dh'}>: "
+              f"{regs.group(1) if regs else '?'} registers, spill stores / loads "
+              f"{spills.group(1) + ' / ' + spills.group(2) + ' B' if spills else '?'}, "
+              f"{_ext.library().vct_fused_ce_bwd_smem(H)} B dynamic shared memory")
+        found += 1
+    for line in lines:
+        m = re.search(r"Potential Performance Loss: (.*) in the function "
+                      r"'\w*ce_bwd_kernelILi(\d+)ELb([01])E", line)
+        if m:
+            print(f"build: ce_bwd_kernel<{m.group(2)}, "
+                  f"{'dW/db' if m.group(3) == '1' else 'dh'}>: ptxas: {m.group(1)}")
+    if not found:
+        print("build: no ptxas report of ce_bwd_kernel (the libraries were "
+              "already built)")
+
+
 def main() -> None:
     if sys.argv[1:] not in ([], ["--profile"]):
         sys.exit(f"chip_smoke: unknown arguments {sys.argv[1:]}; the only "
@@ -2108,6 +2144,7 @@ def main() -> None:
     print(f"build: {_ext.build_seconds:.1f} s -> " + ", ".join(
         _ext.library_path(src).name for src in _ext._sources())
         + f" (nvcc output in {out_dir}/build.log)")
+    print_bwd_resources()
     if sys.argv[1:] == ["--profile"]:
         for prior, ce in (("Normal", ""), ("AG", ""), ("GMM", "fused_ce"),
                           ("GMM", "ce_hybrid")):

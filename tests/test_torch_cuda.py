@@ -25,7 +25,8 @@ from vae_captioning_torch.models.cvae import CVAEModel
 from vae_captioning_torch.ops.fused_ag_heads import (ag_heads_plain,
                                                      fused_ag_heads)
 from vae_captioning_torch.ops.fused_ce import (
-    ce_fwd_plain, ce_mat_fwd_kernel, ce_mat_fwd_plain, fused_ce_fwd_kernel,
+    ce_bwd_plan, ce_fwd_plain, ce_mat_fwd_kernel, ce_mat_fwd_plain,
+    fused_ce_dh_kernel, fused_ce_dwdb_kernel, fused_ce_fwd_kernel,
     fused_linear_ce, fused_linear_ce_hybrid, fused_linear_ce_hybrid_plain,
     fused_linear_ce_plain, fused_linear_ce_xla_bwd,
     fused_linear_ce_xla_bwd_plain, prepare)
@@ -435,21 +436,28 @@ def test_ag_heads_wrapper_checks_its_inputs(dev):
 
 
 @pytest.mark.parametrize("M,H,V", [(300, 64, 2000), (1000, 512, 11519),
-                                   (77, 128, 301)])
+                                   (77, 128, 301), (1, 512, 11500),
+                                   (65, 512, 11500), (30720, 512, 11500),
+                                   (1000, 256, 11519), (100, 64, 37)])
 def test_linear_ce_kernels_match_plain(dev, M, H, V):
     """The three flash CE kernels against the plain version's VJP, about
-    40% of the rows PAD (weight 0, label 0): the loss, lse and ll to 1e-5
-    (f32 sums in another order); db to 1e-4 of its largest element (from
-    the f32 dl on both sides); dh and dW to 1e-3 (an element of dl whose
-    two f32 values straddle a bf16 rounding boundary moves its product by
-    one bf16 step); rows of weight 0 get dh = 0 exactly."""
+    40% of the rows PAD (weight 0; label 0, or on every other PAD row a
+    label past V), row 0 live: the loss, lse and ll to 1e-5 (f32 sums in
+    another order); db to 1e-4 of its largest element (from the f32 dl on
+    both sides); dh and dW to 1e-3 (an element of dl whose two f32 values
+    straddle a bf16 rounding boundary moves its product by one bf16
+    step); rows of weight 0 get dh = 0 exactly.  The shapes cover the
+    backward's 64-row tiles: one row, one row past a tile, the train
+    shapes, every width, and a vocabulary smaller than a tile."""
     g = torch.Generator(device=dev).manual_seed(M + V)
     h = torch.tanh(torch.randn((M, H), generator=g, device=dev))
     w = 0.05 * torch.randn((V, H), generator=g, device=dev)
     b = 0.1 * torch.randn((V,), generator=g, device=dev)
     labels = torch.randint(1, V, (M,), generator=g, device=dev)
     mask = (torch.rand((M,), generator=g, device=dev) > 0.4).float()
+    mask[0] = 1.0
     labels[mask == 0] = 0
+    labels[torch.nonzero(mask == 0)[1::2, 0]] = V + 7
     weights = mask / mask.sum()
     leaves = [[t.clone().requires_grad_() for t in (h, w, b)] for _ in range(2)]
     before = dict(_ext.LAUNCHES)
@@ -472,6 +480,30 @@ def test_linear_ce_kernels_match_plain(dev, M, H, V):
         assert a.grad.dtype == torch.float32 and bool(torch.isfinite(a.grad).all())
         assert _rel(a.grad, r.grad) < tol, name
     assert not leaves[0][0].grad[mask == 0].any()
+
+
+@pytest.mark.parametrize("M,H,V", [(30720, 512, 11500), (3000, 128, 2001)])
+def test_linear_ce_backward_repeats_bit_for_bit(dev, M, H, V):
+    """dh, dW and db of two calls on the same inputs are identical: the
+    backward kernels use no float atomics, and dW/db's row splits (5 at
+    the train shapes) are summed in split order."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    h = torch.tanh(torch.randn((M, H), generator=g, device=dev))
+    w = 0.05 * torch.randn((V, H), generator=g, device=dev)
+    b = 0.1 * torch.randn((V,), generator=g, device=dev)
+    labels = torch.randint(0, V, (M,), generator=g, device=dev)
+    weights = torch.rand((M,), generator=g, device=dev) / M
+    ops = prepare(h, w, b, labels)
+    lse, _ = fused_ce_fwd_kernel(*ops)
+    assert ce_bwd_plan(M, H, V).splits > 1
+    first = (fused_ce_dh_kernel(*ops, lse, weights),
+             *fused_ce_dwdb_kernel(*ops, lse, weights))
+    second = (fused_ce_dh_kernel(*ops, lse, weights),
+              *fused_ce_dwdb_kernel(*ops, lse, weights))
+    torch.cuda.synchronize()
+    for name, a, r in zip(("dh", "dW", "db"), first, second):
+        assert torch.equal(a, r), name
+        assert bool(a.abs().max() > 0), name
 
 
 def test_linear_ce_wrapper_checks_its_inputs(dev):

@@ -182,3 +182,56 @@ def test_kernel_shape_rules(shapes, match):
     """The checks a CUDA tensor meets before the kernels launch."""
     with pytest.raises(ValueError, match=match):
         tfc._check(*(torch.zeros(s) for s in shapes))
+
+
+# (M, H, V): the train shapes, the card tests' ragged ones, one row, one
+# row past a tile, a vocabulary smaller than a tile, a small vocabulary
+# under many rows
+PLAN_SHAPES = [(30720, 512, 11500), (1000, 512, 11519), (300, 64, 2000),
+               (77, 128, 301), (1, 512, 11500), (65, 256, 11500),
+               (100, 64, 37), (30720, 512, 300)]
+
+
+def _covered(grid, k_tiles, per):
+    """{(resident tile, streamed tile): times covered} under the
+    backward kernel's rule: block (x, y) keeps tile x and streams tiles
+    [y·per, min(k_tiles, (y + 1)·per))."""
+    seen = {}
+    for x in range(grid[0]):
+        for y in range(grid[1]):
+            for k in range(y * per, min(k_tiles, (y + 1) * per)):
+                seen[x, k] = seen.get((x, k), 0) + 1
+    return seen
+
+
+@pytest.mark.parametrize("M,H,V", PLAN_SHAPES)
+def test_backward_plan_covers_each_tile_pair_once(M, H, V):
+    """Both flash backward kernels meet every (row tile, vocab tile) pair
+    exactly once, and no dW/db split is empty."""
+    plan = tfc.ce_bwd_plan(M, H, V)
+    m_tiles, v_tiles = -(-M // 64), -(-V // 64)
+    want = {(m, v): 1 for m in range(m_tiles) for v in range(v_tiles)}
+    dh = _covered(plan.dh_grid, plan.dh_k_tiles, plan.dh_k_tiles)
+    assert dh == want
+    dwdb = _covered(plan.dwdb_grid, plan.dwdb_k_tiles, plan.dwdb_per)
+    assert {(m, v): n for (v, m), n in dwdb.items()} == want
+    assert all(y * plan.dwdb_per < m_tiles for y in range(plan.splits))
+    assert plan.dh_rows >= M and plan.dh_rows % 64 == 0
+    assert plan.dw_part == (plan.splits, v_tiles * 64, H)
+    assert plan.db_part == (plan.splits, v_tiles * 64)
+
+
+@pytest.mark.parametrize("M,H,V", PLAN_SHAPES)
+def test_backward_plan_workspace_within_bound(M, H, V):
+    """The dW/db partials stay within the stated 128 MiB (one split may
+    exceed it alone), and at the train shapes the plan is 5 splits of 96
+    row tiles: 900 blocks fill 97% of 7 waves on 132 SMs, against 91% for
+    4 splits."""
+    plan = tfc.ce_bwd_plan(M, H, V)
+    s, Vp, h = plan.dw_part
+    assert s == 1 or s * Vp * h * 4 <= 128 << 20
+    if (M, H, V) == (30720, 512, 11500):
+        assert (plan.splits, plan.dwdb_per) == (5, 96)
+        assert plan.dwdb_grid == (180, 5) and plan.dh_grid == (480, 1)
+        assert s * Vp * h * 4 == 112.5 * 2**20
+        assert tfc._wave_fill(900, 132) > 0.97 > tfc._wave_fill(720, 132)

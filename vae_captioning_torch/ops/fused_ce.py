@@ -48,12 +48,18 @@ DH_MAT = "fused_linear_ce_mat_dh"
 DWDB_MAT = "fused_linear_ce_mat_dwdb"
 NEG = -1e30         # the written logit of a vocab column past V
 KERNEL_H = (64, 128, 256, 512)  # the widths the kernels are built for
-_ROWS = 32          # rows of a forward / dh block
-_TILE_V = 64        # vocab columns of a forward / dh logits tile
+_ROWS = 32          # rows of a forward / written-logits dh block
+_TILE_V = 64        # vocab columns of a forward / written-logits dh tile
 _CHUNK_TILES = 16   # vocab tiles per forward block
-_DW_ROWS = 32       # vocab rows of dW per dW/db block
-_DW_TILE_M = 64     # rows of a dW/db logits tile
-_DW_SPLITS = 4      # row ranges of dW/db, summed in order
+_DW_ROWS = 32       # vocab rows of dW per written-logits dW/db block
+_DW_TILE_M = 64     # rows of a written-logits dW/db tile
+_DW_SPLITS = 4      # row ranges of the written-logits dW/db, summed in order
+# the flash backward (csrc/fused_ce.cu, ce_bwd_kernel): 64-row tiles of
+# h and of W, one block per SM (H100 SXM: 132), and the bytes the dW/db
+# row splits' f32 partials may take
+_BWD_TILE = 64
+_BWD_SMS = 132
+_BWD_WORKSPACE = 128 << 20
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
 CEFn = Callable[..., torch.Tensor]   # (h, w, b, labels, weights) → loss
@@ -209,12 +215,66 @@ def _row_args(lse, gw, M, dev):
     return lse, gw
 
 
+class BwdPlan(NamedTuple):
+    """The launches of the flash backward kernels for (M, H, V).  Both
+    kernels run ce_bwd_kernel over 64-row tiles: block (x, y) of a grid
+    keeps resident tile x and streams tiles [y·per, min(k_tiles, (y + 1)·
+    per)) of the other operand.  dh: resident h tiles, every W tile in
+    one range (per = k_tiles).  dW/db: resident W tiles, streamed h tiles
+    in ``splits`` ranges whose f32 partials are summed in range order."""
+
+    dh_grid: Tuple[int, int]
+    dh_k_tiles: int
+    dh_rows: int                        # dh's rows: M rounded up to 64
+    dwdb_grid: Tuple[int, int]
+    dwdb_k_tiles: int
+    dwdb_per: int
+    dw_part: Tuple[int, int, int]       # [splits, Vp, H] f32
+    db_part: Tuple[int, int]            # [splits, Vp] f32
+
+    @property
+    def splits(self) -> int:
+        return self.dwdb_grid[1]
+
+
+def _wave_fill(blocks: int, sms: int) -> float:
+    """The share of ``sms`` x waves that ``blocks`` blocks keep busy, one
+    block per SM."""
+    return blocks / (_cdiv(blocks, sms) * sms)
+
+
+def ce_bwd_plan(M: int, H: int, V: int, sms: int = _BWD_SMS) -> BwdPlan:
+    """The flash backward's grids, row splits and workspace shapes.  The
+    dW/db split count fills the card's waves best among the counts whose
+    partials fit in ``_BWD_WORKSPACE`` bytes (the fewest on a tie); no
+    split is empty.  At the train shapes (M = 30720, H = 512, V = 11500)
+    that is 5 splits of 96 row tiles: 900 blocks, 97% of 7 waves, a
+    112.5 MiB workspace."""
+    T = _BWD_TILE
+    m_tiles, v_tiles = _cdiv(M, T), _cdiv(V, T)
+    Vp = v_tiles * T
+    most = max(1, min(m_tiles, _BWD_WORKSPACE // (Vp * H * 4)))
+    best = (0.0, 1, m_tiles)
+    for want in range(1, most + 1):
+        per = _cdiv(m_tiles, want)
+        splits = _cdiv(m_tiles, per)
+        fill = _wave_fill(v_tiles * splits, sms)
+        if fill > best[0]:
+            best = (fill, splits, per)
+    _, splits, per = best
+    return BwdPlan(dh_grid=(m_tiles, 1), dh_k_tiles=v_tiles,
+                   dh_rows=m_tiles * T, dwdb_grid=(v_tiles, splits),
+                   dwdb_k_tiles=m_tiles, dwdb_per=per,
+                   dw_part=(splits, Vp, H), db_part=(splits, Vp))
+
+
 def fused_ce_dh_kernel(h16, w16, b, lab, lse, gw) -> torch.Tensor:
     """The dh kernel on prepared operands → dh [M, H] f32."""
     M, H, V = _check(h16, w16, b, lab)
     dev = h16.device
     lse, gw = _row_args(lse, gw, M, dev)
-    dh = torch.empty((_cdiv(M, _ROWS) * _ROWS, H), dtype=torch.float32, device=dev)
+    plan = ce_bwd_plan(M, H, V)
+    dh = torch.empty((plan.dh_rows, H), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _ext.library().vct_fused_ce_dh(
             h16.data_ptr(), w16.data_ptr(), b.data_ptr(), lab.data_ptr(),
@@ -227,24 +287,24 @@ def fused_ce_dh_kernel(h16, w16, b, lab, lse, gw) -> torch.Tensor:
 
 def fused_ce_dwdb_kernel(h16, w16, b, lab, lse, gw) -> Pair:
     """The dW/db kernels on prepared operands → (dW [V, H], db [V]) f32.
-    The row ranges' partials are workspaces of [splits, V, H] f32 (94 MB
-    at the train shapes)."""
+    The row splits' partials are workspaces of [splits, Vp, H] f32
+    (:func:`ce_bwd_plan`; 112.5 MiB at the train shapes)."""
     M, H, V = _check(h16, w16, b, lab)
     dev = h16.device
     lse, gw = _row_args(lse, gw, M, dev)
-    splits = min(_DW_SPLITS, _cdiv(M, _DW_TILE_M))
-    Vp = _cdiv(V, _DW_ROWS) * _DW_ROWS
+    plan = ce_bwd_plan(M, H, V, torch.cuda.get_device_properties(dev)
+                       .multi_processor_count)
     f32 = dict(dtype=torch.float32, device=dev)
-    dw_part = torch.empty((splits, Vp, H), **f32)
-    db_part = torch.empty((splits, Vp), **f32)
+    dw_part = torch.empty(plan.dw_part, **f32)
+    db_part = torch.empty(plan.db_part, **f32)
     dw = torch.empty((V, H), **f32)
     db = torch.empty((V,), **f32)
     with torch.cuda.device(dev):
         err = _ext.library().vct_fused_ce_dwdb(
             h16.data_ptr(), w16.data_ptr(), b.data_ptr(), lab.data_ptr(),
             lse.data_ptr(), gw.data_ptr(), dw_part.data_ptr(),
-            db_part.data_ptr(), dw.data_ptr(), db.data_ptr(), M, H, V, splits,
-            _ext.stream_ptr(dev))
+            db_part.data_ptr(), dw.data_ptr(), db.data_ptr(), M, H, V,
+            plan.splits, plan.dwdb_per, _ext.stream_ptr(dev))
     _ext.check_launch(err, DWDB)
     _ext.LAUNCHES[DWDB] += 1
     return dw, db
