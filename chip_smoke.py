@@ -4,9 +4,10 @@ Phases, in order; any failure raises and the script exits nonzero:
 
 1. device: require CUDA, print the card's name and power limit;
 2. build: compile the CUDA kernels from ``vae_captioning_torch/csrc``
-   (one nvcc per source, all started together) and print the flash CE
-   backward template's registers, spills and shared memory per width,
-   and any ptxas warning that it serialises the template's wgmmas;
+   (one nvcc per source, all started together) and print the CE
+   backward templates' registers, spills and shared memory per width
+   (the flash CE's and the written logits'), and any ptxas warning that
+   one serialises its wgmmas;
 3. kernels: each kernel against its plain PyTorch version on the card,
    at the main paths' shapes and ragged ones: the decode kernels (plus a
    deliberate tie), the int8 top-k and the top-k + lse over written
@@ -18,7 +19,10 @@ Phases, in order; any failure raises and the script exits nonzero:
    the flash CE's three kernels (``fused_linear_ce``: forward, dh,
    dW/db) and the written-logits CE's three (``fused_linear_ce_hybrid``:
    the forward that writes the bf16 logits, dh and dW/db over them) at
-   the train shapes, with the train batch's PAD rows, and two ragged ones;
+   the train shapes, with the train batch's PAD rows, and ragged ones
+   (the written-logits kernels also at one row, one row past a tile,
+   every width and a vocabulary smaller than a tile, with labels past V
+   on rows of weight 0, and their backward twice, bit for bit);
 4. decode path: the full-width AG-CVAE (random weights from a seed, in
    the Flax layout, through the bridge) decodes synthetic features
    through ``run_inference`` at beam 3, beam 10 and greedy, writing the
@@ -1477,8 +1481,9 @@ CE_GRAD_RTOL = 1e-3
 def ce_inputs(M: int, V: int, seed: int, labels=None, H: int = HIDDEN):
     """h (LSTM outputs, bf16), the rnn_logits weight [V, H] and bias, and
     labels with PAD rows (weight 0, label 0): the train batch's time-major
-    labels when given, else about 40% PAD rows; and the row weights mask /
-    Σ mask, which are also the backward kernels' gw for a cotangent of 1."""
+    labels when given, else about 40% PAD rows and row 0 live (so that Σ
+    mask > 0 at M = 1); and the row weights mask / Σ mask, which are also
+    the backward kernels' gw for a cotangent of 1."""
     g = torch.Generator(device=DEV).manual_seed(seed)
     h = torch.tanh(torch.randn((M, H), generator=g, device=DEV)).to(torch.bfloat16)
     w = torch.randn((V, H), generator=g, device=DEV) / H ** 0.5
@@ -1486,6 +1491,7 @@ def ce_inputs(M: int, V: int, seed: int, labels=None, H: int = HIDDEN):
     if labels is None:
         labels = torch.randint(1, V, (M,), generator=g, device=DEV)
         labels[torch.rand((M,), generator=g, device=DEV) < 0.4] = 0
+        labels[0] = 1
     mask = (labels != 0).float()
     weights = mask / mask.sum()
     return h, w, b, labels, weights
@@ -1641,14 +1647,18 @@ def check_written_logits(tag: str, lg, p_lg, S) -> int:
     return int(diff.sum())
 
 
-def check_ce_mat(M: int, V: int, labels=None) -> dict:
+def check_ce_mat(M: int, V: int, labels=None, H: int = HIDDEN) -> dict:
     """The three written-logits kernels against their plain versions on
     the same inputs (the backward ones from the kernel's lg and the plain
-    lse, so both see the same operands); returns each kernel's max |kernel
-    - plain| (lg: the largest |f32(lg) - bf16(S)|)."""
-    h, w, b, labels, weights = ce_inputs(M, V, seed=M + V + 1, labels=labels)
+    lse, so both see the same operands), every other row of weight 0
+    labelled V + 7 (a column of lg's pad when V + 7 < Vp); the backward
+    kernels twice, bit for bit.  Returns each kernel's max |kernel -
+    plain| (lg: the largest |f32(lg) - bf16(S)|)."""
+    h, w, b, labels, weights = ce_inputs(M, V, seed=M + V + 1, labels=labels, H=H)
+    labels = labels.clone()
+    labels[torch.nonzero(weights == 0)[1::2, 0]] = V + 7
     ops = fused_ce.prepare(h, w, b, labels)
-    tag = f"fused_linear_ce_hybrid M={M} H={HIDDEN} V={V}"
+    tag = f"fused_linear_ce_hybrid M={M} H={H} V={V}"
     lg, *got = fused_ce.ce_mat_fwd_kernel(*ops)
     p_lg, lse, ll = fused_ce.ce_mat_fwd_plain(h, w, b, labels)
     S = fused_ce._logits(h, w, b)
@@ -1669,8 +1679,13 @@ def check_ce_mat(M: int, V: int, labels=None) -> dict:
           f"whose f32 S lies within {LG_ATOL} of a rounding boundary; pad "
           f"columns -1e30; max |kernel - plain| {lg_err:.3e}")
     gw = weights
-    dh = fused_ce.ce_mat_dh_kernel(lg, ops[1], ops[3], lse, gw)
-    dw, db = fused_ce.ce_mat_dwdb_kernel(ops[0], lg, ops[3], lse, gw, V)
+    runs = [(fused_ce.ce_mat_dh_kernel(lg, ops[1], ops[3], lse, gw),
+             *fused_ce.ce_mat_dwdb_kernel(ops[0], lg, ops[3], lse, gw, V))
+            for _ in range(2)]
+    dh, dw, db = runs[0]
+    for name, a, r in zip(("dh", "dW", "db"), *runs):
+        if not torch.equal(a, r):
+            raise AssertionError(f"{tag}: two calls gave another {name}")
     want = (fused_ce.ce_mat_dh_plain(lg, w, labels, lse, gw),
             *fused_ce.ce_mat_dwdb_plain(h, lg, labels, lse, gw, V))
     if bool(dh[weights == 0].any()):
@@ -1687,17 +1702,27 @@ def check_ce_mat(M: int, V: int, labels=None) -> dict:
         errs[kern] = max(errs.get(kern, 0.0), err)
         print(f"{tag} backward {name}: max |kernel - plain| {err:.3e} ({rel:.2e} "
               f"of max, tolerance {tol})")
+    pad = float((weights == 0).float().mean())
+    print(f"{tag}: {pad:.3f} of the rows PAD (weight 0, every other one "
+          f"labelled {V + 7}), their dh exactly 0; dh, dW and db bit for bit "
+          "across two calls")
     return errs
 
 
 def phase_ce_mat_kernels() -> dict:
     """The train shapes (M = 30720 with the train batch's PAD rows, V =
     11500, lg [30720, 11520]) and ragged ones: M = 1000 with V = 11519, M
-    = 300 with V = 2000 (not a multiple of 64)."""
+    = 300 with V = 2000 (not a multiple of 64); one row and one row past
+    a 64-row tile at the train vocabulary; the other widths at ragged M
+    and V; a vocabulary smaller than a tile."""
     errors = dict.fromkeys(MAT_KERNELS, 0.0)
-    for M, V, labels in ((TRAIN_T * TRAIN_ROWS, VOCAB, train_ce_labels()),
-                         (RAGGED_ROWS, 11519, None), (300, 2000, None)):
-        for k, err in check_ce_mat(M, V, labels).items():
+    for M, V, labels, H in ((TRAIN_T * TRAIN_ROWS, VOCAB, train_ce_labels(), HIDDEN),
+                            (RAGGED_ROWS, 11519, None, HIDDEN),
+                            (300, 2000, None, HIDDEN), (1, VOCAB, None, HIDDEN),
+                            (65, VOCAB, None, HIDDEN), (RAGGED_ROWS, 11519, None, 256),
+                            (77, 301, None, 128), (300, 2000, None, 64),
+                            (100, 37, None, 64)):
+        for k, err in check_ce_mat(M, V, labels, H).items():
             errors[k] = max(errors[k], err)
     return errors
 
@@ -2094,36 +2119,46 @@ def phase_train_profile(out_dir: str, label: str, prior: str, ce=None) -> None:
                   indent=1)
 
 
+# the wgmma + TMA backward templates: the flash CE's (csrc/fused_ce.cu) and
+# the written logits' (csrc/fused_ce_mat.cu), each with the C function that
+# gives its dynamic shared memory at width H
+BWD_TEMPLATES = {"ce_bwd_kernel": "vct_fused_ce_bwd_smem",
+                 "ce_mat_bwd_kernel": "vct_fused_ce_mat_bwd_smem"}
+
+
 def print_bwd_resources() -> None:
-    """Registers, spills and shared memory of the flash CE backward's
-    kernel template (``ce_bwd_kernel<H, DW>`` in csrc/fused_ce.cu) at
-    every width, from nvcc's -Xptxas=-v output in build.log, and any
-    ptxas warning that it serialises the template's wgmmas; the dynamic
-    shared memory from the library."""
+    """Registers, spills and shared memory of the CE backward kernel
+    templates (``BWD_TEMPLATES``: ``<H, DW>``) at every width, from nvcc's
+    -Xptxas=-v output in build.log, and any ptxas warning that it
+    serialises a template's wgmmas; the dynamic shared memory from the
+    library."""
     lines = _ext.build_log.splitlines()
+    names = "|".join(BWD_TEMPLATES)
     found = 0
     for i, line in enumerate(lines):
-        m = re.search(r"Compiling entry function '\w*ce_bwd_kernelILi(\d+)ELb([01])E", line)
+        m = re.search(rf"Compiling entry function '\w*?\d({names})ILi(\d+)ELb([01])E",
+                      line)
         if not m:
             continue
-        H, dw = int(m.group(1)), m.group(2) == "1"
+        name, H, dw = m.group(1), int(m.group(2)), m.group(3) == "1"
         info = " ".join(lines[i + 1:i + 4])
         regs = re.search(r"Used (\d+) registers", info)
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", info)
-        print(f"build: ce_bwd_kernel<{H}, {'dW/db' if dw else 'dh'}>: "
+        smem = getattr(_ext.library(), BWD_TEMPLATES[name])(H)
+        print(f"build: {name}<{H}, {'dW/db' if dw else 'dh'}>: "
               f"{regs.group(1) if regs else '?'} registers, spill stores / loads "
               f"{spills.group(1) + ' / ' + spills.group(2) + ' B' if spills else '?'}, "
-              f"{_ext.library().vct_fused_ce_bwd_smem(H)} B dynamic shared memory")
+              f"{smem} B dynamic shared memory")
         found += 1
     for line in lines:
         m = re.search(r"Potential Performance Loss: (.*) in the function "
-                      r"'\w*ce_bwd_kernelILi(\d+)ELb([01])E", line)
+                      rf"'\w*?\d({names})ILi(\d+)ELb([01])E", line)
         if m:
-            print(f"build: ce_bwd_kernel<{m.group(2)}, "
-                  f"{'dW/db' if m.group(3) == '1' else 'dh'}>: ptxas: {m.group(1)}")
+            print(f"build: {m.group(2)}<{m.group(3)}, "
+                  f"{'dW/db' if m.group(4) == '1' else 'dh'}>: ptxas: {m.group(1)}")
     if not found:
-        print("build: no ptxas report of ce_bwd_kernel (the libraries were "
-              "already built)")
+        print("build: no ptxas report of the CE backward templates (the "
+              "libraries were already built)")
 
 
 def main() -> None:

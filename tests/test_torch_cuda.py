@@ -25,7 +25,8 @@ from vae_captioning_torch.models.cvae import CVAEModel
 from vae_captioning_torch.ops.fused_ag_heads import (ag_heads_plain,
                                                      fused_ag_heads)
 from vae_captioning_torch.ops.fused_ce import (
-    ce_bwd_plan, ce_fwd_plain, ce_mat_fwd_kernel, ce_mat_fwd_plain,
+    ce_bwd_plan, ce_fwd_plain, ce_mat_dh_kernel, ce_mat_dwdb_kernel,
+    ce_mat_fwd_kernel, ce_mat_fwd_plain,
     fused_ce_dh_kernel, fused_ce_dwdb_kernel, fused_ce_fwd_kernel,
     fused_linear_ce, fused_linear_ce_hybrid, fused_linear_ce_hybrid_plain,
     fused_linear_ce_plain, fused_linear_ce_xla_bwd,
@@ -482,11 +483,13 @@ def test_linear_ce_kernels_match_plain(dev, M, H, V):
     assert not leaves[0][0].grad[mask == 0].any()
 
 
+@pytest.mark.parametrize("schedule", ["flash", "written_logits"])
 @pytest.mark.parametrize("M,H,V", [(30720, 512, 11500), (3000, 128, 2001)])
-def test_linear_ce_backward_repeats_bit_for_bit(dev, M, H, V):
-    """dh, dW and db of two calls on the same inputs are identical: the
-    backward kernels use no float atomics, and dW/db's row splits (5 at
-    the train shapes) are summed in split order."""
+def test_linear_ce_backward_repeats_bit_for_bit(dev, schedule, M, H, V):
+    """dh, dW and db of two calls on the same inputs are identical, for the
+    flash CE's backward kernels and for the written logits' (the hybrid
+    and XLA-forward schedules): no float atomics, and dW/db's row splits
+    (5 at the train shapes) are summed in split order."""
     g = torch.Generator(device=dev).manual_seed(7)
     h = torch.tanh(torch.randn((M, H), generator=g, device=dev))
     w = 0.05 * torch.randn((V, H), generator=g, device=dev)
@@ -494,12 +497,20 @@ def test_linear_ce_backward_repeats_bit_for_bit(dev, M, H, V):
     labels = torch.randint(0, V, (M,), generator=g, device=dev)
     weights = torch.rand((M,), generator=g, device=dev) / M
     ops = prepare(h, w, b, labels)
-    lse, _ = fused_ce_fwd_kernel(*ops)
     assert ce_bwd_plan(M, H, V).splits > 1
-    first = (fused_ce_dh_kernel(*ops, lse, weights),
-             *fused_ce_dwdb_kernel(*ops, lse, weights))
-    second = (fused_ce_dh_kernel(*ops, lse, weights),
-              *fused_ce_dwdb_kernel(*ops, lse, weights))
+    if schedule == "flash":
+        lse, _ = fused_ce_fwd_kernel(*ops)
+
+        def backward():
+            return (fused_ce_dh_kernel(*ops, lse, weights),
+                    *fused_ce_dwdb_kernel(*ops, lse, weights))
+    else:
+        lg, lse, _ = ce_mat_fwd_kernel(*ops)
+
+        def backward():
+            return (ce_mat_dh_kernel(lg, ops[1], ops[3], lse, weights),
+                    *ce_mat_dwdb_kernel(ops[0], lg, ops[3], lse, weights, V))
+    first, second = backward(), backward()
     torch.cuda.synchronize()
     for name, a, r in zip(("dh", "dW", "db"), first, second):
         assert torch.equal(a, r), name
@@ -519,16 +530,21 @@ def test_linear_ce_wrapper_checks_its_inputs(dev):
 
 @pytest.mark.parametrize("schedule", ["hybrid", "xla_bwd"])
 @pytest.mark.parametrize("M,H,V", [(300, 64, 2000), (1000, 512, 11519),
-                                   (77, 128, 301)])
+                                   (77, 128, 301), (1, 512, 11500),
+                                   (65, 512, 11500), (30720, 512, 11500),
+                                   (1000, 256, 11519), (100, 64, 37)])
 def test_written_logits_ce_kernels_match_plain(dev, schedule, M, H, V):
     """The hybrid schedule's three kernels (the XLA forward's two backward
-    ones) against the plain twin's VJP, about 40% of the rows PAD: the
+    ones) against the plain twin's VJP, about 40% of the rows PAD (weight
+    0; label 0, or on every other PAD row a label past V), row 0 live: the
     loss to 1e-5, db to 1e-4 of its largest element, dh and dW to 1e-3 (as
     the flash kernels'); rows of weight 0 get dh = 0 exactly; the written
     logits bit for bit but where another f32 sum order crosses a bf16
     rounding boundary: each element that differs is the rounding of a
     value within 1e-5 of the plain f32 logit (2.5e-4 of the elements at H
-    = 512)."""
+    = 512).  The shapes cover the backward's 64-row tiles: one row, one
+    row past a tile, the train shapes, every width, and a vocabulary
+    smaller than a tile."""
     fn, plain = {"hybrid": (fused_linear_ce_hybrid, fused_linear_ce_hybrid_plain),
                  "xla_bwd": (fused_linear_ce_xla_bwd,
                              fused_linear_ce_xla_bwd_plain)}[schedule]
@@ -538,7 +554,9 @@ def test_written_logits_ce_kernels_match_plain(dev, schedule, M, H, V):
     b = 0.1 * torch.randn((V,), generator=g, device=dev)
     labels = torch.randint(1, V, (M,), generator=g, device=dev)
     mask = (torch.rand((M,), generator=g, device=dev) > 0.4).float()
+    mask[0] = 1.0
     labels[mask == 0] = 0
+    labels[torch.nonzero(mask == 0)[1::2, 0]] = V + 7
     weights = mask / mask.sum()
     leaves = [[t.clone().requires_grad_() for t in (h, w, b)] for _ in range(2)]
     before = dict(_ext.LAUNCHES)

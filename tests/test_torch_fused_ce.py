@@ -193,9 +193,9 @@ PLAN_SHAPES = [(30720, 512, 11500), (1000, 512, 11519), (300, 64, 2000),
 
 
 def _covered(grid, k_tiles, per):
-    """{(resident tile, streamed tile): times covered} under the
-    backward kernel's rule: block (x, y) keeps tile x and streams tiles
-    [y·per, min(k_tiles, (y + 1)·per))."""
+    """{(output tile, streamed tile): times covered} under the backward
+    kernels' rule: block (x, y) owns tile x and streams tiles [y·per,
+    min(k_tiles, (y + 1)·per))."""
     seen = {}
     for x in range(grid[0]):
         for y in range(grid[1]):
@@ -204,12 +204,24 @@ def _covered(grid, k_tiles, per):
     return seen
 
 
+# the two schedules whose backward kernels take ce_bwd_plan's launches:
+# the flash CE (a (row tile, vocab tile) pair is one logits tile
+# recomputed) and the written logits (hybrid and XLA forward: the pair is
+# the 64 x 64 box of lg that the block reads and turns into dl)
+BWD_USES = ["flash", "written_logits"]
+
+
+@pytest.mark.parametrize("use", BWD_USES)
 @pytest.mark.parametrize("M,H,V", PLAN_SHAPES)
-def test_backward_plan_covers_each_tile_pair_once(M, H, V):
-    """Both flash backward kernels meet every (row tile, vocab tile) pair
-    exactly once, and no dW/db split is empty."""
+def test_backward_plan_covers_each_tile_pair_once(M, H, V, use):
+    """Both backward kernels of either schedule meet every (row tile,
+    vocab tile) pair exactly once (the written logits: read every box of
+    lg once), and no dW/db split is empty."""
     plan = tfc.ce_bwd_plan(M, H, V)
     m_tiles, v_tiles = -(-M // 64), -(-V // 64)
+    if use == "written_logits":
+        # lg [M, Vp] in 64 x 64 boxes: Vp = 64·v_tiles columns
+        assert tfc.logits_pitch(V) == v_tiles * 64
     want = {(m, v): 1 for m in range(m_tiles) for v in range(v_tiles)}
     dh = _covered(plan.dh_grid, plan.dh_k_tiles, plan.dh_k_tiles)
     assert dh == want
@@ -221,12 +233,13 @@ def test_backward_plan_covers_each_tile_pair_once(M, H, V):
     assert plan.db_part == (plan.splits, v_tiles * 64)
 
 
+@pytest.mark.parametrize("use", BWD_USES)
 @pytest.mark.parametrize("M,H,V", PLAN_SHAPES)
-def test_backward_plan_workspace_within_bound(M, H, V):
-    """The dW/db partials stay within the stated 128 MiB (one split may
-    exceed it alone), and at the train shapes the plan is 5 splits of 96
-    row tiles: 900 blocks fill 97% of 7 waves on 132 SMs, against 91% for
-    4 splits."""
+def test_backward_plan_workspace_within_bound(M, H, V, use):
+    """The dW/db partials of either schedule stay within the stated 128
+    MiB (one split may exceed it alone), and at the train shapes the plan
+    is 5 splits of 96 row tiles: 900 blocks fill 97% of 7 waves on 132
+    SMs, against 91% for 4 splits."""
     plan = tfc.ce_bwd_plan(M, H, V)
     s, Vp, h = plan.dw_part
     assert s == 1 or s * Vp * h * 4 <= 128 << 20

@@ -27,16 +27,10 @@ constexpr int WARPS = THREADS / 32;
 constexpr int PAD = 8;            // bf16 padding of a shared row of H
 constexpr float NEG = -1e30f;     // the logit of a vocab column past V
 
-// forward and dh: 32 rows x 64 vocab columns per logits tile
+// the forward: 32 rows x 64 vocab columns per logits tile
 constexpr int RM = 32;
 constexpr int RV = 64;
 constexpr int R_S_LD = RV + 4;
-constexpr int R_DL_LD = RV + PAD;
-// dW/db: 64 rows x 32 vocab columns per logits tile
-constexpr int WM = 64;
-constexpr int WV = 32;
-constexpr int W_S_LD = WV + 4;
-constexpr int W_DL_LD = WV + PAD;
 
 // the written logits' row pitch: V rounded up to whole forward tiles
 __host__ __device__ __forceinline__ int logits_pitch(int V) {
@@ -82,23 +76,6 @@ __device__ __forceinline__ void logits_tile(const bf16* __restrict__ hs,
   }
   wmma::store_matrix_sync(&S[rf * 16 * (NC + 4) + cf * 16], acc, NC + 4,
                           wmma::mem_row_major);
-}
-
-// the per-row operands of the backward tiles: lse, gw and labels of rows
-// [m0, m0 + R) in shared memory; rows past M get gw = 0
-template <int R>
-__device__ __forceinline__ void load_row_args(const float* __restrict__ lse,
-                                              const float* __restrict__ gw,
-                                              const int* __restrict__ labels,
-                                              int m0, int M, float* row_lse,
-                                              float* row_gw, int* row_lab) {
-  if (threadIdx.x < R) {
-    const int n = m0 + threadIdx.x;
-    const bool in = n < M;
-    row_lse[threadIdx.x] = in ? lse[n] : 0.0f;
-    row_gw[threadIdx.x] = in ? gw[n] : 0.0f;
-    row_lab[threadIdx.x] = in ? labels[n] : -1;
-  }
 }
 
 template <int H>

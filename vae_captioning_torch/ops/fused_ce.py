@@ -48,15 +48,12 @@ DH_MAT = "fused_linear_ce_mat_dh"
 DWDB_MAT = "fused_linear_ce_mat_dwdb"
 NEG = -1e30         # the written logit of a vocab column past V
 KERNEL_H = (64, 128, 256, 512)  # the widths the kernels are built for
-_ROWS = 32          # rows of a forward / written-logits dh block
-_TILE_V = 64        # vocab columns of a forward / written-logits dh tile
+_TILE_V = 64        # vocab columns of a forward tile
 _CHUNK_TILES = 16   # vocab tiles per forward block
-_DW_ROWS = 32       # vocab rows of dW per written-logits dW/db block
-_DW_TILE_M = 64     # rows of a written-logits dW/db tile
-_DW_SPLITS = 4      # row ranges of the written-logits dW/db, summed in order
-# the flash backward (csrc/fused_ce.cu, ce_bwd_kernel): 64-row tiles of
-# h and of W, one block per SM (H100 SXM: 132), and the bytes the dW/db
-# row splits' f32 partials may take
+# the backward kernels of both schedules (csrc/fused_ce.cu, ce_bwd_kernel;
+# csrc/fused_ce_mat.cu, ce_mat_bwd_kernel): 64-row tiles of h and of W,
+# one block per SM (H100 SXM: 132), and the bytes the dW/db row splits'
+# f32 partials may take
 _BWD_TILE = 64
 _BWD_SMS = 132
 _BWD_WORKSPACE = 128 << 20
@@ -216,12 +213,13 @@ def _row_args(lse, gw, M, dev):
 
 
 class BwdPlan(NamedTuple):
-    """The launches of the flash backward kernels for (M, H, V).  Both
-    kernels run ce_bwd_kernel over 64-row tiles: block (x, y) of a grid
-    keeps resident tile x and streams tiles [y·per, min(k_tiles, (y + 1)·
-    per)) of the other operand.  dh: resident h tiles, every W tile in
-    one range (per = k_tiles).  dW/db: resident W tiles, streamed h tiles
-    in ``splits`` ranges whose f32 partials are summed in range order."""
+    """The launches of the backward kernels for (M, H, V), under both
+    schedules: the flash CE's ce_bwd_kernel and the written logits'
+    ce_mat_bwd_kernel tile alike.  Block (x, y) of a grid owns output
+    tile x (64 rows) and streams tiles [y·per, min(k_tiles, (y + 1)·per))
+    of the other operand.  dh: h tiles, every W tile in one range (per =
+    k_tiles).  dW/db: W tiles, streamed h tiles in ``splits`` ranges
+    whose f32 partials are summed in range order."""
 
     dh_grid: Tuple[int, int]
     dh_k_tiles: int
@@ -244,7 +242,7 @@ def _wave_fill(blocks: int, sms: int) -> float:
 
 
 def ce_bwd_plan(M: int, H: int, V: int, sms: int = _BWD_SMS) -> BwdPlan:
-    """The flash backward's grids, row splits and workspace shapes.  The
+    """The backward's grids, row splits and workspace shapes.  The
     dW/db split count fills the card's waves best among the counts whose
     partials fit in ``_BWD_WORKSPACE`` bytes (the fewest on a tie); no
     split is empty.  At the train shapes (M = 30720, H = 512, V = 11500)
@@ -483,7 +481,8 @@ def ce_mat_dh_kernel(lg16, w16, lab, lse, gw) -> torch.Tensor:
     dev = lg16.device
     lg16 = lg16.contiguous()
     lse, gw = _row_args(lse, gw, M, dev)
-    dh = torch.empty((_cdiv(M, _ROWS) * _ROWS, H), dtype=torch.float32, device=dev)
+    plan = ce_bwd_plan(M, H, V)
+    dh = torch.empty((plan.dh_rows, H), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _ext.library().vct_fused_ce_mat_dh(
             lg16.data_ptr(), w16.data_ptr(), lab.data_ptr(), lse.data_ptr(),
@@ -496,7 +495,8 @@ def ce_mat_dh_kernel(lg16, w16, lab, lse, gw) -> torch.Tensor:
 def ce_mat_dwdb_kernel(h16, lg16, lab, lse, gw, V: int) -> Pair:
     """The written-logits dW/db kernel: h16 [M, H] bf16, lg [M, Vp] bf16,
     labels int32, lse and gw [M] → (dW [V, H], db [V]) f32, through row
-    ranges' partials summed in order, as the flash dW/db."""
+    ranges' partials summed in order, as the flash dW/db (the same
+    :func:`ce_bwd_plan`; 112.5 MiB of partials at the train shapes)."""
     M = _check_mat(lg16, lab, h16, V)
     H = h16.shape[1]
     _ext.require(h16.shape[0] == M, f"fused_linear_ce: h {tuple(h16.shape)} "
@@ -504,19 +504,19 @@ def ce_mat_dwdb_kernel(h16, lg16, lab, lse, gw, V: int) -> Pair:
     dev = h16.device
     lg16 = lg16.contiguous()
     lse, gw = _row_args(lse, gw, M, dev)
-    splits = min(_DW_SPLITS, _cdiv(M, _DW_TILE_M))
-    Vw = _cdiv(V, _DW_ROWS) * _DW_ROWS
+    plan = ce_bwd_plan(M, H, V, torch.cuda.get_device_properties(dev)
+                       .multi_processor_count)
     f32 = dict(dtype=torch.float32, device=dev)
-    dw_part = torch.empty((splits, Vw, H), **f32)
-    db_part = torch.empty((splits, Vw), **f32)
+    dw_part = torch.empty(plan.dw_part, **f32)
+    db_part = torch.empty(plan.db_part, **f32)
     dw = torch.empty((V, H), **f32)
     db = torch.empty((V,), **f32)
     with torch.cuda.device(dev):
         err = _ext.library().vct_fused_ce_mat_dwdb(
             h16.data_ptr(), lg16.data_ptr(), lab.data_ptr(), lse.data_ptr(),
             gw.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(),
-            dw.data_ptr(), db.data_ptr(), M, H, V, splits,
-            _ext.stream_ptr(dev))
+            dw.data_ptr(), db.data_ptr(), M, H, V, plan.splits,
+            plan.dwdb_per, _ext.stream_ptr(dev))
     _ext.check_launch(err, DWDB_MAT)
     _ext.LAUNCHES[DWDB_MAT] += 1
     return dw, db
