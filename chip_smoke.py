@@ -4,10 +4,11 @@ Phases, in order; any failure raises and the script exits nonzero:
 
 1. device: require CUDA, print the card's name and power limit;
 2. build: compile the CUDA kernels from ``vae_captioning_torch/csrc``
-   (one nvcc per source, all started together) and print the CE
-   backward templates' registers, spills and shared memory per width
-   (the flash CE's and the written logits'), and any ptxas warning that
-   one serialises its wgmmas;
+   (one nvcc per source, all started together) and print the wgmma +
+   TMA templates' registers, spills and shared memory per instance (the
+   CE forward of both schedules, the flash CE's and the written logits'
+   backward, the AG-heads forward), and any ptxas warning that one
+   serialises its wgmmas;
 3. kernels: each kernel against its plain PyTorch version on the card,
    at the main paths' shapes and ragged ones: the decode kernels (plus a
    deliberate tie), the int8 top-k and the top-k + lse over written
@@ -15,14 +16,16 @@ Phases, in order; any failure raises and the script exits nonzero:
    outside near-ties, and its law over 200,000 draws), the train path's ``fused_lstm_seq`` and ``fused_z``
    forward and backward, the fused z generator's bits, normals and
    moments against the plain generator, and the AG train path's
-   ``fused_ag_heads`` forward and backward with COCO-like cluster vectors,
-   the flash CE's three kernels (``fused_linear_ce``: forward, dh,
-   dW/db) and the written-logits CE's three (``fused_linear_ce_hybrid``:
-   the forward that writes the bf16 logits, dh and dW/db over them) at
-   the train shapes, with the train batch's PAD rows, and ragged ones
-   (the written-logits kernels also at one row, one row past a tile,
-   every width and a vocabulary smaller than a tile, with labels past V
-   on rows of weight 0, and their backward twice, bit for bit);
+   ``fused_ag_heads`` forward and backward with COCO-like cluster vectors
+   (also at one row, one row past a tile and every width; the forward
+   twice, bit for bit), the flash CE's three kernels (``fused_linear_ce``:
+   forward, dh, dW/db) and the written-logits CE's three
+   (``fused_linear_ce_hybrid``: the forward that writes the bf16 logits,
+   dh and dW/db over them) at the train shapes, with the train batch's
+   PAD rows, and ragged ones (both also at one row, one row past a tile,
+   every width and a vocabulary smaller than a tile; the flash forward
+   twice, bit for bit; the written-logits kernels with labels past V on
+   rows of weight 0, each twice, bit for bit);
 4. decode path: the full-width AG-CVAE (random weights from a seed, in
    the Flax layout, through the bridge) decodes synthetic features
    through ``run_inference`` at beam 3, beam 10 and greedy, writing the
@@ -176,7 +179,7 @@ KERNELS = {
         "route": "cuda", "source": "vae_captioning_torch/csrc/fused_ag_heads.cu",
         "replaces": "vae_captioning_tpu/ops/fused_ag_heads.py:116"},
     "fused_linear_ce_fwd": {
-        "route": "cuda", "source": "vae_captioning_torch/csrc/fused_ce.cu",
+        "route": "cuda", "source": "vae_captioning_torch/csrc/fused_ce.cuh",
         "replaces": "vae_captioning_tpu/ops/fused_ce.py:59"},
     "fused_linear_ce_dh": {
         "route": "cuda", "source": "vae_captioning_torch/csrc/fused_ce.cu",
@@ -194,7 +197,7 @@ KERNELS = {
         "route": "cuda", "source": "vae_captioning_torch/csrc/topk_lse.cu",
         "replaces": "vae_captioning_tpu/ops/topk_pallas.py:36"},
     "fused_linear_ce_mat_fwd": {
-        "route": "cuda", "source": "vae_captioning_torch/csrc/fused_ce_mat.cu",
+        "route": "cuda", "source": "vae_captioning_torch/csrc/fused_ce.cuh",
         "replaces": "vae_captioning_tpu/ops/fused_ce.py:304"},
     "fused_linear_ce_mat_dh": {
         "route": "cuda", "source": "vae_captioning_torch/csrc/fused_ce_mat.cu",
@@ -1364,13 +1367,17 @@ def ag_inputs(N: int, K: int, L: int, seed: int, H: int = HIDDEN):
     return h, w, b, coco_cv(N, K, seed), gm, gs
 
 
-def check_ag_heads(N: int, K: int, L: int) -> tuple:
-    """Returns (forward, backward) max |kernel - plain|."""
-    h, w, b, cv, gm, gs = ag_inputs(N, K, L, seed=N + K + L)
+def check_ag_heads(N: int, K: int, L: int, H: int = HIDDEN) -> tuple:
+    """Returns (forward, backward) max |kernel - plain|; the forward runs
+    twice and must repeat bit for bit."""
+    h, w, b, cv, gm, gs = ag_inputs(N, K, L, seed=N + K + L, H=H)
     ops = prepare(h, w, b, cv)
-    tag = f"fused_ag_heads N={N} H={HIDDEN} K={K} L={L}"
+    tag = f"fused_ag_heads N={N} H={H} K={K} L={L}"
     fwd = bwd = 0.0
     got = ag_heads_fwd_kernel(*ops)
+    for name, a, r in zip(("q_mean", "q_std"), got, ag_heads_fwd_kernel(*ops)):
+        if not torch.equal(a, r):
+            raise AssertionError(f"{tag} forward: two calls gave another {name}")
     want = ag_heads_plain(h, w, b, cv)
     empty = cv.sum(dim=1) == 0
     for name, a, r in zip(("q_mean", "q_std"), got, want):
@@ -1381,7 +1388,8 @@ def check_ag_heads(N: int, K: int, L: int) -> tuple:
                                  f"{err:.3e} ({rel:.2e} of max)")
         fwd = max(fwd, err)
         print(f"{tag} forward {name}: max |kernel - plain| {err:.3e} ({rel:.2e} "
-              f"of max, tolerance {AG_FWD_RTOL}); rows without a detection 0")
+              f"of max, tolerance {AG_FWD_RTOL}); rows without a detection 0; "
+              "bit for bit across two calls")
     got = ag_heads_bwd_kernel(*ops, gm, gs)
     want = ag_heads_bwd_plain(h, w, b, cv, gm, gs)
     for name, a, r, tol in zip(("dh", "dW", "db", "dc_v"), got, want,
@@ -1399,12 +1407,19 @@ def check_ag_heads(N: int, K: int, L: int) -> tuple:
 
 def phase_ag_kernels() -> dict:
     """The train shapes (N = 1280, K = 90, L = 150) and ragged ones: N =
-    1000 with K = 12 (two cluster groups, the last one padded) and with
-    K = 7, L = 37."""
+    1000 with K = 12 and with K = 7, L = 37; one row and one row past a
+    64-row tile at the train K and L; the widths H = 64, 128 and 256 at N
+    = 1000, K = 12; and the widths past the forward's resident h: H = 768
+    at 80 latent columns and H = 1024 at 40 (h streamed), H = 768 at 40 (h
+    resident, three stages)."""
     errors = {k: 0.0 for k in AG_KERNELS}
-    for N, K, L in ((TRAIN_ROWS, CLUSTERS, LATENT), (RAGGED_ROWS, 12, LATENT),
-                    (RAGGED_ROWS, 7, 37)):
-        fwd, bwd = check_ag_heads(N, K, L)
+    for N, K, L, H in ((TRAIN_ROWS, CLUSTERS, LATENT, HIDDEN),
+                       (RAGGED_ROWS, 12, LATENT, HIDDEN), (RAGGED_ROWS, 7, 37, HIDDEN),
+                       (1, CLUSTERS, LATENT, HIDDEN), (65, CLUSTERS, LATENT, HIDDEN),
+                       (RAGGED_ROWS, 12, LATENT, 64), (RAGGED_ROWS, 12, LATENT, 128),
+                       (RAGGED_ROWS, 12, LATENT, 256), (RAGGED_ROWS, 12, LATENT, 768),
+                       (300, 7, 37, 1024), (300, 7, 37, 768)):
+        fwd, bwd = check_ag_heads(N, K, L, H)
         errors["fused_ag_heads_fwd"] = max(errors["fused_ag_heads_fwd"], fwd)
         errors["fused_ag_heads_bwd"] = max(errors["fused_ag_heads_bwd"], bwd)
     return errors
@@ -1497,15 +1512,19 @@ def ce_inputs(M: int, V: int, seed: int, labels=None, H: int = HIDDEN):
     return h, w, b, labels, weights
 
 
-def check_fused_ce(M: int, V: int, labels=None) -> dict:
+def check_fused_ce(M: int, V: int, labels=None, H: int = HIDDEN) -> dict:
     """The three kernels against the plain version on the same inputs (the
-    backward ones from the plain lse, so both see the same operands);
-    returns each kernel's max |kernel - plain|."""
-    h, w, b, labels, weights = ce_inputs(M, V, seed=M + V, labels=labels)
+    backward ones from the plain lse, so both see the same operands), the
+    forward twice, bit for bit; returns each kernel's max |kernel -
+    plain|."""
+    h, w, b, labels, weights = ce_inputs(M, V, seed=M + V, labels=labels, H=H)
     ops = fused_ce.prepare(h, w, b, labels)
-    tag = f"fused_linear_ce M={M} H={HIDDEN} V={V}"
+    tag = f"fused_linear_ce M={M} H={H} V={V}"
     pad = float((weights == 0).float().mean())
     got = fused_ce.fused_ce_fwd_kernel(*ops)
+    for name, a, r in zip(("lse", "ll"), got, fused_ce.fused_ce_fwd_kernel(*ops)):
+        if not torch.equal(a, r):
+            raise AssertionError(f"{tag} forward: two calls gave another {name}")
     lse, ll = fused_ce.ce_fwd_plain(h, w, b, labels)
     errs = {}
     for name, a, r in zip(("lse", "ll"), got, (lse, ll)):
@@ -1515,7 +1534,7 @@ def check_fused_ce(M: int, V: int, labels=None) -> dict:
                                  f"({rel:.2e} of max)")
         errs["fused_linear_ce_fwd"] = max(errs.get("fused_linear_ce_fwd", 0.0), err)
         print(f"{tag} forward {name}: max |kernel - plain| {err:.3e} ({rel:.2e} "
-              f"of max, tolerance {CE_FWD_RTOL})")
+              f"of max, tolerance {CE_FWD_RTOL}); bit for bit across two calls")
     gw = weights
     dh = fused_ce.fused_ce_dh_kernel(*ops, lse, gw)
     dw, db = fused_ce.fused_ce_dwdb_kernel(*ops, lse, gw)
@@ -1547,11 +1566,19 @@ def train_ce_labels() -> torch.Tensor:
 def phase_ce_kernels() -> dict:
     """The train shapes (M = 30720 with the train batch's PAD rows, V =
     11500) and ragged ones: M = 1000 with V = 11519, M = 300 with V =
-    2000."""
+    2000; one row and one row past a 64-row tile at the train vocabulary;
+    the other widths at ragged M and V; a vocabulary smaller than a tile;
+    V = 1921 and 130, whose last 128-column tile holds 1 and 2 columns
+    below V and is a vocab chunk alone."""
     errors = {k: 0.0 for k in CE_KERNELS}
-    for M, V, labels in ((TRAIN_T * TRAIN_ROWS, VOCAB, train_ce_labels()),
-                         (RAGGED_ROWS, 11519, None), (300, 2000, None)):
-        for k, err in check_fused_ce(M, V, labels).items():
+    for M, V, labels, H in ((TRAIN_T * TRAIN_ROWS, VOCAB, train_ce_labels(), HIDDEN),
+                            (RAGGED_ROWS, 11519, None, HIDDEN),
+                            (300, 2000, None, HIDDEN), (1, VOCAB, None, HIDDEN),
+                            (65, VOCAB, None, HIDDEN), (RAGGED_ROWS, 11519, None, 256),
+                            (77, 301, None, 128), (300, 2000, None, 64),
+                            (100, 37, None, 64), (300, 1921, None, HIDDEN),
+                            (300, 1921, None, 64), (77, 130, None, 128)):
+        for k, err in check_fused_ce(M, V, labels, H).items():
             errors[k] = max(errors[k], err)
     return errors
 
@@ -1651,8 +1678,8 @@ def check_ce_mat(M: int, V: int, labels=None, H: int = HIDDEN) -> dict:
     """The three written-logits kernels against their plain versions on
     the same inputs (the backward ones from the kernel's lg and the plain
     lse, so both see the same operands), every other row of weight 0
-    labelled V + 7 (a column of lg's pad when V + 7 < Vp); the backward
-    kernels twice, bit for bit.  Returns each kernel's max |kernel -
+    labelled V + 7 (a column of lg's pad when V + 7 < Vp); each kernel
+    twice, bit for bit.  Returns each kernel's max |kernel -
     plain| (lg: the largest |f32(lg) - bf16(S)|)."""
     h, w, b, labels, weights = ce_inputs(M, V, seed=M + V + 1, labels=labels, H=H)
     labels = labels.clone()
@@ -1660,6 +1687,10 @@ def check_ce_mat(M: int, V: int, labels=None, H: int = HIDDEN) -> dict:
     ops = fused_ce.prepare(h, w, b, labels)
     tag = f"fused_linear_ce_hybrid M={M} H={H} V={V}"
     lg, *got = fused_ce.ce_mat_fwd_kernel(*ops)
+    for name, a, r in zip(("lg", "lse", "ll"), (lg, *got),
+                          fused_ce.ce_mat_fwd_kernel(*ops)):
+        if not torch.equal(a, r):
+            raise AssertionError(f"{tag} forward: two calls gave another {name}")
     p_lg, lse, ll = fused_ce.ce_mat_fwd_plain(h, w, b, labels)
     S = fused_ce._logits(h, w, b)
     flips = check_written_logits(tag, lg, p_lg, S)
@@ -1677,7 +1708,8 @@ def check_ce_mat(M: int, V: int, labels=None, H: int = HIDDEN) -> dict:
     print(f"{tag} forward lg [{M}, {lg.shape[1]}] bf16: bit-identical to "
           f"bf16(f32 S) but {flips} of {M * V} elements ({flips / (M * V):.2e}) "
           f"whose f32 S lies within {LG_ATOL} of a rounding boundary; pad "
-          f"columns -1e30; max |kernel - plain| {lg_err:.3e}")
+          f"columns -1e30; max |kernel - plain| {lg_err:.3e}; lg, lse and ll "
+          "bit for bit across two calls")
     gw = weights
     runs = [(fused_ce.ce_mat_dh_kernel(lg, ops[1], ops[3], lse, gw),
              *fused_ce.ce_mat_dwdb_kernel(ops[0], lg, ops[3], lse, gw, V))
@@ -1714,14 +1746,17 @@ def phase_ce_mat_kernels() -> dict:
     11500, lg [30720, 11520]) and ragged ones: M = 1000 with V = 11519, M
     = 300 with V = 2000 (not a multiple of 64); one row and one row past
     a 64-row tile at the train vocabulary; the other widths at ragged M
-    and V; a vocabulary smaller than a tile."""
+    and V; a vocabulary smaller than a tile; V = 1921 and 130, whose last
+    128-column tile holds 1 and 2 columns below V and is a vocab chunk
+    alone."""
     errors = dict.fromkeys(MAT_KERNELS, 0.0)
     for M, V, labels, H in ((TRAIN_T * TRAIN_ROWS, VOCAB, train_ce_labels(), HIDDEN),
                             (RAGGED_ROWS, 11519, None, HIDDEN),
                             (300, 2000, None, HIDDEN), (1, VOCAB, None, HIDDEN),
                             (65, VOCAB, None, HIDDEN), (RAGGED_ROWS, 11519, None, 256),
                             (77, 301, None, 128), (300, 2000, None, 64),
-                            (100, 37, None, 64)):
+                            (100, 37, None, 64), (300, 1921, None, HIDDEN),
+                            (300, 1921, None, 64), (77, 130, None, 128)):
         for k, err in check_ce_mat(M, V, labels, H).items():
             errors[k] = max(errors[k], err)
     return errors
@@ -2119,46 +2154,61 @@ def phase_train_profile(out_dir: str, label: str, prior: str, ce=None) -> None:
                   indent=1)
 
 
-# the wgmma + TMA backward templates: the flash CE's (csrc/fused_ce.cu) and
-# the written logits' (csrc/fused_ce_mat.cu), each with the C function that
-# gives its dynamic shared memory at width H
-BWD_TEMPLATES = {"ce_bwd_kernel": "vct_fused_ce_bwd_smem",
-                 "ce_mat_bwd_kernel": "vct_fused_ce_mat_bwd_smem"}
+# the wgmma + TMA kernel templates: the CE forward of both schedules
+# (csrc/fused_ce.cuh, <H, WRITE_LG>), the flash CE's backward
+# (csrc/fused_ce.cu, <H, DW>), the written logits' backward
+# (csrc/fused_ce_mat.cu, <H, DW>) and the AG-heads forward
+# (csrc/fused_ag_heads.cu, <NC, RES>): each one's instance label from its
+# template arguments, and its dynamic shared memory (the AG forward's at H
+# = HIDDEN with h resident, at 2·HIDDEN with h streamed)
+WGMMA_TEMPLATES = {
+    "ce_fwd_kernel": (lambda n, f: f"<{n}, {'written logits' if f else 'flash'}>",
+                      lambda n, f: _ext.library().vct_fused_ce_fwd_smem(n, int(f))),
+    "ce_bwd_kernel": (lambda n, f: f"<{n}, {'dW/db' if f else 'dh'}>",
+                      lambda n, f: _ext.library().vct_fused_ce_bwd_smem(n)),
+    "ce_mat_bwd_kernel": (lambda n, f: f"<{n}, {'dW/db' if f else 'dh'}>",
+                          lambda n, f: _ext.library().vct_fused_ce_mat_bwd_smem(n)),
+    "ag_fwd_kernel": (lambda n, f: f"<NC={n}, h {'resident' if f else 'streamed'}>",
+                      lambda n, f: _ext.library().vct_fused_ag_heads_fwd_smem(
+                          HIDDEN if f else 2 * HIDDEN, n)),
+}
+# a mangled instance name: <int, bool> or <int>
+_INSTANCE = r"\w*?\d({names})ILi(\d+)E(?:Lb([01])E)?"
 
 
-def print_bwd_resources() -> None:
-    """Registers, spills and shared memory of the CE backward kernel
-    templates (``BWD_TEMPLATES``: ``<H, DW>``) at every width, from nvcc's
+def print_template_resources() -> None:
+    """Registers, spills and shared memory of the wgmma + TMA kernel
+    templates (``WGMMA_TEMPLATES``) at every instance, from nvcc's
     -Xptxas=-v output in build.log, and any ptxas warning that it
-    serialises a template's wgmmas; the dynamic shared memory from the
-    library."""
+    serialises an instance's wgmmas (C7515); the dynamic shared memory from
+    the library."""
     lines = _ext.build_log.splitlines()
-    names = "|".join(BWD_TEMPLATES)
+    instance = _INSTANCE.format(names="|".join(WGMMA_TEMPLATES))
     found = 0
     for i, line in enumerate(lines):
-        m = re.search(rf"Compiling entry function '\w*?\d({names})ILi(\d+)ELb([01])E",
-                      line)
+        m = re.search(rf"Compiling entry function '{instance}", line)
         if not m:
             continue
-        name, H, dw = m.group(1), int(m.group(2)), m.group(3) == "1"
+        name, n, flag = m.group(1), int(m.group(2)), m.group(3) == "1"
+        label, smem = WGMMA_TEMPLATES[name]
         info = " ".join(lines[i + 1:i + 4])
         regs = re.search(r"Used (\d+) registers", info)
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", info)
-        smem = getattr(_ext.library(), BWD_TEMPLATES[name])(H)
-        print(f"build: {name}<{H}, {'dW/db' if dw else 'dh'}>: "
+        print(f"build: {name}{label(n, flag)}: "
               f"{regs.group(1) if regs else '?'} registers, spill stores / loads "
               f"{spills.group(1) + ' / ' + spills.group(2) + ' B' if spills else '?'}, "
-              f"{smem} B dynamic shared memory")
+              f"{smem(n, flag)} B dynamic shared memory")
         found += 1
     for line in lines:
-        m = re.search(r"Potential Performance Loss: (.*) in the function "
-                      rf"'\w*?\d({names})ILi(\d+)ELb([01])E", line)
+        m = re.search(rf"Potential Performance Loss: (.*) in the function '{instance}",
+                      line)
         if m:
-            print(f"build: {m.group(2)}<{m.group(3)}, "
-                  f"{'dW/db' if m.group(4) == '1' else 'dh'}>: ptxas: {m.group(1)}")
+            label = WGMMA_TEMPLATES[m.group(2)][0]
+            print(f"build: {m.group(2)}{label(int(m.group(3)), m.group(4) == '1')}: "
+                  f"ptxas: {m.group(1)}")
     if not found:
-        print("build: no ptxas report of the CE backward templates (the "
-              "libraries were already built)")
+        print("build: no ptxas report of the wgmma templates (the libraries "
+              "were already built)")
 
 
 def main() -> None:
@@ -2179,7 +2229,7 @@ def main() -> None:
     print(f"build: {_ext.build_seconds:.1f} s -> " + ", ".join(
         _ext.library_path(src).name for src in _ext._sources())
         + f" (nvcc output in {out_dir}/build.log)")
-    print_bwd_resources()
+    print_template_resources()
     if sys.argv[1:] == ["--profile"]:
         for prior, ce in (("Normal", ""), ("AG", ""), ("GMM", "fused_ce"),
                           ("GMM", "ce_hybrid")):

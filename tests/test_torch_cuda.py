@@ -22,8 +22,10 @@ from vae_captioning_torch.config import Config
 from vae_captioning_torch.data.vocabulary import Vocabulary
 from vae_captioning_torch.inference import PLAIN_OPS, make_decode_fns
 from vae_captioning_torch.models.cvae import CVAEModel
-from vae_captioning_torch.ops.fused_ag_heads import (ag_heads_plain,
+from vae_captioning_torch.ops.fused_ag_heads import (ag_heads_fwd_kernel,
+                                                     ag_heads_plain,
                                                      fused_ag_heads)
+from vae_captioning_torch.ops.fused_ag_heads import prepare as ag_prepare
 from vae_captioning_torch.ops.fused_ce import (
     ce_bwd_plan, ce_fwd_plain, ce_mat_dh_kernel, ce_mat_dwdb_kernel,
     ce_mat_fwd_kernel, ce_mat_fwd_plain,
@@ -391,7 +393,10 @@ def test_train_wrappers_check_their_inputs(dev):
 
 
 @pytest.mark.parametrize("N,H,K,L", [(70, 64, 7, 37), (1000, 512, 12, 150),
-                                     (1280, 512, 90, 150)])
+                                     (1280, 512, 90, 150), (1, 512, 90, 150),
+                                     (65, 512, 90, 150), (1000, 128, 12, 150),
+                                     (300, 768, 12, 150), (70, 768, 7, 37),
+                                     (70, 1024, 7, 37)])
 def test_ag_heads_kernels_match_plain(dev, N, H, K, L):
     """Forward to 1e-4 of the largest element (f32 sums in another order);
     db to 1e-4 (both from f32 dq); dh, dW and dc_v to 8e-3, two bf16 steps
@@ -426,6 +431,35 @@ def test_ag_heads_kernels_match_plain(dev, N, H, K, L):
         assert _rel(a.grad, r.grad) < tol, name
 
 
+@pytest.mark.parametrize("kernel", ["ag_heads", "flash_ce", "written_logits_ce"])
+@pytest.mark.parametrize("big", [True, False], ids=["train", "ragged"])
+def test_forward_kernels_repeat_bit_for_bit(dev, kernel, big):
+    """The AG-heads forward (q_mean, q_std) and the CE forward of both
+    schedules (lse, ll, and the written logits) give identical outputs in
+    two calls on the same inputs: no float atomics, and the groups' and
+    vocab chunks' partials are merged in order."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    if kernel == "ag_heads":
+        N, H, K, L = (1280, 512, 90, 150) if big else (65, 128, 7, 37)
+        ops = ag_prepare(torch.randn((N, H), generator=g, device=dev),
+                         0.05 * torch.randn((2 * K * L, H), generator=g, device=dev),
+                         0.1 * torch.randn((2 * K * L,), generator=g, device=dev),
+                         torch.rand((N, K), generator=g, device=dev))
+        fn = ag_heads_fwd_kernel
+    else:
+        M, H, V = (30720, 512, 11500) if big else (77, 128, 301)
+        ops = prepare(torch.tanh(torch.randn((M, H), generator=g, device=dev)),
+                      0.05 * torch.randn((V, H), generator=g, device=dev),
+                      0.1 * torch.randn((V,), generator=g, device=dev),
+                      torch.randint(0, V, (M,), generator=g, device=dev))
+        fn = fused_ce_fwd_kernel if kernel == "flash_ce" else ce_mat_fwd_kernel
+    first, second = fn(*ops), fn(*ops)
+    torch.cuda.synchronize()
+    for a, r in zip(first, second):
+        assert torch.equal(a, r)
+        assert bool(torch.isfinite(a.float()).any())
+
+
 def test_ag_heads_wrapper_checks_its_inputs(dev):
     h = torch.zeros((4, 96), device=dev)
     with pytest.raises(ValueError, match="multiple of 64"):
@@ -439,7 +473,8 @@ def test_ag_heads_wrapper_checks_its_inputs(dev):
 @pytest.mark.parametrize("M,H,V", [(300, 64, 2000), (1000, 512, 11519),
                                    (77, 128, 301), (1, 512, 11500),
                                    (65, 512, 11500), (30720, 512, 11500),
-                                   (1000, 256, 11519), (100, 64, 37)])
+                                   (1000, 256, 11519), (100, 64, 37),
+                                   (300, 64, 1921), (77, 128, 130)])
 def test_linear_ce_kernels_match_plain(dev, M, H, V):
     """The three flash CE kernels against the plain version's VJP, about
     40% of the rows PAD (weight 0; label 0, or on every other PAD row a
@@ -532,7 +567,8 @@ def test_linear_ce_wrapper_checks_its_inputs(dev):
 @pytest.mark.parametrize("M,H,V", [(300, 64, 2000), (1000, 512, 11519),
                                    (77, 128, 301), (1, 512, 11500),
                                    (65, 512, 11500), (30720, 512, 11500),
-                                   (1000, 256, 11519), (100, 64, 37)])
+                                   (1000, 256, 11519), (100, 64, 37),
+                                   (300, 64, 1921), (77, 128, 130)])
 def test_written_logits_ce_kernels_match_plain(dev, schedule, M, H, V):
     """The hybrid schedule's three kernels (the XLA forward's two backward
     ones) against the plain twin's VJP, about 40% of the rows PAD (weight

@@ -146,8 +146,54 @@ def test_backward_plain_matches_autograd():
     (((8, 64), (2 * 5 * 37, 64), (2 * 5 * 37,), (7, 5)), "disagree"),
     (((8, 64), (2 * 5 * 37 + 1, 64), (2 * 5 * 37 + 1,), (8, 5)), "disagree"),
     (((0, 64), (2 * 5 * 37, 64), (2 * 5 * 37,), (0, 5)), "no rows"),
+    (((8, 64, 1), (2 * 5 * 37, 64), (2 * 5 * 37,), (8, 5)), r"h \[N, H\]"),
 ])
 def test_kernel_shape_rules(shapes, match):
     """The checks a CUDA tensor meets before the kernels launch."""
     with pytest.raises(ValueError, match=match):
         tfah._check(*(torch.zeros(s) for s in shapes))
+
+
+# (N, K, L): the train shapes, the card checks' ragged ones, one row, one
+# row past a tile, fewer clusters than a group, a latent size above one
+# tile's columns
+FWD_PLAN_DIMS = [(1280, 90, 150), (1000, 12, 150), (1000, 7, 37),
+                 (1, 90, 150), (65, 90, 150), (70, 7, 37), (3, 1, 5),
+                 (200, 3, 300)]
+
+
+@pytest.mark.parametrize("N,K,L", FWD_PLAN_DIMS)
+def test_forward_plan_covers_each_block_once(N, K, L):
+    """The forward's blocks meet every (row tile, latent column, cluster)
+    exactly once under the kernel's rule: block (x, y, z) takes rows
+    [128x, 128x + 128), latent columns [cols·y, cols·y + cols) below L and
+    clusters [kb·z, min(K, kb·z + kb)); no group is empty."""
+    plan = tfah.ag_fwd_plan(N, K, L)
+    assert plan.cols in (40, 80) and 1 <= plan.kb <= K
+    m_tiles = -(-N // 128)
+    assert plan.grid == (m_tiles, -(-L // plan.cols), -(-K // plan.kb))
+    seen = {}
+    for x in range(plan.grid[0]):
+        for y in range(plan.grid[1]):
+            for z in range(plan.grid[2]):
+                ks = range(z * plan.kb, min(K, (z + 1) * plan.kb))
+                assert len(ks) > 0
+                for l in range(y * plan.cols, min(L, (y + 1) * plan.cols)):
+                    for k in ks:
+                        seen[x, l, k] = seen.get((x, l, k), 0) + 1
+    assert seen == {(x, l, k): 1 for x in range(m_tiles) for l in range(L)
+                    for k in range(K)}
+
+
+@pytest.mark.parametrize("N,K,L", FWD_PLAN_DIMS)
+def test_forward_plan_workspace_within_bound(N, K, L):
+    """The groups' [2, N, L] f32 partials stay within the stated 64 MiB
+    (one group may exceed it alone), and at the train shapes the plan is
+    two latent tiles of 80 columns and 13 groups of 7 clusters: 260
+    blocks, 98% of 2 waves on 132 SMs."""
+    plan = tfah.ag_fwd_plan(N, K, L)
+    assert plan.part == (plan.groups, 2, N, L)
+    assert plan.groups == 1 or plan.groups * 2 * N * L * 4 <= 64 << 20
+    if (N, K, L) == (1280, 90, 150):
+        assert (plan.cols, plan.kb) == (80, 7)
+        assert plan.grid == (10, 2, 13)

@@ -248,3 +248,39 @@ def test_backward_plan_workspace_within_bound(M, H, V, use):
         assert plan.dwdb_grid == (180, 5) and plan.dh_grid == (480, 1)
         assert s * Vp * h * 4 == 112.5 * 2**20
         assert tfc._wave_fill(900, 132) > 0.97 > tfc._wave_fill(720, 132)
+
+
+# (M, V): the plan shapes' (M, V), a vocabulary smaller than a tile at one
+# row
+FWD_PLAN_SHAPES = sorted({(M, V) for M, _, V in PLAN_SHAPES} | {(1, 37)})
+
+
+@pytest.mark.parametrize("use", BWD_USES)
+@pytest.mark.parametrize("M,V", FWD_PLAN_SHAPES)
+def test_forward_plan_covers_each_tile_pair_once(M, V, use):
+    """The forward kernel of either schedule (the flash forward and the
+    written-logits one are one template) meets every (128-row tile,
+    128-column vocab tile) pair exactly once, and no vocab chunk is empty;
+    the written logits' Vp columns all lie in those tiles."""
+    plan = tfc.ce_fwd_plan(M, V)
+    m_tiles, v_tiles = -(-M // 128), -(-V // 128)
+    assert plan.grid[0] == m_tiles and plan.v_tiles == v_tiles
+    seen = _covered(plan.grid, v_tiles, plan.chunk_tiles)
+    assert seen == {(m, v): 1 for m in range(m_tiles) for v in range(v_tiles)}
+    assert all(y * plan.chunk_tiles < v_tiles for y in range(plan.grid[1]))
+    if use == "written_logits":
+        assert V <= tfc.logits_pitch(V) <= 128 * v_tiles
+        assert tfc.logits_pitch(V) % 64 == 0
+
+
+@pytest.mark.parametrize("M,V", FWD_PLAN_SHAPES)
+def test_forward_plan_workspace_within_bound(M, V):
+    """The chunks' (m, s, ll) partials stay within the stated 16 MiB (one
+    chunk may exceed it alone), and at the train shapes the plan is 6
+    chunks of 15 vocab tiles: 1,440 blocks, 99% of 11 waves on 132 SMs."""
+    plan = tfc.ce_fwd_plan(M, V)
+    chunks = plan.grid[1]
+    assert plan.part == (chunks, M, 3)
+    assert chunks == 1 or chunks * M * 3 * 4 <= 16 << 20
+    if (M, V) == (30720, 11500):
+        assert plan.grid == (240, 6) and plan.chunk_tiles == 15

@@ -71,11 +71,13 @@ _SIGNATURES = {
     "vct_fused_z_fwd": [_P] * 6 + [_I] * 5 + [_U, _U, _P],
     "vct_fused_z_bwd": [_P] * 7 + [_I] * 4 + [_U, _U, _P],
     "vct_fused_z_eps": [_P] + [_I] * 3 + [_U, _U, _I, _P],
-    "vct_fused_ag_heads_fwd": [_P] * 6 + [_I] * 5 + [_P],
+    "vct_fused_ag_heads_fwd": [_P] * 6 + [_I] * 6 + [_P],
+    "vct_fused_ag_heads_fwd_smem": [_I, _I],
     "vct_fused_ag_heads_bwd": [_P] * 7 + [_I] + [_P] * 7 + [_I] * 6 + [_P],
     "vct_fused_ce_fwd": [_P] * 7 + [_I] * 4 + [_P],
     "vct_fused_ce_dh": [_P] * 7 + [_I] * 3 + [_P],
     "vct_fused_ce_dwdb": [_P] * 10 + [_I] * 5 + [_P],
+    "vct_fused_ce_fwd_smem": [_I, _I],
     "vct_fused_ce_bwd_smem": [_I],
     "vct_fused_ce_mat_fwd": [_P] * 8 + [_I] * 4 + [_P],
     "vct_fused_ce_mat_dh": [_P] * 6 + [_I] * 3 + [_P],

@@ -4,10 +4,9 @@
 //
 // Replaces the TPU kernels of vae_captioning_tpu/ops/fused_ce.py:
 // _fwd_kernel (:59), _dh_kernel (:134) and _dwdb_kernel (:159), called
-// through fused_linear_ce.  The forward kernel, its merge launch and the
-// WMMA tile helpers live in fused_ce.cuh, and the mbarrier, TMA and wgmma
-// primitives in hopper.cuh; the written-logits schedule (fused_ce_mat.cu)
-// shares both.
+// through fused_linear_ce.  The forward kernel and its merge launch live in
+// fused_ce.cuh, and the mbarrier, TMA and wgmma primitives in hopper.cuh;
+// the written-logits schedule (fused_ce_mat.cu) shares both.
 //
 //   S   = h @ W^T + b                      [M, V]  (never written)
 //   lse = logsumexp_v S,    ll = S[label]
@@ -75,8 +74,8 @@
 //   gradients repeat bit for bit.
 //
 // Shared memory at H = 512: Q 64 KB, two 64 KB stages, two 8 KB dl tiles
-// (209 KB with alignment and barriers): one block per SM.  The forward is
-// still the WMMA kernel of fused_ce.cuh.
+// (209 KB with alignment and barriers): one block per SM.  The forward,
+// ce_fwd_kernel<H, false>, is the wgmma + TMA template of fused_ce.cuh.
 
 #include "fused_ce.cuh"
 #include "hopper.cuh"
@@ -388,8 +387,9 @@ int launch_dwdb(const bf16* h, const bf16* w, const float* b, const int* labels,
       static_cast<const float*>(b), static_cast<const int*>(labels)
 
 // h16 [M, H], w16 [V, H] bf16; b [V] f32; labels [M] int32 -> lse, ll [M]
-// f32.  part: [chunks, M, 3] f32 workspace, chunks = ceil(ceil(V / 64) /
-// chunk_tiles).
+// f32.  A block takes chunk_tiles vocab tiles of 128 columns; part: [chunks,
+// M, 3] f32 workspace, chunks = ceil(ceil(V / 128) / chunk_tiles).
+// ops/fused_ce.py's ce_fwd_plan picks chunk_tiles.
 extern "C" int vct_fused_ce_fwd(const void* h, const void* w, const void* b,
                                 const void* labels, void* part, void* lse,
                                 void* ll, int M, int H, int V, int chunk_tiles,
@@ -439,6 +439,15 @@ extern "C" int vct_fused_ce_dwdb(const void* h, const void* w, const void* b,
                   static_cast<float*>(db), M, V, splits, per, st)
   VCT_CE_SWITCH_H(CALL)
 #undef CALL
+}
+
+// the dynamic shared memory of the forward kernel at width H, of the flash
+// schedule (write_lg 0) or of the written-logits one (1) (bytes)
+extern "C" int vct_fused_ce_fwd_smem(int H, int write_lg) {
+  if (write_lg) {
+    VCT_CE_FWD_SMEM(H, true)
+  }
+  VCT_CE_FWD_SMEM(H, false)
 }
 
 // the dynamic shared memory of the backward kernels at width H (bytes)

@@ -1,163 +1,331 @@
 // Shared by the linear cross-entropy kernels for Hopper (sm_90a): the flash
 // schedule (fused_ce.cu) and the written-logits schedule (fused_ce_mat.cu).
-// Tile shapes, the tile loaders, the WMMA logits tile, and the forward kernel
-// with its merge launch, which both schedules run: the flash forward folds
-// each f32 logits tile into the per-row (max, sum-exp) and label logit; the
-// written-logits forward does the same and also stores the tile as bf16.
+// The forward kernel template and its merge launch, which both schedules
+// run: the flash forward folds each f32 logits tile into the per-row (max,
+// sum-exp) and label logit; the written-logits forward (WRITE_LG) does the
+// same and also stores the tile as bf16.  Also the split-sum launch of both
+// backwards and the launch helpers.
 //
 //   S   = h @ W^T + b        h [M, H], W [V, H] bf16; b f32; f32 accumulation
 //   lse = logsumexp_v S,    ll = S[label] (0 for a label that is no column)
+//
+// The forward, ce_fwd_kernel<H, WRITE_LG>, on the primitives of hopper.cuh.
+// What bounds it on this card: tensor-core operations, 2·M·H·V (362 GFLOP
+// at M = 30720, H = 512, V = 11500: 0.366 ms at the dense bf16 rate); the
+// written logits (708 MB) take 0.21 ms at the memory rate beside them.
+//
+// * Resident rows, streamed vocabulary.  A block keeps 128 rows of h in
+//   shared memory (TMA, 64 x 64 boxes, 128-byte swizzle; 128 KB at H =
+//   512), loaded once, and streams W through a ring of [128 vocab rows x
+//   64 columns] boxes (16 KB; at H = 512 6 stages, 4 with WRITE_LG; 8
+//   below), one full mbarrier per stage.
+// * wgmma: two consumer warpgroups, 64 rows each, accumulate their S tile
+//   [64 x 128] in registers (m64n128k16, 64 f32 a thread) over the H / 64
+//   boxes of a vocab tile; both read the same W box, so a box is A-reused
+//   by two products and each W byte is read from L2 once per 128 rows.
+// * Refill: each warpgroup commits one wgmma group per box and, once the
+//   previous box's group retired, its leader counts that release in
+//   shared memory; the later of the two leaders refills the stage, STAGES
+//   boxes ahead.  Nobody waits to refill.
+// * The softmax fold in registers: each thread owns 2 rows x 32 columns of
+//   a tile; the 4 lanes of a row take the tile's row max by two shuffles
+//   and keep the row's running max and each its own sum-exp, which they
+//   add once, at the end.  The tile's biases are requested before its
+//   products; each exp is one FFMA and one ex2.  The label pick compares
+//   the label's offset from the thread's first column; a thread that
+//   holds no label column skips it.  While one warpgroup folds, the
+//   other's products keep the tensor cores busy.
+// * Ragged edges: TMA fills W rows past V and h rows past M with zeros; a
+//   column past V takes bias -1e30 (its S is exactly 0), so exp gives 0
+//   there and the written pad columns V..Vp-1 hold -1e30.  Rows past M are
+//   never stored.
+// * Written logits (708 MB at the train shapes): each warpgroup rounds its
+//   tile to bf16 (nearest even) into two swizzled 64 x 64 boxes in shared
+//   memory and its leader stores them with TMA (clipped at row M and
+//   column Vp), which runs while the next tile's products do; lse and ll
+//   come from the f32 S before the rounding.  (Storing each thread's
+//   4-byte pairs straight from the registers cost 0.36 ms more than the
+//   flash forward.)
+// * Vocab chunks: grid (row tiles of 128, vocab chunks); chunk y takes the
+//   128-column vocab tiles [y·chunk_tiles, (y + 1)·chunk_tiles) and writes
+//   its (m, s, ll) partial; ce_merge_kernel merges them in chunk order, so
+//   the results repeat bit for bit (no atomics).  ops/fused_ce.py's
+//   ce_fwd_plan picks the chunks by wave fill.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
-using AccFrag = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int PAD = 8;            // bf16 padding of a shared row of H
+constexpr int THREADS = 256;      // the merge and split-sum launches
 constexpr float NEG = -1e30f;     // the logit of a vocab column past V
 
-// the forward: 32 rows x 64 vocab columns per logits tile
-constexpr int RM = 32;
-constexpr int RV = 64;
-constexpr int R_S_LD = RV + 4;
-
-// the written logits' row pitch: V rounded up to whole forward tiles
+// the written logits' row pitch: V rounded up to 64 columns (128 bytes), the
+// TMA box and swizzle width of the written-logits backward
+constexpr int LG_COLS = 64;
 __host__ __device__ __forceinline__ int logits_pitch(int V) {
-  return (V + RV - 1) / RV * RV;
+  return (V + LG_COLS - 1) / LG_COLS * LG_COLS;
 }
 
-// rows [r0, r0 + R) of a [rows, H] bf16 matrix into shared [R][H + PAD];
-// rows at and past r_end read zeros
-template <int H, int R>
-__device__ __forceinline__ void load_rows(const bf16* __restrict__ g, int r0,
-                                          int r_end, bf16* __restrict__ s) {
-  constexpr int PER_ROW = H / 8;
-  for (int i = threadIdx.x; i < R * PER_ROW; i += THREADS) {
-    const int r = i / PER_ROW;
-    const int c = (i % PER_ROW) * 8;
-    uint4 x = make_uint4(0, 0, 0, 0);
-    if (r0 + r < r_end)
-      x = *reinterpret_cast<const uint4*>(&g[static_cast<size_t>(r0 + r) * H + c]);
-    *reinterpret_cast<uint4*>(&s[r * (H + PAD) + c]) = x;
-  }
-}
-
-// S[MR][NC + 4] (f32, shared) <- hs[MR rows] @ ws[NC rows]^T, contracting H;
-// one 16 x 16 fragment per warp
-template <int H, int MR, int NC>
-__device__ __forceinline__ void logits_tile(const bf16* __restrict__ hs,
-                                            const bf16* __restrict__ ws,
-                                            float* __restrict__ S) {
-  static_assert((MR / 16) * (NC / 16) == WARPS, "one fragment per warp");
-  constexpr int LD = H + PAD;
-  const int warp = threadIdx.x / 32;
-  const int rf = warp / (NC / 16);
-  const int cf = warp % (NC / 16);
-  AccFrag acc;
-  wmma::fill_fragment(acc, 0.0f);
-#pragma unroll 8
-  for (int k = 0; k < H; k += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-    wmma::load_matrix_sync(a, &hs[rf * 16 * LD + k], LD);
-    wmma::load_matrix_sync(b, &ws[cf * 16 * LD + k], LD);
-    wmma::mma_sync(acc, a, b, acc);
-  }
-  wmma::store_matrix_sync(&S[rf * 16 * (NC + 4) + cf * 16], acc, NC + 4,
-                          wmma::mem_row_major);
-}
-
-template <int H>
-constexpr size_t fwd_smem() {
-  return static_cast<size_t>(RM + RV) * (H + PAD) * sizeof(bf16) +
-         static_cast<size_t>(RM) * R_S_LD * sizeof(float);
+// 2^x through ex2.approx (2 ulp); 2^-inf = 0.  e^(x - m) is
+// ex2(x·LOG2E - m·LOG2E), one FFMA and one ex2.
+constexpr float LOG2E = 1.4426950408889634f;
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // ---------------------------------------------------------------------
-// forward: grid (row tiles, vocab chunks); part [chunks, M, 3] = (m, s, ll).
-// With WRITE_LG the f32 tile (pad columns NEG) is also stored, rounded to
-// nearest even, as lg [M, logits_pitch(V)] bf16; lse and ll come from the
-// f32 tile before the rounding.
+// the forward template
 // ---------------------------------------------------------------------
+
+constexpr int FWD_THREADS = 256;  // two consumer warpgroups
+constexpr int FWD_ROWS = 128;     // resident h rows of a block, 64 a warpgroup
+constexpr int FWD_TV = 128;       // vocab rows of a W tile (wgmma N)
+
 template <int H, bool WRITE_LG>
-__global__ void __launch_bounds__(THREADS, 2)
-ce_fwd_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
+struct Fwd {
+  static constexpr int BOXES = H / BOX;               // boxes per tile
+  static constexpr int Q_BYTES = FWD_ROWS * H * 2;    // the resident rows
+  static constexpr int STAGE = FWD_TV * BOX * 2;      // one W box: 16 KB
+  // WRITE_LG: each warpgroup's bf16 tile [64 x 128], two swizzled boxes
+  static constexpr int LG_BYTES = WRITE_LG ? 2 * 2 * BOX_BYTES : 0;
+  static constexpr int FREE = 232448 - 1024 - Q_BYTES - LG_BYTES - 256;
+  static constexpr int STAGES = FREE / STAGE < 8 ? FREE / STAGE : 8;
+  // 1 KB to align to the swizzle's 1024-byte period; h, the ring, the lg
+  // tiles, the full barriers, the release counters (padded to 8 bytes) and
+  // h's barrier
+  static constexpr size_t SMEM = 1024 + static_cast<size_t>(Q_BYTES) +
+                                 static_cast<size_t>(STAGE) * STAGES + LG_BYTES +
+                                 STAGES * (sizeof(uint64_t) + sizeof(uint32_t)) +
+                                 2 * sizeof(uint64_t);
+  static_assert(STAGES >= 4, "a ring of at least four W boxes");
+  static_assert(SMEM <= 232448, "one block per SM: 227 KB of shared memory");
+};
+
+// Grid (row tiles of 128, vocab chunks); part [chunks, M, 3] = (m, s, ll).
+// With WRITE_LG the f32 tile (pad columns NEG) is also stored, rounded to
+// nearest even, through lg_map into lg [M, logits_pitch(V)] bf16 (the
+// flash schedule passes any map there; it is never read).
+template <int H, bool WRITE_LG>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+ce_fwd_kernel(const __grid_constant__ CUtensorMap h_map,
+              const __grid_constant__ CUtensorMap w_map,
+              const __grid_constant__ CUtensorMap lg_map,
               const float* __restrict__ b, const int* __restrict__ labels,
-              float* __restrict__ part, bf16* __restrict__ lg, int M, int V,
-              int chunk_tiles) {
+              float* __restrict__ part, int M, int V, int chunk_tiles) {
+  using P = Fwd<H, WRITE_LG>;
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int LD = H + PAD;
-  bf16* hs = reinterpret_cast<bf16*>(smem);
-  bf16* ws = hs + RM * LD;
-  float* S = reinterpret_cast<float*>(ws + RV * LD);
+  unsigned char* q_s = smem + ((1024 - (smem_addr(smem) & 1023)) & 1023);
+  unsigned char* ring = q_s + P::Q_BYTES;
+  unsigned char* lg_s = ring + P::STAGES * P::STAGE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(lg_s + P::LG_BYTES);
+  uint32_t* released = reinterpret_cast<uint32_t*>(full + P::STAGES);
+  uint64_t* q_bar = reinterpret_cast<uint64_t*>(released + P::STAGES + (P::STAGES & 1));
+
   const int tid = threadIdx.x;
-  const int m0 = blockIdx.x * RM;
-  const int tiles = (V + RV - 1) / RV;
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const bool leader = tid % 128 == 0;
+  const int m0 = blockIdx.x * FWD_ROWS;
+  const int tiles = (V + FWD_TV - 1) / FWD_TV;
   const int t0 = blockIdx.y * chunk_tiles;
-  const int t1 = min(tiles, t0 + chunk_tiles);
-  const int r = tid / 8;          // this thread's row of the tile
-  const int q = (tid % 8) * 8;    // and its 8 columns
-  const int n = m0 + r;
-  const int label = n < M ? labels[n] : -1;
-  load_rows<H, RM>(h, m0, M, hs);
-  float m_run = -INFINITY, s_run = 0.0f, ll = 0.0f;
-  for (int t = t0; t < t1; ++t) {
-    const int v0 = t * RV;
-    load_rows<H, RV>(w, v0, V, ws);
-    __syncthreads();
-    logits_tile<H, RM, RV>(hs, ws, S);
-    __syncthreads();
-    float x[8];
-    float tmax = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = v0 + q + j;
-      x[j] = col < V ? S[r * R_S_LD + q + j] + b[col] : NEG;
-      tmax = fmaxf(tmax, x[j]);
-      if (col == label && col < V) ll += x[j];
+  const int n_tiles = max(0, min(tiles, t0 + chunk_tiles) - t0);
+  const int total = n_tiles * P::BOXES;   // W boxes this block streams
+
+  // W box j (tile t0 + j / BOXES, columns 64·(j % BOXES)) into stage j % STAGES
+  auto load = [&](int j) {
+    const int s = j % P::STAGES;
+    mbar_expect_tx(&full[s], P::STAGE);
+    tma_load(ring + s * P::STAGE, &w_map, &full[s], (j % P::BOXES) * BOX,
+             (t0 + j / P::BOXES) * FWD_TV);
+  };
+  // this warpgroup's products of box j retired: the later of the two
+  // leaders refills its stage STAGES boxes ahead
+  auto release = [&](int j) {
+    if (!leader) return;
+    const int s = j % P::STAGES;
+    __threadfence_block();
+    const bool later = atomicAdd(&released[s], 1u) & 1u;
+    __threadfence_block();
+    if (later && j + P::STAGES < total) load(j + P::STAGES);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < P::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      released[s] = 0;
     }
-    if constexpr (WRITE_LG) {
-      if (n < M) {
-        uint4 packed;
-        __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(&packed);
+    mbar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    // h rows [m0, m0 + 128): warpgroup g's 64 rows in boxes g·BOXES..
+    mbar_expect_tx(q_bar, P::Q_BYTES);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) p2[j] = __floats2bfloat162_rn(x[2 * j], x[2 * j + 1]);
-        *reinterpret_cast<uint4*>(
-            &lg[static_cast<size_t>(n) * logits_pitch(V) + v0 + q]) = packed;
+    for (int g = 0; g < 2; ++g)
+#pragma unroll
+      for (int c = 0; c < P::BOXES; ++c)
+        tma_load(q_s + (g * P::BOXES + c) * BOX_BYTES, &h_map, q_bar, c * BOX,
+                 m0 + g * BT);
+    for (int j = 0; j < min(P::STAGES, total); ++j) load(j);
+  }
+
+  // This thread's accumulator fragment: rows r + 8i (i = 0, 1) of its
+  // warpgroup's 64, columns v0 + cq + 8n + j (n < 16, j < 2) at register
+  // 4n + 2i + j.
+  const int r = warp * 16 + lane / 4;
+  const int cq = 2 * (lane % 4);
+  int row[2], lab[2];
+  float m_run[2], s_run[2], ll[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    row[i] = m0 + wg * BT + r + 8 * i;
+    const int l = row[i] < M ? labels[row[i]] : -1;
+    lab[i] = l < V ? l : -1;      // a label past V picks no column
+    m_run[i] = -INFINITY;
+    s_run[i] = 0.0f;
+    ll[i] = 0.0f;
+  }
+  const uint32_t a_addr = smem_addr(q_s) + wg * P::BOXES * BOX_BYTES;
+  const uint32_t ring_addr = smem_addr(ring);
+  float acc[FWD_TV / 2];
+  mbar_wait(q_bar, 0);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    // the tile's biases, NEG past V (where S is exactly 0), requested
+    // before its products so that the loads land while they run
+    const int cb = (t0 + i) * FWD_TV + cq;    // this thread's first column
+    float bias[FWD_TV / 4];
+#pragma unroll
+    for (int n = 0; n < FWD_TV / 8; ++n)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = cb + 8 * n + j;
+        bias[2 * n + j] = col < V ? __ldg(&b[col]) : NEG;
+      }
+    // S [64 x 128] = h rows @ W tile^T, contracting H box by box
+#pragma unroll
+    for (int c = 0; c < P::BOXES; ++c) {
+      const int j = i * P::BOXES + c;
+      const int s = j % P::STAGES;
+      mbar_wait(&full[s], (j / P::STAGES) & 1);
+      const uint32_t stage = ring_addr + s * P::STAGE;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma<FWD_TV, 0>(acc, sw128_desc(a_addr + c * BOX_BYTES + kk * 32, 16),
+                         sw128_desc(stage + kk * 32, 16), (c | kk) != 0);
+      wgmma_commit();
+      if (c > 0) {
+        wgmma_wait<1>();
+        release(j - 1);
       }
     }
-    // the 8 threads of a row are neighbouring lanes of one warp
+    wgmma_wait<0>();
+    reg_fence(acc);
+    release((i + 1) * P::BOXES - 1);
+
+    // x = S + bias in place
 #pragma unroll
-    for (int o = 1; o < 8; o <<= 1)
-      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, o));
-    const float m_new = fmaxf(m_run, tmax);   // finite: each tile has a column < V
-    float se = 0.0f;
+    for (int n = 0; n < FWD_TV / 8; ++n)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) se += expf(x[j] - m_new);
+      for (int j = 0; j < 2; ++j) {
+        acc[4 * n + j] += bias[2 * n + j];
+        acc[4 * n + 2 + j] += bias[2 * n + j];
+      }
 #pragma unroll
-    for (int o = 1; o < 8; o <<= 1) se += __shfl_xor_sync(0xffffffffu, se, o);
-    s_run = s_run * expf(m_run - m_new) + se;
-    m_run = m_new;
-    __syncthreads();              // the next tile rewrites ws and S
+    for (int ii = 0; ii < 2; ++ii) {
+      float tmax = acc[2 * ii];
+#pragma unroll
+      for (int n = 0; n < FWD_TV / 8; ++n)
+        tmax = fmaxf(tmax, fmaxf(acc[4 * n + 2 * ii], acc[4 * n + 2 * ii + 1]));
+      // the row's tile max over its 4 lanes: finite, since the tile's first
+      // column is < V.  (A lane's own max may be the pad's NEG, and then
+      // fmaf(NEG, LOG2E, -NEG·LOG2E) is the product's rounding error,
+      // about +6e21, whose ex2 is inf.)
+      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
+      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
+      const float m_new = fmaxf(m_run[ii], tmax);
+      const float ms = m_new * LOG2E;
+      float se = 0.0f;
+#pragma unroll
+      for (int n = 0; n < FWD_TV / 8; ++n)
+        se += ex2(fmaf(acc[4 * n + 2 * ii], LOG2E, -ms)) +
+              ex2(fmaf(acc[4 * n + 2 * ii + 1], LOG2E, -ms));
+      s_run[ii] = s_run[ii] * ex2((m_run[ii] - m_new) * LOG2E) + se;
+      m_run[ii] = m_new;
+      // the label's column, when this thread holds it: offset 8n + j
+      const int rel = lab[ii] - cb;
+      if (rel >= 0 && rel < FWD_TV && (rel & 6) == 0) {
+#pragma unroll
+        for (int n = 0; n < FWD_TV / 8; ++n)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            if (8 * n + j == rel) ll[ii] += acc[4 * n + 2 * ii + j];
+      }
+    }
+    if constexpr (WRITE_LG) {
+      // the bf16 tile into this warpgroup's two swizzled boxes (column 8n +
+      // cq of a row in 16-byte chunk n % 8 ^ row % 8), then one TMA store
+      // per box; TMA clips rows past M and columns past Vp.  The boxes are
+      // free once the previous tile's stores have read them.
+      unsigned char* buf = lg_s + wg * 2 * BOX_BYTES;
+      if (i > 0) {
+        if (leader) tma_store_wait_read<0>();
+        asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+      }
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii) {
+        const int rw = r + 8 * ii;
+#pragma unroll
+        for (int n = 0; n < FWD_TV / 8; ++n)
+          *reinterpret_cast<__nv_bfloat162*>(
+              buf + (n / 8) * BOX_BYTES + rw * 128 + (((n % 8) ^ (rw & 7)) * 16) + cq * 2) =
+              __floats2bfloat162_rn(acc[4 * n + 2 * ii], acc[4 * n + 2 * ii + 1]);
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+      if (leader) {
+        const int v0 = (t0 + i) * FWD_TV;
+#pragma unroll
+        for (int x = 0; x < 2; ++x)
+          if (v0 + x * BOX < logits_pitch(V))
+            tma_store(&lg_map, buf + x * BOX_BYTES, v0 + x * BOX, m0 + wg * BT);
+        tma_store_commit();
+      }
+    }
   }
+  if constexpr (WRITE_LG) {
+    if (leader) tma_store_wait<0>();   // the stores are done before the block exits
+  }
+
+  // the 4 lanes of a row share its running max: sum-exp and ll summed
 #pragma unroll
-  for (int o = 1; o < 8; o <<= 1) ll += __shfl_xor_sync(0xffffffffu, ll, o);
-  if (tid % 8 == 0 && n < M) {
-    float* p = part + (static_cast<size_t>(blockIdx.y) * M + n) * 3;
-    p[0] = m_run;
-    p[1] = s_run;
-    p[2] = ll;
+  for (int ii = 0; ii < 2; ++ii) {
+    const float m = m_run[ii];
+    float s = s_run[ii];
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    float l = ll[ii];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    if (lane % 4 == 0 && row[ii] < M) {
+      float* p = part + (static_cast<size_t>(blockIdx.y) * M + row[ii]) * 3;
+      p[0] = m;
+      p[1] = s;
+      p[2] = l;
+    }
   }
 }
 
@@ -198,8 +366,7 @@ int sum_splits(const float* part, int splits, size_t stride, size_t len,
   return static_cast<int>(cudaGetLastError());
 }
 
-// dynamic shared memory above 48 KB, and the whole carve-out for it, so
-// that two blocks fit on an SM
+// dynamic shared memory above 48 KB, and the whole carve-out for it
 template <typename Kernel>
 int allow_smem(Kernel kernel, size_t bytes) {
   cudaError_t err = cudaFuncSetAttribute(
@@ -210,18 +377,28 @@ int allow_smem(Kernel kernel, size_t bytes) {
   return static_cast<int>(err);
 }
 
+// grid (ceil(M / 128), ceil(ceil(V / 128) / chunk_tiles)); part [chunks, M, 3]
 template <int H, bool WRITE_LG>
 int launch_fwd(const bf16* h, const bf16* w, const float* b, const int* labels,
                float* part, bf16* lg, float* lse, float* ll, int M, int V,
                int chunk_tiles, cudaStream_t st) {
-  constexpr size_t smem = fwd_smem<H>();
-  int err = allow_smem(ce_fwd_kernel<H, WRITE_LG>, smem);
+  CUtensorMap h_map, w_map, lg_map;
+  int err = row_tile_map(&h_map, h, M, H);
   if (err) return err;
-  const int tiles = (V + RV - 1) / RV;
+  err = row_tile_map(&w_map, w, V, H, FWD_TV);
+  if (err) return err;
+  // lg [M, Vp] bf16 in 64 x 64 boxes, as the written-logits backward reads it
+  err = WRITE_LG ? row_tile_map(&lg_map, lg, M, logits_pitch(V)) : 0;
+  if (err) return err;
+  if (!WRITE_LG) lg_map = h_map;
+  constexpr size_t smem = Fwd<H, WRITE_LG>::SMEM;
+  err = allow_smem(ce_fwd_kernel<H, WRITE_LG>, smem);
+  if (err) return err;
+  const int tiles = (V + FWD_TV - 1) / FWD_TV;
   const int chunks = (tiles + chunk_tiles - 1) / chunk_tiles;
-  const dim3 grid((M + RM - 1) / RM, chunks);
-  ce_fwd_kernel<H, WRITE_LG><<<grid, THREADS, smem, st>>>(h, w, b, labels, part,
-                                                          lg, M, V, chunk_tiles);
+  const dim3 grid((M + FWD_ROWS - 1) / FWD_ROWS, chunks);
+  ce_fwd_kernel<H, WRITE_LG><<<grid, FWD_THREADS, smem, st>>>(
+      h_map, w_map, lg_map, b, labels, part, M, V, chunk_tiles);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
   ce_merge_kernel<<<(M + THREADS - 1) / THREADS, THREADS, 0, st>>>(part, chunks,
@@ -234,6 +411,15 @@ bool bad_shape(int M, int H, int V) {
 }
 
 }  // namespace
+
+// the dynamic shared memory of the forward kernel at width H (bytes)
+#define VCT_CE_FWD_SMEM(H, WRITE_LG)                                  \
+  switch (H) {                                                        \
+    case 64: return static_cast<int>(Fwd<64, WRITE_LG>::SMEM);         \
+    case 128: return static_cast<int>(Fwd<128, WRITE_LG>::SMEM);       \
+    case 256: return static_cast<int>(Fwd<256, WRITE_LG>::SMEM);       \
+    default: return static_cast<int>(Fwd<512, WRITE_LG>::SMEM);        \
+  }
 
 // an entry point's switch over the widths the kernels are built for
 #define VCT_CE_SWITCH_H(CALL)   \

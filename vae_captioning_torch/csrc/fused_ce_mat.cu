@@ -30,9 +30,10 @@
 // operand reads, about 168 KB of shared-memory traffic per 64 x 64 x 512
 // tile against 1024 clocks of tensor work (PERF.md, PR 8).
 //
-// The forward: the flash forward (fused_ce.cuh) with WRITE_LG: each thread
-// stores its 8 columns of the f32 tile as one 16-byte bf16 run, rounded to
-// nearest even, after folding them into (max, sum-exp) and the label pick.
+// The forward: the flash forward's wgmma + TMA template (fused_ce.cuh) with
+// WRITE_LG: after folding each f32 logits tile into (max, sum-exp) and the
+// label pick, each warpgroup rounds it to bf16 (nearest even) into shared
+// memory and stores it with TMA into lg, clipped at the row pitch Vp.
 //
 // The backward: one kernel template, ce_mat_bwd_kernel<H, DW>, for both
 // gradients, built on the Hopper primitives of hopper.cuh.  A block owns 64
@@ -378,8 +379,9 @@ int launch_mat_dwdb(const bf16* h, const bf16* lg, const int* labels,
 // 64 ceil(V / 64)] bf16.  Each returns a cudaError_t as int.
 
 // h16 [M, H], w16 [V, H] bf16; b [V] f32; labels [M] int32 -> lg [M, Vp]
-// bf16, lse, ll [M] f32.  part: [chunks, M, 3] f32 workspace, chunks =
-// ceil(ceil(V / 64) / chunk_tiles).
+// bf16, lse, ll [M] f32.  A block takes chunk_tiles vocab tiles of 128
+// columns; part: [chunks, M, 3] f32 workspace, chunks = ceil(ceil(V / 128) /
+// chunk_tiles) (ops/fused_ce.py's ce_fwd_plan).
 extern "C" int vct_fused_ce_mat_fwd(const void* h, const void* w, const void* b,
                                     const void* labels, void* part, void* lg,
                                     void* lse, void* ll, int M, int H, int V,

@@ -1,11 +1,13 @@
 // Hopper (sm_90a) building blocks shared by the kernels that stream tiles
-// with TMA into shared memory and multiply them with wgmma: the flash CE
-// backward (fused_ce.cu) and the written-logits CE backward
-// (fused_ce_mat.cu).  mbarriers, TMA loads of 64 x 64 bf16 boxes with the
-// 128-byte swizzle, shared-memory matrix descriptors for that swizzle, the
-// m64nNk16 bf16 wgmma wrappers, and the host-side tensor-map encoder
-// (cuTensorMapEncodeTiled reached through cudaGetDriverEntryPoint, so
-// nothing links libcuda).
+// with TMA into shared memory and multiply them with wgmma: the CE forward
+// of both CE schedules (fused_ce.cuh), the flash CE backward (fused_ce.cu),
+// the written-logits CE backward (fused_ce_mat.cu) and the AG-heads forward
+// (fused_ag_heads.cu).  mbarriers, TMA loads (and stores) of bf16 boxes of
+// up to 256 rows x 64 columns with the 128-byte swizzle, shared-memory
+// matrix descriptors
+// for that swizzle, the m64nNk16 bf16 wgmma wrappers, and the host-side
+// tensor-map encoder (cuTensorMapEncodeTiled reached through
+// cudaGetDriverEntryPoint, so nothing links libcuda).
 
 #pragma once
 
@@ -64,6 +66,32 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_addr(bar)), "r"(x), "r"(y)
       : "memory");
+}
+
+// one box of shared memory into a 2-D tensor (x: column, y: row), clipped
+// at the tensor's edges; committed as a bulk group of this thread
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src,
+                                          int x, int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)), "r"(x), "r"(y)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// this thread's bulk groups but the newest N have read their shared memory
+template <int N>
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+
+// this thread's bulk groups but the newest N are complete
+template <int N>
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -131,6 +159,25 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t a, uint64_t b
 }
 
 template <int TRANS_B, int TRANS_A = 0>
+__device__ __forceinline__ void wgmma_n80(float (&d)[40], uint64_t a, uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, %40, %41, p, 1, 1, %44, %43;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
+}
+
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t a, uint64_t b,
                                           int scale_d) {
   asm volatile(
@@ -150,6 +197,32 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t a, uint64_t 
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
+}
+
+template <int TRANS_B, int TRANS_A = 0>
+__device__ __forceinline__ void wgmma_n160(float (&d)[80], uint64_t a, uint64_t b,
+                                          int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+      "}, %80, %81, p, 1, 1, %84, %83;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
       : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
 }
 
@@ -193,8 +266,13 @@ __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t a, uint64_t b,
                                       int scale_d) {
   if constexpr (N == 32) wgmma_n32<TRANS_B, TRANS_A>(d, a, b, scale_d);
   else if constexpr (N == 64) wgmma_n64<TRANS_B, TRANS_A>(d, a, b, scale_d);
+  else if constexpr (N == 80) wgmma_n80<TRANS_B, TRANS_A>(d, a, b, scale_d);
   else if constexpr (N == 128) wgmma_n128<TRANS_B, TRANS_A>(d, a, b, scale_d);
-  else wgmma_n256<TRANS_B, TRANS_A>(d, a, b, scale_d);
+  else if constexpr (N == 160) wgmma_n160<TRANS_B, TRANS_A>(d, a, b, scale_d);
+  else {
+    static_assert(N == 256, "wgmma: N is 32, 64, 80, 128, 160 or 256");
+    wgmma_n256<TRANS_B, TRANS_A>(d, a, b, scale_d);
+  }
 }
 
 // ---------------------------------------------------------------------
@@ -241,14 +319,15 @@ PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   return fn;
 }
 
-// a [rows, H] bf16 row-major matrix in boxes of 64 rows x 64 columns, with
-// the 128-byte swizzle; rows past the end read zeros
-int row_tile_map(CUtensorMap* map, const bf16* ptr, int rows, int H) {
+// a [rows, H] bf16 row-major matrix in boxes of box_rows (at most 256) rows
+// x 64 columns, with the 128-byte swizzle; rows past the end read zeros
+int row_tile_map(CUtensorMap* map, const bf16* ptr, int rows, int H,
+                 int box_rows = BT) {
   const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(H) * sizeof(bf16)};
-  const cuuint32_t box[2] = {BOX, BT};
+  const cuuint32_t box[2] = {BOX, static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem_strides[2] = {1, 1};
   const CUresult res = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<bf16*>(ptr), dims,

@@ -22,7 +22,8 @@ takes :func:`ag_heads_plain`.
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -33,7 +34,15 @@ BWD = "fused_ag_heads_bwd"
 K_STEP = 64              # H must be a multiple of the kernels' H stage
 _TARGET_LANES = 1280     # a group of clusters spans about this many q columns
 _DH_SPLITS = 8           # column splits of the dh product
-_ROWS, _LATENT = 64, 32  # the forward's block tile (rows x latent columns)
+_ROWS, _LATENT = 64, 32  # the backward's dq block tile (rows x latent columns)
+# the forward kernel (csrc/fused_ag_heads.cu, ag_fwd_kernel<NC, RES>): 128
+# h rows a block, the latent columns a block may take (the wgmma widths it
+# is built for), one block per SM (H100 SXM: 132), and the bytes the
+# groups' [2, N, L] f32 partials may take
+_FWD_ROWS = 128
+_FWD_COLS = (80, 40)
+_FWD_SMS = 132
+_FWD_WORKSPACE = 64 << 20
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
@@ -43,6 +52,50 @@ def group_geometry(K: int, L: int) -> Tuple[int, int]:
     q columns, as the TPU kernel's ``_group_geometry`` picks them."""
     kb = max(1, min(K, _TARGET_LANES // L))
     return kb, -(-K // kb)
+
+
+class FwdPlan(NamedTuple):
+    """The forward kernel's launch for (N, K, L).  Block (x, y, z) of the
+    grid keeps h rows [128x, 128x + 128) and computes latent columns [cols·y,
+    cols·y + cols) of clusters [kb·z, min(K, kb·z + kb)), writing group z's
+    [2, N, L] partial; a second launch sums the groups in order."""
+
+    cols: int                           # latent columns a block (wgmma N)
+    kb: int                             # clusters a group
+    grid: Tuple[int, int, int]          # (row tiles, latent tiles, groups)
+    part: Tuple[int, int, int, int]     # [groups, 2, N, L] f32
+
+    @property
+    def groups(self) -> int:
+        return self.grid[2]
+
+
+@functools.lru_cache(maxsize=None)
+def ag_fwd_plan(N: int, K: int, L: int, sms: int = _FWD_SMS) -> FwdPlan:
+    """The forward's block shape: the width among ``_FWD_COLS`` that
+    computes the fewest padded latent columns (the widest on a tie), and
+    the clusters per group that take the fewest cluster slots per SM,
+    waves x (clusters a block + half a cluster for its h load and
+    partial), among the groupings whose partials fit in
+    ``_FWD_WORKSPACE`` bytes (the fewest groups on a tie).  At the train
+    shapes (N = 1280, K = 90, L = 150): two latent tiles of 80 columns, 7
+    clusters a group, 13 groups: 260 blocks, 2 waves of 132 SMs."""
+    cols = min(_FWD_COLS, key=lambda c: (-(-L // c) * c, -c))
+    m_tiles, l_tiles = -(-N // _FWD_ROWS), -(-L // cols)
+    most = max(1, _FWD_WORKSPACE // (2 * N * L * 4))
+    best = None
+    for kb in range(K, 0, -1):
+        groups = -(-K // kb)
+        if groups > most or -(-K // groups) != kb:
+            continue                    # too many partials, or another kb's split
+        cost = -(-(m_tiles * l_tiles * groups) // sms) * (2 * kb + 1)
+        if best is None or cost < best[0]:
+            best = (cost, kb, groups)
+    if best is None:                    # one group even past the bound
+        best = (0, K, 1)
+    _, kb, groups = best
+    return FwdPlan(cols=cols, kb=kb, grid=(m_tiles, l_tiles, groups),
+                   part=(groups, 2, N, L))
 
 
 # ----------------------------------------------------------------------
@@ -108,14 +161,15 @@ def prepare(h, w, b, c_v):
 def ag_heads_fwd_kernel(h16, w16, b, cv) -> Pair:
     """The forward kernel on prepared operands → (q_mean, q_std) f32."""
     N, H, K, L = _check(h16, w16, b, cv)
-    kb, G = group_geometry(K, L)
     dev = h16.device
-    part = torch.empty((G, 2, N, L), dtype=torch.float32, device=dev)
+    plan = ag_fwd_plan(N, K, L, torch.cuda.get_device_properties(dev)
+                       .multi_processor_count)
+    part = torch.empty(plan.part, dtype=torch.float32, device=dev)
     out = torch.empty((2, N, L), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _ext.library().vct_fused_ag_heads_fwd(
             h16.data_ptr(), w16.data_ptr(), b.data_ptr(), cv.data_ptr(),
-            part.data_ptr(), out.data_ptr(), N, H, K, L, kb,
+            part.data_ptr(), out.data_ptr(), N, H, K, L, plan.kb, plan.cols,
             _ext.stream_ptr(dev))
     _ext.check_launch(err, FWD)
     _ext.LAUNCHES[FWD] += 1

@@ -33,6 +33,7 @@ carries the same VJP; on CUDA tensors it launches its kernels or raises.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
@@ -48,8 +49,13 @@ DH_MAT = "fused_linear_ce_mat_dh"
 DWDB_MAT = "fused_linear_ce_mat_dwdb"
 NEG = -1e30         # the written logit of a vocab column past V
 KERNEL_H = (64, 128, 256, 512)  # the widths the kernels are built for
-_TILE_V = 64        # vocab columns of a forward tile
-_CHUNK_TILES = 16   # vocab tiles per forward block
+_PITCH_COLS = 64    # the written logits' row pitch is a multiple of this
+# the forward kernel (csrc/fused_ce.cuh, ce_fwd_kernel): 128 resident h rows
+# a block, 128-column vocab tiles, one block per SM, and the bytes its
+# per-chunk (m, s, ll) partials may take
+_FWD_ROWS = 128
+_FWD_TILE_V = 128
+_FWD_WORKSPACE = 16 << 20
 # the backward kernels of both schedules (csrc/fused_ce.cu, ce_bwd_kernel;
 # csrc/fused_ce_mat.cu, ce_mat_bwd_kernel): 64-row tiles of h and of W,
 # one block per SM (H100 SXM: 132), and the bytes the dW/db row splits'
@@ -186,18 +192,59 @@ def prepare(h, w, b, labels):
             b.float().contiguous(), labels.to(torch.int32).contiguous())
 
 
+class FwdPlan(NamedTuple):
+    """The forward kernel's launch for (M, V), under both schedules (the
+    flash forward and the written-logits one are one template).  Block
+    (x, y) of the grid keeps h rows [128x, 128x + 128) and streams the
+    128-column vocab tiles [y·chunk_tiles, min(v_tiles, (y + 1)·
+    chunk_tiles)), writing chunk y's (max, sum-exp, label logit) of its
+    rows to ``part``; a merge launch folds the chunks in order."""
+
+    grid: Tuple[int, int]               # (row tiles, chunks)
+    v_tiles: int
+    chunk_tiles: int
+    part: Tuple[int, int, int]          # [chunks, M, 3] f32
+
+
+def _sms(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def ce_fwd_plan(M: int, V: int, sms: int = _BWD_SMS) -> FwdPlan:
+    """The forward's vocab chunks: the count that takes the fewest tile
+    slots per SM, waves x (tiles a block + half a tile for its h load and
+    epilogue), among the counts whose partials fit in ``_FWD_WORKSPACE``
+    bytes (the fewest on a tie); no chunk is empty.  At the train shapes
+    (M = 30720, V = 11500): 6 chunks of 15 of the 90 tiles, 1,440 blocks
+    in 99% of 11 waves of 132 SMs (one chunk: 240 blocks in 91% of 2)."""
+    m_tiles, v_tiles = _cdiv(M, _FWD_ROWS), _cdiv(V, _FWD_TILE_V)
+    most = max(1, min(v_tiles, _FWD_WORKSPACE // (M * 12)))
+    best = None
+    for chunks in range(1, most + 1):
+        per = _cdiv(v_tiles, chunks)
+        if _cdiv(v_tiles, per) != chunks:
+            continue                    # the same split as fewer chunks
+        cost = _cdiv(m_tiles * chunks, sms) * (2 * per + 1)
+        if best is None or cost < best[0]:
+            best = (cost, chunks, per)
+    _, chunks, per = best
+    return FwdPlan(grid=(m_tiles, chunks), v_tiles=v_tiles, chunk_tiles=per,
+                   part=(chunks, M, 3))
+
+
 def fused_ce_fwd_kernel(h16, w16, b, lab) -> Pair:
     """The forward kernel on prepared operands → (lse, ll) [M] f32."""
     M, H, V = _check(h16, w16, b, lab)
     dev = h16.device
-    chunks = _cdiv(_cdiv(V, _TILE_V), _CHUNK_TILES)
-    part = torch.empty((chunks, M, 3), dtype=torch.float32, device=dev)
+    plan = ce_fwd_plan(M, V, _sms(dev))
+    part = torch.empty(plan.part, dtype=torch.float32, device=dev)
     out = torch.empty((2, M), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _ext.library().vct_fused_ce_fwd(
             h16.data_ptr(), w16.data_ptr(), b.data_ptr(), lab.data_ptr(),
             part.data_ptr(), out[0].data_ptr(), out[1].data_ptr(), M, H, V,
-            _CHUNK_TILES, _ext.stream_ptr(dev))
+            plan.chunk_tiles, _ext.stream_ptr(dev))
     _ext.check_launch(err, FWD)
     _ext.LAUNCHES[FWD] += 1
     return out[0], out[1]
@@ -241,6 +288,7 @@ def _wave_fill(blocks: int, sms: int) -> float:
     return blocks / (_cdiv(blocks, sms) * sms)
 
 
+@functools.lru_cache(maxsize=None)
 def ce_bwd_plan(M: int, H: int, V: int, sms: int = _BWD_SMS) -> BwdPlan:
     """The backward's grids, row splits and workspace shapes.  The
     dW/db split count fills the card's waves best among the counts whose
@@ -290,8 +338,7 @@ def fused_ce_dwdb_kernel(h16, w16, b, lab, lse, gw) -> Pair:
     M, H, V = _check(h16, w16, b, lab)
     dev = h16.device
     lse, gw = _row_args(lse, gw, M, dev)
-    plan = ce_bwd_plan(M, H, V, torch.cuda.get_device_properties(dev)
-                       .multi_processor_count)
+    plan = ce_bwd_plan(M, H, V, _sms(dev))
     f32 = dict(dtype=torch.float32, device=dev)
     dw_part = torch.empty(plan.dw_part, **f32)
     db_part = torch.empty(plan.db_part, **f32)
@@ -368,10 +415,11 @@ def _runs_plain(h, w, b, labels, weights) -> bool:
 # ----------------------------------------------------------------------
 
 def logits_pitch(V: int) -> int:
-    """Vp, the written logits' columns: V rounded up to whole 64-column
-    tiles (11,520 for V = 11,500, the JAX package's own pad), so each
-    8-column run of a bf16 row starts on a 16-byte boundary."""
-    return _cdiv(V, _TILE_V) * _TILE_V
+    """Vp, the written logits' columns: V rounded up to a multiple of 64
+    (11,520 for V = 11,500, the JAX package's own pad), so that a row is
+    whole 128-byte boxes for the backward's TMA loads.  Not a multiple of
+    the forward's 128-column tile: the forward stores only columns < Vp."""
+    return _cdiv(V, _PITCH_COLS) * _PITCH_COLS
 
 
 def ce_mat_fwd_plain(h, w, b, labels) -> Tuple[torch.Tensor, ...]:
@@ -458,15 +506,15 @@ def ce_mat_fwd_kernel(h16, w16, b, lab) -> Tuple[torch.Tensor, ...]:
     Vp] bf16, lse, ll [M] f32)."""
     M, H, V = _check(h16, w16, b, lab)
     dev = h16.device
-    chunks = _cdiv(_cdiv(V, _TILE_V), _CHUNK_TILES)
-    part = torch.empty((chunks, M, 3), dtype=torch.float32, device=dev)
+    plan = ce_fwd_plan(M, V, _sms(dev))
+    part = torch.empty(plan.part, dtype=torch.float32, device=dev)
     lg = torch.empty((M, logits_pitch(V)), dtype=torch.bfloat16, device=dev)
     out = torch.empty((2, M), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _ext.library().vct_fused_ce_mat_fwd(
             h16.data_ptr(), w16.data_ptr(), b.data_ptr(), lab.data_ptr(),
             part.data_ptr(), lg.data_ptr(), out[0].data_ptr(),
-            out[1].data_ptr(), M, H, V, _CHUNK_TILES, _ext.stream_ptr(dev))
+            out[1].data_ptr(), M, H, V, plan.chunk_tiles, _ext.stream_ptr(dev))
     _ext.check_launch(err, FWD_MAT)
     _ext.LAUNCHES[FWD_MAT] += 1
     return lg, out[0], out[1]
@@ -504,8 +552,7 @@ def ce_mat_dwdb_kernel(h16, lg16, lab, lse, gw, V: int) -> Pair:
     dev = h16.device
     lg16 = lg16.contiguous()
     lse, gw = _row_args(lse, gw, M, dev)
-    plan = ce_bwd_plan(M, H, V, torch.cuda.get_device_properties(dev)
-                       .multi_processor_count)
+    plan = ce_bwd_plan(M, H, V, _sms(dev))
     f32 = dict(dtype=torch.float32, device=dev)
     dw_part = torch.empty(plan.dw_part, **f32)
     db_part = torch.empty(plan.db_part, **f32)
