@@ -7,18 +7,19 @@ Phases, in order; any failure raises and the script exits nonzero:
    (one nvcc per source, all started together) and print the wgmma +
    TMA templates' registers, spills and shared memory per instance (the
    CE forward of both schedules, the flash CE's and the written logits'
-   backward, the AG-heads forward), and any ptxas warning that one
-   serialises its wgmmas;
+   backward, the AG-heads forward and backward, the decode LSTM step),
+   and any ptxas warning that one serialises its wgmmas;
 3. kernels: each kernel against its plain PyTorch version on the card,
    at the main paths' shapes and ragged ones: the decode kernels (plus a
-   deliberate tie), the int8 top-k and the top-k + lse over written
+   deliberate tie; the LSTM step also at one row, one row past a tile,
+   narrow widths and a width whose A is taken in chunks), the int8 top-k and the top-k + lse over written
    logits (values and indices bit for bit), the sampler (token for token
    outside near-ties, and its law over 200,000 draws), the train path's ``fused_lstm_seq`` and ``fused_z``
    forward and backward, the fused z generator's bits, normals and
    moments against the plain generator, and the AG train path's
    ``fused_ag_heads`` forward and backward with COCO-like cluster vectors
-   (also at one row, one row past a tile and every width; the forward
-   twice, bit for bit), the flash CE's three kernels (``fused_linear_ce``:
+   (also at one row, one row past a tile and every width; forward and
+   backward twice, bit for bit), the flash CE's three kernels (``fused_linear_ce``:
    forward, dh, dW/db) and the written-logits CE's three
    (``fused_linear_ce_hybrid``: the forward that writes the bf16 logits,
    dh and dW/db over them) at the train shapes, with the train batch's
@@ -133,7 +134,8 @@ from vae_captioning_torch.ops.fused_lstm_seq import (  # noqa: E402
     lstm_seq_bwd_kernel, lstm_seq_bwd_plain, lstm_seq_fwd_kernel,
     lstm_seq_fwd_plain)
 from vae_captioning_torch.ops.fused_lstm_step import (  # noqa: E402
-    fused_lstm_step, fused_lstm_step_plain)
+    fused_lstm_step, fused_lstm_step_plain, lstm_step_geometry,
+    lstm_step_kernel, lstm_step_layout, lstm_step_plan)
 from vae_captioning_torch.ops.fused_z import (  # noqa: E402
     fused_z_eps, philox_bits, philox_normals, z_bwd_kernel, z_bwd_plain,
     z_fwd_kernel, z_fwd_plain)
@@ -256,6 +258,43 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, reps: int = 10) -> dict:
+    """Device time per call of each kernel that fn() launches, by name
+    (from a torch.profiler trace of ``reps`` calls after one warm-up
+    call): what the card spent, without the host's gaps between calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = {}
+    for e in prof.events():
+        if e.device_type.name == "CUDA":
+            times[e.name] = times.get(e.name, 0.0) + e.device_time_total / reps / 1e3
+    return times
+
+
+def kernel_name(name: str) -> str:
+    """A profiler kernel name without its return type, namespace and
+    parameters."""
+    return name.replace("void ", "").replace("(anonymous namespace)::", "").split("(")[0]
+
+
+def host_us(fn, reps: int = 100) -> float:
+    """Host time per call of fn() in microseconds, the calls enqueued back
+    to back (the device finishes after)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -285,10 +324,23 @@ def lstm_inputs(N: int, E: int = 256, H: int = 512, seed: int = 0):
     return x, c, h, w, b
 
 
-def check_lstm(N: int) -> float:
-    args = lstm_inputs(N, seed=N)
+def lstm_f64(x, c, h, w, b, forget_bias: float = 1.0) -> tuple:
+    """The step in f64 on the same bf16-rounded operands: the yardstick
+    that shows how far the kernel's and the plain version's f32 sums each
+    stray."""
+    zh = torch.cat([x.to(torch.bfloat16), h.to(torch.bfloat16)], dim=-1).double()
+    gates = zh @ w.to(torch.bfloat16).double() + b.double()
+    i, f, g, o = gates.chunk(4, dim=-1)
+    new_c = (torch.sigmoid(f + forget_bias) * c.double()
+             + torch.sigmoid(i) * torch.tanh(g))
+    return new_c, torch.sigmoid(o) * torch.tanh(new_c)
+
+
+def check_lstm(N: int, E: int = 256, H: int = 512) -> float:
+    args = lstm_inputs(N, E, H, seed=N)
     got = fused_lstm_step(*args)
     want = fused_lstm_step_plain(*args)
+    exact = lstm_f64(*args)
     torch.cuda.synchronize()
     err = 0.0
     for name, a, r in zip(("c", "h"), got, want):
@@ -296,11 +348,19 @@ def check_lstm(N: int) -> float:
         bad = diff > LSTM_ATOL
         if bool(bad.any()) or not bool(torch.isfinite(a).all()):
             raise AssertionError(
-                f"fused_lstm_step N={N}: {name}' differs from the plain "
+                f"fused_lstm_step N={N} E={E} H={H}: {name}' differs from the plain "
                 f"version at {int(bad.sum())} places, max |diff| "
                 f"{float(diff.max()):.3e}")
         err = max(err, float(diff.max()))
-    print(f"fused_lstm_step N={N} E=256 H=512: max |kernel - plain| {err:.3e}")
+    stray = [max(float((a.double() - e).abs().max()) for a, e in zip(out, exact))
+             for out in (got, want)]
+    plan = lstm_step_plan(N, E, H)
+    boxes = -(-E // 64) + -(-H // 64)
+    chunk, stages, _ = lstm_step_layout(E, H, plan.units)
+    print(f"fused_lstm_step N={N} E={E} H={H}: max |kernel - plain| {err:.3e}, "
+          f"from f64: kernel {stray[0]:.3e}, plain {stray[1]:.3e} (U = "
+          f"{plan.units}, {plan.grid[0] * plan.grid[1]} blocks, A in "
+          f"{-(-boxes // chunk)} chunk(s), {stages} ring stages)")
     return err
 
 
@@ -380,11 +440,15 @@ def check_topk_ties(k: int) -> None:
 # rows the main path gives the kernels: 512 images x (greedy, beam 3,
 # beam 10), and a ragged count
 ROWS = (512, 1536, 5120, 1000)
+# the LSTM step also at one row, one row past a tile, narrow widths (E %
+# 64 != 0, H % 128 != 0: pad units) and a width whose A is taken in chunks
+LSTM_SHAPES = ((1, 256, 512), (65, 256, 512), (300, 32, 96), (70, 256, 1536))
 
 
 def phase_kernels() -> dict:
     """Returns each kernel's largest |kernel - plain| over its checks."""
-    lstm = max(check_lstm(N) for N in ROWS)
+    lstm = max([check_lstm(N) for N in ROWS]
+               + [check_lstm(*shape) for shape in LSTM_SHAPES])
     topk = max(check_topk(M, V, k) for M in ROWS
                for V in (11500, 11519) for k in (1, 3, 10))
     for k in (1, 3, 10, 16):
@@ -576,11 +640,24 @@ def phase_kernel_times(label: str) -> dict:
         lib = cuda_ms(lstm_cell_call(*args))
         x, c, h, w, b = args
         E, H = x.shape[1], c.shape[1]
+        plan = lstm_step_plan(N, E, H)
+        other = lstm_step_geometry(N, E, H, 96 - plan.units)
+        t_other = cuda_ms(lambda: lstm_step_kernel(*args, 1.0, other))
         bnd = bound(2.0 * N * (E + H) * 4 * H, nbytes(*args, c, h))
         times.setdefault("fused_lstm_step", timing(t, bnd, lib))
         print(f"time fused_lstm_step N={N} E=256 H=512: kernel {t[0]:.4f} "
-              f"ms, plain {t[1]:.4f} ms, torch.lstm_cell (bf16) {lib:.4f} ms, "
+              f"ms (U = {plan.units}; U = {other.units}: {t_other:.4f} ms), "
+              f"plain {t[1]:.4f} ms, torch.lstm_cell (bf16) {lib:.4f} ms, "
               f"bound {bnd[0]:.4f} ms ({bnd[1]}) [{label}]")
+        # back to back, both calls can be bound by the host: the card's
+        # own time and the host's per call beside them
+        step, cell = lambda: fused_lstm_step(*args), lstm_cell_call(*args)
+        dev, dev_lib = device_ms(step), device_ms(cell)
+        print(f"time fused_lstm_step N={N}: device {sum(dev.values()):.4f} ms, "
+              f"torch.lstm_cell device {sum(dev_lib.values()):.4f} ms ("
+              + ", ".join(f"{kernel_name(k)[:40]} {v:.4f}" for k, v in dev_lib.items())
+              + f"); host per call {host_us(step):.1f} / {host_us(cell):.1f} us "
+              f"[{label}]")
     for M, k in ((1536, 3), (5120, 10), (512, 1)):
         h, w, b = logits_inputs(M, 11500)
         t = turns(lambda: fused_logits_top_k(h, w, b, k),
@@ -1368,8 +1445,8 @@ def ag_inputs(N: int, K: int, L: int, seed: int, H: int = HIDDEN):
 
 
 def check_ag_heads(N: int, K: int, L: int, H: int = HIDDEN) -> tuple:
-    """Returns (forward, backward) max |kernel - plain|; the forward runs
-    twice and must repeat bit for bit."""
+    """Returns (forward, backward) max |kernel - plain|; each runs twice
+    and must repeat bit for bit."""
     h, w, b, cv, gm, gs = ag_inputs(N, K, L, seed=N + K + L, H=H)
     ops = prepare(h, w, b, cv)
     tag = f"fused_ag_heads N={N} H={H} K={K} L={L}"
@@ -1391,6 +1468,10 @@ def check_ag_heads(N: int, K: int, L: int, H: int = HIDDEN) -> tuple:
               f"of max, tolerance {AG_FWD_RTOL}); rows without a detection 0; "
               "bit for bit across two calls")
     got = ag_heads_bwd_kernel(*ops, gm, gs)
+    for name, a, r in zip(("dh", "dW", "db", "dc_v"), got,
+                          ag_heads_bwd_kernel(*ops, gm, gs)):
+        if not torch.equal(a, r):
+            raise AssertionError(f"{tag} backward: two calls gave another {name}")
     want = ag_heads_bwd_plain(h, w, b, cv, gm, gs)
     for name, a, r, tol in zip(("dh", "dW", "db", "dc_v"), got, want,
                                (AG_GRAD_RTOL, AG_GRAD_RTOL, AG_FWD_RTOL,
@@ -1401,7 +1482,7 @@ def check_ag_heads(N: int, K: int, L: int, H: int = HIDDEN) -> tuple:
                                  f"{err:.3e} ({rel:.2e} of max)")
         bwd = max(bwd, err)
         print(f"{tag} backward {name}: max |kernel - plain| {err:.3e} "
-              f"({rel:.2e} of max, tolerance {tol})")
+              f"({rel:.2e} of max, tolerance {tol}); bit for bit across two calls")
     return fwd, bwd
 
 
@@ -1468,6 +1549,11 @@ def phase_ag_kernel_times(label: str) -> dict:
                                bound(3 * flops, nbytes(*ops, gm, gs, *grads))),
     }
     times = {}
+    parts = device_ms(lambda: ag_heads_bwd_kernel(*ops, gm, gs), reps=5)
+    print(f"time fused_ag_heads_bwd by kernel (device, {sum(parts.values()):.4f} "
+          "ms): " + ", ".join(f"{kernel_name(k)} {v:.4f} ms"
+                            for k, v in sorted(parts.items(), key=lambda kv: -kv[1]))
+          + f" [{label}]")
     for name, (fk, fp, bnd) in pairs.items():
         t = turns(fk, fp, lambda fn: cuda_ms(fn, iters=10, warmup=2))
         times[name] = timing(t, bnd, library[name])
@@ -2157,23 +2243,30 @@ def phase_train_profile(out_dir: str, label: str, prior: str, ce=None) -> None:
 # the wgmma + TMA kernel templates: the CE forward of both schedules
 # (csrc/fused_ce.cuh, <H, WRITE_LG>), the flash CE's backward
 # (csrc/fused_ce.cu, <H, DW>), the written logits' backward
-# (csrc/fused_ce_mat.cu, <H, DW>) and the AG-heads forward
-# (csrc/fused_ag_heads.cu, <NC, RES>): each one's instance label from its
-# template arguments, and its dynamic shared memory (the AG forward's at H
-# = HIDDEN with h resident, at 2·HIDDEN with h streamed)
+# (csrc/fused_ce_mat.cu, <H, DW>), the AG-heads forward and the backward's
+# dq pass (csrc/fused_ag_heads.cu, <NC, RES, BWD>) and the backward's
+# products (<CT, DW>), and the decode LSTM step (csrc/fused_lstm_step.cu,
+# <U>): each one's instance label from its template arguments, and its
+# dynamic shared memory (the AG forward's at H = HIDDEN with h resident, at
+# 2·HIDDEN with h streamed; the LSTM step's at E = EMBED, H = HIDDEN)
 WGMMA_TEMPLATES = {
-    "ce_fwd_kernel": (lambda n, f: f"<{n}, {'written logits' if f else 'flash'}>",
-                      lambda n, f: _ext.library().vct_fused_ce_fwd_smem(n, int(f))),
-    "ce_bwd_kernel": (lambda n, f: f"<{n}, {'dW/db' if f else 'dh'}>",
-                      lambda n, f: _ext.library().vct_fused_ce_bwd_smem(n)),
-    "ce_mat_bwd_kernel": (lambda n, f: f"<{n}, {'dW/db' if f else 'dh'}>",
-                          lambda n, f: _ext.library().vct_fused_ce_mat_bwd_smem(n)),
-    "ag_fwd_kernel": (lambda n, f: f"<NC={n}, h {'resident' if f else 'streamed'}>",
-                      lambda n, f: _ext.library().vct_fused_ag_heads_fwd_smem(
+    "ce_fwd_kernel": (lambda n, f, g: f"<{n}, {'written logits' if f else 'flash'}>",
+                      lambda n, f, g: _ext.library().vct_fused_ce_fwd_smem(n, int(f))),
+    "ce_bwd_kernel": (lambda n, f, g: f"<{n}, {'dW/db' if f else 'dh'}>",
+                      lambda n, f, g: _ext.library().vct_fused_ce_bwd_smem(n)),
+    "ce_mat_bwd_kernel": (lambda n, f, g: f"<{n}, {'dW/db' if f else 'dh'}>",
+                          lambda n, f, g: _ext.library().vct_fused_ce_mat_bwd_smem(n)),
+    "ag_fwd_kernel": (lambda n, f, g: f"<NC={n}, h {'resident' if f else 'streamed'}, "
+                                      f"{'dq pass' if g else 'forward'}>",
+                      lambda n, f, g: _ext.library().vct_fused_ag_heads_fwd_smem(
                           HIDDEN if f else 2 * HIDDEN, n)),
+    "ag_mat_kernel": (lambda n, f, g: f"<CT={n}, {'dW' if f else 'dh'}>",
+                      lambda n, f, g: _ext.library().vct_fused_ag_heads_mat_smem(n)),
+    "lstm_step_kernel": (lambda n, f, g: f"<U={n}>",
+                         lambda n, f, g: lstm_step_layout(EMBED, HIDDEN, n)[2]),
 }
-# a mangled instance name: <int, bool> or <int>
-_INSTANCE = r"\w*?\d({names})ILi(\d+)E(?:Lb([01])E)?"
+# a mangled instance name: <int>, <int, bool> or <int, bool, bool>
+_INSTANCE = r"\w*?\d({names})ILi(\d+)E(?:Lb([01])E)?(?:Lb([01])E)?"
 
 
 def print_template_resources() -> None:
@@ -2189,22 +2282,24 @@ def print_template_resources() -> None:
         m = re.search(rf"Compiling entry function '{instance}", line)
         if not m:
             continue
-        name, n, flag = m.group(1), int(m.group(2)), m.group(3) == "1"
+        name, n = m.group(1), int(m.group(2))
+        flag, flag2 = m.group(3) == "1", m.group(4) == "1"
         label, smem = WGMMA_TEMPLATES[name]
         info = " ".join(lines[i + 1:i + 4])
         regs = re.search(r"Used (\d+) registers", info)
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", info)
-        print(f"build: {name}{label(n, flag)}: "
+        print(f"build: {name}{label(n, flag, flag2)}: "
               f"{regs.group(1) if regs else '?'} registers, spill stores / loads "
               f"{spills.group(1) + ' / ' + spills.group(2) + ' B' if spills else '?'}, "
-              f"{smem(n, flag)} B dynamic shared memory")
+              f"{smem(n, flag, flag2)} B dynamic shared memory")
         found += 1
     for line in lines:
         m = re.search(rf"Potential Performance Loss: (.*) in the function '{instance}",
                       line)
         if m:
             label = WGMMA_TEMPLATES[m.group(2)][0]
-            print(f"build: {m.group(2)}{label(int(m.group(3)), m.group(4) == '1')}: "
+            flags = (m.group(4) == "1", m.group(5) == "1")
+            print(f"build: {m.group(2)}{label(int(m.group(3)), *flags)}: "
                   f"ptxas: {m.group(1)}")
     if not found:
         print("build: no ptxas report of the wgmma templates (the libraries "

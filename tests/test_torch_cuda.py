@@ -22,7 +22,8 @@ from vae_captioning_torch.config import Config
 from vae_captioning_torch.data.vocabulary import Vocabulary
 from vae_captioning_torch.inference import PLAIN_OPS, make_decode_fns
 from vae_captioning_torch.models.cvae import CVAEModel
-from vae_captioning_torch.ops.fused_ag_heads import (ag_heads_fwd_kernel,
+from vae_captioning_torch.ops.fused_ag_heads import (ag_heads_bwd_kernel,
+                                                     ag_heads_fwd_kernel,
                                                      ag_heads_plain,
                                                      fused_ag_heads)
 from vae_captioning_torch.ops.fused_ag_heads import prepare as ag_prepare
@@ -40,7 +41,10 @@ from vae_captioning_torch.ops.fused_logits_topk import (
 from vae_captioning_torch.ops.fused_lstm_seq import (fused_lstm_seq,
                                                      fused_lstm_seq_plain)
 from vae_captioning_torch.ops.fused_lstm_step import (fused_lstm_step,
-                                                      fused_lstm_step_plain)
+                                                      fused_lstm_step_plain,
+                                                      lstm_step_geometry,
+                                                      lstm_step_kernel,
+                                                      lstm_step_layout)
 from vae_captioning_torch.ops.fused_z import (fused_z, fused_z_eps,
                                               fused_z_plain, philox_bits,
                                               philox_normals)
@@ -67,7 +71,10 @@ def _lstm_args(dev, N, E, H, seed=0):
             0.1 * torch.randn((4 * H,), generator=g, device=dev))
 
 
-@pytest.mark.parametrize("N,E,H", [(200, 64, 96), (1, 32, 32), (513, 256, 512)])
+@pytest.mark.parametrize("N,E,H", [(200, 64, 96), (1, 32, 32), (513, 256, 512),
+                                   (1536, 256, 512), (5120, 256, 512),
+                                   (65, 256, 512), (300, 32, 96),
+                                   (70, 256, 1536)])
 def test_lstm_step_kernel_matches_plain(dev, N, E, H):
     args = _lstm_args(dev, N, E, H, seed=N)
     before = _ext.LAUNCHES["fused_lstm_step"]
@@ -76,6 +83,26 @@ def test_lstm_step_kernel_matches_plain(dev, N, E, H):
     torch.cuda.synchronize()
     assert _ext.LAUNCHES["fused_lstm_step"] == before + 1
     for a, r in zip(got, want):   # f32 sums in another order
+        torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("units", [64, 32])
+@pytest.mark.parametrize("N,E,H", [(1536, 256, 512), (65, 32, 96),
+                                   (70, 256, 640), (70, 256, 1536)])
+def test_lstm_step_kernel_geometries_match_plain(dev, units, N, E, H):
+    """Both unit widths of the kernel, whichever lstm_step_plan picks, at
+    a train width, a ragged one (H % 2U != 0, E % 64 != 0) and two whose
+    A is taken in chunks (E + H past the resident room: at U = 64 only,
+    and at both widths); the layout fits one block's shared memory with a
+    ring of two to four stages."""
+    args = _lstm_args(dev, N, E, H, seed=N + units)
+    chunk, stages, smem = lstm_step_layout(E, H, units)
+    assert smem <= 232448 and 2 <= stages <= 4
+    assert 1 <= chunk <= -(-E // 64) + -(-H // 64)
+    got = lstm_step_kernel(*args, 1.0, lstm_step_geometry(N, E, H, units))
+    want = fused_lstm_step_plain(*args)
+    torch.cuda.synchronize()
+    for a, r in zip(got, want):
         torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-5)
 
 
@@ -130,8 +157,9 @@ def test_decode_through_kernels_matches_plain_decode(dev):
     load_flax_params(model, {k: rng.normal(0, 0.3, size=s).astype(np.float32)
                              for k, s in flax_shapes(model).items()})
     model = model.to(dev)
-    feats = torch.randn((16, 4096), device=dev)
-    c_v = (torch.rand((16, 90), device=dev) < 0.05).float()
+    g = torch.Generator(device=dev).manual_seed(0)
+    feats = torch.randn((16, 4096), generator=g, device=dev)
+    c_v = (torch.rand((16, 90), generator=g, device=dev) < 0.05).float()
     kernel = make_decode_fns(model, cfg, vocab)
     plain = make_decode_fns(model, cfg, vocab, ops=PLAIN_OPS)
     for name in ("beam_search", "greedy"):
@@ -396,7 +424,8 @@ def test_train_wrappers_check_their_inputs(dev):
                                      (1280, 512, 90, 150), (1, 512, 90, 150),
                                      (65, 512, 90, 150), (1000, 128, 12, 150),
                                      (300, 768, 12, 150), (70, 768, 7, 37),
-                                     (70, 1024, 7, 37)])
+                                     (70, 1024, 7, 37), (130, 256, 7, 150),
+                                     (70, 64, 5, 37), (65, 64, 200, 3)])
 def test_ag_heads_kernels_match_plain(dev, N, H, K, L):
     """Forward to 1e-4 of the largest element (f32 sums in another order);
     db to 1e-4 (both from f32 dq); dh, dW and dc_v to 8e-3, two bf16 steps
@@ -458,6 +487,27 @@ def test_forward_kernels_repeat_bit_for_bit(dev, kernel, big):
     for a, r in zip(first, second):
         assert torch.equal(a, r)
         assert bool(torch.isfinite(a.float()).any())
+
+
+@pytest.mark.parametrize("N,H,K,L", [(1280, 512, 90, 150), (65, 128, 7, 37),
+                                     (300, 768, 12, 37)],
+                         ids=["train", "ragged", "wide"])
+def test_ag_heads_backward_repeats_bit_for_bit(dev, N, H, K, L):
+    """The AG-heads backward gives identical dh, dW, db and dc_v in two
+    calls: no float atomics, and the db, dc_v and dh-split partials are
+    summed in order."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    ops = ag_prepare(torch.randn((N, H), generator=g, device=dev),
+                     0.05 * torch.randn((2 * K * L, H), generator=g, device=dev),
+                     0.1 * torch.randn((2 * K * L,), generator=g, device=dev),
+                     torch.rand((N, K), generator=g, device=dev))
+    cots = [torch.randn((N, L), generator=g, device=dev) for _ in range(2)]
+    first = ag_heads_bwd_kernel(*ops, *cots)
+    second = ag_heads_bwd_kernel(*ops, *cots)
+    torch.cuda.synchronize()
+    for name, a, r in zip(("dh", "dw", "db", "dcv"), first, second):
+        assert torch.equal(a, r), name
+        assert bool(torch.isfinite(a).all()), name
 
 
 def test_ag_heads_wrapper_checks_its_inputs(dev):

@@ -122,9 +122,23 @@ def test_wrapper_matches_the_pallas_kernel(interpreted, dims):
 
 @pytest.mark.parametrize("K,L", [(90, 150), (12, 150), (7, 150), (5, 37),
                                  (200, 3)])
-def test_group_geometry_matches_the_tpu_kernel(K, L):
-    kb, G, _ = jfah._group_geometry(K, L)
-    assert tfah.group_geometry(K, L) == (kb, G)
+def test_group_geometry_matches_the_tpu_kernel(interpreted, K, L):
+    """At the TPU kernel's cluster groupings (``_group_geometry``: kb
+    clusters a group, the last group padded to G·kb clusters; at (200, 3)
+    all 200 in one group, at (90, 150) 12 groups of 8, 6 of the last
+    group's clusters padding) the
+    port computes what the Pallas kernel computes, forward and the four
+    gradients, though its own kernels group clusters another way
+    (``ag_fwd_plan``, ``ag_bwd_plan``: test_backward_plan_* at these
+    (K, L))."""
+    kb, G, Kp = jfah._group_geometry(K, L)
+    assert G * kb == Kp and (G - 1) * kb < K <= Kp
+    args = _problem(B=8, H=64, K=K, L=L, seed=K, zero_row=False)
+    jm, js, jg = _jax_side(jfah.fused_ag_heads, *args)
+    tm, ts, tg = _torch_side(tfah.fused_ag_heads, *args)
+    assert _rel(tm, jm) <= KERNEL_REL and _rel(ts, js) <= KERNEL_REL
+    for name, a, e in zip(["dh", "dw", "db", "dcv"], tg, jg):
+        assert _rel(a, e) <= KERNEL_REL, name
 
 
 def test_backward_plain_matches_autograd():
@@ -197,3 +211,67 @@ def test_forward_plan_workspace_within_bound(N, K, L):
     if (N, K, L) == (1280, 90, 150):
         assert (plan.cols, plan.kb) == (80, 7)
         assert plan.grid == (10, 2, 13)
+
+
+# (N, H, K, L): the train shapes, one row, one row past a 64-row and a
+# 128-row tile, the widths past the resident h (768, 1024) and below (64),
+# odd L, fewer clusters than a group, and the TPU kernel's groupings of
+# test_group_geometry_matches_the_tpu_kernel
+BWD_PLAN_DIMS = [(1280, 512, 90, 150), (1, 512, 90, 150), (65, 512, 90, 150),
+                 (129, 512, 90, 150), (1000, 64, 12, 150), (300, 768, 12, 150),
+                 (300, 1024, 7, 37), (70, 128, 7, 37), (3, 64, 1, 5),
+                 (130, 256, 7, 150), (70, 64, 5, 37), (65, 64, 200, 3)]
+
+
+def _cover(n: int, tile: int, tiles: int) -> np.ndarray:
+    """How often each of [0, n) falls in tiles [tile·t, tile·t + tile), t
+    < tiles."""
+    count = np.zeros(n, np.int64)
+    for t in range(tiles):
+        count[t * tile:(t + 1) * tile] += 1
+    return count
+
+
+@pytest.mark.parametrize("N,H,K,L", BWD_PLAN_DIMS)
+def test_backward_plan_covers_each_element_once(N, H, K, L):
+    """Under the kernels' rules each grid is a product of ranges, so each
+    axis is covered on its own: the dq pass's blocks meet every row,
+    latent column and cluster once (no empty cluster group), each row
+    falls in one warp's db partial and each latent column in one dc_v
+    partial; dW's blocks meet every row of dW and column of H once, and
+    dh's every row, column and 64-column contraction tile once (no empty
+    split)."""
+    plan = tfah.ag_bwd_plan(N, H, K, L)
+    C2 = 2 * K * L
+    c_tiles = -(-C2 // 64)
+    mt, lt, gz = plan.dq_grid
+    assert np.all(_cover(N, 128, mt) == 1)
+    assert np.all(_cover(L, plan.cols, lt) == 1)
+    assert np.all(_cover(K, plan.kb, gz) == 1) and (gz - 1) * plan.kb < K
+    assert np.all(_cover(N, 16, plan.db_part[0]) == 1)
+    assert plan.dcv_part == (lt, N, K) and plan.db_part[1] == C2
+    assert H % plan.ct == 0 and plan.ct in (64, 128, 256, 512)
+    assert plan.dw_grid == (c_tiles, H // plan.ct, 1)
+    assert np.all(_cover(C2, 64, plan.dw_grid[0]) == 1)
+    assert np.all(_cover(H, plan.ct, plan.dw_grid[1]) == 1)
+    xt, ct, splits = plan.dh_grid
+    assert np.all(_cover(N, 64, xt) == 1) and ct == H // plan.ct
+    assert np.all(_cover(c_tiles, plan.per, splits) == 1)
+    assert (splits - 1) * plan.per < c_tiles
+
+
+@pytest.mark.parametrize("N,H,K,L", BWD_PLAN_DIMS)
+def test_backward_plan_workspaces_within_bound(N, H, K, L):
+    """dh's [S, Np, H] f32 partials (Np: N in whole 64-row tiles) stay
+    within the stated 64 MiB (one split may exceed it alone); db's per-warp partials are one per 16
+    rows, at most a 128-row tile past N (an eighth of dq's bf16 bytes,
+    plus that tile); and at the train shapes the plan is 40 latent
+    columns, 7 clusters a block, column tile 512 and 6 dh splits."""
+    plan = tfah.ag_bwd_plan(N, H, K, L)
+    Np = 64 * -(-N // 64)
+    assert plan.dh_part == (plan.splits, Np, H)
+    assert plan.splits == 1 or plan.splits * Np * H * 4 <= 64 << 20
+    assert N <= 16 * plan.db_part[0] < N + 128
+    if (N, H, K, L) == (1280, 512, 90, 150):
+        assert (plan.cols, plan.kb, plan.ct, plan.per) == (40, 7, 512, 71)
+        assert plan.dq_grid == (10, 4, 13) and plan.dh_grid == (20, 1, 6)

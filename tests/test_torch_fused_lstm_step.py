@@ -13,7 +13,10 @@ from jax.experimental import pallas as pl
 from vae_captioning_tpu.ops import fused_lstm_step as jfs
 from vae_captioning_torch import _ext
 from vae_captioning_torch.ops.fused_lstm_step import (fused_lstm_step,
-                                                      fused_lstm_step_plain)
+                                                      fused_lstm_step_plain,
+                                                      lstm_step_plan)
+from vae_captioning_torch.ops.fused_lstm_step import (
+    lstm_step_geometry as fused_lstm_step_geometry)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -107,3 +110,55 @@ def test_wrapper_rejects_tensors_on_mixed_devices():
                         torch.zeros(2, 32), torch.zeros(64, 128,
                                                         dtype=torch.bfloat16),
                         torch.zeros(128))
+
+
+# (N, E, H): the decode rows at the train widths (greedy, beam 3, beam 10),
+# one row, one row past a tile, the card tests' narrow widths and one whose
+# A is taken in chunks
+PLAN_DIMS = [(512, 256, 512), (1536, 256, 512), (5120, 256, 512),
+             (1, 256, 512), (65, 256, 512), (1, 32, 32), (200, 64, 96),
+             (65, 32, 96), (70, 256, 1536)]
+
+
+@pytest.mark.parametrize("units", [64, 32])
+@pytest.mark.parametrize("N,E,H", PLAN_DIMS)
+def test_step_geometry_covers_each_element_once(N, E, H, units):
+    """Under the kernel's rules: block (x, y) takes rows [64x, 64x + 64)
+    and its warpgroup w the units [2U·y + U·w, 2U·y + U·w + U), so every
+    (row, unit) of c' and h' is computed once; and the K boxes meet every
+    row of W once (x box c: W rows 64c + i for i < 64 with 64c + i < E, h
+    box t: rows E + 64t + i with 64t + i < H; the other A columns are
+    zero)."""
+    plan = fused_lstm_step_geometry(N, E, H, units)
+    assert plan.units == units
+    rows = np.zeros(N, np.int64)
+    for x in range(plan.grid[0]):
+        rows[64 * x:64 * x + 64] += 1
+    assert np.all(rows == 1)
+    unit = np.zeros(H, np.int64)
+    for y in range(plan.grid[1]):
+        for w in range(2):
+            lo = 2 * units * y + units * w
+            unit[lo:lo + units] += 1
+    assert np.all(unit == 1)
+    nx, nh = -(-E // 64), -(-H // 64)
+    w_rows = np.zeros(E + H, np.int64)
+    for c in range(nx):
+        w_rows[64 * c:min(E, 64 * c + 64)] += 1
+    for t in range(nh):
+        w_rows[E + 64 * t:E + min(H, 64 * t + 64)] += 1
+    assert np.all(w_rows == 1)
+
+
+@pytest.mark.parametrize("N,E,H", PLAN_DIMS)
+def test_step_plan_fills_the_sms(N, E, H):
+    """The plan is the geometry at U = 32 where U = 64 would give fewer
+    blocks than half the 132 SMs, else at U = 64: at E = 256, H = 512, U =
+    32 at N = 512 and U = 64 at N = 1536 and 5120.  (The shared memory
+    of each width is the kernel's own; the card tests check it.)"""
+    plan = lstm_step_plan(N, E, H)
+    wide = fused_lstm_step_geometry(N, E, H, 64)
+    narrow = 2 * wide.grid[0] * wide.grid[1] < 132
+    assert plan == fused_lstm_step_geometry(N, E, H, 32 if narrow else 64)
+    if (E, H) == (256, 512) and N in (512, 1536, 5120):
+        assert plan.units == {512: 32, 1536: 64, 5120: 64}[N]

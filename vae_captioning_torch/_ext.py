@@ -15,7 +15,9 @@ every module on a machine without ``nvcc``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -57,8 +59,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
 _SIGNATURES = {
-    "vct_fused_lstm_step": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                            ctypes.c_float, _P],
+    "vct_fused_lstm_step": [_P] * 7 + [_I] * 3 + [ctypes.c_float, _I, _P],
+    "vct_fused_lstm_step_layout": [_I] * 3 + [_P] * 2,
     "vct_fused_logits_top_k": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _P],
     "vct_fused_logits_top_k_int8": [_P] * 12 + [_I] * 6 + [_P],
@@ -73,7 +75,8 @@ _SIGNATURES = {
     "vct_fused_z_eps": [_P] + [_I] * 3 + [_U, _U, _I, _P],
     "vct_fused_ag_heads_fwd": [_P] * 6 + [_I] * 6 + [_P],
     "vct_fused_ag_heads_fwd_smem": [_I, _I],
-    "vct_fused_ag_heads_bwd": [_P] * 7 + [_I] + [_P] * 7 + [_I] * 6 + [_P],
+    "vct_fused_ag_heads_bwd": [_P] * 7 + [_I] + [_P] * 7 + [_I] * 8 + [_P],
+    "vct_fused_ag_heads_mat_smem": [_I],
     "vct_fused_ce_fwd": [_P] * 7 + [_I] * 4 + [_P],
     "vct_fused_ce_dh": [_P] * 7 + [_I] * 3 + [_P],
     "vct_fused_ce_dwdb": [_P] * 10 + [_I] * 5 + [_P],
@@ -197,5 +200,27 @@ def require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
+# the current stream as a raw pointer, where torch's C binding has it: a
+# Stream object costs several microseconds a call, the decode step's budget
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def stream_ptr(device: torch.device) -> int:
+    if _raw_stream is not None:
+        return _raw_stream(torch.cuda.current_device() if device.index is None
+                           else device.index)
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def device_scope(device: torch.device):
+    """``torch.cuda.device(device)`` where another device is current, else
+    a context that does nothing (it costs microseconds a call)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

@@ -24,7 +24,7 @@
 // dW, dh) backward, against 28 MB of bf16 weights: about 0.036 ms and
 // 0.107 ms at the dense bf16 rate.  The design:
 //
-// * Forward (ag_fwd_kernel<NC, RES>, wgmma + TMA on the primitives of
+// * Forward (ag_fwd_kernel<NC, RES, false>, wgmma + TMA on the primitives of
 //   hopper.cuh): q never reaches memory.  A block keeps 128 rows of h
 //   resident in shared memory (64 x 64 boxes, 128-byte swizzle; 128 KB at
 //   H = 512) and walks the clusters of its group over NC latent columns (80
@@ -45,112 +45,53 @@
 //   two stages (H > 704 at NC = 80, H > 768 at NC = 40), the RES = false
 //   instance streams h's two 64-row boxes in each stage beside the W
 //   boxes instead, so every H that is a multiple of 64 runs.
-// * Backward: a first kernel recomputes the q tiles (WMMA, q_tiles) and
-//   forms dq, db partials (per row tile) and dcv partials (per latent
-//   tile); dq is written once in bf16 ([N, 2*K*L], 69 MB at the train
-//   shapes) for the two products that follow, dW = dq^T @ h (each element
-//   written once) and dh = dq @ W (split over q's columns, partials summed
-//   in a fixed order).  Writing dq instead of recomputing it a second and
-//   third time is the first version's choice; removing it is later work.
-//   The backward kernels are still WMMA from plain 16-byte loads.
-// * Determinism: no float atomics.  Every cross-block sum is a partial
-//   buffer reduced by one thread per element, in index order.
+// * Backward, three wgmma + TMA kernels and three ordered sums; dq is
+//   written once in bf16 ([N, 2*K*L], 69 MB at the train shapes) and read
+//   by the two products:
+//   - the dq pass is the forward's template with BWD: the same blocks,
+//     stages and products recompute the mu and log-sigma tiles, and after
+//     a cluster's last stage each thread forms, from registers, dq_m =
+//     g_mean·c̃ and dq_s = g_std·c̃·sigma (c̃ = bf16(cv), sigma = exp(log
+//     sigma + b)) for its 2 rows x NC / 4 latent columns, stores them in
+//     bf16 (4-byte pairs where the column is even, masked at l < L), sums
+//     mu·g_mean + sigma·g_std over the quad's columns into per-latent-tile
+//     dc_v partials [lat_tiles, N, K], and the f32 dq over the warp's 16
+//     rows (shuffles) into per-warp db partials [8·ceil(N / 128), 2KL].
+//     g_mean and g_std do not depend on k: each thread loads its NC values
+//     once, in place of the forward's fold registers (NC = 40: at 80 the
+//     forward alone holds 254 registers).
+//   - dW = dq^T @ h and dh = dq @ W (ag_mat_kernel<CT, DW>): plain products
+//     over the flat column index c < 2KL that dq and W share, on the
+//     product loop of mat_ring.cuh that the written-logits backward
+//     (fused_ce_mat.cu) shares, with no per-tile step (the CE's forms dl
+//     there): a block owns 64 output rows (c rows of dW, h rows of dh) and
+//     CT output columns (the largest of 512, 256, 128, 64 dividing H; a
+//     grid dimension over H / CT), and streams K tiles [64 x CT] (h for
+//     dW, W for dh) with the matching 64 x 64 dq box through a TMA ring;
+//     two consumer warpgroups own CT / 2 columns each; dW reads the dq box
+//     MN-major (transposed).  dW has 2KL / 64 row tiles and needs no
+//     split; dh splits the 2KL / 64 contraction tiles into ranges of `per`
+//     tiles, [S, N, H] partials.  dq's tensor map ends at column 2KL, so
+//     the pitch's pad columns read zeros.
+//   ops/fused_ag_heads.py's ag_bwd_plan picks NC, kb, CT and the split.
+// * Determinism: no float atomics.  Every cross-block sum (db, dc_v, the
+//   dh splits, the forward's groups) is a partial buffer reduced by one
+//   thread per element, in index order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <algorithm>
 
 #include "hopper.cuh"
+#include "mat_ring.cuh"
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
-constexpr int THREADS = 256;
-
-// ---------------------------------------------------------------------
-// the backward's q tiles of one cluster: 64 rows x 32 latent columns, mu
-// and log sigma
-// ---------------------------------------------------------------------
-constexpr int BM = 64;           // rows
-constexpr int BL = 32;           // latent columns
-constexpr int BH = 64;           // H per stage
-constexpr int A_LD = BH + 8;
-constexpr int B_LD = BH + 8;     // B^T kept as [BL][BH]: column-major
-constexpr int C_LD = BL + 4;
-constexpr int PER_THREAD = BM * BL / THREADS;   // 8 elements of the tile
-
-struct QTiles {
-  bf16 a[BM * A_LD];
-  bf16 bm[BL * B_LD];
-  bf16 bs[BL * B_LD];
-  float cm[BM * C_LD];
-  float cs[BM * C_LD];
-  float ct[BM * C_LD];          // backward: the dcv contributions
-};
-
-using AccFrag = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// t.cm / t.cs <- h16[m0:m0+64] @ W16[k*L + l0 + j]^T and W16[KL + k*L + l0 + j]^T
-// (j < 32; latent columns l >= L and rows n >= N read zeros)
-__device__ void q_tiles(const bf16* __restrict__ h, const bf16* __restrict__ w,
-                        int N, int H, int K, int L, int m0, int l0, int k,
-                        QTiles& t) {
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = warp / 2;       // rows wm*16
-  const int wn = warp % 2;       // latent columns wn*16
-  const size_t KL = static_cast<size_t>(K) * L;
-  AccFrag acc_m, acc_s;
-  wmma::fill_fragment(acc_m, 0.0f);
-  wmma::fill_fragment(acc_s, 0.0f);
-  for (int h0 = 0; h0 < H; h0 += BH) {
-#pragma unroll
-    for (int i = 0; i < (BM * BH / 8) / THREADS; ++i) {   // A: h rows
-      const int v = tid + i * THREADS;
-      const int r = v / (BH / 8);
-      const int cv = (v % (BH / 8)) * 8;
-      uint4 x = make_uint4(0, 0, 0, 0);
-      if (m0 + r < N)
-        x = *reinterpret_cast<const uint4*>(&h[static_cast<size_t>(m0 + r) * H + h0 + cv]);
-      *reinterpret_cast<uint4*>(&t.a[r * A_LD + cv]) = x;
-    }
-    {   // B^T: W rows of the latent columns, mu half and log-sigma half
-      const int r = tid / (BH / 8);
-      const int cv = (tid % (BH / 8)) * 8;
-      const int l = l0 + r;
-      uint4 xm = make_uint4(0, 0, 0, 0), xs = make_uint4(0, 0, 0, 0);
-      if (l < L) {
-        const size_t row = static_cast<size_t>(k) * L + l;
-        xm = *reinterpret_cast<const uint4*>(&w[row * H + h0 + cv]);
-        xs = *reinterpret_cast<const uint4*>(&w[(KL + row) * H + h0 + cv]);
-      }
-      *reinterpret_cast<uint4*>(&t.bm[r * B_LD + cv]) = xm;
-      *reinterpret_cast<uint4*>(&t.bs[r * B_LD + cv]) = xs;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BH; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bfm, bfs;
-      wmma::load_matrix_sync(af, &t.a[(wm * 16) * A_LD + kk], A_LD);
-      wmma::load_matrix_sync(bfm, &t.bm[(wn * 16) * B_LD + kk], B_LD);
-      wmma::load_matrix_sync(bfs, &t.bs[(wn * 16) * B_LD + kk], B_LD);
-      wmma::mma_sync(acc_m, af, bfm, acc_m);
-      wmma::mma_sync(acc_s, af, bfs, acc_s);
-    }
-    __syncthreads();
-  }
-  wmma::store_matrix_sync(&t.cm[(wm * 16) * C_LD + wn * 16], acc_m, C_LD,
-                          wmma::mem_row_major);
-  wmma::store_matrix_sync(&t.cs[(wm * 16) * C_LD + wn * 16], acc_s, C_LD,
-                          wmma::mem_row_major);
-  __syncthreads();
-}
+constexpr int THREADS = 256;   // the partial sums
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16(x));
@@ -187,6 +128,106 @@ size_t ag_fwd_smem(int H, int NC, bool resident, int stages) {
          stages * (sizeof(uint64_t) + sizeof(uint32_t)) + 2 * sizeof(uint64_t);
 }
 
+// The dq pass's operands (the forward passes none): g_mean, g_std [N, L]
+// f32 in; dq [N, ldq] bf16, db_part [8·ceil(N / 128), 2KL] (one partial per
+// 16 rows: a warp's) and dcv_part [ceil(L / NC), N, K] f32 out.
+struct DqArgs {
+  const float* gm;
+  const float* gs;
+  bf16* dq;
+  int ldq;
+  float* db_part;
+  float* dcv_part;
+};
+
+// The dq pass after cluster k's products: this thread's 2 rows x NC / 4
+// latent columns of the mu tile (registers 4n + 2i + j) and the log-sigma
+// tile (4(n + NC / 8) + 2i + j), as in ag_fwd_kernel.
+//   dq_m = g_mean·c̃,  dq_s = g_std·c̃·sigma,  sigma = exp(log sigma + b)
+// stored in bf16 at rows < N, columns l < L; dc_v's term mu·g_mean +
+// sigma·g_std summed over the quad's columns into dcv_part[latent tile];
+// the f32 dq summed over the warp's 16 rows into db_part[row16].
+template <int NC>
+__device__ __forceinline__ void dq_epilogue(
+    const float (&acc)[NC], const float (&bias_m)[NC / 4],
+    const float (&bias_s)[NC / 4], const float (&wgt)[2],
+    const float (&g_m)[NC / 2], const float (&g_s)[NC / 2], const DqArgs& da,
+    const int (&row)[2], int N, int K, int L, int k, int l0, int cq, int row16) {
+  constexpr int SG = NC / 8;
+  const int KL = K * L;
+  const int C2 = 2 * KL;
+  const int lane = threadIdx.x % 32;
+  float dcv[2] = {0.0f, 0.0f};
+  float db_m[NC / 4], db_s[NC / 4];
+#pragma unroll
+  for (int n = 0; n < NC / 8; ++n) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) db_m[2 * n + j] = db_s[2 * n + j] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float dqm[2], dqs[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int e = 4 * n + 2 * i + j;
+        const bool in = row[i] < N && l0 + 8 * n + cq + j < L;
+        const float mu = acc[e] + bias_m[2 * n + j];
+        const float sg = expf(acc[4 * SG + e] + bias_s[2 * n + j]);
+        dqm[j] = g_m[e] * wgt[i];
+        dqs[j] = in ? g_s[e] * wgt[i] * sg : 0.0f;
+        dcv[i] += in ? mu * g_m[e] + sg * g_s[e] : 0.0f;
+        db_m[2 * n + j] += dqm[j];
+        db_s[2 * n + j] += dqs[j];
+      }
+      // bf16 stores: a 4-byte pair where both columns are in and the
+      // column is even (odd L makes k·L + l odd for some pairs)
+      const int l = l0 + 8 * n + cq;
+      if (row[i] < N && l < L) {
+        bf16* d = da.dq + static_cast<size_t>(row[i]) * da.ldq + k * L + l;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          bf16* p = d + half * KL;
+          const float* v = half ? dqs : dqm;
+          if (l + 1 < L && (reinterpret_cast<uintptr_t>(p) & 3) == 0) {
+            *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
+          } else {
+            p[0] = __float2bfloat16(v[0]);
+            if (l + 1 < L) p[1] = __float2bfloat16(v[1]);
+          }
+        }
+      }
+    }
+  }
+  // dc_v: the quad's columns, then one store per row
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    dcv[i] += __shfl_xor_sync(0xffffffffu, dcv[i], 1);
+    dcv[i] += __shfl_xor_sync(0xffffffffu, dcv[i], 2);
+    if (lane % 4 == 0 && row[i] < N)
+      da.dcv_part[(static_cast<size_t>(blockIdx.y) * N + row[i]) * K + k] = dcv[i];
+  }
+  // db: the 8 lanes that share columns (lane / 4), then lanes 0-3 store
+#pragma unroll
+  for (int v = 0; v < NC / 4; ++v)
+#pragma unroll
+    for (int x = 4; x < 32; x *= 2) {
+      db_m[v] += __shfl_xor_sync(0xffffffffu, db_m[v], x);
+      db_s[v] += __shfl_xor_sync(0xffffffffu, db_s[v], x);
+    }
+  if (lane < 4) {
+    float* out = da.db_part + static_cast<size_t>(row16) * C2 + k * L;
+#pragma unroll
+    for (int n = 0; n < NC / 8; ++n)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int l = l0 + 8 * n + cq + j;
+        if (l < L) {
+          out[l] = db_m[2 * n + j];
+          out[KL + l] = db_s[2 * n + j];
+        }
+      }
+  }
+}
+
 // Grid (row tiles of 128, latent tiles of NC, cluster groups of kb); part
 // [G, 2, N, L].  Block (x, y, z) takes h rows [128x, 128x + 128) and, for
 // each cluster k of group z and each 64 columns of H, streams one stage:
@@ -196,13 +237,15 @@ size_t ag_fwd_smem(int H, int NC, bool resident, int stages) {
 // warpgroups read both W boxes, each for its own 64 rows.  Box rows past
 // the cluster's L belong to the next cluster (or half, or read zeros past
 // 2KL); they land in columns >= L, which are never folded or stored.
-template <int NC, bool RES>
+// BWD: the backward's dq pass on the same tiles; it writes no part (see
+// DqArgs).
+template <int NC, bool RES, bool BWD>
 __global__ void __launch_bounds__(AG_THREADS, 1)
 ag_fwd_kernel(const __grid_constant__ CUtensorMap h_map,
               const __grid_constant__ CUtensorMap w_map,
               const float* __restrict__ b, const float* __restrict__ cv,
               float* __restrict__ part, int N, int H, int K, int L, int kb,
-              int stages) {
+              int stages, const DqArgs da) {
   constexpr int HALF = NC * BOX * 2;      // bytes of one W box
   constexpr int HB = RES ? 0 : 2 * BOX_BYTES;   // a stage's h boxes
   constexpr int STAGE = HB + 2 * HALF;    // (h), the mu box, the log-sigma box
@@ -288,6 +331,23 @@ ag_fwd_kernel(const __grid_constant__ CUtensorMap h_map,
   for (int e = 0; e < ACC; ++e) out_m[e] = out_s[e] = 0.0f;
   const uint32_t a_addr = smem_addr(q_s) + wg * boxes * BOX_BYTES;
   const uint32_t ring_addr = smem_addr(ring);
+  // BWD: this thread's g_mean and g_std, at the fragment's registers (0 at
+  // rows past N and columns past L); they do not depend on the cluster
+  float g_m[BWD ? ACC : 1], g_s[BWD ? ACC : 1];
+  if constexpr (BWD) {
+#pragma unroll
+    for (int n = 0; n < NC / 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int l = l0 + 8 * n + cq + j;
+          const bool in = row[i] < N && l < L;
+          const size_t o = static_cast<size_t>(row[i]) * L + l;
+          g_m[4 * n + 2 * i + j] = in ? __ldg(&da.gm[o]) : 0.0f;
+          g_s[4 * n + 2 * i + j] = in ? __ldg(&da.gs[o]) : 0.0f;
+        }
+  }
   if constexpr (RES) mbar_wait(q_bar, 0);
 
   for (int ci = 0; ci < nk; ++ci) {
@@ -332,19 +392,25 @@ ag_fwd_kernel(const __grid_constant__ CUtensorMap h_map,
     reg_fence(acc);
     release((ci + 1) * boxes - 1);
 
-    // fold: mu + bias and exp(log sigma + bias), weighted by c_v; columns
-    // >= L are never stored
+    if constexpr (BWD) {
+      dq_epilogue<NC>(acc, bias_m, bias_s, wgt, g_m, g_s, da, row, N, K, L, k,
+                      l0, cq, blockIdx.x * 8 + wg * 4 + warp);
+    } else {
+      // fold: mu + bias and exp(log sigma + bias), weighted by c_v; columns
+      // >= L are never stored
 #pragma unroll
-    for (int n = 0; n < NC / 8; ++n)
+      for (int n = 0; n < NC / 8; ++n)
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+        for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int e = 4 * n + 2 * i + j;
-          out_m[e] += wgt[i] * (acc[e] + bias_m[2 * n + j]);
-          out_s[e] += wgt[i] * expf(acc[4 * SG + e] + bias_s[2 * n + j]);
-        }
+          for (int j = 0; j < 2; ++j) {
+            const int e = 4 * n + 2 * i + j;
+            out_m[e] += wgt[i] * (acc[e] + bias_m[2 * n + j]);
+            out_s[e] += wgt[i] * expf(acc[4 * SG + e] + bias_s[2 * n + j]);
+          }
+    }
   }
+  if constexpr (BWD) return;
 
   // this group's [64, NC] blocks of q_mean and q_std
   const size_t NL = static_cast<size_t>(N) * L;
@@ -364,6 +430,36 @@ ag_fwd_kernel(const __grid_constant__ CUtensorMap h_map,
       }
 }
 
+// ---------------------------------------------------------------------
+// backward products: dW = dq^T @ h and dh = dq @ W (wgmma + TMA)
+// ---------------------------------------------------------------------
+// Grid (output row tiles, column tiles of CT, K ranges).  Block (x, y, z)
+// owns output rows [64x, 64x + 64), columns [CT·y, CT·y + CT) and K tiles
+// [z·per, min(k_tiles, (z + 1)·per)), at least one: mat_ring.cuh's product
+// loop with no per-tile step.
+//   DW = true:  K = h [N, H]; dq box (x: the out rows, y: the K rows), read
+//               MN-major; out = dw [64·gridDim.x, H].
+//   DW = false: K = W [2KL, H]; dq box (x: the K rows, y: the out rows),
+//               K-major; out = dh_part [gridDim.z, 64·gridDim.x, H].
+template <int CT, bool DW>
+__global__ void __launch_bounds__(MAT_THREADS, 1)
+ag_mat_kernel(const __grid_constant__ CUtensorMap k_map,
+              const __grid_constant__ CUtensorMap dq_map, float* __restrict__ out,
+              int H, int k_tiles, int per) {
+  static_assert(MatRing<CT>::smem(0) <= 232448, "one block per SM: 227 KB of shared memory");
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* ring = smem + ((1024 - (smem_addr(smem) & 1023)) & 1023);
+  const int x0 = blockIdx.x * BT;
+  const int e0 = blockIdx.y * CT;
+  const int t0 = blockIdx.z * per;
+  float acc[MatRing<CT>::ACC];
+  mat_ring_product<CT, DW>(acc, ring, &k_map, &dq_map, x0, e0, t0,
+                           min(k_tiles, t0 + per) - t0,
+                           [](int, unsigned char*, auto&& wait) { wait(); });
+  const size_t Xp = static_cast<size_t>(gridDim.x) * BT;
+  mat_ring_store<CT>(acc, out + (DW ? 0 : blockIdx.z * Xp * H), H, x0, e0);
+}
+
 // out[i] = sum over s of part[s * len + i], s in order
 __global__ void sum_partials_kernel(const float* __restrict__ part, int S,
                                     size_t len, float* __restrict__ out) {
@@ -372,222 +468,6 @@ __global__ void sum_partials_kernel(const float* __restrict__ part, int S,
   float acc = 0.0f;
   for (int s = 0; s < S; ++s) acc += part[static_cast<size_t>(s) * len + i];
   out[i] = acc;
-}
-
-// ---------------------------------------------------------------------
-// backward 1: q recomputed, dq (bf16, [N, ldq]), db partials [row tiles,
-// 2KL], dcv partials [latent tiles, N, K]
-// ---------------------------------------------------------------------
-__global__ void __launch_bounds__(THREADS)
-ag_dq_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
-             const float* __restrict__ b, const float* __restrict__ cv,
-             const float* __restrict__ gm, const float* __restrict__ gs,
-             bf16* __restrict__ dq, int ldq, float* __restrict__ db_part,
-             float* __restrict__ dcv_part, int N, int H, int K, int L, int kb) {
-  __shared__ __align__(128) QTiles t;
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.x * BM;
-  const int l0 = blockIdx.y * BL;
-  const int g = blockIdx.z;
-  const int KL = K * L;
-  const int k_end = min(K, (g + 1) * kb);
-  for (int k = g * kb; k < k_end; ++k) {
-    q_tiles(h, w, N, H, K, L, m0, l0, k, t);
-#pragma unroll
-    for (int i = 0; i < PER_THREAD; ++i) {
-      const int e = tid + i * THREADS;
-      const int r = e / BL;
-      const int c = e % BL;
-      const int n = m0 + r;
-      const int l = l0 + c;
-      float dqm = 0.0f, dqs = 0.0f, contrib = 0.0f;
-      if (n < N && l < L) {
-        const float wgt = bf16_round(cv[static_cast<size_t>(n) * K + k]);
-        const int col = k * L + l;
-        const float mu = t.cm[r * C_LD + c] + b[col];
-        const float sg = expf(t.cs[r * C_LD + c] + b[KL + col]);
-        const float g_m = gm[static_cast<size_t>(n) * L + l];
-        const float g_s = gs[static_cast<size_t>(n) * L + l];
-        dqm = g_m * wgt;
-        dqs = g_s * wgt * sg;
-        contrib = mu * g_m + sg * g_s;
-        dq[static_cast<size_t>(n) * ldq + col] = __float2bfloat16(dqm);
-        dq[static_cast<size_t>(n) * ldq + KL + col] = __float2bfloat16(dqs);
-      }
-      t.cm[r * C_LD + c] = dqm;       // each thread rewrites its own elements
-      t.cs[r * C_LD + c] = dqs;
-      t.ct[r * C_LD + c] = contrib;
-    }
-    __syncthreads();
-    if (tid < 2 * BL) {               // db: column sums over the 64 rows
-      const int c = tid % BL;
-      const int l = l0 + c;
-      const float* src = tid < BL ? t.cm : t.cs;
-      if (l < L) {
-        float s = 0.0f;
-        for (int r = 0; r < BM; ++r) s += src[r * C_LD + c];
-        const size_t col = static_cast<size_t>(tid < BL ? 0 : KL) + k * L + l;
-        db_part[static_cast<size_t>(blockIdx.x) * 2 * KL + col] = s;
-      }
-    } else if (tid < 2 * BL + BM) {   // dcv: row sums over the 32 columns
-      const int r = tid - 2 * BL;
-      const int n = m0 + r;
-      if (n < N) {
-        float s = 0.0f;
-        for (int c = 0; c < BL; ++c) s += t.ct[r * C_LD + c];
-        dcv_part[(static_cast<size_t>(blockIdx.y) * N + n) * K + k] = s;
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// 8 bf16 of row `row` from column c of a [rows, ld] matrix, zeros at and
-// past column c_end
-__device__ __forceinline__ uint4 load8(const bf16* __restrict__ m, size_t row,
-                                       int ld, int c, int c_end) {
-  if (c + 8 <= c_end)
-    return *reinterpret_cast<const uint4*>(&m[row * ld + c]);
-  uint4 x = make_uint4(0, 0, 0, 0);
-  bf16* e = reinterpret_cast<bf16*>(&x);
-  for (int j = 0; j < 8; ++j)
-    if (c + j < c_end) e[j] = m[row * ld + c + j];
-  return x;
-}
-
-// ---------------------------------------------------------------------
-// backward 2: dW[c, e] = sum_n dq[n, c] * h[n, e], a 64 (c) x 64 (e) tile
-// per block, over n in stages of 32; each element written once
-// ---------------------------------------------------------------------
-constexpr int WC = 64;
-constexpr int WE = 64;
-constexpr int WR = 32;
-constexpr int WA_LD = WC + 8;    // A^T kept as [WR][WC]: column-major
-constexpr int WB_LD = WE + 8;
-constexpr int WC_LD = WE + 4;
-
-__global__ void __launch_bounds__(THREADS)
-ag_dw_kernel(const bf16* __restrict__ dq, int ldq, const bf16* __restrict__ h,
-             float* __restrict__ dw, int N, int H, int C2) {
-  __shared__ __align__(128) bf16 As[WR * WA_LD];
-  __shared__ __align__(128) bf16 Bs[WR * WB_LD];
-  __shared__ __align__(128) float Cs[WC * WC_LD];
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = warp / 2;
-  const int wn = warp % 2;
-  const int e0 = blockIdx.x * WE;
-  const int c0 = blockIdx.y * WC;
-  AccFrag acc[2];
-  wmma::fill_fragment(acc[0], 0.0f);
-  wmma::fill_fragment(acc[1], 0.0f);
-  for (int n0 = 0; n0 < N; n0 += WR) {
-    const int r = tid / (WC / 8);
-    const int cv = (tid % (WC / 8)) * 8;
-    const int n = n0 + r;
-    uint4 xa = make_uint4(0, 0, 0, 0), xb = make_uint4(0, 0, 0, 0);
-    if (n < N) {
-      xa = load8(dq, n, ldq, c0 + cv, C2);
-      xb = *reinterpret_cast<const uint4*>(&h[static_cast<size_t>(n) * H + e0 + cv]);
-    }
-    *reinterpret_cast<uint4*>(&As[r * WA_LD + cv]) = xa;
-    *reinterpret_cast<uint4*>(&Bs[r * WB_LD + cv]) = xb;
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < WR; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> af;
-      wmma::load_matrix_sync(af, &As[kk * WA_LD + wm * 16], WA_LD);
-#pragma unroll
-      for (int f = 0; f < 2; ++f) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
-        wmma::load_matrix_sync(bfr, &Bs[kk * WB_LD + wn * 32 + f * 16], WB_LD);
-        wmma::mma_sync(acc[f], af, bfr, acc[f]);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int f = 0; f < 2; ++f)
-    wmma::store_matrix_sync(&Cs[(wm * 16) * WC_LD + wn * 32 + f * 16], acc[f],
-                            WC_LD, wmma::mem_row_major);
-  __syncthreads();
-  for (int e = tid; e < WC * WE; e += THREADS) {
-    const int r = e / WE;
-    const int cc = e % WE;
-    if (c0 + r < C2)
-      dw[static_cast<size_t>(c0 + r) * H + e0 + cc] = Cs[r * WC_LD + cc];
-  }
-}
-
-// ---------------------------------------------------------------------
-// backward 3: dh_part[s][n, e] = sum over the split's columns c of
-// dq[n, c] * W[c, e], a 64 (n) x 64 (e) tile per block, c in stages of 32
-// ---------------------------------------------------------------------
-constexpr int HM = 64;
-constexpr int HN = 64;
-constexpr int HK = 32;
-constexpr int HA_LD = HK + 8;
-constexpr int HB_LD = HN + 8;
-constexpr int HC_LD = HN + 4;
-
-__global__ void __launch_bounds__(THREADS)
-ag_dh_kernel(const bf16* __restrict__ dq, int ldq, const bf16* __restrict__ w,
-             float* __restrict__ dh_part, int N, int H, int C2, int chunk) {
-  __shared__ __align__(128) bf16 As[HM * HA_LD];
-  __shared__ __align__(128) bf16 Bs[HK * HB_LD];
-  __shared__ __align__(128) float Cs[HM * HC_LD];
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = warp / 2;
-  const int wn = warp % 2;
-  const int e0 = blockIdx.x * HN;
-  const int m0 = blockIdx.y * HM;
-  const int c_begin = blockIdx.z * chunk;
-  const int c_end = min(C2, c_begin + chunk);
-  AccFrag acc[2];
-  wmma::fill_fragment(acc[0], 0.0f);
-  wmma::fill_fragment(acc[1], 0.0f);
-  for (int c0 = c_begin; c0 < c_end; c0 += HK) {
-    {   // A: dq rows [m0, m0+64), columns [c0, c0+32)
-      const int r = tid / (HK / 8);
-      const int cv = (tid % (HK / 8)) * 8;
-      uint4 x = make_uint4(0, 0, 0, 0);
-      if (m0 + r < N) x = load8(dq, m0 + r, ldq, c0 + cv, c_end);
-      *reinterpret_cast<uint4*>(&As[r * HA_LD + cv]) = x;
-    }
-    {   // B: W rows [c0, c0+32), columns [e0, e0+64)
-      const int r = tid / (HN / 8);
-      const int cv = (tid % (HN / 8)) * 8;
-      uint4 x = make_uint4(0, 0, 0, 0);
-      if (c0 + r < c_end)
-        x = *reinterpret_cast<const uint4*>(&w[static_cast<size_t>(c0 + r) * H + e0 + cv]);
-      *reinterpret_cast<uint4*>(&Bs[r * HB_LD + cv]) = x;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < HK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
-      wmma::load_matrix_sync(af, &As[(wm * 16) * HA_LD + kk], HA_LD);
-#pragma unroll
-      for (int f = 0; f < 2; ++f) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
-        wmma::load_matrix_sync(bfr, &Bs[kk * HB_LD + wn * 32 + f * 16], HB_LD);
-        wmma::mma_sync(acc[f], af, bfr, acc[f]);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int f = 0; f < 2; ++f)
-    wmma::store_matrix_sync(&Cs[(wm * 16) * HC_LD + wn * 32 + f * 16], acc[f],
-                            HC_LD, wmma::mem_row_major);
-  __syncthreads();
-  float* out = dh_part + static_cast<size_t>(blockIdx.z) * N * H;
-  for (int e = tid; e < HM * HN; e += THREADS) {
-    const int r = e / HN;
-    const int cc = e % HN;
-    if (m0 + r < N) out[static_cast<size_t>(m0 + r) * H + e0 + cc] = Cs[r * HC_LD + cc];
-  }
 }
 
 int sum_partials(const float* part, int S, size_t len, float* out,
@@ -603,9 +483,10 @@ bool bad_shape(int H, int K, int L, int kb) {
 
 // grid (ceil(N / 128), ceil(L / NC), ceil(K / kb)); h and W through tensor
 // maps of 64-row and NC-row boxes
-template <int NC, bool RES>
+template <int NC, bool RES, bool BWD>
 int launch_ag_fwd_kernel(const void* h, const void* w, const void* b, const void* cv,
-                  void* part, int N, int H, int K, int L, int kb, cudaStream_t st) {
+                         void* part, const DqArgs& da, int N, int H, int K, int L,
+                         int kb, cudaStream_t st) {
   const int stages = ag_fwd_stages(H, NC, RES);
   CUtensorMap h_map, w_map;
   int err = row_tile_map(&h_map, static_cast<const bf16*>(h), N, H);
@@ -614,22 +495,53 @@ int launch_ag_fwd_kernel(const void* h, const void* w, const void* b, const void
   if (err) return err;
   const size_t smem = ag_fwd_smem(H, NC, RES, stages);
   err = static_cast<int>(cudaFuncSetAttribute(
-      ag_fwd_kernel<NC, RES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ag_fwd_kernel<NC, RES, BWD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem)));
   if (err) return err;
   const dim3 grid((N + AG_ROWS - 1) / AG_ROWS, (L + NC - 1) / NC, (K + kb - 1) / kb);
-  ag_fwd_kernel<NC, RES><<<grid, AG_THREADS, smem, st>>>(
+  ag_fwd_kernel<NC, RES, BWD><<<grid, AG_THREADS, smem, st>>>(
       h_map, w_map, static_cast<const float*>(b), static_cast<const float*>(cv),
-      static_cast<float*>(part), N, H, K, L, kb, stages);
+      static_cast<float*>(part), N, H, K, L, kb, stages, da);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NC>
+template <int NC, bool BWD>
 int launch_ag_fwd(const void* h, const void* w, const void* b, const void* cv,
-                  void* part, int N, int H, int K, int L, int kb, cudaStream_t st) {
+                  void* part, const DqArgs& da, int N, int H, int K, int L, int kb,
+                  cudaStream_t st) {
   return ag_fwd_resident(H, NC)
-             ? launch_ag_fwd_kernel<NC, true>(h, w, b, cv, part, N, H, K, L, kb, st)
-             : launch_ag_fwd_kernel<NC, false>(h, w, b, cv, part, N, H, K, L, kb, st);
+             ? launch_ag_fwd_kernel<NC, true, BWD>(h, w, b, cv, part, da, N, H, K, L, kb, st)
+             : launch_ag_fwd_kernel<NC, false, BWD>(h, w, b, cv, part, da, N, H, K, L, kb, st);
+}
+
+// out rows 64·ceil(rows / 64) x H from K [k_rows, H] against dq's tensor
+// map; grid (ceil(rows / 64), H / CT, splits)
+template <int CT, bool DW>
+int launch_mat(const bf16* k, int k_rows, const CUtensorMap& dq_map, float* out,
+               int rows, int H, int splits, int per, cudaStream_t st) {
+  CUtensorMap k_map;
+  int err = row_tile_map(&k_map, k, k_rows, H);
+  if (err) return err;
+  constexpr size_t smem = MatRing<CT>::smem(0);
+  err = static_cast<int>(cudaFuncSetAttribute(
+      ag_mat_kernel<CT, DW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem)));
+  if (err) return err;
+  const dim3 grid((rows + BT - 1) / BT, H / CT, splits);
+  ag_mat_kernel<CT, DW><<<grid, MAT_THREADS, smem, st>>>(
+      k_map, dq_map, out, H, (k_rows + BT - 1) / BT, per);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dW (no split) and the dh partials at column tile CT
+template <int CT>
+int launch_products(const bf16* h, const bf16* w, const CUtensorMap& dq_map,
+                    float* dw, float* dh_part, int N, int H, int C2, int splits,
+                    int per, cudaStream_t st) {
+  const int n_tiles = (N + BT - 1) / BT;
+  const int err = launch_mat<CT, true>(h, N, dq_map, dw, C2, H, 1, n_tiles, st);
+  if (err) return err;
+  return launch_mat<CT, false>(w, C2, dq_map, dh_part, N, H, splits, per, st);
 }
 
 }  // namespace
@@ -648,70 +560,87 @@ extern "C" int vct_fused_ag_heads_fwd(const void* h, const void* w, const void* 
   if (bad_shape(H, K, L, kb) || (cols != 40 && cols != 80))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int err = cols == 40 ? launch_ag_fwd<40>(h, w, b, cv, part, N, H, K, L, kb, st)
-                             : launch_ag_fwd<80>(h, w, b, cv, part, N, H, K, L, kb, st);
+  const DqArgs none{};
+  const int err =
+      cols == 40 ? launch_ag_fwd<40, false>(h, w, b, cv, part, none, N, H, K, L, kb, st)
+                 : launch_ag_fwd<80, false>(h, w, b, cv, part, none, N, H, K, L, kb, st);
   if (err) return err;
   return sum_partials(static_cast<const float*>(part), (K + kb - 1) / kb,
                       2 * static_cast<size_t>(N) * L, static_cast<float*>(out), st);
 }
 
 // the forward's dynamic shared memory at width H with `cols` latent columns
-// a block (bytes; 0 for another `cols`)
+// a block (bytes; 0 for another `cols`); the dq pass's likewise at 40
 extern "C" int vct_fused_ag_heads_fwd_smem(int H, int cols) {
   if (cols != 40 && cols != 80) return 0;
   const bool res = ag_fwd_resident(H, cols);
   return static_cast<int>(ag_fwd_smem(H, cols, res, ag_fwd_stages(H, cols, res)));
 }
 
-// g_mean, g_std [N, L] f32 -> dw [2KL, H], db [2KL], dcv [N, K], dh [N, H]
-// f32.  Workspaces: dq [N, ldq] bf16 (ldq >= 2KL, a multiple of 8);
-// db_part [ceil(N/64), 2KL]; dcv_part [ceil(L/32), N, K]; dh_part
-// [splits, N, H] f32.
+// the products' dynamic shared memory at column tile ct (bytes; 0 for
+// another ct)
+extern "C" int vct_fused_ag_heads_mat_smem(int ct) {
+  switch (ct) {
+    case 64: return static_cast<int>(MatRing<64>::smem(0));
+    case 128: return static_cast<int>(MatRing<128>::smem(0));
+    case 256: return static_cast<int>(MatRing<256>::smem(0));
+    case 512: return static_cast<int>(MatRing<512>::smem(0));
+    default: return 0;
+  }
+}
+
+// g_mean, g_std [N, L] f32 -> dw, db [2KL], dcv [N, K], dh f32 (dw and dh
+// padded, see below).  The dq pass's blocks take kb clusters and 40 latent columns
+// (`cols`); the products take `ct` output columns (64, 128, 256 or 512,
+// dividing H), and dh's split s the contraction tiles [s·per, (s + 1)·per)
+// of 64 columns.  Workspaces: dq [N, ldq] bf16 (ldq >= 2KL, a multiple of
+// 8); db_part [8·ceil(N / 128), 2KL]; dcv_part [ceil(L / cols), N, K];
+// dh_part [ceil(ceil(2KL / 64) / per), Np, H] f32.  dw and dh are padded to
+// 64-row tiles: dw [64·ceil(2KL / 64), H], dh [Np, H], Np = 64·ceil(N / 64);
+// the pad rows hold zeros (dq's pad rows and columns read zeros).
 extern "C" int vct_fused_ag_heads_bwd(const void* h, const void* w, const void* b,
                                       const void* cv, const void* g_mean,
                                       const void* g_std, void* dq, int ldq,
                                       void* db_part, void* dcv_part, void* dh_part,
                                       void* dw, void* db, void* dcv, void* dh,
-                                      int N, int H, int K, int L, int kb,
-                                      int splits, void* stream) {
+                                      int N, int H, int K, int L, int kb, int cols,
+                                      int ct, int per, void* stream) {
   if (N <= 0) return 0;
   const int C2 = 2 * K * L;
-  if (bad_shape(H, K, L, kb) || ldq < C2 || ldq % 8 != 0 || splits <= 0)
+  if (bad_shape(H, K, L, kb) || ldq < C2 || ldq % 8 != 0 || cols != 40 || per <= 0 ||
+      (ct != 64 && ct != 128 && ct != 256 && ct != 512) || H % ct != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int row_tiles = (N + BM - 1) / BM;
-  const int lat_tiles = (L + BL - 1) / BL;
-  const dim3 g1(row_tiles, lat_tiles, (K + kb - 1) / kb);
-  ag_dq_kernel<<<g1, THREADS, 0, st>>>(
-      static_cast<const bf16*>(h), static_cast<const bf16*>(w),
-      static_cast<const float*>(b), static_cast<const float*>(cv),
-      static_cast<const float*>(g_mean), static_cast<const float*>(g_std),
-      static_cast<bf16*>(dq), ldq, static_cast<float*>(db_part),
-      static_cast<float*>(dcv_part), N, H, K, L, kb);
-  int err = static_cast<int>(cudaGetLastError());
+  const DqArgs da{static_cast<const float*>(g_mean), static_cast<const float*>(g_std),
+                  static_cast<bf16*>(dq), ldq, static_cast<float*>(db_part),
+                  static_cast<float*>(dcv_part)};
+  // the dq pass at 40 latent columns: at 80 it spills (255 registers and 72
+  // bytes, even with its biases read after the products)
+  int err = launch_ag_fwd<40, true>(h, w, b, cv, nullptr, da, N, H, K, L, kb, st);
   if (err) return err;
-  err = sum_partials(static_cast<const float*>(db_part), row_tiles, C2,
-                     static_cast<float*>(db), st);
+  err = sum_partials(static_cast<const float*>(db_part), 8 * ((N + AG_ROWS - 1) / AG_ROWS),
+                     C2, static_cast<float*>(db), st);
   if (err) return err;
-  err = sum_partials(static_cast<const float*>(dcv_part), lat_tiles,
+  err = sum_partials(static_cast<const float*>(dcv_part), (L + cols - 1) / cols,
                      static_cast<size_t>(N) * K, static_cast<float*>(dcv), st);
   if (err) return err;
-  const dim3 g2(H / WE, (C2 + WC - 1) / WC);
-  ag_dw_kernel<<<g2, THREADS, 0, st>>>(
-      static_cast<const bf16*>(dq), ldq, static_cast<const bf16*>(h),
-      static_cast<float*>(dw), N, H, C2);
-  err = static_cast<int>(cudaGetLastError());
+  // dq [N, C2] at pitch ldq: columns past C2 read zeros
+  CUtensorMap dq_map;
+  err = row_tile_map(&dq_map, static_cast<const bf16*>(dq), N, C2, BT, ldq);
   if (err) return err;
-  // the splits' column ranges: whole stages of HK columns
-  int chunk = (C2 + splits - 1) / splits;
-  chunk = (chunk + HK - 1) / HK * HK;
-  const int S = (C2 + chunk - 1) / chunk;
-  const dim3 g3(H / HN, (N + HM - 1) / HM, S);
-  ag_dh_kernel<<<g3, THREADS, 0, st>>>(
-      static_cast<const bf16*>(dq), ldq, static_cast<const bf16*>(w),
-      static_cast<float*>(dh_part), N, H, C2, chunk);
-  err = static_cast<int>(cudaGetLastError());
+  const int c_tiles = (C2 + BT - 1) / BT;
+  const int splits = (c_tiles + per - 1) / per;
+  const bf16* h16 = static_cast<const bf16*>(h);
+  const bf16* w16 = static_cast<const bf16*>(w);
+  float* dwf = static_cast<float*>(dw);
+  float* part = static_cast<float*>(dh_part);
+  switch (ct) {
+    case 64: err = launch_products<64>(h16, w16, dq_map, dwf, part, N, H, C2, splits, per, st); break;
+    case 128: err = launch_products<128>(h16, w16, dq_map, dwf, part, N, H, C2, splits, per, st); break;
+    case 256: err = launch_products<256>(h16, w16, dq_map, dwf, part, N, H, C2, splits, per, st); break;
+    default: err = launch_products<512>(h16, w16, dq_map, dwf, part, N, H, C2, splits, per, st); break;
+  }
   if (err) return err;
-  return sum_partials(static_cast<const float*>(dh_part), S,
-                      static_cast<size_t>(N) * H, static_cast<float*>(dh), st);
+  const size_t Np = static_cast<size_t>(BT) * ((N + BT - 1) / BT);
+  return sum_partials(part, splits, Np * H, static_cast<float*>(dh), st);
 }

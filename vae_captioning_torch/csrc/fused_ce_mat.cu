@@ -36,10 +36,10 @@
 // memory and stores it with TMA into lg, clipped at the row pitch Vp.
 //
 // The backward: one kernel template, ce_mat_bwd_kernel<H, DW>, for both
-// gradients, built on the Hopper primitives of hopper.cuh.  A block owns 64
-// rows of the output (h rows for dh, vocab rows for dW) and streams the
-// other operand K in tiles of 64 rows, each with the matching 64 x 64 box of
-// lg:
+// gradients, on the product loop of mat_ring.cuh (which the AG-heads
+// backward products share).  A block owns 64 rows of the output (h rows for
+// dh, vocab rows for dW) and streams the other operand K in tiles of 64
+// rows, each with the matching 64 x 64 box of lg:
 //
 //   dl  = (exp(f32(lg box) - lse) - onehot(label)) * gw     f32, in place
 //   out += bf16(dl) @ K_tile                   [64 x H], contract 64
@@ -52,23 +52,17 @@
 //   lse,gw,lab per out row (loaded once)        per K row (a tile ahead)
 //   extra      -                                db = column sums of the f32 dl
 //
-// * TMA and mbarriers: a stage holds a K tile (64 x 64 boxes, 128-byte
-//   swizzle) and its lg box (a tensor map over lg [M, Vp], the same
-//   swizzle); a full barrier per stage counts the bytes in.  No resident
-//   tile, so the ring has 3 stages at H = 512 (216 KB), more below.
-// * dl in place: each thread reads two 16-byte runs of the swizzled lg box,
-//   forms dl in f32 (db's sums too), and writes bf16(dl) back into the same
-//   slots; a proxy fence and one named barrier later the box is wgmma's A
-//   operand.  The dl step waits on no tensor-core product, only on its
-//   tile's TMA load, and runs while the previous tile's product is in
-//   flight.
-// * wgmma: two consumer warpgroups each own half of H (m64n256 at H = 512,
-//   128 accumulator registers a thread), B MN-major from the K tile.
-// * Refill: a warpgroup's product reads only its half of the K tile, so its
-//   leader refills that half as soon as its own product retires.  Both read
-//   the whole lg box: the leaders count their releases of a stage in shared
-//   memory, and the later of the two also loads the lg box (at H = 64, one
-//   K box, the later loads the whole stage).  Nobody waits to refill.
+// * The ring (mat_ring.cuh): a stage holds a K tile and its lg box (a
+//   tensor map over lg [M, Vp], 128-byte swizzle); 3 stages at H = 512
+//   (216 KB), more below; two consumer warpgroups each own half of H
+//   (m64n256 at H = 512); each leader refills its half of the K tile when
+//   its product retires, the later of the two also the lg box.
+// * dl in place, the loop's per-tile step: each thread reads two 16-byte
+//   runs of the swizzled lg box, forms dl in f32 (db's sums too), and
+//   writes bf16(dl) back into the same slots; a proxy fence and one named
+//   barrier later the box is wgmma's A operand.  The dl step waits on no
+//   tensor-core product, only on its tile's TMA load, and runs while the
+//   previous tile's product is in flight.
 // * Row operands: dh's lse, gw and labels belong to the block's own rows
 //   and are loaded once; dW/db's belong to the streamed h rows and are
 //   loaded a tile ahead, so that their latency hides behind a tile's work.
@@ -82,48 +76,21 @@
 
 #include "fused_ce.cuh"
 #include "hopper.cuh"
+#include "mat_ring.cuh"
 
 namespace {
 
-constexpr int MAT_THREADS = 256;   // two consumer warpgroups
 constexpr int MAT_WARPS = MAT_THREADS / 32;
 
+// the written-logits backward's shared memory at width H: the ring and
+// db's exchange (a 64-column row per warp)
 template <int H>
-struct MatBwd {
-  static constexpr int BOXES = H / BOX;               // boxes per K tile
-  static constexpr int TILE = BT * H * 2;             // bytes of a K tile
-  static constexpr int STAGE = TILE + BOX_BYTES;      // + its lg box
-  static constexpr int STAGES = H == 512 ? 3 : H == 256 ? 5 : 8;
-  static constexpr int HN = H / 2;                    // output columns per warpgroup
-  static constexpr int ACC = HN / 2;                  // their f32 registers per thread
-  // at H >= 128 a K tile is loaded by two threads, one box half each
-  static constexpr bool SPLIT = BOXES >= 2;
-  // 1 KB to align the stages to the swizzle's 1024-byte period; the ring,
-  // db's exchange (a 64-column row per warp), the full barriers and the
-  // release counters
-  static constexpr size_t SMEM = 1024 + static_cast<size_t>(STAGE) * STAGES +
-                                 MAT_WARPS * BT * sizeof(float) +
-                                 STAGES * (sizeof(uint64_t) + sizeof(uint32_t));
-  static_assert(SMEM <= 232448, "one block per SM: 227 KB of shared memory");
-};
-
-// boxes [C0, C1) of the K tile at `row` into `dst` and, with LG, the lg box
-// at (lg_x, lg_y) into `lg_dst`; all the bytes complete on `bar`.  The box
-// range is a compile-time constant, as in load_boxes (hopper.cuh).
-template <int C0, int C1, bool LG>
-__device__ __forceinline__ void load_stage(unsigned char* dst, unsigned char* lg_dst,
-                                           const CUtensorMap* k_map,
-                                           const CUtensorMap* lg_map, uint64_t* bar,
-                                           int row, int lg_x, int lg_y) {
-  mbar_expect_tx(bar, (C1 - C0 + (LG ? 1 : 0)) * BOX_BYTES);
-#pragma unroll
-  for (int c = C0; c < C1; ++c)
-    tma_load(dst + c * BOX_BYTES, k_map, bar, c * BOX, row);
-  if constexpr (LG) tma_load(lg_dst, lg_map, bar, lg_x, lg_y);
+__host__ __device__ constexpr size_t mat_bwd_smem() {
+  return MatRing<H>::smem(MAT_WARPS * BT * sizeof(float));
 }
 
 // Grid (output row tiles, K ranges).  Block (x, y) owns output rows [64x,
-// 64x + 64) and K tiles [y·per, min(k_tiles, (y + 1)·per)).
+// 64x + 64) and K tiles [y·per, min(k_tiles, (y + 1)·per)), at least one.
 //   DW = false: K = W; out = dh [64·gridDim.x, H].
 //   DW = true:  K = h; out = dw_part [gridDim.y, 64·gridDim.x, H],
 //               db_part [gridDim.y, 64·gridDim.x].
@@ -134,51 +101,17 @@ ce_mat_bwd_kernel(const __grid_constant__ CUtensorMap k_map,
                   const int* __restrict__ labels, const float* __restrict__ lse,
                   const float* __restrict__ gw, float* __restrict__ out,
                   float* __restrict__ db_part, int M, int k_tiles, int per) {
-  using P = MatBwd<H>;
+  using P = MatRing<H>;
+  static_assert(mat_bwd_smem<H>() <= 232448, "one block per SM: 227 KB of shared memory");
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* ring = smem + ((1024 - (smem_addr(smem) & 1023)) & 1023);
-  float* db_s = reinterpret_cast<float*>(ring + P::STAGES * P::STAGE);
-  uint64_t* full = reinterpret_cast<uint64_t*>(db_s + MAT_WARPS * BT);
-  uint32_t* released = reinterpret_cast<uint32_t*>(full + P::STAGES);
+  float* db_s = reinterpret_cast<float*>(mat_ring_extra<H>(ring));
 
   const int tid = threadIdx.x;
-  const int wg = tid / 128;
-  const int warp = (tid % 128) / 32;
   const int lane = tid % 32;
-  const bool leader = tid % 128 == 0;
   const int x0 = blockIdx.x * BT;
   const int t0 = blockIdx.y * per;
-  const int n_tiles = max(0, min(k_tiles, t0 + per) - t0);
-
-  // tile t0 + i into stage i % STAGES: this warpgroup's half of the K boxes
-  // (at H = 64 the one box, loaded only with the lg box) and, when `lg`,
-  // the lg box: dh reads lg[x0.., k0..], dW/db lg[k0.., x0..]
-  auto load = [&](int i, bool lg) {
-    const int s = i % P::STAGES;
-    unsigned char* dst = ring + s * P::STAGE;
-    unsigned char* lg_dst = dst + P::TILE;
-    const int k0 = (t0 + i) * BT;
-    const int lx = DW ? x0 : k0, ly = DW ? k0 : x0;
-    if constexpr (!P::SPLIT) {
-      load_stage<0, 1, true>(dst, lg_dst, &k_map, &lg_map, &full[s], k0, lx, ly);
-    } else if (wg == 0) {
-      if (lg) load_stage<0, P::BOXES / 2, true>(dst, lg_dst, &k_map, &lg_map, &full[s], k0, lx, ly);
-      else load_stage<0, P::BOXES / 2, false>(dst, lg_dst, &k_map, &lg_map, &full[s], k0, lx, ly);
-    } else {
-      if (lg) load_stage<P::BOXES / 2, P::BOXES, true>(dst, lg_dst, &k_map, &lg_map, &full[s], k0, lx, ly);
-      else load_stage<P::BOXES / 2, P::BOXES, false>(dst, lg_dst, &k_map, &lg_map, &full[s], k0, lx, ly);
-    }
-  };
-  if (tid == 0) {
-    for (int s = 0; s < P::STAGES; ++s) {
-      mbar_init(&full[s], P::SPLIT ? 2 : 1);
-      released[s] = 0;
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  if (leader && (P::SPLIT || wg == 0))
-    for (int i = 0; i < min(P::STAGES, n_tiles); ++i) load(i, wg == 0);
+  const int n_tiles = min(k_tiles, t0 + per) - t0;
 
   // This thread's part of the dl step: rows er and er + 32 of the lg box,
   // columns 8·ec .. 8·ec + 7 (one 16-byte run each, at its swizzled place;
@@ -203,22 +136,11 @@ ce_mat_bwd_kernel(const __grid_constant__ CUtensorMap k_map,
     }
   };
   load_rows(DW ? t0 * BT : x0);
-
-  const uint32_t ring_addr = smem_addr(ring);
-  // this warpgroup's output columns in a K tile: their box, bytes within it
-  const uint32_t out_cols = (wg * P::HN / BOX) * BOX_BYTES + (wg * P::HN % BOX) * 2;
-
-  float acc[P::ACC];
-#pragma unroll
-  for (int e = 0; e < P::ACC; ++e) acc[e] = 0.0f;
   float db_run[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
 
-  for (int i = 0; i < n_tiles; ++i) {
-    const int s = i % P::STAGES;
+  // the dl step of tile i in its lg box
+  auto dl_step = [&](int i, unsigned char* lg_box, auto&& wait) {
     const int k0 = (t0 + i) * BT;        // the tile's first K row
-    const uint32_t stage = ring_addr + s * P::STAGE;
-    unsigned char* lg_box = ring + s * P::STAGE + P::TILE;
-
     // this tile's row operands, each row's label as an offset from this
     // thread's first column, and (dW/db) the next tile's rows requested
     float t_lse[2], t_gw[2];
@@ -232,8 +154,7 @@ ce_mat_bwd_kernel(const __grid_constant__ CUtensorMap k_map,
     if constexpr (DW) {
       if (i + 1 < n_tiles) load_rows(k0 + BT);
     }
-    mbar_wait(&full[s], (i / P::STAGES) & 1);
-
+    wait();
     // dl in f32 (db), rounded to bf16 into the lg box's own slots
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
@@ -258,53 +179,15 @@ ce_mat_bwd_kernel(const __grid_constant__ CUtensorMap k_map,
     // the dl tile is read by wgmma (the async proxy) after both halves land
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     asm volatile("bar.sync 1, %0;\n" :: "n"(MAT_THREADS) : "memory");
+  };
 
-    // out [64 x HN] += A [64 x 64] @ K_tile [64 x (this warpgroup's HN)]:
-    // dh: A = dl (rows x contraction, K-major: k16 steps 32 bytes along
-    // the row); dW/db: A = dl^T, the box read MN-major (vocab along the
-    // 128-byte row, k16 steps of 16 rows)
-    const uint32_t a_addr = stage + P::TILE;
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t b_desc = sw128_desc(stage + out_cols + kk * 16 * 128, BOX_BYTES);
-      if constexpr (DW)
-        wgmma<P::HN, 1, 1>(acc, sw128_desc(a_addr + kk * 16 * 128, BOX_BYTES), b_desc, 1);
-      else
-        wgmma<P::HN, 1, 0>(acc, sw128_desc(a_addr + kk * 32, 16), b_desc, 1);
-    }
-    wgmma_commit();
+  float acc[P::ACC];
+  mat_ring_product<H, DW>(acc, ring, &k_map, &lg_map, x0, 0, t0, n_tiles, dl_step);
 
-    // this warpgroup's product of the previous tile has retired: its
-    // leader releases that stage and refills its half of the K boxes; the
-    // later of the two leaders also refills the lg box, which both read
-    wgmma_wait<1>();
-    if (leader && i > 0 && i - 1 + P::STAGES < n_tiles) {
-      __threadfence_block();
-      const bool later = atomicAdd(&released[(i - 1) % P::STAGES], 1u) & 1u;
-      __threadfence_block();
-      if (P::SPLIT || later) load(i - 1 + P::STAGES, later);
-    }
-  }
-  wgmma_wait<0>();
-  reg_fence(acc);
-
-  // the [64, H] f32 block of dh, or of this split's dW partial.  This
-  // thread's accumulator fragment: rows r + 8ii (ii = 0, 1) of the 64,
-  // columns HN·wg + 8n + 2·(lane % 4) + j at register 4n + 2ii + j.
-  const int r = warp * 16 + lane / 4;
-  const int cq = 2 * (lane % 4);
+  // the [64, H] f32 block of dh, or of this split's dW partial
   const int Xp = gridDim.x * BT;
-  float* o = out + (DW ? static_cast<size_t>(blockIdx.y) * Xp * H : 0);
-#pragma unroll
-  for (int n = 0; n < P::HN / 8; ++n)
-#pragma unroll
-    for (int ii = 0; ii < 2; ++ii) {
-      const int row = x0 + r + 8 * ii;
-      const int col = wg * P::HN + 8 * n + cq;
-      *reinterpret_cast<float2*>(&o[static_cast<size_t>(row) * H + col]) =
-          make_float2(acc[4 * n + 2 * ii], acc[4 * n + 2 * ii + 1]);
-    }
+  mat_ring_store<H>(acc, out + (DW ? static_cast<size_t>(blockIdx.y) * Xp * H : 0), H,
+                    x0, 0);
   if constexpr (DW) {
     // db: the 4 lanes of a warp that share columns (lane % 8), then the
     // 8 warps in order
@@ -340,7 +223,7 @@ int launch_mat_bwd(const bf16* k, int k_rows, const bf16* lg, const int* labels,
   // lg is a [M, Vp] bf16 matrix: the same 64 x 64 boxes and swizzle
   err = row_tile_map(&lg_map, lg, M, logits_pitch(V));
   if (err) return err;
-  constexpr size_t smem = MatBwd<H>::SMEM;
+  constexpr size_t smem = mat_bwd_smem<H>();
   err = allow_smem(ce_mat_bwd_kernel<H, DW>, smem);
   if (err) return err;
   ce_mat_bwd_kernel<H, DW><<<dim3(out_tiles, splits), MAT_THREADS, smem, st>>>(
@@ -428,7 +311,9 @@ extern "C" int vct_fused_ce_mat_dwdb(const void* h, const void* lg,
                                      void* db_part, void* dw, void* db, int M,
                                      int H, int V, int splits, int per,
                                      void* stream) {
-  if (bad_shape(M, H, V) || splits <= 0 || per <= 0)
+  // every split takes at least one row tile (mat_ring_product)
+  if (bad_shape(M, H, V) || splits <= 0 || per <= 0 ||
+      static_cast<long>(splits - 1) * per >= (M + BT - 1) / BT)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define CALL(HH)                                                              \
@@ -447,9 +332,9 @@ extern "C" int vct_fused_ce_mat_dwdb(const void* h, const void* lg,
 // H (bytes)
 extern "C" int vct_fused_ce_mat_bwd_smem(int H) {
   switch (H) {
-    case 64: return static_cast<int>(MatBwd<64>::SMEM);
-    case 128: return static_cast<int>(MatBwd<128>::SMEM);
-    case 256: return static_cast<int>(MatBwd<256>::SMEM);
-    default: return static_cast<int>(MatBwd<512>::SMEM);
+    case 64: return static_cast<int>(mat_bwd_smem<64>());
+    case 128: return static_cast<int>(mat_bwd_smem<128>());
+    case 256: return static_cast<int>(mat_bwd_smem<256>());
+    default: return static_cast<int>(mat_bwd_smem<512>());
   }
 }

@@ -2,7 +2,8 @@
 // with TMA into shared memory and multiply them with wgmma: the CE forward
 // of both CE schedules (fused_ce.cuh), the flash CE backward (fused_ce.cu),
 // the written-logits CE backward (fused_ce_mat.cu) and the AG-heads forward
-// (fused_ag_heads.cu).  mbarriers, TMA loads (and stores) of bf16 boxes of
+// and backward (fused_ag_heads.cu) and the decode LSTM step
+// (fused_lstm_step.cu).  mbarriers, TMA loads (and stores) of bf16 boxes of
 // up to 256 rows x 64 columns with the 128-byte swizzle, shared-memory
 // matrix descriptors
 // for that swizzle, the m64nNk16 bf16 wgmma wrappers, and the host-side
@@ -319,14 +320,15 @@ PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   return fn;
 }
 
-// a [rows, H] bf16 row-major matrix in boxes of box_rows (at most 256) rows
-// x 64 columns, with the 128-byte swizzle; rows past the end read zeros
+// a [rows, H] bf16 row-major matrix (row pitch `pitch` elements, H when 0;
+// a multiple of 8) in boxes of box_rows (at most 256) rows x 64 columns,
+// with the 128-byte swizzle; rows and columns past the end read zeros
 int row_tile_map(CUtensorMap* map, const bf16* ptr, int rows, int H,
-                 int box_rows = BT) {
+                 int box_rows = BT, int pitch = 0) {
   const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(H) * sizeof(bf16)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(pitch > 0 ? pitch : H) * sizeof(bf16)};
   const cuuint32_t box[2] = {BOX, static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem_strides[2] = {1, 1};
   const CUresult res = encode(

@@ -16,7 +16,8 @@ bf16, the combine in f32.
 
 On CUDA tensors :func:`fused_ag_heads` launches ``csrc/fused_ag_heads.cu``
 (forward and backward); the [N, 2·K·L] q never reaches memory in the
-forward, and the backward writes dq once in bf16.  On CPU tensors it
+forward, and the backward writes dq once in bf16 for its dW and dh
+products.  On CPU tensors it
 takes :func:`ag_heads_plain`.
 """
 
@@ -32,9 +33,6 @@ from vae_captioning_torch import _ext
 FWD = "fused_ag_heads_fwd"
 BWD = "fused_ag_heads_bwd"
 K_STEP = 64              # H must be a multiple of the kernels' H stage
-_TARGET_LANES = 1280     # a group of clusters spans about this many q columns
-_DH_SPLITS = 8           # column splits of the dh product
-_ROWS, _LATENT = 64, 32  # the backward's dq block tile (rows x latent columns)
 # the forward kernel (csrc/fused_ag_heads.cu, ag_fwd_kernel<NC, RES>): 128
 # h rows a block, the latent columns a block may take (the wgmma widths it
 # is built for), one block per SM (H100 SXM: 132), and the bytes the
@@ -43,15 +41,17 @@ _FWD_ROWS = 128
 _FWD_COLS = (80, 40)
 _FWD_SMS = 132
 _FWD_WORKSPACE = 64 << 20
+# the backward (ag_fwd_kernel<40, RES, true>, then ag_mat_kernel<CT, DW>):
+# the dq pass's latent columns a block, its per-warp db partials (one per 16
+# rows), the products' 64-row tiles and output-column tiles, and the bytes
+# the dh split's [S, Np, H] f32 partials may take
+_BWD_COLS = 40
+_WARP_ROWS = 16
+_TILE = 64
+_BWD_CT = (512, 256, 128, 64)
+_DH_WORKSPACE = 64 << 20
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
-
-
-def group_geometry(K: int, L: int) -> Tuple[int, int]:
-    """(clusters per group, groups): groups of about ``_TARGET_LANES``
-    q columns, as the TPU kernel's ``_group_geometry`` picks them."""
-    kb = max(1, min(K, _TARGET_LANES // L))
-    return kb, -(-K // kb)
 
 
 class FwdPlan(NamedTuple):
@@ -83,19 +83,81 @@ def ag_fwd_plan(N: int, K: int, L: int, sms: int = _FWD_SMS) -> FwdPlan:
     cols = min(_FWD_COLS, key=lambda c: (-(-L // c) * c, -c))
     m_tiles, l_tiles = -(-N // _FWD_ROWS), -(-L // cols)
     most = max(1, _FWD_WORKSPACE // (2 * N * L * 4))
+    kb = _cluster_blocks(m_tiles, l_tiles, K, sms, most)
+    groups = -(-K // kb)
+    return FwdPlan(cols=cols, kb=kb, grid=(m_tiles, l_tiles, groups),
+                   part=(groups, 2, N, L))
+
+
+class BwdPlan(NamedTuple):
+    """The backward's launches for (N, H, K, L).  The dq pass: block (x, y,
+    z) of ``dq_grid`` keeps h rows [128x, 128x + 128), takes latent
+    columns [cols·y, cols·y + cols) of clusters [kb·z, min(K, kb·z + kb))
+    and writes dq, the db partial of each of its warps (rows [16p, 16p +
+    16)) and the dc_v partial of its latent tile.  dW: block (x, y) of
+    ``dw_grid`` writes dW rows [64x, 64x + 64), columns [ct·y, ct·y + ct),
+    over every row of h.  dh: block (x, y, s) of ``dh_grid`` writes rows
+    [64x, 64x + 64), columns [ct·y, ct·y + ct) of split s's partial, over
+    dq's 64-column tiles [per·s, per·s + per)."""
+
+    cols: int                           # dq pass: latent columns a block
+    kb: int                             # dq pass: clusters a block
+    dq_grid: Tuple[int, int, int]
+    ct: int                             # the products' output columns a block
+    per: int                            # dh: contraction tiles a split
+    dw_grid: Tuple[int, int, int]
+    dh_grid: Tuple[int, int, int]
+    db_part: Tuple[int, int]            # [8·ceil(N / 128), 2KL] f32
+    dcv_part: Tuple[int, int, int]      # [ceil(L / cols), N, K] f32
+    dh_part: Tuple[int, int, int]       # [S, Np, H] f32, Np = 64·ceil(N / 64)
+
+    @property
+    def splits(self) -> int:
+        return self.dh_grid[2]
+
+
+def _cluster_blocks(m_tiles: int, l_tiles: int, K: int, sms: int,
+                    most_groups: int) -> int:
+    """Clusters a block: the fewest cluster slots per SM, waves x
+    (clusters a block + half a cluster for its h load and epilogue), among
+    the groupings of at most ``most_groups`` groups (the fewest groups on
+    a tie); K when none fits."""
     best = None
     for kb in range(K, 0, -1):
         groups = -(-K // kb)
-        if groups > most or -(-K // groups) != kb:
-            continue                    # too many partials, or another kb's split
+        if groups > most_groups or -(-K // groups) != kb:
+            continue                    # too many groups, or another kb's split
         cost = -(-(m_tiles * l_tiles * groups) // sms) * (2 * kb + 1)
         if best is None or cost < best[0]:
-            best = (cost, kb, groups)
-    if best is None:                    # one group even past the bound
-        best = (0, K, 1)
-    _, kb, groups = best
-    return FwdPlan(cols=cols, kb=kb, grid=(m_tiles, l_tiles, groups),
-                   part=(groups, 2, N, L))
+            best = (cost, kb)
+    return K if best is None else best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def ag_bwd_plan(N: int, H: int, K: int, L: int, sms: int = _FWD_SMS) -> BwdPlan:
+    """The dq pass at 40 latent columns with the clusters a block that
+    fill the SMs best (as :func:`ag_fwd_plan` weighs them); the products'
+    column tile, the widest of ``_BWD_CT`` that divides H; dh's split of
+    the contraction into the most ranges that keep one wave of blocks (at
+    least one range) and its partials within ``_DH_WORKSPACE`` bytes.  At
+    the train shapes (N = 1280, H = 512, K = 90, L = 150): 4 latent tiles,
+    7 clusters a block (13 groups, 520 blocks); dW 422 blocks; dh 6
+    splits of 71 tiles, 120 blocks."""
+    m_tiles, l_tiles = -(-N // _FWD_ROWS), -(-L // _BWD_COLS)
+    kb = _cluster_blocks(m_tiles, l_tiles, K, sms, K)
+    ct = next(c for c in _BWD_CT if H % c == 0)
+    C2 = 2 * K * L
+    c_tiles, n_tiles = -(-C2 // _TILE), -(-N // _TILE)
+    base = n_tiles * (H // ct)
+    splits = max(1, min(c_tiles, sms // base,
+                        _DH_WORKSPACE // (n_tiles * _TILE * H * 4)))
+    per = -(-c_tiles // splits)
+    splits = -(-c_tiles // per)
+    return BwdPlan(cols=_BWD_COLS, kb=kb, dq_grid=(m_tiles, l_tiles, -(-K // kb)),
+                   ct=ct, per=per, dw_grid=(c_tiles, H // ct, 1),
+                   dh_grid=(n_tiles, H // ct, splits),
+                   db_part=(m_tiles * _FWD_ROWS // _WARP_ROWS, C2),
+                   dcv_part=(l_tiles, N, K), dh_part=(splits, n_tiles * _TILE, H))
 
 
 # ----------------------------------------------------------------------
@@ -162,8 +224,7 @@ def ag_heads_fwd_kernel(h16, w16, b, cv) -> Pair:
     """The forward kernel on prepared operands → (q_mean, q_std) f32."""
     N, H, K, L = _check(h16, w16, b, cv)
     dev = h16.device
-    plan = ag_fwd_plan(N, K, L, torch.cuda.get_device_properties(dev)
-                       .multi_processor_count)
+    plan = ag_fwd_plan(N, K, L, _ext.sm_count(dev.index))
     part = torch.empty(plan.part, dtype=torch.float32, device=dev)
     out = torch.empty((2, N, L), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -180,7 +241,7 @@ def ag_heads_bwd_kernel(h16, w16, b, cv, g_mean, g_std):
     """The backward kernels on prepared operands → (dh, dW, db, dc_v)
     f32.  dq is a bf16 workspace [N, 2·K·L] (69 MB at the train shapes)."""
     N, H, K, L = _check(h16, w16, b, cv)
-    kb, _ = group_geometry(K, L)
+    plan = ag_bwd_plan(N, H, K, L, _ext.sm_count(h16.device.index))
     gm = g_mean.float().contiguous()
     gs = g_std.float().contiguous()
     _ext.require(gm.shape == gs.shape == (N, L) and gm.device == h16.device,
@@ -191,23 +252,25 @@ def ag_heads_bwd_kernel(h16, w16, b, cv, g_mean, g_std):
     ldq = -(-C2 // 8) * 8
     f32 = dict(dtype=torch.float32, device=dev)
     dq = torch.empty((N, ldq), dtype=torch.bfloat16, device=dev)
-    db_part = torch.empty((-(-N // _ROWS), C2), **f32)
-    dcv_part = torch.empty((-(-L // _LATENT), N, K), **f32)
-    dh_part = torch.empty((_DH_SPLITS, N, H), **f32)
-    dw = torch.empty((C2, H), **f32)
+    db_part = torch.empty(plan.db_part, **f32)
+    dcv_part = torch.empty(plan.dcv_part, **f32)
+    dh_part = torch.empty(plan.dh_part, **f32)
+    # dW and dh in whole 64-row tiles (the kernels store every row)
+    dw = torch.empty((plan.dw_grid[0] * _TILE, H), **f32)
     db = torch.empty((C2,), **f32)
     dcv = torch.empty((N, K), **f32)
-    dh = torch.empty((N, H), **f32)
+    dh = torch.empty((plan.dh_grid[0] * _TILE, H), **f32)
     with torch.cuda.device(dev):
         err = _ext.library().vct_fused_ag_heads_bwd(
             h16.data_ptr(), w16.data_ptr(), b.data_ptr(), cv.data_ptr(),
             gm.data_ptr(), gs.data_ptr(), dq.data_ptr(), ldq,
             db_part.data_ptr(), dcv_part.data_ptr(), dh_part.data_ptr(),
             dw.data_ptr(), db.data_ptr(), dcv.data_ptr(), dh.data_ptr(),
-            N, H, K, L, kb, _DH_SPLITS, _ext.stream_ptr(dev))
+            N, H, K, L, plan.kb, plan.cols, plan.ct, plan.per,
+            _ext.stream_ptr(dev))
     _ext.check_launch(err, BWD)
     _ext.LAUNCHES[BWD] += 1
-    return dh, dw, db, dcv
+    return dh[:N], dw[:C2], db, dcv
 
 
 # ----------------------------------------------------------------------

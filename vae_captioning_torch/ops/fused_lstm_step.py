@@ -18,13 +18,58 @@ On CUDA tensors the wrapper launches ``csrc/fused_lstm_step.cu``, whose
 
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
 from vae_captioning_torch import _ext
 
 NAME = "fused_lstm_step"
+# the kernel (csrc/fused_lstm_step.cu, lstm_step_kernel<U>): 64 rows a
+# block, U units a warpgroup (2U a block), one block per SM (H100 SXM: 132)
+_ROWS = 64
+_UNITS = (64, 32)
+_SMS = 132
+
+
+class StepPlan(NamedTuple):
+    """The kernel's launch for (N, E, H).  Block (x, y) of the grid
+    computes rows [64x, 64x + 64) and hidden units [2U·y, 2U·y + 2U),
+    its warpgroup w the U units from 2U·y + U·w.  The kernel's source
+    lays out its shared memory (:func:`lstm_step_layout`)."""
+
+    units: int                  # U: hidden units a warpgroup
+    grid: Tuple[int, int]       # (row tiles, unit tiles)
+
+
+def lstm_step_geometry(N: int, E: int, H: int, units: int) -> StepPlan:
+    """The launch at ``units`` per warpgroup."""
+    return StepPlan(units, (-(-N // _ROWS), -(-H // (2 * units))))
+
+
+@functools.lru_cache(maxsize=None)
+def lstm_step_plan(N: int, E: int, H: int, sms: int = _SMS) -> StepPlan:
+    """U = 32 where the grid at U = 64 would fill under half the SMs
+    (fewer blocks re-read more of h, but a half-empty card waits on each
+    block's whole stream of W), else U = 64.  At E = 256, H = 512: U = 32
+    at N = 512 (32 blocks at U = 64), U = 64 at N = 1536 (96) and 5120
+    (320)."""
+    wide = lstm_step_geometry(N, E, H, 64)
+    if 2 * wide.grid[0] * wide.grid[1] < sms:
+        return lstm_step_geometry(N, E, H, 32)
+    return wide
+
+
+def lstm_step_layout(E: int, H: int, units: int) -> Tuple[int, int, int]:
+    """(K boxes of A resident at once, ring stages, dynamic shared memory
+    in bytes) of the kernel at (E, H, units), from its source (CUDA
+    machines only: builds the library)."""
+    chunk, stages = ctypes.c_int(0), ctypes.c_int(0)
+    smem = _ext.library().vct_fused_lstm_step_layout(
+        E, H, units, ctypes.byref(chunk), ctypes.byref(stages))
+    return chunk.value, stages.value, smem
 
 
 def fused_lstm_step_plain(x: torch.Tensor, c: torch.Tensor, h: torch.Tensor,
@@ -75,13 +120,27 @@ def fused_lstm_step(x: torch.Tensor, c: torch.Tensor, h: torch.Tensor,
     req(all(t.is_contiguous() and t.data_ptr() % 16 == 0
             for t in (x, c, h, w, b)),
         f"{NAME}: inputs must be contiguous and 16-byte aligned")
-    new_c = torch.empty_like(c)
-    new_h = torch.empty_like(h)
-    with torch.cuda.device(x.device):
+    return lstm_step_kernel(x, c, h, w, b, forget_bias,
+                            lstm_step_plan(N, E, H, _ext.sm_count(x.device.index)))
+
+
+def lstm_step_kernel(x, c, h, w, b, forget_bias: float, plan: StepPlan
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel on checked CUDA operands under ``plan`` (the wrapper's
+    :func:`lstm_step_plan`, or another :func:`lstm_step_geometry` to time
+    against it)."""
+    N, E = x.shape
+    H = c.shape[1]
+    # c' and h' in one allocation (the step's host time counts: one
+    # allocation instead of two)
+    out = torch.empty((2, N, H), dtype=torch.float32, device=x.device)
+    ptr = out.data_ptr()
+    with _ext.device_scope(x.device):
         err = _ext.library().vct_fused_lstm_step(
             x.data_ptr(), c.data_ptr(), h.data_ptr(), w.data_ptr(),
-            b.data_ptr(), new_c.data_ptr(), new_h.data_ptr(), N, E, H,
-            float(forget_bias), _ext.stream_ptr(x.device))
+            b.data_ptr(), ptr, ptr + N * H * 4, N, E, H,
+            float(forget_bias), plan.units, _ext.stream_ptr(x.device))
     _ext.check_launch(err, NAME)
     _ext.LAUNCHES[NAME] += 1
+    new_c, new_h = out.unbind(0)
     return new_c, new_h
