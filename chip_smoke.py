@@ -7,14 +7,18 @@ Phases, in order; any failure raises and the script exits nonzero:
    (one nvcc per source, all started together) and print the wgmma +
    TMA templates' registers, spills and shared memory per instance (the
    CE forward of both schedules, the flash CE's and the written logits'
-   backward, the AG-heads forward and backward, the decode LSTM step),
-   and any ptxas warning that one serialises its wgmmas;
+   backward, the AG-heads forward and backward, the LSTM cell of the
+   decode step and of the sequence forward, the sequence backward's
+   steps, dx and dW), and any ptxas warning that one serialises its
+   wgmmas;
 3. kernels: each kernel against its plain PyTorch version on the card,
    at the main paths' shapes and ragged ones: the decode kernels (plus a
    deliberate tie; the LSTM step also at one row, one row past a tile,
    narrow widths and a width whose A is taken in chunks), the int8 top-k and the top-k + lse over written
    logits (values and indices bit for bit), the sampler (token for token
-   outside near-ties, and its law over 200,000 draws), the train path's ``fused_lstm_seq`` and ``fused_z``
+   outside near-ties, and its law over 200,000 draws), the train path's ``fused_lstm_seq`` (also at one
+   row, one row past a tile, one step and the narrowest and a wider
+   width; forward and backward twice, bit for bit) and ``fused_z``
    forward and backward, the fused z generator's bits, normals and
    moments against the plain generator, and the AG train path's
    ``fused_ag_heads`` forward and backward with COCO-like cluster vectors
@@ -96,6 +100,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -274,6 +279,43 @@ def device_ms(fn, reps: int = 10) -> dict:
         if e.device_type.name == "CUDA":
             times[e.name] = times.get(e.name, 0.0) + e.device_time_total / reps / 1e3
     return times
+
+
+def union_ms(spans) -> float:
+    """The time (ms) that a set of (start, end) intervals in microseconds
+    covers."""
+    busy, end = 0.0, float("-inf")
+    for start, stop in sorted(spans):
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    return busy / 1e3
+
+
+def device_spans(fn, group, reps: int = 5) -> dict:
+    """Device time per call of fn(), from a torch.profiler trace of
+    ``reps`` calls after one warm-up call, as the union of the kernels'
+    intervals (kernels launched with programmatic dependent launch
+    overlap, so their durations do not add up): {"total": the calls'
+    union, part: the union of the intervals of the kernels that
+    ``group(name)`` puts in that part}."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    spans = {"total": []}
+    for e in events:
+        span = (e["ts"], e["ts"] + e["dur"])
+        spans["total"].append(span)
+        spans.setdefault(group(kernel_name(e["name"])), []).append(span)
+    return {k: union_ms(v) / reps for k, v in spans.items()}
 
 
 def kernel_name(name: str) -> str:
@@ -1188,11 +1230,16 @@ def seq_inputs(T: int, N: int, seed: int, E: int = EMBED, H: int = HIDDEN):
             torch.tanh(torch.randn((N, H), generator=g, device=DEV)), lengths)
 
 
-def check_lstm_seq(T: int, N: int) -> tuple:
-    """Returns (forward, backward) max |kernel - plain|."""
-    args = seq_inputs(T, N, seed=T + N)
-    tag = f"fused_lstm_seq T={T} N={N} E={EMBED} H={HIDDEN}"
+def check_lstm_seq(T: int, N: int, E: int = EMBED, H: int = HIDDEN) -> tuple:
+    """Returns (forward, backward) max |kernel - plain|; each runs twice
+    and must repeat bit for bit."""
+    args = seq_inputs(T, N, seed=T + N + H, E=E, H=H)
+    tag = f"fused_lstm_seq T={T} N={N} E={E} H={H}"
     got = lstm_seq_fwd_kernel(*args)
+    for name, a, r in zip(("hs", "cs", "gates", "h_T"), got,
+                          lstm_seq_fwd_kernel(*args)):
+        if not torch.equal(a, r):
+            raise AssertionError(f"{tag} forward: two calls gave another {name}")
     want = lstm_seq_fwd_plain(*args)
     lengths = args[6]
     if not bool((got[0][:, lengths == 1][1:].float() == 0).all()):
@@ -1208,13 +1255,18 @@ def check_lstm_seq(T: int, N: int) -> tuple:
         fwd = max(fwd, err)
         print(f"{tag} forward {name}: max |kernel - plain| {err:.3e} "
               f"({rel:.2e} of max, tolerance {SEQ_RTOL}); {share:.5f} of "
-              f"elements within {SEQ_ATOL} (tolerance {SEQ_SHARE})")
+              f"elements within {SEQ_ATOL} (tolerance {SEQ_SHARE}); bit for "
+              "bit across two calls")
     g = torch.Generator(device=DEV).manual_seed(1)
-    dhs = torch.randn((T, N, HIDDEN), generator=g, device=DEV).to(torch.bfloat16)
-    dct = torch.randn((N, HIDDEN), generator=g, device=DEV)
-    dht = torch.randn((N, HIDDEN), generator=g, device=DEV)
+    dhs = torch.randn((T, N, H), generator=g, device=DEV).to(torch.bfloat16)
+    dct = torch.randn((N, H), generator=g, device=DEV)
+    dht = torch.randn((N, H), generator=g, device=DEV)
     saved = (*args, *want[:3])          # both backwards from one forward
     got = lstm_seq_bwd_kernel(saved, dhs, dct, dht)
+    for name, a, r in zip(("dx", "dWx", "dWh", "db", "dc0", "dh0"), got,
+                          lstm_seq_bwd_kernel(saved, dhs, dct, dht)):
+        if not torch.equal(a, r):
+            raise AssertionError(f"{tag} backward: two calls gave another {name}")
     want = lstm_seq_bwd_plain(saved, dhs, dct, dht)
     bwd = 0.0
     for name, a, b in zip(("dx", "dWx", "dWh", "db", "dc0", "dh0"), got, want):
@@ -1224,7 +1276,8 @@ def check_lstm_seq(T: int, N: int) -> tuple:
                                  f"{err:.3e} ({rel:.2e} of max)")
         bwd = max(bwd, err)
         print(f"{tag} backward {name}: max |kernel - plain| {err:.3e} "
-              f"({rel:.2e} of max, tolerance {SEQ_RTOL})")
+              f"({rel:.2e} of max, tolerance {SEQ_RTOL}); bit for bit across "
+              "two calls")
     return fwd, bwd
 
 
@@ -1298,10 +1351,21 @@ def check_eps() -> float:
     return err
 
 
+# fused_lstm_seq's checked shapes (T, N, E, H): the train shapes, ragged
+# rows, one row, one row past a 64-row tile, one step, a width past a
+# resident A (E + H = 1280, where the decode step's layout takes A in
+# chunks; the sequence streams it) and the narrowest widths (dx at one
+# warpgroup a block, the dW products' 256-column tile)
+SEQ_SHAPES = ((TRAIN_T, TRAIN_ROWS, EMBED, HIDDEN), (7, RAGGED_ROWS, EMBED, HIDDEN),
+              (TRAIN_T, 1, EMBED, HIDDEN), (TRAIN_T, 65, EMBED, HIDDEN),
+              (1, TRAIN_ROWS, EMBED, HIDDEN), (5, 600, 256, 1024),
+              (3, 70, 64, 64))
+
+
 def phase_train_kernels() -> dict:
     errors = {k: 0.0 for k in TRAIN_KERNELS}
-    for T, N in ((TRAIN_T, TRAIN_ROWS), (7, RAGGED_ROWS)):
-        fwd, bwd = check_lstm_seq(T, N)
+    for T, N, E, H in SEQ_SHAPES:
+        fwd, bwd = check_lstm_seq(T, N, E, H)
         errors["fused_lstm_seq_fwd"] = max(errors["fused_lstm_seq_fwd"], fwd)
         errors["fused_lstm_seq_bwd"] = max(errors["fused_lstm_seq_bwd"], bwd)
     for N in (TRAIN_ROWS, RAGGED_ROWS):
@@ -1342,26 +1406,66 @@ def cudnn_lstm_calls(args):
             lambda: torch.autograd.grad(outs, leaves, cots, retain_graph=True))
 
 
+def z_library_calls(mean, std, w, b, dz):
+    """The library chain of the fused z sampling + projection on the same
+    operands, with ``torch.randn``'s draws in place of the kernels' Philox
+    stream: eps, ``mean + std·eps`` rounded to bf16, ``F.linear`` in bf16
+    (forward), and its ``torch.autograd.grad`` for mean, std and W over a
+    retained graph (backward)."""
+    N, L = mean.shape
+    leaves = [mean.detach().clone().requires_grad_(),
+              std.detach().clone().requires_grad_(),
+              w.detach().clone().requires_grad_()]
+    b16 = b.to(torch.bfloat16)
+
+    def forward():
+        m, sd, w16 = leaves
+        eps = torch.randn((N, KZ, L), device=DEV)
+        z = (m[:, None] + sd[:, None] * eps).to(torch.bfloat16).reshape(N, KZ * L)
+        return F.linear(z, w16, b16)
+
+    out = forward()
+    cot = dz.to(torch.bfloat16)
+    return forward, lambda: torch.autograd.grad(out, leaves, cot, retain_graph=True)
+
+
+# the sequence kernels' parts, by kernel name (seq_bwd_kernel<WG, MODE>)
+SEQ_PARTS = {"lstm_cell_kernel": "forward steps", "seq_bwd_kernel<1, 0>": "gates of step T-1",
+             "seq_bwd_kernel<1, 1>": "per-step dh (+ gates)",
+             "seq_bwd_kernel<1, 2>": "step 0 dh0", "seq_bwd_kernel<1, 3>": "dx",
+             "seq_bwd_kernel<2, 3>": "dx", "seq_dw_kernel": "dW", "sum_parts_kernel": "sums"}
+
+
+def seq_part(name: str) -> str:
+    """The part of the sequence kernels that a kernel belongs to
+    (``SEQ_PARTS``; anything else, such as bf16(h0)'s copy, is "other")."""
+    return next((v for k, v in SEQ_PARTS.items() if name.startswith(k)), "other")
+
+
 def phase_train_kernel_times(label: str) -> dict:
     """Each train kernel against its plain version at the train path's
     shapes (T = 24, N = 1280; N = 1280, K_z = 100, L = 150), with its
-    bound and, for the LSTM sequence, cuDNN's LSTM on the same inputs.
-    No one PyTorch call computes the fused z sampling + projection or
-    its backward, or the kernels' Philox stream (``torch.randn`` draws
-    another)."""
+    bound and its library call: for the LSTM sequence cuDNN's LSTM on the
+    same inputs, for the fused z the chain of :func:`z_library_calls`
+    (another generator's draws; no one PyTorch call gives the kernels'
+    Philox stream, so the eps kernel has none).  The sequence kernels also
+    by part (device time, ``torch.profiler``)."""
     args = seq_inputs(TRAIN_T, TRAIN_ROWS, seed=3)
     fwd_out = lstm_seq_fwd_plain(*args)
     saved = (*args, *fwd_out[:3])
+    # the backward's h_prev stack, as the autograd path passes it
+    h_prev = torch.cat([args[5].to(torch.bfloat16)[None], fwd_out[0][:-1]])
     g = torch.Generator(device=DEV).manual_seed(2)
     dhs = torch.randn((TRAIN_T, TRAIN_ROWS, HIDDEN), generator=g,
                       device=DEV).to(torch.bfloat16)
     dc = torch.randn((TRAIN_ROWS, HIDDEN), generator=g, device=DEV)
     mean, std, w, b, dz = z_inputs(TRAIN_ROWS, seed=4)
     eps = lambda: philox_normals(5, 6, TRAIN_ROWS, KZ, LATENT, device=DEV)  # noqa: E731
+    seq_bwd = lambda: lstm_seq_bwd_kernel(saved, dhs, dc, dc, h_prev=h_prev)  # noqa: E731
     pairs = {
         "fused_lstm_seq_fwd": (lambda: lstm_seq_fwd_kernel(*args),
                                lambda: lstm_seq_fwd_plain(*args)),
-        "fused_lstm_seq_bwd": (lambda: lstm_seq_bwd_kernel(saved, dhs, dc, dc),
+        "fused_lstm_seq_bwd": (seq_bwd,
                                lambda: lstm_seq_bwd_plain(saved, dhs, dc, dc)),
         "fused_z_fwd": (lambda: z_fwd_kernel(mean, std, w, b, KZ, 5, 6),
                         lambda: z_fwd_plain(mean, std, w, b, KZ, eps())),
@@ -1383,19 +1487,42 @@ def phase_train_kernel_times(label: str) -> dict:
         # Philox and erfinv run outside the tensor cores: bytes only
         "fused_z_eps": bound(0.0, TRAIN_ROWS * KZ * LATENT * 4),
     }
-    library = dict(zip(("fused_lstm_seq_fwd", "fused_lstm_seq_bwd"),
-                       (cuda_ms(fn, iters=5, warmup=1)
-                        for fn in cudnn_lstm_calls(args))))
+    timer = lambda fn: cuda_ms(fn, iters=5, warmup=1)  # noqa: E731
+    # the library calls in turns with the kernels (kernel, library,
+    # library, kernel): cuDNN's times move by up to 2x between calls
+    lib_fns = dict(zip(("fused_lstm_seq_fwd", "fused_lstm_seq_bwd"), cudnn_lstm_calls(args)))
+    lib_fns.update(zip(("fused_z_fwd", "fused_z_bwd"),
+                       z_library_calls(mean, std, w, b, dz)))
+    library = {name: turns(pairs[name][0], fn, timer) for name, fn in lib_fns.items()}
+    names = {"fused_lstm_seq_fwd": "cuDNN LSTM (bf16, packed)",
+             "fused_lstm_seq_bwd": "cuDNN LSTM backward (bf16, packed)",
+             "fused_z_fwd": "torch.randn + mean + std·eps + F.linear (bf16)",
+             "fused_z_bwd": "that chain's autograd.grad"}
     times = {}
     for name, (fk, fp) in pairs.items():
-        t = turns(fk, fp, lambda fn: cuda_ms(fn, iters=5, warmup=1))
-        times[name] = timing(t, bounds[name], library.get(name))
-        lib = library.get(name)
+        t = turns(fk, fp, timer)
+        lib = library[name][1] if name in library else None
+        times[name] = timing(t, bounds[name], lib)
         print(f"time {name} (train shapes): kernel {t[0]:.4f} ms, plain "
               f"{t[1]:.4f} ms, bound {bounds[name][0]:.4f} ms "
               f"({bounds[name][1]})"
-              + (f", cuDNN LSTM (bf16, packed) {lib:.4f} ms" if lib else "")
+              + (f", {names[name]} {lib:.4f} ms (in turns with the kernel at "
+                 f"{library[name][0]:.4f} ms)" if lib else "")
               + f" [{label}]")
+    # the sequence kernels' device time by part and cuDNN's (unions of the
+    # kernels' intervals: a step's kernel, launched with programmatic
+    # dependent launch, starts while the one before finishes, so parts may
+    # overlap and sum past the total)
+    cudnn_fwd, cudnn_bwd = cudnn_lstm_calls(args)
+    for tag, fn, lib in (("fused_lstm_seq_fwd", pairs["fused_lstm_seq_fwd"][0], cudnn_fwd),
+                         ("fused_lstm_seq_bwd", seq_bwd, cudnn_bwd)):
+        dev, dev_lib = device_spans(fn, seq_part), device_spans(lib, lambda n: n[:40])
+        total = dev.pop("total")
+        top = sorted(((v, k) for k, v in dev_lib.items() if k != "total"), reverse=True)[:4]
+        print(f"time {tag} device {total:.4f} ms by part: "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in dev.items())
+              + f"; cuDNN device {dev_lib['total']:.4f} ms (largest: "
+              + ", ".join(f"{k} {v:.4f}" for v, k in top) + f") [{label}]")
     return times
 
 
@@ -2166,11 +2293,11 @@ def port_kernel_names() -> dict:
 def phase_train_profile(out_dir: str, label: str, prior: str, ce=None) -> None:
     """The kernel path's full-width train step of the ``prior`` model
     under torch.profiler: PROFILE_STEPS steps after 3 warm-up steps.  The
-    trace's kernel, memcpy and memset events are summed per step by name
-    and grouped (the port's kernels one by one, cuBLAS GEMMs, copies,
-    other PyTorch kernels); the device's busy time is the union of their
-    intervals, and the idle share is 1 - busy / the step's host-clock
-    time under the profiler.  Writes the trace and a summary to
+    trace's kernel, memcpy and memset events are timed per step by name
+    and by group (the port's kernels one by one, cuBLAS GEMMs, copies,
+    other PyTorch kernels) as the union of their intervals, and so is the
+    device's busy time; the idle share is 1 - busy / the step's
+    host-clock time under the profiler.  Writes the trace and a summary to
     ``out_dir`` (``train_*`` for the Normal prior, ``ag_train_*`` for
     AG, ``gmm_train_*`` for GMM with the flash CE, ``gmm_hybrid_train_*``
     with the hybrid CE, ``ce="ce_hybrid"``)."""
@@ -2197,7 +2324,10 @@ def phase_train_profile(out_dir: str, label: str, prior: str, ce=None) -> None:
     if not events:
         raise AssertionError("profile: the trace holds no device events")
     ours = port_kernel_names()
-    groups, by_name = {}, {}
+    # each group's and kernel's time is the union of its events' intervals:
+    # a kernel launched with programmatic dependent launch starts while the
+    # one before it finishes, and its duration counts that wait
+    spans, counts = ({}, {}), ({}, {})
     for e in events:
         # "void (anonymous namespace)::name<512, false>(args)" -> "name" and
         # its template arguments "<512, false>"
@@ -2212,15 +2342,12 @@ def phase_train_profile(out_dir: str, label: str, prior: str, ce=None) -> None:
             group = "cuBLAS GEMM"
         else:
             group = "other PyTorch kernels"
-        for table, key in ((groups, group), (by_name, e["name"][:120])):
-            ms, n = table.get(key, (0.0, 0))
-            table[key] = (ms + e["dur"] / 1e3 / PROFILE_STEPS, n + 1)
-    busy, end = 0.0, float("-inf")
-    for e in sorted(events, key=lambda e: e["ts"]):   # union of intervals, us
-        start, stop = e["ts"], e["ts"] + e["dur"]
-        busy += max(0.0, stop - max(start, end))
-        end = max(end, stop)
-    busy_ms = busy / 1e3 / PROFILE_STEPS
+        for k, key in enumerate((group, e["name"][:120])):
+            spans[k].setdefault(key, []).append((e["ts"], e["ts"] + e["dur"]))
+            counts[k][key] = counts[k].get(key, 0) + 1
+    groups, by_name = ({key: (union_ms(v) / PROFILE_STEPS, counts[k][key])
+                        for key, v in spans[k].items()} for k in range(2))
+    busy_ms = union_ms((e["ts"], e["ts"] + e["dur"]) for e in events) / PROFILE_STEPS
     print(f"profile: {prior} ({CE_NAMES[ce_flag(trainer.cfg)]}) train step "
           f"{TRAIN_IMAGES} images x {TRAIN_CAPTIONS} "
           f"captions x {TRAIN_T} tokens, {PROFILE_STEPS} steps after 3 warm-up "
@@ -2245,28 +2372,49 @@ def phase_train_profile(out_dir: str, label: str, prior: str, ce=None) -> None:
 # (csrc/fused_ce.cu, <H, DW>), the written logits' backward
 # (csrc/fused_ce_mat.cu, <H, DW>), the AG-heads forward and the backward's
 # dq pass (csrc/fused_ag_heads.cu, <NC, RES, BWD>) and the backward's
-# products (<CT, DW>), and the decode LSTM step (csrc/fused_lstm_step.cu,
-# <U>): each one's instance label from its template arguments, and its
-# dynamic shared memory (the AG forward's at H = HIDDEN with h resident, at
-# 2·HIDDEN with h streamed; the LSTM step's at E = EMBED, H = HIDDEN)
+# products (<CT, DW>), the LSTM cell of the decode step and the sequence
+# forward (csrc/lstm_cell.cuh, <U, StepEpi | SeqEpi>), and the sequence
+# backward's steps and dx (csrc/fused_lstm_seq.cu, <WG, MODE>) and its dW
+# products (<CT>): each one's instance label from its template arguments
+# (a list: ints, bools and epilogue names in order), and its dynamic shared
+# memory (the AG forward's at H = HIDDEN with h resident, at 2·HIDDEN with
+# h streamed; the LSTM cell's at E = EMBED, H = HIDDEN)
+SEQ_MODES = ("gates of step T-1", "step", "step 0 (dh0)", "dx")
 WGMMA_TEMPLATES = {
-    "ce_fwd_kernel": (lambda n, f, g: f"<{n}, {'written logits' if f else 'flash'}>",
-                      lambda n, f, g: _ext.library().vct_fused_ce_fwd_smem(n, int(f))),
-    "ce_bwd_kernel": (lambda n, f, g: f"<{n}, {'dW/db' if f else 'dh'}>",
-                      lambda n, f, g: _ext.library().vct_fused_ce_bwd_smem(n)),
-    "ce_mat_bwd_kernel": (lambda n, f, g: f"<{n}, {'dW/db' if f else 'dh'}>",
-                          lambda n, f, g: _ext.library().vct_fused_ce_mat_bwd_smem(n)),
-    "ag_fwd_kernel": (lambda n, f, g: f"<NC={n}, h {'resident' if f else 'streamed'}, "
-                                      f"{'dq pass' if g else 'forward'}>",
-                      lambda n, f, g: _ext.library().vct_fused_ag_heads_fwd_smem(
-                          HIDDEN if f else 2 * HIDDEN, n)),
-    "ag_mat_kernel": (lambda n, f, g: f"<CT={n}, {'dW' if f else 'dh'}>",
-                      lambda n, f, g: _ext.library().vct_fused_ag_heads_mat_smem(n)),
-    "lstm_step_kernel": (lambda n, f, g: f"<U={n}>",
-                         lambda n, f, g: lstm_step_layout(EMBED, HIDDEN, n)[2]),
+    "ce_fwd_kernel": (lambda a: f"<{a[0]}, {'written logits' if a[1] else 'flash'}>",
+                      lambda a: _ext.library().vct_fused_ce_fwd_smem(a[0], int(a[1]))),
+    "ce_bwd_kernel": (lambda a: f"<{a[0]}, {'dW/db' if a[1] else 'dh'}>",
+                      lambda a: _ext.library().vct_fused_ce_bwd_smem(a[0])),
+    "ce_mat_bwd_kernel": (lambda a: f"<{a[0]}, {'dW/db' if a[1] else 'dh'}>",
+                          lambda a: _ext.library().vct_fused_ce_mat_bwd_smem(a[0])),
+    "ag_fwd_kernel": (lambda a: f"<NC={a[0]}, h {'resident' if a[1] else 'streamed'}, "
+                                f"{'dq pass' if a[2] else 'forward'}>",
+                      lambda a: _ext.library().vct_fused_ag_heads_fwd_smem(
+                          HIDDEN if a[1] else 2 * HIDDEN, a[0])),
+    "ag_mat_kernel": (lambda a: f"<CT={a[0]}, {'dW' if a[1] else 'dh'}>",
+                      lambda a: _ext.library().vct_fused_ag_heads_mat_smem(a[0])),
+    "lstm_cell_kernel": (lambda a: f"<U={a[0]}, {a[1]}: "
+                                   f"{'decode step' if a[1] == 'StepEpi' else 'sequence forward'}>",
+                         lambda a: (lstm_step_layout(EMBED, HIDDEN, a[0])[2] if a[1] == "StepEpi"
+                                    else _ext.library().vct_fused_lstm_seq_fwd_smem())),
+    "seq_bwd_kernel": (lambda a: f"<WG={a[0]}, {SEQ_MODES[a[1]]}>",
+                       lambda a: _ext.library().vct_fused_lstm_seq_bwd_smem(a[0], a[1])),
+    "seq_dw_kernel": (lambda a: f"<CT={a[0]}, dW>",
+                      lambda a: _ext.library().vct_fused_lstm_seq_dw_smem(a[0])),
 }
-# a mangled instance name: <int>, <int, bool> or <int, bool, bool>
-_INSTANCE = r"\w*?\d({names})ILi(\d+)E(?:Lb([01])E)?(?:Lb([01])E)?"
+
+
+def template_args(mangled: str, name: str) -> list:
+    """The template arguments of a mangled instance of ``name``, in order:
+    ints (``Li64E``), bools (``Lb1E``) and the LSTM cell's epilogue type
+    names (``StepEpi``, ``SeqEpi``)."""
+    rest = mangled[mangled.index(f"{len(name)}{name}I") + len(name) + len(str(len(name))) + 1:]
+    rest = rest[:rest.find("Ev")] if "Ev" in rest else rest
+    args = []
+    for m in re.finditer(r"Li(\d+)E|Lb([01])E|(StepEpi|SeqEpi)", rest):
+        args.append(int(m.group(1)) if m.group(1) else m.group(2) == "1"
+                    if m.group(2) else m.group(3))
+    return args
 
 
 def print_template_resources() -> None:
@@ -2274,32 +2422,32 @@ def print_template_resources() -> None:
     templates (``WGMMA_TEMPLATES``) at every instance, from nvcc's
     -Xptxas=-v output in build.log, and any ptxas warning that it
     serialises an instance's wgmmas (C7515); the dynamic shared memory from
-    the library."""
+    the library (the sequence backward's from ops/fused_lstm_seq.py's
+    mirror of its layout)."""
     lines = _ext.build_log.splitlines()
-    instance = _INSTANCE.format(names="|".join(WGMMA_TEMPLATES))
+    names = "|".join(WGMMA_TEMPLATES)
     found = 0
     for i, line in enumerate(lines):
-        m = re.search(rf"Compiling entry function '{instance}", line)
+        m = re.search(rf"Compiling entry function '(\w*?\d({names})I\w*)'", line)
         if not m:
             continue
-        name, n = m.group(1), int(m.group(2))
-        flag, flag2 = m.group(3) == "1", m.group(4) == "1"
+        name = m.group(2)
+        args = template_args(m.group(1), name)
         label, smem = WGMMA_TEMPLATES[name]
         info = " ".join(lines[i + 1:i + 4])
         regs = re.search(r"Used (\d+) registers", info)
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", info)
-        print(f"build: {name}{label(n, flag, flag2)}: "
+        print(f"build: {name}{label(args)}: "
               f"{regs.group(1) if regs else '?'} registers, spill stores / loads "
               f"{spills.group(1) + ' / ' + spills.group(2) + ' B' if spills else '?'}, "
-              f"{smem(n, flag, flag2)} B dynamic shared memory")
+              f"{smem(args)} B dynamic shared memory")
         found += 1
     for line in lines:
-        m = re.search(rf"Potential Performance Loss: (.*) in the function '{instance}",
-                      line)
+        m = re.search(rf"Potential Performance Loss: (.*) in the function "
+                      rf"'(\w*?\d({names})I\w*)'", line)
         if m:
-            label = WGMMA_TEMPLATES[m.group(2)][0]
-            flags = (m.group(4) == "1", m.group(5) == "1")
-            print(f"build: {m.group(2)}{label(int(m.group(3)), *flags)}: "
+            name = m.group(3)
+            print(f"build: {name}{WGMMA_TEMPLATES[name][0](template_args(m.group(2), name))}: "
                   f"ptxas: {m.group(1)}")
     if not found:
         print("build: no ptxas report of the wgmma templates (the libraries "

@@ -11,7 +11,12 @@ step's gates by one bf16 step of h times a weight (~1e-3 here, weights
 of std 0.3): so at least 99% of the elements of c_T and h_T must agree
 to 1e-4 and all of them to 5e-3.  The gradients go through the bf16
 dgates, which round the same way, hence a tolerance relative to each
-gradient's largest element."""
+gradient's largest element.
+
+The backward's launch plan (``lstm_seq_plan``) is checked here too: the
+dW splits and tiles at every shape the card checks use.  (No launch's
+shared memory depends on the shape: the C sources fix it at compile
+time and hold it to 227 KB with static_asserts.)"""
 
 import jax
 import jax.numpy as jnp
@@ -21,10 +26,12 @@ import torch
 from jax.experimental import pallas as pl
 
 from vae_captioning_tpu.ops import fused_lstm_seq as jfls
+from vae_captioning_torch.ops import fused_lstm_seq as fls
 from vae_captioning_torch.ops.fused_lstm_seq import (fused_lstm_seq,
                                                      fused_lstm_seq_plain,
                                                      lstm_seq_bwd_plain,
-                                                     lstm_seq_fwd_plain)
+                                                     lstm_seq_fwd_plain,
+                                                     lstm_seq_plan)
 
 FWD_ATOL = 1e-4        # c_T, h_T: most elements ...
 FWD_SHARE = 0.99       # ... this share of them ...
@@ -209,3 +216,77 @@ def test_plain_entry_point_is_differentiable_and_equal():
     (hs2.float().sum() + c2.sum()).backward()
     for k in names:
         assert torch.equal(t1[k].grad, t2[k].grad), k
+
+
+# ----------------------------------------------------------------------
+# the kernels' launch plan
+# ----------------------------------------------------------------------
+
+# (T, N, E, H) of chip_smoke.py's SEQ_SHAPES and the card tests: the train
+# shapes, ragged rows, one row, one row past a tile, one step, E + H past
+# a resident A, the narrowest widths
+CARD_SHAPES = [(24, 1280, 256, 512), (7, 1000, 256, 512), (24, 1, 256, 512),
+               (24, 65, 256, 512), (1, 1280, 256, 512), (5, 600, 256, 1024),
+               (3, 70, 64, 64)]
+
+
+def _dw_blocks(plan, E, H):
+    """Output tiles of dWx and dWh: (E or H) / 64 x 4H / dw_ct."""
+    return [(ko // 64) * (4 * H // plan.dw_ct) for ko in (E, H)]
+
+
+@pytest.mark.parametrize("shape", CARD_SHAPES)
+def test_plan_dw_splits_cover_every_row_once(shape):
+    """Each dW product's splits are non-empty (the shared product loop
+    needs a K tile in every block) and cover the T·N rows exactly once, in
+    order; the partials' buffer holds every split of both products."""
+    T, N, E, H = shape
+    plan = lstm_seq_plan(*shape)
+    assert (plan.k_tiles - 1) * 64 < T * N <= plan.k_tiles * 64
+    counts = []
+    for per in (plan.per_x, plan.per_h):
+        splits = fls.dw_splits(plan.k_tiles, per)
+        counts.append(len(splits))
+        assert all(start < end for start, end in splits)
+        rows = [r for start, end in splits for r in range(64 * start, min(64 * end, T * N))]
+        assert rows == list(range(T * N))
+    assert plan.w_part_rows == max(counts[0] * E, counts[1] * H)
+
+
+@pytest.mark.parametrize("shape", CARD_SHAPES)
+def test_plan_tiles_divide_the_outputs(shape):
+    """dx [T·N, E] in 64 x 64·dx_wg tiles and dW [E or H, 4H] in 64 x
+    dw_ct tiles, each dividing its output; a db partial per step and row
+    tile."""
+    T, N, E, H = shape
+    plan = lstm_seq_plan(*shape)
+    assert E % (64 * plan.dx_wg) == 0 and (4 * H) % plan.dw_ct == 0
+    assert plan.db_parts == T * -(-N // 64)
+
+
+def test_plan_at_the_train_shapes():
+    """T = 24, N = 1280, E = 256, H = 512 on 132 SMs: dx with two
+    warpgroups a block, dW in 512-column tiles with the 30,720 rows in 8
+    splits (dWx) and 4 (dWh), 128 blocks each; the workspaces named in
+    PERF.md."""
+    plan = lstm_seq_plan(24, 1280, 256, 512)
+    assert plan.dx_wg == 2 and plan.dw_ct == 512
+    assert (plan.k_tiles, plan.per_x, plan.per_h) == (480, 60, 120)
+    assert [b * -(-plan.k_tiles // per) for b, per in
+            zip(_dw_blocks(plan, 256, 512), (plan.per_x, plan.per_h))] == [128, 128]
+    assert plan.workspace_bytes(24, 1280, 256, 512) == {
+        "hbuf": 25 * 1280 * 512 * 2, "hcarry": 2 * 1280 * 512 * 2,
+        "dg": 24 * 1280 * 2048 * 2,
+        "dcbuf": 1280 * 512 * 4, "db_part": 480 * 2048 * 4,
+        "w_part": 2048 * 2048 * 4}
+
+
+@pytest.mark.parametrize("sms", [132, 114, 16])
+def test_plan_dw_splits_fill_one_wave(sms):
+    """A dW grid takes at most one block an SM where its output tiles
+    allow it, and splits no more than that."""
+    plan = lstm_seq_plan(24, 1280, 256, 512, sms)
+    for per, blocks in zip((plan.per_x, plan.per_h), _dw_blocks(plan, 256, 512)):
+        splits = -(-plan.k_tiles // per)
+        assert per == -(-plan.k_tiles // max(1, sms // blocks))
+        assert blocks * splits <= max(sms, blocks)

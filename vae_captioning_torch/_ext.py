@@ -68,8 +68,11 @@ _SIGNATURES = {
                                + [_I] * 3 + [_P],
     "vct_logits_top_k_lanes": [],
     "vct_top_k_logsumexp": [_P] * 4 + [_I] * 3 + [_P],
-    "vct_fused_lstm_seq_fwd": [_P] * 11 + [_I] * 4 + [_P],
-    "vct_fused_lstm_seq_bwd": [_P] * 23 + [_I] * 6 + [_P],
+    "vct_fused_lstm_seq_fwd": [_P] * 12 + [_I] * 4 + [_P],
+    "vct_fused_lstm_seq_bwd": [_P] * 21 + [_I] * 8 + [_P],
+    "vct_fused_lstm_seq_fwd_smem": [],
+    "vct_fused_lstm_seq_bwd_smem": [_I, _I],
+    "vct_fused_lstm_seq_dw_smem": [_I],
     "vct_fused_z_fwd": [_P] * 6 + [_I] * 5 + [_U, _U, _P],
     "vct_fused_z_bwd": [_P] * 7 + [_I] * 4 + [_U, _U, _P],
     "vct_fused_z_eps": [_P] + [_I] * 3 + [_U, _U, _I, _P],

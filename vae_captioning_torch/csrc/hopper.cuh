@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the kernels that stream tiles
 // with TMA into shared memory and multiply them with wgmma: the CE forward
 // of both CE schedules (fused_ce.cuh), the flash CE backward (fused_ce.cu),
-// the written-logits CE backward (fused_ce_mat.cu) and the AG-heads forward
-// and backward (fused_ag_heads.cu) and the decode LSTM step
-// (fused_lstm_step.cu).  mbarriers, TMA loads (and stores) of bf16 boxes of
+// the written-logits CE backward (fused_ce_mat.cu), the AG-heads forward
+// and backward (fused_ag_heads.cu), the LSTM cell of the decode step and
+// the sequence forward (lstm_cell.cuh) and the sequence backward
+// (fused_lstm_seq.cu).  mbarriers, TMA loads (and stores) of bf16 boxes of
 // up to 256 rows x 64 columns with the 128-byte swizzle, shared-memory
 // matrix descriptors
 // for that swizzle, the m64nNk16 bf16 wgmma wrappers, and the host-side

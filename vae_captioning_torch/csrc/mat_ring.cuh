@@ -1,9 +1,11 @@
 // The product loop that the written-logits CE backward (fused_ce_mat.cu,
-// ce_mat_bwd_kernel<H, DW>) and the AG-heads backward products
-// (fused_ag_heads.cu, ag_mat_kernel<CT, DW>) share: a block owns 64 output
-// rows and CT output columns and streams a K operand in tiles of [64 rows x
-// CT columns], each with the matching 64 x 64 box of a second matrix A (the
-// CE's written logits, the AG's dq), through a TMA ring:
+// ce_mat_bwd_kernel<H, DW>), the AG-heads backward products
+// (fused_ag_heads.cu, ag_mat_kernel<CT, DW>) and the LSTM sequence
+// backward's weight gradients (fused_lstm_seq.cu, seq_dw_kernel<CT>)
+// share: a block owns 64 output rows and CT output columns and streams a K
+// operand in tiles of [64 rows x CT columns], each with the matching 64 x
+// 64 box of a second matrix A (the CE's written logits, the AG's dq, the
+// LSTM's x or h), through a TMA ring:
 //
 //   out [64 x CT] += A box [64 x 64] @ K tile [64 x CT]
 //

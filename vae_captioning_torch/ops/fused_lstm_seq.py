@@ -19,12 +19,16 @@ t < lengths[n] is monotone for any integer lengths.
 
 On CUDA tensors the wrappers launch ``csrc/fused_lstm_seq.cu``; on CPU
 tensors they take :func:`lstm_seq_fwd_plain` / :func:`lstm_seq_bwd_plain`.
-:func:`fused_lstm_seq_plain` runs the plain versions on any device.
+:func:`fused_lstm_seq_plain` runs the plain versions on any device.  The
+backward's plan (:func:`lstm_seq_plan`: dx's warpgroups, dW's column tile
+and row splits, the workspaces) is computed here, so the CPU tests check
+it.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -32,8 +36,6 @@ from vae_captioning_torch import _ext
 
 FWD = "fused_lstm_seq_fwd"
 BWD = "fused_lstm_seq_bwd"
-_ROWS_PER_CHUNK = 64     # rows per db partial of the gate-derivative kernel
-_DW_SPLITS = 4           # row splits of the dWx / dWh reduction
 
 Saved = Tuple[torch.Tensor, ...]
 
@@ -118,6 +120,77 @@ def lstm_seq_bwd_plain(saved: Saved, dhs, dct, dht
 # kernel launches
 # ----------------------------------------------------------------------
 
+# The backward's geometry (csrc/fused_lstm_seq.cu and csrc/mat_ring.cuh):
+# 64-row blocks and K tiles, one H100 SXM (132 SMs).  Every launch's shared
+# memory is fixed in C at compile time, whatever the shape.
+_ROWS = 64
+_SMS = 132
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+class SeqPlan(NamedTuple):
+    """What the backward's launches take at (T, N, E, H) beyond the shapes:
+    dx = dg @ Wx^T with ``dx_wg`` 64-column warpgroups a block; dWx and dWh
+    in output column tiles of ``dw_ct``, the T·N rows in ``k_tiles`` K
+    tiles of 64, split z of dWx taking tiles [z·per_x, (z + 1)·per_x) and
+    of dWh [z·per_h, (z + 1)·per_h); and the sizes of the workspaces."""
+
+    dx_wg: int
+    dw_ct: int
+    k_tiles: int
+    per_x: int
+    per_h: int
+    db_parts: int             # T · ceil(N / 64) f32 partials of db
+    w_part_rows: int          # rows of the [rows, 4H] f32 dW partials
+
+    def workspace_bytes(self, T: int, N: int, E: int, H: int) -> dict:
+        """The bytes of what the kernels need beyond their outputs: the
+        forward's bf16 h buffer [T + 1, N, H] (slots 1..T are hs, an
+        output; slot 0, bf16(h0), is kept for the backward) and bf16 carry
+        [2, N, H] (freed after the call), the backward's dg, dc carry and
+        partials."""
+        return {"hbuf": (T + 1) * N * H * 2, "hcarry": 2 * N * H * 2,
+                "dg": T * N * 4 * H * 2,
+                "dcbuf": N * H * 4,
+                "db_part": self.db_parts * 4 * H * 4,
+                "w_part": self.w_part_rows * 4 * H * 4}
+
+
+def dw_splits(k_tiles: int, per: int) -> list:
+    """The K-tile ranges [start, end) of the dW splits: every one
+    non-empty, together every tile once."""
+    return [(z * per, min(k_tiles, (z + 1) * per))
+            for z in range(_cdiv(k_tiles, per))]
+
+
+def _per(k_tiles: int, blocks: int, sms: int) -> int:
+    """K tiles a split where a split is ``blocks`` blocks of one block an
+    SM: as many splits as fill the SMs in one wave, at least one."""
+    return _cdiv(k_tiles, max(1, sms // blocks))
+
+
+@functools.lru_cache(maxsize=None)
+def lstm_seq_plan(T: int, N: int, E: int, H: int, sms: int = _SMS) -> SeqPlan:
+    """The backward's plan at (T, N, E, H) on ``sms`` SMs.  dx takes two
+    64-column warpgroups a block (one A box for both) where E allows it and
+    that grid still fills the SMs, else one; dW the widest column tile that
+    divides 4H, and the T·N rows split so that each product's grid ((E or
+    H) / 64 x 4H / dw_ct x splits) fills the SMs once."""
+    k_tiles = _cdiv(T * N, _ROWS)
+    dx_wg = 2 if E % 128 == 0 and k_tiles * (E // 128) >= sms else 1
+    G = 4 * H
+    ct = 512 if G % 512 == 0 else 256
+    per_x = _per(k_tiles, (E // 64) * (G // ct), sms)
+    per_h = _per(k_tiles, (H // 64) * (G // ct), sms)
+    sx, sh = _cdiv(k_tiles, per_x), _cdiv(k_tiles, per_h)
+    return SeqPlan(dx_wg=dx_wg, dw_ct=ct, k_tiles=k_tiles, per_x=per_x,
+                   per_h=per_h, db_parts=T * _cdiv(N, _ROWS),
+                   w_part_rows=max(sx * E, sh * H))
+
+
 def _check_shapes(x16, wx16, wh16, b, c0, h0, lengths) -> None:
     req = _ext.require
     T, N, E = x16.shape
@@ -141,37 +214,41 @@ def _check_shapes(x16, wx16, wh16, b, c0, h0, lengths) -> None:
         "fused_lstm_seq: inputs must be contiguous and 16-byte aligned")
 
 
-def lstm_seq_fwd_kernel(x16, wx16, wh16, b, c0, h0, lengths):
-    """The forward kernel; same contract as :func:`lstm_seq_fwd_plain`."""
-    _check_shapes(x16, wx16, wh16, b, c0, h0, lengths)
+def _fwd_launch(x16, wx16, wh16, b, c0, h0, lengths):
+    """The forward's launches → (hbuf [T + 1, N, H] bf16: bf16(h0), hs; cs,
+    ga, h_T).  The bf16 h carry [2, N, H] is a workspace of the call."""
     T, N, E = x16.shape
     H = c0.shape[1]
     dev = x16.device
-    hs = torch.empty((T, N, H), dtype=torch.bfloat16, device=dev)
+    hbuf = torch.empty((T + 1, N, H), dtype=torch.bfloat16, device=dev)
+    hbuf[0].copy_(h0)
+    hcarry = torch.empty((2, N, H), dtype=torch.bfloat16, device=dev)
     cs = torch.empty((T, N, H), dtype=torch.float32, device=dev)
     ga = torch.empty((T, N, 4 * H), dtype=torch.bfloat16, device=dev)
-    hbuf = torch.empty((2, N, H), dtype=torch.float32, device=dev)
+    h_t = torch.empty((N, H), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _ext.library().vct_fused_lstm_seq_fwd(
             x16.data_ptr(), wx16.data_ptr(), wh16.data_ptr(), b.data_ptr(),
-            lengths.data_ptr(), c0.data_ptr(), h0.data_ptr(), hs.data_ptr(),
-            cs.data_ptr(), ga.data_ptr(), hbuf.data_ptr(), T, N, E, H,
+            lengths.data_ptr(), c0.data_ptr(), h0.data_ptr(), hbuf.data_ptr(),
+            hcarry.data_ptr(), cs.data_ptr(), ga.data_ptr(), h_t.data_ptr(), T, N, E, H,
             _ext.stream_ptr(dev))
     _ext.check_launch(err, FWD)
     _ext.LAUNCHES[FWD] += 1
-    return hs, cs, ga, hbuf[(T - 1) % 2]
+    return hbuf, cs, ga, h_t
 
 
-def _dw_splits(M: int) -> int:
-    """Partials the dW reduction writes for M rows (as the kernel
-    computes them: row splits rounded up to whole 32-row stages)."""
-    per = -(-M // _DW_SPLITS)
-    per = -(-per // 32) * 32
-    return -(-M // per)
+def lstm_seq_fwd_kernel(x16, wx16, wh16, b, c0, h0, lengths):
+    """The forward kernel; same contract as :func:`lstm_seq_fwd_plain`
+    (hs is slots 1..T of the kernel's bf16 h buffer)."""
+    _check_shapes(x16, wx16, wh16, b, c0, h0, lengths)
+    hbuf, cs, ga, h_t = _fwd_launch(x16, wx16, wh16, b, c0, h0, lengths)
+    return hbuf[1:x16.shape[0] + 1], cs, ga, h_t
 
 
-def lstm_seq_bwd_kernel(saved: Saved, dhs, dct, dht):
-    """The backward kernel; same contract as :func:`lstm_seq_bwd_plain`."""
+def lstm_seq_bwd_kernel(saved: Saved, dhs, dct, dht, h_prev=None):
+    """The backward kernel; same contract as :func:`lstm_seq_bwd_plain`.
+    ``h_prev`` [T, N, H] bf16 is [bf16(h0); hs[0 .. T-2]], slots 0..T-1 of
+    the forward kernel's h buffer; where None it is built here (a copy)."""
     x16, wx16, wh16, b, c0, h0, lengths, hs, cs, ga = saved
     T, N, E = x16.shape
     H = c0.shape[1]
@@ -179,9 +256,13 @@ def lstm_seq_bwd_kernel(saved: Saved, dhs, dct, dht):
     dhs16 = dhs.to(torch.bfloat16).contiguous()
     dct = dct.float().contiguous()
     dht = dht.float().contiguous()
+    if h_prev is None:
+        h_prev = torch.cat([h0.to(torch.bfloat16)[None], hs[:-1]])
     _ext.require(dhs16.shape == (T, N, H) and dct.shape == dht.shape == (N, H)
+                 and h_prev.shape == (T, N, H) and h_prev.is_contiguous()
                  and dhs16.device == dct.device == dht.device == dev,
                  "fused_lstm_seq: gradient shapes or devices disagree")
+    plan = lstm_seq_plan(T, N, E, H, _ext.sm_count(dev.index))
     f32 = dict(dtype=torch.float32, device=dev)
     dx = torch.empty((T, N, E), **f32)
     dc0 = torch.empty((N, H), **f32)
@@ -190,22 +271,19 @@ def lstm_seq_bwd_kernel(saved: Saved, dhs, dct, dht):
     dwh = torch.empty((H, 4 * H), **f32)
     db = torch.empty((4 * H,), **f32)
     dg = torch.empty((T, N, 4 * H), dtype=torch.bfloat16, device=dev)
-    dhbuf = torch.empty((2, N, H), **f32)
-    dcbuf = torch.empty((2, N, H), **f32)
-    chunks = -(-N // _ROWS_PER_CHUNK)
-    db_part = torch.empty((T, chunks, 4 * H), **f32)
-    w_part = torch.empty((_dw_splits(T * N), max(E, H), 4 * H), **f32)
-    h0_16 = h0.to(torch.bfloat16).contiguous()
+    dcbuf = torch.empty((N, H), **f32)
+    db_part = torch.empty((plan.db_parts, 4 * H), **f32)
+    w_part = torch.empty((plan.w_part_rows, 4 * H), **f32)
     with torch.cuda.device(dev):
         err = _ext.library().vct_fused_lstm_seq_bwd(
             x16.data_ptr(), wx16.data_ptr(), wh16.data_ptr(),
-            lengths.data_ptr(), c0.data_ptr(), h0_16.data_ptr(),
-            cs.data_ptr(), hs.data_ptr(), ga.data_ptr(), dhs16.data_ptr(),
-            dct.data_ptr(), dht.data_ptr(), dx.data_ptr(), dc0.data_ptr(),
-            dh0.data_ptr(), dwx.data_ptr(), dwh.data_ptr(), db.data_ptr(),
-            dg.data_ptr(), dhbuf.data_ptr(), dcbuf.data_ptr(),
-            db_part.data_ptr(), w_part.data_ptr(), T, N, E, H,
-            _ROWS_PER_CHUNK, _DW_SPLITS, _ext.stream_ptr(dev))
+            lengths.data_ptr(), c0.data_ptr(), h_prev.data_ptr(),
+            cs.data_ptr(), ga.data_ptr(), dhs16.data_ptr(), dct.data_ptr(),
+            dht.data_ptr(), dx.data_ptr(), dc0.data_ptr(), dh0.data_ptr(),
+            dwx.data_ptr(), dwh.data_ptr(), db.data_ptr(), dg.data_ptr(),
+            dcbuf.data_ptr(), db_part.data_ptr(), w_part.data_ptr(),
+            T, N, E, H, plan.dx_wg, plan.dw_ct, plan.per_x, plan.per_h,
+            _ext.stream_ptr(dev))
     _ext.check_launch(err, BWD)
     _ext.LAUNCHES[BWD] += 1
     return dx, dwx, dwh, db, dc0, dh0
@@ -233,18 +311,29 @@ class _FusedLSTMSeq(torch.autograd.Function):
         args = (x16, wx16, wh16, bf, c0f, h0f, lengths)
         use_plain = plain or _ext.on_cpu(x16, wx16, wh16, bf, c0f, h0f,
                                          lengths)
-        fwd = lstm_seq_fwd_plain if use_plain else lstm_seq_fwd_kernel
-        hs, cs, ga, h_t = fwd(*args)
+        if use_plain:
+            hs, cs, ga, h_t = lstm_seq_fwd_plain(*args)
+            kept = hs
+        else:
+            # the kernels keep the bf16 h buffer: its slots 0..T-1 are the
+            # backward's h_prev stack
+            _check_shapes(*args)
+            kept, cs, ga, h_t = _fwd_launch(*args)
+            hs = kept[1:x16.shape[0] + 1]
         ctx.use_plain = use_plain
         ctx.dtypes = (x.dtype, wx.dtype, wh.dtype, b.dtype, c0.dtype, h0.dtype)
-        ctx.save_for_backward(*args, hs, cs, ga)
+        ctx.save_for_backward(*args, kept, cs, ga)
         return cs[-1].clone(), h_t.clone(), hs
 
     @staticmethod
     def backward(ctx, dct, dht, dhs):
-        saved = ctx.saved_tensors
-        bwd = lstm_seq_bwd_plain if ctx.use_plain else lstm_seq_bwd_kernel
-        grads = bwd(saved, dhs, dct, dht)
+        *args, kept, cs, ga = ctx.saved_tensors
+        if ctx.use_plain:
+            grads = lstm_seq_bwd_plain((*args, kept, cs, ga), dhs, dct, dht)
+        else:
+            T = args[0].shape[0]
+            grads = lstm_seq_bwd_kernel((*args, kept[1:T + 1], cs, ga), dhs,
+                                        dct, dht, h_prev=kept[:T])
         dx, dwx, dwh, db, dc0, dh0 = (g.to(dt) for g, dt in zip(grads,
                                                                 ctx.dtypes))
         return dx, dwx, dwh, db, dc0, dh0, None, None
