@@ -9,8 +9,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    CE forward of both schedules, the flash CE's and the written logits'
    backward, the AG-heads forward and backward, the LSTM cell of the
    decode step and of the sequence forward, the sequence backward's
-   steps, dx and dW), and any ptxas warning that one serialises its
-   wgmmas;
+   steps, dx and dW, the fused z forward, dmu/dsigma and dW), and any
+   ptxas warning that one serialises its wgmmas;
 3. kernels: each kernel against its plain PyTorch version on the card,
    at the main paths' shapes and ragged ones: the decode kernels (plus a
    deliberate tie; the LSTM step also at one row, one row past a tile,
@@ -19,7 +19,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    outside near-ties, and its law over 200,000 draws), the train path's ``fused_lstm_seq`` (also at one
    row, one row past a tile, one step and the narrowest and a wider
    width; forward and backward twice, bit for bit) and ``fused_z``
-   forward and backward, the fused z generator's bits, normals and
+   forward and backward (also at one row, one row past a tile, one
+   sample, latent widths 37 and 256 and every column width; each twice,
+   bit for bit), the fused z generator's bits, normals and
    moments against the plain generator, and the AG train path's
    ``fused_ag_heads`` forward and backward with COCO-like cluster vectors
    (also at one row, one row past a tile and every width; forward and
@@ -142,8 +144,8 @@ from vae_captioning_torch.ops.fused_lstm_step import (  # noqa: E402
     fused_lstm_step, fused_lstm_step_plain, lstm_step_geometry,
     lstm_step_kernel, lstm_step_layout, lstm_step_plan)
 from vae_captioning_torch.ops.fused_z import (  # noqa: E402
-    fused_z_eps, philox_bits, philox_normals, z_bwd_kernel, z_bwd_plain,
-    z_fwd_kernel, z_fwd_plain)
+    fused_z_eps, philox_bits, philox_normals, transform_mismatches, z_bwd_kernel,
+    z_bwd_plain, z_fwd_kernel, z_fwd_plain)
 from vae_captioning_torch.ops.topk_lse import (  # noqa: E402
     top_k_logsumexp, top_k_logsumexp_plain)
 from vae_captioning_torch.train import Trainer  # noqa: E402
@@ -1281,48 +1283,57 @@ def check_lstm_seq(T: int, N: int, E: int = EMBED, H: int = HIDDEN) -> tuple:
     return fwd, bwd
 
 
-def z_inputs(N: int, seed: int):
+def z_inputs(N: int, seed: int, K: int = KZ, L: int = LATENT, E: int = EMBED):
     g = torch.Generator(device=DEV).manual_seed(seed)
-    mean = torch.randn((N, LATENT), generator=g, device=DEV)
-    std = torch.exp(0.3 * torch.randn((N, LATENT), generator=g, device=DEV))
-    lim = (6.0 / (KZ * LATENT + EMBED)) ** 0.5
-    w = ((torch.rand((EMBED, KZ * LATENT), generator=g, device=DEV) * 2 - 1)
+    mean = torch.randn((N, L), generator=g, device=DEV)
+    std = torch.exp(0.3 * torch.randn((N, L), generator=g, device=DEV))
+    lim = (6.0 / (K * L + E)) ** 0.5
+    w = ((torch.rand((E, K * L), generator=g, device=DEV) * 2 - 1)
          * lim).to(torch.bfloat16)
-    b = 0.1 * torch.randn((EMBED,), generator=g, device=DEV)
-    dz = torch.randn((N, EMBED), generator=g, device=DEV).to(torch.bfloat16)
+    b = 0.1 * torch.randn((E,), generator=g, device=DEV)
+    dz = torch.randn((N, E), generator=g, device=DEV).to(torch.bfloat16)
     return mean, std, w, b, dz
 
 
-def check_fused_z(N: int, seed: int = 5, step: int = 17) -> tuple:
+def check_fused_z(N: int, K: int = KZ, L: int = LATENT, E: int = EMBED,
+                  seed: int = 5, step: int = 17) -> tuple:
     """Returns (forward, backward) max |kernel - plain|; the plain
-    versions draw eps from the plain generator on the same key."""
-    mean, std, w, b, dz = z_inputs(N, seed=N)
-    tag = f"fused_z N={N} K_z={KZ} L={LATENT} E={EMBED}"
-    eps = philox_normals(seed, step, N, KZ, LATENT, device=DEV)
-    err, rel = rel_err(z_fwd_kernel(mean, std, w, b, KZ, seed, step),
-                       z_fwd_plain(mean, std, w, b, KZ, eps))
-    if rel > Z_OUT_RTOL:
+    versions draw eps from the plain generator on the same key.  Each
+    kernel runs twice and must repeat bit for bit."""
+    mean, std, w, b, dz = z_inputs(N, seed=N + K + L + E, K=K, L=L, E=E)
+    tag = f"fused_z N={N} K_z={K} L={L} E={E}"
+    eps = philox_normals(seed, step, N, K, L, device=DEV)
+    got = z_fwd_kernel(mean, std, w, b, K, seed, step)
+    if not torch.equal(got, z_fwd_kernel(mean, std, w, b, K, seed, step)):
+        raise AssertionError(f"{tag} forward: two calls differ")
+    err, rel = rel_err(got, z_fwd_plain(mean, std, w, b, K, eps))
+    if rel > Z_OUT_RTOL or not bool(torch.isfinite(got.float()).all()):
         raise AssertionError(f"{tag} forward differs: {err:.3e} ({rel:.2e})")
     print(f"{tag} forward: max |kernel - plain| {err:.3e} ({rel:.2e} of max, "
-          f"tolerance {Z_OUT_RTOL})")
+          f"tolerance {Z_OUT_RTOL}); bit for bit across two calls")
     fwd, bwd = err, 0.0
-    got = z_bwd_kernel(mean, std, w, KZ, seed, step, dz)
-    want = z_bwd_plain(mean, std, w, KZ, eps, dz)
-    for name, a, c in zip(("dmean", "dstd", "dW"), got, want):
+    got = z_bwd_kernel(mean, std, w, K, seed, step, dz)
+    again = z_bwd_kernel(mean, std, w, K, seed, step, dz)
+    want = z_bwd_plain(mean, std, w, K, eps, dz)
+    for name, a, r, c in zip(("dmean", "dstd", "dW"), got, again, want):
+        if not torch.equal(a, r):
+            raise AssertionError(f"{tag} backward: two calls gave another {name}")
         err, rel = rel_err(a, c)
-        if rel > Z_GRAD_RTOL:
+        if rel > Z_GRAD_RTOL or not bool(torch.isfinite(a).all()):
             raise AssertionError(f"{tag} backward: {name} differs, {err:.3e} "
                                  f"({rel:.2e} of max)")
         bwd = max(bwd, err)
         print(f"{tag} backward {name}: max |kernel - plain| {err:.3e} "
-              f"({rel:.2e} of max, tolerance {Z_GRAD_RTOL})")
+              f"({rel:.2e} of max, tolerance {Z_GRAD_RTOL}); bit for bit "
+              "across two calls")
     return fwd, bwd
 
 
 def check_eps() -> float:
     """The eps kernel's bits against the plain generator's (on the card
     and on the CPU), its normals against the plain normals, its moments
-    over one train step's 19.2 M draws, and distinct streams."""
+    over one train step's 19.2 M draws, distinct streams, and the fused
+    kernels' transform against erfinvf on every input."""
     seed, step = 1234, 7
     shape = (TRAIN_ROWS, KZ, LATENT)
     bits = fused_z_eps(seed, step, *shape, device=DEV, bits=True)
@@ -1338,6 +1349,10 @@ def check_eps() -> float:
     mean, var = float(e64.mean()), float(e64.var())
     if abs(mean) >= MEAN_TOL or abs(var - 1.0) >= VAR_TOL:
         raise AssertionError(f"fused_z_eps moments: mean {mean:.3e}, var {var:.6f}")
+    bad = transform_mismatches(DEV)
+    if bad:
+        raise AssertionError(f"fused_z: the fused kernels' normals differ from "
+                             f"erfinvf's on {bad} of 2^23 uniforms")
     other = fused_z_eps(seed + 1, step, 64, KZ, LATENT, device=DEV)
     later = fused_z_eps(seed, step + 1, 64, KZ, LATENT, device=DEV)
     if (torch.equal(other, eps[:64]) or torch.equal(later, eps[:64])
@@ -1347,7 +1362,8 @@ def check_eps() -> float:
           f"equal to the plain generator's (card and CPU); max |normal - plain| "
           f"{err:.3e} (tolerance {EPS_ATOL}); mean {mean:.3e} (|.| < {MEAN_TOL}), "
           f"var {var:.6f} (|var - 1| < {VAR_TOL}); other seeds, steps and "
-          "samples give other streams")
+          "samples give other streams; the fused kernels' transform is erfinvf's "
+          "bit for bit on all 2^23 uniforms")
     return err
 
 
@@ -1362,14 +1378,25 @@ SEQ_SHAPES = ((TRAIN_T, TRAIN_ROWS, EMBED, HIDDEN), (7, RAGGED_ROWS, EMBED, HIDD
               (3, 70, 64, 64))
 
 
+# fused_z's checked shapes (N, K_z, L, E): the train shapes, ragged rows,
+# one row, one row past a tile, one sample, a latent width of whole boxes
+# (256) and of one partial box (37), every column width the kernels are
+# built for (64, 128, 192, 256) and a width in two chunks (512); K_z L =
+# 111 and 450 are not multiples of 8 (W padded for TMA).  Every shape's
+# last sample reads W's box past its end.
+Z_SHAPES = ((TRAIN_ROWS, KZ, LATENT, EMBED), (RAGGED_ROWS, KZ, LATENT, EMBED),
+            (1, KZ, LATENT, EMBED), (65, 3, 37, 128), (RAGGED_ROWS, 1, 256, 64),
+            (TRAIN_ROWS, 3, LATENT, 512), (65, 3, 256, 192))
+
+
 def phase_train_kernels() -> dict:
     errors = {k: 0.0 for k in TRAIN_KERNELS}
     for T, N, E, H in SEQ_SHAPES:
         fwd, bwd = check_lstm_seq(T, N, E, H)
         errors["fused_lstm_seq_fwd"] = max(errors["fused_lstm_seq_fwd"], fwd)
         errors["fused_lstm_seq_bwd"] = max(errors["fused_lstm_seq_bwd"], bwd)
-    for N in (TRAIN_ROWS, RAGGED_ROWS):
-        fwd, bwd = check_fused_z(N)
+    for shape in Z_SHAPES:
+        fwd, bwd = check_fused_z(*shape)
         errors["fused_z_fwd"] = max(errors["fused_z_fwd"], fwd)
         errors["fused_z_bwd"] = max(errors["fused_z_bwd"], bwd)
     errors["fused_z_eps"] = check_eps()
@@ -1523,6 +1550,20 @@ def phase_train_kernel_times(label: str) -> dict:
               + ", ".join(f"{k} {v:.4f} ms" for k, v in dev.items())
               + f"; cuDNN device {dev_lib['total']:.4f} ms (largest: "
               + ", ".join(f"{k} {v:.4f}" for v, k in top) + f") [{label}]")
+    # the fused z kernels' device time and their library chain's, in turns
+    # (kernel, chain, chain, kernel), each the union of its kernels'
+    # intervals; the kernels' also by kernel
+    by_kernel = lambda n: n.split("<")[0]  # noqa: E731
+    for tag, fn, lib in zip(("fused_z_fwd", "fused_z_bwd"),
+                            (pairs["fused_z_fwd"][0], pairs["fused_z_bwd"][0]),
+                            z_library_calls(mean, std, w, b, dz)):
+        k1, c1, c2, k2 = (device_spans(f, by_kernel) for f in (fn, lib, lib, fn))
+        kernel, chain = (k1["total"] + k2["total"]) / 2, (c1["total"] + c2["total"]) / 2
+        parts = {k: (v + k2.get(k, 0.0)) / 2 for k, v in k1.items() if k != "total"}
+        print(f"time {tag} device {kernel:.4f} ms ("
+              + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+              + f"), its chain's device {chain:.4f} ms, in turns: share "
+              f"{kernel / chain:.3f} [{label}]")
     return times
 
 
@@ -2295,8 +2336,8 @@ def phase_train_profile(out_dir: str, label: str, prior: str, ce=None) -> None:
     under torch.profiler: PROFILE_STEPS steps after 3 warm-up steps.  The
     trace's kernel, memcpy and memset events are timed per step by name
     and by group (the port's kernels one by one, cuBLAS GEMMs, copies,
-    other PyTorch kernels) as the union of their intervals, and so is the
-    device's busy time; the idle share is 1 - busy / the step's
+    other PyTorch kernels) as the union of their intervals, and so are the
+    port's kernels by source file and the device's busy time; the idle share is 1 - busy / the step's
     host-clock time under the profiler.  Writes the trace and a summary to
     ``out_dir`` (``train_*`` for the Normal prior, ``ag_train_*`` for
     AG, ``gmm_train_*`` for GMM with the flash CE, ``gmm_hybrid_train_*``
@@ -2328,6 +2369,7 @@ def phase_train_profile(out_dir: str, label: str, prior: str, ce=None) -> None:
     # a kernel launched with programmatic dependent launch starts while the
     # one before it finishes, and its duration counts that wait
     spans, counts = ({}, {}), ({}, {})
+    modules = {}
     for e in events:
         # "void (anonymous namespace)::name<512, false>(args)" -> "name" and
         # its template arguments "<512, false>"
@@ -2338,6 +2380,7 @@ def phase_train_profile(out_dir: str, label: str, prior: str, ce=None) -> None:
             group = "memcpy / memset"
         elif short in ours:
             group = f"port: {short}{targs} ({ours[short]})"
+            modules.setdefault(ours[short], []).append((e["ts"], e["ts"] + e["dur"]))
         elif any(w in e["name"].lower() for w in ("gemm", "xmma", "cutlass")):
             group = "cuBLAS GEMM"
         else:
@@ -2356,6 +2399,9 @@ def phase_train_profile(out_dir: str, label: str, prior: str, ce=None) -> None:
     for key, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         print(f"profile group {ms:9.4f} ms/step {n / PROFILE_STEPS:6.1f} "
               f"launches/step  {key}")
+    for src, v in sorted(modules.items(), key=lambda kv: -union_ms(kv[1])):
+        print(f"profile module {union_ms(v) / PROFILE_STEPS:9.4f} ms/step "
+              f"{len(v) / PROFILE_STEPS:6.1f} launches/step  {src}")
     for key, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]:
         print(f"profile kernel {ms:9.4f} ms/step {n / PROFILE_STEPS:6.1f} "
               f"launches/step  {key}")
@@ -2363,7 +2409,9 @@ def phase_train_profile(out_dir: str, label: str, prior: str, ce=None) -> None:
         json.dump({"card": label, "prior": prior,
                    "ce": CE_NAMES[ce_flag(trainer.cfg)], "steps": PROFILE_STEPS,
                    "step_ms": step_ms,
-                   "busy_ms": busy_ms, "groups": groups, "by_name": by_name}, f,
+                   "busy_ms": busy_ms, "groups": groups, "by_name": by_name,
+                   "modules": {src: union_ms(v) / PROFILE_STEPS
+                               for src, v in modules.items()}}, f,
                   indent=1)
 
 
@@ -2375,7 +2423,8 @@ def phase_train_profile(out_dir: str, label: str, prior: str, ce=None) -> None:
 # products (<CT, DW>), the LSTM cell of the decode step and the sequence
 # forward (csrc/lstm_cell.cuh, <U, StepEpi | SeqEpi>), and the sequence
 # backward's steps and dx (csrc/fused_lstm_seq.cu, <WG, MODE>) and its dW
-# products (<CT>): each one's instance label from its template arguments
+# products (<CT>), and the fused z forward, dmu/dsigma and dW
+# (csrc/fused_z.cu, <CT>): each one's instance label from its template arguments
 # (a list: ints, bools and epilogue names in order), and its dynamic shared
 # memory (the AG forward's at H = HIDDEN with h resident, at 2·HIDDEN with
 # h streamed; the LSTM cell's at E = EMBED, H = HIDDEN)
@@ -2401,6 +2450,12 @@ WGMMA_TEMPLATES = {
                        lambda a: _ext.library().vct_fused_lstm_seq_bwd_smem(a[0], a[1])),
     "seq_dw_kernel": (lambda a: f"<CT={a[0]}, dW>",
                       lambda a: _ext.library().vct_fused_lstm_seq_dw_smem(a[0])),
+    "z_fwd_kernel": (lambda a: f"<CT={a[0]}, forward>",
+                     lambda a: _ext.library().vct_fused_z_smem(0, a[0])),
+    "z_dmu_kernel": (lambda a: f"<CT={a[0]}, dmu/dsigma>",
+                     lambda a: _ext.library().vct_fused_z_smem(1, a[0])),
+    "z_dw_kernel": (lambda a: f"<CT={a[0]}, dW>",
+                    lambda a: _ext.library().vct_fused_z_smem(2, a[0])),
 }
 
 
@@ -2422,8 +2477,7 @@ def print_template_resources() -> None:
     templates (``WGMMA_TEMPLATES``) at every instance, from nvcc's
     -Xptxas=-v output in build.log, and any ptxas warning that it
     serialises an instance's wgmmas (C7515); the dynamic shared memory from
-    the library (the sequence backward's from ops/fused_lstm_seq.py's
-    mirror of its layout)."""
+    the libraries' exports (the decode LSTM step's from its layout's)."""
     lines = _ext.build_log.splitlines()
     names = "|".join(WGMMA_TEMPLATES)
     found = 0

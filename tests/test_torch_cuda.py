@@ -47,7 +47,8 @@ from vae_captioning_torch.ops.fused_lstm_step import (fused_lstm_step,
                                                       lstm_step_layout)
 from vae_captioning_torch.ops.fused_z import (fused_z, fused_z_eps,
                                               fused_z_plain, philox_bits,
-                                              philox_normals)
+                                              philox_normals, z_bwd_kernel,
+                                              z_fwd_kernel)
 from vae_captioning_torch.ops.topk_lse import (top_k_logsumexp,
                                                top_k_logsumexp_plain)
 
@@ -377,7 +378,9 @@ def test_lstm_seq_kernels_match_plain(dev, T, N, E, H):
         assert _rel(a.grad, b.grad) < 1e-2, k
 
 
-@pytest.mark.parametrize("N,K,L,E", [(70, 3, 150, 64), (1000, 100, 150, 256)])
+@pytest.mark.parametrize("N,K,L,E", [(70, 3, 150, 64), (1000, 100, 150, 256),
+                                     (1, 100, 150, 256), (65, 7, 37, 128),
+                                     (300, 5, 150, 512)])
 def test_fused_z_kernels_match_plain(dev, N, K, L, E):
     g = torch.Generator(device=dev).manual_seed(N)
     mean = torch.randn((N, L), generator=g, device=dev)
@@ -398,6 +401,25 @@ def test_fused_z_kernels_match_plain(dev, N, K, L, E):
     assert _rel(outs[0], outs[1]) < 1e-2
     for k, (a, c) in enumerate(zip(leaves[0], leaves[1])):
         assert _rel(a.grad, c.grad) < 1e-3, k
+
+
+@pytest.mark.parametrize("N,K,L,E", [(1280, 100, 150, 256), (65, 7, 37, 128),
+                                     (300, 5, 150, 512)])
+def test_fused_z_kernels_repeat_bit_for_bit(dev, N, K, L, E):
+    """Both kernels give the same bits on a second call: no float
+    atomics, every split summed in a fixed order."""
+    g = torch.Generator(device=dev).manual_seed(N + K)
+    mean = torch.randn((N, L), generator=g, device=dev)
+    std = torch.rand((N, L), generator=g, device=dev) + 0.3
+    w = (0.05 * torch.randn((E, K * L), generator=g, device=dev)).to(torch.bfloat16)
+    b = torch.randn((E,), generator=g, device=dev)
+    dz = torch.randn((N, E), generator=g, device=dev).to(torch.bfloat16)
+    outs = [z_fwd_kernel(mean, std, w, b, K, 11, 3) for _ in range(2)]
+    grads = [z_bwd_kernel(mean, std, w, K, 11, 3, dz) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    for a, c in zip(*grads):
+        assert torch.equal(a, c)
 
 
 def test_fused_z_eps_bits_equal_the_plain_generator(dev):

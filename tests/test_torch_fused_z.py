@@ -18,6 +18,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from vae_captioning_tpu.ops import fused_z as jfz
+from vae_captioning_torch.ops import fused_z as tfz
 from vae_captioning_torch.ops.fused_z import (bits_to_normal, fused_z,
                                               fused_z_eps, fused_z_plain,
                                               philox4x32, philox_normals)
@@ -184,3 +185,120 @@ def test_wrapper_on_cpu_is_the_plain_version_on_its_stream():
         assert torch.equal(t1[k].grad, t2[k].grad), k
     with pytest.raises(ValueError, match="32-bit"):
         fused_z(t1["mean"], t1["std"], t1["w"].t(), t1["b"], K, 2 ** 32, 0)
+
+
+# ----------------------------------------------------------------------
+# the kernels' plan (what the CUDA launches take, and their workspaces)
+# ----------------------------------------------------------------------
+
+# (N, K_z, L, E): the train shapes, ragged rows, one row, one row past a
+# tile, one sample, latent widths of whole boxes, of one partial box and
+# odd, every column width, two column chunks, and K_z L not a multiple of 8
+PLAN_SHAPES = [(1280, 100, 150, 256), (1000, 100, 150, 256), (1, 100, 150, 256),
+               (65, 7, 37, 128), (65, 3, 37, 128), (1000, 1, 256, 64),
+               (1280, 3, 150, 512), (300, 5, 150, 512), (65, 3, 256, 192),
+               (70, 3, 150, 64), (129, 9, 21, 320), (4, 1, 3, 64)]
+
+
+def _fwd_splits(plan, K):
+    """The forward's step ranges [start, end) of (sample, box) steps t =
+    s·boxes + c, as the kernel takes them from ``fwd_per``."""
+    steps = K * plan.boxes
+    return [(z * plan.fwd_per, min(steps, (z + 1) * plan.fwd_per))
+            for z in range(plan.fwd_splits)]
+
+
+def _bwd_samples(plan, K, a, split):
+    """The samples a dμ/dσ partial of class a and split sums (in every
+    column chunk), as the kernel takes them: a + classes·m for m in the
+    split's range (possibly none, when a class has fewer samples)."""
+    m0 = split * plan.bwd_per
+    return [a + plan.classes * m for m in range(m0, m0 + plan.bwd_per)
+            if a + plan.classes * m < K]
+
+
+def _box_columns(plan, L, s, c):
+    """The latent columns of W's box c of sample s, and where it starts
+    in W's row: the plan's frame, box column p = latent 64c − d + p."""
+    d = (s * L) % 8
+    lb = 64 * c - d
+    return range(max(lb, 0), min(lb + 64, L)), s * L + lb
+
+
+@pytest.mark.parametrize("N,K,L,E", PLAN_SHAPES)
+def test_plan_forward_splits_cover_each_step_once(N, K, L, E):
+    """The forward's splits cover every (sample, box) step once, none is
+    empty, every box starts W's read on 16 bytes (TMA's rule), and a
+    sample's boxes hold each of its latent columns once."""
+    plan = tfz.z_plan(N, K, L, E)
+    ranges = _fwd_splits(plan, K)
+    assert all(a < b for a, b in ranges)
+    steps = [t for a, b in ranges for t in range(a, b)]
+    assert steps == list(range(K * plan.boxes))
+    for s in range(K):
+        cols = []
+        for c in range(plan.boxes):
+            box, x0 = _box_columns(plan, L, s, c)
+            assert x0 % 8 == 0 and x0 >= 0
+            cols += list(box)
+        assert cols == list(range(L))
+    assert plan.pitch % 8 == 0 and plan.pitch >= K * L
+    assert E % plan.ct == 0 and plan.ct in (64, 128, 192, 256)
+
+
+@pytest.mark.parametrize("N,K,L,E", PLAN_SHAPES)
+def test_plan_backward_splits_cover_each_sample_once(N, K, L, E):
+    """The dμ/dσ partials of each column chunk cover every sample once,
+    and the samples of a class share one shift d, so that their boxes
+    are one frame of latent columns."""
+    plan = tfz.z_plan(N, K, L, E)
+    seen = [s for a in range(plan.classes) for z in range(plan.bwd_splits)
+            for s in _bwd_samples(plan, K, a, z)]
+    assert sorted(seen) == list(range(K))
+    for a in range(plan.classes):
+        assert len({(s * L) % 8 for z in range(plan.bwd_splits)
+                    for s in _bwd_samples(plan, K, a, z)}) <= 1
+    chunks = E // plan.ct
+    assert plan.bwd_part[1] == chunks * plan.classes * plan.bwd_splits
+
+
+@pytest.mark.parametrize("N,K,L,E", PLAN_SHAPES)
+def test_plan_workspaces_within_bound(N, K, L, E):
+    """The partials pad rows to 128-row blocks and latent columns to the
+    boxes, and a wave of blocks writes at most one partial each: at most
+    max(SMs, blocks of one split) partial tiles of 128 rows."""
+    sms = 132
+    plan = tfz.z_plan(N, K, L, E, sms)
+    row_blocks = -(-N // 128)
+    chunks = E // plan.ct
+    assert plan.fwd_part == (plan.fwd_splits, 128 * row_blocks, E)
+    fwd_units = row_blocks * chunks
+    assert plan.fwd_splits * fwd_units <= max(sms, fwd_units)
+    bwd_units = row_blocks * plan.boxes * chunks * plan.classes
+    assert plan.bwd_part == (2, chunks * plan.classes * plan.bwd_splits,
+                             128 * row_blocks, 64 * plan.boxes)
+    assert plan.bwd_splits * bwd_units <= max(sms, bwd_units)
+    assert 64 * plan.boxes >= L + max((s * L) % 8 for s in range(plan.classes))
+
+
+def test_plan_at_the_train_shapes():
+    """N = 1280, K_z = 100, L = 150, E = 256: one column chunk (each
+    normal drawn once in the forward), shifts d in {0, 2, 4, 6} (4
+    classes, 3 boxes a sample), 130 forward blocks and 120 dμ/dσ blocks on
+    132 SMs, and 16.25 MiB + 7.5 MiB of f32 partials."""
+    plan = tfz.z_plan(1280, 100, 150, 256, 132)
+    assert (plan.ct, plan.pitch, plan.classes, plan.boxes) == (256, 15000, 4, 3)
+    assert (plan.fwd_per, plan.fwd_splits) == (24, 13)
+    assert (plan.bwd_per, plan.bwd_splits) == (25, 1)
+    assert 10 * plan.fwd_splits == 130
+    assert plan.bwd_part[1] * 10 * plan.boxes == 120
+    assert np.prod(plan.fwd_part) * 4 == 16.25 * 2**20
+    assert np.prod(plan.bwd_part) * 4 == 7.5 * 2**20
+
+
+@pytest.mark.parametrize("E,ct", [(64, 64), (128, 128), (192, 192), (256, 256),
+                                  (320, 64), (384, 192), (512, 256)])
+def test_plan_column_width(E, ct):
+    """The widest width the kernels are built for that divides E: at E ≤
+    256 one block column covers E."""
+    assert tfz.z_plan(10, 2, 150, E).ct == ct

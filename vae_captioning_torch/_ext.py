@@ -73,8 +73,10 @@ _SIGNATURES = {
     "vct_fused_lstm_seq_fwd_smem": [],
     "vct_fused_lstm_seq_bwd_smem": [_I, _I],
     "vct_fused_lstm_seq_dw_smem": [_I],
-    "vct_fused_z_fwd": [_P] * 6 + [_I] * 5 + [_U, _U, _P],
-    "vct_fused_z_bwd": [_P] * 7 + [_I] * 4 + [_U, _U, _P],
+    "vct_fused_z_fwd": [_P] * 6 + [_I] * 9 + [_U, _U, _P],
+    "vct_fused_z_bwd": [_P] * 8 + [_I] * 9 + [_U, _U, _P],
+    "vct_fused_z_smem": [_I, _I],
+    "vct_fused_z_transform_check": [_P, _P],
     "vct_fused_z_eps": [_P] + [_I] * 3 + [_U, _U, _I, _P],
     "vct_fused_ag_heads_fwd": [_P] * 6 + [_I] * 6 + [_P],
     "vct_fused_ag_heads_fwd_smem": [_I, _I],

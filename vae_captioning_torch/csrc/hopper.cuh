@@ -3,11 +3,11 @@
 // of both CE schedules (fused_ce.cuh), the flash CE backward (fused_ce.cu),
 // the written-logits CE backward (fused_ce_mat.cu), the AG-heads forward
 // and backward (fused_ag_heads.cu), the LSTM cell of the decode step and
-// the sequence forward (lstm_cell.cuh) and the sequence backward
-// (fused_lstm_seq.cu).  mbarriers, TMA loads (and stores) of bf16 boxes of
-// up to 256 rows x 64 columns with the 128-byte swizzle, shared-memory
-// matrix descriptors
-// for that swizzle, the m64nNk16 bf16 wgmma wrappers, and the host-side
+// the sequence forward (lstm_cell.cuh), the sequence backward
+// (fused_lstm_seq.cu) and the fused z sampling + projection (fused_z.cu).
+// mbarriers, TMA loads (and stores) of bf16 boxes of up to 256 rows x 64
+// columns with the 128-byte swizzle, shared-memory matrix descriptors for
+// that swizzle, the m64nNk16 bf16 wgmma wrappers, and the host-side
 // tensor-map encoder (cuTensorMapEncodeTiled reached through
 // cudaGetDriverEntryPoint, so nothing links libcuda).
 
@@ -18,6 +18,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <utility>
 
 namespace {
 
@@ -180,6 +182,26 @@ __device__ __forceinline__ void wgmma_n80(float (&d)[40], uint64_t a, uint64_t b
 }
 
 template <int TRANS_B, int TRANS_A = 0>
+__device__ __forceinline__ void wgmma_n96(float (&d)[48], uint64_t a, uint64_t b,
+                                          int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, %52, %51;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
+}
+
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t a, uint64_t b,
                                           int scale_d) {
   asm volatile(
@@ -269,12 +291,47 @@ __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t a, uint64_t b,
   if constexpr (N == 32) wgmma_n32<TRANS_B, TRANS_A>(d, a, b, scale_d);
   else if constexpr (N == 64) wgmma_n64<TRANS_B, TRANS_A>(d, a, b, scale_d);
   else if constexpr (N == 80) wgmma_n80<TRANS_B, TRANS_A>(d, a, b, scale_d);
+  else if constexpr (N == 96) wgmma_n96<TRANS_B, TRANS_A>(d, a, b, scale_d);
   else if constexpr (N == 128) wgmma_n128<TRANS_B, TRANS_A>(d, a, b, scale_d);
   else if constexpr (N == 160) wgmma_n160<TRANS_B, TRANS_A>(d, a, b, scale_d);
   else {
-    static_assert(N == 256, "wgmma: N is 32, 64, 80, 128, 160 or 256");
+    static_assert(N == 256, "wgmma: N is 32, 64, 80, 96, 128, 160 or 256");
     wgmma_n256<TRANS_B, TRANS_A>(d, a, b, scale_d);
   }
+}
+
+// Programmatic dependent launch (a grid launched with the PDL attribute,
+// launch_pdl): the grid before it in the stream lets it start early, and
+// its threads wait for that grid to complete, with its writes visible,
+// before they read what it wrote or write what it reads.  Without the
+// attribute the wait returns at once: the grid started after every grid
+// before it in the stream had completed.
+__device__ __forceinline__ void pdl_launch_next() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void pdl_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// kernel<<<grid, threads, smem, st>>>(args...), with the PDL attribute
+// where `pdl`.  A chain of such launches starts with one without it, so
+// that what its grids read before their wait (the caller's inputs, written
+// by whatever ran before the chain) is complete when the chain starts.
+template <typename... Params, typename... Args>
+int launch_pdl(void (*kernel)(Params...), dim3 grid, int threads, size_t smem,
+               cudaStream_t st, bool pdl, Args&&... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...));
 }
 
 // ---------------------------------------------------------------------

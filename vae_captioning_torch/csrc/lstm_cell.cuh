@@ -29,7 +29,7 @@
 //     ring, and two blocks run on an SM (2 stages of 40 KB at U = 32): one
 //     block's loads, gate maths and epilogue overlap the other's.  The
 //     sequence launches its steps after the first with programmatic
-//     dependent launch (launch_pdl, below): a step's x stages (E / 64 of
+//     dependent launch (launch_pdl, hopper.cuh): a step's x stages (E / 64 of
 //     its (E + H) / 64) stream while the step before finishes; its h
 //     stages and epilogue wait for it.  The gate
 //     tiles go through shared memory (the ring, free after the products),
@@ -69,40 +69,6 @@ constexpr int CONVERT = 8;          // h runs a thread has in flight
 
 __device__ __forceinline__ float sigmoid_f32(float v) {
   return 1.0f / (1.0f + expf(-v));
-}
-
-// Programmatic dependent launch (a grid launched with the PDL attribute,
-// launch_pdl): the grid before it in the stream lets it start early, and
-// its threads wait for that grid to complete, with its writes visible,
-// before they read what it wrote or write what it reads.  Without the
-// attribute the wait returns at once: the grid started after every grid
-// before it in the stream had completed.
-__device__ __forceinline__ void pdl_launch_next() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void pdl_wait() {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-}
-
-// kernel<<<grid, threads, smem, st>>>(args...), with the PDL attribute
-// where `pdl`.  A chain of such launches starts with one without it, so
-// that what its grids read before their wait (the caller's inputs, written
-// by whatever ran before the chain) is complete when the chain starts.
-template <typename... Params, typename... Args>
-int launch_pdl(void (*kernel)(Params...), dim3 grid, int threads, size_t smem,
-               cudaStream_t st, bool pdl, Args&&... args) {
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg{};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cfg.attrs = attr;
-  cfg.numAttrs = pdl ? 1 : 0;
-  return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...));
 }
 
 // A block's shape: 256 threads, 64 rows x 2U units; a ring stage holds the

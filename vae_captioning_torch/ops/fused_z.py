@@ -25,12 +25,19 @@ a 23-bit uniform clipped to [1e-7, 1 - 1e-7], then √2·erfinv(2u − 1).
 On CUDA tensors :func:`fused_z` launches ``csrc/fused_z.cu`` and nothing
 of size [N, K_z·L] reaches memory; on CPU tensors it takes the plain
 versions, which also accept an explicit ``eps`` (the tests feed both
-sides the same numbers).
+sides the same numbers).  What the kernels take besides the operands,
+the column width, W's row pitch and the splits of the sample axis, and
+the sizes of their workspaces are :func:`z_plan`'s, so the CPU tests
+check them.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
+
+import functools
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -39,7 +46,10 @@ from vae_captioning_torch import _ext
 FWD = "fused_z_fwd"
 BWD = "fused_z_bwd"
 EPS = "fused_z_eps"
-_FWD_SPLITS = 5          # sample-axis splits of the forward kernel
+_ROWS = 128               # rows of a forward or dμ/dσ block
+_BOX = 64                 # latent columns of a box
+_WIDTHS = (256, 192, 128, 64)   # column widths the kernels are built for
+_SMS = 132                # the H100's SMs, for plans made without a card
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
@@ -171,19 +181,83 @@ def _check(mean, std, w16, b, n_samples) -> Tuple[int, int, int]:
     return N, L, E
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+class ZPlan(NamedTuple):
+    """What the kernels take besides the operands, and the shapes of
+    their workspaces (f32)."""
+    ct: int            # columns of E a block takes (E in E / ct chunks)
+    pitch: int         # W's row pitch in elements: K·L rounded up to 8
+    classes: int       # samples s, s + classes start at the same column mod 8
+    boxes: int         # 64-column boxes of W a sample spans from there
+    fwd_per: int       # forward (sample, box) steps a split
+    fwd_splits: int
+    bwd_per: int       # dμ/dσ samples of a class a split
+    bwd_splits: int
+    fwd_part: Tuple[int, int, int]       # [fwd_splits, rows, E]
+    bwd_part: Tuple[int, int, int, int]  # [2, E / ct · classes · bwd_splits, rows, 64 boxes]
+
+
+@functools.lru_cache(maxsize=None)
+def z_plan(N: int, K: int, L: int, E: int, sms: int = _SMS) -> ZPlan:
+    """The kernels' plan at (N, K_z, L, E) on ``sms`` SMs.
+
+    ct is the widest of 256, 192, 128 and 64 that divides E, so at E ≤
+    256 one block column covers E and the forward draws each normal once.
+    TMA reads W in boxes that start on 16 bytes, so sample s's columns
+    are read from s·L − d, d = s·L mod 8 (at most 8 − gcd(L, 8)), in
+    ``boxes`` 64-column boxes; d repeats every ``classes`` = 8 / gcd(L, 8)
+    samples.  The forward's K·boxes (sample, box) steps of each (128-row
+    block, column chunk) are split, and the dμ/dσ kernel's samples of
+    each (row block, box, column chunk, class), into as many ranges as
+    fill the SMs in one wave (at least one each)."""
+    ct = next(w for w in _WIDTHS if E % w == 0)
+    g = math.gcd(L, 8)
+    classes = 8 // g
+    boxes = _cdiv(L + 8 - g, _BOX)
+    row_blocks = _cdiv(N, _ROWS)
+    chunks = E // ct
+    steps = K * boxes
+    fwd_per = _cdiv(steps, max(1, min(steps, sms // (row_blocks * chunks))))
+    per_class = _cdiv(K, classes)
+    bwd_units = row_blocks * boxes * chunks * classes
+    bwd_per = _cdiv(per_class, max(1, min(per_class, sms // bwd_units)))
+    fwd_splits, bwd_splits = _cdiv(steps, fwd_per), _cdiv(per_class, bwd_per)
+    rows = row_blocks * _ROWS
+    return ZPlan(ct=ct, pitch=_cdiv(K * L, 8) * 8, classes=classes, boxes=boxes,
+                 fwd_per=fwd_per, fwd_splits=fwd_splits, bwd_per=bwd_per,
+                 bwd_splits=bwd_splits, fwd_part=(fwd_splits, rows, E),
+                 bwd_part=(2, chunks * classes * bwd_splits, rows, boxes * _BOX))
+
+
+def _pitched(w16: torch.Tensor, pitch: int) -> torch.Tensor:
+    """W as TMA reads it: itself where K·L is a multiple of 8 (its rows
+    then start on 16-byte boundaries), else a copy with rows padded to
+    ``pitch`` elements."""
+    if w16.shape[1] == pitch:
+        return w16
+    out = torch.zeros((w16.shape[0], pitch), dtype=w16.dtype, device=w16.device)
+    out[:, :w16.shape[1]] = w16
+    return out
+
+
 def z_fwd_kernel(mean, std, w16, b, n_samples: int, seed: int, step: int
                  ) -> torch.Tensor:
     """The forward kernel: → [N, E] bf16."""
     N, L, E = _check(mean, std, w16, b, n_samples)
     dev = mean.device
-    splits = min(_FWD_SPLITS, n_samples)
-    part = torch.empty((splits, N, E), dtype=torch.float32, device=dev)
+    plan = z_plan(N, n_samples, L, E, _ext.sm_count(dev.index))
+    w = _pitched(w16, plan.pitch)
+    part = torch.empty(plan.fwd_part, dtype=torch.float32, device=dev)
     out = torch.empty((N, E), dtype=torch.bfloat16, device=dev)
     with torch.cuda.device(dev):
         err = _ext.library().vct_fused_z_fwd(
-            mean.data_ptr(), std.data_ptr(), w16.data_ptr(), b.data_ptr(),
-            part.data_ptr(), out.data_ptr(), N, L, E, n_samples, splits,
-            seed, step, _ext.stream_ptr(dev))
+            mean.data_ptr(), std.data_ptr(), w.data_ptr(), b.data_ptr(),
+            part.data_ptr(), out.data_ptr(), N, L, E, n_samples, plan.pitch,
+            plan.ct, plan.classes, plan.boxes, plan.fwd_per, seed, step,
+            _ext.stream_ptr(dev))
     _ext.check_launch(err, FWD)
     _ext.LAUNCHES[FWD] += 1
     return out
@@ -198,14 +272,19 @@ def z_bwd_kernel(mean, std, w16, n_samples: int, seed: int, step: int, g
     _ext.require(dz16.shape == (N, E) and dz16.device == mean.device,
                  f"fused_z: gradient shape {tuple(dz16.shape)} != {(N, E)}")
     dev = mean.device
-    dmu = torch.empty((N, L), dtype=torch.float32, device=dev)
-    dsg = torch.empty((N, L), dtype=torch.float32, device=dev)
-    dw = torch.empty((E, n_samples * L), dtype=torch.float32, device=dev)
+    plan = z_plan(N, n_samples, L, E, _ext.sm_count(dev.index))
+    w = _pitched(w16, plan.pitch)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dmu = torch.empty((N, L), **f32)
+    dsg = torch.empty((N, L), **f32)
+    dw = torch.empty((E, n_samples * L), **f32)
+    part = torch.empty(plan.bwd_part, **f32)
     with torch.cuda.device(dev):
         err = _ext.library().vct_fused_z_bwd(
-            mean.data_ptr(), std.data_ptr(), w16.data_ptr(), dz16.data_ptr(),
-            dmu.data_ptr(), dsg.data_ptr(), dw.data_ptr(), N, L, E,
-            n_samples, seed, step, _ext.stream_ptr(dev))
+            mean.data_ptr(), std.data_ptr(), w.data_ptr(), dz16.data_ptr(),
+            dmu.data_ptr(), dsg.data_ptr(), dw.data_ptr(), part.data_ptr(), N, L,
+            E, n_samples, plan.pitch, plan.ct, plan.classes, plan.boxes,
+            plan.bwd_per, seed, step, _ext.stream_ptr(dev))
     _ext.check_launch(err, BWD)
     _ext.LAUNCHES[BWD] += 1
     return dmu, dsg, dw
@@ -234,6 +313,20 @@ def fused_z_eps(seed: int, step: int, n_rows: int, n_samples: int,
     _ext.check_launch(err, EPS)
     _ext.LAUNCHES[EPS] += 1
     return out.long() & _MASK32 if bits else out
+
+
+def transform_mismatches(device: torch.device | str) -> int:
+    """On a CUDA device: how many of the 2^23 uniforms the draws can give
+    map to a normal whose bits differ between the fused kernels'
+    transform and ``erfinvf`` (the eps kernel's); 0 is right."""
+    device = torch.device(device)
+    _ext.require(device.type == "cuda", f"transform_mismatches: device {device}")
+    count = torch.zeros(1, dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        err = _ext.library().vct_fused_z_transform_check(
+            count.data_ptr(), _ext.stream_ptr(device))
+    _ext.check_launch(err, "fused_z transform check")
+    return int(count.item())
 
 
 # ----------------------------------------------------------------------
