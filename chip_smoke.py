@@ -9,14 +9,19 @@ Phases, in order; any failure raises and the script exits nonzero:
    CE forward of both schedules, the flash CE's and the written logits'
    backward, the AG-heads forward and backward, the LSTM cell of the
    decode step and of the sequence forward, the sequence backward's
-   steps, dx and dW, the fused z forward, dmu/dsigma and dW), and any
-   ptxas warning that one serialises its wgmmas;
+   steps, dx and dW, the fused z forward, dmu/dsigma and dW, the decode's
+   logits top-k, int8 top-k and sampler at every block shape and list
+   length), and any ptxas warning that one serialises its wgmmas;
 3. kernels: each kernel against its plain PyTorch version on the card,
    at the main paths' shapes and ragged ones: the decode kernels (plus a
    deliberate tie; the LSTM step also at one row, one row past a tile,
-   narrow widths and a width whose A is taken in chunks), the int8 top-k and the top-k + lse over written
+   narrow widths and a width whose A is taken in chunks; the logits top-k
+   also at one row, one row past a tile, lists of 16, H = 96, 1024 (64-row
+   blocks) and 2048 (h streamed)), the int8 top-k (also at one row, one
+   row past a tile, lists of 16, H = 1024 and 2624) and the top-k + lse over written
    logits (values and indices bit for bit), the sampler (token for token
-   outside near-ties, and its law over 200,000 draws), the train path's ``fused_lstm_seq`` (also at one
+   outside near-ties, also at one row and H = 96, 1024, and its law over
+   200,000 draws), the train path's ``fused_lstm_seq`` (also at one
    row, one row past a tile, one step and the narrowest and a wider
    width; forward and backward twice, bit for bit) and ``fused_z``
    forward and backward (also at one row, one row past a tile, one
@@ -136,7 +141,7 @@ from vae_captioning_torch.ops.fused_logits_topk import (  # noqa: E402
     fused_logits_sample, fused_logits_sample_plain, fused_logits_top_k,
     fused_logits_top_k_int8, fused_logits_top_k_int8_plain,
     fused_logits_top_k_plain, int8_top_k_kernel, int8_top_k_plain,
-    quantize_logits_weights, quantize_rows, sample_scores)
+    logits_plan, quantize_logits_weights, quantize_rows, sample_scores)
 from vae_captioning_torch.ops.fused_lstm_seq import (  # noqa: E402
     lstm_seq_bwd_kernel, lstm_seq_bwd_plain, lstm_seq_fwd_kernel,
     lstm_seq_fwd_plain)
@@ -409,11 +414,14 @@ def check_lstm(N: int, E: int = 256, H: int = 512) -> float:
 
 
 def logits_inputs(M: int, V: int, H: int = 512, seed: int = 0):
+    """h [M, H] bf16, the head w [H, V] bf16 in the layout the decode
+    stores it (``w.t()`` contiguous, as ``DecodeWeights.of`` casts it),
+    b [V] f32."""
     g = torch.Generator(device=DEV).manual_seed(seed)
     h = torch.tanh(torch.randn((M, H), generator=g, device=DEV)).to(torch.bfloat16)
     w = (0.05 * torch.randn((H, V), generator=g, device=DEV)).to(torch.bfloat16)
     b = 0.1 * torch.randn((V,), generator=g, device=DEV)
-    return h, w, b
+    return h, w.t().contiguous().t(), b
 
 
 def compare_topk(tag: str, got, want) -> float:
@@ -433,12 +441,14 @@ def compare_topk(tag: str, got, want) -> float:
     return max(float(v_err.max()), float(l_err.max()))
 
 
-def check_topk(M: int, V: int, k: int) -> float:
-    h, w, b = logits_inputs(M, V, seed=M + V + k)
+def check_topk(M: int, V: int, k: int, H: int = 512) -> float:
+    h, w, b = logits_inputs(M, V, H, seed=M + V + k)
     got = fused_logits_top_k(h, w, b, k)
     p_vals, p_idx, p_lse = fused_logits_top_k_plain(h, w, b, k + 1)
     torch.cuda.synchronize()
-    tag = f"fused_logits_top_k M={M} V={V} k={k}"
+    plan = logits_plan(M, H, V, k, 2, _ext.sm_count(0))
+    tag = (f"fused_logits_top_k M={M} H={H} V={V} k={k} ({plan.rows}-row blocks, h "
+           f"{'resident' if plan.resident else 'streamed'}, {plan.chunks} chunks)")
     err = compare_topk(tag, got, (p_vals[:, :k], p_idx[:, :k], p_lse))
     # rows whose plain top-(k+1) values hold a near-tie may order or
     # choose their indices differently; every other row must agree exactly
@@ -484,6 +494,12 @@ def check_topk_ties(k: int) -> None:
 # rows the main path gives the kernels: 512 images x (greedy, beam 3,
 # beam 10), and a ragged count
 ROWS = (512, 1536, 5120, 1000)
+# the logits top-k also at one row, one row past a block, lists of 16
+# (64-row blocks), H = 96, H = 1024 (64-row blocks) and H = 2048 (h
+# streamed): (M, V, k, H)
+TOPK_SHAPES = ((1, 11519, 3, 512), (65, 11500, 10, 512), (65, 11519, 16, 512),
+               (1000, 11500, 3, 96), (1000, 11519, 10, 1024),
+               (65, 11519, 16, 1024), (65, 11519, 3, 2048))
 # the LSTM step also at one row, one row past a tile, narrow widths (E %
 # 64 != 0, H % 128 != 0: pad units) and a width whose A is taken in chunks
 LSTM_SHAPES = ((1, 256, 512), (65, 256, 512), (300, 32, 96), (70, 256, 1536))
@@ -493,8 +509,9 @@ def phase_kernels() -> dict:
     """Returns each kernel's largest |kernel - plain| over its checks."""
     lstm = max([check_lstm(N) for N in ROWS]
                + [check_lstm(*shape) for shape in LSTM_SHAPES])
-    topk = max(check_topk(M, V, k) for M in ROWS
-               for V in (11500, 11519) for k in (1, 3, 10))
+    topk = max([check_topk(M, V, k) for M in ROWS
+                for V in (11500, 11519) for k in (1, 3, 10)]
+               + [check_topk(*shape) for shape in TOPK_SHAPES])
     for k in (1, 3, 10, 16):
         check_topk_ties(k)
     return {"fused_lstm_step": lstm, "fused_logits_top_k": topk}
@@ -509,24 +526,26 @@ SAMPLE_TV = 0.02        # the sampler's law: total variation to softmax(x / T)
 LAW_V, LAW_DRAWS = 100, 200_000
 
 
-def int8_inputs(M: int, V: int, seed: int):
+def int8_inputs(M: int, V: int, seed: int, H: int = 512):
     """h as the LSTM step returns it (f32), the head quantised per column
-    from f32 weights, the bias."""
-    h, w, b = logits_inputs(M, V, seed=seed)
+    from f32 weights (stored column-major), the bias."""
+    h, w, b = logits_inputs(M, V, H, seed=seed)
     g = torch.Generator(device=DEV).manual_seed(seed + 1)
     wf = w.float() + 0.001 * torch.randn(w.shape, generator=g, device=DEV)
     return (h.float(), *quantize_logits_weights(wf), b)
 
 
-def check_int8(M: int, V: int, k: int) -> float:
+def check_int8(M: int, V: int, k: int, H: int = 512) -> float:
     """The int32 product is exact and each dequantisation step rounds on
     its own on both sides: values and indices bit for bit, lse to its
     rtol."""
-    args = int8_inputs(M, V, seed=M + V + k)
+    args = int8_inputs(M, V, M + V + k, H)
     vals, idx, lse = fused_logits_top_k_int8(*args, k)
     p_vals, p_idx, p_lse = fused_logits_top_k_int8_plain(*args, k)
     torch.cuda.synchronize()
-    tag = f"fused_logits_top_k_int8 M={M} V={V} k={k}"
+    plan = logits_plan(M, H, V, k, 1, _ext.sm_count(0))
+    tag = (f"fused_logits_top_k_int8 M={M} H={H} V={V} k={k} ({plan.rows}-row blocks, h "
+           f"{'resident' if plan.resident else 'streamed'})")
     err = compare_topk(tag, (vals, idx, lse), (p_vals, p_idx, p_lse))
     if not (torch.equal(vals, p_vals) and torch.equal(idx, p_idx)):
         raise AssertionError(f"{tag}: values or indices not bit-identical "
@@ -577,12 +596,12 @@ def sample_compare(tag: str, tokens, scores) -> tuple:
     return int(tokens.numel()), int(near.sum()), int(differ.sum())
 
 
-def check_sample(M: int, V: int, temperature: float = 0.8) -> float:
-    h, w, b = logits_inputs(M, V, seed=M + V)
+def check_sample(M: int, V: int, H: int = 512, temperature: float = 0.8) -> float:
+    h, w, b = logits_inputs(M, V, H, seed=M + V)
     tokens = fused_logits_sample(h, w, b, 4321, 6, temperature)
     scores = sample_scores(h, w, b, 4321, 6, temperature)
     torch.cuda.synchronize()
-    tag = f"fused_logits_sample M={M} V={V} T={temperature}"
+    tag = f"fused_logits_sample M={M} H={H} V={V} T={temperature}"
     rows, near, differ = sample_compare(tag, tokens, scores)
     picked = scores.gather(1, tokens.long()[:, None])[:, 0]
     err = float((picked - scores.max(dim=1).values).abs().max())
@@ -612,17 +631,26 @@ def check_sample_law() -> None:
             raise AssertionError(f"fused_logits_sample law T={t}: TV {tv:.4f}")
 
 
+# the int8 top-k also at one row and one row past a block with lists of
+# 16 (64-row blocks), at H = 1024 and at H = 2624 (h streamed): (M, V, k,
+# H); the sampler also at one row, H = 96 and H = 1024: (M, V, H)
+INT8_SHAPES = ((1, 11519, 16, 512), (65, 11500, 16, 512), (1000, 11500, 3, 1024),
+               (65, 11519, 10, 2624))
+SAMPLE_SHAPES = ((512, 11500, 512), (1000, 11519, 512), (1, 11519, 512),
+                 (65, 11500, 96), (65, 11519, 1024))
+
+
 def phase_mode_kernels() -> dict:
     """The int8 kernel at every (rows, vocab, k) the main paths give the
-    top-k kernel, the top-k + lse kernel at beam 3 and beam 10 (N = 1536,
-    5120) and the ragged N = 1000, V = 11519, the sampler at M = 512 and
-    the ragged shape, and the sampler's law."""
-    int8 = max(check_int8(M, V, k) for M in ROWS for V in (11500, 11519)
-               for k in (1, 3, 10))
+    top-k kernel and INT8_SHAPES, the top-k + lse kernel at beam 3 and
+    beam 10 (N = 1536, 5120) and the ragged N = 1000, V = 11519, the
+    sampler at SAMPLE_SHAPES, and the sampler's law."""
+    int8 = max([check_int8(M, V, k) for M in ROWS for V in (11500, 11519)
+                for k in (1, 3, 10)] + [check_int8(*shape) for shape in INT8_SHAPES])
     lse = max(check_topk_lse(N, V, k) for N, V in ((1536, 11500), (5120, 11500),
                                                    (1000, 11519))
               for k in (3, 10))
-    sample = max(check_sample(M, V) for M, V in ((512, 11500), (1000, 11519)))
+    sample = max(check_sample(*shape) for shape in SAMPLE_SHAPES)
     check_sample_law()
     return {"fused_logits_top_k_int8": int8, "top_k_logsumexp": lse,
             "fused_logits_sample": sample}
@@ -654,6 +682,19 @@ def lstm_cell_call(x, c, h, w, b):
             w[:E].t().contiguous(), w[E:].t().contiguous(), bias,
             torch.zeros_like(bias))
     return lambda: torch.lstm_cell(*args)
+
+
+def logits_yardstick(kernel, plain, library) -> tuple:
+    """(kernel, plain, library) ms by CUDA events in turns (kernel, plain,
+    library, library, plain, kernel), then the card's own time (device_ms)
+    of the kernel and the library in turns, and the host's time per call
+    of the kernel's wrapper: ((kernel, plain), library, (device kernel,
+    device library), host us)."""
+    k1, p1, l1 = cuda_ms(kernel), cuda_ms(plain), cuda_ms(library)
+    l2, p2, k2 = cuda_ms(library), cuda_ms(plain), cuda_ms(kernel)
+    d = [sum(device_ms(fn).values()) for fn in (kernel, library, library, kernel)]
+    return (((k1 + k2) / 2, (p1 + p2) / 2), (l1 + l2) / 2,
+            ((d[0] + d[3]) / 2, (d[1] + d[2]) / 2), host_us(kernel))
 
 
 def topk_library_call(h, w, b, k):
@@ -703,17 +744,21 @@ def phase_kernel_times(label: str) -> dict:
               + f"); host per call {host_us(step):.1f} / {host_us(cell):.1f} us "
               f"[{label}]")
     for M, k in ((1536, 3), (5120, 10), (512, 1)):
+        # the head in the layout the decode stores it: no per-call transpose
         h, w, b = logits_inputs(M, 11500)
-        t = turns(lambda: fused_logits_top_k(h, w, b, k),
-                  lambda: fused_logits_top_k_plain(h, w, b, k), cuda_ms)
-        lib = cuda_ms(topk_library_call(h, w, b, k))
+        t, lib, dev, host = logits_yardstick(
+            lambda: fused_logits_top_k(h, w, b, k),
+            lambda: fused_logits_top_k_plain(h, w, b, k), topk_library_call(h, w, b, k))
         outs = fused_logits_top_k(h, w, b, k)
         bnd = bound(2.0 * M * h.shape[1] * w.shape[1], nbytes(h, w, b, *outs))
         times.setdefault("fused_logits_top_k", timing(t, bnd, lib))
+        plan = logits_plan(M, h.shape[1], w.shape[1], k, 2, _ext.sm_count(0))
         print(f"time fused_logits_top_k M={M} H=512 V=11500 k={k}: kernel "
               f"{t[0]:.4f} ms, plain {t[1]:.4f} ms, F.linear bf16 + torch.topk "
               f"+ torch.logsumexp {lib:.4f} ms, bound {bnd[0]:.4f} ms "
-              f"({bnd[1]}) [{label}]")
+              f"({bnd[1]}); device: kernel {dev[0]:.4f} ms, library {dev[1]:.4f} "
+              f"ms; host per call {host:.1f} us ({plan.rows}-row blocks, "
+              f"{plan.chunks} chunks of {plan.chunk_tiles} tiles) [{label}]")
     return times
 
 
@@ -747,9 +792,10 @@ def phase_mode_kernel_times(label: str) -> dict:
     for M, k in ((1536, 3), (5120, 10), (512, 1)):
         h, wq, ws, b = int8_inputs(M, 11500, seed=M)
         hq, hs = quantize_rows(h)
-        t = turns(lambda: int8_top_k_kernel(hq, hs, wq, ws, b, k),
-                  lambda: int8_top_k_plain(hq, hs, wq, ws, b, k), cuda_ms)
-        lib = cuda_ms(int8_library_call(hq, hs, wq, ws, b, k))
+        t, lib, dev, host = logits_yardstick(
+            lambda: int8_top_k_kernel(hq, hs, wq, ws, b, k),
+            lambda: int8_top_k_plain(hq, hs, wq, ws, b, k),
+            int8_library_call(hq, hs, wq, ws, b, k))
         quant = cuda_ms(lambda: quantize_rows(h))
         outs = int8_top_k_kernel(hq, hs, wq, ws, b, k)
         bnd = bound(2.0 * M * H * wq.shape[1], nbytes(hq, hs, wq, ws, b, *outs),
@@ -758,22 +804,28 @@ def phase_mode_kernel_times(label: str) -> dict:
         print(f"time fused_logits_top_k_int8 M={M} H={H} V=11500 k={k}: kernel "
               f"{t[0]:.4f} ms, plain {t[1]:.4f} ms, library (torch._int_mm + "
               f"dequantise + torch.topk + torch.logsumexp) {lib:.4f} ms, bound "
-              f"{bnd[0]:.4f} ms ({bnd[1]}); the wrapper's quantisation of h "
-              f"{quant:.4f} ms [{label}]")
+              f"{bnd[0]:.4f} ms ({bnd[1]}); device: kernel {dev[0]:.4f} ms, "
+              f"library {dev[1]:.4f} ms; host per call {host:.1f} us; the "
+              f"wrapper's quantisation of h {quant:.4f} ms [{label}]")
     M, T = 512, 0.8
     h, w, b = logits_inputs(M, 11500)
-    w_lin = w.t().contiguous()                  # nn.Linear's [V, H]
-    t = turns(lambda: fused_logits_sample(h, w, b, 5, 1, T),
-              lambda: fused_logits_sample_plain(h, w, b, 5, 1, T), cuda_ms)
-    lib = cuda_ms(lambda: torch.multinomial(torch.softmax(
-        (torch.nn.functional.linear(h, w_lin).float() + b) / T, dim=1), 1))
+    w_lin = w.t()                               # nn.Linear's [V, H], contiguous
+
+    def multinomial():
+        return torch.multinomial(torch.softmax(
+            (torch.nn.functional.linear(h, w_lin).float() + b) / T, dim=1), 1)
+
+    t, lib, dev, host = logits_yardstick(
+        lambda: fused_logits_sample(h, w, b, 5, 1, T),
+        lambda: fused_logits_sample_plain(h, w, b, 5, 1, T), multinomial)
     bnd = bound(2.0 * M * H * w.shape[1],
                 nbytes(h, w, b, fused_logits_sample(h, w, b, 5, 1, T)))
     times["fused_logits_sample"] = timing(t, bnd, lib)
     print(f"time fused_logits_sample M={M} H={H} V=11500 T={T}: kernel "
           f"{t[0]:.4f} ms, plain {t[1]:.4f} ms, library (F.linear bf16 + "
           f"torch.multinomial(softmax(logits / T))) {lib:.4f} ms, bound "
-          f"{bnd[0]:.4f} ms ({bnd[1]}) [{label}]")
+          f"{bnd[0]:.4f} ms ({bnd[1]}); device: kernel {dev[0]:.4f} ms, "
+          f"library {dev[1]:.4f} ms; host per call {host:.1f} us [{label}]")
     for N, k in ((1536, 3), (5120, 10)):
         x = unfused_logits(N, 11500, seed=N)
         t = turns(lambda: top_k_logsumexp(x, k),
@@ -2424,10 +2476,12 @@ def phase_train_profile(out_dir: str, label: str, prior: str, ce=None) -> None:
 # forward (csrc/lstm_cell.cuh, <U, StepEpi | SeqEpi>), and the sequence
 # backward's steps and dx (csrc/fused_lstm_seq.cu, <WG, MODE>) and its dW
 # products (<CT>), and the fused z forward, dmu/dsigma and dW
-# (csrc/fused_z.cu, <CT>): each one's instance label from its template arguments
-# (a list: ints, bools and epilogue names in order), and its dynamic shared
-# memory (the AG forward's at H = HIDDEN with h resident, at 2·HIDDEN with
-# h streamed; the LSTM cell's at E = EMBED, H = HIDDEN)
+# (csrc/fused_z.cu, <CT>), and the decode's logits top-k, int8 top-k and
+# sampler (csrc/fused_logits_topk.cu, <logit, RG, RES, BOXES, score, K>): each one's
+# instance label from its template arguments (a list: ints, bools and type
+# names in order), and its dynamic shared memory (the AG forward's at H =
+# HIDDEN with h resident, at 2·HIDDEN with h streamed; the LSTM cell's at E
+# = EMBED, H = HIDDEN; the logits kernels' at H = HIDDEN)
 SEQ_MODES = ("gates of step T-1", "step", "step 0 (dh0)", "dx")
 WGMMA_TEMPLATES = {
     "ce_fwd_kernel": (lambda a: f"<{a[0]}, {'written logits' if a[1] else 'flash'}>",
@@ -2456,17 +2510,25 @@ WGMMA_TEMPLATES = {
                      lambda a: _ext.library().vct_fused_z_smem(1, a[0])),
     "z_dw_kernel": (lambda a: f"<CT={a[0]}, dW>",
                     lambda a: _ext.library().vct_fused_z_smem(2, a[0])),
+    "logits_topk_kernel": (
+        lambda a: f"<{'int8' if a[0] == 'S8Logit' else 'bf16'}, {64 * a[1]} rows, h "
+                  f"{'resident' if a[2] else 'streamed'}, {a[3] or 'runtime'} boxes, "
+                  f"{'sampler' if a[4] == 'GumbelScore' else 'top-k'}, K={a[5]}>",
+        lambda a: _ext.library().vct_fused_logits_top_k_smem(
+            HIDDEN, int(a[0] == "S8Logit"), 64 * a[1], int(a[2]))),
 }
 
 
 def template_args(mangled: str, name: str) -> list:
     """The template arguments of a mangled instance of ``name``, in order:
-    ints (``Li64E``), bools (``Lb1E``) and the LSTM cell's epilogue type
-    names (``StepEpi``, ``SeqEpi``)."""
+    ints (``Li64E``), bools (``Lb1E``) and the type names of the LSTM
+    cell's epilogues (``StepEpi``, ``SeqEpi``) and of the logits kernel's
+    policies (``Bf16Logit``, ``S8Logit``, ``RawLogit``, ``GumbelScore``)."""
     rest = mangled[mangled.index(f"{len(name)}{name}I") + len(name) + len(str(len(name))) + 1:]
     rest = rest[:rest.find("Ev")] if "Ev" in rest else rest
     args = []
-    for m in re.finditer(r"Li(\d+)E|Lb([01])E|(StepEpi|SeqEpi)", rest):
+    for m in re.finditer(r"Li(\d+)E|Lb([01])E|(StepEpi|SeqEpi|Bf16Logit|S8Logit|RawLogit"
+                         r"|GumbelScore)", rest):
         args.append(int(m.group(1)) if m.group(1) else m.group(2) == "1"
                     if m.group(2) else m.group(3))
     return args

@@ -4,17 +4,22 @@ Runs ``chip_smoke.py``'s full-width AG-CVAE (random weights from a seed)
 over one batch of 512 synthetic images at beam 3, beam 10 and greedy,
 each batch once to warm up and then ``REPS`` times under
 ``torch.profiler``, and prints for each mode the device time per batch of
-each kernel and their sum: what the card spends, which the host-clock
-times of ``chip_smoke.py``'s ``phase_decode_times`` cannot show where
-the host bounds the batch.  It uses only what ``chip_smoke.py`` and the
-decode API have held since the port's first slice, so the same script
-times an older checkout of the repository too.
+each kernel (and its launches per batch) and their sum: what the card
+spends, which the host-clock times of ``chip_smoke.py``'s
+``phase_decode_times`` cannot show where the host bounds the batch.
+Then the fused logits top-k wrapper alone at each mode's shape (M = 512,
+k = 1; 1536, 3; 5120, 10) on that model's head as the decode stores it
+(``DecodeWeights.of``): CUDA events, device time and host time per call.
+It uses only what ``chip_smoke.py`` and the decode API have held since
+the port's first slice, so the same script times an older checkout of
+the repository too.
 
     python3 decode_profile.py        # from the repository's root, on a CUDA card
 """
 
 from __future__ import annotations
 
+import functools
 import sys
 
 import torch
@@ -34,7 +39,8 @@ def main() -> None:
     import chip_smoke as cs
     from torch.profiler import ProfilerActivity, profile
 
-    from vae_captioning_torch.inference import make_decode_fns
+    from vae_captioning_torch.inference import DecodeWeights, make_decode_fns
+    from vae_captioning_torch.ops.fused_logits_topk import fused_logits_top_k
 
     label = cs.card()
     cfg, vocab, model = cs.full_width_model()
@@ -52,15 +58,31 @@ def main() -> None:
             for _ in range(REPS):
                 fn(feats, c_v, generator=g).tokens.cpu()
             torch.cuda.synchronize()
-        times = {}
+        times, counts = {}, {}
         for e in prof.events():
             if e.device_type.name == "CUDA":
                 key = kernel_name(e.name)[:48]
                 times[key] = times.get(key, 0.0) + e.device_time_total / REPS / 1e3
+                counts[key] = counts.get(key, 0) + 1 / REPS
         top = sorted(times.items(), key=lambda kv: -kv[1])
         print(f"decode {name}, {cs.BATCH} images: device {sum(times.values()):.3f} "
               f"ms/batch; " + ", ".join(f"{k} {v:.3f}" for k, v in top[:6])
               + f" [{label}]")
+        print(f"decode {name} kernels (ms/batch, launches/batch): "
+              + "; ".join(f"{k} {v:.3f} x{counts[k]:.0f}" for k, v in top))
+    weights = DecodeWeights.of(model)
+    g = torch.Generator(device=cs.DEV).manual_seed(11)
+    torch.set_grad_enabled(False)            # as the decode calls it
+    for M, k in ((512, 1), (1536, 3), (5120, 10)):
+        h = torch.tanh(torch.randn((M, weights.head_w.shape[0]), generator=g,
+                                   device=cs.DEV)).to(torch.bfloat16)
+        call = functools.partial(fused_logits_top_k, h, weights.head_w,
+                                 weights.head_b, k)
+        events = (cs.cuda_ms(call) + cs.cuda_ms(call)) / 2
+        device = sum(cs.device_ms(call).values())
+        print(f"fused_logits_top_k M={M} k={k} on the stored head: events "
+              f"{events:.4f} ms, device {device:.4f} ms, host per call "
+              f"{cs.host_us(call):.1f} us [{label}]")
 
 
 if __name__ == "__main__":

@@ -37,7 +37,8 @@ from vae_captioning_torch.ops.fused_ce import (
 from vae_captioning_torch.ops.fused_logits_topk import (
     fused_logits_sample, fused_logits_top_k, fused_logits_top_k_int8,
     fused_logits_top_k_int8_plain, fused_logits_top_k_plain,
-    quantize_logits_weights, sample_scores)
+    block_shape, int8_top_k_kernel, int8_top_k_plain, logits_plan,
+    logits_top_k_kernel, quantize_logits_weights, quantize_rows, sample_kernel, sample_scores)
 from vae_captioning_torch.ops.fused_lstm_seq import (fused_lstm_seq,
                                                      fused_lstm_seq_plain)
 from vae_captioning_torch.ops.fused_lstm_step import (fused_lstm_step,
@@ -123,6 +124,104 @@ def test_logits_top_k_kernel_matches_plain(dev, k):
     torch.testing.assert_close(lse, p_lse, rtol=1e-5, atol=0)
     # unit-variance logits over 4001 columns: no near-ties at this seed
     assert torch.equal(idx, p_idx)
+
+
+def _logits_args(dev, M, H, V, seed):
+    """h [M, H] bf16, the head transposed w_t [V, H] bf16 (as the decode
+    stores it), b [V] f32."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h = torch.tanh(torch.randn((M, H), generator=g, device=dev)).to(torch.bfloat16)
+    w_t = (0.05 * torch.randn((V, H), generator=g, device=dev)).to(torch.bfloat16)
+    return h, w_t, 0.1 * torch.randn((V,), generator=g, device=dev)
+
+
+def _assert_top_k(got, want_k1, k):
+    """Values and lse to rtol 1e-5 (f32 sums in another order); indices
+    equal in every row whose plain top-(k+1) values hold no gap of 1e-4."""
+    p_vals, p_idx, p_lse = want_k1
+    torch.testing.assert_close(got[0], p_vals[:, :k], rtol=1e-5, atol=0)
+    torch.testing.assert_close(got[2], p_lse, rtol=1e-5, atol=0)
+    near = ((p_vals[:, :k] - p_vals[:, 1:]) <= 1e-4).any(dim=1)
+    assert bool(((got[1] != p_idx[:, :k]).any(dim=1) & ~near).sum() == 0)
+
+
+@pytest.mark.parametrize("H,eb,k,rows,resident", [
+    (512, 2, 3, 128, True), (512, 2, 10, 128, True), (512, 2, 16, 64, True),
+    (640, 2, 3, 128, True), (672, 2, 3, 64, True), (1024, 2, 3, 64, True),
+    (1280, 2, 1, 64, True), (1312, 2, 1, 64, False), (4096, 2, 3, 64, False),
+    (512, 1, 10, 128, True), (1024, 1, 10, 128, True), (1280, 1, 3, 128, True),
+    (1344, 1, 3, 64, True), (2560, 1, 3, 64, True), (2624, 1, 3, 64, False),
+    (96, 2, 3, 128, True), (32, 2, 16, 64, True)])
+def test_plan_block_shape_follows_the_width(dev, H, eb, k, rows, resident):
+    """The kernels' block shape: 128 rows where they fit beside four ring
+    stages and the lists hold at most 10 (the decode's H = 512 in bf16
+    and int8); else 64 rows, resident beside four stages or streamed;
+    within 227 KB of shared memory."""
+    assert block_shape(H, eb, k) == (rows, resident)
+    smem = _ext.library().vct_fused_logits_top_k_smem(H, int(eb == 1), rows, int(resident))
+    assert 0 < smem <= 232448
+
+
+def test_plan_takes_the_forced_rows(dev):
+    assert block_shape(512, 2, 1, 64) == (64, True)
+    assert logits_plan(512, 512, 11500, 1, 2, rows=64).parts == 2 * logits_plan(
+        512, 512, 11500, 1, 2, rows=64).chunks
+    with pytest.raises(ValueError, match="rows=128"):
+        logits_plan(512, 1024, 11500, 3, rows=128)
+    with pytest.raises(ValueError, match="rows=128"):
+        block_shape(512, 2, 16, 128)
+
+
+@pytest.mark.parametrize("M,H,V,k,rows", [
+    (1536, 512, 11500, 3, 0), (512, 512, 11519, 1, 64),
+    (512, 512, 11500, 10, 0), (1000, 512, 11519, 3, 64),
+    (1, 512, 11519, 3, 0), (65, 512, 11500, 16, 0),
+    (300, 96, 11519, 10, 0), (65, 1024, 11500, 3, 0),
+    (65, 2048, 11519, 10, 0), (200, 512, 130, 16, 0)])
+def test_logits_top_k_kernel_geometries_match_plain(dev, M, H, V, k, rows):
+    """Every block shape the plan picks (128 rows resident, the box count
+    at compile time at H = 512; 64 rows resident at H = 1024 and for
+    lists of 16; 64 rows streamed at H = 2048) and the forced 64-row
+    blocks, at one row, one row past a block, H = 96 and a vocabulary of
+    two tiles; twice, bit for bit."""
+    h, w_t, b = _logits_args(dev, M, H, V, seed=M + H + k)
+    plan = logits_plan(M, H, V, k, 2, rows=rows)
+    got = logits_top_k_kernel(h, w_t, b, k, plan)
+    _assert_top_k(got, fused_logits_top_k_plain(h, w_t.t(), b, k + 1), k)
+    again = logits_top_k_kernel(h, w_t, b, k, plan)
+    assert all(torch.equal(a, r) for a, r in zip(got, again))
+
+
+@pytest.mark.parametrize("M,H,V,k,rows", [
+    (512, 512, 11500, 1, 64), (1536, 512, 11519, 10, 0),
+    (1, 512, 11519, 16, 0), (65, 1024, 11500, 3, 0),
+    (65, 2624, 11519, 10, 0)])
+def test_int8_kernel_geometries_match_plain(dev, M, H, V, k, rows):
+    """The int8 kernel at every block shape: values and indices bit for
+    bit, lse to 1e-5."""
+    h, w_t, b = _logits_args(dev, M, H, V, seed=M + H + k)
+    hq, hs = quantize_rows(h.float())
+    wq, ws = quantize_logits_weights(w_t.t().float())
+    plan = logits_plan(M, H, V, k, 1, rows=rows)
+    vals, idx, lse = int8_top_k_kernel(hq, hs, wq, ws, b, k, plan)
+    p_vals, p_idx, p_lse = int8_top_k_plain(hq, hs, wq, ws, b, k)
+    assert torch.equal(idx, p_idx) and torch.equal(vals, p_vals)
+    torch.testing.assert_close(lse, p_lse, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("M,H,V", [(512, 512, 11500), (1, 512, 11519),
+                                   (65, 96, 11500), (65, 1024, 11519),
+                                   (33, 2048, 130)])
+def test_sample_kernel_geometries_match_plain(dev, M, H, V):
+    """The sampler at its block shapes (64 rows, h resident; streamed at
+    H = 2048): tokens equal the plain sampler's outside rows whose top two
+    scores lie within 1e-4."""
+    h, w_t, b = _logits_args(dev, M, H, V, seed=M + H)
+    got = sample_kernel(h, w_t, b, 77, 3, 0.9, 0)
+    scores = sample_scores(h, w_t.t(), b, 77, 3, 0.9)
+    top2 = scores.topk(2, dim=1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-4
+    assert torch.equal(got[clear], scores.argmax(dim=1).int()[clear])
 
 
 def test_logits_top_k_ties_go_to_the_lowest_index(dev):

@@ -16,7 +16,9 @@ from jax.experimental import pallas as pl
 from vae_captioning_tpu.ops import fused_logits_topk as jfl
 from vae_captioning_torch import _ext
 from vae_captioning_torch.ops.fused_logits_topk import (
-    fused_logits_top_k, fused_logits_top_k_plain, plan_chunks, stable_top_k)
+    fused_logits_sample, fused_logits_top_k, fused_logits_top_k_int8,
+    chunk_plan, fused_logits_top_k_plain, quantize_logits_weights,
+    stable_top_k)
 
 
 @pytest.fixture()
@@ -103,12 +105,60 @@ def test_wrapper_takes_plain_version_on_cpu():
         torch.testing.assert_close(a, r, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("M,V", [(1536, 11500), (5120, 11519), (1000, 11500),
-                                 (512, 11500), (8, 64), (70000, 300)])
+@pytest.mark.parametrize("V", [100, 11500, 11519])
+@pytest.mark.parametrize("M", [1, 512, 1536, 5120, 200000])
 def test_vocab_split_covers_the_vocab(M, V):
-    chunk_w, n_chunks = plan_chunks(M, V, sms=132)
-    assert chunk_w % 128 == 0
-    assert (n_chunks - 1) * chunk_w < V <= n_chunks * chunk_w
+    """The plan's chunks cover the vocabulary's 128-column tiles, none
+    empty; the blocks cover the rows; the partials fit their workspace."""
+    for k, rows, resident in ((1, 128, True), (3, 128, True), (10, 64, True),
+                              (16, 64, False)):
+        plan = chunk_plan(M, V, k, rows, resident, sms=132)
+        tiles = -(-V // 128)
+        assert (plan.chunks - 1) * plan.chunk_tiles < tiles
+        assert tiles <= plan.chunks * plan.chunk_tiles
+        assert plan.list_k >= k and plan.list_k in (1, 3, 10, 16)
+        assert (plan.rows, plan.resident) == (rows, resident)
+        assert plan.parts == plan.chunks * (2 if plan.rows == 64 else 1)
+        assert plan.parts * M * (8 * plan.list_k + 8) <= max(
+            64 << 20, M * (8 * plan.list_k + 8) * plan.parts // plan.chunks)
+
+
+@pytest.mark.parametrize("M,V,chunks,chunk_tiles", [
+    (512, 11500, 30, 3), (1536, 11500, 10, 9), (5120, 11500, 13, 7),
+    (1, 11519, 90, 1)])
+def test_plan_at_the_main_path_shapes(M, V, chunks, chunk_tiles):
+    """The chunks by wave fill over 132 SMs for the 128-row blocks the
+    decode's width takes (the block shape's own card test holds that)."""
+    plan = chunk_plan(M, V, 3, 128, True, sms=132)
+    assert (plan.chunks, plan.chunk_tiles, plan.parts) == (chunks, chunk_tiles, chunks)
+
+
+def test_plan_takes_the_forced_rows():
+    plan = chunk_plan(512, 11500, 1, rows=64)
+    assert plan.rows == 64 and plan.parts == 2 * plan.chunks
+    wide = chunk_plan(512, 11500, 1)
+    assert wide.rows == 128 and wide.parts == wide.chunks
+
+
+def test_wrappers_take_either_layout_of_the_head_on_cpu():
+    """The decode stores the head column-major; the wrappers give the same
+    result for it and for the same head row-major."""
+    rng = np.random.default_rng(1)
+    h = torch.from_numpy(rng.normal(size=(9, 64)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(64, 300)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(300,)).astype(np.float32))
+    h16, w16 = h.to(torch.bfloat16), w.to(torch.bfloat16)
+    col = w16.t().contiguous().t()
+    assert col.t().is_contiguous() and torch.equal(col, w16)
+    for a, r in zip(fused_logits_top_k(h16, w16, b, 5),
+                    fused_logits_top_k(h16, col, b, 5)):
+        assert torch.equal(a, r)
+    assert torch.equal(fused_logits_sample(h16, w16, b, 3, 4, 0.9),
+                       fused_logits_sample(h16, col, b, 3, 4, 0.9))
+    wq, ws = quantize_logits_weights(w)
+    for a, r in zip(fused_logits_top_k_int8(h, wq, ws, b, 4),
+                    fused_logits_top_k_int8(h, wq.contiguous(), ws, b, 4)):
+        assert torch.equal(a, r)
 
 
 def test_wrapper_rejects_tensors_on_mixed_devices():

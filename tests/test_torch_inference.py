@@ -32,7 +32,7 @@ from vae_captioning_torch import checkpoint as ckpt
 from vae_captioning_torch import cli as tcli
 from vae_captioning_torch import inference as tinf
 from vae_captioning_torch.bridge import flax_shapes, load_flax_params
-from vae_captioning_torch.models.cvae import CVAEModel
+from vae_captioning_torch.models.cvae import CVAEModel, logits_head_params
 
 B = 4          # images per decode batch
 
@@ -150,6 +150,54 @@ def test_decode_fns_match_jax_fused_decode(models, interpreted, monkeypatch,
         np.testing.assert_allclose(got.scores.numpy(), np.asarray(want[1]),
                                    rtol=1e-5)
     assert 1 <= got.steps <= cfg.gen_max_len
+
+
+def test_decode_weights_store_the_head_transposed(models):
+    """The decode casts its bf16 head once per build, column-major:
+    ``head_w.t()`` is W^T [V, H] contiguous, the layout the logits kernels
+    read, with the values of the model's head."""
+    cfg, _, _, model = models
+    weights = tinf.DecodeWeights.of(model)
+    w, _ = logits_head_params(model)
+    assert weights.head_w.shape == (cfg.decoder_hidden, cfg.vocab_size)
+    assert weights.head_w.dtype == torch.bfloat16
+    assert weights.head_w.t().is_contiguous()
+    assert not weights.head_w.is_contiguous()
+    assert torch.equal(weights.head_w, w.detach().to(torch.bfloat16))
+    int8 = tinf.DecodeWeights.of(model, int8=True)
+    assert int8.head_wq.t().is_contiguous()
+
+
+@pytest.mark.parametrize("name", ["beam_search", "greedy", "sample",
+                                  "unfused"])
+def test_decode_from_the_stored_head_equals_a_row_major_head(
+        models, monkeypatch, name):
+    """A decode from the stored (column-major) head equals, token for
+    token and score for score, one from the same head made row-major: the
+    decode steps and the plain versions take either layout."""
+    cfg, _, _, model = models
+    if name == "sample":
+        cfg = cfg.replace(sample_gen="sample")
+    elif name == "unfused":
+        cfg, name = cfg.replace(fused_decode=False), "beam_search"
+    feats, c_v, eps = _inputs(seed=4)
+    args = (torch.from_numpy(feats), torch.from_numpy(c_v))
+    gen = lambda: torch.Generator().manual_seed(5)  # noqa: E731
+    stored = tinf.make_decode_fns(model, cfg, VOCAB)[name](
+        *args, eps=torch.from_numpy(eps), generator=gen())
+    of = tinf.DecodeWeights.of
+
+    def row_major(model, int8=False):
+        weights = of(model, int8)
+        assert not weights.head_w.is_contiguous()
+        return weights._replace(head_w=weights.head_w.contiguous())
+
+    monkeypatch.setattr(tinf.DecodeWeights, "of", row_major)
+    rows = tinf.make_decode_fns(model, cfg, VOCAB)[name](
+        *args, eps=torch.from_numpy(eps), generator=gen())
+    assert torch.equal(stored.tokens, rows.tokens)
+    if stored.scores is not None:
+        assert torch.equal(stored.scores, rows.scores)
 
 
 def _batchers(seed, n_val=7, n_test=5):

@@ -61,12 +61,12 @@ _U = ctypes.c_uint
 _SIGNATURES = {
     "vct_fused_lstm_step": [_P] * 7 + [_I] * 3 + [ctypes.c_float, _I, _P],
     "vct_fused_lstm_step_layout": [_I] * 3 + [_P] * 2,
-    "vct_fused_logits_top_k": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _I, _P],
-    "vct_fused_logits_top_k_int8": [_P] * 12 + [_I] * 6 + [_P],
+    "vct_fused_logits_top_k": [_P] * 10 + [_I] * 8 + [_P],
+    "vct_fused_logits_top_k_int8": [_P] * 12 + [_I] * 8 + [_P],
     "vct_fused_logits_sample": [_P] * 7 + [_I] * 3 + [_U, _U, ctypes.c_float]
-                               + [_I] * 3 + [_P],
-    "vct_logits_top_k_lanes": [],
+                               + [_I] * 5 + [_P],
+    "vct_fused_logits_top_k_smem": [_I] * 4,
+    "vct_fused_logits_top_k_block": [_I] * 4,
     "vct_top_k_logsumexp": [_P] * 4 + [_I] * 3 + [_P],
     "vct_fused_lstm_seq_fwd": [_P] * 12 + [_I] * 4 + [_P],
     "vct_fused_lstm_seq_bwd": [_P] * 21 + [_I] * 8 + [_P],

@@ -9,7 +9,10 @@
 //   S   = h @ W^T + b        h [M, H], W [V, H] bf16; b f32; f32 accumulation
 //   lse = logsumexp_v S,    ll = S[label] (0 for a label that is no column)
 //
-// The forward, ce_fwd_kernel<H, WRITE_LG>, on the primitives of hopper.cuh.
+// The forward, ce_fwd_kernel<H, WRITE_LG>, runs row_ring.cuh's product
+// loop (RowRing<Bf16Op, 2, true, H / 64>: the resident rows, the W ring
+// and the accumulators), which the decode's logits top-k shares, and
+// folds each tile as below.
 // What bounds it on this card: tensor-core operations, 2·M·H·V (362 GFLOP
 // at M = 30720, H = 512, V = 11500: 0.366 ms at the dense bf16 rate); the
 // written logits (708 MB) take 0.21 ms at the memory rate beside them.
@@ -59,29 +62,19 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "hopper.cuh"
+#include "row_ring.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
 constexpr int THREADS = 256;      // the merge and split-sum launches
-constexpr float NEG = -1e30f;     // the logit of a vocab column past V
 
 // the written logits' row pitch: V rounded up to 64 columns (128 bytes), the
 // TMA box and swizzle width of the written-logits backward
 constexpr int LG_COLS = 64;
 __host__ __device__ __forceinline__ int logits_pitch(int V) {
   return (V + LG_COLS - 1) / LG_COLS * LG_COLS;
-}
-
-// 2^x through ex2.approx (2 ulp); 2^-inf = 0.  e^(x - m) is
-// ex2(x·LOG2E - m·LOG2E), one FFMA and one ex2.
-constexpr float LOG2E = 1.4426950408889634f;
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // ---------------------------------------------------------------------
@@ -95,21 +88,14 @@ constexpr int FWD_TV = 128;       // vocab rows of a W tile (wgmma N)
 template <int H, bool WRITE_LG>
 struct Fwd {
   static constexpr int BOXES = H / BOX;               // boxes per tile
-  static constexpr int Q_BYTES = FWD_ROWS * H * 2;    // the resident rows
-  static constexpr int STAGE = FWD_TV * BOX * 2;      // one W box: 16 KB
   // WRITE_LG: each warpgroup's bf16 tile [64 x 128], two swizzled boxes
   static constexpr int LG_BYTES = WRITE_LG ? 2 * 2 * BOX_BYTES : 0;
-  static constexpr int FREE = 232448 - 1024 - Q_BYTES - LG_BYTES - 256;
-  static constexpr int STAGES = FREE / STAGE < 8 ? FREE / STAGE : 8;
-  // 1 KB to align to the swizzle's 1024-byte period; h, the ring, the lg
-  // tiles, the full barriers, the release counters (padded to 8 bytes) and
-  // h's barrier
-  static constexpr size_t SMEM = 1024 + static_cast<size_t>(Q_BYTES) +
-                                 static_cast<size_t>(STAGE) * STAGES + LG_BYTES +
-                                 STAGES * (sizeof(uint64_t) + sizeof(uint32_t)) +
-                                 2 * sizeof(uint64_t);
-  static_assert(STAGES >= 4, "a ring of at least four W boxes");
-  static_assert(SMEM <= 232448, "one block per SM: 227 KB of shared memory");
+  // 128 resident rows, W boxes of 16 KB: at H = 512 6 stages, 4 with
+  // WRITE_LG; 8 below
+  using Ring = RowRing<Bf16Op, 2, true, BOXES, LG_BYTES>;
+  static constexpr size_t SMEM = Ring::SMEM;
+  static_assert(Ring::FIXED_STAGES >= 4, "a ring of at least four W boxes");
+  static_assert(SMEM <= SMEM_MAX, "one block per SM: 227 KB of shared memory");
 };
 
 // Grid (row tiles of 128, vocab chunks); part [chunks, M, 3] = (m, s, ll).
@@ -125,12 +111,6 @@ ce_fwd_kernel(const __grid_constant__ CUtensorMap h_map,
               float* __restrict__ part, int M, int V, int chunk_tiles) {
   using P = Fwd<H, WRITE_LG>;
   extern __shared__ __align__(128) unsigned char smem[];
-  unsigned char* q_s = smem + ((1024 - (smem_addr(smem) & 1023)) & 1023);
-  unsigned char* ring = q_s + P::Q_BYTES;
-  unsigned char* lg_s = ring + P::STAGES * P::STAGE;
-  uint64_t* full = reinterpret_cast<uint64_t*>(lg_s + P::LG_BYTES);
-  uint32_t* released = reinterpret_cast<uint32_t*>(full + P::STAGES);
-  uint64_t* q_bar = reinterpret_cast<uint64_t*>(released + P::STAGES + (P::STAGES & 1));
 
   const int tid = threadIdx.x;
   const int wg = tid / 128;
@@ -141,45 +121,9 @@ ce_fwd_kernel(const __grid_constant__ CUtensorMap h_map,
   const int tiles = (V + FWD_TV - 1) / FWD_TV;
   const int t0 = blockIdx.y * chunk_tiles;
   const int n_tiles = max(0, min(tiles, t0 + chunk_tiles) - t0);
-  const int total = n_tiles * P::BOXES;   // W boxes this block streams
-
-  // W box j (tile t0 + j / BOXES, columns 64·(j % BOXES)) into stage j % STAGES
-  auto load = [&](int j) {
-    const int s = j % P::STAGES;
-    mbar_expect_tx(&full[s], P::STAGE);
-    tma_load(ring + s * P::STAGE, &w_map, &full[s], (j % P::BOXES) * BOX,
-             (t0 + j / P::BOXES) * FWD_TV);
-  };
-  // this warpgroup's products of box j retired: the later of the two
-  // leaders refills its stage STAGES boxes ahead
-  auto release = [&](int j) {
-    if (!leader) return;
-    const int s = j % P::STAGES;
-    __threadfence_block();
-    const bool later = atomicAdd(&released[s], 1u) & 1u;
-    __threadfence_block();
-    if (later && j + P::STAGES < total) load(j + P::STAGES);
-  };
-  if (tid == 0) {
-    for (int s = 0; s < P::STAGES; ++s) {
-      mbar_init(&full[s], 1);
-      released[s] = 0;
-    }
-    mbar_init(q_bar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  if (tid == 0) {
-    // h rows [m0, m0 + 128): warpgroup g's 64 rows in boxes g·BOXES..
-    mbar_expect_tx(q_bar, P::Q_BYTES);
-#pragma unroll
-    for (int g = 0; g < 2; ++g)
-#pragma unroll
-      for (int c = 0; c < P::BOXES; ++c)
-        tma_load(q_s + (g * P::BOXES + c) * BOX_BYTES, &h_map, q_bar, c * BOX,
-                 m0 + g * BT);
-    for (int j = 0; j < min(P::STAGES, total); ++j) load(j);
-  }
+  const typename P::Ring ring(smem, P::BOXES, &h_map, &w_map, m0, t0, n_tiles);
+  unsigned char* lg_s = ring.extra;
+  ring.start();
 
   // This thread's accumulator fragment: rows r + 8i (i = 0, 1) of its
   // warpgroup's 64, columns v0 + cq + 8n + j (n < 16, j < 2) at register
@@ -197,10 +141,8 @@ ce_fwd_kernel(const __grid_constant__ CUtensorMap h_map,
     s_run[i] = 0.0f;
     ll[i] = 0.0f;
   }
-  const uint32_t a_addr = smem_addr(q_s) + wg * P::BOXES * BOX_BYTES;
-  const uint32_t ring_addr = smem_addr(ring);
   float acc[FWD_TV / 2];
-  mbar_wait(q_bar, 0);
+  ring.wait_rows();
 
   for (int i = 0; i < n_tiles; ++i) {
     // the tile's biases, NEG past V (where S is exactly 0), requested
@@ -215,26 +157,7 @@ ce_fwd_kernel(const __grid_constant__ CUtensorMap h_map,
         bias[2 * n + j] = col < V ? __ldg(&b[col]) : NEG;
       }
     // S [64 x 128] = h rows @ W tile^T, contracting H box by box
-#pragma unroll
-    for (int c = 0; c < P::BOXES; ++c) {
-      const int j = i * P::BOXES + c;
-      const int s = j % P::STAGES;
-      mbar_wait(&full[s], (j / P::STAGES) & 1);
-      const uint32_t stage = ring_addr + s * P::STAGE;
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma<FWD_TV, 0>(acc, sw128_desc(a_addr + c * BOX_BYTES + kk * 32, 16),
-                         sw128_desc(stage + kk * 32, 16), (c | kk) != 0);
-      wgmma_commit();
-      if (c > 0) {
-        wgmma_wait<1>();
-        release(j - 1);
-      }
-    }
-    wgmma_wait<0>();
-    reg_fence(acc);
-    release((i + 1) * P::BOXES - 1);
+    ring.product(i, acc);
 
     // x = S + bias in place
 #pragma unroll
@@ -364,17 +287,6 @@ int sum_splits(const float* part, int splits, size_t stride, size_t len,
   sum_splits_kernel<<<static_cast<unsigned>((len + THREADS - 1) / THREADS),
                       THREADS, 0, st>>>(part, splits, stride, len, out);
   return static_cast<int>(cudaGetLastError());
-}
-
-// dynamic shared memory above 48 KB, and the whole carve-out for it
-template <typename Kernel>
-int allow_smem(Kernel kernel, size_t bytes) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-  return static_cast<int>(err);
 }
 
 // grid (ceil(M / 128), ceil(ceil(V / 128) / chunk_tiles)); part [chunks, M, 3]

@@ -14,237 +14,135 @@
 //   _sample_kernel, through fused_logits_sample:
 //     token = argmax_v(logits_v * inv_temp + G_v),  G = -log(-log(u))
 //
-// h [M,H] bf16, W [H,V] bf16, b [V] f32; hq [M,H] int8 with per-row
-// scales hs [M] f32, wq [H,V] int8 stored column-major (wq^T [V,H]
-// contiguous) with per-column scales ws [V] f32 ->
+// h [M,H] bf16 and the head transposed, w_t [V,H] bf16 (W^T, contiguous:
+// the decode stores the head so), b [V] f32; hq [M,H] int8 with per-row
+// scales hs [M] f32, wq_t [V,H] int8 with per-column scales ws [V] f32 ->
 // vals [M,k] f32 (raw logits, bias included), idx [M,k] int32, lse [M]
 // f32, for 1 <= k <= 16; the sampler -> tokens [M] int32.
 //
-// What bounds it on this card: the product is 2*M*H*V operations (18 G at
-// M = 1536, H = 512, V = 11500) over an 11.8 MB bf16 (5.9 MB int8) weight
-// matrix, and the unfused path writes and re-reads the [M,V] f32 logits
-// (71 MB at that size).  The design never stores the logits.  The TPU
-// walks the vocab tiles in order with a running state in VMEM; on Hopper
-// blocks run in no order, so the vocab is split into chunks across blocks
-// (grid = row blocks x vocab chunks, enough blocks for the 132 SMs at
-// serving sizes).  Each block computes 64x128 logits tiles with WMMA
-// fragments into shared memory -- the tile producer is a template
-// parameter, as the TPU's _fold_tile takes a tile_fn: bf16 x bf16 -> f32,
-// or s8 x s8 -> s32 dequantised in the fold -- and folds them into
-// per-thread running state: four threads share a row, each keeps an
-// online (max, sum-exp) and a register-resident top-k list ordered by
-// (value desc, index asc).  The sampler is the same kernel with k = 1 over
-// the scored values logit * inv_temp + G and no logsumexp.  Their lists go
-// to a small workspace, and a second launch merges the partial lists and
-// (max, sum-exp) pairs of a row in the same order.  The TPU's int32
-// sortable-key trick is a VPU optimisation and is not carried over.  No
-// cp.async, TMA or wgmma yet.
+// What bounds it on this card: tensor-core operations, 2·M·H·V (18 GFLOP at
+// M = 1536, H = 512, V = 11500: 0.018 ms at the dense bf16 rate, 0.009 in
+// int8) over an 11.8 MB bf16 (5.9 MB int8) head, which is read from device
+// memory once and from L2 once per block of rows.  The logits are never
+// stored.  In practice the fold binds it: its products alone run at about
+// half the bf16 peak, as the CE forward's do, and at k = 10 the lists'
+// updates take as long again (PERF.md, the logits top-k's design table).
+//
+// The design is the CE forward's (fused_ce.cuh), on the same product loop
+// (row_ring.cuh's RowRing):
+// * A block keeps 128 rows of h resident in shared memory (TMA, 64-row
+//   boxes of 128 bytes, 128-byte swizzle) and streams the head's 128-row
+//   vocab tiles of W^T through an mbarrier ring; two consumer warpgroups,
+//   each on its 64 rows (m64n128: wgmma bf16 k16, or s8 k32 with int32
+//   accumulators).  H is a runtime value: a tile's product runs over its
+//   ceil(H·bytes / 128) boxes, TMA reading zeros past H.  The decode's own
+//   width (H = 512: 8 bf16 boxes, 4 int8) is also built with the count at
+//   compile time, as the CE forward has it, which the compiler schedules
+//   far better (0.26 against 0.32 ms at M = 5120, k = 10, and 0.11
+//   against 0.18 for the product alone; PERF.md).  Where 128 rows
+//   of h do not fit beside a ring of four boxes (bf16 H > 640; and for
+//   lists of 16, whose registers do not fit beside 64 accumulators), a
+//   block takes 64 rows and its warpgroups split each tile's columns
+//   (m64n64); past bf16 H = 1280 (int8 2560) those 64 rows are streamed
+//   beside each W box.  The sampler takes 64-row blocks: at 128 its
+//   Philox words beside 64 accumulators spilled.
+// * The fold, from the accumulators: each thread owns 2 rows x 32 (or 16)
+//   columns of a tile, visited in ascending column order, and keeps for
+//   each row a register top-k list (topk_list.cuh: value descending, index
+//   ascending; each column goes in by push_ascending, branch-free: a
+//   branching insertion was taken by some lane of nearly every warp at
+//   every column, at 1.5x the time at k = 10) beside the row's online
+//   (max, sum-exp); the 4 lanes of a row share the tile's row max by two
+//   shuffles (a lane whose columns are all past V would otherwise hold max
+//   -1e30), each exp is one FFMA and one ex2.approx.  Columns past V take
+//   bias -1e30 (exp 0) and never enter a list.  The int8 logit is dequantised exactly as the plain version
+//   does it, (f32(acc) · hs) · ws + b, each step rounded on its own, so
+//   values and indices equal int8_top_k_plain's bit for bit.
+// * Vocab chunks: grid (row blocks, vocab chunks), chunk y taking the
+//   tiles [y·chunk_tiles, (y + 1)·chunk_tiles); each block writes one
+//   partial list and (max, sum-exp) per row and warpgroup, the 4 lanes of
+//   a row merged by shuffles first (writing each lane's list cost the
+//   merge launch more than the shuffles save; PERF.md).  A merge
+//   launch, eight threads per row, folds the partials in a fixed order,
+//   so results repeat bit for bit (no atomics).  The block shape comes
+//   from block_shape (vct_fused_logits_top_k_block), the chunks from
+//   ops/fused_logits_topk.py:chunk_plan.
+// * Lists hold K = 1, 3, 10 or 16 entries, k rounded up: the first k of a
+//   list of K are the top k.
+// * The sampler is the same kernel with K = 1 over the scored values
+//   logit * inv_temp + G and no logsumexp.
 //
 // The sampler's noise: Philox-4x32-10 keyed on (seed, step), element
 // (row m, column v) is word v % 4 of the block with counter
 // (v / 4, row0 + m, 0, SAMPLE_TAG); fused_z's counters have 0 in the last
-// word, so the two streams never meet.  The stream does not depend on the
-// tiling, so ops/fused_logits_topk.py:fused_logits_sample_plain
-// reproduces its bits exactly.
+// word, so the two streams never meet.  A thread's columns come in even
+// pairs, so one block gives a pair its two words (two lanes compute each
+// block).  The stream does not depend on the tiling, so
+// ops/fused_logits_topk.py:fused_logits_sample_plain reproduces its bits
+// exactly.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "philox.cuh"
+#include "row_ring.cuh"
 #include "topk_list.cuh"
 
 namespace {
 
-using namespace nvcuda;
-
-constexpr int BM = 64;          // rows per block
-constexpr int BN = 128;         // vocab columns per logits tile
-constexpr int THREADS = 256;    // 8 warps: 4 row slabs x 2 column halves
-constexpr int LANES = THREADS / BM;  // fold threads per row
-constexpr int C_LD = BN + 4;
+constexpr int THREADS = 256;    // two consumer warpgroups
+constexpr int TV = RING_TV;     // vocab columns of a tile
 constexpr int MERGE_THREADS = 128;
+constexpr int MERGE_LANES = 8;  // merge threads a row (a divisor of 32)
+constexpr unsigned FULL = 0xffffffffu;
 constexpr uint32_t SAMPLE_TAG = 0x53414D50u;  // "SAMP"
 
 // ---------------------------------------------------------------------
-// tile producers: one BM x BN tile of the product into shared memory,
-// then the logit of one of its elements
+// the logit of an accumulator: bf16 (S + b) or int8 (dequantised)
 // ---------------------------------------------------------------------
 
-struct Bf16Tile {
-  static constexpr int BK = 32;   // depth of one shared-memory stage
-  static constexpr int A_LD = BK + 8;
-  static constexpr int B_LD = BN + 8;
-  struct __align__(128) Smem {
-    __nv_bfloat16 a[BM * A_LD];
-    __nv_bfloat16 b[BK * B_LD];
-    float c[BM * C_LD];
-  };
-
-  const __nv_bfloat16* h;
-  const __nv_bfloat16* w;
-  const float* bias;
-  int H;
+struct Bf16Logit {
+  using Op = Bf16Op;
+  static constexpr int BOXES = 8;   // the decode's width, H = 512
+  struct Col { float b; };
+  const float* b;
 
   __device__ __forceinline__ float row_scale(int) const { return 1.0f; }
-
-  __device__ __forceinline__ void compute(Smem& s, int m0, int n0, int v_end,
-                                          int M, int V) const {
-    const int tid = threadIdx.x;
-    const int warp = tid / 32;
-    const int wm = warp / 2;
-    const int wn = warp % 2;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
-#pragma unroll
-    for (int f = 0; f < 4; ++f) wmma::fill_fragment(acc[f], 0.0f);
-
-    for (int k0 = 0; k0 < H; k0 += BK) {
-      {  // A stage [BM, BK]: one 8-element vector per thread
-        const int r = tid / (BK / 8);
-        const int cv = (tid % (BK / 8)) * 8;
-        const int row = m0 + r;
-        uint4 val = make_uint4(0, 0, 0, 0);
-        if (row < M)
-          val = *reinterpret_cast<const uint4*>(
-              &h[static_cast<size_t>(row) * H + k0 + cv]);
-        *reinterpret_cast<uint4*>(&s.a[r * A_LD + cv]) = val;
-      }
-      // B stage [BK, BN]: element loads, since a row of W starts at any
-      // 2-byte offset when V is odd
-#pragma unroll
-      for (int st = 0; st < (BK * BN) / THREADS; ++st) {
-        const int e = tid + st * THREADS;
-        const int kr = e / BN;
-        const int n = e % BN;
-        const int col = n0 + n;
-        s.b[kr * B_LD + n] =
-            col < v_end ? w[static_cast<size_t>(k0 + kr) * V + col]
-                        : __float2bfloat16_rn(0.0f);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> af;
-        wmma::load_matrix_sync(af, &s.a[(wm * 16) * A_LD + kk], A_LD);
-#pragma unroll
-        for (int f = 0; f < 4; ++f) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major> bf;
-          wmma::load_matrix_sync(bf, &s.b[kk * B_LD + wn * 64 + f * 16],
-                                 B_LD);
-          wmma::mma_sync(acc[f], af, bf, acc[f]);
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int f = 0; f < 4; ++f)
-      wmma::store_matrix_sync(&s.c[(wm * 16) * C_LD + wn * 64 + f * 16],
-                              acc[f], C_LD, wmma::mem_row_major);
-    __syncthreads();
+  __device__ __forceinline__ Col col(int c, int V) const {
+    return Col{c < V ? __ldg(&b[c]) : NEG};
   }
-
-  __device__ __forceinline__ float logit(const Smem& s, int r, int n, int col,
-                                         float) const {
-    return s.c[r * C_LD + n] + bias[col];
+  __device__ __forceinline__ static float value(float acc, float, Col c) {
+    return acc + c.b;
   }
 };
 
-// int8 x int8 -> int32 on the tensor cores (WMMA s8 m16n16k16).  A WMMA
-// operand must start 32-byte aligned, and a 16-deep int8 step is 16
-// bytes, so both stages are kept as 16-deep chunks: A as [chunk][row][16],
-// B as [chunk][column block][16 columns][16 deep] -- column-major, the
-// layout the s8 mma reads (8-bit ldmatrix cannot transpose, so a
-// row-major B fragment is loaded byte by byte).  wq comes column-major
-// too (wq_t [V, H]), so both stages move 16-byte vectors.
-struct Int8Tile {
-  static constexpr int BK = 64;
-  static constexpr int KC = BK / 16;
-  struct __align__(128) Smem {
-    signed char a[KC][BM][16];
-    signed char b[KC][BN / 16][16][16];
-    int c[BM * C_LD];
-  };
-
-  const signed char* hq;
+// (f32(acc) * hs) * ws + b, each step rounded on its own (no FMA), in the
+// order of the TPU kernel and of the plain version
+struct S8Logit {
+  using Op = S8Op;
+  static constexpr int BOXES = 4;   // the decode's width, H = 512
+  struct Col { float ws, b; };
   const float* hs;
-  const signed char* wq_t;   // [V, H]
   const float* ws;
-  const float* bias;
-  int H;
+  const float* b;
 
-  __device__ __forceinline__ float row_scale(int row) const { return hs[row]; }
-
-  __device__ __forceinline__ void compute(Smem& s, int m0, int n0, int v_end,
-                                          int M, int V) const {
-    const int tid = threadIdx.x;
-    const int warp = tid / 32;
-    const int wm = warp / 2;
-    const int wn = warp % 2;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[4];
-#pragma unroll
-    for (int f = 0; f < 4; ++f) wmma::fill_fragment(acc[f], 0);
-
-    for (int k0 = 0; k0 < H; k0 += BK) {
-      {  // A stage [BM, BK]: one 16-byte chunk per thread
-        const int r = tid / KC;
-        const int q = tid % KC;
-        const int row = m0 + r;
-        int4 val = make_int4(0, 0, 0, 0);
-        if (row < M)
-          val = *reinterpret_cast<const int4*>(
-              &hq[static_cast<size_t>(row) * H + k0 + q * 16]);
-        *reinterpret_cast<int4*>(&s.a[q][r][0]) = val;
-      }
-      // B stage [BK, BN]: one 16-deep chunk of one column per vector,
-      // neighbouring threads on neighbouring columns
-#pragma unroll
-      for (int st = 0; st < (BK * BN) / (16 * THREADS); ++st) {
-        const int e = tid + st * THREADS;
-        const int n = e % BN;
-        const int q = e / BN;
-        const int col = n0 + n;
-        int4 val = make_int4(0, 0, 0, 0);
-        if (col < v_end)
-          val = *reinterpret_cast<const int4*>(
-              &wq_t[static_cast<size_t>(col) * H + k0 + q * 16]);
-        *reinterpret_cast<int4*>(&s.b[q][n / 16][n % 16][0]) = val;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int q = 0; q < KC; ++q) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char,
-                       wmma::row_major> af;
-        wmma::load_matrix_sync(af, &s.a[q][wm * 16][0], 16);
-#pragma unroll
-        for (int f = 0; f < 4; ++f) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char,
-                         wmma::col_major> bf;
-          wmma::load_matrix_sync(bf, &s.b[q][wn * 4 + f][0][0], 16);
-          wmma::mma_sync(acc[f], af, bf, acc[f]);
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int f = 0; f < 4; ++f)
-      wmma::store_matrix_sync(&s.c[(wm * 16) * C_LD + wn * 64 + f * 16],
-                              acc[f], C_LD, wmma::mem_row_major);
-    __syncthreads();
+  __device__ __forceinline__ float row_scale(int row) const { return __ldg(&hs[row]); }
+  __device__ __forceinline__ Col col(int c, int V) const {
+    return c < V ? Col{__ldg(&ws[c]), __ldg(&b[c])} : Col{0.0f, NEG};
   }
-
-  // (f32(acc) * hs) * ws + b, each step rounded on its own (no FMA), in
-  // the order of the TPU kernel and of the plain version
-  __device__ __forceinline__ float logit(const Smem& s, int r, int n, int col,
-                                         float rs) const {
-    return __fadd_rn(
-        __fmul_rn(__fmul_rn(__int2float_rn(s.c[r * C_LD + n]), rs), ws[col]),
-        bias[col]);
+  __device__ __forceinline__ static float value(int acc, float rs, Col c) {
+    return __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc), rs), c.ws), c.b);
   }
 };
+
+// the fold works on the logits in place of the accumulators: an int8
+// kernel's int registers hold them as float bits
+__device__ __forceinline__ float as_f(float x) { return x; }
+__device__ __forceinline__ float as_f(int x) { return __int_as_float(x); }
+__device__ __forceinline__ void put(float& d, float x) { d = x; }
+__device__ __forceinline__ void put(int& d, float x) { d = __float_as_int(x); }
 
 // ---------------------------------------------------------------------
 // what is folded: the raw logit (top-k + logsumexp), or the Gumbel-scored
@@ -253,9 +151,7 @@ struct Int8Tile {
 
 struct RawLogit {
   static constexpr bool kLse = true;
-  __device__ __forceinline__ float operator()(float x, int, int) const {
-    return x;
-  }
+  __device__ __forceinline__ void pair(float&, float&, int, int) const {}
 };
 
 struct GumbelScore {
@@ -264,15 +160,18 @@ struct GumbelScore {
   float inv_temp;
   int row0;
 
-  __device__ __forceinline__ float operator()(float x, int row,
-                                              int col) const {
+  // columns col, col + 1 (col even) of global row `row`: words col % 4 and
+  // col % 4 + 1 of one Philox block
+  __device__ __forceinline__ void pair(float& x0, float& x1, int row, int col) const {
     const uint4 r = philox4x32_10(
         make_uint4(static_cast<uint32_t>(col) >> 2,
                    static_cast<uint32_t>(row0 + row), 0u, SAMPLE_TAG),
         seed, step);
-    const float u = bits_to_uniform(philox_word(r, col & 3));
-    const float g = -logf(-logf(u));
-    return __fadd_rn(__fmul_rn(x, inv_temp), g);
+    const bool hi = col & 2;
+    const float g0 = -logf(-logf(bits_to_uniform(hi ? r.z : r.x)));
+    const float g1 = -logf(-logf(bits_to_uniform(hi ? r.w : r.y)));
+    x0 = __fadd_rn(__fmul_rn(x0, inv_temp), g0);
+    x1 = __fadd_rn(__fmul_rn(x1, inv_temp), g1);
   }
 };
 
@@ -283,207 +182,398 @@ struct Parts {
   float* sum;    // [P, M]
 };
 
-template <class Tile, class Score, int K>
-__global__ void __launch_bounds__(THREADS)
-logits_topk_partial_kernel(const Tile tile, const Score score, Parts part,
-                           int M, int V, int chunk_w) {
-  __shared__ typename Tile::Smem smem;
+// Grid (row blocks of 64·RG, vocab chunks).  Partial p = chunk ·
+// (warpgroups that split a tile: 2 at RG = 1) + that warpgroup.  BOXES:
+// the boxes of a row of h at compile time, or 0 for the runtime count
+// `boxes`.
+template <class Logit, int RG, bool RES, int BOXES, class Score, int K>
+__global__ void __launch_bounds__(THREADS, 1)
+logits_topk_kernel(const __grid_constant__ CUtensorMap h_map,
+                   const __grid_constant__ CUtensorMap w_map, const Logit logit,
+                   const Score score, const Parts part, int M, int V, int boxes,
+                   int chunk_tiles) {
+  using Ring = RowRing<typename Logit::Op, RG, RES, BOXES>;
+  constexpr int NW = Ring::N;              // a warpgroup's columns of a tile
+  extern __shared__ __align__(128) unsigned char smem[];
 
   const int tid = threadIdx.x;
-  const int m0 = blockIdx.x * BM;
-  const int v_begin = blockIdx.y * chunk_w;
-  const int v_end = min(V, v_begin + chunk_w);
-  // fold mapping: row fr, columns fq, fq + LANES, ... of each tile (the
-  // interleave keeps the shared-memory reads free of bank conflicts)
-  const int fr = tid / LANES;
-  const int fq = tid % LANES;
-  const int row = m0 + fr;
-  const float rs = tile.row_scale(min(row, M - 1));
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int m0 = blockIdx.x * RG * BT;
+  const int tiles = (V + TV - 1) / TV;
+  const int t0 = blockIdx.y * chunk_tiles;
+  const int n_tiles = max(0, min(tiles, t0 + chunk_tiles) - t0);
+  const Ring ring(smem, boxes, &h_map, &w_map, m0, t0, n_tiles);
+  ring.start();
 
-  TopK<K> top;
-  top.init();
-  float run_max = -INFINITY;
-  float run_sum = 0.0f;
+  // this thread's rows r + 8·ii of its warpgroup's 64, columns 8n + cq + j
+  // of its warpgroup's NW (row_ring.cuh's accumulator layout)
+  const int r = warp * 16 + lane / 4;
+  const int cq = 2 * (lane % 4);
+  int row[2];
+  float rs[2], m_run[2], s_run[2];
+  TopK<K> top[2];
+#pragma unroll
+  for (int ii = 0; ii < 2; ++ii) {
+    row[ii] = m0 + (RG == 2 ? wg * BT : 0) + r + 8 * ii;
+    rs[ii] = logit.row_scale(min(row[ii], M - 1));
+    m_run[ii] = -INFINITY;
+    s_run[ii] = 0.0f;
+    top[ii].init();
+  }
+  typename Ring::Acc acc[NW / 2];
+  ring.wait_rows();
 
-  for (int n0 = v_begin; n0 < v_end; n0 += BN) {
-    tile.compute(smem, m0, n0, v_end, M, V);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int v0 = (t0 + i) * TV + (RG == 1 ? wg * NW : 0);  // the warpgroup's first column
+    const int cb = v0 + cq;                                   // this thread's
+    // the tile's column parameters (bias; int8: and scale), requested
+    // before its products so that the loads land while they run
+    typename Logit::Col col[NW / 4];
+#pragma unroll
+    for (int n = 0; n < NW / 8; ++n)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) col[2 * n + j] = logit.col(cb + 8 * n + j, V);
+    ring.product(i, acc);
+    // RG = 1: this warpgroup's half of the last tile may lie past V
+    if (v0 >= V) continue;
 
-    // fold the tile: online logsumexp + running top-k, columns ascending
-    for (int j = 0; j < BN / LANES; ++j) {
-      const int n = j * LANES + fq;
-      const int col = n0 + n;
-      if (col >= v_end) break;
-      const float val = score(tile.logit(smem, fr, n, col, rs), row, col);
-      if (Score::kLse) {
-        if (val > run_max) {
-          run_sum = run_sum * expf(run_max - val) + 1.0f;
-          run_max = val;
-        } else {
-          run_sum += expf(val - run_max);
-        }
+    // logits (and the sampler's scores) in place
+#pragma unroll
+    for (int n = 0; n < NW / 8; ++n)
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii) {
+        float x0 = Logit::value(acc[4 * n + 2 * ii], rs[ii], col[2 * n]);
+        float x1 = Logit::value(acc[4 * n + 2 * ii + 1], rs[ii], col[2 * n + 1]);
+        score.pair(x0, x1, row[ii], cb + 8 * n);
+        put(acc[4 * n + 2 * ii], x0);
+        put(acc[4 * n + 2 * ii + 1], x1);
       }
-      top.push(val, col);
+    const int lim = V - cb;    // offsets 8n + j < lim lie inside the vocabulary
+#pragma unroll
+    for (int ii = 0; ii < 2; ++ii) {
+      if constexpr (Score::kLse) {
+        float tmax = as_f(acc[2 * ii]);
+#pragma unroll
+        for (int n = 0; n < NW / 8; ++n)
+          tmax = fmaxf(tmax, fmaxf(as_f(acc[4 * n + 2 * ii]), as_f(acc[4 * n + 2 * ii + 1])));
+        // the row's tile max over its 4 lanes: finite, since the
+        // warpgroup's first column is < V
+        tmax = fmaxf(tmax, __shfl_xor_sync(FULL, tmax, 1));
+        tmax = fmaxf(tmax, __shfl_xor_sync(FULL, tmax, 2));
+        const float m_new = fmaxf(m_run[ii], tmax);
+        const float ms = m_new * LOG2E;
+        float se = 0.0f;
+#pragma unroll
+        for (int n = 0; n < NW / 8; ++n)
+          se += ex2(fmaf(as_f(acc[4 * n + 2 * ii]), LOG2E, -ms)) +
+                ex2(fmaf(as_f(acc[4 * n + 2 * ii + 1]), LOG2E, -ms));
+        s_run[ii] = s_run[ii] * ex2((m_run[ii] - m_new) * LOG2E) + se;
+        m_run[ii] = m_new;
+      }
     }
-    __syncthreads();
+    // both rows' lists side by side, columns ascending; a column past V
+    // offers -inf, which enters no list
+#pragma unroll
+    for (int n = 0; n < NW / 8; ++n)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii)
+          top[ii].push_ascending(8 * n + j < lim ? as_f(acc[4 * n + 2 * ii + j]) : -INFINITY,
+                                 cb + 8 * n + j);
   }
 
-  if (row < M) {
-    const size_t p = static_cast<size_t>(blockIdx.y) * LANES + fq;
-    const size_t slot = p * M + row;
+  // the row's 4 lanes share its running max: their sum-exp is summed and
+  // their lists merged by shuffles, and one lane writes
+  const int wgp = RG == 1 ? 2 : 1;
 #pragma unroll
-    for (int j = 0; j < K; ++j) {
-      part.vals[slot * K + j] = top.v[j];
-      part.idx[slot * K + j] = top.i[j];
+  for (int ii = 0; ii < 2; ++ii) {
+    float s = s_run[ii];
+    s += __shfl_xor_sync(FULL, s, 1);
+    s += __shfl_xor_sync(FULL, s, 2);
+#pragma unroll
+    for (int off = 1; off <= 2; off *= 2) {
+      const TopK<K> mine = top[ii];
+#pragma unroll
+      for (int j = 0; j < K; ++j)
+        top[ii].push(__shfl_xor_sync(FULL, mine.v[j], off),
+                     __shfl_xor_sync(FULL, mine.i[j], off));
     }
-    if (Score::kLse) {
-      part.max[slot] = run_max;
-      part.sum[slot] = run_sum;
+    if (row[ii] < M && cq == 0) {
+      const size_t p = static_cast<size_t>(blockIdx.y) * wgp + (RG == 1 ? wg : 0);
+      const size_t slot = p * M + row[ii];
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        part.vals[slot * K + j] = top[ii].v[j];
+        part.idx[slot * K + j] = top[ii].i[j];
+      }
+      if constexpr (Score::kLse) {
+        part.max[slot] = m_run[ii];
+        part.sum[slot] = s;
+      }
     }
   }
 }
 
-// One thread per row: merge the P partial lists and (max, sum-exp) pairs.
+// MERGE_LANES threads per row merge its P partial lists and (max,
+// sum-exp) pairs: thread q folds the parts q, q + MERGE_LANES, .. in order,
+// then the row's threads combine by shuffles in a fixed tree (the sums of a
+// pair are commutative, so every thread holds the same result), and the
+// first k entries of the merged list go out.  Results repeat bit for bit.
 template <int K, bool kLse>
 __global__ void __launch_bounds__(MERGE_THREADS)
 logits_topk_merge_kernel(const Parts part, float* __restrict__ vals,
                          int* __restrict__ idx, float* __restrict__ lse,
-                         int M, int P) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= M) return;
+                         int M, int P, int k) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int row = t / MERGE_LANES;
+  const int q = t % MERGE_LANES;
+  const bool live = row < M;      // a row past M reads nothing but shuffles
   float m = -INFINITY;
-  if (kLse)
-    for (int p = 0; p < P; ++p)
-      m = fmaxf(m, part.max[static_cast<size_t>(p) * M + row]);
   float s = 0.0f;
   TopK<K> top;
   top.init();
-  for (int p = 0; p < P; ++p) {
-    const size_t slot = static_cast<size_t>(p) * M + row;
-    if (kLse) {
-      const float mp = part.max[slot];
-      if (mp > -INFINITY) s += part.sum[slot] * expf(mp - m);
+  if (live) {
+    if (kLse)
+      for (int p = q; p < P; p += MERGE_LANES)
+        m = fmaxf(m, part.max[static_cast<size_t>(p) * M + row]);
+    for (int p = q; p < P; p += MERGE_LANES) {
+      const size_t slot = static_cast<size_t>(p) * M + row;
+      if (kLse) {
+        const float mp = part.max[slot];
+        if (mp > -INFINITY) s += part.sum[slot] * expf(mp - m);
+      }
+#pragma unroll
+      for (int j = 0; j < K; ++j)
+        top.push(part.vals[slot * K + j], part.idx[slot * K + j]);
     }
+  }
+#pragma unroll
+  for (int off = 1; off < MERGE_LANES; off *= 2) {
+    if (kLse) {
+      const float om = __shfl_xor_sync(FULL, m, off);
+      const float os = __shfl_xor_sync(FULL, s, off);
+      const float nm = fmaxf(m, om);
+      s = (m > -INFINITY ? s * expf(m - nm) : 0.0f) +
+          (om > -INFINITY ? os * expf(om - nm) : 0.0f);
+      m = nm;
+    }
+    const TopK<K> mine = top;
 #pragma unroll
     for (int j = 0; j < K; ++j)
-      top.push(part.vals[slot * K + j], part.idx[slot * K + j]);
+      top.push(__shfl_xor_sync(FULL, mine.v[j], off), __shfl_xor_sync(FULL, mine.i[j], off));
   }
+  if (!live || q != 0) return;
 #pragma unroll
-  for (int j = 0; j < K; ++j) {
-    vals[static_cast<size_t>(row) * K + j] = top.v[j];
-    idx[static_cast<size_t>(row) * K + j] = top.i[j];
-  }
+  for (int j = 0; j < K; ++j)
+    if (j < k) {
+      vals[static_cast<size_t>(row) * k + j] = top.v[j];
+      idx[static_cast<size_t>(row) * k + j] = top.i[j];
+    }
   if (kLse) lse[row] = m + logf(s);
 }
 
-template <class Tile, class Score, int K>
-int launch(const Tile& tile, const Score& score, const Parts& part,
-           void* vals, void* idx, void* lse, int M, int V, int chunk_w,
-           int n_chunks, cudaStream_t stream) {
-  const dim3 grid((M + BM - 1) / BM, n_chunks);
-  logits_topk_partial_kernel<Tile, Score, K>
-      <<<grid, THREADS, 0, stream>>>(tile, score, part, M, V, chunk_w);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+struct Launch {
+  CUtensorMap h_map, w_map;
+  Parts part;
+  void* vals;
+  void* idx;
+  void* lse;
+  int M, V, boxes, rows, resident, chunk_tiles, chunks, k;
+  cudaStream_t st;
+};
+
+template <class Logit, int RG, bool RES, int BOXES, class Score, int K>
+int launch(const Launch& a, const Logit& logit, const Score& score) {
+  const RingLayout L = ring_layout(a.boxes, RG, RES, 0);
+  if (L.stages < 2) return static_cast<int>(cudaErrorInvalidValue);
+  // dynamic shared memory above 48 KB for this instance, once per device
+  static uint32_t smem_set = 0;   // a bit per device
+  int dev = 0;
+  int err = static_cast<int>(cudaGetDevice(&dev));
+  if (err) return err;
+  if (dev >= 32 || !(smem_set >> dev & 1u)) {
+    err = allow_smem(logits_topk_kernel<Logit, RG, RES, BOXES, Score, K>, SMEM_MAX);
+    if (err) return err;
+    if (dev < 32) smem_set |= 1u << dev;
+  }
+  const dim3 grid((a.M + RG * BT - 1) / (RG * BT), a.chunks);
+  logits_topk_kernel<Logit, RG, RES, BOXES, Score, K><<<grid, THREADS, L.smem, a.st>>>(
+      a.h_map, a.w_map, logit, score, a.part, a.M, a.V, a.boxes, a.chunk_tiles);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  const int P = a.chunks * (RG == 1 ? 2 : 1);
   logits_topk_merge_kernel<K, Score::kLse>
-      <<<(M + MERGE_THREADS - 1) / MERGE_THREADS, MERGE_THREADS, 0, stream>>>(
-          part, static_cast<float*>(vals), static_cast<int*>(idx),
-          static_cast<float*>(lse), M, n_chunks * LANES);
+      <<<(a.M * MERGE_LANES + MERGE_THREADS - 1) / MERGE_THREADS, MERGE_THREADS, 0, a.st>>>(
+          a.part, static_cast<float*>(a.vals), static_cast<int*>(a.idx),
+          static_cast<float*>(a.lse), a.M, P, a.k);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class Tile>
-int launch_top_k(const Tile& tile, const Parts& part, void* vals, void* idx,
-                 void* lse, int M, int V, int k, int chunk_w, int n_chunks,
-                 void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define VCT_CASE(KK)                                                     \
-  case KK:                                                               \
-    return launch<Tile, RawLogit, KK>(tile, RawLogit{}, part, vals, idx, \
-                                      lse, M, V, chunk_w, n_chunks, s);
-  switch (k) {
-    VCT_CASE(1) VCT_CASE(2) VCT_CASE(3) VCT_CASE(4)
-    VCT_CASE(5) VCT_CASE(6) VCT_CASE(7) VCT_CASE(8)
-    VCT_CASE(9) VCT_CASE(10) VCT_CASE(11) VCT_CASE(12)
-    VCT_CASE(13) VCT_CASE(14) VCT_CASE(15) VCT_CASE(16)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+// the block shape: 128 rows resident (top-k lists of up to 10), 64 rows
+// resident, or 64 rows streamed (128-row sampler blocks spilled: its
+// Philox words beside 64 accumulators); the decode's own blocks (128 rows
+// of top-k, 64 of the sampler) at the decode's width with the box count at
+// compile time
+template <class Logit, class Score, int K>
+int launch_rows(const Launch& a, const Logit& logit, const Score& score) {
+  constexpr int B = Logit::BOXES;
+  if (a.rows == 128 && a.resident) {
+    if constexpr (K <= 10 && Score::kLse)
+      return a.boxes == B ? launch<Logit, 2, true, B, Score, K>(a, logit, score)
+                          : launch<Logit, 2, true, 0, Score, K>(a, logit, score);
+  } else if (a.rows == 64) {
+    if (!a.resident) return launch<Logit, 1, false, 0, Score, K>(a, logit, score);
+    if constexpr (!Score::kLse) {
+      if (a.boxes == B) return launch<Logit, 1, true, B, Score, K>(a, logit, score);
+    }
+    return launch<Logit, 1, true, 0, Score, K>(a, logit, score);
   }
-#undef VCT_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-bool bad_plan(int chunk_w, int n_chunks) {
-  return chunk_w % BN != 0 || n_chunks <= 0;
+// the list length: k rounded up to 1, 3, 10 or 16
+template <class Logit>
+int launch_top_k(const Launch& a, const Logit& logit) {
+  const RawLogit raw{};
+  if (a.k <= 1) return launch_rows<Logit, RawLogit, 1>(a, logit, raw);
+  if (a.k <= 3) return launch_rows<Logit, RawLogit, 3>(a, logit, raw);
+  if (a.k <= 10) return launch_rows<Logit, RawLogit, 10>(a, logit, raw);
+  return launch_rows<Logit, RawLogit, 16>(a, logit, raw);
+}
+
+// The block shape at `boxes` boxes a row of h and lists of K (rows 0: the
+// kernels' choice, else 128 or 64 forced) as rows · 2 + resident, or -1
+// where forced rows do not fit: 128 rows resident where they fit beside a
+// ring of four boxes and the lists hold at most 10 (lists of 16 do not
+// fit the registers beside 64 accumulators); else 64 rows, resident where
+// they fit beside four boxes, else streamed beside each W box.
+int block_shape(int boxes, int K, int rows) {
+  const bool wide = K <= 10 && ring_layout(boxes, 2, true, 0).stages >= 4;
+  if (rows == 128 || (rows == 0 && wide)) return wide ? 2 * 128 + 1 : -1;
+  if (rows != 0 && rows != 64) return -1;
+  return 2 * 64 + (ring_layout(boxes, 1, true, 0).stages >= 4 ? 1 : 0);
+}
+
+// the plan's shape: rows 128 (resident) or 64, chunks that cover the
+// vocabulary's tiles with none empty
+bool bad_plan(int M, int V, int rows, int resident, int chunk_tiles, int chunks) {
+  const int tiles = (V + TV - 1) / TV;
+  return M <= 0 || V <= 0 || !(rows == 128 || rows == 64) || (rows == 128 && !resident) ||
+         chunk_tiles <= 0 || chunks != (tiles + chunk_tiles - 1) / chunk_tiles;
+}
+
+Launch plan_args(void* part_vals, void* part_idx, void* part_max, void* part_sum,
+                 void* vals, void* idx, void* lse, int M, int V, int boxes, int rows,
+                 int resident, int chunk_tiles, int chunks, int k, void* stream) {
+  Launch a{};
+  a.part = Parts{static_cast<float*>(part_vals), static_cast<int*>(part_idx),
+                 static_cast<float*>(part_max), static_cast<float*>(part_sum)};
+  a.vals = vals;
+  a.idx = idx;
+  a.lse = lse;
+  a.M = M;
+  a.V = V;
+  a.boxes = boxes;
+  a.rows = rows;
+  a.resident = resident;
+  a.chunk_tiles = chunk_tiles;
+  a.chunks = chunks;
+  a.k = k;
+  a.st = static_cast<cudaStream_t>(stream);
+  return a;
 }
 
 }  // namespace
 
-// Partial workspace sizes the caller allocates, with P = n_chunks * 4
-// partials per row: part_vals [P, M, k] f32, part_idx [P, M, k] int32,
-// part_max and part_sum [P, M] f32.  chunk_w is a multiple of 128 and
-// n_chunks = ceil(V / chunk_w).  Returns a cudaError_t as int.
-extern "C" int vct_fused_logits_top_k(const void* h, const void* w,
+// Partial workspace sizes the caller allocates, with K the list length
+// (k rounded up to 1, 3, 10 or 16) and P = chunks · (2 if rows == 64)
+// partials per row: part_vals [P, M, K] f32, part_idx [P, M, K]
+// int32, part_max and part_sum [P, M] f32.  chunks = ceil(ceil(V / 128) /
+// chunk_tiles); H a multiple of 32; every pointer 16-byte aligned.
+// Returns a cudaError_t as int.
+extern "C" int vct_fused_logits_top_k(const void* h, const void* w_t,
                                       const void* b, void* part_vals,
                                       void* part_idx, void* part_max,
                                       void* part_sum, void* vals, void* idx,
                                       void* lse, int M, int H, int V, int k,
-                                      int chunk_w, int n_chunks,
-                                      void* stream) {
+                                      int rows, int resident, int chunk_tiles,
+                                      int chunks, void* stream) {
   if (M <= 0) return 0;
-  if (H % Bf16Tile::BK != 0 || bad_plan(chunk_w, n_chunks))
+  if (H <= 0 || H % 32 != 0 || k < 1 || k > 16 || k > V ||
+      bad_plan(M, V, rows, resident, chunk_tiles, chunks))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Bf16Tile tile{static_cast<const __nv_bfloat16*>(h),
-                      static_cast<const __nv_bfloat16*>(w),
-                      static_cast<const float*>(b), H};
-  const Parts part{static_cast<float*>(part_vals), static_cast<int*>(part_idx),
-                   static_cast<float*>(part_max), static_cast<float*>(part_sum)};
-  return launch_top_k(tile, part, vals, idx, lse, M, V, k, chunk_w, n_chunks,
-                      stream);
+  Launch a = plan_args(part_vals, part_idx, part_max, part_sum, vals, idx, lse, M, V,
+                       (H * 2 + 127) / 128, rows, resident, chunk_tiles, chunks, k, stream);
+  int err = row_tile_map(&a.h_map, static_cast<const bf16*>(h), M, H);
+  if (err) return err;
+  err = row_tile_map(&a.w_map, static_cast<const bf16*>(w_t), V, H, TV);
+  if (err) return err;
+  return launch_top_k(a, Bf16Logit{static_cast<const float*>(b)});
 }
 
 // The int8 variant: hq [M,H] int8, hs [M] f32, wq_t [V,H] int8 (the
-// head transposed), ws and b [V] f32; H a multiple of 64, hq and wq_t
-// 16-byte aligned.  Workspace and outputs as vct_fused_logits_top_k.
+// head transposed), ws and b [V] f32; H a multiple of 64.  Workspace and
+// outputs as vct_fused_logits_top_k.
 extern "C" int vct_fused_logits_top_k_int8(
     const void* hq, const void* hs, const void* wq_t, const void* ws,
     const void* b, void* part_vals, void* part_idx, void* part_max,
     void* part_sum, void* vals, void* idx, void* lse, int M, int H, int V,
-    int k, int chunk_w, int n_chunks, void* stream) {
+    int k, int rows, int resident, int chunk_tiles, int chunks, void* stream) {
   if (M <= 0) return 0;
-  if (H % Int8Tile::BK != 0 || bad_plan(chunk_w, n_chunks))
+  if (H <= 0 || H % 64 != 0 || k < 1 || k > 16 || k > V ||
+      bad_plan(M, V, rows, resident, chunk_tiles, chunks))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Int8Tile tile{static_cast<const signed char*>(hq),
-                      static_cast<const float*>(hs),
-                      static_cast<const signed char*>(wq_t),
-                      static_cast<const float*>(ws),
-                      static_cast<const float*>(b), H};
-  const Parts part{static_cast<float*>(part_vals), static_cast<int*>(part_idx),
-                   static_cast<float*>(part_max), static_cast<float*>(part_sum)};
-  return launch_top_k(tile, part, vals, idx, lse, M, V, k, chunk_w, n_chunks,
-                      stream);
+  Launch a = plan_args(part_vals, part_idx, part_max, part_sum, vals, idx, lse, M, V,
+                       (H + 127) / 128, rows, resident, chunk_tiles, chunks, k, stream);
+  int err = s8_tile_map(&a.h_map, static_cast<const signed char*>(hq), M, H);
+  if (err) return err;
+  err = s8_tile_map(&a.w_map, static_cast<const signed char*>(wq_t), V, H, TV);
+  if (err) return err;
+  return launch_top_k(a, S8Logit{static_cast<const float*>(hs), static_cast<const float*>(ws),
+                                 static_cast<const float*>(b)});
 }
 
 // One Gumbel-max draw per row: tokens [M] int32.  Workspace part_vals and
-// part_idx [P, M] (k = 1), vals [M] f32 (the winning scored values).
-extern "C" int vct_fused_logits_sample(const void* h, const void* w,
+// part_idx [P, M] (lists of 1), vals [M] f32 (the winning scored values).
+extern "C" int vct_fused_logits_sample(const void* h, const void* w_t,
                                        const void* b, void* part_vals,
                                        void* part_idx, void* vals,
                                        void* tokens, int M, int H, int V,
                                        unsigned seed, unsigned step,
-                                       float inv_temp, int row0, int chunk_w,
-                                       int n_chunks, void* stream) {
+                                       float inv_temp, int row0, int rows,
+                                       int resident, int chunk_tiles,
+                                       int chunks, void* stream) {
   if (M <= 0) return 0;
-  if (H % Bf16Tile::BK != 0 || bad_plan(chunk_w, n_chunks))
+  if (H <= 0 || H % 32 != 0 || bad_plan(M, V, rows, resident, chunk_tiles, chunks))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Bf16Tile tile{static_cast<const __nv_bfloat16*>(h),
-                      static_cast<const __nv_bfloat16*>(w),
-                      static_cast<const float*>(b), H};
-  const GumbelScore score{seed, step, inv_temp, row0};
-  const Parts part{static_cast<float*>(part_vals), static_cast<int*>(part_idx),
-                   nullptr, nullptr};
-  return launch<Bf16Tile, GumbelScore, 1>(tile, score, part, vals, tokens,
-                                          nullptr, M, V, chunk_w, n_chunks,
-                                          static_cast<cudaStream_t>(stream));
+  Launch a = plan_args(part_vals, part_idx, nullptr, nullptr, vals, tokens, nullptr, M, V,
+                       (H * 2 + 127) / 128, rows, resident, chunk_tiles, chunks, 1, stream);
+  int err = row_tile_map(&a.h_map, static_cast<const bf16*>(h), M, H);
+  if (err) return err;
+  err = row_tile_map(&a.w_map, static_cast<const bf16*>(w_t), V, H, TV);
+  if (err) return err;
+  return launch_rows<Bf16Logit, GumbelScore, 1>(
+      a, Bf16Logit{static_cast<const float*>(b)}, GumbelScore{seed, step, inv_temp, row0});
 }
 
-// Number of partial lists per row for a given chunk count.
-extern "C" int vct_logits_top_k_lanes() { return LANES; }
+// The block shape of the top-k kernels (and, with k = 1 and rows = 64,
+// the sampler's) at width H (int8: bytes per element 1) for lists of k:
+// rows · 2 + resident; `rows` 0 lets the kernels choose, 128 or 64 forces
+// it; -1 where forced rows do not fit.
+extern "C" int vct_fused_logits_top_k_block(int H, int int8, int k, int rows) {
+  if (H <= 0 || k < 1 || k > 16) return -1;
+  const int K = k <= 1 ? 1 : k <= 3 ? 3 : k <= 10 ? 10 : 16;
+  return block_shape((H * (int8 ? 1 : 2) + 127) / 128, K, rows);
+}
+
+// The kernels' dynamic shared memory at width H (int8: bytes per element
+// 1), for a block of `rows` rows, h resident or streamed; -1 where the
+// ring would hold fewer than two stages.
+extern "C" int vct_fused_logits_top_k_smem(int H, int int8, int rows, int resident) {
+  const RingLayout L =
+      ring_layout((H * (int8 ? 1 : 2) + 127) / 128, rows == 128 ? 2 : 1, resident != 0, 0);
+  return L.stages < 2 ? -1 : L.smem;
+}

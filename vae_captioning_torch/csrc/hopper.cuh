@@ -4,11 +4,12 @@
 // the written-logits CE backward (fused_ce_mat.cu), the AG-heads forward
 // and backward (fused_ag_heads.cu), the LSTM cell of the decode step and
 // the sequence forward (lstm_cell.cuh), the sequence backward
-// (fused_lstm_seq.cu) and the fused z sampling + projection (fused_z.cu).
-// mbarriers, TMA loads (and stores) of bf16 boxes of up to 256 rows x 64
-// columns with the 128-byte swizzle, shared-memory matrix descriptors for
-// that swizzle, the m64nNk16 bf16 wgmma wrappers, and the host-side
-// tensor-map encoder (cuTensorMapEncodeTiled reached through
+// (fused_lstm_seq.cu), the fused z sampling + projection (fused_z.cu) and
+// the decode's logits top-k (fused_logits_topk.cu, on row_ring.cuh).
+// mbarriers, TMA loads (and stores) of boxes of up to 256 rows x 128 bytes
+// (64 bf16 or 128 int8 columns) with the 128-byte swizzle, shared-memory
+// matrix descriptors for that swizzle, the m64nNk16 bf16 and m64nNk32 s8 wgmma wrappers, and the
+// host-side tensor-map encoder (cuTensorMapEncodeTiled reached through
 // cudaGetDriverEntryPoint, so nothing links libcuda).
 
 #pragma once
@@ -117,6 +118,12 @@ template <int R>
 __device__ __forceinline__ void reg_fence(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+template <int R>
+__device__ __forceinline__ void reg_fence(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
 }
 
 // shared-memory matrix descriptor for the 128-byte swizzle: start address,
@@ -300,6 +307,58 @@ __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t a, uint64_t b,
   }
 }
 
+// m64nNk32 s8 x s8 -> s32, A and B K-major from shared memory (8-bit
+// wgmma takes no transposed operand); d = A·B + (scale_d ? d : 0).  A
+// 128-byte swizzled row holds 128 values: four k32 steps, 32 bytes apart,
+// as the bf16 products' four k16 steps.
+__device__ __forceinline__ void wgmma_s8_n64(int (&d)[32], uint64_t a, uint64_t b,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t a, uint64_t b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_s8(int (&d)[N / 2], uint64_t a, uint64_t b,
+                                         int scale_d) {
+  if constexpr (N == 64) wgmma_s8_n64(d, a, b, scale_d);
+  else {
+    static_assert(N == 128, "wgmma_s8: N is 64 or 128");
+    wgmma_s8_n128(d, a, b, scale_d);
+  }
+}
+
 // Programmatic dependent launch (a grid launched with the PDL attribute,
 // launch_pdl): the grid before it in the stream lets it start early, and
 // its threads wait for that grid to complete, with its writes visible,
@@ -378,23 +437,38 @@ PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   return fn;
 }
 
-// a [rows, H] bf16 row-major matrix (row pitch `pitch` elements, H when 0;
-// a multiple of 8) in boxes of box_rows (at most 256) rows x 64 columns,
-// with the 128-byte swizzle; rows and columns past the end read zeros
-int row_tile_map(CUtensorMap* map, const bf16* ptr, int rows, int H,
-                 int box_rows = BT, int pitch = 0) {
+// a [rows, cols] row-major matrix of `type` (elem bytes an element; row
+// pitch `pitch` elements, cols when 0, a multiple of 16 bytes) in boxes of
+// box_rows (at most 256) rows x 128 bytes, with the 128-byte swizzle; rows
+// and columns past the end read zeros
+int tile_map(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* ptr,
+             int rows, int cols, int box_rows, int pitch) {
   const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(pitch > 0 ? pitch : H) * sizeof(bf16)};
-  const cuuint32_t box[2] = {BOX, static_cast<cuuint32_t>(box_rows)};
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(pitch > 0 ? pitch : cols) * elem};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / elem),
+                             static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem_strides[2] = {1, 1};
   const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<bf16*>(ptr), dims,
-      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem_strides,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// a [rows, H] bf16 row-major matrix (row pitch `pitch` elements, H when 0;
+// a multiple of 8) in boxes of box_rows (at most 256) rows x 64 columns
+int row_tile_map(CUtensorMap* map, const bf16* ptr, int rows, int H,
+                 int box_rows = BT, int pitch = 0) {
+  return tile_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, rows, H, box_rows, pitch);
+}
+
+// a [rows, H] int8 row-major matrix (H a multiple of 16) in boxes of
+// box_rows rows x 128 columns
+int s8_tile_map(CUtensorMap* map, const signed char* ptr, int rows, int H,
+                int box_rows = BT) {
+  return tile_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, ptr, rows, H, box_rows, 0);
 }
 
 }  // namespace

@@ -30,6 +30,25 @@ struct TopK {
     return a > b || (a == b && ia < ib);
   }
 
+  // (val, idx) where idx is larger than every index in the list (a lane's
+  // columns arrive in ascending order): equal values stay ahead of it, so
+  // entry j moves down where val > v[j - 1] and val lands where val > v[j]
+  // first holds.  Branch-free, every slot from the old list: no divergence
+  // where some lanes insert and some do not, and the lists of a thread's
+  // rows update side by side.
+  __device__ __forceinline__ void push_ascending(float val, int idx) {
+#pragma unroll
+    for (int j = K - 1; j > 0; --j) {
+      const bool here = val > v[j];
+      const bool above = val > v[j - 1];
+      v[j] = above ? v[j - 1] : here ? val : v[j];
+      i[j] = above ? i[j - 1] : here ? idx : i[j];
+    }
+    const bool first = val > v[0];
+    v[0] = first ? val : v[0];
+    i[0] = first ? idx : i[0];
+  }
+
   __device__ __forceinline__ void push(float val, int idx) {
     if (!better(val, idx, v[K - 1], i[K - 1])) return;
 #pragma unroll

@@ -100,7 +100,9 @@ class DecodeWeights(NamedTuple):
     embed: torch.Tensor     # [V, E] bf16
     lstm_w: torch.Tensor    # [E+H, 4H] bf16
     lstm_b: torch.Tensor    # [4H] f32
-    head_w: torch.Tensor    # [H, V] bf16
+    # [H, V] bf16, stored column-major: head_w.t() is W^T [V, H]
+    # contiguous, the layout the logits kernels read with TMA
+    head_w: torch.Tensor
     head_b: torch.Tensor    # [V] f32
     # decode_int8 only: the f32 head quantised per column
     head_wq: Optional[torch.Tensor] = None   # [H, V] int8
@@ -114,7 +116,8 @@ class DecodeWeights(NamedTuple):
             bf16 = torch.bfloat16
             wq, ws = quantize_logits_weights(w) if int8 else (None, None)
             return cls(emb.to(bf16).contiguous(), kern.to(bf16).contiguous(),
-                       kbias.float().contiguous(), w.to(bf16).contiguous(),
+                       kbias.float().contiguous(),
+                       w.to(bf16).t().contiguous().t(),
                        b.float().contiguous(), wq, ws)
 
 

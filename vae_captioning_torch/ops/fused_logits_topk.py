@@ -17,14 +17,18 @@ G from a Philox stream keyed on (seed, step) that counts on the element's
 bits in integer ops.
 
 On CUDA tensors the wrappers launch ``csrc/fused_logits_topk.cu`` (a
-partial kernel over vocab chunks, then a merge launch), which never
-stores the [M, V] logits; on CPU tensors they take the plain versions.
+wgmma + TMA partial kernel over vocab chunks, then a merge launch), which
+never stores the [M, V] logits; on CPU tensors they take the plain
+versions.  The kernels read the head transposed, W^T [V, H] contiguous:
+the decode stores it so (``w.t().contiguous().t()``, once per build), and
+the wrappers pass ``w.t().contiguous()``, which copies nothing for that
+layout and transposes any other.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -37,8 +41,9 @@ SAMPLE = "fused_logits_sample"
 SAMPLE_TAG = 0x53414D50  # last counter word of the sampler's stream
 _MASK32 = 0xFFFFFFFF
 K_MAX = 16
-_ROWS_PER_BLOCK = 64     # BM of the CUDA kernel
-_TILE = 128              # BN: vocab chunks are whole tiles
+_TV = 128                # vocab columns of a tile
+_LIST_K = (1, 3, 10, 16)  # the kernels' list lengths: k rounded up
+_WORKSPACE = 64 << 20    # the partials' bytes a plan may take
 
 Result = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -66,62 +71,140 @@ def fused_logits_top_k_plain(h: torch.Tensor, w: torch.Tensor,
     return vals, idx.to(torch.int32), torch.logsumexp(logits, dim=-1)
 
 
+class LogitsPlan(NamedTuple):
+    """The partial kernel's launch for (M, H, V, k): block (x, y) of the
+    grid takes rows [x·rows, (x + 1)·rows) and the vocab tiles [y·
+    chunk_tiles, (y + 1)·chunk_tiles), and writes ``parts // chunks``
+    partial lists of ``list_k`` per row (one per warpgroup that holds
+    the row's columns); the merge launch folds the ``parts`` partials of
+    a row in order."""
+
+    rows: int           # 128 (a warpgroup's rows each) or 64 (columns split)
+    resident: bool      # h kept in shared memory, else streamed beside W
+    chunk_tiles: int
+    chunks: int
+    list_k: int         # k rounded up to 1, 3, 10 or 16
+    parts: int          # P = chunks · (2 if rows == 64 else 1)
+
+
 @functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+def block_shape(H: int, elem_bytes: int, k: int, rows: int = 0) -> Tuple[int, bool]:
+    """(rows, resident) of the kernels' blocks at width H (bf16:
+    elem_bytes 2; int8: 1) for lists of k, as ``csrc/fused_logits_topk.cu``
+    chooses it from ``csrc/row_ring.cuh``'s shared-memory layout: 128 rows
+    resident where they fit beside a ring of four W boxes and the lists
+    hold at most 10, else 64 rows, resident beside four boxes or streamed.
+    ``rows`` forces 128 or 64 where it fits (ValueError where not).
+    Builds and asks the kernels' library."""
+    code = _ext.library().vct_fused_logits_top_k_block(H, int(elem_bytes == 1), k, rows)
+    if code < 0:
+        raise ValueError(f"logits_plan: rows={rows} does not fit H={H}, k={k}")
+    return code // 2, bool(code % 2)
 
 
-def plan_chunks(M: int, V: int, sms: int) -> Tuple[int, int]:
-    """(chunk width, number of chunks) for the vocab split: enough blocks
-    for about two per SM, each chunk a whole number of 128-column
-    tiles."""
-    row_blocks = -(-M // _ROWS_PER_BLOCK)
-    tiles = -(-V // _TILE)
-    want = min(max(1, -(-2 * sms // row_blocks)), tiles)
-    chunk_w = -(-tiles // want) * _TILE
-    return chunk_w, -(-V // chunk_w)
+@functools.lru_cache(maxsize=None)
+def chunk_plan(M: int, V: int, k: int, rows: int = 128, resident: bool = True,
+               sms: int = 132) -> LogitsPlan:
+    """The vocab chunks for blocks of ``rows`` rows: the count that takes
+    the fewest tile slots per SM, waves x (tiles a block + half a tile for
+    its h load and epilogue), as ``ops/fused_ce.py:ce_fwd_plan`` counts
+    them, among the counts whose partials fit in ``_WORKSPACE`` bytes (the
+    fewest on a tie); no chunk is empty.  At M = 1536, V = 11500 in
+    128-row blocks: 10 chunks of 9 of the 90 tiles, 120 blocks."""
+    list_k = next(K for K in _LIST_K if K >= k)
+    m_blocks, v_tiles = -(-M // rows), -(-V // _TV)
+    per_chunk = (2 if rows == 64 else 1) * M * (8 * list_k + 8)
+    most = max(1, min(v_tiles, _WORKSPACE // per_chunk))
+    best = None
+    for chunks in range(1, most + 1):
+        per = -(-v_tiles // chunks)
+        if -(-v_tiles // per) != chunks:
+            continue                    # the same split as fewer chunks
+        cost = -(-m_blocks * chunks // sms) * (2 * per + 1)
+        if best is None or cost < best[0]:
+            best = (cost, chunks, per)
+    _, chunks, per = best
+    return LogitsPlan(rows=rows, resident=resident, chunk_tiles=per,
+                      chunks=chunks, list_k=list_k,
+                      parts=chunks * (2 if rows == 64 else 1))
+
+
+def logits_plan(M: int, H: int, V: int, k: int, elem_bytes: int = 2,
+                sms: int = 132, rows: int = 0) -> LogitsPlan:
+    """The kernels' launch: :func:`block_shape`'s blocks and
+    :func:`chunk_plan`'s chunks for them."""
+    return chunk_plan(M, V, k, *block_shape(H, elem_bytes, k, rows), sms)
+
+
+def _workspace(plan: LogitsPlan, M: int, dev) -> Tuple[int, ...]:
+    """One f32 buffer for the partials: (buffer, then the pointers of
+    part_vals [P, M, K], part_idx [P, M, K] int32, part_max, part_sum [P,
+    M]); returns the buffer first so that it lives through the call."""
+    n = plan.parts * M
+    buf = torch.empty((n * (2 * plan.list_k + 2),), dtype=torch.float32,
+                      device=dev)
+    p = buf.data_ptr()
+    K = plan.list_k
+    return buf, p, p + 4 * n * K, p + 8 * n * K, p + 4 * n * (2 * K + 1)
+
+
+def _plan_args(plan: LogitsPlan) -> tuple:
+    return plan.rows, int(plan.resident), plan.chunk_tiles, plan.chunks
 
 
 def fused_logits_top_k(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                        k: int) -> Result:
-    """h [M,H] bf16, w [H,V] bf16, b [V] f32 → (values [M,k] f32, indices
-    [M,k] int32, logsumexp [M] f32), 1 <= k <= 16.  CPU tensors take the
-    plain version; CUDA tensors launch the kernel or raise.  No backward:
-    raises RuntimeError when grad mode is on and an input requires grad."""
+    """h [M,H] bf16, w [H,V] bf16 (any layout; the kernel reads ``w.t()``
+    contiguous, as the decode stores it), b [V] f32 → (values [M,k] f32,
+    indices [M,k] int32, logsumexp [M] f32), 1 <= k <= 16.  CPU tensors
+    take the plain version; CUDA tensors launch the kernel or raise.  No
+    backward: raises RuntimeError when grad mode is on and an input
+    requires grad."""
     _ext.forbid_grad(NAME, h, w, b)
     if _ext.on_cpu(h, w, b):
         return fused_logits_top_k_plain(h, w, b, k)
+    _ext.require(h.dim() == w.dim() == 2,
+                 f"{NAME}: h{tuple(h.shape)} and w{tuple(w.shape)} must be 2-D")
+    return logits_top_k_kernel(h, w.t().contiguous(), b, k)
+
+
+def _check_bf16(name: str, h, w_t, b) -> Tuple[int, int, int]:
     M, H = h.shape
-    V = w.shape[1]
+    V = w_t.shape[0]
     req = _ext.require
-    req(h.dtype == w.dtype == torch.bfloat16 and b.dtype == torch.float32,
-        f"{NAME}: h and w must be bfloat16 and b float32, got "
-        f"{h.dtype}, {w.dtype}, {b.dtype}")
-    req(w.shape[0] == H and b.shape == (V,),
-        f"{NAME}: shapes h{tuple(h.shape)} w{tuple(w.shape)} "
+    req(h.dtype == w_t.dtype == torch.bfloat16 and b.dtype == torch.float32,
+        f"{name}: h and w must be bfloat16 and b float32, got "
+        f"{h.dtype}, {w_t.dtype}, {b.dtype}")
+    req(w_t.shape[1] == H and b.shape == (V,),
+        f"{name}: shapes h{tuple(h.shape)} w{tuple(w_t.t().shape)} "
         f"b{tuple(b.shape)} disagree")
-    req(1 <= k <= min(K_MAX, V), f"{NAME}: k={k} outside [1, {K_MAX}]")
-    req(H % 32 == 0, f"{NAME}: H={H} must be a multiple of 32")
-    req(all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (h, w, b)),
-        f"{NAME}: inputs must be contiguous and 16-byte aligned")
+    req(H % 32 == 0, f"{name}: H={H} must be a multiple of 32")
+    req(all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (h, w_t, b)),
+        f"{name}: inputs must be contiguous and 16-byte aligned")
+    return M, H, V
+
+
+def logits_top_k_kernel(h: torch.Tensor, w_t: torch.Tensor, b: torch.Tensor,
+                        k: int, plan: LogitsPlan = None) -> Result:
+    """The bf16 kernel on the head transposed: h [M,H] bf16, w_t [V,H]
+    bf16 contiguous, b [V] f32, all on one CUDA device; ``plan`` defaults
+    to :func:`logits_plan`'s."""
+    M, H, V = _check_bf16(NAME, h, w_t, b)
+    _ext.require(1 <= k <= min(K_MAX, V), f"{NAME}: k={k} outside [1, {K_MAX}]")
     dev = h.device
     vals = torch.empty((M, k), dtype=torch.float32, device=dev)
     idx = torch.empty((M, k), dtype=torch.int32, device=dev)
     lse = torch.empty((M,), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        lib = _ext.library()
-        chunk_w, n_chunks = plan_chunks(M, V, _sm_count(dev.index or 0))
-        P = n_chunks * lib.vct_logits_top_k_lanes()
-        part_vals = torch.empty((P, M, k), dtype=torch.float32, device=dev)
-        part_idx = torch.empty((P, M, k), dtype=torch.int32, device=dev)
-        part_ms = torch.empty((2, P, M), dtype=torch.float32, device=dev)
-        err = lib.vct_fused_logits_top_k(
-            h.data_ptr(), w.data_ptr(), b.data_ptr(), part_vals.data_ptr(),
-            part_idx.data_ptr(), part_ms[0].data_ptr(), part_ms[1].data_ptr(),
-            vals.data_ptr(), idx.data_ptr(), lse.data_ptr(), M, H, V, k,
-            chunk_w, n_chunks, _ext.stream_ptr(dev))
-    _ext.check_launch(err, NAME)
-    _ext.LAUNCHES[NAME] += 1
+    if M:
+        plan = plan or logits_plan(M, H, V, k, 2, _ext.sm_count(dev.index or 0))
+        with _ext.device_scope(dev):
+            buf, *parts = _workspace(plan, M, dev)
+            err = _ext.library().vct_fused_logits_top_k(
+                h.data_ptr(), w_t.data_ptr(), b.data_ptr(), *parts,
+                vals.data_ptr(), idx.data_ptr(), lse.data_ptr(), M, H, V, k,
+                *_plan_args(plan), _ext.stream_ptr(dev))
+        _ext.check_launch(err, NAME)
+        _ext.LAUNCHES[NAME] += 1
     return vals, idx, lse
 
 
@@ -188,12 +271,13 @@ def fused_logits_top_k_int8(h: torch.Tensor, wq: torch.Tensor,
 
 
 def int8_top_k_kernel(hq: torch.Tensor, hs: torch.Tensor, wq: torch.Tensor,
-                      ws: torch.Tensor, b: torch.Tensor, k: int) -> Result:
+                      ws: torch.Tensor, b: torch.Tensor, k: int,
+                      plan: LogitsPlan = None) -> Result:
     """The int8 kernel on quantised rows: hq [M,H] int8, hs [M,1] f32
     (from :func:`quantize_rows`), wq [H,V] int8, ws and b [V] f32, all on
-    one CUDA device.  The kernel reads wq column-major, as
-    :func:`quantize_logits_weights` stores it; a row-major wq is
-    transposed on each call."""
+    one CUDA device; ``plan`` defaults to :func:`logits_plan`'s.  The
+    kernel reads wq column-major, as :func:`quantize_logits_weights`
+    stores it; a row-major wq is transposed on each call."""
     M, H = hq.shape
     V = wq.shape[1]
     req = _ext.require
@@ -214,21 +298,17 @@ def int8_top_k_kernel(hq: torch.Tensor, hs: torch.Tensor, wq: torch.Tensor,
     vals = torch.empty((M, k), dtype=torch.float32, device=dev)
     idx = torch.empty((M, k), dtype=torch.int32, device=dev)
     lse = torch.empty((M,), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        lib = _ext.library()
-        chunk_w, n_chunks = plan_chunks(M, V, _sm_count(dev.index or 0))
-        P = n_chunks * lib.vct_logits_top_k_lanes()
-        part_vals = torch.empty((P, M, k), dtype=torch.float32, device=dev)
-        part_idx = torch.empty((P, M, k), dtype=torch.int32, device=dev)
-        part_ms = torch.empty((2, P, M), dtype=torch.float32, device=dev)
-        err = lib.vct_fused_logits_top_k_int8(
-            hq.data_ptr(), hs.data_ptr(), wq_t.data_ptr(), ws.data_ptr(),
-            b.data_ptr(), part_vals.data_ptr(), part_idx.data_ptr(),
-            part_ms[0].data_ptr(), part_ms[1].data_ptr(), vals.data_ptr(),
-            idx.data_ptr(), lse.data_ptr(), M, H, V, k, chunk_w, n_chunks,
-            _ext.stream_ptr(dev))
-    _ext.check_launch(err, INT8)
-    _ext.LAUNCHES[INT8] += 1
+    if M:
+        plan = plan or logits_plan(M, H, V, k, 1, _ext.sm_count(dev.index or 0))
+        with _ext.device_scope(dev):
+            buf, *parts = _workspace(plan, M, dev)
+            err = _ext.library().vct_fused_logits_top_k_int8(
+                hq.data_ptr(), hs.data_ptr(), wq_t.data_ptr(), ws.data_ptr(),
+                b.data_ptr(), *parts, vals.data_ptr(), idx.data_ptr(),
+                lse.data_ptr(), M, H, V, k, *_plan_args(plan),
+                _ext.stream_ptr(dev))
+        _ext.check_launch(err, INT8)
+        _ext.LAUNCHES[INT8] += 1
     return vals, idx, lse
 
 
@@ -298,42 +378,46 @@ def fused_logits_sample(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                         seed: int, step: int, temperature: float = 1.0,
                         row0: int = 0) -> torch.Tensor:
     """One categorical draw per row from softmax((h @ w + b) / T): h
-    [M,H] bf16, w [H,V] bf16, b [V] f32, seed and step 32-bit unsigned
-    keys of the noise, row0 the first row's index in the stream → tokens
-    [M] int32.  CPU tensors take the plain version; CUDA tensors launch
-    the kernel or raise."""
+    [M,H] bf16, w [H,V] bf16 (any layout, as :func:`fused_logits_top_k`
+    takes it), b [V] f32, seed and step 32-bit unsigned keys of the noise,
+    row0 the first row's index in the stream → tokens [M] int32.  CPU
+    tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
     _ext.forbid_grad(SAMPLE, h, w, b)
     _check_key(seed, step)
     if _ext.on_cpu(h, w, b):
         return fused_logits_sample_plain(h, w, b, seed, step, temperature,
                                          row0)
-    M, H = h.shape
-    V = w.shape[1]
-    req = _ext.require
-    req(h.dtype == w.dtype == torch.bfloat16 and b.dtype == torch.float32,
-        f"{SAMPLE}: h and w must be bfloat16 and b float32, got "
-        f"{h.dtype}, {w.dtype}, {b.dtype}")
-    req(w.shape[0] == H and b.shape == (V,),
-        f"{SAMPLE}: shapes h{tuple(h.shape)} w{tuple(w.shape)} "
-        f"b{tuple(b.shape)} disagree")
-    req(H % 32 == 0, f"{SAMPLE}: H={H} must be a multiple of 32")
-    req(temperature > 0, f"{SAMPLE}: temperature {temperature} must be > 0")
-    req(all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (h, w, b)),
-        f"{SAMPLE}: inputs must be contiguous and 16-byte aligned")
+    _ext.require(h.dim() == w.dim() == 2,
+                 f"{SAMPLE}: h{tuple(h.shape)} and w{tuple(w.shape)} must be 2-D")
+    return sample_kernel(h, w.t().contiguous(), b, seed, step, temperature,
+                         row0)
+
+
+def sample_kernel(h: torch.Tensor, w_t: torch.Tensor, b: torch.Tensor,
+                  seed: int, step: int, temperature: float = 1.0,
+                  row0: int = 0, plan: LogitsPlan = None) -> torch.Tensor:
+    """The sampler kernel on the head transposed (w_t [V,H] bf16
+    contiguous), all on one CUDA device; ``plan`` defaults to
+    :func:`logits_plan`'s for k = 1 in 64-row blocks (the kernel has no
+    128-row instance: its Philox words beside 64 accumulators spilled)."""
+    M, H, V = _check_bf16(SAMPLE, h, w_t, b)
+    _check_key(seed, step)
+    _ext.require(temperature > 0,
+                 f"{SAMPLE}: temperature {temperature} must be > 0")
     dev = h.device
     vals = torch.empty((M,), dtype=torch.float32, device=dev)
     tokens = torch.empty((M,), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        lib = _ext.library()
-        chunk_w, n_chunks = plan_chunks(M, V, _sm_count(dev.index or 0))
-        P = n_chunks * lib.vct_logits_top_k_lanes()
-        part_vals = torch.empty((P, M), dtype=torch.float32, device=dev)
-        part_idx = torch.empty((P, M), dtype=torch.int32, device=dev)
-        err = lib.vct_fused_logits_sample(
-            h.data_ptr(), w.data_ptr(), b.data_ptr(), part_vals.data_ptr(),
-            part_idx.data_ptr(), vals.data_ptr(), tokens.data_ptr(), M, H, V,
-            seed, step, 1.0 / temperature, row0, chunk_w, n_chunks,
-            _ext.stream_ptr(dev))
-    _ext.check_launch(err, SAMPLE)
-    _ext.LAUNCHES[SAMPLE] += 1
+    if M:
+        plan = plan or logits_plan(M, H, V, 1, 2, _ext.sm_count(dev.index or 0),
+                                   rows=64)
+        with _ext.device_scope(dev):
+            buf, part_vals, part_idx, _, _ = _workspace(plan, M, dev)
+            err = _ext.library().vct_fused_logits_sample(
+                h.data_ptr(), w_t.data_ptr(), b.data_ptr(), part_vals,
+                part_idx, vals.data_ptr(), tokens.data_ptr(), M, H, V, seed,
+                step, 1.0 / temperature, row0, *_plan_args(plan),
+                _ext.stream_ptr(dev))
+        _ext.check_launch(err, SAMPLE)
+        _ext.LAUNCHES[SAMPLE] += 1
     return tokens
