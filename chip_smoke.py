@@ -277,15 +277,18 @@ def device_ms(fn, reps: int = 10) -> dict:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    times = {}
-    for e in prof.events():
-        if e.device_type.name == "CUDA":
-            times[e.name] = times.get(e.name, 0.0) + e.device_time_total / reps / 1e3
-    return times
+    for _ in range(3):      # the profiler now and then hands back no event
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        times = {}
+        for e in prof.events():
+            if e.device_type.name == "CUDA":
+                times[e.name] = times.get(e.name, 0.0) + e.device_time_total / reps / 1e3
+        if sum(times.values()) > 0:
+            return times
+    raise AssertionError("device_ms: the profiler recorded no kernel in three tries")
 
 
 def union_ms(spans) -> float:
@@ -563,13 +566,37 @@ def unfused_logits(M: int, V: int, seed: int) -> torch.Tensor:
             + b.to(torch.bfloat16)).float()
 
 
-def check_topk_lse(N: int, V: int, k: int) -> float:
+def planted(x: torch.Tensor) -> torch.Tensor:
+    """x with ties planted where the top-k + lse kernel's parts meet: the
+    row maximum at columns 0 and 3-4 (a row's 16-byte head; a lane's
+    float4), 1023-1024 (a chunk of 256 float4) and V - 1 (the tail), a
+    runner-up at 5, 1025 and 2047; in rows past 2200 columns, -inf over
+    columns 1-1100 of every third row and at every seventh column of the
+    rows after them (every row keeps at least 16 finite values)."""
+    x = x.clone()
+    V = x.shape[1]
+    top = x.amax(dim=1) + 1.0
+    for c in (0, 3, 4, 1023, 1024, V - 1):
+        if c < V:
+            x[:, c] = top
+    for c in (5, 1025, 2047):
+        if c < V:
+            x[:, c] = top - 0.5
+    if V > 2200:
+        x[::3, 1:1101] = float("-inf")
+        x[1::3, ::7] = float("-inf")
+    return x
+
+
+def check_topk_lse(N: int, V: int, k: int, plant: bool = False) -> float:
     """Values are copied: values and indices bit for bit, lse to its rtol."""
     x = unfused_logits(N, V, seed=N + V + k)
+    if plant:
+        x = planted(x)
     vals, idx, lse = top_k_logsumexp(x, k)
     p_vals, p_idx, p_lse = top_k_logsumexp_plain(x, k)
     torch.cuda.synchronize()
-    tag = f"top_k_logsumexp N={N} V={V} k={k}"
+    tag = f"top_k_logsumexp N={N} V={V} k={k}{' (planted ties, -inf)' if plant else ''}"
     err = compare_topk(tag, (vals, idx, lse), (p_vals, p_idx, p_lse))
     if not (torch.equal(vals, p_vals) and torch.equal(idx, p_idx)):
         raise AssertionError(f"{tag}: values or indices not bit-identical "
@@ -640,16 +667,24 @@ SAMPLE_SHAPES = ((512, 11500, 512), (1000, 11519, 512), (1, 11519, 512),
                  (65, 11500, 96), (65, 11519, 1024))
 
 
+# the top-k + lse kernel's further shapes (N, V, k), with planted ties and
+# -inf: one row, rows past a persistent grid's warps, misaligned rows
+# (V = 11519), lists of 16 and of 1, and rows shorter than a float4
+LSE_SHAPES = ((1536, 11519, 10), (5120, 11500, 3), (1, 11519, 16), (2113, 11519, 1),
+              (13, 1000, 16), (13, 3, 3))
+
+
 def phase_mode_kernels() -> dict:
     """The int8 kernel at every (rows, vocab, k) the main paths give the
     top-k kernel and INT8_SHAPES, the top-k + lse kernel at beam 3 and
-    beam 10 (N = 1536, 5120) and the ragged N = 1000, V = 11519, the
-    sampler at SAMPLE_SHAPES, and the sampler's law."""
+    beam 10 (N = 1536, 5120), the ragged N = 1000, V = 11519 and
+    LSE_SHAPES, the sampler at SAMPLE_SHAPES, and the sampler's law."""
     int8 = max([check_int8(M, V, k) for M in ROWS for V in (11500, 11519)
                 for k in (1, 3, 10)] + [check_int8(*shape) for shape in INT8_SHAPES])
-    lse = max(check_topk_lse(N, V, k) for N, V in ((1536, 11500), (5120, 11500),
-                                                   (1000, 11519))
-              for k in (3, 10))
+    lse = max([check_topk_lse(N, V, k) for N, V in ((1536, 11500), (5120, 11500),
+                                                    (1000, 11519))
+               for k in (3, 10)]
+              + [check_topk_lse(N, V, k, plant=True) for N, V, k in LSE_SHAPES])
     sample = max(check_sample(*shape) for shape in SAMPLE_SHAPES)
     check_sample_law()
     return {"fused_logits_top_k_int8": int8, "top_k_logsumexp": lse,
@@ -828,16 +863,17 @@ def phase_mode_kernel_times(label: str) -> dict:
           f"library {dev[1]:.4f} ms; host per call {host:.1f} us [{label}]")
     for N, k in ((1536, 3), (5120, 10)):
         x = unfused_logits(N, 11500, seed=N)
-        t = turns(lambda: top_k_logsumexp(x, k),
-                  lambda: top_k_logsumexp_plain(x, k), cuda_ms)
-        lib = cuda_ms(lambda: (torch.topk(x, k, dim=1),
-                               torch.logsumexp(x, dim=1)))
+        t, lib, dev, host = logits_yardstick(
+            lambda: top_k_logsumexp(x, k), lambda: top_k_logsumexp_plain(x, k),
+            lambda: (torch.topk(x, k, dim=1), torch.logsumexp(x, dim=1)))
         bnd = bound(0.0, nbytes(x, *top_k_logsumexp(x, k)))
         times.setdefault("top_k_logsumexp", timing(t, bnd, lib))
         print(f"time top_k_logsumexp N={N} V=11500 k={k}: kernel {t[0]:.4f} "
               f"ms, plain {t[1]:.4f} ms, library (torch.topk + "
-              f"torch.logsumexp) {lib:.4f} ms, bound {bnd[0]:.4f} ms "
-              f"({bnd[1]}) [{label}]")
+              f"torch.logsumexp, in turns) {lib:.4f} ms, bound {bnd[0]:.4f} ms "
+              f"({bnd[1]}); device: kernel {dev[0]:.4f} ms (share "
+              f"{bnd[0] / dev[0]:.3f}), library {dev[1]:.4f} ms; host per call "
+              f"{host:.1f} us [{label}]")
     return times
 
 
@@ -1246,11 +1282,10 @@ SEQ_RTOL = 1e-2
 SEQ_ATOL = 1e-4
 SEQ_SHARE = 0.99
 # fused_z: the bf16 output to one bf16 step (Z_OUT_RTOL of its largest
-# element); the f32 gradients to Z_GRAD_RTOL of theirs; the normals to
-# EPS_ATOL (the bits must be equal); the moments over one step's draws.
+# element); the f32 gradients to Z_GRAD_RTOL of theirs; the eps stream's
+# words and normals bit for bit; the moments over one step's draws.
 Z_OUT_RTOL = 1e-2
 Z_GRAD_RTOL = 1e-3
-EPS_ATOL = 1e-6
 MEAN_TOL = 1e-3
 VAR_TOL = 2e-3
 # the train path's shapes: B = 256 images x K = 5 captions, T = 24
@@ -1381,6 +1416,13 @@ def check_fused_z(N: int, K: int = KZ, L: int = LATENT, E: int = EMBED,
     return fwd, bwd
 
 
+# the eps stream's further shapes (N, K_z, L): rows of 3, 5 and 8 floats
+# and ragged ones, N K_z not a multiple of 4 rows or of a block's span (the
+# kernel stages 32 rows of 150 floats, 1600 of 3, 960 of 5, 600 of 8),
+# and enough rows that a block stages more than one span
+EPS_SHAPES = ((1281, 7, LATENT), (21001, 101, 3), (4001, 333, 5), (3001, 441, 8), (7, 3, 5))
+
+
 def check_eps() -> float:
     """The eps kernel's bits against the plain generator's (on the card
     and on the CPU), its normals against the plain normals, its moments
@@ -1394,9 +1436,19 @@ def check_eps() -> float:
     if not torch.equal(bits[:64].cpu(), philox_bits(seed, step, 64, KZ, LATENT)):
         raise AssertionError("fused_z_eps: bits differ from the CPU generator")
     eps = fused_z_eps(seed, step, *shape, device=DEV)
-    err = float((eps - philox_normals(seed, step, *shape, device=DEV)).abs().max())
-    if err > EPS_ATOL:
-        raise AssertionError(f"fused_z_eps: normals differ by {err:.3e}")
+    plain = philox_normals(seed, step, *shape, device=DEV)
+    err = float((eps - plain).abs().max())
+    if not torch.equal(eps, plain):
+        raise AssertionError(f"fused_z_eps: normals differ from the plain "
+                             f"generator's by up to {err:.3e}")
+    for n, k, L in EPS_SHAPES:
+        for bits_of in (True, False):
+            got = fused_z_eps(seed, step, n, k, L, device=DEV, bits=bits_of)
+            want = (philox_bits if bits_of else philox_normals)(seed, step, n, k, L, device=DEV)
+            if not torch.equal(got, want):
+                raise AssertionError(f"fused_z_eps [{n}, {k}, {L}] "
+                                     f"{'bits' if bits_of else 'normals'} differ from "
+                                     "the plain generator's")
     e64 = eps.double()
     mean, var = float(e64.mean()), float(e64.var())
     if abs(mean) >= MEAN_TOL or abs(var - 1.0) >= VAR_TOL:
@@ -1411,8 +1463,9 @@ def check_eps() -> float:
             or torch.equal(eps[:, 0], eps[:, 1])):
         raise AssertionError("fused_z_eps: two streams are equal")
     print(f"fused_z_eps {TRAIN_ROWS}x{KZ}x{LATENT} = {eps.numel()} draws: bits "
-          f"equal to the plain generator's (card and CPU); max |normal - plain| "
-          f"{err:.3e} (tolerance {EPS_ATOL}); mean {mean:.3e} (|.| < {MEAN_TOL}), "
+          f"equal to the plain generator's (card and CPU), normals too (also at "
+          f"{', '.join('x'.join(map(str, e)) for e in EPS_SHAPES)}, bits and "
+          f"normals); mean {mean:.3e} (|.| < {MEAN_TOL}), "
           f"var {var:.6f} (|var - 1| < {VAR_TOL}); other seeds, steps and "
           "samples give other streams; the fused kernels' transform is erfinvf's "
           "bit for bit on all 2^23 uniforms")
@@ -1515,6 +1568,48 @@ SEQ_PARTS = {"lstm_cell_kernel": "forward steps", "seq_bwd_kernel<1, 0>": "gates
              "seq_bwd_kernel<2, 3>": "dx", "seq_dw_kernel": "dW", "sum_parts_kernel": "sums"}
 
 
+def draw_instructions() -> int:
+    """The SASS instructions that one more Philox-4x32-10 block and its
+    four normals issue (draw4's central path and the block's store): those
+    of ``vct_z_draw_probe_2`` less those of ``vct_z_draw_probe_1`` in the
+    fused z library, read with ``cuobjdump -sass`` (NOPs not counted)."""
+    lib = next(_ext.library_path(src) for src in _ext._sources() if src.stem == "fused_z")
+    cuobjdump = os.path.join(os.path.dirname(_ext._nvcc()), "cuobjdump")
+
+    def count(fn: str) -> int:
+        sass = subprocess.run([cuobjdump, "-sass", "-fun", fn, str(lib)],
+                              capture_output=True, text=True, check=True).stdout
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)", sass)
+        if not ops:
+            raise AssertionError(f"cuobjdump printed no SASS for {fn}")
+        return sum(op != "NOP" for op in ops)
+
+    return count("vct_z_draw_probe_2") - count("vct_z_draw_probe_1")
+
+
+def max_sm_clock_hz() -> float:
+    return 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+
+
+def eps_bound(draws: int) -> tuple:
+    """The eps stream's (bound ms, what binds it): the larger of its bytes
+    (4 a draw, written once) over the memory rate and its instructions
+    over the card's issue rate, :func:`draw_instructions` a Philox block
+    of four draws, a warp instruction for 32 threads, four issue slots an
+    SM a clock at the card's top SM clock."""
+    per_block, clock = draw_instructions(), max_sm_clock_hz()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    t_issue = draws / 4 * per_block / 32 / (sms * 4 * clock) * 1e3
+    t_bytes = draws * 4 / PEAK_BYTES * 1e3
+    print(f"bound fused_z_eps: {draws} draws; {per_block} SASS instructions a "
+          f"Philox block of four (cuobjdump), {sms} SMs x 4 issue slots at "
+          f"{clock / 1e6:.0f} MHz: {t_issue:.4f} ms; {draws * 4} bytes at "
+          f"{PEAK_BYTES / 1e12} TB/s: {t_bytes:.4f} ms")
+    return (t_issue, "operations") if t_issue >= t_bytes else (t_bytes, "bytes")
+
+
 def seq_part(name: str) -> str:
     """The part of the sequence kernels that a kernel belongs to
     (``SEQ_PARTS``; anything else, such as bf16(h0)'s copy, is "other")."""
@@ -1563,8 +1658,9 @@ def phase_train_kernel_times(label: str) -> dict:
             mean, std, w, b, z_fwd_kernel(mean, std, w, b, KZ, 5, 6))),
         "fused_z_bwd": bound(2 * z_flops, nbytes(
             mean, std, w, dz, *z_bwd_kernel(mean, std, w, KZ, 5, 6, dz))),
-        # Philox and erfinv run outside the tensor cores: bytes only
-        "fused_z_eps": bound(0.0, TRAIN_ROWS * KZ * LATENT * 4),
+        # Philox and erfinv run outside the tensor cores: the stream's
+        # bytes and its instructions' issue slots
+        "fused_z_eps": eps_bound(TRAIN_ROWS * KZ * LATENT),
     }
     timer = lambda fn: cuda_ms(fn, iters=5, warmup=1)  # noqa: E731
     # the library calls in turns with the kernels (kernel, library,
@@ -1588,6 +1684,10 @@ def phase_train_kernel_times(label: str) -> dict:
               + (f", {names[name]} {lib:.4f} ms (in turns with the kernel at "
                  f"{library[name][0]:.4f} ms)" if lib else "")
               + f" [{label}]")
+    eps = pairs["fused_z_eps"][0]
+    dev = (sum(device_ms(eps).values()) + sum(device_ms(eps).values())) / 2
+    print(f"time fused_z_eps device {dev:.4f} ms (share "
+          f"{bounds['fused_z_eps'][0] / dev:.3f} of {bounds['fused_z_eps'][1]}) [{label}]")
     # the sequence kernels' device time by part and cuDNN's (unions of the
     # kernels' intervals: a step's kernel, launched with programmatic
     # dependent launch, starts while the one before finishes, so parts may

@@ -291,6 +291,44 @@ def test_top_k_logsumexp_kernel_matches_plain(dev, N, V, k):
     assert int(idx[0, 0]) == 7
 
 
+def _planted_logits(dev, N, V, seed):
+    """bf16-rounded normals (exact ties abound) with ties planted where the
+    kernel's parts meet: the row maximum at columns 0 and 3-4 (a row's
+    16-byte head; a lane's float4), 1023-1024 (a chunk of 256 float4) and
+    V - 1 (the tail), a runner-up at 5, 1025 and 2047; in rows past 2200
+    columns, -inf over columns 1-1100 of every third row and at every
+    seventh column of the rows after them."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((N, V), generator=g, device=dev).to(torch.bfloat16).float()
+    top = x.amax(dim=1) + 1.0
+    for c in (0, 3, 4, 1023, 1024, V - 1):
+        if c < V:
+            x[:, c] = top
+    for c in (5, 1025, 2047):
+        if c < V:
+            x[:, c] = top - 0.5
+    if V > 2200:
+        x[::3, 1:1101] = float("-inf")
+        x[1::3, ::7] = float("-inf")
+    return x
+
+
+@pytest.mark.parametrize("N,V,k", [(N, V, k) for N in (1, 13, 1536, 5120)
+                                   for V in (11500, 11519, 1000, 3)
+                                   for k in (1, 3, 10, 16) if k <= V])
+def test_top_k_logsumexp_kernel_geometries_match_plain(dev, N, V, k):
+    """Rows past the persistent grid's warps (5120), misaligned rows (V =
+    11519: a row starts off a 16-byte boundary), rows shorter than a
+    float4 (V = 3), planted ties and -inf: values and indices bit for bit,
+    lse to 1e-5."""
+    x = _planted_logits(dev, N, V, seed=N + V + k)
+    vals, idx, lse = top_k_logsumexp(x, k)
+    p_vals, p_idx, p_lse = top_k_logsumexp_plain(x, k)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, p_idx) and torch.equal(vals, p_vals)
+    torch.testing.assert_close(lse, p_lse, rtol=1e-5, atol=0)
+
+
 @pytest.mark.parametrize("M,H,V", [(1536, 512, 11500), (1000, 512, 11519),
                                    (70, 64, 4001)])
 @pytest.mark.parametrize("k", [1, 3, 10])
@@ -529,6 +567,19 @@ def test_fused_z_eps_bits_equal_the_plain_generator(dev):
                   ).abs().max()) <= 1e-6
     # the plain generator's integer ops give the same bits on the CPU
     assert torch.equal(bits.cpu(), philox_bits(123, 9, 300, 7, 150))
+
+
+@pytest.mark.parametrize("N,K,L", [(1280, 100, 150), (1281, 7, 150), (21001, 101, 3),
+                                   (4001, 333, 5), (3001, 441, 8), (7, 3, 5)])
+@pytest.mark.parametrize("bits", [False, True])
+def test_fused_z_eps_matches_the_plain_generator(dev, N, K, L, bits):
+    """Rows of 150, 3, 5 and 8 floats, N K not a multiple of 4 rows or of
+    a block's span, blocks that stage more than one span: the words equal
+    ``philox_bits``, the normals ``philox_normals``, bit for bit."""
+    got = fused_z_eps(77, 5, N, K, L, device=dev, bits=bits)
+    want = (philox_bits if bits else philox_normals)(77, 5, N, K, L, device=dev)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def test_train_wrappers_check_their_inputs(dev):

@@ -3,7 +3,8 @@ jax, flax, optax, orbax, cv2, h5py or any module of the JAX package
 (``vae_captioning_tpu``).  The test process itself has jax loaded
 (tests/conftest.py), so the check runs in a fresh interpreter where
 those imports are blocked; and a static check parses every source of the
-port, and ``chip_smoke.py``, for an import of the JAX package."""
+port, ``chip_smoke.py`` and the chip scripts beside it, for an import of
+the JAX package."""
 
 import ast
 import os
@@ -93,7 +94,8 @@ def test_port_imports_and_decodes_without_jax():
 
 
 def _sources():
-    paths = [os.path.join(REPO, "chip_smoke.py")]
+    paths = [os.path.join(REPO, f) for f in ("chip_smoke.py", "decode_profile.py",
+                                              "kernel_designs.py")]
     for root, _, files in os.walk(PORT):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(paths)

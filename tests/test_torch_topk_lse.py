@@ -71,6 +71,47 @@ def test_plain_matches_jax_kernel(interpreted, N, V, k):
     assert int(idx[0, 0]) == first
 
 
+def _logits_with_neg_inf(N, V, k, seed):
+    """:func:`_logits` with -inf entries where the card kernel reads a
+    row in parts: the first half of row 0 (its head and first chunks), the
+    last third of row 1 (its tail), every 7th column of odd rows, and all
+    but k columns of row 2 (exactly k finite values, the least the
+    contract allows)."""
+    x = _logits(N, V, seed)
+    rng = np.random.default_rng(seed + 1)
+    x[0, :V // 2] = -np.inf
+    x[1, V - V // 3:] = -np.inf
+    x[3::2, ::7] = -np.inf
+    keep = rng.choice(V, size=k, replace=False)
+    row = np.full(V, -np.inf, dtype=np.float32)
+    row[keep] = x[2, keep]
+    x[2] = row
+    return x
+
+
+@pytest.mark.parametrize("N,V,k", [(8, 11519, 1), (8, 11519, 3),
+                                   (13, 11519, 10), (16, 11519, 16),
+                                   (9, 1000, 3), (40, 11519, 5),
+                                   (24, 4000, 16)])
+@pytest.mark.parametrize("neg_inf", [False, True])
+def test_plain_matches_jax_kernel_ragged_rows_and_neg_inf(interpreted, N, V,
+                                                          k, neg_inf):
+    """The beam's ragged vocabulary (V = 11519: every row but the first
+    starts off a 16-byte boundary in the card kernel) and rows with -inf
+    entries, at least k finite values each."""
+    x = (_logits_with_neg_inf(N, V, k, seed=V + k) if neg_inf
+         else _logits(N, V, seed=V + k))
+    vals, idx, lse = top_k_logsumexp_plain(torch.from_numpy(x), k)
+    jv, ji, jl = interpreted(jnp.asarray(x), k)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(jv))
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jl), rtol=1e-6)
+    assert np.isfinite(vals.numpy()).all()
+    if neg_inf:
+        keep = np.flatnonzero(np.isfinite(x[2]))
+        assert sorted(idx[2].tolist()) == keep.tolist()
+
+
 def test_wrapper_takes_plain_version_on_cpu():
     x = torch.from_numpy(_logits(6, 300, seed=1))
     before = _ext.LAUNCHES["top_k_logsumexp"]

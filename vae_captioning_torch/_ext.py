@@ -67,7 +67,7 @@ _SIGNATURES = {
                                + [_I] * 5 + [_P],
     "vct_fused_logits_top_k_smem": [_I] * 4,
     "vct_fused_logits_top_k_block": [_I] * 4,
-    "vct_top_k_logsumexp": [_P] * 4 + [_I] * 3 + [_P],
+    "vct_top_k_logsumexp": [_P] * 4 + [_I] * 4 + [_P],
     "vct_fused_lstm_seq_fwd": [_P] * 12 + [_I] * 4 + [_P],
     "vct_fused_lstm_seq_bwd": [_P] * 21 + [_I] * 8 + [_P],
     "vct_fused_lstm_seq_fwd_smem": [],
@@ -77,7 +77,7 @@ _SIGNATURES = {
     "vct_fused_z_bwd": [_P] * 8 + [_I] * 9 + [_U, _U, _P],
     "vct_fused_z_smem": [_I, _I],
     "vct_fused_z_transform_check": [_P, _P],
-    "vct_fused_z_eps": [_P] + [_I] * 3 + [_U, _U, _I, _P],
+    "vct_fused_z_eps": [_P] + [_I] * 3 + [_U, _U, _I, _I, _P],
     "vct_fused_ag_heads_fwd": [_P] * 6 + [_I] * 6 + [_P],
     "vct_fused_ag_heads_fwd_smem": [_I, _I],
     "vct_fused_ag_heads_bwd": [_P] * 7 + [_I] + [_P] * 7 + [_I] * 8 + [_P],

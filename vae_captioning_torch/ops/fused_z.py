@@ -50,6 +50,7 @@ _ROWS = 128               # rows of a forward or dμ/dσ block
 _BOX = 64                 # latent columns of a box
 _WIDTHS = (256, 192, 128, 64)   # column widths the kernels are built for
 _SMS = 132                # the H100's SMs, for plans made without a card
+_EPS_LATENT_MAX = 14528   # the eps kernel's widest row: four in shared memory
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
@@ -303,13 +304,16 @@ def fused_z_eps(seed: int, step: int, n_rows: int, n_samples: int,
         fn = philox_bits if bits else philox_normals
         return fn(seed, step, n_rows, n_samples, latent)
     _ext.require(device.type == "cuda", f"fused_z_eps: device {device}")
+    _ext.require(n_rows * n_samples < 2 ** 31 and latent <= _EPS_LATENT_MAX,
+                 f"fused_z_eps: [{n_rows}, {n_samples}, {latent}] past the "
+                 f"kernel's {2 ** 31} rows or {_EPS_LATENT_MAX} latent columns")
     out = torch.empty((n_rows, n_samples, latent),
                       dtype=torch.int32 if bits else torch.float32,
                       device=device)
     with torch.cuda.device(device):
         err = _ext.library().vct_fused_z_eps(
             out.data_ptr(), n_rows, latent, n_samples, seed, step, int(bits),
-            _ext.stream_ptr(device))
+            _ext.sm_count(out.device.index), _ext.stream_ptr(device))
     _ext.check_launch(err, EPS)
     _ext.LAUNCHES[EPS] += 1
     return out.long() & _MASK32 if bits else out

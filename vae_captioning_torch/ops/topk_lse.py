@@ -9,8 +9,8 @@ takes under ``Config.fused_decode = False``).  For each row it returns
 the k largest values, their column indices with ties going to the lowest
 index, and the logsumexp over the row.
 
-On CUDA tensors the wrapper launches ``csrc/topk_lse.cu`` (one block per
-row, one pass over it); on CPU tensors it takes
+On CUDA tensors the wrapper launches ``csrc/topk_lse.cu`` (a persistent
+grid, one warp streaming a row once); on CPU tensors it takes
 :func:`top_k_logsumexp_plain`.  The values are copied, so both give the
 same values and indices bit for bit; the logsumexp differs by sum order.
 """
@@ -53,10 +53,10 @@ def top_k_logsumexp(x: torch.Tensor, k: int) -> Result:
     vals = torch.empty((N, k), dtype=torch.float32, device=dev)
     idx = torch.empty((N, k), dtype=torch.int32, device=dev)
     lse = torch.empty((N,), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
+    with _ext.device_scope(dev):
         err = _ext.library().vct_top_k_logsumexp(
             x.data_ptr(), vals.data_ptr(), idx.data_ptr(), lse.data_ptr(),
-            N, V, k, _ext.stream_ptr(dev))
+            N, V, k, _ext.sm_count(dev.index), _ext.stream_ptr(dev))
     _ext.check_launch(err, NAME)
     _ext.LAUNCHES[NAME] += 1
     return vals, idx, lse
