@@ -79,7 +79,25 @@ Phases, in order; any failure raises and the script exits nonzero:
    logits, the hybrid's dh and dW/db kernels read them), each with its
    exact launch counts (no flash CE kernel) and compared with the plain
    versions as in 5;
-9. times: each kernel against its plain version and, where one PyTorch
+9. the training life cycle at full width: ``resume`` (the AG-CVAE, and
+   the GMM-CVAE under the flash CE: 3 steps, the train state saved
+   through ``Checkpointer``, a fresh Trainer restored from it, 3 more
+   steps, bit for bit against 6 uninterrupted steps, with the annealing
+   1.0 after the restore and retention at ``max_checkpoints_to_keep``);
+   ``quality`` (the AG-CVAE trained by ``Trainer.fit`` with the per-epoch
+   caption-quality hook on a synthetic corpus whose captions follow from
+   each image's cluster vector and features, val CIDEr-D required to rise
+   above the untrained model's; then the int8 decode's BLEU-4 / CIDEr-D
+   against bf16 at beam 3 and 10, and the whole-caption agreement of the
+   kernel decode with the plain decode on the trained weights, written
+   to ``quality.json``); ``finetune`` (the AG-CVAE as a FineTuneModel,
+   VGG16 from a Caffe-layout npz drawn by numpy, 32 images x 5 captions
+   served by ``RawImageStore``'s native loader: 5 steps with exact launch
+   counts, the VGG16 weights moving or frozen as configured, 3 steps
+   against the plain versions, a checkpoint round trip and a beam-3
+   decode from images, the step's time and peak memory, and fc2
+   extraction at 64 images a batch);
+10. times: each kernel against its plain version and, where one PyTorch
    call or a short chain of them computes the same function, that call;
    decode batches (every mode) and train steps (Normal, AG and GMM),
    kernel path against plain path, in turns; the GMM step and the Normal
@@ -124,13 +142,19 @@ from vae_captioning_torch.data.vocabulary import Vocabulary  # noqa: E402
 from vae_captioning_torch import _ext  # noqa: E402
 from vae_captioning_torch.bridge import (export_flax_params,  # noqa: E402
                                          flax_shapes, load_flax_params)
-from vae_captioning_torch.checkpoint import (load_model,  # noqa: E402
-                                             save_params, save_sidecars)
-from vae_captioning_torch.inference import (PLAIN_OPS,  # noqa: E402
-                                            REORDERED_OPS, DecodeOps,
-                                            make_decode_fns, run_inference)
+from vae_captioning_torch.checkpoint import (  # noqa: E402
+    Checkpointer, load_model, save_params, save_sidecars)
+from vae_captioning_torch.data import native_loader  # noqa: E402
+from vae_captioning_torch.data.features import FeatureExtractor  # noqa: E402
+from vae_captioning_torch.data.native_loader import (  # noqa: E402
+    RawImageStore, write_raw)
+from vae_captioning_torch.eval.scorers import cider_d, corpus_bleu  # noqa: E402
+from vae_captioning_torch.inference import (  # noqa: E402
+    PLAIN_OPS, REORDERED_OPS, DecodeOps, generate_captions, make_decode_fns,
+    make_quality_hook, run_inference)
 from vae_captioning_torch.models.cvae import (  # noqa: E402
     PLAIN_TRAIN_OPS, CVAEModel)
+from vae_captioning_torch.models.vgg16 import CONV_BLOCKS  # noqa: E402
 from vae_captioning_torch.ops.distributions import (  # noqa: E402
     AG_UNUSED_CLASSES)
 from vae_captioning_torch.ops import fused_ce  # noqa: E402
@@ -2323,16 +2347,18 @@ def phase_train_path(cfg, arrays, tag: str):
     return trainer, launches
 
 
-def phase_train_compare(cfg, arrays, tag: str) -> dict:
-    """COMPARE_STEPS steps through the kernels and through the plain
-    versions, from the same weights, z seeds and (GMM) cluster draws:
-    both Trainers seed their generators from the same ``cfg.seed``."""
+def phase_train_compare(cfg, arrays, tag: str,
+                        n_steps: int = COMPARE_STEPS) -> dict:
+    """``n_steps`` steps through the kernels and through the plain
+    versions, from the same weights, z seeds and (GMM) cluster draws (and
+    VGG16 dropout masks): both Trainers seed their generators from the
+    same ``cfg.seed``."""
     runs, grads = [], []
     for ops in (None, PLAIN_TRAIN_OPS):
         trainer = Trainer(cfg.replace(), device=DEV,
                           **({} if ops is None else {"ops": ops}))
         steps = []
-        for i in range(COMPARE_STEPS):
+        for i in range(n_steps):
             steps.append({k: float(v) for k, v in
                           trainer.run_step_arrays(arrays).items()})
             if i == 0:
@@ -2468,6 +2494,398 @@ def phase_ce_step_times(prior: str, arrays, label: str) -> None:
               f"{base / 2**20:.1f} MiB held before the step [{label}]")
         del trainer
         torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------------
+# the training life cycle: resume, per-epoch caption scores, fine-tuning
+# ----------------------------------------------------------------------
+
+RESUME_STEPS = 3
+RESUME_KEEP = 2        # max_checkpoints_to_keep of the resume phase
+METRIC_KEYS = ("loss", "rec_loss", "kld", "annealing", "grad_norm")
+
+
+def moments(trainer) -> list:
+    return [t for _, t, _ in trainer._moments()]
+
+
+def phase_resume(prior: str, ce: str, out_dir: str, tag: str) -> dict:
+    """RESUME_STEPS steps, the train state saved, a fresh Trainer (under
+    ``restore``) restored from it and RESUME_STEPS more steps, against
+    2·RESUME_STEPS uninterrupted steps at full width: metrics, parameters
+    and Adam moments bit for bit, the annealing 1.0 after the restore,
+    and the checkpointer keeping RESUME_KEEP states.  The launch counts
+    are those of the interrupted run (reset before its first step, read
+    after its last)."""
+    cfg, arrays = train_config(prior, ce), train_arrays(seed=13)
+    whole = Trainer(cfg.replace(), device=DEV)
+    want = [whole.run_step_arrays(arrays) for _ in range(2 * RESUME_STEPS)]
+    ckpt_dir = os.path.join(out_dir, "resume")
+    try:
+        torch.cuda.synchronize()
+        _ext.reset_launches()   # this path's run starts here
+        t0 = time.perf_counter()
+        first = Trainer(cfg.replace(), device=DEV)
+        for _ in range(RESUME_STEPS):
+            first.run_step_arrays(arrays)
+        states = Checkpointer(ckpt_dir, tag, max_to_keep=RESUME_KEEP)
+        state = first.train_state()
+        for key in range(RESUME_KEEP + 1):      # retention: the newest kept
+            states.save(state, step=key * RESUME_STEPS)
+        t_save = time.perf_counter()
+        del first, state
+        resumed = Trainer(cfg.replace(restore=True), device=DEV)
+        resumed.restore_from(states)
+        t_restore = time.perf_counter()
+        got = [resumed.run_step_arrays(arrays) for _ in range(RESUME_STEPS)]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        kept = states.all_steps()
+        size = sum(os.path.getsize(os.path.join(states.directory, str(k), f))
+                   for k in kept for f in os.listdir(
+                       os.path.join(states.directory, str(k)))) / len(kept)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    want_launches = train_launches(2 * RESUME_STEPS, prior == "AG", ce)
+    launches = {k: _ext.LAUNCHES[k] for k in want_launches}
+    diffs = {k: max(float((g[k] - w[k]).abs()) for g, w in
+                    zip(got, want[RESUME_STEPS:])) for k in METRIC_KEYS}
+    p_diff = max(float((a - b).detach().abs().max()) for a, b in
+                 zip(resumed.model.parameters(), whole.model.parameters()))
+    m_diff = max(float((a - b).abs().max()) for a, b in
+                 zip(moments(resumed), moments(whole)))
+    print(f"{tag} resume: {RESUME_STEPS} steps, train state saved "
+          f"({size / 2**20:.1f} MiB a step; {RESUME_KEEP + 1} saves, kept "
+          f"{kept}), restored into a fresh Trainer "
+          f"({t_restore - t_save:.2f} s), {RESUME_STEPS} more steps: "
+          f"{seconds:.2f} s in all; launches {launches}, expected "
+          f"{want_launches}")
+    print(f"{tag} resume against {2 * RESUME_STEPS} uninterrupted steps: max "
+          f"|diff| metrics {diffs}, parameters {p_diff:.3e}, Adam moments "
+          f"{m_diff:.3e}; annealing after the restore "
+          f"{[float(m['annealing']) for m in got]}")
+    if launches != want_launches:
+        raise AssertionError(f"{tag} resume launch counts {launches} != "
+                             f"expected {want_launches}")
+    if kept != [k * RESUME_STEPS for k in range(1, RESUME_KEEP + 1)]:
+        raise AssertionError(f"{tag} resume: the checkpointer kept {kept}")
+    if any(diffs.values()) or p_diff or m_diff:
+        raise AssertionError(f"{tag} resume is not bit for bit the "
+                             "uninterrupted run")
+    if any(float(m["annealing"]) != 1.0 for m in got):
+        raise AssertionError(f"{tag} resume: annealing is not 1 after a restore")
+    return launches
+
+
+# the quality phase's synthetic corpus: every caption is a function of
+# its image's detections (cluster vectors) and scene (in its features)
+QUALITY_TRAIN, QUALITY_VAL, QUALITY_EPOCHS = 2560, 512, 40
+QUALITY_OBJECTS = USED_IDS[::4]     # 20 categories
+QUALITY_SCENES = 6
+# Adam's lr on the synthetic corpus: the reference's 5e-4 leaves a small
+# model's greedy captions generic for hundreds of steps (a CPU rehearsal
+# at embed 32 / hidden 64: CIDEr-D 0 after 240 steps at 5e-4, the
+# captions' objects right at 3e-3)
+QUALITY_LR = 2e-3
+QUALITY_BAR = 0.99     # the whole-caption agreement first planned
+TEMPLATES = ("a {o1} with a {o2} in the {s}", "the {o1} near the {o2} in {s}",
+             "two {o1} and a {o2}", "a {o1} on the {s}",
+             "the {s} with a {o1} and {o2}")
+
+
+def quality_vocab() -> Vocabulary:
+    """The corpus's words, padded to the reference's 11,500 ids."""
+    words = ["a", "the", "with", "in", "near", "two", "and", "on"]
+    words += [f"obj{i}" for i in QUALITY_OBJECTS] + [
+        f"scene{j}" for j in range(QUALITY_SCENES)]
+    words += [f"w{i}" for i in range(VOCAB - 4 - len(words))]
+    vocab = Vocabulary(["<BOS>", "<EOS>", "<UNK>"] + words)
+    assert vocab.vocab_size == VOCAB
+    return vocab
+
+
+def quality_corpus(n: int, split: str, seed: int, vocab: Vocabulary,
+                   batch_size: int):
+    """(CaptionBatcher, references {image id: captions}) over ``n``
+    synthetic images: 1-3 of QUALITY_OBJECTS and one of QUALITY_SCENES
+    scenes each; features relu(Σ A[category] + B[scene] + noise) with A,
+    B fixed across splits; five captions from TEMPLATES."""
+    table = np.random.default_rng(1234)
+    A = table.standard_normal((CLUSTERS + 1, 4096), dtype=np.float32)
+    S = table.standard_normal((QUALITY_SCENES, 4096), dtype=np.float32)
+    rng = np.random.default_rng(seed)
+    names = [f"{split}_{i:06d}.jpg" for i in range(n)]
+    feats = np.empty((n, 4096), np.float32)
+    c_v, caps, refs = {}, {}, {}
+    w2i = vocab.word2idx
+    for i, name in enumerate(names):
+        objs = list(rng.choice(QUALITY_OBJECTS, size=rng.integers(1, 4),
+                               replace=False))
+        scene = int(rng.integers(QUALITY_SCENES))
+        noise = 0.3 * rng.standard_normal(4096, dtype=np.float32)
+        feats[i] = np.maximum(A[objs].sum(0) + S[scene] + noise, 0)
+        vec = np.zeros(CLUSTERS + 1, np.float32)
+        vec[objs] = 1.0 / len(objs)
+        c_v[name] = vec
+        texts = [t.format(o1=f"obj{objs[0]}", o2=f"obj{objs[-1]}",
+                          s=f"scene{scene}") for t in TEMPLATES]
+        caps[name] = [[vocab.bos_id] + [w2i[w] for w in t.split()]
+                      + [vocab.eos_id] for t in texts]
+        refs[str(i)] = texts
+    batcher = CaptionBatcher(names, caps, batch_size,
+                             feature_store=FeatureStore(names, feats),
+                             cluster_vectors=c_v,
+                             filename_to_imid={n: i for i, n in enumerate(names)})
+    return batcher, refs
+
+
+def caption_scores(caps: list, refs: dict) -> dict:
+    hyps = {str(c["image_id"]): c["caption"] for c in caps}
+    refs = {k: refs[k] for k in hyps}
+    return {"BLEU-4": corpus_bleu(hyps, refs)[3], "CIDEr-D": cider_d(hyps, refs)}
+
+
+def phase_quality(label: str) -> dict:
+    """The full-width AG-CVAE trained by ``Trainer.fit`` with the quality
+    hook for QUALITY_EPOCHS epochs on the synthetic corpus: val CIDEr-D
+    must end above the untrained model's.  Then, on the trained weights:
+    (a) the int8 decode against bf16, BLEU-4 and CIDEr-D at beam 3 and
+    beam 10; (b) whole-caption agreement of the kernel decode with the
+    plain decode (and the plain decode summed in reverse) at beam 3,
+    beam 10 and greedy, beside QUALITY_BAR (a record: phase_decode_compare
+    holds the gate)."""
+    vocab = quality_vocab()
+    cfg = train_config("AG").replace(
+        num_epochs=QUALITY_EPOCHS, num_ex_per_epoch=QUALITY_TRAIN - 1,
+        learning_rate=QUALITY_LR, gen_max_len=16, prefetch_batches=0)
+    train, _ = quality_corpus(QUALITY_TRAIN, "train", 21, vocab, TRAIN_IMAGES)
+    val, refs = quality_corpus(QUALITY_VAL, "val", 22, vocab, BATCH)
+    trainer = Trainer(cfg, device=DEV)
+    hook = make_quality_hook(cfg, vocab, refs)
+    untrained = hook(trainer.model, val,
+                     torch.Generator(device=DEV).manual_seed(trainer.eval_seed))
+    print(f"quality, untrained: {untrained}")
+    t0 = time.perf_counter()
+    metrics = trainer.fit(train, val, log_every=10 ** 9, quality_hook=hook)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    print(f"quality: {QUALITY_EPOCHS} epochs of {QUALITY_TRAIN} images "
+          f"({trainer.host_step} steps of {TRAIN_IMAGES} images x "
+          f"{TRAIN_CAPTIONS} captions), validation and the hook on "
+          f"{QUALITY_VAL} images each epoch, in {seconds:.2f} s; final "
+          f"{ {k: v for k, v in metrics.items() if k.startswith('val_')} }")
+    if not metrics["val_CIDEr-D"] > untrained["val_CIDEr-D"]:
+        raise AssertionError("quality: val CIDEr-D did not rise with training "
+                             f"({untrained['val_CIDEr-D']} -> "
+                             f"{metrics['val_CIDEr-D']})")
+    model = trainer.model.eval()
+    record = {}
+    for beam in (3, 10):
+        scores = {}
+        for int8 in (False, True):
+            c = cfg.replace(mode="inference", beam_size=beam, decode_int8=int8)
+            fn = make_decode_fns(model, c, vocab)["beam_search"]
+            caps = generate_captions(val, fn, vocab, torch.Generator(
+                device=DEV).manual_seed(5), DEV)
+            scores["int8" if int8 else "bf16"] = (caption_scores(caps, refs),
+                                                 {c["image_id"]: c["caption"]
+                                                  for c in caps})
+        (s16, c16), (s8, c8) = scores["bf16"], scores["int8"]
+        same = sum(c16[k] == c8[k] for k in c16) / len(c16)
+        record[f"int8 beam {beam}"] = {"bf16": s16, "int8": s8}
+        print(f"quality (a) beam {beam}, {QUALITY_VAL} val images: bf16 BLEU-4 "
+              f"{s16['BLEU-4']:.4f} CIDEr-D {s16['CIDEr-D']:.4f}; int8 BLEU-4 "
+              f"{s8['BLEU-4']:.4f} CIDEr-D {s8['CIDEr-D']:.4f}; delta "
+              f"{s8['BLEU-4'] - s16['BLEU-4']:+.4f} / "
+              f"{s8['CIDEr-D'] - s16['CIDEr-D']:+.4f}; identical captions "
+              f"{same:.4f} [{label}]")
+    batch = next(val.eval_batches())
+    feats = torch.from_numpy(batch.features).to(DEV)
+    c_v = torch.from_numpy(batch.cluster_vectors).to(DEV)
+    eps = torch.randn((BATCH, cfg.embed_size), device=DEV,
+                      generator=torch.Generator(device=DEV).manual_seed(6))
+    for mode, beam in (("beam 3", 3), ("beam 10", 10), ("greedy", 1)):
+        c = cfg.replace(mode="inference", beam_size=max(beam, 1))
+        name = "greedy" if beam == 1 else "beam_search"
+        res = {ops_name: make_decode_fns(model, c, vocab, ops=ops)[name](
+                   feats, c_v, eps=eps).tokens
+               for ops_name, ops in (("kernel", DecodeOps()),
+                                     ("plain", PLAIN_OPS),
+                                     ("reordered", REORDERED_OPS))}
+        share = {k: float((res[k] == res["plain"]).all(dim=1).float().mean())
+                 for k in ("kernel", "reordered")}
+        record[f"agreement {mode}"] = share
+        print(f"quality (b) {mode}: best-beam captions identical to the plain "
+              f"decode's on the trained weights, {BATCH} images: kernels "
+              f"{share['kernel']:.4f}, plain summed in reverse "
+              f"{share['reordered']:.4f} (bar {QUALITY_BAR})")
+    del trainer, model
+    return record
+
+
+FT_IMAGES, FT_STEPS, FT_COMPARE_STEPS = 32, 5, 3
+EXTRACT_IMAGES, EXTRACT_BATCH = 256, 64
+
+
+def vgg_npz(path: str, seed: int = 0) -> None:
+    """VGG16 weights drawn by numpy in the Caffe npz key layout
+    (conv1_1_W .. fc8_b), He-normal, conv1_1 scaled to the pixels' range."""
+    rng = np.random.default_rng(seed)
+    arrays, width = {}, 3
+    for name, out in (n for block in CONV_BLOCKS for n in block):
+        std = np.float32((2.0 / (9 * width)) ** 0.5 / (128.0 if width == 3 else 1.0))
+        arrays[f"{name}_W"] = std * rng.standard_normal((3, 3, width, out),
+                                                        dtype=np.float32)
+        arrays[f"{name}_b"] = np.zeros(out, np.float32)
+        width = out
+    for fc, shape in (("fc6", (25088, 4096)), ("fc7", (4096, 4096)),
+                      ("fc8", (4096, 1000))):
+        std = np.float32((2.0 / shape[0]) ** 0.5)
+        arrays[f"{fc}_W"] = std * rng.standard_normal(shape, dtype=np.float32)
+        arrays[f"{fc}_b"] = np.zeros(shape[1], np.float32)
+    np.savez(path, **arrays)
+
+
+def ft_corpus(raw_path: str, n: int, seed: int):
+    """A CaptionBatcher of ``n`` random uint8 224x224 images served by a
+    RawImageStore over a raw file written from numpy (the format
+    ``pack_images_to_raw`` writes), 5 captions each, COCO-like c_v."""
+    rng = np.random.default_rng(seed)
+    names = [f"ft_{i:06d}.jpg" for i in range(n)]
+    write_raw(rng.integers(0, 256, (n, 224, 224, 3), dtype=np.uint8), names,
+              raw_path)
+    store = RawImageStore(raw_path)
+    cv = coco_cv(n, seed=seed).cpu().numpy()
+    c_v = {nm: np.concatenate([[0.0], cv[i]]) for i, nm in enumerate(names)}
+    caps = {nm: [[1] + list(rng.integers(3, VOCAB, size=rng.integers(6, 20)))
+                 + [2] for _ in range(TRAIN_CAPTIONS)] for nm in names}
+    return CaptionBatcher(names, caps, FT_IMAGES, image_store=store,
+                          cluster_vectors=c_v), store
+
+
+def ft_config(npz: str, **kw) -> Config:
+    return train_config("AG").replace(
+        fine_tune=True, image_net_weights_path=npz, batch_size=FT_IMAGES,
+        mode="training", **kw)
+
+
+def phase_finetune(out_dir: str, label: str) -> dict:
+    """The full-width AG-CVAE as a FineTuneModel (VGG16 from a Caffe-layout
+    npz drawn by numpy) on B = FT_IMAGES images x 5 captions served by
+    RawImageStore (the native loader): FT_STEPS steps through the kernels
+    with exact launch counts; the VGG16 convs and fc layers move under the
+    defaults and stay put when frozen; FT_COMPARE_STEPS steps against the
+    plain versions (phase_train_compare); the weights through save_params
+    / load_model and a beam-3 decode from images through the decode
+    kernels.  Times: the step (CUDA events), its peak memory, and fc2
+    extraction at EXTRACT_BATCH a batch."""
+    work = os.path.join(out_dir, "finetune")
+    os.makedirs(work, exist_ok=True)
+    try:
+        npz = os.path.join(work, "vgg16_weights.npz")
+        t0 = time.perf_counter()
+        vgg_npz(npz)
+        batcher, store = ft_corpus(os.path.join(work, "images.bin"),
+                                   EXTRACT_IMAGES, 31)
+        print(f"finetune: VGG16 npz and {EXTRACT_IMAGES} packed images written "
+              f"in {time.perf_counter() - t0:.2f} s; batches served by the "
+              f"{store.loader} loader")
+        if store.loader != "native":
+            raise AssertionError(f"finetune: the native loader did not build: "
+                                 f"{native_loader.build_error}")
+        cfg = ft_config(npz)
+        trainer = Trainer(cfg.replace(), device=DEV)
+        batches = batcher.train_batches(TRAIN_CAPTIONS)
+        arrays = [trainer.device_batch(next(batches)) for _ in range(2)]
+        torch.cuda.synchronize()
+        before = {n: p.detach().clone() for n, p in
+                  trainer.model.vgg16.named_parameters()}
+        _ext.reset_launches()   # this path's run starts here
+        metrics = [trainer.run_step_arrays(arrays[i % 2])
+                   for i in range(FT_STEPS)]
+        torch.cuda.synchronize()
+        want = train_launches(FT_STEPS, True, "")
+        launches = {k: _ext.LAUNCHES[k] for k in want}
+        losses = [float(m["loss"]) for m in metrics]
+        print(f"finetune path: {FT_STEPS} steps of {FT_IMAGES} images x "
+              f"{TRAIN_CAPTIONS} captions x {arrays[0][1].shape[1]} tokens; "
+              f"launches {launches}, expected {want}; loss by step "
+              + ", ".join(f"{x:.4f}" for x in losses))
+        if launches != want:
+            raise AssertionError(f"finetune launch counts {launches} != {want}")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"finetune: non-finite loss {losses}")
+        moved = {n: bool((p.detach() != before[n]).any()) for n, p in
+                 trainer.model.vgg16.named_parameters()}
+        if not all(moved.values()):
+            raise AssertionError("finetune: VGG16 weights did not move: "
+                                 f"{[n for n, m in moved.items() if not m]}")
+        for frozen in ("fine_tune_fe", "fine_tune_top"):
+            t = Trainer(ft_config(npz, **{frozen: False}), device=DEV)
+            vgg = dict(t.model.vgg16.named_parameters())
+            was = {n: p.detach().clone() for n, p in vgg.items()}
+            t.run_step_arrays(arrays[0])
+            for n, p in vgg.items():
+                still = bool((p.detach() == was[n]).all())
+                if still != n.startswith("conv" if frozen == "fine_tune_fe"
+                                         else "fc"):
+                    raise AssertionError(f"finetune {frozen}=False: {n} "
+                                         f"{'stayed' if still else 'moved'}")
+            del t, vgg, was
+        print("finetune: every VGG16 weight moved under the defaults; the "
+              "convs stayed put under fine_tune_fe=False and fc1/fc2 under "
+              "fine_tune_top=False, the others moved")
+        step_ms = cuda_ms(lambda: trainer.run_step_arrays(arrays[0]),
+                          iters=5, warmup=1)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(DEV)
+        torch.cuda.reset_peak_memory_stats(DEV)
+        trainer.run_step_arrays(arrays[0])
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(DEV)
+        print(f"time finetune step, {FT_IMAGES} images x {TRAIN_CAPTIONS} "
+              f"captions: {step_ms:.2f} ms ({FT_IMAGES / step_ms * 1e3:.1f} "
+              f"images/s); peak {peak / 2**20:.1f} MiB allocated, "
+              f"{(peak - base) / 2**20:.1f} MiB above the {base / 2**20:.1f} "
+              f"MiB held before the step [{label}]")
+        name = "finetune_round_trip"
+        vocab = Vocabulary(["<BOS>", "<EOS>", "<UNK>"]
+                           + [f"w{i}" for i in range(VOCAB - 4)])
+        save_sidecars(cfg, vocab, work, name)
+        save_params(export_flax_params(trainer.model), work, name)
+        model, _, report = load_model(work, name, device=DEV)
+        for (pname, a), (_, b) in zip(trainer.model.named_parameters(),
+                                      model.named_parameters()):
+            if not torch.equal(a.detach(), b.detach()):
+                raise AssertionError(f"finetune round trip changed {pname}")
+        del trainer
+        images, c_v = arrays[0][0], arrays[0][4]
+        fn = make_decode_fns(model, cfg.replace(mode="inference", beam_size=3,
+                                                gen_max_len=30),
+                             vocab)["beam_search"]
+        _ext.reset_launches()
+        res = fn(images, c_v, generator=torch.Generator(device=DEV).manual_seed(3))
+        torch.cuda.synchronize()
+        if (_ext.LAUNCHES["fused_logits_top_k"] != res.steps
+                or not bool(torch.isfinite(res.scores).all())):
+            raise AssertionError("finetune round trip: the image decode did "
+                                 "not run the decode kernels")
+        print(f"finetune round trip: {len(report.loaded)} Flax leaves "
+              f"(vgg16/* and cvae/*) saved and reloaded bit for bit; beam-3 "
+              f"decode of {FT_IMAGES} images, {res.steps} steps through the "
+              f"decode kernels")
+        del model
+        phase_train_compare(cfg, arrays[0], "finetune", FT_COMPARE_STEPS)
+        extract = FeatureExtractor(npz, batch_size=EXTRACT_BATCH, device=DEV)
+        images = store.get_batch(batcher.filenames)
+        ms = cuda_ms(lambda: extract(images), iters=3, warmup=1)
+        print(f"time fc2 extraction, {EXTRACT_IMAGES} uint8 images from the "
+              f"host in batches of {EXTRACT_BATCH}: {ms:.2f} ms "
+              f"({EXTRACT_IMAGES / ms * 1e3:.1f} images/s) [{label}]")
+        store.close()
+        return launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 PROFILE_STEPS = 5
@@ -2718,6 +3136,16 @@ def main() -> None:
         if round_trip:
             phase_round_trip(tcfg, trainer, out_dir, tag)
         del trainer
+    t_cycle = time.perf_counter()
+    for prior, ce, tag in (("AG", "", "resume-ag"),
+                           ("GMM", "fused_ce", "resume-gmm")):
+        phase_resume(prior, ce, out_dir, tag)
+    quality = phase_quality(label)
+    with open(os.path.join(out_dir, "quality.json"), "w") as f:
+        json.dump(quality, f, indent=1)
+    phase_finetune(out_dir, label)
+    print(f"resume, quality and finetune phases: "
+          f"{time.perf_counter() - t_cycle:.1f} s")
     times = {**phase_kernel_times(label), **phase_mode_kernel_times(label),
              **phase_train_kernel_times(label), **phase_ag_kernel_times(label),
              **phase_ce_kernel_times(label), **phase_ce_mat_kernel_times(label)}

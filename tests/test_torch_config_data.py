@@ -147,22 +147,31 @@ def test_data_gives_the_same_vocab_and_batches(mini_coco, tmp_path, num_captions
 
 
 def test_what_needs_vgg16_raises(mini_coco, tmp_path):
+    """Without a cache the extractor needs VGG16's weights (a missing file
+    raises); with one it reads the cache.  A batcher without a store
+    loads the jpgs, and a fine-tune ``Data`` serves images."""
     split_dir = os.path.join(mini_coco, "images", "train2014")
-    with pytest.raises(NotImplementedError, match=r"A\.8"):
+    with pytest.raises(FileNotFoundError, match="vgg16.npz"):
         tfeatures.extract_features_from_dir(split_dir, "vgg16.npz",
-                                            cache_dir=str(tmp_path))
+                                            cache_dir=str(tmp_path),
+                                            device="cpu")
     store = jfeatures.FeatureStore(["a.jpg"], np.ones((1, 4096)))
     store.save(str(tmp_path / "train2014.features.npz"))
     got = tfeatures.extract_features_from_dir(split_dir, "vgg16.npz",
                                               cache_dir=str(tmp_path))
     np.testing.assert_array_equal(got.features, store.features)
-    batcher = tbatcher.CaptionBatcher(["a.jpg"], {"a.jpg": [[1, 4, 2]]}, 1)
-    with pytest.raises(NotImplementedError, match=r"A\.8"):
-        next(batcher.eval_batches())
+    first = sorted(os.listdir(split_dir))[0]
+    batcher = tbatcher.CaptionBatcher([os.path.join(split_dir, first)],
+                                      {first: [[1, 4, 2]]}, 1)
+    batch = next(batcher.eval_batches())
+    assert batch.features.shape == (1, 224, 224, 3)
+    assert batch.features.dtype == np.float32
     cfg = tconfig.Config(coco_dir=mini_coco, cache_dir=str(tmp_path / "c"),
-                         fine_tune=True)
-    with pytest.raises(NotImplementedError, match=r"A\.8"):
-        tdataset.Data(cfg).train_batcher()
+                         obj_vectors_dir=str(tmp_path / "obj"),
+                         fine_tune=True, batch_size=2, hdf5_file="",
+                         raw_images_file="")
+    batch = next(tdataset.Data(cfg).train_batcher().train_batches())
+    assert batch.features.shape == (2, 224, 224, 3)
 
 
 def test_metric_logger_and_prefetcher(tmp_path):

@@ -3,7 +3,12 @@ counterpart of ``vae_captioning_tpu/cli.py``.
 
 * ``--mode training``: build the data, train with ``Trainer.fit``
   (``train.py``) and write ``config.json`` / ``vocab.json`` and, after
-  every epoch, ``params.npz`` into ``<checkpoint_dir>/<checkpoint>/``.
+  every epoch, ``params.npz`` and the train state into
+  ``<checkpoint_dir>/<checkpoint>/``.  With ``--restore`` a run resumes
+  from the newest train state there, when one exists; with ``--set
+  eval_metrics=True`` each epoch also prints val CIDEr-D, BLEU-4,
+  ROUGE-L and METEOR_es (``inference.make_quality_hook``); with
+  ``--fine_tune`` the model trains end to end through VGG16 on images.
   Configurations the train slice does not cover raise
   NotImplementedError (``train.check_supported_training``).
 * ``--mode inference``: restore a checkpoint (``checkpoint.py``), decode
@@ -13,61 +18,45 @@ counterpart of ``vae_captioning_tpu/cli.py``.
 
 The flags are the reference's (``config.py``, the port's copy of the
 JAX package's) plus ``--device`` (default ``cuda``).  Features come from
-the caches ``<cache_dir>/<split>.features.npz`` only: extracting them
-needs the VGG16 model, which is not ported yet (ROADMAP A.8), so a
-missing cache raises.
+the caches ``<cache_dir>/<split>.features.npz``; a missing cache is
+extracted with VGG16 from ``image_net_weights_path`` on ``--device``.
 """
 
 from __future__ import annotations
 
 import argparse
-import os
 from typing import Dict, Optional
 
 import torch
 
-from vae_captioning_torch.checkpoint import (load_model, load_sidecars,
-                                             save_sidecars)
+from vae_captioning_torch.checkpoint import (Checkpointer, load_model,
+                                             load_sidecars, save_sidecars)
 from vae_captioning_torch.config import Config, parse_args
-from vae_captioning_torch.data.coco import coco_paths
 from vae_captioning_torch.data.dataset import Data
-from vae_captioning_torch.inference import check_supported, run_inference
+from vae_captioning_torch.inference import (check_supported,
+                                            make_quality_hook, run_inference)
 from vae_captioning_torch.train import Trainer, check_supported_training
-
-
-def check_feature_caches(cfg: Config, training: bool = False) -> None:
-    """Every split the run reads needs its feature cache: train and val
-    for training, val and (when it has images) test for inference."""
-    paths = coco_paths(cfg.coco_dir)
-    split_dirs = [paths["valid_dir"]]
-    test_dir = paths["test_dir"]
-    if training:
-        split_dirs.append(paths["train_dir"])
-    elif os.path.isdir(test_dir) and any(f.endswith(".jpg")
-                                         for f in os.listdir(test_dir)):
-        split_dirs.append(test_dir)
-    for split_dir in split_dirs:
-        split = os.path.basename(os.path.normpath(split_dir))
-        cache = os.path.join(cfg.cache_dir, f"{split}.features.npz")
-        if not os.path.exists(cache):
-            raise FileNotFoundError(
-                f"no feature cache {cache}: feature extraction (VGG16) is "
-                "not ported yet (ROADMAP A.8); make the caches with the JAX "
-                "package's extractor on a machine that has JAX and copy "
-                "them here")
 
 
 def run_training(cfg: Config, device: torch.device,
                  data: Optional[Data] = None) -> Trainer:
     check_supported_training(cfg)
     if data is None:
-        check_feature_caches(cfg, training=True)
-        data = Data(cfg, extract_features=True)
+        data = Data(cfg, extract_features=not cfg.fine_tune, device=device)
     trainer = Trainer(cfg, vocab_size=data.vocab.vocab_size, device=device)
     save_sidecars(cfg, data.vocab, cfg.checkpoint_dir, cfg.checkpoint)
+    ckpt = Checkpointer(cfg.checkpoint_dir, cfg.checkpoint,
+                        cfg.max_checkpoints_to_keep)
+    if cfg.restore and ckpt.latest_step() is not None:
+        print(f"Restoring from checkpoint step {ckpt.latest_step()}")
+        trainer.restore_from(ckpt)
+    quality_hook = None
+    if cfg.eval_metrics:
+        quality_hook = make_quality_hook(cfg, data.vocab,
+                                         data.val_references())
     trainer.fit(data.train_batcher(), data.val_batcher(),
                 checkpoint_dir=cfg.checkpoint_dir,
-                checkpoint_name=cfg.checkpoint)
+                checkpoint_name=cfg.checkpoint, quality_hook=quality_hook)
     return trainer
 
 
@@ -87,8 +76,8 @@ def run_inference_mode(cfg: Config, device: torch.device,
         std=cfg.std)
     check_supported(model_cfg)
     if data is None:
-        check_feature_caches(model_cfg)
-        data = Data(model_cfg, extract_features=True)
+        data = Data(model_cfg, extract_features=not model_cfg.fine_tune,
+                    device=device)
     model_cfg.vocab_size = vocab.vocab_size   # Data sets its own vocab's
     print("Restoring from checkpoint")
     model, _, _ = load_model(model_cfg.checkpoint_dir, model_cfg.checkpoint,

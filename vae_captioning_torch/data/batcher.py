@@ -1,6 +1,5 @@
 """Batching engine: filenames + indexed captions → fixed-shape arrays
-(the port's copy of ``vae_captioning_tpu/data/batcher.py``; batches of
-raw images, for fine-tuning through VGG16, are not ported: ROADMAP A.8).
+(the port's copy of ``vae_captioning_tpu/data/batcher.py``).
 
 Replaces ``utils/batch_gen.py`` (Batch_Generator) and
 ``utils/caption_utils.py`` (K-caption flattening).  Differences are all
@@ -111,10 +110,8 @@ class CaptionBatcher:
             return self.feature_store.get_batch(batch_files)
         if self.image_store is not None:
             return self.image_store.get_batch(batch_files)
-        raise NotImplementedError(
-            "not ported yet: batches of raw images (the JPEG loader for "
-            "fine-tuning through VGG16): ROADMAP A.8; give the batcher a "
-            "feature_store")
+        from vae_captioning_torch.data.images import load_image_batch
+        return load_image_batch(batch_files)
 
     def _cluster_for(self, batch_files: List[str]) -> Tuple[np.ndarray, int]:
         vecs, n_fallbacks = lookup_batch(self.cluster_vectors, batch_files)

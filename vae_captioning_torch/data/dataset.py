@@ -1,7 +1,5 @@
 """Data facade — the entry point the drivers use (the port's copy of
-``vae_captioning_tpu/data/dataset.py``; features come from their caches,
-``data/features.py``, and fine-tuning on raw images is not ported,
-ROADMAP A.8).
+``vae_captioning_tpu/data/dataset.py``).
 
 Replaces the reference's ``Data`` class (``utils/data.py:16-172``):
 resolves the COCO layout, builds/caches the vocabulary, extracts or loads
@@ -30,8 +28,14 @@ from vae_captioning_torch.data.vocabulary import Vocabulary
 
 
 class Data:
-    def __init__(self, config: Config, extract_features: bool = True):
+    """``device`` runs the feature extraction (VGG16) where a split's
+    feature cache is missing: the card unless the caller asks for the
+    CPU."""
+
+    def __init__(self, config: Config, extract_features: bool = True,
+                 device="cuda"):
         self.config = config
+        self.device = device
         self.paths = coco_paths(config.coco_dir)
         cache = config.cache_dir
         os.makedirs(cache, exist_ok=True)
@@ -82,15 +86,21 @@ class Data:
                 cache_dir=self.config.cache_dir,
                 batch_size=self.config.extract_batch_size,
                 compute_dtype=self.config.compute_dtype,
+                device=self.device,
             )
         return self._stores[key]
 
     def _image_store(self):
         if not self.config.fine_tune:
             return None
-        raise NotImplementedError(
-            "not ported yet: fine_tune (raw images through VGG16): "
-            "ROADMAP A.8")
+        # preference order: native mmap loader → HDF5 → per-jpg decode
+        if os.path.exists(self.config.raw_images_file):
+            from vae_captioning_torch.data.native_loader import RawImageStore
+            return RawImageStore(self.config.raw_images_file)
+        if self.config.use_hdf5 and os.path.exists(self.config.hdf5_file):
+            from vae_captioning_torch.data.images import Hdf5ImageStore
+            return Hdf5ImageStore(self.config.hdf5_file)
+        return None  # CaptionBatcher falls back to per-jpg loading
 
     def cluster_vectors(self, test: bool = False) -> Optional[Dict[str, np.ndarray]]:
         """Load (or build from instance annotations) the cluster vectors.

@@ -23,9 +23,14 @@ Every decode step runs the fused LSTM step kernel, then one of:
   takes its Pallas kernel on its accelerator.
 
 The weights are cast once, when ``make_decode_fns`` builds its closures.
-The TPU switches ``fused_lstm_step`` and ``fused_force`` are not read.
-Configurations the decode slice does not cover raise
-``NotImplementedError`` naming their ROADMAP item.
+A ``FineTuneModel`` decodes from raw images: its VGG16 makes the fc2
+features in ``decode_init``.  The TPU switches ``fused_lstm_step`` and
+``fused_force`` are not read.  Configurations the decode slice does not
+cover raise ``NotImplementedError`` naming their ROADMAP item.
+
+``make_quality_hook`` is ``Trainer.fit``'s per-epoch caption-quality hook
+(``Config.eval_metrics``): a greedy decode of the holdout through the
+decode kernels, scored by ``eval/``.
 """
 
 from __future__ import annotations
@@ -38,10 +43,15 @@ from typing import Callable, Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from torch import nn
+
 from vae_captioning_torch.config import Config
 from vae_captioning_torch.data.vocabulary import Vocabulary
+from vae_captioning_torch.eval.meteor import corpus_meteor_es
+from vae_captioning_torch.eval.scorers import cider_d, corpus_bleu, rouge_l
 from vae_captioning_torch.models.cvae import (CVAEModel, decoder_step_params,
                                               logits_head_params)
+from vae_captioning_torch.models.finetune import cvae_of
 from vae_captioning_torch.ops.decoding import (beam_search, sample_decode,
                                                tokens_to_text)
 from vae_captioning_torch.ops.fused_logits_topk import (
@@ -58,13 +68,12 @@ def check_supported(cfg: Config) -> None:
     """Raise NotImplementedError for what the decode slice does not
     cover, naming the ROADMAP item that will."""
     gates = [
-        (cfg.fine_tune, "fine_tune (VGG16 in the model): ROADMAP A.8"),
         (cfg.decoder_rnn_layers != 1,
          f"decoder_rnn_layers={cfg.decoder_rnn_layers}: the decode slice "
-         "runs one LSTM layer (ROADMAP D.1)"),
+         "runs one LSTM layer (ROADMAP A.11)"),
         (str(cfg.compute_dtype) != "bfloat16",
          f"compute_dtype={cfg.compute_dtype!r}: the decode slice runs "
-         "bfloat16 (ROADMAP D.2)"),
+         "bfloat16 (ROADMAP A.11)"),
     ]
     for failed, what in gates:
         if failed:
@@ -218,16 +227,17 @@ class Decoded(NamedTuple):
     steps: int                       # decode steps run
 
 
-def make_decode_fns(model: CVAEModel, cfg: Config, vocab: Vocabulary,
+def make_decode_fns(model: nn.Module, cfg: Config, vocab: Vocabulary,
                     ops: DecodeOps = KERNEL_OPS) -> Dict[str, Callable]:
     """Whole-batch decoders ``fn(features [B, F], c_v [B, 90],
     generator=None, eps=None) -> Decoded``, for "beam_search" (best
     beam), "beam_search_all" (all beams, best-first), "greedy" and
-    "sample" (temperature sampling).  Tensors lie on the model's device;
+    "sample" (temperature sampling); for a ``FineTuneModel`` the first
+    argument is images [B, S, S, 3].  Tensors lie on the model's device;
     the z noise comes from ``eps`` [B, E] or is drawn from ``generator``,
     which also keys the sampler."""
     check_supported(cfg)
-    weights = DecodeWeights.of(model, int8=cfg.decode_int8)
+    weights = DecodeWeights.of(cvae_of(model), int8=cfg.decode_int8)
     bos, eos = vocab.bos_id, vocab.eos_id
     needs_cv = cfg.needs_cluster_vectors
     lstm = make_lstm_fn(weights, ops)
@@ -310,7 +320,10 @@ def generate_captions(
     pending = None
     for batch in iterator:
         counts["cv_fallbacks"] += getattr(batch, "cv_fallbacks", 0)
-        features = torch.from_numpy(np.asarray(batch.features, np.float32))
+        # fc2 features as f32; images as they come (uint8 from the stores)
+        features = torch.from_numpy(np.ascontiguousarray(
+            batch.features if batch.features.dtype == np.uint8
+            else batch.features.astype(np.float32, copy=False)))
         c_v = torch.from_numpy(np.asarray(batch.cluster_vectors, np.float32))
         res = decode_fn(features.to(device), c_v.to(device),
                         generator=generator)
@@ -326,9 +339,44 @@ def generate_captions(
     return out
 
 
+def make_quality_hook(cfg: Config, vocab: Vocabulary,
+                      references: Dict[str, List[str]]) -> Callable:
+    """Per-epoch caption-quality hook for ``Trainer.fit``
+    (``Config.eval_metrics``): ``hook(model, val_batcher, generator) ->
+    {"val_CIDEr-D", "val_BLEU-4", "val_ROUGE-L", "val_METEOR_es"}``.  It
+    greedy-decodes the holdout through the decode kernels (z drawn from
+    ``generator``, which the Trainer seeds per epoch) and scores the
+    captions whose image has references, rounded to 4 places; all zeros
+    when none has.  Greedy, not beam: a trend signal each epoch, as in
+    the reference."""
+
+    def hook(model: nn.Module, val_batcher, generator: torch.Generator
+             ) -> Dict[str, float]:
+        greedy = make_decode_fns(model, cfg, vocab)["greedy"]
+        device = next(model.parameters()).device
+        caps = generate_captions(val_batcher, greedy, vocab, generator, device)
+        hyps = {str(c["image_id"]): c["caption"] for c in caps
+                if str(c["image_id"]) in references and c["caption"]}
+        if not hyps:
+            return {"val_CIDEr-D": 0.0, "val_BLEU-4": 0.0,
+                    "val_ROUGE-L": 0.0, "val_METEOR_es": 0.0}
+        refs = {iid: references[iid] for iid in hyps}
+        bleu = corpus_bleu(hyps, refs)
+        keys = sorted(hyps)
+        meteor = corpus_meteor_es(
+            [hyps[k].split() for k in keys],
+            [[r.split() for r in refs[k]] for k in keys])
+        return {"val_CIDEr-D": round(cider_d(hyps, refs), 4),
+                "val_BLEU-4": round(bleu[3], 4),
+                "val_ROUGE-L": round(rouge_l(hyps, refs), 4),
+                "val_METEOR_es": round(meteor, 4)}
+
+    return hook
+
+
 def run_inference(
     cfg: Config,
-    model: CVAEModel,
+    model: nn.Module,
     vocab: Vocabulary,
     val_batcher,
     test_batcher=None,
