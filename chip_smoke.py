@@ -97,7 +97,23 @@ Phases, in order; any failure raises and the script exits nonzero:
    against the plain versions, a checkpoint round trip and a beam-3
    decode from images, the step's time and peak memory, and fc2
    extraction at 64 images a batch);
-10. times: each kernel against its plain version and, where one PyTorch
+10. this slice's paths: ``wide-beam`` (beams 20 and 40, and int8 at
+   beam 20, on 512 images: past the fused kernels' lists of 16 the decode
+   writes its logits and takes the top-k + logsumexp kernel, with exact
+   launch counts; compared with the plain decodes as in 4, and timed);
+   ``generate`` (the single-image API, ``Generator.caption_pixels``, on
+   the AG-CVAE the train-ag path trained, VGG16 from a Caffe-layout npz
+   drawn by numpy, at greedy, beam 3 with every beam and sampling, with a
+   detections JSON's and an explicit cluster vector, per step against the
+   plain versions, whole captions against a plain-ops Generator, and one
+   caption a mode timed, VGG16 included; also on the fine-tune
+   checkpoint, raw pixels into its VGG16); ``fidelity`` (the VGG16
+   fidelity tool passes on that npz and fails on a swapped layout); and
+   ``dp`` (two ranks spawned on the card over gloo: 3 SGD steps of the
+   AG-CVAE and of the GMM-CVAE under the flash CE at B = 256 x 5 x 24
+   against one process on the global batch, every parameter to rtol
+   1e-3; then each rank's launches and step time with its own noise);
+11. times: each kernel against its plain version and, where one PyTorch
    call or a short chain of them computes the same function, that call;
    decode batches (every mode) and train steps (Normal, AG and GMM),
    kernel path against plain path, in turns; the GMM step and the Normal
@@ -113,12 +129,14 @@ and the device's idle share.
 Before its last lines it checks that no JAX module, and no module of the
 JAX package, was loaded.  The line before the last is the kernels' JSON
 record (each with its launches on its path, its time, its plain
-version's, its bound and the library call's); the last line is
+version's, its bound and the library call's, and its launches on
+each path that ran it, this slice's included); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import re
@@ -130,13 +148,14 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: CUDA is not available; this script needs one GPU")
 
 from vae_captioning_torch.config import Config  # noqa: E402
-from vae_captioning_torch.data.batcher import CaptionBatcher  # noqa: E402
+from vae_captioning_torch.data.batcher import Batch, CaptionBatcher  # noqa: E402
 from vae_captioning_torch.data.features import FeatureStore  # noqa: E402
 from vae_captioning_torch.data.vocabulary import Vocabulary  # noqa: E402
 from vae_captioning_torch import _ext  # noqa: E402
@@ -149,11 +168,14 @@ from vae_captioning_torch.data.features import FeatureExtractor  # noqa: E402
 from vae_captioning_torch.data.native_loader import (  # noqa: E402
     RawImageStore, write_raw)
 from vae_captioning_torch.eval.scorers import cider_d, corpus_bleu  # noqa: E402
+from vae_captioning_torch.generate import (  # noqa: E402
+    Generator, feature_extractor)
 from vae_captioning_torch.inference import (  # noqa: E402
     PLAIN_OPS, REORDERED_OPS, DecodeOps, generate_captions, make_decode_fns,
     make_quality_hook, run_inference)
+from vae_captioning_torch.models import vgg_fidelity  # noqa: E402
 from vae_captioning_torch.models.cvae import (  # noqa: E402
-    PLAIN_TRAIN_OPS, CVAEModel)
+    PLAIN_TRAIN_OPS, CVAEModel, TrainOps)
 from vae_captioning_torch.models.vgg16 import CONV_BLOCKS  # noqa: E402
 from vae_captioning_torch.ops.distributions import (  # noqa: E402
     AG_UNUSED_CLASSES)
@@ -162,10 +184,11 @@ from vae_captioning_torch.ops.fused_ag_heads import (  # noqa: E402
     ag_heads_bwd_kernel, ag_heads_bwd_plain, ag_heads_fwd_kernel,
     ag_heads_plain, prepare)
 from vae_captioning_torch.ops.fused_logits_topk import (  # noqa: E402
-    fused_logits_sample, fused_logits_sample_plain, fused_logits_top_k,
-    fused_logits_top_k_int8, fused_logits_top_k_int8_plain,
-    fused_logits_top_k_plain, int8_top_k_kernel, int8_top_k_plain,
-    logits_plan, quantize_logits_weights, quantize_rows, sample_scores)
+    K_MAX, bf16_logits, fused_logits_sample, fused_logits_sample_plain,
+    fused_logits_top_k, fused_logits_top_k_int8, fused_logits_top_k_int8_plain,
+    fused_logits_top_k_plain, int8_logits, int8_logits_kernel,
+    int8_top_k_kernel, int8_top_k_plain, logits_kernel, logits_plan,
+    logits_top_k_kernel, quantize_logits_weights, quantize_rows, sample_scores)
 from vae_captioning_torch.ops.fused_lstm_seq import (  # noqa: E402
     lstm_seq_bwd_kernel, lstm_seq_bwd_plain, lstm_seq_fwd_kernel,
     lstm_seq_fwd_plain)
@@ -173,10 +196,12 @@ from vae_captioning_torch.ops.fused_lstm_step import (  # noqa: E402
     fused_lstm_step, fused_lstm_step_plain, lstm_step_geometry,
     lstm_step_kernel, lstm_step_layout, lstm_step_plan)
 from vae_captioning_torch.ops.fused_z import (  # noqa: E402
-    fused_z_eps, philox_bits, philox_normals, transform_mismatches, z_bwd_kernel,
-    z_bwd_plain, z_fwd_kernel, z_fwd_plain)
+    fused_z_eps, fused_z_plain, philox_bits, philox_normals, transform_mismatches,
+    z_bwd_kernel, z_bwd_plain, z_fwd_kernel, z_fwd_plain)
 from vae_captioning_torch.ops.topk_lse import (  # noqa: E402
     top_k_logsumexp, top_k_logsumexp_plain)
+from vae_captioning_torch.parallel import mesh as dp_mesh  # noqa: E402
+from vae_captioning_torch.parallel.kernel_shard import DataParallel  # noqa: E402
 from vae_captioning_torch.train import Trainer  # noqa: E402
 
 DEV = torch.device("cuda", 0)
@@ -233,7 +258,13 @@ KERNELS = {
         "replaces": "vae_captioning_tpu/ops/fused_logits_topk.py:398"},
     "top_k_logsumexp": {
         "route": "cuda", "source": "vae_captioning_torch/csrc/topk_lse.cu",
-        "replaces": "vae_captioning_tpu/ops/topk_pallas.py:36"},
+        "replaces": "vae_captioning_tpu/ops/topk_pallas.py:36",
+        # warp lists of up to 64 (ops/topk_lse.py: K_LIST); past them a
+        # dispatch on k takes the same file's block-a-row bitonic sort; the
+        # fused top-k past 16 write their logits and route here
+        "k": "1-64: warp lists; k > 64: the bitonic-sort kernel (dispatch on k); "
+             "the fused bf16 / int8 top-k past k = 16 write their logits with "
+             "their own kernel's writer instance and call this"},
     "fused_linear_ce_mat_fwd": {
         "route": "cuda", "source": "vae_captioning_torch/csrc/fused_ce.cuh",
         "replaces": "vae_captioning_tpu/ops/fused_ce.py:304"},
@@ -473,9 +504,10 @@ def check_topk(M: int, V: int, k: int, H: int = 512) -> float:
     got = fused_logits_top_k(h, w, b, k)
     p_vals, p_idx, p_lse = fused_logits_top_k_plain(h, w, b, k + 1)
     torch.cuda.synchronize()
-    plan = logits_plan(M, H, V, k, 2, _ext.sm_count(0))
+    plan = logits_plan(M, H, V, k if k <= K_MAX else 1, 2, _ext.sm_count(0))
     tag = (f"fused_logits_top_k M={M} H={H} V={V} k={k} ({plan.rows}-row blocks, h "
-           f"{'resident' if plan.resident else 'streamed'}, {plan.chunks} chunks)")
+           f"{'resident' if plan.resident else 'streamed'}, {plan.chunks} chunks"
+           f"{'; the logits written, then top_k_logsumexp' if k > K_MAX else ''})")
     err = compare_topk(tag, got, (p_vals[:, :k], p_idx[:, :k], p_lse))
     # rows whose plain top-(k+1) values hold a near-tie may order or
     # choose their indices differently; every other row must agree exactly
@@ -570,9 +602,10 @@ def check_int8(M: int, V: int, k: int, H: int = 512) -> float:
     vals, idx, lse = fused_logits_top_k_int8(*args, k)
     p_vals, p_idx, p_lse = fused_logits_top_k_int8_plain(*args, k)
     torch.cuda.synchronize()
-    plan = logits_plan(M, H, V, k, 1, _ext.sm_count(0))
+    plan = logits_plan(M, H, V, k if k <= K_MAX else 1, 1, _ext.sm_count(0))
     tag = (f"fused_logits_top_k_int8 M={M} H={H} V={V} k={k} ({plan.rows}-row blocks, h "
-           f"{'resident' if plan.resident else 'streamed'})")
+           f"{'resident' if plan.resident else 'streamed'}"
+           f"{'; the logits written, then top_k_logsumexp' if k > K_MAX else ''})")
     err = compare_topk(tag, (vals, idx, lse), (p_vals, p_idx, p_lse))
     if not (torch.equal(vals, p_vals) and torch.equal(idx, p_idx)):
         raise AssertionError(f"{tag}: values or indices not bit-identical "
@@ -701,14 +734,16 @@ LSE_SHAPES = ((1536, 11519, 10), (5120, 11500, 3), (1, 11519, 16), (2113, 11519,
 def phase_mode_kernels() -> dict:
     """The int8 kernel at every (rows, vocab, k) the main paths give the
     top-k kernel and INT8_SHAPES, the top-k + lse kernel at beam 3 and
-    beam 10 (N = 1536, 5120), the ragged N = 1000, V = 11519 and
-    LSE_SHAPES, the sampler at SAMPLE_SHAPES, and the sampler's law."""
+    beam 10 (N = 1536, 5120), the ragged N = 1000, V = 11519, LSE_SHAPES
+    and the lists past 16 of WIDE_LSE_SHAPES, the sampler at
+    SAMPLE_SHAPES, and the sampler's law."""
     int8 = max([check_int8(M, V, k) for M in ROWS for V in (11500, 11519)
                 for k in (1, 3, 10)] + [check_int8(*shape) for shape in INT8_SHAPES])
     lse = max([check_topk_lse(N, V, k) for N, V in ((1536, 11500), (5120, 11500),
                                                     (1000, 11519))
                for k in (3, 10)]
-              + [check_topk_lse(N, V, k, plant=True) for N, V, k in LSE_SHAPES])
+              + [check_topk_lse(N, V, k, plant=True)
+                 for N, V, k in LSE_SHAPES + WIDE_LSE_SHAPES])
     sample = max(check_sample(*shape) for shape in SAMPLE_SHAPES)
     check_sample_law()
     return {"fused_logits_top_k_int8": int8, "top_k_logsumexp": lse,
@@ -843,7 +878,8 @@ def phase_mode_kernel_times(label: str) -> dict:
     all three on the same quantised rows (the wrapper's per-row
     quantisation of h, plain PyTorch ops, is timed beside them); the
     sampler at the greedy
-    batch (M = 512); top-k + lse at beam 3 and beam 10 (N = 1536, 5120).
+    batch (M = 512); top-k + lse at beam 3 and beam 10 (N = 1536, 5120)
+    and past lists of 16, beam 20 and 32 of 512 images (N = 10240, 16384).
     Bounds: int8 operations over the int8 peak, bf16 ones over the bf16
     peak, the logits' bytes over the memory rate."""
     times = {}
@@ -885,7 +921,7 @@ def phase_mode_kernel_times(label: str) -> dict:
           f"torch.multinomial(softmax(logits / T))) {lib:.4f} ms, bound "
           f"{bnd[0]:.4f} ms ({bnd[1]}); device: kernel {dev[0]:.4f} ms, "
           f"library {dev[1]:.4f} ms; host per call {host:.1f} us [{label}]")
-    for N, k in ((1536, 3), (5120, 10)):
+    for N, k in ((1536, 3), (5120, 10), (10240, 20), (16384, 32)):
         x = unfused_logits(N, 11500, seed=N)
         t, lib, dev, host = logits_yardstick(
             lambda: top_k_logsumexp(x, k), lambda: top_k_logsumexp_plain(x, k),
@@ -1067,7 +1103,9 @@ class CheckedOps:
                          self.top_k_lse)
 
 
-def phase_decode_compare(cfg, vocab, model) -> dict:
+def phase_decode_compare(cfg, vocab, model,
+                         modes=(("beam 3", 3), ("beam 10", 10), ("greedy", 1)),
+                         seeds=DECODE_SEEDS) -> dict:
     """Batches of 512 images decoded at beam 3, beam 10 and greedy, with
     the same z noise, three ways: through the kernels, each call checked
     against its plain version (CheckedOps); through the plain versions;
@@ -1086,9 +1124,10 @@ def phase_decode_compare(cfg, vocab, model) -> dict:
     for the kernels, at least the reversed-sum decode's share less
     CAPTION_MARGIN (at shares near 0.98, about six standard deviations of
     the difference of two shares over 1,536 rows).  Matched rows' scores agree to rtol 1e-4.
-    Returns {mode: (kernel share, reversed-sum share)}."""
+    ``modes`` (name, beam; 1 is greedy) and ``seeds`` (a batch each) pick
+    the decodes.  Returns {mode: (kernel share, reversed-sum share)}."""
     shares = {}
-    for mode, beam in (("beam 3", 3), ("beam 10", 10), ("greedy", 1)):
+    for mode, beam in modes:
         c = cfg if beam == 1 else cfg.replace(beam_size=beam)
         fn_name = "greedy" if beam == 1 else "beam_search"
         checked = CheckedOps()
@@ -1098,7 +1137,7 @@ def phase_decode_compare(cfg, vocab, model) -> dict:
                                  ("reordered", REORDERED_OPS))}
         same = {"kernel": [], "reordered": []}
         score_err = 0.0
-        for seed in DECODE_SEEDS:
+        for seed in seeds:
             batch = next(batchers(BATCH, "val", vocab, seed).eval_batches())
             feats = torch.from_numpy(batch.features).to(DEV)
             c_v = torch.from_numpy(batch.cluster_vectors).to(DEV)
@@ -1121,11 +1160,11 @@ def phase_decode_compare(cfg, vocab, model) -> dict:
                            / want.scores.abs())[rows]
                     score_err = max(score_err, float(rel.max()))
         step_share = checked.same / checked.rows
-        k_share = sum(same["kernel"]) / len(DECODE_SEEDS)
-        r_share = sum(same["reordered"]) / len(DECODE_SEEDS)
+        k_share = sum(same["kernel"]) / len(seeds)
+        r_share = sum(same["reordered"]) / len(seeds)
         per = lambda xs: ", ".join(f"{x:.4f}" for x in xs)  # noqa: E731
-        print(f"decode compare {mode} ({len(DECODE_SEEDS)} batches of {BATCH} "
-              f"images, seeds {DECODE_SEEDS}): per step, top-{beam} indices "
+        print(f"decode compare {mode} ({len(seeds)} batches of {BATCH} "
+              f"images, seeds {seeds}): per step, top-{beam} indices "
               f"identical in {step_share:.5f} of {checked.rows} rows, near-tie "
               f"rows {checked.near}, max |c', h' kernel - plain| "
               f"{checked.state_err:.3e}")
@@ -1194,7 +1233,15 @@ def phase_mode_paths(cfg, vocab, model, out_dir: str) -> dict:
     return launches
 
 
-def phase_mode_compare(cfg, vocab, model) -> None:
+MODE_CASES = (("int8 beam 3", "decode-int8", "beam_search"),
+              ("int8 greedy", "decode-int8", "greedy"),
+              ("unfused beam 3", "decode-unfused", "beam_search"),
+              ("unfused greedy", "decode-unfused", "greedy"),
+              ("sample", "decode-sample", "sample"))
+
+
+def phase_mode_compare(cfg, vocab, model, cases=MODE_CASES,
+                       seeds=DECODE_SEEDS) -> None:
     """Batches of 512 images, with the same z noise (and, sampling, the
     same generator seed), through the kernels, each call checked against
     its plain version (CheckedOps), and through the plain versions: beam 3
@@ -1203,12 +1250,8 @@ def phase_mode_compare(cfg, vocab, model) -> None:
     Printed, not held: the share of whole captions identical to the plain
     decode's, and for int8 the share of best-beam captions identical to
     the bf16 fused decode's (the quality gate waits for a trained
-    checkpoint)."""
-    cases = (("int8 beam 3", "decode-int8", "beam_search"),
-             ("int8 greedy", "decode-int8", "greedy"),
-             ("unfused beam 3", "decode-unfused", "beam_search"),
-             ("unfused greedy", "decode-unfused", "greedy"),
-             ("sample", "decode-sample", "sample"))
+    checkpoint).  ``cases`` (name, MODES path, decode fn) and ``seeds`` (a
+    batch each) pick the decodes."""
     for mode, path, fn_name in cases:
         c = cfg.replace(**MODES[path])
         checked = CheckedOps()
@@ -1218,7 +1261,7 @@ def phase_mode_compare(cfg, vocab, model) -> None:
                                      ("bf16", cfg, DecodeOps()))
                if name != "bf16" or path == "decode-int8"}
         same = {"plain": [], "bf16": []}
-        for seed in DECODE_SEEDS:
+        for seed in seeds:
             batch = next(batchers(BATCH, "val", vocab, seed).eval_batches())
             feats = torch.from_numpy(batch.features).to(DEV)
             c_v = torch.from_numpy(batch.cluster_vectors).to(DEV)
@@ -1242,24 +1285,25 @@ def phase_mode_compare(cfg, vocab, model) -> None:
         logits = (f"logits-kernel choices identical to the plain version's in "
                   f"{step_share:.5f} of {checked.rows} rows, near-tie rows "
                   f"{checked.near}" if checked.rows else "no logits kernel")
-        print(f"decode compare {mode} ({len(DECODE_SEEDS)} batches of {BATCH} "
+        print(f"decode compare {mode} ({len(seeds)} batches of {BATCH} "
               f"images): per step, max |c', h' kernel - plain| "
               f"{checked.state_err:.3e}, {logits}; whole captions identical to the plain "
-              f"decode's {sum(same['plain']) / len(DECODE_SEEDS):.4f} "
+              f"decode's {sum(same['plain']) / len(seeds):.4f} "
               f"({per(same['plain'])})"
               + (f"; best-beam captions identical to the bf16 fused decode's "
-                 f"{sum(same['bf16']) / len(DECODE_SEEDS):.4f} ({per(same['bf16'])})"
+                 f"{sum(same['bf16']) / len(seeds):.4f} ({per(same['bf16'])})"
                  if same["bf16"] else ""))
         if checked.bad or step_share < STEP_SHARE:
             raise AssertionError(f"{mode}: decode steps disagree in "
                                  f"{checked.bad} rows without a near-tie")
 
 
-def phase_decode_times(cfg, vocab, model, label: str) -> None:
+def phase_decode_times(cfg, vocab, model, label: str, cases=None) -> None:
     """ms per decode batch of 512 images and captions/s, kernel path vs
     plain path, by the host clock around work that ends in a copy of the
     tokens to the host: the bf16 fused decode at beam 3, beam 10 and
-    greedy, and the sample, int8 and unfused modes."""
+    greedy, and the sample, int8 and unfused modes, or ``cases`` (name,
+    config, decode fn)."""
     batch = next(batchers(BATCH, "val", vocab, 6).eval_batches())
     feats = torch.from_numpy(batch.features).to(DEV)
     c_v = torch.from_numpy(batch.cluster_vectors).to(DEV)
@@ -1272,7 +1316,7 @@ def phase_decode_times(cfg, vocab, model, label: str) -> None:
             fn().tokens.cpu()
         return (time.perf_counter() - t0) / 3 * 1e3
 
-    for name, c, fn_name in (
+    for name, c, fn_name in cases or (
             ("beam 3", cfg, "beam_search"),
             ("beam 10", cfg.replace(beam_size=10), "beam_search"),
             ("greedy", cfg, "greedy"),
@@ -2769,7 +2813,7 @@ def ft_config(npz: str, **kw) -> Config:
         mode="training", **kw)
 
 
-def phase_finetune(out_dir: str, label: str) -> dict:
+def phase_finetune(out_dir: str, npz: str, label: str) -> dict:
     """The full-width AG-CVAE as a FineTuneModel (VGG16 from a Caffe-layout
     npz drawn by numpy) on B = FT_IMAGES images x 5 captions served by
     RawImageStore (the native loader): FT_STEPS steps through the kernels
@@ -2778,16 +2822,16 @@ def phase_finetune(out_dir: str, label: str) -> dict:
     plain versions (phase_train_compare); the weights through save_params
     / load_model and a beam-3 decode from images through the decode
     kernels.  Times: the step (CUDA events), its peak memory, and fc2
-    extraction at EXTRACT_BATCH a batch."""
+    extraction at EXTRACT_BATCH a batch; the single-image API on the
+    checkpoint (phase_generate: raw pixels into its VGG16).  ``npz``: the
+    Caffe-layout weights (vgg_npz)."""
     work = os.path.join(out_dir, "finetune")
     os.makedirs(work, exist_ok=True)
     try:
-        npz = os.path.join(work, "vgg16_weights.npz")
         t0 = time.perf_counter()
-        vgg_npz(npz)
         batcher, store = ft_corpus(os.path.join(work, "images.bin"),
                                    EXTRACT_IMAGES, 31)
-        print(f"finetune: VGG16 npz and {EXTRACT_IMAGES} packed images written "
+        print(f"finetune: {EXTRACT_IMAGES} packed images written "
               f"in {time.perf_counter() - t0:.2f} s; batches served by the "
               f"{store.loader} loader")
         if store.loader != "native":
@@ -2875,6 +2919,7 @@ def phase_finetune(out_dir: str, label: str) -> dict:
               f"decode of {FT_IMAGES} images, {res.steps} steps through the "
               f"decode kernels")
         del model
+        phase_generate(work, name, work, label, modes=GEN_MODES[:2])
         phase_train_compare(cfg, arrays[0], "finetune", FT_COMPARE_STEPS)
         extract = FeatureExtractor(npz, batch_size=EXTRACT_BATCH, device=DEV)
         images = store.get_batch(batcher.filenames)
@@ -2884,6 +2929,517 @@ def phase_finetune(out_dir: str, label: str) -> dict:
               f"({EXTRACT_IMAGES / ms * 1e3:.1f} images/s) [{label}]")
         store.close()
         return launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+# ----------------------------------------------------------------------
+# this slice's paths: beams past 16, the single-image API, the VGG16
+# fidelity tool and data-parallel training
+# ----------------------------------------------------------------------
+
+# beams past the fused kernels' lists of 16: the fused decodes write their
+# logits with their kernel's writer instance and take the top-k +
+# logsumexp kernel over them (ops/fused_logits_topk.py)
+WIDE_BEAMS = (20, 40)
+WIDE_SEEDS = (4,)
+# row 5 alone past lists of 16 (N, V, k): beam 20 and beam 32 of 512
+# images, lists of 17, 40 (two entries a lane), 64, and past 64 the sort
+# kernel (keys in shared memory; at V = 20000 in its global workspace),
+# planted ties
+WIDE_LSE_SHAPES = ((10240, 11500, 20), (16384, 11519, 32), (1536, 11500, 17),
+                   (65, 11519, 40), (13, 1000, 64), (300, 11519, 65),
+                   (300, 11519, 256), (7, 20000, 300))
+# the logits writers at the wide beams' rows (512 images x 20 and x 40) and
+# at their other block shapes: 64 rows resident (H = 1024), streamed (bf16
+# H = 2048, int8 2624), H = 96, a vocabulary of two tiles: (M, V, H, int8)
+WRITE_SHAPES = ((10240, 11500, 512, False), (20480, 11500, 512, False),
+                (10240, 11500, 512, True), (65, 11519, 1024, False),
+                (65, 11519, 2048, False), (300, 11519, 96, False),
+                (65, 11519, 2624, True), (1, 130, 512, True))
+
+
+def check_writer(M: int, V: int, H: int, int8: bool) -> float:
+    """The logits the writer stores: int8 bit for bit ``int8_logits``;
+    bf16 equal bit for bit to the fused top-k's own values at its top-10
+    (the same accumulators, so the writer stores what the fold sees), and
+    within the f32 error bound of a dot product of length H in any order
+    of the exact (f64) logits: gamma_H |h| |w| + u |logit|, u = 2^-24."""
+    tag = f"{'int8' if int8 else 'bf16'} logits writer M={M} H={H} V={V}"
+    if int8:
+        h, wq, ws, b = int8_inputs(M, V, M + V + H, H)
+        hq, hs = quantize_rows(h)
+        got, want = int8_logits_kernel(hq, hs, wq, ws, b), int8_logits(hq, hs, wq, ws, b)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{tag}: not bit-identical to int8_logits, max "
+                                 f"|diff| {float((got - want).abs().max()):.3e}")
+        print(f"{tag}: bit-identical to the plain version")
+        return 0.0
+    h, w, b = logits_inputs(M, V, H, seed=M + V + H)
+    w_t = w.t().contiguous()
+    got = logits_kernel(h, w_t, b)
+    vals, idx, _ = logits_top_k_kernel(h, w_t, b, min(10, V))
+    if not torch.equal(got.gather(1, idx.long()), vals):
+        raise AssertionError(f"{tag}: the written logits at the fused top-10 "
+                             "differ from the fold's values")
+    ratio = logits_error_ratio(got, h, w, b)
+    if ratio > 1.0:
+        raise AssertionError(f"{tag}: |kernel - exact| reaches {ratio:.3f} of the "
+                             "f32 sum-order bound")
+    err = float((got - bf16_logits(h, w, b)).abs().max())
+    print(f"{tag}: equal to the fused top-10's values; max |kernel - exact| "
+          f"{ratio:.4f} of the f32 bound; max |kernel - plain| {err:.3e}")
+    return err
+
+
+def logits_error_ratio(got, h, w, b) -> float:
+    """The largest |got - exact| over its f32 bound, exact = h w + b in
+    f64: gamma_H |h| |w| + u |exact|, gamma_H = H u / (1 - H u), u = 2^-24
+    (any summation order of the H products, then the bias's rounding)."""
+    H, u = h.shape[1], 2.0 ** -24
+    hd, wd = h.double(), w.double()
+    exact = hd @ wd + b.double()
+    tol = H * u / (1 - H * u) * (hd.abs() @ wd.abs()) + u * exact.abs()
+    return float(((got.double() - exact).abs() / tol).max())
+
+
+def phase_writer_kernels() -> dict:
+    """The writers at WRITE_SHAPES, and the wide top-k wrappers (writer
+    + row 5) at k = 20 and 40 against the plain versions: bf16 to the
+    fused top-k's bar (check_topk's), int8 bit for bit.  Returns the
+    largest |kernel - plain| of each row."""
+    errs = {"fused_logits_top_k": 0.0, "fused_logits_top_k_int8": 0.0}
+    for M, V, H, int8 in WRITE_SHAPES:
+        key = "fused_logits_top_k_int8" if int8 else "fused_logits_top_k"
+        errs[key] = max(errs[key], check_writer(M, V, H, int8))
+    for M, k in ((10240, 20), (2048, 40)):
+        errs["fused_logits_top_k"] = max(errs["fused_logits_top_k"],
+                                         check_topk(M, 11519, k))
+        errs["fused_logits_top_k_int8"] = max(errs["fused_logits_top_k_int8"],
+                                              check_int8(M, 11519, k))
+    return errs
+
+
+def phase_wide_times(label: str) -> None:
+    """Beam 20 and 40 of 512 images (M = 10240, 20480) in bf16 and beam
+    20 in int8: the writer alone (events and device time, its bound), and
+    the wide top-k wrapper (writer + row 5) against its plain version and
+    the library chain (F.linear or torch._int_mm, then torch.topk +
+    torch.logsumexp)."""
+    H, V = 512, 11500
+    for M, k, int8 in ((10240, 20, False), (20480, 40, False), (10240, 20, True)):
+        if int8:
+            h, wq, ws, b = int8_inputs(M, V, seed=M)
+            hq, hs = quantize_rows(h)
+            write = functools.partial(int8_logits_kernel, hq, hs, wq, ws, b)
+            kernel = functools.partial(int8_top_k_kernel, hq, hs, wq, ws, b, k)
+            plain = functools.partial(int8_top_k_plain, hq, hs, wq, ws, b, k)
+            library = int8_library_call(hq, hs, wq, ws, b, k)
+            moved, peak = nbytes(hq, hs, wq, ws, b), PEAK_INT8
+        else:
+            h, w, b = logits_inputs(M, V)
+            w_t = w.t().contiguous()
+            write = functools.partial(logits_kernel, h, w_t, b)
+            kernel = functools.partial(logits_top_k_kernel, h, w_t, b, k)
+            plain = functools.partial(fused_logits_top_k_plain, h, w, b, k)
+            library = topk_library_call(h, w, b, k)
+            moved, peak = nbytes(h, w, b), PEAK_BF16
+        tag = f"{'int8' if int8 else 'bf16'} M={M} H={H} V={V}"
+        w_ms = cuda_ms(write)
+        w_dev = sum(device_ms(write).values())
+        w_bnd = bound(2.0 * M * H * V, moved + 4 * M * V, peak)
+        print(f"time logits writer {tag}: events {w_ms:.4f} ms, device "
+              f"{w_dev:.4f} ms, bound {w_bnd[0]:.4f} ms ({w_bnd[1]}; share "
+              f"{w_bnd[0] / w_dev:.3f}) [{label}]")
+        t, lib, dev, host = logits_yardstick(kernel, plain, library)
+        bnd = bound(2.0 * M * H * V, moved + nbytes(*kernel()), peak)
+        print(f"time wide top-k {tag} k={k} (writer + top_k_logsumexp): kernel "
+              f"{t[0]:.4f} ms, plain {t[1]:.4f} ms, library {lib:.4f} ms, fused "
+              f"bound {bnd[0]:.4f} ms ({bnd[1]}); device: kernel {dev[0]:.4f} ms, "
+              f"library {dev[1]:.4f} ms; host per call {host:.1f} us [{label}]")
+
+
+def wide_beam_launches(cfg, vocab, model, feats, c_v) -> dict:
+    """One batch through the kernels at each wide beam (and int8 at beam
+    20), the counts set to 0 just before and read just after: the LSTM
+    step 3 times plus once a step, the bf16 (or int8) logits writer and
+    the top-k + lse kernel once a step each."""
+    cases = [(f"beam {b}", cfg.replace(beam_size=b)) for b in WIDE_BEAMS]
+    cases.append(("int8 beam 20", cfg.replace(beam_size=20, decode_int8=True)))
+    counts = dict.fromkeys(DECODE_KERNELS + MODE_KERNELS, 0)
+    want = dict(counts)
+    torch.cuda.synchronize()
+    _ext.reset_launches()   # the wide-beam path's run starts here
+    t0 = time.perf_counter()
+    steps = []
+    for name, c in cases:
+        res = make_decode_fns(model, c, vocab)["beam_search"](
+            feats, c_v, generator=torch.Generator(device=DEV).manual_seed(2))
+        if not bool(torch.isfinite(res.scores).all()):
+            raise AssertionError(f"wide-beam {name}: non-finite beam scores")
+        steps.append(res.steps)
+        want["fused_lstm_step"] += 3 + res.steps
+        want["fused_logits_top_k_int8" if c.decode_int8 else "fused_logits_top_k"] += res.steps
+        want["top_k_logsumexp"] += res.steps
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {k: _ext.LAUNCHES[k] for k in counts}      # right after
+    print(f"wide-beam path: {', '.join(n for n, _ in cases)} on {BATCH} images "
+          f"({steps} steps) in {seconds:.2f} s; launches {counts}, expected {want}")
+    if counts != want:
+        raise AssertionError(f"wide-beam launch counts {counts} != {want}")
+    return counts
+
+
+def phase_wide_beam(cfg, vocab, model, label: str) -> dict:
+    """Beams 20 and 40 (bf16) and 20 (int8) on 512 images, 30 steps,
+    through ``make_decode_fns``: the path's launch counts; beam 20 and 40
+    held to the bf16 decode compare's bar (phase_decode_compare: per step,
+    and best-beam captions and scores against the plain and the
+    reversed-sum decodes), int8 beam 20 to the int8 mode's
+    (phase_mode_compare: per step); then ms per batch, kernel path
+    against plain path."""
+    batch = next(batchers(BATCH, "val", vocab, 4).eval_batches())
+    launches = wide_beam_launches(
+        cfg, vocab, model, torch.from_numpy(batch.features).to(DEV),
+        torch.from_numpy(batch.cluster_vectors).to(DEV))
+    phase_decode_compare(cfg, vocab, model,
+                         modes=tuple((f"beam {b}", b) for b in WIDE_BEAMS),
+                         seeds=WIDE_SEEDS)
+    phase_mode_compare(cfg.replace(beam_size=20), vocab, model,
+                       cases=(("int8 beam 20", "decode-int8", "beam_search"),),
+                       seeds=WIDE_SEEDS)
+    phase_wide_times(label)
+    phase_decode_times(cfg, vocab, model, label, cases=tuple(
+        (f"beam {b}", cfg.replace(beam_size=b), "beam_search") for b in WIDE_BEAMS)
+        + (("int8 beam 20", cfg.replace(beam_size=20, **MODES["decode-int8"]),
+            "beam_search"),))
+    return launches
+
+
+# the single-image API: GEN_IMAGES seeded images, each with its
+# detections' cluster vector and with an explicit one; whole captions
+# may differ from the plain ops' in at most GEN_SLACK calls (the sum
+# order's drift, as phase_decode_compare measures it: about 1% of rows)
+GEN_IMAGES = 4
+GEN_SLACK = 2
+GEN_MODES = (("greedy", "greedy", None, False), ("beam 3", "beam_search", 3, True),
+             ("sample", "sample", None, False))
+
+
+def generate_inputs(work: str, n: int, seed: int):
+    """``n`` uint8 images [1, 224, 224, 3] as float pixels, their file
+    names, a detections JSON (COCO results format) for all but the last,
+    and one explicit cluster vector an image."""
+    rng = np.random.default_rng(seed)
+    names = [f"gen_{i:03d}.jpg" for i in range(n)]
+    pixels = [rng.integers(0, 256, (1, 224, 224, 3)).astype(np.float32)
+              for _ in names]
+    cv = coco_cv(n, seed=seed, zero_every=n + 1).cpu().numpy()
+    dets = [{"file_name": name, "category_id": int(c) + 1, "score": 0.9}
+            for name, row in zip(names[:-1], cv) for c in np.flatnonzero(row)]
+    path = os.path.join(work, "detections.json")
+    with open(path, "w") as f:
+        json.dump(dets, f)
+    return pixels, names, path, cv
+
+
+def phase_generate(ckpt_dir: str, name: str, work: str, label: str,
+                   modes=GEN_MODES) -> dict:
+    """The single-image API (``generate.Generator.caption_pixels``, the
+    part of ``generate_caption`` after the image read: the card machine
+    has no cv2) on the checkpoint ``ckpt_dir/name``: the path's launches
+    at every mode of ``modes``, the counts set to 0 before and read
+    after; each call again through CheckedOps (per step against the plain
+    versions, strict) and the whole captions against a Generator on the
+    plain ops (at most GEN_SLACK calls differ); then one caption per mode
+    timed on the host clock after a warm-up, VGG16 included (the
+    checkpoint's fc2 at batch 1, or a fine-tune model's own VGG16)."""
+    pixels, names, dets, cv = generate_inputs(work, GEN_IMAGES, 41)
+    calls = [(p, n, v) for p, n, vec in zip(pixels, names, cv)
+             for v in (None, vec)]
+    gens = {}
+    counts = dict.fromkeys(DECODE_KERNELS + MODE_KERNELS, 0)
+    torch.cuda.synchronize()
+    _ext.reset_launches()   # the generate path's run starts here
+    t0 = time.perf_counter()
+    steps = 0
+    for mode, method, beam, beams in modes:
+        gens[mode] = gen = Generator(ckpt_dir, name, method, detections_json=dets,
+                                     device=DEV)
+        for p, n, v in calls:
+            out = gen.caption_pixels(p, n, beam, v, return_beams=beams)
+            caption = out[0]["caption"]
+            if out[0]["image_id"] != n or not (
+                    isinstance(caption, str) if not beams
+                    else len(caption) == beam and all(isinstance(c, str) for c in caption)):
+                raise AssertionError(f"generate {mode}: malformed result {out}")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {k: _ext.LAUNCHES[k] for k in counts}      # right after
+    print(f"generate path ({name}): {len(calls)} calls a mode ({GEN_IMAGES} images, "
+          f"detections' and explicit cluster vectors), modes "
+          f"{[m[0] for m in modes]}, in {seconds:.2f} s (the first calls build "
+          f"VGG16 and the decode weights); launches {counts}")
+    if not (counts["fused_lstm_step"] and counts["fused_logits_top_k"]) or (
+            any(m[1] == "sample" for m in modes) and not counts["fused_logits_sample"]):
+        raise AssertionError(f"generate: the decode kernels did not run: {counts}")
+    for mode, method, beam, beams in modes:
+        checked = CheckedOps()
+        kern = Generator(ckpt_dir, name, method, detections_json=dets,
+                         device=DEV, ops=checked.ops())
+        plain = Generator(ckpt_dir, name, method, detections_json=dets,
+                          device=DEV, ops=PLAIN_OPS)
+        same = sum(kern.caption_pixels(p, n, beam, v, return_beams=beams)
+                   == plain.caption_pixels(p, n, beam, v, return_beams=beams)
+                   for p, n, v in calls)
+        share = checked.same / checked.rows
+        print(f"generate compare {mode} ({name}): per step, choices identical to the "
+              f"plain version's in {share:.5f} of {checked.rows} rows, near-tie "
+              f"rows {checked.near}, max |c', h' kernel - plain| "
+              f"{checked.state_err:.3e}; whole captions identical to the plain "
+              f"ops' in {same} of {len(calls)} calls")
+        if checked.bad or share < STEP_SHARE or same < len(calls) - GEN_SLACK:
+            raise AssertionError(f"generate {mode}: the kernels disagree with "
+                                 "the plain versions")
+    for mode, method, beam, beams in modes:
+        gen = gens[mode]
+        p, n, v = calls[0]
+        gen.caption_pixels(p, n, beam, v, return_beams=beams)      # warm-up
+        times = []
+        for _ in range(5):
+            t = time.perf_counter()
+            gen.caption_pixels(p, n, beam, v, return_beams=beams)
+            times.append((time.perf_counter() - t) * 1e3)
+        feat = []
+        for _ in range(5):
+            t = time.perf_counter()
+            gen._features(p).cpu()
+            feat.append((time.perf_counter() - t) * 1e3)
+        print(f"time generate {mode} ({name}), batch 1: median {np.median(times):.2f} "
+              f"ms a caption (min {min(times):.2f}, max {max(times):.2f}; the "
+              f"features alone, median {np.median(feat):.2f} ms) [{label}]")
+    # the Generators' shared VGG16 (550 MB on the card) would count in
+    # the later phases' memory
+    feature_extractor.cache_clear()
+    return counts
+
+
+def phase_generate_ag(cfg, trainer, npz: str, out_dir: str, label: str) -> dict:
+    """The single-image API on the AG-CVAE the train-ag path trained
+    (saved as a checkpoint whose config names the synthetic Caffe npz,
+    removed after the phase)."""
+    work = os.path.join(out_dir, "generate")
+    os.makedirs(work, exist_ok=True)
+    try:
+        vocab = Vocabulary(["<BOS>", "<EOS>", "<UNK>"]
+                           + [f"w{i}" for i in range(VOCAB - 4)])
+        save_sidecars(cfg.replace(image_net_weights_path=npz, mode="inference",
+                                  gen_max_len=30), vocab, work, "ag")
+        save_params(export_flax_params(trainer.model), work, "ag")
+        return phase_generate(work, "ag", work, label)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_fidelity(npz: str, work: str, label: str) -> None:
+    """``vgg_fidelity.compare`` on the synthetic Caffe npz, the path under
+    test on the card: it must PASS; the port's loader on the true file
+    against the oracle on a copy with conv5_2 and conv5_3 swapped (what
+    the tool sees of a loader that takes that layout) must FAIL."""
+    t0 = time.perf_counter()
+    ok, report = vgg_fidelity.compare(npz, device=DEV)
+    seconds = time.perf_counter() - t0
+    print(f"fidelity: {'PASS' if ok else 'FAIL'} on the synthetic npz in "
+          f"{seconds:.2f} s: {json.dumps(report)}")
+    if not ok:
+        raise AssertionError("fidelity: the tool fails on the synthetic npz")
+    with np.load(npz) as raw:
+        arrays = dict(raw)
+    arrays["conv5_2_W"], arrays["conv5_3_W"] = arrays["conv5_3_W"], arrays["conv5_2_W"]
+    bad = os.path.join(work, "swapped.npz")
+    np.savez(bad, **arrays)
+    del arrays
+    images = vgg_fidelity.fixed_image(batch=1)
+    ref = vgg_fidelity.oracle_fc2(bad, images)
+    ours = vgg_fidelity.port_fc2(npz, images, torch.float32, DEV)
+    rel = float(np.abs(ours - ref).max()) / (float(np.abs(ref).max()) + 1e-12)
+    os.remove(bad)
+    print(f"fidelity: the port's loader against the oracle on the swapped "
+          f"layout: rel diff {rel:.3e}, {'FAIL' if rel >= report['threshold'] else 'PASS'} "
+          f"(threshold {report['threshold']}) [{label}]")
+    if rel < report["threshold"]:
+        raise AssertionError("fidelity: the swapped layout passes the tool")
+
+
+# data-parallel training: DP_RANKS processes on the one card, joined over
+# gloo (NCCL takes one rank a device); DP_STEPS steps of the AG-CVAE and
+# of the GMM-CVAE under the flash CE at the train shapes, SGD, the z noise
+# injected, against one process on the global batch (to the CPU test's
+# tolerance); then the path with its own noise (the rank-folded fused z)
+DP_RANKS, DP_STEPS, DP_TIME_STEPS = 2, 3, 3
+DP_RTOL, DP_ATOL = 1e-3, 2e-4
+DP_CASES = (("AG", ""), ("GMM", "fused_ce"))
+
+
+def dp_config(prior: str, ce: str) -> Config:
+    return train_config(prior, ce).replace(optimizer="SGD", learning_rate=0.05,
+                                           multihost=dist.is_initialized())
+
+
+def dp_batch(seed: int) -> Batch:
+    """One train batch on the host, B = 256 images x 5 captions x 24."""
+    feats, labels, dec, lengths, c_v = (t.cpu().numpy() for t in train_arrays(seed))
+    B, K, T = TRAIN_IMAGES, TRAIN_CAPTIONS, TRAIN_T
+    return Batch(features=feats, dec_inputs=dec.reshape(B, K, T),
+                 labels=labels.reshape(B, K, T), lengths=lengths.reshape(B, K),
+                 cluster_vectors=c_v, valid=B)
+
+
+def dp_ops() -> TrainOps:
+    """The kernels, with the fused z fed this rank's rows of one global
+    eps (drawn on the card from a seed, the same in every process)."""
+    eps = torch.randn((TRAIN_ROWS, KZ, LATENT), device=DEV,
+                      generator=torch.Generator(device=DEV).manual_seed(5))
+
+    def sample_project(mean, std, w, b, n, seed, step):
+        rank, _ = dp_mesh.process_info()
+        rows = mean.shape[0]
+        return fused_z_plain(mean, std, w, b, n, eps=eps[rank * rows:(rank + 1) * rows])
+
+    return TrainOps(sample_project=sample_project)
+
+
+def dp_run(prior: str, ce: str, out: str) -> list:
+    """DP_STEPS steps in this process (a rank, or one process on the
+    global batch): the metrics by step; the final parameters to
+    ``out``."""
+    trainer = Trainer(dp_config(prior, ce), device=DEV, ops=dp_ops())
+    if prior == "GMM":       # fixed cluster draws, this rank's rows
+        rank, world = dp_mesh.process_info()
+        idx = np.random.default_rng(11).integers(0, CLUSTERS, size=TRAIN_ROWS)
+        n = TRAIN_ROWS // world
+        trainer.clusters = torch.from_numpy(idx[rank * n:(rank + 1) * n]).to(DEV)
+    metrics = [{k: float(v) for k, v in trainer.run_step(dp_batch(20 + i)).items()}
+               for i in range(DP_STEPS)]
+    if trainer.is_main:
+        np.savez(out, **export_flax_params(trainer.model))
+    return metrics
+
+
+def dp_rank(rank: int, world: int, port: int, work: str) -> None:
+    """One rank of phase_dp (a spawned process): the compared runs, then
+    1 + DP_TIME_STEPS steps of the AG-CVAE and of the GMM-CVAE (flash CE)
+    with their own noise, the launches and the step ms; its results in
+    ``work``/rank<r>.json."""
+    dp_mesh.init_process_group(rank, world, f"tcp://127.0.0.1:{port}", DEV,
+                               backend="gloo", timeout=600)
+    try:
+        result = {p: dp_run(p, ce, os.path.join(work, f"dp_{p}.npz"))
+                  for p, ce in DP_CASES}
+        batch = dp_batch(30)
+        torch.cuda.synchronize()
+        _ext.reset_launches()   # this rank's dp path starts here
+        for prior, ce in DP_CASES:
+            trainer = Trainer(dp_config(prior, ce), device=DEV)
+            trainer.run_step(batch)                              # warm-up
+            times = []
+            for _ in range(DP_TIME_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m = trainer.run_step(batch)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            result[f"ms {prior}"] = times
+            result[f"loss {prior}"] = float(m["loss"])
+            del trainer
+        result["launches"] = dict(_ext.LAUNCHES)                 # right after
+        result["seeds"] = [DataParallel.current().seed(s) for s in (1, 2)]
+        with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+            json.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_dp(out_dir: str, label: str) -> dict:
+    """DP_RANKS ranks spawned on the one card over gloo: the AG-CVAE and
+    the GMM-CVAE (flash CE) each DP_STEPS SGD steps at B = 256 x 5 x 24
+    (each rank 128 images), with the z noise injected and the GMM clusters
+    fixed, against the same steps in this process on the global batch:
+    every step's loss, rec_loss, kld and grad_norm and every final
+    parameter to rtol DP_RTOL, atol DP_ATOL.  Then each rank's launches
+    over 1 + DP_TIME_STEPS steps of the AG-CVAE and of the GMM-CVAE
+    (flash CE) with their own, rank-folded, noise (every train kernel of
+    those paths, the fused z included) and the step's ms on the host
+    clock: two processes share one card, so the time measures the code
+    path (and gloo's host copies), not a speed-up."""
+    work = os.path.join(out_dir, "dp")
+    os.makedirs(work, exist_ok=True)
+    try:
+        t0 = time.perf_counter()
+        torch.multiprocessing.start_processes(
+            dp_rank, args=(DP_RANKS, free_port(), work), nprocs=DP_RANKS,
+            join=True, start_method="spawn")
+        seconds = time.perf_counter() - t0
+        ranks = []
+        for r in range(DP_RANKS):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        for prior, ce in DP_CASES:
+            if ranks[0][prior] != ranks[1][prior]:
+                raise AssertionError(f"dp {prior}: the ranks' metrics differ")
+            one_path = os.path.join(work, f"one_{prior}.npz")
+            one = dp_run(prior, ce, one_path)
+            worst = 0.0
+            for i, (g, w) in enumerate(zip(ranks[0][prior], one)):
+                for key in ("loss", "rec_loss", "kld", "grad_norm"):
+                    rel = abs(g[key] - w[key]) / abs(w[key])
+                    worst = max(worst, rel)
+                    if rel > DP_RTOL:
+                        raise AssertionError(f"dp {prior} step {i + 1}: {key} "
+                                             f"{g[key]:.6f} against {w[key]:.6f}")
+            with np.load(os.path.join(work, f"dp_{prior}.npz")) as got, \
+                    np.load(one_path) as want:
+                excess = max(float((np.abs(got[k] - want[k])
+                                    - (DP_ATOL + DP_RTOL * np.abs(want[k]))).max())
+                             for k in want.files)
+            print(f"dp {prior} ({ce or 'plain CE'}): {DP_RANKS} ranks against one "
+                  f"process on the global batch over {DP_STEPS} SGD steps: metrics max "
+                  f"rel diff {worst:.2e} (rtol {DP_RTOL}); every parameter within "
+                  f"atol {DP_ATOL} + rtol {DP_RTOL} (largest excess {excess:.3e}); "
+                  f"loss by step " + ", ".join(f"{m['loss']:.5f}" for m in ranks[0][prior]))
+            if excess > 0:
+                raise AssertionError(f"dp {prior}: the parameters differ from one "
+                                     "process's")
+        runs = [train_launches(DP_TIME_STEPS + 1, p == "AG", ce) for p, ce in DP_CASES]
+        want = {k: sum(r[k] for r in runs) for k in runs[0]}
+        for r, res in enumerate(ranks):
+            got = {k: res["launches"][k] for k in want}
+            print(f"dp path rank {r}: launches {got}, expected {want}; step ms "
+                  + "; ".join(f"{p} {', '.join(f'{t:.2f}' for t in res['ms ' + p])}"
+                              f" (loss {res['loss ' + p]:.5f})" for p, _ in DP_CASES)
+                  + f"; z seeds of base seeds 1, 2: {res['seeds']}")
+            if got != want:
+                raise AssertionError(f"dp rank {r} launch counts {got} != {want}")
+        if ranks[0]["seeds"] == ranks[1]["seeds"]:
+            raise AssertionError("dp: the ranks draw the same noise")
+        for prior, ce in DP_CASES:
+            print(f"time dp step {prior} ({ce or 'plain CE'}), {DP_RANKS} ranks x "
+                  f"{TRAIN_IMAGES // DP_RANKS} images x {TRAIN_CAPTIONS} captions on "
+                  f"one card (gloo): rank 0 median {np.median(ranks[0]['ms ' + prior]):.2f} "
+                  f"ms, rank 1 {np.median(ranks[1]['ms ' + prior]):.2f} ms; the code "
+                  f"path, not a speed-up [{label}]")
+        print(f"dp phase: {seconds:.1f} s of spawned ranks (their start included)")
+        return ranks[0]["launches"]
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3031,9 +3587,14 @@ WGMMA_TEMPLATES = {
     "logits_topk_kernel": (
         lambda a: f"<{'int8' if a[0] == 'S8Logit' else 'bf16'}, {64 * a[1]} rows, h "
                   f"{'resident' if a[2] else 'streamed'}, {a[3] or 'runtime'} boxes, "
-                  f"{'sampler' if a[4] == 'GumbelScore' else 'top-k'}, K={a[5]}>",
+                  f"{ {'GumbelScore': 'sampler', 'WriteLogits': 'writer'}.get(a[4], 'top-k')}, "
+                  f"K={a[5]}>",
         lambda a: _ext.library().vct_fused_logits_top_k_smem(
             HIDDEN, int(a[0] == "S8Logit"), 64 * a[1], int(a[2]))),
+    # not a wgmma kernel: the top-k + logsumexp's lists (static shared
+    # memory only), K at compile time or, past 16, at run time
+    "topk_lse_kernel": (lambda a: f"<K={a[0] or 'run time'}, {a[1]} entries a lane>",
+                        lambda a: 0),
 }
 
 
@@ -3041,12 +3602,13 @@ def template_args(mangled: str, name: str) -> list:
     """The template arguments of a mangled instance of ``name``, in order:
     ints (``Li64E``), bools (``Lb1E``) and the type names of the LSTM
     cell's epilogues (``StepEpi``, ``SeqEpi``) and of the logits kernel's
-    policies (``Bf16Logit``, ``S8Logit``, ``RawLogit``, ``GumbelScore``)."""
+    policies (``Bf16Logit``, ``S8Logit``, ``RawLogit``, ``GumbelScore``,
+    ``WriteLogits``)."""
     rest = mangled[mangled.index(f"{len(name)}{name}I") + len(name) + len(str(len(name))) + 1:]
     rest = rest[:rest.find("Ev")] if "Ev" in rest else rest
     args = []
     for m in re.finditer(r"Li(\d+)E|Lb([01])E|(StepEpi|SeqEpi|Bf16Logit|S8Logit|RawLogit"
-                         r"|GumbelScore)", rest):
+                         r"|GumbelScore|WriteLogits)", rest):
         args.append(int(m.group(1)) if m.group(1) else m.group(2) == "1"
                     if m.group(2) else m.group(3))
     return args
@@ -3054,7 +3616,8 @@ def template_args(mangled: str, name: str) -> list:
 
 def print_template_resources() -> None:
     """Registers, spills and shared memory of the wgmma + TMA kernel
-    templates (``WGMMA_TEMPLATES``) at every instance, from nvcc's
+    templates (``WGMMA_TEMPLATES``, and the top-k + logsumexp's
+    instances) at every instance, from nvcc's
     -Xptxas=-v output in build.log, and any ptxas warning that it
     serialises an instance's wgmmas (C7515); the dynamic shared memory from
     the libraries' exports (the decode LSTM step's from its layout's)."""
@@ -3114,12 +3677,32 @@ def main() -> None:
         return
 
     t0 = time.perf_counter()
+    npz = os.path.join(out_dir, "vgg16_weights.npz")
+    try:
+        run_phases(out_dir, npz, label, t0)
+    finally:
+        if os.path.exists(npz):
+            os.remove(npz)
+
+
+def run_phases(out_dir: str, npz: str, label: str, t0: float) -> None:
+    """Every phase after the build, then the record lines; ``npz``: where
+    the synthetic Caffe weights of the VGG16 phases go."""
     errors = {**phase_kernels(), **phase_mode_kernels(), **phase_train_kernels(),
               **phase_ag_kernels(), **phase_ce_kernels(), **phase_ce_mat_kernels()}
     cfg, vocab, model, launches = phase_main_path(out_dir)
     phase_decode_compare(cfg, vocab, model)
     launches.update(phase_mode_paths(cfg, vocab, model, out_dir))
     phase_mode_compare(cfg, vocab, model)
+    t_slice = time.perf_counter()
+    for name, err in phase_writer_kernels().items():
+        errors[name] = max(errors[name], err)
+    by_path = {"wide-beam": phase_wide_beam(cfg, vocab, model, label)}
+    t_wide = time.perf_counter() - t_slice
+    t_npz = time.perf_counter()
+    vgg_npz(npz)
+    print(f"VGG16 npz (Caffe layout, numpy draws) written in "
+          f"{time.perf_counter() - t_npz:.2f} s")
     # (prior, CE flag, tag, the kernels whose launches the record reads from
     # this path, whether the checkpoint round trip runs); the xla-bwd path
     # runs the hybrid's backward kernels, whose launches it checks itself
@@ -3135,6 +3718,10 @@ def main() -> None:
         phase_train_compare(tcfg, train_arrays(seed=10), tag)
         if round_trip:
             phase_round_trip(tcfg, trainer, out_dir, tag)
+        if tag == "train-ag":
+            t_gen = time.perf_counter()
+            by_path["generate"] = phase_generate_ag(tcfg, trainer, npz, out_dir, label)
+            t_gen = time.perf_counter() - t_gen
         del trainer
     t_cycle = time.perf_counter()
     for prior, ce, tag in (("AG", "", "resume-ag"),
@@ -3143,9 +3730,18 @@ def main() -> None:
     quality = phase_quality(label)
     with open(os.path.join(out_dir, "quality.json"), "w") as f:
         json.dump(quality, f, indent=1)
-    phase_finetune(out_dir, label)
+    phase_finetune(out_dir, npz, label)
     print(f"resume, quality and finetune phases: "
           f"{time.perf_counter() - t_cycle:.1f} s")
+    t_new = time.perf_counter()
+    phase_fidelity(npz, out_dir, label)
+    os.remove(npz)
+    t_fid = time.perf_counter() - t_new
+    t_new = time.perf_counter()
+    by_path["dp"] = phase_dp(out_dir, label)
+    print(f"this slice's phases: wide-beam {t_wide:.1f} s, generate (AG) "
+          f"{t_gen:.1f} s, fidelity {t_fid:.1f} s, dp "
+          f"{time.perf_counter() - t_new:.1f} s")
     times = {**phase_kernel_times(label), **phase_mode_kernel_times(label),
              **phase_train_kernel_times(label), **phase_ag_kernel_times(label),
              **phase_ce_kernel_times(label), **phase_ce_mat_kernel_times(label)}
@@ -3166,8 +3762,12 @@ def main() -> None:
              **{k: "train-ag" for k in AG_KERNELS},
              **{k: "train-gmm" for k in CE_KERNELS},
              **{k: "train-gmm-hybrid" for k in MAT_KERNELS}}
+    # each kernel's launches on every path that ran it: the first path's
+    # (``path``, ``launches``) and this slice's (generate, wide-beam, dp)
     record = {"kernels": [
         {"name": name, **meta, "path": paths[name], "launches": launches[name],
+         "paths": {paths[name]: launches[name],
+                   **{p: c[name] for p, c in by_path.items() if c.get(name)}},
          "max_abs_err": errors[name], **times[name]}
         for name, meta in KERNELS.items()]}
     print(label)

@@ -37,8 +37,9 @@ from vae_captioning_torch.ops.fused_ce import (
 from vae_captioning_torch.ops.fused_logits_topk import (
     fused_logits_sample, fused_logits_top_k, fused_logits_top_k_int8,
     fused_logits_top_k_int8_plain, fused_logits_top_k_plain,
-    block_shape, int8_top_k_kernel, int8_top_k_plain, logits_plan,
-    logits_top_k_kernel, quantize_logits_weights, quantize_rows, sample_kernel, sample_scores)
+    block_shape, int8_logits, int8_logits_kernel, int8_top_k_kernel, int8_top_k_plain,
+    logits_kernel, logits_plan, logits_top_k_kernel, quantize_logits_weights,
+    quantize_rows, sample_kernel, sample_scores)
 from vae_captioning_torch.ops.fused_lstm_seq import (fused_lstm_seq,
                                                      fused_lstm_seq_plain)
 from vae_captioning_torch.ops.fused_lstm_step import (fused_lstm_step,
@@ -241,9 +242,9 @@ def test_wrappers_check_their_inputs(dev):
         fused_lstm_step(x.float(), c, h, w, b)
     with pytest.raises(ValueError, match="multiples of 32"):
         fused_lstm_step(x[:, :16].contiguous(), c, h, w[16:].contiguous(), b)
-    with pytest.raises(ValueError, match="k=17"):
+    with pytest.raises(ValueError, match="k=65"):     # only k > V raises
         fused_logits_top_k(h.to(torch.bfloat16), w[:32, :64].contiguous(),
-                           b[:64].contiguous(), 17)
+                           b[:64].contiguous(), 65)
 
 
 def test_decode_through_kernels_matches_plain_decode(dev):
@@ -268,6 +269,107 @@ def test_decode_through_kernels_matches_plain_decode(dev):
         if got.scores is not None:
             torch.testing.assert_close(got.scores, want.scores, rtol=1e-4,
                                        atol=0)
+
+
+@pytest.mark.parametrize("beam", [20, 40])
+@pytest.mark.parametrize("mode", ["bf16", "unfused", "int8"])
+def test_wide_beam_decode_matches_plain_decode(dev, beam, mode):
+    """Beams past the fused kernels' lists of 16: the fused decodes'
+    kernels write their logits and the top-k + logsumexp kernel takes
+    them, each once a step (unfused: row 5 alone)."""
+    cfg = Config(embed_size=64, latent_size=16, decoder_hidden=64,
+                 gen_z_samples=4, prior="AG", use_c_v=True, gen_max_len=8,
+                 beam_size=beam, std=0.0,
+                 **{"bf16": {}, "unfused": dict(fused_decode=False),
+                    "int8": dict(decode_int8=True)}[mode])
+    vocab = Vocabulary(["<BOS>", "<EOS>", "<UNK>"] + [f"w{i}" for i in range(500)])
+    cfg.vocab_size = vocab.vocab_size
+    model = CVAEModel.from_config(cfg)
+    rng = np.random.default_rng(0)
+    load_flax_params(model, {k: rng.normal(0, 0.3, size=s).astype(np.float32)
+                             for k, s in flax_shapes(model).items()})
+    model = model.to(dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    feats = torch.randn((16, 4096), generator=g, device=dev)
+    c_v = (torch.rand((16, 90), generator=g, device=dev) < 0.05).float()
+    kernel = make_decode_fns(model, cfg, vocab)["beam_search_all"]
+    plain = make_decode_fns(model, cfg, vocab, ops=PLAIN_OPS)["beam_search_all"]
+    _ext.reset_launches()
+    got = kernel(feats, c_v)
+    steps = got.steps
+    counts = dict(_ext.LAUNCHES)
+    want = plain(feats, c_v)
+    assert counts["top_k_logsumexp"] == steps
+    assert counts["fused_logits_top_k"] == (steps if mode == "bf16" else 0)
+    assert counts["fused_logits_top_k_int8"] == (steps if mode == "int8" else 0)
+    assert got.tokens.shape[1] == beam
+    assert torch.equal(got.tokens, want.tokens)
+    # int8 and unfused: see test_decode_modes_through_kernels_match_plain
+    torch.testing.assert_close(got.scores, want.scores,
+                               rtol=1e-4 if mode == "bf16" else 2e-3, atol=0)
+
+
+def _vgg_npz(path: str) -> None:
+    """VGG16 weights drawn by numpy in the Caffe npz layout (conv1_1_W ..
+    fc8_b), He-normal, conv1_1 scaled to the pixels' range."""
+    from vae_captioning_torch.models.vgg16 import CONV_BLOCKS
+
+    rng = np.random.default_rng(0)
+    arrays, width = {}, 3
+    for name, out in (n for block in CONV_BLOCKS for n in block):
+        std = (2.0 / (9 * width)) ** 0.5 / (128.0 if width == 3 else 1.0)
+        arrays[f"{name}_W"] = np.float32(std) * rng.standard_normal(
+            (3, 3, width, out), dtype=np.float32)
+        arrays[f"{name}_b"] = np.zeros(out, np.float32)
+        width = out
+    for fc, shape in (("fc6", (25088, 4096)), ("fc7", (4096, 4096)),
+                      ("fc8", (4096, 1000))):
+        arrays[f"{fc}_W"] = np.float32((2.0 / shape[0]) ** 0.5) * (
+            rng.standard_normal(shape, dtype=np.float32))
+        arrays[f"{fc}_b"] = np.zeros(shape[1], np.float32)
+    np.savez(path, **arrays)
+
+
+def test_generator_on_the_card_matches_plain_ops(dev, tmp_path):
+    """The single-image API on the card (VGG16 fc2 at batch 1, then the
+    decode kernels) against the same Generator on the plain decode ops:
+    greedy, beam 3 with every beam, with a cluster vector and without;
+    sampling launches the sampler."""
+    from vae_captioning_torch.checkpoint import save_params, save_sidecars
+    from vae_captioning_torch.generate import Generator
+
+    npz = str(tmp_path / "vgg16_weights.npz")
+    _vgg_npz(npz)
+    cfg = Config(embed_size=64, latent_size=16, decoder_hidden=64,
+                 gen_z_samples=4, prior="AG", use_c_v=True, gen_max_len=8,
+                 beam_size=3, image_net_weights_path=npz)
+    vocab = Vocabulary(["<BOS>", "<EOS>", "<UNK>"] + [f"w{i}" for i in range(500)])
+    cfg.vocab_size = vocab.vocab_size
+    rng = np.random.default_rng(0)
+    save_params({k: rng.normal(0, 0.3, size=s).astype(np.float32) for k, s in
+                 flax_shapes(CVAEModel.from_config(cfg)).items()},
+                str(tmp_path), "g")
+    save_sidecars(cfg, vocab, str(tmp_path), "g")
+    pixels = rng.integers(0, 256, (1, 224, 224, 3)).astype(np.float32)
+    cv = (rng.random(90) < 0.05).astype(np.float32)
+    for method, beam, beams in (("greedy", None, False),
+                                ("beam_search", 3, True),
+                                ("beam_search", 5, False)):
+        kern = Generator(str(tmp_path), "g", method, device=dev)
+        plain = Generator(str(tmp_path), "g", method, device=dev, ops=PLAIN_OPS)
+        for vec in (None, cv):
+            _ext.reset_launches()
+            got = kern.caption_pixels(pixels, "x.jpg", beam, vec,
+                                      return_beams=beams)
+            assert _ext.LAUNCHES["fused_logits_top_k"] > 0
+            assert got == plain.caption_pixels(pixels, "x.jpg", beam, vec,
+                                               return_beams=beams)
+    gen = Generator(str(tmp_path), "g", "sample", device=dev)
+    _ext.reset_launches()
+    out = gen.caption_pixels(pixels, "x.jpg")
+    assert _ext.LAUNCHES["fused_logits_sample"] > 0
+    assert isinstance(out[0]["caption"], str)
+    assert gen.caption_pixels(pixels, "x.jpg") == out
 
 
 # ----------------------------------------------------------------------
@@ -311,6 +413,80 @@ def _planted_logits(dev, N, V, seed):
         x[::3, 1:1101] = float("-inf")
         x[1::3, ::7] = float("-inf")
     return x
+
+
+@pytest.mark.parametrize("N,V,k", [
+    (N, V, k) for N, V in ((1536, 11500), (10240, 11519), (13, 1000), (300, 40),
+                           (7, 20000))
+    for k in (17, 20, 32, 33, 40, 64, 65, 100, 256, 300) if k <= V])
+def test_top_k_logsumexp_wide_lists_match_plain(dev, N, V, k):
+    """Lists past 16 (k at run time: 1 or 2 entries a lane up to 64, then
+    the bitonic-sort kernel, its keys in shared memory, or in its global
+    workspace at V = 20000), planted ties and -inf: one launch, values
+    and indices bit for bit, lse to 1e-5."""
+    x = _planted_logits(dev, N, V, seed=N + V + k)
+    before = _ext.LAUNCHES["top_k_logsumexp"]
+    vals, idx, lse = top_k_logsumexp(x, k)
+    p_vals, p_idx, p_lse = top_k_logsumexp_plain(x, k)
+    torch.cuda.synchronize()
+    assert _ext.LAUNCHES["top_k_logsumexp"] == before + 1
+    assert torch.equal(idx, p_idx) and torch.equal(vals, p_vals)
+    torch.testing.assert_close(lse, p_lse, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("M,H,V,int8,rows", [
+    (10240, 512, 11500, False, 0), (700, 512, 11519, True, 0),
+    (65, 1024, 11519, False, 0), (65, 2048, 11500, False, 0),
+    (300, 96, 11519, False, 0), (512, 512, 11519, False, 64),
+    (65, 2624, 11519, True, 0), (1, 512, 130, True, 0)])
+def test_logits_writer_geometries_match_plain(dev, M, H, V, int8, rows):
+    """The fused logits kernels' writer instance (beams past K_MAX) at
+    every block shape: int8 bit for bit ``int8_logits``; bf16 bit for bit
+    the fused top-k's own values at its top-10 (the same accumulators),
+    and within the f32 error bound of a length-H dot product in any order
+    of the exact logits: gamma_H |h| |w| + u |logit|, u = 2^-24."""
+    h, w_t, b = _logits_args(dev, M, H, V, seed=M + H)
+    plan = logits_plan(M, H, V, 1, 1 if int8 else 2, rows=rows)
+    if int8:
+        hq, hs = quantize_rows(h.float())
+        wq, ws = quantize_logits_weights(w_t.t().float())
+        got = int8_logits_kernel(hq, hs, wq, ws, b, plan)
+        assert torch.equal(got, int8_logits(hq, hs, wq, ws, b))
+    else:
+        got = logits_kernel(h, w_t, b, plan)
+        k = min(10, V)
+        vals, idx, _ = logits_top_k_kernel(h, w_t, b, k, logits_plan(M, H, V, k, 2, rows=rows))
+        assert torch.equal(got.gather(1, idx.long()), vals)
+        u = 2.0 ** -24
+        hd, wd = h.double(), w_t.t().double()
+        exact = hd @ wd + b.double()
+        tol = H * u / (1 - H * u) * (hd.abs() @ wd.abs()) + u * exact.abs()
+        assert bool(((got.double() - exact).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("k", [17, 20, 32])
+def test_wide_logits_top_k_routes_through_written_logits(dev, k):
+    """The bf16 and int8 top-k past K_MAX: their kernels write the logits
+    (one launch each), then the top-k + logsumexp kernel; bf16 to the
+    fused top-k's bar, int8 bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(k)
+    h = torch.randn((700, 512), generator=g, device=dev).to(torch.bfloat16)
+    w = (0.05 * torch.randn((512, 11500), generator=g, device=dev)
+         ).to(torch.bfloat16).t().contiguous().t()
+    b = 0.1 * torch.randn((11500,), generator=g, device=dev)
+    wq, ws = quantize_logits_weights(w.float())
+    _ext.reset_launches()
+    got = fused_logits_top_k(h, w, b, k)
+    got8 = fused_logits_top_k_int8(h, wq, ws, b, k)
+    torch.cuda.synchronize()
+    assert _ext.LAUNCHES["top_k_logsumexp"] == 2
+    assert _ext.LAUNCHES["fused_logits_top_k"] == 1
+    assert _ext.LAUNCHES["fused_logits_top_k_int8"] == 1
+    _assert_top_k(got, fused_logits_top_k_plain(h, w, b, k + 1), k)
+    v, i, l = got8
+    pv, pi, pl = fused_logits_top_k_int8_plain(h, wq, ws, b, k)
+    assert torch.equal(i, pi) and torch.equal(v, pv)
+    torch.testing.assert_close(l, pl, rtol=1e-5, atol=0)
 
 
 @pytest.mark.parametrize("N,V,k", [(N, V, k) for N in (1, 13, 1536, 5120)

@@ -152,6 +152,28 @@ def test_decode_fns_match_jax_fused_decode(models, interpreted, monkeypatch,
     assert 1 <= got.steps <= cfg.gen_max_len
 
 
+@pytest.mark.parametrize("name", ["beam_search", "beam_search_all"])
+def test_wide_beam_decode_matches_jax(models, interpreted, monkeypatch, name):
+    """Beam 20, past the fused kernels' lists of 16 (on the card the
+    fused decode then writes its logits and takes the top-k + logsumexp
+    kernel): the plain decode against the JAX fused decode."""
+    cfg, params, _, model = models
+    cfg = cfg.replace(beam_size=20)
+    feats, c_v, eps = _inputs(seed=4)
+    _patch_eps(monkeypatch, eps)
+    jfn = jinf.make_decode_fns(JaxCVAE.from_config(cfg), cfg, VOCAB)[name]
+    want = jfn(params, jnp.asarray(feats), jnp.asarray(c_v),
+               jax.random.PRNGKey(2))
+    got = tinf.make_decode_fns(model, cfg, VOCAB, ops=tinf.PLAIN_OPS)[name](
+        torch.from_numpy(feats), torch.from_numpy(c_v),
+        eps=torch.from_numpy(eps))
+    np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(want[0]))
+    np.testing.assert_allclose(got.scores.numpy(), np.asarray(want[1]),
+                               rtol=1e-5)
+    if name == "beam_search_all":
+        assert got.tokens.shape[:2] == (B, 20)
+
+
 def test_decode_weights_store_the_head_transposed(models):
     """The decode casts its bf16 head once per build, column-major:
     ``head_w.t()`` is W^T [V, H] contiguous, the layout the logits kernels

@@ -40,6 +40,9 @@ SCRIPT = textwrap.dedent("""
         vae_captioning_torch.__path__, "vae_captioning_torch.")]
     for name in modules:
         importlib.import_module(name)
+    for name in ("generate", "models.vgg_fidelity", "parallel.mesh",
+                 "parallel.kernel_shard"):
+        assert "vae_captioning_torch." + name in modules, name
 
     from vae_captioning_torch.config import Config
     from vae_captioning_torch.data.batcher import CaptionBatcher
@@ -94,8 +97,9 @@ def test_port_imports_and_decodes_without_jax():
 
 
 def _sources():
-    paths = [os.path.join(REPO, f) for f in ("chip_smoke.py", "decode_profile.py",
-                                              "kernel_designs.py")]
+    paths = [os.path.join(REPO, f) for f in (
+        "chip_smoke.py", "decode_profile.py", "kernel_designs.py",
+        os.path.join("examples", "generate_caption_example_torch.py"))]
     for root, _, files in os.walk(PORT):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(paths)

@@ -816,3 +816,86 @@ def test_caption_input_dropout():
             *args, dropout=torch.Generator().manual_seed(0))
         assert not torch.equal(a, b)
         assert torch.equal(a, model.decoder.teacher_forcing(*args))
+
+
+# ----------------------------------------------------------------------
+# debug_nans (the JAX CLI's jax_debug_nans)
+# ----------------------------------------------------------------------
+
+def _small_trainer(**kw):
+    cfg = _cfg(embed_size=32, encoder_hidden=32, decoder_hidden=32, **kw)
+    feats, enc, dec, lens = _batch(seed=7)
+    arrays = (torch.from_numpy(feats), torch.from_numpy(enc).long(),
+              torch.from_numpy(dec).long(), torch.from_numpy(lens),
+              torch.zeros(B, 90))
+    return ttrain.Trainer(cfg, device="cpu"), arrays
+
+
+@pytest.mark.parametrize("plant,quantity", [("weight", "loss"),
+                                            ("grad_norm", "grad_norm")])
+def test_debug_nans_raises_at_the_first_non_finite_value(plant, quantity):
+    """A NaN planted in a weight makes the loss the first non-finite
+    value; an infinite gradient norm (the optimizer's return replaced)
+    is named when the loss is finite.  The message names the step."""
+    trainer, arrays = _small_trainer(debug_nans=True)
+    trainer.run_step_arrays(arrays)                 # step 0 is finite
+    if plant == "weight":
+        with torch.no_grad():
+            trainer.model.decoder.rnn_logits.bias[3] = float("nan")
+    else:
+        step = trainer.optimizer.step
+        trainer.optimizer.step = lambda grads: step(grads) * float("inf")
+        trainer.train_step = ttrain.make_train_step(
+            trainer.model, trainer.optimizer, trainer.cfg)
+    with pytest.raises(FloatingPointError,
+                       match=rf"debug_nans: {quantity} is (nan|inf) at step 1"):
+        trainer.run_step_arrays(arrays)
+    if plant == "weight":       # without the flag the step runs on
+        off, _ = _small_trainer()
+        off.model.load_state_dict(trainer.model.state_dict())
+        assert not np.isfinite(float(off.run_step_arrays(arrays)["loss"]))
+
+
+def test_debug_nans_off_adds_nothing_to_a_step():
+    """With the flag off a step dispatches exactly the operations of the
+    step function itself; with it on, the check adds its own."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    def ops(fn) -> int:
+        Count.n = 0
+        with Count():
+            fn()
+        return Count.n
+
+    counts = {}
+    for name, flag in (("off", False), ("direct", False), ("on", True)):
+        t, arrays = _small_trainer(debug_nans=flag)
+        if name == "direct":
+            counts[name] = ops(lambda: t.train_step(
+                t.host_step, *arrays, z_seed=t.next_seed(), dropout=t.dropout,
+                clusters=t.clusters, cnn_dropout=t.cnn_dropout))
+        else:
+            counts[name] = ops(lambda: t.run_step_arrays(arrays))
+    assert counts["off"] == counts["direct"], counts
+    assert counts["on"] > counts["off"], counts
+
+
+def test_cli_debug_nans_turns_on_anomaly_detection(monkeypatch):
+    seen = []
+    monkeypatch.setattr(tcli, "run_training",
+                        lambda cfg, device: seen.append(
+                            (cfg.debug_nans, torch.is_anomaly_enabled())))
+    try:
+        tcli.main(["--mode", "training", "--device", "cpu",
+                   "--set", "debug_nans=True"])
+        tcli.main(["--mode", "training", "--device", "cpu"])
+    finally:
+        torch.autograd.set_detect_anomaly(False)
+    assert seen[0] == (True, True)

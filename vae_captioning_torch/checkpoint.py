@@ -10,7 +10,7 @@ A checkpoint ``<directory>/<name>/`` holds
 * ``params.npz``: the model parameters as numpy arrays keyed by their
   Flax path (``"decoder/lstm/cell_0/kernel"``), which go through the
   bridge into the port's modules; inference and :func:`load_model` read
-  it;
+  it (or, where it is missing, the newest train state's parameters);
 * ``<step>/state.npz`` + ``<step>/state.json``: the train state at a
   step, in the port's own format (an Orbax file cannot be read without
   JAX), written by :class:`Checkpointer`, which keeps the newest
@@ -80,7 +80,14 @@ def save_params(params: Mapping[str, Any], directory: str,
 
 
 def load_params(directory: str, name: str = "last_run") -> Dict[str, np.ndarray]:
+    """The parameters of ``<directory>/<name>/params.npz``, or, in a
+    checkpoint that holds only train states (:class:`Checkpointer`), of
+    the newest one.  FileNotFoundError when there is neither."""
     path = os.path.join(directory, name, PARAMS_FILE)
+    if not os.path.exists(path) and os.path.isdir(os.path.dirname(path)):
+        state = Checkpointer(directory, name).restore()
+        return {k[len("params/"):]: v for k, v in state.arrays.items()
+                if k.startswith("params/")}
     with np.load(path) as data:
         return {k: data[k] for k in data.files}
 

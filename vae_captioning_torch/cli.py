@@ -9,6 +9,11 @@ counterpart of ``vae_captioning_tpu/cli.py``.
   eval_metrics=True`` each epoch also prints val CIDEr-D, BLEU-4,
   ROUGE-L and METEOR_es (``inference.make_quality_hook``); with
   ``--fine_tune`` the model trains end to end through VGG16 on images.
+  With ``--set multihost=True`` under ``torchrun`` each process is one
+  rank of a data-parallel group (``parallel/``): NCCL where each rank
+  has a GPU of its own, gloo otherwise; rank 0 writes the checkpoint.
+  ``--set debug_nans=True`` raises at the first non-finite loss, metric
+  or gradient norm and turns on autograd's anomaly detection.
   Configurations the train slice does not cover raise
   NotImplementedError (``train.check_supported_training``).
 * ``--mode inference``: restore a checkpoint (``checkpoint.py``), decode
@@ -35,6 +40,7 @@ from vae_captioning_torch.config import Config, parse_args
 from vae_captioning_torch.data.dataset import Data
 from vae_captioning_torch.inference import (check_supported,
                                             make_quality_hook, run_inference)
+from vae_captioning_torch.parallel import mesh
 from vae_captioning_torch.train import Trainer, check_supported_training
 
 
@@ -42,13 +48,17 @@ def run_training(cfg: Config, device: torch.device,
                  data: Optional[Data] = None) -> Trainer:
     check_supported_training(cfg)
     if data is None:
-        data = Data(cfg, extract_features=not cfg.fine_tune, device=device)
+        # rank 0 writes the caches, the other ranks then read them
+        data = mesh.rank_zero_first(lambda: Data(
+            cfg, extract_features=not cfg.fine_tune, device=device))
     trainer = Trainer(cfg, vocab_size=data.vocab.vocab_size, device=device)
-    save_sidecars(cfg, data.vocab, cfg.checkpoint_dir, cfg.checkpoint)
+    if trainer.is_main:
+        save_sidecars(cfg, data.vocab, cfg.checkpoint_dir, cfg.checkpoint)
     ckpt = Checkpointer(cfg.checkpoint_dir, cfg.checkpoint,
                         cfg.max_checkpoints_to_keep)
     if cfg.restore and ckpt.latest_step() is not None:
-        print(f"Restoring from checkpoint step {ckpt.latest_step()}")
+        if trainer.is_main:
+            print(f"Restoring from checkpoint step {ckpt.latest_step()}")
         trainer.restore_from(ckpt)
     quality_hook = None
     if cfg.eval_metrics:
@@ -62,6 +72,9 @@ def run_training(cfg: Config, device: torch.device,
 
 def run_inference_mode(cfg: Config, device: torch.device,
                        data: Optional[Data] = None) -> Dict[str, str]:
+    if cfg.multihost:
+        raise NotImplementedError("not ported yet: multihost decoding (the "
+                                  "images split over ranks): ROADMAP A.9 rest")
     # the training-time config gives the model's shape; decode flags and
     # paths come from this run
     saved_cfg, vocab = load_sidecars(cfg.checkpoint_dir, cfg.checkpoint)
@@ -94,10 +107,18 @@ def main(argv=None) -> None:
     known, rest = pre.parse_known_args(argv)
     cfg = parse_args(rest)
     device = torch.device(known.device)
-    if cfg.mode == "training":
-        run_training(cfg, device)
-    else:
-        run_inference_mode(cfg, device)
+    if cfg.multihost and cfg.mode == "training":
+        device = mesh.initialize_multihost(device)
+    if cfg.debug_nans:
+        torch.autograd.set_detect_anomaly(True)
+    try:
+        if cfg.mode == "training":
+            run_training(cfg, device)
+        else:
+            run_inference_mode(cfg, device)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

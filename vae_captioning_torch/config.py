@@ -111,12 +111,14 @@ class Config:
 
     # --- knobs of the JAX package (no reference equivalent) ---
     seed: int = 42
-    compute_dtype: str = "bfloat16"  # the port runs bfloat16 only (D.2)
+    compute_dtype: str = "bfloat16"  # the port runs bfloat16 only (A.11)
     bucket_multiple: int = 8    # pad caption length to a multiple of this
     extract_batch_size: int = 64  # VGG16 feature-extraction batch
     mesh_axis: str = "dp"       # JAX: data-parallel mesh axis name
     profile: bool = False       # JAX: profiler traces (port: ROADMAP A.10)
-    debug_nans: bool = False
+    debug_nans: bool = False    # raise at the first non-finite loss,
+                                # metric or grad norm (Trainer); the CLI
+                                # also turns on autograd anomaly detection
     # the fused CE schedules, at most one set (ops/fused_ce.py): fused_ce
     # is the flash CE (the [M, V] logits never reach memory); ce_hybrid
     # writes the bf16 logits once and folds the reductions into the
@@ -148,10 +150,11 @@ class Config:
     gmm_true_kl: bool = False   # GMM prior only: the true mixture KL in
                                 # place of the reference's placeholder
                                 # standard-normal KL
-    multihost: bool = False     # JAX: multi-host training (port: A.9)
+    multihost: bool = False     # data-parallel training over the ranks
+                                # torchrun starts (parallel/)
     image_size: int = 224       # fine-tune input resolution
     ckpt_every_steps: int = 0   # >0: a checkpoint every N steps as well
-    eval_metrics: bool = False  # per-epoch BLEU/CIDEr-D (port: A.6.4)
+    eval_metrics: bool = False  # per-epoch BLEU/CIDEr-D/ROUGE-L/METEOR
     optax_flatten: bool = False  # JAX: one flat optimizer vector
     prefetch_batches: int = 2   # host-side batch-assembly lookahead on a
                                 # background thread (0 = inline)

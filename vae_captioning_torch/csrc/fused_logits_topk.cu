@@ -14,11 +14,16 @@
 //   _sample_kernel, through fused_logits_sample:
 //     token = argmax_v(logits_v * inv_temp + G_v),  G = -log(-log(u))
 //
+// and, for lists longer than 16 (beams of 17 and more), the same product
+// with the logits stored, bf16 or int8, for the top-k + logsumexp kernel
+// over written logits (topk_lse.cu) to take (vct_fused_logits_write*).
+//
 // h [M,H] bf16 and the head transposed, w_t [V,H] bf16 (W^T, contiguous:
 // the decode stores the head so), b [V] f32; hq [M,H] int8 with per-row
 // scales hs [M] f32, wq_t [V,H] int8 with per-column scales ws [V] f32 ->
 // vals [M,k] f32 (raw logits, bias included), idx [M,k] int32, lse [M]
-// f32, for 1 <= k <= 16; the sampler -> tokens [M] int32.
+// f32, for 1 <= k <= 16; the sampler -> tokens [M] int32; the writer ->
+// logits [M, V] f32.
 //
 // What bounds it on this card: tensor-core operations, 2·M·H·V (18 GFLOP at
 // M = 1536, H = 512, V = 11500: 0.018 ms at the dense bf16 rate, 0.009 in
@@ -71,6 +76,11 @@
 //   list of K are the top k.
 // * The sampler is the same kernel with K = 1 over the scored values
 //   logit * inv_temp + G and no logsumexp.
+// * The logits writer is the same kernel again, its fold replaced by a
+//   store of each accumulator pair's two logits (8 bytes; a row's 4 lanes
+//   write 32 contiguous bytes) into [M, V] f32, and no merge launch.  It
+//   writes what the fold would have seen: bf16 acc + b, and the int8
+//   logit bit for bit as int8_logits computes it.
 //
 // The sampler's noise: Philox-4x32-10 keyed on (seed, step), element
 // (row m, column v) is word v % 4 of the block with counter
@@ -151,11 +161,13 @@ __device__ __forceinline__ void put(int& d, float x) { d = __float_as_int(x); }
 
 struct RawLogit {
   static constexpr bool kLse = true;
+  static constexpr bool kWrite = false;
   __device__ __forceinline__ void pair(float&, float&, int, int) const {}
 };
 
 struct GumbelScore {
   static constexpr bool kLse = false;
+  static constexpr bool kWrite = false;
   uint32_t seed, step;
   float inv_temp;
   int row0;
@@ -173,6 +185,14 @@ struct GumbelScore {
     x0 = __fadd_rn(__fmul_rn(x0, inv_temp), g0);
     x1 = __fadd_rn(__fmul_rn(x1, inv_temp), g1);
   }
+};
+
+// the logits stored, [M, V] f32 (row stride V), in place of the fold
+struct WriteLogits {
+  static constexpr bool kLse = false;
+  static constexpr bool kWrite = true;
+  float* out;
+  __device__ __forceinline__ void pair(float&, float&, int, int) const {}
 };
 
 struct Parts {
@@ -239,6 +259,26 @@ logits_topk_kernel(const __grid_constant__ CUtensorMap h_map,
     // RG = 1: this warpgroup's half of the last tile may lie past V
     if (v0 >= V) continue;
 
+    if constexpr (Score::kWrite) {
+#pragma unroll
+      for (int n = 0; n < NW / 8; ++n)
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii) {
+          const int c = cb + 8 * n;
+          if (row[ii] >= M || c >= V) continue;
+          const float x0 = Logit::value(acc[4 * n + 2 * ii], rs[ii], col[2 * n]);
+          const float x1 = Logit::value(acc[4 * n + 2 * ii + 1], rs[ii], col[2 * n + 1]);
+          float* o = score.out + static_cast<size_t>(row[ii]) * V + c;
+          if (c + 1 < V && V % 2 == 0) {
+            *reinterpret_cast<float2*>(o) = make_float2(x0, x1);
+          } else {
+            o[0] = x0;
+            if (c + 1 < V) o[1] = x1;
+          }
+        }
+      continue;
+    }
+
     // logits (and the sampler's scores) in place
 #pragma unroll
     for (int n = 0; n < NW / 8; ++n)
@@ -284,6 +324,8 @@ logits_topk_kernel(const __grid_constant__ CUtensorMap h_map,
           top[ii].push_ascending(8 * n + j < lim ? as_f(acc[4 * n + 2 * ii + j]) : -INFINITY,
                                  cb + 8 * n + j);
   }
+
+  if constexpr (Score::kWrite) return;
 
   // the row's 4 lanes share its running max: their sum-exp is summed and
   // their lists merged by shuffles, and one lane writes
@@ -403,7 +445,7 @@ int launch(const Launch& a, const Logit& logit, const Score& score) {
   logits_topk_kernel<Logit, RG, RES, BOXES, Score, K><<<grid, THREADS, L.smem, a.st>>>(
       a.h_map, a.w_map, logit, score, a.part, a.M, a.V, a.boxes, a.chunk_tiles);
   err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
+  if (err || Score::kWrite) return err;
   const int P = a.chunks * (RG == 1 ? 2 : 1);
   logits_topk_merge_kernel<K, Score::kLse>
       <<<(a.M * MERGE_LANES + MERGE_THREADS - 1) / MERGE_THREADS, MERGE_THREADS, 0, a.st>>>(
@@ -412,21 +454,21 @@ int launch(const Launch& a, const Logit& logit, const Score& score) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// the block shape: 128 rows resident (top-k lists of up to 10), 64 rows
-// resident, or 64 rows streamed (128-row sampler blocks spilled: its
-// Philox words beside 64 accumulators); the decode's own blocks (128 rows
-// of top-k, 64 of the sampler) at the decode's width with the box count at
-// compile time
+// the block shape: 128 rows resident (top-k lists of up to 10, and the
+// logits writer), 64 rows resident, or 64 rows streamed (128-row sampler
+// blocks spilled: its Philox words beside 64 accumulators); the decode's
+// own blocks (128 rows of top-k and of the writer, 64 of the sampler) at
+// the decode's width with the box count at compile time
 template <class Logit, class Score, int K>
 int launch_rows(const Launch& a, const Logit& logit, const Score& score) {
   constexpr int B = Logit::BOXES;
   if (a.rows == 128 && a.resident) {
-    if constexpr (K <= 10 && Score::kLse)
+    if constexpr (K <= 10 && (Score::kLse || Score::kWrite))
       return a.boxes == B ? launch<Logit, 2, true, B, Score, K>(a, logit, score)
                           : launch<Logit, 2, true, 0, Score, K>(a, logit, score);
   } else if (a.rows == 64) {
     if (!a.resident) return launch<Logit, 1, false, 0, Score, K>(a, logit, score);
-    if constexpr (!Score::kLse) {
+    if constexpr (!Score::kLse && !Score::kWrite) {
       if (a.boxes == B) return launch<Logit, 1, true, B, Score, K>(a, logit, score);
     }
     return launch<Logit, 1, true, 0, Score, K>(a, logit, score);
@@ -534,6 +576,48 @@ extern "C" int vct_fused_logits_top_k_int8(
   if (err) return err;
   return launch_top_k(a, S8Logit{static_cast<const float*>(hs), static_cast<const float*>(ws),
                                  static_cast<const float*>(b)});
+}
+
+// The logits written for lists past 16: logits [M, V] f32 = h W + b, as
+// the bf16 top-k's fold sees them; the block shape and chunks of lists of
+// one (k = 1 in vct_fused_logits_top_k_block and chunk_plan).
+extern "C" int vct_fused_logits_write(const void* h, const void* w_t, const void* b,
+                                      void* logits, int M, int H, int V, int rows,
+                                      int resident, int chunk_tiles, int chunks,
+                                      void* stream) {
+  if (M <= 0) return 0;
+  if (H <= 0 || H % 32 != 0 || bad_plan(M, V, rows, resident, chunk_tiles, chunks))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Launch a = plan_args(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, M, V,
+                       (H * 2 + 127) / 128, rows, resident, chunk_tiles, chunks, 1, stream);
+  int err = row_tile_map(&a.h_map, static_cast<const bf16*>(h), M, H);
+  if (err) return err;
+  err = row_tile_map(&a.w_map, static_cast<const bf16*>(w_t), V, H, TV);
+  if (err) return err;
+  return launch_rows<Bf16Logit, WriteLogits, 1>(a, Bf16Logit{static_cast<const float*>(b)},
+                                                WriteLogits{static_cast<float*>(logits)});
+}
+
+// The int8 logits written: logits [M, V] f32 = (f32(hq wq) hs) ws + b, bit
+// for bit; operands as vct_fused_logits_top_k_int8, plan as
+// vct_fused_logits_write.
+extern "C" int vct_fused_logits_write_int8(const void* hq, const void* hs, const void* wq_t,
+                                           const void* ws, const void* b, void* logits,
+                                           int M, int H, int V, int rows, int resident,
+                                           int chunk_tiles, int chunks, void* stream) {
+  if (M <= 0) return 0;
+  if (H <= 0 || H % 64 != 0 || bad_plan(M, V, rows, resident, chunk_tiles, chunks))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Launch a = plan_args(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, M, V,
+                       (H + 127) / 128, rows, resident, chunk_tiles, chunks, 1, stream);
+  int err = s8_tile_map(&a.h_map, static_cast<const signed char*>(hq), M, H);
+  if (err) return err;
+  err = s8_tile_map(&a.w_map, static_cast<const signed char*>(wq_t), V, H, TV);
+  if (err) return err;
+  return launch_rows<S8Logit, WriteLogits, 1>(
+      a, S8Logit{static_cast<const float*>(hs), static_cast<const float*>(ws),
+                 static_cast<const float*>(b)},
+      WriteLogits{static_cast<float*>(logits)});
 }
 
 // One Gumbel-max draw per row: tokens [M] int32.  Workspace part_vals and

@@ -90,8 +90,13 @@ class FeatureExtractor:
         load_flax_params(self.model, load_npz_weights(weights_path))
         self.model.to(self.device).eval()
 
-    @torch.inference_mode()
     def __call__(self, images: np.ndarray) -> np.ndarray:
+        return self.features(images).cpu().numpy()
+
+    @torch.inference_mode()
+    def features(self, images: np.ndarray) -> torch.Tensor:
+        """fc2 [N, 4096] f32 of ``images``, left on ``device`` (the
+        single-image API decodes from it there)."""
         n, bs = len(images), self.batch_size
         out = torch.empty((n, 4096), dtype=torch.float32, device=self.device)
         for start in range(0, n, bs):
@@ -101,7 +106,7 @@ class FeatureExtractor:
                 chunk = np.concatenate([chunk, pad])
             fc2 = self.model(torch.from_numpy(chunk).to(self.device))
             out[start:start + bs] = fc2[:n - start]
-        return out.cpu().numpy()
+        return out
 
 
 def extract_features_from_dir(

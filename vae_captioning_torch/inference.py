@@ -10,6 +10,9 @@ Every decode step runs the fused LSTM step kernel, then one of:
 * the fused logits + top-k (k = beam, or 1 for greedy), the default;
 * its int8 variant under ``Config.decode_int8`` (approximate: h and the
   logits head quantised to int8, the head once per build);
+* for beams wider than those kernels' lists of 16, either of them with
+  its fold replaced by a store of the f32 logits, then the exact top-k +
+  logsumexp kernel over them (``ops/fused_logits_topk.py``: ``K_MAX``);
 * the fused Gumbel-max sampler for ``sample_gen="sample"``
   (``Config.temperature``), keyed on one 32-bit seed per decode call,
   drawn from the decode's generator, and the step index;

@@ -231,7 +231,8 @@ def compute_loss(outputs: Dict[str, torch.Tensor], labels: torch.Tensor,
                  cluster_sigma: float = 0.1, annealing=1.0,
                  logits_params: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                  gmm_true_kl: bool = False, ag_kl_sum: bool = False,
-                 time_major: bool = True, ce_fn: Optional[Callable] = None
+                 time_major: bool = True, ce_fn: Optional[Callable] = None,
+                 counts: Optional[Tuple[float, float]] = None
                  ) -> Dict[str, torch.Tensor]:
     """Masked CE + the prior's KL + annealing → the lower bound.
 
@@ -248,10 +249,14 @@ def compute_loss(outputs: Dict[str, torch.Tensor], labels: torch.Tensor,
     ``gmm_true_kl``, else, as the reference's placeholder, the
     standard-normal KL, which the Normal prior takes.  ``labels`` is [T,
     B·K] when the forward ran ``time_major`` (as the train step runs
-    it), else [B·K, T]."""
+    it), else [B·K, T].  ``counts``, where given, are the means' divisors
+    (tokens of the CE, rows of the KL) in place of this batch's own: on
+    data-parallel ranks, the global batch's (``parallel/kernel_shard.py``),
+    so each rank's loss is its share of the global loss."""
+    tokens, rows = (None, None) if counts is None else counts
     if "hidden" in outputs:
         w, b = logits_params
-        rec_loss = linear_ce(outputs["hidden"], w, b, labels, ce_fn)
+        rec_loss = linear_ce(outputs["hidden"], w, b, labels, ce_fn, tokens)
     else:
         logits = outputs["logits"]
         m = logits.detach().amax(dim=-1, keepdim=True)
@@ -260,7 +265,9 @@ def compute_loss(outputs: Dict[str, torch.Tensor], labels: torch.Tensor,
         label_logit = torch.gather(logits, -1, labels.long().unsqueeze(-1))
         ce = lse - label_logit[..., 0].float()
         mask = (labels != 0).float()
-        rec_loss = (ce * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        rec_loss = (ce * mask).sum() / (
+            torch.clamp(mask.sum(), min=1.0) if tokens is None
+            else max(tokens, 1.0))
     # rows that are all padding do not count in the KL either
     row_mask = (labels != 0).any(dim=0 if time_major else -1)
     if no_encoder:
@@ -268,13 +275,14 @@ def compute_loss(outputs: Dict[str, torch.Tensor], labels: torch.Tensor,
     elif prior == "AG":
         kld = dist.kl_ag(outputs["q_mean"], outputs["q_std"], outputs["c_v"],
                          cluster_means, cluster_sigma, row_mask=row_mask,
-                         reduce="sum" if ag_kl_sum else "mean")
+                         reduce="sum" if ag_kl_sum else "mean", rows=rows)
     elif prior == "GMM" and gmm_true_kl:
         kld = dist.kl_gmm(outputs["q_mean"], outputs["q_std"], outputs["c_v"],
-                          cluster_means, cluster_sigma, row_mask=row_mask)
+                          cluster_means, cluster_sigma, row_mask=row_mask,
+                          rows=rows)
     else:
         kld = dist.kl_standard_normal(outputs["q_mean"], outputs["q_std"],
-                                      row_mask=row_mask)
+                                      row_mask=row_mask, rows=rows)
     annealing = torch.as_tensor(annealing, dtype=torch.float32,
                                 device=labels.device)
     return {"loss": rec_loss + annealing * kld / 10.0, "rec_loss": rec_loss,

@@ -38,8 +38,7 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
-from vae_captioning_torch.ops.fused_logits_topk import stable_top_k
-from vae_captioning_torch.ops.topk_lse import top_k_logsumexp
+from vae_captioning_torch.ops.topk_lse import stable_top_k, top_k_logsumexp
 
 NEG_INF = -1.0e9
 # ln(1e-12), the reference's zero-probability skip threshold

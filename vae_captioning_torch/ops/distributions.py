@@ -38,29 +38,36 @@ def sample_gaussian(mean: torch.Tensor, std, num_samples: int,
 
 
 def _masked_mean(per_example: torch.Tensor,
-                 row_mask: Optional[torch.Tensor]) -> torch.Tensor:
+                 row_mask: Optional[torch.Tensor],
+                 rows: Optional[float] = None) -> torch.Tensor:
+    """The mean over rows, over the rows of ``row_mask`` where given;
+    ``rows`` replaces the mask's count as the divisor (the data-parallel
+    step's global count, ``parallel/kernel_shard.py``)."""
     if row_mask is None:
         return per_example.mean()
     row_mask = row_mask.to(per_example.dtype)
-    return ((per_example * row_mask).sum()
-            / torch.clamp(row_mask.sum(), min=1.0))
+    total = torch.clamp(row_mask.sum(), min=1.0) if rows is None \
+        else max(rows, 1.0)
+    return (per_example * row_mask).sum() / total
 
 
 def kl_standard_normal(mean: torch.Tensor, std: torch.Tensor,
-                       row_mask: Optional[torch.Tensor] = None
-                       ) -> torch.Tensor:
+                       row_mask: Optional[torch.Tensor] = None,
+                       rows: Optional[float] = None) -> torch.Tensor:
     """KL(q(z) || N(0, I)), batch-mean scalar:
     −0.5 · mean_B Σ_L (1 + log(σ² + 1e-5) − μ² − σ²).  ``row_mask``
-    excludes padding rows from the mean."""
+    excludes padding rows from the mean (``rows``, where given, is its
+    divisor, as in the other KLs)."""
     inner = (1.0 + torch.log(std.square() + _EPS_LOG)
              - mean.square() - std.square())
-    return _masked_mean(-0.5 * inner.sum(dim=-1), row_mask)
+    return _masked_mean(-0.5 * inner.sum(dim=-1), row_mask, rows)
 
 
 def kl_ag(mean: torch.Tensor, std: torch.Tensor, c_v: torch.Tensor,
           cluster_means: torch.Tensor, cluster_sigma: float = 0.1,
           row_mask: Optional[torch.Tensor] = None,
-          reduce: str = "mean") -> torch.Tensor:
+          reduce: str = "mean", rows: Optional[float] = None
+          ) -> torch.Tensor:
     """Additive-Gaussian KL: per dimension 0.5 + log(σ_q + 1e-5) −
     log(σ_c + 1e-5) − ((μ_q − c_v·μ_k)² + σ_q²) / (2σ_c² + 1e-7), then
     −0.5 · Σ_dims per example.  ``reduce="mean"`` (the JAX package's
@@ -76,7 +83,7 @@ def kl_ag(mean: torch.Tensor, std: torch.Tensor, c_v: torch.Tensor,
              / (2.0 * sig_c.square() + _EPS_DIV))
     per_example = -0.5 * inner.sum(dim=-1)
     if reduce == "mean":
-        return _masked_mean(per_example, row_mask)
+        return _masked_mean(per_example, row_mask, rows)
     if row_mask is None:
         return per_example.sum()
     return (per_example * row_mask.to(per_example.dtype)).sum()
@@ -103,7 +110,8 @@ def sample_clusters(c_v: torch.Tensor,
 
 def kl_gmm(mean: torch.Tensor, std: torch.Tensor, c_v: torch.Tensor,
            cluster_means: torch.Tensor, cluster_sigma: float = 0.1,
-           row_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+           row_mask: Optional[torch.Tensor] = None,
+           rows: Optional[float] = None) -> torch.Tensor:
     """The GMM-prior KL bound of Hershey & Olsen (``Config.gmm_true_kl``):
     per row −log Σ_k w_k exp(−KL(q ‖ N(μ_k, σ_c² I))), the mixture weights
     w the row's c_v normalised (uniform for an all-zero row), then the
@@ -124,7 +132,7 @@ def kl_gmm(mean: torch.Tensor, std: torch.Tensor, c_v: torch.Tensor,
     kl_k = base[:, None] + torch.clamp(d2, min=0.0) / (2.0 * var_c)
     per_example = -torch.logsumexp(torch.log(torch.clamp(w, min=1e-30)) - kl_k,
                                    dim=-1)
-    return _masked_mean(per_example, row_mask)
+    return _masked_mean(per_example, row_mask, rows)
 
 
 def kl_annealing(step: int, ann_param: float,

@@ -652,16 +652,19 @@ def fused_linear_ce_xla_bwd_plain(h, w, b, labels, weights) -> torch.Tensor:
 
 
 def linear_ce(hidden: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-              labels: torch.Tensor, ce_fn: Optional[CEFn] = None
-              ) -> torch.Tensor:
+              labels: torch.Tensor, ce_fn: Optional[CEFn] = None,
+              tokens: Optional[float] = None) -> torch.Tensor:
     """The PAD-masked mean CE through ``ce_fn`` (by default
     :func:`fused_linear_ce`): hidden [..., H] and labels [...] in the
     same layout (time-major [T, B·K] in the train step) are flattened to
     rows, and each row weighs mask / max(Σ mask, 1), mask = labels != 0.
-    This is the JAX package's ``kernel_shard.linear_ce`` on one device,
-    where the row order does not depend on the batch axis."""
+    This is the JAX package's ``kernel_shard.linear_ce``: its row order
+    does not depend on the batch axis, and ``tokens``, where given,
+    replaces Σ mask: the global count over data-parallel ranks (its
+    psummed ``total``)."""
     ce_fn = fused_linear_ce if ce_fn is None else ce_fn
     lab = labels.reshape(-1)
     mask = (lab != 0).float()
-    weights = mask / torch.clamp(mask.sum(), min=1.0)
+    weights = mask / (torch.clamp(mask.sum(), min=1.0) if tokens is None
+                      else max(tokens, 1.0))
     return ce_fn(hidden.reshape(-1, hidden.shape[-1]), w, b, lab, weights)

@@ -19,7 +19,12 @@ bits in integer ops.
 On CUDA tensors the wrappers launch ``csrc/fused_logits_topk.cu`` (a
 wgmma + TMA partial kernel over vocab chunks, then a merge launch), which
 never stores the [M, V] logits; on CPU tensors they take the plain
-versions.  The kernels read the head transposed, W^T [V, H] contiguous:
+versions.  The kernels' lists hold at most ``K_MAX`` = 16 entries: for a
+wider k (beams of 17 and more) the top-k wrappers launch the same kernel
+with its fold replaced by a store of the f32 logits (bf16: acc + b; int8
+bit for bit as :func:`int8_logits`), counted as the wrapper's launch, and
+take the top-k + logsumexp kernel over them (``ops/topk_lse.py``), which
+counts its own.  The kernels read the head transposed, W^T [V, H] contiguous:
 the decode stores it so (``w.t().contiguous().t()``, once per build), and
 the wrappers pass ``w.t().contiguous()``, which copies nothing for that
 layout and transposes any other.
@@ -34,13 +39,14 @@ import torch
 
 from vae_captioning_torch import _ext
 from vae_captioning_torch.ops.fused_z import philox4x32
+from vae_captioning_torch.ops.topk_lse import stable_top_k, top_k_logsumexp
 
 NAME = "fused_logits_top_k"
 INT8 = "fused_logits_top_k_int8"
 SAMPLE = "fused_logits_sample"
 SAMPLE_TAG = 0x53414D50  # last counter word of the sampler's stream
 _MASK32 = 0xFFFFFFFF
-K_MAX = 16
+K_MAX = 16               # the fused kernels' longest list
 _TV = 128                # vocab columns of a tile
 _LIST_K = (1, 3, 10, 16)  # the kernels' list lengths: k rounded up
 _WORKSPACE = 64 << 20    # the partials' bytes a plan may take
@@ -48,25 +54,25 @@ _WORKSPACE = 64 << 20    # the partials' bytes a plan may take
 Result = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
-def stable_top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k along the last axis with ties going to the lowest index (the
-    order of ``jax.lax.top_k``; ``torch.topk`` promises no tie order)."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
-
-
-def fused_logits_top_k_plain(h: torch.Tensor, w: torch.Tensor,
-                             b: torch.Tensor, k: int,
-                             reverse_sum: bool = False) -> Result:
-    """The kernel's maths in plain PyTorch: bf16-rounded operands upcast
-    to f32, an f32 matmul plus the f32 bias, a stable sort.
+def bf16_logits(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                reverse_sum: bool = False) -> torch.Tensor:
+    """The kernel's logits [M, V] f32 in plain PyTorch: bf16-rounded
+    operands upcast to f32, an f32 matmul plus the f32 bias.
     ``reverse_sum`` sums each dot product in reverse order, the same
     maths rounded another way."""
     hf = h.to(torch.bfloat16).float()
     wf = w.to(torch.bfloat16).float()
     if reverse_sum:
         hf, wf = hf.flip(-1), wf.flip(0)
-    logits = hf @ wf + b.float()
+    return hf @ wf + b.float()
+
+
+def fused_logits_top_k_plain(h: torch.Tensor, w: torch.Tensor,
+                             b: torch.Tensor, k: int,
+                             reverse_sum: bool = False) -> Result:
+    """The kernel's maths in plain PyTorch: :func:`bf16_logits`, a stable
+    sort."""
+    logits = bf16_logits(h, w, b, reverse_sum)
     vals, idx = stable_top_k(logits, k)
     return vals, idx.to(torch.int32), torch.logsumexp(logits, dim=-1)
 
@@ -152,12 +158,34 @@ def _plan_args(plan: LogitsPlan) -> tuple:
     return plan.rows, int(plan.resident), plan.chunk_tiles, plan.chunks
 
 
+def _write_logits(name: str, M: int, H: int, V: int, elem_bytes: int,
+                  dev, ptrs: tuple, plan: LogitsPlan = None) -> torch.Tensor:
+    """The kernel's logits [M, V] f32, stored by its writer instance
+    (``vct_fused_logits_write``, or ``_int8`` where ``elem_bytes`` is 1)
+    over the operands' pointers ``ptrs``; ``plan`` defaults to
+    :func:`logits_plan`'s for lists of one."""
+    logits = torch.empty((M, V), dtype=torch.float32, device=dev)
+    if M:
+        plan = plan or logits_plan(M, H, V, 1, elem_bytes,
+                                   _ext.sm_count(dev.index or 0))
+        lib = _ext.library()
+        fn = lib.vct_fused_logits_write_int8 if elem_bytes == 1 \
+            else lib.vct_fused_logits_write
+        with _ext.device_scope(dev):
+            err = fn(*ptrs, logits.data_ptr(), M, H, V, *_plan_args(plan),
+                     _ext.stream_ptr(dev))
+        _ext.check_launch(err, name)
+        _ext.LAUNCHES[name] += 1
+    return logits
+
+
 def fused_logits_top_k(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                        k: int) -> Result:
     """h [M,H] bf16, w [H,V] bf16 (any layout; the kernel reads ``w.t()``
     contiguous, as the decode stores it), b [V] f32 → (values [M,k] f32,
-    indices [M,k] int32, logsumexp [M] f32), 1 <= k <= 16.  CPU tensors
-    take the plain version; CUDA tensors launch the kernel or raise.  No
+    indices [M,k] int32, logsumexp [M] f32), 1 <= k <= V.  CPU tensors
+    take the plain version; CUDA tensors launch the kernel (past K_MAX,
+    the logits written and the top-k + logsumexp kernel) or raise.  No
     backward: raises RuntimeError when grad mode is on and an input
     requires grad."""
     _ext.forbid_grad(NAME, h, w, b)
@@ -188,10 +216,15 @@ def logits_top_k_kernel(h: torch.Tensor, w_t: torch.Tensor, b: torch.Tensor,
                         k: int, plan: LogitsPlan = None) -> Result:
     """The bf16 kernel on the head transposed: h [M,H] bf16, w_t [V,H]
     bf16 contiguous, b [V] f32, all on one CUDA device; ``plan`` defaults
-    to :func:`logits_plan`'s."""
+    to :func:`logits_plan`'s.  Past K_MAX: the kernel writes the logits
+    (with ``plan``, where given, as its launch), then ``top_k_logsumexp``."""
     M, H, V = _check_bf16(NAME, h, w_t, b)
-    _ext.require(1 <= k <= min(K_MAX, V), f"{NAME}: k={k} outside [1, {K_MAX}]")
+    _ext.require(1 <= k <= V, f"{NAME}: k={k} outside [1, V={V}]")
     dev = h.device
+    if k > K_MAX:
+        return top_k_logsumexp(_write_logits(
+            NAME, M, H, V, 2, dev,
+            (h.data_ptr(), w_t.data_ptr(), b.data_ptr()), plan), k)
     vals = torch.empty((M, k), dtype=torch.float32, device=dev)
     idx = torch.empty((M, k), dtype=torch.int32, device=dev)
     lse = torch.empty((M,), dtype=torch.float32, device=dev)
@@ -206,6 +239,17 @@ def logits_top_k_kernel(h: torch.Tensor, w_t: torch.Tensor, b: torch.Tensor,
         _ext.check_launch(err, NAME)
         _ext.LAUNCHES[NAME] += 1
     return vals, idx, lse
+
+
+def logits_kernel(h: torch.Tensor, w_t: torch.Tensor, b: torch.Tensor,
+                  plan: LogitsPlan = None) -> torch.Tensor:
+    """The bf16 kernel's logits written, [M, V] f32 (its accumulators plus
+    b: :func:`bf16_logits` to sum order), operands as
+    :func:`logits_top_k_kernel`'s; what that function hands the top-k +
+    logsumexp kernel past K_MAX."""
+    M, H, V = _check_bf16(NAME, h, w_t, b)
+    return _write_logits(NAME, M, H, V, 2, h.device,
+                         (h.data_ptr(), w_t.data_ptr(), b.data_ptr()), plan)
 
 
 # ----------------------------------------------------------------------
@@ -234,14 +278,20 @@ def quantize_rows(h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return hq.to(torch.int8).contiguous(), hs
 
 
+def int8_logits(hq: torch.Tensor, hs: torch.Tensor, wq: torch.Tensor,
+                ws: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The int8 kernel's logits [M, V] f32 in plain PyTorch: f32(hq @ wq)
+    · hs · ws + b, each product rounded on its own (the integer product
+    is exact in float64: |acc| <= 127² · H)."""
+    acc = (hq.double() @ wq.double()).float()
+    return acc * hs * ws[None, :] + b.float()[None, :]
+
+
 def int8_top_k_plain(hq: torch.Tensor, hs: torch.Tensor, wq: torch.Tensor,
                      ws: torch.Tensor, b: torch.Tensor, k: int) -> Result:
     """The int8 kernel's maths on quantised rows in plain PyTorch:
-    f32(hq @ wq) · hs · ws + b, each product rounded on its own (the
-    integer product is exact in float64: |acc| <= 127² · H), a stable
-    sort."""
-    acc = (hq.double() @ wq.double()).float()
-    logits = acc * hs * ws[None, :] + b.float()[None, :]
+    :func:`int8_logits`, a stable sort."""
+    logits = int8_logits(hq, hs, wq, ws, b)
     vals, idx = stable_top_k(logits, k)
     return vals, idx.to(torch.int32), torch.logsumexp(logits, dim=-1)
 
@@ -261,9 +311,10 @@ def fused_logits_top_k_int8(h: torch.Tensor, wq: torch.Tensor,
     """h [M,H] float (quantised here, per row, by plain PyTorch ops, as
     the JAX package quantises outside its kernel), wq [H,V] int8 and ws
     [V] f32 from :func:`quantize_logits_weights`, b [V] f32 → (values
-    [M,k] f32, indices [M,k] int32, logsumexp [M] f32), 1 <= k <= 16.
+    [M,k] f32, indices [M,k] int32, logsumexp [M] f32), 1 <= k <= V.
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    or raise (H must be a multiple of 64)."""
+    (past K_MAX, the logits written and the top-k + logsumexp kernel) or
+    raise (H must be a multiple of 64)."""
     _ext.forbid_grad(INT8, h, wq, ws, b)
     if _ext.on_cpu(h, wq, ws, b):
         return fused_logits_top_k_int8_plain(h, wq, ws, b, k)
@@ -277,24 +328,17 @@ def int8_top_k_kernel(hq: torch.Tensor, hs: torch.Tensor, wq: torch.Tensor,
     (from :func:`quantize_rows`), wq [H,V] int8, ws and b [V] f32, all on
     one CUDA device; ``plan`` defaults to :func:`logits_plan`'s.  The
     kernel reads wq column-major, as :func:`quantize_logits_weights`
-    stores it; a row-major wq is transposed on each call."""
-    M, H = hq.shape
-    V = wq.shape[1]
-    req = _ext.require
-    req(hq.dtype == wq.dtype == torch.int8
-        and hs.dtype == ws.dtype == b.dtype == torch.float32,
-        f"{INT8}: hq and wq must be int8, hs, ws and b float32, got "
-        f"{hq.dtype}, {wq.dtype}, {hs.dtype}, {ws.dtype}, {b.dtype}")
-    req(wq.shape[0] == H and hs.numel() == M and ws.shape == b.shape == (V,),
-        f"{INT8}: shapes hq{tuple(hq.shape)} hs{tuple(hs.shape)} "
-        f"wq{tuple(wq.shape)} ws{tuple(ws.shape)} b{tuple(b.shape)} disagree")
-    req(1 <= k <= min(K_MAX, V), f"{INT8}: k={k} outside [1, {K_MAX}]")
-    req(H % 64 == 0, f"{INT8}: H={H} must be a multiple of 64")
-    wq_t = wq.t().contiguous()          # a no-op for the stored layout
-    req(all(t.is_contiguous() and t.data_ptr() % 16 == 0
-            for t in (hq, hs, wq_t, ws, b)),
-        f"{INT8}: inputs must be contiguous and 16-byte aligned")
+    stores it; a row-major wq is transposed on each call.  Past K_MAX: the
+    kernel writes the logits (bit for bit :func:`int8_logits`), then
+    ``top_k_logsumexp``."""
+    M, H, V, wq_t = _check_int8(hq, hs, wq, ws, b)
+    _ext.require(1 <= k <= V, f"{INT8}: k={k} outside [1, V={V}]")
     dev = hq.device
+    if k > K_MAX:
+        return top_k_logsumexp(_write_logits(
+            INT8, M, H, V, 1, dev, (hq.data_ptr(), hs.data_ptr(),
+                                    wq_t.data_ptr(), ws.data_ptr(),
+                                    b.data_ptr()), plan), k)
     vals = torch.empty((M, k), dtype=torch.float32, device=dev)
     idx = torch.empty((M, k), dtype=torch.int32, device=dev)
     lse = torch.empty((M,), dtype=torch.float32, device=dev)
@@ -310,6 +354,38 @@ def int8_top_k_kernel(hq: torch.Tensor, hs: torch.Tensor, wq: torch.Tensor,
         _ext.check_launch(err, INT8)
         _ext.LAUNCHES[INT8] += 1
     return vals, idx, lse
+
+
+def int8_logits_kernel(hq: torch.Tensor, hs: torch.Tensor, wq: torch.Tensor,
+                       ws: torch.Tensor, b: torch.Tensor,
+                       plan: LogitsPlan = None) -> torch.Tensor:
+    """The int8 kernel's logits written, [M, V] f32, bit for bit
+    :func:`int8_logits`; operands as :func:`int8_top_k_kernel`'s."""
+    M, H, V, wq_t = _check_int8(hq, hs, wq, ws, b)
+    return _write_logits(INT8, M, H, V, 1, hq.device,
+                         (hq.data_ptr(), hs.data_ptr(), wq_t.data_ptr(),
+                          ws.data_ptr(), b.data_ptr()), plan)
+
+
+def _check_int8(hq, hs, wq, ws, b) -> Tuple[int, int, int, torch.Tensor]:
+    """(M, H, V, wq_t) of the int8 kernel's operands, checked; wq_t [V, H]
+    contiguous (a no-op for the stored layout)."""
+    M, H = hq.shape
+    V = wq.shape[1]
+    req = _ext.require
+    req(hq.dtype == wq.dtype == torch.int8
+        and hs.dtype == ws.dtype == b.dtype == torch.float32,
+        f"{INT8}: hq and wq must be int8, hs, ws and b float32, got "
+        f"{hq.dtype}, {wq.dtype}, {hs.dtype}, {ws.dtype}, {b.dtype}")
+    req(wq.shape[0] == H and hs.numel() == M and ws.shape == b.shape == (V,),
+        f"{INT8}: shapes hq{tuple(hq.shape)} hs{tuple(hs.shape)} "
+        f"wq{tuple(wq.shape)} ws{tuple(ws.shape)} b{tuple(b.shape)} disagree")
+    req(H % 64 == 0, f"{INT8}: H={H} must be a multiple of 64")
+    wq_t = wq.t().contiguous()          # a no-op for the stored layout
+    req(all(t.is_contiguous() and t.data_ptr() % 16 == 0
+            for t in (hq, hs, wq_t, ws, b)),
+        f"{INT8}: inputs must be contiguous and 16-byte aligned")
+    return M, H, V, wq_t
 
 
 # ----------------------------------------------------------------------
@@ -354,9 +430,8 @@ def sample_scores(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                   seed: int, step: int, temperature: float = 1.0,
                   row0: int = 0) -> torch.Tensor:
     """The sampler's scored values [M, V] f32: logits · f32(1/T) + G, the
-    logits as :func:`fused_logits_top_k_plain` computes them."""
-    hf = h.to(torch.bfloat16).float()
-    logits = hf @ w.to(torch.bfloat16).float() + b.float()
+    logits of :func:`bf16_logits`."""
+    logits = bf16_logits(h, w, b)
     inv_temp = torch.tensor(1.0 / temperature, dtype=torch.float32,
                             device=logits.device)
     return logits * inv_temp + gumbel_noise(seed, step, h.shape[0],

@@ -35,7 +35,22 @@ a seed drawn from a host ``torch.Generator`` that the Trainer owns
 (seeded from ``cfg.seed``) and on the step number; the GMM head's
 cluster draws come from a device generator it owns too: no global RNG
 state is read.  The step counter lives on the host and metrics stay on
-the device until a log step reads them.
+the device until a log step reads them; under ``Config.debug_nans`` each
+step reads them once and raises ``FloatingPointError`` at the first
+non-finite loss, metric or gradient norm (:func:`check_finite`).
+
+Under ``Config.multihost`` the Trainer is one rank of a data-parallel
+group (``parallel/``, the counterpart of the JAX ``dp`` mesh): every
+rank builds the same global batch and takes its contiguous rows
+(``mesh.prepare_process_batch``), the parameters are broadcast from rank
+0 at start and after a restore, each rank's loss is its share of the
+global loss (its means divided by the global batch's counts,
+``kernel_shard.DataParallel.counts``) and the gradients are summed over
+the ranks before the clip, so a step over ranks is the step over the
+global batch.  The ranks' noise differs: the z seeds and the device
+generators are folded with the rank.  Rank 0 alone prints, logs, runs
+the quality hook and writes ``params.npz`` and the train states, which
+hold every rank's generator states.
 
 Configurations this port does not train raise NotImplementedError in
 :func:`check_supported_training`, naming their ROADMAP item; more than
@@ -65,10 +80,14 @@ from vae_captioning_torch.models.finetune import (FineTuneModel, cvae_of,
                                                   load_vgg_into_params)
 from vae_captioning_torch.models.encoder import Clusters
 from vae_captioning_torch.ops import distributions as dist
+from vae_captioning_torch.parallel import mesh
+from vae_captioning_torch.parallel.kernel_shard import SINGLE, DataParallel
 from vae_captioning_torch.utils.logging import MetricLogger
 from vae_captioning_torch.utils.prefetch import Prefetcher
 
 Arrays = Tuple[torch.Tensor, ...]   # features, enc, dec, lengths, c_v
+# the global batch's (tokens, rows) on data-parallel ranks, else None
+Counts = Optional[Tuple[float, float]]
 
 
 CE_FLAGS = ("fused_ce", "ce_hybrid", "ce_xla_bwd")
@@ -95,7 +114,6 @@ def check_supported_training(cfg: Config) -> None:
          f"compute_dtype={cfg.compute_dtype!r}: the train slice runs "
          "bfloat16 (ROADMAP A.11)"),
         (cfg.profile, "profile (a profiler trace of steps 10-20): ROADMAP A.10"),
-        (cfg.multihost, "multihost (data parallelism): ROADMAP A.9"),
     ]
     for failed, what in gates:
         if failed:
@@ -290,15 +308,21 @@ def make_finetune_optimizer(cfg: Config, model: FineTuneModel
 # ----------------------------------------------------------------------
 
 def make_train_step(model: nn.Module, optimizer, cfg: Config,
-                    ops: TrainOps = KERNEL_TRAIN_OPS) -> Callable:
+                    ops: TrainOps = KERNEL_TRAIN_OPS,
+                    dp: DataParallel = SINGLE) -> Callable:
     """``step_fn(step, features, enc, dec, lengths, c_v, z_seed,
-    dropout=None, clusters=None, cnn_dropout=None) -> metrics``: forward,
+    dropout=None, clusters=None, cnn_dropout=None, counts=None) ->
+    metrics``: forward,
     loss, backward and one optimizer update in place.  ``features`` are
     fc2 features, or images for a :class:`FineTuneModel` (whose VGG16
     dropout ``cnn_dropout`` drives); ``enc`` [B·K, T] holds the labels
     (the encoder's input), ``dec`` the decoder inputs, ``clusters`` the
     GMM head's draw.  The metrics (loss, rec_loss, kld, annealing,
-    grad_norm over every gradient before clipping) stay on the device."""
+    grad_norm over every gradient before clipping) stay on the device.
+    On data-parallel ranks (``dp``) ``counts`` must hold the global
+    batch's (tokens, rows): the loss is this rank's share of the global
+    loss, and the gradients and the loss's terms are summed over the ranks
+    before the update."""
     force_one = cfg.fine_tune or cfg.restore
     params = optimizer.params
     loss_args = _loss_args(cvae_of(model), cfg, ops)
@@ -308,22 +332,26 @@ def make_train_step(model: nn.Module, optimizer, cfg: Config,
     def step_fn(step: int, features, enc, dec, lengths, c_v, z_seed: int,
                 dropout: Optional[torch.Generator] = None,
                 clusters: Clusters = None,
-                cnn_dropout: Optional[torch.Generator] = None
-                ) -> Dict[str, torch.Tensor]:
+                cnn_dropout: Optional[torch.Generator] = None,
+                counts: Counts = None) -> Dict[str, torch.Tensor]:
         annealing = dist.kl_annealing(step, cfg.ann_param, force_one)
         for p in params:
             p.grad = None
+        _need_counts(dp, counts)
         out = model(features, enc, dec, lengths,
                     c_v if cfg.needs_cluster_vectors else None,
                     z_seed=z_seed, z_step=step, ops=ops, time_major=True,
                     dropout=dropout, return_hidden=hidden,
                     clusters=clusters,
                     **({"cnn_dropout": cnn_dropout} if fine_tune else {}))
-        losses = compute_loss(out, enc.t(), annealing=annealing, **loss_args)
+        losses = compute_loss(out, enc.t(), annealing=annealing,
+                              counts=counts, **loss_args)
         losses["loss"].backward()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in params]
+        mesh.all_reduce_sum_(grads)
         metrics = {k: v.detach() for k, v in losses.items()}
+        mesh.all_reduce_sum_([metrics[k] for k in ("loss", "rec_loss", "kld")])
         metrics["grad_norm"] = optimizer.step(grads)
         return metrics
 
@@ -331,24 +359,34 @@ def make_train_step(model: nn.Module, optimizer, cfg: Config,
 
 
 def make_eval_step(model: nn.Module, cfg: Config,
-                   ops: TrainOps = KERNEL_TRAIN_OPS) -> Callable:
+                   ops: TrainOps = KERNEL_TRAIN_OPS,
+                   dp: DataParallel = SINGLE) -> Callable:
     """``eval_fn(features, enc, dec, lengths, c_v, z_seed, clusters=None)
     -> rec_loss`` (the reference validates the rec-loss only), without
     gradients: under a CE schedule flag it runs that CE's forward only
-    (the hybrid's written logits are freed on return)."""
+    (the hybrid's written logits are freed on return).  On
+    data-parallel ranks, this rank's share of the global rec-loss."""
     loss_args = _loss_args(cvae_of(model), cfg, ops)
     hidden = loss_args["logits_params"] is not None
 
     @torch.no_grad()
     def eval_fn(features, enc, dec, lengths, c_v, z_seed: int,
-                clusters: Clusters = None) -> torch.Tensor:
+                clusters: Clusters = None, counts: Counts = None
+                ) -> torch.Tensor:
+        _need_counts(dp, counts)
         out = model(features, enc, dec, lengths,
                     c_v if cfg.needs_cluster_vectors else None,
                     z_seed=z_seed, z_step=0, ops=ops, time_major=True,
                     return_hidden=hidden, clusters=clusters)
-        return compute_loss(out, enc.t(), **loss_args)["rec_loss"]
+        return compute_loss(out, enc.t(), counts=counts, **loss_args)["rec_loss"]
 
     return eval_fn
+
+
+def _need_counts(dp: DataParallel, counts: Counts) -> None:
+    if dp.world > 1 and counts is None:
+        raise ValueError("a step over data-parallel ranks needs the global "
+                         "batch's counts (DataParallel.counts)")
 
 
 def _loss_args(model: CVAEModel, cfg: Config, ops: TrainOps) -> dict:
@@ -367,17 +405,33 @@ def _loss_args(model: CVAEModel, cfg: Config, ops: TrainOps) -> dict:
                 ce_fn=ce_fn[flags[0]] if flags else None)
 
 
+def check_finite(metrics: Mapping[str, torch.Tensor], step: int) -> None:
+    """``Config.debug_nans``: FloatingPointError naming the first
+    non-finite value of ``metrics`` (the loss, its terms, the annealing,
+    the gradient norm, in that order) and the step; one host sync."""
+    names = list(metrics)
+    finite = torch.isfinite(torch.stack(
+        [metrics[k].detach().float().reshape(()) for k in names])).tolist()
+    for name, ok in zip(names, finite):
+        if not ok:
+            raise FloatingPointError(
+                f"debug_nans: {name} is {float(metrics[name])} at step {step}")
+
+
 # ----------------------------------------------------------------------
 # epoch loop
 # ----------------------------------------------------------------------
 
 class Trainer:
-    """Single-card training.  The model (a :class:`CVAEModel`, or under
-    ``cfg.fine_tune`` a :class:`FineTuneModel` fed images) starts from
-    ``params`` (a Flax tree, nested or flat) or from
-    :func:`init_flax_params` at ``cfg.seed``, with, for a fine-tune model,
-    VGG16's weights read from ``cfg.image_net_weights_path`` when that
-    file exists; ``ops`` picks the kernels or the plain versions."""
+    """Training on one card, or as one rank of a data-parallel group
+    under ``cfg.multihost`` (the process group joined first:
+    ``parallel.mesh.initialize_multihost``).  The model (a
+    :class:`CVAEModel`, or under ``cfg.fine_tune`` a
+    :class:`FineTuneModel` fed images) starts from ``params`` (a Flax
+    tree, nested or flat) or from :func:`init_flax_params` at
+    ``cfg.seed``, with, for a fine-tune model, VGG16's weights read from
+    ``cfg.image_net_weights_path`` when that file exists; ``ops`` picks
+    the kernels or the plain versions."""
 
     def __init__(self, cfg: Config, vocab_size: Optional[int] = None,
                  device: torch.device | str = "cuda",
@@ -386,8 +440,13 @@ class Trainer:
         if vocab_size is not None:
             cfg.vocab_size = vocab_size
         check_supported_training(cfg)
+        if cfg.multihost and not torch.distributed.is_initialized():
+            raise RuntimeError(
+                "multihost: join the process group first "
+                "(parallel.mesh.initialize_multihost, under torchrun)")
         self.cfg = cfg
         self.device = torch.device(device)
+        self.dp = DataParallel.current() if cfg.multihost else SINGLE
         if cfg.fine_tune:
             self.model = FineTuneModel.from_config(cfg)
         else:
@@ -401,59 +460,83 @@ class Trainer:
                 params = load_vgg_into_params(params, weights)
         load_flax_params(self.model, params)
         self.model.to(self.device).train()
+        mesh.broadcast_(list(self.model.parameters()))
         if cfg.fine_tune:
             self.optimizer = make_finetune_optimizer(cfg, self.model)
         else:
             self.optimizer = make_optimizer(cfg, self.model.parameters())
-        self.train_step = make_train_step(self.model, self.optimizer, cfg, ops)
-        self.eval_step = make_eval_step(self.model, cfg, ops)
-        # host generator of the per-step z seeds; the eval seed is fixed
+        self.train_step = make_train_step(self.model, self.optimizer, cfg, ops,
+                                          self.dp)
+        self.eval_step = make_eval_step(self.model, cfg, ops, self.dp)
+        # host generator of the per-step z seeds (the same on every rank,
+        # each folding the rank in); the eval seed is fixed
         self.seeds = torch.Generator().manual_seed(cfg.seed + 1)
-        self.eval_seed = (cfg.seed + 1) & 0xFFFFFFFF
+        self.eval_seed = self.dp.seed((cfg.seed + 1) & 0xFFFFFFFF)
         self.dropout = None
         if cfg.dec_keep_rate < 1.0:
-            self.dropout = torch.Generator(device=self.device).manual_seed(
-                cfg.seed + 2)
+            self.dropout = self._device_generator(cfg.seed + 2)
         # the GMM head's cluster draws: a device generator (tests may set
         # fixed indices [B·K] instead)
         self.clusters: Clusters = None
         if cfg.prior == "GMM" and not cfg.no_encoder:
-            self.clusters = torch.Generator(device=self.device).manual_seed(
-                cfg.seed + 3)
+            self.clusters = self._device_generator(cfg.seed + 3)
         # VGG16's dropout on fc1 / fc2 while fine-tuning
         self.cnn_dropout = None
         if cfg.fine_tune and self.model.vgg16.dropout_keep < 1.0:
-            self.cnn_dropout = torch.Generator(device=self.device).manual_seed(
-                cfg.seed + 4)
+            self.cnn_dropout = self._device_generator(cfg.seed + 4)
         self.host_step = 0
+
+    def _device_generator(self, seed: int) -> torch.Generator:
+        """A generator on the device, seeded per rank."""
+        return torch.Generator(device=self.device).manual_seed(
+            self.dp.seed(seed))
+
+    @property
+    def is_main(self) -> bool:
+        """Whether this process prints, logs and writes (rank 0)."""
+        return self.dp.rank == 0
 
     def next_seed(self) -> int:
         return int(torch.randint(0, 2 ** 32, (), generator=self.seeds))
 
     def device_batch(self, batch: Batch) -> Arrays:
         """[B, K, T] host batch → flat tensors on the device (uint8 images
-        stay uint8 through the copy)."""
+        stay uint8 through the copy); on data-parallel ranks, this rank's
+        rows of the batch padded to a multiple of the ranks."""
         B, K, T = batch.dec_inputs.shape
         dev = self.device
+        arrays = (batch.features, batch.labels.reshape(B * K, T),
+                  batch.dec_inputs.reshape(B * K, T),
+                  batch.lengths.reshape(B * K), batch.cluster_vectors)
+        if self.dp.world > 1:
+            arrays = mesh.prepare_process_batch(arrays, K, self.dp.world,
+                                                self.dp.world, self.dp.rank)
 
         def put(a, dtype):
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
 
         images = batch.features.dtype == np.uint8
-        return (put(batch.features, None if images else torch.float32),
-                put(batch.labels.reshape(B * K, T), torch.int64),
-                put(batch.dec_inputs.reshape(B * K, T), torch.int64),
-                put(batch.lengths.reshape(B * K), torch.int32),
-                put(batch.cluster_vectors, torch.float32))
+        return (put(arrays[0], None if images else torch.float32),
+                put(arrays[1], torch.int64), put(arrays[2], torch.int64),
+                put(arrays[3], torch.int32), put(arrays[4], torch.float32))
 
     def run_step(self, batch: Batch) -> Dict[str, torch.Tensor]:
-        return self.run_step_arrays(self.device_batch(batch))
+        return self.run_step_arrays(self.device_batch(batch),
+                                    self.dp.counts(batch.labels))
 
-    def run_step_arrays(self, arrays: Arrays) -> Dict[str, torch.Tensor]:
+    def run_step_arrays(self, arrays: Arrays, counts: Counts = None
+                        ) -> Dict[str, torch.Tensor]:
+        """One step on ``arrays`` (:meth:`device_batch`'s); on
+        data-parallel ranks ``counts`` are the global batch's
+        (``DataParallel.counts``)."""
         metrics = self.train_step(self.host_step, *arrays,
-                                  z_seed=self.next_seed(), dropout=self.dropout,
+                                  z_seed=self.dp.seed(self.next_seed()),
+                                  dropout=self.dropout,
                                   clusters=self.clusters,
-                                  cnn_dropout=self.cnn_dropout)
+                                  cnn_dropout=self.cnn_dropout,
+                                  counts=counts)
+        if self.cfg.debug_nans:
+            check_finite(metrics, self.host_step)
         self.host_step += 1
         return metrics
 
@@ -464,10 +547,15 @@ class Trainer:
             clusters = torch.Generator(device=self.device).manual_seed(
                 self.eval_seed)
         vals = [self.eval_step(*self.device_batch(b), z_seed=self.eval_seed,
-                               clusters=clusters)
+                               clusters=clusters,
+                               counts=self.dp.counts(b.labels))
                 for b in batcher.eval_batches(num_captions=self.cfg.num_captions,
                                               with_ids=False)]
-        return float(torch.stack(vals).mean()) if vals else float("nan")
+        if not vals:
+            return float("nan")
+        vals = torch.stack(vals)
+        mesh.all_reduce_sum_([vals])     # the ranks' shares of each batch's loss
+        return float(vals.mean())
 
     # ------------------------------------------------------------------
     # train state
@@ -502,13 +590,19 @@ class Trainer:
         (``params/<flax key>``), each optimizer group's Adam / momentum
         moments (``opt/<group>/{mu,nu}/<flax key>``, Flax layout) and
         kind and update count, the step, and the generators' states
-        (``rng/<name>``, read from the card for the device generators)."""
+        (``rng/<name>``, read from the card for the device generators; on
+        data-parallel ranks every rank's, [ranks, state], gathered: every
+        rank calls this, rank 0 writes it)."""
         arrays = {f"params/{k}": v
                   for k, v in export_flax_params(self.model).items()}
         arrays.update({k: to_flax_array(t, perm)
                        for k, t, perm in self._moments()})
-        arrays.update({f"rng/{k}": g.get_state().numpy()
-                       for k, g in self.generators().items()})
+        rngs = {f"rng/{k}": g.get_state().numpy()
+                for k, g in self.generators().items()}
+        if self.dp.world > 1:
+            ranks = mesh.gather_objects(rngs)
+            rngs = {k: np.stack([r[k] for r in ranks]) for k in rngs}
+        arrays.update(rngs)
         groups = {label: {"kind": opt.kind, "count": opt.count}
                   for label, (_, opt) in groups_of(self.optimizer).items()
                   if opt is not None}
@@ -518,17 +612,19 @@ class Trainer:
     def load_train_state(self, state: TrainState) -> None:
         """Restore :meth:`train_state`'s output into this Trainer: the
         parameters, moments, counts and step, and the generators' states
-        (onto the card for the device generators).  Any key, shape,
-        optimizer group or kind that does not match this Trainer raises
-        ValueError naming it, before anything is changed."""
+        (onto the card for the device generators; on data-parallel ranks
+        this rank's, and the parameters then broadcast from rank 0).  Any
+        key, shape, optimizer group or kind that does not match this
+        Trainer raises ValueError naming it, before anything is changed."""
         arrays = state.arrays
         gens = self.generators()
         moments = list(self._moments())
         shapes = flax_shapes(self.model)
+        ranks = (self.dp.world,) if self.dp.world > 1 else ()
         check_arrays(arrays, {
             **{f"params/{k}": v for k, v in shapes.items()},
             **{k: shapes[k.split("/", 3)[3]] for k, _, _ in moments},
-            **{f"rng/{k}": tuple(g.get_state().shape)
+            **{f"rng/{k}": ranks + tuple(g.get_state().shape)
                for k, g in gens.items()}}, "train state")
         groups = {label: opt for label, (_, opt) in
                   groups_of(self.optimizer).items() if opt is not None}
@@ -545,8 +641,10 @@ class Trainer:
         for label, opt in groups.items():
             opt.count = int(saved[label]["count"])
         for name, gen in gens.items():
+            rng = arrays[f"rng/{name}"]
             gen.set_state(torch.from_numpy(np.ascontiguousarray(
-                arrays[f"rng/{name}"])))
+                rng[self.dp.rank] if ranks else rng)))
+        mesh.broadcast_(list(self.model.parameters()))
         self.host_step = int(state.step)
 
     def restore_from(self, checkpointer: Checkpointer,
@@ -555,14 +653,22 @@ class Trainer:
         self.load_train_state(checkpointer.restore(step))
 
     def save(self, directory: str, name: str) -> str:
-        """``params.npz`` in ``<directory>/<name>/`` (what inference reads)."""
-        return save_params(export_flax_params(self.model), directory, name)
+        """``params.npz`` in ``<directory>/<name>/`` (what inference
+        reads), written by rank 0."""
+        path = os.path.join(directory, name, "params.npz")
+        if self.is_main:
+            path = save_params(export_flax_params(self.model), directory, name)
+        return path
 
     def save_checkpoint(self, checkpointer: Checkpointer) -> None:
-        """``params.npz`` and the train state of this step."""
+        """``params.npz`` and the train state of this step (every rank
+        calls it; rank 0 writes, and the ranks go on together)."""
         base, name = os.path.split(checkpointer.directory)
         self.save(base, name)
-        checkpointer.save(self.train_state())
+        state = self.train_state()
+        if self.is_main:
+            checkpointer.save(state)
+        mesh.barrier()
 
     def fit(self, train_batcher, val_batcher=None,
             checkpoint_dir: Optional[str] = None,
@@ -584,9 +690,11 @@ class Trainer:
         metrics: Dict[str, float] = {}
         m: Dict[str, torch.Tensor] = {}
         logger = None
-        if cfg.logging:
+        if cfg.logging and self.is_main:
             logger = MetricLogger(cfg.log_dir, echo=False,
                                   run_name=cfg.checkpoint)
+        if not self.is_main:
+            quality_hook = None
         for epoch in range(cfg.num_epochs):
             seen = 0
             t0 = time.time()
@@ -604,12 +712,14 @@ class Trainer:
                         if step % log_every == 0:
                             metrics = {k: float(v) for k, v in m.items()}
                             rate = seen / max(time.time() - t0, 1e-9)
-                            print(f"Epoch: {epoch} Iteration: {step} "
-                                  f"VLB: {metrics['loss']:.4f} "
-                                  f"Rec Loss: {metrics['rec_loss']:.4f} "
-                                  f"KLD: {metrics['kld']:.4f} "
-                                  f"Annealing: {metrics['annealing']:.3f} "
-                                  f"({rate:.1f} ex/s)")
+                            if self.is_main:
+                                print(f"Epoch: {epoch} Iteration: {step} "
+                                      f"VLB: {metrics['loss']:.4f} "
+                                      f"Rec Loss: {metrics['rec_loss']:.4f} "
+                                      f"KLD: {metrics['kld']:.4f} "
+                                      f"Annealing: "
+                                      f"{metrics['annealing']:.3f} "
+                                      f"({rate:.1f} ex/s)")
                             if logger is not None:
                                 logger.log(step, metrics, epoch=epoch,
                                            examples_per_sec=round(rate, 1))
@@ -628,7 +738,8 @@ class Trainer:
             epoch_extra: Dict[str, float] = {}
             if val_batcher is not None:
                 val_rec = self.validate(val_batcher)
-                print(f"Validation reconstruction loss: {val_rec}")
+                if self.is_main:
+                    print(f"Validation reconstruction loss: {val_rec}")
                 metrics["val_rec_loss"] = val_rec
                 epoch_extra["val_rec_loss"] = val_rec
                 if quality_hook is not None:
