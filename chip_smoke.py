@@ -97,7 +97,7 @@ Phases, in order; any failure raises and the script exits nonzero:
    against the plain versions, a checkpoint round trip and a beam-3
    decode from images, the step's time and peak memory, and fc2
    extraction at 64 images a batch);
-10. this slice's paths: ``wide-beam`` (beams 20 and 40, and int8 at
+10. wide beams, batch 1, fidelity and data parallelism: ``wide-beam`` (beams 20 and 40, and int8 at
    beam 20, on 512 images: past the fused kernels' lists of 16 the decode
    writes its logits and takes the top-k + logsumexp kernel, with exact
    launch counts; compared with the plain decodes as in 4, and timed);
@@ -113,7 +113,29 @@ Phases, in order; any failure raises and the script exits nonzero:
    AG-CVAE and of the GMM-CVAE under the flash CE at B = 256 x 5 x 24
    against one process on the global batch, every parameter to rtol
    1e-3; then each rank's launches and step time with its own noise);
-11. times: each kernel against its plain version and, where one PyTorch
+11. decode over ranks, deep stacks, widths, f32 and the profiler: ``decode-dp`` (two ranks spawned on
+   the card over gloo run ``run_inference`` on 512 val + 512 test images
+   at beam 3 + greedy, with the sampler and unfused; rank 0's beam,
+   greedy and unfused JSON equal one process's caption for caption, rank
+   1 writes nothing, the sampler's ranks draw different streams, each
+   kernel of the path launches on every rank; a batch of 513 images,
+   padded over the ranks, decodes at beam 3 and greedy as one process
+   decodes it); ``deep`` (the AG-CVAE
+   with 2 encoder and 2 decoder layers and LSTM output dropout at keep
+   0.7: 20 steps with exact launches, 5 against the plain versions, a
+   beam-3 batch with exact launches and compared per step and caption);
+   ``widths`` (E = 300, H = 500, no kernel's built width: every kernel
+   through its padding wrapper against its plain version, one AG and one
+   GMM flash-CE step and a beam-3 and an int8 decode batch with exact
+   launches, the beam-3 batch timed against one at the built widths);
+   ``f32`` (the AG-CVAE under ``compute_dtype="float32"``, the JAX
+   package's f32 route: 5 plain-CE steps launching no kernel, one step
+   under each CE flag launching its CE kernels, and beam-3, int8, sampled
+   and beam-20 batches through the logits kernels after f32 LSTM steps,
+   with exact launches, beam 3 compared with the plain decode);
+   ``profile`` (``Trainer.fit`` of the Normal CVAE under ``profile=True``:
+   the trace of steps 11-20 holds the port's kernels);
+12. times: each kernel against its plain version and, where one PyTorch
    call or a short chain of them computes the same function, that call;
    decode batches (every mode) and train steps (Normal, AG and GMM),
    kernel path against plain path, in turns; the GMM step and the Normal
@@ -130,7 +152,7 @@ Before its last lines it checks that no JAX module, and no module of the
 JAX package, was loaded.  The line before the last is the kernels' JSON
 record (each with its launches on its path, its time, its plain
 version's, its bound and the library call's, and its launches on
-each path that ran it, this slice's included); the last line is
+each path that ran it); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -182,7 +204,7 @@ from vae_captioning_torch.ops.distributions import (  # noqa: E402
 from vae_captioning_torch.ops import fused_ce  # noqa: E402
 from vae_captioning_torch.ops.fused_ag_heads import (  # noqa: E402
     ag_heads_bwd_kernel, ag_heads_bwd_plain, ag_heads_fwd_kernel,
-    ag_heads_plain, prepare)
+    ag_heads_plain, fused_ag_heads, prepare)
 from vae_captioning_torch.ops.fused_logits_topk import (  # noqa: E402
     K_MAX, bf16_logits, fused_logits_sample, fused_logits_sample_plain,
     fused_logits_top_k, fused_logits_top_k_int8, fused_logits_top_k_int8_plain,
@@ -190,19 +212,21 @@ from vae_captioning_torch.ops.fused_logits_topk import (  # noqa: E402
     int8_top_k_kernel, int8_top_k_plain, logits_kernel, logits_plan,
     logits_top_k_kernel, quantize_logits_weights, quantize_rows, sample_scores)
 from vae_captioning_torch.ops.fused_lstm_seq import (  # noqa: E402
-    lstm_seq_bwd_kernel, lstm_seq_bwd_plain, lstm_seq_fwd_kernel,
-    lstm_seq_fwd_plain)
+    fused_lstm_seq, fused_lstm_seq_plain, lstm_seq_bwd_kernel,
+    lstm_seq_bwd_plain, lstm_seq_fwd_kernel, lstm_seq_fwd_plain)
 from vae_captioning_torch.ops.fused_lstm_step import (  # noqa: E402
     fused_lstm_step, fused_lstm_step_plain, lstm_step_geometry,
     lstm_step_kernel, lstm_step_layout, lstm_step_plan)
 from vae_captioning_torch.ops.fused_z import (  # noqa: E402
-    fused_z_eps, fused_z_plain, philox_bits, philox_normals, transform_mismatches,
+    fused_z, fused_z_eps, fused_z_plain, philox_bits, philox_normals, transform_mismatches,
     z_bwd_kernel, z_bwd_plain, z_fwd_kernel, z_fwd_plain)
+from vae_captioning_torch.ops.padding import round_up  # noqa: E402
 from vae_captioning_torch.ops.topk_lse import (  # noqa: E402
     top_k_logsumexp, top_k_logsumexp_plain)
 from vae_captioning_torch.parallel import mesh as dp_mesh  # noqa: E402
 from vae_captioning_torch.parallel.kernel_shard import DataParallel  # noqa: E402
 from vae_captioning_torch.train import Trainer  # noqa: E402
+from vae_captioning_torch.utils import trace_report  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 # tolerances of the kernel-vs-plain comparisons (f32 sums in another order)
@@ -325,25 +349,81 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, reps: int = 10) -> dict:
-    """Device time per call of each kernel that fn() launches, by name
-    (from a torch.profiler trace of ``reps`` calls after one warm-up
-    call): what the card spent, without the host's gaps between calls."""
+PROFILER_TRIES = 5
+QUEUED = "all kernels (queued CUDA events)"
+
+
+def kernel_events(fn, reps: int, cats=("kernel",)) -> list:
+    """The device events (name, start us, duration us) of the categories
+    ``cats`` of the Chrome trace ("kernel", "gpu_memcpy", "gpu_memset")
+    in a torch.profiler trace (CUDA activities) of ``reps`` calls of fn(),
+    after one warm-up call; up to PROFILER_TRIES traces, since the profiler
+    now and then hands back none.  [] when every trace came back empty."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):      # the profiler now and then hands back no event
+    for _ in range(PROFILER_TRIES):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        times = {}
-        for e in prof.events():
-            if e.device_type.name == "CUDA":
-                times[e.name] = times.get(e.name, 0.0) + e.device_time_total / reps / 1e3
-        if sum(times.values()) > 0:
-            return times
-    raise AssertionError("device_ms: the profiler recorded no kernel in three tries")
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = [(e["name"], e["ts"], e["dur"]) for e in json.load(f)["traceEvents"]
+                          if e.get("cat") in cats]
+        if sum(dur for _, _, dur in events) > 0:
+            return events
+    return []
+
+
+def queued_ms(fn, reps: int = 10) -> float:
+    """Device time per call of fn() in ms without a profiler: CUDA events
+    around ``reps`` calls that the host queues while ``torch.cuda._sleep``
+    holds the stream, so no gap of the host's lies between them.  Raises
+    when the host could not queue them within the longest hold."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 10 ** 7
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        held = not start.query()    # the hold outlasted the queueing
+        torch.cuda.synchronize()
+        if held:
+            return start.elapsed_time(end) / reps
+        cycles *= 8
+    raise AssertionError("queued_ms: the host did not queue the calls within the hold")
+
+
+def queued_fallback(fn, reps: int) -> float:
+    """:func:`queued_ms`, said on a line of its own: the device time where
+    the profiler recorded nothing."""
+    ms = queued_ms(fn, reps)
+    print(f"device time: the profiler recorded no kernel in {PROFILER_TRIES} "
+          f"traces; {ms:.4f} ms a call from queued CUDA events instead")
+    return ms
+
+
+def device_ms(fn, reps: int = 10) -> dict:
+    """Device time per call of each kernel, copy and memset that fn()
+    launches, by name (from a torch.profiler trace of ``reps`` calls after
+    one warm-up call): what the card spent, without the host's gaps
+    between calls.  Where the profiler records nothing, {QUEUED:
+    :func:`queued_fallback`}."""
+    events = kernel_events(fn, reps, ("kernel", "gpu_memcpy", "gpu_memset"))
+    if not events:
+        return {QUEUED: queued_fallback(fn, reps)}
+    times = {}
+    for name, _, dur in events:
+        times[name] = times.get(name, 0.0) + dur / reps / 1e3
+    return times
 
 
 def union_ms(spans) -> float:
@@ -362,24 +442,16 @@ def device_spans(fn, group, reps: int = 5) -> dict:
     intervals (kernels launched with programmatic dependent launch
     overlap, so their durations do not add up): {"total": the calls'
     union, part: the union of the intervals of the kernels that
-    ``group(name)`` puts in that part}."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    ``group(name)`` puts in that part}; {"total": :func:`queued_fallback`}
+    where the profiler records nothing."""
+    events = kernel_events(fn, reps)
+    if not events:
+        return {"total": queued_fallback(fn, reps)}
     spans = {"total": []}
-    for e in events:
-        span = (e["ts"], e["ts"] + e["dur"])
+    for name, ts, dur in events:
+        span = (ts, ts + dur)
         spans["total"].append(span)
-        spans.setdefault(group(kernel_name(e["name"])), []).append(span)
+        spans.setdefault(group(kernel_name(name)), []).append(span)
     return {k: union_ms(v) / reps for k, v in spans.items()}
 
 
@@ -461,9 +533,11 @@ def check_lstm(N: int, E: int = 256, H: int = 512) -> float:
         err = max(err, float(diff.max()))
     stray = [max(float((a.double() - e).abs().max()) for a, e in zip(out, exact))
              for out in (got, want)]
-    plan = lstm_step_plan(N, E, H)
-    boxes = -(-E // 64) + -(-H // 64)
-    chunk, stages, _ = lstm_step_layout(E, H, plan.units)
+    # the kernel's widths: the wrapper pads E and H to multiples of 32
+    Ek, Hk = round_up(E, 32), round_up(H, 32)
+    plan = lstm_step_plan(N, Ek, Hk)
+    boxes = -(-Ek // 64) + -(-Hk // 64)
+    chunk, stages, _ = lstm_step_layout(Ek, Hk, plan.units)
     print(f"fused_lstm_step N={N} E={E} H={H}: max |kernel - plain| {err:.3e}, "
           f"from f64: kernel {stray[0]:.3e}, plain {stray[1]:.3e} (U = "
           f"{plan.units}, {plan.grid[0] * plan.grid[1]} blocks, A in "
@@ -504,7 +578,8 @@ def check_topk(M: int, V: int, k: int, H: int = 512) -> float:
     got = fused_logits_top_k(h, w, b, k)
     p_vals, p_idx, p_lse = fused_logits_top_k_plain(h, w, b, k + 1)
     torch.cuda.synchronize()
-    plan = logits_plan(M, H, V, k if k <= K_MAX else 1, 2, _ext.sm_count(0))
+    plan = logits_plan(M, round_up(H, 32), V, k if k <= K_MAX else 1, 2,
+                       _ext.sm_count(0))
     tag = (f"fused_logits_top_k M={M} H={H} V={V} k={k} ({plan.rows}-row blocks, h "
            f"{'resident' if plan.resident else 'streamed'}, {plan.chunks} chunks"
            f"{'; the logits written, then top_k_logsumexp' if k > K_MAX else ''})")
@@ -602,7 +677,8 @@ def check_int8(M: int, V: int, k: int, H: int = 512) -> float:
     vals, idx, lse = fused_logits_top_k_int8(*args, k)
     p_vals, p_idx, p_lse = fused_logits_top_k_int8_plain(*args, k)
     torch.cuda.synchronize()
-    plan = logits_plan(M, H, V, k if k <= K_MAX else 1, 1, _ext.sm_count(0))
+    plan = logits_plan(M, round_up(H, 64), V, k if k <= K_MAX else 1, 1,
+                       _ext.sm_count(0))
     tag = (f"fused_logits_top_k_int8 M={M} H={H} V={V} k={k} ({plan.rows}-row blocks, h "
            f"{'resident' if plan.resident else 'streamed'}"
            f"{'; the logits written, then top_k_logsumexp' if k > K_MAX else ''})")
@@ -2351,14 +2427,19 @@ def train_arrays(seed: int = 9) -> tuple:
             coco_cv(B, seed=seed))
 
 
-def train_launches(steps: int, ag: bool, ce: str) -> dict:
+def train_launches(steps: int, ag: bool, ce: str, enc_layers: int = 1,
+                   dec_layers: int = 1) -> dict:
     """The kernels a run of ``steps`` train steps must launch: the LSTM
-    sequence for the encoder and the decoder, the fused z, the AG heads
-    under the AG prior, the CE kernels of the CE schedule flag ``ce`` (none
-    of the six for the plain CE), and never the eps kernel (check only:
-    the train step never materialises eps)."""
+    sequence forward for each encoder and decoder layer and its backward
+    for each decoder layer and the encoder's first (the encoder reads its
+    first layer's state, as the reference does, so no gradient reaches
+    the layers above it), the fused z, the AG heads under the AG prior,
+    the CE kernels of the CE schedule flag ``ce`` (none of the six for
+    the plain CE), and never the eps kernel (check only: the train step
+    never materialises eps)."""
     per_step = CE_STEP_LAUNCHES.get(ce, {})
-    return {"fused_lstm_seq_fwd": 2 * steps, "fused_lstm_seq_bwd": 2 * steps,
+    return {"fused_lstm_seq_fwd": (enc_layers + dec_layers) * steps,
+            "fused_lstm_seq_bwd": (1 + dec_layers) * steps,
             "fused_z_fwd": steps, "fused_z_bwd": steps, "fused_z_eps": 0,
             "fused_ag_heads_fwd": steps if ag else 0,
             "fused_ag_heads_bwd": steps if ag else 0,
@@ -2374,7 +2455,8 @@ def phase_train_path(cfg, arrays, tag: str):
     metrics = [trainer.run_step_arrays(arrays) for _ in range(TRAIN_STEPS)]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    want = train_launches(TRAIN_STEPS, cfg.prior == "AG", ce_flag(cfg))
+    want = train_launches(TRAIN_STEPS, cfg.prior == "AG", ce_flag(cfg),
+                          cfg.encoder_rnn_layers, cfg.decoder_rnn_layers)
     launches = {k: _ext.LAUNCHES[k] for k in want}               # right after
     losses = [float(m["loss"]) for m in metrics]
     print(f"{tag} path: {TRAIN_STEPS} steps of {TRAIN_IMAGES} images x "
@@ -2406,8 +2488,11 @@ def phase_train_compare(cfg, arrays, tag: str,
             steps.append({k: float(v) for k, v in
                           trainer.run_step_arrays(arrays).items()})
             if i == 0:
+                # (a deep encoder's layers past the first get none: the
+                # encoder reads its first layer's state)
                 grads.append({n: p.grad.detach().clone() for n, p in
-                              trainer.model.named_parameters()})
+                              trainer.model.named_parameters()
+                              if p.grad is not None})
         runs.append(steps)
         del trainer
     worst = {}
@@ -2934,7 +3019,7 @@ def phase_finetune(out_dir: str, npz: str, label: str) -> dict:
 
 
 # ----------------------------------------------------------------------
-# this slice's paths: beams past 16, the single-image API, the VGG16
+# beams past 16, the single-image API, the VGG16
 # fidelity tool and data-parallel training
 # ----------------------------------------------------------------------
 
@@ -3444,6 +3529,554 @@ def phase_dp(out_dir: str, label: str) -> dict:
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ----------------------------------------------------------------------
+# decode over ranks, deep stacks with LSTM output dropout, widths no
+# kernel is built for, f32, the profiler hook
+# ----------------------------------------------------------------------
+
+# (tag, Config overrides, whether the test split is decoded greedily too):
+# beam 3 + greedy (rows 1-2), the sampler (row 4), the unfused beam 3
+# (rows 1 and 5)
+DP_DECODES = (("beam3", dict(gen_name="dp_beam3"), True),
+              ("sample", dict(sample_gen="sample", gen_name="dp_sample"), False),
+              ("unfused", dict(fused_decode=False, gen_name="dp_unfused"), False))
+
+
+def decode_dp_runs(cfg, vocab, model, out: str) -> dict:
+    """DP_DECODES through ``run_inference`` into ``out`` (on ranks under
+    ``cfg.multihost``): per tag, the host ms a batch and the batches."""
+    times = {}
+    for tag, over, test in DP_DECODES:
+        stats = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_inference(cfg.replace(**over), model, vocab,
+                      batchers(BATCH, "val", vocab, 1),
+                      batchers(BATCH, "test", vocab, 2) if test else None,
+                      out, stats)
+        torch.cuda.synchronize()
+        batches = sum(v["batches"] for v in stats.values())
+        times[tag] = ((time.perf_counter() - t0) * 1e3 / batches, batches)
+    return times
+
+
+def decode_dp_rank(rank: int, world: int, port: int, work: str) -> None:
+    """One rank of phase_decode_dp (a spawned process): DP_DECODES over the
+    ranks, the launches of this rank's share, and the sampler on a batch
+    whose two halves (the two ranks' shares) are the same rows; its
+    results in ``work``/rank<r>.json."""
+    dp_mesh.init_process_group(rank, world, f"tcp://127.0.0.1:{port}", DEV,
+                               backend="gloo", timeout=600)
+    try:
+        cfg, vocab, model = full_width_model()
+        cfg = cfg.replace(multihost=True)
+        out = os.path.join(work, f"rank{rank}")
+        os.makedirs(out, exist_ok=True)
+        torch.cuda.synchronize()
+        _ext.reset_launches()   # this rank's decode-dp path starts here
+        times = decode_dp_runs(cfg, vocab, model, out)
+        torch.cuda.synchronize()
+        launches = dict(_ext.LAUNCHES)                            # right after
+        batch = next(batchers(BATCH, "val", vocab, 5).eval_batches())
+        half = BATCH // 2
+        feats = torch.from_numpy(batch.features[:half]).to(DEV).repeat(2, 1)
+        c_v = torch.from_numpy(batch.cluster_vectors[:half]).to(DEV).repeat(2, 1)
+        eps = torch.randn((half, cfg.embed_size), device=DEV,
+                          generator=torch.Generator(device=DEV).manual_seed(9))
+        sample = make_decode_fns(model, cfg.replace(sample_gen="sample"), vocab,
+                                 dp=DataParallel.current())["sample"]
+        tokens = sample(feats, c_v, eps=eps.repeat(2, 1),
+                        generator=torch.Generator(device=DEV).manual_seed(9)).tokens
+        result = {"times": times, "launches": launches,
+                  "halves_differ": float((tokens[:half] != tokens[half:])
+                                         .any(dim=1).float().mean()),
+                  "files": sorted(os.listdir(out)),
+                  "odd": odd_batch_tokens(model, cfg, vocab,
+                                          DataParallel.current())}
+        with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+            json.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+
+
+ODD_B = BATCH + 1   # not a multiple of DP_RANKS
+
+
+def odd_batch_tokens(model, cfg, vocab, dp) -> dict:
+    """Beam-3 and greedy tokens of a batch of ODD_B images (the 512 of a
+    val batch and its first again) on explicit z noise, through ``dp``'s
+    ranks or one process."""
+    batch = next(batchers(BATCH, "val", vocab, 5).eval_batches())
+    feats = torch.from_numpy(batch.features).to(DEV)
+    c_v = torch.from_numpy(batch.cluster_vectors).to(DEV)
+    feats, c_v = torch.cat([feats, feats[:1]]), torch.cat([c_v, c_v[:1]])
+    eps = torch.randn((ODD_B, cfg.embed_size), device=DEV,
+                      generator=torch.Generator(device=DEV).manual_seed(11))
+    fns = make_decode_fns(model, cfg, vocab, dp=dp)
+    return {name: fns[name](feats, c_v, eps=eps).tokens.cpu().tolist()
+            for name in ("beam_search", "greedy")}
+
+
+def phase_decode_dp(out_dir: str, label: str) -> dict:
+    """DP_RANKS ranks spawned on the one card over gloo run
+    ``run_inference`` over 512 val and 512 test images (DP_DECODES: beam 3
+    + greedy, the sampler, the unfused beam 3) with the full-width
+    AG-CVAE, each rank decoding its half of every batch.  Rank 0's beam,
+    greedy and unfused JSON must equal one process's caption for caption;
+    rank 1 writes no file; the sampler's ranks draw different streams
+    (the two halves of a batch of repeated rows sample different
+    captions); each decode kernel of the path launches on every rank.
+    The ms a batch are host time of two processes sharing one card and
+    gloo's host copies: the code path, not a speed-up."""
+    work = os.path.join(out_dir, "decode_dp")
+    os.makedirs(work, exist_ok=True)
+    try:
+        t0 = time.perf_counter()
+        torch.multiprocessing.start_processes(
+            decode_dp_rank, args=(DP_RANKS, free_port(), work), nprocs=DP_RANKS,
+            join=True, start_method="spawn")
+        seconds = time.perf_counter() - t0
+        ranks = []
+        for r in range(DP_RANKS):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        cfg, vocab, model = full_width_model()
+        one_dir = os.path.join(work, "one")
+        os.makedirs(one_dir, exist_ok=True)
+        one_times = decode_dp_runs(cfg, vocab, model, one_dir)
+        for name in sorted(os.listdir(one_dir)):
+            with open(os.path.join(one_dir, name)) as f:
+                want = json.load(f)
+            with open(os.path.join(work, "rank0", name)) as f:
+                got = json.load(f)
+            same = sum(g == w for g, w in zip(got, want))
+            print(f"decode-dp {name}: {DP_RANKS} ranks against one process: "
+                  f"{same} of {len(want)} captions identical")
+            if "sample" in name:
+                if same == len(want):
+                    raise AssertionError("decode-dp: the ranks' sampler drew one "
+                                         "process's stream")
+            elif got != want:
+                raise AssertionError(f"decode-dp {name}: {len(want) - same} "
+                                     "captions differ from one process's")
+        one_odd = odd_batch_tokens(model, cfg, vocab, DataParallel())
+        for name, want in one_odd.items():
+            for r, res in enumerate(ranks):
+                same = sum(g == w for g, w in zip(res["odd"][name], want))
+                print(f"decode-dp {name} over {ODD_B} images (padded to "
+                      f"{ODD_B + 1} over {DP_RANKS} ranks), rank {r}: {same} of "
+                      f"{len(want)} captions identical to one process's")
+                if res["odd"][name] != want:
+                    raise AssertionError(f"decode-dp {name}, {ODD_B} images: rank "
+                                         f"{r} differs from one process")
+        if ranks[1]["files"] or not ranks[0]["files"]:
+            raise AssertionError(f"decode-dp: files by rank {[r['files'] for r in ranks]}")
+        for r, res in enumerate(ranks):
+            got = {k: res["launches"][k] for k in DP_DECODE_KERNELS}
+            print(f"decode-dp rank {r}: launches {got}; repeated-row batch: "
+                  f"{res['halves_differ']:.4f} of rows sample another caption "
+                  f"on the other rank; ms a batch (host) " + ", ".join(
+                      f"{tag} {ms:.2f} ({n} batches)"
+                      for tag, (ms, n) in res["times"].items()))
+            if not all(got.values()):
+                raise AssertionError(f"decode-dp rank {r}: a kernel of the path "
+                                     f"did not launch: {got}")
+            if res["halves_differ"] == 0.0:
+                raise AssertionError("decode-dp: the ranks sampled one stream")
+        print(f"time decode-dp, {DP_RANKS} ranks on one card (gloo), 512 images a "
+              f"batch: rank 0 ms a batch " + ", ".join(
+                  f"{tag} {ms:.2f}" for tag, (ms, _) in ranks[0]["times"].items())
+              + "; one process " + ", ".join(
+                  f"{tag} {ms:.2f}" for tag, (ms, _) in one_times.items())
+              + f"; the code path, not a speed-up [{label}]")
+        print(f"decode-dp phase: {seconds:.1f} s of spawned ranks (their start "
+              "included)")
+        return {k: ranks[0]["launches"][k] for k in DP_DECODE_KERNELS}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+DP_DECODE_KERNELS = ("fused_lstm_step", "fused_logits_top_k",
+                     "fused_logits_sample", "top_k_logsumexp")
+DEEP = dict(encoder_rnn_layers=2, decoder_rnn_layers=2, dec_lstm_drop=0.7)
+
+
+def decode_vocab() -> Vocabulary:
+    return Vocabulary(["<BOS>", "<EOS>", "<UNK>"]
+                      + [f"w{i}" for i in range(VOCAB - 4)])
+
+
+def phase_deep(label: str) -> dict:
+    """The AG-CVAE with 2 encoder and 2 decoder layers and the decoder's
+    LSTM output dropout at keep 0.7: TRAIN_STEPS steps whose loss must
+    fall, with exact launch counts (the sequence kernel once a layer);
+    COMPARE_STEPS steps through the kernels against the plain versions
+    (both Trainers draw the same dropout masks: one seed, one order); then
+    one beam-3 batch of 512 images through the kernels with exact launches
+    (the step kernel once a layer a step) and phase_decode_compare's
+    checks against the plain decode.  Returns the path's launches."""
+    cfg = train_config("AG").replace(**DEEP)
+    t0 = time.perf_counter()
+    trainer, launches = phase_train_path(cfg, train_arrays(), "train-deep")
+    phase_train_compare(cfg, train_arrays(seed=10), "train-deep")
+    vocab = decode_vocab()
+    model = trainer.model.eval()
+    dcfg = cfg.replace(mode="inference", gen_max_len=30, beam_size=3,
+                       gen_batch_size=BATCH)
+    batch = next(batchers(BATCH, "val", vocab, 4).eval_batches())
+    feats = torch.from_numpy(batch.features).to(DEV)
+    c_v = torch.from_numpy(batch.cluster_vectors).to(DEV)
+    fn = make_decode_fns(model, dcfg, vocab)["beam_search"]
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    res = fn(feats, c_v, generator=torch.Generator(device=DEV).manual_seed(3))
+    torch.cuda.synchronize()
+    decode = {k: _ext.LAUNCHES[k] for k in DECODE_KERNELS}
+    want = {"fused_lstm_step": 2 * (3 + res.steps), "fused_logits_top_k": res.steps}
+    print(f"deep decode: beam 3 over {BATCH} images, {res.steps} steps; "
+          f"launches {decode}, expected {want}")
+    if decode != want:
+        raise AssertionError(f"deep decode launch counts {decode} != {want}")
+    phase_decode_compare(dcfg, vocab, model, modes=(("beam 3 deep", 3),),
+                         seeds=(4,))
+    print(f"deep phase: {time.perf_counter() - t0:.1f} s [{label}]")
+    return {**launches, **decode}
+
+
+WIDE_E, WIDE_H = 300, 500   # no kernel is built for either
+
+
+def widths_check(name: str, got, want, rtol: float) -> float:
+    """max |got - want|, raising past ``rtol`` of max |want|."""
+    err, rel = rel_err(got, want)
+    if rel > rtol or not bool(torch.isfinite(got.float()).all()):
+        raise AssertionError(f"widths {name}: {err:.3e} ({rel:.2e} of max, "
+                             f"tolerance {rtol})")
+    return err
+
+
+def widths_grads(fn, plain, leaves, extra, cot=None) -> tuple:
+    """(outputs, leaf gradients) of ``fn`` and of ``plain`` on copies of
+    ``leaves`` (with ``extra`` arguments), the outputs reduced by ``cot``
+    (a weight per output, or the sum of a scalar)."""
+    runs = []
+    for f in (fn, plain):
+        lv = [t.clone().requires_grad_() for t in leaves]
+        out = f(*lv, *extra)
+        outs = out if isinstance(out, tuple) else (out,)
+        flat = [o for o in outs if isinstance(o, torch.Tensor)]
+        loss = sum((o.float() * c).sum() for o, c in zip(flat, cot)) \
+            if cot is not None else flat[0]
+        loss.backward()
+        runs.append((flat, [t.grad for t in lv]))
+    return runs
+
+
+def phase_widths(label: str) -> dict:
+    """Every kernel at E = WIDE_E, H = WIDE_H (and the top-k + lse kernel,
+    whose width is V, behind the writer at H = WIDE_H), through its wrapper,
+    which pads to its instance's widths, against its plain version at the
+    unpadded widths, with each one's max |kernel - plain|; then one AG
+    train step and one GMM step under the flash CE, and a beam-3 and an
+    int8 beam-3 decode batch of 512 images, on the kernels at those
+    widths, with their launches.  Returns (errors, launches)."""
+    t0 = time.perf_counter()
+    E, H, N, T = WIDE_E, WIDE_H, TRAIN_ROWS, TRAIN_T
+    errors = {
+        "fused_lstm_step": max(check_lstm(n, E, H) for n in (1536, 65)),
+        "fused_logits_top_k": max(check_topk(1536, VOCAB, 3, H),
+                                  check_topk(65, 11519, 10, H)),
+        "fused_logits_top_k_int8": check_int8(1536, VOCAB, 3, H),
+        "fused_logits_sample": check_sample(512, VOCAB, H),
+        "top_k_logsumexp": check_topk(1536, VOCAB, 20, H),
+        "fused_z_eps": check_eps_rows(N),
+    }
+    g = torch.Generator(device=DEV).manual_seed(21)
+    x, wx, wh, b, c0, h0, lengths = seq_inputs(T, N, seed=21, E=E, H=H)
+    cots = (torch.randn((T, N, H), generator=g, device=DEV),
+            torch.randn((N, H), generator=g, device=DEV),
+            torch.randn((N, H), generator=g, device=DEV))
+    (k_out, k_grad), (p_out, p_grad) = widths_grads(
+        lambda *a: (lambda r: (r[1], *r[0]))(fused_lstm_seq(*a)),
+        lambda *a: (lambda r: (r[1], *r[0]))(fused_lstm_seq_plain(*a)),
+        (x.float(), wx.float(), wh.float(), b, c0, h0), (lengths,), cots)
+    errors["fused_lstm_seq_fwd"] = max(widths_check("lstm seq forward", a, r, SEQ_RTOL)
+                                       for a, r in zip(k_out, p_out))
+    errors["fused_lstm_seq_bwd"] = max(widths_check("lstm seq backward", a, r, SEQ_RTOL)
+                                       for a, r in zip(k_grad, p_grad))
+    mean, std, w, zb, dz = z_inputs(N, seed=22, E=E)
+    (k_out, k_grad), (p_out, p_grad) = widths_grads(
+        fused_z, fused_z_plain, (mean, std, w.float(), zb), (KZ, 5, 17), (dz,))
+    errors["fused_z_fwd"] = widths_check("fused z forward", k_out[0], p_out[0],
+                                         Z_OUT_RTOL)
+    errors["fused_z_bwd"] = max(widths_check("fused z backward", a, r, Z_GRAD_RTOL)
+                                for a, r in zip(k_grad[:3], p_grad[:3]))
+    h, w, b, cv, gm, gs = ag_inputs(N, CLUSTERS, LATENT, seed=23, H=H)
+    (k_out, k_grad), (p_out, p_grad) = widths_grads(
+        fused_ag_heads, ag_heads_plain, (h, w, b, cv), (), (gm, gs))
+    errors["fused_ag_heads_fwd"] = max(widths_check("AG heads forward", a, r,
+                                                    AG_FWD_RTOL)
+                                       for a, r in zip(k_out, p_out))
+    errors["fused_ag_heads_bwd"] = max(widths_check("AG heads backward", a, r,
+                                                    AG_GRAD_RTOL)
+                                       for a, r in zip(k_grad, p_grad))
+    h, w, b, labels, weights = ce_inputs(N * 6, VOCAB, seed=24, H=H)
+    for prefix, fn, plain in (
+            ("fused_linear_ce", fused_ce.fused_linear_ce,
+             fused_ce.fused_linear_ce_plain),
+            ("fused_linear_ce_mat", fused_ce.fused_linear_ce_hybrid,
+             fused_ce.fused_linear_ce_hybrid_plain)):
+        (k_out, k_grad), (p_out, p_grad) = widths_grads(
+            fn, plain, (h.float(), w.float(), b), (labels, weights))
+        errors[f"{prefix}_fwd"] = widths_check(f"{prefix} forward", k_out[0],
+                                               p_out[0], CE_FWD_RTOL)
+        errors[f"{prefix}_dh"] = widths_check(f"{prefix} dh", k_grad[0], p_grad[0],
+                                              CE_GRAD_RTOL)
+        errors[f"{prefix}_dwdb"] = max(
+            widths_check(f"{prefix} dW", k_grad[1], p_grad[1], CE_GRAD_RTOL),
+            widths_check(f"{prefix} db", k_grad[2], p_grad[2], CE_DB_RTOL))
+    print("widths E={} H={}: max |kernel - plain| per kernel: {}".format(
+        E, H, ", ".join(f"{k} {v:.3e}" for k, v in errors.items())))
+    # the train paths and the decode at those widths
+    launches = dict.fromkeys(KERNELS, 0)
+    vocab = decode_vocab()
+    arrays = train_arrays(seed=25)
+    for prior, ce in (("AG", ""), ("GMM", "fused_ce")):
+        cfg = train_config(prior, ce).replace(embed_size=E, encoder_hidden=H,
+                                              decoder_hidden=H)
+        trainer = Trainer(cfg, device=DEV)
+        torch.cuda.synchronize()
+        _ext.reset_launches()
+        m = trainer.run_step_arrays(arrays)
+        torch.cuda.synchronize()
+        want = train_launches(1, prior == "AG", ce)
+        got = {k: _ext.LAUNCHES[k] for k in want}
+        print(f"widths train {prior} ({ce or 'plain CE'}) E={E} H={H}: loss "
+              f"{float(m['loss']):.5f}, launches {got}, expected {want}")
+        if got != want or not np.isfinite(float(m["loss"])):
+            raise AssertionError(f"widths train {prior}: {got} != {want}")
+        for k, v in got.items():
+            launches[k] += v
+        if prior == "AG":
+            model = trainer.model.eval()
+            dcfg = cfg.replace(mode="inference", gen_max_len=30, beam_size=3)
+            batch = next(batchers(BATCH, "val", vocab, 6).eval_batches())
+            feats = torch.from_numpy(batch.features).to(DEV)
+            c_v = torch.from_numpy(batch.cluster_vectors).to(DEV)
+            widths_decode_times(model, dcfg, vocab, feats, c_v, label)
+            for int8, name in ((False, "fused_logits_top_k"),
+                               (True, "fused_logits_top_k_int8")):
+                fn = make_decode_fns(model, dcfg.replace(decode_int8=int8),
+                                     vocab)["beam_search"]
+                torch.cuda.synchronize()
+                _ext.reset_launches()
+                res = fn(feats, c_v,
+                         generator=torch.Generator(device=DEV).manual_seed(4))
+                torch.cuda.synchronize()
+                want = {"fused_lstm_step": 3 + res.steps, name: res.steps}
+                got = {k: _ext.LAUNCHES[k] for k in want}
+                ok = bool(((res.tokens >= 0) & (res.tokens < VOCAB)).all()) and \
+                    bool(torch.isfinite(res.scores).all())
+                print(f"widths decode {'int8 ' if int8 else ''}beam 3 E={E} H={H}: "
+                      f"{BATCH} images, {res.steps} steps, launches {got}, "
+                      f"expected {want}")
+                if got != want or not ok:
+                    raise AssertionError(f"widths decode int8={int8}: {got} != {want}")
+                for k, v in got.items():
+                    launches[k] += v
+        del trainer
+    print(f"widths phase: {time.perf_counter() - t0:.1f} s [{label}]")
+    return errors, launches
+
+
+def widths_decode_times(model, dcfg, vocab, feats, c_v, label: str) -> None:
+    """A beam-3 decode batch of 512 images at E = WIDE_E, H = WIDE_H (its
+    weights padded once, to 320 and 512) against one at the built widths
+    (E = 256, H = 512, random weights), in turns: host ms a batch and a
+    step, the first call of each dropped."""
+    built_cfg = dcfg.replace(embed_size=256, encoder_hidden=512, decoder_hidden=512)
+    built = CVAEModel.from_config(built_cfg).to(DEV).eval()
+    fns = {f"E={WIDE_E} H={WIDE_H}": (make_decode_fns(model, dcfg, vocab)
+                                      ["beam_search"], []),
+           "E=256 H=512": (make_decode_fns(built, built_cfg, vocab)
+                           ["beam_search"], [])}
+    for rep in range(4):
+        for fn, runs in fns.values():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(feats, c_v, generator=torch.Generator(device=DEV).manual_seed(8))
+            torch.cuda.synchronize()
+            if rep:
+                runs.append(((time.perf_counter() - t0) * 1e3, res.steps))
+    print("time widths decode, beam 3 over 512 images (host clock, 3 turns): "
+          + "; ".join(f"{tag} " + ", ".join(f"{ms:.2f} ms ({n} steps, "
+                                             f"{ms / n:.3f} ms a step)"
+                                             for ms, n in runs)
+                      for tag, (_, runs) in fns.items()) + f" [{label}]")
+
+
+def check_eps_rows(N: int) -> float:
+    """The eps kernel (no width rule: its row is L) at the train rows,
+    bit for bit the plain generator's normals."""
+    got = fused_z_eps(5, 17, N, KZ, LATENT, device=DEV)
+    want = philox_normals(5, 17, N, KZ, LATENT, device=DEV)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("fused_z_eps differs from the plain generator")
+    print(f"fused_z_eps {N}x{KZ}x{LATENT}: bit for bit the plain generator's")
+    return 0.0
+
+
+# the f32 path's decodes: (name, config changes, decode fn, launches a step)
+F32_DECODES = (
+    ("beam 3", {}, "beam_search", {"fused_logits_top_k": 1}),
+    ("int8 beam 3", {"decode_int8": True}, "beam_search",
+     {"fused_logits_top_k_int8": 1}),
+    ("sample", {"sample_gen": "sample"}, "sample", {"fused_logits_sample": 1}),
+    ("beam 20", {"beam_size": 20}, "beam_search",
+     {"fused_logits_top_k": 1, "top_k_logsumexp": 1}))
+
+
+def phase_f32(label: str) -> dict:
+    """The full-width AG-CVAE under compute_dtype = "float32", on the JAX
+    package's f32 route, which gates its LSTM, z and AG heads kernels on
+    bf16 and runs its CE and decode-logits kernels under f32 too.  5
+    train steps with the plain CE: LSTMs, z and heads in plain f32 with
+    TF32 off, no kernel launch; one step under each CE schedule flag,
+    which launches that schedule's CE kernels once each; decode batches
+    of 512 images at beam 3, int8 beam 3, sampling and beam 20, whose LSTM
+    steps run in plain f32 (no step kernel) and whose logits go through
+    the top-k, int8 top-k, sampler and, past 16 beams, the logits writer
+    and the top-k + logsumexp kernels once a step; every count exact.  The
+    loss must fall, the tokens lie in the vocabulary, and the beam-3
+    decode holds to the plain decode as phase_decode_compare holds it.
+    Returns the path's launches."""
+    cfg = train_config("AG").replace(compute_dtype="float32")
+    trainer = Trainer(cfg, device=DEV)
+    arrays = train_arrays(seed=26)
+    launches = dict.fromkeys(KERNELS, 0)
+    torch.cuda.synchronize()
+    _ext.reset_launches()   # the f32 path starts here
+    t0 = time.perf_counter()
+    metrics = [trainer.run_step_arrays(arrays) for _ in range(5)]
+    torch.cuda.synchronize()
+    train_ms = (time.perf_counter() - t0) * 1e3 / 5
+    plain_ce = sum(_ext.LAUNCHES[k] for k in KERNELS)            # right after
+    losses = [float(m["loss"]) for m in metrics]
+    print(f"f32 path: 5 train steps of {TRAIN_IMAGES} x {TRAIN_CAPTIONS} x "
+          f"{TRAIN_T} (plain CE), loss by step " + ", ".join(f"{x:.4f}" for x in losses)
+          + f"; the port's kernel launches {plain_ce} (0: the JAX package "
+          "runs XLA there)")
+    if plain_ce:
+        raise AssertionError(f"f32 plain-CE steps launched {plain_ce} kernels")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"f32 loss did not fall: {losses}")
+    ce_ms = {}
+    for ce in CE_SCHEDULES[1:]:
+        ce_trainer = Trainer(train_config("AG", ce).replace(compute_dtype="float32"),
+                             device=DEV)
+        torch.cuda.synchronize()
+        _ext.reset_launches()
+        t0 = time.perf_counter()
+        m = ce_trainer.run_step_arrays(arrays)
+        torch.cuda.synchronize()
+        ce_ms[ce] = (time.perf_counter() - t0) * 1e3
+        got = {k: _ext.LAUNCHES[k] for k in KERNELS}              # right after
+        want = {k: CE_STEP_LAUNCHES[ce].get(k, 0) for k in KERNELS}
+        print(f"f32 train step under {ce}: loss {float(m['loss']):.5f}, "
+              f"launches {({k: v for k, v in got.items() if v})}")
+        if got != want or not np.isfinite(float(m["loss"])):
+            raise AssertionError(f"f32 {ce} step: launches {got} != {want}")
+        for k, v in got.items():
+            launches[k] += v
+        del ce_trainer
+    vocab = decode_vocab()
+    model = trainer.model.eval()
+    dcfg = cfg.replace(mode="inference", gen_max_len=30, beam_size=3)
+    batch = next(batchers(BATCH, "val", vocab, 7).eval_batches())
+    feats = torch.from_numpy(batch.features).to(DEV)
+    c_v = torch.from_numpy(batch.cluster_vectors).to(DEV)
+    decode_ms = {}
+    for name, over, fn_name, per_step in F32_DECODES:
+        fn = make_decode_fns(model, dcfg.replace(**over), vocab)[fn_name]
+        torch.cuda.synchronize()
+        _ext.reset_launches()
+        t0 = time.perf_counter()
+        res = fn(feats, c_v, generator=torch.Generator(device=DEV).manual_seed(5))
+        torch.cuda.synchronize()
+        decode_ms[name] = (time.perf_counter() - t0) * 1e3
+        got = {k: _ext.LAUNCHES[k] for k in KERNELS}              # right after
+        want = {k: per_step.get(k, 0) * res.steps for k in KERNELS}
+        print(f"f32 decode {name} over {BATCH} images, {res.steps} steps: "
+              f"launches {({k: v for k, v in got.items() if v})}")
+        if got != want:
+            raise AssertionError(f"f32 decode {name}: launches {got} != {want}")
+        if not bool(((res.tokens >= 0) & (res.tokens < VOCAB)).all()) or (
+                res.scores is not None and not bool(torch.isfinite(res.scores).all())):
+            raise AssertionError(f"f32 decode {name}: tokens or scores out of range")
+        for k, v in got.items():
+            launches[k] += v
+    phase_decode_compare(dcfg, vocab, model, modes=(("beam 3 f32", 3),),
+                         seeds=(7,))
+    print(f"time f32 path: train step {train_ms:.2f} ms (plain CE, host clock, "
+          f"5 steps); one step under " + ", ".join(
+              f"{k} {v:.2f} ms" for k, v in ce_ms.items())
+          + "; decode batch " + ", ".join(f"{k} {v:.2f} ms"
+                                          for k, v in decode_ms.items())
+          + f" (host clock, first call) [{label}]")
+    return launches
+
+
+class RepeatedBatch:
+    """A train batcher serving one host batch for ever."""
+
+    def __init__(self, batch: Batch):
+        self.batch = batch
+
+    def train_batches(self, num_captions: int):
+        while True:
+            yield self.batch
+
+
+def phase_profile(out_dir: str, label: str) -> dict:
+    """``Trainer.fit`` of the full-width Normal-prior CVAE under
+    ``profile=True`` for 21 steps: the trace of steps 11-20 is written and
+    its top-10 device operations printed by the Trainer; the device plane
+    must hold the port's kernels.  The trace is deleted after it is read
+    (it is large)."""
+    cfg = train_config("Normal").replace(
+        profile=True, log_dir=os.path.join(out_dir, "profile"), num_epochs=1,
+        num_ex_per_epoch=20 * TRAIN_IMAGES, prefetch_batches=0, logging=False)
+    trainer = Trainer(cfg, device=DEV)
+    torch.cuda.synchronize()
+    _ext.reset_launches()   # the profile path starts here
+    t0 = time.perf_counter()
+    try:
+        trainer.fit(RepeatedBatch(dp_batch(31)), log_every=10 ** 6)
+        torch.cuda.synchronize()
+        want = train_launches(trainer.host_step, False, "")
+        launches = {k: _ext.LAUNCHES[k] for k in want}            # right after
+        stats = trace_report.aggregate(trainer.trace_path)
+        size = os.path.getsize(trainer.trace_path)
+    finally:
+        shutil.rmtree(cfg.log_dir, ignore_errors=True)
+    device = stats.get(trace_report.DEVICE, [])
+    ours = set(port_kernel_names())
+    hits = [o for o in device if kernel_name(o.name).split("<")[0] in ours]
+    total = sum(o.duration_us for o in device)
+    print(f"profile: {trainer.host_step} steps, trace of steps 11-20 "
+          f"({size / 2 ** 20:.1f} MiB, deleted after reading): {len(device)} device "
+          f"ops, {total / 1e3:.3f} ms of device time, the port's kernels "
+          f"{sum(o.duration_us for o in hits) / 1e3:.3f} ms in "
+          f"{sum(o.count for o in hits)} launches; fit took "
+          f"{time.perf_counter() - t0:.1f} s [{label}]")
+    if trainer.host_step != 21 or not hits:
+        raise AssertionError("profile: no trace of the port's kernels")
+    if launches != want:
+        raise AssertionError(f"profile launch counts {launches} != {want}")
+    return launches
+
+
 PROFILE_STEPS = 5
 
 
@@ -3739,9 +4372,27 @@ def run_phases(out_dir: str, npz: str, label: str, t0: float) -> None:
     t_fid = time.perf_counter() - t_new
     t_new = time.perf_counter()
     by_path["dp"] = phase_dp(out_dir, label)
-    print(f"this slice's phases: wide-beam {t_wide:.1f} s, generate (AG) "
+    print(f"wide-beam, generate, fidelity and dp phases: wide-beam {t_wide:.1f} s, generate (AG) "
           f"{t_gen:.1f} s, fidelity {t_fid:.1f} s, dp "
           f"{time.perf_counter() - t_new:.1f} s")
+    seconds = {}
+    t_new = time.perf_counter()
+    by_path["decode-dp"] = phase_decode_dp(out_dir, label)
+    seconds["decode-dp"] = time.perf_counter() - t_new
+    t_new = time.perf_counter()
+    by_path["deep"] = phase_deep(label)
+    seconds["deep"] = time.perf_counter() - t_new
+    t_new = time.perf_counter()
+    wide_errors, by_path["widths"] = phase_widths(label)
+    for name, err in wide_errors.items():
+        errors[name] = max(errors[name], err)
+    seconds["widths"] = time.perf_counter() - t_new
+    for phase, fn in (("f32", phase_f32), ("profile", phase_profile)):
+        t_new = time.perf_counter()
+        by_path[phase] = fn(out_dir, label) if phase == "profile" else fn(label)
+        seconds[phase] = time.perf_counter() - t_new
+    print("decode-dp, deep, widths, f32 and profile phases: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in seconds.items()))
     times = {**phase_kernel_times(label), **phase_mode_kernel_times(label),
              **phase_train_kernel_times(label), **phase_ag_kernel_times(label),
              **phase_ce_kernel_times(label), **phase_ce_mat_kernel_times(label)}
@@ -3763,7 +4414,9 @@ def run_phases(out_dir: str, npz: str, label: str, t0: float) -> None:
              **{k: "train-gmm" for k in CE_KERNELS},
              **{k: "train-gmm-hybrid" for k in MAT_KERNELS}}
     # each kernel's launches on every path that ran it: the first path's
-    # (``path``, ``launches``) and this slice's (generate, wide-beam, dp)
+    # (``path``, ``launches``) and the other paths' (generate, wide-beam,
+    # dp; decode-dp, deep, widths, f32, profile; f32 launches only the CE
+    # and logits kernels, as the JAX package's f32 route does)
     record = {"kernels": [
         {"name": name, **meta, "path": paths[name], "launches": launches[name],
          "paths": {paths[name]: launches[name],

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card: each against its plain version,
+"""The port's CUDA kernels on the card: each against its plain version
+(also at widths no kernel instance takes, which the wrappers pad),
 the lowest-index tie rule, the wrappers' checks and launch counts, the
 sampler's bits and law, a small decode in every mode (bf16, int8,
 unfused, sampled) and a few train steps (Normal prior, AG prior, GMM prior
@@ -33,7 +34,7 @@ from vae_captioning_torch.ops.fused_ce import (
     fused_ce_dh_kernel, fused_ce_dwdb_kernel, fused_ce_fwd_kernel,
     fused_linear_ce, fused_linear_ce_hybrid, fused_linear_ce_hybrid_plain,
     fused_linear_ce_plain, fused_linear_ce_xla_bwd,
-    fused_linear_ce_xla_bwd_plain, prepare)
+    fused_linear_ce_xla_bwd_plain, pad_ce, prepare)
 from vae_captioning_torch.ops.fused_logits_topk import (
     fused_logits_sample, fused_logits_top_k, fused_logits_top_k_int8,
     fused_logits_top_k_int8_plain, fused_logits_top_k_plain,
@@ -77,7 +78,8 @@ def _lstm_args(dev, N, E, H, seed=0):
 @pytest.mark.parametrize("N,E,H", [(200, 64, 96), (1, 32, 32), (513, 256, 512),
                                    (1536, 256, 512), (5120, 256, 512),
                                    (65, 256, 512), (300, 32, 96),
-                                   (70, 256, 1536)])
+                                   (70, 256, 1536), (70, 40, 48),
+                                   (513, 300, 500)])
 def test_lstm_step_kernel_matches_plain(dev, N, E, H):
     args = _lstm_args(dev, N, E, H, seed=N)
     before = _ext.LAUNCHES["fused_lstm_step"]
@@ -240,8 +242,8 @@ def test_wrappers_check_their_inputs(dev):
     x, c, h, w, b = _lstm_args(dev, 8, 32, 32)
     with pytest.raises(ValueError, match="bfloat16"):
         fused_lstm_step(x.float(), c, h, w, b)
-    with pytest.raises(ValueError, match="multiples of 32"):
-        fused_lstm_step(x[:, :16].contiguous(), c, h, w[16:].contiguous(), b)
+    with pytest.raises(ValueError, match="disagree"):
+        fused_lstm_step(x[:, :16].contiguous(), c, h, w, b)
     with pytest.raises(ValueError, match="k=65"):     # only k > V raises
         fused_logits_top_k(h.to(torch.bfloat16), w[:32, :64].contiguous(),
                            b[:64].contiguous(), 65)
@@ -265,6 +267,113 @@ def test_decode_through_kernels_matches_plain_decode(dev):
     plain = make_decode_fns(model, cfg, vocab, ops=PLAIN_OPS)
     for name in ("beam_search", "greedy"):
         got, want = kernel[name](feats, c_v), plain[name](feats, c_v)
+        assert torch.equal(got.tokens, want.tokens), name
+        if got.scores is not None:
+            torch.testing.assert_close(got.scores, want.scores, rtol=1e-4,
+                                       atol=0)
+
+
+@pytest.mark.parametrize("H", [48, 500])
+def test_logits_kernels_at_odd_widths_match_plain(dev, H):
+    """The bf16 top-k, int8 top-k and sampler wrappers at an H their
+    kernels are not built for: the wrappers pad h and W^T with zero
+    columns (exact), launch once each, and agree with the plain versions
+    as at the built widths."""
+    M, V, k = 300, 4001, 3
+    g = torch.Generator(device=dev).manual_seed(H)
+    h = torch.tanh(torch.randn((M, H), generator=g, device=dev))
+    w = torch.randn((H, V), generator=g, device=dev) * 0.2
+    b = torch.randn((V,), generator=g, device=dev)
+    h16, w16 = h.to(torch.bfloat16), w.to(torch.bfloat16)
+    wq, ws = quantize_logits_weights(w)
+    before = dict(_ext.LAUNCHES)
+    vals, idx, lse = fused_logits_top_k(h16, w16, b, k)
+    p_vals, p_idx, p_lse = fused_logits_top_k_plain(h16, w16, b, k)
+    q = fused_logits_top_k_int8(h, wq, ws, b, k)
+    p_q = fused_logits_top_k_int8_plain(h, wq, ws, b, k)
+    tokens = fused_logits_sample(h16, w16, b, 9, 2, 0.8)
+    torch.cuda.synchronize()
+    for name in ("fused_logits_top_k", "fused_logits_top_k_int8",
+                 "fused_logits_sample"):
+        assert _ext.LAUNCHES[name] == before[name] + 1, name
+    torch.testing.assert_close(vals, p_vals, rtol=1e-5, atol=0)
+    torch.testing.assert_close(lse, p_lse, rtol=1e-5, atol=0)
+    assert torch.equal(idx, p_idx)
+    # int8: exact integer products, so values and indices bit for bit
+    assert torch.equal(q[0], p_q[0]) and torch.equal(q[1], p_q[1])
+    torch.testing.assert_close(q[2], p_q[2], rtol=1e-5, atol=0)
+    scores = sample_scores(h16, w16, b, 9, 2, 0.8)
+    top2 = scores.topk(2, dim=1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-4
+    assert torch.equal(tokens[clear], scores.argmax(dim=1).int()[clear])
+
+
+@pytest.mark.parametrize("kind", ["lstm_step", "bf16", "int8"])
+def test_a_share_of_rows_takes_the_whole_batchs_plan(dev, kind):
+    """The LSTM step's units a warpgroup and the top-k kernels' vocab
+    chunks depend on the row count (at 768 and 1536 rows both differ),
+    and so does the order of a row's sums: half of a batch given the
+    whole batch's count (``plan_rows``) returns every row bit for bit as
+    the whole batch does (decode over ranks)."""
+    M, H, V, k = 1536, 512, 11500, 3
+    g = torch.Generator(device=dev).manual_seed(31)
+    h = torch.tanh(torch.randn((M, H), generator=g, device=dev))
+    w = torch.randn((H, V), generator=g, device=dev) * 0.05
+    b = torch.randn((V,), generator=g, device=dev)
+    if kind == "lstm_step":
+        x, c, hh, wl, bl = _lstm_args(dev, M, 256, H, seed=32)
+        fn = lambda r, **kw: fused_lstm_step(x[r], c[r], hh[r], wl, bl, **kw)  # noqa: E731
+        whole = fn(slice(None))
+        half = fn(slice(M // 2, None), plan_rows=M)
+        torch.cuda.synchronize()
+        for a, r in zip(half, whole):
+            assert torch.equal(a, r[M // 2:])
+        return
+    if kind == "int8":
+        wq, ws = quantize_logits_weights(w)
+        fn = lambda x, **kw: fused_logits_top_k_int8(x, wq, ws, b, k, **kw)  # noqa: E731
+    else:
+        w16 = w.to(torch.bfloat16)
+        fn = lambda x, **kw: fused_logits_top_k(x.to(torch.bfloat16), w16, b, k, **kw)  # noqa: E731
+    whole = fn(h)
+    half = fn(h[M // 2:].contiguous(), plan_rows=M)
+    torch.cuda.synchronize()
+    for a, r in zip(half, whole):
+        assert torch.equal(a, r[M // 2:])
+
+
+@pytest.mark.parametrize("widths", [(64, 64), (40, 48)], ids=["built", "odd"])
+def test_multi_layer_decode_through_kernels_matches_plain(dev, widths):
+    """A 2-layer decoder: every step runs the LSTM step kernel once a
+    layer (the conditioning steps too), the logits kernel once, and the
+    tokens and beam scores equal the plain versions' decode."""
+    E, H = widths
+    cfg = Config(embed_size=E, latent_size=16, decoder_hidden=H,
+                 encoder_hidden=H, gen_z_samples=4, prior="AG", use_c_v=True,
+                 gen_max_len=8, beam_size=3, std=0.0, decoder_rnn_layers=2)
+    vocab = Vocabulary(["<BOS>", "<EOS>", "<UNK>"] + [f"w{i}" for i in range(500)])
+    cfg.vocab_size = vocab.vocab_size
+    model = CVAEModel.from_config(cfg)
+    rng = np.random.default_rng(1)
+    load_flax_params(model, {k: rng.normal(0, 0.3, size=s).astype(np.float32)
+                             for k, s in flax_shapes(model).items()})
+    model = model.to(dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    feats = torch.randn((16, 4096), generator=g, device=dev)
+    c_v = (torch.rand((16, 90), generator=g, device=dev) < 0.05).float()
+    kernel = make_decode_fns(model, cfg, vocab)
+    plain = make_decode_fns(model, cfg, vocab, ops=PLAIN_OPS)
+    for name in ("beam_search", "greedy"):
+        before = dict(_ext.LAUNCHES)
+        got = kernel[name](feats, c_v)
+        torch.cuda.synchronize()
+        steps = (_ext.LAUNCHES["fused_logits_top_k"]
+                 - before["fused_logits_top_k"])
+        assert steps == got.steps
+        # 3 conditioning steps (image, c_v, z) and every token step, x 2
+        assert (_ext.LAUNCHES["fused_lstm_step"] - before["fused_lstm_step"]
+                == 2 * (3 + got.steps))
+        want = plain[name](feats, c_v)
         assert torch.equal(got.tokens, want.tokens), name
         if got.scores is not None:
             torch.testing.assert_close(got.scores, want.scores, rtol=1e-4,
@@ -621,8 +730,8 @@ def test_decode_modes_through_kernels_match_plain(dev, mode):
 
 def test_new_wrappers_check_their_inputs(dev):
     h = torch.zeros((4, 96), device=dev)
-    wq = torch.zeros((96, 64), dtype=torch.int8, device=dev)
-    with pytest.raises(ValueError, match="multiple of 64"):
+    wq = torch.zeros((64, 64), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="disagree"):
         fused_logits_top_k_int8(h, wq, torch.ones(64, device=dev),
                                 torch.zeros(64, device=dev), 3)
     with pytest.raises(ValueError, match="float32"):
@@ -660,7 +769,8 @@ def _rel(a, b):
 @pytest.mark.parametrize("T,N,E,H", [(3, 70, 64, 64), (7, 1000, 256, 512),
                                      (24, 1280, 256, 512), (24, 1, 256, 512),
                                      (24, 65, 256, 512), (1, 1280, 256, 512),
-                                     (5, 600, 256, 1024)])
+                                     (5, 600, 256, 1024), (5, 70, 40, 48),
+                                     (6, 300, 300, 500)])
 def test_lstm_seq_kernels_match_plain(dev, T, N, E, H):
     """Forward and backward.  f32 sums in another order can flip an
     element of bf16(h), which moves later steps by ~1e-3, and the flips
@@ -693,7 +803,8 @@ def test_lstm_seq_kernels_match_plain(dev, T, N, E, H):
 
 @pytest.mark.parametrize("N,K,L,E", [(70, 3, 150, 64), (1000, 100, 150, 256),
                                      (1, 100, 150, 256), (65, 7, 37, 128),
-                                     (300, 5, 150, 512)])
+                                     (300, 5, 150, 512), (70, 3, 150, 40),
+                                     (300, 5, 150, 300)])
 def test_fused_z_kernels_match_plain(dev, N, K, L, E):
     g = torch.Generator(device=dev).manual_seed(N)
     mean = torch.randn((N, L), generator=g, device=dev)
@@ -760,14 +871,14 @@ def test_fused_z_eps_matches_the_plain_generator(dev, N, K, L, bits):
 
 def test_train_wrappers_check_their_inputs(dev):
     args = _seq_args(dev, 3, 8, 32, 64)
-    with pytest.raises(ValueError, match="multiples of 64"):
-        fused_lstm_seq(*args)
+    with pytest.raises(ValueError, match="int32"):
+        fused_lstm_seq(*args[:6], args[6].long())
     x, c, h, w, b = _lstm_args(dev, 8, 32, 32)
     with pytest.raises(RuntimeError, match="no backward"):
         fused_lstm_step(x, c, h, w.float().requires_grad_(), b)
-    with pytest.raises(ValueError, match="multiple of 64"):
+    with pytest.raises(ValueError, match="disagree"):
         fused_z(torch.zeros(4, 10, device=dev), torch.ones(4, 10, device=dev),
-                torch.zeros(32, 20, device=dev), torch.zeros(32, device=dev),
+                torch.zeros(32, 30, device=dev), torch.zeros(32, device=dev),
                 2, 0, 0)
 
 
@@ -776,7 +887,8 @@ def test_train_wrappers_check_their_inputs(dev):
                                      (65, 512, 90, 150), (1000, 128, 12, 150),
                                      (300, 768, 12, 150), (70, 768, 7, 37),
                                      (70, 1024, 7, 37), (130, 256, 7, 150),
-                                     (70, 64, 5, 37), (65, 64, 200, 3)])
+                                     (70, 64, 5, 37), (65, 64, 200, 3),
+                                     (70, 48, 7, 37), (300, 500, 12, 150)])
 def test_ag_heads_kernels_match_plain(dev, N, H, K, L):
     """Forward to 1e-4 of the largest element (f32 sums in another order);
     db to 1e-4 (both from f32 dq); dh, dW and dc_v to 8e-3, two bf16 steps
@@ -863,8 +975,8 @@ def test_ag_heads_backward_repeats_bit_for_bit(dev, N, H, K, L):
 
 def test_ag_heads_wrapper_checks_its_inputs(dev):
     h = torch.zeros((4, 96), device=dev)
-    with pytest.raises(ValueError, match="multiple of 64"):
-        fused_ag_heads(h, torch.zeros((2 * 3 * 5, 96), device=dev),
+    with pytest.raises(ValueError, match="disagree"):
+        fused_ag_heads(h, torch.zeros((2 * 3 * 5, 64), device=dev),
                        torch.zeros(30, device=dev), torch.zeros((4, 3), device=dev))
     with pytest.raises(ValueError, match="CPU or all on one CUDA"):
         fused_ag_heads(h[:, :64].cpu(), torch.zeros((30, 64), device=dev),
@@ -875,7 +987,8 @@ def test_ag_heads_wrapper_checks_its_inputs(dev):
                                    (77, 128, 301), (1, 512, 11500),
                                    (65, 512, 11500), (30720, 512, 11500),
                                    (1000, 256, 11519), (100, 64, 37),
-                                   (300, 64, 1921), (77, 128, 130)])
+                                   (300, 64, 1921), (77, 128, 130),
+                                   (300, 48, 2000), (77, 500, 301)])
 def test_linear_ce_kernels_match_plain(dev, M, H, V):
     """The three flash CE kernels against the plain version's VJP, about
     40% of the rows PAD (weight 0; label 0, or on every other PAD row a
@@ -903,7 +1016,7 @@ def test_linear_ce_kernels_match_plain(dev, M, H, V):
         loss = fn(*lv, labels, weights)
         loss.backward()
         losses.append(float(loss.detach()))
-    lse, ll = fused_ce_fwd_kernel(*prepare(h, w, b, labels))
+    lse, ll = fused_ce_fwd_kernel(*prepare(*pad_ce(h, w), b, labels))
     p_lse, p_ll = ce_fwd_plain(h, w, b, labels)
     torch.cuda.synchronize()
     for name in ("fwd", "dh", "dwdb"):
@@ -954,10 +1067,10 @@ def test_linear_ce_backward_repeats_bit_for_bit(dev, schedule, M, H, V):
 
 
 def test_linear_ce_wrapper_checks_its_inputs(dev):
-    h = torch.zeros((4, 96), device=dev)
+    h = torch.zeros((4, 576), device=dev)     # past the widest kernel
     lab = torch.zeros(4, dtype=torch.long, device=dev)
     with pytest.raises(ValueError, match="one of"):
-        fused_linear_ce(h, torch.zeros((30, 96), device=dev),
+        fused_linear_ce(h, torch.zeros((30, 576), device=dev),
                         torch.zeros(30, device=dev), lab, torch.ones(4, device=dev))
     with pytest.raises(ValueError, match="weights"):
         fused_linear_ce(h[:, :64], torch.zeros((30, 64), device=dev),
@@ -969,7 +1082,8 @@ def test_linear_ce_wrapper_checks_its_inputs(dev):
                                    (77, 128, 301), (1, 512, 11500),
                                    (65, 512, 11500), (30720, 512, 11500),
                                    (1000, 256, 11519), (100, 64, 37),
-                                   (300, 64, 1921), (77, 128, 130)])
+                                   (300, 64, 1921), (77, 128, 130),
+                                   (300, 48, 2000), (77, 500, 301)])
 def test_written_logits_ce_kernels_match_plain(dev, schedule, M, H, V):
     """The hybrid schedule's three kernels (the XLA forward's two backward
     ones) against the plain twin's VJP, about 40% of the rows PAD (weight
@@ -1015,7 +1129,7 @@ def test_written_logits_ce_kernels_match_plain(dev, schedule, M, H, V):
         assert _rel(a.grad, r.grad) < tol, name
     assert not leaves[0][0].grad[mask == 0].any()
     if schedule == "hybrid":
-        lg, lse, ll = ce_mat_fwd_kernel(*prepare(h, w, b, labels))
+        lg, lse, ll = ce_mat_fwd_kernel(*prepare(*pad_ce(h, w), b, labels))
         p_lg, p_lse, p_ll = ce_mat_fwd_plain(h, w, b, labels)
         torch.cuda.synchronize()
         torch.testing.assert_close(lse, p_lse, rtol=1e-5, atol=0)
@@ -1070,3 +1184,69 @@ def test_train_steps_through_kernels_match_plain(dev, prior):
         for key in ("loss", "rec_loss", "kld", "grad_norm"):
             assert abs(got[key] - want[key]) <= 2e-3 * abs(want[key]), key
     assert abs(evals[0] - evals[1]) <= 2e-3 * abs(evals[1])
+
+
+@pytest.mark.parametrize("ce", ["fused_ce", "ce_hybrid", "ce_xla_bwd"])
+def test_f32_route_launches_what_the_jax_package_runs(dev, ce):
+    """Under compute_dtype="float32" (the JAX package's f32 route) at E =
+    72, H = 100: a train step under a CE flag launches that schedule's CE
+    kernels once each and no LSTM, z or AG heads kernel, its metrics to
+    2e-3 of the same step on the CE's plain twin; beam-3 decodes, bf16
+    and int8 head, launch their logits kernel once a step and no LSTM step
+    kernel, with the plain decode's tokens (scores to rtol 1e-4)."""
+    from vae_captioning_torch.models.cvae import F32_TRAIN_OPS, PLAIN_TRAIN_OPS
+    from vae_captioning_torch.train import Trainer
+    cfg = Config(embed_size=72, latent_size=16, encoder_hidden=100,
+                 decoder_hidden=100, gen_z_samples=4, prior="AG", use_c_v=True,
+                 compute_dtype="float32", gen_max_len=8, beam_size=3,
+                 **{ce: True})
+    cfg.vocab_size = 300
+    vocab = Vocabulary(["<BOS>", "<EOS>", "<UNK>"] + [f"w{i}" for i in range(297)])
+    rng = np.random.default_rng(0)
+    B, K, T = 8, 5, 12
+    lengths = rng.integers(2, T + 1, size=B * K).astype(np.int32)
+    labels = rng.integers(3, 300, size=(B * K, T))
+    labels[np.arange(T)[None, :] >= lengths[:, None]] = 0
+    arrays = (torch.randn((B, 4096), device=dev),
+              torch.from_numpy(labels).to(dev),
+              torch.from_numpy(np.roll(labels, 1, axis=1)).to(dev),
+              torch.from_numpy(lengths).to(dev),
+              torch.from_numpy(rng.dirichlet(np.ones(90), size=B)
+                               .astype(np.float32)).to(dev))
+    plain_ce = F32_TRAIN_OPS._replace(**{f: getattr(PLAIN_TRAIN_OPS, f) for f in (
+        "linear_ce", "linear_ce_hybrid", "linear_ce_xla_bwd")})
+    want_ce = {"fused_ce": ("fused_linear_ce_fwd", "fused_linear_ce_dh",
+                            "fused_linear_ce_dwdb"),
+               "ce_hybrid": ("fused_linear_ce_mat_fwd", "fused_linear_ce_mat_dh",
+                             "fused_linear_ce_mat_dwdb"),
+               "ce_xla_bwd": ("fused_linear_ce_mat_dh",
+                              "fused_linear_ce_mat_dwdb")}[ce]
+    runs = []
+    for ops, want in ((None, dict.fromkeys(want_ce, 1)), (plain_ce, {})):
+        tr = Trainer(cfg.replace(), device=dev, **({} if ops is None else {"ops": ops}))
+        torch.cuda.synchronize()
+        before = dict(_ext.LAUNCHES)
+        runs.append({k: float(v) for k, v in tr.run_step_arrays(arrays).items()})
+        torch.cuda.synchronize()
+        got = {k: v - before.get(k, 0) for k, v in _ext.LAUNCHES.items()
+               if v != before.get(k, 0)}
+        assert got == want, (ops is None, got)
+        if ops is None:
+            model = tr.model.eval()
+    for key in ("loss", "rec_loss", "kld", "grad_norm"):
+        assert abs(runs[0][key] - runs[1][key]) <= 2e-3 * abs(runs[1][key]), key
+    feats, c_v = arrays[0][:B], arrays[4]
+    for int8, name in ((False, "fused_logits_top_k"),
+                       (True, "fused_logits_top_k_int8")):
+        c = cfg.replace(decode_int8=int8)
+        torch.cuda.synchronize()
+        before = dict(_ext.LAUNCHES)
+        got = make_decode_fns(model, c, vocab)["beam_search"](feats, c_v, eps=feats[:, :72])
+        torch.cuda.synchronize()
+        launched = {k: v - before.get(k, 0) for k, v in _ext.LAUNCHES.items()
+                    if v != before.get(k, 0)}
+        assert launched == {name: got.steps}, launched
+        want = make_decode_fns(model, c, vocab, ops=PLAIN_OPS)["beam_search"](
+            feats, c_v, eps=feats[:, :72])
+        assert torch.equal(got.tokens, want.tokens)
+        torch.testing.assert_close(got.scores, want.scores, rtol=1e-4, atol=0)

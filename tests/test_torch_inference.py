@@ -209,8 +209,8 @@ def test_decode_from_the_stored_head_equals_a_row_major_head(
         *args, eps=torch.from_numpy(eps), generator=gen())
     of = tinf.DecodeWeights.of
 
-    def row_major(model, int8=False):
-        weights = of(model, int8)
+    def row_major(model, int8=False, **layout):
+        weights = of(model, int8, **layout)
         assert not weights.head_w.is_contiguous()
         return weights._replace(head_w=weights.head_w.contiguous())
 
@@ -279,9 +279,21 @@ def test_run_inference_json_matches_jax(models, interpreted, tmp_path):
     (dict(compute_dtype="float32"), "A.11"),
 ])
 def test_uncovered_configurations_raise(models, override, item):
-    cfg, _, _, model = models
-    with pytest.raises(NotImplementedError, match=item):
-        tinf.make_decode_fns(model, cfg.replace(**override), VOCAB)
+    """These configurations raised NotImplementedError until ROADMAP
+    ``item`` ported them: a model built for them now decodes (tokens of
+    the batch's shape); an unknown compute dtype still raises
+    ValueError."""
+    cfg, _, _, _ = models
+    cfg = cfg.replace(**override)
+    model = CVAEModel.from_config(cfg)
+    feats, c_v, eps = _inputs(seed=2)
+    res = tinf.make_decode_fns(model, cfg, VOCAB)["beam_search"](
+        torch.from_numpy(feats), torch.from_numpy(c_v),
+        eps=torch.from_numpy(eps))
+    assert res.tokens.shape == (B, cfg.gen_max_len), item
+    with pytest.raises(ValueError):
+        tinf.make_decode_fns(model, cfg.replace(compute_dtype="float16"),
+                             VOCAB)
 
 
 @pytest.mark.parametrize("name", ["beam_search", "beam_search_all", "greedy"])

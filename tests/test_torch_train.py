@@ -746,11 +746,22 @@ def test_gmm_hybrid_ce_cli_training_end_to_end(mini_coco, tmp_path,
     (dict(compute_dtype="float32"), "A.11"),
 ])
 def test_uncovered_training_configurations_raise(override, item):
-    cfg = _cfg(**override)
-    with pytest.raises(NotImplementedError, match=item.replace(".", r"\.")):
-        ttrain.check_supported_training(cfg)
-    with pytest.raises(NotImplementedError, match=item.replace(".", r"\.")):
-        ttrain.Trainer(cfg, device="cpu")
+    """These configurations raised NotImplementedError until ROADMAP
+    ``item`` ported them: they are now accepted and take a step with a
+    finite loss.  What no path takes still raises ValueError: a compute
+    dtype other than bfloat16 and float32, a stack of no layer."""
+    cfg = _cfg(embed_size=32, encoder_hidden=32, decoder_hidden=32,
+               **override)
+    ttrain.check_supported_training(cfg)
+    trainer = ttrain.Trainer(cfg, device="cpu")
+    feats, enc, dec, lens = _batch(seed=3)
+    arrays = (torch.from_numpy(feats), torch.from_numpy(enc).long(),
+              torch.from_numpy(dec).long(), torch.from_numpy(lens),
+              torch.zeros(B, 90))
+    assert np.isfinite(float(trainer.run_step_arrays(arrays)["loss"])), item
+    for bad in (dict(compute_dtype="float16"), dict(decoder_rnn_layers=0)):
+        with pytest.raises(ValueError):
+            ttrain.check_supported_training(_cfg(**{**override, **bad}))
 
 
 @pytest.mark.parametrize("flags", [dict(fused_ce=True, ce_hybrid=True),

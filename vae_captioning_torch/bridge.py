@@ -13,7 +13,10 @@ arrays into a port model:
   [out, in, kh, kw];
 * an ``embedding`` becomes an ``nn.Embedding`` ``weight`` as it is;
 * an LSTM cell keeps its [E+H, 4H] ``kernel`` (x rows first), the layout
-  the CUDA kernel reads.
+  the CUDA kernel reads; a stack's cells ``cell_0``, ``cell_1``, ... are
+  its ``cells`` in order;
+* ``ops/layers.py``'s ``HighwayNetwork`` names its Dense layers ``h_<i>``
+  and ``t_<i>`` as the Flax module does, so its tree maps like any other.
 
 Every parameter the port has must be present with its shape; a key the
 port does not know, or a wrong shape, raises ``ValueError``.  The port

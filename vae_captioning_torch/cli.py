@@ -13,13 +13,15 @@ counterpart of ``vae_captioning_tpu/cli.py``.
   rank of a data-parallel group (``parallel/``): NCCL where each rank
   has a GPU of its own, gloo otherwise; rank 0 writes the checkpoint.
   ``--set debug_nans=True`` raises at the first non-finite loss, metric
-  or gradient norm and turns on autograd's anomaly detection.
-  Configurations the train slice does not cover raise
-  NotImplementedError (``train.check_supported_training``).
+  or gradient norm and turns on autograd's anomaly detection;
+  ``--set profile=True`` traces steps 11-20 into ``log_dir`` and prints
+  the top device operations (``utils/trace_report.py``).
 * ``--mode inference``: restore a checkpoint (``checkpoint.py``), decode
   the val split with ``--sample_gen`` and the test split greedily, and
   write ``val_<gen_name>.json`` / ``test_<gen_name>.json`` into the
-  working directory.
+  working directory.  With ``--set multihost=True`` under ``torchrun``
+  the ranks decode their shares of every batch and rank 0 writes the
+  files.
 
 The flags are the reference's (``config.py``, the port's copy of the
 JAX package's) plus ``--device`` (default ``cuda``).  Features come from
@@ -72,9 +74,6 @@ def run_training(cfg: Config, device: torch.device,
 
 def run_inference_mode(cfg: Config, device: torch.device,
                        data: Optional[Data] = None) -> Dict[str, str]:
-    if cfg.multihost:
-        raise NotImplementedError("not ported yet: multihost decoding (the "
-                                  "images split over ranks): ROADMAP A.9 rest")
     # the training-time config gives the model's shape; decode flags and
     # paths come from this run
     saved_cfg, vocab = load_sidecars(cfg.checkpoint_dir, cfg.checkpoint)
@@ -86,11 +85,13 @@ def run_inference_mode(cfg: Config, device: torch.device,
         raw_images_file=cfg.raw_images_file,
         checkpoint=cfg.checkpoint, checkpoint_dir=cfg.checkpoint_dir,
         fused_decode=cfg.fused_decode, decode_int8=cfg.decode_int8,
-        std=cfg.std)
+        std=cfg.std, multihost=cfg.multihost)
     check_supported(model_cfg)
     if data is None:
-        data = Data(model_cfg, extract_features=not model_cfg.fine_tune,
-                    device=device)
+        # rank 0 writes the caches, the other ranks then read them
+        data = mesh.rank_zero_first(lambda: Data(
+            model_cfg, extract_features=not model_cfg.fine_tune,
+            device=device))
     model_cfg.vocab_size = vocab.vocab_size   # Data sets its own vocab's
     print("Restoring from checkpoint")
     model, _, _ = load_model(model_cfg.checkpoint_dir, model_cfg.checkpoint,
@@ -107,7 +108,7 @@ def main(argv=None) -> None:
     known, rest = pre.parse_known_args(argv)
     cfg = parse_args(rest)
     device = torch.device(known.device)
-    if cfg.multihost and cfg.mode == "training":
+    if cfg.multihost:
         device = mesh.initialize_multihost(device)
     if cfg.debug_nans:
         torch.autograd.set_detect_anomaly(True)

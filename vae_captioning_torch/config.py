@@ -5,8 +5,11 @@ same JSON round trip and the same reference-compatible command line, so
 a ``config.json`` written by either package loads in the other.  The
 JAX package's TPU switches (``fused_*``, the CE schedules, ``mesh_axis``,
 ``optax_flatten``, ...) are kept as fields so that such files load; the
-port does not read them: its train and decode paths always run their
-CUDA kernels, and what it does not cover raises NotImplementedError
+port does not read them: its bf16 train and decode paths always run
+their CUDA kernels, at any width (padded up to the kernels' widths),
+and its f32 paths those the JAX package runs under f32 (the CE under a
+CE flag, the decode's logits kernels; ``ops/f32.py``).  What no path
+takes raises ValueError
 (``train.check_supported_training``, ``inference.check_supported``).
 """
 
@@ -111,11 +114,11 @@ class Config:
 
     # --- knobs of the JAX package (no reference equivalent) ---
     seed: int = 42
-    compute_dtype: str = "bfloat16"  # the port runs bfloat16 only (A.11)
+    compute_dtype: str = "bfloat16"  # or "float32" (ops/f32.py)
     bucket_multiple: int = 8    # pad caption length to a multiple of this
     extract_batch_size: int = 64  # VGG16 feature-extraction batch
     mesh_axis: str = "dp"       # JAX: data-parallel mesh axis name
-    profile: bool = False       # JAX: profiler traces (port: ROADMAP A.10)
+    profile: bool = False       # trace steps 11-20 into log_dir (torch.profiler)
     debug_nans: bool = False    # raise at the first non-finite loss,
                                 # metric or grad norm (Trainer); the CLI
                                 # also turns on autograd anomaly detection

@@ -9,7 +9,11 @@ the encoder (with the AG heads kernel, or the GMM head's cluster draw),
 the fused z sampling + projection and teacher forcing; the loss takes
 the CE over bf16 logits, or a fused CE over the decoder's hidden rows
 (``Config.fused_ce``, ``ce_hybrid`` or ``ce_xla_bwd``).  Every Flax parameter of every prior has its
-counterpart here.
+counterpart here.  The model computes in ``Config.compute_dtype``: bf16
+through the kernels (``KERNEL_TRAIN_OPS``), or f32 (``F32_TRAIN_OPS``):
+the LSTMs, z and AG heads in plain f32 PyTorch, as the JAX package gates
+those kernels on bf16, and the CE kernels under a CE flag, which it does
+not gate; :func:`train_ops` picks them from the configuration.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ from vae_captioning_torch.config import Config
 from vae_captioning_torch.models.decoder import Decoder, LSTMStep
 from vae_captioning_torch.models.encoder import Clusters, Encoder
 from vae_captioning_torch.ops import distributions as dist
+from vae_captioning_torch.ops.f32 import (ag_heads_f32, lstm_seq_f32,
+                                          torch_dtype, z_project_f32)
 from vae_captioning_torch.ops.fused_ag_heads import (ag_heads_plain,
                                                      fused_ag_heads)
 from vae_captioning_torch.ops.fused_ce import (
@@ -32,7 +38,7 @@ from vae_captioning_torch.ops.fused_ce import (
 from vae_captioning_torch.ops.fused_lstm_seq import (fused_lstm_seq,
                                                      fused_lstm_seq_plain)
 from vae_captioning_torch.ops.fused_z import fused_z, fused_z_plain
-from vae_captioning_torch.ops.lstm import Carry
+from vae_captioning_torch.ops.lstm import Carry, Dropout
 
 
 class TrainOps(NamedTuple):
@@ -55,12 +61,29 @@ PLAIN_TRAIN_OPS = TrainOps(fused_lstm_seq_plain, fused_z_plain,
                            ag_heads_plain, fused_linear_ce_plain,
                            fused_linear_ce_hybrid_plain,
                            fused_linear_ce_xla_bwd_plain)
+# compute_dtype="float32", the JAX package's route (ops/f32.py): the LSTM
+# sequence, the z and the AG heads in plain f32, as its bf16-gated kernels
+# give way to XLA there; a CE schedule flag keeps its kernels, which cast
+# the f32 hidden rows and head to bf16 as the JAX CE kernels do.
+F32_TRAIN_OPS = KERNEL_TRAIN_OPS._replace(lstm_seq=lstm_seq_f32,
+                                          sample_project=z_project_f32,
+                                          ag_heads=ag_heads_f32)
+
+
+def train_ops(cfg: Config, ops: Optional[TrainOps] = None) -> TrainOps:
+    """The train path's operations for ``cfg``: ``ops`` where given, else
+    the kernels under bf16 and ``F32_TRAIN_OPS`` under f32."""
+    if ops is not None:
+        return ops
+    if torch_dtype(cfg.compute_dtype) == torch.float32:
+        return F32_TRAIN_OPS
+    return KERNEL_TRAIN_OPS
 
 
 class CVAEModel(nn.Module):
-    """Construct via ``CVAEModel.from_config(cfg)``.  The decoder computes
-    in bf16 with f32 accumulation, the reference's default compute dtype;
-    ``make_decode_fns`` rejects configurations with another one."""
+    """Construct via ``CVAEModel.from_config(cfg)``.  The LSTMs and the
+    logits head compute in ``compute_dtype``: bf16 with f32 accumulation,
+    the reference's default, or f32."""
 
     def __init__(self, vocab_size: int, embed_size: int = 256,
                  latent_size: int = 150, decoder_hidden: int = 512,
@@ -69,8 +92,11 @@ class CVAEModel(nn.Module):
                  no_encoder: bool = False, use_c_v: bool = False,
                  decode_std: float = 0.1, cluster_seed: int = 0,
                  cnn_feature_size: int = 4096, encoder_hidden: int = 512,
-                 encoder_layers: int = 1, dec_keep_rate: float = 1.0):
+                 encoder_layers: int = 1, dec_keep_rate: float = 1.0,
+                 dec_lstm_drop: float = 1.0,
+                 compute_dtype: torch.dtype = torch.bfloat16):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.latent_size = latent_size
         self.gen_z_samples = gen_z_samples
         self.prior = prior
@@ -82,12 +108,13 @@ class CVAEModel(nn.Module):
                        if self.needs_c_v else None)
         self.encoder = None if no_encoder else Encoder(
             vocab_size, embed_size, encoder_hidden, latent_size,
-            encoder_layers, prior, num_clusters, use_c_v)
+            encoder_layers, prior, num_clusters, use_c_v, compute_dtype)
         self.decoder = Decoder(
             vocab_size, embed_size, decoder_hidden, decoder_layers,
             use_c_v=use_c_v,
             z_input_size=None if no_encoder else gen_z_samples * latent_size,
-            dec_keep_rate=dec_keep_rate)
+            dec_keep_rate=dec_keep_rate, dec_lstm_drop=dec_lstm_drop,
+            compute_dtype=compute_dtype)
         # fixed (non-trainable) cluster means, deterministic in the seed
         self.register_buffer("cluster_means", torch.from_numpy(
             dist.init_cluster_means(num_clusters, latent_size, cluster_seed)))
@@ -106,7 +133,8 @@ class CVAEModel(nn.Module):
             cnn_feature_size=cfg.cnn_feature_size,
             encoder_hidden=cfg.encoder_hidden,
             encoder_layers=cfg.encoder_rnn_layers,
-            dec_keep_rate=cfg.dec_keep_rate)
+            dec_keep_rate=cfg.dec_keep_rate, dec_lstm_drop=cfg.dec_lstm_drop,
+            compute_dtype=torch_dtype(cfg.compute_dtype))
 
     @property
     def needs_c_v(self) -> bool:
@@ -118,7 +146,7 @@ class CVAEModel(nn.Module):
                 c_v: Optional[torch.Tensor] = None, z_seed: int = 0,
                 z_step: int = 0, ops: TrainOps = KERNEL_TRAIN_OPS,
                 time_major: bool = True,
-                dropout: Optional[torch.Generator] = None,
+                dropout: Dropout = None,
                 return_hidden: bool = False, clusters: Clusters = None
                 ) -> Dict[str, torch.Tensor]:
         """Training and eval forward.  features [B, 4096], enc_captions
@@ -129,8 +157,9 @@ class CVAEModel(nn.Module):
         "hidden" [T, B·K, H] (the decoder's LSTM outputs, bf16) in place
         of "logits".  K is read from the shapes and the image rows and
         cluster vectors are repeated K times after the embedding.
-        (z_seed, z_step) key the fused z noise; ``dropout`` (a generator)
-        turns on the caption-input dropout; ``clusters`` is the GMM head's
+        (z_seed, z_step) key the fused z noise; ``dropout`` (a generator,
+        or a callable giving the masks) turns on the caption-input dropout
+        and the decoder's LSTM output dropout; ``clusters`` is the GMM head's
         draw over the B·K rows (indices or a generator)."""
         B = features.shape[0]
         K = enc_captions.shape[0] // B
@@ -155,7 +184,8 @@ class CVAEModel(nn.Module):
                 q_mean, q_std, self.gen_z_samples, z_seed, z_step,
                 ops.sample_project)
             out["q_mean"], out["q_std"] = q_mean, q_std
-        carry = self.decoder.init_state(images_fv, c_emb, z_dec)
+        carry = self.decoder.init_state(images_fv, c_emb, z_dec,
+                                        dropout=dropout)
         out["hidden" if return_hidden else "logits"] = (
             self.decoder.teacher_forcing(
                 carry, dec_captions, lengths, seq_fn=ops.lstm_seq,
@@ -213,12 +243,15 @@ def logits_head_params(model: CVAEModel) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def decoder_step_params(model: CVAEModel
-                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(embedding [V, E], lstm kernel [E+H, 4H], lstm bias [4H]) of the
-    decoder's single-layer cell, for the fused LSTM step kernel."""
+                        ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...],
+                                   Tuple[torch.Tensor, ...]]:
+    """(embedding [V, E], the lstm kernels [in+H, 4H] and biases [4H] of
+    every decoder layer, ``cell_0`` first), for the fused LSTM step
+    kernel."""
     dec = model.decoder
-    cell = dec.lstm.cells[0]
-    return dec.dec_embeddings.weight, cell.kernel, cell.bias
+    cells = dec.lstm.cells
+    return (dec.dec_embeddings.weight, tuple(c.kernel for c in cells),
+            tuple(c.bias for c in cells))
 
 
 # ----------------------------------------------------------------------

@@ -40,13 +40,15 @@ class Encoder(nn.Module):
     def __init__(self, vocab_size: int, embed_size: int, hidden_size: int,
                  latent_size: int, num_layers: int = 1,
                  prior: str = "Normal", num_clusters: int = 90,
-                 use_c_v: bool = False):
+                 use_c_v: bool = False,
+                 compute_dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.prior = prior
         self.use_c_v = use_c_v
         self.latent_size = latent_size
         self.enc_embeddings = nn.Embedding(vocab_size, embed_size)
-        self.lstm = LSTMStack(embed_size, hidden_size, num_layers)
+        self.lstm = LSTMStack(embed_size, hidden_size, num_layers,
+                              compute_dtype)
         half = latent_size if prior == "Normal" else num_clusters * latent_size
         self.q_heads = nn.Linear(hidden_size, 2 * half)
 

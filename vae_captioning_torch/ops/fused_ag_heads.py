@@ -18,7 +18,10 @@ On CUDA tensors :func:`fused_ag_heads` launches ``csrc/fused_ag_heads.cu``
 (forward and backward); the [N, 2·K·L] q never reaches memory in the
 forward, and the backward writes dq once in bf16 for its dW and dh
 products.  On CPU tensors it
-takes :func:`ag_heads_plain`.
+takes :func:`ag_heads_plain`.  The kernels take H in multiples of
+``K_STEP``: at other widths the wrapper zero-pads h's and W's columns
+(:func:`pad_ag_heads`; exact, the added terms are 0·0), and autograd
+slices dh and dW back.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from vae_captioning_torch import _ext
+from vae_captioning_torch.ops.padding import pad_last, round_up
 
 FWD = "fused_ag_heads_fwd"
 BWD = "fused_ag_heads_bwd"
@@ -165,20 +169,22 @@ def ag_bwd_plan(N: int, H: int, K: int, L: int, sms: int = _FWD_SMS) -> BwdPlan:
 # ----------------------------------------------------------------------
 
 def ag_heads_plain(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                   c_v: torch.Tensor) -> Pair:
+                   c_v: torch.Tensor, operands: torch.dtype = torch.bfloat16
+                   ) -> Pair:
     """The maths of ``ag_heads_xla``, differentiable by autograd: h [N, H],
     w [2·K·L, H], b [2·K·L], c_v [N, K] → (q_mean, q_std), each [N, L]
     f32.  It materialises q [N, 2·K·L] in f32 (138 MB at the train
     shapes) and its two [N, K, L] views; the gradients of h, w and c_v
-    come back rounded to bf16, as the reference's casts round them."""
+    come back rounded to bf16, as the reference's casts round them.
+    Under ``operands`` = f32 (the f32 compute path, the JAX package's f32
+    XLA heads) nothing is rounded to bf16."""
     N, K = c_v.shape
     KL = w.shape[0] // 2
     L = KL // K
-    q = (h.to(torch.bfloat16).float() @ w.to(torch.bfloat16).float().t()
-         + b.float())
+    q = h.to(operands).float() @ w.to(operands).float().t() + b.float()
     means = q[:, :KL].reshape(N, K, L)
     stds = torch.exp(q[:, KL:]).reshape(N, K, L)
-    cv16 = c_v.to(torch.bfloat16).float()
+    cv16 = c_v.to(operands).float()
     return (torch.einsum("nk,nkl->nl", cv16, means),
             torch.einsum("nk,nkl->nl", cv16, stds))
 
@@ -297,13 +303,25 @@ class _FusedAGHeads(torch.autograd.Function):
                      zip(grads, ctx.dtypes, ctx.needs_input_grad))
 
 
+def pad_ag_heads(h: torch.Tensor, w: torch.Tensor, multiple: int = K_STEP
+                 ) -> Pair:
+    """(h [N, H], w [2·K·L, H]) with H zero-padded up to a multiple of
+    ``multiple``; differentiable."""
+    Hp = round_up(h.shape[1], multiple)
+    return pad_last(h, Hp), pad_last(w, Hp)
+
+
 def fused_ag_heads(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                    c_v: torch.Tensor) -> Pair:
     """The AG heads and combine, differentiable: h [N, H], w [2·K·L, H]
     (the ``q_heads`` weight), b [2·K·L], c_v [N, K] → (q_mean, q_std),
     each [N, L] f32.  CPU tensors take :func:`ag_heads_plain`; CUDA
-    tensors launch the kernels or raise (H must be a multiple of 64)."""
+    tensors launch the kernels (at H padded to a multiple of 64) or
+    raise."""
     if _ext.on_cpu(h, w, b, c_v):
         return ag_heads_plain(h, w, b, c_v)
+    if (h.dim() == w.dim() == 2 and h.shape[1] == w.shape[1]
+            and h.shape[1] % K_STEP):
+        h, w = pad_ag_heads(h, w)
     _check(h, w, b, c_v)
     return _FusedAGHeads.apply(h, w, b, c_v)

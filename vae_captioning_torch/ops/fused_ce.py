@@ -29,6 +29,11 @@ S[label]).  Rows of weight 0 may carry any label and get dh = 0 exactly.
 
 On CPU tensors each wrapper takes its plain twin (``*_plain``), which
 carries the same VJP; on CUDA tensors it launches its kernels or raises.
+The kernels are built for H in ``KERNEL_H``: below 512 the wrappers
+zero-pad h's and W's columns up to the next of those widths
+(:func:`pad_ce`; exact, the added terms are 0·0) and autograd slices dh
+and dW back.  Past 512 they raise: the forward's 128 resident rows of h
+would take more shared memory than an SM has.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from vae_captioning_torch import _ext
+from vae_captioning_torch.ops.padding import next_width, pad_last
 
 FWD = "fused_linear_ce_fwd"
 DH = "fused_linear_ce_dh"
@@ -180,7 +186,9 @@ def _check(h, w, b, labels) -> Tuple[int, int, int]:
         f"fused_linear_ce: shapes h{tuple(h.shape)} w{tuple(w.shape)} "
         f"b{tuple(b.shape)} labels{tuple(labels.shape)} disagree")
     req(H in KERNEL_H, f"fused_linear_ce: H={H} must be one of {KERNEL_H} "
-        "(the widths the kernels are built for)")
+        f"(the widths the kernels are built for; the wrappers pad a narrower "
+        f"H up to the next one, and past {KERNEL_H[-1]} the forward's 128 "
+        "resident rows of h do not fit in an SM's shared memory)")
     req(M > 0 and V > 0, "fused_linear_ce: no rows or no vocabulary")
     return M, H, V
 
@@ -392,22 +400,32 @@ def fused_linear_ce(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     in h, w, b and weights: h [M, H], w [V, H] (the ``rnn_logits``
     weight), b [V], labels [M] int, weights [M] → a scalar f32.  CPU
     tensors take :func:`fused_linear_ce_plain`; CUDA tensors launch the
-    kernels or raise (H must be 64, 128, 256 or 512)."""
-    if _runs_plain(h, w, b, labels, weights):
+    kernels (at H padded to 64, 128, 256 or 512) or raise (H > 512)."""
+    if _ext.on_cpu(h, w, b, labels, weights):
         return fused_linear_ce_plain(h, w, b, labels, weights)
+    h, w = _kernel_operands(h, w, b, labels, weights)
     return _FusedLinearCE.apply(h, w, b, labels, weights)
 
 
-def _runs_plain(h, w, b, labels, weights) -> bool:
-    """True for CPU tensors (the plain twin runs); for CUDA tensors, raise
-    on what the kernels do not take and return False."""
-    if _ext.on_cpu(h, w, b, labels, weights):
-        return True
+def pad_ce(h: torch.Tensor, w: torch.Tensor) -> Pair:
+    """(h [M, H], w [V, H]) with H zero-padded up to the least width of
+    ``KERNEL_H`` that holds it; differentiable."""
+    Hp = next_width(h.shape[1], KERNEL_H)
+    return pad_last(h, Hp), pad_last(w, Hp)
+
+
+def _kernel_operands(h, w, b, labels, weights) -> Pair:
+    """(h, w) of CUDA tensors at a width the kernels take (padded by
+    :func:`pad_ce` below the widest); raise on what the kernels do not
+    take."""
+    if (h.dim() == w.dim() == 2 and h.shape[1] == w.shape[1]
+            and h.shape[1] not in KERNEL_H and h.shape[1] < KERNEL_H[-1]):
+        h, w = pad_ce(h, w)
     _check(h, w, b, labels)
     _ext.require(weights.shape == labels.shape,
                  f"fused_linear_ce: weights {tuple(weights.shape)} != labels "
                  f"{tuple(labels.shape)}")
-    return False
+    return h, w
 
 
 # ----------------------------------------------------------------------
@@ -615,8 +633,10 @@ class _WrittenLogitsCE(torch.autograd.Function):
 
 def _written_logits_ce(kernels: MatFns, plain: MatFns, h, w, b, labels,
                        weights) -> torch.Tensor:
-    fns = plain if _runs_plain(h, w, b, labels, weights) else kernels
-    return _WrittenLogitsCE.apply(h, w, b, labels, weights, fns)
+    if _ext.on_cpu(h, w, b, labels, weights):
+        return _WrittenLogitsCE.apply(h, w, b, labels, weights, plain)
+    h, w = _kernel_operands(h, w, b, labels, weights)
+    return _WrittenLogitsCE.apply(h, w, b, labels, weights, kernels)
 
 
 def fused_linear_ce_hybrid(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,

@@ -27,18 +27,23 @@ take the top-k + logsumexp kernel over them (``ops/topk_lse.py``), which
 counts its own.  The kernels read the head transposed, W^T [V, H] contiguous:
 the decode stores it so (``w.t().contiguous().t()``, once per build), and
 the wrappers pass ``w.t().contiguous()``, which copies nothing for that
-layout and transposes any other.
+layout and transposes any other.  The bf16 kernels take H in multiples
+of 32 and the int8 kernel in multiples of 64: at other widths the
+wrappers zero-pad h's columns and W^T's (:func:`pad_logits`, once a
+call; exact, the added terms are 0·0, and zeros leave int8's per-row
+scale as it is).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from vae_captioning_torch import _ext
 from vae_captioning_torch.ops.fused_z import philox4x32
+from vae_captioning_torch.ops.padding import pad_last, round_up
 from vae_captioning_torch.ops.topk_lse import stable_top_k, top_k_logsumexp
 
 NAME = "fused_logits_top_k"
@@ -50,6 +55,8 @@ K_MAX = 16               # the fused kernels' longest list
 _TV = 128                # vocab columns of a tile
 _LIST_K = (1, 3, 10, 16)  # the kernels' list lengths: k rounded up
 _WORKSPACE = 64 << 20    # the partials' bytes a plan may take
+WIDTH_STEP = 32          # the bf16 kernels' H comes in multiples of this
+INT8_WIDTH_STEP = 64     # the int8 kernel's
 
 Result = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -69,9 +76,11 @@ def bf16_logits(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 def fused_logits_top_k_plain(h: torch.Tensor, w: torch.Tensor,
                              b: torch.Tensor, k: int,
-                             reverse_sum: bool = False) -> Result:
+                             reverse_sum: bool = False,
+                             plan_rows: Optional[int] = None) -> Result:
     """The kernel's maths in plain PyTorch: :func:`bf16_logits`, a stable
-    sort."""
+    sort.  ``plan_rows`` is the wrapper's and changes nothing here: the
+    plain version sums a row in one order whatever the rows."""
     logits = bf16_logits(h, w, b, reverse_sum)
     vals, idx = stable_top_k(logits, k)
     return vals, idx.to(torch.int32), torch.logsumexp(logits, dim=-1)
@@ -180,20 +189,49 @@ def _write_logits(name: str, M: int, H: int, V: int, elem_bytes: int,
 
 
 def fused_logits_top_k(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                       k: int) -> Result:
+                       k: int, plan_rows: Optional[int] = None) -> Result:
     """h [M,H] bf16, w [H,V] bf16 (any layout; the kernel reads ``w.t()``
     contiguous, as the decode stores it), b [V] f32 → (values [M,k] f32,
     indices [M,k] int32, logsumexp [M] f32), 1 <= k <= V.  CPU tensors
-    take the plain version; CUDA tensors launch the kernel (past K_MAX,
-    the logits written and the top-k + logsumexp kernel) or raise.  No
+    take the plain version; CUDA tensors launch the kernel (at H padded to
+    a multiple of 32; past K_MAX, the logits written and the top-k +
+    logsumexp kernel) or raise.  No
     backward: raises RuntimeError when grad mode is on and an input
-    requires grad."""
+    requires grad.  ``plan_rows`` (default M) is the row count whose
+    launch plan the kernel takes: the plan splits the vocabulary into
+    chunks by the row count, and a row's logsumexp sums its chunks in
+    that split, so a share of a batch given the whole batch's count
+    returns each row bit for bit as the whole batch does."""
     _ext.forbid_grad(NAME, h, w, b)
     if _ext.on_cpu(h, w, b):
         return fused_logits_top_k_plain(h, w, b, k)
     _ext.require(h.dim() == w.dim() == 2,
                  f"{NAME}: h{tuple(h.shape)} and w{tuple(w.shape)} must be 2-D")
-    return logits_top_k_kernel(h, w.t().contiguous(), b, k)
+    h, w_t = pad_logits(h, w.t().contiguous())
+    return logits_top_k_kernel(h, w_t, b, k,
+                               _rows_plan(plan_rows, h, w_t.shape[0], k, 2))
+
+
+def _rows_plan(plan_rows: Optional[int], h: torch.Tensor, V: int, k: int,
+               elem_bytes: int) -> Optional[LogitsPlan]:
+    """The plan of ``plan_rows`` rows for the top-k kernels on ``h``
+    (None: the kernel's own, of h's rows)."""
+    if plan_rows is None or plan_rows == h.shape[0]:
+        return None
+    return logits_plan(plan_rows, h.shape[1], V, k if k <= K_MAX else 1,
+                       elem_bytes, _ext.sm_count(h.device.index or 0))
+
+
+def pad_logits(h: torch.Tensor, w_t: torch.Tensor,
+               multiple: int = WIDTH_STEP) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(h [M, H], w_t [V, H]) with H zero-padded up to a multiple of
+    ``multiple`` where both have H columns (else as they are, for the
+    kernel's checks to reject)."""
+    H = h.shape[-1]
+    if H % multiple == 0 or h.dim() != 2 or w_t.shape[-1] != H:
+        return h, w_t
+    Hp = round_up(H, multiple)
+    return pad_last(h, Hp), pad_last(w_t, Hp)
 
 
 def _check_bf16(name: str, h, w_t, b) -> Tuple[int, int, int]:
@@ -298,27 +336,32 @@ def int8_top_k_plain(hq: torch.Tensor, hs: torch.Tensor, wq: torch.Tensor,
 
 def fused_logits_top_k_int8_plain(h: torch.Tensor, wq: torch.Tensor,
                                   ws: torch.Tensor, b: torch.Tensor,
-                                  k: int) -> Result:
+                                  k: int, plan_rows: Optional[int] = None
+                                  ) -> Result:
     """:func:`fused_logits_top_k_int8` in plain PyTorch (the JAX
     package's ``fused_logits_top_k_int8_xla``): h quantised per row, then
-    :func:`int8_top_k_plain`."""
+    :func:`int8_top_k_plain`; ``plan_rows`` changes nothing here."""
     return int8_top_k_plain(*quantize_rows(h), wq, ws, b, k)
 
 
 def fused_logits_top_k_int8(h: torch.Tensor, wq: torch.Tensor,
                             ws: torch.Tensor, b: torch.Tensor,
-                            k: int) -> Result:
+                            k: int, plan_rows: Optional[int] = None) -> Result:
     """h [M,H] float (quantised here, per row, by plain PyTorch ops, as
     the JAX package quantises outside its kernel), wq [H,V] int8 and ws
     [V] f32 from :func:`quantize_logits_weights`, b [V] f32 → (values
     [M,k] f32, indices [M,k] int32, logsumexp [M] f32), 1 <= k <= V.
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (past K_MAX, the logits written and the top-k + logsumexp kernel) or
-    raise (H must be a multiple of 64)."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel (at
+    H padded to a multiple of 64; past K_MAX, the logits written and the
+    top-k + logsumexp kernel) or raise.  ``plan_rows`` as
+    :func:`fused_logits_top_k` takes it."""
     _ext.forbid_grad(INT8, h, wq, ws, b)
     if _ext.on_cpu(h, wq, ws, b):
         return fused_logits_top_k_int8_plain(h, wq, ws, b, k)
-    return int8_top_k_kernel(*quantize_rows(h), wq, ws, b, k)
+    hq, hs = quantize_rows(h)
+    hq, wq_t = pad_logits(hq, wq.t(), INT8_WIDTH_STEP)
+    return int8_top_k_kernel(hq, hs, wq_t.t(), ws, b, k,
+                             _rows_plan(plan_rows, hq, wq_t.shape[0], k, 1))
 
 
 def int8_top_k_kernel(hq: torch.Tensor, hs: torch.Tensor, wq: torch.Tensor,
@@ -456,8 +499,8 @@ def fused_logits_sample(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     [M,H] bf16, w [H,V] bf16 (any layout, as :func:`fused_logits_top_k`
     takes it), b [V] f32, seed and step 32-bit unsigned keys of the noise,
     row0 the first row's index in the stream → tokens [M] int32.  CPU
-    tensors take the plain version; CUDA tensors launch the kernel or
-    raise."""
+    tensors take the plain version; CUDA tensors launch the kernel (at H
+    padded to a multiple of 32) or raise."""
     _ext.forbid_grad(SAMPLE, h, w, b)
     _check_key(seed, step)
     if _ext.on_cpu(h, w, b):
@@ -465,8 +508,8 @@ def fused_logits_sample(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                                          row0)
     _ext.require(h.dim() == w.dim() == 2,
                  f"{SAMPLE}: h{tuple(h.shape)} and w{tuple(w.shape)} must be 2-D")
-    return sample_kernel(h, w.t().contiguous(), b, seed, step, temperature,
-                         row0)
+    return sample_kernel(*pad_logits(h, w.t().contiguous()), b, seed, step,
+                         temperature, row0)
 
 
 def sample_kernel(h: torch.Tensor, w_t: torch.Tensor, b: torch.Tensor,

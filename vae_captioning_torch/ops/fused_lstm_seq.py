@@ -19,6 +19,10 @@ t < lengths[n] is monotone for any integer lengths.
 
 On CUDA tensors the wrappers launch ``csrc/fused_lstm_seq.cu``; on CPU
 tensors they take :func:`lstm_seq_fwd_plain` / :func:`lstm_seq_bwd_plain`.
+The kernels take E and H in multiples of 64: at other widths
+:func:`fused_lstm_seq` zero-pads the operands (:func:`pad_lstm_seq`,
+exact: padded units stay 0) and slices the outputs back, and autograd
+slices the gradients.
 :func:`fused_lstm_seq_plain` runs the plain versions on any device.  The
 backward's plan (:func:`lstm_seq_plan`: dx's warpgroups, dW's column tile
 and row splits, the workspaces) is computed here, so the CPU tests check
@@ -33,8 +37,11 @@ from typing import NamedTuple, Tuple
 import torch
 
 from vae_captioning_torch import _ext
+from vae_captioning_torch.ops.padding import (pad_first, pad_gates, pad_last,
+                                              round_up)
 
 FWD = "fused_lstm_seq_fwd"
+WIDTH_STEP = 64     # the kernels' E and H come in multiples of this
 BWD = "fused_lstm_seq_bwd"
 
 Saved = Tuple[torch.Tensor, ...]
@@ -48,21 +55,24 @@ def _step_mask(lengths: torch.Tensor, t: int) -> torch.Tensor:
 # plain versions
 # ----------------------------------------------------------------------
 
-def lstm_seq_fwd_plain(x16, wx16, wh16, b, c0, h0, lengths
+def lstm_seq_fwd_plain(x16, wx16, wh16, b, c0, h0, lengths,
+                       operands: torch.dtype = torch.bfloat16
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                   torch.Tensor]:
     """The forward kernel's maths in plain PyTorch: x16 [T,N,E], wx16
     [E,4H], wh16 [H,4H] bf16, b [4H], c0/h0 [N,H] f32, lengths [N] int32
-    → (hs [T,N,H] bf16, cs [T,N,H] f32, ga [T,N,4H] bf16, h_T [N,H])."""
+    → (hs [T,N,H] bf16, cs [T,N,H] f32, ga [T,N,4H] bf16, h_T [N,H]).
+    Under ``operands`` = f32 (the f32 compute path) x, W and h are not
+    rounded and hs and ga stay f32."""
     T = x16.shape[0]
     H = c0.shape[1]
     wxf, whf = wx16.float(), wh16.float()
     bf = b.float()
     c, h = c0.float(), h0.float()
+    xw = x16.float() @ wxf          # every step's input product at once
     hs, cs, ga = [], [], []
     for t in range(T):
-        gates = (x16[t].float() @ wxf
-                 + h.to(torch.bfloat16).float() @ whf + bf)
+        gates = xw[t] + h.to(operands).float() @ whf + bf
         si = torch.sigmoid(gates[:, :H])
         sf = torch.sigmoid(gates[:, H:2 * H] + 1.0)
         tg = torch.tanh(gates[:, 2 * H:3 * H])
@@ -72,9 +82,9 @@ def lstm_seq_fwd_plain(x16, wx16, wh16, b, c0, h0, lengths
         m = _step_mask(lengths, t)
         c = torch.where(m, nc, c)
         h = torch.where(m, nh, h)
-        hs.append(torch.where(m, nh, 0.0).to(torch.bfloat16))
+        hs.append(torch.where(m, nh, 0.0).to(operands))
         cs.append(c)
-        ga.append(torch.cat([si, sf, tg, so], dim=-1).to(torch.bfloat16))
+        ga.append(torch.cat([si, sf, tg, so], dim=-1).to(operands))
     return torch.stack(hs), torch.stack(cs), torch.stack(ga), h
 
 
@@ -339,13 +349,31 @@ class _FusedLSTMSeq(torch.autograd.Function):
         return dx, dwx, dwh, db, dc0, dh0, None, None
 
 
+def pad_lstm_seq(x, wx, wh, b, c0, h0, multiple: int = WIDTH_STEP) -> tuple:
+    """(x, wx, wh, b, c0, h0) with E and H zero-padded up to multiples of
+    ``multiple`` (every gate block of wx, wh and b to the padded H):
+    the operands the kernels take at any width; differentiable."""
+    E, H = x.shape[-1], c0.shape[1]
+    Ep, Hp = round_up(E, multiple), round_up(H, multiple)
+    return (pad_last(x, Ep), pad_gates(pad_first(wx, Ep), H, Hp),
+            pad_gates(pad_first(wh, Hp), H, Hp), pad_gates(b, H, Hp),
+            pad_last(c0, Hp), pad_last(h0, Hp))
+
+
 def _run(x, wx, wh, b, c0, h0, lengths, plain: bool):
     _ext.require(lengths.dtype == torch.int32 and lengths.dim() == 1
                  and lengths.shape[0] == x.shape[1],
                  f"fused_lstm_seq: lengths must be int32 [{x.shape[1]}], got "
                  f"{lengths.dtype} {tuple(lengths.shape)}")
+    H = c0.shape[1]
+    padded = (not plain and (x.shape[-1] % WIDTH_STEP or H % WIDTH_STEP)
+              and not _ext.on_cpu(x, wx, wh, b, c0, h0, lengths))
+    if padded:
+        x, wx, wh, b, c0, h0 = pad_lstm_seq(x, wx, wh, b, c0, h0)
     ct, ht, hs = _FusedLSTMSeq.apply(x, wx, wh, b, c0, h0,
                                      lengths.contiguous(), plain)
+    if padded:
+        ct, ht, hs = ct[:, :H], ht[:, :H], hs[..., :H]
     return (ct, ht), hs
 
 
@@ -360,11 +388,20 @@ def fused_lstm_seq(x: torch.Tensor, wx: torch.Tensor, wh: torch.Tensor,
     ((c_T, h_T) f32, hs [T,N,H] bf16 with zeros at masked steps).  The
     gradients of x, wx, wh, b, c0 and h0 come back in their own types.
     CPU tensors take the plain versions; CUDA tensors launch the
-    kernels or raise (E and H must be multiples of 64)."""
+    kernels (at E and H padded to multiples of 64) or raise."""
     return _run(x, wx, wh, b, c0, h0, lengths, plain=False)
 
 
-def fused_lstm_seq_plain(x, wx, wh, b, c0, h0, lengths):
+def fused_lstm_seq_plain(x, wx, wh, b, c0, h0, lengths,
+                         operands: torch.dtype = torch.bfloat16):
     """:func:`fused_lstm_seq` through the plain versions on any device:
-    the CPU path, the test oracle and the card's comparison."""
+    the CPU path, the test oracle and the card's comparison.  Under
+    ``operands`` = f32 it is the f32 compute path's layer (the JAX
+    package's f32 XLA scan): nothing rounded to bf16, hs f32, and the
+    gradients by autograd of the forward."""
+    if operands == torch.float32:
+        hs, cs, _, h_t = lstm_seq_fwd_plain(
+            x.float(), wx.float(), wh.float(), b, c0, h0,
+            lengths.to(torch.int32), operands)
+        return (cs[-1], h_t), hs
     return _run(x, wx, wh, b, c0, h0, lengths, plain=True)

@@ -13,20 +13,26 @@ steps on the image, cluster-vector and z embeddings.
 
 On CUDA tensors the wrapper launches ``csrc/fused_lstm_step.cu``, whose
 [N, 4H] gates never reach device memory; on CPU tensors it takes
-:func:`fused_lstm_step_plain`, which rounds at the same points.
+:func:`fused_lstm_step_plain`, which rounds at the same points.  The
+kernel takes E and H in multiples of 32: at other widths the wrapper
+zero-pads the operands (:func:`pad_lstm_step`, exact: padded units stay
+0) and slices c' and h' back.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from vae_captioning_torch import _ext
+from vae_captioning_torch.ops.padding import (pad_gates, pad_last,
+                                              pad_lstm_kernel, round_up)
 
 NAME = "fused_lstm_step"
+WIDTH_STEP = 32     # the kernel's E and H come in multiples of this
 # the kernel (csrc/fused_lstm_step.cu, lstm_step_kernel<U>): 64 rows a
 # block, U units a warpgroup (2U a block), one block per SM (H100 SXM: 132)
 _ROWS = 64
@@ -75,14 +81,18 @@ def lstm_step_layout(E: int, H: int, units: int) -> Tuple[int, int, int]:
 def fused_lstm_step_plain(x: torch.Tensor, c: torch.Tensor, h: torch.Tensor,
                           w: torch.Tensor, b: torch.Tensor,
                           forget_bias: float = 1.0,
-                          reverse_sum: bool = False
+                          reverse_sum: bool = False,
+                          plan_rows: Optional[int] = None,
+                          operands: torch.dtype = torch.bfloat16
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's maths in plain PyTorch: bf16-rounded operands upcast
-    to f32, an f32 matmul, f32 bias and gate maths.  ``reverse_sum``
-    sums each dot product in reverse order, the same maths rounded
-    another way."""
-    zh = torch.cat([x.to(torch.bfloat16), h.to(torch.bfloat16)], dim=-1).float()
-    wf = w.to(torch.bfloat16).float()
+    """The kernel's maths in plain PyTorch: operands rounded to
+    ``operands`` (bf16, the kernel's; f32 for the f32 compute path, the
+    JAX package's f32 XLA step) and upcast to f32, an f32 matmul, f32 bias
+    and gate maths.  ``reverse_sum`` sums each dot product in reverse
+    order, the same maths rounded another way.  ``plan_rows`` is the
+    wrapper's and changes nothing here."""
+    zh = torch.cat([x.to(operands), h.to(operands)], dim=-1).float()
+    wf = w.to(operands).float()
     if reverse_sum:
         zh, wf = zh.flip(-1), wf.flip(0)
     gates = zh @ wf + b.float()
@@ -93,14 +103,28 @@ def fused_lstm_step_plain(x: torch.Tensor, c: torch.Tensor, h: torch.Tensor,
     return new_c, new_h
 
 
+def pad_lstm_step(x, c, h, w, b, multiple: int = WIDTH_STEP) -> tuple:
+    """(x, c, h, w, b) with E and H zero-padded up to multiples of
+    ``multiple``: the operands the kernel takes at any width."""
+    E, H = x.shape[1], c.shape[1]
+    Ep, Hp = round_up(E, multiple), round_up(H, multiple)
+    return (pad_last(x, Ep), pad_last(c, Hp), pad_last(h, Hp),
+            pad_lstm_kernel(w, E, H, Ep, Hp), pad_gates(b, H, Hp))
+
+
 def fused_lstm_step(x: torch.Tensor, c: torch.Tensor, h: torch.Tensor,
                     w: torch.Tensor, b: torch.Tensor,
-                    forget_bias: float = 1.0
+                    forget_bias: float = 1.0,
+                    plan_rows: Optional[int] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [N,E] bf16, c/h [N,H] f32, w [E+H,4H] bf16, b [4H] f32 →
     (c', h') [N,H] f32.  CPU tensors take the plain version; CUDA tensors
-    launch the kernel or raise.  No backward: raises RuntimeError when
-    grad mode is on and an input requires grad."""
+    launch the kernel (at E and H padded to multiples of 32) or raise.  No
+    backward: raises RuntimeError when grad mode is on and an input
+    requires grad.  ``plan_rows`` (default N) is the row count whose plan
+    picks the units a warpgroup (:func:`lstm_step_plan`): a share of a
+    batch given the whole batch's count sums each row as the whole batch
+    does."""
     _ext.forbid_grad(NAME, x, c, h, w, b)
     if _ext.on_cpu(x, c, h, w, b):
         return fused_lstm_step_plain(x, c, h, w, b, forget_bias)
@@ -115,13 +139,17 @@ def fused_lstm_step(x: torch.Tensor, c: torch.Tensor, h: torch.Tensor,
         and b.shape == (4 * H,),
         f"{NAME}: shapes x{tuple(x.shape)} c{tuple(c.shape)} "
         f"h{tuple(h.shape)} w{tuple(w.shape)} b{tuple(b.shape)} disagree")
-    req(E % 32 == 0 and H % 32 == 0,
-        f"{NAME}: E={E} and H={H} must be multiples of 32")
+    if E % WIDTH_STEP or H % WIDTH_STEP:
+        x, c, h, w, b = pad_lstm_step(x, c, h, w, b)
     req(all(t.is_contiguous() and t.data_ptr() % 16 == 0
             for t in (x, c, h, w, b)),
         f"{NAME}: inputs must be contiguous and 16-byte aligned")
-    return lstm_step_kernel(x, c, h, w, b, forget_bias,
-                            lstm_step_plan(N, E, H, _ext.sm_count(x.device.index)))
+    Ep, Hp = x.shape[1], c.shape[1]
+    units = lstm_step_plan(plan_rows or N, Ep, Hp,
+                           _ext.sm_count(x.device.index)).units
+    new_c, new_h = lstm_step_kernel(x, c, h, w, b, forget_bias,
+                                    lstm_step_geometry(N, Ep, Hp, units))
+    return (new_c, new_h) if Hp == H else (new_c[:, :H], new_h[:, :H])
 
 
 def lstm_step_kernel(x, c, h, w, b, forget_bias: float, plan: StepPlan

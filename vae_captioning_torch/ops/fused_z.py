@@ -28,7 +28,9 @@ versions, which also accept an explicit ``eps`` (the tests feed both
 sides the same numbers).  What the kernels take besides the operands,
 the column width, W's row pitch and the splits of the sample axis, and
 the sizes of their workspaces are :func:`z_plan`'s, so the CPU tests
-check them.
+check them.  The kernels take E in multiples of 64: at other widths
+:func:`fused_z` zero-pads W's rows and b (:func:`pad_z`; the noise does
+not depend on E) and slices the output's columns back.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from typing import NamedTuple
 import torch
 
 from vae_captioning_torch import _ext
+from vae_captioning_torch.ops.padding import pad_first, round_up
 
 FWD = "fused_z_fwd"
 BWD = "fused_z_bwd"
@@ -49,6 +52,7 @@ EPS = "fused_z_eps"
 _ROWS = 128               # rows of a forward or dμ/dσ block
 _BOX = 64                 # latent columns of a box
 _WIDTHS = (256, 192, 128, 64)   # column widths the kernels are built for
+WIDTH_STEP = 64           # the kernels' E comes in multiples of this
 _SMS = 132                # the H100's SMs, for plans made without a card
 _EPS_LATENT_MAX = 14528   # the eps kernel's widest row: four in shared memory
 _MASK32 = 0xFFFFFFFF
@@ -133,17 +137,22 @@ def _check_seed(seed: int, step: int) -> None:
 # plain versions
 # ----------------------------------------------------------------------
 
-def _samples16(mean, std, eps) -> torch.Tensor:
-    """bf16(μ + σ·eps) as f32, [N, K, L]."""
-    return (mean[:, None, :] + std[:, None, :] * eps).to(torch.bfloat16).float()
+def _samples16(mean, std, eps, operands: torch.dtype = torch.bfloat16
+               ) -> torch.Tensor:
+    """bf16(μ + σ·eps) as f32, [N, K, L] (unrounded under f32
+    ``operands``)."""
+    return (mean[:, None, :] + std[:, None, :] * eps).to(operands).float()
 
 
-def z_fwd_plain(mean, std, w16, b, n_samples: int, eps) -> torch.Tensor:
-    """The forward kernel's maths: eps [N, K, L] → [N, E] bf16."""
+def z_fwd_plain(mean, std, w16, b, n_samples: int, eps,
+                operands: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The forward kernel's maths: eps [N, K, L] → [N, E] bf16; under
+    f32 ``operands`` (the f32 compute path) nothing is rounded and the
+    result is f32."""
     N = mean.shape[0]
-    z16 = _samples16(mean.float(), std.float(), eps).reshape(N, -1)
-    acc = z16 @ w16.float().t()
-    return acc.to(torch.bfloat16) + b.to(torch.bfloat16)
+    z16 = _samples16(mean.float(), std.float(), eps, operands).reshape(N, -1)
+    acc = z16 @ w16.to(operands).float().t()
+    return acc.to(operands) + b.to(operands)
 
 
 def z_bwd_plain(mean, std, w16, n_samples: int, eps, g
@@ -381,6 +390,14 @@ class _FusedZ(torch.autograd.Function):
                 None, None, None, None, None)
 
 
+def pad_z(w: torch.Tensor, b: torch.Tensor, multiple: int = WIDTH_STEP
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(w [E, K·L], b [E]) with E zero-padded up to a multiple of
+    ``multiple``; differentiable."""
+    Ep = round_up(w.shape[0], multiple)
+    return pad_first(w, Ep), pad_first(b, Ep)
+
+
 def fused_z(mean: torch.Tensor, std: torch.Tensor, w: torch.Tensor,
             b: torch.Tensor, n_samples: int, seed: int, step: int
             ) -> torch.Tensor:
@@ -390,18 +407,31 @@ def fused_z(mean: torch.Tensor, std: torch.Tensor, w: torch.Tensor,
     mean/std [N, L], w [E, n_samples·L] (the ``nn.Linear`` weight), b
     [E]; seed and step are 32-bit unsigned keys of the noise.  Returns
     [N, E] bf16.  CPU tensors take the plain versions; CUDA tensors
-    launch the kernels or raise (E must be a multiple of 64)."""
+    launch the kernels (at E padded to a multiple of 64) or raise."""
     _check_seed(seed, step)
+    E = w.shape[0]
+    if E % WIDTH_STEP and not _ext.on_cpu(mean, std, w, b):
+        w, b = pad_z(w, b)
+        return _FusedZ.apply(mean, std, w, b, n_samples, seed, step, None,
+                             False)[:, :E]
     return _FusedZ.apply(mean, std, w, b, n_samples, seed, step, None, False)
 
 
 def fused_z_plain(mean, std, w, b, n_samples: int, seed: int = 0,
-                  step: int = 0, eps: Optional[torch.Tensor] = None
-                  ) -> torch.Tensor:
+                  step: int = 0, eps: Optional[torch.Tensor] = None,
+                  operands: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """:func:`fused_z` through the plain versions on any device, with
-    the noise from (seed, step) or from an explicit ``eps`` [N, K, L]."""
+    the noise from (seed, step) or from an explicit ``eps`` [N, K, L].
+    Under ``operands`` = f32 it is the f32 compute path's z (the JAX
+    package's f32 XLA sampling and projection): nothing rounded to bf16,
+    an f32 result, the gradients by autograd of the forward."""
     _check_seed(seed, step)
     if eps is not None:
         _ext.require(eps.shape == (mean.shape[0], n_samples, mean.shape[1]),
                      f"fused_z: eps shape {tuple(eps.shape)}")
+    if operands == torch.float32:
+        if eps is None:
+            eps = philox_normals(seed, step, mean.shape[0], n_samples,
+                                 mean.shape[1], device=mean.device)
+        return z_fwd_plain(mean, std, w, b, n_samples, eps.float(), operands)
     return _FusedZ.apply(mean, std, w, b, n_samples, seed, step, eps, True)

@@ -1,5 +1,5 @@
-"""The train path's data-parallel hooks (counterpart of the train half of
-``vae_captioning_tpu/parallel/kernel_shard.py``).
+"""The data-parallel hooks of the train step and of the decode
+(counterpart of ``vae_captioning_tpu/parallel/kernel_shard.py``).
 
 The JAX package wraps each train kernel in ``shard_map`` over the ``dp``
 axis.  Here each rank runs the kernels on its own rows as they are: the
@@ -21,7 +21,20 @@ depends on the whole batch:
   distinct noise, and the device generators (dropout, the GMM cluster
   draws) are seeded per rank (``seed``).  On one rank nothing is folded.
 
-The decode half (``generate_captions`` over ranks) is ROADMAP A.9 rest.
+The decode half.  The JAX package shards each decode kernel's rows over
+the ``dp`` axis (its ``lstm_step``, ``logits_top_k``,
+``logits_top_k_int8``, ``topk_lse`` and ``logits_sample`` wrappers):
+every decode kernel is row-independent, so the shards need no
+collective.  Here a rank decodes its contiguous share of a batch's
+images (:meth:`DataParallel.shard_rows`: the batch padded with zero rows
+to a multiple of the ranks) through the kernels as they are, and the
+ranks' tokens and scores are gathered (:meth:`DataParallel.gather_rows`)
+with the padding dropped.  The sampler folds the rank into its seed with
+the same formula (the JAX ``logits_sample``), so the ranks' Gumbel
+streams differ.  ``inference.make_decode_fns`` runs ``decode_init`` on
+the whole batch on every rank (the z draws and each row's carry are one
+process's) and shares out the carry, so beam and greedy decode row for
+row as one process does.
 """
 
 from __future__ import annotations
@@ -29,6 +42,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 from vae_captioning_torch.parallel import mesh
 
@@ -67,6 +81,25 @@ class DataParallel:
         ``labels`` [..., T]: None on one rank (each mean counts its own
         batch), else :func:`batch_counts`."""
         return None if self.world == 1 else batch_counts(labels)
+
+    def shard_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's contiguous share of ``x``'s rows, ``x`` padded with
+        zero rows to a multiple of the ranks first (``x`` itself on one
+        rank)."""
+        if self.world == 1:
+            return x
+        per = -(-x.shape[0] // self.world)
+        if per * self.world != x.shape[0]:
+            x = torch.cat([x, x.new_zeros((per * self.world - x.shape[0],
+                                           *x.shape[1:]))])
+        return x[self.rank * per:(self.rank + 1) * per]
+
+    def gather_rows(self, x: torch.Tensor, n: int) -> torch.Tensor:
+        """Every rank's :meth:`shard_rows` result ``x``, in rank order, the
+        padding dropped: the first ``n`` rows."""
+        if self.world == 1:
+            return x
+        return mesh.all_gather_rows(x)[:n]
 
 
 def batch_counts(labels: np.ndarray) -> Tuple[float, float]:

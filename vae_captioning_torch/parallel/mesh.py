@@ -116,6 +116,27 @@ def broadcast_(tensors: Sequence[torch.Tensor], src: int = 0) -> None:
                 t.copy_(staged)
 
 
+def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
+    """Every rank's ``x`` (one shape on every rank) concatenated along
+    dim 0 in rank order, on ``x``'s device."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return x
+    staged = x.detach().contiguous()
+    staged = staged.cpu() if _staged([staged]) else staged
+    parts = [torch.empty_like(staged) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, staged)
+    return torch.cat(parts).to(x.device)
+
+
+def broadcast_object(obj: T, src: int = 0) -> T:
+    """Rank ``src``'s ``obj`` (picklable) on every rank."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src)
+    return box[0]
+
+
 def gather_objects(obj: T) -> List[T]:
     """Every rank's ``obj`` (picklable), in rank order, on every rank."""
     if not dist.is_initialized() or dist.get_world_size() == 1:

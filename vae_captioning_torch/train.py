@@ -39,6 +39,20 @@ the device until a log step reads them; under ``Config.debug_nans`` each
 step reads them once and raises ``FloatingPointError`` at the first
 non-finite loss, metric or gradient norm (:func:`check_finite`).
 
+The step computes in ``Config.compute_dtype``: bf16 through the kernels,
+or f32 with TF32 off (``models/cvae.py``: ``train_ops``), its LSTMs, z
+and AG heads in plain f32 PyTorch, as the JAX package gates those
+kernels on bf16, and a CE schedule flag's CE on its kernels, as the JAX
+package runs its CE kernels under f32 too.
+Encoder and decoder stacks of any depth run the sequence kernel layer by
+layer; ``dec_lstm_drop`` < 1 drops the decoder's LSTM outputs with masks
+drawn from the Trainer's device generator (the one of the caption-input
+dropout).  ``Config.profile`` traces host steps 11-20 with
+``torch.profiler`` (CPU and CUDA activities), writes the Chrome trace into
+``cfg.log_dir`` and prints its top device operations
+(``utils/trace_report.py``), as the JAX package traces steps 10-20 with
+``jax.profiler`` and summarises them with ``utils/xplane.py``.
+
 Under ``Config.multihost`` the Trainer is one rank of a data-parallel
 group (``parallel/``, the counterpart of the JAX ``dp`` mesh): every
 rank builds the same global batch and takes its contiguous rows
@@ -48,13 +62,13 @@ global loss (its means divided by the global batch's counts,
 ``kernel_shard.DataParallel.counts``) and the gradients are summed over
 the ranks before the clip, so a step over ranks is the step over the
 global batch.  The ranks' noise differs: the z seeds and the device
-generators are folded with the rank.  Rank 0 alone prints, logs, runs
-the quality hook and writes ``params.npz`` and the train states, which
-hold every rank's generator states.
+generators are folded with the rank.  Every rank runs the quality hook
+(the decode split over the ranks, the scores broadcast from rank 0); rank
+0 alone prints, logs, profiles and writes ``params.npz`` and the train
+states, which hold every rank's generator states.
 
-Configurations this port does not train raise NotImplementedError in
-:func:`check_supported_training`, naming their ROADMAP item; more than
-one CE schedule flag raises ValueError.
+More than one CE schedule flag, an unknown compute dtype or optimizer
+raises ValueError (:func:`check_supported_training`).
 """
 
 from __future__ import annotations
@@ -74,15 +88,17 @@ from vae_captioning_torch.checkpoint import (Checkpointer, TrainState,
                                              check_arrays, save_params)
 from vae_captioning_torch.config import Config
 from vae_captioning_torch.data.batcher import Batch
-from vae_captioning_torch.models.cvae import (KERNEL_TRAIN_OPS, CVAEModel,
-                                              TrainOps, compute_loss)
+from vae_captioning_torch.models.cvae import (CVAEModel, TrainOps,
+                                              compute_loss, train_ops)
 from vae_captioning_torch.models.finetune import (FineTuneModel, cvae_of,
                                                   load_vgg_into_params)
 from vae_captioning_torch.models.encoder import Clusters
 from vae_captioning_torch.ops import distributions as dist
+from vae_captioning_torch.ops.f32 import exact_matmuls, torch_dtype
 from vae_captioning_torch.parallel import mesh
 from vae_captioning_torch.parallel.kernel_shard import SINGLE, DataParallel
-from vae_captioning_torch.utils.logging import MetricLogger
+from vae_captioning_torch.utils import trace_report
+from vae_captioning_torch.utils.logging import MetricLogger, make_profiler
 from vae_captioning_torch.utils.prefetch import Prefetcher
 
 Arrays = Tuple[torch.Tensor, ...]   # features, enc, dec, lengths, c_v
@@ -91,33 +107,23 @@ Counts = Optional[Tuple[float, float]]
 
 
 CE_FLAGS = ("fused_ce", "ce_hybrid", "ce_xla_bwd")
+# Config.profile: the host steps after which the trace starts and stops
+PROFILE_START, PROFILE_STOP = 10, 20
 
 
 def check_supported_training(cfg: Config) -> None:
     """Raise ValueError when more than one CE schedule flag is set (the
-    JAX package picks one of them silently), and NotImplementedError for
-    what the port does not train yet (each would need a kernel or a path
-    not ported yet), naming the ROADMAP item that will."""
+    JAX package picks one of them silently), for an unknown compute dtype
+    or optimizer, or for a stack of fewer than one layer."""
     ce_flags = [name for name in CE_FLAGS if getattr(cfg, name)]
     if len(ce_flags) > 1:
         raise ValueError(f"set at most one CE schedule of {CE_FLAGS}, got "
                          f"{ce_flags}")
-    gates = [
-        (cfg.dec_lstm_drop < 1.0,
-         f"dec_lstm_drop={cfg.dec_lstm_drop} (LSTM output dropout, the JAX "
-         "package's nn.scan path, not the sequence kernel): ROADMAP A.11"),
-        (cfg.encoder_rnn_layers != 1 or cfg.decoder_rnn_layers != 1,
-         f"encoder_rnn_layers={cfg.encoder_rnn_layers}, decoder_rnn_layers="
-         f"{cfg.decoder_rnn_layers}: the train slice runs one LSTM layer "
-         "(ROADMAP A.11)"),
-        (str(cfg.compute_dtype) != "bfloat16",
-         f"compute_dtype={cfg.compute_dtype!r}: the train slice runs "
-         "bfloat16 (ROADMAP A.11)"),
-        (cfg.profile, "profile (a profiler trace of steps 10-20): ROADMAP A.10"),
-    ]
-    for failed, what in gates:
-        if failed:
-            raise NotImplementedError(f"not ported yet: {what}")
+    torch_dtype(cfg.compute_dtype)
+    if min(cfg.encoder_rnn_layers, cfg.decoder_rnn_layers) < 1:
+        raise ValueError(f"encoder_rnn_layers={cfg.encoder_rnn_layers}, "
+                         f"decoder_rnn_layers={cfg.decoder_rnn_layers}: at "
+                         "least one layer each")
     for kind in (cfg.optimizer, cfg.cnn_optimizer):
         if kind not in ("Adam", "SGD", "Momentum"):
             raise ValueError(f"unknown optimizer {kind!r}")
@@ -308,7 +314,7 @@ def make_finetune_optimizer(cfg: Config, model: FineTuneModel
 # ----------------------------------------------------------------------
 
 def make_train_step(model: nn.Module, optimizer, cfg: Config,
-                    ops: TrainOps = KERNEL_TRAIN_OPS,
+                    ops: Optional[TrainOps] = None,
                     dp: DataParallel = SINGLE) -> Callable:
     """``step_fn(step, features, enc, dec, lengths, c_v, z_seed,
     dropout=None, clusters=None, cnn_dropout=None, counts=None) ->
@@ -322,13 +328,17 @@ def make_train_step(model: nn.Module, optimizer, cfg: Config,
     On data-parallel ranks (``dp``) ``counts`` must hold the global
     batch's (tokens, rows): the loss is this rank's share of the global
     loss, and the gradients and the loss's terms are summed over the ranks
-    before the update."""
+    before the update.  ``ops`` defaults to :func:`train_ops`'s for
+    ``cfg``; ``dropout`` (a generator, or a callable giving the masks)
+    drives the caption-input and LSTM output dropout."""
     force_one = cfg.fine_tune or cfg.restore
     params = optimizer.params
+    ops = train_ops(cfg, ops)
     loss_args = _loss_args(cvae_of(model), cfg, ops)
     hidden = loss_args["logits_params"] is not None
     fine_tune = isinstance(model, FineTuneModel)
 
+    @_in_compute_dtype(cfg)
     def step_fn(step: int, features, enc, dec, lengths, c_v, z_seed: int,
                 dropout: Optional[torch.Generator] = None,
                 clusters: Clusters = None,
@@ -358,17 +368,35 @@ def make_train_step(model: nn.Module, optimizer, cfg: Config,
     return step_fn
 
 
+def _in_compute_dtype(cfg: Config) -> Callable:
+    """A decorator: under f32, the step runs with TF32 off."""
+    f32 = torch_dtype(cfg.compute_dtype) == torch.float32
+
+    def wrap(fn: Callable) -> Callable:
+        if not f32:
+            return fn
+
+        def wrapped(*args, **kwargs):
+            with exact_matmuls():
+                return fn(*args, **kwargs)
+        return wrapped
+
+    return wrap
+
+
 def make_eval_step(model: nn.Module, cfg: Config,
-                   ops: TrainOps = KERNEL_TRAIN_OPS,
+                   ops: Optional[TrainOps] = None,
                    dp: DataParallel = SINGLE) -> Callable:
     """``eval_fn(features, enc, dec, lengths, c_v, z_seed, clusters=None)
     -> rec_loss`` (the reference validates the rec-loss only), without
     gradients: under a CE schedule flag it runs that CE's forward only
     (the hybrid's written logits are freed on return).  On
     data-parallel ranks, this rank's share of the global rec-loss."""
+    ops = train_ops(cfg, ops)
     loss_args = _loss_args(cvae_of(model), cfg, ops)
     hidden = loss_args["logits_params"] is not None
 
+    @_in_compute_dtype(cfg)
     @torch.no_grad()
     def eval_fn(features, enc, dec, lengths, c_v, z_seed: int,
                 clusters: Clusters = None, counts: Counts = None
@@ -431,12 +459,13 @@ class Trainer:
     tree, nested or flat) or from :func:`init_flax_params` at
     ``cfg.seed``, with, for a fine-tune model, VGG16's weights read from
     ``cfg.image_net_weights_path`` when that file exists; ``ops`` picks
-    the kernels or the plain versions."""
+    the kernels or the plain versions (by default :func:`train_ops`'s:
+    the kernels under bf16, the f32 operations under f32)."""
 
     def __init__(self, cfg: Config, vocab_size: Optional[int] = None,
                  device: torch.device | str = "cuda",
                  params: Optional[Mapping] = None,
-                 ops: TrainOps = KERNEL_TRAIN_OPS):
+                 ops: Optional[TrainOps] = None):
         if vocab_size is not None:
             cfg.vocab_size = vocab_size
         check_supported_training(cfg)
@@ -472,8 +501,9 @@ class Trainer:
         # each folding the rank in); the eval seed is fixed
         self.seeds = torch.Generator().manual_seed(cfg.seed + 1)
         self.eval_seed = self.dp.seed((cfg.seed + 1) & 0xFFFFFFFF)
+        # the caption-input and the LSTM output dropout's masks
         self.dropout = None
-        if cfg.dec_keep_rate < 1.0:
+        if cfg.dec_keep_rate < 1.0 or cfg.dec_lstm_drop < 1.0:
             self.dropout = self._device_generator(cfg.seed + 2)
         # the GMM head's cluster draws: a device generator (tests may set
         # fixed indices [B·K] instead)
@@ -485,6 +515,10 @@ class Trainer:
         if cfg.fine_tune and self.model.vgg16.dropout_keep < 1.0:
             self.cnn_dropout = self._device_generator(cfg.seed + 4)
         self.host_step = 0
+        # Config.profile: the running profiler, and the trace it wrote
+        self._profiler: Optional[torch.profiler.profile] = None
+        self._profile_first = 0
+        self.trace_path: Optional[str] = None
 
     def _device_generator(self, seed: int) -> torch.Generator:
         """A generator on the device, seeded per rank."""
@@ -681,7 +715,8 @@ class Trainer:
         epoch) merged into the printed line, the metric log and the
         result, and, with ``checkpoint_dir``, a checkpoint in
         ``<checkpoint_dir>/<checkpoint_name>/`` (``save_checkpoint``;
-        every ``cfg.ckpt_every_steps`` steps as well)."""
+        every ``cfg.ckpt_every_steps`` steps as well).  Under
+        ``cfg.profile`` rank 0 traces host steps 11-20 (:meth:`_profile`)."""
         cfg = self.cfg
         ckpt = None
         if checkpoint_dir is not None:
@@ -693,8 +728,7 @@ class Trainer:
         if cfg.logging and self.is_main:
             logger = MetricLogger(cfg.log_dir, echo=False,
                                   run_name=cfg.checkpoint)
-        if not self.is_main:
-            quality_hook = None
+        profiling = cfg.profile and self.is_main
         for epoch in range(cfg.num_epochs):
             seen = 0
             t0 = time.time()
@@ -709,6 +743,8 @@ class Trainer:
                         m = self.run_step(batch)
                         seen += batch.batch_size
                         step = self.host_step
+                        if profiling:
+                            self._profile(step)
                         if step % log_every == 0:
                             metrics = {k: float(v) for k, v in m.items()}
                             rate = seen / max(time.time() - t0, 1e-9)
@@ -743,11 +779,15 @@ class Trainer:
                 metrics["val_rec_loss"] = val_rec
                 epoch_extra["val_rec_loss"] = val_rec
                 if quality_hook is not None:
+                    # every rank decodes its share of each batch from one
+                    # generator state (the seed unfolded), and the numbers
+                    # are rank 0's
                     qm = quality_hook(self.model, val_batcher,
                                       torch.Generator(device=self.device)
-                                      .manual_seed(self.eval_seed + epoch))
-                    print("Validation metrics: " + " ".join(
-                        f"{k}: {v}" for k, v in qm.items()))
+                                      .manual_seed(cfg.seed + 1 + epoch))
+                    if self.is_main:
+                        print("Validation metrics: " + " ".join(
+                            f"{k}: {v}" for k, v in qm.items()))
                     metrics.update(qm)
                     epoch_extra.update(qm)
             if logger is not None:
@@ -757,4 +797,30 @@ class Trainer:
                 self.save_checkpoint(ckpt)
         if logger is not None:
             logger.close()
+        if self._profiler is not None:      # the run ended inside the window
+            self._profile(PROFILE_STOP)
         return dict(metrics) if metrics else {"loss": float("nan")}
+
+    def _profile(self, step: int) -> None:
+        """``Config.profile``, after host step ``step``: start
+        ``torch.profiler`` (CPU activities, and CUDA on a card) at
+        PROFILE_START; at PROFILE_STOP stop it, write the Chrome trace to
+        ``<log_dir>/trace_steps<first>-<last>.json`` (``trace_path``) and
+        print its top-10 device operations (``utils/trace_report.py``,
+        which raises on a missing or empty trace)."""
+        if step == PROFILE_START and self._profiler is None:
+            self._profiler = make_profiler(self.device.type == "cuda")
+            self._profiler.start()
+            self._profile_first = step + 1
+        elif step == PROFILE_STOP and self._profiler is not None:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self._profiler.stop()
+            os.makedirs(self.cfg.log_dir, exist_ok=True)
+            path = os.path.join(self.cfg.log_dir, f"trace_steps"
+                                f"{self._profile_first}-{self.host_step}.json")
+            self._profiler.export_chrome_trace(path)
+            self._profiler = None
+            self.trace_path = path
+            print(f"profiler trace written to {path}")
+            print(trace_report.device_report(trace_report.aggregate(path), 10))

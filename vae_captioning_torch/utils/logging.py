@@ -1,6 +1,7 @@
 """Metrics and logging (the port's copy of
-``vae_captioning_tpu/utils/logging.py``, without its ``jax.profiler``
-trace context: the port's profiler pass is ROADMAP A.10).
+``vae_captioning_tpu/utils/logging.py``; its trace context
+:func:`profile_trace` records ``torch.profiler`` where that one records
+``jax.profiler``).
 
 The reference's observability is print statements every 500 steps
 (``main.py:246-251``).  Here: a structured metric logger (console +
@@ -10,10 +11,11 @@ examples/sec.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
 
 
 class MetricLogger:
@@ -64,3 +66,31 @@ class Throughput:
                           + (1 - self._alpha) * inst)
         self._last = now
         return self._rate
+
+
+def make_profiler(cuda: bool):
+    """A ``torch.profiler.profile`` of the CPU activities, and of the CUDA
+    ones under ``cuda`` (not started)."""
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if cuda:
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    return torch.profiler.profile(activities=activities)
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str, enabled: bool = True,
+                  name: str = "trace.json") -> Iterator[None]:
+    """Record the block with :func:`make_profiler` (CUDA activities where a
+    card is present) and write its Chrome trace to ``<log_dir>/<name>``
+    (read it with ``utils/trace_report.py`` or Perfetto)."""
+    if not enabled:
+        yield
+        return
+    import torch
+
+    os.makedirs(log_dir, exist_ok=True)
+    with make_profiler(torch.cuda.is_available()) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(log_dir, name))
