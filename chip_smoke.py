@@ -35,9 +35,10 @@ Phases, in order; any failure raises and the script exits nonzero:
    (``fused_linear_ce_hybrid``: the forward that writes the bf16 logits,
    dh and dW/db over them) at the train shapes, with the train batch's
    PAD rows, and ragged ones (both also at one row, one row past a tile,
-   every width and a vocabulary smaller than a tile; the flash forward
-   twice, bit for bit; the written-logits kernels with labels past V on
-   rows of weight 0, each twice, bit for bit);
+   every width and a vocabulary smaller than a tile; each kernel twice,
+   bit for bit; the written-logits kernels with labels past V on rows of
+   weight 0), and both past 512: H = 576, 1000 (padded to 1024), 1024
+   and 2048 at the train shapes and the ragged ones, and 4096 once;
 4. decode path: the full-width AG-CVAE (random weights from a seed, in
    the Flax layout, through the bridge) decodes synthetic features
    through ``run_inference`` at beam 3, beam 10 and greedy, writing the
@@ -133,10 +134,20 @@ Phases, in order; any failure raises and the script exits nonzero:
    under each CE flag launching its CE kernels, and beam-3, int8, sampled
    and beam-20 batches through the logits kernels after f32 LSTM steps,
    with exact launches, beam 3 compared with the plain decode);
-   ``profile`` (``Trainer.fit`` of the Normal CVAE under ``profile=True``:
-   the trace of steps 11-20 holds the port's kernels);
+   ``wide`` (the reference's widths with encoder and decoder at H =
+   1024, where the CE kernels run their instances past 512: the
+   GMM-CVAE under the flash, hybrid and XLA-forward CE, 10 steps each
+   with exact launches and a falling loss and 3 against the plain
+   versions; the AG-CVAE under the flash CE likewise, then
+   ``run_inference`` on 512 val images at beam 3 and 512 test images
+   greedy with exact launches, compared with the plain decode caption by
+   caption; one f32 step under the flash CE; the step's time and peak
+   memory under the four CE schedules); ``profile`` (``Trainer.fit`` of
+   the Normal CVAE under ``profile=True``: the trace of steps 11-20
+   holds the port's kernels);
 12. times: each kernel against its plain version and, where one PyTorch
-   call or a short chain of them computes the same function, that call;
+   call or a short chain of them computes the same function, that call
+   (the six CE kernels also at H = 1024);
    decode batches (every mode) and train steps (Normal, AG and GMM),
    kernel path against plain path, in turns; the GMM step and the Normal
    step under the four CE schedules (plain CE over bf16 logits, flash,
@@ -2064,12 +2075,14 @@ def ce_inputs(M: int, V: int, seed: int, labels=None, H: int = HIDDEN):
 
 def check_fused_ce(M: int, V: int, labels=None, H: int = HIDDEN) -> dict:
     """The three kernels against the plain version on the same inputs (the
-    backward ones from the plain lse, so both see the same operands), the
-    forward twice, bit for bit; returns each kernel's max |kernel -
-    plain|."""
+    backward ones from the plain lse, so both see the same operands; h and
+    W padded as the wrappers pad them, to fused_ce.ce_width(H), the plain
+    version unpadded), each twice, bit for bit; returns each kernel's max
+    |kernel - plain|."""
     h, w, b, labels, weights = ce_inputs(M, V, seed=M + V, labels=labels, H=H)
-    ops = fused_ce.prepare(h, w, b, labels)
-    tag = f"fused_linear_ce M={M} H={H} V={V}"
+    ops = fused_ce.prepare(*fused_ce.pad_ce(h, w), b, labels)
+    Hp = ops[0].shape[1]
+    tag = f"fused_linear_ce M={M} H={H}{f' (padded to {Hp})' if Hp != H else ''} V={V}"
     pad = float((weights == 0).float().mean())
     got = fused_ce.fused_ce_fwd_kernel(*ops)
     for name, a, r in zip(("lse", "ll"), got, fused_ce.fused_ce_fwd_kernel(*ops)):
@@ -2086,8 +2099,13 @@ def check_fused_ce(M: int, V: int, labels=None, H: int = HIDDEN) -> dict:
         print(f"{tag} forward {name}: max |kernel - plain| {err:.3e} ({rel:.2e} "
               f"of max, tolerance {CE_FWD_RTOL}); bit for bit across two calls")
     gw = weights
-    dh = fused_ce.fused_ce_dh_kernel(*ops, lse, gw)
-    dw, db = fused_ce.fused_ce_dwdb_kernel(*ops, lse, gw)
+    runs = [(fused_ce.fused_ce_dh_kernel(*ops, lse, gw),
+             *fused_ce.fused_ce_dwdb_kernel(*ops, lse, gw)) for _ in range(2)]
+    for name, a, r in zip(("dh", "dW", "db"), *runs):
+        if not torch.equal(a, r):
+            raise AssertionError(f"{tag}: two calls gave another {name}")
+    dh, dw, db = runs[0]
+    dh, dw = dh[:, :H], dw[:, :H]       # the padded columns are 0
     want = (fused_ce.ce_dh_plain(h, w, b, labels, lse, gw),
             *fused_ce.ce_dwdb_plain(h, w, b, labels, lse, gw))
     if bool(dh[weights == 0].any()):
@@ -2103,7 +2121,8 @@ def check_fused_ce(M: int, V: int, labels=None, H: int = HIDDEN) -> dict:
         errs[kern] = max(errs.get(kern, 0.0), err)
         print(f"{tag} backward {name}: max |kernel - plain| {err:.3e} ({rel:.2e} "
               f"of max, tolerance {tol})")
-    print(f"{tag}: {pad:.3f} of the rows PAD (weight 0), their dh exactly 0")
+    print(f"{tag}: {pad:.3f} of the rows PAD (weight 0), their dh exactly 0; "
+          "dh, dW and db bit for bit across two calls")
     return errs
 
 
@@ -2113,24 +2132,49 @@ def train_ce_labels() -> torch.Tensor:
     return train_arrays()[1].t().reshape(-1)
 
 
-def phase_ce_kernels() -> dict:
-    """The train shapes (M = 30720 with the train batch's PAD rows, V =
-    11500) and ragged ones: M = 1000 with V = 11519, M = 300 with V =
-    2000; one row and one row past a 64-row tile at the train vocabulary;
-    the other widths at ragged M and V; a vocabulary smaller than a tile;
-    V = 1921 and 130, whose last 128-column tile holds 1 and 2 columns
-    below V and is a vocab chunk alone."""
-    errors = {k: 0.0 for k in CE_KERNELS}
-    for M, V, labels, H in ((TRAIN_T * TRAIN_ROWS, VOCAB, train_ce_labels(), HIDDEN),
-                            (RAGGED_ROWS, 11519, None, HIDDEN),
-                            (300, 2000, None, HIDDEN), (1, VOCAB, None, HIDDEN),
-                            (65, VOCAB, None, HIDDEN), (RAGGED_ROWS, 11519, None, 256),
-                            (77, 301, None, 128), (300, 2000, None, 64),
-                            (100, 37, None, 64), (300, 1921, None, HIDDEN),
-                            (300, 1921, None, 64), (77, 130, None, 128)):
+# the CE shapes at and below 512 (M, V, labels: None for drawn ones, H):
+# the train shapes (M = 30720 with the train batch's PAD rows, V = 11500)
+# and ragged ones: M = 1000 with V = 11519, M = 300 with V = 2000; one row
+# and one row past a 64-row tile at the train vocabulary; the other widths
+# at ragged M and V; a vocabulary smaller than a tile; V = 1921 and 130,
+# whose last 128-column tile holds 1 and 2 columns below V and is a vocab
+# chunk alone
+CE_SHAPES = ((0, VOCAB, "train", HIDDEN), (RAGGED_ROWS, 11519, None, HIDDEN),
+             (300, 2000, None, HIDDEN), (1, VOCAB, None, HIDDEN),
+             (65, VOCAB, None, HIDDEN), (RAGGED_ROWS, 11519, None, 256),
+             (77, 301, None, 128), (300, 2000, None, 64), (100, 37, None, 64),
+             (300, 1921, None, HIDDEN), (300, 1921, None, 64), (77, 130, None, 128))
+# past 512: H = 576 (64-row resident forward blocks, column tiles 512 + 64),
+# 1000 (padded to 1024), 1024 (the wide cell's: its forward built at
+# compile time, two column tiles of 512) and 2048 (the forward's rows
+# streamed, four column tiles), each at the train shapes and at the ragged
+# shapes above, and 4096 (CE_H_MAX) once
+WIDE_CE_H = (576, 1000, 1024, 2048)
+WIDE_CE_SHAPES = tuple((0, VOCAB, "train", H) for H in WIDE_CE_H) + tuple(
+    (M, V, None, H) for H in (576, 1000, 2048)
+    for M, V in ((RAGGED_ROWS, 11519), (300, 2000), (1, VOCAB), (65, VOCAB),
+                 (77, 301), (100, 37))) + (
+    (300, 1921, None, 1024), (77, 130, None, 576), (300, 2000, None, 4096))
+
+
+def ce_shapes(shapes) -> list:
+    """(M, V, labels, H) with the train batch's labels where the entry says
+    "train" (M = 24 x 1280)."""
+    return [(TRAIN_T * TRAIN_ROWS, V, train_ce_labels(), H) if lab == "train"
+            else (M, V, lab, H) for M, V, lab, H in shapes]
+
+
+def phase_ce_kernels() -> tuple:
+    """The flash CE kernels at CE_SHAPES and at WIDE_CE_SHAPES; returns
+    each kernel's max |kernel - plain| over all of them and over those
+    past 512."""
+    errors, wide = dict.fromkeys(CE_KERNELS, 0.0), dict.fromkeys(CE_KERNELS, 0.0)
+    for M, V, labels, H in ce_shapes(CE_SHAPES + WIDE_CE_SHAPES):
         for k, err in check_fused_ce(M, V, labels, H).items():
             errors[k] = max(errors[k], err)
-    return errors
+            if H > HIDDEN:
+                wide[k] = max(wide[k], err)
+    return errors, wide
 
 
 def ce_library_calls(h, w, b, labels, weights):
@@ -2149,20 +2193,22 @@ def ce_library_calls(h, w, b, labels, weights):
     return forward, lambda: torch.autograd.grad(loss, leaves, retain_graph=True)
 
 
-def phase_ce_kernel_times(label: str) -> dict:
+def phase_ce_kernel_times(label: str, H: int = HIDDEN) -> dict:
     """The three CE kernels against their plain versions at the train
-    shapes (M = 30720 with the batch's PAD rows, H = 512, V = 11500).
-    Bound: operations, 2·M·H·V for the forward and 4·M·H·V for dh and for
-    dW/db, which recompute the logits.  Library: the forward's time, and
-    for dh and dW/db the time of its one backward, which gives all three
-    gradients."""
+    shapes (M = 30720 with the batch's PAD rows, V = 11500) at width H
+    (512, and the wide cell's 1024).  Bound: operations, 2·M·H·V for the
+    forward and 4·M·H·V for dh and for dW/db, which recompute the logits
+    (past 512 each of dW/db's and dh's two column tiles recomputes them
+    again: 6·M·H·V done, the bound still counts 4).  Library: the
+    forward's time, and for dh and dW/db the time of its one backward,
+    which gives all three gradients."""
     M = TRAIN_T * TRAIN_ROWS
-    h, w, b, labels, weights = ce_inputs(M, VOCAB, seed=13, labels=train_ce_labels())
+    h, w, b, labels, weights = ce_inputs(M, VOCAB, seed=13, labels=train_ce_labels(), H=H)
     ops = fused_ce.prepare(h, w, b, labels)
     lse, ll = fused_ce.fused_ce_fwd_kernel(*ops)
     dh = fused_ce.fused_ce_dh_kernel(*ops, lse, weights)
     dw, db = fused_ce.fused_ce_dwdb_kernel(*ops, lse, weights)
-    flops = 2.0 * M * HIDDEN * VOCAB
+    flops = 2.0 * M * H * VOCAB
     timer = lambda fn: cuda_ms(fn, iters=5, warmup=1)  # noqa: E731
     lib_fwd, lib_bwd = (timer(fn) for fn in ce_library_calls(h, w, b, labels, weights))
     pairs = {
@@ -2183,7 +2229,7 @@ def phase_ce_kernel_times(label: str) -> dict:
     for name, (fk, fp, bnd, lib) in pairs.items():
         t = turns(fk, fp, timer)
         times[name] = timing(t, bnd, lib)
-        print(f"time {name} (M={M} H={HIDDEN} V={VOCAB}): kernel {t[0]:.4f} ms, "
+        print(f"time {name} (M={M} H={H} V={VOCAB}): kernel {t[0]:.4f} ms, "
               f"plain {t[1]:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), library "
               f"(F.linear bf16 + F.cross_entropy, "
               f"{'forward' if name.endswith('fwd') else 'backward: dh, dW, db'}) "
@@ -2234,8 +2280,10 @@ def check_ce_mat(M: int, V: int, labels=None, H: int = HIDDEN) -> dict:
     h, w, b, labels, weights = ce_inputs(M, V, seed=M + V + 1, labels=labels, H=H)
     labels = labels.clone()
     labels[torch.nonzero(weights == 0)[1::2, 0]] = V + 7
-    ops = fused_ce.prepare(h, w, b, labels)
-    tag = f"fused_linear_ce_hybrid M={M} H={H} V={V}"
+    ops = fused_ce.prepare(*fused_ce.pad_ce(h, w), b, labels)
+    Hp = ops[0].shape[1]
+    tag = (f"fused_linear_ce_hybrid M={M} H={H}"
+           f"{f' (padded to {Hp})' if Hp != H else ''} V={V}")
     lg, *got = fused_ce.ce_mat_fwd_kernel(*ops)
     for name, a, r in zip(("lg", "lse", "ll"), (lg, *got),
                           fused_ce.ce_mat_fwd_kernel(*ops)):
@@ -2268,6 +2316,7 @@ def check_ce_mat(M: int, V: int, labels=None, H: int = HIDDEN) -> dict:
     for name, a, r in zip(("dh", "dW", "db"), *runs):
         if not torch.equal(a, r):
             raise AssertionError(f"{tag}: two calls gave another {name}")
+    dh, dw = dh[:, :H], dw[:, :H]       # the padded columns are 0
     want = (fused_ce.ce_mat_dh_plain(lg, w, labels, lse, gw),
             *fused_ce.ce_mat_dwdb_plain(h, lg, labels, lse, gw, V))
     if bool(dh[weights == 0].any()):
@@ -2291,25 +2340,18 @@ def check_ce_mat(M: int, V: int, labels=None, H: int = HIDDEN) -> dict:
     return errs
 
 
-def phase_ce_mat_kernels() -> dict:
-    """The train shapes (M = 30720 with the train batch's PAD rows, V =
-    11500, lg [30720, 11520]) and ragged ones: M = 1000 with V = 11519, M
-    = 300 with V = 2000 (not a multiple of 64); one row and one row past
-    a 64-row tile at the train vocabulary; the other widths at ragged M
-    and V; a vocabulary smaller than a tile; V = 1921 and 130, whose last
-    128-column tile holds 1 and 2 columns below V and is a vocab chunk
-    alone."""
-    errors = dict.fromkeys(MAT_KERNELS, 0.0)
-    for M, V, labels, H in ((TRAIN_T * TRAIN_ROWS, VOCAB, train_ce_labels(), HIDDEN),
-                            (RAGGED_ROWS, 11519, None, HIDDEN),
-                            (300, 2000, None, HIDDEN), (1, VOCAB, None, HIDDEN),
-                            (65, VOCAB, None, HIDDEN), (RAGGED_ROWS, 11519, None, 256),
-                            (77, 301, None, 128), (300, 2000, None, 64),
-                            (100, 37, None, 64), (300, 1921, None, HIDDEN),
-                            (300, 1921, None, 64), (77, 130, None, 128)):
+def phase_ce_mat_kernels() -> tuple:
+    """The written-logits kernels at the flash kernels' shapes, CE_SHAPES
+    (lg [30720, 11520] at the train shapes; V = 2000 is not a multiple of
+    64) and WIDE_CE_SHAPES; returns each kernel's max |kernel - plain|
+    over all of them and over those past 512."""
+    errors, wide = dict.fromkeys(MAT_KERNELS, 0.0), dict.fromkeys(MAT_KERNELS, 0.0)
+    for M, V, labels, H in ce_shapes(CE_SHAPES + WIDE_CE_SHAPES):
         for k, err in check_ce_mat(M, V, labels, H).items():
             errors[k] = max(errors[k], err)
-    return errors
+            if H > HIDDEN:
+                wide[k] = max(wide[k], err)
+    return errors, wide
 
 
 def mat_fwd_library_call(h, w, b, labels):
@@ -2326,20 +2368,21 @@ def mat_fwd_library_call(h, w, b, labels):
     return call
 
 
-def phase_ce_mat_kernel_times(label: str) -> dict:
+def phase_ce_mat_kernel_times(label: str, H: int = HIDDEN) -> dict:
     """The three written-logits kernels against their plain versions at the
-    train shapes (M = 30720 with the batch's PAD rows, H = 512, V =
-    11500).  Bound: operations, 2·M·H·V each (nothing recomputes the
-    product).  Library: for the forward the chain ``F.linear`` bf16 +
-    ``torch.logsumexp`` + gather, for dh and dW/db the flash rows' library
-    backward (one ``autograd.grad`` for h, W and b)."""
+    train shapes (M = 30720 with the batch's PAD rows, V = 11500) at width
+    H (512, and the wide cell's 1024).  Bound: operations, 2·M·H·V each
+    (nothing recomputes the product; past 512 the column tiles read lg
+    again, no more products).  Library: for the forward the chain
+    ``F.linear`` bf16 + ``torch.logsumexp`` + gather, for dh and dW/db the
+    flash rows' library backward (one ``autograd.grad`` for h, W and b)."""
     M = TRAIN_T * TRAIN_ROWS
-    h, w, b, labels, weights = ce_inputs(M, VOCAB, seed=13, labels=train_ce_labels())
+    h, w, b, labels, weights = ce_inputs(M, VOCAB, seed=13, labels=train_ce_labels(), H=H)
     h16, w16, bf, lab = fused_ce.prepare(h, w, b, labels)
     lg, lse, ll = fused_ce.ce_mat_fwd_kernel(h16, w16, bf, lab)
     dh = fused_ce.ce_mat_dh_kernel(lg, w16, lab, lse, weights)
     dw, db = fused_ce.ce_mat_dwdb_kernel(h16, lg, lab, lse, weights, VOCAB)
-    flops = 2.0 * M * HIDDEN * VOCAB
+    flops = 2.0 * M * H * VOCAB
     timer = lambda fn: cuda_ms(fn, iters=5, warmup=1)  # noqa: E731
     lib_fwd = timer(mat_fwd_library_call(h, w, b, labels))
     lib_bwd = timer(ce_library_calls(h, w, b, labels, weights)[1])
@@ -2364,7 +2407,7 @@ def phase_ce_mat_kernel_times(label: str) -> dict:
     for name, (fk, fp, bnd, lib, what) in pairs.items():
         t = turns(fk, fp, timer)
         times[name] = timing(t, bnd, lib)
-        print(f"time {name} (M={M} H={HIDDEN} V={VOCAB}): kernel {t[0]:.4f} ms, "
+        print(f"time {name} (M={M} H={H} V={VOCAB}): kernel {t[0]:.4f} ms, "
               f"plain {t[1]:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), library "
               f"({what}) {lib:.4f} ms [{label}]")
     return times
@@ -2446,24 +2489,24 @@ def train_launches(steps: int, ag: bool, ce: str, enc_layers: int = 1,
             **{k: steps * per_step.get(k, 0) for k in CE_KERNELS + MAT_KERNELS}}
 
 
-def phase_train_path(cfg, arrays, tag: str):
-    """TRAIN_STEPS Trainer steps at full width on one repeated batch."""
+def phase_train_path(cfg, arrays, tag: str, steps: int = TRAIN_STEPS):
+    """``steps`` Trainer steps at full width on one repeated batch."""
     trainer = Trainer(cfg, device=DEV)
     torch.cuda.synchronize()
     _ext.reset_launches()   # this path's run starts here
     t0 = time.perf_counter()
-    metrics = [trainer.run_step_arrays(arrays) for _ in range(TRAIN_STEPS)]
+    metrics = [trainer.run_step_arrays(arrays) for _ in range(steps)]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    want = train_launches(TRAIN_STEPS, cfg.prior == "AG", ce_flag(cfg),
+    want = train_launches(steps, cfg.prior == "AG", ce_flag(cfg),
                           cfg.encoder_rnn_layers, cfg.decoder_rnn_layers)
     launches = {k: _ext.LAUNCHES[k] for k in want}               # right after
     losses = [float(m["loss"]) for m in metrics]
-    print(f"{tag} path: {TRAIN_STEPS} steps of {TRAIN_IMAGES} images x "
+    print(f"{tag} path: {steps} steps of {TRAIN_IMAGES} images x "
           f"{TRAIN_CAPTIONS} captions x {TRAIN_T} tokens in {seconds:.2f} s; "
           f"launches {launches}, expected {want}")
     print(f"{tag} path loss by step: " + ", ".join(f"{x:.4f}" for x in losses))
-    print(f"{tag} path step 1 / step {TRAIN_STEPS}: " + "; ".join(
+    print(f"{tag} path step 1 / step {steps}: " + "; ".join(
         f"{k} {float(metrics[0][k]):.5f} / {float(metrics[-1][k]):.5f}"
         for k in ("rec_loss", "kld", "grad_norm")))
     if launches != want:
@@ -2586,17 +2629,24 @@ CE_NAMES = {"": "plain CE", "fused_ce": "flash CE", "ce_hybrid": "hybrid CE",
             "ce_xla_bwd": "XLA-forward CE"}
 
 
-def phase_ce_step_times(prior: str, arrays, label: str) -> None:
+def phase_ce_step_times(prior: str, arrays, label: str, hidden: int = HIDDEN) -> None:
     """The ``prior`` model's full-width step under the four CE schedules
     (plain CE over bf16 logits, flash, hybrid, XLA forward), all through
     the kernels otherwise, in turns by CUDA events over 5 steps after 1
     warm-up (the schedules in order, then in reverse, averaged); then the
     peak device memory of one step of each, alone on the card (the other
     Trainers freed): max_memory_allocated after reset_peak_memory_stats,
-    and its rise over what was allocated before the step."""
+    and its rise over what was allocated before the step.  ``hidden``:
+    the encoder's and decoder's width (the wide cell's 1024)."""
     tag = {"GMM": "train-gmm", "Normal": "train"}[prior]
-    trainers = [Trainer(train_config(prior, ce), device=DEV)
-                for ce in CE_SCHEDULES]
+    if hidden != HIDDEN:
+        tag = f"wide-{prior.lower()} (H={hidden})"
+
+    def config(ce):
+        return train_config(prior, ce).replace(encoder_hidden=hidden,
+                                               decoder_hidden=hidden)
+
+    trainers = [Trainer(config(ce), device=DEV) for ce in CE_SCHEDULES]
     timer = lambda fn: cuda_ms(fn, iters=5, warmup=1)  # noqa: E731
     fns = [lambda tr=tr: tr.run_step_arrays(arrays) for tr in trainers]
     first = [timer(fn) for fn in fns]
@@ -2610,7 +2660,7 @@ def phase_ce_step_times(prior: str, arrays, label: str) -> None:
     del trainers, fns
     torch.cuda.empty_cache()
     for ce in CE_SCHEDULES:
-        trainer = Trainer(train_config(prior, ce), device=DEV)
+        trainer = Trainer(config(ce), device=DEV)
         trainer.run_step_arrays(arrays)
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated(DEV)
@@ -4027,6 +4077,108 @@ def phase_f32(label: str) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------------
+# the wide cell: the reference's widths with encoder and decoder at 1024
+# ----------------------------------------------------------------------
+
+WIDE_HIDDEN = 1024
+WIDE_STEPS = 10
+WIDE_COMPARE_STEPS = 3
+WIDE_SCHEDULES = ("fused_ce", "ce_hybrid", "ce_xla_bwd")
+WIDE_TAGS = {"fused_ce": "wide-gmm", "ce_hybrid": "wide-gmm-hybrid",
+             "ce_xla_bwd": "wide-gmm-xla-bwd"}
+
+
+def wide_config(prior: str, ce: str, **over) -> Config:
+    """train_config's model (vocab 11,500, embed 256, latent 150, K_z 100,
+    90 clusters, 4096-d features, bf16) at encoder_hidden = decoder_hidden
+    = WIDE_HIDDEN."""
+    return train_config(prior, ce).replace(encoder_hidden=WIDE_HIDDEN,
+                                           decoder_hidden=WIDE_HIDDEN, **over)
+
+
+def phase_wide(out_dir: str, label: str) -> dict:
+    """The wide cell, H = WIDE_HIDDEN, where the CE kernels run past 512:
+    the GMM-CVAE with cluster vectors under each CE schedule (WIDE_STEPS
+    steps with exact launches and a falling loss, WIDE_COMPARE_STEPS
+    against the plain versions at the 512 paths' tolerances); the
+    AG-CVAE under the flash CE (the AG heads with h streamed, the LSTM
+    sequence and the fused z at this width), its steps compared likewise,
+    then ``run_inference`` on 512 val images at beam 3 and 512 test
+    images greedy (the decode's LSTM step and logits top-k at H = 1024)
+    with exact launches and phase_decode_compare's checks at both; one
+    f32 step of the GMM-CVAE under the flash CE; and the step's time and
+    peak memory under the four CE schedules.  Returns each path's
+    launches."""
+    t0 = time.perf_counter()
+    by_path = {}
+    arrays = train_arrays()
+    for ce in WIDE_SCHEDULES:
+        cfg, tag = wide_config("GMM", ce), WIDE_TAGS[ce]
+        trainer, by_path[tag] = phase_train_path(cfg, arrays, tag, WIDE_STEPS)
+        del trainer
+        phase_train_compare(cfg, train_arrays(seed=10), tag, WIDE_COMPARE_STEPS)
+    cfg = wide_config("AG", "fused_ce")
+    trainer, launches = phase_train_path(cfg, arrays, "wide-ag", WIDE_STEPS)
+    model = trainer.model.eval()
+    del trainer
+    phase_train_compare(cfg, train_arrays(seed=10), "wide-ag", WIDE_COMPARE_STEPS)
+    vocab = decode_vocab()
+    dcfg = cfg.replace(mode="inference", gen_max_len=30, beam_size=3,
+                       gen_batch_size=BATCH, gen_name="wide_beam3")
+    stats = {}
+    torch.cuda.synchronize()
+    _ext.reset_launches()   # the wide decode path starts here
+    t_dec = time.perf_counter()
+    paths = run_inference(dcfg, model, vocab, batchers(BATCH, "val", vocab, 1),
+                          batchers(BATCH, "test", vocab, 2), out_dir, stats)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t_dec
+    decode = {k: _ext.LAUNCHES[k] for k in DECODE_KERNELS}     # right after
+    steps = stats["val"]["decode_steps"] + stats["test"]["decode_steps"]
+    batches = stats["val"]["batches"] + stats["test"]["batches"]
+    want = {"fused_lstm_step": 3 * batches + steps, "fused_logits_top_k": steps}
+    print(f"wide-ag decode: beam 3 over {BATCH} val images, greedy over "
+          f"{BATCH} test images, H={WIDE_HIDDEN}: {batches} batches, {steps} "
+          f"steps in {seconds:.2f} s; launches {decode}, expected {want}")
+    if decode != want:
+        raise AssertionError(f"wide decode launch counts {decode} != {want}")
+    read_captions(paths["val"], BATCH)
+    read_captions(paths["test"], BATCH)
+    by_path["wide-ag"] = {**launches, **decode}
+    phase_decode_compare(dcfg, vocab, model,
+                         modes=(("beam 3 wide", 3), ("greedy wide", 1)), seeds=(4,))
+    batch = next(batchers(BATCH, "val", vocab, 5).eval_batches())
+    feats = torch.from_numpy(batch.features).to(DEV)
+    c_v = torch.from_numpy(batch.cluster_vectors).to(DEV)
+    fns = make_decode_fns(model, dcfg, vocab)
+    decode_ms = {name: cuda_ms(lambda fn=fns[name]: fn(
+        feats, c_v, generator=torch.Generator(device=DEV).manual_seed(6)),
+        iters=3, warmup=1) for name in ("beam_search", "greedy")}
+    print(f"time wide-ag decode batch of {BATCH} images, H={WIDE_HIDDEN}: "
+          f"beam 3 {decode_ms['beam_search']:.2f} ms, greedy "
+          f"{decode_ms['greedy']:.2f} ms (CUDA events, 3 batches after 1) "
+          f"[{label}]")
+    del model, fns
+    f32 = Trainer(wide_config("GMM", "fused_ce", compute_dtype="float32"), device=DEV)
+    torch.cuda.synchronize()
+    _ext.reset_launches()   # the wide f32 step starts here
+    m = f32.run_step_arrays(arrays)
+    torch.cuda.synchronize()
+    got = {k: _ext.LAUNCHES[k] for k in KERNELS}                # right after
+    want = {k: CE_STEP_LAUNCHES["fused_ce"].get(k, 0) for k in KERNELS}
+    print(f"wide-f32 step (GMM, flash CE, f32 route, H={WIDE_HIDDEN}): loss "
+          f"{float(m['loss']):.5f}, launches {({k: v for k, v in got.items() if v})}")
+    if got != want or not np.isfinite(float(m["loss"])):
+        raise AssertionError(f"wide f32 step: launches {got} != {want}")
+    by_path["wide-f32"] = got
+    del f32
+    torch.cuda.empty_cache()
+    phase_ce_step_times("GMM", arrays, label, hidden=WIDE_HIDDEN)
+    print(f"wide phase: {time.perf_counter() - t0:.1f} s [{label}]")
+    return by_path
+
+
 class RepeatedBatch:
     """A train batcher serving one host batch for ever."""
 
@@ -4191,11 +4343,21 @@ def phase_train_profile(out_dir: str, label: str, prior: str, ce=None) -> None:
 # = EMBED, H = HIDDEN; the logits kernels' at H = HIDDEN)
 SEQ_MODES = ("gates of step T-1", "step", "step 0 (dh0)", "dx")
 WGMMA_TEMPLATES = {
-    "ce_fwd_kernel": (lambda a: f"<{a[0]}, {'written logits' if a[1] else 'flash'}>",
-                      lambda a: _ext.library().vct_fused_ce_fwd_smem(a[0], int(a[1]))),
+    # the CE forward <BOXES, RG, RES, WRITE_LG>: the fixed widths' and H =
+    # 1024's shared memory, a runtime box count's at the widest resident
+    # width of its schedule (H = 1280 flash, 1152 written logits) or at any
+    # streamed one (2048)
+    "ce_fwd_kernel": (lambda a: f"<{a[0] * 64 if a[0] else 'H at run time'}, {64 * a[1]} rows "
+                                f"{'resident' if a[2] else 'streamed'}, "
+                                f"{'written logits' if a[3] else 'flash'}>",
+                      lambda a: _ext.library().vct_fused_ce_fwd_smem(
+                          a[0] * 64 if a[0] else (1152 if a[3] else 1280) if a[2] else 2048,
+                          int(a[3]))),
     "ce_bwd_kernel": (lambda a: f"<{a[0]}, {'dW/db' if a[1] else 'dh'}>",
                       lambda a: _ext.library().vct_fused_ce_bwd_smem(a[0])),
-    "ce_mat_bwd_kernel": (lambda a: f"<{a[0]}, {'dW/db' if a[1] else 'dh'}>",
+    "ce_bwd_wide_kernel": (lambda a: f"<CT={a[0]}, {'dW/db' if a[1] else 'dh'}>",
+                           lambda a: _ext.library().vct_fused_ce_bwd_smem(-a[0])),
+    "ce_mat_bwd_kernel": (lambda a: f"<CT={a[0]}, {'dW/db' if a[1] else 'dh'}>",
                           lambda a: _ext.library().vct_fused_ce_mat_bwd_smem(a[0])),
     "ag_fwd_kernel": (lambda a: f"<NC={a[0]}, h {'resident' if a[1] else 'streamed'}, "
                                 f"{'dq pass' if a[2] else 'forward'}>",
@@ -4321,8 +4483,10 @@ def main() -> None:
 def run_phases(out_dir: str, npz: str, label: str, t0: float) -> None:
     """Every phase after the build, then the record lines; ``npz``: where
     the synthetic Caffe weights of the VGG16 phases go."""
+    (ce_errors, ce_wide), (mat_errors, mat_wide) = phase_ce_kernels(), phase_ce_mat_kernels()
     errors = {**phase_kernels(), **phase_mode_kernels(), **phase_train_kernels(),
-              **phase_ag_kernels(), **phase_ce_kernels(), **phase_ce_mat_kernels()}
+              **phase_ag_kernels(), **ce_errors, **mat_errors}
+    ce_wide_errors = {**ce_wide, **mat_wide}   # the CE kernels past H = 512
     cfg, vocab, model, launches = phase_main_path(out_dir)
     phase_decode_compare(cfg, vocab, model)
     launches.update(phase_mode_paths(cfg, vocab, model, out_dir))
@@ -4387,15 +4551,21 @@ def run_phases(out_dir: str, npz: str, label: str, t0: float) -> None:
     for name, err in wide_errors.items():
         errors[name] = max(errors[name], err)
     seconds["widths"] = time.perf_counter() - t_new
+    t_new = time.perf_counter()
+    by_path.update(phase_wide(out_dir, label))
+    seconds["wide"] = time.perf_counter() - t_new
     for phase, fn in (("f32", phase_f32), ("profile", phase_profile)):
         t_new = time.perf_counter()
         by_path[phase] = fn(out_dir, label) if phase == "profile" else fn(label)
         seconds[phase] = time.perf_counter() - t_new
-    print("decode-dp, deep, widths, f32 and profile phases: " + ", ".join(
+    print("decode-dp, deep, widths, wide, f32 and profile phases: " + ", ".join(
         f"{k} {v:.1f} s" for k, v in seconds.items()))
     times = {**phase_kernel_times(label), **phase_mode_kernel_times(label),
              **phase_train_kernel_times(label), **phase_ag_kernel_times(label),
              **phase_ce_kernel_times(label), **phase_ce_mat_kernel_times(label)}
+    # the CE kernels' instances past 512, timed at the wide cell's width
+    wide_times = {**phase_ce_kernel_times(label, WIDE_HIDDEN),
+                  **phase_ce_mat_kernel_times(label, WIDE_HIDDEN)}
     phase_decode_times(cfg, vocab, model, label)
     for prior, tag in (("Normal", "train"), ("AG", "train-ag"), ("GMM", "train-gmm")):
         phase_train_times(train_config(prior), train_arrays(seed=12), label, tag)
@@ -4415,13 +4585,20 @@ def run_phases(out_dir: str, npz: str, label: str, t0: float) -> None:
              **{k: "train-gmm-hybrid" for k in MAT_KERNELS}}
     # each kernel's launches on every path that ran it: the first path's
     # (``path``, ``launches``) and the other paths' (generate, wide-beam,
-    # dp; decode-dp, deep, widths, f32, profile; f32 launches only the CE
-    # and logits kernels, as the JAX package's f32 route does)
+    # dp; decode-dp, deep, widths, the wide cell's, f32, profile; f32
+    # launches only the CE and logits kernels, as the JAX package's f32
+    # route does); the CE kernels' instances past 512 (``instances``:
+    # timed at H = WIDE_HIDDEN, their max |kernel - plain| over
+    # WIDE_CE_SHAPES, the widths they were checked at)
+    wide_h = sorted({H for *_, H in WIDE_CE_SHAPES})
     record = {"kernels": [
         {"name": name, **meta, "path": paths[name], "launches": launches[name],
          "paths": {paths[name]: launches[name],
                    **{p: c[name] for p, c in by_path.items() if c.get(name)}},
-         "max_abs_err": errors[name], **times[name]}
+         "max_abs_err": errors[name], **times[name],
+         **({"instances": {f"H={WIDE_HIDDEN}": {
+             **wide_times[name], "max_abs_err": ce_wide_errors[name],
+             "checked_at_h": wide_h}}} if name in wide_times else {})}
         for name, meta in KERNELS.items()]}
     print(label)
     print(json.dumps(record))

@@ -34,7 +34,7 @@ from vae_captioning_torch.ops.fused_ce import (
     fused_ce_dh_kernel, fused_ce_dwdb_kernel, fused_ce_fwd_kernel,
     fused_linear_ce, fused_linear_ce_hybrid, fused_linear_ce_hybrid_plain,
     fused_linear_ce_plain, fused_linear_ce_xla_bwd,
-    fused_linear_ce_xla_bwd_plain, pad_ce, prepare)
+    fused_linear_ce_xla_bwd_plain, fwd_block, pad_ce, prepare)
 from vae_captioning_torch.ops.fused_logits_topk import (
     fused_logits_sample, fused_logits_top_k, fused_logits_top_k_int8,
     fused_logits_top_k_int8_plain, fused_logits_top_k_plain,
@@ -988,7 +988,9 @@ def test_ag_heads_wrapper_checks_its_inputs(dev):
                                    (65, 512, 11500), (30720, 512, 11500),
                                    (1000, 256, 11519), (100, 64, 37),
                                    (300, 64, 1921), (77, 128, 130),
-                                   (300, 48, 2000), (77, 500, 301)])
+                                   (300, 48, 2000), (77, 500, 301),
+                                   (300, 576, 2000), (77, 1000, 301),
+                                   (1000, 1024, 11519), (65, 2048, 11500)])
 def test_linear_ce_kernels_match_plain(dev, M, H, V):
     """The three flash CE kernels against the plain version's VJP, about
     40% of the rows PAD (weight 0; label 0, or on every other PAD row a
@@ -1033,7 +1035,8 @@ def test_linear_ce_kernels_match_plain(dev, M, H, V):
 
 
 @pytest.mark.parametrize("schedule", ["flash", "written_logits"])
-@pytest.mark.parametrize("M,H,V", [(30720, 512, 11500), (3000, 128, 2001)])
+@pytest.mark.parametrize("M,H,V", [(30720, 512, 11500), (3000, 128, 2001),
+                                   (3000, 1024, 2001)])
 def test_linear_ce_backward_repeats_bit_for_bit(dev, schedule, M, H, V):
     """dh, dW and db of two calls on the same inputs are identical, for the
     flash CE's backward kernels and for the written logits' (the hybrid
@@ -1067,14 +1070,29 @@ def test_linear_ce_backward_repeats_bit_for_bit(dev, schedule, M, H, V):
 
 
 def test_linear_ce_wrapper_checks_its_inputs(dev):
-    h = torch.zeros((4, 576), device=dev)     # past the widest kernel
+    h = torch.zeros((4, 4160), device=dev)    # past CE_H_MAX
     lab = torch.zeros(4, dtype=torch.long, device=dev)
-    with pytest.raises(ValueError, match="one of"):
-        fused_linear_ce(h, torch.zeros((30, 576), device=dev),
+    with pytest.raises(ValueError, match="up to 4096"):
+        fused_linear_ce(h, torch.zeros((30, 4160), device=dev),
                         torch.zeros(30, device=dev), lab, torch.ones(4, device=dev))
     with pytest.raises(ValueError, match="weights"):
         fused_linear_ce(h[:, :64], torch.zeros((30, 64), device=dev),
                         torch.zeros(30, device=dev), lab, torch.ones(5, device=dev))
+
+
+@pytest.mark.parametrize("written_logits", [False, True])
+def test_ce_forward_block_shapes(dev, written_logits):
+    """The CE forward's blocks as csrc/fused_ce.cuh's fwd_block chooses
+    them: 128 rows resident at the compile-time widths; past 512 64 rows,
+    resident where they fit beside a ring of four W boxes (H <= 1280; with
+    the written logits' two staged boxes H <= 1152), else streamed."""
+    last = 1152 if written_logits else 1280
+    for H in (64, 128, 256, 512):
+        assert fwd_block(H, written_logits) == (128, True)
+    for H in (576, 1024, 1152, 1216, 1280, 1344, 2048, 4096):
+        assert fwd_block(H, written_logits) == (64, H <= last), H
+    with pytest.raises(ValueError, match="up to 4096"):
+        fwd_block(4160, written_logits)
 
 
 @pytest.mark.parametrize("schedule", ["hybrid", "xla_bwd"])
@@ -1083,7 +1101,9 @@ def test_linear_ce_wrapper_checks_its_inputs(dev):
                                    (65, 512, 11500), (30720, 512, 11500),
                                    (1000, 256, 11519), (100, 64, 37),
                                    (300, 64, 1921), (77, 128, 130),
-                                   (300, 48, 2000), (77, 500, 301)])
+                                   (300, 48, 2000), (77, 500, 301),
+                                   (300, 576, 2000), (77, 1000, 301),
+                                   (1000, 1024, 11519), (65, 2048, 11500)])
 def test_written_logits_ce_kernels_match_plain(dev, schedule, M, H, V):
     """The hybrid schedule's three kernels (the XLA forward's two backward
     ones) against the plain twin's VJP, about 40% of the rows PAD (weight
@@ -1140,7 +1160,10 @@ def test_written_logits_ce_kernels_match_plain(dev, schedule, M, H, V):
         S = (h.to(torch.bfloat16).float() @ w.to(torch.bfloat16).float().t() + b)[diff]
         half_step = torch.ldexp(torch.ones_like(got), torch.frexp(got).exponent - 9)
         assert bool(((got - S).abs() <= half_step + 1e-5).all())
-        assert int(diff.sum()) <= 1e-3 * diff.numel()
+        # the share that crosses a boundary grows with the sum's length:
+        # 1e-3 up to H = 512, in proportion past it (1.08e-3 measured at
+        # H = 2048)
+        assert int(diff.sum()) <= 1e-3 * max(1.0, H / 512) * diff.numel()
 
 
 @pytest.mark.parametrize("prior", ["Normal", "AG", "GMM", "GMM-ce_hybrid",

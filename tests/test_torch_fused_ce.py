@@ -97,6 +97,46 @@ def test_matches_the_pallas_kernel(interpreted, fn, seed):
     assert np.abs(tg[0][~zero]).max() > 0
 
 
+# past the widths built at compile time: the JAX kernels take any H (they
+# pad only M and V), the port's every multiple of 64 up to 4096 (576 as it
+# is, 1000 padded to 1024 by pad_ce); the three schedules' plain twins and
+# their padded calls against the Pallas functions, at the tolerances above
+# (the written-logits schedules' own, tests/test_torch_fused_ce_mat.py,
+# are the same numbers)
+WIDE_H = [576, 1000]
+WIDE_SCHEDULES = {
+    "flash": (jfc.fused_linear_ce, tfc.fused_linear_ce_plain),
+    "hybrid": (jfc.fused_linear_ce_hybrid, tfc.fused_linear_ce_hybrid_plain),
+    "xla_bwd": (jfc.fused_linear_ce_xla_bwd, tfc.fused_linear_ce_xla_bwd_plain),
+}
+
+
+@pytest.mark.parametrize("schedule", list(WIDE_SCHEDULES))
+@pytest.mark.parametrize("H", WIDE_H)
+def test_matches_the_pallas_kernels_past_512(interpreted, schedule, H):
+    """The loss, dh, dW, db and d weights of each schedule at M = 70, V =
+    300 and H past 512, the port's plain twin on the unpadded operands and
+    on the operands padded to ``ce_width(H)`` (whose gradients autograd
+    slices back) against the JAX function."""
+    args = _problem(M=70, H=H, V=300, seed=H)
+    jfn, tfn = WIDE_SCHEDULES[schedule]
+    j_loss, jg = _jax_side(jfn, *args)
+    assert tfc.ce_width(H) == {576: 576, 1000: 1024}[H]
+
+    def padded(h, w, b, labels, weights):
+        return tfn(*tfc.pad_ce(h, w), b, labels, weights)
+
+    for fn in (tfn, padded):
+        t_loss, tg = _torch_side(fn, *args)
+        assert t_loss == pytest.approx(j_loss, rel=FWD_REL)
+        for name, a, e, tol in zip(("dh", "dw", "db", "dweights"), tg, jg,
+                                   (GRAD_REL, GRAD_REL, FWD_REL, FWD_REL)):
+            assert a.shape == e.shape and a.dtype == np.float32, name
+            assert _rel(a, e) <= tol, (name, _rel(a, e))
+        zero = args[4] == 0
+        assert np.all(tg[0][zero] == 0.0)
+
+
 @pytest.mark.parametrize("fn", FNS, ids=IDS)
 def test_linear_ce_matches_kernel_shard(interpreted, fn):
     """Time-major hidden rows [T, N, H] and labels [T, N] with PAD (0)
@@ -284,3 +324,97 @@ def test_forward_plan_workspace_within_bound(M, V):
     assert chunks == 1 or chunks * M * 3 * 4 <= 16 << 20
     if (M, V) == (30720, 11500):
         assert plan.grid == (240, 6) and plan.chunk_tiles == 15
+
+
+# ----------------------------------------------------------------------
+# the plans past H = 512
+# ----------------------------------------------------------------------
+
+# the widths past 512 the planners are held at: the GMM parity width, the
+# wide cell's, twice it and CE_H_MAX
+WIDE_PLAN_H = [576, 1024, 2048, 4096]
+
+
+@pytest.mark.parametrize("H", WIDE_PLAN_H + [640, 960, 1088, 1000])
+def test_column_tiles_cover_the_width_once(H):
+    """The backward kernels' output column tiles (csrc/fused_ce.cu's and
+    fused_ce_mat.cu's launches) cover ce_width(H)'s columns once, in
+    order: tiles of 512 (m64n256 a warpgroup), then at most one each of
+    256, 128 and 64."""
+    Hp = tfc.ce_width(H)
+    tiles = tfc.col_tiles(Hp)
+    assert sum(tiles) == Hp and list(tiles) == sorted(tiles, reverse=True)
+    assert set(tiles) <= {512, 256, 128, 64}
+    assert all(tiles.count(ct) <= 1 for ct in (256, 128, 64))
+    assert tiles == {576: (512, 64), 640: (512, 128), 960: (512, 256, 128, 64),
+                     1024: (512, 512), 1088: (512, 512, 64), 2048: (512,) * 4,
+                     4096: (512,) * 8}[Hp]
+
+
+@pytest.mark.parametrize("H", [64, 128, 256, 512])
+def test_column_tiles_at_the_fixed_widths(H):
+    assert tfc.col_tiles(H) == (H,)
+
+
+def test_widths_past_the_limit_raise():
+    """Past CE_H_MAX the width, the tiles and the padding raise, naming
+    the limit; 4096 itself is taken."""
+    assert tfc.CE_H_MAX == 4096 and tfc.ce_width(4096) == 4096
+    assert tfc.kernel_width(4096) and not tfc.kernel_width(4160)
+    assert not tfc.kernel_width(600) and not tfc.kernel_width(192)
+    for fn in (tfc.ce_width, tfc.col_tiles):
+        with pytest.raises(ValueError, match="up to 4096"):
+            fn(4160)
+    with pytest.raises(ValueError, match="up to 4096"):
+        tfc.pad_ce(torch.zeros((3, 4097)), torch.zeros((5, 4097)))
+
+
+@pytest.mark.parametrize("use", BWD_USES)
+@pytest.mark.parametrize("H", WIDE_PLAN_H)
+@pytest.mark.parametrize("M,V", [(30720, 11500), (1000, 11519), (77, 301),
+                                 (1, 11500)])
+def test_backward_plan_past_512(M, H, V, use):
+    """Past 512 both backward kernels of either schedule still meet every
+    (row tile, vocab tile) pair once in each column tile, no dW/db split is
+    empty, and the partials stay within 128 MiB unless one split alone
+    exceeds it (H = 4096: 180 MiB at the train vocabulary).  At the train
+    shapes at H = 1024: one split (two would fill the waves no better) of
+    two column tiles, 360 blocks in 91% of 3 waves of 132 SMs."""
+    plan = tfc.ce_bwd_plan(M, H, V)
+    m_tiles, v_tiles = -(-M // 64), -(-V // 64)
+    want = {(m, v): 1 for m in range(m_tiles) for v in range(v_tiles)}
+    assert _covered(plan.dh_grid, plan.dh_k_tiles, plan.dh_k_tiles) == want
+    dwdb = _covered(plan.dwdb_grid, plan.dwdb_k_tiles, plan.dwdb_per)
+    assert {(m, v): n for (v, m), n in dwdb.items()} == want
+    assert all(y * plan.dwdb_per < m_tiles for y in range(plan.splits))
+    assert plan.col_tiles == tfc.col_tiles(H)
+    assert plan.dw_part == (plan.splits, v_tiles * 64, H)
+    s, Vp, h = plan.dw_part
+    assert s == 1 or s * Vp * h * 4 <= 128 << 20
+    if (M, H, V) == (30720, 1024, 11500):
+        assert plan.splits == 1 and plan.col_tiles == (512, 512)
+        assert plan.dwdb_grid == (180, 1) and plan.dh_grid == (480, 1)
+        assert tfc._wave_fill(180 * 2, 132) > 0.9
+
+
+@pytest.mark.parametrize("use", BWD_USES)
+@pytest.mark.parametrize("M,V", FWD_PLAN_SHAPES)
+def test_forward_plan_on_64_row_blocks(M, V, use):
+    """The forward's plan for the 64-row blocks that every width past 512
+    takes (resident or streamed): every (64-row block, vocab tile) pair
+    once, no vocab chunk empty, two partials a chunk (one a warpgroup)
+    within the 16 MiB of partials unless one chunk alone exceeds it; at
+    the train shapes 3 chunks of 30 vocab tiles, 1,440 blocks in 99% of
+    11 waves."""
+    plan = tfc.ce_fwd_plan(M, V, rows=64)
+    m_tiles, v_tiles = -(-M // 64), -(-V // 128)
+    assert plan.rows == 64 and plan.grid[0] == m_tiles
+    seen = _covered(plan.grid, v_tiles, plan.chunk_tiles)
+    assert seen == {(m, v): 1 for m in range(m_tiles) for v in range(v_tiles)}
+    assert all(y * plan.chunk_tiles < v_tiles for y in range(plan.grid[1]))
+    chunks = plan.grid[1]
+    assert plan.part == (2 * chunks, M, 3)
+    assert chunks == 1 or 2 * chunks * M * 3 * 4 <= 16 << 20
+    if (M, V) == (30720, 11500):
+        assert plan.grid == (480, 3) and plan.chunk_tiles == 30
+        assert tfc._wave_fill(480 * 3, 132) > 0.99

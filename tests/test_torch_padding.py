@@ -51,6 +51,13 @@ def test_round_up_and_next_width():
         == [64, 64, 128, 512, 512]
     with pytest.raises(ValueError, match="exceeds"):
         padding.next_width(513, tfc.KERNEL_H)
+    # the CE's widths: the next of KERNEL_H up to 512, past it the next
+    # multiple of 64 up to CE_H_MAX
+    assert [tfc.ce_width(n) for n in (1, 64, 65, 500, 512, 513, 520, 576, 1000,
+                                      1024, 2000, 4096)] \
+        == [64, 64, 128, 512, 512, 576, 576, 576, 1024, 1024, 2048, 4096]
+    with pytest.raises(ValueError, match="up to 4096"):
+        tfc.ce_width(4097)
 
 
 @pytest.mark.parametrize("E,H", WIDTHS)
@@ -416,9 +423,65 @@ def test_ce_wrappers_pad_and_slice(on_card, monkeypatch, schedule):
 
 
 def test_ce_past_its_widest_kernel_raises(on_card):
-    h, w, b, labels, weights = _ce_args(H=520)
-    with pytest.raises(ValueError, match="shared memory"):
-        tfc.fused_linear_ce(h, w, b, labels, weights)
+    """Only a width past CE_H_MAX raises, under every schedule, naming the
+    limit, before any launch; 520 and 1000 pad (test below)."""
+    h, w, b, labels, weights = _ce_args(M=5, H=4097, V=7)
+    for fn in (tfc.fused_linear_ce, tfc.fused_linear_ce_hybrid,
+               tfc.fused_linear_ce_xla_bwd):
+        with pytest.raises(ValueError, match="up to 4096"):
+            fn(h, w, b, labels, weights)
+    assert on_card == []
+
+
+def _wide_stand_ins(monkeypatch, on_card, schedule, Hp):
+    """The schedule's kernel launches replaced by stand-ins that check
+    they were handed the padded width Hp and compute the plain version."""
+    def at(name, fn, width_of):
+        def stand_in(*a):
+            assert width_of(a) == Hp, (name, width_of(a))
+            on_card.append(name)
+            return fn(*a)
+        return stand_in
+
+    if schedule == "flash":
+        for name, fn in (("fwd", tfc.ce_fwd_plain), ("dh", tfc.ce_dh_plain),
+                         ("dwdb", tfc.ce_dwdb_plain)):
+            monkeypatch.setattr(tfc, f"fused_ce_{name}_kernel",
+                                at(name, fn, lambda a: a[0].shape[1]))
+        return tfc.fused_linear_ce, tfc.fused_linear_ce_plain
+    fwd = (at("fwd", tfc.ce_mat_fwd_plain, lambda a: a[0].shape[1])
+           if schedule == "hybrid" else tfc.ce_xla_fwd_plain)
+    fns = tfc.MatFns(fwd, at("dh", tfc.ce_mat_dh_plain, lambda a: a[1].shape[1]),
+                     at("dwdb", tfc.ce_mat_dwdb_plain, lambda a: a[0].shape[1]))
+    if schedule == "hybrid":
+        monkeypatch.setattr(tfc, "HYBRID_KERNELS", fns)
+        return tfc.fused_linear_ce_hybrid, tfc.fused_linear_ce_hybrid_plain
+    monkeypatch.setattr(tfc, "XLA_BWD_KERNELS", fns)
+    return tfc.fused_linear_ce_xla_bwd, tfc.fused_linear_ce_xla_bwd_plain
+
+
+@pytest.mark.parametrize("schedule", ["flash", "hybrid", "xla_bwd"])
+@pytest.mark.parametrize("H,Hp", [(520, 576), (1000, 1024)])
+def test_ce_wrappers_pad_past_512(on_card, monkeypatch, schedule, H, Hp):
+    """Past 512 each CE schedule's wrapper pads h and W to the next
+    multiple of 64, launches each of its kernels once (the XLA forward's
+    forward is plain: its two backward kernels), and returns the unpadded
+    plain loss and gradients."""
+    fn, plain = _wide_stand_ins(monkeypatch, on_card, schedule, Hp)
+    h, w, b, labels, weights = _ce_args(H=H, seed=5)
+    leaves = [t.clone().requires_grad_() for t in (h, w, b)]
+    got = fn(*leaves, labels, weights)
+    got.backward()
+    assert on_card == (["dh", "dwdb"] if schedule == "xla_bwd"
+                       else ["fwd", "dh", "dwdb"])
+    got_grads = [leaf.grad for leaf in leaves]
+    leaves = [t.clone().requires_grad_() for t in (h, w, b)]
+    want = plain(*leaves, labels, weights)
+    want.backward()
+    _close(got, want)
+    for g_, leaf in zip(got_grads, leaves):
+        assert g_.shape == leaf.shape
+        _close(g_, leaf.grad, rel=1e-5)
 
 
 def test_logits_wrappers_pad(on_card, monkeypatch):

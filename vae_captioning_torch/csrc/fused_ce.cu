@@ -75,7 +75,32 @@
 //
 // Shared memory at H = 512: Q 64 KB, two 64 KB stages, two 8 KB dl tiles
 // (209 KB with alignment and barriers): one block per SM.  The forward,
-// ce_fwd_kernel<H, false>, is the wgmma + TMA template of fused_ce.cuh.
+// ce_fwd_kernel<BOXES, RG, RES, false>, is the wgmma + TMA template of
+// fused_ce.cuh.
+//
+// Past H = 512, ce_bwd_wide_kernel<CT, DW>.  Neither a resident Q tile (128
+// KB at H = 1024) beside a ring of K tiles (128 KB each) fits an SM's 227
+// KB, nor the [64, H] output in two warpgroups' registers (m64n512 would
+// take 256 accumulators a thread, past the cap of 255).  So:
+// * Output column tiles: block (x, y, z) owns CT output columns (grid z;
+//   CT = 512, m64n256 a warpgroup, as at H = 512; the rest of H past a
+//   multiple of 512 in one launch each of 256, 128 and 64 columns).  Each
+//   column tile recomputes all of S: at H = 1024 two tiles, 6·M·H·V
+//   operations against the 4·M·H·V of one pass (1.5x).
+// * S from streamed boxes: S [64 x 64] contracts H box by box, each stage
+//   of a 4-stage ring holding a Q box and the K tile's box of the same 64
+//   columns (16 KB; TMA, the 128-byte swizzle), so shared memory does not
+//   grow with H.  The leaders count each stage's releases, and the later
+//   refills it 4 boxes ahead, as row_ring.cuh does.  Q is read again from
+//   L2 for every K tile.
+// * The second product's operand, the K tile's CT output columns (64 KB
+//   at CT = 512), is loaded on its own into one of two buffers (each
+//   warpgroup's leader its half, once its product of the tile two back
+//   retired), so a tile's loads run under the previous tile's work.
+// * The dl step, the dl tiles, db and the split partials are the H <= 512
+//   kernel's; db comes from the z = 0 blocks of the first launch only.
+// Shared memory at CT = 512: the ring 64 KB, two 64 KB column buffers, two
+// 8 KB dl tiles (209 KB with alignment and barriers), at any H.
 
 #include "fused_ce.cuh"
 #include "hopper.cuh"
@@ -329,6 +354,279 @@ ce_bwd_kernel(const __grid_constant__ CUtensorMap q_map,
 }
 
 // ---------------------------------------------------------------------
+// the backward past H = 512: output column tiles, S from streamed boxes
+// ---------------------------------------------------------------------
+
+constexpr int WIDE_STAGES = 4;          // (Q box, K box) pairs of S in flight
+constexpr int WIDE_PAIR = 2 * BOX_BYTES;  // a stage: 16 KB
+
+template <int CT>
+struct BwdWide {
+  static constexpr int KEEP_BOXES = CT / BOX;         // boxes of a K tile's CT columns
+  static constexpr int KEEP = KEEP_BOXES * BOX_BYTES;  // bytes of them
+  static constexpr int HN = CT / 2;                    // output columns per warpgroup
+  static constexpr int ACC = HN / 2;                   // their f32 registers per thread
+  // at CT >= 128 the column boxes are loaded by two threads, one half each
+  static constexpr bool SPLIT = KEEP_BOXES >= 2;
+  // 1 KB to align to the swizzle's 1024-byte period; the ring, two column
+  // buffers, two dl tiles, db's exchange, the full barriers (ring and
+  // column buffers) and the release counters
+  static constexpr size_t SMEM = 1024 + static_cast<size_t>(WIDE_STAGES) * WIDE_PAIR +
+                                 2 * KEEP + 2 * BOX_BYTES + BT * sizeof(float) +
+                                 (WIDE_STAGES + 2) * sizeof(uint64_t) +
+                                 WIDE_STAGES * sizeof(uint32_t);
+  static_assert(SMEM <= SMEM_MAX, "one block per SM: 227 KB of shared memory");
+};
+
+// Grid (Q tiles, K ranges, column tiles).  Block (x, y, z) owns Q rows [64x,
+// 64x + 64), K tiles [y·per, min(k_tiles, (y + 1)·per)) and output columns
+// [e_base + CT·z, e_base + CT·(z + 1)) of H.
+//   DW = false: Q = h, K = W; out = dh [64·gridDim.x, H].
+//   DW = true:  Q = W, K = h; out = dw_part [gridDim.y, 64·gridDim.x, H],
+//               db_part [gridDim.y, 64·gridDim.x] (written by the z = 0
+//               blocks where db_part is not null).
+template <int CT, bool DW>
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+ce_bwd_wide_kernel(const __grid_constant__ CUtensorMap q_map,
+                   const __grid_constant__ CUtensorMap k_map,
+                   const float* __restrict__ b, const int* __restrict__ labels,
+                   const float* __restrict__ lse, const float* __restrict__ gw,
+                   float* __restrict__ out, float* __restrict__ db_part, int M,
+                   int V, int H, int k_tiles, int per, int e_base) {
+  using P = BwdWide<CT>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* base = smem + ((1024 - (smem_addr(smem) & 1023)) & 1023);
+  unsigned char* ring = base;
+  unsigned char* keep = ring + WIDE_STAGES * WIDE_PAIR;
+  unsigned char* dl_s = keep + 2 * P::KEEP;
+  float* db_s = reinterpret_cast<float*>(dl_s + 2 * BOX_BYTES);
+  uint64_t* full = reinterpret_cast<uint64_t*>(db_s + BT);
+  uint64_t* keep_full = full + WIDE_STAGES;
+  uint32_t* released = reinterpret_cast<uint32_t*>(keep_full + 2);
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const bool leader = tid % 128 == 0;
+  const int q0 = blockIdx.x * BT;
+  const int t0 = blockIdx.y * per;
+  const int n_tiles = max(0, min(k_tiles, t0 + per) - t0);
+  const int e0 = e_base + blockIdx.z * CT;   // the block's first output column
+  const int nb = H / BOX;                    // boxes of S's contraction
+  const int total = n_tiles * nb;            // stream j: tile j / nb, box j % nb
+
+  // box j of S's stream into stage j % WIDE_STAGES: Q's and the K tile's
+  // box of the same 64 columns
+  auto load_pair = [&](int j) {
+    const int s = j % WIDE_STAGES;
+    unsigned char* st = ring + s * WIDE_PAIR;
+    const int x = (j % nb) * BOX;
+    mbar_expect_tx(&full[s], WIDE_PAIR);
+    tma_load(st, &q_map, &full[s], x, q0);
+    tma_load(st + BOX_BYTES, &k_map, &full[s], x, (t0 + j / nb) * BT);
+  };
+  // the CT output columns of K tile t0 + i into buffer i & 1: this
+  // warpgroup's half (at CT = 64 thread 0 loads the one box)
+  auto load_keep = [&](int i) {
+    unsigned char* dst = keep + (i & 1) * P::KEEP;
+    uint64_t* bar = &keep_full[i & 1];
+    const int row = (t0 + i) * BT;
+    constexpr int NB = P::SPLIT ? P::KEEP_BOXES / 2 : 1;
+    const int c0 = P::SPLIT ? wg * NB : 0;
+    mbar_expect_tx(bar, NB * BOX_BYTES);
+#pragma unroll
+    for (int c = 0; c < NB; ++c)
+      tma_load(dst + (c0 + c) * BOX_BYTES, &k_map, bar, e0 + (c0 + c) * BOX, row);
+  };
+  // this warpgroup's wgmmas of stream box j retired: the later of the two
+  // leaders refills its stage WIDE_STAGES boxes ahead
+  auto release = [&](int j) {
+    if (!leader) return;
+    const int s = j % WIDE_STAGES;
+    __threadfence_block();
+    const bool later = atomicAdd(&released[s], 1u) & 1u;
+    __threadfence_block();
+    if (later && j + WIDE_STAGES < total) load_pair(j + WIDE_STAGES);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < WIDE_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      released[s] = 0;
+    }
+    for (int k = 0; k < 2; ++k) mbar_init(&keep_full[k], P::SPLIT ? 2 : 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int j = 0; j < min(WIDE_STAGES, total); ++j) load_pair(j);
+  if (P::SPLIT ? leader : tid == 0)
+    for (int i = 0; i < min(2, n_tiles); ++i) load_keep(i);
+
+  // This thread's accumulator fragment: rows r + 8i (i = 0, 1) of the 64;
+  // S columns 32·wg + 8n + 2·(lane % 4) + j (n < 4, j < 2) at register 4n
+  // + 2i + j; output columns e0 + HN·wg + 8n + 2·(lane % 4) + j (n < HN /
+  // 8) likewise.
+  const int r = warp * 16 + lane / 4;
+  const int cq = 2 * (lane % 4);
+  // per-Q-row operands: dh: lse, gw, label of h rows; dW: the bias of
+  // vocab rows, -inf past V
+  float q_lse[2], q_gw[2], q_bias[2];
+  int q_lab[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int n = q0 + r + 8 * i;
+    if constexpr (DW) {
+      q_bias[i] = n < V ? b[n] : -INFINITY;
+    } else {
+      const bool in = n < M;
+      q_lse[i] = in ? lse[n] : 0.0f;
+      q_gw[i] = in ? gw[n] : 0.0f;
+      q_lab[i] = in ? labels[n] : -1;
+    }
+  }
+
+  const uint32_t ring_addr = smem_addr(ring);
+  const uint32_t keep_addr = smem_addr(keep);
+  const uint32_t dl_addr = smem_addr(dl_s);
+  // this warpgroup's output columns in a column buffer: their box, bytes
+  // within it
+  const uint32_t out_cols = (wg * P::HN / BOX) * BOX_BYTES + (wg * P::HN % BOX) * 2;
+
+  // the first second product (tile 0, k16 step 0) overwrites acc (scale_d
+  // 0), as mat_ring.cuh's does, so the launches give no block an empty K
+  // range
+  float acc[P::ACC];
+  float db_run[2] = {0.0f, 0.0f};
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int k0 = (t0 + i) * BT;        // the tile's first K row
+    // per-K-row operands of this thread's 8 S columns, requested before
+    // S: dh: the bias of vocab rows, -inf past V; dW: lse, gw, label of h
+    // rows
+    float k_bias[8], k_lse[8], k_gw[8];
+    int k_lab[8];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = k0 + 32 * wg + 8 * n + cq + j;
+        if constexpr (DW) {
+          const bool in = col < M;
+          k_lse[2 * n + j] = in ? lse[col] : 0.0f;
+          k_gw[2 * n + j] = in ? gw[col] : 0.0f;
+          k_lab[2 * n + j] = in ? labels[col] : -1;
+        } else {
+          k_bias[2 * n + j] = col < V ? b[col] : -INFINITY;
+        }
+      }
+
+    // S [64 x 32] = Q @ (K rows 32·wg .. 32·wg + 31)^T, contracting H box
+    // by box from the ring
+    float sacc[16];
+    for (int c = 0; c < nb; ++c) {
+      const int j = i * nb + c;
+      const int s = j % WIDE_STAGES;
+      mbar_wait(&full[s], (j / WIDE_STAGES) & 1);
+      const uint32_t st = ring_addr + s * WIDE_PAIR;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma<32, 0>(sacc, sw128_desc(st + kk * 32, 16),
+                     sw128_desc(st + BOX_BYTES + wg * 4096 + kk * 32, 16), (c | kk) != 0);
+      wgmma_commit();
+      // the group before this one has retired: at c = 0 this warpgroup's
+      // second product of tile i - 1, whose half of its column buffer then
+      // takes tile i + 1; else S's box c - 1, whose stage is released
+      wgmma_wait<1>();
+      if (c > 0) release(j - 1);
+      else if (P::SPLIT && leader && i > 0 && i + 1 < n_tiles) load_keep(i + 1);
+    }
+    wgmma_wait<0>();
+    reg_fence(sacc);
+    release(i * nb + nb - 1);
+
+    // dl in f32 (db), rounded to bf16 into this tile's swizzled dl buffer,
+    // as ce_bwd_kernel forms it
+    unsigned char* dl_buf = dl_s + (i & 1) * BOX_BYTES;
+    const int col0 = k0 + 32 * wg + cq;
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii) {
+        const int row = r + 8 * ii;
+        float d[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int e = 4 * n + 2 * ii + j;
+          const int kc = 2 * n + j;
+          if constexpr (DW) {
+            d[j] = dlogit(sacc[e], q_bias[ii], k_lse[kc], q0 + row, k_lab[kc],
+                          k_gw[kc]);
+            db_run[ii] += d[j];
+          } else {
+            d[j] = dlogit(sacc[e], k_bias[kc], q_lse[ii], 8 * n + j,
+                          q_lab[ii] - col0, q_gw[ii]);
+          }
+        }
+        const int chunk = (4 * wg + n) ^ (row & 7);
+        *reinterpret_cast<__nv_bfloat162*>(dl_buf + row * 128 + chunk * 16 + cq * 2) =
+            __floats2bfloat162_rn(d[0], d[1]);
+      }
+    // the dl tile is read by wgmma (the async proxy) after both halves land
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync 1, %0;\n" :: "n"(BWD_THREADS) : "memory");
+    // at CT = 64 both second products of tile i - 1 read the one column box:
+    // it is free once both warpgroups passed this barrier
+    if (!P::SPLIT && tid == 0 && i > 0 && i + 1 < n_tiles) load_keep(i + 1);
+
+    // out [64 x HN] += dl16 [64 x 64] @ K_tile [64 x (this warpgroup's HN)]
+    mbar_wait(&keep_full[i & 1], (i >> 1) & 1);
+    const uint32_t kb = keep_addr + (i & 1) * P::KEEP;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma<P::HN, 1>(acc, sw128_desc(dl_addr + (i & 1) * BOX_BYTES + kk * 32, 16),
+                      sw128_desc(kb + out_cols + kk * 16 * 128, BOX_BYTES), (i | kk) != 0);
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  reg_fence(acc);
+
+  // the [64, CT] f32 block of dh, or of this split's dW partial
+  const int Qp = gridDim.x * BT;
+  float* o = out + (DW ? static_cast<size_t>(blockIdx.y) * Qp * H : 0);
+#pragma unroll
+  for (int n = 0; n < P::HN / 8; ++n)
+#pragma unroll
+    for (int ii = 0; ii < 2; ++ii) {
+      const int row = q0 + r + 8 * ii;
+      const int col = e0 + wg * P::HN + 8 * n + cq;
+      *reinterpret_cast<float2*>(&o[static_cast<size_t>(row) * H + col]) =
+          make_float2(acc[4 * n + 2 * ii], acc[4 * n + 2 * ii + 1]);
+    }
+  if constexpr (DW) {
+    if (db_part == nullptr || blockIdx.z != 0) return;
+    // db: the 4 lanes of a row, then warpgroup 0's half + warpgroup 1's
+#pragma unroll
+    for (int ii = 0; ii < 2; ++ii) {
+      db_run[ii] += __shfl_xor_sync(0xffffffffu, db_run[ii], 1);
+      db_run[ii] += __shfl_xor_sync(0xffffffffu, db_run[ii], 2);
+    }
+    if (wg == 1 && lane % 4 == 0) {
+      db_s[r] = db_run[0];
+      db_s[r + 8] = db_run[1];
+    }
+    asm volatile("bar.sync 1, %0;\n" :: "n"(BWD_THREADS) : "memory");
+    if (wg == 0 && lane % 4 == 0) {
+      float* dbo = db_part + static_cast<size_t>(blockIdx.y) * Qp + q0;
+      dbo[r] = db_run[0] + db_s[r];
+      dbo[r + 8] = db_run[1] + db_s[r + 8];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
 // host side: launches
 // ---------------------------------------------------------------------
 
@@ -354,22 +652,75 @@ int launch_bwd(const bf16* q, int q_rows, const bf16* k, int k_rows,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int H>
-int launch_dh(const bf16* h, const bf16* w, const float* b, const int* labels,
-              const float* lse, const float* gw, float* dh, int M, int V,
-              cudaStream_t st) {
-  const int v_tiles = (V + BT - 1) / BT;
-  return launch_bwd<H, false>(h, M, w, V, b, labels, lse, gw, dh, nullptr, M, V,
-                              1, v_tiles, st);
+// one launch of ce_bwd_wide_kernel<CT, DW> over `tiles` column tiles from
+// column e_base
+template <int CT, bool DW>
+int launch_wide(const CUtensorMap& q_map, const CUtensorMap& k_map, int q_rows,
+                int k_rows, const float* b, const int* labels, const float* lse,
+                const float* gw, float* out, float* db_part, int M, int V, int H,
+                int splits, int per, int tiles, int e_base, cudaStream_t st) {
+  constexpr size_t smem = BwdWide<CT>::SMEM;
+  int err = allow_smem(ce_bwd_wide_kernel<CT, DW>, smem);
+  if (err) return err;
+  const dim3 grid((q_rows + BT - 1) / BT, splits, tiles);
+  ce_bwd_wide_kernel<CT, DW><<<grid, BWD_THREADS, smem, st>>>(
+      q_map, k_map, b, labels, lse, gw, out, db_part, M, V, H,
+      (k_rows + BT - 1) / BT, per, e_base);
+  return static_cast<int>(cudaGetLastError());
 }
 
-template <int H>
+// Past H = 512: Q [q_rows, H] and K [k_rows, H] streamed; column tiles of
+// 512 (one launch, grid z), then one launch each of 256, 128 and 64 for
+// what is left of H (ops/fused_ce.py: col_tiles); db from the first
+template <bool DW>
+int launch_bwd_wide(const bf16* q, int q_rows, const bf16* k, int k_rows,
+                    const float* b, const int* labels, const float* lse,
+                    const float* gw, float* out, float* db_part, int M, int V,
+                    int H, int splits, int per, cudaStream_t st) {
+  CUtensorMap q_map, k_map;
+  int err = row_tile_map(&q_map, q, q_rows, H);
+  if (err) return err;
+  err = row_tile_map(&k_map, k, k_rows, H);
+  if (err) return err;
+#define VCT_WIDE(CT, TILES, E)                                                 \
+  launch_wide<CT, DW>(q_map, k_map, q_rows, k_rows, b, labels, lse, gw, out,   \
+                      (E) == 0 ? db_part : nullptr, M, V, H, splits, per, TILES, \
+                      E, st)
+  int e = H / 512 * 512;
+  err = VCT_WIDE(512, H / 512, 0);
+  if (!err && H - e >= 256) { err = VCT_WIDE(256, 1, e); e += 256; }
+  if (!err && H - e >= 128) { err = VCT_WIDE(128, 1, e); e += 128; }
+  if (!err && H - e >= 64) err = VCT_WIDE(64, 1, e);
+#undef VCT_WIDE
+  return err;
+}
+
+// H at compile time (64..512), or 0 for the column-tiled kernels past 512
+template <int HH>
+int launch_dh(const bf16* h, const bf16* w, const float* b, const int* labels,
+              const float* lse, const float* gw, float* dh, int M, int H, int V,
+              cudaStream_t st) {
+  const int v_tiles = (V + BT - 1) / BT;
+  if constexpr (HH == 0)
+    return launch_bwd_wide<false>(h, M, w, V, b, labels, lse, gw, dh, nullptr, M, V, H,
+                                  1, v_tiles, st);
+  else
+    return launch_bwd<HH, false>(h, M, w, V, b, labels, lse, gw, dh, nullptr, M, V,
+                                 1, v_tiles, st);
+}
+
+template <int HH>
 int launch_dwdb(const bf16* h, const bf16* w, const float* b, const int* labels,
                 const float* lse, const float* gw, float* dw_part,
-                float* db_part, float* dw, float* db, int M, int V, int splits,
-                int per, cudaStream_t st) {
-  int err = launch_bwd<H, true>(w, V, h, M, b, labels, lse, gw, dw_part, db_part,
-                                M, V, splits, per, st);
+                float* db_part, float* dw, float* db, int M, int H, int V,
+                int splits, int per, cudaStream_t st) {
+  int err;
+  if constexpr (HH == 0)
+    err = launch_bwd_wide<true>(w, V, h, M, b, labels, lse, gw, dw_part, db_part, M, V,
+                                H, splits, per, st);
+  else
+    err = launch_bwd<HH, true>(w, V, h, M, b, labels, lse, gw, dw_part, db_part, M, V,
+                               splits, per, st);
   if (err) return err;
   const int Vp = (V + BT - 1) / BT * BT;
   err = sum_splits(dw_part, splits, static_cast<size_t>(Vp) * H,
@@ -380,29 +731,26 @@ int launch_dwdb(const bf16* h, const bf16* w, const float* b, const int* labels,
 
 }  // namespace
 
-// Shape rule: H is 64, 128, 256 or 512; M and V anything positive.  Each
-// returns a cudaError_t as int.
+// Shape rule: H is 64, 128, 256, 512, or past 512 a multiple of 64 up to
+// CE_H_MAX; M and V anything positive.  Each returns a cudaError_t as int.
 #define VCT_CE_ARGS                                                      \
   static_cast<const bf16*>(h), static_cast<const bf16*>(w),               \
       static_cast<const float*>(b), static_cast<const int*>(labels)
 
 // h16 [M, H], w16 [V, H] bf16; b [V] f32; labels [M] int32 -> lse, ll [M]
-// f32.  A block takes chunk_tiles vocab tiles of 128 columns; part: [chunks,
-// M, 3] f32 workspace, chunks = ceil(ceil(V / 128) / chunk_tiles).
-// ops/fused_ce.py's ce_fwd_plan picks chunk_tiles.
+// f32.  A block takes chunk_tiles vocab tiles of 128 columns; part: [chunks
+// · (rows == 64 ? 2 : 1), M, 3] f32 workspace, chunks = ceil(ceil(V / 128)
+// / chunk_tiles), rows from vct_fused_ce_fwd_block.  ops/fused_ce.py's
+// ce_fwd_plan picks chunk_tiles.
 extern "C" int vct_fused_ce_fwd(const void* h, const void* w, const void* b,
                                 const void* labels, void* part, void* lse,
                                 void* ll, int M, int H, int V, int chunk_tiles,
                                 void* stream) {
   if (bad_shape(M, H, V) || chunk_tiles <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define CALL(HH)                                                              \
-  launch_fwd<HH, false>(VCT_CE_ARGS, static_cast<float*>(part), nullptr,       \
-                        static_cast<float*>(lse), static_cast<float*>(ll), M, \
-                        V, chunk_tiles, st)
-  VCT_CE_SWITCH_H(CALL)
-#undef CALL
+  return launch_fwd_h<false>(VCT_CE_ARGS, static_cast<float*>(part), nullptr,
+                             static_cast<float*>(lse), static_cast<float*>(ll), M, H,
+                             V, chunk_tiles, static_cast<cudaStream_t>(stream));
 }
 
 // + lse, gw [M] f32 -> dh [ceil(M / 64) * 64, H] f32 (the rows past M come
@@ -415,8 +763,8 @@ extern "C" int vct_fused_ce_dh(const void* h, const void* w, const void* b,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define CALL(HH)                                                              \
   launch_dh<HH>(VCT_CE_ARGS, static_cast<const float*>(lse),                  \
-                static_cast<const float*>(gw), static_cast<float*>(dh), M, V, \
-                st)
+                static_cast<const float*>(gw), static_cast<float*>(dh), M, H, \
+                V, st)
   VCT_CE_SWITCH_H(CALL)
 #undef CALL
 }
@@ -429,33 +777,48 @@ extern "C" int vct_fused_ce_dwdb(const void* h, const void* w, const void* b,
                                  const void* gw, void* dw_part, void* db_part,
                                  void* dw, void* db, int M, int H, int V,
                                  int splits, int per, void* stream) {
-  if (bad_shape(M, H, V) || splits <= 0 || per <= 0)
+  // every split takes at least one row tile (past 512 the first product
+  // overwrites the accumulators)
+  if (bad_shape(M, H, V) || splits <= 0 || per <= 0 ||
+      static_cast<long>(splits - 1) * per >= (M + BT - 1) / BT)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define CALL(HH)                                                              \
   launch_dwdb<HH>(VCT_CE_ARGS, static_cast<const float*>(lse),                \
                   static_cast<const float*>(gw), static_cast<float*>(dw_part),\
                   static_cast<float*>(db_part), static_cast<float*>(dw),      \
-                  static_cast<float*>(db), M, V, splits, per, st)
+                  static_cast<float*>(db), M, H, V, splits, per, st)
   VCT_CE_SWITCH_H(CALL)
 #undef CALL
 }
 
-// the dynamic shared memory of the forward kernel at width H, of the flash
-// schedule (write_lg 0) or of the written-logits one (1) (bytes)
-extern "C" int vct_fused_ce_fwd_smem(int H, int write_lg) {
-  if (write_lg) {
-    VCT_CE_FWD_SMEM(H, true)
-  }
-  VCT_CE_FWD_SMEM(H, false)
+// The forward's block at width H, of the flash schedule (write_lg 0) or of
+// the written-logits one (1), as rows · 2 + resident; -1 for a width the
+// kernels do not take
+extern "C" int vct_fused_ce_fwd_block(int H, int write_lg) {
+  return ce_width(H) ? fwd_block(H, write_lg != 0) : -1;
 }
 
-// the dynamic shared memory of the backward kernels at width H (bytes)
+// the dynamic shared memory of the forward kernel at width H, of the flash
+// schedule (write_lg 0) or of the written-logits one (1) (bytes); -1 for a
+// width the kernels do not take
+extern "C" int vct_fused_ce_fwd_smem(int H, int write_lg) {
+  return ce_width(H) ? fwd_smem(H, write_lg != 0) : -1;
+}
+
+// the dynamic shared memory of the backward kernels (bytes): ce_bwd_kernel
+// at H = 64 .. 512; ce_bwd_wide_kernel of CT columns at H = -CT (CT = 64 ..
+// 512), and at any H past 512 of 512 columns (its shared memory does not
+// depend on H)
 extern "C" int vct_fused_ce_bwd_smem(int H) {
   switch (H) {
     case 64: return static_cast<int>(Bwd<64>::SMEM);
     case 128: return static_cast<int>(Bwd<128>::SMEM);
     case 256: return static_cast<int>(Bwd<256>::SMEM);
-    default: return static_cast<int>(Bwd<512>::SMEM);
+    case 512: return static_cast<int>(Bwd<512>::SMEM);
+    case -64: return static_cast<int>(BwdWide<64>::SMEM);
+    case -128: return static_cast<int>(BwdWide<128>::SMEM);
+    case -256: return static_cast<int>(BwdWide<256>::SMEM);
+    default: return static_cast<int>(BwdWide<512>::SMEM);
   }
 }

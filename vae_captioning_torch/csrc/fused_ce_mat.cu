@@ -35,7 +35,7 @@
 // label pick, each warpgroup rounds it to bf16 (nearest even) into shared
 // memory and stores it with TMA into lg, clipped at the row pitch Vp.
 //
-// The backward: one kernel template, ce_mat_bwd_kernel<H, DW>, for both
+// The backward: one kernel template, ce_mat_bwd_kernel<CT, DW>, for both
 // gradients, on the product loop of mat_ring.cuh (which the AG-heads
 // backward products share).  A block owns 64 rows of the output (h rows for
 // dh, vocab rows for dW) and streams the other operand K in tiles of 64
@@ -73,6 +73,14 @@
 //   then lanes by shuffle, then warps); dW/db's row splits write [splits,
 //   Vp, H] partials that a last launch sums in split order (db alike), so
 //   the gradients repeat bit for bit.
+// * Past H = 512: output column tiles.  A block owns CT output columns
+//   (grid z), CT = 512 at m64n256 a warpgroup, as at H = 512 (the [64, H]
+//   output would not fit two warpgroups' registers past it, nor a K tile
+//   beside a ring); what is left of H past a multiple of 512 takes one
+//   launch each of 256, 128 and 64 columns (ops/fused_ce.py: col_tiles).
+//   dl is formed from the lg box with no product, so a column tile only
+//   reads lg again and forms dl again: the tensor operations stay 2·M·H·V.
+//   db comes from the z = 0 blocks of the first launch.
 
 #include "fused_ce.cuh"
 #include "hopper.cuh"
@@ -89,23 +97,28 @@ __host__ __device__ constexpr size_t mat_bwd_smem() {
   return MatRing<H>::smem(MAT_WARPS * BT * sizeof(float));
 }
 
-// Grid (output row tiles, K ranges).  Block (x, y) owns output rows [64x,
-// 64x + 64) and K tiles [y·per, min(k_tiles, (y + 1)·per)), at least one.
+// Grid (output row tiles, K ranges, column tiles).  Block (x, y, z) owns
+// output rows [64x, 64x + 64), K tiles [y·per, min(k_tiles, (y + 1)·per)),
+// at least one, and output columns [e_base + CT·z, e_base + CT·(z + 1)) of
+// H (at H <= 512: CT = H, one tile).
 //   DW = false: K = W; out = dh [64·gridDim.x, H].
 //   DW = true:  K = h; out = dw_part [gridDim.y, 64·gridDim.x, H],
-//               db_part [gridDim.y, 64·gridDim.x].
-template <int H, bool DW>
+//               db_part [gridDim.y, 64·gridDim.x] (written by the z = 0
+//               blocks where db_part is not null).
+template <int CT, bool DW>
 __global__ void __launch_bounds__(MAT_THREADS, 1)
 ce_mat_bwd_kernel(const __grid_constant__ CUtensorMap k_map,
                   const __grid_constant__ CUtensorMap lg_map,
                   const int* __restrict__ labels, const float* __restrict__ lse,
                   const float* __restrict__ gw, float* __restrict__ out,
-                  float* __restrict__ db_part, int M, int k_tiles, int per) {
-  using P = MatRing<H>;
-  static_assert(mat_bwd_smem<H>() <= 232448, "one block per SM: 227 KB of shared memory");
+                  float* __restrict__ db_part, int M, int k_tiles, int per, int H,
+                  int e_base) {
+  using P = MatRing<CT>;
+  static_assert(mat_bwd_smem<CT>() <= 232448, "one block per SM: 227 KB of shared memory");
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* ring = smem + ((1024 - (smem_addr(smem) & 1023)) & 1023);
-  float* db_s = reinterpret_cast<float*>(mat_ring_extra<H>(ring));
+  float* db_s = reinterpret_cast<float*>(mat_ring_extra<CT>(ring));
+  const int e0 = e_base + blockIdx.z * CT;   // the block's first output column
 
   const int tid = threadIdx.x;
   const int lane = tid % 32;
@@ -182,13 +195,14 @@ ce_mat_bwd_kernel(const __grid_constant__ CUtensorMap k_map,
   };
 
   float acc[P::ACC];
-  mat_ring_product<H, DW>(acc, ring, &k_map, &lg_map, x0, 0, t0, n_tiles, dl_step);
+  mat_ring_product<CT, DW>(acc, ring, &k_map, &lg_map, x0, e0, t0, n_tiles, dl_step);
 
-  // the [64, H] f32 block of dh, or of this split's dW partial
+  // the [64, CT] f32 block of dh, or of this split's dW partial
   const int Xp = gridDim.x * BT;
-  mat_ring_store<H>(acc, out + (DW ? static_cast<size_t>(blockIdx.y) * Xp * H : 0), H,
-                    x0, 0);
+  mat_ring_store<CT>(acc, out + (DW ? static_cast<size_t>(blockIdx.y) * Xp * H : 0), H,
+                     x0, e0);
   if constexpr (DW) {
+    if (db_part == nullptr || blockIdx.z != 0) return;
     // db: the 4 lanes of a warp that share columns (lane % 8), then the
     // 8 warps in order
 #pragma unroll
@@ -210,12 +224,29 @@ ce_mat_bwd_kernel(const __grid_constant__ CUtensorMap k_map,
   }
 }
 
-// K [k_rows, H] streamed against lg [M, Vp]; grid (out_tiles, splits),
-// each block over `per` K tiles
-template <int H, bool DW>
+// K [k_rows, H] streamed against lg [M, Vp]; grid (out_tiles, splits,
+// tiles), each block over `per` K tiles and CT columns from e_base
+template <int CT, bool DW>
+int launch_mat_ct(const CUtensorMap& k_map, const CUtensorMap& lg_map, int k_rows,
+                  const int* labels, const float* lse, const float* gw, float* out,
+                  float* db_part, int M, int H, int out_tiles, int splits, int per,
+                  int tiles, int e_base, cudaStream_t st) {
+  constexpr size_t smem = mat_bwd_smem<CT>();
+  int err = allow_smem(ce_mat_bwd_kernel<CT, DW>, smem);
+  if (err) return err;
+  ce_mat_bwd_kernel<CT, DW><<<dim3(out_tiles, splits, tiles), MAT_THREADS, smem, st>>>(
+      k_map, lg_map, labels, lse, gw, out, db_part, M, (k_rows + BT - 1) / BT, per, H,
+      e_base);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// HH: H at compile time (64..512), one column tile; 0: past 512, column
+// tiles of 512 (one launch, grid z), then one launch each of 256, 128 and
+// 64 for what is left of H (ops/fused_ce.py: col_tiles); db from the first
+template <int HH, bool DW>
 int launch_mat_bwd(const bf16* k, int k_rows, const bf16* lg, const int* labels,
                    const float* lse, const float* gw, float* out, float* db_part,
-                   int M, int V, int out_tiles, int splits, int per,
+                   int M, int H, int V, int out_tiles, int splits, int per,
                    cudaStream_t st) {
   CUtensorMap k_map, lg_map;
   int err = row_tile_map(&k_map, k, k_rows, H);
@@ -223,31 +254,40 @@ int launch_mat_bwd(const bf16* k, int k_rows, const bf16* lg, const int* labels,
   // lg is a [M, Vp] bf16 matrix: the same 64 x 64 boxes and swizzle
   err = row_tile_map(&lg_map, lg, M, logits_pitch(V));
   if (err) return err;
-  constexpr size_t smem = mat_bwd_smem<H>();
-  err = allow_smem(ce_mat_bwd_kernel<H, DW>, smem);
-  if (err) return err;
-  ce_mat_bwd_kernel<H, DW><<<dim3(out_tiles, splits), MAT_THREADS, smem, st>>>(
-      k_map, lg_map, labels, lse, gw, out, db_part, M, (k_rows + BT - 1) / BT, per);
-  return static_cast<int>(cudaGetLastError());
+#define VCT_MAT(CT, TILES, E)                                                  \
+  launch_mat_ct<CT, DW>(k_map, lg_map, k_rows, labels, lse, gw, out,           \
+                        (E) == 0 ? db_part : nullptr, M, H, out_tiles, splits, \
+                        per, TILES, E, st)
+  if constexpr (HH > 0) {
+    return VCT_MAT(HH, 1, 0);
+  } else {
+    int e = H / 512 * 512;
+    err = VCT_MAT(512, H / 512, 0);
+    if (!err && H - e >= 256) { err = VCT_MAT(256, 1, e); e += 256; }
+    if (!err && H - e >= 128) { err = VCT_MAT(128, 1, e); e += 128; }
+    if (!err && H - e >= 64) err = VCT_MAT(64, 1, e);
+    return err;
+  }
+#undef VCT_MAT
 }
 
-template <int H>
+template <int HH>
 int launch_mat_dh(const bf16* lg, const bf16* w, const int* labels,
-                  const float* lse, const float* gw, float* dh, int M, int V,
+                  const float* lse, const float* gw, float* dh, int M, int H, int V,
                   cudaStream_t st) {
   const int v_tiles = (V + BT - 1) / BT;
-  return launch_mat_bwd<H, false>(w, V, lg, labels, lse, gw, dh, nullptr, M, V,
-                                  (M + BT - 1) / BT, 1, v_tiles, st);
+  return launch_mat_bwd<HH, false>(w, V, lg, labels, lse, gw, dh, nullptr, M, H, V,
+                                   (M + BT - 1) / BT, 1, v_tiles, st);
 }
 
-template <int H>
+template <int HH>
 int launch_mat_dwdb(const bf16* h, const bf16* lg, const int* labels,
                     const float* lse, const float* gw, float* dw_part,
-                    float* db_part, float* dw, float* db, int M, int V,
+                    float* db_part, float* dw, float* db, int M, int H, int V,
                     int splits, int per, cudaStream_t st) {
   const int v_tiles = (V + BT - 1) / BT;
-  int err = launch_mat_bwd<H, true>(h, M, lg, labels, lse, gw, dw_part, db_part,
-                                    M, V, v_tiles, splits, per, st);
+  int err = launch_mat_bwd<HH, true>(h, M, lg, labels, lse, gw, dw_part, db_part,
+                                     M, H, V, v_tiles, splits, per, st);
   if (err) return err;
   const int Vp = v_tiles * BT;
   err = sum_splits(dw_part, splits, static_cast<size_t>(Vp) * H,
@@ -258,29 +298,26 @@ int launch_mat_dwdb(const bf16* h, const bf16* lg, const int* labels,
 
 }  // namespace
 
-// Shape rule: H is 64, 128, 256 or 512; M and V anything positive; lg is [M,
-// 64 ceil(V / 64)] bf16.  Each returns a cudaError_t as int.
+// Shape rule: H is 64, 128, 256, 512, or past 512 a multiple of 64 up to
+// CE_H_MAX; M and V anything positive; lg is [M, 64 ceil(V / 64)] bf16.
+// Each returns a cudaError_t as int.
 
 // h16 [M, H], w16 [V, H] bf16; b [V] f32; labels [M] int32 -> lg [M, Vp]
 // bf16, lse, ll [M] f32.  A block takes chunk_tiles vocab tiles of 128
-// columns; part: [chunks, M, 3] f32 workspace, chunks = ceil(ceil(V / 128) /
-// chunk_tiles) (ops/fused_ce.py's ce_fwd_plan).
+// columns; part: [chunks · (rows == 64 ? 2 : 1), M, 3] f32 workspace,
+// chunks = ceil(ceil(V / 128) / chunk_tiles), rows from
+// vct_fused_ce_fwd_block (ops/fused_ce.py's ce_fwd_plan).
 extern "C" int vct_fused_ce_mat_fwd(const void* h, const void* w, const void* b,
                                     const void* labels, void* part, void* lg,
                                     void* lse, void* ll, int M, int H, int V,
                                     int chunk_tiles, void* stream) {
   if (bad_shape(M, H, V) || chunk_tiles <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define CALL(HH)                                                              \
-  launch_fwd<HH, true>(static_cast<const bf16*>(h), static_cast<const bf16*>(w), \
-                       static_cast<const float*>(b),                          \
-                       static_cast<const int*>(labels),                       \
-                       static_cast<float*>(part), static_cast<bf16*>(lg),      \
-                       static_cast<float*>(lse), static_cast<float*>(ll), M,  \
-                       V, chunk_tiles, st)
-  VCT_CE_SWITCH_H(CALL)
-#undef CALL
+  return launch_fwd_h<true>(static_cast<const bf16*>(h), static_cast<const bf16*>(w),
+                            static_cast<const float*>(b), static_cast<const int*>(labels),
+                            static_cast<float*>(part), static_cast<bf16*>(lg),
+                            static_cast<float*>(lse), static_cast<float*>(ll), M, H, V,
+                            chunk_tiles, static_cast<cudaStream_t>(stream));
 }
 
 // lg [M, Vp] bf16, w16 [V, H] bf16, labels [M] int32, lse, gw [M] f32 -> dh
@@ -296,7 +333,7 @@ extern "C" int vct_fused_ce_mat_dh(const void* lg, const void* w,
                     static_cast<const int*>(labels),                          \
                     static_cast<const float*>(lse),                           \
                     static_cast<const float*>(gw), static_cast<float*>(dh), M, \
-                    V, st)
+                    H, V, st)
   VCT_CE_SWITCH_H(CALL)
 #undef CALL
 }
@@ -323,13 +360,14 @@ extern "C" int vct_fused_ce_mat_dwdb(const void* h, const void* lg,
                       static_cast<const float*>(gw),                          \
                       static_cast<float*>(dw_part),                           \
                       static_cast<float*>(db_part), static_cast<float*>(dw),  \
-                      static_cast<float*>(db), M, V, splits, per, st)
+                      static_cast<float*>(db), M, H, V, splits, per, st)
   VCT_CE_SWITCH_H(CALL)
 #undef CALL
 }
 
-// the dynamic shared memory of the written-logits backward kernels at width
-// H (bytes)
+// the dynamic shared memory of the written-logits backward kernels of CT
+// columns (bytes): CT = H at H = 64 .. 512; past 512 the column tiles of
+// 512 (and of 64 .. 256 for the rest of H, which take less)
 extern "C" int vct_fused_ce_mat_bwd_smem(int H) {
   switch (H) {
     case 64: return static_cast<int>(mat_bwd_smem<64>());

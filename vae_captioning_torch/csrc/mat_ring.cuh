@@ -1,5 +1,5 @@
 // The product loop that the written-logits CE backward (fused_ce_mat.cu,
-// ce_mat_bwd_kernel<H, DW>), the AG-heads backward products
+// ce_mat_bwd_kernel<CT, DW>), the AG-heads backward products
 // (fused_ag_heads.cu, ag_mat_kernel<CT, DW>) and the LSTM sequence
 // backward's weight gradients (fused_lstm_seq.cu, seq_dw_kernel<CT>)
 // share: a block owns 64 output rows and CT output columns and streams a K

@@ -29,11 +29,15 @@ S[label]).  Rows of weight 0 may carry any label and get dh = 0 exactly.
 
 On CPU tensors each wrapper takes its plain twin (``*_plain``), which
 carries the same VJP; on CUDA tensors it launches its kernels or raises.
-The kernels are built for H in ``KERNEL_H``: below 512 the wrappers
-zero-pad h's and W's columns up to the next of those widths
-(:func:`pad_ce`; exact, the added terms are 0·0) and autograd slices dh
-and dW back.  Past 512 they raise: the forward's 128 resident rows of h
-would take more shared memory than an SM has.
+The kernels take H in ``KERNEL_H`` (64, 128, 256, 512: built with the
+width at compile time) and, past 512, every multiple of 64 up to
+``CE_H_MAX`` (4096): the forward on 64-row blocks, resident or streamed
+(:func:`fwd_block`), both backwards on output column tiles
+(:func:`col_tiles`).  The wrappers zero-pad h's and W's columns up to
+the width :func:`ce_width` gives (the next of ``KERNEL_H`` below 512,
+the next multiple of 64 past it: 520 -> 576, 1000 -> 1024;
+:func:`pad_ce`; exact, the added terms are 0·0) and autograd slices dh
+and dW back.  Past ``CE_H_MAX`` they raise.
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from vae_captioning_torch import _ext
-from vae_captioning_torch.ops.padding import next_width, pad_last
+from vae_captioning_torch.ops.padding import next_width, pad_last, round_up
 
 FWD = "fused_linear_ce_fwd"
 DH = "fused_linear_ce_dh"
@@ -54,14 +58,19 @@ FWD_MAT = "fused_linear_ce_mat_fwd"
 DH_MAT = "fused_linear_ce_mat_dh"
 DWDB_MAT = "fused_linear_ce_mat_dwdb"
 NEG = -1e30         # the written logit of a vocab column past V
-KERNEL_H = (64, 128, 256, 512)  # the widths the kernels are built for
+KERNEL_H = (64, 128, 256, 512)  # the widths built at compile time
+# past 512 the kernels take every multiple of CE_H_STEP up to CE_H_MAX, the
+# widest width the card checks run (chip_smoke.py's CE kernel phases)
+CE_H_STEP = 64
+CE_H_MAX = 4096
 _PITCH_COLS = 64    # the written logits' row pitch is a multiple of this
-# the forward kernel (csrc/fused_ce.cuh, ce_fwd_kernel): 128 resident h rows
-# a block, 128-column vocab tiles, one block per SM, and the bytes its
-# per-chunk (m, s, ll) partials may take
-_FWD_ROWS = 128
+# the forward kernel (csrc/fused_ce.cuh, ce_fwd_kernel): blocks of 128 or
+# 64 h rows (fwd_block), 128-column vocab tiles, one block per SM, and the
+# bytes its per-chunk (m, s, ll) partials may take
 _FWD_TILE_V = 128
 _FWD_WORKSPACE = 16 << 20
+# the backward kernels' output column tiles past 512 (col_tiles)
+_COL_TILES = (512, 256, 128, 64)
 # the backward kernels of both schedules (csrc/fused_ce.cu, ce_bwd_kernel;
 # csrc/fused_ce_mat.cu, ce_mat_bwd_kernel): 64-row tiles of h and of W,
 # one block per SM (H100 SXM: 132), and the bytes the dW/db row splits'
@@ -175,6 +184,28 @@ def fused_linear_ce_plain(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 # kernel launches
 # ----------------------------------------------------------------------
 
+def kernel_width(H: int) -> bool:
+    """Whether the kernels take width H: one of ``KERNEL_H``, or past 512
+    a multiple of ``CE_H_STEP`` up to ``CE_H_MAX``."""
+    return H in KERNEL_H or (KERNEL_H[-1] < H <= CE_H_MAX and H % CE_H_STEP == 0)
+
+
+def _width_rule(H: int) -> str:
+    return (f"H={H} must be one of {KERNEL_H} or, past {KERNEL_H[-1]}, a "
+            f"multiple of {CE_H_STEP} up to {CE_H_MAX}, the widest the kernels "
+            "take (the wrappers pad any H up to the next such width)")
+
+
+def ce_width(H: int) -> int:
+    """The width the wrappers pad H to: the next of ``KERNEL_H`` up to
+    512, past it the next multiple of ``CE_H_STEP`` (520 -> 576, 1000 ->
+    1024); ValueError past ``CE_H_MAX``."""
+    if H <= KERNEL_H[-1]:
+        return next_width(H, KERNEL_H)
+    _ext.require(H <= CE_H_MAX, f"fused_linear_ce: {_width_rule(H)}")
+    return round_up(H, CE_H_STEP)
+
+
 def _check(h, w, b, labels) -> Tuple[int, int, int]:
     """Raise on what the kernels do not take; returns (M, H, V)."""
     req = _ext.require
@@ -185,10 +216,7 @@ def _check(h, w, b, labels) -> Tuple[int, int, int]:
     req(w.shape[1] == H and b.shape == (V,) and labels.shape == (M,),
         f"fused_linear_ce: shapes h{tuple(h.shape)} w{tuple(w.shape)} "
         f"b{tuple(b.shape)} labels{tuple(labels.shape)} disagree")
-    req(H in KERNEL_H, f"fused_linear_ce: H={H} must be one of {KERNEL_H} "
-        f"(the widths the kernels are built for; the wrappers pad a narrower "
-        f"H up to the next one, and past {KERNEL_H[-1]} the forward's 128 "
-        "resident rows of h do not fit in an SM's shared memory)")
+    req(kernel_width(H), f"fused_linear_ce: {_width_rule(H)}")
     req(M > 0 and V > 0, "fused_linear_ce: no rows or no vocabulary")
     return M, H, V
 
@@ -201,17 +229,21 @@ def prepare(h, w, b, labels):
 
 
 class FwdPlan(NamedTuple):
-    """The forward kernel's launch for (M, V), under both schedules (the
-    flash forward and the written-logits one are one template).  Block
-    (x, y) of the grid keeps h rows [128x, 128x + 128) and streams the
-    128-column vocab tiles [y·chunk_tiles, min(v_tiles, (y + 1)·
-    chunk_tiles)), writing chunk y's (max, sum-exp, label logit) of its
-    rows to ``part``; a merge launch folds the chunks in order."""
+    """The forward kernel's launch for (M, V) on blocks of ``rows`` rows,
+    under both schedules (the flash forward and the written-logits one
+    are one template).  Block (x, y) of the grid takes h rows [rows·x,
+    rows·(x + 1)) and streams the 128-column vocab tiles [y·chunk_tiles,
+    min(v_tiles, (y + 1)·chunk_tiles)), writing chunk y's (max, sum-exp,
+    label logit) of its rows to ``part``, one partial a chunk (128 rows)
+    or one a chunk and warpgroup (64 rows, whose two warpgroups take a
+    tile's columns in halves); a merge launch folds the partials in
+    order."""
 
-    grid: Tuple[int, int]               # (row tiles, chunks)
+    grid: Tuple[int, int]               # (row blocks, chunks)
     v_tiles: int
     chunk_tiles: int
-    part: Tuple[int, int, int]          # [chunks, M, 3] f32
+    part: Tuple[int, int, int]          # [partials, M, 3] f32
+    rows: int                           # 128 or 64
 
 
 def _sms(dev) -> int:
@@ -219,15 +251,30 @@ def _sms(dev) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def ce_fwd_plan(M: int, V: int, sms: int = _BWD_SMS) -> FwdPlan:
-    """The forward's vocab chunks: the count that takes the fewest tile
-    slots per SM, waves x (tiles a block + half a tile for its h load and
-    epilogue), among the counts whose partials fit in ``_FWD_WORKSPACE``
-    bytes (the fewest on a tie); no chunk is empty.  At the train shapes
-    (M = 30720, V = 11500): 6 chunks of 15 of the 90 tiles, 1,440 blocks
-    in 99% of 11 waves of 132 SMs (one chunk: 240 blocks in 91% of 2)."""
-    m_tiles, v_tiles = _cdiv(M, _FWD_ROWS), _cdiv(V, _FWD_TILE_V)
-    most = max(1, min(v_tiles, _FWD_WORKSPACE // (M * 12)))
+def fwd_block(H: int, written_logits: bool = False) -> Tuple[int, bool]:
+    """(rows, resident) of the forward kernel's blocks at width H, as
+    ``csrc/fused_ce.cuh``'s ``fwd_block`` chooses it from ``row_ring.cuh``'s
+    shared-memory layout (``vct_fused_ce_fwd_block``): 128 rows resident at
+    ``KERNEL_H``; past 512 64 rows, resident where they fit beside a ring
+    of four W boxes (H <= 1280, written logits 1152), else streamed."""
+    code = _ext.library().vct_fused_ce_fwd_block(H, int(written_logits))
+    _ext.require(code > 0, f"fused_linear_ce: {_width_rule(H)}")
+    return code // 2, bool(code % 2)
+
+
+@functools.lru_cache(maxsize=None)
+def ce_fwd_plan(M: int, V: int, sms: int = _BWD_SMS, rows: int = 128) -> FwdPlan:
+    """The forward's vocab chunks for blocks of ``rows`` (128 or 64) rows:
+    the count that takes the fewest tile slots per SM, waves x (tiles a
+    block + half a tile for its h load and epilogue), among the counts
+    whose partials fit in ``_FWD_WORKSPACE`` bytes (the fewest on a tie);
+    no chunk is empty.  At the train shapes (M = 30720, V = 11500) on
+    128-row blocks: 6 chunks of 15 of the 90 tiles, 1,440 blocks in 99%
+    of 11 waves of 132 SMs (one chunk: 240 blocks in 91% of 2)."""
+    _ext.require(rows in (64, 128), f"ce_fwd_plan: rows={rows} is not 64 or 128")
+    per_chunk = 128 // rows             # partials a chunk
+    m_tiles, v_tiles = _cdiv(M, rows), _cdiv(V, _FWD_TILE_V)
+    most = max(1, min(v_tiles, _FWD_WORKSPACE // (M * 12 * per_chunk)))
     best = None
     for chunks in range(1, most + 1):
         per = _cdiv(v_tiles, chunks)
@@ -238,14 +285,14 @@ def ce_fwd_plan(M: int, V: int, sms: int = _BWD_SMS) -> FwdPlan:
             best = (cost, chunks, per)
     _, chunks, per = best
     return FwdPlan(grid=(m_tiles, chunks), v_tiles=v_tiles, chunk_tiles=per,
-                   part=(chunks, M, 3))
+                   part=(chunks * per_chunk, M, 3), rows=rows)
 
 
 def fused_ce_fwd_kernel(h16, w16, b, lab) -> Pair:
     """The forward kernel on prepared operands → (lse, ll) [M] f32."""
     M, H, V = _check(h16, w16, b, lab)
     dev = h16.device
-    plan = ce_fwd_plan(M, V, _sms(dev))
+    plan = ce_fwd_plan(M, V, _sms(dev), fwd_block(H)[0])
     part = torch.empty(plan.part, dtype=torch.float32, device=dev)
     out = torch.empty((2, M), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -269,12 +316,14 @@ def _row_args(lse, gw, M, dev):
 
 class BwdPlan(NamedTuple):
     """The launches of the backward kernels for (M, H, V), under both
-    schedules: the flash CE's ce_bwd_kernel and the written logits'
-    ce_mat_bwd_kernel tile alike.  Block (x, y) of a grid owns output
-    tile x (64 rows) and streams tiles [y·per, min(k_tiles, (y + 1)·per))
-    of the other operand.  dh: h tiles, every W tile in one range (per =
-    k_tiles).  dW/db: W tiles, streamed h tiles in ``splits`` ranges
-    whose f32 partials are summed in range order."""
+    schedules: the flash CE's ce_bwd_kernel (ce_bwd_wide_kernel past 512)
+    and the written logits' ce_mat_bwd_kernel tile alike.  Block (x, y)
+    of a grid owns output tile x (64 rows) and streams tiles [y·per,
+    min(k_tiles, (y + 1)·per)) of the other operand.  dh: h tiles, every
+    W tile in one range (per = k_tiles).  dW/db: W tiles, streamed h
+    tiles in ``splits`` ranges whose f32 partials are summed in range
+    order.  Each grid runs once for each output column tile of
+    ``col_tiles`` (one of H at H <= 512)."""
 
     dh_grid: Tuple[int, int]
     dh_k_tiles: int
@@ -284,6 +333,7 @@ class BwdPlan(NamedTuple):
     dwdb_per: int
     dw_part: Tuple[int, int, int]       # [splits, Vp, H] f32
     db_part: Tuple[int, int]            # [splits, Vp] f32
+    col_tiles: Tuple[int, ...]          # output columns of each tile, in order
 
     @property
     def splits(self) -> int:
@@ -296,30 +346,51 @@ def _wave_fill(blocks: int, sms: int) -> float:
     return blocks / (_cdiv(blocks, sms) * sms)
 
 
+def col_tiles(H: int) -> Tuple[int, ...]:
+    """The backward kernels' output column tiles at width H, in column
+    order, as the kernels' launches take them: H itself at ``KERNEL_H``;
+    past 512, tiles of 512 (m64n256 accumulators a warpgroup, as at 512),
+    then one each of 256, 128 and 64 for what is left (576 -> 512 + 64,
+    1024 -> 512 + 512)."""
+    if H in KERNEL_H:
+        return (H,)
+    _ext.require(kernel_width(H), f"fused_linear_ce: {_width_rule(H)}")
+    tiles = [512] * (H // 512)
+    rest = H % 512
+    for ct in _COL_TILES[1:]:
+        if rest >= ct:
+            tiles.append(ct)
+            rest -= ct
+    return tuple(tiles)
+
+
 @functools.lru_cache(maxsize=None)
 def ce_bwd_plan(M: int, H: int, V: int, sms: int = _BWD_SMS) -> BwdPlan:
-    """The backward's grids, row splits and workspace shapes.  The
-    dW/db split count fills the card's waves best among the counts whose
-    partials fit in ``_BWD_WORKSPACE`` bytes (the fewest on a tie); no
-    split is empty.  At the train shapes (M = 30720, H = 512, V = 11500)
-    that is 5 splits of 96 row tiles: 900 blocks, 97% of 7 waves, a
-    112.5 MiB workspace."""
+    """The backward's grids, row splits, column tiles and workspace
+    shapes.  The dW/db split count fills the card's waves best (the
+    blocks of every column tile counted) among the counts whose partials
+    fit in ``_BWD_WORKSPACE`` bytes (the fewest on a tie); no split is
+    empty.  At the train shapes (M = 30720, H = 512, V = 11500) that is 5
+    splits of 96 row tiles: 900 blocks, 97% of 7 waves, a 112.5 MiB
+    workspace; at H = 1024 one split (two fill the waves no better) in 2
+    column tiles: 360 blocks, 91% of 3 waves, a 45 MiB workspace."""
     T = _BWD_TILE
     m_tiles, v_tiles = _cdiv(M, T), _cdiv(V, T)
     Vp = v_tiles * T
+    cols = col_tiles(H)
     most = max(1, min(m_tiles, _BWD_WORKSPACE // (Vp * H * 4)))
     best = (0.0, 1, m_tiles)
     for want in range(1, most + 1):
         per = _cdiv(m_tiles, want)
         splits = _cdiv(m_tiles, per)
-        fill = _wave_fill(v_tiles * splits, sms)
+        fill = _wave_fill(v_tiles * splits * len(cols), sms)
         if fill > best[0]:
             best = (fill, splits, per)
     _, splits, per = best
     return BwdPlan(dh_grid=(m_tiles, 1), dh_k_tiles=v_tiles,
                    dh_rows=m_tiles * T, dwdb_grid=(v_tiles, splits),
                    dwdb_k_tiles=m_tiles, dwdb_per=per,
-                   dw_part=(splits, Vp, H), db_part=(splits, Vp))
+                   dw_part=(splits, Vp, H), db_part=(splits, Vp), col_tiles=cols)
 
 
 def fused_ce_dh_kernel(h16, w16, b, lab, lse, gw) -> torch.Tensor:
@@ -400,7 +471,8 @@ def fused_linear_ce(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     in h, w, b and weights: h [M, H], w [V, H] (the ``rnn_logits``
     weight), b [V], labels [M] int, weights [M] → a scalar f32.  CPU
     tensors take :func:`fused_linear_ce_plain`; CUDA tensors launch the
-    kernels (at H padded to 64, 128, 256 or 512) or raise (H > 512)."""
+    kernels (at H padded as :func:`ce_width` says) or raise (H >
+    ``CE_H_MAX``)."""
     if _ext.on_cpu(h, w, b, labels, weights):
         return fused_linear_ce_plain(h, w, b, labels, weights)
     h, w = _kernel_operands(h, w, b, labels, weights)
@@ -408,18 +480,18 @@ def fused_linear_ce(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def pad_ce(h: torch.Tensor, w: torch.Tensor) -> Pair:
-    """(h [M, H], w [V, H]) with H zero-padded up to the least width of
-    ``KERNEL_H`` that holds it; differentiable."""
-    Hp = next_width(h.shape[1], KERNEL_H)
+    """(h [M, H], w [V, H]) with H zero-padded up to :func:`ce_width`;
+    differentiable."""
+    Hp = ce_width(h.shape[1])
     return pad_last(h, Hp), pad_last(w, Hp)
 
 
 def _kernel_operands(h, w, b, labels, weights) -> Pair:
     """(h, w) of CUDA tensors at a width the kernels take (padded by
-    :func:`pad_ce` below the widest); raise on what the kernels do not
-    take."""
+    :func:`pad_ce`); raise on what the kernels do not take (a width past
+    ``CE_H_MAX`` among them)."""
     if (h.dim() == w.dim() == 2 and h.shape[1] == w.shape[1]
-            and h.shape[1] not in KERNEL_H and h.shape[1] < KERNEL_H[-1]):
+            and not kernel_width(h.shape[1])):
         h, w = pad_ce(h, w)
     _check(h, w, b, labels)
     _ext.require(weights.shape == labels.shape,
@@ -505,9 +577,8 @@ def _check_mat(lg, labels, op, V: int) -> int:
         "fused_linear_ce: written logits lg [M, Vp], labels [M]")
     M = labels.shape[0]
     req(M > 0 and V > 0, "fused_linear_ce: no rows or no vocabulary")
-    req(op.dim() == 2 and op.shape[1] in KERNEL_H,
-        f"fused_linear_ce: {tuple(op.shape)}: H must be one of {KERNEL_H} "
-        "(the widths the kernels are built for)")
+    req(op.dim() == 2 and kernel_width(op.shape[1]),
+        f"fused_linear_ce: {tuple(op.shape)}: {_width_rule(op.shape[-1])}")
     Vp = logits_pitch(V)
     req(lg.dtype == torch.bfloat16 and tuple(lg.shape) == (M, Vp),
         f"fused_linear_ce: written logits {tuple(lg.shape)} {lg.dtype} are "
@@ -524,7 +595,7 @@ def ce_mat_fwd_kernel(h16, w16, b, lab) -> Tuple[torch.Tensor, ...]:
     Vp] bf16, lse, ll [M] f32)."""
     M, H, V = _check(h16, w16, b, lab)
     dev = h16.device
-    plan = ce_fwd_plan(M, V, _sms(dev))
+    plan = ce_fwd_plan(M, V, _sms(dev), fwd_block(H, written_logits=True)[0])
     part = torch.empty(plan.part, dtype=torch.float32, device=dev)
     lg = torch.empty((M, logits_pitch(V)), dtype=torch.bfloat16, device=dev)
     out = torch.empty((2, M), dtype=torch.float32, device=dev)
