@@ -135,7 +135,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    and beam-20 batches through the logits kernels after f32 LSTM steps,
    with exact launches, beam 3 compared with the plain decode);
    ``wide`` (the reference's widths with encoder and decoder at H =
-   1024, where the CE kernels run their instances past 512: the
+   1024, where the CE kernels run their instances past 512 (the flash
+   backward its cluster instance, whose launches are counted): the
    GMM-CVAE under the flash, hybrid and XLA-forward CE, 10 steps each
    with exact launches and a falling loss and 3 against the plain
    versions; the AG-CVAE under the flash CE likewise, then
@@ -2073,16 +2074,60 @@ def ce_inputs(M: int, V: int, seed: int, labels=None, H: int = HIDDEN):
     return h, w, b, labels, weights
 
 
+def bwd_instance(H: int, dw: bool) -> str:
+    """The flash CE backward's kernel instance at the padded width H, as
+    csrc/fused_ce.cu's shape rule picks it (fused_ce.bwd_cluster)."""
+    part = "dW/db" if dw else "dh"
+    if fused_ce.bwd_cluster(H):
+        return (f"ce_bwd_cluster_kernel<{part}> (clusters of {fused_ce.bwd_cluster(H)} "
+                f"CTAs, the halves of H swapping partial logits)")
+    if H in fused_ce.KERNEL_H:
+        return f"ce_bwd_kernel<{H}, {part}>"
+    return f"ce_bwd_wide_kernel<CT={'+'.join(map(str, fused_ce.col_tiles(H)))}, {part}>"
+
+
+def cluster_launches() -> int:
+    """ce_bwd_cluster_kernel's launches so far in this process, as the C
+    launch counts them."""
+    return _ext.library().vct_fused_ce_bwd_cluster_launches()
+
+
+def bwd_l2_bytes(M: int, H: int, V: int, dw: bool, cluster=None) -> int:
+    """The bf16 operand bytes the flash backward's blocks read from L2 in
+    one launch at the padded width H (the instance the shape rule picks,
+    or, with ``cluster`` = 0, ``ce_bwd_wide_kernel``'s column tiles): a
+    64-row tile of the resident operand Q once a block and, for every K
+    tile a block streams, the K tile once (a cluster: its two CTAs a half
+    each of both); the column tiles' blocks read Q's and K's boxes again
+    for each K tile in each column tile, and besides them the tile's
+    output columns.  A model of the reads, not a measurement."""
+    plan = fused_ce.ce_bwd_plan(M, H, V)
+    grid, k_tiles = (plan.dwdb_grid, plan.dwdb_k_tiles) if dw else (plan.dh_grid,
+                                                                    plan.dh_k_tiles)
+    row = 64 * H * 2                     # a 64-row tile of either operand
+    if cluster is None:
+        cluster = plan.cluster
+    if cluster or H in fused_ce.KERNEL_H:
+        return grid[0] * (grid[1] * row + k_tiles * row)
+    return grid[0] * k_tiles * sum(2 * row + 64 * ct * 2 for ct in plan.col_tiles)
+
+
 def check_fused_ce(M: int, V: int, labels=None, H: int = HIDDEN) -> dict:
     """The three kernels against the plain version on the same inputs (the
     backward ones from the plain lse, so both see the same operands; h and
     W padded as the wrappers pad them, to fused_ce.ce_width(H), the plain
     version unpadded), each twice, bit for bit; returns each kernel's max
-    |kernel - plain|."""
+    |kernel - plain|.  The backward's cluster instance must have run
+    exactly where the shape rule sends the padded width."""
     h, w, b, labels, weights = ce_inputs(M, V, seed=M + V, labels=labels, H=H)
     ops = fused_ce.prepare(*fused_ce.pad_ce(h, w), b, labels)
     Hp = ops[0].shape[1]
     tag = f"fused_linear_ce M={M} H={H}{f' (padded to {Hp})' if Hp != H else ''} V={V}"
+    rule = _ext.library().vct_fused_ce_bwd_cluster(Hp)
+    if rule != fused_ce.bwd_cluster(Hp):
+        raise AssertionError(f"{tag}: the C shape rule gives a cluster of {rule}, "
+                             f"ops/fused_ce.py's {fused_ce.bwd_cluster(Hp)}")
+    clustered = cluster_launches()
     pad = float((weights == 0).float().mean())
     got = fused_ce.fused_ce_fwd_kernel(*ops)
     for name, a, r in zip(("lse", "ll"), got, fused_ce.fused_ce_fwd_kernel(*ops)):
@@ -2101,6 +2146,10 @@ def check_fused_ce(M: int, V: int, labels=None, H: int = HIDDEN) -> dict:
     gw = weights
     runs = [(fused_ce.fused_ce_dh_kernel(*ops, lse, gw),
              *fused_ce.fused_ce_dwdb_kernel(*ops, lse, gw)) for _ in range(2)]
+    clustered = cluster_launches() - clustered
+    if clustered != (4 if fused_ce.bwd_cluster(Hp) else 0):
+        raise AssertionError(f"{tag}: {clustered} launches of the cluster instance "
+                             "in two calls of dh and dW/db")
     for name, a, r in zip(("dh", "dW", "db"), *runs):
         if not torch.equal(a, r):
             raise AssertionError(f"{tag}: two calls gave another {name}")
@@ -2122,7 +2171,8 @@ def check_fused_ce(M: int, V: int, labels=None, H: int = HIDDEN) -> dict:
         print(f"{tag} backward {name}: max |kernel - plain| {err:.3e} ({rel:.2e} "
               f"of max, tolerance {tol})")
     print(f"{tag}: {pad:.3f} of the rows PAD (weight 0), their dh exactly 0; "
-          "dh, dW and db bit for bit across two calls")
+          f"dh, dW and db bit for bit across two calls; backward instances "
+          f"{bwd_instance(Hp, False)}, {bwd_instance(Hp, True)}")
     return errs
 
 
@@ -2198,10 +2248,12 @@ def phase_ce_kernel_times(label: str, H: int = HIDDEN) -> dict:
     shapes (M = 30720 with the batch's PAD rows, V = 11500) at width H
     (512, and the wide cell's 1024).  Bound: operations, 2·M·H·V for the
     forward and 4·M·H·V for dh and for dW/db, which recompute the logits
-    (past 512 each of dW/db's and dh's two column tiles recomputes them
-    again: 6·M·H·V done, the bound still counts 4).  Library: the
-    forward's time, and for dh and dW/db the time of its one backward,
-    which gives all three gradients."""
+    (at 1024 the cluster instance forms them once, 4·M·H·V; the column
+    tiles, which the other widths past 512 take, once a tile).
+    Library: the forward's time, and for dh and dW/db the time of its one
+    backward, which gives all three gradients.  Beside dh's and dW/db's
+    times: the instance that ran (the cluster instance's launches are
+    counted) and the L2 bytes reckoned for it (``bwd_l2_bytes``)."""
     M = TRAIN_T * TRAIN_ROWS
     h, w, b, labels, weights = ce_inputs(M, VOCAB, seed=13, labels=train_ce_labels(), H=H)
     ops = fused_ce.prepare(h, w, b, labels)
@@ -2227,13 +2279,35 @@ def phase_ce_kernel_times(label: str, H: int = HIDDEN) -> dict:
     }
     times = {}
     for name, (fk, fp, bnd, lib) in pairs.items():
+        clustered, launched = cluster_launches(), _ext.LAUNCHES[name]
         t = turns(fk, fp, timer)
+        clustered = cluster_launches() - clustered
+        launched = _ext.LAUNCHES[name] - launched
         times[name] = timing(t, bnd, lib)
+        extra = ""
+        if not name.endswith("fwd"):
+            dw = name.endswith("dwdb")
+            # every launch of the turns went through the cluster instance
+            if clustered != (launched if fused_ce.bwd_cluster(H) else 0):
+                raise AssertionError(f"{name} at H={H}: {clustered} launches of the "
+                                     f"cluster instance in {launched} of the kernel")
+            # the reckoned bytes go on the printed line only: the kernels
+            # line holds what this run measured
+            times[name]["kernel"] = bwd_instance(H, dw)
+            extra = (f", instance {times[name]['kernel']}, L2 bytes reckoned "
+                     f"{bwd_l2_bytes(M, H, VOCAB, dw) / 1e9:.3f} GB")
+            if fused_ce.bwd_cluster(H):
+                # the clusters the card holds at once (one block an SM)
+                times[name]["clusters_held"] = (
+                    _ext.library().vct_fused_ce_bwd_cluster_slots())
+                extra += (f" (ce_bwd_wide_kernel's column tiles: "
+                          f"{bwd_l2_bytes(M, H, VOCAB, dw, cluster=0) / 1e9:.3f} GB), "
+                          f"{times[name]['clusters_held']} clusters held at once")
         print(f"time {name} (M={M} H={H} V={VOCAB}): kernel {t[0]:.4f} ms, "
               f"plain {t[1]:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), library "
               f"(F.linear bf16 + F.cross_entropy, "
               f"{'forward' if name.endswith('fwd') else 'backward: dh, dW, db'}) "
-              f"{lib:.4f} ms [{label}]")
+              f"{lib:.4f} ms{extra} [{label}]")
     return times
 
 
@@ -2494,6 +2568,7 @@ def phase_train_path(cfg, arrays, tag: str, steps: int = TRAIN_STEPS):
     trainer = Trainer(cfg, device=DEV)
     torch.cuda.synchronize()
     _ext.reset_launches()   # this path's run starts here
+    clustered = cluster_launches()
     t0 = time.perf_counter()
     metrics = [trainer.run_step_arrays(arrays) for _ in range(steps)]
     torch.cuda.synchronize()
@@ -2501,6 +2576,18 @@ def phase_train_path(cfg, arrays, tag: str, steps: int = TRAIN_STEPS):
     want = train_launches(steps, cfg.prior == "AG", ce_flag(cfg),
                           cfg.encoder_rnn_layers, cfg.decoder_rnn_layers)
     launches = {k: _ext.LAUNCHES[k] for k in want}               # right after
+    clustered = cluster_launches() - clustered
+    # the flash CE's backward at 1024 runs the cluster instance: dh and dW/db
+    # once a step
+    cluster = (ce_flag(cfg) == "fused_ce"
+               and fused_ce.bwd_cluster(fused_ce.ce_width(cfg.decoder_hidden)))
+    if clustered != (2 * steps if cluster else 0):
+        raise AssertionError(f"{tag}: {clustered} launches of the CE backward's "
+                             f"cluster instance in {steps} steps")
+    if cluster:
+        print(f"{tag} path: the CE backward ran the cluster instance "
+              f"({clustered} launches: {bwd_instance(1024, False)}, "
+              f"{bwd_instance(1024, True)})")
     losses = [float(m["loss"]) for m in metrics]
     print(f"{tag} path: {steps} steps of {TRAIN_IMAGES} images x "
           f"{TRAIN_CAPTIONS} captions x {TRAIN_T} tokens in {seconds:.2f} s; "
@@ -2651,12 +2738,16 @@ def phase_ce_step_times(prior: str, arrays, label: str, hidden: int = HIDDEN) ->
     fns = [lambda tr=tr: tr.run_step_arrays(arrays) for tr in trainers]
     first = [timer(fn) for fn in fns]
     second = [timer(fn) for fn in reversed(fns)][::-1]
+    step_ms = {}
     for ce, t1, t2 in zip(CE_SCHEDULES, first, second):
-        ms = (t1 + t2) / 2
+        ms = step_ms[ce] = (t1 + t2) / 2
         print(f"time {tag} step, {CE_NAMES[ce]}, {TRAIN_IMAGES} images x "
               f"{TRAIN_CAPTIONS} captions x {TRAIN_T} tokens: {ms:.2f} ms "
               f"({TRAIN_IMAGES / ms * 1e3:.0f} images/s; turns {t1:.2f}, "
               f"{t2:.2f}) [{label}]")
+    print(f"time {tag} step: flash CE {step_ms['fused_ce']:.2f} ms against the plain "
+          f"CE's {step_ms['']:.2f} ms: {step_ms['fused_ce'] / step_ms['']:.3f} of it "
+          f"[{label}]")
     del trainers, fns
     torch.cuda.empty_cache()
     for ce in CE_SCHEDULES:
@@ -4357,6 +4448,8 @@ WGMMA_TEMPLATES = {
                       lambda a: _ext.library().vct_fused_ce_bwd_smem(a[0])),
     "ce_bwd_wide_kernel": (lambda a: f"<CT={a[0]}, {'dW/db' if a[1] else 'dh'}>",
                            lambda a: _ext.library().vct_fused_ce_bwd_smem(-a[0])),
+    "ce_bwd_cluster_kernel": (lambda a: f"<{'dW/db' if a[0] else 'dh'}>",
+                              lambda a: _ext.library().vct_fused_ce_bwd_smem(-1024)),
     "ce_mat_bwd_kernel": (lambda a: f"<CT={a[0]}, {'dW/db' if a[1] else 'dh'}>",
                           lambda a: _ext.library().vct_fused_ce_mat_bwd_smem(a[0])),
     "ag_fwd_kernel": (lambda a: f"<NC={a[0]}, h {'resident' if a[1] else 'streamed'}, "
@@ -4589,7 +4682,9 @@ def run_phases(out_dir: str, npz: str, label: str, t0: float) -> None:
     # launches only the CE and logits kernels, as the JAX package's f32
     # route does); the CE kernels' instances past 512 (``instances``:
     # timed at H = WIDE_HIDDEN, their max |kernel - plain| over
-    # WIDE_CE_SHAPES, the widths they were checked at)
+    # WIDE_CE_SHAPES, the widths they were checked at; for the flash
+    # backward the instance that ran, ``kernel``, and the clusters the card
+    # held, ``clusters_held``)
     wide_h = sorted({H for *_, H in WIDE_CE_SHAPES})
     record = {"kernels": [
         {"name": name, **meta, "path": paths[name], "launches": launches[name],

@@ -1,4 +1,4 @@
-"""Device time of design variants of three kernels, built from edited copies
+"""Device time of design variants of four kernels, built from edited copies
 of their sources, in turns.
 
 The top-k + logsumexp over written logits (``csrc/topk_lse.cu``) at beam
@@ -16,7 +16,16 @@ in the order listed, then in reverse, and checked against the plain
 version (``exact``: values and indices, or words and normals, bit for
 bit).  Variants that drop work on purpose are marked as not exact.
 
-    python3 kernel_designs.py        # from the repository's root, on a CUDA card
+The flash CE backward (``csrc/fused_ce.cu``) at the wide cell's H =
+1024: its clusters of two column halves as built, clusters of 2 Q tiles
+x 2 column halves sharing each K part by TMA multicast, the column
+tiles of ``ce_bwd_wide_kernel``, a cluster barrier every tile, and the exchange left out (not
+exact), each checked against the plain version (within chip_smoke.py's
+tolerances) and against the built kernel (bit for bit).
+
+    python3 kernel_designs.py            # from the repository's root, on a CUDA card
+    python3 kernel_designs.py ce_bwd_wide  # the named groups only (topk, eps,
+                                           # ce_fwd, ce_bwd_wide)
 """
 
 from __future__ import annotations
@@ -52,6 +61,94 @@ CE_FWD_VARIANTS = (
     ("as built (16 boxes at compile time)", ()),
     ("the box count at run time", (("    case 1024: return VCT_FWD(16, 1, true);\n", ""),)),
 )
+# the flash CE backward's exchange of partial logits (ce_bwd_cluster_kernel)
+_EXCHANGE = """    if (i > 0) mbar_wait<true>(xch_free, (i - 1) & 1);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      st_async(peer_xch + (c * BWD_THREADS + tid) * 16,
+               make_float4(sacc[4 * c], sacc[4 * c + 1], sacc[4 * c + 2], sacc[4 * c + 3]),
+               peer_full);
+    mbar_wait<true>(xch_full, i & 1);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float4 v = reinterpret_cast<const float4*>(xch)[c * BWD_THREADS + tid];
+      sacc[4 * c] += v.x;
+      sacc[4 * c + 1] += v.y;
+      sacc[4 * c + 2] += v.z;
+      sacc[4 * c + 3] += v.w;
+    }
+"""
+_RELEASE = """    if (tid == 0 && i + 1 < n_tiles) {
+      mbar_expect_tx(xch_full, P::XCH);
+      mbar_arrive_remote(peer_free);
+    }
+"""
+# Clusters of 2 Q tiles x 2 column halves (rank x + 2z): the two CTAs of a
+# column half share each K part, each warpgroup leader loading a quarter of
+# it into both by TMA multicast, and refill a stage only once the other Q
+# tile's warpgroup has released it too; the grid's Q tiles rounded up to 2
+_MULTICAST = (
+    ("constexpr int CLUSTER_H = CLUSTER * CLUSTER_CT;   // the width the cluster takes\n",
+     """constexpr int CLUSTER_H = CLUSTER * CLUSTER_CT;   // the width the cluster takes
+__device__ __forceinline__ void tma_load_multicast(void* dst, const CUtensorMap* map,
+                                                   uint64_t* bar, int x, int y,
+                                                   uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_addr(bar)), "r"(x), "r"(y), "h"(mask)
+      : "memory");
+}
+"""),
+    ("(STAGES + 3) * sizeof(uint64_t);", "(STAGES + 3 + 2 * STAGES) * sizeof(uint64_t);"),
+    ("  uint64_t* xch_free = xch_full + 1;  // the peer has read this CTA's last partial\n",
+     "  uint64_t* xch_free = xch_full + 1;  // the peer has read this CTA's last partial\n"
+     "  uint64_t* partner_free = xch_free + 1;\n"),
+    ("  const int e0 = rank * CLUSTER_CT;", "  const int e0 = (rank / 2) * CLUSTER_CT;"),
+    ("  const uint32_t peer = rank ^ 1;\n",
+     "  const uint32_t peer = rank ^ 2;\n"
+     "  const uint32_t partner_free_at = cluster_map(smem_addr(partner_free), rank ^ 1);\n"),
+    ("""    if (wg == 0) load_boxes<0, P::BOXES / 2>(dst, &k_map, &full[s], row, e0);
+    else load_boxes<P::BOXES / 2, P::BOXES>(dst, &k_map, &full[s], row, e0);
+""", """    const int c0 = (P::BOXES / 2) * wg + 2 * (rank & 1);
+    const uint16_t pair = static_cast<uint16_t>(3u << (rank & ~1u));
+    mbar_expect_tx(&full[s], (P::BOXES / 2) * BOX_BYTES);
+    tma_load_multicast(dst + c0 * BOX_BYTES, &k_map, &full[s], e0 + c0 * BOX, row, pair);
+    tma_load_multicast(dst + (c0 + 1) * BOX_BYTES, &k_map, &full[s], e0 + (c0 + 1) * BOX,
+                       row, pair);
+"""),
+    ("    mbar_init(xch_free, 1);\n",
+     "    mbar_init(xch_free, 1);\n"
+     "    for (int k = 0; k < 2 * P::STAGES; ++k) mbar_init(&partner_free[k], 1);\n"),
+    ("      if (leader && i - 1 + P::STAGES < n_tiles) load_tile(i - 1 + P::STAGES);\n",
+     """      if (leader && i - 1 + P::STAGES < n_tiles) {
+        const int k = ((i - 1) % P::STAGES) * 2 + wg;
+        mbar_arrive_remote(partner_free_at + k * sizeof(uint64_t));
+        mbar_wait<true>(&partner_free[k], ((i - 1) / P::STAGES) & 1);
+        load_tile(i - 1 + P::STAGES);
+      }
+"""),
+    ("  // the [64, 512] f32 block of dh, or of this split's dW partial\n",
+     "  if (blockIdx.x >= q_tiles) return;\n"
+     "  // the [64, 512] f32 block of dh, or of this split's dW partial\n"),
+    ("  attr[0].val.clusterDim.x = 1;", "  attr[0].val.clusterDim.x = 2;"),
+    ("  cfg.gridDim = dim3(q_tiles, splits, CLUSTER);",
+     "  cfg.gridDim = dim3((q_tiles + 1) / 2 * 2, splits, CLUSTER);"),
+)
+# (label, edits) on csrc/fused_ce.cu: the flash CE's dh and dW/db at H = 1024
+CE_BWD_WIDE_VARIANTS = (
+    ("as built: clusters of 2 column halves", ()),
+    ("clusters of 2 Q tiles x 2 column halves, K parts multicast", _MULTICAST),
+    ("column tiles, ce_bwd_wide_kernel",
+     (("constexpr bool cluster_width(int H) { return H == CLUSTER_H; }",
+       "constexpr bool cluster_width(int H) { return false; }"),)),
+    ("a cluster barrier every tile after the exchange",
+     ((_EXCHANGE, _EXCHANGE + "    cluster_arrive();\n    cluster_wait();\n"),)),
+    ("no exchange: each CTA its own half of the logits (not exact)",
+     ((_EXCHANGE, ""), (_RELEASE, ""))),
+)
+GROUPS = ("topk", "eps", "ce_fwd", "ce_bwd_wide")
 
 
 def build(csrc, out_dir, name, source, edits, edited=None):
@@ -85,12 +182,12 @@ def in_turns(calls: dict, device_ms) -> dict:
 
 
 def main() -> None:
+    groups = sys.argv[1:] or GROUPS
+    if set(groups) - set(GROUPS):
+        sys.exit(f"kernel_designs: groups are {GROUPS}, not {groups}")
     if not torch.cuda.is_available():
         sys.exit("kernel_designs: no CUDA device")
     import chip_smoke as cs
-    from vae_captioning_torch.ops import fused_ce
-    from vae_captioning_torch.ops.fused_z import philox_bits, philox_normals
-    from vae_captioning_torch.ops.topk_lse import top_k_logsumexp_plain
 
     out_dir = _ext.BUILD_DIR / "designs"
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -98,7 +195,10 @@ def main() -> None:
     for kind, source, edited, variants in (
             ("topk", "topk_lse.cu", None, TOPK_VARIANTS),
             ("eps", "fused_z.cu", None, EPS_VARIANTS),
-            ("ce_fwd", "fused_ce.cu", "fused_ce.cuh", CE_FWD_VARIANTS)):
+            ("ce_fwd", "fused_ce.cu", "fused_ce.cuh", CE_FWD_VARIANTS),
+            ("ce_bwd_wide", "fused_ce.cu", None, CE_BWD_WIDE_VARIANTS)):
+        if kind not in groups:
+            continue
         for i, (name, edits) in enumerate(variants):
             jobs[(kind, name)] = build(_ext.CSRC_DIR, out_dir, f"{kind}{i}", source, edits,
                                        edited)
@@ -116,6 +216,8 @@ def main() -> None:
             lib.vct_fused_z_eps.argtypes = [P] + [I] * 3 + [U, U, I, I, P]
         if hasattr(lib, "vct_fused_ce_fwd"):
             lib.vct_fused_ce_fwd.argtypes = [P] * 7 + [I] * 4 + [P]
+            lib.vct_fused_ce_dh.argtypes = [P] * 7 + [I] * 3 + [P]
+            lib.vct_fused_ce_dwdb.argtypes = [P] * 10 + [I] * 5 + [P]
     dev, label = cs.DEV, cs.card()
     sms = _ext.sm_count(dev.index)
 
@@ -136,6 +238,21 @@ def main() -> None:
                                               _ext.stream_ptr(dev)), "fused_z_eps variant")
         return out
 
+    if "topk" in groups:
+        time_topk(libs, label, top_k)
+    if "eps" in groups:
+        time_eps(libs, dev, label, eps)
+    if "ce_fwd" in groups:
+        time_ce_fwd(libs, dev, label, sms)
+    if "ce_bwd_wide" in groups:
+        time_ce_bwd_wide(libs, dev, label)
+
+
+def time_topk(libs, label, top_k) -> None:
+    """The top-k + logsumexp variants at beam 3 and beam 10."""
+    import chip_smoke as cs
+    from vae_captioning_torch.ops.topk_lse import top_k_logsumexp_plain
+
     for N, k in ((1536, 3), (5120, 10)):
         x = cs.unfused_logits(N, 11500, seed=N)
         want = top_k_logsumexp_plain(x, k)
@@ -146,6 +263,13 @@ def main() -> None:
             exact = torch.equal(vals, want[0]) and torch.equal(idx, want[1])
             print(f"top_k_logsumexp N={N} V=11500 k={k}, {name}: device {a:.4f} / {b:.4f} ms; "
                   f"exact {exact} [{label}]")
+
+
+def time_eps(libs, dev, label, eps) -> None:
+    """The eps stream's variants, normals and raw words."""
+    import chip_smoke as cs
+    from vae_captioning_torch.ops.fused_z import philox_bits, philox_normals
+
     shape = (cs.TRAIN_ROWS, cs.KZ, cs.LATENT)
     words, normals = philox_bits(5, 6, *shape, device=dev), philox_normals(5, 6, *shape, device=dev)
     for raw in (False, True):
@@ -157,6 +281,12 @@ def main() -> None:
                      else torch.equal(got, normals))
             print(f"fused_z_eps {'x'.join(map(str, shape))} {'words' if raw else 'normals'}, "
                   f"{name}: device {a:.4f} / {b:.4f} ms; exact {exact} [{label}]")
+
+
+def time_ce_fwd(libs, dev, label, sms) -> None:
+    """The flash CE forward's variants at the wide cell's H = 1024."""
+    import chip_smoke as cs
+    from vae_captioning_torch.ops import fused_ce
 
     M, H, V = cs.TRAIN_T * cs.TRAIN_ROWS, cs.WIDE_HIDDEN, cs.VOCAB
     ops = fused_ce.prepare(*cs.ce_inputs(M, V, seed=13, labels=cs.train_ce_labels(), H=H)[:4])
@@ -178,6 +308,53 @@ def main() -> None:
         err = float((calls[name]()[0] - want[0]).abs().max())
         print(f"fused_linear_ce_fwd M={M} H={H} V={V}, {name}: device {a:.4f} / {b:.4f} ms; "
               f"max |lse - plain| {err:.3e} [{label}]")
+
+
+def time_ce_bwd_wide(libs, dev, label) -> None:
+    """dh and dW/db of each variant at M = 30,720, H = 1024, V = 11,500
+    (the train batch's labels), by device time in turns, against the
+    plain version and the built kernel."""
+    import chip_smoke as cs
+    from vae_captioning_torch.ops import fused_ce
+
+    M, H, V = cs.TRAIN_T * cs.TRAIN_ROWS, cs.WIDE_HIDDEN, cs.VOCAB
+    h, w, b, labels, weights = cs.ce_inputs(M, V, seed=13, labels=cs.train_ce_labels(), H=H)
+    ops = fused_ce.prepare(h, w, b, labels)
+    lse, _ = fused_ce.ce_fwd_plain(h, w, b, labels)
+    plan = fused_ce.ce_bwd_plan(M, H, V)
+    want = (fused_ce.ce_dh_plain(h, w, b, labels, lse, weights),
+            *fused_ce.ce_dwdb_plain(h, w, b, labels, lse, weights))
+    ptrs = [t.data_ptr() for t in (*ops, lse, weights)]
+
+    def dh(lib):
+        out = torch.empty((plan.dh_rows, H), device=dev)
+        _ext.check_launch(lib.vct_fused_ce_dh(*ptrs, out.data_ptr(), M, H, V,
+                                              _ext.stream_ptr(dev)), "fused_ce_dh variant")
+        return (out[:M],)
+
+    def dwdb(lib):
+        parts = [torch.empty(plan.dw_part, device=dev), torch.empty(plan.db_part, device=dev)]
+        dw, db = torch.empty((V, H), device=dev), torch.empty((V,), device=dev)
+        _ext.check_launch(lib.vct_fused_ce_dwdb(
+            *ptrs, *(t.data_ptr() for t in (*parts, dw, db)), M, H, V, plan.splits,
+            plan.dwdb_per, _ext.stream_ptr(dev)), "fused_ce_dwdb variant")
+        return dw, db
+
+    variants = {name: lib for (kind, name), lib in libs.items() if kind == "ce_bwd_wide"}
+    built = {fn: fn(variants[CE_BWD_WIDE_VARIANTS[0][0]]) for fn in (dh, dwdb)}
+    for fn, tols, refs in ((dh, (cs.CE_GRAD_RTOL,), want[:1]),
+                           (dwdb, (cs.CE_GRAD_RTOL, cs.CE_DB_RTOL), want[1:])):
+        calls = {name: (lambda lib=lib: fn(lib)) for name, lib in variants.items()}
+        for name, (a, b_) in in_turns(calls, cs.device_ms).items():
+            got = calls[name]()
+            rel = [cs.rel_err(g, r)[1] for g, r in zip(got, refs)]
+            ok = all(x <= t for x, t in zip(rel, tols))
+            same = all(torch.equal(g, r) for g, r in zip(got, built[fn]))
+            print(f"fused_linear_ce_{fn.__name__} M={M} H={H} V={V}, {name}: device "
+                  f"{a:.4f} / {b_:.4f} ms; max |kernel - plain| / max "
+                  f"{', '.join(f'{x:.2e}' for x in rel)}: exact (within "
+                  f"{', '.join(map(str, tols))}) {ok}; bit for bit with the built "
+                  f"kernel {same} [{label}]")
 
 
 if __name__ == "__main__":

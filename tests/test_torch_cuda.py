@@ -29,12 +29,12 @@ from vae_captioning_torch.ops.fused_ag_heads import (ag_heads_bwd_kernel,
                                                      fused_ag_heads)
 from vae_captioning_torch.ops.fused_ag_heads import prepare as ag_prepare
 from vae_captioning_torch.ops.fused_ce import (
-    ce_bwd_plan, ce_fwd_plain, ce_mat_dh_kernel, ce_mat_dwdb_kernel,
+    bwd_cluster, ce_bwd_plan, ce_fwd_plain, ce_mat_dh_kernel, ce_mat_dwdb_kernel,
     ce_mat_fwd_kernel, ce_mat_fwd_plain,
     fused_ce_dh_kernel, fused_ce_dwdb_kernel, fused_ce_fwd_kernel,
     fused_linear_ce, fused_linear_ce_hybrid, fused_linear_ce_hybrid_plain,
     fused_linear_ce_plain, fused_linear_ce_xla_bwd,
-    fused_linear_ce_xla_bwd_plain, fwd_block, pad_ce, prepare)
+    fused_linear_ce_xla_bwd_plain, fwd_block, pad_ce, ce_width, prepare)
 from vae_captioning_torch.ops.fused_logits_topk import (
     fused_logits_sample, fused_logits_top_k, fused_logits_top_k_int8,
     fused_logits_top_k_int8_plain, fused_logits_top_k_plain,
@@ -1013,11 +1013,18 @@ def test_linear_ce_kernels_match_plain(dev, M, H, V):
     weights = mask / mask.sum()
     leaves = [[t.clone().requires_grad_() for t in (h, w, b)] for _ in range(2)]
     before = dict(_ext.LAUNCHES)
+    clustered = _ext.library().vct_fused_ce_bwd_cluster_launches()
     losses = []
     for fn, lv in zip((fused_linear_ce, fused_linear_ce_plain), leaves):
         loss = fn(*lv, labels, weights)
         loss.backward()
         losses.append(float(loss.detach()))
+    # the backward at 1024 (1000 pads to it) ran the cluster instance, dh
+    # and dW/db once each; the other widths never do, by the same rule in C
+    Hp = ce_width(H)
+    assert _ext.library().vct_fused_ce_bwd_cluster(Hp) == bwd_cluster(Hp)
+    assert (_ext.library().vct_fused_ce_bwd_cluster_launches() - clustered
+            == (2 if Hp == 1024 else 0))
     lse, ll = fused_ce_fwd_kernel(*prepare(*pad_ce(h, w), b, labels))
     p_lse, p_ll = ce_fwd_plain(h, w, b, labels)
     torch.cuda.synchronize()
@@ -1050,6 +1057,7 @@ def test_linear_ce_backward_repeats_bit_for_bit(dev, schedule, M, H, V):
     weights = torch.rand((M,), generator=g, device=dev) / M
     ops = prepare(h, w, b, labels)
     assert ce_bwd_plan(M, H, V).splits > 1
+    clustered = _ext.library().vct_fused_ce_bwd_cluster_launches()
     if schedule == "flash":
         lse, _ = fused_ce_fwd_kernel(*ops)
 
@@ -1064,6 +1072,10 @@ def test_linear_ce_backward_repeats_bit_for_bit(dev, schedule, M, H, V):
                     *ce_mat_dwdb_kernel(ops[0], lg, ops[3], lse, weights, V))
     first, second = backward(), backward()
     torch.cuda.synchronize()
+    # at 1024 the flash backward is the cluster instance (two calls of dh
+    # and dW/db); the written logits' kernels never are
+    assert (_ext.library().vct_fused_ce_bwd_cluster_launches() - clustered
+            == (4 if schedule == "flash" and H == 1024 else 0))
     for name, a, r in zip(("dh", "dW", "db"), first, second):
         assert torch.equal(a, r), name
         assert bool(a.abs().max() > 0), name

@@ -418,3 +418,99 @@ def test_forward_plan_on_64_row_blocks(M, V, use):
     if (M, V) == (30720, 11500):
         assert plan.grid == (480, 3) and plan.chunk_tiles == 30
         assert tfc._wave_fill(480 * 3, 132) > 0.99
+
+
+# ----------------------------------------------------------------------
+# the flash backward's cluster at H = 1024
+# ----------------------------------------------------------------------
+
+def _column_cover(plan, H):
+    """{(output tile, streamed tile, output column): times covered} by the
+    dh launches: one grid a column tile of ``col_tiles``, or under a
+    cluster one grid whose CTA (x, y, z) holds column tile z of Q tile x."""
+    tiles = plan.col_tiles
+    launches = ([(0, len(tiles))] if plan.cluster
+                else [(z, 1) for z in range(len(tiles))])
+    grid = plan.launch_grid(plan.dh_grid)[:2] if plan.cluster else plan.dh_grid
+    seen = {}
+    for first, ctas in launches:
+        for (x, k), n in _covered(grid, plan.dh_k_tiles, plan.dh_k_tiles).items():
+            for z in range(first, first + ctas):
+                e0 = sum(tiles[:z])
+                for col in range(e0, e0 + tiles[z], 64):
+                    seen[x, k, col] = seen.get((x, k, col), 0) + n
+    return seen
+
+
+@pytest.mark.parametrize("H", [512, 576, 1000, 1024, 1088, 2048])
+@pytest.mark.parametrize("M,V", [(1000, 11519), (77, 301), (1, 11500), (65, 37)])
+def test_backward_covers_each_tile_and_column_once(M, V, H):
+    """Each (Q tile, K tile, 64-column block of the output) is met by
+    exactly one CTA that stores it: by a cluster's CTA at 1024, by one
+    launch of a column tile elsewhere."""
+    Hp = tfc.ce_width(H)
+    plan = tfc.ce_bwd_plan(M, Hp, V)
+    want = {(m, v, col): 1 for m in range(-(-M // 64)) for v in range(-(-V // 64))
+            for col in range(0, Hp, 64)}
+    assert _column_cover(plan, Hp) == want
+
+
+@pytest.mark.parametrize("H", [1000, 1024])
+@pytest.mark.parametrize("M,V", [(30720, 11500), (1000, 11519), (77, 301), (1, 11500)])
+def test_cluster_divides_the_grid(M, V, H):
+    """At 1024 the cluster, one Q tile x 2 column halves (2 CTAs, at most
+    the portable 8), divides both launch grids, which hold every Q tile of
+    the plan; its column halves are the column tiles, 512 each, and make
+    up H."""
+    plan = tfc.ce_bwd_plan(M, tfc.ce_width(H), V)
+    assert plan.cluster == 2 <= 8 and tfc.BWD_CLUSTER == (1, 1, 2)
+    for grid in (plan.dh_grid, plan.dwdb_grid):
+        launch = plan.launch_grid(grid)
+        assert all(g % c == 0 for g, c in zip(launch, tfc.BWD_CLUSTER))
+        assert launch[:2] == grid
+        assert launch[2] == len(plan.col_tiles)
+    assert plan.col_tiles == (512, 512) and sum(plan.col_tiles) == tfc.BWD_CLUSTER_H
+
+
+@pytest.mark.parametrize("H,cluster", [(64, 0), (512, 0), (520, 0), (576, 0),
+                                       (960, 0), (1000, 2), (1024, 2), (1088, 0),
+                                       (1536, 0), (2048, 0), (4096, 0)])
+def test_cluster_shape_rule(H, cluster):
+    """The shape rule: the cluster kernel takes the padded width 1024
+    alone (1000 pads to it); the fixed widths take ce_bwd_kernel, the
+    other widths past 512 the column tiles' ce_bwd_wide_kernel, by the
+    rule and not by a retry."""
+    Hp = tfc.ce_width(H)
+    assert tfc.bwd_cluster(Hp) == cluster
+    assert tfc.ce_bwd_plan(300, Hp, 2000).cluster == cluster
+
+
+@pytest.mark.parametrize("M,V", [(30720, 11500), (30720, 300), (1000, 11519),
+                                 (77, 301), (1, 11500)])
+def test_cluster_plan_workspace_within_bound(M, V):
+    """Under the cluster the dW/db partials stay within the 128 MiB of
+    partials (one split may exceed it alone), no split is empty, and the
+    wave fill is counted in clusters: at the train shapes one split of
+    180 clusters, 91% of 3 waves of the 66 clusters of 2 that 132 SMs
+    hold."""
+    plan = tfc.ce_bwd_plan(M, 1024, V)
+    s, Vp, h = plan.dw_part
+    assert h == 1024 and (s == 1 or s * Vp * h * 4 <= 128 << 20)
+    m_tiles = -(-M // 64)
+    assert all(y * plan.dwdb_per < m_tiles for y in range(plan.splits))
+    if (M, V) == (30720, 11500):
+        assert plan.splits == 1 and plan.dwdb_grid == (180, 1)
+        assert plan.launch_grid(plan.dwdb_grid) == (180, 1, 2)
+        assert s * Vp * h * 4 == 45 * 2**20
+        assert 0.9 < tfc._wave_fill(180, 132 // 2) == tfc._wave_fill(360, 132)
+
+
+def test_an_unplaceable_cluster_raises():
+    """A launch that finds no place for a cluster (csrc/fused_ce.cu's
+    ERR_CLUSTER) raises ClusterError, naming the cluster; another error
+    code raises as any launch does; nothing stands in for the kernel."""
+    with pytest.raises(tfc.ClusterError, match="no cluster of 2 CTAs"):
+        tfc._check_bwd(tfc._ERR_CLUSTER, tfc.DH)
+    with pytest.raises(RuntimeError, match="cudaError_t 2"):
+        tfc._check_bwd(2, tfc.DWDB)
+    tfc._check_bwd(0, tfc.DH)

@@ -1,0 +1,35 @@
+"""The design variants that kernel_designs.py builds from edited copies of
+the kernel sources: every edit still finds its text, once, in the source
+it edits, so that the variants a card run times (the dropped designs among
+them, which live only as these edits) are the ones their labels name."""
+
+import pytest
+
+import kernel_designs as kd
+from vae_captioning_torch import _ext
+
+# (group, source edited, variants), as kernel_designs.main builds them
+GROUPS = (("topk", "topk_lse.cu", kd.TOPK_VARIANTS),
+          ("eps", "fused_z.cu", kd.EPS_VARIANTS),
+          ("ce_fwd", "fused_ce.cuh", kd.CE_FWD_VARIANTS),
+          ("ce_bwd_wide", "fused_ce.cu", kd.CE_BWD_WIDE_VARIANTS))
+CASES = [(group, source, label, edits) for group, source, variants in GROUPS
+         for label, edits in variants]
+
+
+def test_groups_are_the_scripts():
+    assert tuple(g for g, *_ in GROUPS) == kd.GROUPS
+
+
+@pytest.mark.parametrize("group,source,label,edits", CASES,
+                         ids=[f"{c[0]}-{i}" for i, c in enumerate(CASES)])
+def test_each_edit_applies_once(group, source, label, edits):
+    """Each edit's text occurs once in the source as the edits before it
+    left it, and the edited source differs from the source exactly where
+    the variant is not the one as built."""
+    text = original = (_ext.CSRC_DIR / source).read_text()
+    for old, new in edits:
+        assert old != new, label
+        assert text.count(old) == 1, (label, old[:80])
+        text = text.replace(old, new)
+    assert (text != original) == bool(edits), label

@@ -100,7 +100,40 @@
 // * The dl step, the dl tiles, db and the split partials are the H <= 512
 //   kernel's; db comes from the z = 0 blocks of the first launch only.
 // Shared memory at CT = 512: the ring 64 KB, two 64 KB column buffers, two
-// 8 KB dl tiles (209 KB with alignment and barriers), at any H.
+// 8 KB dl tiles (209 KB with alignment and barriers), at any H.  It reads
+// Q again and the K tile 2.5 times for every K tile and forms S once a
+// column tile: at H = 1024 56.6 GB of L2 reads a launch, L2-bound at 11.3
+// ms on the H100.
+//
+// At H = 1024 (the shape rule cluster_width; the other widths past 512
+// keep ce_bwd_wide_kernel), ce_bwd_cluster_kernel<DW>: a thread-block
+// cluster of two CTAs along the column axis, ce_bwd_kernel<512>'s loop
+// with the contraction split between them.
+// * CTA z holds columns [512z, 512z + 512) of its Q tile (resident, 64
+//   KB) and of each K tile (a 2-stage ring of 64 KB parts), and owns
+//   those output columns.  It forms its partial S [64 x 64] over its 512
+//   columns and sends it to the other CTA's shared memory (st.async, 16
+//   bytes a store, completing on the receiver's mbarrier); each CTA adds
+//   the two partials (a + b = b + a: both hold the same S bit for bit)
+//   and forms the same dl, then multiplies it by the K columns it already
+//   holds.  S is formed once (4·M·H·V operations, as the bound counts) and
+//   each K byte read from L2 once a cluster: 11.4 GB a launch.
+// * The exchange needs no cluster barrier per tile: the receiver's buffer
+//   is single, its full barrier expects 16 KB a phase (the receiver's own
+//   arrival set after it read the last partial), and a free barrier that
+//   the receiver arrives on remotely lets the sender write the next one.
+//   One cluster barrier after the barriers' set-up; no remote access
+//   outlives the loop.  What stays exposed is the exchange's latency
+//   between S and the second product (0.7 ms of 3.6 at the train shapes:
+//   a third K part, which would let the next S run under it, does not
+//   fit: 230.7 of 232.4 KB used).
+// * Clusters of 2 Q tiles x 2 halves, each K part multicast by TMA to
+//   both Q tiles, halve the K bytes but ran 1.4x slower (30 clusters of
+//   four fit, 120 SMs, and each refill waits for the other Q tile's
+//   release); kernel_designs.py builds and times them, the kernel does not.
+// * The card must place a cluster at one block an SM
+//   (cudaOccupancyMaxActiveClusters; 66 on the H100): where it cannot,
+//   the launch returns ERR_CLUSTER and the wrappers raise ClusterError.
 
 #include "fused_ce.cuh"
 #include "hopper.cuh"
@@ -627,6 +660,290 @@ ce_bwd_wide_kernel(const __grid_constant__ CUtensorMap q_map,
 }
 
 // ---------------------------------------------------------------------
+// the backward at H = 1024: a cluster of two CTAs, one a half of H
+// ---------------------------------------------------------------------
+
+constexpr int CLUSTER = 2;                        // column halves of a cluster (grid z)
+constexpr int CLUSTER_CT = 512;                   // the columns of H a CTA holds
+constexpr int CLUSTER_H = CLUSTER * CLUSTER_CT;   // the width the cluster takes
+
+// The shape rule past 512: the widths ce_bwd_cluster_kernel takes.  Each
+// further CTA would add a 16 KB partial to every CTA's exchange buffer,
+// which at 1536 and beyond no longer fits beside the Q part and two K parts;
+// those widths take ce_bwd_wide_kernel.
+__host__ __device__ constexpr bool cluster_width(int H) { return H == CLUSTER_H; }
+
+struct BwdCluster {
+  static constexpr int BOXES = CLUSTER_CT / BOX;    // boxes of a part's row
+  static constexpr int PART = BT * CLUSTER_CT * 2;  // 64 KB: 64 rows x 512 columns
+  static constexpr int STAGES = 2;                  // K parts in flight
+  static constexpr int HN = CLUSTER_CT / 2;         // output columns per warpgroup
+  static constexpr int ACC = HN / 2;                // their f32 registers per thread
+  static constexpr int XCH = BWD_THREADS * 16 * sizeof(float);  // 16 KB: a partial S
+  // 1 KB to align to the swizzle's period; the Q part, the K ring, two dl
+  // tiles, the peer's partial S, db's exchange, the full barriers, Q's, and
+  // the exchange's full and free barriers
+  static constexpr size_t SMEM = 1024 + static_cast<size_t>(PART) * (1 + STAGES) +
+                                 2 * BOX_BYTES + XCH + BT * sizeof(float) +
+                                 (STAGES + 3) * sizeof(uint64_t);
+  static_assert(SMEM <= SMEM_MAX, "one block per SM: 227 KB of shared memory");
+};
+
+// Grid (Q tiles, K ranges, CLUSTER), clusters of (1, 1, CLUSTER).  CTA
+// (x, y, z), rank z in its cluster, holds columns [512z, 512z + 512) of Q
+// rows [64x, 64x + 64) and of K tiles [y·per, min(k_tiles, (y + 1)·per)),
+// and owns those output columns.
+//   DW = false: Q = h, K = W; out = dh [64·q_tiles, H].
+//   DW = true:  Q = W, K = h; out = dw_part [gridDim.y, 64·q_tiles, H],
+//               db_part [gridDim.y, 64·q_tiles] (from the z = 0 CTAs).
+template <bool DW>
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+ce_bwd_cluster_kernel(const __grid_constant__ CUtensorMap q_map,
+                      const __grid_constant__ CUtensorMap k_map,
+                      const float* __restrict__ b, const int* __restrict__ labels,
+                      const float* __restrict__ lse, const float* __restrict__ gw,
+                      float* __restrict__ out, float* __restrict__ db_part, int M,
+                      int V, int k_tiles, int per, int q_tiles) {
+  using P = BwdCluster;
+  constexpr int H = CLUSTER_H;
+  // the same offsets in every CTA: the peer's buffers are this CTA's mapped
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* base = smem + ((1024 - (smem_addr(smem) & 1023)) & 1023);
+  unsigned char* q_s = base;
+  unsigned char* k_s = q_s + P::PART;
+  unsigned char* dl_s = k_s + P::STAGES * P::PART;
+  float* xch = reinterpret_cast<float*>(dl_s + 2 * BOX_BYTES);
+  float* db_s = xch + P::XCH / sizeof(float);
+  uint64_t* full = reinterpret_cast<uint64_t*>(db_s + BT);
+  uint64_t* q_bar = full + P::STAGES;
+  uint64_t* xch_full = q_bar + 1;   // the peer's partial of this tile is in xch
+  uint64_t* xch_free = xch_full + 1;  // the peer has read this CTA's last partial
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const bool leader = tid % 128 == 0;
+  const uint32_t rank = cluster_ctarank();
+  const int e0 = rank * CLUSTER_CT;   // this CTA's first column of H
+  const int q0 = blockIdx.x * BT;
+  const int t0 = blockIdx.y * per;
+  const int n_tiles = max(0, min(k_tiles, t0 + per) - t0);
+  // the peer: the other column half of these Q rows
+  const uint32_t peer = rank ^ 1;
+  const uint32_t peer_xch = cluster_map(smem_addr(xch), peer);
+  const uint32_t peer_full = cluster_map(smem_addr(xch_full), peer);
+  const uint32_t peer_free = cluster_map(smem_addr(xch_free), peer);
+
+  // this CTA's part of K tile t0 + i into stage i % STAGES: each
+  // warpgroup's leader the half of the boxes that its second product reads
+  auto load_tile = [&](int i) {
+    const int s = i % P::STAGES;
+    unsigned char* dst = k_s + s * P::PART;
+    const int row = (t0 + i) * BT;
+    if (wg == 0) load_boxes<0, P::BOXES / 2>(dst, &k_map, &full[s], row, e0);
+    else load_boxes<P::BOXES / 2, P::BOXES>(dst, &k_map, &full[s], row, e0);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < P::STAGES; ++s) mbar_init(&full[s], 2);
+    mbar_init(q_bar, 1);
+    mbar_init(xch_full, 1);
+    mbar_init(xch_free, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    // xch_full's phase i: this thread's arrival and the peer's 16 KB
+    mbar_expect_tx(xch_full, P::XCH);
+  }
+  // both CTAs' barriers are set up before either reaches the other's
+  cluster_arrive();
+  cluster_wait();
+  if (tid == 0) load_boxes<0, P::BOXES>(q_s, &q_map, q_bar, q0, e0);
+  if (leader)
+    for (int i = 0; i < min(P::STAGES, n_tiles); ++i) load_tile(i);
+
+  // This thread's accumulator fragment: rows r + 8i (i = 0, 1) of the 64;
+  // S columns 32·wg + 8n + 2·(lane % 4) + j (n < 4, j < 2) at register 4n
+  // + 2i + j; output columns e0 + HN·wg + 8n + 2·(lane % 4) + j (n < HN /
+  // 8) likewise.  The peer's thread of the same index holds the same
+  // positions of its partial S.
+  const int r = warp * 16 + lane / 4;
+  const int cq = 2 * (lane % 4);
+  float q_lse[2], q_gw[2], q_bias[2];
+  int q_lab[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int n = q0 + r + 8 * i;
+    if constexpr (DW) {
+      q_bias[i] = n < V ? b[n] : -INFINITY;
+    } else {
+      const bool in = n < M;
+      q_lse[i] = in ? lse[n] : 0.0f;
+      q_gw[i] = in ? gw[n] : 0.0f;
+      q_lab[i] = in ? labels[n] : -1;
+    }
+  }
+
+  const uint32_t q_addr = smem_addr(q_s);
+  const uint32_t k_addr = smem_addr(k_s);
+  const uint32_t dl_addr = smem_addr(dl_s);
+  // this warpgroup's output columns in a K part: boxes 4·wg ..
+  const uint32_t out_cols = wg * (P::HN / BOX) * BOX_BYTES;
+
+  // the first second product (tile 0, k16 step 0) overwrites acc (scale_d 0)
+  float acc[P::ACC];
+  float db_run[2] = {0.0f, 0.0f};
+  mbar_wait(q_bar, 0);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % P::STAGES;
+    const int k0 = (t0 + i) * BT;        // the tile's first K row
+    const uint32_t stage = k_addr + s * P::PART;
+    mbar_wait(&full[s], (i / P::STAGES) & 1);
+
+    // this CTA's partial S [64 x 32] = Q part @ (K part rows 32·wg ..)^T,
+    // contracting its 512 columns
+    float sacc[16];
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < P::BOXES; ++c)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma<32, 0>(sacc, sw128_desc(q_addr + c * BOX_BYTES + kk * 32, 16),
+                     sw128_desc(stage + c * BOX_BYTES + wg * 4096 + kk * 32, 16),
+                     (c | kk) != 0);
+    wgmma_commit();
+
+    // per-K-row operands of this thread's 8 S columns, loaded while S runs
+    float k_bias[8], k_lse[8], k_gw[8];
+    int k_lab[8];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = k0 + 32 * wg + 8 * n + cq + j;
+        if constexpr (DW) {
+          const bool in = col < M;
+          k_lse[2 * n + j] = in ? lse[col] : 0.0f;
+          k_gw[2 * n + j] = in ? gw[col] : 0.0f;
+          k_lab[2 * n + j] = in ? labels[col] : -1;
+        } else {
+          k_bias[2 * n + j] = col < V ? b[col] : -INFINITY;
+        }
+      }
+
+    if (i > 0) {
+      // this warpgroup's second product of the previous tile has retired:
+      // refill the half of its stage that the product read
+      wgmma_wait<1>();
+      if (leader && i - 1 + P::STAGES < n_tiles) load_tile(i - 1 + P::STAGES);
+    }
+    wgmma_wait<0>();
+    reg_fence(sacc);
+
+    // The exchange: this thread's 16 partial sums into the peer's xch
+    // (once the peer has read the last ones), the peer's out of this CTA's.
+    // Each CTA adds the two in the same order (a + b = b + a in IEEE), so
+    // both hold the same S and form the same dl.  Laid out as 16-byte
+    // columns of 256 threads, so a warp's stores and loads are contiguous.
+    if (i > 0) mbar_wait<true>(xch_free, (i - 1) & 1);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      st_async(peer_xch + (c * BWD_THREADS + tid) * 16,
+               make_float4(sacc[4 * c], sacc[4 * c + 1], sacc[4 * c + 2], sacc[4 * c + 3]),
+               peer_full);
+    mbar_wait<true>(xch_full, i & 1);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float4 v = reinterpret_cast<const float4*>(xch)[c * BWD_THREADS + tid];
+      sacc[4 * c] += v.x;
+      sacc[4 * c + 1] += v.y;
+      sacc[4 * c + 2] += v.z;
+      sacc[4 * c + 3] += v.w;
+    }
+
+    // dl in f32 (db), rounded to bf16 into this tile's swizzled dl buffer,
+    // as ce_bwd_kernel forms it
+    unsigned char* dl_buf = dl_s + (i & 1) * BOX_BYTES;
+    const int col0 = k0 + 32 * wg + cq;
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii) {
+        const int row = r + 8 * ii;
+        float d[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int e = 4 * n + 2 * ii + j;
+          const int kc = 2 * n + j;
+          if constexpr (DW) {
+            d[j] = dlogit(sacc[e], q_bias[ii], k_lse[kc], q0 + row, k_lab[kc],
+                          k_gw[kc]);
+            db_run[ii] += d[j];
+          } else {
+            d[j] = dlogit(sacc[e], k_bias[kc], q_lse[ii], 8 * n + j,
+                          q_lab[ii] - col0, q_gw[ii]);
+          }
+        }
+        const int chunk = (4 * wg + n) ^ (row & 7);
+        *reinterpret_cast<__nv_bfloat162*>(dl_buf + row * 128 + chunk * 16 + cq * 2) =
+            __floats2bfloat162_rn(d[0], d[1]);
+      }
+    // the dl tile is read by wgmma (the async proxy) after both halves land
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync 1, %0;\n" :: "n"(BWD_THREADS) : "memory");
+    // every thread has read the peer's partial: expect the next one, and
+    // let the peer send it
+    if (tid == 0 && i + 1 < n_tiles) {
+      mbar_expect_tx(xch_full, P::XCH);
+      mbar_arrive_remote(peer_free);
+    }
+
+    // out [64 x HN] += dl16 [64 x 64] @ K part [64 x (this warpgroup's HN)]
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma<P::HN, 1>(acc, sw128_desc(dl_addr + (i & 1) * BOX_BYTES + kk * 32, 16),
+                      sw128_desc(stage + out_cols + kk * 16 * 128, BOX_BYTES), (i | kk) != 0);
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  reg_fence(acc);
+  // Nothing reaches this CTA's shared memory from the cluster any more:
+  // every partial and release sent to it was waited for in the loop.
+
+  // the [64, 512] f32 block of dh, or of this split's dW partial
+  const int Qp = q_tiles * BT;
+  float* o = out + (DW ? static_cast<size_t>(blockIdx.y) * Qp * H : 0);
+#pragma unroll
+  for (int n = 0; n < P::HN / 8; ++n)
+#pragma unroll
+    for (int ii = 0; ii < 2; ++ii) {
+      const int row = q0 + r + 8 * ii;
+      const int col = e0 + wg * P::HN + 8 * n + cq;
+      *reinterpret_cast<float2*>(&o[static_cast<size_t>(row) * H + col]) =
+          make_float2(acc[4 * n + 2 * ii], acc[4 * n + 2 * ii + 1]);
+    }
+  if constexpr (DW) {
+    if (blockIdx.z != 0) return;
+    // db: the 4 lanes of a row, then warpgroup 0's half + warpgroup 1's
+#pragma unroll
+    for (int ii = 0; ii < 2; ++ii) {
+      db_run[ii] += __shfl_xor_sync(0xffffffffu, db_run[ii], 1);
+      db_run[ii] += __shfl_xor_sync(0xffffffffu, db_run[ii], 2);
+    }
+    if (wg == 1 && lane % 4 == 0) {
+      db_s[r] = db_run[0];
+      db_s[r + 8] = db_run[1];
+    }
+    asm volatile("bar.sync 1, %0;\n" :: "n"(BWD_THREADS) : "memory");
+    if (wg == 0 && lane % 4 == 0) {
+      float* dbo = db_part + static_cast<size_t>(blockIdx.y) * Qp + q0;
+      dbo[r] = db_run[0] + db_s[r];
+      dbo[r + 8] = db_run[1] + db_s[r + 8];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
 // host side: launches
 // ---------------------------------------------------------------------
 
@@ -669,6 +986,78 @@ int launch_wide(const CUtensorMap& q_map, const CUtensorMap& k_map, int q_rows,
   return static_cast<int>(cudaGetLastError());
 }
 
+// what the cluster launch returns where the card cannot place one cluster
+// (two CTAs of BwdCluster::SMEM on neighbouring SMs): the wrappers raise
+// ClusterError; nothing falls back to another kernel
+constexpr int ERR_CLUSTER = 20001;
+
+// launches of ce_bwd_cluster_kernel (dh and dW/db) in this process: the card
+// tests read it to see which instance ran
+int cluster_launches = 0;
+
+// the clusters of ce_bwd_cluster_kernel<DW> the card holds at
+// once (cudaOccupancyMaxActiveClusters), asked once a device; < 0:
+// -cudaError_t
+template <bool DW>
+int cluster_slots(const cudaLaunchConfig_t& cfg) {
+  static int slots[64];   // 0: not asked yet (a card that holds none is asked again)
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess && (dev < 0 || dev >= 64)) e = cudaErrorInvalidDevice;
+  if (e == cudaSuccess && slots[dev] == 0) {
+    e = cudaOccupancyMaxActiveClusters(&slots[dev], ce_bwd_cluster_kernel<DW>, &cfg);
+    if (e != cudaSuccess) slots[dev] = 0;
+  }
+  return e != cudaSuccess ? -static_cast<int>(e) : slots[dev];
+}
+
+// the launch configuration of ce_bwd_cluster_kernel over q_tiles Q tiles
+// and `splits` K ranges
+cudaLaunchConfig_t cluster_config(cudaLaunchAttribute* attr, int q_tiles, int splits,
+                                  cudaStream_t st) {
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = CLUSTER;
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(q_tiles, splits, CLUSTER);
+  cfg.blockDim = dim3(BWD_THREADS);
+  cfg.dynamicSmemBytes = BwdCluster::SMEM;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Q [q_rows, 1024] and K [k_rows, 1024]; clusters of (1, 1, CLUSTER)
+// over ceil(q_rows / 64) Q tiles and `splits` K ranges of `per`
+// K tiles
+template <bool DW>
+int launch_bwd_cluster(const bf16* q, int q_rows, const bf16* k, int k_rows,
+                       const float* b, const int* labels, const float* lse,
+                       const float* gw, float* out, float* db_part, int M, int V,
+                       int splits, int per, cudaStream_t st) {
+  CUtensorMap q_map, k_map;
+  int err = row_tile_map(&q_map, q, q_rows, CLUSTER_H);
+  if (err) return err;
+  err = row_tile_map(&k_map, k, k_rows, CLUSTER_H);
+  if (err) return err;
+  err = allow_smem(ce_bwd_cluster_kernel<DW>, BwdCluster::SMEM);
+  if (err) return err;
+  cudaLaunchAttribute attr[1];
+  const int q_tiles = (q_rows + BT - 1) / BT;
+  const cudaLaunchConfig_t cfg = cluster_config(attr, q_tiles, splits, st);
+  const int slots = cluster_slots<DW>(cfg);
+  if (slots < 0) return -slots;
+  if (slots == 0) return ERR_CLUSTER;
+  err = static_cast<int>(cudaLaunchKernelEx(&cfg, ce_bwd_cluster_kernel<DW>,
+                                            q_map, k_map, b, labels, lse, gw, out, db_part,
+                                            M, V, (k_rows + BT - 1) / BT, per, q_tiles));
+  if (!err) err = static_cast<int>(cudaGetLastError());
+  if (!err) ++cluster_launches;
+  return err;
+}
+
 // Past H = 512: Q [q_rows, H] and K [k_rows, H] streamed; column tiles of
 // 512 (one launch, grid z), then one launch each of 256, 128 and 64 for
 // what is left of H (ops/fused_ce.py: col_tiles); db from the first
@@ -701,10 +1090,13 @@ int launch_dh(const bf16* h, const bf16* w, const float* b, const int* labels,
               const float* lse, const float* gw, float* dh, int M, int H, int V,
               cudaStream_t st) {
   const int v_tiles = (V + BT - 1) / BT;
-  if constexpr (HH == 0)
+  if constexpr (HH == 0) {
+    if (cluster_width(H))
+      return launch_bwd_cluster<false>(h, M, w, V, b, labels, lse, gw, dh, nullptr, M, V,
+                                       1, v_tiles, st);
     return launch_bwd_wide<false>(h, M, w, V, b, labels, lse, gw, dh, nullptr, M, V, H,
                                   1, v_tiles, st);
-  else
+  } else
     return launch_bwd<HH, false>(h, M, w, V, b, labels, lse, gw, dh, nullptr, M, V,
                                  1, v_tiles, st);
 }
@@ -716,8 +1108,11 @@ int launch_dwdb(const bf16* h, const bf16* w, const float* b, const int* labels,
                 int splits, int per, cudaStream_t st) {
   int err;
   if constexpr (HH == 0)
-    err = launch_bwd_wide<true>(w, V, h, M, b, labels, lse, gw, dw_part, db_part, M, V,
-                                H, splits, per, st);
+    err = cluster_width(H)
+              ? launch_bwd_cluster<true>(w, V, h, M, b, labels, lse, gw, dw_part, db_part,
+                                         M, V, splits, per, st)
+              : launch_bwd_wide<true>(w, V, h, M, b, labels, lse, gw, dw_part, db_part, M,
+                                      V, H, splits, per, st);
   else
     err = launch_bwd<HH, true>(w, V, h, M, b, labels, lse, gw, dw_part, db_part, M, V,
                                splits, per, st);
@@ -809,7 +1204,7 @@ extern "C" int vct_fused_ce_fwd_smem(int H, int write_lg) {
 // the dynamic shared memory of the backward kernels (bytes): ce_bwd_kernel
 // at H = 64 .. 512; ce_bwd_wide_kernel of CT columns at H = -CT (CT = 64 ..
 // 512), and at any H past 512 of 512 columns (its shared memory does not
-// depend on H)
+// depend on H); ce_bwd_cluster_kernel at H = -1024
 extern "C" int vct_fused_ce_bwd_smem(int H) {
   switch (H) {
     case 64: return static_cast<int>(Bwd<64>::SMEM);
@@ -819,6 +1214,25 @@ extern "C" int vct_fused_ce_bwd_smem(int H) {
     case -64: return static_cast<int>(BwdWide<64>::SMEM);
     case -128: return static_cast<int>(BwdWide<128>::SMEM);
     case -256: return static_cast<int>(BwdWide<256>::SMEM);
+    case -1024: return static_cast<int>(BwdCluster::SMEM);
     default: return static_cast<int>(BwdWide<512>::SMEM);
   }
 }
+
+// The shape rule past 512 (ops/fused_ce.py: bwd_cluster): the CTAs of a
+// cluster of ce_bwd_cluster_kernel at width H, 0 where another kernel runs
+extern "C" int vct_fused_ce_bwd_cluster(int H) {
+  return ce_width(H) && cluster_width(H) ? CLUSTER : 0;
+}
+
+// the clusters of ce_bwd_cluster_kernel the current device holds at once
+// (dh's instance; 0: none fits), or -cudaError_t
+extern "C" int vct_fused_ce_bwd_cluster_slots() {
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(attr, 1, 1, nullptr);
+  const int err = allow_smem(ce_bwd_cluster_kernel<false>, BwdCluster::SMEM);
+  return err ? -err : cluster_slots<false>(cfg);
+}
+
+// the launches of ce_bwd_cluster_kernel (dh and dW/db) in this process
+extern "C" int vct_fused_ce_bwd_cluster_launches() { return cluster_launches; }

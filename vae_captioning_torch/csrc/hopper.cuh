@@ -8,7 +8,9 @@
 // the decode's logits top-k (fused_logits_topk.cu, on row_ring.cuh).
 // mbarriers, TMA loads (and stores) of boxes of up to 256 rows x 128 bytes
 // (64 bf16 or 128 int8 columns) with the 128-byte swizzle, shared-memory
-// matrix descriptors for that swizzle, the m64nNk16 bf16 and m64nNk32 s8 wgmma wrappers, and the
+// matrix descriptors for that swizzle, the m64nNk16 bf16 and m64nNk32 s8 wgmma wrappers, the
+// cluster primitives of the flash CE backward at H = 1024 (rank, mapa,
+// remote arrive, st.async, barrier.cluster), and the
 // host-side tensor-map encoder (cuTensorMapEncodeTiled reached through
 // cudaGetDriverEntryPoint, so nothing links libcuda).
 
@@ -46,17 +48,27 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
 
 // spin until the barrier's phase of the given parity has completed; a
 // phase that never completes (a lost transfer) traps after 2^35 clocks
-// (about 17 s) instead of hanging the stream
+// (about 17 s) instead of hanging the stream.  CLUSTER: acquire at cluster
+// scope what another CTA of the cluster released to the barrier (its
+// remote arrive or its st.async bytes)
+template <bool CLUSTER = false>
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_addr(bar);
   const long long start = clock64();
   uint32_t done = 0;
   while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if constexpr (CLUSTER)
+      asm volatile(
+          "{\n.reg .pred p;\n"
+          "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+          "selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    else
+      asm volatile(
+          "{\n.reg .pred p;\n"
+          "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+          "selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done) : "r"(addr), "r"(parity) : "memory");
     if (!done && clock64() - start > (1ll << 35)) __trap();
   }
 }
@@ -394,6 +406,53 @@ int launch_pdl(void (*kernel)(Params...), dim3 grid, int threads, size_t smem,
 }
 
 // ---------------------------------------------------------------------
+// thread-block clusters: distributed shared memory between the CTAs of a
+// cluster (launched with cudaLaunchAttributeClusterDimension)
+// ---------------------------------------------------------------------
+
+// this CTA's rank in its cluster
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// the shared::cluster address of the same location (a shared::cta address
+// of this CTA) in the shared memory of CTA `rank` of the cluster
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// every thread of every CTA of the cluster: arrive (releasing this thread's
+// memory operations at cluster scope), then wait for all to have arrived
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// arrive on a barrier of another CTA of the cluster (its shared::cluster
+// address, from cluster_map), releasing this thread's memory operations
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// 16 bytes into the shared memory of another CTA of the cluster (`dst` and
+// `bar` shared::cluster addresses in that CTA); the bytes complete on its
+// barrier, as a TMA load's do
+__device__ __forceinline__ void st_async(uint32_t dst, float4 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n"
+      :: "r"(dst), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar) : "memory");
+}
+
+// ---------------------------------------------------------------------
 // tiles: 64-row x 64-column bf16 boxes, 128-byte swizzle
 // ---------------------------------------------------------------------
 
@@ -401,16 +460,17 @@ constexpr int BT = 64;                  // rows of a tile
 constexpr int BOX = 64;                 // columns of a TMA box (128 bytes)
 constexpr int BOX_BYTES = BT * BOX * 2;  // 8 KB: 64 rows x 128 bytes, swizzled
 
-// boxes [C0, C1) of the row tile at `row` into `dst`; the bytes complete
-// on `bar`.  The box range is a compile-time constant: with a runtime loop
-// here ptxas serialises the kernel's wgmmas (warning C7515).
+// boxes [C0, C1) of the row tile at `row`, counted from column x0, into
+// `dst` (box c at dst + c · BOX_BYTES); the bytes complete on `bar`.  The
+// box range is a compile-time constant: with a runtime loop here ptxas
+// serialises the kernel's wgmmas (warning C7515).
 template <int C0, int C1>
 __device__ __forceinline__ void load_boxes(unsigned char* dst, const CUtensorMap* map,
-                                           uint64_t* bar, int row) {
+                                           uint64_t* bar, int row, int x0 = 0) {
   mbar_expect_tx(bar, (C1 - C0) * BOX_BYTES);
 #pragma unroll
   for (int c = C0; c < C1; ++c)
-    tma_load(dst + c * BOX_BYTES, map, bar, c * BOX, row);
+    tma_load(dst + c * BOX_BYTES, map, bar, x0 + c * BOX, row);
 }
 
 // ---------------------------------------------------------------------

@@ -33,11 +33,12 @@ The kernels take H in ``KERNEL_H`` (64, 128, 256, 512: built with the
 width at compile time) and, past 512, every multiple of 64 up to
 ``CE_H_MAX`` (4096): the forward on 64-row blocks, resident or streamed
 (:func:`fwd_block`), both backwards on output column tiles
-(:func:`col_tiles`).  The wrappers zero-pad h's and W's columns up to
-the width :func:`ce_width` gives (the next of ``KERNEL_H`` below 512,
-the next multiple of 64 past it: 520 -> 576, 1000 -> 1024;
-:func:`pad_ce`; exact, the added terms are 0·0) and autograd slices dh
-and dW back.  Past ``CE_H_MAX`` they raise.
+(:func:`col_tiles`), except the flash backward at 1024, whose two column
+halves are the two CTAs of a cluster (:func:`bwd_cluster`).  The
+wrappers zero-pad h's and W's columns up to the width :func:`ce_width`
+gives (the next of ``KERNEL_H`` below 512, the next multiple of 64 past
+it: 520 -> 576, 1000 -> 1024; :func:`pad_ce`; exact, the added terms
+are 0·0) and autograd slices dh and dW back.  Past ``CE_H_MAX`` they raise.
 """
 
 from __future__ import annotations
@@ -71,6 +72,14 @@ _FWD_TILE_V = 128
 _FWD_WORKSPACE = 16 << 20
 # the backward kernels' output column tiles past 512 (col_tiles)
 _COL_TILES = (512, 256, 128, 64)
+# the flash backward's cluster kernel (csrc/fused_ce.cu, ce_bwd_cluster_kernel):
+# a cluster's extent over its grid (Q tiles, K ranges, column halves of H):
+# one Q tile, two CTAs that hold 512 of the H columns each; and the one width
+# it takes (bwd_cluster)
+BWD_CLUSTER = (1, 1, 2)
+BWD_CLUSTER_H = 1024
+# what its launch returns where the card cannot place a cluster
+_ERR_CLUSTER = 20001
 # the backward kernels of both schedules (csrc/fused_ce.cu, ce_bwd_kernel;
 # csrc/fused_ce_mat.cu, ce_mat_bwd_kernel): 64-row tiles of h and of W,
 # one block per SM (H100 SXM: 132), and the bytes the dW/db row splits'
@@ -314,16 +323,25 @@ def _row_args(lse, gw, M, dev):
     return lse, gw
 
 
+class ClusterError(RuntimeError):
+    """The card cannot place a cluster of the flash CE backward at H =
+    1024 (two CTAs of 225 KB of shared memory each on neighbouring SMs).
+    Raised; no other kernel stands in."""
+
+
 class BwdPlan(NamedTuple):
     """The launches of the backward kernels for (M, H, V), under both
-    schedules: the flash CE's ce_bwd_kernel (ce_bwd_wide_kernel past 512)
-    and the written logits' ce_mat_bwd_kernel tile alike.  Block (x, y)
-    of a grid owns output tile x (64 rows) and streams tiles [y·per,
-    min(k_tiles, (y + 1)·per)) of the other operand.  dh: h tiles, every
-    W tile in one range (per = k_tiles).  dW/db: W tiles, streamed h
-    tiles in ``splits`` ranges whose f32 partials are summed in range
-    order.  Each grid runs once for each output column tile of
-    ``col_tiles`` (one of H at H <= 512)."""
+    schedules: the flash CE's ce_bwd_kernel (past 512 ce_bwd_wide_kernel,
+    or ce_bwd_cluster_kernel where ``cluster``) and the written logits'
+    ce_mat_bwd_kernel tile alike.  Block (x, y) of a grid owns output
+    tile x (64 rows) and streams tiles [y·per, min(k_tiles, (y + 1)·per))
+    of the other operand.  dh: h tiles, every W tile in one range (per =
+    k_tiles).  dW/db: W tiles, streamed h tiles in ``splits`` ranges whose
+    f32 partials are summed in range order.  Each grid runs once for each
+    output column tile of ``col_tiles`` (one of H at H <= 512); under the
+    flash CE at ``cluster`` > 0 the column tiles are instead the CTAs of
+    one launch's clusters of ``BWD_CLUSTER``: grid (x, y, 2), CTA z
+    holding column tile z (:meth:`launch_grid`)."""
 
     dh_grid: Tuple[int, int]
     dh_k_tiles: int
@@ -334,10 +352,16 @@ class BwdPlan(NamedTuple):
     dw_part: Tuple[int, int, int]       # [splits, Vp, H] f32
     db_part: Tuple[int, int]            # [splits, Vp] f32
     col_tiles: Tuple[int, ...]          # output columns of each tile, in order
+    cluster: int = 0                    # the flash CE's cluster CTAs (bwd_cluster)
 
     @property
     def splits(self) -> int:
         return self.dwdb_grid[1]
+
+    def launch_grid(self, grid: Tuple[int, int]) -> Tuple[int, int, int]:
+        """The cluster kernel's launch grid over ``grid`` (dh_grid or
+        dwdb_grid): Q tiles, K ranges, and the column halves."""
+        return (grid[0], grid[1], BWD_CLUSTER[2])
 
 
 def _wave_fill(blocks: int, sms: int) -> float:
@@ -364,33 +388,62 @@ def col_tiles(H: int) -> Tuple[int, ...]:
     return tuple(tiles)
 
 
+def bwd_cluster(H: int) -> int:
+    """The flash CE backward's shape rule past 512: the CTAs of a cluster
+    of ``ce_bwd_cluster_kernel`` at width H, 0 where another kernel runs.
+    At ``BWD_CLUSTER_H`` (1024) two CTAs each hold 512 of the columns of a
+    Q tile and of every K tile, form the logits tile's partial over them,
+    swap partials through distributed shared memory and multiply dl by
+    their own K columns: the logits formed once, each K byte read from L2
+    once a cluster.  A third column CTA would add a 16 KB partial to every
+    CTA's exchange buffer, which does not fit beside the Q part and two K
+    parts in 227 KB; so the other widths past 512 take
+    ``ce_bwd_wide_kernel`` (column tiles, each forming the logits again).
+    ``csrc/fused_ce.cu`` applies the same rule (``cluster_width``,
+    exported as ``vct_fused_ce_bwd_cluster``)."""
+    return BWD_CLUSTER[0] * BWD_CLUSTER[1] * BWD_CLUSTER[2] if H == BWD_CLUSTER_H else 0
+
+
 @functools.lru_cache(maxsize=None)
 def ce_bwd_plan(M: int, H: int, V: int, sms: int = _BWD_SMS) -> BwdPlan:
-    """The backward's grids, row splits, column tiles and workspace
-    shapes.  The dW/db split count fills the card's waves best (the
-    blocks of every column tile counted) among the counts whose partials
-    fit in ``_BWD_WORKSPACE`` bytes (the fewest on a tie); no split is
-    empty.  At the train shapes (M = 30720, H = 512, V = 11500) that is 5
-    splits of 96 row tiles: 900 blocks, 97% of 7 waves, a 112.5 MiB
-    workspace; at H = 1024 one split (two fill the waves no better) in 2
-    column tiles: 360 blocks, 91% of 3 waves, a 45 MiB workspace."""
+    """The backward's grids, row splits, column tiles, cluster and
+    workspace shapes.  The dW/db split count fills the card's waves best
+    (the blocks of every column tile counted; under a cluster, clusters
+    over ``sms // cluster`` places) among the counts whose partials fit
+    in ``_BWD_WORKSPACE`` bytes (the fewest on a tie); no split is empty.  At the train shapes (M = 30720, H = 512, V = 11500)
+    that is 5 splits of 96 row tiles: 900 blocks, 97% of 7 waves, a 112.5
+    MiB workspace; at H = 1024 one split (two fill the waves no better) of
+    180 clusters of 2 CTAs (the flash CE; the written logits: 2 column
+    tiles, 360 blocks), 91% of 3 waves, a 45 MiB workspace."""
     T = _BWD_TILE
     m_tiles, v_tiles = _cdiv(M, T), _cdiv(V, T)
     Vp = v_tiles * T
     cols = col_tiles(H)
+    cluster = bwd_cluster(H)
     most = max(1, min(m_tiles, _BWD_WORKSPACE // (Vp * H * 4)))
     best = (0.0, 1, m_tiles)
     for want in range(1, most + 1):
         per = _cdiv(m_tiles, want)
         splits = _cdiv(m_tiles, per)
-        fill = _wave_fill(v_tiles * splits * len(cols), sms)
+        fill = (_wave_fill(v_tiles * splits, sms // cluster)
+                if cluster else _wave_fill(v_tiles * splits * len(cols), sms))
         if fill > best[0]:
             best = (fill, splits, per)
     _, splits, per = best
     return BwdPlan(dh_grid=(m_tiles, 1), dh_k_tiles=v_tiles,
                    dh_rows=m_tiles * T, dwdb_grid=(v_tiles, splits),
                    dwdb_k_tiles=m_tiles, dwdb_per=per,
-                   dw_part=(splits, Vp, H), db_part=(splits, Vp), col_tiles=cols)
+                   dw_part=(splits, Vp, H), db_part=(splits, Vp), col_tiles=cols,
+                   cluster=cluster)
+
+
+def _check_bwd(err: int, name: str) -> None:
+    if err == _ERR_CLUSTER:
+        raise ClusterError(
+            f"{name}: the card holds no cluster of {bwd_cluster(BWD_CLUSTER_H)} CTAs "
+            f"of the backward at H = {BWD_CLUSTER_H} (cudaOccupancyMaxActiveClusters "
+            "is 0)")
+    _ext.check_launch(err, name)
 
 
 def fused_ce_dh_kernel(h16, w16, b, lab, lse, gw) -> torch.Tensor:
@@ -405,7 +458,7 @@ def fused_ce_dh_kernel(h16, w16, b, lab, lse, gw) -> torch.Tensor:
             h16.data_ptr(), w16.data_ptr(), b.data_ptr(), lab.data_ptr(),
             lse.data_ptr(), gw.data_ptr(), dh.data_ptr(), M, H, V,
             _ext.stream_ptr(dev))
-    _ext.check_launch(err, DH)
+    _check_bwd(err, DH)
     _ext.LAUNCHES[DH] += 1
     return dh[:M]
 
@@ -429,7 +482,7 @@ def fused_ce_dwdb_kernel(h16, w16, b, lab, lse, gw) -> Pair:
             lse.data_ptr(), gw.data_ptr(), dw_part.data_ptr(),
             db_part.data_ptr(), dw.data_ptr(), db.data_ptr(), M, H, V,
             plan.splits, plan.dwdb_per, _ext.stream_ptr(dev))
-    _ext.check_launch(err, DWDB)
+    _check_bwd(err, DWDB)
     _ext.LAUNCHES[DWDB] += 1
     return dw, db
 
