@@ -2092,6 +2092,58 @@ def cluster_launches() -> int:
     return _ext.library().vct_fused_ce_bwd_cluster_launches()
 
 
+def fwd_instance(H: int, written_logits: bool = False) -> str:
+    """The CE forward's kernel instance at the padded width H, as
+    csrc/fused_ce.cuh's shape rule picks it (fused_ce.fwd_cluster)."""
+    rows, resident = fused_ce.fwd_block(H, written_logits)
+    boxes = H // 64 if H in fused_ce.KERNEL_H or H == 1024 else "H at run time"
+    cluster = fused_ce.fwd_cluster(H, written_logits)
+    return (f"ce_fwd_kernel<{boxes}, {rows} rows {'resident' if resident else 'streamed'}, "
+            f"{'written logits' if written_logits else 'flash'}"
+            f"{f', clusters of {cluster} along M sharing each W box' if cluster else ''}>")
+
+
+def fwd_cluster_launches(written_logits: bool = False) -> int:
+    """The launches of the CE forward's cluster instances so far in this
+    process (the flash forward's, or the written logits'), as the C
+    launches count them."""
+    lib = _ext.library()
+    return (lib.vct_fused_ce_mat_fwd_cluster_launches() if written_logits
+            else lib.vct_fused_ce_fwd_cluster_launches())
+
+
+def fwd_l2_bytes(M: int, H: int, V: int, written_logits: bool = False, cluster=None) -> int:
+    """The bf16 operand bytes the CE forward's blocks read from L2 in one
+    launch at the padded width H on the H100's 132 SMs (the instance the
+    shape rule picks, or with ``cluster`` = 0 its blocks alone): each
+    block its rows of h once, and for every vocab tile of its chunk the W
+    tile, 128 rows, a cluster's CTAs a share each of it (clusters of 4,
+    a design variant, on the chunks of the shipped plan, as
+    kernel_designs.py runs them).  A model of the reads, not a
+    measurement; the written logits go to memory besides."""
+    rows = fused_ce.fwd_block(H, written_logits)[0]
+    if cluster is None:
+        cluster = fused_ce.fwd_cluster(H, written_logits)
+    plan = fused_ce.ce_fwd_plan(M, V, 132, rows, min(cluster, fused_ce.FWD_CLUSTER))
+    ctas = max(cluster, 1)
+    blocks, chunks = round_up(-(-M // rows), ctas), plan.grid[1]
+    return blocks * (chunks * rows * H * 2 + plan.v_tiles * 128 * H * 2 // ctas)
+
+
+def check_fwd_cluster(tag: str, Hp: int, written_logits: bool, clustered: int,
+                      calls: int) -> None:
+    """The C shape rule of the forward equals ops/fused_ce.py's at Hp, and
+    ``calls`` forward launches ran the cluster instance exactly where it
+    sends Hp (``clustered`` of its launches)."""
+    rule = _ext.library().vct_fused_ce_fwd_cluster(Hp, int(written_logits))
+    if rule != fused_ce.fwd_cluster(Hp, written_logits):
+        raise AssertionError(f"{tag}: the C forward rule gives a cluster of {rule}, "
+                             f"ops/fused_ce.py's {fused_ce.fwd_cluster(Hp, written_logits)}")
+    if clustered != (calls if rule else 0):
+        raise AssertionError(f"{tag}: {clustered} launches of the forward's cluster "
+                             f"instance in {calls} calls")
+
+
 def bwd_l2_bytes(M: int, H: int, V: int, dw: bool, cluster=None) -> int:
     """The bf16 operand bytes the flash backward's blocks read from L2 in
     one launch at the padded width H (the instance the shape rule picks,
@@ -2129,10 +2181,12 @@ def check_fused_ce(M: int, V: int, labels=None, H: int = HIDDEN) -> dict:
                              f"ops/fused_ce.py's {fused_ce.bwd_cluster(Hp)}")
     clustered = cluster_launches()
     pad = float((weights == 0).float().mean())
+    fwd_clustered = fwd_cluster_launches()
     got = fused_ce.fused_ce_fwd_kernel(*ops)
     for name, a, r in zip(("lse", "ll"), got, fused_ce.fused_ce_fwd_kernel(*ops)):
         if not torch.equal(a, r):
             raise AssertionError(f"{tag} forward: two calls gave another {name}")
+    check_fwd_cluster(tag, Hp, False, fwd_cluster_launches() - fwd_clustered, 2)
     lse, ll = fused_ce.ce_fwd_plain(h, w, b, labels)
     errs = {}
     for name, a, r in zip(("lse", "ll"), got, (lse, ll)):
@@ -2171,7 +2225,8 @@ def check_fused_ce(M: int, V: int, labels=None, H: int = HIDDEN) -> dict:
         print(f"{tag} backward {name}: max |kernel - plain| {err:.3e} ({rel:.2e} "
               f"of max, tolerance {tol})")
     print(f"{tag}: {pad:.3f} of the rows PAD (weight 0), their dh exactly 0; "
-          f"dh, dW and db bit for bit across two calls; backward instances "
+          f"dh, dW and db bit for bit across two calls; forward instance "
+          f"{fwd_instance(Hp)}; backward instances "
           f"{bwd_instance(Hp, False)}, {bwd_instance(Hp, True)}")
     return errs
 
@@ -2194,14 +2249,17 @@ CE_SHAPES = ((0, VOCAB, "train", HIDDEN), (RAGGED_ROWS, 11519, None, HIDDEN),
              (65, VOCAB, None, HIDDEN), (RAGGED_ROWS, 11519, None, 256),
              (77, 301, None, 128), (300, 2000, None, 64), (100, 37, None, 64),
              (300, 1921, None, HIDDEN), (300, 1921, None, 64), (77, 130, None, 128))
-# past 512: H = 576 (64-row resident forward blocks, column tiles 512 + 64),
-# 1000 (padded to 1024), 1024 (the wide cell's: its forward built at
-# compile time, two column tiles of 512) and 2048 (the forward's rows
-# streamed, four column tiles), each at the train shapes and at the ragged
-# shapes above, and 4096 (CE_H_MAX) once
+# past 512: H = 576 (64-row resident forward blocks in clusters of two,
+# column tiles 512 + 64), 1000 (padded to 1024), 1024 (the wide cell's:
+# its forward built at compile time, in clusters of two along M; the flash
+# backward's column halves a cluster; the written logits' two column tiles
+# of 512) and 2048 (the forward's rows streamed, alone; four column tiles),
+# each at the train shapes and at the ragged shapes above (in the
+# forward's clusters of two, M = 1 and 300 leave a cluster's second CTA no
+# row, 65, 77 and 100 one partly past M), and 4096 (CE_H_MAX) once
 WIDE_CE_H = (576, 1000, 1024, 2048)
 WIDE_CE_SHAPES = tuple((0, VOCAB, "train", H) for H in WIDE_CE_H) + tuple(
-    (M, V, None, H) for H in (576, 1000, 2048)
+    (M, V, None, H) for H in WIDE_CE_H
     for M, V in ((RAGGED_ROWS, 11519), (300, 2000), (1, VOCAB), (65, VOCAB),
                  (77, 301), (100, 37))) + (
     (300, 1921, None, 1024), (77, 130, None, 576), (300, 2000, None, 4096))
@@ -2243,6 +2301,23 @@ def ce_library_calls(h, w, b, labels, weights):
     return forward, lambda: torch.autograd.grad(loss, leaves, retain_graph=True)
 
 
+def fwd_times_extra(record: dict, M: int, H: int, written_logits: bool) -> str:
+    """The forward's line beside its times: the instance, the L2 bytes
+    reckoned for it (against its blocks alone, where it runs in clusters)
+    and the clusters the card holds at once, which also go into
+    ``record`` (``clusters_held``)."""
+    extra = (f", instance {record['kernel']}, L2 bytes reckoned "
+             f"{fwd_l2_bytes(M, H, VOCAB, written_logits) / 1e9:.3f} GB")
+    if fused_ce.fwd_cluster(H, written_logits):
+        if H == 1024 and not written_logits:
+            record["clusters_held"] = _ext.library().vct_fused_ce_fwd_cluster_slots()
+        extra += (f" (its blocks alone: "
+                  f"{fwd_l2_bytes(M, H, VOCAB, written_logits, cluster=0) / 1e9:.3f} GB)"
+                  + (f", {record['clusters_held']} clusters held at once"
+                     if "clusters_held" in record else ""))
+    return extra
+
+
 def phase_ce_kernel_times(label: str, H: int = HIDDEN) -> dict:
     """The three CE kernels against their plain versions at the train
     shapes (M = 30720 with the batch's PAD rows, V = 11500) at width H
@@ -2251,9 +2326,9 @@ def phase_ce_kernel_times(label: str, H: int = HIDDEN) -> dict:
     (at 1024 the cluster instance forms them once, 4·M·H·V; the column
     tiles, which the other widths past 512 take, once a tile).
     Library: the forward's time, and for dh and dW/db the time of its one
-    backward, which gives all three gradients.  Beside dh's and dW/db's
-    times: the instance that ran (the cluster instance's launches are
-    counted) and the L2 bytes reckoned for it (``bwd_l2_bytes``)."""
+    backward, which gives all three gradients.  Beside each time: the
+    instance that ran (the cluster instances' launches are counted) and
+    the L2 bytes reckoned for it (``fwd_l2_bytes``, ``bwd_l2_bytes``)."""
     M = TRAIN_T * TRAIN_ROWS
     h, w, b, labels, weights = ce_inputs(M, VOCAB, seed=13, labels=train_ce_labels(), H=H)
     ops = fused_ce.prepare(h, w, b, labels)
@@ -2280,12 +2355,18 @@ def phase_ce_kernel_times(label: str, H: int = HIDDEN) -> dict:
     times = {}
     for name, (fk, fp, bnd, lib) in pairs.items():
         clustered, launched = cluster_launches(), _ext.LAUNCHES[name]
+        fwd_clustered = fwd_cluster_launches()
         t = turns(fk, fp, timer)
         clustered = cluster_launches() - clustered
+        fwd_clustered = fwd_cluster_launches() - fwd_clustered
         launched = _ext.LAUNCHES[name] - launched
         times[name] = timing(t, bnd, lib)
         extra = ""
-        if not name.endswith("fwd"):
+        if name.endswith("fwd"):
+            check_fwd_cluster(f"{name} at H={H}", H, False, fwd_clustered, launched)
+            times[name]["kernel"] = fwd_instance(H)
+            extra = fwd_times_extra(times[name], M, H, False)
+        else:
             dw = name.endswith("dwdb")
             # every launch of the turns went through the cluster instance
             if clustered != (launched if fused_ce.bwd_cluster(H) else 0):
@@ -2358,11 +2439,13 @@ def check_ce_mat(M: int, V: int, labels=None, H: int = HIDDEN) -> dict:
     Hp = ops[0].shape[1]
     tag = (f"fused_linear_ce_hybrid M={M} H={H}"
            f"{f' (padded to {Hp})' if Hp != H else ''} V={V}")
+    fwd_clustered = fwd_cluster_launches(True)
     lg, *got = fused_ce.ce_mat_fwd_kernel(*ops)
     for name, a, r in zip(("lg", "lse", "ll"), (lg, *got),
                           fused_ce.ce_mat_fwd_kernel(*ops)):
         if not torch.equal(a, r):
             raise AssertionError(f"{tag} forward: two calls gave another {name}")
+    check_fwd_cluster(tag, Hp, True, fwd_cluster_launches(True) - fwd_clustered, 2)
     p_lg, lse, ll = fused_ce.ce_mat_fwd_plain(h, w, b, labels)
     S = fused_ce._logits(h, w, b)
     flips = check_written_logits(tag, lg, p_lg, S)
@@ -2381,7 +2464,7 @@ def check_ce_mat(M: int, V: int, labels=None, H: int = HIDDEN) -> dict:
           f"bf16(f32 S) but {flips} of {M * V} elements ({flips / (M * V):.2e}) "
           f"whose f32 S lies within {LG_ATOL} of a rounding boundary; pad "
           f"columns -1e30; max |kernel - plain| {lg_err:.3e}; lg, lse and ll "
-          "bit for bit across two calls")
+          f"bit for bit across two calls; instance {fwd_instance(Hp, True)}")
     gw = weights
     runs = [(fused_ce.ce_mat_dh_kernel(lg, ops[1], ops[3], lse, gw),
              *fused_ce.ce_mat_dwdb_kernel(ops[0], lg, ops[3], lse, gw, V))
@@ -2479,11 +2562,19 @@ def phase_ce_mat_kernel_times(label: str, H: int = HIDDEN) -> dict:
     }
     times = {}
     for name, (fk, fp, bnd, lib, what) in pairs.items():
+        fwd_clustered, launched = fwd_cluster_launches(True), _ext.LAUNCHES[name]
         t = turns(fk, fp, timer)
         times[name] = timing(t, bnd, lib)
+        extra = ""
+        if name.endswith("fwd"):
+            check_fwd_cluster(f"{name} at H={H}", H, True,
+                              fwd_cluster_launches(True) - fwd_clustered,
+                              _ext.LAUNCHES[name] - launched)
+            times[name]["kernel"] = fwd_instance(H, True)
+            extra = fwd_times_extra(times[name], M, H, True)
         print(f"time {name} (M={M} H={H} V={VOCAB}): kernel {t[0]:.4f} ms, "
               f"plain {t[1]:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), library "
-              f"({what}) {lib:.4f} ms [{label}]")
+              f"({what}) {lib:.4f} ms{extra} [{label}]")
     return times
 
 
@@ -2569,6 +2660,7 @@ def phase_train_path(cfg, arrays, tag: str, steps: int = TRAIN_STEPS):
     torch.cuda.synchronize()
     _ext.reset_launches()   # this path's run starts here
     clustered = cluster_launches()
+    fwd_clustered = [fwd_cluster_launches(wl) for wl in (False, True)]
     t0 = time.perf_counter()
     metrics = [trainer.run_step_arrays(arrays) for _ in range(steps)]
     torch.cuda.synchronize()
@@ -2577,6 +2669,16 @@ def phase_train_path(cfg, arrays, tag: str, steps: int = TRAIN_STEPS):
                           cfg.encoder_rnn_layers, cfg.decoder_rnn_layers)
     launches = {k: _ext.LAUNCHES[k] for k in want}               # right after
     clustered = cluster_launches() - clustered
+    fwd_clustered = [fwd_cluster_launches(wl) - n for wl, n in zip((False, True), fwd_clustered)]
+    # the CE forward past 512 runs in clusters where the shape rule says:
+    # the flash forward and the hybrid's written-logits forward, once a step
+    width = fused_ce.ce_width(cfg.decoder_hidden)
+    for wl, name in ((False, "fused_linear_ce_fwd"), (True, "fused_linear_ce_mat_fwd")):
+        check_fwd_cluster(f"{tag} path", width, wl, fwd_clustered[wl], launches.get(name, 0))
+    if any(fwd_clustered):
+        wl = bool(fwd_clustered[1])
+        print(f"{tag} path: the CE forward ran the cluster instance "
+              f"({fwd_clustered[wl]} launches: {fwd_instance(width, wl)})")
     # the flash CE's backward at 1024 runs the cluster instance: dh and dW/db
     # once a step
     cluster = (ce_flag(cfg) == "fused_ce"
@@ -4433,17 +4535,23 @@ def phase_train_profile(out_dir: str, label: str, prior: str, ce=None) -> None:
 # HIDDEN with h resident, at 2·HIDDEN with h streamed; the LSTM cell's at E
 # = EMBED, H = HIDDEN; the logits kernels' at H = HIDDEN)
 SEQ_MODES = ("gates of step T-1", "step", "step 0 (dh0)", "dx")
+
+
+def fwd_template(a: list) -> tuple:
+    """(label, dynamic shared memory) of the CE forward's instance
+    <BOXES, RG, RES, WRITE_LG, CLUSTER>: the memory at its width (the
+    fixed widths', 1024's) or, for a box count at run time, at the widest
+    width the shape rule runs it at (streamed: 2048; clustered: 1280,
+    written logits 1152), from the library's export."""
+    boxes, rg, res, wl, cluster = a
+    label = (f"<{boxes * 64 if boxes else 'H at run time'}, {64 * rg} rows "
+             f"{'resident' if res else 'streamed'}, {'written logits' if wl else 'flash'}"
+             f"{f', clusters of {cluster}' if cluster > 1 else ''}>")
+    width = boxes * 64 if boxes else (1152 if wl else 1280) if res else 2048
+    return label, _ext.library().vct_fused_ce_fwd_smem(width, int(wl))
 WGMMA_TEMPLATES = {
-    # the CE forward <BOXES, RG, RES, WRITE_LG>: the fixed widths' and H =
-    # 1024's shared memory, a runtime box count's at the widest resident
-    # width of its schedule (H = 1280 flash, 1152 written logits) or at any
-    # streamed one (2048)
-    "ce_fwd_kernel": (lambda a: f"<{a[0] * 64 if a[0] else 'H at run time'}, {64 * a[1]} rows "
-                                f"{'resident' if a[2] else 'streamed'}, "
-                                f"{'written logits' if a[3] else 'flash'}>",
-                      lambda a: _ext.library().vct_fused_ce_fwd_smem(
-                          a[0] * 64 if a[0] else (1152 if a[3] else 1280) if a[2] else 2048,
-                          int(a[3]))),
+    # the CE forward <BOXES, RG, RES, WRITE_LG, CLUSTER> (fwd_template)
+    "ce_fwd_kernel": (lambda a: fwd_template(a)[0], lambda a: fwd_template(a)[1]),
     "ce_bwd_kernel": (lambda a: f"<{a[0]}, {'dW/db' if a[1] else 'dh'}>",
                       lambda a: _ext.library().vct_fused_ce_bwd_smem(a[0])),
     "ce_bwd_wide_kernel": (lambda a: f"<CT={a[0]}, {'dW/db' if a[1] else 'dh'}>",
@@ -4522,10 +4630,11 @@ def print_template_resources() -> None:
         info = " ".join(lines[i + 1:i + 4])
         regs = re.search(r"Used (\d+) registers", info)
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", info)
+        shared = smem(args)
         print(f"build: {name}{label(args)}: "
               f"{regs.group(1) if regs else '?'} registers, spill stores / loads "
               f"{spills.group(1) + ' / ' + spills.group(2) + ' B' if spills else '?'}, "
-              f"{smem(args)} B dynamic shared memory")
+              + (f"{shared} B dynamic shared memory" if isinstance(shared, int) else shared))
         found += 1
     for line in lines:
         m = re.search(rf"Potential Performance Loss: (.*) in the function "

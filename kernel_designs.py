@@ -5,11 +5,20 @@ The top-k + logsumexp over written logits (``csrc/topk_lse.cu``) at beam
 3 and beam 10 (N = 1536, k = 3; 5120, 10), on ``chip_smoke.py``'s
 unfused-decode logits, the fused z eps stream (``csrc/fused_z.cu``,
 normals and raw words) at the train shapes (1280 x 100 x 150), and the
-flash CE forward (``csrc/fused_ce.cuh``) at the wide cell's H = 1024 (M
-= 30,720, V = 11,500), with its box count at compile time or at run
-time.  Each variant is one or more text edits of the source (or of a
-header it includes) as it stands; an edit that no longer applies fails
-the run.  Variants are built side by side
+CE forward (``csrc/fused_ce.cuh``, the flash forward built through
+``fused_ce.cu`` and the written-logits one through ``fused_ce_mat.cu``)
+at the wide cell's H = 1024 (M = 30,720, V = 11,500): clusters of 2
+64-row blocks along M sharing each W box by TMA multicast (as built),
+the 64-row blocks alone, clusters of 4, the two warpgroups of a block on
+column halves of every tile (the flash forward; as built it takes alternate
+tiles), the box count at run time, the fold
+left out (the product stream alone; not exact) in clusters and alone,
+each release a cluster-scope fence, and the fold without its exps or its
+biases (not exact), each checked against the plain version (lse and ll within
+chip_smoke.py's tolerance) and against the built kernel (bit for bit,
+the written logits too).  Each variant is one or more text edits of the
+source (or of a header it includes) as it stands; an edit that no longer
+applies fails the run.  Variants are built side by side
 (one nvcc each, all started together) into ``_build/designs/`` and
 loaded with ctypes; each is timed by device time (``torch.profiler``)
 in the order listed, then in reverse, and checked against the plain
@@ -24,7 +33,7 @@ exact), each checked against the plain version (within chip_smoke.py's
 tolerances) and against the built kernel (bit for bit).
 
     python3 kernel_designs.py            # from the repository's root, on a CUDA card
-    python3 kernel_designs.py ce_bwd_wide  # the named groups only (topk, eps,
+    python3 kernel_designs.py ce_fwd       # the named groups only (topk, eps,
                                            # ce_fwd, ce_bwd_wide)
 """
 
@@ -56,10 +65,48 @@ EPS_VARIANTS = (
      (("  if (__any_sync(__activemask(), tail)) {", "  if (false) {"),)),
     ("spans of 64 rows", (("constexpr int EPS_SPAN = 4800;", "constexpr int EPS_SPAN = 9600;"),)),
 )
-# (label, edits) on csrc/fused_ce.cuh, built through csrc/fused_ce.cu
+# the CE forward's shape rule past 512 with the launches of the resident
+# 64-row blocks alone, and its fold of a tile (and, with the
+# written logits, the tile's store), as csrc/fused_ce.cuh states them; the
+# cluster ring's release of a stage (csrc/row_ring.cuh)
+_FWD_ALONE = (("  return !fixed_width(H) && fwd_block(H, write_lg) % 2 != 0 ? FWD_CLUSTER : 0;",
+               "  return 0;"),
+              ("  return VCT_FWD(0, 1, false, 1);\n",
+               "  if (H == 1024) return VCT_FWD(16, 1, true, 1);\n"
+               "  return fwd_block(H, WRITE_LG) % 2 ? VCT_FWD(0, 1, true, 1) : VCT_FWD(0, 1, false, 1);\n"))
+_NO_FOLD = ("    if (RG == 1 && v0 >= V) continue;", "    continue;")
+_FENCED_RELEASE = ("row_ring.cuh", "mbar_arrive_cluster(empty_at[r] + off)",
+                   "mbar_arrive_remote(empty_at[r] + off)")
+# The flash forward's clusters on the column split of a tile: both warpgroups
+# of a 64-row block on every tile, each 64 of its columns (m64n64), as the
+# written-logits forward runs (which builds as it is)
+_HALVES_LABEL = "clusters of 2, warpgroups on column halves of every tile (flash only)"
+_HALVES = (("  static constexpr bool ALTERNATE = RG == 1 && CLUSTER > 1 && !WRITE_LG;",
+            "  static constexpr bool ALTERNATE = false;"),)
+# (label, edits) on csrc/fused_ce.cuh (or the header an edit names), built
+# through csrc/fused_ce.cu and csrc/fused_ce_mat.cu
 CE_FWD_VARIANTS = (
-    ("as built (16 boxes at compile time)", ()),
-    ("the box count at run time", (("    case 1024: return VCT_FWD(16, 1, true);\n", ""),)),
+    ("as built: clusters of 2 along M, W boxes multicast (flash: warpgroups on "
+     "alternate tiles)", ()),
+    ("64-row blocks alone, no cluster", _FWD_ALONE),
+    ("clusters of 4 along M", (("constexpr int FWD_CLUSTER = 2;", "constexpr int FWD_CLUSTER = 4;"),
+                               ("row_ring.cuh", "(RES && CLUSTER == 2)", "(RES && CLUSTER == 4)"))),
+    ("clusters of 2, the box count at run time",
+     (("    return H == 1024 ? VCT_FWD(16, 1, true, FWD_CLUSTER) : VCT_FWD(0, 1, true, FWD_CLUSTER);",
+       "    return VCT_FWD(0, 1, true, FWD_CLUSTER);"),)),
+    (_HALVES_LABEL, _HALVES),
+    ("clusters of 2, no fold: the product stream alone (not exact)", (_NO_FOLD,)),
+    ("blocks alone, no fold: the product stream alone (not exact)", (_NO_FOLD, *_FWD_ALONE)),
+    ("clusters of 2, each release at cluster scope (mbarrier.arrive.release.cluster)",
+     (_FENCED_RELEASE,)),
+    ("clusters of 2, the fold's exps left out (not exact)",
+     (("        se += ex2(fmaf(acc[4 * n + 2 * ii], LOG2E, -ms)) +\n"
+       "              ex2(fmaf(acc[4 * n + 2 * ii + 1], LOG2E, -ms));",
+       "        se += fmaf(acc[4 * n + 2 * ii], LOG2E, -ms) +\n"
+       "              fmaf(acc[4 * n + 2 * ii + 1], LOG2E, -ms);"),)),
+    ("clusters of 2, the biases not loaded (not exact)",
+     (("        bias[2 * n + j] = col < V ? __ldg(&b[col]) : NEG;",
+       "        bias[2 * n + j] = col < V ? 0.0f : NEG;"),)),
 )
 # the flash CE backward's exchange of partial logits (ce_bwd_cluster_kernel)
 _EXCHANGE = """    if (i > 0) mbar_wait<true>(xch_free, (i - 1) & 1);
@@ -85,22 +132,10 @@ _RELEASE = """    if (tid == 0 && i + 1 < n_tiles) {
 """
 # Clusters of 2 Q tiles x 2 column halves (rank x + 2z): the two CTAs of a
 # column half share each K part, each warpgroup leader loading a quarter of
-# it into both by TMA multicast, and refill a stage only once the other Q
-# tile's warpgroup has released it too; the grid's Q tiles rounded up to 2
+# it into both by TMA multicast (hopper.cuh's tma_load_multicast), and
+# refill a stage only once the other Q tile's warpgroup has released it
+# too; the grid's Q tiles rounded up to 2
 _MULTICAST = (
-    ("constexpr int CLUSTER_H = CLUSTER * CLUSTER_CT;   // the width the cluster takes\n",
-     """constexpr int CLUSTER_H = CLUSTER * CLUSTER_CT;   // the width the cluster takes
-__device__ __forceinline__ void tma_load_multicast(void* dst, const CUtensorMap* map,
-                                                   uint64_t* bar, int x, int y,
-                                                   uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\\n"
-      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-         "r"(smem_addr(bar)), "r"(x), "r"(y), "h"(mask)
-      : "memory");
-}
-"""),
     ("(STAGES + 3) * sizeof(uint64_t);", "(STAGES + 3 + 2 * STAGES) * sizeof(uint64_t);"),
     ("  uint64_t* xch_free = xch_full + 1;  // the peer has read this CTA's last partial\n",
      "  uint64_t* xch_free = xch_full + 1;  // the peer has read this CTA's last partial\n"
@@ -149,25 +184,42 @@ CE_BWD_WIDE_VARIANTS = (
      ((_EXCHANGE, ""), (_RELEASE, ""))),
 )
 GROUPS = ("topk", "eps", "ce_fwd", "ce_bwd_wide")
+# each group's builds: (library kind, source, header edited or None, variants)
+BUILDS = {
+    "topk": (("topk", "topk_lse.cu", None, TOPK_VARIANTS),),
+    "eps": (("eps", "fused_z.cu", None, EPS_VARIANTS),),
+    "ce_fwd": (("ce_fwd", "fused_ce.cu", "fused_ce.cuh", CE_FWD_VARIANTS),
+               ("ce_mat_fwd", "fused_ce_mat.cu", "fused_ce.cuh", CE_FWD_VARIANTS)),
+    "ce_bwd_wide": (("ce_bwd_wide", "fused_ce.cu", None, CE_BWD_WIDE_VARIANTS),),
+}
+
+
+def edit_files(csrc, edits, edited) -> dict:
+    """{file: its text with ``edits`` applied}: an edit (old, new) to
+    ``edited``, an edit (file, old, new) to that file of ``csrc``; an edit
+    whose text is not there stops the run."""
+    texts = {}
+    for edit in edits:
+        file, old, new = edit if len(edit) == 3 else (edited, *edit)
+        text = texts.get(file) or (csrc / file).read_text()
+        if old not in text:
+            raise SystemExit(f"kernel_designs: edit no longer applies to {file}: {old!r}")
+        texts[file] = text.replace(old, new)
+    return texts
 
 
 def build(csrc, out_dir, name, source, edits, edited=None):
     """Start nvcc on ``source`` with ``edits`` applied to it (or to the
-    header ``edited``), beside copies of the shared headers; returns
-    (library path, process)."""
-    edited = edited or source
-    text = (csrc / edited).read_text()
-    for old, new in edits:
-        if old not in text:
-            raise SystemExit(f"kernel_designs: edit no longer applies to {edited}: {old!r}")
-        text = text.replace(old, new)
+    header ``edited``, or to the file an edit names: ``edit_files``),
+    beside copies of the shared headers; returns (library path,
+    process)."""
     d = out_dir / name
     d.mkdir(parents=True)
     for header in csrc.glob("*.cuh"):
         shutil.copy(header, d)
-    if edited != source:
-        shutil.copy(csrc / source, d)
-    (d / edited).write_text(text)
+    shutil.copy(csrc / source, d)
+    for file, text in edit_files(csrc, edits, edited or source).items():
+        (d / file).write_text(text)
     lib = d / "lib.so"
     cmd = [_ext._nvcc(), *_ext.NVCC_FLAGS, "-shared", "-o", str(lib), str(d / source)]
     return lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -192,13 +244,7 @@ def main() -> None:
     out_dir = _ext.BUILD_DIR / "designs"
     shutil.rmtree(out_dir, ignore_errors=True)
     jobs = {}
-    for kind, source, edited, variants in (
-            ("topk", "topk_lse.cu", None, TOPK_VARIANTS),
-            ("eps", "fused_z.cu", None, EPS_VARIANTS),
-            ("ce_fwd", "fused_ce.cu", "fused_ce.cuh", CE_FWD_VARIANTS),
-            ("ce_bwd_wide", "fused_ce.cu", None, CE_BWD_WIDE_VARIANTS)):
-        if kind not in groups:
-            continue
+    for kind, source, edited, variants in (b for g in groups for b in BUILDS[g]):
         for i, (name, edits) in enumerate(variants):
             jobs[(kind, name)] = build(_ext.CSRC_DIR, out_dir, f"{kind}{i}", source, edits,
                                        edited)
@@ -218,6 +264,9 @@ def main() -> None:
             lib.vct_fused_ce_fwd.argtypes = [P] * 7 + [I] * 4 + [P]
             lib.vct_fused_ce_dh.argtypes = [P] * 7 + [I] * 3 + [P]
             lib.vct_fused_ce_dwdb.argtypes = [P] * 10 + [I] * 5 + [P]
+            lib.vct_fused_ce_fwd_cluster.argtypes = [I, I]
+        if hasattr(lib, "vct_fused_ce_mat_fwd"):
+            lib.vct_fused_ce_mat_fwd.argtypes = [P] * 8 + [I] * 4 + [P]
     dev, label = cs.DEV, cs.card()
     sms = _ext.sm_count(dev.index)
 
@@ -283,31 +332,74 @@ def time_eps(libs, dev, label, eps) -> None:
                   f"{name}: device {a:.4f} / {b:.4f} ms; exact {exact} [{label}]")
 
 
+# the widths past 512 other than 1024 at which the shape rule's choice
+# (clusters or blocks alone, both with the box count at run time) is
+# timed: the narrowest and widest resident widths of each forward
+RULE_WIDTHS = ((576, False), (1280, False), (576, True), (1152, True))
+
+
 def time_ce_fwd(libs, dev, label, sms) -> None:
-    """The flash CE forward's variants at the wide cell's H = 1024."""
+    """Both CE forwards' variants at the wide cell's H = 1024 (the train
+    batch's labels), by device time in turns, against the plain version
+    and the built kernel; then, at ``RULE_WIDTHS``, the built kernel
+    against the blocks alone (and, in the flash forward, the warpgroups
+    on column halves).  Each variant's plan takes its own shape
+    rule's cluster (asked from its flash library), and its line the L2
+    bytes reckoned for it (chip_smoke.fwd_l2_bytes)."""
+    names = [name for name, _ in CE_FWD_VARIANTS]
+    for wl in (False, True):
+        time_ce_fwd_at(libs, dev, label, sms, 1024, wl, names)
+    for H, wl in RULE_WIDTHS:
+        halves = [] if wl else [_HALVES_LABEL]
+        time_ce_fwd_at(libs, dev, label, sms, H, wl, names[:2] + halves)
+
+
+def time_ce_fwd_at(libs, dev, label, sms, H: int, wl: bool, names) -> None:
+    """The variants ``names`` of one forward (flash, or written logits
+    where ``wl``) at M = 30,720, V = 11,500 and width H."""
     import chip_smoke as cs
     from vae_captioning_torch.ops import fused_ce
 
-    M, H, V = cs.TRAIN_T * cs.TRAIN_ROWS, cs.WIDE_HIDDEN, cs.VOCAB
+    M, V = cs.TRAIN_T * cs.TRAIN_ROWS, cs.VOCAB
     ops = fused_ce.prepare(*cs.ce_inputs(M, V, seed=13, labels=cs.train_ce_labels(), H=H)[:4])
-    plan = fused_ce.ce_fwd_plan(M, V, sms, fused_ce.fwd_block(H)[0])
     want = fused_ce.ce_fwd_plain(*ops)
+    rows = fused_ce.fwd_block(H, wl)[0]
+    kind, tag = ("ce_mat_fwd", "fused_linear_ce_mat_fwd") if wl else ("ce_fwd", "fused_linear_ce_fwd")
 
-    def ce_fwd(lib):
+    def forward(name):
+        # the plan takes the shipped clusters; clusters of 4 run on their
+        # chunks (the launch rounds its row blocks to whole clusters)
+        cluster = libs["ce_fwd", name].vct_fused_ce_fwd_cluster(H, int(wl))
+        plan = fused_ce.ce_fwd_plan(M, V, sms, rows, min(cluster, fused_ce.FWD_CLUSTER))
         part = torch.empty(plan.part, device=dev)
         out = torch.empty((2, M), device=dev)
-        _ext.check_launch(lib.vct_fused_ce_fwd(
-            *(t.data_ptr() for t in ops), part.data_ptr(), out[0].data_ptr(),
-            out[1].data_ptr(), M, H, V, plan.chunk_tiles, _ext.stream_ptr(dev)),
-            "fused_ce_fwd variant")
-        return out
+        ptrs = [t.data_ptr() for t in ops] + [part.data_ptr()]
+        if wl:
+            lg = torch.empty((M, fused_ce.logits_pitch(V)), dtype=torch.bfloat16, device=dev)
+            err = libs[kind, name].vct_fused_ce_mat_fwd(
+                *ptrs, lg.data_ptr(), out[0].data_ptr(), out[1].data_ptr(), M, H, V,
+                plan.chunk_tiles, _ext.stream_ptr(dev))
+        else:
+            err = libs[kind, name].vct_fused_ce_fwd(
+                *ptrs, out[0].data_ptr(), out[1].data_ptr(), M, H, V, plan.chunk_tiles,
+                _ext.stream_ptr(dev))
+        _ext.check_launch(err, f"{tag} variant")
+        return (out[0], out[1], lg) if wl else (out[0], out[1])
 
-    calls = {name: (lambda lib=lib: ce_fwd(lib))
-             for (kind, name), lib in libs.items() if kind == "ce_fwd"}
+    calls = {name: (lambda name=name: forward(name)) for name in names}
+    built = calls[names[0]]()
     for name, (a, b) in in_turns(calls, cs.device_ms).items():
-        err = float((calls[name]()[0] - want[0]).abs().max())
-        print(f"fused_linear_ce_fwd M={M} H={H} V={V}, {name}: device {a:.4f} / {b:.4f} ms; "
-              f"max |lse - plain| {err:.3e} [{label}]")
+        got = calls[name]()
+        rel = [cs.rel_err(g, r)[1] for g, r in zip(got, want)]
+        ok = all(x <= cs.CE_FWD_RTOL for x in rel)
+        same = all(torch.equal(g, r) for g, r in zip(got, built))
+        cluster = libs["ce_fwd", name].vct_fused_ce_fwd_cluster(H, int(wl))
+        print(f"{tag} M={M} H={H} V={V}, {name}: device {a:.4f} / {b:.4f} ms; "
+              f"max |kernel - plain| / max lse, ll {rel[0]:.2e}, {rel[1]:.2e}: exact "
+              f"(within {cs.CE_FWD_RTOL}) {ok}; bit for bit with the built kernel "
+              f"{same}; L2 bytes reckoned "
+              f"{cs.fwd_l2_bytes(M, H, V, wl, cluster) / 1e9:.3f} GB [{label}]")
+        del got
 
 
 def time_ce_bwd_wide(libs, dev, label) -> None:

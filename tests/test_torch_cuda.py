@@ -34,7 +34,7 @@ from vae_captioning_torch.ops.fused_ce import (
     fused_ce_dh_kernel, fused_ce_dwdb_kernel, fused_ce_fwd_kernel,
     fused_linear_ce, fused_linear_ce_hybrid, fused_linear_ce_hybrid_plain,
     fused_linear_ce_plain, fused_linear_ce_xla_bwd,
-    fused_linear_ce_xla_bwd_plain, fwd_block, pad_ce, ce_width, prepare)
+    fused_linear_ce_xla_bwd_plain, fwd_block, fwd_cluster, pad_ce, ce_width, prepare)
 from vae_captioning_torch.ops.fused_logits_topk import (
     fused_logits_sample, fused_logits_top_k, fused_logits_top_k_int8,
     fused_logits_top_k_int8_plain, fused_logits_top_k_plain,
@@ -1013,7 +1013,9 @@ def test_linear_ce_kernels_match_plain(dev, M, H, V):
     weights = mask / mask.sum()
     leaves = [[t.clone().requires_grad_() for t in (h, w, b)] for _ in range(2)]
     before = dict(_ext.LAUNCHES)
-    clustered = _ext.library().vct_fused_ce_bwd_cluster_launches()
+    lib = _ext.library()
+    clustered = lib.vct_fused_ce_bwd_cluster_launches()
+    fwd_clustered = lib.vct_fused_ce_fwd_cluster_launches()
     losses = []
     for fn, lv in zip((fused_linear_ce, fused_linear_ce_plain), leaves):
         loss = fn(*lv, labels, weights)
@@ -1022,10 +1024,15 @@ def test_linear_ce_kernels_match_plain(dev, M, H, V):
     # the backward at 1024 (1000 pads to it) ran the cluster instance, dh
     # and dW/db once each; the other widths never do, by the same rule in C
     Hp = ce_width(H)
-    assert _ext.library().vct_fused_ce_bwd_cluster(Hp) == bwd_cluster(Hp)
-    assert (_ext.library().vct_fused_ce_bwd_cluster_launches() - clustered
+    assert lib.vct_fused_ce_bwd_cluster(Hp) == bwd_cluster(Hp)
+    assert (lib.vct_fused_ce_bwd_cluster_launches() - clustered
             == (2 if Hp == 1024 else 0))
     lse, ll = fused_ce_fwd_kernel(*prepare(*pad_ce(h, w), b, labels))
+    # the forward past 512 at resident widths (576, 1024 here) ran in
+    # clusters, in the loss and in the call above, by the same rule in C
+    assert lib.vct_fused_ce_fwd_cluster(Hp, 0) == fwd_cluster(Hp)
+    assert (lib.vct_fused_ce_fwd_cluster_launches() - fwd_clustered
+            == (2 if Hp in (576, 1024) else 0))
     p_lse, p_ll = ce_fwd_plain(h, w, b, labels)
     torch.cuda.synchronize()
     for name in ("fwd", "dh", "dwdb"):
@@ -1076,6 +1083,7 @@ def test_linear_ce_backward_repeats_bit_for_bit(dev, schedule, M, H, V):
     # and dW/db); the written logits' kernels never are
     assert (_ext.library().vct_fused_ce_bwd_cluster_launches() - clustered
             == (4 if schedule == "flash" and H == 1024 else 0))
+    assert fwd_cluster(H, schedule == "written_logits") == (2 if H == 1024 else 0)
     for name, a, r in zip(("dh", "dW", "db"), first, second):
         assert torch.equal(a, r), name
         assert bool(a.abs().max() > 0), name
@@ -1105,6 +1113,16 @@ def test_ce_forward_block_shapes(dev, written_logits):
         assert fwd_block(H, written_logits) == (64, H <= last), H
     with pytest.raises(ValueError, match="up to 4096"):
         fwd_block(4160, written_logits)
+    # the forward's clusters: the C shape rule is ops/fused_ce.py's at
+    # every width the kernels take, and takes the resident 64-row blocks
+    # (the wide cell's 1024 among them)
+    lib = _ext.library()
+    for H in range(64, 4097, 64):
+        assert lib.vct_fused_ce_fwd_cluster(H, int(written_logits)) == fwd_cluster(
+            H, written_logits), H
+    assert fwd_cluster(1024, written_logits) == 2
+    assert [H for H in range(576, 4097, 64) if fwd_cluster(H, written_logits)] == list(
+        range(576, last + 1, 64))
 
 
 @pytest.mark.parametrize("schedule", ["hybrid", "xla_bwd"])
@@ -1143,12 +1161,19 @@ def test_written_logits_ce_kernels_match_plain(dev, schedule, M, H, V):
     weights = mask / mask.sum()
     leaves = [[t.clone().requires_grad_() for t in (h, w, b)] for _ in range(2)]
     before = dict(_ext.LAUNCHES)
+    fwd_clustered = _ext.library().vct_fused_ce_mat_fwd_cluster_launches()
     losses = []
     for f, lv in zip((fn, plain), leaves):
         loss = f(*lv, labels, weights)
         loss.backward()
         losses.append(float(loss.detach()))
     torch.cuda.synchronize()
+    # the hybrid's forward at resident widths past 512 (576 and 1024 here)
+    # ran in clusters; the XLA forward launches no forward kernel
+    Hp = ce_width(H)
+    assert (_ext.library().vct_fused_ce_mat_fwd_cluster_launches() - fwd_clustered
+            == (1 if schedule == "hybrid" and fwd_cluster(Hp, True) else 0))
+    assert fwd_cluster(Hp, True) == (2 if Hp in (576, 1024) else 0)
     want = {"mat_fwd": 1 if schedule == "hybrid" else 0, "mat_dh": 1,
             "mat_dwdb": 1, "fwd": 0, "dh": 0, "dwdb": 0}
     for name, n in want.items():

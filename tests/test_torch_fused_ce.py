@@ -397,27 +397,105 @@ def test_backward_plan_past_512(M, H, V, use):
         assert tfc._wave_fill(180 * 2, 132) > 0.9
 
 
+# the forward's clusters along M: none, and the shape rule's two CTAs
+FWD_CLUSTERS = [0, 2]
+
+
+@pytest.mark.parametrize("cluster", FWD_CLUSTERS)
 @pytest.mark.parametrize("use", BWD_USES)
 @pytest.mark.parametrize("M,V", FWD_PLAN_SHAPES)
-def test_forward_plan_on_64_row_blocks(M, V, use):
+def test_forward_plan_on_64_row_blocks(M, V, use, cluster):
     """The forward's plan for the 64-row blocks that every width past 512
-    takes (resident or streamed): every (64-row block, vocab tile) pair
-    once, no vocab chunk empty, two partials a chunk (one a warpgroup)
-    within the 16 MiB of partials unless one chunk alone exceeds it; at
-    the train shapes 3 chunks of 30 vocab tiles, 1,440 blocks in 99% of
-    11 waves."""
-    plan = tfc.ce_fwd_plan(M, V, rows=64)
+    takes (resident or streamed; the resident ones in clusters of 2 along
+    M): every (64-row block, vocab tile) pair once, the blocks past M that
+    round the row blocks up to whole clusters counted, no vocab chunk
+    empty, two partials a chunk (one a warpgroup) within the 16 MiB of
+    partials unless one chunk alone exceeds it; at the train shapes 3
+    chunks of 30 vocab tiles, 1,440 blocks in 99% of 11 waves (in clusters
+    of 2: 720 clusters in 99% of 11 waves of the 66 places)."""
+    plan = tfc.ce_fwd_plan(M, V, rows=64, cluster=cluster)
     m_tiles, v_tiles = -(-M // 64), -(-V // 128)
-    assert plan.rows == 64 and plan.grid[0] == m_tiles
+    ctas = max(cluster, 1)
+    assert plan.rows == 64 and plan.cluster == cluster
+    assert plan.grid[0] == -(-m_tiles // ctas) * ctas
     seen = _covered(plan.grid, v_tiles, plan.chunk_tiles)
-    assert seen == {(m, v): 1 for m in range(m_tiles) for v in range(v_tiles)}
+    assert seen == {(m, v): 1 for m in range(plan.grid[0]) for v in range(v_tiles)}
     assert all(y * plan.chunk_tiles < v_tiles for y in range(plan.grid[1]))
     chunks = plan.grid[1]
     assert plan.part == (2 * chunks, M, 3)
     assert chunks == 1 or 2 * chunks * M * 3 * 4 <= 16 << 20
     if (M, V) == (30720, 11500):
         assert plan.grid == (480, 3) and plan.chunk_tiles == 30
-        assert tfc._wave_fill(480 * 3, 132) > 0.99
+        assert tfc._wave_fill(480 * 3 // ctas, 132 // ctas) > 0.99
+
+
+@pytest.mark.parametrize("cluster", FWD_CLUSTERS[1:])
+@pytest.mark.parametrize("M,V", sorted(set(FWD_PLAN_SHAPES) | {(65, 11500), (100, 37),
+                                                               (300, 11500)}))
+def test_forward_cluster_divides_the_grid(M, V, cluster):
+    """A cluster (at most the portable 8 CTAs) divides the forward's row
+    blocks, which hold every 64-row block of h and, past M, fewer than a
+    cluster of blocks with no row (in clusters of 2, M = 1 and 300 leave
+    a cluster's second CTA none; 65, 77 and 100 a second CTA partly past
+    M); the clusters of a chunk take every vocab tile of it, as the
+    blocks alone do."""
+    plan = tfc.ce_fwd_plan(M, V, rows=64, cluster=cluster)
+    alone = tfc.ce_fwd_plan(M, V, rows=64)
+    m_tiles = -(-M // 64)
+    assert cluster <= 8 and plan.grid[0] % cluster == 0
+    empty = plan.grid[0] - m_tiles
+    assert 0 <= empty < cluster
+    assert empty == (1 if M in (1, 300) else 0)
+    assert plan.v_tiles == alone.v_tiles and plan.part[1:] == alone.part[1:]
+    # a cluster's CTAs are adjacent row blocks of one chunk: x // cluster
+    clusters = {(x // cluster, y) for x in range(plan.grid[0]) for y in range(plan.grid[1])}
+    assert len(clusters) * cluster == plan.grid[0] * plan.grid[1]
+
+
+@pytest.mark.parametrize("written_logits", [False, True])
+@pytest.mark.parametrize("H", [64, 512, 520, 576, 640, 960, 1000, 1024, 1088, 1152,
+                               1216, 1280, 1344, 2048, 4096])
+def test_forward_cluster_shape_rule(H, written_logits):
+    """The forward's shape rule past 512 (csrc/fused_ce.cuh's
+    fwd_cluster): clusters of 2 where the 64-row blocks keep their rows
+    resident (to 1280; with the written logits' staged boxes to 1152,
+    fwd_block's widths), the fixed widths' 128-row blocks and the streamed
+    blocks alone; the padded width decides (1000 -> 1024), and the wide
+    cell's 1024 takes the cluster in both forwards."""
+    Hp = tfc.ce_width(H)
+    last = 1152 if written_logits else 1280
+    want = 2 if 512 < Hp <= last else 0
+    assert tfc.fwd_cluster(Hp, written_logits) == want
+    if Hp == 1024:
+        assert want == tfc.FWD_CLUSTER == 2
+    plan = tfc.ce_fwd_plan(300, 2000, rows=64 if Hp > 512 else 128,
+                           cluster=tfc.fwd_cluster(Hp, written_logits))
+    assert plan.cluster == want
+
+
+@pytest.mark.parametrize("M,V", [(30720, 11500), (30720, 300), (1000, 11519), (77, 301),
+                                 (1, 11500), (65, 37)])
+def test_forward_cluster_plan_workspace_within_bound(M, V):
+    """In clusters the forward's (m, s, ll) partials, two a chunk, stay
+    within the 16 MiB of partials (one chunk may exceed it alone), rows
+    past M take none; the waves are counted in the places of clusters
+    (132 SMs hold 66 of 2): at the train shapes 3 chunks, 720 clusters in
+    11 waves, as the 1,440 blocks alone."""
+    plan = tfc.ce_fwd_plan(M, V, rows=64, cluster=2)
+    n, rows, three = plan.part
+    assert rows == M and three == 3 and n == 2 * plan.grid[1]
+    assert plan.grid[1] == 1 or n * M * 3 * 4 <= tfc._FWD_WORKSPACE
+    if (M, V) == (30720, 11500):
+        waves = -(-plan.grid[0] // 2 * plan.grid[1] // (132 // 2))
+        assert plan.grid == (480, 3) and waves == 11
+
+
+def test_forward_plan_takes_no_other_cluster():
+    """The forward's plan takes clusters of 2 CTAs (the kernel's
+    instances), or none."""
+    for bad in (1, 3, 4, 8):
+        with pytest.raises(ValueError, match="cluster"):
+            tfc.ce_fwd_plan(300, 2000, rows=64, cluster=bad)
 
 
 # ----------------------------------------------------------------------
@@ -514,3 +592,15 @@ def test_an_unplaceable_cluster_raises():
     with pytest.raises(RuntimeError, match="cudaError_t 2"):
         tfc._check_bwd(2, tfc.DWDB)
     tfc._check_bwd(0, tfc.DH)
+
+
+@pytest.mark.parametrize("name,written_logits", [(tfc.FWD, False), (tfc.FWD_MAT, True)])
+def test_an_unplaceable_forward_cluster_raises(name, written_logits):
+    """The forward's cluster launch (csrc/fused_ce.cuh's ERR_CLUSTER) that
+    finds no place raises ClusterError naming the forward and its width;
+    another error code raises as any launch does."""
+    with pytest.raises(tfc.ClusterError, match="no cluster of 2 CTAs of the forward at H = 1024"):
+        tfc._check_fwd(tfc._ERR_CLUSTER, name, 1024, written_logits)
+    with pytest.raises(RuntimeError, match="cudaError_t 2"):
+        tfc._check_fwd(2, name, 1024, written_logits)
+    tfc._check_fwd(0, name, 1024, written_logits)

@@ -9,6 +9,7 @@ import kernel_designs as kd
 from vae_captioning_torch import _ext
 
 # (group, source edited, variants), as kernel_designs.main builds them
+# (the ce_fwd group's edits of fused_ce.cuh built through both CE sources)
 GROUPS = (("topk", "topk_lse.cu", kd.TOPK_VARIANTS),
           ("eps", "fused_z.cu", kd.EPS_VARIANTS),
           ("ce_fwd", "fused_ce.cuh", kd.CE_FWD_VARIANTS),
@@ -24,12 +25,17 @@ def test_groups_are_the_scripts():
 @pytest.mark.parametrize("group,source,label,edits", CASES,
                          ids=[f"{c[0]}-{i}" for i, c in enumerate(CASES)])
 def test_each_edit_applies_once(group, source, label, edits):
-    """Each edit's text occurs once in the source as the edits before it
-    left it, and the edited source differs from the source exactly where
-    the variant is not the one as built."""
-    text = original = (_ext.CSRC_DIR / source).read_text()
-    for old, new in edits:
+    """Each edit's text occurs once in the source it edits (the group's,
+    or the header a three-part edit names) as the edits before it left it,
+    and the edited sources differ from the sources exactly where the
+    variant is not the one as built."""
+    texts = {}
+    for edit in edits:
+        file, old, new = edit if len(edit) == 3 else (source, *edit)
+        text = texts.get(file, (_ext.CSRC_DIR / file).read_text())
         assert old != new, label
         assert text.count(old) == 1, (label, old[:80])
-        text = text.replace(old, new)
-    assert (text != original) == bool(edits), label
+        texts[file] = text.replace(old, new)
+    changed = any(text != (_ext.CSRC_DIR / file).read_text() for file, text in texts.items())
+    assert changed == bool(edits), label
+    assert kd.edit_files(_ext.CSRC_DIR, edits, source) == texts, label

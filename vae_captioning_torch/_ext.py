@@ -95,6 +95,10 @@ _SIGNATURES = {
     "vct_fused_ce_bwd_cluster": [_I],
     "vct_fused_ce_bwd_cluster_slots": [],
     "vct_fused_ce_bwd_cluster_launches": [],
+    "vct_fused_ce_fwd_cluster": [_I, _I],
+    "vct_fused_ce_fwd_cluster_slots": [],
+    "vct_fused_ce_fwd_cluster_launches": [],
+    "vct_fused_ce_mat_fwd_cluster_launches": [],
     "vct_fused_ce_mat_fwd": [_P] * 8 + [_I] * 4 + [_P],
     "vct_fused_ce_mat_dh": [_P] * 6 + [_I] * 3 + [_P],
     "vct_fused_ce_mat_dwdb": [_P] * 9 + [_I] * 5 + [_P],

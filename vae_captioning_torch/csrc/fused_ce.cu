@@ -986,29 +986,17 @@ int launch_wide(const CUtensorMap& q_map, const CUtensorMap& k_map, int q_rows,
   return static_cast<int>(cudaGetLastError());
 }
 
-// what the cluster launch returns where the card cannot place one cluster
-// (two CTAs of BwdCluster::SMEM on neighbouring SMs): the wrappers raise
-// ClusterError; nothing falls back to another kernel
-constexpr int ERR_CLUSTER = 20001;
-
 // launches of ce_bwd_cluster_kernel (dh and dW/db) in this process: the card
 // tests read it to see which instance ran
 int cluster_launches = 0;
 
-// the clusters of ce_bwd_cluster_kernel<DW> the card holds at
-// once (cudaOccupancyMaxActiveClusters), asked once a device; < 0:
-// -cudaError_t
+// the clusters of ce_bwd_cluster_kernel<DW> the card holds at once
+// (two CTAs of BwdCluster::SMEM on neighbouring SMs; ERR_CLUSTER where
+// none fits), asked once a device; < 0: -cudaError_t
 template <bool DW>
 int cluster_slots(const cudaLaunchConfig_t& cfg) {
-  static int slots[64];   // 0: not asked yet (a card that holds none is asked again)
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess && (dev < 0 || dev >= 64)) e = cudaErrorInvalidDevice;
-  if (e == cudaSuccess && slots[dev] == 0) {
-    e = cudaOccupancyMaxActiveClusters(&slots[dev], ce_bwd_cluster_kernel<DW>, &cfg);
-    if (e != cudaSuccess) slots[dev] = 0;
-  }
-  return e != cudaSuccess ? -static_cast<int>(e) : slots[dev];
+  static HeldClusters cache;
+  return held_clusters(ce_bwd_cluster_kernel<DW>, cfg, cache);
 }
 
 // the launch configuration of ce_bwd_cluster_kernel over q_tiles Q tiles
@@ -1236,3 +1224,24 @@ extern "C" int vct_fused_ce_bwd_cluster_slots() {
 
 // the launches of ce_bwd_cluster_kernel (dh and dW/db) in this process
 extern "C" int vct_fused_ce_bwd_cluster_launches() { return cluster_launches; }
+
+// The forward's shape rule (ops/fused_ce.py: fwd_cluster), of the flash
+// schedule (write_lg 0) or of the written-logits one (1): the CTAs of a
+// cluster of ce_fwd_kernel at width H, 0 where its blocks run alone
+extern "C" int vct_fused_ce_fwd_cluster(int H, int write_lg) {
+  return ce_width(H) ? fwd_cluster(H, write_lg != 0) : 0;
+}
+
+// the clusters of the flash forward's instance at H = 1024 the current
+// device holds at once (0: none fits), or -cudaError_t
+extern "C" int vct_fused_ce_fwd_cluster_slots() {
+  const int smem = fwd_smem(1024, false);
+  const int err = allow_smem(ce_fwd_kernel<16, 1, true, false, FWD_CLUSTER>, smem);
+  if (err) return -err;
+  cudaLaunchAttribute attr[1];
+  return fwd_held_clusters<16, 1, true, false, FWD_CLUSTER>(
+      fwd_cluster_config<FWD_CLUSTER>(attr, dim3(FWD_CLUSTER, 1), smem, nullptr));
+}
+
+// the launches of the flash forward's cluster instances in this process
+extern "C" int vct_fused_ce_fwd_cluster_launches() { return fwd_cluster_launches; }

@@ -320,6 +320,10 @@ extern "C" int vct_fused_ce_mat_fwd(const void* h, const void* w, const void* b,
                             chunk_tiles, static_cast<cudaStream_t>(stream));
 }
 
+// the launches of the written-logits forward's cluster instances in this
+// process
+extern "C" int vct_fused_ce_mat_fwd_cluster_launches() { return fwd_cluster_launches; }
+
 // lg [M, Vp] bf16, w16 [V, H] bf16, labels [M] int32, lse, gw [M] f32 -> dh
 // [ceil(M / 64) * 64, H] f32 (the rows past M come out zero)
 extern "C" int vct_fused_ce_mat_dh(const void* lg, const void* w,

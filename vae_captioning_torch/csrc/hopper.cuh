@@ -9,8 +9,9 @@
 // mbarriers, TMA loads (and stores) of boxes of up to 256 rows x 128 bytes
 // (64 bf16 or 128 int8 columns) with the 128-byte swizzle, shared-memory
 // matrix descriptors for that swizzle, the m64nNk16 bf16 and m64nNk32 s8 wgmma wrappers, the
-// cluster primitives of the flash CE backward at H = 1024 (rank, mapa,
-// remote arrive, st.async, barrier.cluster), and the
+// cluster primitives of the flash CE backward at H = 1024 and of the CE
+// forward's clusters past 512 (rank, mapa, remote arrive, st.async,
+// barrier.cluster, multicast TMA loads), and the
 // host-side tensor-map encoder (cuTensorMapEncodeTiled reached through
 // cudaGetDriverEntryPoint, so nothing links libcuda).
 
@@ -440,6 +441,30 @@ __device__ __forceinline__ void cluster_wait() {
 __device__ __forceinline__ void mbar_arrive_remote(uint32_t bar) {
   asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n"
                :: "r"(bar) : "memory");
+}
+
+// arrive on a barrier of another CTA of the cluster (or of this one, by
+// its shared::cluster address) with release at CTA scope, no fence of this
+// thread's memory operations: what a consumer of a multicast TMA ring
+// needs to say that its wgmmas, retired, are done reading a stage (with
+// mbar_arrive_remote's cluster-scope release once a box, the CE forward's
+// clusters ran 4x slower: kernel_designs.py ce_fwd)
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+// one box of a 2-D tensor map into the same shared-memory offset `dst` of
+// every CTA of the cluster whose rank bit is set in `mask`; in each of them
+// the bytes complete on the barrier at `bar`'s offset
+__device__ __forceinline__ void tma_load_multicast(void* dst, const CUtensorMap* map,
+                                                   uint64_t* bar, int x, int y,
+                                                   uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_addr(bar)), "r"(x), "r"(y), "h"(mask)
+      : "memory");
 }
 
 // 16 bytes into the shared memory of another CTA of the cluster (`dst` and

@@ -19,7 +19,11 @@
 // * RG, the block's 64-row groups of A.  RG = 2: 128 rows, warpgroup g
 //   owns rows 64g.. and all 128 columns of every tile (m64n128, 64
 //   accumulators a thread).  RG = 1: 64 rows, warpgroup g owns columns
-//   64g.. of every tile (m64n64, 32 accumulators).
+//   64g.. of every tile (m64n64, 32 accumulators), or, with ALTERNATE,
+//   all 128 columns of every other tile (tiles g, g + 2, ..; m64n128), so
+//   that one warpgroup's products run while the other folds its tile.  A
+//   warpgroup still waits for and releases every box of the other's
+//   tiles (skip), so that its phases of each stage stay in step.
 // * RES: A resident, loaded once per block, or streamed beside each B box
 //   in the same stage (for K too wide to keep).
 // * The ring: one full mbarrier per stage, at most 8 stages, as many as
@@ -32,6 +36,18 @@
 //   templated on K; the decode kernels at their main width) or 0 for a
 //   runtime count (the decode kernels at any other multiple of 32); the
 //   layout is the same function of it either way (ring_layout).
+// * CLUSTER (the CE forward's 64-row blocks past H = 512; 1 elsewhere, and
+//   then none of what follows is compiled): a cluster of CLUSTER CTAs
+//   along M, each with its own rows of A resident, that share every B box.
+//   Each CTA loads 128 / CLUSTER rows of the box by one TMA multicast into
+//   the same stage of every CTA of the cluster, and its full barrier
+//   expects the whole box, so each B byte is read from L2 once per
+//   CLUSTER blocks.  A stage may be refilled only once the cluster's
+//   2·CLUSTER consumer warpgroups have all released it: each warpgroup's
+//   leader arrives on the stage's empty barrier in every CTA of the
+//   cluster (a remote arrive; none for a box no refill waits for), and a
+//   producer warp beside the consumers (produce) waits on its own CTA's
+//   empty barrier before it loads.  No consumer waits to refill.
 //
 // Also the fold helpers both callers share: ex2, and the logit of a vocab
 // column past V (its bias), whose exp is exactly 0.
@@ -101,30 +117,40 @@ struct RingLayout {
 
 // 1 KB to align to the swizzle's 1024-byte period; A, the ring, the
 // caller's extra bytes, the full barriers, the release counters (padded to
-// 8 bytes) and A's barrier
+// 8 bytes), A's barrier and, in a cluster, the empty barriers
 __host__ __device__ constexpr RingLayout ring_layout(int boxes, int rg, bool res,
-                                                     int extra) {
+                                                     int extra, int cluster = 1) {
   const int q = res ? rg * boxes * BOX_BYTES : 0;
   const int stage = RING_B_BYTES + (res ? 0 : rg * BOX_BYTES);
   const int room = (SMEM_MAX - 1024 - q - extra - 256) / stage;
   const int stages = room < 8 ? room : 8;
   return RingLayout{q, stage, stages,
-                    1024 + q + stage * stages + extra + stages * 12 + 16};
+                    1024 + q + stage * stages + extra + stages * 12 + 16 +
+                        (cluster > 1 ? stages * 8 : 0)};
 }
 
-template <class Op, int RG, bool RES, int BOXES = 0, int EXTRA = 0>
+template <class Op, int RG, bool RES, int BOXES = 0, int EXTRA = 0, int CLUSTER = 1,
+          bool ALTERNATE = false>
 struct RowRing {
   static_assert(RG == 1 || RG == 2, "RG: one or two 64-row groups");
-  static constexpr int N = RG == 2 ? RING_TV : RING_TV / 2;  // a warpgroup's columns
+  static_assert(CLUSTER == 1 || (RES && CLUSTER == 2), "a cluster of 2 CTAs, A resident");
+  static_assert(!ALTERNATE || RG == 1, "alternate tiles: the warpgroups of 64 rows");
+  // a warpgroup's columns of a tile
+  static constexpr int N = RG == 2 || ALTERNATE ? RING_TV : RING_TV / 2;
   // the layout of a compile-time box count (scalars: device code reads them)
-  static constexpr int FIXED_STAGES = ring_layout(BOXES > 0 ? BOXES : 1, RG, RES, EXTRA).stages;
+  static constexpr int FIXED_STAGES =
+      ring_layout(BOXES > 0 ? BOXES : 1, RG, RES, EXTRA, CLUSTER).stages;
   static constexpr int FIXED_STAGE_BYTES =
-      ring_layout(BOXES > 0 ? BOXES : 1, RG, RES, EXTRA).stage_bytes;
-  static constexpr int SMEM = ring_layout(BOXES > 0 ? BOXES : 1, RG, RES, EXTRA).smem;
+      ring_layout(BOXES > 0 ? BOXES : 1, RG, RES, EXTRA, CLUSTER).stage_bytes;
+  static constexpr int SMEM = ring_layout(BOXES > 0 ? BOXES : 1, RG, RES, EXTRA, CLUSTER).smem;
+  // in a cluster: the rows of a B box each CTA loads, and its offset's step
+  static constexpr int PART_ROWS = RING_TV / CLUSTER;
+  static constexpr int PART_BYTES = RING_B_BYTES / CLUSTER;
   // A resident at a compile-time box count: the low words of this
   // warpgroup's BOXES·4 k-step A descriptors are made once a block and
-  // pinned in registers (the high word is the same in all of them)
-  static constexpr bool PIN_A = RES && BOXES > 0;
+  // pinned in registers (the high word is the same in all of them); not
+  // beside ALTERNATE's 64 accumulators, where they spill
+  static constexpr bool PIN_A = RES && BOXES > 0 && !ALTERNATE;
   using Acc = typename Op::Acc;
 
   unsigned char* q_s;
@@ -133,6 +159,9 @@ struct RowRing {
   uint64_t* full;
   uint32_t* released;
   uint64_t* q_bar;
+  uint64_t* empty;             // CLUSTER > 1: a stage's releases in the cluster
+  uint32_t empty_at[CLUSTER];  // CLUSTER > 1: empty[0] in each CTA (shared::cluster)
+  uint32_t rank;               // CLUSTER > 1: this CTA's rank in its cluster
   const CUtensorMap* a_map;
   const CUtensorMap* b_map;
   int boxes_, stages_, stage_bytes_;
@@ -158,7 +187,7 @@ struct RowRing {
   __device__ RowRing(unsigned char* smem, int boxes, const CUtensorMap* a,
                      const CUtensorMap* b, int m0_, int t0_, int n_tiles)
       : a_map(a), b_map(b), boxes_(boxes), m0(m0_), t0(t0_) {
-    const RingLayout L = ring_layout(BOXES > 0 ? BOXES : boxes, RG, RES, EXTRA);
+    const RingLayout L = ring_layout(BOXES > 0 ? BOXES : boxes, RG, RES, EXTRA, CLUSTER);
     stages_ = L.stages;
     stage_bytes_ = L.stage_bytes;
     q_s = smem + ((1024 - (smem_addr(smem) & 1023)) & 1023);
@@ -167,11 +196,17 @@ struct RowRing {
     full = reinterpret_cast<uint64_t*>(extra + EXTRA);
     released = reinterpret_cast<uint32_t*>(full + L.stages);
     q_bar = reinterpret_cast<uint64_t*>(released + L.stages + (L.stages & 1));
+    empty = q_bar + 1;
+    if constexpr (CLUSTER > 1) {
+      rank = cluster_ctarank();
+#pragma unroll
+      for (int r = 0; r < CLUSTER; ++r) empty_at[r] = cluster_map(smem_addr(empty), r);
+    }
     total = n_tiles * boxes;
     const int g = RG == 2 ? threadIdx.x / 128 : 0;   // this warpgroup's row group
     a_desc = sw128_desc(RES ? smem_addr(q_s) + g * boxes * BOX_BYTES
                             : smem_addr(ring) + RING_B_BYTES + g * BOX_BYTES, 16);
-    b_desc = sw128_desc(smem_addr(ring) + (RG == 1 ? threadIdx.x / 128 : 0) * BOX_BYTES, 16);
+    b_desc = sw128_desc(smem_addr(ring) + (RG == 1 && !ALTERNATE ? threadIdx.x / 128 : 0) * BOX_BYTES, 16);
     if constexpr (PIN_A) {
 #pragma unroll
       for (int x = 0; x < BOXES * 4; ++x) {
@@ -182,13 +217,20 @@ struct RowRing {
   }
 
   // box j of the stream (tile t0 + j / boxes, bytes 128·(j % boxes)) into
-  // stage j % stages, with A's boxes of those bytes when A is streamed
+  // stage j % stages, with A's boxes of those bytes when A is streamed; in
+  // a cluster this CTA's PART_ROWS rows of it into every CTA's stage, the
+  // barrier expecting the whole box
   __device__ __forceinline__ void load(int j) const {
     const int s = j % stages();
     const int x = (j % boxes()) * Op::BOX_X;
     unsigned char* st = ring + s * stage_bytes();
     mbar_expect_tx(&full[s], stage_bytes());
-    tma_load(st, b_map, &full[s], x, (t0 + j / boxes()) * RING_TV);
+    if constexpr (CLUSTER > 1)
+      tma_load_multicast(st + rank * PART_BYTES, b_map, &full[s], x,
+                         (t0 + j / boxes()) * RING_TV + rank * PART_ROWS,
+                         static_cast<uint16_t>((1u << CLUSTER) - 1));
+    else
+      tma_load(st, b_map, &full[s], x, (t0 + j / boxes()) * RING_TV);
     if constexpr (!RES) {
 #pragma unroll
       for (int g = 0; g < RG; ++g)
@@ -197,47 +239,88 @@ struct RowRing {
   }
 
   // this warpgroup's products of box j retired: the later of the two
-  // leaders refills its stage `stages` boxes ahead
+  // leaders refills its stage `stages` boxes ahead; in a cluster the
+  // leader arrives on the stage's empty barrier in every CTA instead
   __device__ __forceinline__ void release(int j) const {
     if (threadIdx.x % 128 != 0) return;
-    const int s = j % stages();
-    __threadfence_block();
-    const bool later = atomicAdd(&released[s], 1u) & 1u;
-    __threadfence_block();
-    if (later && j + stages() < total) load(j + stages());
+    if constexpr (CLUSTER > 1) {
+      if (j + stages() >= total) return;   // no refill waits for it
+      const uint32_t off = (j % stages()) * sizeof(uint64_t);
+#pragma unroll
+      for (int r = 0; r < CLUSTER; ++r) mbar_arrive_cluster(empty_at[r] + off);
+    } else {
+      const int s = j % stages();
+      __threadfence_block();
+      const bool later = atomicAdd(&released[s], 1u) & 1u;
+      __threadfence_block();
+      if (later && j + stages() < total) load(j + stages());
+    }
   }
 
-  // barriers, then A's rows (resident) and the first `stages` boxes
+  // A's rows (resident): row group g's boxes at g·boxes..
+  __device__ __forceinline__ void load_rows() const {
+    mbar_expect_tx(q_bar, RG * boxes() * BOX_BYTES);
+#pragma unroll
+    for (int g = 0; g < RG; ++g) {
+      if constexpr (BOXES > 0) {
+#pragma unroll
+        for (int c = 0; c < BOXES; ++c)
+          tma_load(q_s + (g * BOXES + c) * BOX_BYTES, a_map, q_bar, c * Op::BOX_X,
+                   m0 + g * BT);
+      } else {
+        for (int c = 0; c < boxes_; ++c)
+          tma_load(q_s + (g * boxes_ + c) * BOX_BYTES, a_map, q_bar, c * Op::BOX_X,
+                   m0 + g * BT);
+      }
+    }
+  }
+
+  // barriers, then A's rows (resident) and the first `stages` boxes; in a
+  // cluster the barriers of every CTA are set up before any CTA goes on,
+  // and the producer warp loads (produce)
   __device__ void start() const {
     const int tid = threadIdx.x;
     if (tid == 0) {
       for (int s = 0; s < stages(); ++s) {
         mbar_init(&full[s], 1);
         released[s] = 0;
+        if constexpr (CLUSTER > 1) mbar_init(&empty[s], 2 * CLUSTER);
       }
       mbar_init(q_bar, 1);
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
+    if constexpr (CLUSTER > 1) {
+      cluster_arrive();
+      cluster_wait();
+      return;
+    }
     __syncthreads();
     if (tid == 0) {
-      if constexpr (RES) {
-        // row group g's boxes at g·boxes..
-        mbar_expect_tx(q_bar, RG * boxes() * BOX_BYTES);
-#pragma unroll
-        for (int g = 0; g < RG; ++g) {
-          if constexpr (BOXES > 0) {
-#pragma unroll
-            for (int c = 0; c < BOXES; ++c)
-              tma_load(q_s + (g * BOXES + c) * BOX_BYTES, a_map, q_bar, c * Op::BOX_X,
-                       m0 + g * BT);
-          } else {
-            for (int c = 0; c < boxes_; ++c)
-              tma_load(q_s + (g * boxes_ + c) * BOX_BYTES, a_map, q_bar, c * Op::BOX_X,
-                       m0 + g * BT);
-          }
-        }
-      }
+      if constexpr (RES) load_rows();
       for (int j = 0; j < min(stages(), total); ++j) load(j);
+    }
+  }
+
+  // CLUSTER > 1, one thread of the producer warp: A's rows, then every box
+  // of the stream, a refill once the cluster's warpgroups all released the
+  // stage's previous box
+  __device__ void produce() const {
+    static_assert(CLUSTER > 1, "the producer of a cluster");
+    load_rows();
+    for (int j = 0; j < total; ++j) {
+      const int s = j % stages();
+      if (j >= stages()) mbar_wait(&empty[s], (j / stages() - 1) & 1);
+      load(j);
+    }
+  }
+
+  // ALTERNATE: tile i is the other warpgroup's; wait for each of its
+  // boxes and release it
+  __device__ __forceinline__ void skip(int i) const {
+    for (int c = 0; c < boxes(); ++c) {
+      const int j = i * boxes() + c;
+      mbar_wait(&full[j % stages()], (j / stages()) & 1);
+      release(j);
     }
   }
 

@@ -32,13 +32,14 @@ carries the same VJP; on CUDA tensors it launches its kernels or raises.
 The kernels take H in ``KERNEL_H`` (64, 128, 256, 512: built with the
 width at compile time) and, past 512, every multiple of 64 up to
 ``CE_H_MAX`` (4096): the forward on 64-row blocks, resident or streamed
-(:func:`fwd_block`), both backwards on output column tiles
-(:func:`col_tiles`), except the flash backward at 1024, whose two column
-halves are the two CTAs of a cluster (:func:`bwd_cluster`).  The
-wrappers zero-pad h's and W's columns up to the width :func:`ce_width`
-gives (the next of ``KERNEL_H`` below 512, the next multiple of 64 past
-it: 520 -> 576, 1000 -> 1024; :func:`pad_ce`; exact, the added terms
-are 0·0) and autograd slices dh and dW back.  Past ``CE_H_MAX`` they raise.
+(:func:`fwd_block`), the resident ones as clusters of two CTAs along M
+that share each W box by TMA multicast (:func:`fwd_cluster`), both
+backwards on output column tiles (:func:`col_tiles`), except the flash
+backward at 1024, whose two column halves are the two CTAs of a cluster
+(:func:`bwd_cluster`).  The wrappers zero-pad h's and W's columns up to
+the width :func:`ce_width` gives (the next of ``KERNEL_H`` below 512, the
+next multiple of 64 past it: 520 -> 576, 1000 -> 1024; :func:`pad_ce`;
+exact, the added terms are 0·0) and autograd slices dh and dW back.  Past ``CE_H_MAX`` they raise.
 """
 
 from __future__ import annotations
@@ -70,6 +71,11 @@ _PITCH_COLS = 64    # the written logits' row pitch is a multiple of this
 # bytes its per-chunk (m, s, ll) partials may take
 _FWD_TILE_V = 128
 _FWD_WORKSPACE = 16 << 20
+# the forward's clusters past 512 (csrc/fused_ce.cuh, FWD_CLUSTER): the
+# CTAs of a cluster along M, and the widest width that runs them (the
+# widest whose 64 rows stay resident: fwd_block), flash and written logits
+FWD_CLUSTER = 2
+_FWD_CLUSTER_H = {False: 1280, True: 1152}
 # the backward kernels' output column tiles past 512 (col_tiles)
 _COL_TILES = (512, 256, 128, 64)
 # the flash backward's cluster kernel (csrc/fused_ce.cu, ce_bwd_cluster_kernel):
@@ -253,6 +259,7 @@ class FwdPlan(NamedTuple):
     chunk_tiles: int
     part: Tuple[int, int, int]          # [partials, M, 3] f32
     rows: int                           # 128 or 64
+    cluster: int = 0                    # the CTAs of a cluster along M (fwd_cluster)
 
 
 def _sms(dev) -> int:
@@ -271,37 +278,68 @@ def fwd_block(H: int, written_logits: bool = False) -> Tuple[int, bool]:
     return code // 2, bool(code % 2)
 
 
+def fwd_cluster(H: int, written_logits: bool = False) -> int:
+    """The forward's shape rule past 512: the CTAs of a cluster of
+    ``ce_fwd_kernel`` at width H (a width the kernels take), 0 where its
+    blocks run alone.  Where a 64-row block keeps its rows resident (H <=
+    1280, written logits 1152: :func:`fwd_block`), ``FWD_CLUSTER`` (2)
+    adjacent blocks of one vocab chunk share every W box: each loads half
+    of it by TMA multicast into both, so W is read from L2 once per 128
+    rows (5.65 GB a launch at H = 1024 and the train shapes, against 11.3
+    alone).  The fixed widths' 128-row blocks and the streamed 64-row ones
+    run alone.  ``csrc/fused_ce.cuh`` applies the same rule
+    (``fwd_cluster``, exported as ``vct_fused_ce_fwd_cluster``)."""
+    clustered = KERNEL_H[-1] < H <= _FWD_CLUSTER_H[written_logits]
+    return FWD_CLUSTER if clustered and kernel_width(H) else 0
+
+
 @functools.lru_cache(maxsize=None)
-def ce_fwd_plan(M: int, V: int, sms: int = _BWD_SMS, rows: int = 128) -> FwdPlan:
-    """The forward's vocab chunks for blocks of ``rows`` (128 or 64) rows:
-    the count that takes the fewest tile slots per SM, waves x (tiles a
-    block + half a tile for its h load and epilogue), among the counts
-    whose partials fit in ``_FWD_WORKSPACE`` bytes (the fewest on a tie);
-    no chunk is empty.  At the train shapes (M = 30720, V = 11500) on
-    128-row blocks: 6 chunks of 15 of the 90 tiles, 1,440 blocks in 99%
-    of 11 waves of 132 SMs (one chunk: 240 blocks in 91% of 2)."""
+def ce_fwd_plan(M: int, V: int, sms: int = _BWD_SMS, rows: int = 128,
+                cluster: int = 0) -> FwdPlan:
+    """The forward's vocab chunks for blocks of ``rows`` (128 or 64) rows,
+    in clusters of ``cluster`` CTAs along M (0: none; :func:`fwd_cluster`),
+    the row blocks rounded up to whole clusters: the count that takes the
+    fewest tile slots per SM, waves x (tiles a block + half a tile for
+    its h load and epilogue), the waves counted in the ``sms // cluster``
+    clusters the card holds, among the counts whose partials fit in
+    ``_FWD_WORKSPACE`` bytes (the fewest on a tie); no chunk is empty.  At
+    the train shapes (M = 30720, V = 11500) on 128-row blocks: 6 chunks of
+    15 of the 90 tiles, 1,440 blocks in 99% of 11 waves of 132 SMs (one
+    chunk: 240 blocks in 91% of 2); on 64-row blocks, alone or in
+    clusters of 2, 3 chunks of 30."""
     _ext.require(rows in (64, 128), f"ce_fwd_plan: rows={rows} is not 64 or 128")
+    _ext.require(cluster in (0, FWD_CLUSTER),
+                 f"ce_fwd_plan: cluster={cluster} is not 0 or {FWD_CLUSTER}")
+    ctas = max(cluster, 1)
     per_chunk = 128 // rows             # partials a chunk
-    m_tiles, v_tiles = _cdiv(M, rows), _cdiv(V, _FWD_TILE_V)
+    m_tiles = round_up(_cdiv(M, rows), ctas)
+    v_tiles = _cdiv(V, _FWD_TILE_V)
     most = max(1, min(v_tiles, _FWD_WORKSPACE // (M * 12 * per_chunk)))
     best = None
     for chunks in range(1, most + 1):
         per = _cdiv(v_tiles, chunks)
         if _cdiv(v_tiles, per) != chunks:
             continue                    # the same split as fewer chunks
-        cost = _cdiv(m_tiles * chunks, sms) * (2 * per + 1)
+        cost = _cdiv(m_tiles // ctas * chunks, sms // ctas) * (2 * per + 1)
         if best is None or cost < best[0]:
             best = (cost, chunks, per)
     _, chunks, per = best
     return FwdPlan(grid=(m_tiles, chunks), v_tiles=v_tiles, chunk_tiles=per,
-                   part=(chunks * per_chunk, M, 3), rows=rows)
+                   part=(chunks * per_chunk, M, 3), rows=rows, cluster=cluster)
+
+
+def fwd_plan(M: int, H: int, V: int, dev, written_logits: bool = False) -> FwdPlan:
+    """The forward's launch at width H on device ``dev``: its block
+    (:func:`fwd_block`), cluster (:func:`fwd_cluster`) and chunks."""
+    return ce_fwd_plan(M, V, _sms(dev), fwd_block(H, written_logits)[0],
+                       fwd_cluster(H, written_logits))
 
 
 def fused_ce_fwd_kernel(h16, w16, b, lab) -> Pair:
     """The forward kernel on prepared operands → (lse, ll) [M] f32."""
     M, H, V = _check(h16, w16, b, lab)
     dev = h16.device
-    plan = ce_fwd_plan(M, V, _sms(dev), fwd_block(H)[0])
+    plan = fwd_plan(M, H, V, dev)
     part = torch.empty(plan.part, dtype=torch.float32, device=dev)
     out = torch.empty((2, M), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -309,7 +347,7 @@ def fused_ce_fwd_kernel(h16, w16, b, lab) -> Pair:
             h16.data_ptr(), w16.data_ptr(), b.data_ptr(), lab.data_ptr(),
             part.data_ptr(), out[0].data_ptr(), out[1].data_ptr(), M, H, V,
             plan.chunk_tiles, _ext.stream_ptr(dev))
-    _ext.check_launch(err, FWD)
+    _check_fwd(err, FWD, H)
     _ext.LAUNCHES[FWD] += 1
     return out[0], out[1]
 
@@ -324,9 +362,10 @@ def _row_args(lse, gw, M, dev):
 
 
 class ClusterError(RuntimeError):
-    """The card cannot place a cluster of the flash CE backward at H =
-    1024 (two CTAs of 225 KB of shared memory each on neighbouring SMs).
-    Raised; no other kernel stands in."""
+    """The card cannot place a cluster of a CE kernel at one block an SM:
+    the flash backward's at H = 1024 (two CTAs of 225 KB of shared memory
+    each on neighbouring SMs) or the forward's past 512
+    (:func:`fwd_cluster`).  Raised; no other kernel stands in."""
 
 
 class BwdPlan(NamedTuple):
@@ -437,13 +476,22 @@ def ce_bwd_plan(M: int, H: int, V: int, sms: int = _BWD_SMS) -> BwdPlan:
                    cluster=cluster)
 
 
-def _check_bwd(err: int, name: str) -> None:
+def _check_cluster(err: int, name: str, ctas: int, what: str) -> None:
+    """Raise ClusterError where a cluster launch found no place for a
+    cluster of ``ctas`` CTAs of ``what``, as any launch on another error."""
     if err == _ERR_CLUSTER:
-        raise ClusterError(
-            f"{name}: the card holds no cluster of {bwd_cluster(BWD_CLUSTER_H)} CTAs "
-            f"of the backward at H = {BWD_CLUSTER_H} (cudaOccupancyMaxActiveClusters "
-            "is 0)")
+        raise ClusterError(f"{name}: the card holds no cluster of {ctas} CTAs of {what} "
+                           "(cudaOccupancyMaxActiveClusters is 0)")
     _ext.check_launch(err, name)
+
+
+def _check_bwd(err: int, name: str) -> None:
+    _check_cluster(err, name, bwd_cluster(BWD_CLUSTER_H),
+                   f"the backward at H = {BWD_CLUSTER_H}")
+
+
+def _check_fwd(err: int, name: str, H: int, written_logits: bool = False) -> None:
+    _check_cluster(err, name, fwd_cluster(H, written_logits), f"the forward at H = {H}")
 
 
 def fused_ce_dh_kernel(h16, w16, b, lab, lse, gw) -> torch.Tensor:
@@ -648,7 +696,7 @@ def ce_mat_fwd_kernel(h16, w16, b, lab) -> Tuple[torch.Tensor, ...]:
     Vp] bf16, lse, ll [M] f32)."""
     M, H, V = _check(h16, w16, b, lab)
     dev = h16.device
-    plan = ce_fwd_plan(M, V, _sms(dev), fwd_block(H, written_logits=True)[0])
+    plan = fwd_plan(M, H, V, dev, written_logits=True)
     part = torch.empty(plan.part, dtype=torch.float32, device=dev)
     lg = torch.empty((M, logits_pitch(V)), dtype=torch.bfloat16, device=dev)
     out = torch.empty((2, M), dtype=torch.float32, device=dev)
@@ -657,7 +705,7 @@ def ce_mat_fwd_kernel(h16, w16, b, lab) -> Tuple[torch.Tensor, ...]:
             h16.data_ptr(), w16.data_ptr(), b.data_ptr(), lab.data_ptr(),
             part.data_ptr(), lg.data_ptr(), out[0].data_ptr(),
             out[1].data_ptr(), M, H, V, plan.chunk_tiles, _ext.stream_ptr(dev))
-    _ext.check_launch(err, FWD_MAT)
+    _check_fwd(err, FWD_MAT, H, written_logits=True)
     _ext.LAUNCHES[FWD_MAT] += 1
     return lg, out[0], out[1]
 
