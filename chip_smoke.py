@@ -11,7 +11,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    decode step and of the sequence forward, the sequence backward's
    steps, dx and dW, the fused z forward, dmu/dsigma and dW, the decode's
    logits top-k, int8 top-k and sampler at every block shape and list
-   length), and any ptxas warning that one serialises its wgmmas;
+   length, and its logits writer past lists of 16 at every block shape),
+   and any ptxas warning that one serialises its wgmmas;
 3. kernels: each kernel against its plain PyTorch version on the card,
    at the main paths' shapes and ragged ones: the decode kernels (plus a
    deliberate tie; the LSTM step also at one row, one row past a tile,
@@ -369,11 +370,15 @@ def kernel_events(fn, reps: int, cats=("kernel",)) -> list:
     """The device events (name, start us, duration us) of the categories
     ``cats`` of the Chrome trace ("kernel", "gpu_memcpy", "gpu_memset")
     in a torch.profiler trace (CUDA activities) of ``reps`` calls of fn(),
-    after one warm-up call; up to PROFILER_TRIES traces, since the profiler
-    now and then hands back none.  [] when every trace came back empty."""
+    after one warm-up call.  Only a whole trace is taken (``partial_trace``:
+    every kernel name a nonzero multiple of ``reps`` times; copies and
+    memsets are not held to it), since the profiler now and then hands back
+    none or loses some of the events; up to PROFILER_TRIES traces.  [] when
+    none was whole, the last one's flaw said on a line of its own."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    flaw = None
     for _ in range(PROFILER_TRIES):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -383,10 +388,12 @@ def kernel_events(fn, reps: int, cats=("kernel",)) -> list:
             path = os.path.join(tmp, "trace.json")
             prof.export_chrome_trace(path)
             with open(path) as f:
-                events = [(e["name"], e["ts"], e["dur"]) for e in json.load(f)["traceEvents"]
-                          if e.get("cat") in cats]
-        if sum(dur for _, _, dur in events) > 0:
-            return events
+                traced = [e for e in json.load(f)["traceEvents"] if e.get("cat") in cats]
+        flaw = trace_report.partial_trace(
+            [(e["name"],) for e in traced if e["cat"] == "kernel"], reps)
+        if flaw is None:
+            return [(e["name"], e["ts"], e["dur"]) for e in traced]
+    print(f"device time: no whole trace in {PROFILER_TRIES}; the last: {flaw}")
     return []
 
 
@@ -416,10 +423,10 @@ def queued_ms(fn, reps: int = 10) -> float:
 
 def queued_fallback(fn, reps: int) -> float:
     """:func:`queued_ms`, said on a line of its own: the device time where
-    the profiler recorded nothing."""
+    the profiler gave no whole trace."""
     ms = queued_ms(fn, reps)
-    print(f"device time: the profiler recorded no kernel in {PROFILER_TRIES} "
-          f"traces; {ms:.4f} ms a call from queued CUDA events instead")
+    print(f"device time: no whole profiler trace in {PROFILER_TRIES} tries; "
+          f"{ms:.4f} ms a call from queued CUDA events instead")
     return ms
 
 
@@ -427,7 +434,7 @@ def device_ms(fn, reps: int = 10) -> dict:
     """Device time per call of each kernel, copy and memset that fn()
     launches, by name (from a torch.profiler trace of ``reps`` calls after
     one warm-up call): what the card spent, without the host's gaps
-    between calls.  Where the profiler records nothing, {QUEUED:
+    between calls.  Where the profiler gives no whole trace, {QUEUED:
     :func:`queued_fallback`}."""
     events = kernel_events(fn, reps, ("kernel", "gpu_memcpy", "gpu_memset"))
     if not events:
@@ -455,7 +462,7 @@ def device_spans(fn, group, reps: int = 5) -> dict:
     overlap, so their durations do not add up): {"total": the calls'
     union, part: the union of the intervals of the kernels that
     ``group(name)`` puts in that part}; {"total": :func:`queued_fallback`}
-    where the profiler records nothing."""
+    where the profiler gives no whole trace."""
     events = kernel_events(fn, reps)
     if not events:
         return {"total": queued_fallback(fn, reps)}
@@ -949,11 +956,10 @@ def int8_library_call(hq, hs, wq, ws, b, k):
     (cuBLAS int8; its output width padded to a multiple of 8, as it
     requires), the same dequantisation, ``torch.topk`` and
     ``torch.logsumexp``."""
-    V = wq.shape[1]
-    wq_pad = torch.nn.functional.pad(wq, (0, (-V) % 8)).contiguous()
+    logits_of = int8_logits_library_call(hq, hs, wq, ws, b)
 
     def call():
-        logits = torch._int_mm(hq, wq_pad)[:, :V].float() * hs * ws + b
+        logits = logits_of()
         return torch.topk(logits, k, dim=1), torch.logsumexp(logits, dim=1)
 
     return call
@@ -967,9 +973,10 @@ def phase_mode_kernel_times(label: str) -> dict:
     quantisation of h, plain PyTorch ops, is timed beside them); the
     sampler at the greedy
     batch (M = 512); top-k + lse at beam 3 and beam 10 (N = 1536, 5120)
-    and past lists of 16, beam 20 and 32 of 512 images (N = 10240, 16384).
-    Bounds: int8 operations over the int8 peak, bf16 ones over the bf16
-    peak, the logits' bytes over the memory rate."""
+    and past lists of 16, beam 20 and 32 of 512 images (N = 10240, 16384),
+    and past 64 (the sort kernel) at WIDE_LSE_SHAPES' (300, 11519, 65) and
+    (300, 11519, 256).  Bounds: int8 operations over the int8 peak, bf16
+    ones over the bf16 peak, the logits' bytes over the memory rate."""
     times = {}
     H = 512
     for M, k in ((1536, 3), (5120, 10), (512, 1)):
@@ -1009,14 +1016,15 @@ def phase_mode_kernel_times(label: str) -> dict:
           f"torch.multinomial(softmax(logits / T))) {lib:.4f} ms, bound "
           f"{bnd[0]:.4f} ms ({bnd[1]}); device: kernel {dev[0]:.4f} ms, "
           f"library {dev[1]:.4f} ms; host per call {host:.1f} us [{label}]")
-    for N, k in ((1536, 3), (5120, 10), (10240, 20), (16384, 32)):
-        x = unfused_logits(N, 11500, seed=N)
+    for N, V, k in ((1536, 11500, 3), (5120, 11500, 10), (10240, 11500, 20),
+                    (16384, 11500, 32), (300, 11519, 65), (300, 11519, 256)):
+        x = unfused_logits(N, V, seed=N)
         t, lib, dev, host = logits_yardstick(
             lambda: top_k_logsumexp(x, k), lambda: top_k_logsumexp_plain(x, k),
             lambda: (torch.topk(x, k, dim=1), torch.logsumexp(x, dim=1)))
         bnd = bound(0.0, nbytes(x, *top_k_logsumexp(x, k)))
         times.setdefault("top_k_logsumexp", timing(t, bnd, lib))
-        print(f"time top_k_logsumexp N={N} V=11500 k={k}: kernel {t[0]:.4f} "
+        print(f"time top_k_logsumexp N={N} V={V} k={k}: kernel {t[0]:.4f} "
               f"ms, plain {t[1]:.4f} ms, library (torch.topk + "
               f"torch.logsumexp, in turns) {lib:.4f} ms, bound {bnd[0]:.4f} ms "
               f"({bnd[1]}); device: kernel {dev[0]:.4f} ms (share "
@@ -3278,11 +3286,13 @@ WIDE_SEEDS = (4,)
 WIDE_LSE_SHAPES = ((10240, 11500, 20), (16384, 11519, 32), (1536, 11500, 17),
                    (65, 11519, 40), (13, 1000, 64), (300, 11519, 65),
                    (300, 11519, 256), (7, 20000, 300))
-# the logits writers at the wide beams' rows (512 images x 20 and x 40) and
+# the logits writers at the wide beams' rows (512 images x 20 and x 40),
+# also at the ragged vocabulary (V % 4 != 0: rows padded to 16 bytes), and
 # at their other block shapes: 64 rows resident (H = 1024), streamed (bf16
 # H = 2048, int8 2624), H = 96, a vocabulary of two tiles: (M, V, H, int8)
 WRITE_SHAPES = ((10240, 11500, 512, False), (20480, 11500, 512, False),
-                (10240, 11500, 512, True), (65, 11519, 1024, False),
+                (10240, 11500, 512, True), (10240, 11519, 512, False),
+                (10240, 11519, 512, True), (65, 11519, 1024, False),
                 (65, 11519, 2048, False), (300, 11519, 96, False),
                 (65, 11519, 2624, True), (1, 130, 512, True))
 
@@ -3349,13 +3359,31 @@ def phase_writer_kernels() -> dict:
     return errs
 
 
-def phase_wide_times(label: str) -> None:
+def writer_library_call(h, w, b):
+    """The writer's yardstick on the same inputs: one cuBLAS bf16 product
+    with f32 output plus b (``torch.addmm`` with ``out_dtype``), the
+    shortest PyTorch chain that gives f32 logits from bf16 operands."""
+    return lambda: torch.addmm(b, h, w, out_dtype=torch.float32)
+
+
+def int8_logits_library_call(hq, hs, wq, ws, b):
+    """The int8 writer's yardstick: ``torch._int_mm`` (its output width
+    padded to a multiple of 8, as it requires) and the dequantisation."""
+    V = wq.shape[1]
+    wq_pad = torch.nn.functional.pad(wq, (0, (-V) % 8)).contiguous()
+    return lambda: torch._int_mm(hq, wq_pad)[:, :V].float() * hs * ws + b
+
+
+def phase_wide_times(label: str) -> dict:
     """Beam 20 and 40 of 512 images (M = 10240, 20480) in bf16 and beam
-    20 in int8: the writer alone (events and device time, its bound), and
-    the wide top-k wrapper (writer + row 5) against its plain version and
-    the library chain (F.linear or torch._int_mm, then torch.topk +
-    torch.logsumexp)."""
+    20 in int8: the writer alone (events, and device time in turns with
+    its library yardstick, writer_library_call or int8_logits_library_call;
+    its bound), and the wide top-k wrapper (writer + row 5) against its
+    plain version and the library chain (F.linear or torch._int_mm, then
+    torch.topk + torch.logsumexp).  Returns the writer's record at each
+    shape, by kernel: {kernel: {"M=..": timing}}."""
     H, V = 512, 11500
+    writer = {}
     for M, k, int8 in ((10240, 20, False), (20480, 40, False), (10240, 20, True)):
         if int8:
             h, wq, ws, b = int8_inputs(M, V, seed=M)
@@ -3364,6 +3392,8 @@ def phase_wide_times(label: str) -> None:
             kernel = functools.partial(int8_top_k_kernel, hq, hs, wq, ws, b, k)
             plain = functools.partial(int8_top_k_plain, hq, hs, wq, ws, b, k)
             library = int8_library_call(hq, hs, wq, ws, b, k)
+            write_plain = functools.partial(int8_logits, hq, hs, wq, ws, b)
+            write_lib = int8_logits_library_call(hq, hs, wq, ws, b)
             moved, peak = nbytes(hq, hs, wq, ws, b), PEAK_INT8
         else:
             h, w, b = logits_inputs(M, V)
@@ -3372,20 +3402,30 @@ def phase_wide_times(label: str) -> None:
             kernel = functools.partial(logits_top_k_kernel, h, w_t, b, k)
             plain = functools.partial(fused_logits_top_k_plain, h, w, b, k)
             library = topk_library_call(h, w, b, k)
+            write_plain = functools.partial(bf16_logits, h, w, b)
+            write_lib = writer_library_call(h, w, b)
             moved, peak = nbytes(h, w, b), PEAK_BF16
         tag = f"{'int8' if int8 else 'bf16'} M={M} H={H} V={V}"
-        w_ms = cuda_ms(write)
-        w_dev = sum(device_ms(write).values())
+        w_t = turns(write, write_plain, cuda_ms)
+        w_lib = (cuda_ms(write_lib) + cuda_ms(write_lib)) / 2
+        d = [sum(device_ms(fn).values()) for fn in (write, write_lib, write_lib, write)]
+        w_dev, lib_dev = (d[0] + d[3]) / 2, (d[1] + d[2]) / 2
         w_bnd = bound(2.0 * M * H * V, moved + 4 * M * V, peak)
-        print(f"time logits writer {tag}: events {w_ms:.4f} ms, device "
-              f"{w_dev:.4f} ms, bound {w_bnd[0]:.4f} ms ({w_bnd[1]}; share "
-              f"{w_bnd[0] / w_dev:.3f}) [{label}]")
+        writer.setdefault("fused_logits_top_k_int8" if int8 else "fused_logits_top_k", {})[
+            f"M={M}"] = {**timing(w_t, w_bnd, w_lib), "device_ms": w_dev,
+                         "library_device_ms": lib_dev}
+        print(f"time logits writer {tag}: events {w_t[0]:.4f} ms, plain {w_t[1]:.4f} ms, "
+              f"device {w_dev:.4f} ms, bound {w_bnd[0]:.4f} ms ({w_bnd[1]}; share "
+              f"{w_bnd[0] / w_dev:.3f}); library ("
+              f"{'torch._int_mm + dequantise' if int8 else 'torch.addmm bf16, f32 out'}) "
+              f"events {w_lib:.4f} ms, device {lib_dev:.4f} ms, in turns [{label}]")
         t, lib, dev, host = logits_yardstick(kernel, plain, library)
         bnd = bound(2.0 * M * H * V, moved + nbytes(*kernel()), peak)
         print(f"time wide top-k {tag} k={k} (writer + top_k_logsumexp): kernel "
               f"{t[0]:.4f} ms, plain {t[1]:.4f} ms, library {lib:.4f} ms, fused "
               f"bound {bnd[0]:.4f} ms ({bnd[1]}); device: kernel {dev[0]:.4f} ms, "
               f"library {dev[1]:.4f} ms; host per call {host:.1f} us [{label}]")
+    return writer
 
 
 def wide_beam_launches(cfg, vocab, model, feats, c_v) -> dict:
@@ -3420,14 +3460,15 @@ def wide_beam_launches(cfg, vocab, model, feats, c_v) -> dict:
     return counts
 
 
-def phase_wide_beam(cfg, vocab, model, label: str) -> dict:
+def phase_wide_beam(cfg, vocab, model, label: str) -> tuple:
     """Beams 20 and 40 (bf16) and 20 (int8) on 512 images, 30 steps,
     through ``make_decode_fns``: the path's launch counts; beam 20 and 40
     held to the bf16 decode compare's bar (phase_decode_compare: per step,
     and best-beam captions and scores against the plain and the
     reversed-sum decodes), int8 beam 20 to the int8 mode's
-    (phase_mode_compare: per step); then ms per batch, kernel path
-    against plain path."""
+    (phase_mode_compare: per step); then the writer and the wide top-k
+    alone (phase_wide_times) and ms per batch, kernel path against plain
+    path.  Returns (the path's launches, the writer's record by kernel)."""
     batch = next(batchers(BATCH, "val", vocab, 4).eval_batches())
     launches = wide_beam_launches(
         cfg, vocab, model, torch.from_numpy(batch.features).to(DEV),
@@ -3438,12 +3479,12 @@ def phase_wide_beam(cfg, vocab, model, label: str) -> dict:
     phase_mode_compare(cfg.replace(beam_size=20), vocab, model,
                        cases=(("int8 beam 20", "decode-int8", "beam_search"),),
                        seeds=WIDE_SEEDS)
-    phase_wide_times(label)
+    writer = phase_wide_times(label)
     phase_decode_times(cfg, vocab, model, label, cases=tuple(
         (f"beam {b}", cfg.replace(beam_size=b), "beam_search") for b in WIDE_BEAMS)
         + (("int8 beam 20", cfg.replace(beam_size=20, **MODES["decode-int8"]),
             "beam_search"),))
-    return launches
+    return launches, writer
 
 
 # the single-image API: GEN_IMAGES seeded images, each with its
@@ -4583,9 +4624,15 @@ WGMMA_TEMPLATES = {
     "logits_topk_kernel": (
         lambda a: f"<{'int8' if a[0] == 'S8Logit' else 'bf16'}, {64 * a[1]} rows, h "
                   f"{'resident' if a[2] else 'streamed'}, {a[3] or 'runtime'} boxes, "
-                  f"{ {'GumbelScore': 'sampler', 'WriteLogits': 'writer'}.get(a[4], 'top-k')}, "
-                  f"K={a[5]}>",
+                  f"{'sampler' if a[4] == 'GumbelScore' else 'top-k'}, K={a[5]}>",
         lambda a: _ext.library().vct_fused_logits_top_k_smem(
+            HIDDEN, int(a[0] == "S8Logit"), 64 * a[1], int(a[2]))),
+    # the writer past lists of 16: the same product loop beside its
+    # staging slots
+    "logits_write_kernel": (
+        lambda a: f"<{'int8' if a[0] == 'S8Logit' else 'bf16'}, {64 * a[1]} rows, h "
+                  f"{'resident' if a[2] else 'streamed'}, {a[3] or 'runtime'} boxes>",
+        lambda a: _ext.library().vct_fused_logits_write_smem(
             HIDDEN, int(a[0] == "S8Logit"), 64 * a[1], int(a[2]))),
     # not a wgmma kernel: the top-k + logsumexp's lists (static shared
     # memory only), K at compile time or, past 16, at run time
@@ -4597,14 +4644,13 @@ WGMMA_TEMPLATES = {
 def template_args(mangled: str, name: str) -> list:
     """The template arguments of a mangled instance of ``name``, in order:
     ints (``Li64E``), bools (``Lb1E``) and the type names of the LSTM
-    cell's epilogues (``StepEpi``, ``SeqEpi``) and of the logits kernel's
-    policies (``Bf16Logit``, ``S8Logit``, ``RawLogit``, ``GumbelScore``,
-    ``WriteLogits``)."""
+    cell's epilogues (``StepEpi``, ``SeqEpi``) and of the logits kernels'
+    policies (``Bf16Logit``, ``S8Logit``, ``RawLogit``, ``GumbelScore``)."""
     rest = mangled[mangled.index(f"{len(name)}{name}I") + len(name) + len(str(len(name))) + 1:]
     rest = rest[:rest.find("Ev")] if "Ev" in rest else rest
     args = []
     for m in re.finditer(r"Li(\d+)E|Lb([01])E|(StepEpi|SeqEpi|Bf16Logit|S8Logit|RawLogit"
-                         r"|GumbelScore|WriteLogits)", rest):
+                         r"|GumbelScore)", rest):
         args.append(int(m.group(1)) if m.group(1) else m.group(2) == "1"
                     if m.group(2) else m.group(3))
     return args
@@ -4696,7 +4742,8 @@ def run_phases(out_dir: str, npz: str, label: str, t0: float) -> None:
     t_slice = time.perf_counter()
     for name, err in phase_writer_kernels().items():
         errors[name] = max(errors[name], err)
-    by_path = {"wide-beam": phase_wide_beam(cfg, vocab, model, label)}
+    wide_launches, writer_times = phase_wide_beam(cfg, vocab, model, label)
+    by_path = {"wide-beam": wide_launches}
     t_wide = time.perf_counter() - t_slice
     t_npz = time.perf_counter()
     vgg_npz(npz)
@@ -4793,7 +4840,9 @@ def run_phases(out_dir: str, npz: str, label: str, t0: float) -> None:
     # timed at H = WIDE_HIDDEN, their max |kernel - plain| over
     # WIDE_CE_SHAPES, the widths they were checked at; for the flash
     # backward the instance that ran, ``kernel``, and the clusters the card
-    # held, ``clusters_held``)
+    # held, ``clusters_held``); the bf16 and int8 top-k's writer instance
+    # past lists of 16 (``writer``: timed at the wide beams' rows, M, H =
+    # 512, V = 11500, with its device time and its library's)
     wide_h = sorted({H for *_, H in WIDE_CE_SHAPES})
     record = {"kernels": [
         {"name": name, **meta, "path": paths[name], "launches": launches[name],
@@ -4802,7 +4851,8 @@ def run_phases(out_dir: str, npz: str, label: str, t0: float) -> None:
          "max_abs_err": errors[name], **times[name],
          **({"instances": {f"H={WIDE_HIDDEN}": {
              **wide_times[name], "max_abs_err": ce_wide_errors[name],
-             "checked_at_h": wide_h}}} if name in wide_times else {})}
+             "checked_at_h": wide_h}}} if name in wide_times else {}),
+         **({"writer": writer_times[name]} if name in writer_times else {})}
         for name, meta in KERNELS.items()]}
     print(label)
     print(json.dumps(record))

@@ -1,4 +1,4 @@
-"""Device time of design variants of four kernels, built from edited copies
+"""Device time of design variants of five kernels, built from edited copies
 of their sources, in turns.
 
 The top-k + logsumexp over written logits (``csrc/topk_lse.cu``) at beam
@@ -32,9 +32,28 @@ tiles of ``ce_bwd_wide_kernel``, a cluster barrier every tile, and the exchange 
 exact), each checked against the plain version (within chip_smoke.py's
 tolerances) and against the built kernel (bit for bit).
 
+The decode's logits writer for beams past 16 (``csrc/fused_logits_topk.cu``,
+``logits_write_kernel``) at the wide beams' rows, H = 512, V = 11,500:
+bf16 at M = 10,240 and 20,480 (beam 20 and 40 of 512 images), int8 at
+10,240.  Variants: as built (the grid's vocab chunks first, two 8 KB box
+slots a warpgroup, a TMA store and a group a box), the row blocks first
+(the first staged design), W loads evict-last, three and four box slots, a
+64-column piece a group, 64-row blocks, clusters of 2 sharing each W box
+by multicast, a chunk's tiles strided, evict-first stores, the exit
+waiting for the stores' completion, plain float4 stores from each warp's
+staged rows in place of TMA (streaming or not; or in one warpgroup of
+the two), the first writer's design (direct stores from the registers); and, not
+exact, the products alone, the stores alone (TMA or plain, no ring) and
+every store into the same 64 rows (L2 only).  Each exact variant is
+checked bit for bit against the built kernel at every
+``chip_smoke.WRITE_SHAPES`` entry and at the wide shapes, and the built
+kernel against the plain version (int8 bit for bit ``int8_logits``; bf16
+within the f32 sum-order bound); the same buffer written by ``fill_`` is
+timed beside them as a write stream's yardstick.
+
     python3 kernel_designs.py            # from the repository's root, on a CUDA card
     python3 kernel_designs.py ce_fwd       # the named groups only (topk, eps,
-                                           # ce_fwd, ce_bwd_wide)
+                                           # ce_fwd, ce_bwd_wide, writer)
 """
 
 from __future__ import annotations
@@ -183,7 +202,339 @@ CE_BWD_WIDE_VARIANTS = (
     ("no exchange: each CTA its own half of the logits (not exact)",
      ((_EXCHANGE, ""), (_RELEASE, ""))),
 )
-GROUPS = ("topk", "eps", "ce_fwd", "ce_bwd_wide")
+# the writer's staged store of a tile, as csrc/fused_logits_topk.cu has it
+_STAGED = r"""    // box q: columns 32q.. of the warpgroup's, n = 4q..4q + 3, into slot
+    // `staged` % SLOTS, a group of its own: column 8n + cq of row rw in
+    // 16-byte chunk (2·(n % 4) + cq / 4) ^ rw % 8, at byte 4·(cq % 4)
+#pragma unroll
+    for (int q = 0; q < BOXES_W; ++q, ++staged) {
+      if (v0 + q * OUT_BOX >= V) break;
+      unsigned char* buf = stage + (staged % SLOTS) * OUT_BOX_BYTES;
+      if (staged >= SLOTS) {   // the slot's last store has read it
+        if (leader) tma_store_wait_read<SLOTS - 1>();
+        asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+      }
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii) {
+        const int rw = r + 8 * ii;
+#pragma unroll
+        for (int n = 4 * q; n < 4 * q + 4; ++n)
+          *reinterpret_cast<float2*>(buf + rw * 128 + (((2 * (n % 4) + cq / 4) ^ (rw & 7)) << 4) +
+                                     (cq % 4) * 4) =
+              make_float2(Logit::value(acc[4 * n + 2 * ii], rs[ii], col[2 * n]),
+                          Logit::value(acc[4 * n + 2 * ii + 1], rs[ii], col[2 * n + 1]));
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+      if (leader && row0 < M) {
+        tma_store(&out_map, buf, v0 + q * OUT_BOX, row0);
+        tma_store_commit();
+      }
+    }
+"""
+_SLOTS = "constexpr int WRITE_SLOTS = 2;            // boxes a warpgroup stages at once"
+# the grid as logits_topk_kernel's: the row blocks first
+_ROWS_FIRST = (("""  const int m0 = blockIdx.y * RG * BT;
+  const int tiles = (V + TV - 1) / TV;
+  const int t0 = blockIdx.x * chunk_tiles;""", """  const int m0 = blockIdx.x * RG * BT;
+  const int tiles = (V + TV - 1) / TV;
+  const int t0 = blockIdx.y * chunk_tiles;"""),
+               ("  const dim3 grid(a.chunks, (a.M + RG * BT - 1) / (RG * BT));",
+                "  const dim3 grid((a.M + RG * BT - 1) / (RG * BT), a.chunks);"))
+# the head's boxes loaded with the L2 evict-last policy (row_ring.cuh's
+# loads, through a hinted load added to hopper.cuh)
+_LOAD_HINT = r"""__device__ __forceinline__ void tma_load_last(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                              int x, int y) {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n" : "=l"(policy));
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1, {%3, %4}], [%2], %5;\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_addr(bar)), "r"(x), "r"(y), "l"(policy)
+      : "memory");
+}
+
+"""
+_B_LOAD = "      tma_load(st, b_map, &full[s], x, (t0 + j / boxes()) * RING_TV);"
+_EVICT_LAST = (("hopper.cuh", "// one box of shared memory into a 2-D tensor (x: column, y: row), clipped",
+                _LOAD_HINT + "// one box of shared memory into a 2-D tensor (x: column, y: row), clipped"),
+               ("row_ring.cuh", _B_LOAD, _B_LOAD.replace("tma_load(", "tma_load_last(")))
+# the first staged design: a 64-column piece (two boxes) a group, in one
+# 16 KB slot a warpgroup, read before the next piece is staged
+_PIECES = r"""    // piece p: columns 64p.. of the warpgroup's, n = 8p..8p + 7
+#pragma unroll
+    for (int p = 0; p < NW / 64; ++p, ++staged) {
+      if (v0 + p * 64 >= V) break;
+      unsigned char* buf = stage;
+      if (staged > 0) {
+        if (leader) tma_store_wait_read<0>();
+        asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+      }
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii) {
+        const int rw = r + 8 * ii;
+#pragma unroll
+        for (int n = 8 * p; n < 8 * p + 8; ++n)
+          *reinterpret_cast<float2*>(buf + ((n / 4) % 2) * OUT_BOX_BYTES + rw * 128 +
+                                     (((2 * (n % 4) + cq / 4) ^ (rw & 7)) << 4) + (cq % 4) * 4) =
+              make_float2(Logit::value(acc[4 * n + 2 * ii], rs[ii], col[2 * n]),
+                          Logit::value(acc[4 * n + 2 * ii + 1], rs[ii], col[2 * n + 1]));
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+      if (leader && row0 < M) {
+#pragma unroll
+        for (int x = 0; x < 2; ++x)
+          if (v0 + p * 64 + x * OUT_BOX < V)
+            tma_store(&out_map, buf + x * OUT_BOX_BYTES, v0 + p * 64 + x * OUT_BOX, row0);
+        tma_store_commit();
+      }
+    }
+"""
+# each warp stages its 16 rows x 64 columns of the tile at a time in 4 KB
+# of the warpgroup's slots (16-byte chunk c of row R at c ^ R % 8) and
+# stores them from there with plain stores, a float4 a lane, two rows of
+# 256 contiguous bytes a warp instruction (ST: the store)
+_SIMT = r"""    {
+      unsigned char* wbuf = stage + warp * 4096;
+#pragma unroll
+      for (int hf = 0; hf < NW / 64; ++hf) {
+        __syncwarp();
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii) {
+          const int rl = lane / 4 + 8 * ii;
+#pragma unroll
+          for (int n = 8 * hf; n < 8 * hf + 8; ++n)
+            *reinterpret_cast<float2*>(wbuf + rl * 256 + (((2 * (n % 8) + cq / 4) ^ (rl & 7)) << 4) +
+                                       (cq % 4) * 4) =
+                make_float2(Logit::value(acc[4 * n + 2 * ii], rs[ii], col[2 * n]),
+                            Logit::value(acc[4 * n + 2 * ii + 1], rs[ii], col[2 * n + 1]));
+        }
+        __syncwarp();
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const int rl = 2 * k + lane / 16;
+          const int c = lane % 16;
+          const float4 v = *reinterpret_cast<const float4*>(wbuf + rl * 256 + ((c ^ (rl & 7)) << 4));
+          const int row = row0 + warp * 16 + rl;
+          const int cc = v0 + 64 * hf + 4 * c;
+          if (row < M && cc < V) ST(reinterpret_cast<float4*>(out.ptr + static_cast<size_t>(row) * out.pitch + cc), v);
+        }
+      }
+    }
+"""
+# warpgroup 0 stores its tiles by TMA, warpgroup 1 by plain streaming float4
+# stores: two store paths of the SM at once
+_MIXED = ("    if (wg == 0) {\n" + _STAGED + "    } else {\n" + _SIMT.replace("ST(", "__stcs(")
+          + "    }\n")
+# the logits' pointer and pitch as a kernel parameter, for the variants that
+# store without TMA
+_OUT = (("// Grid (vocab chunks, row blocks of 64·RG): logits_topk_kernel's blocks,",
+         "struct Out {\n  float* ptr;\n  int pitch;\n};\n\n"
+         "// Grid (vocab chunks, row blocks of 64·RG): logits_topk_kernel's blocks,"),
+        ("""                    const __grid_constant__ CUtensorMap out_map, const Logit logit, int M,
+                    int V, int boxes, int chunk_tiles) {""",
+         """                    const __grid_constant__ CUtensorMap out_map, const Logit logit,
+                    const Out out, int M, int V, int boxes, int chunk_tiles) {"""),
+        ("      a.h_map, a.w_map, out_map, logit, a.M, a.V, a.boxes, a.chunk_tiles);",
+         "      a.h_map, a.w_map, out_map, logit, Out{logits, pitch}, a.M, a.V, a.boxes,\n"
+         "      a.chunk_tiles);"))
+# clusters of 2 along M (y) at the decode's width, 128-row blocks sharing
+# each W box by TMA multicast (row_ring.cuh's cluster mode, a producer warp
+# beside the consumers; the W map's boxes of 64 rows, each CTA's part)
+_CLUSTER = (
+    ("""template <class Logit, int RG, bool RES, int BOXES>
+__global__ void __launch_bounds__(THREADS, 1)
+logits_write_kernel(""", """template <class Logit, int RG, bool RES, int BOXES, int CLUSTER = 1>
+__global__ void __launch_bounds__(THREADS + (CLUSTER > 1 ? 32 : 0), 1)
+logits_write_kernel("""),
+    ("  using Ring = RowRing<typename Logit::Op, RG, RES, BOXES, write_extra(RG)>;",
+     "  using Ring = RowRing<typename Logit::Op, RG, RES, BOXES, write_extra(RG), CLUSTER>;"),
+    ("""  ring.start();
+
+  // this thread's rows r + 8·ii of its warpgroup's 64 (from row0)""", """  ring.start();
+  if constexpr (CLUSTER > 1) {
+    if (tid >= THREADS) {
+      if (tid == THREADS) ring.produce();
+      __syncwarp();
+      cluster_arrive();
+      cluster_wait();
+      return;
+    }
+  }
+
+  // this thread's rows r + 8·ii of its warpgroup's 64 (from row0)"""),
+    ("  if (leader) tma_store_wait_read<0>();\n}", """  if (leader) tma_store_wait_read<0>();
+  if constexpr (CLUSTER > 1) {
+    cluster_arrive();
+    cluster_wait();
+  }
+}"""),
+    ("""template <class Logit, int RG, bool RES, int BOXES>
+int launch_write(const Launch& a, const Logit& logit, float* logits, int pitch) {
+  const RingLayout L = ring_layout(a.boxes, RG, RES, write_extra(RG));""",
+     """template <class Logit, int RG, bool RES, int BOXES, int CLUSTER = 1>
+int launch_write(const Launch& a, const Logit& logit, float* logits, int pitch,
+                 const CUtensorMap* part_map = nullptr) {
+  const RingLayout L = ring_layout(a.boxes, RG, RES, write_extra(RG), CLUSTER);"""),
+    ("""    err = allow_smem(logits_write_kernel<Logit, RG, RES, BOXES>, SMEM_MAX);""",
+     """    err = allow_smem(logits_write_kernel<Logit, RG, RES, BOXES, CLUSTER>, SMEM_MAX);"""),
+    ("""  const dim3 grid(a.chunks, (a.M + RG * BT - 1) / (RG * BT));
+  logits_write_kernel<Logit, RG, RES, BOXES><<<grid, THREADS, L.smem, a.st>>>(
+      a.h_map, a.w_map, out_map, logit, a.M, a.V, a.boxes, a.chunk_tiles);
+  return static_cast<int>(cudaGetLastError());""",
+     """  const dim3 grid(a.chunks, ((a.M + RG * BT - 1) / (RG * BT) + CLUSTER - 1) / CLUSTER * CLUSTER);
+  if constexpr (CLUSTER > 1) {
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = CLUSTER;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg{};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(THREADS + 32);
+    cfg.dynamicSmemBytes = L.smem;
+    cfg.stream = a.st;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = static_cast<int>(cudaLaunchKernelEx(
+        &cfg, logits_write_kernel<Logit, RG, RES, BOXES, CLUSTER>, a.h_map, *part_map, out_map,
+        logit, a.M, a.V, a.boxes, a.chunk_tiles));
+    if (err) return err;
+  } else {
+    logits_write_kernel<Logit, RG, RES, BOXES><<<grid, THREADS, L.smem, a.st>>>(
+        a.h_map, a.w_map, out_map, logit, a.M, a.V, a.boxes, a.chunk_tiles);
+  }
+  return static_cast<int>(cudaGetLastError());"""),
+    ("""int launch_write_rows(const Launch& a, const Logit& logit, float* logits, int pitch) {
+  constexpr int B = Logit::BOXES;
+  if (a.rows == 128 && a.resident)""",
+     """int launch_write_rows(const Launch& a, const Logit& logit, const void* w_t, int H,
+                      float* logits, int pitch) {
+  constexpr int B = Logit::BOXES;
+  if (a.rows == 128 && a.resident && a.boxes == B) {
+    CUtensorMap part_map;
+    int err;
+    if constexpr (Logit::Op::BOX_X == 128)
+      err = s8_tile_map(&part_map, static_cast<const signed char*>(w_t), a.V, H, TV / 2);
+    else
+      err = row_tile_map(&part_map, static_cast<const bf16*>(w_t), a.V, H, TV / 2);
+    if (err) return err;
+    return launch_write<Logit, 2, true, B, 2>(a, logit, logits, pitch, &part_map);
+  }
+  if (a.rows == 128 && a.resident)"""),
+    ("""  return launch_write_rows(a, Bf16Logit{static_cast<const float*>(b)},
+                           static_cast<float*>(logits), pitch);""",
+     """  return launch_write_rows(a, Bf16Logit{static_cast<const float*>(b)}, w_t, H,
+                           static_cast<float*>(logits), pitch);"""),
+    ("""                                      static_cast<const float*>(b)},
+                           static_cast<float*>(logits), pitch);""",
+     """                                      static_cast<const float*>(b)},
+                           wq_t, H, static_cast<float*>(logits), pitch);"""))
+# the first writer: each lane stores its accumulator pairs from the registers
+# (8 bytes a pair, a warp instruction 8 rows of 32 bytes), between the
+# products, with no staging slots (its ring's stages as that writer had them)
+_DIRECT = """#pragma unroll
+    for (int n = 0; n < NW / 8; ++n)
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii) {
+        const int row = row0 + r + 8 * ii;
+        const int c = cb + 8 * n;
+        if (row >= M || c >= V) continue;
+        const float x0 = Logit::value(acc[4 * n + 2 * ii], rs[ii], col[2 * n]);
+        const float x1 = Logit::value(acc[4 * n + 2 * ii + 1], rs[ii], col[2 * n + 1]);
+        float* o = out.ptr + static_cast<size_t>(row) * out.pitch + c;
+        if (c + 1 < V) *reinterpret_cast<float2*>(o) = make_float2(x0, x1);
+        else o[0] = x0;
+      }
+"""
+# the stores with an L2 evict-first policy (a hinted store added beside Out)
+_STORE = "        tma_store(&out_map, buf, v0 + q * OUT_BOX, row0);"
+_EVICT_FIRST = (("// Grid (vocab chunks, row blocks of 64·RG): logits_topk_kernel's blocks,", r"""__device__ __forceinline__ void tma_store_first(const CUtensorMap* map, const void* src, int x,
+                                                int y) {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group.L2::cache_hint"
+      " [%0, {%2, %3}], [%1], %4;\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)), "r"(x), "r"(y), "l"(policy)
+      : "memory");
+}
+
+// Grid (vocab chunks, row blocks of 64·RG): logits_topk_kernel's blocks,"""),
+                (_STORE, _STORE.replace("tma_store(", "tma_store_first(")))
+# chunk c takes the tiles c, c + chunks, .. (the W boxes' rows in
+# row_ring.cuh strided alike), so that the blocks resident at once write
+# neighbouring tiles of the same rows
+_STRIDED = (("""  const int t0 = blockIdx.x * chunk_tiles;
+  const int n_tiles = max(0, min(tiles, t0 + chunk_tiles) - t0);""", """  const int t0 = blockIdx.x;
+  const int n_tiles = (tiles - t0 + gridDim.x - 1) / gridDim.x;"""),
+            ("""    const int v0 = (t0 + i) * TV + (RG == 1 ? wg * NW : 0);  // the warpgroup's first column
+    const int cb = v0 + cq;                                   // this thread's
+    // the tile's column parameters, requested before its products""",
+             """    const int v0 = (t0 + i * gridDim.x) * TV + (RG == 1 ? wg * NW : 0);
+    const int cb = v0 + cq;                                   // this thread's
+    // the tile's column parameters, requested before its products"""),
+            ("row_ring.cuh", _B_LOAD,
+             _B_LOAD.replace("(t0 + j / boxes())", "(t0 + (j / boxes()) * gridDim.x)")))
+# no ring at all: neither the products nor the loads, each tile's
+# accumulators zero, only the staging and the stores
+_STORES_ALONE = (("""  ring.start();
+
+  // this thread's rows r + 8·ii of its warpgroup's 64 (from row0)""", """
+  // this thread's rows r + 8·ii of its warpgroup's 64 (from row0)"""),
+                 ("""  int staged = 0;                          // boxes this warpgroup has staged
+  typename Ring::Acc acc[NW / 2];
+  ring.wait_rows();
+""", """  int staged = 0;                          // boxes this warpgroup has staged
+  typename Ring::Acc acc[NW / 2];
+"""),
+                 ("""    ring.product(i, acc);
+    // RG = 1: this warpgroup's half of the last tile may lie past V
+    if (v0 >= V) continue;
+
+    // box q""", """#pragma unroll
+    for (int q = 0; q < NW / 2; ++q) acc[q] = 0;
+    // RG = 1: this warpgroup's half of the last tile may lie past V
+    if (v0 >= V) continue;
+
+    // box q"""))
+_SIMT_CS = (_STAGED, _SIMT.replace("ST(", "__stcs("))
+# (label, edits, the plan's rows: 0 the kernels' choice) on
+# csrc/fused_logits_topk.cu
+WRITER_VARIANTS = (
+    ("as built: the vocab chunks first, two TMA box slots a warpgroup", (), 0),
+    ("the row blocks first, logits_topk_kernel's grid (the first staged design)",
+     _ROWS_FIRST, 0),
+    ("W loads with the L2 evict-last policy", _EVICT_LAST, 0),
+    ("three box slots a warpgroup (24 KB)", ((_SLOTS, _SLOTS.replace("= 2;", "= 3;")),), 0),
+    ("four box slots a warpgroup: the whole m64n128 tile (32 KB)",
+     ((_SLOTS, _SLOTS.replace("= 2;", "= 4;")),), 0),
+    ("a 64-column piece a group in one 16 KB slot, read before the next", ((_STAGED, _PIECES),), 0),
+    ("64-row blocks (m64n64 tiles)", (), 64),
+    ("clusters of 2 along M sharing each W box by TMA multicast (a producer warp)",
+     _CLUSTER, 0),
+    ("a chunk's tiles strided by the chunk count", _STRIDED, 0),
+    ("the stores with an L2 evict-first policy", _EVICT_FIRST, 0),
+    ("the block's exit waits for the stores' completion (wait_group 0)",
+     (("  if (leader) tma_store_wait_read<0>();\n}", "  if (leader) tma_store_wait<0>();\n}"),), 0),
+    ("each warp staged, then plain float4 streaming stores (st.global.cs), no TMA",
+     (*_OUT, _SIMT_CS), 0),
+    ("each warp staged, then plain float4 stores, no TMA",
+     (*_OUT, (_STAGED, _SIMT.replace("ST(", "__stwb("))), 0),
+    ("warpgroup 0 stores by TMA, warpgroup 1 by plain float4 streaming stores",
+     (*_OUT, (_STAGED, _MIXED)), 0),
+    ("the first writer: the row blocks first, direct stores from the registers",
+     (*_ROWS_FIRST, *_OUT, (_STAGED, _DIRECT), (_SLOTS, _SLOTS.replace("= 2;", "= 0;"))), 0),
+    ("no stores: the products alone (not exact)", ((_STAGED, ""),), 0),
+    ("no ring: the stores alone, neither loads nor products (not exact)", _STORES_ALONE, 0),
+    ("no ring, plain float4 streaming stores alone (not exact)",
+     (*_STORES_ALONE, *_OUT, _SIMT_CS), 0),
+    ("every store into the first 64 rows, which stay in L2 (not exact)",
+     ((_STORE, _STORE.replace("row0);", "0);")),), 0),
+)
+GROUPS = ("topk", "eps", "ce_fwd", "ce_bwd_wide", "writer")
 # each group's builds: (library kind, source, header edited or None, variants)
 BUILDS = {
     "topk": (("topk", "topk_lse.cu", None, TOPK_VARIANTS),),
@@ -191,6 +542,7 @@ BUILDS = {
     "ce_fwd": (("ce_fwd", "fused_ce.cu", "fused_ce.cuh", CE_FWD_VARIANTS),
                ("ce_mat_fwd", "fused_ce_mat.cu", "fused_ce.cuh", CE_FWD_VARIANTS)),
     "ce_bwd_wide": (("ce_bwd_wide", "fused_ce.cu", None, CE_BWD_WIDE_VARIANTS),),
+    "writer": (("writer", "fused_logits_topk.cu", None, WRITER_VARIANTS),),
 }
 
 
@@ -245,7 +597,7 @@ def main() -> None:
     shutil.rmtree(out_dir, ignore_errors=True)
     jobs = {}
     for kind, source, edited, variants in (b for g in groups for b in BUILDS[g]):
-        for i, (name, edits) in enumerate(variants):
+        for i, (name, edits, *_) in enumerate(variants):
             jobs[(kind, name)] = build(_ext.CSRC_DIR, out_dir, f"{kind}{i}", source, edits,
                                        edited)
     libs = {}
@@ -257,7 +609,7 @@ def main() -> None:
     P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     for lib in libs.values():
         if hasattr(lib, "vct_top_k_logsumexp"):
-            lib.vct_top_k_logsumexp.argtypes = [P] * 4 + [I] * 4 + [P]
+            lib.vct_top_k_logsumexp.argtypes = [P] * 4 + [I] * 5 + [P]
         if hasattr(lib, "vct_fused_z_eps"):
             lib.vct_fused_z_eps.argtypes = [P] + [I] * 3 + [U, U, I, I, P]
         if hasattr(lib, "vct_fused_ce_fwd"):
@@ -267,6 +619,10 @@ def main() -> None:
             lib.vct_fused_ce_fwd_cluster.argtypes = [I, I]
         if hasattr(lib, "vct_fused_ce_mat_fwd"):
             lib.vct_fused_ce_mat_fwd.argtypes = [P] * 8 + [I] * 4 + [P]
+        if hasattr(lib, "vct_fused_logits_write"):
+            lib.vct_fused_logits_write.argtypes = [P] * 4 + [I] * 8 + [P]
+            lib.vct_fused_logits_write_int8.argtypes = [P] * 6 + [I] * 8 + [P]
+            lib.vct_fused_logits_write_smem.argtypes = [I] * 4
     dev, label = cs.DEV, cs.card()
     sms = _ext.sm_count(dev.index)
 
@@ -276,7 +632,7 @@ def main() -> None:
         idx = torch.empty((N, k), dtype=torch.int32, device=dev)
         lse = torch.empty((N,), device=dev)
         _ext.check_launch(lib.vct_top_k_logsumexp(
-            x.data_ptr(), vals.data_ptr(), idx.data_ptr(), lse.data_ptr(), N, V, k, sms,
+            x.data_ptr(), vals.data_ptr(), idx.data_ptr(), lse.data_ptr(), N, V, V, k, sms,
             _ext.stream_ptr(dev)), "top_k_logsumexp variant")
         return vals, idx, lse
 
@@ -295,6 +651,8 @@ def main() -> None:
         time_ce_fwd(libs, dev, label, sms)
     if "ce_bwd_wide" in groups:
         time_ce_bwd_wide(libs, dev, label)
+    if "writer" in groups:
+        time_writer(libs, dev, label, sms)
 
 
 def time_topk(libs, label, top_k) -> None:
@@ -447,6 +805,76 @@ def time_ce_bwd_wide(libs, dev, label) -> None:
                   f"{', '.join(f'{x:.2e}' for x in rel)}: exact (within "
                   f"{', '.join(map(str, tols))}) {ok}; bit for bit with the built "
                   f"kernel {same} [{label}]")
+
+
+def time_writer(libs, dev, label, sms) -> None:
+    """The writer's variants: each exact one bit for bit against the built
+    kernel at every WRITE_SHAPES entry; then, at the wide beams' shapes,
+    all of them by device time in turns, the built kernel against the
+    plain version and each exact variant against the built kernel."""
+    import chip_smoke as cs
+    from vae_captioning_torch.ops.fused_logits_topk import (
+        int8_logits, logits_pitch, logits_plan, pitched_logits, quantize_rows)
+
+    variants = {name: (libs["writer", name], rows) for name, _, rows in WRITER_VARIANTS}
+    exact = [name for name in variants if "not exact" not in name]
+
+    def operands(M, V, H, int8, seed):
+        if int8:
+            h, wq, ws, b = cs.int8_inputs(M, V, seed, H)
+            hq, hs = quantize_rows(h)
+            return (hq, hs, wq.t().contiguous(), ws, b), (hq, hs, wq, ws, b)
+        h, w, b = cs.logits_inputs(M, V, H, seed=seed)
+        return (h, w.t().contiguous(), b), (h, w, b)
+
+    def writer(name, M, V, H, int8, ops, out):
+        lib, rows = variants[name]
+        plan = logits_plan(M, H, V, 1, 1 if int8 else 2, sms, rows=rows)
+        fn = lib.vct_fused_logits_write_int8 if int8 else lib.vct_fused_logits_write
+        _ext.check_launch(fn(*(t.data_ptr() for t in ops), out.data_ptr(), M, H, V,
+                             logits_pitch(V), plan.rows, int(plan.resident), plan.chunk_tiles,
+                             plan.chunks, _ext.stream_ptr(dev)), "logits writer variant")
+        return out
+
+    for M, V, H, int8 in cs.WRITE_SHAPES:
+        ops, _ = operands(M, V, H, int8, M + V + H)
+        outs = {name: writer(name, M, V, H, int8, ops, pitched_logits(M, V, dev))
+                for name in exact}
+        same = {name: torch.equal(outs[name], outs[exact[0]]) for name in exact[1:]}
+        print(f"logits writer {'int8' if int8 else 'bf16'} M={M} H={H} V={V}: bit for bit "
+              f"with the built kernel: " + "; ".join(f"{k} {v}" for k, v in same.items()))
+        del outs
+    H, V = 512, cs.VOCAB
+    for M, int8 in ((10240, False), (20480, False), (10240, True)):
+        ops, plain_ops = operands(M, V, H, int8, M)
+        out = pitched_logits(M, V, dev)
+        calls = {name: (lambda name=name: writer(name, M, V, H, int8, ops, out))
+                 for name in variants}
+        built = calls[exact[0]]().clone()
+        if int8:
+            plain_ok = torch.equal(built, int8_logits(*plain_ops))
+        else:
+            plain_ok = cs.logits_error_ratio(built, *plain_ops) <= 1.0
+        moved = cs.nbytes(*ops) + 4 * M * V
+        bnd = cs.bound(2.0 * M * H * V, moved, cs.PEAK_INT8 if int8 else cs.PEAK_BF16)
+        tag = f"logits writer {'int8' if int8 else 'bf16'} M={M} H={H} V={V}"
+        print(f"{tag}: built kernel against the plain version: "
+              f"{'bit for bit' if int8 else 'within the f32 sum-order bound'} {plain_ok}; "
+              f"bound {bnd[0]:.4f} ms ({bnd[1]}) [{label}]")
+        for name, (a, b_) in in_turns(calls, cs.device_ms).items():
+            lib, rows = variants[name]
+            plan = logits_plan(M, H, V, 1, 1 if int8 else 2, sms, rows=rows)
+            smem = lib.vct_fused_logits_write_smem(H, int(int8), plan.rows, int(plan.resident))
+            same = torch.equal(calls[name](), built) if name in exact else None
+            print(f"{tag}, {name}: device {a:.4f} / {b_:.4f} ms (share "
+                  f"{bnd[0] / min(a, b_):.3f}); {plan.rows}-row blocks, {plan.chunks} chunks "
+                  f"of {plan.chunk_tiles} tiles, {smem} B shared memory"
+                  + ("" if same is None else f"; bit for bit with the built kernel {same}")
+                  + f" [{label}]")
+        fill = [sum(cs.device_ms(lambda: out.fill_(1.0)).values()) for _ in range(2)]
+        print(f"{tag}: the same [M, V] buffer written by fill_ (a write stream, not the "
+              f"function): device {fill[0]:.4f} / {fill[1]:.4f} ms [{label}]")
+        del out, calls, built
 
 
 if __name__ == "__main__":

@@ -39,8 +39,8 @@ from vae_captioning_torch.ops.fused_logits_topk import (
     fused_logits_sample, fused_logits_top_k, fused_logits_top_k_int8,
     fused_logits_top_k_int8_plain, fused_logits_top_k_plain,
     block_shape, int8_logits, int8_logits_kernel, int8_top_k_kernel, int8_top_k_plain,
-    logits_kernel, logits_plan, logits_top_k_kernel, quantize_logits_weights,
-    quantize_rows, sample_kernel, sample_scores)
+    logits_kernel, logits_pitch, logits_plan, logits_top_k_kernel,
+    quantize_logits_weights, quantize_rows, sample_kernel, sample_scores)
 from vae_captioning_torch.ops.fused_lstm_seq import (fused_lstm_seq,
                                                      fused_lstm_seq_plain)
 from vae_captioning_torch.ops.fused_lstm_step import (fused_lstm_step,
@@ -545,24 +545,29 @@ def test_top_k_logsumexp_wide_lists_match_plain(dev, N, V, k):
 
 @pytest.mark.parametrize("M,H,V,int8,rows", [
     (10240, 512, 11500, False, 0), (700, 512, 11519, True, 0),
+    (10240, 512, 11519, False, 0), (10240, 512, 11519, True, 0),
     (65, 1024, 11519, False, 0), (65, 2048, 11500, False, 0),
     (300, 96, 11519, False, 0), (512, 512, 11519, False, 64),
     (65, 2624, 11519, True, 0), (1, 512, 130, True, 0)])
 def test_logits_writer_geometries_match_plain(dev, M, H, V, int8, rows):
-    """The fused logits kernels' writer instance (beams past K_MAX) at
-    every block shape: int8 bit for bit ``int8_logits``; bf16 bit for bit
-    the fused top-k's own values at its top-10 (the same accumulators),
-    and within the f32 error bound of a length-H dot product in any order
-    of the exact logits: gamma_H |h| |w| + u |logit|, u = 2^-24."""
+    """The fused logits kernels' writer (beams past K_MAX) at every block
+    shape, also at full width with V % 4 != 0 (rows padded to 16 bytes,
+    the [M, V] view handed over): int8 bit for bit ``int8_logits``; bf16
+    bit for bit the fused top-k's own values at its top-10 (the same
+    accumulators), and within the f32 error bound of a length-H dot
+    product in any order of the exact logits: gamma_H |h| |w| + u |logit|,
+    u = 2^-24."""
     h, w_t, b = _logits_args(dev, M, H, V, seed=M + H)
     plan = logits_plan(M, H, V, 1, 1 if int8 else 2, rows=rows)
     if int8:
         hq, hs = quantize_rows(h.float())
         wq, ws = quantize_logits_weights(w_t.t().float())
         got = int8_logits_kernel(hq, hs, wq, ws, b, plan)
+        assert got.stride() == (logits_pitch(V), 1)
         assert torch.equal(got, int8_logits(hq, hs, wq, ws, b))
     else:
         got = logits_kernel(h, w_t, b, plan)
+        assert got.stride() == (logits_pitch(V), 1)
         k = min(10, V)
         vals, idx, _ = logits_top_k_kernel(h, w_t, b, k, logits_plan(M, H, V, k, 2, rows=rows))
         assert torch.equal(got.gather(1, idx.long()), vals)
@@ -596,6 +601,57 @@ def test_wide_logits_top_k_routes_through_written_logits(dev, k):
     pv, pi, pl = fused_logits_top_k_int8_plain(h, wq, ws, b, k)
     assert torch.equal(i, pi) and torch.equal(v, pv)
     torch.testing.assert_close(l, pl, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("N", [300, 1536])
+@pytest.mark.parametrize("k", [20, 40, 65])
+def test_top_k_logsumexp_on_pitched_rows_matches_contiguous(dev, N, k):
+    """Row 5 on the writer's layout, rows logits_pitch(V) floats apart (V =
+    11519: the pitch 11520, the pad columns NaN, never read), against the
+    same kernel on the contiguous copy (one list a lane, two, and the sort
+    past 64): values and indices bit for bit, and equal to the plain
+    version's; the logsumexp to 1e-5, since a lane's share of a row, and
+    so the sum's order, follows where the row meets a 16-byte boundary."""
+    V = 11519
+    buf = torch.full((N, logits_pitch(V)), float("nan"), device=dev)
+    x = buf[:, :V]
+    x.copy_(_planted_logits(dev, N, V, seed=N + k))
+    got = top_k_logsumexp(x, k)
+    want = top_k_logsumexp(x.contiguous(), k)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
+    p_vals, p_idx, _ = top_k_logsumexp_plain(x.contiguous(), k)
+    assert torch.equal(got[0], p_vals) and torch.equal(got[1], p_idx)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_wide_top_k_at_a_ragged_vocab_launches_the_writer_and_row_5_once(dev, int8):
+    """Past K_MAX at V % 4 != 0 (11,519): the wrapper launches the writer
+    once (into rows of logits_pitch(V) floats) and the top-k + logsumexp
+    once over the view; bf16 to the fused top-k's bar, int8 bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(7 + int8)
+    V, k = 11519, 20
+    h = torch.randn((700, 512), generator=g, device=dev).to(torch.bfloat16)
+    w = (0.05 * torch.randn((512, V), generator=g, device=dev)
+         ).to(torch.bfloat16).t().contiguous().t()
+    b = 0.1 * torch.randn((V,), generator=g, device=dev)
+    name = "fused_logits_top_k_int8" if int8 else "fused_logits_top_k"
+    _ext.reset_launches()
+    if int8:
+        wq, ws = quantize_logits_weights(w.float())
+        got = fused_logits_top_k_int8(h, wq, ws, b, k)
+    else:
+        got = fused_logits_top_k(h, w, b, k)
+    torch.cuda.synchronize()
+    assert _ext.LAUNCHES[name] == 1 and _ext.LAUNCHES["top_k_logsumexp"] == 1
+    assert sum(_ext.LAUNCHES.values()) == 2
+    if int8:
+        pv, pi, pl = fused_logits_top_k_int8_plain(h, wq, ws, b, k)
+        assert torch.equal(got[1], pi) and torch.equal(got[0], pv)
+        torch.testing.assert_close(got[2], pl, rtol=1e-5, atol=0)
+    else:
+        _assert_top_k(got, fused_logits_top_k_plain(h, w, b, k + 1), k)
 
 
 @pytest.mark.parametrize("N,V,k", [(N, V, k) for N in (1, 13, 1536, 5120)

@@ -13,9 +13,11 @@ from vae_captioning_torch import _ext
 GROUPS = (("topk", "topk_lse.cu", kd.TOPK_VARIANTS),
           ("eps", "fused_z.cu", kd.EPS_VARIANTS),
           ("ce_fwd", "fused_ce.cuh", kd.CE_FWD_VARIANTS),
-          ("ce_bwd_wide", "fused_ce.cu", kd.CE_BWD_WIDE_VARIANTS))
+          ("ce_bwd_wide", "fused_ce.cu", kd.CE_BWD_WIDE_VARIANTS),
+          ("writer", "fused_logits_topk.cu", kd.WRITER_VARIANTS))
+# a writer variant's third entry is its plan's rows, not an edit
 CASES = [(group, source, label, edits) for group, source, variants in GROUPS
-         for label, edits in variants]
+         for label, edits, *_ in variants]
 
 
 def test_groups_are_the_scripts():

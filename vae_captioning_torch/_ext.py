@@ -63,14 +63,15 @@ _SIGNATURES = {
     "vct_fused_lstm_step_layout": [_I] * 3 + [_P] * 2,
     "vct_fused_logits_top_k": [_P] * 10 + [_I] * 8 + [_P],
     "vct_fused_logits_top_k_int8": [_P] * 12 + [_I] * 8 + [_P],
-    "vct_fused_logits_write": [_P] * 4 + [_I] * 7 + [_P],
-    "vct_fused_logits_write_int8": [_P] * 6 + [_I] * 7 + [_P],
+    "vct_fused_logits_write": [_P] * 4 + [_I] * 8 + [_P],
+    "vct_fused_logits_write_int8": [_P] * 6 + [_I] * 8 + [_P],
     "vct_fused_logits_sample": [_P] * 7 + [_I] * 3 + [_U, _U, ctypes.c_float]
                                + [_I] * 5 + [_P],
     "vct_fused_logits_top_k_smem": [_I] * 4,
+    "vct_fused_logits_write_smem": [_I] * 4,
     "vct_fused_logits_top_k_block": [_I] * 4,
-    "vct_top_k_logsumexp": [_P] * 4 + [_I] * 4 + [_P],
-    "vct_top_k_logsumexp_sort": [_P] * 5 + [_I] * 4 + [_P],
+    "vct_top_k_logsumexp": [_P] * 4 + [_I] * 5 + [_P],
+    "vct_top_k_logsumexp_sort": [_P] * 5 + [_I] * 5 + [_P],
     "vct_top_k_logsumexp_sort_workspace": [_I] * 3,
     "vct_fused_lstm_seq_fwd": [_P] * 12 + [_I] * 4 + [_P],
     "vct_fused_lstm_seq_bwd": [_P] * 21 + [_I] * 8 + [_P],

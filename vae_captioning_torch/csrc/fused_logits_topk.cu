@@ -23,7 +23,8 @@
 // scales hs [M] f32, wq_t [V,H] int8 with per-column scales ws [V] f32 ->
 // vals [M,k] f32 (raw logits, bias included), idx [M,k] int32, lse [M]
 // f32, for 1 <= k <= 16; the sampler -> tokens [M] int32; the writer ->
-// logits [M, V] f32.
+// logits [M, V] f32 in rows of `pitch` floats (a multiple of 4: 16-byte
+// rows, as a TMA tensor map needs them).
 //
 // What bounds it on this card: tensor-core operations, 2·M·H·V (18 GFLOP at
 // M = 1536, H = 512, V = 11500: 0.018 ms at the dense bf16 rate, 0.009 in
@@ -76,11 +77,33 @@
 //   list of K are the top k.
 // * The sampler is the same kernel with K = 1 over the scored values
 //   logit * inv_temp + G and no logsumexp.
-// * The logits writer is the same kernel again, its fold replaced by a
-//   store of each accumulator pair's two logits (8 bytes; a row's 4 lanes
-//   write 32 contiguous bytes) into [M, V] f32, and no merge launch.  It
-//   writes what the fold would have seen: bf16 acc + b, and the int8
-//   logit bit for bit as int8_logits computes it.
+// * The logits writer (logits_write_kernel) runs the same product loop,
+//   block shapes and chunks, with no fold and no merge launch.  It writes
+//   what the fold would have seen, bf16 acc + b and the int8 logit bit for
+//   bit as int8_logits computes it, into [M, V] f32 in rows of `pitch`
+//   floats.  What bounds it: the bytes it writes, 4·M·V (471 MB at M =
+//   10,240, V = 11,500: 0.141 ms at 3.35 TB/s), beside products of 0.122
+//   ms at the bf16 peak.  Stored from the registers between the products
+//   (the first writer: each lane an 8-byte pair, a warp instruction 8
+//   rows of 32 bytes) it took 0.35 of that bound.  Here a warpgroup stages
+//   its tile a box at a time (32 f32 columns x 64 rows, 8 KB, 128-byte
+//   swizzle: a lane's float2 lands in 16-byte chunk c ^ row % 8, two
+//   wavefronts a warp) in one of WRITE_SLOTS slots, fences the async
+//   proxy, meets at a warpgroup barrier, and one lane issues the box's TMA
+//   store as a group of its own; the stores run while the next boxes are
+//   staged and the next tile's products run.  Before a box overwrites a slot the lane
+//   waits until the slot's last store has read it (tma_store_wait_read);
+//   before the block exits, until every store has.  TMA clips rows past M
+//   and columns past V.  The grid walks the vocab chunks first, so that
+//   the blocks resident at once write neighbouring chunks of fewer rows
+//   (0.33 against 0.36 ms at M = 10,240 with the row blocks first).  What
+//   binds it is the store stream: with no products and no loads, the same
+//   stores take 0.25 ms at M = 10,240, where a plain write stream of the
+//   buffer takes 0.14 (kernel_designs.py writer; PERF.md).  Two slots
+//   against three or four (the ring keeps 4 stages at H = 512 in bf16), a
+//   64-column piece a group, 64-row blocks, clusters of 2 sharing each W
+//   box, strided chunks, L2 policies on the loads and the stores, and
+//   plain float4 stores in place of TMA were timed there.
 //
 // The sampler's noise: Philox-4x32-10 keyed on (seed, step), element
 // (row m, column v) is word v % 4 of the block with counter
@@ -161,13 +184,11 @@ __device__ __forceinline__ void put(int& d, float x) { d = __float_as_int(x); }
 
 struct RawLogit {
   static constexpr bool kLse = true;
-  static constexpr bool kWrite = false;
   __device__ __forceinline__ void pair(float&, float&, int, int) const {}
 };
 
 struct GumbelScore {
   static constexpr bool kLse = false;
-  static constexpr bool kWrite = false;
   uint32_t seed, step;
   float inv_temp;
   int row0;
@@ -185,14 +206,6 @@ struct GumbelScore {
     x0 = __fadd_rn(__fmul_rn(x0, inv_temp), g0);
     x1 = __fadd_rn(__fmul_rn(x1, inv_temp), g1);
   }
-};
-
-// the logits stored, [M, V] f32 (row stride V), in place of the fold
-struct WriteLogits {
-  static constexpr bool kLse = false;
-  static constexpr bool kWrite = true;
-  float* out;
-  __device__ __forceinline__ void pair(float&, float&, int, int) const {}
 };
 
 struct Parts {
@@ -259,26 +272,6 @@ logits_topk_kernel(const __grid_constant__ CUtensorMap h_map,
     // RG = 1: this warpgroup's half of the last tile may lie past V
     if (v0 >= V) continue;
 
-    if constexpr (Score::kWrite) {
-#pragma unroll
-      for (int n = 0; n < NW / 8; ++n)
-#pragma unroll
-        for (int ii = 0; ii < 2; ++ii) {
-          const int c = cb + 8 * n;
-          if (row[ii] >= M || c >= V) continue;
-          const float x0 = Logit::value(acc[4 * n + 2 * ii], rs[ii], col[2 * n]);
-          const float x1 = Logit::value(acc[4 * n + 2 * ii + 1], rs[ii], col[2 * n + 1]);
-          float* o = score.out + static_cast<size_t>(row[ii]) * V + c;
-          if (c + 1 < V && V % 2 == 0) {
-            *reinterpret_cast<float2*>(o) = make_float2(x0, x1);
-          } else {
-            o[0] = x0;
-            if (c + 1 < V) o[1] = x1;
-          }
-        }
-      continue;
-    }
-
     // logits (and the sampler's scores) in place
 #pragma unroll
     for (int n = 0; n < NW / 8; ++n)
@@ -324,8 +317,6 @@ logits_topk_kernel(const __grid_constant__ CUtensorMap h_map,
           top[ii].push_ascending(8 * n + j < lim ? as_f(acc[4 * n + 2 * ii + j]) : -INFINITY,
                                  cb + 8 * n + j);
   }
-
-  if constexpr (Score::kWrite) return;
 
   // the row's 4 lanes share its running max: their sum-exp is summed and
   // their lists merged by shuffles, and one lane writes
@@ -417,6 +408,108 @@ logits_topk_merge_kernel(const Parts part, float* __restrict__ vals,
   if (kLse) lse[row] = m + logf(s);
 }
 
+// ---------------------------------------------------------------------
+// the logits writer: each tile's logits staged in shared memory, stored
+// by TMA while the next tile's products run
+// ---------------------------------------------------------------------
+
+constexpr int OUT_BOX = 32;               // f32 columns of a 128-byte box row
+constexpr int OUT_BOX_BYTES = BT * 128;   // a box: 64 rows, 8 KB
+constexpr int WRITE_SLOTS = 2;            // boxes a warpgroup stages at once
+
+// the staging bytes of a block of 64·RG rows (a warpgroup's tile holds 2·RG
+// boxes: m64n128 at RG = 2, m64n64 at RG = 1)
+__host__ __device__ constexpr int write_extra(int rg) {
+  return 2 * (WRITE_SLOTS < 2 * rg ? WRITE_SLOTS : 2 * rg) * OUT_BOX_BYTES;
+}
+
+// Grid (vocab chunks, row blocks of 64·RG): logits_topk_kernel's blocks,
+// the chunks first, so that the blocks resident at once write
+// neighbouring chunks of fewer rows.  out_map: the logits [M, V] f32 in
+// rows of their pitch, in boxes of 32 columns x 64 rows, 128-byte swizzle.
+template <class Logit, int RG, bool RES, int BOXES>
+__global__ void __launch_bounds__(THREADS, 1)
+logits_write_kernel(const __grid_constant__ CUtensorMap h_map,
+                    const __grid_constant__ CUtensorMap w_map,
+                    const __grid_constant__ CUtensorMap out_map, const Logit logit, int M,
+                    int V, int boxes, int chunk_tiles) {
+  using Ring = RowRing<typename Logit::Op, RG, RES, BOXES, write_extra(RG)>;
+  constexpr int NW = Ring::N;              // a warpgroup's columns of a tile
+  constexpr int BOXES_W = NW / OUT_BOX;    // its boxes of a tile: 2·RG
+  constexpr int SLOTS = WRITE_SLOTS < BOXES_W ? WRITE_SLOTS : BOXES_W;
+  extern __shared__ __align__(128) unsigned char smem[];
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const bool leader = tid % 128 == 0;
+  const int m0 = blockIdx.y * RG * BT;
+  const int tiles = (V + TV - 1) / TV;
+  const int t0 = blockIdx.x * chunk_tiles;
+  const int n_tiles = max(0, min(tiles, t0 + chunk_tiles) - t0);
+  const Ring ring(smem, boxes, &h_map, &w_map, m0, t0, n_tiles);
+  ring.start();
+
+  // this thread's rows r + 8·ii of its warpgroup's 64 (from row0), columns
+  // 8n + cq + j of its warpgroup's NW (row_ring.cuh's accumulator layout)
+  const int r = warp * 16 + lane / 4;
+  const int cq = 2 * (lane % 4);
+  const int row0 = m0 + (RG == 2 ? wg * BT : 0);
+  float rs[2];
+#pragma unroll
+  for (int ii = 0; ii < 2; ++ii) rs[ii] = logit.row_scale(min(row0 + r + 8 * ii, M - 1));
+  unsigned char* stage = ring.extra + wg * SLOTS * OUT_BOX_BYTES;
+  int staged = 0;                          // boxes this warpgroup has staged
+  typename Ring::Acc acc[NW / 2];
+  ring.wait_rows();
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int v0 = (t0 + i) * TV + (RG == 1 ? wg * NW : 0);  // the warpgroup's first column
+    const int cb = v0 + cq;                                   // this thread's
+    // the tile's column parameters, requested before its products
+    typename Logit::Col col[NW / 4];
+#pragma unroll
+    for (int n = 0; n < NW / 8; ++n)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) col[2 * n + j] = logit.col(cb + 8 * n + j, V);
+    ring.product(i, acc);
+    // RG = 1: this warpgroup's half of the last tile may lie past V
+    if (v0 >= V) continue;
+
+    // box q: columns 32q.. of the warpgroup's, n = 4q..4q + 3, into slot
+    // `staged` % SLOTS, a group of its own: column 8n + cq of row rw in
+    // 16-byte chunk (2·(n % 4) + cq / 4) ^ rw % 8, at byte 4·(cq % 4)
+#pragma unroll
+    for (int q = 0; q < BOXES_W; ++q, ++staged) {
+      if (v0 + q * OUT_BOX >= V) break;
+      unsigned char* buf = stage + (staged % SLOTS) * OUT_BOX_BYTES;
+      if (staged >= SLOTS) {   // the slot's last store has read it
+        if (leader) tma_store_wait_read<SLOTS - 1>();
+        asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+      }
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii) {
+        const int rw = r + 8 * ii;
+#pragma unroll
+        for (int n = 4 * q; n < 4 * q + 4; ++n)
+          *reinterpret_cast<float2*>(buf + rw * 128 + (((2 * (n % 4) + cq / 4) ^ (rw & 7)) << 4) +
+                                     (cq % 4) * 4) =
+              make_float2(Logit::value(acc[4 * n + 2 * ii], rs[ii], col[2 * n]),
+                          Logit::value(acc[4 * n + 2 * ii + 1], rs[ii], col[2 * n + 1]));
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+      if (leader && row0 < M) {
+        tma_store(&out_map, buf, v0 + q * OUT_BOX, row0);
+        tma_store_commit();
+      }
+    }
+  }
+  // the staging slots stay allocated until every store has read them
+  if (leader) tma_store_wait_read<0>();
+}
+
 struct Launch {
   CUtensorMap h_map, w_map;
   Parts part;
@@ -445,7 +538,7 @@ int launch(const Launch& a, const Logit& logit, const Score& score) {
   logits_topk_kernel<Logit, RG, RES, BOXES, Score, K><<<grid, THREADS, L.smem, a.st>>>(
       a.h_map, a.w_map, logit, score, a.part, a.M, a.V, a.boxes, a.chunk_tiles);
   err = static_cast<int>(cudaGetLastError());
-  if (err || Score::kWrite) return err;
+  if (err) return err;
   const int P = a.chunks * (RG == 1 ? 2 : 1);
   logits_topk_merge_kernel<K, Score::kLse>
       <<<(a.M * MERGE_LANES + MERGE_THREADS - 1) / MERGE_THREADS, MERGE_THREADS, 0, a.st>>>(
@@ -454,25 +547,63 @@ int launch(const Launch& a, const Logit& logit, const Score& score) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// the block shape: 128 rows resident (top-k lists of up to 10, and the
-// logits writer), 64 rows resident, or 64 rows streamed (128-row sampler
-// blocks spilled: its Philox words beside 64 accumulators); the decode's
-// own blocks (128 rows of top-k and of the writer, 64 of the sampler) at
-// the decode's width with the box count at compile time
+// the block shape: 128 rows resident (top-k lists of up to 10), 64 rows
+// resident, or 64 rows streamed (128-row sampler blocks spilled: its
+// Philox words beside 64 accumulators); the decode's own blocks (128 rows
+// of top-k, 64 of the sampler) at the decode's width with the box count
+// at compile time
 template <class Logit, class Score, int K>
 int launch_rows(const Launch& a, const Logit& logit, const Score& score) {
   constexpr int B = Logit::BOXES;
   if (a.rows == 128 && a.resident) {
-    if constexpr (K <= 10 && (Score::kLse || Score::kWrite))
+    if constexpr (K <= 10 && Score::kLse)
       return a.boxes == B ? launch<Logit, 2, true, B, Score, K>(a, logit, score)
                           : launch<Logit, 2, true, 0, Score, K>(a, logit, score);
   } else if (a.rows == 64) {
     if (!a.resident) return launch<Logit, 1, false, 0, Score, K>(a, logit, score);
-    if constexpr (!Score::kLse && !Score::kWrite) {
+    if constexpr (!Score::kLse) {
       if (a.boxes == B) return launch<Logit, 1, true, B, Score, K>(a, logit, score);
     }
     return launch<Logit, 1, true, 0, Score, K>(a, logit, score);
   }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the writer into logits [M, V] f32 in rows of `pitch` floats
+template <class Logit, int RG, bool RES, int BOXES>
+int launch_write(const Launch& a, const Logit& logit, float* logits, int pitch) {
+  const RingLayout L = ring_layout(a.boxes, RG, RES, write_extra(RG));
+  if (L.stages < 2) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap out_map;
+  int err = tile_map(&out_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, logits, a.M, a.V, BT, pitch);
+  if (err) return err;
+  static uint32_t smem_set = 0;   // a bit per device
+  int dev = 0;
+  err = static_cast<int>(cudaGetDevice(&dev));
+  if (err) return err;
+  if (dev >= 32 || !(smem_set >> dev & 1u)) {
+    err = allow_smem(logits_write_kernel<Logit, RG, RES, BOXES>, SMEM_MAX);
+    if (err) return err;
+    if (dev < 32) smem_set |= 1u << dev;
+  }
+  const dim3 grid(a.chunks, (a.M + RG * BT - 1) / (RG * BT));
+  logits_write_kernel<Logit, RG, RES, BOXES><<<grid, THREADS, L.smem, a.st>>>(
+      a.h_map, a.w_map, out_map, logit, a.M, a.V, a.boxes, a.chunk_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the writer at the plan's block shape (that of lists of one): 128 rows
+// resident, at the decode's width with the box count at compile time; 64
+// rows resident or streamed
+template <class Logit>
+int launch_write_rows(const Launch& a, const Logit& logit, float* logits, int pitch) {
+  constexpr int B = Logit::BOXES;
+  if (a.rows == 128 && a.resident)
+    return a.boxes == B ? launch_write<Logit, 2, true, B>(a, logit, logits, pitch)
+                        : launch_write<Logit, 2, true, 0>(a, logit, logits, pitch);
+  if (a.rows == 64)
+    return a.resident ? launch_write<Logit, 1, true, 0>(a, logit, logits, pitch)
+                      : launch_write<Logit, 1, false, 0>(a, logit, logits, pitch);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -506,6 +637,9 @@ bool bad_plan(int M, int V, int rows, int resident, int chunk_tiles, int chunks)
   return M <= 0 || V <= 0 || !(rows == 128 || rows == 64) || (rows == 128 && !resident) ||
          chunk_tiles <= 0 || chunks != (tiles + chunk_tiles - 1) / chunk_tiles;
 }
+
+// the written logits' row pitch: at least V floats, 16-byte rows
+bool bad_pitch(int V, int pitch) { return pitch < V || pitch % 4 != 0; }
 
 Launch plan_args(void* part_vals, void* part_idx, void* part_max, void* part_sum,
                  void* vals, void* idx, void* lse, int M, int V, int boxes, int rows,
@@ -579,14 +713,17 @@ extern "C" int vct_fused_logits_top_k_int8(
 }
 
 // The logits written for lists past 16: logits [M, V] f32 = h W + b, as
-// the bf16 top-k's fold sees them; the block shape and chunks of lists of
-// one (k = 1 in vct_fused_logits_top_k_block and chunk_plan).
+// the bf16 top-k's fold sees them, in rows of `pitch` floats (pitch >= V,
+// a multiple of 4; logits 16-byte aligned; the columns past V are not
+// written); the block shape and chunks of lists of one (k = 1 in
+// vct_fused_logits_top_k_block and chunk_plan).
 extern "C" int vct_fused_logits_write(const void* h, const void* w_t, const void* b,
-                                      void* logits, int M, int H, int V, int rows,
-                                      int resident, int chunk_tiles, int chunks,
+                                      void* logits, int M, int H, int V, int pitch,
+                                      int rows, int resident, int chunk_tiles, int chunks,
                                       void* stream) {
   if (M <= 0) return 0;
-  if (H <= 0 || H % 32 != 0 || bad_plan(M, V, rows, resident, chunk_tiles, chunks))
+  if (H <= 0 || H % 32 != 0 || bad_pitch(V, pitch) ||
+      bad_plan(M, V, rows, resident, chunk_tiles, chunks))
     return static_cast<int>(cudaErrorInvalidValue);
   Launch a = plan_args(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, M, V,
                        (H * 2 + 127) / 128, rows, resident, chunk_tiles, chunks, 1, stream);
@@ -594,19 +731,21 @@ extern "C" int vct_fused_logits_write(const void* h, const void* w_t, const void
   if (err) return err;
   err = row_tile_map(&a.w_map, static_cast<const bf16*>(w_t), V, H, TV);
   if (err) return err;
-  return launch_rows<Bf16Logit, WriteLogits, 1>(a, Bf16Logit{static_cast<const float*>(b)},
-                                                WriteLogits{static_cast<float*>(logits)});
+  return launch_write_rows(a, Bf16Logit{static_cast<const float*>(b)},
+                           static_cast<float*>(logits), pitch);
 }
 
 // The int8 logits written: logits [M, V] f32 = (f32(hq wq) hs) ws + b, bit
-// for bit; operands as vct_fused_logits_top_k_int8, plan as
-// vct_fused_logits_write.
+// for bit; operands as vct_fused_logits_top_k_int8, logits, pitch and plan
+// as vct_fused_logits_write.
 extern "C" int vct_fused_logits_write_int8(const void* hq, const void* hs, const void* wq_t,
                                            const void* ws, const void* b, void* logits,
-                                           int M, int H, int V, int rows, int resident,
-                                           int chunk_tiles, int chunks, void* stream) {
+                                           int M, int H, int V, int pitch, int rows,
+                                           int resident, int chunk_tiles, int chunks,
+                                           void* stream) {
   if (M <= 0) return 0;
-  if (H <= 0 || H % 64 != 0 || bad_plan(M, V, rows, resident, chunk_tiles, chunks))
+  if (H <= 0 || H % 64 != 0 || bad_pitch(V, pitch) ||
+      bad_plan(M, V, rows, resident, chunk_tiles, chunks))
     return static_cast<int>(cudaErrorInvalidValue);
   Launch a = plan_args(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, M, V,
                        (H + 127) / 128, rows, resident, chunk_tiles, chunks, 1, stream);
@@ -614,10 +753,10 @@ extern "C" int vct_fused_logits_write_int8(const void* hq, const void* hs, const
   if (err) return err;
   err = s8_tile_map(&a.w_map, static_cast<const signed char*>(wq_t), V, H, TV);
   if (err) return err;
-  return launch_rows<S8Logit, WriteLogits, 1>(
-      a, S8Logit{static_cast<const float*>(hs), static_cast<const float*>(ws),
-                 static_cast<const float*>(b)},
-      WriteLogits{static_cast<float*>(logits)});
+  return launch_write_rows(a, S8Logit{static_cast<const float*>(hs),
+                                      static_cast<const float*>(ws),
+                                      static_cast<const float*>(b)},
+                           static_cast<float*>(logits), pitch);
 }
 
 // One Gumbel-max draw per row: tokens [M] int32.  Workspace part_vals and
@@ -659,5 +798,14 @@ extern "C" int vct_fused_logits_top_k_block(int H, int int8, int k, int rows) {
 extern "C" int vct_fused_logits_top_k_smem(int H, int int8, int rows, int resident) {
   const RingLayout L =
       ring_layout((H * (int8 ? 1 : 2) + 127) / 128, rows == 128 ? 2 : 1, resident != 0, 0);
+  return L.stages < 2 ? -1 : L.smem;
+}
+
+// The writer's dynamic shared memory (its ring beside the staging slots),
+// as vct_fused_logits_top_k_smem.
+extern "C" int vct_fused_logits_write_smem(int H, int int8, int rows, int resident) {
+  const int rg = rows == 128 ? 2 : 1;
+  const RingLayout L =
+      ring_layout((H * (int8 ? 1 : 2) + 127) / 128, rg, resident != 0, write_extra(rg));
   return L.stages < 2 ? -1 : L.smem;
 }

@@ -9,11 +9,13 @@
 //     vals, idx = top_k(x, k)     ties go to the lowest index
 //     lse = logsumexp(x)
 //
-// x [N,V] f32 -> vals [N,k] f32, idx [N,k] int32, lse [N] f32, for
-// 1 <= k <= V.  Values are copied, never computed, so vals and idx equal
-// a stable sort's prefix bit for bit; only lse differs from the plain
-// version, by sum order.  Up to k = 64 (the warp lists) a row needs at
-// least k values above -inf.
+// x [N,V] f32 (rows `pitch` floats apart, pitch >= V: the fused decodes'
+// writer pads its rows to 16 bytes) -> vals [N,k] f32, idx [N,k] int32,
+// lse [N] f32, for 1 <= k <= V.  Values are copied, never computed, so
+// vals and idx equal a stable sort's prefix bit for bit; only lse differs
+// from the plain version, by sum order (which follows where each row meets
+// a 16-byte boundary).  Up to k = 64 (the warp lists) a row needs at least
+// k values above -inf.
 //
 // What bounds it on this card: reading x once (70.7 MB at N = 1536, V =
 // 11500: 21 us at 3.35 TB/s; 235 MB, 70 us, at N = 5120).  The TPU kernel
@@ -23,9 +25,10 @@
 //
 // * Bytes in flight: 16-byte loads (ld.global.cs), with a scalar head of
 //   0-3 values up to the first 16-byte boundary (a row of 11519 floats
-//   starts at any 4-byte offset) and a scalar tail.  A lane loads U = 8
-//   float4 a chunk (4 KB a warp) into one of two register buffers while it
-//   folds the other, so its loads stay outstanding through the arithmetic.
+//   starts at any 4-byte offset; a pitched row may too) and a scalar
+//   tail.  A lane loads U = 8 float4 a chunk (4 KB a warp) into one of two
+//   register buffers while it folds the other, so its loads stay
+//   outstanding through the arithmetic.
 // * Whole waves: a persistent grid, two 8-warp blocks an SM (launch
 //   bounds), each warp striding over rows; row r goes to block r mod G,
 //   so consecutive rows land on different SMs and each SM holds N / 132
@@ -248,12 +251,13 @@ __device__ __forceinline__ void load(float4 (&b)[U], const float4* __restrict__ 
 template <int K, int S>
 __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
 topk_lse_kernel(const float* __restrict__ x, float* __restrict__ vals,
-                int* __restrict__ idx, float* __restrict__ lse, int N, int V, int k) {
+                int* __restrict__ idx, float* __restrict__ lse, int N, int V, int pitch,
+                int k) {
   __shared__ float4 stage[WARPS][CHUNK];
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
   for (int row = warp * gridDim.x + blockIdx.x; row < N; row += gridDim.x * WARPS) {
-    const float* xr = x + static_cast<size_t>(row) * V;
+    const float* xr = x + static_cast<size_t>(row) * pitch;
     // columns [0, h) scalar, [h, h + 4 nv) as float4, the rest scalar
     const int h = min(V, static_cast<int>((16 - (reinterpret_cast<uintptr_t>(xr) & 15)) & 15) / 4);
     const int nv = (V - h) / 4;
@@ -332,13 +336,13 @@ __device__ __forceinline__ float block_reduce(float v, float* red, Op op) {
 __global__ void __launch_bounds__(SORT_THREADS)
 topk_sort_kernel(const float* __restrict__ x, float* __restrict__ vals, int* __restrict__ idx,
                  float* __restrict__ lse, unsigned long long* __restrict__ work, int N, int V,
-                 int k, int n_pad) {
+                 int pitch, int k, int n_pad) {
   extern __shared__ unsigned long long skey[];
   __shared__ float red[SORT_THREADS / 32];
   unsigned long long* key = work ? work + static_cast<size_t>(blockIdx.x) * n_pad : skey;
   const int tid = threadIdx.x;
   for (int row = blockIdx.x; row < N; row += gridDim.x) {
-    const float* xr = x + static_cast<size_t>(row) * V;
+    const float* xr = x + static_cast<size_t>(row) * pitch;
     float m = -INFINITY;
     for (int c = tid; c < n_pad; c += SORT_THREADS) {
       const float v = c < V ? xr[c] : -INFINITY;
@@ -383,14 +387,14 @@ int sort_pad(int V) {
 // the longest warp list: 2 entries a lane (ops/topk_lse.py: K_LIST)
 #define VCT_TOPK_LSE_K_MAX 64
 
-// x [N,V] f32 contiguous; vals [N,k] f32, idx [N,k] int32, lse [N] f32,
-// 1 <= k <= min(V, 64); sms: the card's streaming multiprocessors.
-// Returns a cudaError_t as int.
+// x [N,V] f32 in rows of `pitch` floats (pitch >= V); vals [N,k] f32, idx
+// [N,k] int32, lse [N] f32, 1 <= k <= min(V, 64); sms: the card's
+// streaming multiprocessors.  Returns a cudaError_t as int.
 extern "C" int vct_top_k_logsumexp(const void* x, void* vals, void* idx,
-                                   void* lse, int N, int V, int k, int sms,
+                                   void* lse, int N, int V, int pitch, int k, int sms,
                                    void* stream) {
   if (N <= 0) return 0;
-  if (V <= 0 || sms <= 0 || k < 1 || k > VCT_TOPK_LSE_K_MAX || k > V)
+  if (V <= 0 || pitch < V || sms <= 0 || k < 1 || k > VCT_TOPK_LSE_K_MAX || k > V)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* xp = static_cast<const float*>(x);
@@ -400,7 +404,7 @@ extern "C" int vct_top_k_logsumexp(const void* x, void* vals, void* idx,
   const int grid = min((N + WARPS - 1) / WARPS, sms * BLOCKS_PER_SM);
 #define VCT_CASE(KK)                                                           \
   case KK:                                                                     \
-    topk_lse_kernel<KK, 1><<<grid, THREADS, 0, s>>>(xp, vp, ip, lp, N, V, k); \
+    topk_lse_kernel<KK, 1><<<grid, THREADS, 0, s>>>(xp, vp, ip, lp, N, V, pitch, k); \
     break;
   switch (k) {
     VCT_CASE(1) VCT_CASE(2) VCT_CASE(3) VCT_CASE(4)
@@ -409,9 +413,9 @@ extern "C" int vct_top_k_logsumexp(const void* x, void* vals, void* idx,
     VCT_CASE(13) VCT_CASE(14) VCT_CASE(15) VCT_CASE(16)
     default:
       if (k <= 32)
-        topk_lse_kernel<0, 1><<<grid, THREADS, 0, s>>>(xp, vp, ip, lp, N, V, k);
+        topk_lse_kernel<0, 1><<<grid, THREADS, 0, s>>>(xp, vp, ip, lp, N, V, pitch, k);
       else
-        topk_lse_kernel<0, 2><<<grid, THREADS, 0, s>>>(xp, vp, ip, lp, N, V, k);
+        topk_lse_kernel<0, 2><<<grid, THREADS, 0, s>>>(xp, vp, ip, lp, N, V, pitch, k);
   }
 #undef VCT_CASE
   return static_cast<int>(cudaGetLastError());
@@ -425,15 +429,16 @@ extern "C" int vct_top_k_logsumexp_sort_workspace(int N, int V, int sms) {
   return bytes > 0x7fffffffLL ? -1 : static_cast<int>(bytes);
 }
 
-// Lists of any length, 1 <= k <= V (the decode takes it past 64): x, vals,
-// idx, lse as vct_top_k_logsumexp; work: vct_top_k_logsumexp_sort_workspace
-// bytes (null where that is 0).  Returns a cudaError_t as int.
+// Lists of any length, 1 <= k <= V (the decode takes it past 64): x, pitch,
+// vals, idx, lse as vct_top_k_logsumexp; work:
+// vct_top_k_logsumexp_sort_workspace bytes (null where that is 0).
+// Returns a cudaError_t as int.
 extern "C" int vct_top_k_logsumexp_sort(const void* x, void* vals, void* idx, void* lse,
-                                        void* work, int N, int V, int k, int sms,
+                                        void* work, int N, int V, int pitch, int k, int sms,
                                         void* stream) {
   if (N <= 0) return 0;
   const bool smem = V <= SORT_SMEM_COLS;
-  if (V <= 0 || sms <= 0 || k < 1 || k > V || (!smem && work == nullptr))
+  if (V <= 0 || pitch < V || sms <= 0 || k < 1 || k > V || (!smem && work == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_pad = sort_pad(V);
   const int bytes = smem ? 8 * n_pad : 0;
@@ -445,6 +450,6 @@ extern "C" int vct_top_k_logsumexp_sort(const void* x, void* vals, void* idx, vo
   topk_sort_kernel<<<min(N, sms), SORT_THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<float*>(vals), static_cast<int*>(idx),
       static_cast<float*>(lse), smem ? nullptr : static_cast<unsigned long long*>(work), N, V,
-      k, n_pad);
+      pitch, k, n_pad);
   return static_cast<int>(cudaGetLastError());
 }

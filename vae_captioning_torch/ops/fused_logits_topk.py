@@ -20,14 +20,18 @@ On CUDA tensors the wrappers launch ``csrc/fused_logits_topk.cu`` (a
 wgmma + TMA partial kernel over vocab chunks, then a merge launch), which
 never stores the [M, V] logits; on CPU tensors they take the plain
 versions.  The kernels' lists hold at most ``K_MAX`` = 16 entries: for a
-wider k (beams of 17 and more) the top-k wrappers launch the same kernel
-with its fold replaced by a store of the f32 logits (bf16: acc + b; int8
-bit for bit as :func:`int8_logits`), counted as the wrapper's launch, and
-take the top-k + logsumexp kernel over them (``ops/topk_lse.py``), which
-counts its own.  The kernels read the head transposed, W^T [V, H] contiguous:
-the decode stores it so (``w.t().contiguous().t()``, once per build), and
-the wrappers pass ``w.t().contiguous()``, which copies nothing for that
-layout and transposes any other.  The bf16 kernels take H in multiples
+wider k (beams of 17 and more) the top-k wrappers launch the writer, the
+same product with no fold, which stores the f32 logits (bf16: acc + b;
+int8 bit for bit as :func:`int8_logits`), counted as the wrapper's
+launch, and take the top-k + logsumexp kernel over them
+(``ops/topk_lse.py``), which counts its own.  The writer stages its tiles
+in shared memory and stores them by TMA, whose tensor maps need 16-byte
+rows: it writes into rows of :func:`logits_pitch` floats and hands over
+the ``[M, V]`` view (:func:`pitched_logits`), which the top-k kernel
+reads at that pitch.  The kernels read the head transposed, W^T [V, H]
+contiguous: the decode stores it so (``w.t().contiguous().t()``, once per
+build), and the wrappers pass ``w.t().contiguous()``, which copies
+nothing for that layout and transposes any other.  The bf16 kernels take H in multiples
 of 32 and the int8 kernel in multiples of 64: at other widths the
 wrappers zero-pad h's columns and W^T's (:func:`pad_logits`, once a
 call; exact, the added terms are 0·0, and zeros leave int8's per-row
@@ -167,13 +171,26 @@ def _plan_args(plan: LogitsPlan) -> tuple:
     return plan.rows, int(plan.resident), plan.chunk_tiles, plan.chunks
 
 
+def logits_pitch(V: int) -> int:
+    """The written logits' row pitch in floats: V rounded up to 4, the
+    16-byte rows a TMA tensor map needs."""
+    return round_up(V, 4)
+
+
+def pitched_logits(M: int, V: int, device) -> torch.Tensor:
+    """The [M, V] f32 view of an uninitialised [M, logits_pitch(V)]
+    buffer, the writer's output (its columns past V are never written)."""
+    return torch.empty((M, logits_pitch(V)), dtype=torch.float32,
+                       device=device)[:, :V]
+
+
 def _write_logits(name: str, M: int, H: int, V: int, elem_bytes: int,
                   dev, ptrs: tuple, plan: LogitsPlan = None) -> torch.Tensor:
-    """The kernel's logits [M, V] f32, stored by its writer instance
+    """The kernel's logits [M, V] f32, stored by its writer
     (``vct_fused_logits_write``, or ``_int8`` where ``elem_bytes`` is 1)
-    over the operands' pointers ``ptrs``; ``plan`` defaults to
-    :func:`logits_plan`'s for lists of one."""
-    logits = torch.empty((M, V), dtype=torch.float32, device=dev)
+    over the operands' pointers ``ptrs`` into :func:`pitched_logits`;
+    ``plan`` defaults to :func:`logits_plan`'s for lists of one."""
+    logits = pitched_logits(M, V, dev)
     if M:
         plan = plan or logits_plan(M, H, V, 1, elem_bytes,
                                    _ext.sm_count(dev.index or 0))
@@ -181,8 +198,8 @@ def _write_logits(name: str, M: int, H: int, V: int, elem_bytes: int,
         fn = lib.vct_fused_logits_write_int8 if elem_bytes == 1 \
             else lib.vct_fused_logits_write
         with _ext.device_scope(dev):
-            err = fn(*ptrs, logits.data_ptr(), M, H, V, *_plan_args(plan),
-                     _ext.stream_ptr(dev))
+            err = fn(*ptrs, logits.data_ptr(), M, H, V, logits_pitch(V),
+                     *_plan_args(plan), _ext.stream_ptr(dev))
         _ext.check_launch(err, name)
         _ext.LAUNCHES[name] += 1
     return logits
@@ -282,7 +299,8 @@ def logits_top_k_kernel(h: torch.Tensor, w_t: torch.Tensor, b: torch.Tensor,
 def logits_kernel(h: torch.Tensor, w_t: torch.Tensor, b: torch.Tensor,
                   plan: LogitsPlan = None) -> torch.Tensor:
     """The bf16 kernel's logits written, [M, V] f32 (its accumulators plus
-    b: :func:`bf16_logits` to sum order), operands as
+    b: :func:`bf16_logits` to sum order; the view of rows
+    :func:`logits_pitch` floats apart), operands as
     :func:`logits_top_k_kernel`'s; what that function hands the top-k +
     logsumexp kernel past K_MAX."""
     M, H, V = _check_bf16(NAME, h, w_t, b)
@@ -402,8 +420,9 @@ def int8_top_k_kernel(hq: torch.Tensor, hs: torch.Tensor, wq: torch.Tensor,
 def int8_logits_kernel(hq: torch.Tensor, hs: torch.Tensor, wq: torch.Tensor,
                        ws: torch.Tensor, b: torch.Tensor,
                        plan: LogitsPlan = None) -> torch.Tensor:
-    """The int8 kernel's logits written, [M, V] f32, bit for bit
-    :func:`int8_logits`; operands as :func:`int8_top_k_kernel`'s."""
+    """The int8 kernel's logits written, [M, V] f32 (a view, as
+    :func:`logits_kernel`'s), bit for bit :func:`int8_logits`; operands
+    as :func:`int8_top_k_kernel`'s."""
     M, H, V, wq_t = _check_int8(hq, hs, wq, ws, b)
     return _write_logits(INT8, M, H, V, 1, hq.device,
                          (hq.data_ptr(), hs.data_ptr(), wq_t.data_ptr(),

@@ -17,7 +17,9 @@ same file's block-a-row bitonic sort (no beam search of the repository
 runs such lists; it is exact and simple, not fast).  On CPU tensors it
 takes the plain version.  The values are copied, so both give
 the same values and indices bit for bit; the logsumexp differs by sum
-order.
+order.  The kernels read x in rows of any pitch (:func:`row_pitch`): the
+fused decodes' writer pads its rows to 16 bytes and hands over the
+``[N, V]`` view.
 """
 
 from __future__ import annotations
@@ -48,8 +50,21 @@ def top_k_logsumexp_plain(x: torch.Tensor, k: int) -> Result:
     return vals, idx.to(torch.int32), torch.logsumexp(x, dim=-1)
 
 
+def row_pitch(x: torch.Tensor) -> int:
+    """The row pitch (floats) at which the kernels read x [N, V]: its row
+    stride, V for a single row; ValueError where a row is not contiguous
+    or rows overlap."""
+    N, V = x.shape
+    pitch = x.stride(0) if N > 1 else V
+    _ext.require((x.stride(1) == 1 or V == 1) and pitch >= V,
+                 f"{NAME}: x's rows must be contiguous and apart, got strides "
+                 f"{tuple(x.stride())} at shape {tuple(x.shape)}")
+    return pitch
+
+
 def top_k_logsumexp(x: torch.Tensor, k: int) -> Result:
-    """x [N, V] f32 → (values [N, k] f32, indices [N, k] int32, logsumexp
+    """x [N, V] f32, each row contiguous, rows any pitch apart (a view of
+    wider rows) → (values [N, k] f32, indices [N, k] int32, logsumexp
     [N] f32), 1 <= k <= V.  CPU tensors take the plain version; CUDA
     tensors launch the warp kernel (k <= K_LIST) or the sort kernel, or
     raise."""
@@ -61,7 +76,7 @@ def top_k_logsumexp(x: torch.Tensor, k: int) -> Result:
         f"{NAME}: x must be a float32 matrix, got {x.dtype} {tuple(x.shape)}")
     N, V = x.shape
     req(1 <= k <= V, f"{NAME}: k={k} outside [1, V={V}]")
-    req(x.is_contiguous(), f"{NAME}: x must be contiguous")
+    pitch = row_pitch(x)
     dev = x.device
     vals = torch.empty((N, k), dtype=torch.float32, device=dev)
     idx = torch.empty((N, k), dtype=torch.int32, device=dev)
@@ -70,7 +85,7 @@ def top_k_logsumexp(x: torch.Tensor, k: int) -> Result:
     outs = (x.data_ptr(), vals.data_ptr(), idx.data_ptr(), lse.data_ptr())
     with _ext.device_scope(dev):
         if k <= K_LIST:
-            err = lib.vct_top_k_logsumexp(*outs, N, V, k, sms,
+            err = lib.vct_top_k_logsumexp(*outs, N, V, pitch, k, sms,
                                           _ext.stream_ptr(dev))
         else:
             nbytes = lib.vct_top_k_logsumexp_sort_workspace(N, V, sms)
@@ -78,8 +93,8 @@ def top_k_logsumexp(x: torch.Tensor, k: int) -> Result:
                 "passes 2 GiB")
             work = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
             err = lib.vct_top_k_logsumexp_sort(
-                *outs, work.data_ptr() if nbytes else None, N, V, k, sms,
-                _ext.stream_ptr(dev))
+                *outs, work.data_ptr() if nbytes else None, N, V, pitch, k,
+                sms, _ext.stream_ptr(dev))
     _ext.check_launch(err, NAME)
     _ext.LAUNCHES[NAME] += 1
     return vals, idx, lse

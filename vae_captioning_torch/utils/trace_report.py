@@ -31,7 +31,7 @@ import collections
 import glob
 import json
 import os
-from typing import Dict, List, NamedTuple
+from typing import Dict, List, NamedTuple, Optional
 
 DEVICE = "device"
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -92,6 +92,24 @@ def aggregate(path: str) -> Dict[str, List[OpStats]]:
         raise ValueError(f"{path}: the trace holds no duration event")
     return {plane: [OpStats(n, d, cnt[plane][n]) for n, d in c.most_common()]
             for plane, c in sorted(dur.items())}
+
+
+def partial_trace(events, reps: int) -> Optional[str]:
+    """Why a trace of ``reps`` calls of one function lost events, or None
+    where it is whole.  ``events`` are the trace's device events as
+    (name, ...) tuples; a call launches the same kernels each time, so in
+    a whole trace every name occurs a nonzero multiple of ``reps`` times
+    (and some name occurs).  A trace that dropped some events would
+    otherwise undercount the calls' device time without a word."""
+    if not events:
+        return "no device event"
+    counts = collections.Counter(ev[0] for ev in events)
+    odd = sorted((n, c) for n, c in counts.items() if c % reps)
+    if odd:
+        name, count = odd[0]
+        return (f"{len(odd)} of {len(counts)} names occur a count that is not a "
+                f"multiple of {reps} calls (as {name[:60]!r}: {count})")
+    return None
 
 
 def format_report(stats: Dict[str, List[OpStats]], top: int = 20,
