@@ -223,7 +223,8 @@ from vae_captioning_torch.ops.fused_logits_topk import (  # noqa: E402
     fused_logits_top_k, fused_logits_top_k_int8, fused_logits_top_k_int8_plain,
     fused_logits_top_k_plain, int8_logits, int8_logits_kernel,
     int8_top_k_kernel, int8_top_k_plain, logits_kernel, logits_plan,
-    logits_top_k_kernel, quantize_logits_weights, quantize_rows, sample_scores)
+    logits_top_k_kernel, pitched_logits, quantize_logits_weights, quantize_rows,
+    sample_scores)
 from vae_captioning_torch.ops.fused_lstm_seq import (  # noqa: E402
     fused_lstm_seq, fused_lstm_seq_plain, lstm_seq_bwd_kernel,
     lstm_seq_bwd_plain, lstm_seq_fwd_kernel, lstm_seq_fwd_plain)
@@ -235,7 +236,7 @@ from vae_captioning_torch.ops.fused_z import (  # noqa: E402
     z_bwd_kernel, z_bwd_plain, z_fwd_kernel, z_fwd_plain)
 from vae_captioning_torch.ops.padding import round_up  # noqa: E402
 from vae_captioning_torch.ops.topk_lse import (  # noqa: E402
-    top_k_logsumexp, top_k_logsumexp_plain)
+    K_LIST, top_k_logsumexp, top_k_logsumexp_plain)
 from vae_captioning_torch.parallel import mesh as dp_mesh  # noqa: E402
 from vae_captioning_torch.parallel.kernel_shard import DataParallel  # noqa: E402
 from vae_captioning_torch.train import Trainer  # noqa: E402
@@ -296,12 +297,12 @@ KERNELS = {
     "top_k_logsumexp": {
         "route": "cuda", "source": "vae_captioning_torch/csrc/topk_lse.cu",
         "replaces": "vae_captioning_tpu/ops/topk_pallas.py:36",
-        # warp lists of up to 64 (ops/topk_lse.py: K_LIST); past them a
-        # dispatch on k takes the same file's block-a-row bitonic sort; the
-        # fused top-k past 16 write their logits and route here
-        "k": "1-64: warp lists; k > 64: the bitonic-sort kernel (dispatch on k); "
-             "the fused bf16 / int8 top-k past k = 16 write their logits with "
-             "their own kernel's writer instance and call this"},
+        # warp lists of up to 32 (ops/topk_lse.py: K_LIST); past them the
+        # same file's select, a block a row (topk_select_kernel); the fused
+        # top-k past 16 write their logits and route here
+        "k": "1-32: warp lists; k > 32: the select kernel, a block a row on the row "
+             "staged in shared memory; the fused bf16 / int8 top-k past k = 16 write "
+             "their logits with their own kernel's writer instance and call this"},
     "fused_linear_ce_mat_fwd": {
         "route": "cuda", "source": "vae_captioning_torch/csrc/fused_ce.cuh",
         "replaces": "vae_captioning_tpu/ops/fused_ce.py:304"},
@@ -824,13 +825,20 @@ SAMPLE_SHAPES = ((512, 11500, 512), (1000, 11519, 512), (1, 11519, 512),
 # (V = 11519), lists of 16 and of 1, and rows shorter than a float4
 LSE_SHAPES = ((1536, 11519, 10), (5120, 11500, 3), (1, 11519, 16), (2113, 11519, 1),
               (13, 1000, 16), (13, 3, 3))
+# the select past lists of 32 timed (N, V, k, on the writer's pitched rows):
+# beam 40 and 64 of 512 images, the lists past 64 of WIDE_LSE_SHAPES, beam
+# 100 of 128 images
+SELECT_TIMES = ((20480, 11500, 40, True), (32768, 11500, 64, False),
+                (300, 11519, 65, False), (300, 11519, 256, False),
+                (12800, 11500, 100, False))
 
 
 def phase_mode_kernels() -> dict:
     """The int8 kernel at every (rows, vocab, k) the main paths give the
     top-k kernel and INT8_SHAPES, the top-k + lse kernel at beam 3 and
-    beam 10 (N = 1536, 5120), the ragged N = 1000, V = 11519, LSE_SHAPES
-    and the lists past 16 of WIDE_LSE_SHAPES, the sampler at
+    beam 10 (N = 1536, 5120), the ragged N = 1000, V = 11519, LSE_SHAPES,
+    the lists past 16 of WIDE_LSE_SHAPES and the select's ADVERSARIAL_LSE
+    rows, the sampler at
     SAMPLE_SHAPES, and the sampler's law."""
     int8 = max([check_int8(M, V, k) for M in ROWS for V in (11500, 11519)
                 for k in (1, 3, 10)] + [check_int8(*shape) for shape in INT8_SHAPES])
@@ -838,7 +846,8 @@ def phase_mode_kernels() -> dict:
                                                     (1000, 11519))
                for k in (3, 10)]
               + [check_topk_lse(N, V, k, plant=True)
-                 for N, V, k in LSE_SHAPES + WIDE_LSE_SHAPES])
+                 for N, V, k in LSE_SHAPES + WIDE_LSE_SHAPES]
+              + [timed_adversarial(*rows) for rows in ADVERSARIAL_LSE])
     sample = max(check_sample(*shape) for shape in SAMPLE_SHAPES)
     check_sample_law()
     return {"fused_logits_top_k_int8": int8, "top_k_logsumexp": lse,
@@ -965,7 +974,7 @@ def int8_library_call(hq, hs, wq, ws, b, k):
     return call
 
 
-def phase_mode_kernel_times(label: str) -> dict:
+def phase_mode_kernel_times(label: str) -> tuple:
     """The three mode kernels against their plain versions and a library
     yardstick, at the main paths' shapes; the record keeps the first
     shape of each.  int8 at beam 3 (M = 1536, k = 3), beam 10 and greedy,
@@ -974,9 +983,12 @@ def phase_mode_kernel_times(label: str) -> dict:
     sampler at the greedy
     batch (M = 512); top-k + lse at beam 3 and beam 10 (N = 1536, 5120)
     and past lists of 16, beam 20 and 32 of 512 images (N = 10240, 16384),
-    and past 64 (the sort kernel) at WIDE_LSE_SHAPES' (300, 11519, 65) and
-    (300, 11519, 256).  Bounds: int8 operations over the int8 peak, bf16
-    ones over the bf16 peak, the logits' bytes over the memory rate."""
+    and past 32 (the select) at SELECT_TIMES: beam 40 of 512 images on the
+    writer's pitched rows, beam 64 of 512, WIDE_LSE_SHAPES' (300, 11519,
+    65) and (300, 11519, 256), beam 100 of 128 images.  Bounds: int8
+    operations over the int8 peak, bf16 ones over the bf16 peak, the
+    logits' bytes over the memory rate.  Returns (the record of each
+    kernel, the select's record at each of SELECT_TIMES)."""
     times = {}
     H = 512
     for M, k in ((1536, 3), (5120, 10), (512, 1)):
@@ -1016,21 +1028,33 @@ def phase_mode_kernel_times(label: str) -> dict:
           f"torch.multinomial(softmax(logits / T))) {lib:.4f} ms, bound "
           f"{bnd[0]:.4f} ms ({bnd[1]}); device: kernel {dev[0]:.4f} ms, "
           f"library {dev[1]:.4f} ms; host per call {host:.1f} us [{label}]")
-    for N, V, k in ((1536, 11500, 3), (5120, 11500, 10), (10240, 11500, 20),
-                    (16384, 11500, 32), (300, 11519, 65), (300, 11519, 256)):
+    select = {}
+    for N, V, k, pitched in ((1536, 11500, 3, False), (5120, 11500, 10, False),
+                             (10240, 11500, 20, False), (16384, 11500, 32, False),
+                             *SELECT_TIMES):
+        t0 = time.perf_counter()
         x = unfused_logits(N, V, seed=N)
+        if pitched:
+            x = pitched_logits(N, V, DEV).copy_(x)
         t, lib, dev, host = logits_yardstick(
             lambda: top_k_logsumexp(x, k), lambda: top_k_logsumexp_plain(x, k),
             lambda: (torch.topk(x, k, dim=1), torch.logsumexp(x, dim=1)))
         bnd = bound(0.0, nbytes(x, *top_k_logsumexp(x, k)))
         times.setdefault("top_k_logsumexp", timing(t, bnd, lib))
-        print(f"time top_k_logsumexp N={N} V={V} k={k}: kernel {t[0]:.4f} "
-              f"ms, plain {t[1]:.4f} ms, library (torch.topk + "
+        if k > K_LIST:
+            select[f"N={N},V={V},k={k}"] = {**timing(t, bnd, lib), "device_ms": dev[0],
+                                            "library_device_ms": dev[1]}
+        print(f"time top_k_logsumexp N={N} V={V} k={k}{' (pitched rows)' if pitched else ''}: "
+              f"kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, library (torch.topk + "
               f"torch.logsumexp, in turns) {lib:.4f} ms, bound {bnd[0]:.4f} ms "
               f"({bnd[1]}); device: kernel {dev[0]:.4f} ms (share "
               f"{bnd[0] / dev[0]:.3f}), library {dev[1]:.4f} ms; host per call "
               f"{host:.1f} us [{label}]")
-    return times
+        del x
+        if k > K_LIST:
+            ADDED_SECONDS["select times"] = (ADDED_SECONDS.get("select times", 0.0)
+                                             + time.perf_counter() - t0)
+    return times, select
 
 
 # ----------------------------------------------------------------------
@@ -1072,10 +1096,11 @@ def full_width_model():
     return cfg, vocab, model.to(DEV).eval()
 
 
-def batchers(n_images: int, split: str, vocab, seed: int):
-    """A CaptionBatcher over an in-memory FeatureStore: synthetic names,
-    features and cluster vectors (a few detections per image; every
-    tenth image has none and takes the AG fallback)."""
+def batchers(n_images: int, split: str, vocab, seed: int, batch: int = BATCH):
+    """A CaptionBatcher of ``batch`` images a batch over an in-memory
+    FeatureStore: synthetic names, features and cluster vectors (a few
+    detections per image; every tenth image has none and takes the AG
+    fallback)."""
     rng = np.random.default_rng(seed)
     names = [f"COCO_{split}_{i:012d}.jpg" for i in range(n_images)]
     feats = np.maximum(rng.standard_normal((n_images, 4096), dtype=np.float32), 0)
@@ -1087,7 +1112,7 @@ def batchers(n_images: int, split: str, vocab, seed: int):
             vec[rng.integers(1, 91, size=rng.integers(1, 4))] = 1.0
         c_v[name] = vec
     caps = {n: [[vocab.bos_id, 4, 5, vocab.eos_id]] for n in names}
-    return CaptionBatcher(names, caps if split == "val" else {}, BATCH,
+    return CaptionBatcher(names, caps if split == "val" else {}, batch,
                           feature_store=store, cluster_vectors=c_v,
                           filename_to_imid={n: i for i, n in enumerate(names)})
 
@@ -1201,8 +1226,8 @@ class CheckedOps:
 
 def phase_decode_compare(cfg, vocab, model,
                          modes=(("beam 3", 3), ("beam 10", 10), ("greedy", 1)),
-                         seeds=DECODE_SEEDS) -> dict:
-    """Batches of 512 images decoded at beam 3, beam 10 and greedy, with
+                         seeds=DECODE_SEEDS, images: int = BATCH) -> dict:
+    """Batches of 512 images (or ``images``) decoded at beam 3, beam 10 and greedy, with
     the same z noise, three ways: through the kernels, each call checked
     against its plain version (CheckedOps); through the plain versions;
     and through the plain versions with every dot product summed in
@@ -1234,11 +1259,11 @@ def phase_decode_compare(cfg, vocab, model,
         same = {"kernel": [], "reordered": []}
         score_err = 0.0
         for seed in seeds:
-            batch = next(batchers(BATCH, "val", vocab, seed).eval_batches())
+            batch = next(batchers(images, "val", vocab, seed, images).eval_batches())
             feats = torch.from_numpy(batch.features).to(DEV)
             c_v = torch.from_numpy(batch.cluster_vectors).to(DEV)
             g = torch.Generator(device=DEV).manual_seed(seed + 1)
-            eps = torch.randn((BATCH, cfg.embed_size), generator=g, device=DEV)
+            eps = torch.randn((images, cfg.embed_size), generator=g, device=DEV)
             res = {name: fn(feats, c_v, eps=eps) for name, fn in fns.items()}
             want = res["plain"]
             for name in same:
@@ -1259,7 +1284,7 @@ def phase_decode_compare(cfg, vocab, model,
         k_share = sum(same["kernel"]) / len(seeds)
         r_share = sum(same["reordered"]) / len(seeds)
         per = lambda xs: ", ".join(f"{x:.4f}" for x in xs)  # noqa: E731
-        print(f"decode compare {mode} ({len(seeds)} batches of {BATCH} "
+        print(f"decode compare {mode} ({len(seeds)} batches of {images} "
               f"images, seeds {seeds}): per step, top-{beam} indices "
               f"identical in {step_share:.5f} of {checked.rows} rows, near-tie "
               f"rows {checked.near}, max |c', h' kernel - plain| "
@@ -1394,13 +1419,14 @@ def phase_mode_compare(cfg, vocab, model, cases=MODE_CASES,
                                  f"{checked.bad} rows without a near-tie")
 
 
-def phase_decode_times(cfg, vocab, model, label: str, cases=None) -> None:
-    """ms per decode batch of 512 images and captions/s, kernel path vs
-    plain path, by the host clock around work that ends in a copy of the
-    tokens to the host: the bf16 fused decode at beam 3, beam 10 and
-    greedy, and the sample, int8 and unfused modes, or ``cases`` (name,
-    config, decode fn)."""
-    batch = next(batchers(BATCH, "val", vocab, 6).eval_batches())
+def phase_decode_times(cfg, vocab, model, label: str, cases=None,
+                       images: int = BATCH) -> None:
+    """ms per decode batch of 512 images (or ``images``) and captions/s,
+    kernel path vs plain path, by the host clock around work that ends in
+    a copy of the tokens to the host: the bf16 fused decode at beam 3, beam
+    10 and greedy, and the sample, int8 and unfused modes, or ``cases``
+    (name, config, decode fn)."""
+    batch = next(batchers(images, "val", vocab, 6, images).eval_batches())
     feats = torch.from_numpy(batch.features).to(DEV)
     c_v = torch.from_numpy(batch.cluster_vectors).to(DEV)
 
@@ -1427,9 +1453,9 @@ def phase_decode_times(cfg, vocab, model, label: str, cases=None) -> None:
         tk, tp = turns(lambda: kern(feats, c_v, generator=g),
                        lambda: plain(feats, c_v, generator=g), host_ms)
         steps = kern(feats, c_v, generator=g).steps
-        print(f"time decode {name}, {BATCH} images, {steps} steps: kernel "
-              f"{tk:.2f} ms/batch ({BATCH / tk * 1e3:.0f} captions/s), plain "
-              f"{tp:.2f} ms/batch ({BATCH / tp * 1e3:.0f} captions/s) [{label}]")
+        print(f"time decode {name}, {images} images, {steps} steps: kernel "
+              f"{tk:.2f} ms/batch ({images / tk * 1e3:.0f} captions/s), plain "
+              f"{tp:.2f} ms/batch ({images / tp * 1e3:.0f} captions/s) [{label}]")
 
 
 # ----------------------------------------------------------------------
@@ -3279,13 +3305,80 @@ def phase_finetune(out_dir: str, npz: str, label: str) -> dict:
 # logsumexp kernel over them (ops/fused_logits_topk.py)
 WIDE_BEAMS = (20, 40)
 WIDE_SEEDS = (4,)
+# beam 100 on 128 images (N = 12,800 rows): the select past lists of 64 on
+# the decode path
+BEAM_100, BEAM_100_IMAGES = 100, 128
 # row 5 alone past lists of 16 (N, V, k): beam 20 and beam 32 of 512
-# images, lists of 17, 40 (two entries a lane), 64, and past 64 the sort
-# kernel (keys in shared memory; at V = 20000 in its global workspace),
-# planted ties
+# images, lists of 17, and past 32 the select kernel: 40, 64, 65, 100 and
+# 256 (rows staged), 600 (its winners in the global workspace), V = 20000
+# (rows read from x in each pass); planted ties
 WIDE_LSE_SHAPES = ((10240, 11500, 20), (16384, 11519, 32), (1536, 11500, 17),
                    (65, 11519, 40), (13, 1000, 64), (300, 11519, 65),
-                   (300, 11519, 256), (7, 20000, 300))
+                   (300, 11519, 256), (7, 20000, 300), (1000, 11519, 100),
+                   (64, 11519, 600))
+# the select's adversarial rows (kind, N, V, k), each held bit for bit to
+# the plain version (adversarial_logits): every value equal, -0.0 and +0.0
+# mixed at the k-th place, exactly k finite values, k = V
+ADVERSARIAL_LSE = (("equal", 300, 11519, 40), ("equal", 64, 11519, 100),
+                   ("signed zeros", 300, 11519, 40), ("signed zeros", 300, 11519, 100),
+                   ("k finite", 300, 11519, 40), ("k finite", 300, 11519, 100),
+                   ("k = V", 13, 1000, 1000), ("k = V", 5, 11519, 11519))
+
+
+def adversarial_logits(kind: str, N: int, V: int, k: int, seed: int) -> torch.Tensor:
+    """[N, V] rows that defeat a bound or a digit: ``equal`` (every value
+    0.5), ``signed zeros`` (k - 3 values above 0, then eight zeros, every
+    other one -0.0, on the k-th place and around it, the rest below 0, at
+    columns that differ by row), ``k finite`` (k normals, the rest -inf),
+    ``k = V`` (bf16-rounded normals, ties abound)."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    if kind == "equal":
+        return torch.full((N, V), 0.5, device=DEV)
+    if kind == "k = V":
+        return torch.randn((N, V), generator=g, device=DEV).to(torch.bfloat16).float()
+    cols = torch.rand((N, V), generator=g, device=DEV).argsort(dim=1)
+    if kind == "k finite":
+        x = torch.full((N, V), float("-inf"), device=DEV)
+        return x.scatter_(1, cols[:, :k], torch.randn((N, k), generator=g, device=DEV))
+    if kind != "signed zeros":
+        raise ValueError(kind)
+    x = -1.0 - torch.rand((N, V), generator=g, device=DEV)
+    x.scatter_(1, cols[:, :k - 3], 1.0 + torch.rand((N, k - 3), generator=g, device=DEV))
+    zeros = torch.zeros((N, 8), device=DEV)
+    zeros[:, ::2] = -0.0
+    return x.scatter_(1, cols[:, k - 3:k + 5], zeros)
+
+
+# seconds that the checks and timings of row 5 past k = 32 add to the run
+# (the adversarial rows, the select's timings, beam 100), printed before
+# the record lines
+ADDED_SECONDS: dict = {}
+
+
+def timed_adversarial(*rows) -> float:
+    t0 = time.perf_counter()
+    err = check_adversarial(*rows)
+    ADDED_SECONDS["adversarial rows"] = (ADDED_SECONDS.get("adversarial rows", 0.0)
+                                         + time.perf_counter() - t0)
+    return err
+
+
+def check_adversarial(kind: str, N: int, V: int, k: int) -> float:
+    """The select on adversarial_logits: values (their sign bits too) and
+    indices bit for bit, lse to its rtol."""
+    x = adversarial_logits(kind, N, V, k, seed=N + V + k)
+    vals, idx, lse = top_k_logsumexp(x, k)
+    p_vals, p_idx, p_lse = top_k_logsumexp_plain(x, k)
+    torch.cuda.synchronize()
+    tag = f"top_k_logsumexp N={N} V={V} k={k} ({kind})"
+    if not (torch.equal(vals.view(torch.int32), p_vals.view(torch.int32))
+            and torch.equal(idx, p_idx)):
+        raise AssertionError(f"{tag}: values or indices not bit-identical to the plain "
+                             "version")
+    err = compare_topk(tag, (vals, idx, lse), (p_vals, p_idx, p_lse))
+    print(f"{tag}: values (sign bits included) and indices bit-identical to the plain "
+          f"version; max |kernel - plain| {err:.3e} (lse)")
+    return err
 # the logits writers at the wide beams' rows (512 images x 20 and x 40),
 # also at the ragged vocabulary (V % 4 != 0: rows padded to 16 bytes), and
 # at their other block shapes: 64 rows resident (H = 1024), streamed (bf16
@@ -3430,20 +3523,22 @@ def phase_wide_times(label: str) -> dict:
 
 def wide_beam_launches(cfg, vocab, model, feats, c_v) -> dict:
     """One batch through the kernels at each wide beam (and int8 at beam
-    20), the counts set to 0 just before and read just after: the LSTM
-    step 3 times plus once a step, the bf16 (or int8) logits writer and
-    the top-k + lse kernel once a step each."""
-    cases = [(f"beam {b}", cfg.replace(beam_size=b)) for b in WIDE_BEAMS]
-    cases.append(("int8 beam 20", cfg.replace(beam_size=20, decode_int8=True)))
+    20) of 512 images, and at beam 100 of 128, the counts set to 0 just
+    before and read just after: the LSTM step 3 times plus once a step,
+    the bf16 (or int8) logits writer and the top-k + lse kernel once a
+    step each."""
+    cases = [(f"beam {b}", cfg.replace(beam_size=b), BATCH) for b in WIDE_BEAMS]
+    cases.append(("int8 beam 20", cfg.replace(beam_size=20, decode_int8=True), BATCH))
+    cases.append((f"beam {BEAM_100}", cfg.replace(beam_size=BEAM_100), BEAM_100_IMAGES))
     counts = dict.fromkeys(DECODE_KERNELS + MODE_KERNELS, 0)
     want = dict(counts)
     torch.cuda.synchronize()
     _ext.reset_launches()   # the wide-beam path's run starts here
     t0 = time.perf_counter()
     steps = []
-    for name, c in cases:
+    for name, c, images in cases:
         res = make_decode_fns(model, c, vocab)["beam_search"](
-            feats, c_v, generator=torch.Generator(device=DEV).manual_seed(2))
+            feats[:images], c_v[:images], generator=torch.Generator(device=DEV).manual_seed(2))
         if not bool(torch.isfinite(res.scores).all()):
             raise AssertionError(f"wide-beam {name}: non-finite beam scores")
         steps.append(res.steps)
@@ -3453,7 +3548,7 @@ def wide_beam_launches(cfg, vocab, model, feats, c_v) -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = {k: _ext.LAUNCHES[k] for k in counts}      # right after
-    print(f"wide-beam path: {', '.join(n for n, _ in cases)} on {BATCH} images "
+    print(f"wide-beam path: {', '.join(f'{n} on {i} images' for n, _, i in cases)} "
           f"({steps} steps) in {seconds:.2f} s; launches {counts}, expected {want}")
     if counts != want:
         raise AssertionError(f"wide-beam launch counts {counts} != {want}")
@@ -3461,14 +3556,15 @@ def wide_beam_launches(cfg, vocab, model, feats, c_v) -> dict:
 
 
 def phase_wide_beam(cfg, vocab, model, label: str) -> tuple:
-    """Beams 20 and 40 (bf16) and 20 (int8) on 512 images, 30 steps,
-    through ``make_decode_fns``: the path's launch counts; beam 20 and 40
-    held to the bf16 decode compare's bar (phase_decode_compare: per step,
-    and best-beam captions and scores against the plain and the
-    reversed-sum decodes), int8 beam 20 to the int8 mode's
-    (phase_mode_compare: per step); then the writer and the wide top-k
-    alone (phase_wide_times) and ms per batch, kernel path against plain
-    path.  Returns (the path's launches, the writer's record by kernel)."""
+    """Beams 20 and 40 (bf16) and 20 (int8) on 512 images, and beam 100
+    on 128 images, 30 steps, through ``make_decode_fns``: the path's launch
+    counts; beam 20, 40 and 100 held to the bf16 decode compare's bar
+    (phase_decode_compare: per step, and best-beam captions and scores
+    against the plain and the reversed-sum decodes), int8 beam 20 to the
+    int8 mode's (phase_mode_compare: per step); then the writer and the
+    wide top-k alone (phase_wide_times) and ms per batch, kernel path
+    against plain path.  Returns (the path's launches, the writer's record
+    by kernel)."""
     batch = next(batchers(BATCH, "val", vocab, 4).eval_batches())
     launches = wide_beam_launches(
         cfg, vocab, model, torch.from_numpy(batch.features).to(DEV),
@@ -3476,6 +3572,10 @@ def phase_wide_beam(cfg, vocab, model, label: str) -> tuple:
     phase_decode_compare(cfg, vocab, model,
                          modes=tuple((f"beam {b}", b) for b in WIDE_BEAMS),
                          seeds=WIDE_SEEDS)
+    t0 = time.perf_counter()
+    phase_decode_compare(cfg, vocab, model, modes=((f"beam {BEAM_100}", BEAM_100),),
+                         seeds=WIDE_SEEDS, images=BEAM_100_IMAGES)
+    ADDED_SECONDS["beam 100 compare"] = time.perf_counter() - t0
     phase_mode_compare(cfg.replace(beam_size=20), vocab, model,
                        cases=(("int8 beam 20", "decode-int8", "beam_search"),),
                        seeds=WIDE_SEEDS)
@@ -3484,6 +3584,11 @@ def phase_wide_beam(cfg, vocab, model, label: str) -> tuple:
         (f"beam {b}", cfg.replace(beam_size=b), "beam_search") for b in WIDE_BEAMS)
         + (("int8 beam 20", cfg.replace(beam_size=20, **MODES["decode-int8"]),
             "beam_search"),))
+    t0 = time.perf_counter()
+    phase_decode_times(cfg, vocab, model, label, cases=(
+        (f"beam {BEAM_100}", cfg.replace(beam_size=BEAM_100), "beam_search"),),
+        images=BEAM_100_IMAGES)
+    ADDED_SECONDS["beam 100 times"] = time.perf_counter() - t0
     return launches, writer
 
 
@@ -4638,6 +4743,11 @@ WGMMA_TEMPLATES = {
     # memory only), K at compile time or, past 16, at run time
     "topk_lse_kernel": (lambda a: f"<K={a[0] or 'run time'}, {a[1]} entries a lane>",
                         lambda a: 0),
+    # the select past lists of 32: the row staged (its dynamic shared memory
+    # at V = 11,519) or read from x in each pass (V past 16,384)
+    "topk_select_kernel": (
+        lambda a: f"<{'rows staged' if a[0] else 'rows read from x'}>",
+        lambda a: _ext.library().vct_top_k_logsumexp_select_smem(11519 if a[0] else 20000)),
 }
 
 
@@ -4809,7 +4919,8 @@ def run_phases(out_dir: str, npz: str, label: str, t0: float) -> None:
         seconds[phase] = time.perf_counter() - t_new
     print("decode-dp, deep, widths, wide, f32 and profile phases: " + ", ".join(
         f"{k} {v:.1f} s" for k, v in seconds.items()))
-    times = {**phase_kernel_times(label), **phase_mode_kernel_times(label),
+    mode_times, select_times = phase_mode_kernel_times(label)
+    times = {**phase_kernel_times(label), **mode_times,
              **phase_train_kernel_times(label), **phase_ag_kernel_times(label),
              **phase_ce_kernel_times(label), **phase_ce_mat_kernel_times(label)}
     # the CE kernels' instances past 512, timed at the wide cell's width
@@ -4820,6 +4931,8 @@ def run_phases(out_dir: str, npz: str, label: str, t0: float) -> None:
         phase_train_times(train_config(prior), train_arrays(seed=12), label, tag)
     for prior in ("GMM", "Normal"):
         phase_ce_step_times(prior, train_arrays(seed=12), label)
+    print("row 5 past k = 32, seconds its checks and timings add: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in ADDED_SECONDS.items()))
     print(f"phases: {time.perf_counter() - t0:.1f} s")
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "optax", "orbax", "vae_captioning_tpu"))
@@ -4842,7 +4955,9 @@ def run_phases(out_dir: str, npz: str, label: str, t0: float) -> None:
     # backward the instance that ran, ``kernel``, and the clusters the card
     # held, ``clusters_held``); the bf16 and int8 top-k's writer instance
     # past lists of 16 (``writer``: timed at the wide beams' rows, M, H =
-    # 512, V = 11500, with its device time and its library's)
+    # 512, V = 11500, with its device time and its library's); row 5's
+    # select past lists of 32 (``select``: its instance, and its record at
+    # each of SELECT_TIMES with its device time and its library's)
     wide_h = sorted({H for *_, H in WIDE_CE_SHAPES})
     record = {"kernels": [
         {"name": name, **meta, "path": paths[name], "launches": launches[name],
@@ -4852,7 +4967,9 @@ def run_phases(out_dir: str, npz: str, label: str, t0: float) -> None:
          **({"instances": {f"H={WIDE_HIDDEN}": {
              **wide_times[name], "max_abs_err": ce_wide_errors[name],
              "checked_at_h": wide_h}}} if name in wide_times else {}),
-         **({"writer": writer_times[name]} if name in writer_times else {})}
+         **({"writer": writer_times[name]} if name in writer_times else {}),
+         **({"select": {"instance": "topk_select_kernel<STAGED> (k > 32)",
+                        "times": select_times}} if name == "top_k_logsumexp" else {})}
         for name, meta in KERNELS.items()]}
     print(label)
     print(json.dumps(record))

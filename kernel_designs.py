@@ -1,4 +1,4 @@
-"""Device time of design variants of five kernels, built from edited copies
+"""Device time of design variants of six kernels, built from edited copies
 of their sources, in turns.
 
 The top-k + logsumexp over written logits (``csrc/topk_lse.cu``) at beam
@@ -51,9 +51,27 @@ kernel against the plain version (int8 bit for bit ``int8_logits``; bf16
 within the f32 sum-order bound); the same buffer written by ``fill_`` is
 timed beside them as a write stream's yardstick.
 
+Row 5 past k = 32 (``csrc/topk_lse.cu``, ``topk_select_kernel``) at the
+wide beams' rows (``WIDE_SELECT_SHAPES``): beam 40 of 512 images on the
+writer's pitched rows, beam 64 of 512, (300, 11519, 65 / 256) and beam
+100 of 128 images, on the unfused decode's logits.  Variants: as built
+(the threads' maxima bound the k-th value, the candidates binned), the
+parent's designs (warp lists of two entries a lane to 64, past 64 a
+1024-thread bitonic sort of the row: the source's own text, put back by
+the edits), the parent's warp lists bounded by each lane's two largest
+values, the candidates placed by count without bins, the radix select on
+every row (no bound) with an 11- or 8-bit first digit, warp-aggregated
+counting or two sub-histograms, 256 threads a block, two rows staged a
+block (two blocks an SM), one row and two blocks an SM, no staging, and,
+not exact, the stream and logsumexp alone.  Each
+exact variant's values and indices are checked bit for bit against the
+built kernel's (its lse bit for bit, or to the largest relative
+difference where its sum runs in another order), and the built kernel
+against the plain version.
+
     python3 kernel_designs.py            # from the repository's root, on a CUDA card
     python3 kernel_designs.py ce_fwd       # the named groups only (topk, eps,
-                                           # ce_fwd, ce_bwd_wide, writer)
+                                           # ce_fwd, ce_bwd_wide, writer, topk_wide)
 """
 
 from __future__ import annotations
@@ -76,6 +94,203 @@ TOPK_VARIANTS = (
       ("constexpr int BLOCKS_PER_SM = 2;", "constexpr int BLOCKS_PER_SM = 3;"))),
     ("the stream and logsumexp alone (no top-k; not exact)",
      (("    if (!__any_sync(FULL, mc > tv && mc >= low)) return;", "    return;"),)),
+)
+# the parent's lists past 32 (csrc/topk_lse.cu as it stood before the radix
+# select): warp lists of two entries a lane to k = 64, and past 64 one
+# 1024-thread block a row bitonic-sorting the row's keys in shared memory
+_PARENT_SORT = r"""// ---------------------------------------------------------------------
+// lists past 64: a bitonic sort of the row
+// ---------------------------------------------------------------------
+
+constexpr int SORT_THREADS = 1024;
+constexpr int SORT_SMEM_COLS = 16384;   // 128 KB of keys in shared memory
+
+// ascending keys in (value descending, index ascending) order: the value's
+// bits made monotone and inverted above the index; -0 keys as +0 (a tie,
+// as in the sort) and every NaN as the largest value (torch.sort's order)
+__device__ __forceinline__ unsigned long long sort_key(float v, int i) {
+  unsigned u = v != v ? 0x7fffffffu : __float_as_uint(v == 0.0f ? 0.0f : v);
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return (static_cast<unsigned long long>(~u) << 32) | static_cast<unsigned>(i);
+}
+
+// the block's reduction of v by op, in every thread, in a fixed order
+template <class Op>
+__device__ __forceinline__ float block_reduce(float v, float* red, Op op) {
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) v = op(v, __shfl_xor_sync(FULL, v, d));
+  __syncthreads();    // red is free (an earlier reduction has been read)
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
+  __syncthreads();
+  v = red[0];
+  for (int w = 1; w < SORT_THREADS / 32; ++w) v = op(v, red[w]);
+  return v;
+}
+
+// rows r, r + gridDim.x, ..; keys in shared memory, or in work [gridDim.x,
+// n_pad] where given; n_pad the power of two at or above V
+__global__ void __launch_bounds__(SORT_THREADS)
+topk_sort_kernel(const float* __restrict__ x, float* __restrict__ vals, int* __restrict__ idx,
+                 float* __restrict__ lse, unsigned long long* __restrict__ work, int N, int V,
+                 int pitch, int k, int n_pad) {
+  extern __shared__ unsigned long long skey[];
+  __shared__ float red[SORT_THREADS / 32];
+  unsigned long long* key = work ? work + static_cast<size_t>(blockIdx.x) * n_pad : skey;
+  const int tid = threadIdx.x;
+  for (int row = blockIdx.x; row < N; row += gridDim.x) {
+    const float* xr = x + static_cast<size_t>(row) * pitch;
+    float m = -INFINITY;
+    for (int c = tid; c < n_pad; c += SORT_THREADS) {
+      const float v = c < V ? xr[c] : -INFINITY;
+      key[c] = c < V ? sort_key(v, c) : ~0ull;
+      m = fmaxf(m, v);
+    }
+    m = block_reduce(m, red, [](float a, float b) { return fmaxf(a, b); });
+    float s = 0.0f;
+    if (m > -INFINITY)
+      for (int c = tid; c < V; c += SORT_THREADS) s += expf(xr[c] - m);
+    s = block_reduce(s, red, [](float a, float b) { return a + b; });
+    for (int size = 2; size <= n_pad; size <<= 1)
+      for (int stride = size / 2; stride > 0; stride /= 2) {
+        for (int t = tid; t < n_pad / 2; t += SORT_THREADS) {
+          const int lo = 2 * t - (t & (stride - 1));   // bit `stride` clear
+          const unsigned long long a = key[lo], b = key[lo + stride];
+          if ((a > b) == ((lo & size) == 0)) {
+            key[lo] = b;
+            key[lo + stride] = a;
+          }
+        }
+        __syncthreads();
+      }
+    for (int j = tid; j < k; j += SORT_THREADS) {
+      const int c = static_cast<int>(key[j] & 0xffffffffu);
+      vals[static_cast<size_t>(row) * k + j] = xr[c];
+      idx[static_cast<size_t>(row) * k + j] = c;
+    }
+    if (tid == 0) lse[row] = m + logf(s);
+    __syncthreads();    // the keys are read before the next row's land
+  }
+}
+
+int sort_pad(int V) {
+  int n = 2;
+  while (n < V) n *= 2;
+  return n;
+}
+
+
+"""
+_SELECT_LAUNCH = """  const int grid = sel_grid(N, V, sms);
+  if (grid < 0) return -grid;
+"""
+_WARP_LISTS = """  if (k <= 64) {
+    topk_lse_kernel<0, 2><<<min((N + WARPS - 1) / WARPS, sms * BLOCKS_PER_SM), THREADS, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), static_cast<float*>(vals), static_cast<int*>(idx),
+        static_cast<float*>(lse), N, V, pitch, k);
+    return static_cast<int>(cudaGetLastError());
+  }
+"""
+_SORT_LAUNCH = """  {
+    const int n_pad = sort_pad(V), bytes = 8 * n_pad;
+    if (bytes > 48 * 1024) {
+      const int err = static_cast<int>(cudaFuncSetAttribute(
+          topk_sort_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+      if (err) return err;
+    }
+    topk_sort_kernel<<<min(N, sms), SORT_THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), static_cast<float*>(vals), static_cast<int*>(idx),
+        static_cast<float*>(lse), nullptr, N, V, pitch, k, n_pad);
+    return static_cast<int>(cudaGetLastError());
+  }
+"""
+_BEFORE_SEL = "bool sel_staged(int V) { return V <= SEL_STAGE_COLS; }"
+_LANES_BOUND = ("    const float low = tv == -INFINITY && len() <= 32 ? kth_of_lanes(mc, lane) : -INFINITY;",
+                "    const float low = tv != -INFINITY ? -INFINITY\n"
+                "                      : len() <= 32 ? kth_of_lanes(mc, lane) : kth_of_pairs(v, mc, lane);")
+_PAIRS = ("  // the k-th largest of the lanes' m (k <= 32), in every lane (a bitonic",
+          r"""  // the k-th largest (k <= 64) of the lanes' two largest values of a chunk,
+  // in every lane (a bitonic sort, descending, of 64 values, element 2 lane + i
+  // in p[i])
+  template <int NV>
+  __device__ __forceinline__ float kth_of_pairs(const float (&v)[NV], float mc, int lane) const {
+    float p[2] = {mc, -INFINITY};
+    bool seen = false;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      if (v[j] == mc && !seen) seen = true;
+      else p[1] = fmaxf(p[1], v[j]);
+    }
+#pragma unroll
+    for (int size = 2; size <= 64; size <<= 1)
+#pragma unroll
+      for (int d = size / 2; d > 0; d >>= 1) {
+        if (d == 1) {
+          const bool desc = ((2 * lane) & size) == 0;
+          const float hi = fmaxf(p[0], p[1]), lo = fminf(p[0], p[1]);
+          p[0] = desc ? hi : lo;
+          p[1] = desc ? lo : hi;
+        } else {
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int e = 2 * lane + i;
+            const float o = __shfl_xor_sync(FULL, p[i], d / 2);
+            p[i] = ((e & size) == 0) == ((e & d) == 0) ? fmaxf(p[i], o) : fminf(p[i], o);
+          }
+        }
+      }
+    const int kk = len() - 1;
+    return __shfl_sync(FULL, (kk & 1) ? p[1] : p[0], kk / 2);
+  }
+
+  // the k-th largest of the lanes' m (k <= 32), in every lane (a bitonic""")
+_NO_BOUND = ("    const bool bounded = k <= 8 * SEL_WARPS;", "    const bool bounded = false;")
+_PLACE = """    const bool binned = bounded && C <= SEL_CAND;
+    if (binned)
+      bin_place(sh, C, k, lo, m, row, vr, ir);
+    else
+      radix_select(sh, row, h, nv, V, k, win, hc, vr, ir);
+"""
+# the select's histogram counts: a warp's lanes with equal bins by one
+# atomic, or two histograms (warps alternate), summed where read
+_MATCH_COUNT = """  const unsigned peers = __match_any_sync(FULL, ok ? bin : ~0u);
+  if (ok && static_cast<int>(threadIdx.x % 32) == __ffs(peers) - 1)
+    atomicAdd(&hist[bin], static_cast<uint32_t>(__popc(peers)));"""
+_TWO_HISTS = (("  uint32_t hist[SEL_BINS];\n", "  uint32_t hist[SEL_BINS], hist2[SEL_BINS];\n"),
+              ("own += sh.hist[b];", "own += sh.hist[b] + sh.hist2[b];"),
+              ("      const int c = sh.hist[b];", "      const int c = sh.hist[b] + sh.hist2[b];"),
+              ("i += SEL_THREADS) sh.hist[i] = 0;", "i += SEL_THREADS) sh.hist[i] = sh.hist2[i] = 0;"),
+              ("  uint32_t* hc = sh.hist;\n", "  uint32_t* hc = warp % 2 ? sh.hist2 : sh.hist;\n"))
+# (label, edits) on csrc/topk_lse.cu: the lists past 32
+TOPK_WIDE_VARIANTS = (
+    ("as built: the threads' maxima bound the k-th value, the candidates binned", ()),
+    ("the parent's designs: warp lists of two entries a lane to 64, past 64 a "
+     "1024-thread bitonic sort of the row",
+     ((_BEFORE_SEL, _PARENT_SORT + _BEFORE_SEL),
+      (_SELECT_LAUNCH, _WARP_LISTS + _SORT_LAUNCH + _SELECT_LAUNCH))),
+    ("the parent's warp lists to 64 bounded by the lanes' two largest values; past 64 "
+     "as built", (_LANES_BOUND, _PAIRS, (_SELECT_LAUNCH, _WARP_LISTS + _SELECT_LAUNCH))),
+    ("the candidates placed by count, no bins (C^2 / 512 compares a thread)",
+     ((_PLACE, "    const bool binned = false;\n    if (bounded && C <= SEL_RANK)\n"
+                "      place(sh.cand[0], C, k, row, vr, ir);\n    else\n"
+                "      radix_select(sh, row, h, nv, V, k, win, hc, vr, ir);\n"),)),
+    ("no bound: the radix select on every row (11-bit first digit, shared atomics)",
+     (_NO_BOUND,)),
+    ("no bound, an 8-bit first digit", (_NO_BOUND, ("constexpr int SEL_DIGIT = 11;",
+                                                    "constexpr int SEL_DIGIT = 8;"))),
+    ("no bound, a warp's equal bins counted by one atomic (__match_any_sync)",
+     (_NO_BOUND, ("  if (ok) atomicAdd(&hist[bin], 1u);", _MATCH_COUNT))),
+    ("no bound, two sub-histograms (warps alternate)", (_NO_BOUND, *_TWO_HISTS)),
+    ("256 threads a block (three an SM)",
+     (("constexpr int SEL_THREADS = 512;", "constexpr int SEL_THREADS = 256;"),)),
+    ("two rows staged a block, the next row's copy in flight, two blocks an SM (64 registers)",
+     (("constexpr int SEL_STAGES = 1;", "constexpr int SEL_STAGES = 2;"),
+      ("constexpr int SEL_MIN_BLOCKS = 3;", "constexpr int SEL_MIN_BLOCKS = 2;"))),
+    ("one row staged a block, two blocks an SM",
+     (("constexpr int SEL_MIN_BLOCKS = 3;", "constexpr int SEL_MIN_BLOCKS = 2;"),)),
+    ("no staging: every pass reads x", ((_BEFORE_SEL, "bool sel_staged(int V) { return false; }"),)),
+    ("the stream and logsumexp alone (no bound, no select; not exact)",
+     (_NO_BOUND, (_PLACE, "    const bool binned = false;\n"))),
 )
 # (label, edits) on csrc/fused_z.cu
 EPS_VARIANTS = (
@@ -534,7 +749,7 @@ WRITER_VARIANTS = (
     ("every store into the first 64 rows, which stay in L2 (not exact)",
      ((_STORE, _STORE.replace("row0);", "0);")),), 0),
 )
-GROUPS = ("topk", "eps", "ce_fwd", "ce_bwd_wide", "writer")
+GROUPS = ("topk", "eps", "ce_fwd", "ce_bwd_wide", "writer", "topk_wide")
 # each group's builds: (library kind, source, header edited or None, variants)
 BUILDS = {
     "topk": (("topk", "topk_lse.cu", None, TOPK_VARIANTS),),
@@ -543,6 +758,7 @@ BUILDS = {
                ("ce_mat_fwd", "fused_ce_mat.cu", "fused_ce.cuh", CE_FWD_VARIANTS)),
     "ce_bwd_wide": (("ce_bwd_wide", "fused_ce.cu", None, CE_BWD_WIDE_VARIANTS),),
     "writer": (("writer", "fused_logits_topk.cu", None, WRITER_VARIANTS),),
+    "topk_wide": (("topk_wide", "topk_lse.cu", None, TOPK_WIDE_VARIANTS),),
 }
 
 
@@ -610,6 +826,8 @@ def main() -> None:
     for lib in libs.values():
         if hasattr(lib, "vct_top_k_logsumexp"):
             lib.vct_top_k_logsumexp.argtypes = [P] * 4 + [I] * 5 + [P]
+            lib.vct_top_k_logsumexp_select.argtypes = [P] * 5 + [I] * 5 + [P]
+            lib.vct_top_k_logsumexp_select_smem.argtypes = [I]
         if hasattr(lib, "vct_fused_z_eps"):
             lib.vct_fused_z_eps.argtypes = [P] + [I] * 3 + [U, U, I, I, P]
         if hasattr(lib, "vct_fused_ce_fwd"):
@@ -653,6 +871,8 @@ def main() -> None:
         time_ce_bwd_wide(libs, dev, label)
     if "writer" in groups:
         time_writer(libs, dev, label, sms)
+    if "topk_wide" in groups:
+        time_topk_wide(libs, dev, label, sms)
 
 
 def time_topk(libs, label, top_k) -> None:
@@ -875,6 +1095,67 @@ def time_writer(libs, dev, label, sms) -> None:
         print(f"{tag}: the same [M, V] buffer written by fill_ (a write stream, not the "
               f"function): device {fill[0]:.4f} / {fill[1]:.4f} ms [{label}]")
         del out, calls, built
+
+
+# row 5 past k = 32 at the wide beams' rows (N, V, k, pitched): beam 40 of
+# 512 images on the writer's pitched rows, beam 64 of 512, the sort's old
+# (300, 11519, 65 / 256), beam 100 of 128 images
+WIDE_SELECT_SHAPES = ((20480, 11500, 40, True), (32768, 11500, 64, False),
+                      (300, 11519, 65, False), (300, 11519, 256, False),
+                      (12800, 11500, 100, False))
+
+
+def time_topk_wide(libs, dev, label, sms) -> None:
+    """Row 5's variants past k = 32 at WIDE_SELECT_SHAPES on the unfused
+    decode's logits (bf16-rounded, ties abound), by device time in turns:
+    each exact variant's values and indices bit for bit against the built
+    kernel's (and its lse bit for bit, or the largest relative difference
+    where its sum runs in another order), the built kernel against the
+    plain version (values and indices bit for bit, lse to LSE_RTOL), and
+    the bound: x read once and the outputs written once at the card's
+    memory rate."""
+    import chip_smoke as cs
+    from vae_captioning_torch.ops.fused_logits_topk import pitched_logits
+    from vae_captioning_torch.ops.topk_lse import row_pitch, top_k_logsumexp_plain
+
+    variants = {name: libs["topk_wide", name] for name, _ in TOPK_WIDE_VARIANTS}
+    exact = [name for name in variants if "not exact" not in name]
+
+    def select(lib, x, k, out):
+        N, V = x.shape
+        _ext.check_launch(lib.vct_top_k_logsumexp_select(
+            x.data_ptr(), *(t.data_ptr() for t in out), None, N, V, row_pitch(x), k, sms,
+            _ext.stream_ptr(dev)), "top_k_logsumexp select variant")
+        return out
+
+    for N, V, k, pitched in WIDE_SELECT_SHAPES:
+        x = cs.unfused_logits(N, V, seed=N + k)
+        if pitched:
+            x = pitched_logits(N, V, dev).copy_(x)
+        out = (torch.empty((N, k), device=dev), torch.empty((N, k), dtype=torch.int32, device=dev),
+               torch.empty((N,), device=dev))
+        calls = {name: (lambda lib=lib: select(lib, x, k, out)) for name, lib in variants.items()}
+        built = [t.clone() for t in calls[exact[0]]()]
+        want = top_k_logsumexp_plain(x, k)
+        plain_ok = (torch.equal(built[0], want[0]) and torch.equal(built[1], want[1])
+                    and cs.rel_err(built[2], want[2])[1] <= cs.LSE_RTOL)
+        bnd = cs.bound(0.0, cs.nbytes(x, *built))
+        tag = f"top_k_logsumexp N={N} V={V} k={k}{' (pitched rows)' if pitched else ''}"
+        print(f"{tag}: built kernel against the plain version: values and indices bit for "
+              f"bit, lse within {cs.LSE_RTOL}: {plain_ok}; bound {bnd[0]:.4f} ms ({bnd[1]}); "
+              f"{sms} SMs, {libs['topk_wide', exact[0]].vct_top_k_logsumexp_select_smem(V)} B "
+              f"shared memory a block [{label}]")
+        for name, (a, b) in in_turns(calls, cs.device_ms).items():
+            note = ""
+            if name in exact:
+                got = calls[name]()
+                same = torch.equal(got[0], built[0]) and torch.equal(got[1], built[1])
+                lse = ("bit for bit" if torch.equal(got[2], built[2])
+                       else f"to {cs.rel_err(got[2], built[2])[1]:.2e}")
+                note = f"; values and indices bit for bit with the built kernel {same}, lse {lse}"
+            print(f"{tag}, {name}: device {a:.4f} / {b:.4f} ms (share "
+                  f"{bnd[0] / min(a, b):.3f}){note} [{label}]")
+        del x, out, calls, built, want
 
 
 if __name__ == "__main__":

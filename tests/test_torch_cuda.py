@@ -529,10 +529,11 @@ def _planted_logits(dev, N, V, seed):
                            (7, 20000))
     for k in (17, 20, 32, 33, 40, 64, 65, 100, 256, 300) if k <= V])
 def test_top_k_logsumexp_wide_lists_match_plain(dev, N, V, k):
-    """Lists past 16 (k at run time: 1 or 2 entries a lane up to 64, then
-    the bitonic-sort kernel, its keys in shared memory, or in its global
-    workspace at V = 20000), planted ties and -inf: one launch, values
-    and indices bit for bit, lse to 1e-5."""
+    """Lists past 16 (k at run time: one entry a lane up to 32, then the
+    select, a block a row: rows staged in shared memory, read from x at V =
+    20000, the radix path past k = 128 and its global workspace past 512),
+    planted ties and -inf: one launch, values and indices bit for bit, lse
+    to 1e-5."""
     x = _planted_logits(dev, N, V, seed=N + V + k)
     before = _ext.LAUNCHES["top_k_logsumexp"]
     vals, idx, lse = top_k_logsumexp(x, k)
@@ -540,6 +541,49 @@ def test_top_k_logsumexp_wide_lists_match_plain(dev, N, V, k):
     torch.cuda.synchronize()
     assert _ext.LAUNCHES["top_k_logsumexp"] == before + 1
     assert torch.equal(idx, p_idx) and torch.equal(vals, p_vals)
+    torch.testing.assert_close(lse, p_lse, rtol=1e-5, atol=0)
+
+
+def _adversarial_rows(dev, kind, N, V, k, seed):
+    """Rows that defeat the select's bound or a digit: every value equal;
+    k - 3 values above 0, then eight zeros, every other one -0.0, on the
+    k-th place and around it, the rest below 0; exactly k finite values,
+    the rest -inf; bf16-rounded normals (k = V)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if kind == "equal":
+        return torch.full((N, V), 0.5, device=dev)
+    if kind == "k = V":
+        return torch.randn((N, V), generator=g, device=dev).to(torch.bfloat16).float()
+    cols = torch.rand((N, V), generator=g, device=dev).argsort(dim=1)
+    if kind == "k finite":
+        x = torch.full((N, V), float("-inf"), device=dev)
+        return x.scatter_(1, cols[:, :k], torch.randn((N, k), generator=g, device=dev))
+    x = -1.0 - torch.rand((N, V), generator=g, device=dev)
+    x.scatter_(1, cols[:, :k - 3], 1.0 + torch.rand((N, k - 3), generator=g, device=dev))
+    zeros = torch.zeros((N, 8), device=dev)
+    zeros[:, ::2] = -0.0
+    return x.scatter_(1, cols[:, k - 3:k + 5], zeros)
+
+
+@pytest.mark.parametrize("kind,N,V,k", [
+    (kind, N, V, k) for kind in ("equal", "signed zeros", "k finite")
+    for N, V, k in ((300, 11519, 40), (64, 11519, 100), (9, 1000, 33), (5, 20000, 65))]
+    + [("k = V", 13, 1000, 1000), ("k = V", 3, 11519, 11519)])
+def test_top_k_logsumexp_select_adversarial_rows_match_plain(dev, kind, N, V, k):
+    """The select on rows made to defeat it: every value equal (the bound
+    takes every column; the radix path's ties by column), -0.0 and +0.0
+    mixed at the k-th place (one key; the values' sign bits copied),
+    exactly k finite values, and k = V (the winners past 512 in the
+    workspace): one launch, values (sign bits too) and indices bit for bit,
+    lse to 1e-5."""
+    x = _adversarial_rows(dev, kind, N, V, k, seed=N + V + k)
+    before = _ext.LAUNCHES["top_k_logsumexp"]
+    vals, idx, lse = top_k_logsumexp(x, k)
+    p_vals, p_idx, p_lse = top_k_logsumexp_plain(x, k)
+    torch.cuda.synchronize()
+    assert _ext.LAUNCHES["top_k_logsumexp"] == before + 1
+    assert torch.equal(vals.view(torch.int32), p_vals.view(torch.int32))
+    assert torch.equal(idx, p_idx)
     torch.testing.assert_close(lse, p_lse, rtol=1e-5, atol=0)
 
 
@@ -608,8 +652,8 @@ def test_wide_logits_top_k_routes_through_written_logits(dev, k):
 def test_top_k_logsumexp_on_pitched_rows_matches_contiguous(dev, N, k):
     """Row 5 on the writer's layout, rows logits_pitch(V) floats apart (V =
     11519: the pitch 11520, the pad columns NaN, never read), against the
-    same kernel on the contiguous copy (one list a lane, two, and the sort
-    past 64): values and indices bit for bit, and equal to the plain
+    same kernel on the contiguous copy (one list a lane, and the select past
+    32): values and indices bit for bit, and equal to the plain
     version's; the logsumexp to 1e-5, since a lane's share of a row, and
     so the sum's order, follows where the row meets a 16-byte boundary."""
     V = 11519

@@ -14,7 +14,8 @@ GROUPS = (("topk", "topk_lse.cu", kd.TOPK_VARIANTS),
           ("eps", "fused_z.cu", kd.EPS_VARIANTS),
           ("ce_fwd", "fused_ce.cuh", kd.CE_FWD_VARIANTS),
           ("ce_bwd_wide", "fused_ce.cu", kd.CE_BWD_WIDE_VARIANTS),
-          ("writer", "fused_logits_topk.cu", kd.WRITER_VARIANTS))
+          ("writer", "fused_logits_topk.cu", kd.WRITER_VARIANTS),
+          ("topk_wide", "topk_lse.cu", kd.TOPK_WIDE_VARIANTS))
 # a writer variant's third entry is its plan's rows, not an edit
 CASES = [(group, source, label, edits) for group, source, variants in GROUPS
          for label, edits, *_ in variants]

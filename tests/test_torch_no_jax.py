@@ -98,7 +98,7 @@ def test_port_imports_and_decodes_without_jax():
 
 def _sources():
     paths = [os.path.join(REPO, f) for f in (
-        "chip_smoke.py", "decode_profile.py", "kernel_designs.py",
+        "chip_smoke.py", "decode_profile.py", "kernel_designs.py", "sass_compare.py",
         os.path.join("examples", "generate_caption_example_torch.py"))]
     for root, _, files in os.walk(PORT):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]

@@ -1,8 +1,10 @@
 """Port of the exact top-k + logsumexp over materialised logits: its plain
 version (what the wrapper runs on CPU tensors) against the JAX Pallas
-kernel ``top_k_logsumexp_pallas`` in interpret mode, and the step_fn form
-of the port's beam search against the JAX ``beam_search(step_fn,
-use_pallas=False)``.
+kernel ``top_k_logsumexp_pallas`` in interpret mode (past the beams'
+lists, against ``top_k_logsumexp_xla``), the wrapper's routing on a card
+(the warp lists to k = 32, the select past them, its workspace) with the
+library stood in, and the step_fn form of the port's beam search against
+the JAX ``beam_search(step_fn, use_pallas=False)``.
 
 Values are copied on both sides, so indices and values must be equal;
 the logsumexp is an f32 sum in another order (rtol 1e-6).  Beam search:
@@ -19,6 +21,7 @@ from vae_captioning_tpu.ops import decoding as jdec
 from vae_captioning_tpu.ops import topk_pallas as jtp
 from vae_captioning_torch import _ext
 from vae_captioning_torch.ops import decoding as tdec
+from vae_captioning_torch.ops import topk_lse as tlse
 from vae_captioning_torch.ops.topk_lse import (top_k_logsumexp,
                                                top_k_logsumexp_plain)
 
@@ -92,13 +95,16 @@ def _logits_with_neg_inf(N, V, k, seed):
 @pytest.mark.parametrize("N,V,k", [(8, 11519, 1), (8, 11519, 3),
                                    (13, 11519, 10), (16, 11519, 16),
                                    (9, 1000, 3), (40, 11519, 5),
-                                   (24, 4000, 16)])
+                                   (24, 4000, 16)]
+                         + [(8, V, k) for k in (33, 40, 64, 65, 100)
+                            for V in (1000, 11519)])
 @pytest.mark.parametrize("neg_inf", [False, True])
 def test_plain_matches_jax_kernel_ragged_rows_and_neg_inf(interpreted, N, V,
                                                           k, neg_inf):
     """The beam's ragged vocabulary (V = 11519: every row but the first
     starts off a 16-byte boundary in the card kernel) and rows with -inf
-    entries, at least k finite values each."""
+    entries, at least k finite values each; past k = 32 the lists the
+    card's select takes (beams of 33 to 100)."""
     x = (_logits_with_neg_inf(N, V, k, seed=V + k) if neg_inf
          else _logits(N, V, seed=V + k))
     vals, idx, lse = top_k_logsumexp_plain(torch.from_numpy(x), k)
@@ -110,6 +116,106 @@ def test_plain_matches_jax_kernel_ragged_rows_and_neg_inf(interpreted, N, V,
     if neg_inf:
         keep = np.flatnonzero(np.isfinite(x[2]))
         assert sorted(idx[2].tolist()) == keep.tolist()
+
+
+@pytest.mark.parametrize("N,V,k", [(6, 1000, 256), (5, 11519, 256),
+                                   (4, 1000, 1000), (3, 11519, 600)])
+@pytest.mark.parametrize("neg_inf", [False, True])
+def test_plain_matches_jax_xla_past_the_beams(N, V, k, neg_inf):
+    """Lists wider than any beam (256, 600, k = V), which the card's select
+    also takes, against the JAX package's ``top_k_logsumexp_xla``
+    (``jax.lax.top_k``: ties to the lowest index); the Pallas kernel's k
+    unrolled passes are too slow to trace at these k."""
+    x = (_logits_with_neg_inf(N, V, min(k, V // 2), seed=V + k) if neg_inf
+         else _logits(N, V, seed=V + k))
+    vals, idx, lse = top_k_logsumexp_plain(torch.from_numpy(x), k)
+    jv, ji, jl = jtp.top_k_logsumexp_xla(jnp.asarray(x), k)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(jv))
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jl), rtol=1e-6)
+
+
+class _FakeLibrary:
+    """The C entry points of csrc/topk_lse.cu as the wrapper calls them:
+    each call and its sizes recorded, nothing launched."""
+
+    def __init__(self, workspace):
+        self.calls, self.workspace = [], workspace
+
+    def _launch(self, name, x, vals, idx, lse, *rest):
+        self.calls.append((name, rest))
+        return 0
+
+    def vct_top_k_logsumexp(self, x, vals, idx, lse, N, V, pitch, k, sms, stream):
+        return self._launch("lists", x, vals, idx, lse, N, V, pitch, k)
+
+    def vct_top_k_logsumexp_select_workspace(self, N, V, k, sms):
+        self.calls.append(("workspace", (N, V, k, sms)))
+        return self.workspace
+
+    def vct_top_k_logsumexp_select(self, x, vals, idx, lse, work, N, V, pitch, k, sms,
+                                   stream):
+        return self._launch("select", x, vals, idx, lse, work, N, V, pitch, k)
+
+
+@pytest.fixture()
+def on_card(monkeypatch):
+    """The wrapper's kernel branch on CPU tensors: ``_ext.on_cpu`` says
+    "CUDA", the library is a _FakeLibrary (returned, its workspace bytes
+    settable)."""
+    lib = _FakeLibrary(0)
+    monkeypatch.setattr(_ext, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(_ext, "sm_count", lambda index=None: 132)
+    monkeypatch.setattr(_ext, "stream_ptr", lambda device: 0)
+    monkeypatch.setattr(_ext, "library", lambda: lib)
+    return lib
+
+
+@pytest.mark.parametrize("k,entry", [(1, "lists"), (16, "lists"), (32, "lists"),
+                                     (33, "select"), (40, "select"), (100, "select"),
+                                     (300, "select")])
+def test_wrapper_takes_the_lists_to_32_and_the_select_past(on_card, k, entry):
+    """Up to K_LIST (32) the warp lists' entry point, past it the select's,
+    which asks its workspace first (none where it reports 0 bytes); one
+    launch counted either way."""
+    x = torch.from_numpy(_logits(3, 400, seed=k))
+    before = _ext.LAUNCHES["top_k_logsumexp"]
+    vals, idx, lse = top_k_logsumexp(x, k)
+    assert _ext.LAUNCHES["top_k_logsumexp"] == before + 1
+    assert vals.shape == idx.shape == (3, k) and lse.shape == (3,)
+    assert idx.dtype == torch.int32
+    names = [name for name, _ in on_card.calls]
+    if entry == "lists":
+        assert names == ["lists"] and on_card.calls[0][1] == (3, 400, 400, k)
+    else:
+        assert names == ["workspace", "select"]
+        assert on_card.calls[0][1] == (3, 400, k, 132)
+        assert on_card.calls[1][1] == (None, 3, 400, 400, k)
+
+
+def test_select_workspace_is_allocated_as_reported(on_card):
+    """The bytes the select's workspace query reports are allocated and
+    handed over; -1 (past 2 GiB) raises ValueError, a negated cudaError_t
+    (below -1) raises RuntimeError, and neither launches."""
+    x = torch.from_numpy(_logits(4, 900, seed=2))
+    on_card.workspace = 8 * 132 * 1024
+    top_k_logsumexp(x, 600)
+    (_, (work, *rest)), = [c for c in on_card.calls if c[0] == "select"]
+    assert work is not None and work != 0 and rest == [4, 900, 900, 600]
+    before = _ext.LAUNCHES["top_k_logsumexp"]
+    on_card.workspace = -1
+    with pytest.raises(ValueError, match="2 GiB"):
+        top_k_logsumexp(x, 600)
+    on_card.workspace = -2
+    with pytest.raises(RuntimeError, match="cudaError_t 1"):
+        top_k_logsumexp(x, 600)
+    assert _ext.LAUNCHES["top_k_logsumexp"] == before
+
+
+def test_entry_point_follows_k_list():
+    assert tlse.K_LIST == 32
+    assert [tlse.entry_point(k) for k in (1, 32, 33, 64, 65, 11519)] == (
+        ["vct_top_k_logsumexp"] * 2 + ["vct_top_k_logsumexp_select"] * 4)
 
 
 def test_wrapper_takes_plain_version_on_cpu():

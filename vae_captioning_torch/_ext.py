@@ -71,8 +71,9 @@ _SIGNATURES = {
     "vct_fused_logits_write_smem": [_I] * 4,
     "vct_fused_logits_top_k_block": [_I] * 4,
     "vct_top_k_logsumexp": [_P] * 4 + [_I] * 5 + [_P],
-    "vct_top_k_logsumexp_sort": [_P] * 5 + [_I] * 5 + [_P],
-    "vct_top_k_logsumexp_sort_workspace": [_I] * 3,
+    "vct_top_k_logsumexp_select": [_P] * 5 + [_I] * 5 + [_P],
+    "vct_top_k_logsumexp_select_workspace": [_I] * 4,
+    "vct_top_k_logsumexp_select_smem": [_I],
     "vct_fused_lstm_seq_fwd": [_P] * 12 + [_I] * 4 + [_P],
     "vct_fused_lstm_seq_bwd": [_P] * 21 + [_I] * 8 + [_P],
     "vct_fused_lstm_seq_fwd_smem": [],

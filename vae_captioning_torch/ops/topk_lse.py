@@ -11,11 +11,12 @@ For each row it returns the k largest values, their column indices with
 ties going to the lowest index, and the logsumexp over the row.
 
 On CUDA tensors the wrapper launches ``csrc/topk_lse.cu``: for k <=
-``K_LIST`` (64, past the widest beam a decode path runs) a persistent
-grid, one warp streaming a row once; past that, by a dispatch on k, the
-same file's block-a-row bitonic sort (no beam search of the repository
-runs such lists; it is exact and simple, not fast).  On CPU tensors it
-takes the plain version.  The values are copied, so both give
+``K_LIST`` (32) a persistent grid, one warp streaming a row once and
+keeping its list in the lanes; past that (beams of 33 and more: 40 on
+the wide-beam path, 100 on small batches) the same file's exact radix
+select, one block a row staged in shared memory, which takes any k up to
+V (past 512 winners a row, in a workspace the wrapper allocates).  On CPU
+tensors it takes the plain version.  The values are copied, so both give
 the same values and indices bit for bit; the logsumexp differs by sum
 order.  The kernels read x in rows of any pitch (:func:`row_pitch`): the
 fused decodes' writer pads its rows to 16 bytes and hands over the
@@ -31,7 +32,7 @@ import torch
 from vae_captioning_torch import _ext
 
 NAME = "top_k_logsumexp"
-K_LIST = 64             # the warp kernel's longest list (csrc/topk_lse.cu)
+K_LIST = 32             # the warp kernel's longest list (csrc/topk_lse.cu)
 
 Result = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -62,11 +63,17 @@ def row_pitch(x: torch.Tensor) -> int:
     return pitch
 
 
+def entry_point(k: int) -> str:
+    """The C entry point that takes lists of k: the warp lists up to
+    ``K_LIST``, the radix select past them."""
+    return "vct_top_k_logsumexp" if k <= K_LIST else "vct_top_k_logsumexp_select"
+
+
 def top_k_logsumexp(x: torch.Tensor, k: int) -> Result:
     """x [N, V] f32, each row contiguous, rows any pitch apart (a view of
     wider rows) → (values [N, k] f32, indices [N, k] int32, logsumexp
     [N] f32), 1 <= k <= V.  CPU tensors take the plain version; CUDA
-    tensors launch the warp kernel (k <= K_LIST) or the sort kernel, or
+    tensors launch the warp lists (k <= K_LIST) or the radix select, or
     raise."""
     _ext.forbid_grad(NAME, x)
     if _ext.on_cpu(x):
@@ -84,15 +91,17 @@ def top_k_logsumexp(x: torch.Tensor, k: int) -> Result:
     lib, sms = _ext.library(), _ext.sm_count(dev.index)
     outs = (x.data_ptr(), vals.data_ptr(), idx.data_ptr(), lse.data_ptr())
     with _ext.device_scope(dev):
-        if k <= K_LIST:
+        if entry_point(k) == "vct_top_k_logsumexp":
             err = lib.vct_top_k_logsumexp(*outs, N, V, pitch, k, sms,
                                           _ext.stream_ptr(dev))
         else:
-            nbytes = lib.vct_top_k_logsumexp_sort_workspace(N, V, sms)
-            req(nbytes >= 0, f"{NAME}: the sort's workspace at V={V} "
+            nbytes = lib.vct_top_k_logsumexp_select_workspace(N, V, k, sms)
+            if nbytes < -1:
+                _ext.check_launch(-nbytes - 1, NAME)
+            req(nbytes >= 0, f"{NAME}: the select's workspace at k={k} "
                 "passes 2 GiB")
             work = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
-            err = lib.vct_top_k_logsumexp_sort(
+            err = lib.vct_top_k_logsumexp_select(
                 *outs, work.data_ptr() if nbytes else None, N, V, pitch, k,
                 sms, _ext.stream_ptr(dev))
     _ext.check_launch(err, NAME)
