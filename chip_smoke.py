@@ -2559,6 +2559,39 @@ def mat_fwd_library_call(h, w, b, labels):
     return call
 
 
+def mat_dl_chain(lg, labels, lse, gw, V: int):
+    """dl [M, V] f32 from the written logits in PyTorch, as the kernels
+    form it (the plain version's ``_dl_mat_plain``), for the backward rows'
+    own chains."""
+    p = torch.exp(lg[:, :V].float() - lse[:, None])
+    cols, valid = fused_ce._label_cols(labels, V)
+    p[torch.arange(p.shape[0], device=p.device), cols] -= valid
+    return p * gw[:, None]
+
+
+def mat_bwd_chains(h16, w16, lg, labels, lse, gw, V: int) -> dict:
+    """Each written-logits backward row's own function as a short PyTorch
+    chain on the same inputs, the yardstick beside the whole library
+    backward: dl from lg (``mat_dl_chain``), then for dh bf16(dl) @ W16
+    and for dW/db bf16(dl)^T @ h16, each one cuBLAS product with f32 output
+    (``torch.addmm`` with ``out_dtype``), and dl.sum(0)."""
+    f32 = torch.float32
+    zero_h = torch.zeros(h16.shape[1], dtype=f32, device=h16.device)
+
+    def dh():
+        dl16 = mat_dl_chain(lg, labels, lse, gw, V).to(torch.bfloat16)
+        return torch.addmm(zero_h, dl16, w16, out_dtype=f32)
+
+    def dwdb():
+        dl = mat_dl_chain(lg, labels, lse, gw, V)
+        return (torch.addmm(zero_h, dl.to(torch.bfloat16).t(), h16, out_dtype=f32),
+                dl.sum(dim=0))
+
+    return {"fused_linear_ce_mat_dh": (dh, "dl from lg + torch.addmm bf16(dl) @ W, f32 out"),
+            "fused_linear_ce_mat_dwdb": (
+                dwdb, "dl from lg + torch.addmm bf16(dl)^T @ h, f32 out + dl.sum(0)")}
+
+
 def phase_ce_mat_kernel_times(label: str, H: int = HIDDEN) -> dict:
     """The three written-logits kernels against their plain versions at the
     train shapes (M = 30720 with the batch's PAD rows, V = 11500) at width
@@ -2566,7 +2599,9 @@ def phase_ce_mat_kernel_times(label: str, H: int = HIDDEN) -> dict:
     (nothing recomputes the product; past 512 the column tiles read lg
     again, no more products).  Library: for the forward the chain
     ``F.linear`` bf16 + ``torch.logsumexp`` + gather, for dh and dW/db the
-    flash rows' library backward (one ``autograd.grad`` for h, W and b)."""
+    flash rows' library backward (one ``autograd.grad`` for h, W and b);
+    beside it each backward row's own chain (``mat_bwd_chains``, ``chain_ms``
+    in its record), timed in turns with the kernel."""
     M = TRAIN_T * TRAIN_ROWS
     h, w, b, labels, weights = ce_inputs(M, VOCAB, seed=13, labels=train_ce_labels(), H=H)
     h16, w16, bf, lab = fused_ce.prepare(h, w, b, labels)
@@ -2594,6 +2629,7 @@ def phase_ce_mat_kernel_times(label: str, H: int = HIDDEN) -> dict:
             bound(flops, nbytes(h16, lg, lab, lse, weights, dw, db)), lib_bwd,
             "F.linear bf16 + F.cross_entropy, backward: dh, dW, db"),
     }
+    chains = mat_bwd_chains(h16, w16, lg, labels, lse, weights, VOCAB)
     times = {}
     for name, (fk, fp, bnd, lib, what) in pairs.items():
         fwd_clustered, launched = fwd_cluster_launches(True), _ext.LAUNCHES[name]
@@ -2606,6 +2642,12 @@ def phase_ce_mat_kernel_times(label: str, H: int = HIDDEN) -> dict:
                               _ext.LAUNCHES[name] - launched)
             times[name]["kernel"] = fwd_instance(H, True)
             extra = fwd_times_extra(times[name], M, H, True)
+        else:
+            chain, chain_what = chains[name]
+            k_again, times[name]["chain_ms"] = turns(fk, chain, timer)
+            extra = (f"; its own chain ({chain_what}) "
+                     f"{times[name]['chain_ms']:.4f} ms in turns with the kernel's "
+                     f"{k_again:.4f} ms")
         print(f"time {name} (M={M} H={H} V={VOCAB}): kernel {t[0]:.4f} ms, "
               f"plain {t[1]:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), library "
               f"({what}) {lib:.4f} ms{extra} [{label}]")

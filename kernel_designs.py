@@ -1,4 +1,4 @@
-"""Device time of design variants of six kernels, built from edited copies
+"""Device time of design variants of seven kernels, built from edited copies
 of their sources, in turns.
 
 The top-k + logsumexp over written logits (``csrc/topk_lse.cu``) at beam
@@ -69,9 +69,20 @@ built kernel's (its lse bit for bit, or to the largest relative
 difference where its sum runs in another order), and the built kernel
 against the plain version.
 
+The written logits' dW/db (``csrc/fused_ce_mat.cu``, row 18 of the CE) at
+the wide cell's H = 1024, M = 30,720, V = 11,500 on the train batch's
+labels: the 64 x 512 blocks with dW and db in place at one split (as
+built), with the split partial summed (the design before), with a vocab
+tile's two column tiles side by side in the grid, with no product, no dl
+step or neither (not exact), and blocks of 128 vocab rows and 256 columns
+(the dl step on both of their lg boxes) whole, with no product, no dl
+step or neither.  Each exact variant is checked bit for bit (sign bits
+too) against the built kernel and every variant against the plain
+version (dW and db within chip_smoke.py's tolerances).
+
     python3 kernel_designs.py            # from the repository's root, on a CUDA card
-    python3 kernel_designs.py ce_fwd       # the named groups only (topk, eps,
-                                           # ce_fwd, ce_bwd_wide, writer, topk_wide)
+    python3 kernel_designs.py ce_fwd       # the named groups only (topk, eps, ce_fwd,
+                                           # ce_bwd_wide, writer, topk_wide, ce_mat_bwd)
 """
 
 from __future__ import annotations
@@ -417,6 +428,208 @@ CE_BWD_WIDE_VARIANTS = (
     ("no exchange: each CTA its own half of the logits (not exact)",
      ((_EXCHANGE, ""), (_RELEASE, ""))),
 )
+# the written logits' dW/db (csrc/fused_ce_mat.cu, ce_mat_bwd_kernel<CT,
+# true>): a vocab tile's two column tiles side by side in the grid, (column
+# tiles, splits, vocab tiles), so that lg's second read finds L2
+_ADJACENT = (
+    ("  const int e0 = e_base + blockIdx.z * CT;",
+     "  const int e0 = e_base + (DW ? blockIdx.x : blockIdx.z) * CT;"),
+    ("  const int x0 = blockIdx.x * BT;", "  const int x0 = (DW ? blockIdx.z : blockIdx.x) * BT;"),
+    ("  const int Xp = gridDim.x * BT;", "  const int Xp = (DW ? gridDim.z : gridDim.x) * BT;"),
+    ("if (db_part == nullptr || blockIdx.z != 0) return;",
+     "if (db_part == nullptr || blockIdx.x != 0) return;"),
+    ("<<<dim3(out_tiles, splits, tiles), MAT_THREADS",
+     "<<<DW ? dim3(tiles, splits, out_tiles) : dim3(out_tiles, splits, tiles), MAT_THREADS"),
+)
+# the product left out (mat_ring.cuh's k16 steps), or the dl step
+_NO_PRODUCT = ("mat_ring.cuh",
+               "#pragma unroll\n    for (int kk = 0; kk < 4; ++kk) {\n      const uint64_t b_desc",
+               "#pragma unroll\n    for (int kk = 0; kk < 0; ++kk) {\n      const uint64_t b_desc")
+_NO_DL = ("    for (int j = 0; j < 2; ++j) {\n      uint4* slot",
+          "    for (int j = 0; j < 0; ++j) {\n      uint4* slot")
+# Blocks of 128 vocab rows and 256 columns from H = 512 on: mat_ring.cuh's
+# ring with two lg boxes a stage (RB = 2), warpgroup g the 64 rows of box g
+# against all 256 columns (m64n256), the later leader refilling the whole
+# stage; every thread runs the dl step on both boxes (so each lg box's dl
+# is formed once per 256-column tile, twice as often as by 64 x 512
+# blocks); the 128 and 64 columns left past a multiple of 256 on 64-row
+# blocks of the same rows; partials of V rounded up to 128 rows.
+_R = "mat_ring.cuh"
+_ROWS128 = (
+    (_R, """template <int CT>
+struct MatRing {
+  static constexpr int BOXES = CT / BOX;              // boxes per K tile
+  static constexpr int TILE = BT * CT * 2;            // bytes of a K tile
+  static constexpr int STAGE = TILE + BOX_BYTES;      // + its A box
+  static constexpr int STAGES = CT == 512 ? 3 : CT == 256 ? 5 : 8;
+  static constexpr int HN = CT / 2;                   // output columns per warpgroup
+  static constexpr int ACC = HN / 2;                  // their f32 registers per thread
+  // at CT >= 128 a K tile is loaded by two threads, one box half each
+  static constexpr bool SPLIT = BOXES >= 2;""", """template <int CT, int RB = 1>
+struct MatRing {
+  static constexpr int BOXES = CT / BOX;
+  static constexpr int TILE = BT * CT * 2;
+  static constexpr int STAGE = TILE + RB * BOX_BYTES;
+  static constexpr int STAGES = RB > 1 ? 4 : CT == 512 ? 3 : CT == 256 ? 5 : 8;
+  static constexpr int HN = RB > 1 ? CT : CT / 2;
+  static constexpr int ACC = HN / 2;
+  static constexpr bool SPLIT = RB == 1 && BOXES >= 2;"""),
+    (_R, """template <int CT>
+__device__ __forceinline__ unsigned char* mat_ring_extra(unsigned char* ring) {
+  using P = MatRing<CT>;""", """template <int CT, int RB = 1>
+__device__ __forceinline__ unsigned char* mat_ring_extra(unsigned char* ring) {
+  using P = MatRing<CT, RB>;"""),
+    (_R, "template <int NB>\n__device__", "template <int NB, int RB = 1>\n__device__"),
+    (_R, """  mbar_expect_tx(bar, (NB + (a ? 1 : 0)) * BOX_BYTES);""",
+     """  mbar_expect_tx(bar, (NB + (a ? RB : 0)) * BOX_BYTES);"""),
+    (_R, """  if (a) tma_load(a_dst, a_map, bar, a_x, a_y);""", """  if (a) {
+#pragma unroll
+    for (int b = 0; b < RB; ++b) tma_load(a_dst + b * BOX_BYTES, a_map, bar, a_x + b * BOX, a_y);
+  }"""),
+    (_R, """template <int CT, bool DW, typename Step>
+__device__ __forceinline__ void mat_ring_product(float (&acc)[MatRing<CT>::ACC],""",
+     """template <int CT, bool DW, int RB = 1, typename Step>
+__device__ __forceinline__ void mat_ring_product(float (&acc)[MatRing<CT, RB>::ACC],"""),
+    (_R, """  using P = MatRing<CT>;
+  uint64_t* full""", """  using P = MatRing<CT, RB>;
+  uint64_t* full"""),
+    (_R, """  constexpr int NB = P::SPLIT ? P::BOXES / 2 : 1;""",
+     """  constexpr int NB = P::SPLIT ? P::BOXES / 2 : P::BOXES;"""),
+    (_R, "    mat_ring_load<NB>(dst,", "    mat_ring_load<NB, RB>(dst,"),
+    (_R, """  const uint32_t out_cols = (wg * P::HN / BOX) * BOX_BYTES + (wg * P::HN % BOX) * 2;""",
+     """  const uint32_t out_cols =
+      RB > 1 ? 0 : (wg * P::HN / BOX) * BOX_BYTES + (wg * P::HN % BOX) * 2;"""),
+    (_R, """    const uint32_t a_addr = stage + P::TILE;""",
+     """    const uint32_t a_addr = stage + P::TILE + (RB > 1 ? wg * BOX_BYTES : 0);"""),
+    (_R, """template <int CT>
+__device__ __forceinline__ void mat_ring_store(float (&acc)[MatRing<CT>::ACC], float* out,
+                                               int ld, int row0, int col0) {
+  using P = MatRing<CT>;
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int r = (tid % 128) / 32 * 16 + lane / 4;
+  const int col = col0 + tid / 128 * P::HN + 2 * (lane % 4);""", """template <int CT, int RB = 1>
+__device__ __forceinline__ void mat_ring_store(float (&acc)[MatRing<CT, RB>::ACC], float* out,
+                                               int ld, int row0, int col0) {
+  using P = MatRing<CT, RB>;
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int r = (tid % 128) / 32 * 16 + lane / 4 + (RB > 1 ? tid / 128 * BT : 0);
+  const int col = col0 + (RB > 1 ? 0 : tid / 128 * P::HN) + 2 * (lane % 4);"""),
+    ("""template <int H>
+__host__ __device__ constexpr size_t mat_bwd_smem() {
+  return MatRing<H>::smem(MAT_WARPS * BT * sizeof(float));
+}""", """__host__ __device__ constexpr int mat_row_blocks(int H) { return H >= 512 ? 2 : 1; }
+
+template <int H, int RB = 1>
+__host__ __device__ constexpr size_t mat_bwd_smem() {
+  return MatRing<H, RB>::smem(MAT_WARPS * RB * BT * sizeof(float));
+}"""),
+    ("""template <int CT, bool DW>
+__global__ void __launch_bounds__(MAT_THREADS, 1)""", """template <int CT, bool DW, int RB = 1>
+__global__ void __launch_bounds__(MAT_THREADS, 1)"""),
+    ("""  using P = MatRing<CT>;
+  static_assert(mat_bwd_smem<CT>() <= 232448, "one block per SM: 227 KB of shared memory");""",
+     """  using P = MatRing<CT, RB>;
+  static_assert(mat_bwd_smem<CT, RB>() <= 232448, "one block per SM: 227 KB of shared memory");"""),
+    ("mat_ring_extra<CT>(ring)", "mat_ring_extra<CT, RB>(ring)"),
+    ("  const int x0 = blockIdx.x * BT;", "  const int x0 = blockIdx.x * RB * BT;"),
+    ("  float db_run[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};",
+     "  float db_run[RB][8] = {};"),
+    ("""#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      uint4* slot = reinterpret_cast<uint4*>(lg_box + run + j * 32 * 128);""", """#pragma unroll
+    for (int b = 0; b < RB; ++b)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      uint4* slot = reinterpret_cast<uint4*>(lg_box + b * BOX_BYTES + run + j * 32 * 128);"""),
+    ("        d[e] = (p - (e == rel[j] ? 1.0f : 0.0f)) * t_gw[j];",
+     "        d[e] = (p - (e == rel[j] - b * BT ? 1.0f : 0.0f)) * t_gw[j];"),
+    ("        for (int e = 0; e < 8; ++e) db_run[e] += d[e];",
+     "        for (int e = 0; e < 8; ++e) db_run[b][e] += d[e];"),
+    ("""  mat_ring_product<CT, DW>(acc,""", """  mat_ring_product<CT, DW, RB>(acc,"""),
+    ("""  const int Xp = gridDim.x * BT;
+  mat_ring_store<CT>(""", """  const int Xp = gridDim.x * RB * BT;
+  mat_ring_store<CT, RB>("""),
+    ("""#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      db_run[e] += __shfl_xor_sync(0xffffffffu, db_run[e], 8);
+      db_run[e] += __shfl_xor_sync(0xffffffffu, db_run[e], 16);
+    }
+    if (lane < 8) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) db_s[(tid / 32) * BT + 8 * lane + e] = db_run[e];
+    }""", """#pragma unroll
+    for (int b = 0; b < RB; ++b)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      db_run[b][e] += __shfl_xor_sync(0xffffffffu, db_run[b][e], 8);
+      db_run[b][e] += __shfl_xor_sync(0xffffffffu, db_run[b][e], 16);
+    }
+    if (lane < 8) {
+#pragma unroll
+      for (int b = 0; b < RB; ++b)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) db_s[(tid / 32) * RB * BT + b * BT + 8 * lane + e] = db_run[b][e];
+    }"""),
+    ("""    if (tid < BT) {
+      float sum = 0.0f;
+#pragma unroll
+      for (int w = 0; w < MAT_WARPS; ++w) sum += db_s[w * BT + tid];""", """    if (tid < RB * BT) {
+      float sum = 0.0f;
+#pragma unroll
+      for (int w = 0; w < MAT_WARPS; ++w) sum += db_s[w * RB * BT + tid];"""),
+    ("""template <int CT, bool DW>
+int launch_mat_ct(""", """template <int CT, bool DW, int RB = 1>
+int launch_mat_ct("""),
+    ("""  constexpr size_t smem = mat_bwd_smem<CT>();
+  int err = allow_smem(ce_mat_bwd_kernel<CT, DW>, smem);
+  if (err) return err;
+  ce_mat_bwd_kernel<CT, DW><<<dim3(out_tiles, splits, tiles), MAT_THREADS, smem, st>>>(""",
+     """  constexpr size_t smem = mat_bwd_smem<CT, RB>();
+  int err = allow_smem(ce_mat_bwd_kernel<CT, DW, RB>, smem);
+  if (err) return err;
+  ce_mat_bwd_kernel<CT, DW, RB><<<dim3(out_tiles / RB, splits, tiles), MAT_THREADS, smem, st>>>("""),
+    ("""  if constexpr (HH > 0) {
+    return VCT_MAT(HH, 1, 0);""", """  if constexpr (DW && (HH == 0 || mat_row_blocks(HH) > 1)) {
+    if (mat_row_blocks(H) > 1) {
+      int e = H / 256 * 256;
+      err = launch_mat_ct<256, true, 2>(k_map, lg_map, k_rows, labels, lse, gw, out, db_part,
+                                        M, H, out_tiles, splits, per, H / 256, 0, st);
+      if (!err && H - e >= 128) { err = VCT_MAT(128, 1, e); e += 128; }
+      if (!err && H - e >= 64) err = VCT_MAT(64, 1, e);
+      return err;
+    }
+  }
+  if constexpr (HH > 0) {
+    return VCT_MAT(HH, 1, 0);"""),
+    ("""  const int v_tiles = (V + BT - 1) / BT;
+  int err = launch_mat_bwd<HH, true>(h, M, lg, labels, lse, gw, dw_part, db_part,
+                                     M, H, V, v_tiles, splits, per, st);
+  if (err || dw == nullptr) return err;
+  const int Vp = v_tiles * BT;""", """  const int rb = mat_row_blocks(H);
+  const int v_tiles = ((V + BT - 1) / BT + rb - 1) / rb * rb;
+  int err = launch_mat_bwd<HH, true>(h, M, lg, labels, lse, gw, dw_part, db_part,
+                                     M, H, V, v_tiles, splits, per, st);
+  if (err || dw == nullptr) return err;
+  const int Vp = v_tiles * BT;"""),
+)
+_MAT_SUMMED = "the split partial summed at one split too (the design before)"
+# (label, edits, the 64-row vocab tiles of a block, whether the split
+# partials are summed at one split) on csrc/fused_ce_mat.cu (or the header
+# an edit names)
+CE_MAT_BWD_VARIANTS = (
+    ("as built: 64 x 512 blocks, at one split dW and db in place", (), 1, False),
+    (_MAT_SUMMED, (), 1, True),
+    ("a vocab tile's two column tiles side by side in the grid", _ADJACENT, 1, False),
+    ("no product: the streams and the dl step (not exact)", (_NO_PRODUCT,), 1, False),
+    ("no dl step: lg taken as dl (not exact)", (_NO_DL,), 1, False),
+    ("the streams alone: no product, no dl step (not exact)", (_NO_PRODUCT, _NO_DL), 1, False),
+    ("128 vocab rows x 256 columns a block, the dl step on both lg boxes", _ROWS128, 2, False),
+    ("128 x 256, no product (not exact)", _ROWS128 + (_NO_PRODUCT,), 2, False),
+    ("128 x 256, no dl step (not exact)", _ROWS128 + (_NO_DL,), 2, False),
+    ("128 x 256, the streams alone (not exact)", _ROWS128 + (_NO_PRODUCT, _NO_DL), 2, False),
+)
 # the writer's staged store of a tile, as csrc/fused_logits_topk.cu has it
 _STAGED = r"""    // box q: columns 32q.. of the warpgroup's, n = 4q..4q + 3, into slot
     // `staged` % SLOTS, a group of its own: column 8n + cq of row rw in
@@ -749,7 +962,7 @@ WRITER_VARIANTS = (
     ("every store into the first 64 rows, which stay in L2 (not exact)",
      ((_STORE, _STORE.replace("row0);", "0);")),), 0),
 )
-GROUPS = ("topk", "eps", "ce_fwd", "ce_bwd_wide", "writer", "topk_wide")
+GROUPS = ("topk", "eps", "ce_fwd", "ce_bwd_wide", "writer", "topk_wide", "ce_mat_bwd")
 # each group's builds: (library kind, source, header edited or None, variants)
 BUILDS = {
     "topk": (("topk", "topk_lse.cu", None, TOPK_VARIANTS),),
@@ -759,6 +972,7 @@ BUILDS = {
     "ce_bwd_wide": (("ce_bwd_wide", "fused_ce.cu", None, CE_BWD_WIDE_VARIANTS),),
     "writer": (("writer", "fused_logits_topk.cu", None, WRITER_VARIANTS),),
     "topk_wide": (("topk_wide", "topk_lse.cu", None, TOPK_WIDE_VARIANTS),),
+    "ce_mat_bwd": (("ce_mat_bwd", "fused_ce_mat.cu", None, CE_MAT_BWD_VARIANTS),),
 }
 
 
@@ -837,6 +1051,7 @@ def main() -> None:
             lib.vct_fused_ce_fwd_cluster.argtypes = [I, I]
         if hasattr(lib, "vct_fused_ce_mat_fwd"):
             lib.vct_fused_ce_mat_fwd.argtypes = [P] * 8 + [I] * 4 + [P]
+            lib.vct_fused_ce_mat_dwdb.argtypes = [P] * 9 + [I] * 5 + [P]
         if hasattr(lib, "vct_fused_logits_write"):
             lib.vct_fused_logits_write.argtypes = [P] * 4 + [I] * 8 + [P]
             lib.vct_fused_logits_write_int8.argtypes = [P] * 6 + [I] * 8 + [P]
@@ -873,6 +1088,8 @@ def main() -> None:
         time_writer(libs, dev, label, sms)
     if "topk_wide" in groups:
         time_topk_wide(libs, dev, label, sms)
+    if "ce_mat_bwd" in groups:
+        time_ce_mat_bwd(libs, dev, label, sms)
 
 
 def time_topk(libs, label, top_k) -> None:
@@ -1156,6 +1373,59 @@ def time_topk_wide(libs, dev, label, sms) -> None:
             print(f"{tag}, {name}: device {a:.4f} / {b:.4f} ms (share "
                   f"{bnd[0] / min(a, b):.3f}){note} [{label}]")
         del x, out, calls, built, want
+
+
+def time_ce_mat_bwd(libs, dev, label, sms) -> None:
+    """The written logits' dW/db variants at M = 30,720, H = 1024, V =
+    11,500 (the train batch's labels), by device time in turns, on the
+    shipped plan's row splits (one), each against the plain version and the
+    exact ones against the built kernel (int32 views: sign bits too); the
+    bound: 2·M·H·V operations at the bf16 peak, or the bytes read and
+    written once."""
+    import chip_smoke as cs
+    from vae_captioning_torch.ops import fused_ce
+
+    M, H, V = cs.TRAIN_T * cs.TRAIN_ROWS, 1024, cs.VOCAB
+    h, w, b, labels, weights = cs.ce_inputs(M, V, seed=13, labels=cs.train_ce_labels(), H=H)
+    h16, _, _, lab = fused_ce.prepare(h, w, b, labels)
+    lg, lse, _ = fused_ce.ce_mat_fwd_plain(h, w, b, labels)
+    del w, b
+    want = fused_ce.ce_mat_dwdb_plain(h, lg, labels, lse, weights, V)
+    plan = fused_ce.ce_bwd_plan(M, H, V, sms)
+    variants = {name: (libs["ce_mat_bwd", name], rb, summed)
+                for name, _, rb, summed in CE_MAT_BWD_VARIANTS}
+
+    def dwdb(name):
+        lib, rb, summed = variants[name]
+        rows = -(-V // (64 * rb)) * 64 * rb
+        parts = (torch.empty((plan.splits, rows, H), device=dev),
+                 torch.empty((plan.splits, rows), device=dev))
+        in_place = plan.splits == 1 and not summed
+        out = ((parts[0][0, :V], parts[1][0, :V]) if in_place
+               else (torch.empty((V, H), device=dev), torch.empty((V,), device=dev)))
+        _ext.check_launch(lib.vct_fused_ce_mat_dwdb(
+            *(t.data_ptr() for t in (h16, lg, lab, lse, weights, *parts)),
+            *((None, None) if in_place else (t.data_ptr() for t in out)), M, H, V,
+            plan.splits, plan.dwdb_per, _ext.stream_ptr(dev)), "fused_ce_mat_dwdb variant")
+        return out
+
+    calls = {name: (lambda name=name: dwdb(name)) for name in variants}
+    built = calls[CE_MAT_BWD_VARIANTS[0][0]]()
+    bnd = cs.bound(2.0 * M * H * V, cs.nbytes(h16, lg, lab, lse, weights, *built))
+    tag = f"fused_linear_ce_mat_dwdb M={M} H={H} V={V}"
+    print(f"{tag}: {plan.splits} split(s), bound {bnd[0]:.4f} ms ({bnd[1]}) [{label}]")
+    for name, (a, b_) in in_turns(calls, cs.device_ms).items():
+        got = calls[name]()
+        rel = [cs.rel_err(g, r)[1] for g, r in zip(got, want)]
+        ok = rel[0] <= cs.CE_GRAD_RTOL and rel[1] <= cs.CE_MAT_DB_RTOL
+        same = all(torch.equal(g.view(torch.int32), r.view(torch.int32))
+                   for g, r in zip(got, built))
+        print(f"{tag}, {name}: device {a:.4f} / {b_:.4f} ms (share {bnd[0] / min(a, b_):.3f}); "
+              f"max |kernel - plain| / max dW, db {rel[0]:.2e}, {rel[1]:.2e}: exact (within "
+              f"{cs.CE_GRAD_RTOL}, {cs.CE_MAT_DB_RTOL}) {ok}; bit for bit with the built "
+              f"kernel {same} [{label}]")
+        del got
+    del calls, built, want, lg
 
 
 if __name__ == "__main__":

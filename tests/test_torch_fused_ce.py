@@ -604,3 +604,76 @@ def test_an_unplaceable_forward_cluster_raises(name, written_logits):
     with pytest.raises(RuntimeError, match="cudaError_t 2"):
         tfc._check_fwd(2, name, 1024, written_logits)
     tfc._check_fwd(0, name, 1024, written_logits)
+
+
+# ----------------------------------------------------------------------
+# the written logits' dW/db past 512: column tiles over the same plan
+# ----------------------------------------------------------------------
+
+def _dwdb_cover(plan):
+    """{(vocab tile, row tile, output column): times stored} by the written
+    logits' dW/db launches of ``plan``: one grid over the 512-column tiles
+    (one column tile at the fixed widths), the vocab tiles and the splits,
+    then one launch of the same vocab tiles and splits for each narrower
+    column tile."""
+    tiles = list(plan.col_tiles)
+    z = max(1, tiles.count(512))
+    seen = {}
+    launches = [(0, z)] + [(z + i, 1) for i in range(len(tiles) - z)]
+    for first, n in launches:
+        for (x, k), count in _covered(plan.dwdb_grid, plan.dwdb_k_tiles,
+                                      plan.dwdb_per).items():
+            for tile in range(first, first + n):
+                e0 = sum(tiles[:tile])
+                for col in range(e0, e0 + tiles[tile], 64):
+                    seen[x, k, col] = seen.get((x, k, col), 0) + count
+    return seen
+
+
+@pytest.mark.parametrize("H", [64, 512, 576, 960, 1000, 1024, 1088, 1536, 2048])
+@pytest.mark.parametrize("M,V", [(30720, 11500), (1000, 11519), (77, 301),
+                                 (100, 37), (1, 11500), (300, 2000)])
+def test_written_logits_dwdb_plan_covers_each_tile_once(M, V, H):
+    """Each (vocab tile, row tile, 64-column block of dW) of the written
+    logits' dW/db is met by exactly one block that stores it, at every
+    padded width (960: 512 + 256 + 128 + 64 columns; 1088: 2 x 512 + 64),
+    on odd vocab-tile counts too (V = 301: 5 tiles; V = 37: 1); no block
+    lies past V and no split is empty; the partials are [splits, Vp, H]."""
+    Hp = tfc.ce_width(H)
+    plan = tfc.ce_bwd_plan(M, Hp, V)
+    m_tiles, v_tiles = -(-M // 64), -(-V // 64)
+    assert plan.dwdb_grid[0] == v_tiles and sum(plan.col_tiles) == Hp
+    want = {(v, m, col): 1 for v in range(v_tiles) for m in range(m_tiles)
+            for col in range(0, Hp, 64)}
+    assert _dwdb_cover(plan) == want
+    assert all(y * plan.dwdb_per < m_tiles for y in range(plan.splits))
+    assert plan.dw_part == (plan.splits, v_tiles * 64, Hp)
+    assert plan.db_part == (plan.splits, v_tiles * 64)
+    assert v_tiles * 64 >= tfc.logits_pitch(V)
+
+
+@pytest.mark.parametrize("M,V", [(30720, 11500), (30720, 300), (1000, 11519),
+                                 (77, 301), (100, 37), (1, 11500)])
+def test_written_logits_dwdb_waves_and_workspace(M, V):
+    """At H = 1024 the written logits' dW/db takes the split count that
+    fills the waves of its 2 column tiles' blocks on 132 SMs best (the
+    flash plan's count over its 66 cluster places, the same fill), and its
+    partials stay within the 128 MiB of partials (one split may exceed it
+    alone): at the train shapes one split, 360 blocks in 91% of 3 waves
+    (two or three splits fill them no better), a 45 MiB partial."""
+    plan = tfc.ce_bwd_plan(M, 1024, V)
+    s, rows, h = plan.dw_part
+    assert h == 1024 and plan.col_tiles == (512, 512)
+    assert s == 1 or s * rows * h * 4 <= tfc._BWD_WORKSPACE
+    blocks = plan.dwdb_grid[0] * plan.splits * len(plan.col_tiles)
+    best = tfc._wave_fill(blocks, 132)
+    for other in range(1, plan.dwdb_k_tiles + 1):
+        per = -(-plan.dwdb_k_tiles // other)
+        splits = -(-plan.dwdb_k_tiles // per)
+        if splits * rows * h * 4 <= tfc._BWD_WORKSPACE or splits == 1:
+            fill = tfc._wave_fill(plan.dwdb_grid[0] * splits * 2, 132)
+            assert fill <= best + 1e-12 and (fill < best or splits >= plan.splits)
+    if (M, V) == (30720, 11500):
+        assert plan.splits == 1 and plan.dwdb_grid == (180, 1)
+        assert s * rows * h * 4 == 45 * 2**20
+        assert 0.9 < best < 0.91 and -(-blocks // 132) == 3

@@ -10,6 +10,9 @@ time-major rows against ``kernel_shard.linear_ce``; the plain versions of
 the three kernels; and the checks the kernel wrappers make.  The port's W
 is the ``nn.Linear`` weight [V, H], the Flax kernel transposed."""
 
+import contextlib
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +23,7 @@ from jax.experimental import pallas as pl
 from test_torch_fused_ce import _jax_side, _problem, _rel, _torch_side
 from vae_captioning_tpu.ops import fused_ce as jfc
 from vae_captioning_tpu.parallel import kernel_shard as jks
+from vae_captioning_torch import _ext
 from vae_captioning_torch.ops import fused_ce as tfc
 
 SCHEDULES = {
@@ -269,3 +273,128 @@ def test_kernel_shape_rules(lg_shape, labels, op, V, match):
         return
     with pytest.raises(ValueError, match=match):
         tfc._check_mat(lg, lab, op, V)
+
+
+# ----------------------------------------------------------------------
+# the dW/db wrapper's launch on the CPU, the C entry point stood in by the
+# plain version (the routing a card takes, as tests/test_torch_padding.py
+# takes it for the other wrappers)
+# ----------------------------------------------------------------------
+
+def _over(ptr, shape, dtype):
+    """A CPU tensor over the memory at ``ptr``: what the stand-in entry
+    point reads and writes of the wrapper's operands."""
+    n = int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
+    return torch.frombuffer((ctypes.c_char * n).from_address(ptr), dtype=dtype).view(shape)
+
+
+class _StandIn:
+    """``vct_fused_ce_mat_dwdb`` in plain PyTorch, on the C side's rules:
+    it reads h, lg and the row operands and gets [splits, Vp, H] and
+    [splits, Vp] partials; with dw and db null (one split only) dW and db
+    land in the partials' first V rows, else the partials are filled with
+    NaN (what the kernel writes there is summed into dw and db, never
+    returned) and dW and db land in dw and db.  Returns ``err`` (a
+    cudaError_t)."""
+
+    def __init__(self, err=0):
+        self.err, self.calls = err, []
+
+    def vct_fused_ce_mat_dwdb(self, h, lg, lab, lse, gw, dw_part, db_part, dw, db,
+                              M, H, V, splits, per, stream):
+        Vp = -(-V // 64) * 64
+        want_dw, want_db = tfc.ce_mat_dwdb_plain(
+            _over(h, (M, H), torch.bfloat16), _over(lg, (M, tfc.logits_pitch(V)), torch.bfloat16),
+            _over(lab, (M,), torch.int32), _over(lse, (M,), torch.float32),
+            _over(gw, (M,), torch.float32), V)
+        self.calls.append(dict(H=H, V=V, splits=splits, per=per, in_place=dw is None))
+        parts = (_over(dw_part, (splits, Vp, H), torch.float32),
+                 _over(db_part, (splits, Vp), torch.float32))
+        if dw is None:
+            assert db is None and splits == 1
+            parts[0][0, :V], parts[1][0, :V] = want_dw, want_db
+        else:
+            parts[0].fill_(float("nan"))
+            parts[1].fill_(float("nan"))
+            _over(dw, (V, H), torch.float32).copy_(want_dw)
+            _over(db, (V,), torch.float32).copy_(want_db)
+        return self.err
+
+
+@pytest.fixture()
+def stand_in(monkeypatch):
+    """The dW/db wrapper on CPU tensors as on a card of 132 SMs, its C
+    entry point the plain version (_StandIn)."""
+    lib = _StandIn()
+    monkeypatch.setattr(_ext, "library", lambda: lib)
+    monkeypatch.setattr(_ext, "stream_ptr", lambda dev: 0)
+    monkeypatch.setattr(tfc, "_sms", lambda dev: 132)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    return lib
+
+
+def _dwdb_operands(M, H, V, seed):
+    h, w, b, labels, weights = _problem(M=M, H=H, V=V, seed=seed)
+    h, w, b, labels = _port_args(h, w, b, labels)
+    lg, lse, _ = tfc.ce_mat_fwd_plain(h, w, b, labels)
+    return (h.to(torch.bfloat16), lg, labels.to(torch.int32), lse, _t(weights))
+
+
+@pytest.mark.parametrize("M,H,V,splits", [
+    (50, 1024, 301, 1), (60, 1024, 37, 1), (200, 1024, 301, 4),
+    (200, 512, 301, 4), (50, 576, 2000, 1), (50, 256, 301, 1)])
+def test_dwdb_wrapper_launches_on_the_plan(stand_in, M, H, V, splits):
+    """The wrapper's branch on a card: it hands the entry point the row
+    splits of ce_bwd_plan; at one split it asks for dW and db in place and
+    returns the first V rows of the one partial, else it passes dw and db
+    and returns them, never the partials; either is [V, H] and [V],
+    contiguous, the plain version's, and counts one launch."""
+    ops = _dwdb_operands(M, H, V, seed=M + V)
+    plan = tfc.ce_bwd_plan(M, H, V, 132)
+    assert plan.splits == splits
+    before = _ext.LAUNCHES[tfc.DWDB_MAT]
+    dw, db = tfc.ce_mat_dwdb_kernel(*ops, V)
+    call, = stand_in.calls
+    assert call == dict(H=H, V=V, splits=splits, per=plan.dwdb_per, in_place=splits == 1)
+    assert _ext.LAUNCHES[tfc.DWDB_MAT] == before + 1
+    assert dw.shape == (V, H) and db.shape == (V,) and dw.is_contiguous()
+    want = tfc.ce_mat_dwdb_plain(*ops, V)
+    assert torch.equal(dw, want[0]) and torch.equal(db, want[1])
+
+
+def test_dwdb_wrapper_raises_on_a_failed_launch(stand_in):
+    """A launch that returns a cudaError_t raises, naming the written
+    logits' dW/db, and counts no launch; nothing stands in for the
+    kernel."""
+    stand_in.err = 2
+    before = _ext.LAUNCHES[tfc.DWDB_MAT]
+    with pytest.raises(RuntimeError, match="fused_linear_ce_mat_dwdb: .*cudaError_t 2"):
+        tfc.ce_mat_dwdb_kernel(*_dwdb_operands(50, 1024, 301, seed=1), 301)
+    assert _ext.LAUNCHES[tfc.DWDB_MAT] == before
+
+
+@pytest.mark.parametrize("schedule", SCHEDULES)
+@pytest.mark.parametrize("M", [50, 130])
+@pytest.mark.parametrize("H", [1000, 1024])
+def test_wide_dwdb_matches_the_pallas_kernel(interpreted, stand_in, monkeypatch,
+                                             schedule, M, H):
+    """dW and db of each written-logits schedule at the wide cell's width
+    (1000 padded to 1024) and an odd vocab-tile count (V = 301, five
+    tiles), through the wrappers' card branch (the forward and dh plain,
+    the dW/db wrapper's launch stood in by the plain version; one split at
+    M = 50, in place, three at 130) against the Pallas kernels in interpret
+    mode."""
+    monkeypatch.setattr(_ext, "on_cpu", lambda *t: False)
+    fns = tfc.MatFns(tfc.ce_mat_fwd_plain if schedule == "hybrid" else tfc.ce_xla_fwd_plain,
+                     tfc.ce_mat_dh_plain, tfc.ce_mat_dwdb_kernel)
+    monkeypatch.setattr(tfc, "HYBRID_KERNELS" if schedule == "hybrid" else "XLA_BWD_KERNELS", fns)
+    args = _problem(M=M, H=H, V=301, seed=M + H)
+    j_loss, jg = _jax_side(SCHEDULES[schedule][0], *args)
+    t_loss, tg = _torch_side(SCHEDULES[schedule][2], *args)
+    call, = stand_in.calls
+    assert call["H"] == 1024 and call["splits"] == (1 if M == 50 else 3)
+    assert call["in_place"] == (M == 50)
+    assert t_loss == pytest.approx(j_loss, rel=FWD_REL)
+    for name, a, e, tol in zip(("dw", "db"), tg[1:3], jg[1:3], (GRAD_REL, FWD_REL)):
+        assert a.shape == e.shape and a.dtype == np.float32, name
+        assert _rel(a, e) <= tol, (name, _rel(a, e))

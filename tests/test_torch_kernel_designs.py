@@ -15,8 +15,10 @@ GROUPS = (("topk", "topk_lse.cu", kd.TOPK_VARIANTS),
           ("ce_fwd", "fused_ce.cuh", kd.CE_FWD_VARIANTS),
           ("ce_bwd_wide", "fused_ce.cu", kd.CE_BWD_WIDE_VARIANTS),
           ("writer", "fused_logits_topk.cu", kd.WRITER_VARIANTS),
-          ("topk_wide", "topk_lse.cu", kd.TOPK_WIDE_VARIANTS))
-# a writer variant's third entry is its plan's rows, not an edit
+          ("topk_wide", "topk_lse.cu", kd.TOPK_WIDE_VARIANTS),
+          ("ce_mat_bwd", "fused_ce_mat.cu", kd.CE_MAT_BWD_VARIANTS))
+# a writer variant's third entry is its plan's rows, a ce_mat_bwd one's its
+# block's row tiles and whether it sums its one split: not edits
 CASES = [(group, source, label, edits) for group, source, variants in GROUPS
          for label, edits, *_ in variants]
 

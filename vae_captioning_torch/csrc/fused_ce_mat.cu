@@ -72,7 +72,10 @@
 // * Determinism: no float atomics.  db's sums run in a fixed order (tiles,
 //   then lanes by shuffle, then warps); dW/db's row splits write [splits,
 //   Vp, H] partials that a last launch sums in split order (db alike), so
-//   the gradients repeat bit for bit.
+//   the gradients repeat bit for bit.  At one split (H = 1024 at the train
+//   shapes) the caller may take the partials as dW and db and skip that
+//   launch, a copy of 45 MiB: the same values, but for the sign of an
+//   element whose every product is a zero, which the copy's 0 + x makes +0.
 // * Past H = 512: output column tiles.  A block owns CT output columns
 //   (grid z), CT = 512 at m64n256 a warpgroup, as at H = 512 (the [64, H]
 //   output would not fit two warpgroups' registers past it, nor a K tile
@@ -288,7 +291,7 @@ int launch_mat_dwdb(const bf16* h, const bf16* lg, const int* labels,
   const int v_tiles = (V + BT - 1) / BT;
   int err = launch_mat_bwd<HH, true>(h, M, lg, labels, lse, gw, dw_part, db_part,
                                      M, H, V, v_tiles, splits, per, st);
-  if (err) return err;
+  if (err || dw == nullptr) return err;
   const int Vp = v_tiles * BT;
   err = sum_splits(dw_part, splits, static_cast<size_t>(Vp) * H,
                    static_cast<size_t>(V) * H, dw, st);
@@ -345,7 +348,8 @@ extern "C" int vct_fused_ce_mat_dh(const void* lg, const void* w,
 // h16 [M, H] bf16, lg [M, Vp] bf16, labels [M] int32, lse, gw [M] f32 -> dw
 // [V, H], db [V] f32.  Split y sums the 64-row tiles [y * per, min(ceil(M /
 // 64), (y + 1) * per)) of h.  Workspaces: dw_part [splits, Vp, H], db_part
-// [splits, Vp] f32.
+// [splits, Vp] f32.  With dw and db null (one split only) nothing is
+// summed: dW and db are the partials' first V rows.
 extern "C" int vct_fused_ce_mat_dwdb(const void* h, const void* lg,
                                      const void* labels, const void* lse,
                                      const void* gw, void* dw_part,
@@ -354,7 +358,8 @@ extern "C" int vct_fused_ce_mat_dwdb(const void* h, const void* lg,
                                      void* stream) {
   // every split takes at least one row tile (mat_ring_product)
   if (bad_shape(M, H, V) || splits <= 0 || per <= 0 ||
-      static_cast<long>(splits - 1) * per >= (M + BT - 1) / BT)
+      static_cast<long>(splits - 1) * per >= (M + BT - 1) / BT ||
+      (dw == nullptr) != (db == nullptr) || (dw == nullptr && splits != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define CALL(HH)                                                              \

@@ -734,7 +734,11 @@ def ce_mat_dwdb_kernel(h16, lg16, lab, lse, gw, V: int) -> Pair:
     """The written-logits dW/db kernel: h16 [M, H] bf16, lg [M, Vp] bf16,
     labels int32, lse and gw [M] → (dW [V, H], db [V]) f32, through row
     ranges' partials summed in order, as the flash dW/db (the same
-    :func:`ce_bwd_plan`; 112.5 MiB of partials at the train shapes)."""
+    :func:`ce_bwd_plan`; 112.5 MiB of partials at the train shapes).  At
+    one split (H = 1024 at the train shapes) dW and db are the first V rows
+    of the one partial, and nothing is summed: the same values, but for
+    the sign of an element whose every product is a zero (the sum gives
+    +0)."""
     M = _check_mat(lg16, lab, h16, V)
     H = h16.shape[1]
     _ext.require(h16.shape[0] == M, f"fused_linear_ce: h {tuple(h16.shape)} "
@@ -746,14 +750,15 @@ def ce_mat_dwdb_kernel(h16, lg16, lab, lse, gw, V: int) -> Pair:
     f32 = dict(dtype=torch.float32, device=dev)
     dw_part = torch.empty(plan.dw_part, **f32)
     db_part = torch.empty(plan.db_part, **f32)
-    dw = torch.empty((V, H), **f32)
-    db = torch.empty((V,), **f32)
+    in_place = plan.splits == 1
+    dw = dw_part[0, :V] if in_place else torch.empty((V, H), **f32)
+    db = db_part[0, :V] if in_place else torch.empty((V,), **f32)
     with torch.cuda.device(dev):
         err = _ext.library().vct_fused_ce_mat_dwdb(
             h16.data_ptr(), lg16.data_ptr(), lab.data_ptr(), lse.data_ptr(),
             gw.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(),
-            dw.data_ptr(), db.data_ptr(), M, H, V, plan.splits,
-            plan.dwdb_per, _ext.stream_ptr(dev))
+            None if in_place else dw.data_ptr(), None if in_place else db.data_ptr(),
+            M, H, V, plan.splits, plan.dwdb_per, _ext.stream_ptr(dev))
     _ext.check_launch(err, DWDB_MAT)
     _ext.LAUNCHES[DWDB_MAT] += 1
     return dw, db
